@@ -1,0 +1,17 @@
+"""vit-pytorch-tpu-torch — the PyTorch / CUDA port of ``vit_pytorch_tpu``,
+for NVIDIA Hopper (H100).
+
+The JAX package beside it stays the reference.  The port keeps its layout
+(``nn/``, ``ops/``, ``models/``, ``utils/``, ``serving.py``) and its names;
+``ops/`` holds the hand-written CUDA kernels (sources in ``csrc/``, built at
+first use into ``build/``).  No JAX import anywhere in the package.
+
+Ported so far: the ViT serving path (``models.vit.ViT``,
+``serving.Predictor``) with the whole-layer forward kernels.
+"""
+
+from vit_pytorch_tpu_torch.models.vit import ViT
+
+__all__ = ["ViT"]
+
+__version__ = "0.1.0"

@@ -1,0 +1,579 @@
+// Hopper (sm_90a) kernels for one pre-norm ViT layer, forward only.
+//
+// They replace the TPU whole-layer kernel vit_pytorch_tpu/ops/fused_block.py::
+// _layer_kernel (body _layer_rows).  That kernel holds a whole layer's weights
+// in VMEM and pushes row blocks through LN1 -> qkv -> per-head softmax
+// attention -> out-proj (+x) -> LN2 -> fc1 -> GELU -> fc2 (+y) in one call.
+// An H100 block has 227 KB of shared memory, far less than a layer's weights,
+// so the same function runs here as a chain of seven launches of three
+// kernels (see ops/fused_block.py::fused_transformer_layer):
+//
+//   layernorm_rows  LN1                         x    -> h
+//   gemm_bf16<QKV>  h  . Wqkv^T (+bqkv in f32)  h    -> qkv
+//   attention_rows  softmax(q k^T * scale) v    qkv  -> m     (logits on chip)
+//   gemm_bf16<OUT>  m  . Wout^T + bout + x      m    -> y
+//   layernorm_rows  LN2                         y    -> h2
+//   gemm_bf16<FC1>  gelu_tanh(h2 . W1^T + b1)   h2   -> a
+//   gemm_bf16<FC2>  a  . W2^T + b2 + y          a    -> out
+//
+// Rounding points follow _layer_rows: every product accumulates in f32; the
+// qkv bias is added in f32 before the bf16 cast; the out/fc1/fc2 results are
+// cast to bf16 first and their bias and residual adds round to bf16 each.
+//
+// Built by ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// and bound with ctypes: every entry point returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D = A(16x16, row) . B(16x8, col) + D, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two neighbouring bf16 (the lower index in the low half), as one register
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 load_pair_f32(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// round a pair of f32 to bf16 and back: the cast the TPU kernel makes
+__device__ __forceinline__ float2 round_bf16(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// jax.nn.gelu(approximate=True) == torch gelu(approximate="tanh"), in f32
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
+// ---------------------------------------------------------------------------
+// layernorm_rows
+//
+// Replaces: the ln() of ops/fused_block.py::_layer_kernel (_layer_rows, LN1
+// and LN2).
+// Bound on this card: memory.  One read and one write of a (rows, dim) bf16
+// matrix, a few flops per byte, far below the ~295 flop/byte ridge.
+// Design: one warp per row, 16-byte vector loads; the row (1.5 KB at ViT-B)
+// is read three times (mean, centred variance, output) and the second and
+// third reads hit L1, so device memory sees one read and one write.
+// Statistics in f32, var = mean((x - mu)^2), output cast to bf16.
+// ---------------------------------------------------------------------------
+
+constexpr int kLnThreads = 256;
+
+__global__ void __launch_bounds__(kLnThreads)
+layernorm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ b,
+                      bf16* __restrict__ out, int rows, int dim, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kLnThreads / 32) + warp;
+  if (row >= rows) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * dim);
+  uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * dim);
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4* bv = reinterpret_cast<const uint4*>(b);
+  const int nvec = dim / 8;
+
+  float sum = 0.f;
+  for (int v = lane; v < nvec; v += 32) {
+    uint4 u = xr[v];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(p[i]);
+      sum += f.x + f.y;
+    }
+  }
+  const float mu = warp_sum(sum) / dim;
+
+  float sq = 0.f;
+  for (int v = lane; v < nvec; v += 32) {
+    uint4 u = xr[v];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(p[i]);
+      sq += (f.x - mu) * (f.x - mu) + (f.y - mu) * (f.y - mu);
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / dim + eps);
+
+  for (int v = lane; v < nvec; v += 32) {
+    uint4 u = xr[v], uw = wv[v], ub = bv[v], o;
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const __nv_bfloat162* pw = reinterpret_cast<const __nv_bfloat162*>(&uw);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&ub);
+    __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(p[i]);
+      float2 fw = __bfloat1622float2(pw[i]);
+      float2 fb = __bfloat1622float2(pb[i]);
+      po[i] = __floats2bfloat162_rn((f.x - mu) * rstd * fw.x + fb.x, (f.y - mu) * rstd * fw.y + fb.y);
+    }
+    orow[v] = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gemm_bf16
+//
+// Replaces: the four jnp.dot sites of ops/fused_block.py::_layer_kernel
+// (qkv :1015, out-proj :1040, fc1 :1046, fc2 :1048) with their epilogues.
+// Bound on this card: tensor-core throughput.  At ViT-B bs=128 (M = 25,216)
+// each output element takes 2*K flops against a few bytes, hundreds of flops
+// per byte, above the ridge; the fc1 (GELU) and out-proj (+x) epilogues
+// add a pass over a large output and bring those two sites close to it.
+// Design: C[M, N] = A[M, K] . W[N, K]^T with W as nn.Linear keeps it, (out,
+// in), so both operands are K-contiguous, which is the layout wgmma takes
+// for both, and no transpose is ever made.  128x128x64 block tiles; two
+// warpgroups each own 64 rows and issue one wgmma m64n128k16 per k16 step
+// from shared memory.  A 3-stage cp.async ring, one tile ahead, keeps one
+// group of wgmma in flight while the next tile lands.  That is 97 KB of
+// shared memory, so two blocks share an SM and one block's epilogue runs
+// under the other's main loop (measured: 128x256 tiles at one block an SM
+// were slower at every site, most at fc1).  Tiles are stored in
+// the 128-byte swizzle the wgmma descriptors name (16-byte chunk c of row r
+// at chunk c ^ (r % 8)), so the tensor cores read them without bank
+// conflicts.  N-tiles vary fastest over the grid: the blocks in flight share
+// one A row tile and sweep W, which stays in L2, so A streams from device
+// memory once.  M (= b*n) and N are ragged: loads clamp to the last row and
+// the epilogue masks the stores.  TMA, warp specialisation and a persistent
+// tile loop are later work.
+// ---------------------------------------------------------------------------
+
+enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3 };
+
+template <int EPI>
+__device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
+                                           const bf16* __restrict__ res, bf16* __restrict__ out) {
+  const size_t off = static_cast<size_t>(row) * N + col;
+  uint32_t o;
+  if (EPI == kEpiQkv) {
+    // _layer_rows :1015-1018 -- bias added to the f32 dot, then one cast
+    if (bias) {
+      float2 bb = load_pair_f32(bias + col);
+      v0 += bb.x;
+      v1 += bb.y;
+    }
+    o = pack_floats(v0, v1);
+  } else {
+    float2 t = round_bf16(v0, v1);  // .astype(x.dtype) of the f32 dot
+    if (bias) {
+      float2 bb = load_pair_f32(bias + col);
+      t = round_bf16(t.x + bb.x, t.y + bb.y);
+    }
+    if (EPI == kEpiFc1) {
+      o = pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
+    } else {  // out-proj (+x) and fc2 (+y): residual add in bf16
+      float2 r = load_pair_f32(res + off);
+      o = pack_floats(t.x + r.x, t.y + r.y);
+    }
+  }
+  *reinterpret_cast<uint32_t*>(out + off) = o;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes shared memory through the generic proxy; wgmma reads it
+// through the async proxy
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// keep the compiler from moving accumulator reads across the async wgmma
+__device__ __forceinline__ void fence_operands(float* d, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// K-major operand descriptor, 128-byte swizzle: rows of 64 bf16 (128 B),
+// 8-row groups 1024 B apart
+__device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// D(64x128, f32 regs) += A(64x16) . B(16x128), both K-major in 128B-swizzled
+// shared memory, given by descriptors; accumulates (scale-d = 1)
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64;
+// the stage a load fills must not be read by the wgmma group in flight
+constexpr int kGemmStages = 3, kGemmPrefetch = kGemmStages - 2;
+constexpr int kGemmThreads = 256;  // 2 warpgroups of 64 rows
+constexpr int kGemmATile = kGemmBM * kGemmBK, kGemmBTile = kGemmBN * kGemmBK;
+constexpr int kGemmSmem = kGemmStages * (kGemmATile + kGemmBTile) * static_cast<int>(sizeof(bf16)) + 1024;
+
+template <int EPI>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const bf16* __restrict__ bias,
+                 const bf16* __restrict__ res, bf16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ unsigned char gemm_smem[];
+  bf16* As = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
+  bf16* Bs = As + kGemmStages * kGemmATile;
+
+  const int tid = threadIdx.x, wg = tid >> 7, wwarp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
+
+  // 16-byte chunk c of row r goes to chunk c ^ (r % 8): the 128-byte swizzle
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * kGemmBK;
+    bf16* as = As + stage * kGemmATile;
+    bf16* bs = Bs + stage * kGemmBTile;
+#pragma unroll
+    for (int i = 0; i < kGemmATile / 8 / kGemmThreads; ++i) {
+      const int q = tid + i * kGemmThreads, r = q >> 3, c = q & 7;
+      cp_async_16(as + r * kGemmBK + ((c ^ (r & 7)) << 3), A + static_cast<size_t>(min(m0 + r, M - 1)) * K + k0 + c * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < kGemmBTile / 8 / kGemmThreads; ++i) {
+      const int q = tid + i * kGemmThreads, r = q >> 3, c = q & 7;
+      cp_async_16(bs + r * kGemmBK + ((c ^ (r & 7)) << 3), W + static_cast<size_t>(min(n0 + r, N - 1)) * K + k0 + c * 8);
+    }
+  };
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  fence_operands(d, 64);
+
+  const int ktiles = K / kGemmBK;
+#pragma unroll
+  for (int s = 0; s < kGemmPrefetch; ++s) {
+    if (s < ktiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kGemmPrefetch - 1>();
+    fence_proxy_async();
+    __syncthreads();  // tile kt landed; every warpgroup is done with tile kt-2's stage
+    const int nk = kt + kGemmPrefetch;
+    if (nk < ktiles) load_tile(nk % kGemmStages, nk);
+    cp_async_commit();
+
+    const bf16* as = As + (kt % kGemmStages) * kGemmATile + wg * 64 * kGemmBK;
+    const bf16* bs = Bs + (kt % kGemmStages) * kGemmBTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK / 16; ++kk) wgmma_m64n128k16(d, wgmma_desc(as + kk * 16), wgmma_desc(bs + kk * 16));
+    wgmma_commit();
+    wgmma_wait<1>();  // tile kt-1's products are done; tile kt's stay in flight
+  }
+  wgmma_wait<0>();
+  fence_operands(d, 64);
+
+  // accumulator layout: warp w of the warpgroup holds rows 16w + (g, g+8),
+  // and d[4j..4j+3] their columns 8j + 2t, 8j + 2t + 1
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + j * 8 + 2 * t;
+    if (col >= N) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
+      if (row < M) gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out);
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, bf16* out, int M, int N,
+                        int K, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, bias, res, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// attention_rows
+//
+// Replaces: the per-head loop of ops/fused_block.py::_layer_kernel
+// (_layer_rows :1021-1037: q.k^T, _softmax_from_dots, p.v, heads merged).
+// Bound on this card: at n = 197 the two products are 4*n*n*dh flops per
+// (image, head) against 3*n*dh*2 bytes of q/k/v, ~130 flops per byte, under
+// the ridge, and the (n, n) f32 logits would be 16x the bytes of q/k/v if
+// they went to device memory.  So the logits never leave the SM.
+// Design: one block of 4 warps per (image, head, 64-row q-tile).  The block
+// reads q, k and v for its head straight from the (b, n, 3*inner) qkv buffer
+// into shared memory (rows >= n zero-filled).  Each warp owns 16 query rows
+// and keeps their full f32 logit rows in registers: 2*KT mma tiles of 16x8,
+// 8*KT = 104 floats a thread.  Exact two-pass softmax as
+// _softmax_from_dots: scale*log2(e) folded into one multiply, max, exp2,
+// one reciprocal of the row sum; padded columns (j >= n) masked to -inf.
+// The accumulator layout of q.k^T is the A-operand layout of p.v, so P is cast
+// to bf16 in registers and multiplied by v without a trip through memory.
+// The output goes to the merged-heads (b, n, inner) layout.  Every q-tile
+// block re-reads its head's k and v (from L2 after the first); sharing them
+// across q-tiles is later work.
+// Limits: dh = 64; n <= 16*KT = 208, the one instantiation, sized for the
+// 197 tokens of ViT-B/16 @224 and bounded by registers (144 a thread, no
+// spill).  Shared memory is (64 + 2*16*KT) rows of 72 bf16 = 69,120 bytes,
+// under the 232,448-byte block limit up to 16*KT = 775 keys, so registers,
+// not shared memory, bind n.
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnQT = 64;        // query rows per block
+constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
+constexpr int kAttnDh = 64;
+constexpr int kAttnLd = kAttnDh + 8;
+constexpr int kAttnKT = 13;  // 16-key chunks: keys padded to 208 >= 197
+constexpr int kAttnSmem = (kAttnQT + 2 * 16 * kAttnKT) * kAttnLd * static_cast<int>(sizeof(bf16));
+
+__global__ void __launch_bounds__(kAttnThreads)
+attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads, float scale_log2e) {
+  constexpr int KT = kAttnKT;
+  constexpr int NP = 16 * KT;  // keys, padded
+  constexpr int NT = 2 * KT;   // 8-key logit tiles
+  constexpr int DK = kAttnDh / 16;
+  constexpr int DT = kAttnDh / 8;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(attn_smem);  // [QT][ld]
+  bf16* Ks = Qs + kAttnQT * kAttnLd;               // [NP][ld]
+  bf16* Vs = Ks + NP * kAttnLd;                    // [NP][ld]
+
+  const int q0 = blockIdx.x * kAttnQT, h = blockIdx.y, img = blockIdx.z;
+  const int inner = heads * kAttnDh;
+  const size_t rstride = 3 * static_cast<size_t>(inner);
+  const bf16* base = qkv + static_cast<size_t>(img) * n * rstride + h * kAttnDh;
+  const int tid = threadIdx.x;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int c = tid; c < kAttnQT * (kAttnDh / 8); c += kAttnThreads) {
+    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
+    const int q = q0 + r;
+    uint4 v = zero;
+    if (q < n) v = *reinterpret_cast<const uint4*>(base + q * rstride + d);
+    *reinterpret_cast<uint4*>(Qs + r * kAttnLd + d) = v;
+  }
+  for (int c = tid; c < NP * (kAttnDh / 8); c += kAttnThreads) {
+    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
+    uint4 kv = zero, vv = zero;
+    if (r < n) {
+      const bf16* p = base + r * rstride + d;
+      kv = *reinterpret_cast<const uint4*>(p + inner);
+      vv = *reinterpret_cast<const uint4*>(p + 2 * inner);
+    }
+    *reinterpret_cast<uint4*>(Ks + r * kAttnLd + d) = kv;
+    *reinterpret_cast<uint4*>(Vs + r * kAttnLd + d) = vv;
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  uint32_t qf[DK][4];
+  {
+    const bf16* qw = Qs + (warp * 16 + g) * kAttnLd + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      qf[kk][0] = ld_pair(qw + kk * 16);
+      qf[kk][1] = ld_pair(qw + 8 * kAttnLd + kk * 16);
+      qf[kk][2] = ld_pair(qw + kk * 16 + 8);
+      qf[kk][3] = ld_pair(qw + 8 * kAttnLd + kk * 16 + 8);
+    }
+  }
+
+  // logits: s[j] holds rows (g, g+8) x keys (8j + 2t, 8j + 2t + 1)
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const bf16* kp = Ks + (j * 8 + g) * kAttnLd + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t b[2] = {ld_pair(kp + kk * 16), ld_pair(kp + kk * 16 + 8)};
+      mma_16816(s[j], qf[kk], b);
+    }
+  }
+
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool valid = j * 8 + 2 * t + e < n;
+      s[j][e] = valid ? s[j][e] * scale_log2e : -CUDART_INF_F;
+      s[j][2 + e] = valid ? s[j][2 + e] * scale_log2e : -CUDART_INF_F;
+      mx0 = fmaxf(mx0, s[j][e]);
+      mx1 = fmaxf(mx1, s[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {  // the 4 lanes of a quad share a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = exp2f(s[j][e] - mx0);
+      s[j][2 + e] = exp2f(s[j][2 + e] - mx1);
+      sum0 += s[j][e];
+      sum1 += s[j][2 + e];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+
+  // P in bf16, laid out as the A operand of p.v: key chunk kc = tiles 2kc, 2kc+1
+  uint32_t pf[KT][4];
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    pf[kc][0] = pack_floats(s[2 * kc][0] * inv0, s[2 * kc][1] * inv0);
+    pf[kc][1] = pack_floats(s[2 * kc][2] * inv1, s[2 * kc][3] * inv1);
+    pf[kc][2] = pack_floats(s[2 * kc + 1][0] * inv0, s[2 * kc + 1][1] * inv0);
+    pf[kc][3] = pack_floats(s[2 * kc + 1][2] * inv1, s[2 * kc + 1][3] * inv1);
+  }
+
+  const int row0 = q0 + warp * 16 + g;
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) {
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    // B operand: keys (16kc + 2t, +1) and (16kc + 8 + 2t, +1) at column 8dj + g
+    const bf16* vp = Vs + (2 * t) * kAttnLd + dj * 8 + g;
+#pragma unroll
+    for (int kc = 0; kc < KT; ++kc) {
+      const bf16* p = vp + kc * 16 * kAttnLd;
+      uint32_t b[2] = {pack_bf16(p[0], p[kAttnLd]), pack_bf16(p[8 * kAttnLd], p[9 * kAttnLd])};
+      mma_16816(o, pf[kc], b);
+    }
+    const int col = h * kAttnDh + dj * 8 + 2 * t;
+    if (row0 < n)
+      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(img) * n + row0) * inner + col) = pack_floats(o[0], o[1]);
+    if (row0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(img) * n + row0 + 8) * inner + col) =
+          pack_floats(o[2], o[3]);
+  }
+}
+
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C interface (ctypes).  Pointers are device pointers of contiguous bf16
+// tensors, 16-byte aligned; the wrapper in ops/fused_block.py checks shapes.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+const char* vit_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+int vit_layernorm_rows(const void* x, const void* w, const void* b, void* out, int rows, int dim, float eps,
+                       void* stream) {
+  if (rows <= 0 || dim % 8) return cudaErrorInvalidValue;
+  const int per_block = kLnThreads / 32;
+  layernorm_rows_kernel<<<(rows + per_block - 1) / per_block, kLnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b), static_cast<bf16*>(out),
+      rows, dim, eps);
+  return cudaGetLastError();
+}
+
+int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* res, void* out, int M, int N, int K,
+                  int epilogue, void* stream) {
+  if (M <= 0 || N <= 0 || N % 8 || K % kGemmBK || (M + kGemmBM - 1) / kGemmBM > 65535) return cudaErrorInvalidValue;
+  const bf16 *pa = static_cast<const bf16*>(a), *pw = static_cast<const bf16*>(w);
+  const bf16 *pb = static_cast<const bf16*>(bias), *pr = static_cast<const bf16*>(res);
+  bf16* po = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, po, M, N, K, s);
+    case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, po, M, N, K, s) : cudaErrorInvalidValue;
+    case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, po, M, N, K, s);
+    case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, po, M, N, K, s) : cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int vit_attention_rows(const void* qkv, void* out, int batch, int n, int heads, int dim_head, float scale_log2e,
+                       void* stream) {
+  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(attention_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
+  attention_rows_kernel<<<grid, kAttnThreads, kAttnSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale_log2e);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,160 @@
+"""Transformer blocks, port of ``vit_pytorch_tpu/nn/blocks.py`` (the ViT's
+options so far).
+
+Modules keep the reference's ``state_dict`` layout (vit.py:15-83):
+``layers.N.0.norm|to_qkv|to_out.0`` and ``layers.N.1.net.0|1|4``, so the JAX
+package's ``utils/convert.py::convert_vit`` maps them onto JAX params
+unchanged.
+
+On a CUDA device, in bf16 and without autograd, ``Transformer`` sends each
+layer through the Hopper kernels of ``ops/fused_block.py`` (the whole-layer
+predicate of the JAX ``Transformer``, blocks.py:618-653); everything else
+runs the module composite below.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import dot_product_attention, on_cuda
+from ..ops.fused_block import LN_EPS, fused_transformer_layer, whole_layer_supported
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Dtype-adaptive GELU of the JAX package (blocks.py:252-259): the tanh
+    approximation in bf16/f16, within one bf16 ulp of the exact form; exact
+    erf in fp32, torch ``nn.GELU()`` parity."""
+    approximate = "tanh" if x.dtype in (torch.bfloat16, torch.float16) else "none"
+    return F.gelu(x, approximate=approximate)
+
+
+class GELU(nn.Module):
+    def forward(self, x):
+        return gelu(x)
+
+
+class FeedForward(nn.Module):
+    """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout (reference
+    vit.py:15-28); ``net.0|1|4`` hold the parameters."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.net = nn.Sequential(
+            nn.LayerNorm(dim, eps=LN_EPS, **kw),
+            nn.Linear(dim, hidden_dim, **kw),
+            GELU(),
+            nn.Dropout(dropout),
+            nn.Linear(hidden_dim, dim, **kw),
+            nn.Dropout(dropout),
+        )
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class Attention(nn.Module):
+    """Pre-LN multi-head attention, fused qkv without bias, projection out
+    with bias and dropout (reference vit.py:30-64)."""
+
+    def __init__(
+        self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
+        *, device=None, dtype=None,
+    ):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        inner = heads * dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.project_out = not (heads == 1 and dim_head == dim)
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False, **kw)
+        self.to_out = (
+            nn.Sequential(nn.Linear(inner, dim, **kw), nn.Dropout(dropout))
+            if self.project_out
+            else nn.Identity()
+        )
+
+    def forward(self, x, context=None):
+        if context is not None:
+            raise NotImplementedError("cross-attention is not ported yet (ROADMAP: modules to port, item 9)")
+        b, n, _ = x.shape
+        q, k, v = (
+            self.to_qkv(self.norm(x))
+            .reshape(b, n, 3, self.heads, self.dim_head)
+            .permute(2, 0, 3, 1, 4)
+        )
+        out = dot_product_attention(q, k, v, dropout_rate=self.dropout if self.training else 0.0)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
+
+
+class Transformer(nn.Module):
+    """Pre-norm residual transformer (reference vit.py:66-83)."""
+
+    def __init__(
+        self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
+        dropout: float = 0.0, *, qk_norm: bool = False, ff_glu: bool = False,
+        remat: bool = False, device=None, dtype=None,
+    ):
+        super().__init__()
+        if qk_norm or ff_glu or remat:
+            raise NotImplementedError(
+                "qk_norm, ff_glu and remat are not ported yet (ROADMAP: modules to port, items 2 and 6)"
+            )
+        kw = {"device": device, "dtype": dtype}
+        self.dim, self.heads, self.dim_head, self.mlp_dim = dim, heads, dim_head, mlp_dim
+        self.dropout = dropout
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.layers = nn.ModuleList(
+            nn.ModuleList(
+                [
+                    Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout, **kw),
+                    FeedForward(dim, mlp_dim, dropout=dropout, **kw),
+                ]
+            )
+            for _ in range(depth)
+        )
+
+    def whole_layer_eligible(self, x: torch.Tensor) -> bool:
+        """The JAX whole-layer predicate (blocks.py:618-653) for this
+        module's options, with ``on_cuda`` for ``on_tpu``, and no autograd
+        until the backward kernels land."""
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())
+        )
+        return (
+            on_cuda(x)
+            and not needs_grad
+            and (self.dropout == 0.0 or not self.training)
+            and not (self.heads == 1 and self.dim_head == self.dim)  # project_out
+            and whole_layer_supported(x.shape, x.dtype, self.heads, self.dim_head, self.dim, self.mlp_dim)
+        )
+
+    def layer_weights(self, i: int, dtype: torch.dtype):
+        """Layer ``i``'s operands of :func:`fused_transformer_layer`, in its
+        positional order, cast to ``dtype`` (a no-op for serving weights)."""
+        attn, ff = self.layers[i]
+        cast = lambda t: t.to(dtype)
+        return (
+            cast(attn.to_qkv.weight), cast(attn.to_out[0].weight),
+            cast(attn.norm.weight), cast(attn.norm.bias),
+            cast(ff.net[0].weight), cast(ff.net[0].bias),
+            cast(ff.net[1].weight), cast(ff.net[1].bias),
+            cast(ff.net[4].weight), cast(ff.net[4].bias),
+        ), {"b_out": cast(attn.to_out[0].bias)}
+
+    def forward(self, x, *, rotary=None, return_hiddens: bool = False):
+        if rotary is not None or return_hiddens:
+            raise NotImplementedError("rotary and return_hiddens are not ported yet (ROADMAP: modules to port, item 9)")
+        if self.whole_layer_eligible(x):
+            for i in range(len(self.layers)):
+                weights, biases = self.layer_weights(i, x.dtype)
+                x = fused_transformer_layer(
+                    x, *weights, heads=self.heads, dim_head=self.dim_head, eps=LN_EPS, **biases
+                )
+        else:
+            for attn, ff in self.layers:
+                x = attn(x) + x
+                x = ff(x) + x
+        return self.norm(x)
