@@ -11,13 +11,27 @@ Phases, each printed as it ends:
   4. serving: ViT-B/16 @224 from a seeded generator behind a Predictor with
      buckets (1, 8, 32, 128); requests of 1, 5, 32 and 130 images; launch
      counters; logits against the plain bf16 path and against fp32;
-  5. timing at bs=128: model img/s, one layer, each kernel, kernel vs plain.
-Then one JSON line with the kernels, and the last line
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before it.
+  5. timing at bs=128: model img/s, one layer, each kernel, kernel vs plain;
+  6. backward kernels against their plain twins at the shapes of phase 3
+     (attention_bwd_rows also at n=50), and the whole layer's backward:
+     every operand gradient of the kernel Function against the same
+     Function run on the twins;
+  7. training: ViT-B/16 @224 (depth 12, remat=True, dropout 0) in bf16 from
+     a seeded generator, trained through parallel/train.py::make_train_step
+     on one seeded batch: loss finite and falling, exact launch counters,
+     the first step's loss and gradients against the plain bf16 path and
+     against an fp32 copy, and one step with grad_accum=2;
+  8. training timing at bs=1024: ms/step kernel vs plain, peak device
+     memory, and each backward launch of one layer at bs=128.
+Each phase prints its seconds.  Then one JSON line with the kernels, and the
+last line {"ok": true, "device": {...}}.  Any failed check exits non-zero
+before it.
 
 Imports nothing of JAX.
 """
 
+import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -51,8 +65,43 @@ LAYER_ATOL, LAYER_RTOL = 6.25e-2, 2e-2
 # relative L2 of ViT-B logits (12 layers, random weights)
 LOGITS_VS_PLAIN_BF16 = 3e-2
 LOGITS_VS_FP32 = 5e-2
+# Backward outputs (dq, dk, dv, the whole layer's gradients) have no fixed
+# scale, so their elementwise bound is relative to the largest element:
+# |d| <= frac*max|want| + rtol*|want|.  dq/dk/dv: 2 bf16 ulps of the largest
+# (2^-6); a right kernel reads max_abs/max|want| <= 1.9e-3 and rel L2
+# <= 6.8e-5 (H100 80GB HBM3, 700 W).
+BWD_ATOL_FRAC = 2.0**-6
+# f32 outputs (gemm_f32out's dh, dgamma, dbeta) against an f32 twin: only the
+# f32 summation order differs, ~sqrt(K) f32 ulps; a right kernel reads rel
+# L2 <= 2.4e-6, and a bf16 rounding anywhere on the way reads ~2e-3
+F32_ATOL_FRAC = F32_RTOL = 1e-4
+F32_REL_L2 = 1e-4
+# the whole layer's gradients chain ~20 roundings through the forward's y and
+# the FF vjp; a right chain reads max_abs/max|want| <= 5.8e-3 and rel L2
+# <= 4.4e-3 against the twins (H100 80GB HBM3, 700 W): 4 ulps of
+# the largest element, and 3x the rel L2 reading
+LAYER_GRAD_ATOL_FRAC = 2.0**-5
+LAYER_GRAD_REL_L2 = 1.5e-2
+B_TRAIN, TRAIN_STEPS = 32, 4
+B_TRAIN_TIME = 1024  # the JAX package's training metric, bench.py:38
+TRAIN_LAUNCHES_PER_LAYER = {  # forward 7 + backward 6
+    "layernorm_rows": 3, "gemm_bf16": 6, "attention_rows": 1,
+    "attention_bwd_rows": 1, "gemm_f32out": 1, "layernorm_bwd_rows": 1,
+}
+# First training step: the loss's relative difference, the relative L2 over
+# all gradients together and that of the worst single parameter.  A right
+# chain reads, against the plain bf16 path, loss 4.8e-4, grads 9.4e-3, worst
+# 1.5e-2 (the patch embedding's last LayerNorm, which every layer's dx
+# reaches); against fp32, 2.0e-4, 1.05e-2, 1.5e-2; grad_accum=2 against the
+# full batch, 0, 2.9e-3, 3.4e-3 (H100 80GB HBM3, 700 W).  Bounds:
+# about 3x the readings.
+TRAIN_VS_PLAIN = dict(loss=2e-3, grads=3e-2, worst=5e-2)
+TRAIN_VS_FP32 = dict(loss=2e-3, grads=3e-2, worst=5e-2)
+ACCUM_VS_FULL = dict(loss=1e-3, grads=1e-2, worst=1.5e-2)
 TPU_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:1053"
+TPU_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:524"
 SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer.cu"
+BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer_bwd.cu"
 
 
 def fail(msg):
@@ -92,14 +141,18 @@ def rel_l2(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
-def compare(name, got, want, atol, rtol, max_rel_l2=KERNEL_REL_L2):
+def compare(name, got, want, atol, rtol, max_rel_l2=KERNEL_REL_L2, atol_frac=None):
+    """Elementwise and relative-L2 check; with ``atol_frac`` the absolute
+    bound is that fraction of max|want|."""
+    if atol_frac is not None:
+        atol = atol_frac * want.float().abs().max().item()
     d = (got.float() - want.float()).abs()
     max_abs = d.max().item()
     rel = max_abs / want.float().abs().max().item()
     l2 = rel_l2(got, want)
     ok = (bool(torch.isfinite(got).all()) and bool((d <= atol + rtol * want.float().abs()).all())
           and l2 <= max_rel_l2)
-    log(f"  {name:30s} max_abs={max_abs:.4e} max_abs/max|want|={rel:.3e} bound |d|<={atol}+{rtol}|want|; "
+    log(f"  {name:30s} max_abs={max_abs:.4e} max_abs/max|want|={rel:.3e} bound |d|<={atol:.3g}+{rtol}|want|; "
         f"rel L2={l2:.3e} bound {max_rel_l2} {'ok' if ok else 'FAILED'}")
     if not ok:
         fail(f"{name} disagrees with its plain twin")
@@ -156,6 +209,263 @@ def check_kernels(fb, rnd):
     return errs
 
 
+def layer_weights(rnd):
+    """Random bf16 operands of one ViT-B layer, the scales of phase 3."""
+    inner = HEADS * DH
+    w = dict(
+        w_qkv=rnd(3 * inner, DIM, scale=DIM**-0.5), w_out=rnd(DIM, inner, scale=inner**-0.5),
+        ln1_scale=1 + rnd(DIM, scale=0.1), ln1_bias=rnd(DIM, scale=0.1),
+        ln2_scale=1 + rnd(DIM, scale=0.1), ln2_bias=rnd(DIM, scale=0.1),
+        w1=rnd(MLP, DIM, scale=DIM**-0.5), b1=rnd(MLP, scale=0.1),
+        w2=rnd(DIM, MLP, scale=MLP**-0.5), b2=rnd(DIM, scale=0.1),
+    )
+    return w, dict(b_qkv=rnd(3 * inner, scale=0.1), b_out=rnd(DIM, scale=0.1))
+
+
+def layer_grads(layer, x, w, kw, g):
+    """Output and every operand gradient of one layer (``layer`` is the
+    kernel Function or its twin), for the cotangent ``g``."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *w.values(), *kw.values())]
+    out = layer(leaves[0], *leaves[1:11], heads=HEADS, dim_head=DH, b_qkv=leaves[11], b_out=leaves[12])
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def check_backward(fb, rnd):
+    """Phase 6: each backward kernel and the whole layer's backward against
+    its plain twin on the card; returns the largest max_abs of each kernel."""
+    log(f"[6 backward kernels] b={B_CHECK} n={N} dim={DIM} heads={HEADS} dh={DH} mlp={MLP}, bf16")
+    inner = HEADS * DH
+    akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+    w, kw = layer_weights(rnd)
+    x = rnd(B_CHECK, N, DIM)
+    errs = {}
+    with torch.inference_mode():
+        h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
+        attn_errs = []
+        for n in ATTN_CHECK_N:
+            qkv = (fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"]) if n == N
+                   else rnd(B_CHECK, n, 3 * inner))
+            dm = rnd(B_CHECK, n, inner)
+            m, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw)
+            attn_errs.append(compare(f"attention_bwd_rows m [n={n}]", m, m_want, ATTN_ATOL, ATTN_RTOL))
+            for i, part in enumerate("qkv"):
+                cols = slice(i * inner, (i + 1) * inner)
+                attn_errs.append(compare(f"attention_bwd_rows d{part} [n={n}]", dqkv[..., cols], dqkv_want[..., cols],
+                                         None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+            if n == N:
+                dqkv_full = dqkv_want
+        errs["attention_bwd_rows"] = max(attn_errs)
+        sync()
+        w_qkv_t = w["w_qkv"].t().contiguous()
+        dh = fb.gemm_f32out_reference(dqkv_full, w_qkv_t)
+        errs["gemm_f32out"] = compare("gemm_f32out [dh]", fb.gemm_f32out(dqkv_full, w_qkv_t), dh, None, F32_RTOL,
+                                      F32_REL_L2, atol_frac=F32_ATOL_FRAC)
+        sync()
+        dy = rnd(B_CHECK, N, DIM)
+        got = fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy)
+        want = fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy)
+        errs["layernorm_bwd_rows"] = max(
+            compare("layernorm_bwd_rows dx", got[0], want[0], KERNEL_ATOL, KERNEL_RTOL),
+            compare("layernorm_bwd_rows dgamma", got[1], want[1], None, F32_RTOL, F32_REL_L2, atol_frac=F32_ATOL_FRAC),
+            compare("layernorm_bwd_rows dbeta", got[2], want[2], None, F32_RTOL, F32_REL_L2, atol_frac=F32_ATOL_FRAC),
+        )
+        again = fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail("layernorm_bwd_rows is not deterministic")
+        sync()
+    g = rnd(B_CHECK, N, DIM)
+    out, grads = layer_grads(fb.fused_transformer_layer, x, w, kw, g)
+    out_want, grads_want = layer_grads(fb.layer_reference, x, w, kw, g)
+    compare("fused_transformer_layer (out)", out, out_want, LAYER_ATOL, LAYER_RTOL)
+    for name, a, b in zip(("x", *w, *kw), grads, grads_want):
+        compare(f"layer grad d{name}", a, b, None, KERNEL_RTOL, LAYER_GRAD_REL_L2, atol_frac=LAYER_GRAD_ATOL_FRAC)
+    sync()
+    return errs
+
+
+@contextlib.contextmanager
+def plain_layers():
+    """The model's layers through the plain twins: the same Function with
+    every kernel swapped for its twin (ops/fused_block.py::layer_reference)."""
+    from vit_pytorch_tpu_torch.nn import blocks
+    from vit_pytorch_tpu_torch.ops import fused_block as fb
+
+    saved = blocks.fused_transformer_layer
+    blocks.fused_transformer_layer = fb.layer_reference
+    try:
+        yield
+    finally:
+        blocks.fused_transformer_layer = saved
+
+
+def vit_b(dev, dtype):
+    """ViT-B/16 @224 as bench.py:48-57 trains it (remat=True, dropout 0),
+    random weights from SEED, initialised in f32 and cast as the JAX bench
+    casts its params."""
+    from vit_pytorch_tpu_torch import ViT
+
+    model = ViT(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP,
+                remat=True, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    return model.to(dtype)
+
+
+def grad_vector(model):
+    return [p.grad.detach().float().clone() for p in model.parameters()]
+
+
+def compare_grads(name, got, want, loss, loss_want, bounds, names):
+    """Relative L2 of the loss, of all gradients together and of the worst
+    single parameter."""
+    d_loss = abs(loss - loss_want) / abs(loss_want)
+    num = sum(((a - b).norm() ** 2 for a, b in zip(got, want)), torch.zeros((), device=got[0].device))
+    den = sum((b.norm() ** 2 for b in want), torch.zeros((), device=got[0].device))
+    total = (num / den).sqrt().item()
+    per = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(got, want)]
+    worst = max(range(len(per)), key=per.__getitem__)
+    ok = (d_loss <= bounds["loss"] and total <= bounds["grads"] and per[worst] <= bounds["worst"]
+          and all(bool(torch.isfinite(a).all()) for a in got))
+    log(f"  {name}: loss {loss:.6f} vs {loss_want:.6f} (rel {d_loss:.3e}, bound {bounds['loss']}); grads rel L2 "
+        f"{total:.4e} (bound {bounds['grads']}), worst {names[worst]} {per[worst]:.4e} (bound {bounds['worst']}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"training: {name} out of bounds")
+
+
+def check_training(fb, dev, gen):
+    """Phase 7: ViT-B/16 training steps through make_train_step; returns the
+    launch counts of the kernel path's steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[7 training] ViT-B/16 @224, depth {DEPTH}, remat=True, dropout 0, bf16 params and inputs, seed {SEED}; "
+        f"bs={B_TRAIN}, {TRAIN_STEPS} Adam steps on one batch")
+    fp32_model = vit_b(dev, torch.float32)
+    model = copy.deepcopy(fp32_model).to(bf16)
+    initial = copy.deepcopy(model)
+    names = [n for n, _ in model.named_parameters()]
+    images = torch.randn(B_TRAIN, 3, 224, 224, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
+
+    state, step = create_train_state(model), make_train_step(model)
+    fb.reset_launch_counts()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        metrics = step(state, images.to(bf16), labels)
+        losses.append(metrics["loss"].item())
+        if i == 0:
+            grads = grad_vector(model)
+    sync()
+    counts = dict(fb.LAUNCHES)
+    want = {k: DEPTH * per * TRAIN_STEPS for k, per in TRAIN_LAUNCHES_PER_LAYER.items()}
+    log(f"  losses {[f'{v:.6f}' for v in losses]}; launches {counts} (expected {want}: {DEPTH} layers x "
+        f"{sum(TRAIN_LAUNCHES_PER_LAYER.values())} launches x {TRAIN_STEPS} steps)")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+        fail("the training loss is not finite or does not fall on the repeated batch")
+    if counts != want:
+        fail("the training path did not launch every kernel of every layer")
+
+    plain = copy.deepcopy(initial)
+    fb.reset_launch_counts()
+    with plain_layers():
+        loss_plain = make_train_step(plain)(create_train_state(plain), images.to(bf16), labels)["loss"].item()
+    sync()
+    if any(fb.LAUNCHES.values()):
+        fail(f"the plain path launched kernels: {fb.LAUNCHES}")
+    compare_grads("first step vs plain bf16", grads, grad_vector(plain), losses[0], loss_plain, TRAIN_VS_PLAIN, names)
+    loss_fp32 = make_train_step(fp32_model)(create_train_state(fp32_model), images, labels)["loss"].item()
+    compare_grads("first step vs fp32", grads, grad_vector(fp32_model), losses[0], loss_fp32, TRAIN_VS_FP32, names)
+
+    accum = copy.deepcopy(initial)
+    fb.reset_launch_counts()
+    loss_accum = make_train_step(accum, grad_accum=2)(create_train_state(accum), images.to(bf16), labels)["loss"].item()
+    sync()
+    want_accum = {k: DEPTH * per * 2 for k, per in TRAIN_LAUNCHES_PER_LAYER.items()}
+    log(f"  grad_accum=2: launches {fb.LAUNCHES} (expected {want_accum})")
+    if dict(fb.LAUNCHES) != want_accum:
+        fail("the grad_accum=2 step did not launch every kernel of every layer in each microbatch")
+    compare_grads("grad_accum=2 vs first step", grad_vector(accum), grads, loss_accum, losses[0], ACCUM_VS_FULL, names)
+    return counts
+
+
+def time_training(fb, dev, gen, smi):
+    """Phase 8: ms/step at bs=1024, kernel and plain paths in turns, peak
+    memory, and each backward launch of one layer at bs=128; returns the
+    backward kernels' (kernel ms, plain ms)."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[8 training timing] ViT-B/16 bs={B_TRAIN_TIME}, {smi}")
+    model = vit_b(dev, bf16)
+    images = torch.randn(B_TRAIN_TIME, 3, 224, 224, generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (B_TRAIN_TIME,), generator=gen, device=dev)
+    state, step = create_train_state(model), make_train_step(model)
+
+    def kernel_step():
+        step(state, images, labels)
+
+    def plain_step():
+        with plain_layers():
+            step(state, images, labels)
+
+    def host_ms(fn, iters=2):
+        fn()
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3 / iters, torch.cuda.max_memory_allocated(dev) / 2**30
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (host_ms(f) for f in (plain_step, kernel_step, kernel_step, plain_step))
+    log(f"  train step: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path {(p1 + p2) / 2:.3f} ms/step; "
+        f"turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory "
+        f"kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    del model, state, step, images
+
+    b = B_TIME
+    w, kw = layer_weights(lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16))
+    x = torch.randn(b, N, DIM, generator=gen, device=dev).to(bf16)
+    dy = torch.randn(b, N, DIM, generator=gen, device=dev).to(bf16)
+    akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+    with torch.inference_mode():
+        h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
+        qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])
+        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+        dm = fb.gemm_bf16(dy, w_out_t, "cast")
+        _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+        dh = fb.gemm_f32out(dqkv, w_qkv_t)
+        launches = (  # (kernel, site, kernel call, plain call) in the backward's order
+            ("layernorm_rows", "ln1 (recompute)", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+             lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])),
+            ("gemm_bf16", "qkv (recompute)", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv", bias=kw["b_qkv"]),
+             lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])),
+            ("gemm_bf16", "dm = dy.W_out", lambda: fb.gemm_bf16(dy, w_out_t, "cast"),
+             lambda: fb.gemm_bf16_reference(dy, w_out_t, "cast")),
+            ("attention_bwd_rows", "attention backward", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw)),
+            ("gemm_f32out", "dh = dqkv.W_qkv", lambda: fb.gemm_f32out(dqkv, w_qkv_t),
+             lambda: fb.gemm_f32out_reference(dqkv, w_qkv_t)),
+            ("layernorm_bwd_rows", "LN1 backward (+dy)",
+             lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy),
+             lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy)),
+        )
+        per_kernel = {}
+        log(f"  one layer's backward launches at bs={b}:")
+        for name, site, kern, plain in launches:
+            km, pm = in_turns(kern, plain, 10)
+            if name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows"):
+                per_kernel[name] = (km, pm)
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    g = dy
+    lk, lp = in_turns(lambda: layer_grads(fb.fused_transformer_layer, x, w, kw, g),
+                      lambda: layer_grads(fb.layer_reference, x, w, kw, g), 5)
+    log(f"  one layer forward+backward at bs={b}: kernels {lk:.4f} ms, plain {lp:.4f} ms")
+    sync()
+    return per_kernel
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -167,6 +477,13 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(f"[1 device] {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}")
     log(smi)
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        log(f"  ({name}: {time.perf_counter() - t_phase:.2f} s)")
+        t_phase = time.perf_counter()
+
     # plain twins are held to f32 accumulation: no TF32, no reduced-precision
     # bf16 reductions in cuBLAS
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,6 +503,7 @@ def main():
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+    phase_done("phase 2")
 
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
@@ -196,6 +514,7 @@ def main():
 
     # -- 3. kernels against their plain twins --------------------------------
     errs = check_kernels(fb, rnd)
+    phase_done("phase 3")
 
     # -- 4. serving ----------------------------------------------------------
     log(f"[4 serving] ViT-B/16 @224, depth {DEPTH}, random weights (seed {SEED}), buckets {BUCKETS}, bf16")
@@ -216,7 +535,7 @@ def main():
     for k, out in outs.items():
         if out.shape != (k, 1000) or not bool(torch.isfinite(out).all()):
             fail(f"request of {k} images: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
-    want_counts = {name: DEPTH * per * runs for name, per in LAUNCHES_PER_LAYER.items()}
+    want_counts = {name: DEPTH * LAUNCHES_PER_LAYER.get(name, 0) * runs for name in fb.LAUNCHES}  # no backward
     log(f"  requests {REQUESTS} -> {runs} bucket runs; launches {counts} (expected {want_counts}, "
         f"{DEPTH} layers x 7 launches x {runs} runs = {DEPTH * 7 * runs})")
     if counts != want_counts:
@@ -243,6 +562,7 @@ def main():
     if not (e_plain <= LOGITS_VS_PLAIN_BF16 and e_fp32 <= LOGITS_VS_FP32):
         fail("served logits disagree with the plain path")
     sync()
+    phase_done("phase 4")
 
     # -- 5. timing -----------------------------------------------------------
     log(f"[5 timing] bs={B_TIME}, {smi}")
@@ -301,14 +621,36 @@ def main():
             per_kernel[name][1] += pm
             log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
     sync()
+    del pred, served, tr, model, outs, images
+    phase_done("phase 5")
 
+    # -- 6. backward kernels against their plain twins ------------------------
+    errs.update(check_backward(fb, rnd))
+    phase_done("phase 6")
+
+    # -- 7. training -----------------------------------------------------------
+    train_counts = check_training(fb, dev, gen)
+    phase_done("phase 7")
+
+    # -- 8. training timing ----------------------------------------------------
+    per_kernel.update({name: list(t) for name, t in time_training(fb, dev, gen, smi).items()})
+    phase_done("phase 8")
+
+    # forward kernels: the serving path's launches (phase 4); backward kernels:
+    # the training path's (phase 7)
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL, "path": "serving",
          "launches": counts[name], "max_abs_err": errs[name],
          "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
         for name in LAUNCHES_PER_LAYER
+    ] + [
+        {"name": name, "route": "cuda", "source": SOURCE if name == "gemm_f32out" else BWD_SOURCE,
+         "replaces": TPU_BWD_KERNEL, "path": "training", "launches": train_counts[name], "max_abs_err": errs[name],
+         "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
+        for name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")
     ]
-    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128; launches: the serving requests)")
+    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward; launches: the serving "
+        "requests for the forward kernels, the training steps for the backward kernels)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

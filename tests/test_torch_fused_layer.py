@@ -61,7 +61,7 @@ def test_port_layer_matches_jax_kernel(qkv_bias):
     pos, kw = _port_args(a)
     got = port.fused_transformer_layer(*pos, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
-    assert port.LAUNCHES == {"layernorm_rows": 0, "gemm_bf16": 0, "attention_rows": 0}
+    assert not any(port.LAUNCHES.values())
 
 
 def test_cpu_wrappers_are_their_plain_twins():
@@ -78,10 +78,15 @@ def test_cpu_wrappers_are_their_plain_twins():
 
 
 def test_layer_refuses_grad():
+    """The layer is differentiable (its autograd Function runs the kernels
+    with grad off); a direct kernel call on an operand that requires grad
+    is refused."""
     pos, kw = _port_args(_inputs(qkv_bias=False))
     pos[0].requires_grad_(True)
+    out = port.fused_transformer_layer(*pos, **kw)
+    assert type(out.grad_fn).__name__ == "_FusedLayerBackward"
     with pytest.raises(ValueError, match="requires grad"):
-        port.fused_transformer_layer(*pos, **kw)
+        port._check_operands("layernorm_rows", torch.device("cuda"), pos[0].bfloat16())
 
 
 def test_gate_admits_the_flagship_and_refuses_what_the_kernels_cannot_take():

@@ -91,17 +91,15 @@ def _jax_takes_whole_layer(monkeypatch, dtype, *, dropout, train):
     ["bf16", "fp32", "bf16_dropout_train", "bf16_dropout_eval", "bf16_grad_required"],
 )
 def test_whole_layer_predicate_matches_jax(monkeypatch, case):
-    """Device test taken as true on both sides.  The port refuses inputs that
-    require grad until its backward kernels land; the JAX predicate has no
-    such notion (its kernel is differentiable), so there the port expects
-    False where JAX says True."""
+    """Device test taken as true on both sides.  Both layers are
+    differentiable, so an input that requires grad takes the whole layer on
+    both sides too."""
     dtype = jnp.float32 if case == "fp32" else jnp.bfloat16
     dropout = 0.1 if "dropout" in case else 0.0
     train = case.endswith("_train")
     want = _jax_takes_whole_layer(monkeypatch, dtype, dropout=dropout, train=train)
     if case == "bf16_grad_required":
         assert want
-        want = False
 
     monkeypatch.setattr(torch_blocks, "on_cuda", lambda x: True)
     tdtype = torch.float32 if case == "fp32" else torch.bfloat16

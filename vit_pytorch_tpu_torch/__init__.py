@@ -7,7 +7,8 @@ The JAX package beside it stays the reference.  The port keeps its layout
 first use into ``build/``).  No JAX import anywhere in the package.
 
 Ported so far: the ViT serving path (``models.vit.ViT``,
-``serving.Predictor``) with the whole-layer forward kernels.
+``serving.Predictor``) and its training step (``parallel.train``), with the
+whole-layer kernels forward and backward.
 """
 
 from vit_pytorch_tpu_torch.models.vit import ViT

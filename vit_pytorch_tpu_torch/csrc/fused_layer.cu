@@ -1,4 +1,6 @@
-// Hopper (sm_90a) kernels for one pre-norm ViT layer, forward only.
+// Hopper (sm_90a) kernels for one pre-norm ViT layer, forward (the backward's
+// own kernels are in fused_layer_bwd.cu; the backward also runs gemm_bf16,
+// with the f32 epilogue below, and layernorm_rows).
 //
 // They replace the TPU whole-layer kernel vit_pytorch_tpu/ops/fused_block.py::
 // _layer_kernel (body _layer_rows).  That kernel holds a whole layer's weights
@@ -21,15 +23,11 @@
 // cast to bf16 first and their bias and residual adds round to bf16 each.
 //
 // Built by ops/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// and bound with ctypes: every entry point returns cudaGetLastError().
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC
+// each source, linked into one shared library and bound with ctypes: every
+// entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
@@ -52,30 +50,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// D = A(16x16, row) . B(16x8, col) + D, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two neighbouring bf16 (the lower index in the low half), as one register
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float2 load_pair_f32(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -83,12 +57,6 @@ __device__ __forceinline__ float2 load_pair_f32(const bf16* p) {
 // round a pair of f32 to bf16 and back: the cast the TPU kernel makes
 __device__ __forceinline__ float2 round_bf16(float a, float b) {
   return __bfloat1622float2(__floats2bfloat162_rn(a, b));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // jax.nn.gelu(approximate=True) == torch gelu(approximate="tanh"), in f32
@@ -192,12 +160,26 @@ layernorm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, co
 // tile loop are later work.
 // ---------------------------------------------------------------------------
 
-enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3 };
+enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4 };
+
+// kEpiF32 (gemm_f32out) stores the f32 dot as it is.
+// Replaces: dh = dqkv . Wqkv^T of ops/fused_block.py::_bwd_kernel
+// (fused_block.py:695-700, the product in f32 that feeds the LayerNorm
+// backward; a bf16 store of dh would be a different result).
+// Bound on this card: tensor-core throughput, as the other sites: M = b*n,
+// N = dim, K = 3*inner, so 2*K = 4,608 flops (ViT-B) for each output
+// element against its 4-byte store, far above the ~295 flop/byte ridge.
+// Design: the main loop unchanged; each thread writes its accumulator pair
+// as one float2, so the epilogue adds no pass over the output.
 
 template <int EPI>
 __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
-                                           const bf16* __restrict__ res, bf16* __restrict__ out) {
+                                           const bf16* __restrict__ res, void* __restrict__ out) {
   const size_t off = static_cast<size_t>(row) * N + col;
+  if constexpr (EPI == kEpiF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
+    return;
+  }
   uint32_t o;
   if (EPI == kEpiQkv) {
     // _layer_rows :1015-1018 -- bias added to the f32 dot, then one cast
@@ -220,7 +202,7 @@ __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col,
       o = pack_floats(t.x + r.x, t.y + r.y);
     }
   }
-  *reinterpret_cast<uint32_t*>(out + off) = o;
+  *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = o;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -277,7 +259,7 @@ constexpr int kGemmSmem = kGemmStages * (kGemmATile + kGemmBTile) * static_cast<
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const bf16* __restrict__ bias,
-                 const bf16* __restrict__ res, bf16* __restrict__ out, int M, int N, int K) {
+                 const bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K) {
   extern __shared__ unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
   bf16* Bs = As + kGemmStages * kGemmATile;
@@ -348,7 +330,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const b
 }
 
 template <int EPI>
-cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, bf16* out, int M, int N,
+cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, void* out, int M, int N,
                         int K, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
@@ -386,11 +368,7 @@ cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf
 // not shared memory, bind n.
 // ---------------------------------------------------------------------------
 
-constexpr int kAttnQT = 64;        // query rows per block
-constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
-constexpr int kAttnDh = 64;
-constexpr int kAttnLd = kAttnDh + 8;
-constexpr int kAttnKT = 13;  // 16-key chunks: keys padded to 208 >= 197
+// kAttnQT, kAttnThreads, kAttnDh, kAttnLd, kAttnKT: common.cuh
 constexpr int kAttnSmem = (kAttnQT + 2 * 16 * kAttnKT) * kAttnLd * static_cast<int>(sizeof(bf16));
 
 __global__ void __launch_bounds__(kAttnThreads)
@@ -398,7 +376,6 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // keys, padded
   constexpr int NT = 2 * KT;   // 8-key logit tiles
-  constexpr int DK = kAttnDh / 16;
   constexpr int DT = kAttnDh / 8;
   extern __shared__ __align__(16) unsigned char attn_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(attn_smem);  // [QT][ld]
@@ -409,111 +386,30 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   const int inner = heads * kAttnDh;
   const size_t rstride = 3 * static_cast<size_t>(inner);
   const bf16* base = qkv + static_cast<size_t>(img) * n * rstride + h * kAttnDh;
-  const int tid = threadIdx.x;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int c = tid; c < kAttnQT * (kAttnDh / 8); c += kAttnThreads) {
-    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
-    const int q = q0 + r;
-    uint4 v = zero;
-    if (q < n) v = *reinterpret_cast<const uint4*>(base + q * rstride + d);
-    *reinterpret_cast<uint4*>(Qs + r * kAttnLd + d) = v;
-  }
-  for (int c = tid; c < NP * (kAttnDh / 8); c += kAttnThreads) {
-    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
-    uint4 kv = zero, vv = zero;
-    if (r < n) {
-      const bf16* p = base + r * rstride + d;
-      kv = *reinterpret_cast<const uint4*>(p + inner);
-      vv = *reinterpret_cast<const uint4*>(p + 2 * inner);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * kAttnLd + d) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * kAttnLd + d) = vv;
-  }
+  load_head_rows<kAttnQT>(Qs, base, rstride, q0, n);
+  load_head_rows<NP>(Ks, base + inner, rstride, 0, n);
+  load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n);
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-
-  uint32_t qf[DK][4];
-  {
-    const bf16* qw = Qs + (warp * 16 + g) * kAttnLd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      qf[kk][0] = ld_pair(qw + kk * 16);
-      qf[kk][1] = ld_pair(qw + 8 * kAttnLd + kk * 16);
-      qf[kk][2] = ld_pair(qw + kk * 16 + 8);
-      qf[kk][3] = ld_pair(qw + 8 * kAttnLd + kk * 16 + 8);
-    }
-  }
-
-  // logits: s[j] holds rows (g, g+8) x keys (8j + 2t, 8j + 2t + 1)
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const bf16* kp = Ks + (j * 8 + g) * kAttnLd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      uint32_t b[2] = {ld_pair(kp + kk * 16), ld_pair(kp + kk * 16 + 8)};
-      mma_16816(s[j], qf[kk], b);
-    }
-  }
-
-  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool valid = j * 8 + 2 * t + e < n;
-      s[j][e] = valid ? s[j][e] * scale_log2e : -CUDART_INF_F;
-      s[j][2 + e] = valid ? s[j][2 + e] * scale_log2e : -CUDART_INF_F;
-      mx0 = fmaxf(mx0, s[j][e]);
-      mx1 = fmaxf(mx1, s[j][2 + e]);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {  // the 4 lanes of a quad share a row
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[j][e] = exp2f(s[j][e] - mx0);
-      s[j][2 + e] = exp2f(s[j][2 + e] - mx1);
-      sum0 += s[j][e];
-      sum1 += s[j][2 + e];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float s[NT][4];  // logits, then p in f32
+  qk_logits(s, Qs + warp * 16 * kAttnLd, Ks, g, t);
+  float mx0, mx1, inv0, inv1;
+  softmax_rows(s, n, t, scale_log2e, mx0, mx1, inv0, inv1);
 
   // P in bf16, laid out as the A operand of p.v: key chunk kc = tiles 2kc, 2kc+1
   uint32_t pf[KT][4];
 #pragma unroll
-  for (int kc = 0; kc < KT; ++kc) {
-    pf[kc][0] = pack_floats(s[2 * kc][0] * inv0, s[2 * kc][1] * inv0);
-    pf[kc][1] = pack_floats(s[2 * kc][2] * inv1, s[2 * kc][3] * inv1);
-    pf[kc][2] = pack_floats(s[2 * kc + 1][0] * inv0, s[2 * kc + 1][1] * inv0);
-    pf[kc][3] = pack_floats(s[2 * kc + 1][2] * inv1, s[2 * kc + 1][3] * inv1);
-  }
+  for (int kc = 0; kc < KT; ++kc) acc_to_a_frag(pf[kc], s[2 * kc], s[2 * kc + 1]);
 
   const int row0 = q0 + warp * 16 + g;
 #pragma unroll
   for (int dj = 0; dj < DT; ++dj) {
     float o[4] = {0.f, 0.f, 0.f, 0.f};
-    // B operand: keys (16kc + 2t, +1) and (16kc + 8 + 2t, +1) at column 8dj + g
-    const bf16* vp = Vs + (2 * t) * kAttnLd + dj * 8 + g;
 #pragma unroll
     for (int kc = 0; kc < KT; ++kc) {
-      const bf16* p = vp + kc * 16 * kAttnLd;
-      uint32_t b[2] = {pack_bf16(p[0], p[kAttnLd]), pack_bf16(p[8 * kAttnLd], p[9 * kAttnLd])};
+      uint32_t b[2];
+      load_b_frag_cols(b, Vs + kc * 16 * kAttnLd + dj * 8, kAttnLd, g, t);
       mma_16816(o, pf[kc], b);
     }
     const int col = h * kAttnDh + dj * 8 + 2 * t;
@@ -530,7 +426,8 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes).  Pointers are device pointers of contiguous bf16
-// tensors, 16-byte aligned; the wrapper in ops/fused_block.py checks shapes.
+// tensors (the f32 epilogue's output is f32), 16-byte aligned; the wrapper in
+// ops/fused_block.py checks shapes.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -552,13 +449,13 @@ int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* re
   if (M <= 0 || N <= 0 || N % 8 || K % kGemmBK || (M + kGemmBM - 1) / kGemmBM > 65535) return cudaErrorInvalidValue;
   const bf16 *pa = static_cast<const bf16*>(a), *pw = static_cast<const bf16*>(w);
   const bf16 *pb = static_cast<const bf16*>(bias), *pr = static_cast<const bf16*>(res);
-  bf16* po = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
-    case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, po, M, N, K, s);
-    case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, po, M, N, K, s) : cudaErrorInvalidValue;
-    case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, po, M, N, K, s);
-    case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, po, M, N, K, s) : cudaErrorInvalidValue;
+    case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, out, M, N, K, s);
+    case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, out, M, N, K, s) : cudaErrorInvalidValue;
+    case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, out, M, N, K, s);
+    case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, out, M, N, K, s) : cudaErrorInvalidValue;
+    case kEpiF32: return launch_gemm<kEpiF32>(pa, pw, nullptr, nullptr, out, M, N, K, s);
     default: return cudaErrorInvalidValue;
   }
 }

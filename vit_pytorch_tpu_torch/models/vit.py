@@ -32,7 +32,11 @@ class ViT(nn.Module):
     ``generator`` seeds the initialisation (the JAX package's: LayerNorm
     ones/zeros, truncated lecun-normal Linear weights, zero biases, unit
     normal cls token and position embedding); ``device``/``dtype`` place the
-    parameters.
+    parameters.  ``flash`` and ``remat`` are the JAX ``ViT``'s
+    (models/vit.py:43-44), passed to the :class:`Transformer`:
+    ``flash=False`` opts out of every kernel, ``remat`` recomputes the
+    layers in the backward.  ``model.train()`` stands for the JAX
+    ``train=True``.
     """
 
     def __init__(
@@ -50,6 +54,8 @@ class ViT(nn.Module):
         dim_head: int = 64,
         dropout: float = 0.0,
         emb_dropout: float = 0.0,
+        flash: Optional[bool] = None,
+        remat: bool = False,
         device=None,
         dtype=None,
         generator: Optional[torch.Generator] = None,
@@ -72,7 +78,7 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(self.num_cls_tokens, dim, **kw))
         self.pos_embedding = nn.Parameter(torch.empty(self.num_patches + self.num_cls_tokens, dim, **kw))
         self.dropout = nn.Dropout(emb_dropout)
-        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim, dropout, **kw)
+        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim, dropout, flash=flash, remat=remat, **kw)
         self.mlp_head = nn.Linear(dim, num_classes, **kw) if num_classes > 0 else None
         self.reset_parameters(generator)
 

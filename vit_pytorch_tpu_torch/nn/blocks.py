@@ -6,17 +6,20 @@ Modules keep the reference's ``state_dict`` layout (vit.py:15-83):
 package's ``utils/convert.py::convert_vit`` maps them onto JAX params
 unchanged.
 
-On a CUDA device, in bf16 and without autograd, ``Transformer`` sends each
-layer through the Hopper kernels of ``ops/fused_block.py`` (the whole-layer
-predicate of the JAX ``Transformer``, blocks.py:618-653); everything else
-runs the module composite below.
+On a CUDA device, in bf16, ``Transformer`` sends each layer through the
+Hopper kernels of ``ops/fused_block.py``, forward and backward (the
+whole-layer predicate of the JAX ``Transformer``, blocks.py:618-653);
+everything else runs the module composite below.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, on_cuda
 from ..ops.fused_block import LN_EPS, fused_transformer_layer, whole_layer_supported
@@ -90,21 +93,28 @@ class Attention(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Pre-norm residual transformer (reference vit.py:66-83)."""
+    """Pre-norm residual transformer (reference vit.py:66-83).
+
+    ``flash=False`` opts out of every kernel (JAX blocks.py:75).  ``remat``
+    recomputes each attention and FF call in the backward
+    (``torch.utils.checkpoint``) on the composite path; on the whole-layer
+    path it is a no-op, as in the JAX package, whose remat wraps only the
+    calls that path never makes (blocks.py:655-658): the layer's Function
+    saves only its input and y."""
 
     def __init__(
         self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
         dropout: float = 0.0, *, qk_norm: bool = False, ff_glu: bool = False,
-        remat: bool = False, device=None, dtype=None,
+        flash: Optional[bool] = None, remat: bool = False, device=None, dtype=None,
     ):
         super().__init__()
-        if qk_norm or ff_glu or remat:
+        if qk_norm or ff_glu:
             raise NotImplementedError(
-                "qk_norm, ff_glu and remat are not ported yet (ROADMAP: modules to port, items 2 and 6)"
+                "qk_norm and ff_glu are not ported yet (ROADMAP: modules to port, items 2 and 6)"
             )
         kw = {"device": device, "dtype": dtype}
         self.dim, self.heads, self.dim_head, self.mlp_dim = dim, heads, dim_head, mlp_dim
-        self.dropout = dropout
+        self.dropout, self.flash, self.remat = dropout, flash, remat
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.layers = nn.ModuleList(
             nn.ModuleList(
@@ -118,14 +128,11 @@ class Transformer(nn.Module):
 
     def whole_layer_eligible(self, x: torch.Tensor) -> bool:
         """The JAX whole-layer predicate (blocks.py:618-653) for this
-        module's options, with ``on_cuda`` for ``on_tpu``, and no autograd
-        until the backward kernels land."""
-        needs_grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters())
-        )
+        module's options, with ``on_cuda`` for ``on_tpu`` and
+        ``self.training`` for ``train``."""
         return (
             on_cuda(x)
-            and not needs_grad
+            and self.flash is not False
             and (self.dropout == 0.0 or not self.training)
             and not (self.heads == 1 and self.dim_head == self.dim)  # project_out
             and whole_layer_supported(x.shape, x.dtype, self.heads, self.dim_head, self.dim, self.mlp_dim)
@@ -155,6 +162,14 @@ class Transformer(nn.Module):
                 )
         else:
             for attn, ff in self.layers:
-                x = attn(x) + x
-                x = ff(x) + x
+                x = self._call(attn, x) + x
+                x = self._call(ff, x) + x
         return self.norm(x)
+
+    def _call(self, module: nn.Module, x):
+        # the JAX package leaves the attention call un-rematted only when it
+        # takes the attention-block kernel (blocks.py:655-658); the port has
+        # no such kernel yet, so the composite remats both calls
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)

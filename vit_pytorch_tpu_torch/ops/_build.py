@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-nvcc compiles the sources into one shared library with a plain C interface,
-under ``build/`` at the repository root (git-ignored), named by a hash of the
-sources and flags so that an edit rebuilds and an unchanged tree reuses the
-library.  ``ctypes`` loads it: every pointer and the stream are passed as
+nvcc compiles each source to an object, all sources at once in parallel, and
+links them into one shared library with a plain C interface, under ``build/``
+at the repository root (git-ignored), named by a hash of the sources, their
+headers (``csrc/*.cuh``) and the flags, so that an edit rebuilds and an
+unchanged tree reuses the library.  ``ctypes`` loads it: every pointer and the stream are passed as
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -24,7 +26,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
 
@@ -36,6 +38,12 @@ _SIGNATURES = {
     "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # qkv, out, batch, n, heads, dim_head, scale*log2(e), stream
     "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _F, _P),
+    # qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale*log2(e), scale, stream
+    "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # rows -> rows of the partial-sum scratch buffer
+    "vit_layernorm_bwd_blocks": (_I,),
+    # x, dh, w, res, dx, partial, sums, rows, dim, eps, stream
+    "vit_layernorm_bwd_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
 }
 
 
@@ -80,24 +88,44 @@ def load_library() -> KernelLibrary:
         return _library
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     path = BUILD_DIR / f"libvit_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = None, ""
     if not path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
+        log = _build(path, sources)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
     _library = KernelLibrary(path, seconds, log)
     return _library
+
+
+def _build(path: Path, sources) -> str:
+    """nvcc each source to an object, all at once, then link them into
+    ``path``; returns nvcc's output."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outputs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = Path(tmpdir) / path.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log += link.stdout
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, path)
+    return log

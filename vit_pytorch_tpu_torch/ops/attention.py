@@ -3,8 +3,8 @@
 Only the materialized path is ported so far.  The kernel routes of the JAX
 dispatcher (flash, short, segment ids, per-head bias) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.  The ViT's
-inference path does not come here on the card: its whole layer goes through
-``ops/fused_block.py``.
+inference and training paths do not come here on the card: its whole layer
+goes through ``ops/fused_block.py``.
 """
 
 from __future__ import annotations

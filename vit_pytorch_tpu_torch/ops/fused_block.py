@@ -1,4 +1,4 @@
-"""The whole pre-norm transformer layer, forward, on Hopper.
+"""The whole pre-norm transformer layer, forward and backward, on Hopper.
 
 Port of ``vit_pytorch_tpu/ops/fused_block.py::fused_transformer_layer``, whose
 TPU kernel ``_layer_kernel`` runs a whole layer in one Pallas call with the
@@ -9,18 +9,34 @@ same function is a chain of seven launches of three hand-written kernels
     x -> layernorm_rows -> gemm_bf16[qkv] -> attention_rows -> gemm_bf16[out] (+x) = y
     y -> layernorm_rows -> gemm_bf16[fc1] (gelu) -> gemm_bf16[fc2] (+y) = out
 
+The backward is the JAX package's decomposed ``_fused_layer_bwd``
+(fused_block.py:1793-1872): the FF vjp from the saved ``y`` by autograd
+through :func:`ff_reference` (plain PyTorch, where the JAX package uses XLA's
+vjp), then the port of the attention-block backward kernel ``_bwd_kernel``
+(:524) as six launches (``csrc/fused_layer_bwd.cu`` and the f32 epilogue of
+``gemm_bf16``)::
+
+    x  -> layernorm_rows -> gemm_bf16[qkv]                        = qkv  (recompute)
+    dy -> gemm_bf16[cast] with W_out^T                            = dm
+    qkv, dm -> attention_bwd_rows                                 = m, dqkv
+    dqkv -> gemm_f32out with W_qkv^T                              = dh   (f32)
+    x, dh, dy -> layernorm_bwd_rows                               = dx, dgamma, dbeta
+
+and dW_qkv, dW_out, the biases' gradients as plain PyTorch over the whole
+batch, as the JAX package leaves them to XLA (:802-816).
+
 Each kernel wrapper has its plain PyTorch twin (``*_reference``) in this
 module.  A wrapper takes the twin only for a tensor on the CPU; on a CUDA
 tensor it launches its kernel or raises.  Each launch adds one to
 ``LAUNCHES[kernel]``.
 
 Weights are in ``nn.Linear``'s (out, in) layout; the kernels read them so.
-Forward only: the backward kernels come with the training step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,17 +46,24 @@ from ._build import load_library
 LN_EPS = 1e-5  # torch's LayerNorm default
 _LOG2E = 1.4426950408889634  # log2(e)
 
-# Shapes the kernels take; these mirror the constants of csrc/fused_layer.cu.
+# Shapes the kernels take; these mirror the constants of csrc/*.cu.
 ATTN_DIM_HEAD = 64  # kAttnDh
 ATTN_Q_TILE = 64  # kAttnQT
 ATTN_MAX_KEYS = 208  # 16 * kAttnKT: keys padded to 13 chunks of 16
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # M-tiles ride on gridDim.y
+LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"layernorm_rows": 0, "gemm_bf16": 0, "attention_rows": 0}
+LAUNCHES = {
+    "layernorm_rows": 0, "gemm_bf16": 0, "attention_rows": 0,
+    "attention_bwd_rows": 0, "gemm_f32out": 0, "layernorm_bwd_rows": 0,
+}
 
-_EPILOGUES = {"qkv": 0, "out": 1, "fc1": 2, "fc2": 3}
+# gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
+# of the f32 dot), named for the backward's dm = dy . W_out
+_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3}
+_EPI_F32 = 4  # gemm_f32out: the f32 dot stored as it is
 
 
 def reset_launch_counts() -> None:
@@ -67,11 +90,12 @@ def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None):
     """``a @ w.T`` with f32 accumulation and the epilogue of one of the four
     GEMM sites of ``_layer_rows``:
 
-    - ``qkv``: + bias in f32, then one cast (:1015-1018);
+    - ``qkv``: + bias in f32, then one cast (:1015-1018); ``cast`` is the
+      same without a bias;
     - ``out``/``fc2``: cast, + bias, + residual, each rounded (:1040-1049);
     - ``fc1``: cast, + bias, tanh-GELU (:1046-1047).
     """
-    if epilogue == "qkv":
+    if epilogue in ("qkv", "cast"):
         if bias is None:
             return F.linear(a, w)
         return F.linear(a.float(), w.float(), bias.float()).to(a.dtype)
@@ -83,34 +107,82 @@ def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None):
     return h + residual
 
 
+def gemm_f32out_reference(a, w):
+    """``a @ w.T`` accumulated and returned in f32: ``dh = dqkv . W_qkv^T``
+    of ``_bwd_kernel`` (fused_block.py:695-700), which feeds the LayerNorm
+    backward in f32."""
+    return F.linear(a.float(), w.float())
+
+
+def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float):
+    """q, k, v as f32 (b, h, n, d) and P of ``_softmax_from_dots``
+    (fused_block.py:82-93) in f32."""
+    b, n, _ = qkv.shape
+    q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4).float()
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E)
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    return q, k, v, p * (1.0 / p.sum(-1, keepdim=True))
+
+
 def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float):
     """Per-head softmax attention from the packed (b, n, 3*inner) qkv rows to
     merged heads (b, n, inner): f32 logits, ``_softmax_from_dots``
     (fused_block.py:82-93), P cast to qkv.dtype, P.V accumulated in f32."""
     b, n, _ = qkv.shape
-    q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4).float()
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E)
-    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
-    p = p * (1.0 / p.sum(-1, keepdim=True))
+    _, _, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
     o = torch.matmul(p.to(qkv.dtype).float(), v).to(qkv.dtype)
     return o.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
-def layer_reference(
-    x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
-    *, heads: int, dim_head: int, b_qkv=None, b_out=None,
-    scale: Optional[float] = None, eps: float = LN_EPS,
-):
-    """Plain PyTorch twin of :func:`fused_transformer_layer`: the JAX
-    ``_xla_reference`` (fused_block.py:377-422) followed by ``_ff_reference``
-    (:1759-1770), with the rounding points of ``_layer_rows``."""
-    scale = dim_head**-0.5 if scale is None else scale
-    h = layernorm_rows_reference(x, ln1_scale, ln1_bias, eps=eps)
-    qkv = gemm_bf16_reference(h, w_qkv, "qkv", bias=b_qkv)
-    m = attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale)
-    y = gemm_bf16_reference(m, w_out, "out", bias=b_out, residual=x)
-    h2 = layernorm_rows_reference(y, ln2_scale, ln2_bias, eps=eps)
-    a = gemm_bf16_reference(h2, w1, "fc1", bias=b1)
+def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: float):
+    """The per-head loop of ``_bwd_kernel`` without dropout and qk-norm
+    (fused_block.py:608-692): from the packed qkv rows and the gradient of
+    the merged heads ``dm`` (both (b, n, .) in one dtype) to the recomputed
+    merged heads ``m`` and the packed ``dqkv``.  P is recomputed as the
+    forward computes it; ``pb = P`` in the IO dtype feeds m and dv; ``ds`` uses
+    the f32 P; dq and dk take ``scale`` on the f32 product before the cast."""
+    dt, (b, n, _) = qkv.dtype, qkv.shape
+    q, k, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    dmh = dm.reshape(b, n, heads, dim_head).transpose(1, 2).float()
+    pb = p.to(dt).float()
+    m = torch.matmul(pb, v).to(dt)
+    dv = torch.matmul(pb.transpose(-1, -2), dmh)
+    dp = torch.matmul(dmh, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dqkv = torch.stack((dq, dk, dv)).to(dt).permute(1, 3, 0, 2, 4)  # (b, n, 3, heads, dh)
+    return m.transpose(1, 2).reshape(b, n, -1), dqkv.reshape(b, n, -1)
+
+
+def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, eps: float = LN_EPS):
+    """LayerNorm backward of ``_bwd_kernel`` (fused_block.py:702-717) from the
+    f32 gradient ``dh`` of the normalised rows: ``xhat`` and ``r`` recomputed
+    from x in f32, ``dx = r (dxhat - mean(dxhat) - xhat mean(dxhat xhat))``
+    cast to x.dtype, and with ``residual`` the add of :1868,
+    ``(f32(dx) + f32(residual))`` cast once more.  Returns ``(dx, dgamma,
+    dbeta)``, the last two summed over every row in f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    r = torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+    xhat = xc * r
+    dh = dh.float()
+    dxhat = dh * weight.float()
+    dx = r * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx = dx.to(x.dtype)
+    if residual is not None:
+        dx = (dx.float() + residual.float()).to(x.dtype)
+    dim = x.shape[-1]
+    return dx, (dh * xhat).reshape(-1, dim).sum(0), dh.reshape(-1, dim).sum(0)
+
+
+def ff_reference(y, ln2_scale, ln2_bias, w1, b1, w2, b2, *, eps: float = LN_EPS):
+    """The FF half of the layer, ``y + FF(LN2(y))``: twin of the JAX
+    ``_ff_reference`` (fused_block.py:1759-1770), differentiable by
+    autograd."""
+    h = layernorm_rows_reference(y, ln2_scale, ln2_bias, eps=eps)
+    a = gemm_bf16_reference(h, w1, "fc1", bias=b1)
     return gemm_bf16_reference(a, w2, "fc2", bias=b2, residual=y)
 
 
@@ -119,18 +191,20 @@ def layer_reference(
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(name: str, device, *tensors) -> None:
+def _check_operands(name: str, device, *tensors, dtype=torch.bfloat16) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on a CUDA device, not {device}")
     for t in tensors:
         if t is None:
             continue
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise ValueError(f"{name}: a kernel call outside autograd; an operand requires grad")
         if t.device != device:
             raise ValueError(f"{name}: operand on {t.device}, expected {device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: operand dtype {t.dtype}, the kernel takes bfloat16")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: operand dtype {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise ValueError(f"{name}: forward-only kernel; an operand requires grad")
 
 
 def _stream(device) -> int:
@@ -156,6 +230,12 @@ def layernorm_rows(x, weight, bias, *, eps: float = LN_EPS):
     return out
 
 
+def _check_gemm(name: str, a, w) -> None:
+    n_out, k = w.shape
+    if a.shape[-1] != k or k % GEMM_BK or n_out % 8 or a.numel() // k > GEMM_MAX_ROWS:
+        raise ValueError(f"{name}: a {tuple(a.shape)} and w {tuple(w.shape)}")
+
+
 def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
     """``a @ w.T`` (w is (out, in)) with the named epilogue, see
     :func:`gemm_bf16_reference`."""
@@ -163,11 +243,10 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
         raise ValueError(f"gemm_bf16: unknown epilogue {epilogue!r}")
     if a.device.type == "cpu":
         return gemm_bf16_reference(a, w, epilogue, bias=bias, residual=residual)
+    _check_gemm("gemm_bf16", a, w)
     n_out, k = w.shape
-    if a.shape[-1] != k or k % GEMM_BK or n_out % 8 or a.numel() // k > GEMM_MAX_ROWS:
-        raise ValueError(f"gemm_bf16: a {tuple(a.shape)} and w {tuple(w.shape)}")
-    if bias is not None and bias.shape != (n_out,):
-        raise ValueError(f"gemm_bf16: bias {tuple(bias.shape)} for {n_out} outputs")
+    if bias is not None and (epilogue == "cast" or bias.shape != (n_out,)):
+        raise ValueError(f"gemm_bf16[{epilogue}]: bias {tuple(bias.shape)} for {n_out} outputs")
     out_shape = (*a.shape[:-1], n_out)
     if epilogue in ("out", "fc2") and (residual is None or residual.shape != out_shape):
         raise ValueError(f"gemm_bf16[{epilogue}]: needs a residual of shape {out_shape}")
@@ -186,11 +265,27 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
     return out
 
 
-def attention_rows(qkv, *, heads: int, dim_head: int, scale: float):
-    """Softmax attention of every head, from packed qkv rows (b, n, 3*inner)
-    to merged heads (b, n, inner); the logits stay on chip."""
-    if qkv.device.type == "cpu":
-        return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale)
+def gemm_f32out(a, w):
+    """``a @ w.T`` (w is (out, in)) of bf16 operands, stored in f32: the
+    f32 epilogue of the ``gemm_bf16`` kernel, see
+    :func:`gemm_f32out_reference`."""
+    if a.device.type == "cpu":
+        return gemm_f32out_reference(a, w)
+    _check_gemm("gemm_f32out", a, w)
+    _check_operands("gemm_f32out", a.device, a, w)
+    n_out, k = w.shape
+    out = torch.empty((*a.shape[:-1], n_out), dtype=torch.float32, device=a.device)
+    lib = load_library()
+    err = lib.lib.vit_gemm_bf16(
+        a.data_ptr(), w.data_ptr(), None, None, out.data_ptr(),
+        a.numel() // k, n_out, k, _EPI_F32, _stream(a.device),
+    )
+    lib.check("gemm_f32out", err)
+    LAUNCHES["gemm_f32out"] += 1
+    return out
+
+
+def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
     b, n, three_inner = qkv.shape
     if (
         three_inner != 3 * heads * dim_head
@@ -199,11 +294,20 @@ def attention_rows(qkv, *, heads: int, dim_head: int, scale: float):
         or b > 65535
     ):
         raise ValueError(
-            f"attention_rows: qkv {tuple(qkv.shape)} with heads={heads}, "
+            f"{name}: qkv {tuple(qkv.shape)} with heads={heads}, "
             f"dim_head={dim_head}; the kernel takes dim_head={ATTN_DIM_HEAD}, "
             f"n <= {ATTN_MAX_KEYS}"
         )
+
+
+def attention_rows(qkv, *, heads: int, dim_head: int, scale: float):
+    """Softmax attention of every head, from packed qkv rows (b, n, 3*inner)
+    to merged heads (b, n, inner); the logits stay on chip."""
+    if qkv.device.type == "cpu":
+        return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    _check_attention("attention_rows", qkv, heads, dim_head)
     _check_operands("attention_rows", qkv.device, qkv)
+    b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     err = lib.lib.vit_attention_rows(
@@ -215,21 +319,104 @@ def attention_rows(qkv, *, heads: int, dim_head: int, scale: float):
     return out
 
 
+def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float):
+    """The attention backward of every head, from packed qkv rows and the
+    merged-heads gradient ``dm`` to ``(m, dqkv)``, see
+    :func:`attention_bwd_rows_reference`.  One launch runs a row pass (m,
+    dq and each row's softmax statistics, into a scratch buffer) and a key
+    pass (dk, dv); the logits stay on chip in both."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_rows_reference(qkv, dm, heads=heads, dim_head=dim_head, scale=scale)
+    _check_attention("attention_bwd_rows", qkv, heads, dim_head)
+    b, n, _ = qkv.shape
+    inner = heads * dim_head
+    if dm.shape != (b, n, inner):
+        raise ValueError(f"attention_bwd_rows: dm {tuple(dm.shape)} for qkv {tuple(qkv.shape)}")
+    _check_operands("attention_bwd_rows", qkv.device, qkv, dm)
+    m = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, heads, n, 4), dtype=torch.float32, device=qkv.device)
+    lib = load_library()
+    err = lib.lib.vit_attention_bwd_rows(
+        qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        b, n, heads, dim_head, scale * _LOG2E, scale, _stream(qkv.device),
+    )
+    lib.check("attention_bwd_rows", err)
+    LAUNCHES["attention_bwd_rows"] += 1
+    return m, dqkv
+
+
+def layernorm_bwd_rows(x, dh, weight, *, residual=None, eps: float = LN_EPS):
+    """LayerNorm backward of each row from its f32 gradient ``dh``, with the
+    residual add, and dgamma/dbeta over all rows, see
+    :func:`layernorm_bwd_rows_reference`.  One launch runs the row pass
+    (per-block partial sums into a scratch buffer) and a fixed-order sum of
+    the partials, so the result does not depend on block scheduling."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_rows_reference(x, dh, weight, residual=residual, eps=eps)
+    dim = x.shape[-1]
+    if (
+        dh.shape != x.shape or weight.shape != (dim,) or dim % 8 or dim > LN_BWD_MAX_DIM
+        or (residual is not None and residual.shape != x.shape)
+    ):
+        raise ValueError(f"layernorm_bwd_rows: x {tuple(x.shape)}, dh {tuple(dh.shape)}, weight {tuple(weight.shape)}")
+    _check_operands("layernorm_bwd_rows", x.device, x, weight, residual)
+    _check_operands("layernorm_bwd_rows", x.device, dh, dtype=torch.float32)
+    rows = x.numel() // dim
+    lib = load_library()
+    blocks = lib.lib.vit_layernorm_bwd_blocks(rows)
+    dx = torch.empty_like(x)
+    partial = torch.empty((blocks, 2, dim), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    err = lib.lib.vit_layernorm_bwd_rows(
+        x.data_ptr(), dh.data_ptr(), weight.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        dx.data_ptr(), partial.data_ptr(), sums.data_ptr(), rows, dim, eps, _stream(x.device),
+    )
+    lib.check("layernorm_bwd_rows", err)
+    LAUNCHES["layernorm_bwd_rows"] += 1
+    return dx, sums[0], sums[1]
+
+
+# the kernels (each falls to its twin for a CPU tensor) and their twins, in
+# the one chain that runs the layer either way
+KERNELS = SimpleNamespace(
+    layernorm_rows=layernorm_rows, gemm_bf16=gemm_bf16, attention_rows=attention_rows,
+    attention_bwd_rows=attention_bwd_rows, gemm_f32out=gemm_f32out,
+    layernorm_bwd_rows=layernorm_bwd_rows,
+)
+TWINS = SimpleNamespace(
+    layernorm_rows=layernorm_rows_reference, gemm_bf16=gemm_bf16_reference,
+    attention_rows=attention_rows_reference, attention_bwd_rows=attention_bwd_rows_reference,
+    gemm_f32out=gemm_f32out_reference, layernorm_bwd_rows=layernorm_bwd_rows_reference,
+)
+
+
+# ---------------------------------------------------------------------------
+# the layer: forward chain, attention-block backward, autograd Function
+# ---------------------------------------------------------------------------
+
+
 def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int) -> bool:
-    """Static eligibility of the kernel chain on an H100.
+    """Static eligibility of the kernel chains, forward and backward, on an
+    H100.
 
-    Not the TPU's VMEM gate.  It admits bf16 3-D inputs with ``d == dim`` and
-    the shapes the three kernels take:
+    Not the TPU's VMEM gates.  It admits bf16 3-D inputs with ``d == dim`` and
+    the shapes the kernels take:
 
-    - attention_rows: ``dim_head == 64`` and ``n <= 208``, its one
-      instantiation (keys padded to 13 chunks of 16, for ViT-B/16's 197
-      tokens).  The logit rows sit in registers, 104 f32 a thread, which is
-      the binding limit.  Its shared memory, ``(64 + 2*208) * 72 * 2`` =
-      69,120 bytes, would stay under the 232,448-byte block limit up to 775
-      padded keys.
-    - gemm_bf16: every K (dim, inner, mlp_dim) a multiple of 64 and every N a
-      multiple of 8; M = b*n is masked, up to 65535 row tiles of 128.
-    - layernorm_rows: ``dim % 8 == 0``, implied by the GEMM's K.
+    - attention_rows and attention_bwd_rows: ``dim_head == 64`` and
+      ``n <= 208``, their one instantiation (keys padded to 13 chunks of 16,
+      for ViT-B/16's 197 tokens).  The logit rows sit in registers, 104 f32
+      a thread, which is the binding limit.  Shared memory, at most
+      ``(2*64 + 2*208) * 72 * 2 + 208 * 16`` = 81,664 bytes (the backward's
+      key pass), would stay under the 232,448-byte block limit far past 208
+      keys.
+    - gemm_bf16 and gemm_f32out: every K (dim, inner, 3*inner, mlp_dim) a
+      multiple of 64 and every N a multiple of 8; M = b*n is masked, up to
+      65535 row tiles of 128.
+    - layernorm_rows: ``dim % 8 == 0``, implied by the GEMM's K;
+      layernorm_bwd_rows also ``dim <= 3584`` (its per-warp f32 partial sums
+      of dgamma and dbeta in shared memory).
     """
     if len(x_shape) != 3 or dtype != torch.bfloat16:
         return False
@@ -241,8 +428,137 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
         and 0 < n <= ATTN_MAX_KEYS
         and 0 < b <= 65535
         and b * n <= GEMM_MAX_ROWS
+        and dim <= LN_BWD_MAX_DIM
         and all(v % GEMM_BK == 0 for v in (dim, inner, mlp_dim))
     )
+
+
+def _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads, dim_head, scale, eps):
+    """The seven launches of the forward; returns ``(out, y)``."""
+    h = ops.layernorm_rows(x, ln1s, ln1b, eps=eps)
+    qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
+    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    y = ops.gemm_bf16(m, w_out, "out", bias=b_out, residual=x)
+    h2 = ops.layernorm_rows(y, ln2s, ln2b, eps=eps)
+    a = ops.gemm_bf16(h2, w1, "fc1", bias=b1)
+    return ops.gemm_bf16(a, w2, "fc2", bias=b2, residual=y), y
+
+
+class AttentionBlockGrads(NamedTuple):
+    """What :func:`attention_block_bwd_reference` returns: the outputs of the
+    JAX ``_bwd_kernel`` (dx, h, dqkv, m, dgamma, dbeta) and the weight
+    gradients its launcher ``_pallas_backward`` contracts from them, in the
+    port's (out, in) weight layout."""
+
+    dx: torch.Tensor
+    h: torch.Tensor
+    dqkv: torch.Tensor
+    m: torch.Tensor
+    dW_qkv: torch.Tensor
+    db_qkv: Optional[torch.Tensor]
+    dW_out: torch.Tensor
+    dgamma: torch.Tensor
+    dbeta: torch.Tensor
+
+
+def _attention_block_bwd(
+    ops, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, scale, eps, residual=None,
+) -> AttentionBlockGrads:
+    """Backward of ``y = x + Attn(LN(x))`` with respect to everything but the
+    residual path, from ``g = dL/dy``; with ``residual`` the LayerNorm
+    backward also adds it to dx (the ``dx_ln + dy`` of :1868).
+
+    The products in ``_bwd_kernel``'s body (dm, the attention products, dh)
+    run through ``ops``; the weight gradients are ``torch.matmul`` over the
+    whole batch as in ``_pallas_backward`` (:802-816), and return in the IO
+    dtype: an f32-accumulated product rounded once, as the JAX package's f32
+    dW cast to the weight dtype."""
+    h = ops.layernorm_rows(x, ln_scale, ln_bias, eps=eps)
+    qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
+    # a.w products as a.(w^T)^T: a transposed copy of each weight, once a
+    # backward, for the kernel's (out, in) operand layout
+    dm = ops.gemm_bf16(g, w_out.t().contiguous(), "cast")
+    m, dqkv = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale)
+    dh = ops.gemm_f32out(dqkv, w_qkv.t().contiguous())
+    dx, dgamma, dbeta = ops.layernorm_bwd_rows(x, dh, ln_scale, residual=residual, eps=eps)
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    dW_qkv = torch.matmul(rows(dqkv).t(), rows(h))
+    dW_out = torch.matmul(rows(g).t(), rows(m))
+    db_qkv = rows(dqkv).float().sum(0) if b_qkv is not None else None
+    return AttentionBlockGrads(dx, h, dqkv, m, dW_qkv, db_qkv, dW_out, dgamma, dbeta)
+
+
+def attention_block_bwd_reference(
+    x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias, *, heads: int, dim_head: int,
+    scale: Optional[float] = None, eps: float = LN_EPS,
+) -> AttentionBlockGrads:
+    """Plain twin of the JAX ``_pallas_backward`` without dropout and qk-norm
+    (fused_block.py:720-817): dx is the LayerNorm path's ``dx_ln`` alone."""
+    scale = dim_head**-0.5 if scale is None else float(scale)
+    return _attention_block_bwd(
+        TWINS, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias,
+        heads=heads, dim_head=dim_head, scale=scale, eps=eps,
+    )
+
+
+class _FusedLayer(torch.autograd.Function):
+    """The counterpart of the JAX ``_fused_layer`` custom_vjp
+    (fused_block.py:1773-1875): the forward saves ``(x, y)`` and the
+    weights; the backward is the decomposed one, FF vjp from y by autograd
+    through :func:`ff_reference`, then the attention-block backward on dy."""
+
+    @staticmethod
+    def forward(ctx, ops, heads, dim_head, scale, eps, x, w_qkv, b_qkv, w_out, b_out,
+                ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2):
+        out, y = _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b,
+                                w1, b1, w2, b2, heads, dim_head, scale, eps)
+        ctx.save_for_backward(x, y, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2)
+        ctx.ops, ctx.cfg = ops, dict(heads=heads, dim_head=dim_head, scale=scale, eps=eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = ctx.saved_tensors
+        ff_in = (y, ln2s, ln2b, w1, b1, w2, b2)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ff_in]
+            ff_out = ff_reference(*leaves, eps=ctx.cfg["eps"])
+        dy, dln2s, dln2b, dW1, db1, dW2, db2 = torch.autograd.grad(ff_out, leaves, g)
+        dy = dy.contiguous()
+        attn = _attention_block_bwd(
+            ctx.ops, x, dy, w_qkv, b_qkv, w_out, ln1s, ln1b, residual=dy, **ctx.cfg,
+        )
+        db_out = dy.float().sum((0, 1)).to(b_out.dtype) if b_out is not None else None
+        db_qkv = attn.db_qkv.to(b_qkv.dtype) if b_qkv is not None else None
+        return (
+            None, None, None, None, None,
+            attn.dx, attn.dW_qkv.to(w_qkv.dtype), db_qkv, attn.dW_out.to(w_out.dtype), db_out,
+            attn.dgamma.to(ln1s.dtype), attn.dbeta.to(ln1b.dtype),
+            dln2s, dln2b, dW1, db1, dW2, db2,
+        )
+
+
+def _layer(ops, x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
+           heads, dim_head, b_qkv, b_out, scale, eps):
+    scale = dim_head**-0.5 if scale is None else float(scale)
+    args = (x, w_qkv, b_qkv, w_out, b_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return _FusedLayer.apply(ops, heads, dim_head, scale, eps, *args)
+    return _layer_forward(ops, *args, heads, dim_head, scale, eps)[0]
+
+
+def layer_reference(
+    x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
+    *, heads: int, dim_head: int, b_qkv=None, b_out=None,
+    scale: Optional[float] = None, eps: float = LN_EPS,
+):
+    """Plain PyTorch twin of :func:`fused_transformer_layer`, forward and
+    backward: the same chain and the same autograd Function with every
+    kernel swapped for its twin.  Its forward is the JAX ``_xla_reference``
+    (fused_block.py:377-422) followed by ``_ff_reference`` (:1759-1770), with
+    the rounding points of ``_layer_rows``."""
+    return _layer(TWINS, x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                  heads, dim_head, b_qkv, b_out, scale, eps)
 
 
 def fused_transformer_layer(
@@ -251,29 +567,17 @@ def fused_transformer_layer(
     scale: Optional[float] = None, eps: float = LN_EPS,
 ):
     """x -> x + Attn(LN(x)) -> . + FF(LN(.)): one pre-norm layer (reference
-    vit.py:66-83 loop body), forward only.  On the CPU it is
-    :func:`layer_reference`; on a CUDA tensor it is seven kernel launches and
-    raises for a shape :func:`whole_layer_supported` refuses or an operand
-    that requires grad."""
-    scale = dim_head**-0.5 if scale is None else float(scale)
-    operands = (x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2, b_qkv, b_out)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
-        raise ValueError("fused_transformer_layer: forward only; an operand requires grad")
-    if x.device.type == "cpu":
-        return layer_reference(
-            x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
-            heads=heads, dim_head=dim_head, b_qkv=b_qkv, b_out=b_out, scale=scale, eps=eps,
-        )
-    dim, mlp_dim = x.shape[-1], w1.shape[0]
-    if not whole_layer_supported(x.shape, x.dtype, heads, dim_head, dim, mlp_dim):
-        raise ValueError(
-            f"fused_transformer_layer: x {tuple(x.shape)} {x.dtype} with heads={heads}, "
-            f"dim_head={dim_head}, mlp_dim={mlp_dim} is not supported by the kernels"
-        )
-    h = layernorm_rows(x, ln1_scale, ln1_bias, eps=eps)
-    qkv = gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
-    m = attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
-    y = gemm_bf16(m, w_out, "out", bias=b_out, residual=x)
-    h2 = layernorm_rows(y, ln2_scale, ln2_bias, eps=eps)
-    a = gemm_bf16(h2, w1, "fc1", bias=b1)
-    return gemm_bf16(a, w2, "fc2", bias=b2, residual=y)
+    vit.py:66-83 loop body), differentiable in every operand.  On the CPU it
+    is :func:`layer_reference`; on a CUDA tensor the forward is seven kernel
+    launches, the backward six more plus plain PyTorch for the FF vjp and the
+    weight gradients, and it raises for a shape :func:`whole_layer_supported`
+    refuses."""
+    if x.device.type != "cpu":
+        dim, mlp_dim = x.shape[-1], w1.shape[0]
+        if not whole_layer_supported(x.shape, x.dtype, heads, dim_head, dim, mlp_dim):
+            raise ValueError(
+                f"fused_transformer_layer: x {tuple(x.shape)} {x.dtype} with heads={heads}, "
+                f"dim_head={dim_head}, mlp_dim={mlp_dim} is not supported by the kernels"
+            )
+    return _layer(KERNELS, x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                  heads, dim_head, b_qkv, b_out, scale, eps)
