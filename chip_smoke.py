@@ -22,7 +22,22 @@ Phases, each printed as it ends:
      the first step's loss and gradients against the plain bf16 path and
      against an fp32 copy, and one step with grad_accum=2;
   8. training timing at bs=1024: ms/step kernel vs plain, peak device
-     memory, and each backward launch of one layer at bs=128.
+     memory, and each backward launch of one layer at bs=128;
+  9. dropout kernels against their twins at rate 0.1 and the shapes of
+     phase 3: the dropout_masks replay bitwise (n = 197 and 50, keep
+     fraction 0.9 +- 0.005), attention_rows[dropout] (n = 197 and 50),
+     gemm_bf16[block_out], dropout_apply bitwise, attention_bwd_rows[dropout]
+     (n = 197 and 50), and the attention-block Function's output and every
+     operand gradient against the same Function on the twins, at rate 0 and
+     rate 0.1;
+ 10. training with dropout: ViT-B/16 @224 (depth 12, dropout 0.1,
+     emb_dropout 0.1, remat=True) in bf16, 4 steps through make_train_step
+     with a generator: loss finite and falling, exact launch counters, the
+     first step's loss and gradients against the plain-twin path with the
+     same generator (the same masks);
+ 11. dropout training timing at bs=1024: ms/step kernel vs plain, peak
+     device memory, and each launch of one attention block's forward and
+     backward at bs=128.
 Each phase prints its seconds.  Then one JSON line with the kernels, and the
 last line {"ok": true, "device": {...}}.  Any failed check exits non-zero
 before it.
@@ -93,15 +108,39 @@ TRAIN_LAUNCHES_PER_LAYER = {  # forward 7 + backward 6
 # chain reads, against the plain bf16 path, loss 4.8e-4, grads 9.4e-3, worst
 # 1.5e-2 (the patch embedding's last LayerNorm, which every layer's dx
 # reaches); against fp32, 2.0e-4, 1.05e-2, 1.5e-2; grad_accum=2 against the
-# full batch, 0, 2.9e-3, 3.4e-3 (H100 80GB HBM3, 700 W).  Bounds:
-# about 3x the readings.
+# full batch, 0, 2.9e-3, 3.4e-3; with dropout 0.1 against the plain path
+# with the same masks, 8.0e-5 to 6.0e-4, 1.11e-2, 1.57e-2 (H100 80GB HBM3,
+# 700 W).  Bounds: about 3x the readings.
 TRAIN_VS_PLAIN = dict(loss=2e-3, grads=3e-2, worst=5e-2)
 TRAIN_VS_FP32 = dict(loss=2e-3, grads=3e-2, worst=5e-2)
 ACCUM_VS_FULL = dict(loss=1e-3, grads=1e-2, worst=1.5e-2)
+RATE, DROP_SEED = 0.1, 1234  # dropout of phases 9-11 (the reference README's ViT)
+KEEP_FRACTION_TOL = 0.005
+# Attention-block Function (phase 9), kernels vs twins at rate 0 and 0.1: a
+# right chain reads, for the output, max_abs 1.6e-2 (one ulp at |x| in
+# [2, 4)) and rel L2 5.1e-4; for the 7 operand gradients max_abs/max|want|
+# <= 5.5e-3 and rel L2 <= 1.57e-3 (H100 80GB HBM3, 700 W).  Bounds: the
+# forward kernels' for the output; 2^-6 of the largest element (~3x) and
+# rel L2 5e-3 (~3x) for the gradients
+BLOCK_GRAD_ATOL_FRAC = 2.0**-6
+BLOCK_GRAD_REL_L2 = 5e-3
+DROPOUT_LAUNCHES_PER_LAYER = {  # forward 4 + backward 7 (the FF is plain PyTorch)
+    "layernorm_rows": 2, "gemm_bf16": 3, "attention_rows[dropout]": 1, "gemm_bf16[block_out]": 1,
+    "dropout_apply": 1, "attention_bwd_rows[dropout]": 1, "gemm_f32out": 1, "layernorm_bwd_rows": 1,
+}
+# gemm_bf16[block_out] rounds once: against its twin only f32 summation order
+# differs, which flips the final rounding of a few elements in 10^4, and a
+# right kernel reads rel L2 4.5e-5 to 6.0e-5 (H100 80GB HBM3, 700 W); an
+# extra rounding of the f32 dot + bias moves every element by up to half an
+# ulp.  Bound: ~10x the reading
+BLOCK_OUT_REL_L2 = 5e-4
 TPU_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:1053"
 TPU_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:524"
+TPU_BLOCK_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:260"
+TPU_MASKS_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:190"
 SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer.cu"
 BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer_bwd.cu"
+DROPOUT_SOURCE = "vit_pytorch_tpu_torch/csrc/dropout.cu"
 
 
 def fail(msg):
@@ -286,27 +325,29 @@ def check_backward(fb, rnd):
 
 @contextlib.contextmanager
 def plain_layers():
-    """The model's layers through the plain twins: the same Function with
-    every kernel swapped for its twin (ops/fused_block.py::layer_reference)."""
+    """The model's layers through the plain twins: the same Functions with
+    every kernel swapped for its twin (ops/fused_block.py::layer_reference
+    for the whole layer, attention_block_reference for the attention block
+    of the dropout path)."""
     from vit_pytorch_tpu_torch.nn import blocks
     from vit_pytorch_tpu_torch.ops import fused_block as fb
 
-    saved = blocks.fused_transformer_layer
-    blocks.fused_transformer_layer = fb.layer_reference
+    saved = blocks.fused_transformer_layer, blocks.fused_attention_block
+    blocks.fused_transformer_layer, blocks.fused_attention_block = fb.layer_reference, fb.attention_block_reference
     try:
         yield
     finally:
-        blocks.fused_transformer_layer = saved
+        blocks.fused_transformer_layer, blocks.fused_attention_block = saved
 
 
-def vit_b(dev, dtype):
-    """ViT-B/16 @224 as bench.py:48-57 trains it (remat=True, dropout 0),
-    random weights from SEED, initialised in f32 and cast as the JAX bench
-    casts its params."""
+def vit_b(dev, dtype, **kw):
+    """ViT-B/16 @224 as bench.py:48-57 trains it (remat=True; dropout 0
+    unless ``kw`` says otherwise), random weights from SEED, initialised in
+    f32 and cast as the JAX bench casts its params."""
     from vit_pytorch_tpu_torch import ViT
 
     model = ViT(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP,
-                remat=True, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+                remat=True, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED), **kw)
     return model.to(dtype)
 
 
@@ -357,7 +398,7 @@ def check_training(fb, dev, gen):
             grads = grad_vector(model)
     sync()
     counts = dict(fb.LAUNCHES)
-    want = {k: DEPTH * per * TRAIN_STEPS for k, per in TRAIN_LAUNCHES_PER_LAYER.items()}
+    want = {k: DEPTH * TRAIN_LAUNCHES_PER_LAYER.get(k, 0) * TRAIN_STEPS for k in fb.LAUNCHES}
     log(f"  losses {[f'{v:.6f}' for v in losses]}; launches {counts} (expected {want}: {DEPTH} layers x "
         f"{sum(TRAIN_LAUNCHES_PER_LAYER.values())} launches x {TRAIN_STEPS} steps)")
     if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
@@ -380,7 +421,7 @@ def check_training(fb, dev, gen):
     fb.reset_launch_counts()
     loss_accum = make_train_step(accum, grad_accum=2)(create_train_state(accum), images.to(bf16), labels)["loss"].item()
     sync()
-    want_accum = {k: DEPTH * per * 2 for k, per in TRAIN_LAUNCHES_PER_LAYER.items()}
+    want_accum = {k: DEPTH * TRAIN_LAUNCHES_PER_LAYER.get(k, 0) * 2 for k in fb.LAUNCHES}
     log(f"  grad_accum=2: launches {fb.LAUNCHES} (expected {want_accum})")
     if dict(fb.LAUNCHES) != want_accum:
         fail("the grad_accum=2 step did not launch every kernel of every layer in each microbatch")
@@ -408,17 +449,8 @@ def time_training(fb, dev, gen, smi):
         with plain_layers():
             step(state, images, labels)
 
-    def host_ms(fn, iters=2):
-        fn()
-        sync()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        sync()
-        return (time.perf_counter() - t) * 1e3 / iters, torch.cuda.max_memory_allocated(dev) / 2**30
-
-    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (host_ms(f) for f in (plain_step, kernel_step, kernel_step, plain_step))
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                  for f in (plain_step, kernel_step, kernel_step, plain_step))
     log(f"  train step: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path {(p1 + p2) / 2:.3f} ms/step; "
         f"turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory "
         f"kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
@@ -462,6 +494,246 @@ def time_training(fb, dev, gen, smi):
     lk, lp = in_turns(lambda: layer_grads(fb.fused_transformer_layer, x, w, kw, g),
                       lambda: layer_grads(fb.layer_reference, x, w, kw, g), 5)
     log(f"  one layer forward+backward at bs={b}: kernels {lk:.4f} ms, plain {lp:.4f} ms")
+    sync()
+    return per_kernel
+
+
+BLOCK_OPERANDS = ("x", "w_qkv", "w_out", "ln_scale", "ln_bias", "b_qkv", "b_out")
+
+
+def block_grads(block, x, w, kw, g, rate):
+    """Output and every operand gradient of one attention block (``block``
+    is the kernel Function or its twin), called as the Transformer calls it
+    (residual = x), for the cotangent ``g``."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, w["w_qkv"], w["w_out"], w["ln1_scale"], w["ln1_bias"], kw["b_qkv"], kw["b_out"])]
+    xl, w_qkv, w_out, ln_s, ln_b, b_qkv, b_out = leaves
+    out = block(xl, xl, w_qkv, w_out, ln_s, ln_b, heads=HEADS, dim_head=DH, b_qkv=b_qkv, b_out=b_out,
+                dropout_rate=rate, dropout_seed=DROP_SEED if rate else None)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def check_dropout(fb, rnd, dev):
+    """Phase 9: the dropout kernels and the attention-block Function against
+    their plain twins on the card; returns the largest max_abs of each
+    kernel and the launches of the mask replay kernel in its checks."""
+    log(f"[9 dropout kernels] rate {RATE}, seed {DROP_SEED}; b={B_CHECK} n={N} dim={DIM} heads={HEADS} dh={DH}, bf16")
+    inner = HEADS * DH
+    akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+    dkw = dict(dropout_rate=RATE, seed=DROP_SEED)
+    w, kw = layer_weights(rnd)
+    x = rnd(B_CHECK, N, DIM)
+    errs = {"dropout_masks": 0.0, "dropout_apply": 0.0}
+    fb.reset_launch_counts()
+    with torch.inference_mode():
+        for n in ATTN_CHECK_N:
+            got = fb.dropout_masks(DROP_SEED, B_CHECK, n, DIM, HEADS, RATE, device=dev)
+            want = fb.dropout_masks_reference(DROP_SEED, B_CHECK, n, DIM, HEADS, RATE, device=dev)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            fracs = [t.float().mean().item() for t in got]
+            apart = not (torch.equal(got[0][0, 0], got[0][0, 1]) or torch.equal(got[0][0, 0], got[0][1, 0]))
+            ok = same and apart and all(abs(f - (1 - RATE)) <= KEEP_FRACTION_TOL for f in fracs)
+            log(f"  dropout_masks [n={n}] bitwise equal to the twin: {same}; streams of (img, head) apart: {apart}; "
+                f"keep fraction attention {fracs[0]:.5f}, output {fracs[1]:.5f} (want {1 - RATE} +- "
+                f"{KEEP_FRACTION_TOL}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"dropout_masks [n={n}] disagrees with its twin or keeps the wrong fraction")
+        sync()
+        mask_launches = fb.LAUNCHES["dropout_masks"]
+        h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
+        qkv_full = fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])
+        attn_errs = []
+        for n in ATTN_CHECK_N:
+            qkv = qkv_full if n == N else rnd(B_CHECK, n, 3 * inner)
+            attn_errs.append(compare(f"attention_rows[dropout] [n={n}]", fb.attention_rows(qkv, **akw, **dkw),
+                                     fb.attention_rows_reference(qkv, **akw, **dkw), ATTN_ATOL, ATTN_RTOL))
+        errs["attention_rows[dropout]"] = max(attn_errs)
+        sync()
+        m = rnd(B_CHECK, N, inner)
+        bo_errs = []
+        for site, rate, res in (("block_out", RATE, x), ("block_out, rate 0", 0.0, x),
+                                ("block_out, no residual", RATE, None)):
+            okw = dict(bias=kw["b_out"], residual=res, dropout_rate=rate, seed=DROP_SEED, heads=HEADS)
+            bo_errs.append(compare(f"gemm_bf16[{site}]", fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+                                   fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw), KERNEL_ATOL,
+                                   KERNEL_RTOL, BLOCK_OUT_REL_L2))
+        errs["gemm_bf16[block_out]"] = max(bo_errs)
+        sync()
+        g = rnd(B_CHECK, N, DIM)
+        same = torch.equal(fb.dropout_apply(g, DROP_SEED, heads=HEADS, rate=RATE),
+                           fb.out_dropout_bwd_reference(g, DROP_SEED, heads=HEADS, rate=RATE))
+        log(f"  dropout_apply bitwise equal to the twin: {same} {'ok' if same else 'FAILED'}")
+        if not same:
+            fail("dropout_apply disagrees with its twin")
+        sync()
+        bwd_errs = []
+        for n in ATTN_CHECK_N:
+            qkv = qkv_full if n == N else rnd(B_CHECK, n, 3 * inner)
+            dm = rnd(B_CHECK, n, inner)
+            m_got, dqkv = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
+            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw, **dkw)
+            bwd_errs.append(compare(f"attention_bwd_rows[dropout] m [n={n}]", m_got, m_want, ATTN_ATOL, ATTN_RTOL))
+            for i, part in enumerate("qkv"):
+                cols = slice(i * inner, (i + 1) * inner)
+                bwd_errs.append(compare(f"attention_bwd_rows[dropout] d{part} [n={n}]", dqkv[..., cols],
+                                        dqkv_want[..., cols], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+        errs["attention_bwd_rows[dropout]"] = max(bwd_errs)
+        sync()
+    g = rnd(B_CHECK, N, DIM)
+    for rate in (0.0, RATE):
+        fb.reset_launch_counts()
+        out, grads = block_grads(fb.fused_attention_block, x, w, kw, g, rate)
+        sync()
+        counts = {k: v for k, v in fb.LAUNCHES.items() if v}
+        out_want, grads_want = block_grads(fb.attention_block_reference, x, w, kw, g, rate)
+        log(f"  attention block [rate {rate}]: launches {counts}")
+        compare(f"attention block [rate {rate}] (out)", out, out_want, KERNEL_ATOL, KERNEL_RTOL)
+        for name, a, b in zip(BLOCK_OPERANDS, grads, grads_want):
+            compare(f"block grad d{name} [rate {rate}]", a, b, None, KERNEL_RTOL, BLOCK_GRAD_REL_L2,
+                    atol_frac=BLOCK_GRAD_ATOL_FRAC)
+    sync()
+    return errs, mask_launches
+
+
+def check_dropout_training(fb, dev, gen):
+    """Phase 10: ViT-B/16 training steps with dropout 0.1 through
+    make_train_step with a generator; returns the launch counts of the
+    kernel path's steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[10 dropout training] ViT-B/16 @224, depth {DEPTH}, dropout {RATE}, emb_dropout {RATE}, remat=True, bf16, "
+        f"seed {SEED}; bs={B_TRAIN}, {TRAIN_STEPS} Adam steps on one batch, dropout generator seed {SEED + 1}")
+    model = vit_b(dev, bf16, dropout=RATE, emb_dropout=RATE)
+    initial = copy.deepcopy(model)
+    names = [n for n, _ in model.named_parameters()]
+    images = torch.randn(B_TRAIN, 3, 224, 224, generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
+    state, step = create_train_state(model), make_train_step(model)
+    drop_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    fb.reset_launch_counts()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        losses.append(step(state, images, labels, drop_gen)["loss"].item())
+        if i == 0:
+            grads = grad_vector(model)
+    sync()
+    counts = dict(fb.LAUNCHES)
+    want = {k: DEPTH * DROPOUT_LAUNCHES_PER_LAYER.get(k, 0) * TRAIN_STEPS for k in fb.LAUNCHES}
+    log(f"  losses {[f'{v:.6f}' for v in losses]}; launches {counts} (expected {want}: {DEPTH} layers x "
+        f"{sum(DROPOUT_LAUNCHES_PER_LAYER.values())} launches x {TRAIN_STEPS} steps)")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+        fail("the dropout training loss is not finite or does not fall on the repeated batch")
+    if counts != want:
+        fail("the dropout training path did not launch every kernel of every layer")
+
+    plain = copy.deepcopy(initial)
+    fb.reset_launch_counts()
+    with plain_layers():
+        metrics = make_train_step(plain)(create_train_state(plain), images, labels,
+                                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    loss_plain = metrics["loss"].item()
+    sync()
+    if any(fb.LAUNCHES.values()):
+        fail(f"the plain path launched kernels: {fb.LAUNCHES}")
+    compare_grads("first step vs plain bf16, same masks", grads, grad_vector(plain), losses[0], loss_plain,
+                  TRAIN_VS_PLAIN, names)
+    return counts
+
+
+def train_step_ms(dev, fn, iters=2):
+    """Host ms of one training step (after one warm-up step) and the peak
+    device memory of those steps, GiB."""
+    fn()
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / iters, torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def time_dropout_training(fb, dev, gen, smi):
+    """Phase 11: ms/step with dropout at bs=1024, kernel and plain paths in
+    turns, peak memory, and each launch of one attention block at bs=128;
+    returns the new kernels' (kernel ms, plain ms)."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[11 dropout training timing] ViT-B/16 bs={B_TRAIN_TIME}, dropout {RATE}, emb_dropout {RATE}, {smi}")
+    model = vit_b(dev, bf16, dropout=RATE, emb_dropout=RATE)
+    images = torch.randn(B_TRAIN_TIME, 3, 224, 224, generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (B_TRAIN_TIME,), generator=gen, device=dev)
+    state, step = create_train_state(model), make_train_step(model)
+    drop_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def kernel_step():
+        step(state, images, labels, drop_gen)
+
+    def plain_step():
+        with plain_layers():
+            step(state, images, labels, drop_gen)
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                  for f in (plain_step, kernel_step, kernel_step, plain_step))
+    log(f"  train step with dropout: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path {(p1 + p2) / 2:.3f} "
+        f"ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory "
+        f"kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    del model, state, step, images
+
+    b = B_TIME
+    w, kw = layer_weights(lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16))
+    x = torch.randn(b, N, DIM, generator=gen, device=dev).to(bf16)
+    g = torch.randn(b, N, DIM, generator=gen, device=dev).to(bf16)
+    akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5, dropout_rate=RATE, seed=DROP_SEED)
+    okw = dict(bias=kw["b_out"], residual=x, dropout_rate=RATE, seed=DROP_SEED, heads=HEADS)
+    with torch.inference_mode():
+        h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
+        qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])
+        m = fb.attention_rows(qkv, **akw)
+        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+        gm = fb.dropout_apply(g, DROP_SEED, heads=HEADS, rate=RATE)
+        dm = fb.gemm_bf16(gm, w_out_t, "cast")
+        _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+        dh = fb.gemm_f32out(dqkv, w_qkv_t)
+        launches = (  # (kernel, site, kernel call, plain call): the forward's 4, then the backward's 7
+            ("layernorm_rows", "ln1", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+             lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])),
+            ("gemm_bf16", "qkv", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv", bias=kw["b_qkv"]),
+             lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])),
+            ("attention_rows[dropout]", "attention", lambda: fb.attention_rows(qkv, **akw),
+             lambda: fb.attention_rows_reference(qkv, **akw)),
+            ("gemm_bf16[block_out]", "out (+b, dropout, +x)", lambda: fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+             lambda: fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw)),
+            ("dropout_apply", "gm", lambda: fb.dropout_apply(g, DROP_SEED, heads=HEADS, rate=RATE),
+             lambda: fb.out_dropout_bwd_reference(g, DROP_SEED, heads=HEADS, rate=RATE)),
+            ("layernorm_rows", "ln1 (recompute)", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+             lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])),
+            ("gemm_bf16", "qkv (recompute)", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv", bias=kw["b_qkv"]),
+             lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])),
+            ("gemm_bf16", "dm = gm.W_out", lambda: fb.gemm_bf16(gm, w_out_t, "cast"),
+             lambda: fb.gemm_bf16_reference(gm, w_out_t, "cast")),
+            ("attention_bwd_rows[dropout]", "attention backward", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw)),
+            ("gemm_f32out", "dh = dqkv.W_qkv", lambda: fb.gemm_f32out(dqkv, w_qkv_t),
+             lambda: fb.gemm_f32out_reference(dqkv, w_qkv_t)),
+            ("layernorm_bwd_rows", "LN1 backward (+g)",
+             lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=g),
+             lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=g)),
+            ("dropout_masks", "mask replay", lambda: fb.dropout_masks(DROP_SEED, b, N, DIM, HEADS, RATE, device=dev),
+             lambda: fb.dropout_masks_reference(DROP_SEED, b, N, DIM, HEADS, RATE, device=dev)),
+        )
+        per_kernel = {}
+        log(f"  one attention block's launches at bs={b} (forward, backward, then the mask replay):")
+        for name, site, kern, plain in launches:
+            km, pm = in_turns(kern, plain, 10)
+            if "[" in name or name.startswith("dropout"):
+                per_kernel[name] = (km, pm)
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    bk, bp = in_turns(lambda: block_grads(fb.fused_attention_block, x, w, kw, g, RATE),
+                      lambda: block_grads(fb.attention_block_reference, x, w, kw, g, RATE), 5)
+    log(f"  one attention block forward+backward at bs={b}, rate {RATE}: kernels {bk:.4f} ms, plain {bp:.4f} ms")
     sync()
     return per_kernel
 
@@ -636,8 +908,28 @@ def main():
     per_kernel.update({name: list(t) for name, t in time_training(fb, dev, gen, smi).items()})
     phase_done("phase 8")
 
+    # -- 9. dropout kernels against their plain twins --------------------------
+    dropout_errs, mask_launches = check_dropout(fb, rnd, dev)
+    errs.update(dropout_errs)
+    if not mask_launches:
+        fail("phase 9 did not launch the dropout_masks kernel")
+    phase_done("phase 9")
+
+    # -- 10. training with dropout ---------------------------------------------
+    dropout_counts = check_dropout_training(fb, dev, gen)
+    phase_done("phase 10")
+
+    # -- 11. dropout training timing --------------------------------------------
+    per_kernel.update({name: list(t) for name, t in time_dropout_training(fb, dev, gen, smi).items()})
+    phase_done("phase 11")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
-    # the training path's (phase 7)
+    # the training path's (phase 7); the dropout variants: the dropout
+    # training path's (phase 10); the mask replay: phase 9's checks
+    dropout_kernels = (
+        ("attention_rows[dropout]", SOURCE, TPU_BLOCK_KERNEL), ("gemm_bf16[block_out]", SOURCE, TPU_BLOCK_KERNEL),
+        ("dropout_apply", DROPOUT_SOURCE, TPU_BWD_KERNEL), ("attention_bwd_rows[dropout]", BWD_SOURCE, TPU_BWD_KERNEL),
+    )
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL, "path": "serving",
          "launches": counts[name], "max_abs_err": errs[name],
@@ -648,9 +940,19 @@ def main():
          "replaces": TPU_BWD_KERNEL, "path": "training", "launches": train_counts[name], "max_abs_err": errs[name],
          "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
         for name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")
+    ] + [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": "dropout training",
+         "launches": dropout_counts[name], "max_abs_err": errs[name],
+         "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
+        for name, source, replaces in dropout_kernels
+    ] + [
+        {"name": "dropout_masks", "route": "cuda", "source": DROPOUT_SOURCE, "replaces": TPU_MASKS_KERNEL,
+         "path": "mask replay", "launches": mask_launches, "max_abs_err": errs["dropout_masks"],
+         "ms": per_kernel["dropout_masks"][0], "plain_ms": per_kernel["dropout_masks"][1]}
     ]
     log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward; launches: the serving "
-        "requests for the forward kernels, the training steps for the backward kernels)")
+        "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
+        "for the dropout variants, phase 9's mask checks for dropout_masks)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -26,6 +26,7 @@ DIM = H * D
 MLP = 2 * DIM
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-5, 2e-4
+DROP_RATE, DROP_SEED = 0.1, 77
 # the JAX order of fused_transformer_layer's differentiable operands
 OPERANDS = ("x", "w_qkv", "b_qkv", "w_out", "b_out", "ln1s", "ln1b", "ln2s", "ln2b", "w1", "b1", "w2", "b2")
 KERNELS = ("w_qkv", "w_out", "w1", "w2")  # Dense (in, out) in JAX, Linear (out, in) in the port
@@ -127,9 +128,11 @@ def test_layer_grads_match_jax(qkv_bias):
 
 
 def _wrapper_cases(heads=H, dim_head=D):
-    """(name, wrapper call, twin call) of the backward's wrappers, on the
-    inputs ``t`` (a dict of tensors)."""
+    """(name, wrapper call, twin call) of the backward's wrappers and the
+    attention block's dropout wrappers, on the inputs ``t`` (a dict of
+    tensors)."""
     akw = dict(heads=heads, dim_head=dim_head, scale=dim_head**-0.5)
+    dkw = dict(dropout_rate=DROP_RATE, seed=DROP_SEED)
     return {
         "attention_bwd_rows": (
             lambda t: port.attention_bwd_rows(t["qkv"], t["dm"], **akw),
@@ -147,6 +150,29 @@ def _wrapper_cases(heads=H, dim_head=D):
             lambda t: port.gemm_bf16(t["g"], t["w_out_t"], "cast"),
             lambda t: port.gemm_bf16_reference(t["g"], t["w_out_t"], "cast"),
         ),
+        # the attention block's dropout kernels and variants
+        "attention_rows[dropout]": (
+            lambda t: port.attention_rows(t["qkv"], **akw, **dkw),
+            lambda t: port.attention_rows_reference(t["qkv"], **akw, **dkw),
+        ),
+        "gemm_bf16[block_out]": (
+            lambda t: port.gemm_bf16(t["x"], t["w_out_t"], "block_out", bias=t["b_out"], residual=t["g"],
+                                     heads=heads, **dkw),
+            lambda t: port.gemm_bf16_reference(t["x"], t["w_out_t"], "block_out", bias=t["b_out"], residual=t["g"],
+                                               heads=heads, **dkw),
+        ),
+        "dropout_apply": (
+            lambda t: port.dropout_apply(t["g"], DROP_SEED, heads=heads, rate=DROP_RATE),
+            lambda t: port.out_dropout_bwd_reference(t["g"], DROP_SEED, heads=heads, rate=DROP_RATE),
+        ),
+        "attention_bwd_rows[dropout]": (
+            lambda t: port.attention_bwd_rows(t["qkv"], t["dm"], **akw, **dkw),
+            lambda t: port.attention_bwd_rows_reference(t["qkv"], t["dm"], **akw, **dkw),
+        ),
+        "dropout_masks": (
+            lambda t: port.dropout_masks(DROP_SEED, B, N, DIM, heads, DROP_RATE, device=t["x"].device),
+            lambda t: port.dropout_masks_reference(DROP_SEED, B, N, DIM, heads, DROP_RATE, device="cpu"),
+        ),
     }
 
 
@@ -160,6 +186,7 @@ def _wrapper_inputs(dtype=torch.float32):
     t["w_qkv_t"] = torch.from_numpy(a["w_qkv"].copy()).to(dtype)  # W_qkv^T in the (out, in) layout: (dim, 3*inner)
     t["w_out_t"] = torch.from_numpy(a["w_out"].copy()).to(dtype)
     t["dh"] = torch.from_numpy(rng.standard_normal((B, N, DIM)).astype(np.float32))  # f32, as gemm_f32out gives it
+    t["b_out"] = _torch(a, "b_out").to(dtype)
     return t
 
 

@@ -170,6 +170,107 @@ def test_generator_seeds_dropout():
     assert loss(0) != loss(1)
 
 
+def _force_attention_block_route(monkeypatch):
+    """On CPU tensors in fp32, send every layer through the port's
+    attention-block Function (whose wrappers run their twins), as a CUDA
+    bf16 model with the whole layer refused would go; returns the list the
+    spy fills with each call's grad_fn name."""
+    monkeypatch.setattr(torch_blocks, "on_cuda", lambda x: True)
+    monkeypatch.setattr(torch_blocks, "whole_layer_supported", lambda *a, **k: False)
+    monkeypatch.setattr(torch_blocks, "fused_block_supported", lambda *a, **k: True)
+    monkeypatch.setattr(torch_blocks, "fused_dropout_supported", lambda *a, **k: True)
+    calls, block = [], torch_blocks.fused_attention_block
+
+    def spy(*args, **kwargs):
+        out = block(*args, **kwargs)
+        calls.append(type(out.grad_fn).__name__ if out.grad_fn is not None else None)
+        return out
+
+    monkeypatch.setattr(torch_blocks, "fused_attention_block", spy)
+    return calls
+
+
+def test_attention_block_route_step_matches_jax(monkeypatch):
+    """At dropout 0 the attention-block route (forced on both sides: the
+    port's Function on its twins, the JAX ``fused_attention_block`` in
+    interpret mode with the whole layer refused) gives the JAX step's loss,
+    gradients and updated params."""
+    monkeypatch.setattr(jax_blocks, "on_tpu", lambda: True)
+    monkeypatch.setattr(jax_blocks, "fused_block_supported", lambda *a, **k: True)
+    monkeypatch.setattr(jax_blocks, "whole_layer_supported", lambda *a, **k: False)
+    jax_block, jax_calls = jax_blocks.fused_attention_block, []
+
+    def jax_spy(*args, **kwargs):
+        jax_calls.append(1)
+        return jax_block(*args, **kwargs, interpret=True)
+
+    monkeypatch.setattr(jax_blocks, "fused_attention_block", jax_spy)
+    calls = _force_attention_block_route(monkeypatch)
+    port_fb.reset_launch_counts()
+    _check_step(*_setup(), grad_accum=1)
+    assert calls == ["_FusedAttentionBlockBackward"] * KW["depth"]
+    assert jax_calls  # the JAX side traced its attention-block kernel
+    assert not any(port_fb.LAUNCHES.values())
+
+
+DROPOUT_KW = dict(dropout=0.1, emb_dropout=0.1)
+
+
+def _dropout_step(seed, monkeypatch=None, **model_kw):
+    """Loss and gradients of one dropout step of the small ViT with the
+    step's generator seeded by ``seed``."""
+    torch.manual_seed(123)
+    _, _, model, img, labels = _setup(**DROPOUT_KW, **model_kw)
+    step = port_train.make_train_step(model)
+    loss = step(port_train.create_train_state(model), torch.from_numpy(img), torch.from_numpy(labels).long(),
+                torch.Generator().manual_seed(seed))["loss"]
+    return float(loss), [p.grad.clone() for p in model.parameters()]
+
+
+def test_dropout_route_is_taken_and_remat_wraps_only_the_ff(monkeypatch):
+    """With dropout 0.1 in training and ``remat=True``, every layer's
+    attention runs the attention-block Function and checkpoint wraps only
+    the FF calls (JAX blocks.py:655-658)."""
+    calls = _force_attention_block_route(monkeypatch)
+    wrapped, real = [], torch_blocks.checkpoint
+
+    def checkpoint_spy(fn, *args, **kwargs):
+        wrapped.append(type(fn).__name__)
+        return real(fn, *args, **kwargs)
+
+    monkeypatch.setattr(torch_blocks, "checkpoint", checkpoint_spy)
+    loss, grads = _dropout_step(0, remat=True)
+    assert calls == ["_FusedAttentionBlockBackward"] * KW["depth"]
+    assert wrapped == ["FeedForward"] * KW["depth"]
+    assert np.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_dropout_route_generator_decides_the_masks(monkeypatch):
+    """The same generator gives the same loss and gradients bit for bit
+    (attention masks from the seeds the CPU generator draws, FF and
+    embedding masks from torch's RNG in the same order); another generator
+    gives others."""
+    calls = _force_attention_block_route(monkeypatch)
+    loss0, grads0 = _dropout_step(0, remat=True)
+    again, grads_again = _dropout_step(0, remat=True)
+    other, grads_other = _dropout_step(1, remat=True)
+    assert len(calls) == 3 * KW["depth"]
+    assert loss0 == again and all(torch.equal(a, b) for a, b in zip(grads0, grads_again))
+    assert loss0 != other and not all(torch.equal(a, b) for a, b in zip(grads0, grads_other))
+
+
+def test_dropout_route_eval_logits_match_jax(monkeypatch):
+    """In eval mode dropout is off: the model with dropout 0.1 gives the JAX
+    ViT's ``train=False`` logits, through the attention-block route."""
+    calls = _force_attention_block_route(monkeypatch)
+    jmodel, params, model, img, _ = _setup(**DROPOUT_KW)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(img), train=False))
+    model.eval()
+    got = model(torch.from_numpy(img)).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    assert len(calls) == KW["depth"]
+
+
 def test_cross_entropy_matches_optax():
     rng = np.random.default_rng(4)
     logits = rng.standard_normal((6, 10)).astype(np.float32) * 3

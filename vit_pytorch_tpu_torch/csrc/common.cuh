@@ -1,6 +1,6 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
-// fused_layer_bwd.cu).  Everything here has internal linkage: each source
-// that includes it gets its own copy.
+// fused_layer_bwd.cu, dropout.cu).  Everything here has internal linkage:
+// each source that includes it gets its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,8 +17,88 @@ constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
 constexpr int kAttnDh = 64;
 constexpr int kAttnLd = kAttnDh + 8;  // shared-memory row stride: 144 bytes, off the bank period
 constexpr int kAttnKT = 13;           // 16-row chunks of the padded sequence
+constexpr int kKeepWords = (16 * kAttnKT + 31) / 32;  // 32-key words of one keep row (7)
+
+// In-kernel dropout (the JAX package's _kernel / _bwd_kernel / dropout_masks,
+// ops/fused_block.py:150-222).  The TPU kernels seed the TPU PRNG per
+// (seed, img * 1024 + head) and draw uint32 bits; here the same pair is the
+// key of a counter-based Philox4x32-10, and the counter is (row, col / 4, 0,
+// 0): word col % 4 of the result is the element's bits, kept iff bits >=
+// threshold = min(int(rate * 2^32), 2^32 - 1) (_dropout_threshold :150-152).
+// So a keep bit is a pure function of (seed, img, head, row, col): the
+// forward, both backward passes and the replay kernel draw the same mask in
+// any order.  The output dropout after the projection is stream head =
+// heads (_out_keep :182-187).  The bits are not the TPU's.
+struct DropoutArgs {
+  uint32_t seed;       // the int32 seed's bit pattern
+  uint32_t threshold;  // keep iff bits >= threshold
+  float inv;           // 1 / (1 - rate), applied in f32
+};
 
 namespace {
+
+// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10 rounds)
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// the Philox key's second word for (image, head); head = heads is the
+// output-dropout stream
+__device__ __forceinline__ uint32_t dropout_stream(int img, int head) {
+  return static_cast<uint32_t>(img) * 1024u + static_cast<uint32_t>(head);
+}
+
+// keep bits of columns 4*c4 .. 4*c4 + 3 of one row of a stream, in bits 0..3
+__device__ __forceinline__ uint32_t keep_nibble(const DropoutArgs& d, uint32_t stream, int row, int c4) {
+  const uint4 r = philox4x32_10(make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(c4), 0u, 0u),
+                                make_uint2(d.seed, stream));
+  return static_cast<uint32_t>(r.x >= d.threshold) | (static_cast<uint32_t>(r.y >= d.threshold) << 1) |
+         (static_cast<uint32_t>(r.z >= d.threshold) << 2) | (static_cast<uint32_t>(r.w >= d.threshold) << 3);
+}
+
+// A block's keep tile, bit-packed in shared memory: words[r * WORDS + w] bit
+// i is the keep bit of row r0 + r, column c0 + 32w + i (c0 a multiple of 4);
+// rows >= n_rows and columns >= n_cols read 0.  All kAttnThreads threads;
+// each word is 8 Philox calls, so the attention loops read one shared word
+// per element pair instead of drawing bits in their register-bound bodies.
+template <int ROWS, int WORDS>
+__device__ __forceinline__ void fill_keep_tile(uint32_t* words, const DropoutArgs& d, uint32_t stream, int r0, int c0,
+                                               int n_rows, int n_cols) {
+  for (int i = threadIdx.x; i < ROWS * WORDS; i += kAttnThreads) {
+    const int r = i / WORDS, w = i % WORDS;
+    const int col = c0 + 32 * w;
+    uint32_t bits = 0u;
+    if (r0 + r < n_rows && col < n_cols) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) bits |= keep_nibble(d, stream, r0 + r, col / 4 + q) << (4 * q);
+      if (n_cols - col < 32) bits &= (1u << (n_cols - col)) - 1u;
+    }
+    words[i] = bits;
+  }
+}
+
+// f32 accumulator tile j of rows (g, g+8) x columns (8j + 2t, +1) times the
+// keep bits of those columns in the keep rows krow0, krow1, and inv:
+// where(keep, v, 0) * inv (_kernel :345-348, _bwd_kernel :634-654)
+__device__ __forceinline__ void apply_keep(float v[4], const uint32_t* krow0, const uint32_t* krow1, int j, int t,
+                                           float inv) {
+  const int c = 8 * j + 2 * t;
+  const uint32_t b0 = krow0[c >> 5] >> (c & 31), b1 = krow1[c >> 5] >> (c & 31);
+  v[0] = (b0 & 1u) ? v[0] * inv : 0.f;
+  v[1] = (b0 & 2u) ? v[1] * inv : 0.f;
+  v[2] = (b1 & 1u) ? v[2] * inv : 0.f;
+  v[3] = (b1 & 2u) ? v[3] * inv : 0.f;
+}
 
 // D = A(16x16, row) . B(16x8, col) + D, bf16 operands, f32 accumulators.
 // Fragment layout (g = lane / 4, t = lane % 4): A holds rows (g, g+8) x

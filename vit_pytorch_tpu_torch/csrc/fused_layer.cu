@@ -22,6 +22,12 @@
 // qkv bias is added in f32 before the bf16 cast; the out/fc1/fc2 results are
 // cast to bf16 first and their bias and residual adds round to bf16 each.
 //
+// The attention-block kernel _kernel (fused_block.py:260), which the JAX
+// package runs where the whole layer is refused (training with dropout),
+// runs here as layernorm_rows -> gemm_bf16<QKV> -> attention_rows<DROP>
+// (dropout on P) -> gemm_bf16<BLOCK_OUT> (bias, output dropout and residual
+// in f32, one cast), the dropout drawn in-kernel from common.cuh's Philox.
+//
 // Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC
 // each source, linked into one shared library and bound with ctypes: every
@@ -160,7 +166,24 @@ layernorm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, co
 // tile loop are later work.
 // ---------------------------------------------------------------------------
 
-enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4 };
+enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4, kEpiBlockOut = 5 };
+
+// kEpiBlockOut is the out projection of the attention-block kernel.
+// Replaces: the out-proj site of ops/fused_block.py::_kernel (:357-374), which
+// rounds once: f32 dot + f32 bias, times keep * 1/(1 - rate) of the output
+// stream (image = row / n, stream head = heads) when dropout is on, + the
+// f32 residual, one cast.  (The whole layer's kEpiOut rounds after each
+// add, as _layer_rows does; the two are different results.)
+// Bound on this card: tensor-core throughput, as kEpiOut; the keep bits are
+// one Philox call per accumulator pair, ~32 a thread, in the epilogue.
+// Design: the main loop unchanged; the bits come from keep_nibble
+// (common.cuh), the same function the replay and dropout_apply kernels use.
+struct BlockOutArgs {
+  DropoutArgs d;
+  int n;      // rows of one image
+  int heads;  // the output stream's head index
+  int drop;   // 0: no mask
+};
 
 // kEpiF32 (gemm_f32out) stores the f32 dot as it is.
 // Replaces: dh = dqkv . Wqkv^T of ops/fused_block.py::_bwd_kernel
@@ -174,14 +197,33 @@ enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4 
 
 template <int EPI>
 __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
-                                           const bf16* __restrict__ res, void* __restrict__ out) {
+                                           const bf16* __restrict__ res, void* __restrict__ out,
+                                           const BlockOutArgs& bo) {
   const size_t off = static_cast<size_t>(row) * N + col;
   if constexpr (EPI == kEpiF32) {
     *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
     return;
   }
   uint32_t o;
-  if (EPI == kEpiQkv) {
+  if (EPI == kEpiBlockOut) {
+    if (bias) {
+      float2 bb = load_pair_f32(bias + col);
+      v0 += bb.x;
+      v1 += bb.y;
+    }
+    if (bo.drop) {  // col is even: col, col + 1 are bits (col & 3), +1 of one nibble
+      const int img = row / bo.n;
+      const uint32_t keep = keep_nibble(bo.d, dropout_stream(img, bo.heads), row - img * bo.n, col >> 2) >> (col & 3);
+      v0 *= (keep & 1u) ? bo.d.inv : 0.f;
+      v1 *= (keep & 2u) ? bo.d.inv : 0.f;
+    }
+    if (res) {
+      float2 r = load_pair_f32(res + off);
+      v0 += r.x;
+      v1 += r.y;
+    }
+    o = pack_floats(v0, v1);
+  } else if (EPI == kEpiQkv) {
     // _layer_rows :1015-1018 -- bias added to the f32 dot, then one cast
     if (bias) {
       float2 bb = load_pair_f32(bias + col);
@@ -259,7 +301,7 @@ constexpr int kGemmSmem = kGemmStages * (kGemmATile + kGemmBTile) * static_cast<
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const bf16* __restrict__ bias,
-                 const bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K) {
+                 const bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K, BlockOutArgs bo) {
   extern __shared__ unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
   bf16* Bs = As + kGemmStages * kGemmATile;
@@ -324,19 +366,19 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const b
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
-      if (row < M) gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out);
+      if (row < M) gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out, bo);
     }
   }
 }
 
 template <int EPI>
 cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, void* out, int M, int N,
-                        int K, cudaStream_t stream) {
+                        int K, const BlockOutArgs& bo, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, bias, res, out, M, N, K);
+  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, bias, res, out, M, N, K, bo);
   return cudaGetLastError();
 }
 
@@ -370,9 +412,17 @@ cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf
 
 // kAttnQT, kAttnThreads, kAttnDh, kAttnLd, kAttnKT: common.cuh
 constexpr int kAttnSmem = (kAttnQT + 2 * 16 * kAttnKT) * kAttnLd * static_cast<int>(sizeof(bf16));
+// with dropout, + the block's bit-packed keep tile: 64 rows x 7 words
+constexpr int kAttnDropSmem = kAttnSmem + kAttnQT * kKeepWords * static_cast<int>(sizeof(uint32_t));
 
+// DROP: the dropout of ops/fused_block.py::_kernel (:345-348) -- P, in f32,
+// is where(keep, p, 0) * 1/(1 - rate) before its bf16 cast, keep from the
+// (seed, img, head) stream.  The block draws its 64 x n keep bits once into
+// shared memory (fill_keep_tile) before the logits take the registers.
+template <bool DROP>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads, float scale_log2e) {
+attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads, float scale_log2e,
+                      DropoutArgs drop) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // keys, padded
   constexpr int NT = 2 * KT;   // 8-key logit tiles
@@ -381,6 +431,7 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   bf16* Qs = reinterpret_cast<bf16*>(attn_smem);  // [QT][ld]
   bf16* Ks = Qs + kAttnQT * kAttnLd;               // [NP][ld]
   bf16* Vs = Ks + NP * kAttnLd;                    // [NP][ld]
+  uint32_t* Keep = reinterpret_cast<uint32_t*>(Vs + NP * kAttnLd);  // [QT][kKeepWords], DROP only
 
   const int q0 = blockIdx.x * kAttnQT, h = blockIdx.y, img = blockIdx.z;
   const int inner = heads * kAttnDh;
@@ -389,6 +440,7 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   load_head_rows<kAttnQT>(Qs, base, rstride, q0, n);
   load_head_rows<NP>(Ks, base + inner, rstride, 0, n);
   load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n);
+  if constexpr (DROP) fill_keep_tile<kAttnQT, kKeepWords>(Keep, drop, dropout_stream(img, h), q0, 0, n, n);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -396,6 +448,11 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   qk_logits(s, Qs + warp * 16 * kAttnLd, Ks, g, t);
   float mx0, mx1, inv0, inv1;
   softmax_rows(s, n, t, scale_log2e, mx0, mx1, inv0, inv1);
+  if constexpr (DROP) {
+    const uint32_t* krow0 = Keep + (warp * 16 + g) * kKeepWords;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) apply_keep(s[j], krow0, krow0 + 8 * kKeepWords, j, t, drop.inv);
+  }
 
   // P in bf16, laid out as the A operand of p.v: key chunk kc = tiles 2kc, 2kc+1
   uint32_t pf[KT][4];
@@ -444,32 +501,43 @@ int vit_layernorm_rows(const void* x, const void* w, const void* b, void* out, i
   return cudaGetLastError();
 }
 
+// block_out: n = rows of one image, heads = the output stream's head index;
+// drop = 0 leaves the mask out (seed, threshold, inv unread), and every other
+// epilogue ignores all five
 int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* res, void* out, int M, int N, int K,
-                  int epilogue, void* stream) {
+                  int epilogue, int n, int heads, int drop, unsigned seed, unsigned threshold, float inv,
+                  void* stream) {
   if (M <= 0 || N <= 0 || N % 8 || K % kGemmBK || (M + kGemmBM - 1) / kGemmBM > 65535) return cudaErrorInvalidValue;
   const bf16 *pa = static_cast<const bf16*>(a), *pw = static_cast<const bf16*>(w);
   const bf16 *pb = static_cast<const bf16*>(bias), *pr = static_cast<const bf16*>(res);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BlockOutArgs bo{DropoutArgs{seed, threshold, inv}, n, heads, drop};
   switch (epilogue) {
-    case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, out, M, N, K, s);
-    case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, out, M, N, K, s) : cudaErrorInvalidValue;
-    case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, out, M, N, K, s);
-    case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, out, M, N, K, s) : cudaErrorInvalidValue;
-    case kEpiF32: return launch_gemm<kEpiF32>(pa, pw, nullptr, nullptr, out, M, N, K, s);
+    case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, out, M, N, K, bo, s);
+    case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, out, M, N, K, bo, s) : cudaErrorInvalidValue;
+    case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, out, M, N, K, bo, s);
+    case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, out, M, N, K, bo, s) : cudaErrorInvalidValue;
+    case kEpiF32: return launch_gemm<kEpiF32>(pa, pw, nullptr, nullptr, out, M, N, K, bo, s);
+    case kEpiBlockOut:
+      if (n <= 0 || M % n || (drop && (N % 4 || heads < 0))) return cudaErrorInvalidValue;
+      return launch_gemm<kEpiBlockOut>(pa, pw, pb, pr, out, M, N, K, bo, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// drop = 0: no dropout (seed, threshold, inv unread)
 int vit_attention_rows(const void* qkv, void* out, int batch, int n, int heads, int dim_head, float scale_log2e,
-                       void* stream) {
+                       int drop, unsigned seed, unsigned threshold, float inv, void* stream) {
   if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0)
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  const auto kernel = drop ? attention_rows_kernel<true> : attention_rows_kernel<false>;
+  const int smem = drop ? kAttnDropSmem : kAttnSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
-  attention_rows_kernel<<<grid, kAttnThreads, kAttnSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale_log2e);
+  kernel<<<grid, kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale_log2e,
+      DropoutArgs{seed, threshold, inv});
   return cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 // ViT layer.
 //
 // They replace the TPU kernel vit_pytorch_tpu/ops/fused_block.py::_bwd_kernel
-// (:524, called at :786 by _pallas_backward) without dropout and qk-norm.
+// (:524, called at :786 by _pallas_backward) without qk-norm; its dropout
+// replay is the DROP variant of attention_bwd_rows and, for gm, dropout.cu.
 // That kernel runs one image per sequential grid step with both weight
 // matrices resident in VMEM: it recomputes LN1 and qkv, forms dm = dy.Wout^T,
 // runs the per-head attention backward with the logits in VMEM, forms
@@ -67,11 +68,23 @@ namespace {
 
 constexpr int kBwdRowSmem = (2 * kAttnQT + 2 * 16 * kAttnKT) * kAttnLd * static_cast<int>(sizeof(bf16));
 constexpr int kBwdKeySmem = kBwdRowSmem + 16 * kAttnKT * static_cast<int>(sizeof(float4));
+// with dropout, + the block's keep tile: the row pass's 64 query rows x 7
+// key words; the key pass's 208 query rows x 2 words of its 64 keys
+constexpr int kBwdRowDropSmem = kBwdRowSmem + kAttnQT * kKeepWords * static_cast<int>(sizeof(uint32_t));
+constexpr int kBwdKeyKeepWords = kAttnQT / 32;
+constexpr int kBwdKeyDropSmem = kBwdKeySmem + 16 * kAttnKT * kBwdKeyKeepWords * static_cast<int>(sizeof(uint32_t));
 
+// DROP: the dropout replay of _bwd_kernel (:634-656).  The keep mask of the
+// forward's (seed, img, head) stream is drawn again, into shared memory as
+// the forward draws it; pd = where(keep, p, 0) * inv feeds m and dv as
+// bf16(pd), dp is masked and scaled the same way, and
+// ds = p * (dp - rowsum(dp * p)) takes the unmasked f32 p.  The row pass's D
+// is that rowsum.
+template <bool DROP>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm, bf16* __restrict__ m_out,
                          bf16* __restrict__ dqkv, float4* __restrict__ stats, int n, int heads, float scale_log2e,
-                         float scale) {
+                         float scale, DropoutArgs drop) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // keys, padded
   constexpr int NT = 2 * KT;   // 8-key logit tiles
@@ -82,6 +95,7 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   bf16* Ds = Qs + kAttnQT * kAttnLd;                  // [QT][ld] dm rows
   bf16* Ks = Ds + kAttnQT * kAttnLd;                  // [NP][ld]
   bf16* Vs = Ks + NP * kAttnLd;                       // [NP][ld]
+  uint32_t* Keep = reinterpret_cast<uint32_t*>(Vs + NP * kAttnLd);  // [QT][kKeepWords], DROP only
 
   const int q0 = blockIdx.x * kAttnQT, h = blockIdx.y, img = blockIdx.z;
   const int inner = heads * kAttnDh;
@@ -91,10 +105,13 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   load_head_rows<kAttnQT>(Ds, dm + static_cast<size_t>(img) * n * inner + h * kAttnDh, inner, q0, n);
   load_head_rows<NP>(Ks, base + inner, rstride, 0, n);
   load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n);
+  if constexpr (DROP) fill_keep_tile<kAttnQT, kKeepWords>(Keep, drop, dropout_stream(img, h), q0, 0, n, n);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
+  const uint32_t* krow0 = Keep + (wrow + g) * kKeepWords;  // keep rows g, g + 8 (DROP)
+  const uint32_t* krow1 = krow0 + 8 * kKeepWords;
 
   float s[NT][4];  // logits, then p in f32
   qk_logits(s, Qs + wrow * kAttnLd, Ks, g, t);
@@ -104,7 +121,7 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   const int row0 = q0 + wrow + g, row1 = row0 + 8;
   const size_t orow0 = static_cast<size_t>(img) * n + row0, orow1 = orow0 + 8;
 
-  // m = bf16(p) . v
+  // m = bf16(pd) . v, pd = p or, with dropout, where(keep, p, 0) * inv
   {
     float o[DT][4];
 #pragma unroll
@@ -112,7 +129,15 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
 #pragma unroll
     for (int kc = 0; kc < KT; ++kc) {
       uint32_t a[4];
-      acc_to_a_frag(a, s[2 * kc], s[2 * kc + 1]);
+      if constexpr (DROP) {
+        float lo[4] = {s[2 * kc][0], s[2 * kc][1], s[2 * kc][2], s[2 * kc][3]};
+        float hi[4] = {s[2 * kc + 1][0], s[2 * kc + 1][1], s[2 * kc + 1][2], s[2 * kc + 1][3]};
+        apply_keep(lo, krow0, krow1, 2 * kc, t, drop.inv);
+        apply_keep(hi, krow0, krow1, 2 * kc + 1, t, drop.inv);
+        acc_to_a_frag(a, lo, hi);
+      } else {
+        acc_to_a_frag(a, s[2 * kc], s[2 * kc + 1]);
+      }
 #pragma unroll
       for (int dj = 0; dj < DT; ++dj) {
         uint32_t b[2];
@@ -132,7 +157,8 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
 #pragma unroll
   for (int kk = 0; kk < DK; ++kk) load_a_frag(df[kk], Ds + wrow * kAttnLd + kk * 16, kAttnLd, g, t);
 
-  // dp tile j (rows g, g+8 x keys 8j + 2t, +1) = dm . v^T
+  // dp tile j (rows g, g+8 x keys 8j + 2t, +1) = dm . v^T, with dropout
+  // where(keep, dp, 0) * inv
   auto dp_tile = [&](float dp[4], int j) {
     dp[0] = dp[1] = dp[2] = dp[3] = 0.f;
 #pragma unroll
@@ -141,6 +167,7 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
       load_b_frag_rows(b, Vs + j * 8 * kAttnLd + kk * 16, kAttnLd, g, t);
       mma_16816(dp, df[kk], b);
     }
+    if constexpr (DROP) apply_keep(dp, krow0, krow1, j, t, drop.inv);
   };
 
   // D = rowsum(dp * p)
@@ -195,9 +222,11 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   }
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm, bf16* __restrict__ dqkv,
-                         const float4* __restrict__ stats, int n, int heads, float scale_log2e, float scale) {
+                         const float4* __restrict__ stats, int n, int heads, float scale_log2e, float scale,
+                         DropoutArgs drop) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // queries, padded
   constexpr int DK = kAttnDh / 16;
@@ -208,6 +237,7 @@ attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   bf16* Qs = Vs + kAttnQT * kAttnLd;                  // [NP][ld] every query
   bf16* Ds = Qs + NP * kAttnLd;                       // [NP][ld] every dm row
   float4* St = reinterpret_cast<float4*>(Ds + NP * kAttnLd);  // [NP] max, 1/sum, D
+  uint32_t* Keep = reinterpret_cast<uint32_t*>(St + NP);      // [NP][2]: query rows x this block's keys, DROP only
 
   const int k0 = blockIdx.x * kAttnQT, h = blockIdx.y, img = blockIdx.z;
   const int inner = heads * kAttnDh;
@@ -219,10 +249,15 @@ attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   load_head_rows<NP>(Ds, dm + static_cast<size_t>(img) * n * inner + h * kAttnDh, inner, 0, n);
   const float4* st = stats + (static_cast<size_t>(img) * heads + h) * n;
   for (int r = threadIdx.x; r < NP; r += kAttnThreads) St[r] = r < n ? st[r] : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the same (query row, key column) bits as the forward and the row pass,
+  // walked by key: rows are every query, columns this block's 64 keys
+  if constexpr (DROP) fill_keep_tile<NP, kBwdKeyKeepWords>(Keep, drop, dropout_stream(img, h), 0, k0, n, n);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
+  // this thread's keys wrow + g and wrow + g + 8 share one 32-key word
+  const int kword = wrow >> 5, kbit0 = (wrow + g) & 31, kbit1 = kbit0 + 8;
   uint32_t kf[DK][4], vf[DK][4];
 #pragma unroll
   for (int kk = 0; kk < DK; ++kk) {
@@ -265,8 +300,18 @@ attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
         const float4 sq = St[q];  // padded queries: inv = 0, so p = 0
         pt[jj][e] = exp2f(pt[jj][e] * scale_log2e - sq.x) * sq.y;
         pt[jj][2 + e] = exp2f(pt[jj][2 + e] * scale_log2e - sq.x) * sq.y;
-        dst[jj][e] = pt[jj][e] * (dpt[jj][e] - sq.z);
-        dst[jj][2 + e] = pt[jj][2 + e] * (dpt[jj][2 + e] - sq.z);
+        if constexpr (DROP) {
+          // ds takes the unmasked p; pd = where(keep, p, 0) * inv feeds dv
+          const uint32_t kw = Keep[q * kBwdKeyKeepWords + kword];
+          const bool keep0 = (kw >> kbit0) & 1u, keep1 = (kw >> kbit1) & 1u;
+          dst[jj][e] = pt[jj][e] * ((keep0 ? dpt[jj][e] * drop.inv : 0.f) - sq.z);
+          dst[jj][2 + e] = pt[jj][2 + e] * ((keep1 ? dpt[jj][2 + e] * drop.inv : 0.f) - sq.z);
+          pt[jj][e] = keep0 ? pt[jj][e] * drop.inv : 0.f;
+          pt[jj][2 + e] = keep1 ? pt[jj][2 + e] * drop.inv : 0.f;
+        } else {
+          dst[jj][e] = pt[jj][e] * (dpt[jj][e] - sq.z);
+          dst[jj][2 + e] = pt[jj][2 + e] * (dpt[jj][2 + e] - sq.z);
+        }
       }
     }
     uint32_t ap[4], as[4];
@@ -463,26 +508,30 @@ layernorm_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ 
 extern "C" {
 
 // qkv (b, n, 3*inner) and dm (b, n, inner) bf16 -> m (b, n, inner) and
-// dqkv (b, n, 3*inner) bf16; stats (b, heads, n) float4 scratch
+// dqkv (b, n, 3*inner) bf16; stats (b, heads, n) float4 scratch; drop = 0:
+// no dropout (seed, threshold, inv unread)
 int vit_attention_bwd_rows(const void* qkv, const void* dm, void* m, void* dqkv, void* stats, int batch, int n,
-                           int heads, int dim_head, float scale_log2e, float scale, void* stream) {
+                           int heads, int dim_head, float scale_log2e, float scale, int drop, unsigned seed,
+                           unsigned threshold, float inv, void* stream) {
   if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0)
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdRowSmem);
+  const auto row_kernel = drop ? attention_bwd_row_kernel<true> : attention_bwd_row_kernel<false>;
+  const auto key_kernel = drop ? attention_bwd_key_kernel<true> : attention_bwd_key_kernel<false>;
+  const int row_smem = drop ? kBwdRowDropSmem : kBwdRowSmem, key_smem = drop ? kBwdKeyDropSmem : kBwdKeySmem;
+  cudaError_t err = cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, row_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_bwd_key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdKeySmem);
+    err = cudaFuncSetAttribute(key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, key_smem);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
   const bf16 *pq = static_cast<const bf16*>(qkv), *pd = static_cast<const bf16*>(dm);
-  attention_bwd_row_kernel<<<grid, kAttnThreads, kBwdRowSmem, s>>>(
-      pq, pd, static_cast<bf16*>(m), static_cast<bf16*>(dqkv), static_cast<float4*>(stats), n, heads, scale_log2e,
-      scale);
+  const DropoutArgs d{seed, threshold, inv};
+  row_kernel<<<grid, kAttnThreads, row_smem, s>>>(pq, pd, static_cast<bf16*>(m), static_cast<bf16*>(dqkv),
+                                                  static_cast<float4*>(stats), n, heads, scale_log2e, scale, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_key_kernel<<<grid, kAttnThreads, kBwdKeySmem, s>>>(
-      pq, pd, static_cast<bf16*>(dqkv), static_cast<const float4*>(stats), n, heads, scale_log2e, scale);
+  key_kernel<<<grid, kAttnThreads, key_smem, s>>>(pq, pd, static_cast<bf16*>(dqkv),
+                                                  static_cast<const float4*>(stats), n, heads, scale_log2e, scale, d);
   return cudaGetLastError();
 }
 

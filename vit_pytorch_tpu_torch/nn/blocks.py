@@ -8,8 +8,11 @@ unchanged.
 
 On a CUDA device, in bf16, ``Transformer`` sends each layer through the
 Hopper kernels of ``ops/fused_block.py``, forward and backward (the
-whole-layer predicate of the JAX ``Transformer``, blocks.py:618-653);
-everything else runs the module composite below.
+whole-layer predicate of the JAX ``Transformer``, blocks.py:618-653).  Where
+the whole layer is refused but the attention block is not (training with
+dropout), ``Attention`` runs the attention-block kernels with in-kernel
+dropout (``fused_block_eligible``, the JAX blocks.py:47-98); everything else
+runs the module composite below.
 """
 
 from __future__ import annotations
@@ -22,7 +25,37 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, on_cuda
-from ..ops.fused_block import LN_EPS, fused_transformer_layer, whole_layer_supported
+from ..ops.fused_block import (
+    LN_EPS,
+    fused_attention_block,
+    fused_block_supported,
+    fused_dropout_supported,
+    fused_transformer_layer,
+    whole_layer_supported,
+)
+
+
+def fused_block_eligible(
+    *, x: torch.Tensor, heads: int, dim_head: int, dim: int, flash, project_out: bool, dropout: float = 0.0,
+    train: bool = False,
+) -> bool:
+    """Whether ``Attention`` takes the attention-block kernels: the JAX
+    predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
+    predicate for ``Attention.forward`` (to dispatch) and ``Transformer``
+    (to leave remat off the call that fuses).  The JAX predicate's other
+    conditions (context, rotary, masks, bias, segments, recording, qk-norm)
+    are options the port's ``Attention`` does not have yet; they join the
+    predicate with them."""
+    return (
+        flash is not False  # explicit flash=False opts out of ALL kernels
+        # train-time dropout runs inside the kernels when their backward can
+        # replay the masks
+        and (dropout == 0.0 or not train or fused_dropout_supported(x.shape, heads, dim_head))
+        and project_out
+        and x.dim() == 3
+        and fused_block_supported(x.shape, x.dtype, heads, dim_head, dim)
+        and on_cuda(x)
+    )
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -64,12 +97,12 @@ class Attention(nn.Module):
 
     def __init__(
         self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
-        *, device=None, dtype=None,
+        *, flash: Optional[bool] = None, device=None, dtype=None,
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         inner = heads * dim_head
-        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.dim, self.heads, self.dim_head, self.dropout, self.flash = dim, heads, dim_head, dropout, flash
         self.project_out = not (heads == 1 and dim_head == dim)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False, **kw)
@@ -79,9 +112,32 @@ class Attention(nn.Module):
             else nn.Identity()
         )
 
-    def forward(self, x, context=None):
+    def fuses(self, x) -> bool:
+        """Whether a call on ``x`` takes the attention-block kernels."""
+        return fused_block_eligible(
+            x=x, heads=self.heads, dim_head=self.dim_head, dim=self.dim, flash=self.flash,
+            project_out=self.project_out, dropout=self.dropout, train=self.training,
+        )
+
+    def forward(self, x, context=None, *, residual=None):
+        """``residual``: optional tensor added to the output (the JAX
+        ``residual`` keyword, blocks.py:358-363).  On the kernel path it rides
+        into the block's last launch; on the module path it is a plain add."""
         if context is not None:
             raise NotImplementedError("cross-attention is not ported yet (ROADMAP: modules to port, item 9)")
+        if self.fuses(x):
+            rate = self.dropout if self.training else 0.0
+            # the int32 seed of the kernels' Philox streams, drawn from the
+            # CPU generator (seeded per step by make_train_step's generator):
+            # a draw on the card would stall the host once a layer
+            seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32)) if rate > 0.0 else None
+            cast = lambda t: t.to(x.dtype)
+            out_proj = self.to_out[0]
+            return fused_attention_block(
+                x, residual, cast(self.to_qkv.weight), cast(out_proj.weight), cast(self.norm.weight),
+                cast(self.norm.bias), heads=self.heads, dim_head=self.dim_head, b_out=cast(out_proj.bias),
+                eps=LN_EPS, dropout_rate=rate, dropout_seed=seed,
+            )
         b, n, _ = x.shape
         q, k, v = (
             self.to_qkv(self.norm(x))
@@ -89,7 +145,8 @@ class Attention(nn.Module):
             .permute(2, 0, 3, 1, 4)
         )
         out = dot_product_attention(q, k, v, dropout_rate=self.dropout if self.training else 0.0)
-        return self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
+        out = self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
+        return out if residual is None else out + residual
 
 
 class Transformer(nn.Module):
@@ -97,10 +154,13 @@ class Transformer(nn.Module):
 
     ``flash=False`` opts out of every kernel (JAX blocks.py:75).  ``remat``
     recomputes each attention and FF call in the backward
-    (``torch.utils.checkpoint``) on the composite path; on the whole-layer
-    path it is a no-op, as in the JAX package, whose remat wraps only the
-    calls that path never makes (blocks.py:655-658): the layer's Function
-    saves only its input and y."""
+    (``torch.utils.checkpoint``) on the composite path.  As in the JAX
+    package (blocks.py:655-658) it leaves alone the attention call that
+    takes the attention-block kernels, whose Function saves only x (it
+    remats the FF call alone there, with ``checkpoint``'s default
+    ``preserve_rng_state=True`` so that the FF's dropout masks replay), and
+    it is a no-op on the whole-layer path, whose Function saves only x and
+    y."""
 
     def __init__(
         self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
@@ -119,7 +179,7 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             nn.ModuleList(
                 [
-                    Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout, **kw),
+                    Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout, flash=flash, **kw),
                     FeedForward(dim, mlp_dim, dropout=dropout, **kw),
                 ]
             )
@@ -161,15 +221,16 @@ class Transformer(nn.Module):
                     x, *weights, heads=self.heads, dim_head=self.dim_head, eps=LN_EPS, **biases
                 )
         else:
+            # every layer's Attention shares this predicate (JAX attn_will_fuse)
+            attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(x)
             for attn, ff in self.layers:
-                x = self._call(attn, x) + x
+                # the residual rides into the attention call, as JAX's attn_call
+                # (blocks.py:593-607); remat only where it does not fuse
+                x = attn(x, residual=x) if attn_fuses else self._call(attn, x) + x
                 x = self._call(ff, x) + x
         return self.norm(x)
 
     def _call(self, module: nn.Module, x):
-        # the JAX package leaves the attention call un-rematted only when it
-        # takes the attention-block kernel (blocks.py:655-658); the port has
-        # no such kernel yet, so the composite remats both calls
         if self.remat and torch.is_grad_enabled():
             return checkpoint(module, x, use_reentrant=False)
         return module(x)

@@ -30,16 +30,23 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_longlong
+# dropout arguments: drop (0/1), seed (the int32 seed's bit pattern), keep
+# threshold, 1/(1 - rate)
+_DROP = (_I, _U, _U, _F)
 _SIGNATURES = {
     # x, w, b, out, rows, dim, eps, stream
     "vit_layernorm_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
-    # a, w, bias, res, out, M, N, K, epilogue, stream
-    "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # qkv, out, batch, n, heads, dim_head, scale*log2(e), stream
-    "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _F, _P),
-    # qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale*log2(e), scale, stream
-    "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # a, w, bias, res, out, M, N, K, epilogue, rows per image, heads, dropout, stream
+    "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_DROP, _P),
+    # qkv, out, batch, n, heads, dim_head, scale*log2(e), dropout, stream
+    "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _F, *_DROP, _P),
+    # qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale*log2(e), scale, dropout, stream
+    "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, *_DROP, _P),
+    # g, gm, rows, n, dim, heads, seed, threshold, 1/(1 - rate), stream
+    "vit_dropout_apply": (_P, _P, _L, _I, _I, _I, _U, _U, _F, _P),
+    # attn_keep, out_keep, batch, n, dim, heads, seed, threshold, stream
+    "vit_dropout_masks": (_P, _P, _I, _I, _I, _I, _U, _U, _P),
     # rows -> rows of the partial-sum scratch buffer
     "vit_layernorm_bwd_blocks": (_I,),
     # x, dh, w, res, dx, partial, sums, rows, dim, eps, stream

@@ -25,6 +25,20 @@ vjp), then the port of the attention-block backward kernel ``_bwd_kernel``
 and dW_qkv, dW_out, the biases' gradients as plain PyTorch over the whole
 batch, as the JAX package leaves them to XLA (:802-816).
 
+Where the whole layer is refused (training with dropout), the attention
+block alone, ``fused_attention_block``, is the port of the JAX ``_kernel``
+(:260) and its custom_vjp ``_fused`` (:820-916), with the train-time dropout
+of both reference sites drawn in-kernel from a counter-based Philox4x32-10
+keyed by (seed, img * 1024 + head) (``csrc/common.cuh``; the TPU kernels use
+the TPU PRNG with the same key)::
+
+    x -> layernorm_rows -> gemm_bf16[qkv] -> attention_rows (+dropout on P)
+      -> gemm_bf16[block_out] (+b_out, +dropout, +residual, one cast)     = out
+    g -> dropout_apply = gm; then the six launches above from gm, with
+         attention_bwd_rows replaying the attention mask
+
+``dropout_masks`` replays both masks (the JAX ``dropout_masks``, :190).
+
 Each kernel wrapper has its plain PyTorch twin (``*_reference``) in this
 module.  A wrapper takes the twin only for a tensor on the CPU; on a CUDA
 tensor it launches its kernel or raises.  Each launch adds one to
@@ -54,21 +68,119 @@ GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # M-tiles ride on gridDim.y
 LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
 
-# launches per kernel since the last reset_launch_counts()
+# launches per kernel since the last reset_launch_counts(); a variant
+# ("[dropout]", "[block_out]") counts apart from its kernel's plain launches
 LAUNCHES = {
     "layernorm_rows": 0, "gemm_bf16": 0, "attention_rows": 0,
     "attention_bwd_rows": 0, "gemm_f32out": 0, "layernorm_bwd_rows": 0,
+    "attention_rows[dropout]": 0, "gemm_bf16[block_out]": 0, "dropout_apply": 0,
+    "attention_bwd_rows[dropout]": 0, "dropout_masks": 0,
 }
 
 # gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
 # of the f32 dot), named for the backward's dm = dy . W_out
-_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3}
+_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5}
 _EPI_F32 = 4  # gemm_f32out: the f32 dot stored as it is
+
+_U32 = 0xFFFFFFFF
+STREAM_STRIDE = 1024  # Philox key word 2 = img * 1024 + head (_attn_keep, fused_block.py:171-179)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the dropout masks: Philox4x32-10 in int64 arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _mulhilo32(m: int, a):
+    """``(hi, lo)``, the 32-bit words of ``m * a`` for a uint32 constant and
+    uint32 values held in int64.  The 64-bit product overflows int64, so
+    ``a`` is split into 16-bit halves."""
+    p_lo = m * (a & 0xFFFF)
+    p_hi = m * (a >> 16)
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & _U32
+
+
+def _philox_words(c0, c1, c2, c3, k0, k1):
+    """The four output words of Philox4x32-10 (Random123's philox4x32, 10
+    rounds), each argument an int or an int64 tensor of uint32 values; the
+    twin of ``philox4x32_10`` in csrc/common.cuh."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _U32
+            k1 = (k1 + 0xBB67AE85) & _U32
+        hi0, lo0 = _mulhilo32(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo32(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox4x32_reference(ctr, key):
+    """Philox4x32-10 of uint32 words held in integer tensors: ``ctr``
+    (..., 4) and ``key`` (..., 2), broadcast, to (..., 4) int64."""
+    words = _philox_words(*ctr.to(torch.int64).unbind(-1), *key.to(torch.int64).unbind(-1))
+    return torch.stack(torch.broadcast_tensors(*words), -1)
+
+
+def dropout_threshold(rate: float) -> int:
+    """uint32 threshold t with P(bits < t) == rate for uniform bits: the JAX
+    ``_dropout_threshold`` (fused_block.py:150-152)."""
+    return min(int(rate * 2**32), 2**32 - 1)
+
+
+def _inv_keep(rate: float) -> float:
+    return 1.0 / (1.0 - rate)
+
+
+_MASK_CHUNK_GROUPS = 1 << 24  # Philox calls a step of _keep_mask, to bound its int64 temporaries
+
+
+def _keep_mask(seed, streams, n_rows: int, n_cols: int, rate: float):
+    """Keep bits (..., n_rows, n_cols) of the Philox streams ``streams`` (an
+    int64 tensor of key words img * 1024 + head, leading axis the images):
+    element (row, col) is word ``col % 4`` of Philox(ctr = (row, col // 4, 0,
+    0), key = (seed, stream)), kept iff >= ``dropout_threshold(rate)``."""
+    device = streams.device
+    groups = -(-n_cols // 4)
+    row = torch.arange(n_rows, device=device, dtype=torch.int64)[:, None]
+    c4 = torch.arange(groups, device=device, dtype=torch.int64)[None, :]
+    t = dropout_threshold(rate)
+    per_image = streams[:1].numel() * n_rows * groups
+    out = []
+    for chunk in streams.split(max(1, _MASK_CHUNK_GROUPS // per_image)):
+        words = _philox_words(row, c4, 0, 0, int(seed) & _U32, chunk[..., None, None])
+        bits = torch.stack(torch.broadcast_tensors(*words), -1)
+        out.append(bits.reshape(*chunk.shape, n_rows, 4 * groups)[..., :n_cols] >= t)
+    return torch.cat(out)
+
+
+def _attn_keep(seed, b: int, n: int, heads: int, rate: float, device):
+    """(b, heads, n, n) keep mask of the attention matrix (``_attn_keep``,
+    fused_block.py:171-179)."""
+    imgs = torch.arange(b, device=device, dtype=torch.int64)
+    hs = torch.arange(heads, device=device, dtype=torch.int64)
+    return _keep_mask(seed, imgs[:, None] * STREAM_STRIDE + hs[None, :], n, n, rate)
+
+
+def _out_keep(seed, b: int, n: int, dim: int, heads: int, rate: float, device):
+    """(b, n, dim) keep mask of the output dropout, stream head ``heads``
+    (``_out_keep``, fused_block.py:182-187)."""
+    imgs = torch.arange(b, device=device, dtype=torch.int64)
+    return _keep_mask(seed, imgs * STREAM_STRIDE + heads, n, dim, rate)
+
+
+def dropout_masks_reference(seed, b: int, n: int, dim: int, heads: int, rate: float, *, device=None):
+    """Plain twin of the JAX ``dropout_masks`` (fused_block.py:190) on the
+    port's Philox streams: ``(attn_keep (b, heads, n, n), out_keep (b, n,
+    dim))`` as int32 0/1."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return (_attn_keep(seed, b, n, heads, rate, device).to(torch.int32),
+            _out_keep(seed, b, n, dim, heads, rate, device).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -86,15 +198,30 @@ def layernorm_rows_reference(x, weight, bias, *, eps: float = LN_EPS):
     return (out * weight.float() + bias.float()).to(x.dtype)
 
 
-def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None):
+def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: float = 0.0,
+                        seed=None, heads: int = 0):
     """``a @ w.T`` with f32 accumulation and the epilogue of one of the four
     GEMM sites of ``_layer_rows``:
 
     - ``qkv``: + bias in f32, then one cast (:1015-1018); ``cast`` is the
       same without a bias;
     - ``out``/``fc2``: cast, + bias, + residual, each rounded (:1040-1049);
-    - ``fc1``: cast, + bias, tanh-GELU (:1046-1047).
+    - ``fc1``: cast, + bias, tanh-GELU (:1046-1047);
+
+    or ``block_out``, the out projection of the attention-block kernel
+    ``_kernel`` (:357-374): f32 dot + f32 bias, times keep * 1/(1 - rate) of
+    the output stream (stream head ``heads``) with ``dropout_rate`` > 0,
+    + the f32 residual if given, one cast; ``a`` is (b, n, inner).
     """
+    if epilogue == "block_out":
+        out = F.linear(a.float(), w.float(), None if bias is None else bias.float())
+        if dropout_rate > 0.0:
+            b, n, _ = a.shape
+            keep = _out_keep(seed, b, n, w.shape[0], heads, dropout_rate, a.device)
+            out = out * torch.where(keep, _inv_keep(dropout_rate), 0.0)
+        if residual is not None:
+            out = out + residual.float()
+        return out.to(a.dtype)
     if epilogue in ("qkv", "cast"):
         if bias is None:
             return F.linear(a, w)
@@ -124,30 +251,46 @@ def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float):
     return q, k, v, p * (1.0 / p.sum(-1, keepdim=True))
 
 
-def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float):
+def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0,
+                             seed=None):
     """Per-head softmax attention from the packed (b, n, 3*inner) qkv rows to
     merged heads (b, n, inner): f32 logits, ``_softmax_from_dots``
-    (fused_block.py:82-93), P cast to qkv.dtype, P.V accumulated in f32."""
+    (fused_block.py:82-93), with ``dropout_rate`` > 0 P = where(keep, P, 0)
+    * 1/(1 - rate) in f32 (``_kernel`` :345-348), P cast to qkv.dtype, P.V
+    accumulated in f32."""
     b, n, _ = qkv.shape
     _, _, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    if dropout_rate > 0.0:
+        keep = _attn_keep(seed, b, n, heads, dropout_rate, qkv.device)
+        p = torch.where(keep, p, 0.0) * _inv_keep(dropout_rate)
     o = torch.matmul(p.to(qkv.dtype).float(), v).to(qkv.dtype)
     return o.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
-def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: float):
-    """The per-head loop of ``_bwd_kernel`` without dropout and qk-norm
+def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0,
+                                 seed=None):
+    """The per-head loop of ``_bwd_kernel`` without qk-norm
     (fused_block.py:608-692): from the packed qkv rows and the gradient of
     the merged heads ``dm`` (both (b, n, .) in one dtype) to the recomputed
     merged heads ``m`` and the packed ``dqkv``.  P is recomputed as the
-    forward computes it; ``pb = P`` in the IO dtype feeds m and dv; ``ds`` uses
-    the f32 P; dq and dk take ``scale`` on the f32 product before the cast."""
+    forward computes it; ``pb = pd`` in the IO dtype feeds m and dv, where
+    pd = P or, with ``dropout_rate`` > 0, where(keep, P, 0) * 1/(1 - rate);
+    dp is masked and scaled the same way (:634-654); ``ds`` uses the
+    unmasked f32 P; dq and dk take ``scale`` on the f32 product before the
+    cast."""
     dt, (b, n, _) = qkv.dtype, qkv.shape
     q, k, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
     dmh = dm.reshape(b, n, heads, dim_head).transpose(1, 2).float()
-    pb = p.to(dt).float()
+    pd = p
+    if dropout_rate > 0.0:
+        keep, inv = _attn_keep(seed, b, n, heads, dropout_rate, qkv.device), _inv_keep(dropout_rate)
+        pd = torch.where(keep, p, 0.0) * inv
+    pb = pd.to(dt).float()
     m = torch.matmul(pb, v).to(dt)
     dv = torch.matmul(pb.transpose(-1, -2), dmh)
     dp = torch.matmul(dmh, v.transpose(-1, -2))
+    if dropout_rate > 0.0:
+        dp = torch.where(keep, dp, 0.0) * inv
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
@@ -175,6 +318,15 @@ def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, eps: float = L
         dx = (dx.float() + residual.float()).to(x.dtype)
     dim = x.shape[-1]
     return dx, (dh * xhat).reshape(-1, dim).sum(0), dh.reshape(-1, dim).sum(0)
+
+
+def out_dropout_bwd_reference(g, seed, *, heads: int, rate: float):
+    """``gm = where(out_keep, f32(g), 0) * 1/(1 - rate)`` cast to g.dtype,
+    the first lines of ``_bwd_kernel`` (fused_block.py:574-580); g is (b, n,
+    dim)."""
+    b, n, dim = g.shape
+    keep = _out_keep(seed, b, n, dim, heads, rate, g.device)
+    return (torch.where(keep, g.float(), 0.0) * _inv_keep(rate)).to(g.dtype)
 
 
 def ff_reference(y, ln2_scale, ln2_bias, w1, b1, w2, b2, *, eps: float = LN_EPS):
@@ -211,6 +363,18 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _dropout_args(name: str, rate: float, seed):
+    """The kernels' dropout arguments (drop, seed bits, threshold, 1/(1 -
+    rate)); rate 0 is no dropout."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}: dropout rate {rate} is not in [0, 1)")
+    if rate == 0.0:
+        return 0, 0, 0, 1.0
+    if seed is None:
+        raise ValueError(f"{name}: dropout_rate > 0 requires a seed")
+    return 1, int(seed) & _U32, dropout_threshold(rate), _inv_keep(rate)
+
+
 def layernorm_rows(x, weight, bias, *, eps: float = LN_EPS):
     """LayerNorm of each row of ``x`` (last axis), output in bf16."""
     if x.device.type == "cpu":
@@ -236,13 +400,17 @@ def _check_gemm(name: str, a, w) -> None:
         raise ValueError(f"{name}: a {tuple(a.shape)} and w {tuple(w.shape)}")
 
 
-def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
+def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: float = 0.0, seed=None,
+              heads: int = 0):
     """``a @ w.T`` (w is (out, in)) with the named epilogue, see
-    :func:`gemm_bf16_reference`."""
+    :func:`gemm_bf16_reference`; ``block_out`` counts as its own variant."""
     if epilogue not in _EPILOGUES:
         raise ValueError(f"gemm_bf16: unknown epilogue {epilogue!r}")
+    if dropout_rate and epilogue != "block_out":
+        raise ValueError(f"gemm_bf16[{epilogue}]: only the block_out epilogue takes dropout")
     if a.device.type == "cpu":
-        return gemm_bf16_reference(a, w, epilogue, bias=bias, residual=residual)
+        return gemm_bf16_reference(a, w, epilogue, bias=bias, residual=residual, dropout_rate=dropout_rate,
+                                   seed=seed, heads=heads)
     _check_gemm("gemm_bf16", a, w)
     n_out, k = w.shape
     if bias is not None and (epilogue == "cast" or bias.shape != (n_out,)):
@@ -250,6 +418,9 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
     out_shape = (*a.shape[:-1], n_out)
     if epilogue in ("out", "fc2") and (residual is None or residual.shape != out_shape):
         raise ValueError(f"gemm_bf16[{epilogue}]: needs a residual of shape {out_shape}")
+    if epilogue == "block_out" and (a.dim() != 3 or (residual is not None and residual.shape != out_shape)):
+        raise ValueError(f"gemm_bf16[block_out]: a {tuple(a.shape)} must be (b, n, in), residual (b, n, out) or None")
+    drop = _dropout_args(f"gemm_bf16[{epilogue}]", dropout_rate, seed)
     _check_operands("gemm_bf16", a.device, a, w, bias, residual)
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     lib = load_library()
@@ -258,10 +429,10 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None):
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
         out.data_ptr(), a.numel() // k, n_out, k, _EPILOGUES[epilogue],
-        _stream(a.device),
+        a.shape[-2] if epilogue == "block_out" else 0, heads, *drop, _stream(a.device),
     )
     lib.check(f"gemm_bf16[{epilogue}]", err)
-    LAUNCHES["gemm_bf16"] += 1
+    LAUNCHES["gemm_bf16[block_out]" if epilogue == "block_out" else "gemm_bf16"] += 1
     return out
 
 
@@ -278,7 +449,7 @@ def gemm_f32out(a, w):
     lib = load_library()
     err = lib.lib.vit_gemm_bf16(
         a.data_ptr(), w.data_ptr(), None, None, out.data_ptr(),
-        a.numel() // k, n_out, k, _EPI_F32, _stream(a.device),
+        a.numel() // k, n_out, k, _EPI_F32, 0, 0, *_dropout_args("gemm_f32out", 0.0, None), _stream(a.device),
     )
     lib.check("gemm_f32out", err)
     LAUNCHES["gemm_f32out"] += 1
@@ -300,38 +471,47 @@ def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
         )
 
 
-def attention_rows(qkv, *, heads: int, dim_head: int, scale: float):
+def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None):
     """Softmax attention of every head, from packed qkv rows (b, n, 3*inner)
-    to merged heads (b, n, inner); the logits stay on chip."""
+    to merged heads (b, n, inner); the logits stay on chip.  With
+    ``dropout_rate`` > 0 (the ``[dropout]`` variant) P is masked in-kernel
+    from the (seed, img, head) Philox streams, see
+    :func:`attention_rows_reference`."""
     if qkv.device.type == "cpu":
-        return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale)
+        return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale,
+                                        dropout_rate=dropout_rate, seed=seed)
     _check_attention("attention_rows", qkv, heads, dim_head)
+    drop = _dropout_args("attention_rows", dropout_rate, seed)
     _check_operands("attention_rows", qkv.device, qkv)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     err = lib.lib.vit_attention_rows(
         qkv.data_ptr(), out.data_ptr(), b, n, heads, dim_head,
-        scale * _LOG2E, _stream(qkv.device),
+        scale * _LOG2E, *drop, _stream(qkv.device),
     )
-    lib.check("attention_rows", err)
-    LAUNCHES["attention_rows"] += 1
+    name = "attention_rows[dropout]" if drop[0] else "attention_rows"
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return out
 
 
-def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float):
+def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None):
     """The attention backward of every head, from packed qkv rows and the
     merged-heads gradient ``dm`` to ``(m, dqkv)``, see
     :func:`attention_bwd_rows_reference`.  One launch runs a row pass (m,
     dq and each row's softmax statistics, into a scratch buffer) and a key
-    pass (dk, dv); the logits stay on chip in both."""
+    pass (dk, dv); the logits stay on chip in both.  With ``dropout_rate`` >
+    0 (the ``[dropout]`` variant) both passes replay the forward's mask."""
     if qkv.device.type == "cpu":
-        return attention_bwd_rows_reference(qkv, dm, heads=heads, dim_head=dim_head, scale=scale)
+        return attention_bwd_rows_reference(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
+                                            dropout_rate=dropout_rate, seed=seed)
     _check_attention("attention_bwd_rows", qkv, heads, dim_head)
     b, n, _ = qkv.shape
     inner = heads * dim_head
     if dm.shape != (b, n, inner):
         raise ValueError(f"attention_bwd_rows: dm {tuple(dm.shape)} for qkv {tuple(qkv.shape)}")
+    drop = _dropout_args("attention_bwd_rows", dropout_rate, seed)
     _check_operands("attention_bwd_rows", qkv.device, qkv, dm)
     m = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     dqkv = torch.empty_like(qkv)
@@ -339,11 +519,55 @@ def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float):
     lib = load_library()
     err = lib.lib.vit_attention_bwd_rows(
         qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        b, n, heads, dim_head, scale * _LOG2E, scale, _stream(qkv.device),
+        b, n, heads, dim_head, scale * _LOG2E, scale, *drop, _stream(qkv.device),
     )
-    lib.check("attention_bwd_rows", err)
-    LAUNCHES["attention_bwd_rows"] += 1
+    name = "attention_bwd_rows[dropout]" if drop[0] else "attention_bwd_rows"
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return m, dqkv
+
+
+def dropout_apply(g, seed, *, heads: int, rate: float):
+    """``gm``, the out projection's gradient after the output dropout: see
+    :func:`out_dropout_bwd_reference`.  ``g`` is (b, n, dim) and ``rate`` > 0."""
+    if g.device.type == "cpu":
+        return out_dropout_bwd_reference(g, seed, heads=heads, rate=rate)
+    if g.dim() != 3 or g.shape[-1] % 8 or not rate > 0.0:
+        raise ValueError(f"dropout_apply: g {tuple(g.shape)} at rate {rate}; needs (b, n, dim), dim % 8 == 0, rate > 0")
+    _, seed_bits, threshold, inv = _dropout_args("dropout_apply", rate, seed)
+    _check_operands("dropout_apply", g.device, g)
+    gm = torch.empty_like(g)
+    b, n, dim = g.shape
+    lib = load_library()
+    err = lib.lib.vit_dropout_apply(
+        g.data_ptr(), gm.data_ptr(), b * n, n, dim, heads, seed_bits, threshold, inv, _stream(g.device),
+    )
+    lib.check("dropout_apply", err)
+    LAUNCHES["dropout_apply"] += 1
+    return gm
+
+
+def dropout_masks(seed, b: int, n: int, dim: int, heads: int, rate: float, *, device=None):
+    """Replay of the attention block's keep masks, the JAX ``dropout_masks``
+    (fused_block.py:190): ``(attn_keep (b, heads, n, n), out_keep (b, n,
+    dim))`` int32 0/1.  On a CUDA ``device`` one launch of the replay kernel;
+    on the CPU (the default) :func:`dropout_masks_reference`."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cpu":
+        return dropout_masks_reference(seed, b, n, dim, heads, rate, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_masks: the kernel runs on a CUDA device, not {device}")
+    if not (0 < b <= 65535 and n > 0 and dim > 0 and 0 < heads < STREAM_STRIDE):
+        raise ValueError(f"dropout_masks: b={b}, n={n}, dim={dim}, heads={heads}")
+    _, seed_bits, threshold, _ = _dropout_args("dropout_masks", rate, seed)
+    attn = torch.empty((b, heads, n, n), dtype=torch.int32, device=device)
+    out = torch.empty((b, n, dim), dtype=torch.int32, device=device)
+    lib = load_library()
+    err = lib.lib.vit_dropout_masks(attn.data_ptr(), out.data_ptr(), b, n, dim, heads, seed_bits, threshold,
+                                    _stream(device))
+    lib.check("dropout_masks", err)
+    LAUNCHES["dropout_masks"] += 1
+    return attn, out
 
 
 def layernorm_bwd_rows(x, dh, weight, *, residual=None, eps: float = LN_EPS):
@@ -383,18 +607,49 @@ def layernorm_bwd_rows(x, dh, weight, *, residual=None, eps: float = LN_EPS):
 KERNELS = SimpleNamespace(
     layernorm_rows=layernorm_rows, gemm_bf16=gemm_bf16, attention_rows=attention_rows,
     attention_bwd_rows=attention_bwd_rows, gemm_f32out=gemm_f32out,
-    layernorm_bwd_rows=layernorm_bwd_rows,
+    layernorm_bwd_rows=layernorm_bwd_rows, dropout_apply=dropout_apply,
 )
 TWINS = SimpleNamespace(
     layernorm_rows=layernorm_rows_reference, gemm_bf16=gemm_bf16_reference,
     attention_rows=attention_rows_reference, attention_bwd_rows=attention_bwd_rows_reference,
     gemm_f32out=gemm_f32out_reference, layernorm_bwd_rows=layernorm_bwd_rows_reference,
+    dropout_apply=out_dropout_bwd_reference,
 )
 
 
 # ---------------------------------------------------------------------------
 # the layer: forward chain, attention-block backward, autograd Function
 # ---------------------------------------------------------------------------
+
+
+def fused_block_supported(x_shape, dtype, heads: int, dim_head: int, dim: int) -> bool:
+    """Static eligibility of the attention block's kernel chain, forward and
+    backward, on an H100 (not the TPU's VMEM gates): bf16 3-D inputs with
+    ``d == dim`` and the shapes its kernels take (see
+    :func:`whole_layer_supported`): dim_head 64, n <= 208, K of every
+    product (dim, inner, 3*inner) a multiple of 64, dim <= 3584."""
+    if len(x_shape) != 3 or dtype != torch.bfloat16:
+        return False
+    b, n, d = x_shape
+    inner = heads * dim_head
+    return (
+        d == dim
+        and dim_head == ATTN_DIM_HEAD
+        and 0 < n <= ATTN_MAX_KEYS
+        and 0 < b <= 65535
+        and b * n <= GEMM_MAX_ROWS
+        and dim <= LN_BWD_MAX_DIM
+        and dim % GEMM_BK == 0
+        and inner % GEMM_BK == 0
+    )
+
+
+def fused_dropout_supported(x_shape, heads: int, dim_head: int) -> bool:
+    """Kernel-tier dropout needs the kernel backward to replay the masks.
+    Here the backward takes every shape the forward takes, so the only
+    further condition is that the (seed, img * 1024 + head) streams stay
+    apart: ``heads < 1024`` (the output stream is head ``heads``)."""
+    return len(x_shape) == 3 and 0 < x_shape[1] <= ATTN_MAX_KEYS and dim_head == ATTN_DIM_HEAD and heads < STREAM_STRIDE
 
 
 def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int) -> bool:
@@ -418,19 +673,7 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
       layernorm_bwd_rows also ``dim <= 3584`` (its per-warp f32 partial sums
       of dgamma and dbeta in shared memory).
     """
-    if len(x_shape) != 3 or dtype != torch.bfloat16:
-        return False
-    b, n, d = x_shape
-    inner = heads * dim_head
-    return (
-        d == dim
-        and dim_head == ATTN_DIM_HEAD
-        and 0 < n <= ATTN_MAX_KEYS
-        and 0 < b <= 65535
-        and b * n <= GEMM_MAX_ROWS
-        and dim <= LN_BWD_MAX_DIM
-        and all(v % GEMM_BK == 0 for v in (dim, inner, mlp_dim))
-    )
+    return fused_block_supported(x_shape, dtype, heads, dim_head, dim) and mlp_dim % GEMM_BK == 0
 
 
 def _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads, dim_head, scale, eps):
@@ -459,33 +702,39 @@ class AttentionBlockGrads(NamedTuple):
     dW_out: torch.Tensor
     dgamma: torch.Tensor
     dbeta: torch.Tensor
+    gm: torch.Tensor  # g after the output dropout (g itself without dropout)
 
 
 def _attention_block_bwd(
     ops, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, scale, eps, residual=None,
+    dropout_rate: float = 0.0, seed=None,
 ) -> AttentionBlockGrads:
     """Backward of ``y = x + Attn(LN(x))`` with respect to everything but the
     residual path, from ``g = dL/dy``; with ``residual`` the LayerNorm
-    backward also adds it to dx (the ``dx_ln + dy`` of :1868).
+    backward also adds it to dx (the ``dx_ln + dy`` of :1868).  With
+    ``dropout_rate`` > 0, g first goes through the output dropout's mask
+    (``gm``, :574-580) and the attention backward replays the attention mask.
 
     The products in ``_bwd_kernel``'s body (dm, the attention products, dh)
     run through ``ops``; the weight gradients are ``torch.matmul`` over the
     whole batch as in ``_pallas_backward`` (:802-816), and return in the IO
     dtype: an f32-accumulated product rounded once, as the JAX package's f32
     dW cast to the weight dtype."""
+    gm = ops.dropout_apply(g, seed, heads=heads, rate=dropout_rate) if dropout_rate > 0.0 else g
     h = ops.layernorm_rows(x, ln_scale, ln_bias, eps=eps)
     qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
     # a.w products as a.(w^T)^T: a transposed copy of each weight, once a
     # backward, for the kernel's (out, in) operand layout
-    dm = ops.gemm_bf16(g, w_out.t().contiguous(), "cast")
-    m, dqkv = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale)
+    dm = ops.gemm_bf16(gm, w_out.t().contiguous(), "cast")
+    m, dqkv = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
+                                     dropout_rate=dropout_rate, seed=seed)
     dh = ops.gemm_f32out(dqkv, w_qkv.t().contiguous())
     dx, dgamma, dbeta = ops.layernorm_bwd_rows(x, dh, ln_scale, residual=residual, eps=eps)
     rows = lambda t: t.reshape(-1, t.shape[-1])
     dW_qkv = torch.matmul(rows(dqkv).t(), rows(h))
-    dW_out = torch.matmul(rows(g).t(), rows(m))
+    dW_out = torch.matmul(rows(gm).t(), rows(m))
     db_qkv = rows(dqkv).float().sum(0) if b_qkv is not None else None
-    return AttentionBlockGrads(dx, h, dqkv, m, dW_qkv, db_qkv, dW_out, dgamma, dbeta)
+    return AttentionBlockGrads(dx, h, dqkv, m, dW_qkv, db_qkv, dW_out, dgamma, dbeta, gm)
 
 
 def attention_block_bwd_reference(
@@ -581,3 +830,123 @@ def fused_transformer_layer(
             )
     return _layer(KERNELS, x, w_qkv, w_out, ln1_scale, ln1_bias, ln2_scale, ln2_bias, w1, b1, w2, b2,
                   heads, dim_head, b_qkv, b_out, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# the attention block alone: LN -> qkv -> attention (+dropout) -> out (+dropout)
+# -> +residual, the port of _kernel and its custom_vjp _fused
+# ---------------------------------------------------------------------------
+
+
+def _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, *, heads, dim_head,
+                             scale, eps, dropout_rate, seed):
+    """The four launches of ``_kernel``'s body (fused_block.py:298-374)."""
+    h = ops.layernorm_rows(x, ln_scale, ln_bias, eps=eps)
+    qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
+    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, dropout_rate=dropout_rate, seed=seed)
+    return ops.gemm_bf16(m, w_out, "block_out", bias=b_out, residual=residual, dropout_rate=dropout_rate,
+                         seed=seed, heads=heads)
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    """The counterpart of the JAX ``_fused`` custom_vjp (fused_block.py:
+    820-916): the forward saves x, the weights and the seed; the backward
+    replays both dropout masks and returns d_residual = g unmasked (:894).
+    When the residual is x itself (the ``Transformer``'s call), the
+    LayerNorm backward adds g to dx_ln in its own epilogue, rounded once as
+    the JAX package's bf16 add of the two cotangents, and the residual gets
+    no gradient of its own."""
+
+    @staticmethod
+    def forward(ctx, ops, kw, residual_is_x, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias):
+        res = x if residual_is_x else residual
+        out = _attention_block_forward(ops, x, res, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, **kw)
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
+        ctx.ops, ctx.kw, ctx.residual_is_x, ctx.has_residual = ops, kw, residual_is_x, residual is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias = ctx.saved_tensors
+        g = g.contiguous()
+        attn = _attention_block_bwd(ctx.ops, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias,
+                                    residual=g if ctx.residual_is_x else None, **ctx.kw)
+        db_out = attn.gm.float().sum((0, 1)).to(b_out.dtype) if b_out is not None else None
+        db_qkv = attn.db_qkv.to(b_qkv.dtype) if b_qkv is not None else None
+        d_residual = g if ctx.has_residual else None
+        return (
+            None, None, None, attn.dx, d_residual, attn.dW_qkv.to(w_qkv.dtype), db_qkv,
+            attn.dW_out.to(w_out.dtype), db_out, attn.dgamma.to(ln_scale.dtype), attn.dbeta.to(ln_bias.dtype),
+        )
+
+
+def _attention_block(ops, x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, b_qkv, b_out, gamma_q,
+                     gamma_k, scale, eps, dropout_rate, dropout_seed):
+    if gamma_q is not None or gamma_k is not None:
+        raise NotImplementedError(
+            "fused_attention_block: qk-norm is not ported yet (ROADMAP: modules to port, next in order: "
+            "qk-norm, with models/simple_vit_with_qk_norm.py)"
+        )
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"fused_attention_block: dropout_rate {dropout_rate} is not in [0, 1)")
+    kw = dict(
+        heads=heads, dim_head=dim_head, scale=dim_head**-0.5 if scale is None else float(scale), eps=eps,
+        dropout_rate=float(dropout_rate), seed=None if dropout_rate == 0.0 else int(dropout_seed),
+    )
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
+    ):
+        # a residual that is x rides as a flag: its gradient joins dx inside
+        # the LayerNorm backward instead of autograd's add
+        residual_is_x = residual is x
+        return _FusedAttentionBlock.apply(ops, kw, residual_is_x, x, None if residual_is_x else residual,
+                                          w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
+    return _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, **kw)
+
+
+def attention_block_reference(
+    x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads: int, dim_head: int, b_qkv=None, b_out=None,
+    gamma_q=None, gamma_k=None, scale: Optional[float] = None, eps: float = LN_EPS, dropout_rate: float = 0.0,
+    dropout_seed=None,
+):
+    """Plain PyTorch twin of :func:`fused_attention_block`, forward and
+    backward: the same chain and the same autograd Function with every
+    kernel swapped for its twin.  Its forward is the JAX ``_kernel``
+    (fused_block.py:260-374) with its masks drawn from the port's Philox
+    streams; at rate 0 it is ``_xla_reference`` (:377-422) with ``_kernel``'s
+    rounding points."""
+    return _attention_block(TWINS, x, residual, w_qkv, w_out, ln_scale, ln_bias, heads=heads, dim_head=dim_head,
+                            b_qkv=b_qkv, b_out=b_out, gamma_q=gamma_q, gamma_k=gamma_k, scale=scale, eps=eps,
+                            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
+def fused_attention_block(
+    x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads: int, dim_head: int, b_qkv=None, b_out=None,
+    gamma_q=None, gamma_k=None, scale: Optional[float] = None, eps: float = LN_EPS, dropout_rate: float = 0.0,
+    dropout_seed=None,
+):
+    """``residual + Dropout(OutProj(Attention(LN(x) @ Wqkv)))``, the JAX
+    ``fused_attention_block`` (fused_block.py:2140), differentiable in every
+    tensor operand.  ``dropout_rate`` > 0 applies train-time dropout at both
+    reference sites (after the softmax, vit.py:60; after the out projection,
+    vit.py:47-49) inside the kernels, from the Philox streams of the int
+    ``dropout_seed``, which the backward replays.  On the CPU it is
+    :func:`attention_block_reference`; on a CUDA tensor the forward is four
+    kernel launches and the backward seven (with dropout) plus plain
+    PyTorch for the weight gradients, and it raises for a shape
+    :func:`fused_block_supported` or, with dropout,
+    :func:`fused_dropout_supported` refuses.  ``gamma_q``/``gamma_k``
+    (qk-norm) raise ``NotImplementedError``."""
+    if x.device.type != "cpu" and not (
+        fused_block_supported(x.shape, x.dtype, heads, dim_head, x.shape[-1])
+        and (dropout_rate == 0.0 or fused_dropout_supported(x.shape, heads, dim_head))
+    ):
+        raise ValueError(
+            f"fused_attention_block: x {tuple(x.shape)} {x.dtype} with heads={heads}, dim_head={dim_head}, "
+            f"dropout_rate={dropout_rate} is not supported by the kernels"
+        )
+    return _attention_block(KERNELS, x, residual, w_qkv, w_out, ln_scale, ln_bias, heads=heads, dim_head=dim_head,
+                            b_qkv=b_qkv, b_out=b_out, gamma_q=gamma_q, gamma_k=gamma_k, scale=scale, eps=eps,
+                            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
