@@ -37,7 +37,28 @@ Phases, each printed as it ends:
      same generator (the same masks);
  11. dropout training timing at bs=1024: ms/step kernel vs plain, peak
      device memory, and each launch of one attention block's forward and
-     backward at bs=128.
+     backward at bs=128;
+ 12. flash kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
+     plain twins, bf16, h=12, dh=64: two 2048-token packs of the NaViT
+     resolution mix, the attn_pool shape (16 queries, empty slots at -2),
+     an all-pad pack and no ids at n=m=1100; o, lse, dq, dk, dv, and the
+     Function against autograd through the materialized twin in f32; the
+     fraction of tiles the skip test admits;
+ 13. NaViT-B serving: forward_packed on the 120-image mix of the JAX bench
+     (13 flash_fwd launches, exact), logits against the plain bf16 path
+     (flash_attention_twins swapped in: the flash Function on its twins)
+     and fp32 (the gate sends fp32 to the materialized composite): at depth
+     12 within the bf16 noise floor measured in the run, at depth 2 (full
+     width) within fixed bounds; a depth-2 nested-tensor NaViT against its
+     plain path;
+ 14. NaViT-B training: make_train_step with the masked cross-entropy on the
+     bench's 16 packs with token dropout 0.25: at depth 12, 4 Adam steps
+     (loss falls, 13 launches of each flash kernel a step, exact, the first
+     step's loss against the plain bf16 path and fp32); at depth 2, the first
+     step's loss and gradients against both;
+ 15. NaViT timing: serving img/s and tokens/s and the training ms/step
+     (peak memory) at 16 packs, kernel against plain in turns, and each
+     flash launch at the packed shape.
 Each phase prints its seconds.  Then one JSON line with the kernels, and the
 last line {"ok": true, "device": {...}}.  Any failed check exits non-zero
 before it.
@@ -52,6 +73,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -134,6 +156,65 @@ DROPOUT_LAUNCHES_PER_LAYER = {  # forward 4 + backward 7 (the FF is plain PyTorc
 # extra rounding of the f32 dot + bias moves every element by up to half an
 # ulp.  Bound: ~10x the reading
 BLOCK_OUT_REL_L2 = 5e-4
+# -- the NaViT slice (phases 12-15): NaViT-B at the configuration of the JAX
+# package's own NaViT benches, tools/bench_zoo.py:144-213 (serving) and
+# tools/bench_navit_train.py:48-77 (training): 120 images from a seeded
+# resolution mix, packed into 16 packs of 2048 tokens with at most 16 images
+NAVIT = dict(image_size=256, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP)
+NAVIT_RESOLUTIONS = ((256, 256), (224, 224), (160, 256), (256, 160), (128, 128), (96, 192))
+NAVIT_IMAGES, NAVIT_PACKS, NAVIT_MAX_IMAGES, NAVIT_SEQ = 120, 16, 16, 2048
+NAVIT_TOKEN_DROPOUT = 0.25  # training only
+# Phase 12, each flash kernel against its plain twin at the kernel's rounding
+# points on the same inputs (the backward twins fed the kernel's own lse):
+# - o: the attention bounds of phase 3 (2 bf16 ulps at |o| ~ 2);
+# - lse (f32, rows with a key only; a row with none must read -1e30 in
+#   both): f32 summation order and exp2 vs exp, well under 1e-3;
+# - dq, dk, dv: the backward bounds of phase 6, 2^-6 of the largest element.
+# And the Function's o, dq, dk, dv against autograd through
+# flash_attention_reference (the materialized composite) on f32 copies of
+# the inputs: the kernels' bf16 p and ds against f32 throughout.  A right
+# kernel reads rel L2 <= 6.3e-4 (o), 8.4e-8 (lse), 1.5e-4 (dq, dk, dv) and
+# <= 5.3e-3 against f32; mutants refused: p not zeroed where masked (o rel
+# L2 1.1e-2), the mask before exp only in the backward (dq 8.8), the skip
+# test on the tiles' first ids (o 0.65), dk without the scale (7.0), no
+# -1e30 sentinel (H100 80GB HBM3, 700 W).
+FLASH_LSE_ATOL, FLASH_LSE_RTOL = 1e-3, 1e-5
+FLASH_VS_F32_ATOL_FRAC, FLASH_VS_F32_REL_L2 = 2.0**-5, 2e-2
+# Phases 13-14: relative L2 of NaViT-B's logits, and of the first training
+# step's loss and gradients, against the plain bf16 path (the flash Function
+# on its twins) and fp32.  NaViT-B at random init is chaotic in bf16: its
+# qk-norm attention runs at scale 1 on rows of norm 8, so a logit moves by
+# ~64x the relative error of q or k, one bf16 rounding shifts the near-top
+# softmax weights by percents, and the error doubles every 3-4 layers.  With
+# no kernel at all, plain bf16 at depth 12 sits at rel L2 ~0.36 from fp32,
+# and 1e-3 relative noise on the input pixels moves its logits by as much;
+# two bf16 paths' depth-12 gradients are uncorrelated.  So:
+# - depth 12 (the model as served and trained): the logits are held to the
+#   noise floor measured in the same run (kernel vs fp32 within
+#   NAVIT_NOISE_RATIO of plain bf16 vs fp32; kernel vs plain within it of
+#   plain vs plain on the perturbed input), the first step's loss to
+#   NAVIT_DEEP_LOSS; its gradients are printed, not bounded.  A right kernel
+#   reads 0.98x and 0.66x of those floors, 6.7e-5 and 1.2e-3 on the loss;
+# - depth 2 at full width: logits and the first step's loss and gradients
+#   against bounds ~2-3x a right kernel's reading: logits 1.48e-2 vs plain,
+#   3.08e-2 vs fp32 (plain bf16 itself 3.10e-2); gradients 4.6e-2 (worst
+#   parameter 5.1e-2) vs plain, 0.111 (0.125) vs fp32 (plain bf16 itself
+#   0.110); the nested-tensor NaViT's logits 4.66e-3 (H100 80GB HBM3, 700 W).
+# These checks catch wiring (ids, layouts, heads) and the loss; phase 12's
+# bounds are the ones that refuse a wrong kernel.
+NAVIT_NOISE_RATIO, NAVIT_INPUT_NOISE = 1.5, 1e-3
+NAVIT_DEEP_LOSS = 5e-3
+NAVIT_SHALLOW = 2
+NAVIT_SHALLOW_VS_PLAIN, NAVIT_SHALLOW_VS_FP32 = 4.5e-2, 1e-1
+NESTED_DEPTH, NESTED_VS_PLAIN = 2, 2e-2
+NAVIT_TRAIN_VS_PLAIN = dict(loss=5e-3, grads=1e-1, worst=1.5e-1)
+NAVIT_TRAIN_VS_FP32 = dict(loss=5e-3, grads=2.5e-1, worst=3e-1)
+TPU_FLASH = {
+    "flash_fwd": "vit_pytorch_tpu/ops/flash_attention.py:202",
+    "flash_bwd_dq": "vit_pytorch_tpu/ops/flash_attention.py:298",
+    "flash_bwd_dkv": "vit_pytorch_tpu/ops/flash_attention.py:376",
+}
+FLASH_SOURCE = "vit_pytorch_tpu_torch/csrc/flash_attention.cu"
 TPU_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:1053"
 TPU_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:524"
 TPU_BLOCK_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:260"
@@ -355,13 +436,18 @@ def grad_vector(model):
     return [p.grad.detach().float().clone() for p in model.parameters()]
 
 
+def grads_rel_l2(got, want):
+    """Relative L2 of all gradients together."""
+    num = sum(((a - b).norm() ** 2 for a, b in zip(got, want)), torch.zeros((), device=got[0].device))
+    den = sum((b.norm() ** 2 for b in want), torch.zeros((), device=got[0].device))
+    return (num / den).sqrt().item()
+
+
 def compare_grads(name, got, want, loss, loss_want, bounds, names):
     """Relative L2 of the loss, of all gradients together and of the worst
     single parameter."""
     d_loss = abs(loss - loss_want) / abs(loss_want)
-    num = sum(((a - b).norm() ** 2 for a, b in zip(got, want)), torch.zeros((), device=got[0].device))
-    den = sum((b.norm() ** 2 for b in want), torch.zeros((), device=got[0].device))
-    total = (num / den).sqrt().item()
+    total = grads_rel_l2(got, want)
     per = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(got, want)]
     worst = max(range(len(per)), key=per.__getitem__)
     ok = (d_loss <= bounds["loss"] and total <= bounds["grads"] and per[worst] <= bounds["worst"]
@@ -738,6 +824,436 @@ def time_dropout_training(fb, dev, gen, smi):
     return per_kernel
 
 
+def navit_images(seed, labels: bool):
+    """The JAX benches' 120 images, drawn as they draw them from
+    ``np.random.default_rng(seed)``: a resolution from the mix, the pixels,
+    and (tools/bench_navit_train.py:53-58) a label after each image.
+    Returns the images, the labels and the generator, which goes on to the
+    token dropout."""
+    rng = np.random.default_rng(seed)
+    images, label_list = [], []
+    for _ in range(NAVIT_IMAGES):
+        h, w = NAVIT_RESOLUTIONS[rng.integers(len(NAVIT_RESOLUTIONS))]
+        images.append(rng.normal(size=(3, h, w)).astype(np.float32))
+        if labels:
+            label_list.append(int(rng.integers(1000)))
+    return images, label_list, rng
+
+
+def pack_navit(images, rng, dev, *, train: bool):
+    """The benches' packing: 16 packs of 2048 tokens, 16 query slots, bf16
+    patches; token dropout 0.25 in training."""
+    from vit_pytorch_tpu_torch.ops.packing import pack_images
+
+    return pack_images(images, 16, max_seq_len=NAVIT_SEQ, token_dropout_prob=NAVIT_TOKEN_DROPOUT if train else None,
+                       train=train, rng=rng, pad_groups_to=NAVIT_PACKS, max_images=NAVIT_MAX_IMAGES,
+                       dtype=torch.bfloat16, device=dev)
+
+
+def compare_or_zero(name, got, want, atol, rtol, max_rel_l2=KERNEL_REL_L2, atol_frac=None):
+    """:func:`compare`, except that a ``want`` of zeros (a fully masked
+    operand) must be matched exactly."""
+    if want.numel() and want.abs().max().item() > 0:
+        return compare(name, got, want, atol, rtol, max_rel_l2, atol_frac)
+    ok = bool((got == 0).all())
+    log(f"  {name:30s} want is all zeros; got all zeros: {ok} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name}: a fully masked operand is not zero")
+    return got.float().abs().max().item() if got.numel() else 0.0
+
+
+def flash_cases(fa, dev, gen):
+    """Phase 12's cases: (name, q, k, v, q ids, kv ids, scale), bf16, h=12,
+    dh=64.  q and k go through rms_norm as NaViT's do (rows of norm
+    sqrt(64), logits up to ~+-64 at scale 1)."""
+    from vit_pytorch_tpu_torch.models.na_vit import pooling_query_ids
+
+    images, _, rng = navit_images(SEED, labels=False)
+    packed = pack_navit(images, rng, dev, train=False)
+    ids = packed.image_ids[:2].contiguous()
+
+    def operands(b, n, m, norm):
+        q, k, v = (torch.randn(b, HEADS, r, DH, generator=gen, device=dev) for r in (n, m, m))
+        if norm:
+            q, k = fa.rms_norm(q, 1.0), fa.rms_norm(k, 1.0)
+        return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+    pad = torch.full((1, NAVIT_SEQ), -1, dtype=torch.int32, device=dev)
+    cases = (
+        ("packed", *operands(2, NAVIT_SEQ, NAVIT_SEQ, True), ids, ids, 1.0),
+        ("attn_pool", *operands(2, NAVIT_MAX_IMAGES, NAVIT_SEQ, True), pooling_query_ids(packed)[:2].contiguous(),
+         ids, 1.0),
+        ("all-pad", *operands(1, NAVIT_SEQ, NAVIT_SEQ, True), pad, pad, 1.0),
+        ("no ids, n=m=1100", *operands(2, 1100, 1100, False), None, None, DH**-0.5),
+    )
+    return cases, packed
+
+
+def check_flash(fa, dev, gen):
+    """Phase 12: each flash kernel against its plain twin, and the Function
+    against autograd through the materialized twin in f32, on the packed,
+    attn_pool, all-pad and uneven cases; returns the largest max_abs of each
+    kernel against its twin."""
+    log(f"[12 flash kernels] bf16, heads={HEADS}, dh={DH}: two 2048-token packs of the seeded resolution mix, the "
+        f"attn_pool shape (n={NAVIT_MAX_IMAGES}, empty slots at -2), an all-pad pack, no ids at n=m=1100")
+    cases, packed = flash_cases(fa, dev, gen)
+    admitted = fa.tile_admitted(packed.image_ids, packed.image_ids)
+    log(f"  tiles admitted by the skip test at the packed shape ({NAVIT_PACKS} packs x {NAVIT_SEQ} tokens, "
+        f"{fa.BLOCK_Q}x{fa.BLOCK_K} tiles): {admitted.float().mean().item():.4f} of {admitted.numel()}")
+    errs = {name: 0.0 for name in fa.LAUNCHES}
+    for name, q, k, v, qs, ks, scale in cases:
+        kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw)
+            errs["flash_fwd"] = max(errs["flash_fwd"],
+                                    compare_or_zero(f"flash_fwd o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+            live = lse_want > 0.5 * fa.NEG_INF
+            dead_ok = bool((lse[~live] == fa.NEG_INF).all())
+            log(f"  flash_fwd lse [{name}]: {int(live.sum())} rows with a key, {int((~live).sum())} without, which "
+                f"read -1e30: {dead_ok}")
+            if not dead_ok:
+                fail(f"flash_fwd lse [{name}]: a fully masked row does not read the sentinel")
+            if live.any():
+                errs["flash_fwd"] = max(errs["flash_fwd"], compare(
+                    f"flash_fwd lse [{name}]", lse[live], lse_want[live], FLASH_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2))
+            delta = (do.float() * o.float()).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)
+            for kernel, part, got, w in (("flash_bwd_dq", "dq", dq, want[0]), ("flash_bwd_dkv", "dk", dk, want[1]),
+                                         ("flash_bwd_dkv", "dv", dv, want[2])):
+                errs[kernel] = max(errs[kernel], compare_or_zero(f"{kernel} {part} [{name}]", got, w, None, ATTN_RTOL,
+                                                                 atol_frac=BWD_ATOL_FRAC))
+        sync()
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, **kw)
+        got = (out, *torch.autograd.grad(out, leaves, do))
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out_ref = fa.flash_attention_reference(*ref, **kw)
+        want = (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))
+        for part, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            compare_or_zero(f"flash_attention {part} vs f32 twin [{name}]", a, b, None, ATTN_RTOL,
+                            FLASH_VS_F32_REL_L2, atol_frac=FLASH_VS_F32_ATOL_FRAC)
+        del leaves, ref, out, out_ref, got, want
+        sync()
+    return errs
+
+
+@contextlib.contextmanager
+def plain_flash(admit_fp32=False):
+    """Every flash call of the dispatcher through the plain twins:
+    ``flash_attention_twins``, the same Function with each kernel swapped
+    for its twin (as ``plain_layers`` swaps the layer's).  With
+    ``admit_fp32`` the kernels' gate admits fp32 too, so that an fp32 model
+    runs the twins in f32 instead of the materialized composite, whose saved
+    (n, m) matrices would not fit at NaViT-B's 16 training packs."""
+    from vit_pytorch_tpu_torch.ops import attention
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    saved = attention.flash_attention, attention.flash_supported
+    attention.flash_attention = fa.flash_attention_twins
+    if admit_fp32:
+        attention.flash_supported = lambda *args: True
+    try:
+        yield
+    finally:
+        attention.flash_attention, attention.flash_supported = saved
+
+
+def navit_model(dev, dtype, nested=False, **kw):
+    """NaViT-B (or the nested-tensor NaViT), random weights from SEED,
+    initialised in f32 and cast as the JAX benches cast their params."""
+    from vit_pytorch_tpu_torch.models import na_vit, na_vit_nested_tensor
+
+    cls = na_vit_nested_tensor.NaViT if nested else na_vit.NaViT
+    args = {**NAVIT, **kw}
+    return cls(**args, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def all_launches(fb, fa):
+    return {**fb.LAUNCHES, **fa.LAUNCHES}
+
+
+def reset_all(fb, fa):
+    fb.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def expect_launches(fb, fa, want, what):
+    """Fail unless the launch counters read ``want`` exactly (every other
+    kernel zero)."""
+    counts = all_launches(fb, fa)
+    full = {k: want.get(k, 0) for k in counts}
+    log(f"  launches {({k: v for k, v in counts.items() if v})} (expected {({k: v for k, v in full.items() if v})})")
+    if counts != full:
+        fail(f"{what}: the launch counters are not the expected ones")
+    return counts
+
+
+def navit_paths(fb, fa, model, fp32, images, depth):
+    """NaViT logits of ``images`` through the kernel path (its launch
+    counters exact), the plain bf16 path and fp32 (which the gate sends to
+    the materialized composite); returns (counts, kernel, plain, fp32)."""
+    from vit_pytorch_tpu_torch.models.na_vit import forward_packed
+
+    reset_all(fb, fa)
+    logits = forward_packed(model, images)
+    sync()
+    counts = expect_launches(fb, fa, {"flash_fwd": depth + 1}, f"NaViT serving at depth {depth}")
+    if logits.shape != (NAVIT_IMAGES, NAVIT["num_classes"]) or not bool(torch.isfinite(logits).all()):
+        fail(f"NaViT serving: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    reset_all(fb, fa)
+    with plain_flash():
+        plain = forward_packed(model, images)
+    want = forward_packed(fp32, images)
+    sync()
+    if any(all_launches(fb, fa).values()):
+        fail(f"the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
+    return counts, logits, plain, want
+
+
+def check_navit_serving(fb, fa, dev):
+    """Phase 13: NaViT-B serving through ``forward_packed`` on the 120-image
+    mix, at depth 12 and 2: exact launch counters, logits against the plain
+    bf16 path and fp32 (at depth 12 against the bf16 noise floor, see
+    NAVIT_NOISE_RATIO); then a depth-2 nested-tensor NaViT against its plain
+    path.  Returns the launch counts of the depth-12 forward."""
+    from vit_pytorch_tpu_torch.models.na_vit import forward_packed
+    from vit_pytorch_tpu_torch.models.na_vit_nested_tensor import forward_images
+
+    log(f"[13 NaViT serving] NaViT-B ({NAVIT}), bf16, random weights (seed {SEED}); forward_packed on the "
+        f"{NAVIT_IMAGES}-image resolution mix (tools/bench_zoo.py:148-162), packs of {NAVIT_SEQ} tokens")
+    images, _, _ = navit_images(SEED, labels=False)
+    noise = np.random.default_rng(SEED + 1)
+    noisy = [img * (1 + NAVIT_INPUT_NOISE * noise.standard_normal(img.shape, dtype=np.float32)) for img in images]
+    with torch.inference_mode():
+        for depth in (DEPTH, NAVIT_SHALLOW):
+            fp32 = navit_model(dev, torch.float32, depth=depth).eval()
+            model = copy.deepcopy(fp32).to(torch.bfloat16)
+            launches, logits, plain, want = navit_paths(fb, fa, model, fp32, images, depth)
+            e_kp, e_kf, e_pf = rel_l2(logits, plain), rel_l2(logits, want), rel_l2(plain, want)
+            if depth == DEPTH:
+                counts = launches
+                with plain_flash():
+                    floor = rel_l2(forward_packed(model, noisy), plain)
+                ok = e_kf <= NAVIT_NOISE_RATIO * e_pf and e_kp <= NAVIT_NOISE_RATIO * floor
+                log(f"  depth {depth}, logits of {NAVIT_IMAGES} images, rel L2: kernel vs fp32 {e_kf:.4e} (bound "
+                    f"{NAVIT_NOISE_RATIO} x plain bf16 vs fp32, {e_pf:.4e}); kernel vs plain bf16 {e_kp:.4e} (bound "
+                    f"{NAVIT_NOISE_RATIO} x plain bf16 vs plain bf16 with {NAVIT_INPUT_NOISE} relative noise on the "
+                    f"pixels, {floor:.4e}) {'ok' if ok else 'FAILED'}")
+            else:
+                ok = e_kp <= NAVIT_SHALLOW_VS_PLAIN and e_kf <= NAVIT_SHALLOW_VS_FP32
+                log(f"  depth {depth}, logits of {NAVIT_IMAGES} images, rel L2: kernel vs plain bf16 {e_kp:.4e} "
+                    f"(bound {NAVIT_SHALLOW_VS_PLAIN}); kernel vs fp32 {e_kf:.4e} (bound {NAVIT_SHALLOW_VS_FP32}; "
+                    f"plain bf16 vs fp32 {e_pf:.4e}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"NaViT serving logits at depth {depth} disagree with the plain path or fp32")
+            del model, fp32
+
+        nested = navit_model(dev, torch.bfloat16, nested=True, depth=NESTED_DEPTH).eval()
+        reset_all(fb, fa)
+        got = forward_images(nested, images)
+        sync()
+        expect_launches(fb, fa, {"flash_fwd": NESTED_DEPTH + 1}, "nested-tensor NaViT serving")
+        with plain_flash():
+            want = forward_images(nested, images)
+        e = rel_l2(got, want)
+        log(f"  nested-tensor NaViT (depth {NESTED_DEPTH}) logits: rel L2 vs plain bf16 {e:.4e} (bound "
+            f"{NESTED_VS_PLAIN})")
+        if not e <= NESTED_VS_PLAIN or not bool(torch.isfinite(got).all()):
+            fail("nested-tensor NaViT logits disagree with the plain path")
+    sync()
+    return counts
+
+
+def navit_labels(packed, labels):
+    """tools/bench_navit_train.py:69-77: the labels in slot order, -1 on
+    empty slots, (b, max_images) on the device."""
+    b, num = packed.image_ids.shape[0], packed.num_images.tolist()
+    lab = np.full((b, packed.max_images), -1, np.int64)
+    idx = 0
+    for g in range(b):
+        for s in range(packed.max_images):
+            if num[g] > s and idx < len(labels):
+                lab[g, s] = labels[idx]
+                idx += 1
+    return torch.from_numpy(lab).to(packed.device)
+
+
+def masked_ce(logits, labels):
+    """The bench's loss (tools/bench_navit_train.py:97-103): softmax
+    cross-entropy over the (b, max_images) slots, in f32, masked where the
+    label is -1, averaged over the real images."""
+    valid = labels >= 0
+    ls = torch.nn.functional.cross_entropy(logits.float().flatten(0, 1), labels.clamp_min(0).flatten(),
+                                           reduction="none")
+    return (ls.view(labels.shape) * valid).sum() / valid.sum().clamp_min(1)
+
+
+def navit_train_batch(dev):
+    images, labels, rng = navit_images(SEED, labels=True)
+    packed = pack_navit(images, rng, dev, train=True)
+    return packed, navit_labels(packed, labels)
+
+
+def check_navit_training(fb, fa, dev):
+    """Phase 14: NaViT-B training through make_train_step with the masked
+    loss on the bench's packed batch (token dropout 0.25).  Depth 12: 4
+    steps, loss finite and falling, exact launch counters, the first step's
+    loss against the plain bf16 path and fp32 (its gradients printed);
+    depth 2: the first step's loss and gradients against both.  Returns the
+    launch counts of the depth-12 steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    packed, labels = navit_train_batch(dev)
+    tokens = int((packed.image_ids >= 0).sum())
+    log(f"[14 NaViT training] NaViT-B, bf16 params and inputs, seed {SEED}; {NAVIT_IMAGES} images, token dropout "
+        f"{NAVIT_TOKEN_DROPOUT}, {packed.image_ids.shape[0]} packs x {NAVIT_SEQ} ({tokens} real tokens), masked "
+        f"cross-entropy, Adam 3e-4; depth {DEPTH}: {TRAIN_STEPS} steps on the batch; depth {NAVIT_SHALLOW}: one")
+    for depth in (DEPTH, NAVIT_SHALLOW):
+        fp32 = navit_model(dev, torch.float32, depth=depth, token_dropout_prob=NAVIT_TOKEN_DROPOUT)
+        model = copy.deepcopy(fp32).to(bf16)
+        initial = copy.deepcopy(model)
+        names = [n for n, _ in model.named_parameters()]
+        steps = TRAIN_STEPS if depth == DEPTH else 1
+        state, step = create_train_state(model), make_train_step(model, masked_ce)
+        reset_all(fb, fa)
+        losses = []
+        for i in range(steps):
+            losses.append(step(state, packed, labels)["loss"].item())
+            if i == 0:
+                grads = grad_vector(model)
+        sync()
+        launches = expect_launches(fb, fa, {k: (depth + 1) * steps for k in fa.LAUNCHES},
+                                   f"NaViT training at depth {depth}")
+        plain = copy.deepcopy(initial)
+        reset_all(fb, fa)
+        with plain_flash():
+            loss_plain = make_train_step(plain, masked_ce)(create_train_state(plain), packed, labels)["loss"].item()
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"the plain path launched kernels: {all_launches(fb, fa)}")
+        # fp32 through the twins in f32: the composite's saved (n, m) matrices
+        # would not fit at 16 packs
+        with plain_flash(admit_fp32=True):
+            metrics = make_train_step(fp32, masked_ce)(create_train_state(fp32), packed.to(dtype=torch.float32),
+                                                       labels)
+        loss_fp32, plain_grads, fp32_grads = metrics["loss"].item(), grad_vector(plain), grad_vector(fp32)
+        if depth == DEPTH:
+            counts = launches
+            log(f"  depth {depth}: losses {[f'{v:.6f}' for v in losses]}")
+            if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+                fail("the NaViT training loss is not finite or does not fall on the repeated batch")
+            d_plain, d_fp32 = (abs(losses[0] - v) / abs(v) for v in (loss_plain, loss_fp32))
+            ok = d_plain <= NAVIT_DEEP_LOSS and d_fp32 <= NAVIT_DEEP_LOSS and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+            log(f"  depth {depth}, first step: loss {losses[0]:.6f}, rel to plain bf16 {d_plain:.3e}, to fp32 "
+                f"{d_fp32:.3e} (bound {NAVIT_DEEP_LOSS}) {'ok' if ok else 'FAILED'}; gradients (finite; not bounded at "
+                f"this depth) rel L2 kernel vs plain bf16 {grads_rel_l2(grads, plain_grads):.4e}, kernel vs fp32 "
+                f"{grads_rel_l2(grads, fp32_grads):.4e}, plain bf16 vs fp32 {grads_rel_l2(plain_grads, fp32_grads):.4e}")
+            if not ok:
+                fail(f"NaViT training at depth {depth}: the first step's loss is out of bounds")
+        else:
+            log(f"  depth {depth}, first step: plain bf16 vs fp32 gradients rel L2 "
+                f"{grads_rel_l2(plain_grads, fp32_grads):.4e}")
+            compare_grads(f"depth {depth}, first step vs plain bf16", grads, plain_grads, losses[0], loss_plain,
+                          NAVIT_TRAIN_VS_PLAIN, names)
+            compare_grads(f"depth {depth}, first step vs fp32", grads, fp32_grads, losses[0], loss_fp32,
+                          NAVIT_TRAIN_VS_FP32, names)
+        del model, plain, fp32, initial, state, step
+        sync()
+    return counts
+
+
+def time_navit(fb, fa, dev, gen, smi):
+    """Phase 15: NaViT-B serving img/s and tokens/s and the training ms/step
+    (peak memory), kernel against plain paths in turns, and each flash launch
+    at the packed shape; returns each flash kernel's (kernel ms, plain ms)."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[15 NaViT timing] {smi}")
+    images, _, rng = navit_images(SEED, labels=False)
+    packed = pack_navit(images, rng, dev, train=False)
+    tokens = int((packed.image_ids >= 0).sum())
+    model = navit_model(dev, bf16).eval()
+    with torch.inference_mode():
+        def serve():
+            model(packed)
+
+        def serve_plain():
+            with plain_flash():
+                model(packed)
+
+        p1, k1, k2, p2 = (host_ms(f, 5) for f in (serve_plain, serve, serve, serve_plain))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    log(f"  serving {NAVIT_IMAGES} images ({tokens} tokens in {NAVIT_PACKS} packs of {NAVIT_SEQ}): kernel path "
+        f"{NAVIT_IMAGES * 1e3 / k_ms:.1f} img/s, {tokens / k_ms:.1f} k tokens/s ({k_ms:.3f} ms/batch); plain bf16 "
+        f"path {NAVIT_IMAGES * 1e3 / p_ms:.1f} img/s ({p_ms:.3f} ms/batch); turns ms plain {p1:.3f} kernel {k1:.3f} "
+        f"kernel {k2:.3f} plain {p2:.3f}")
+    del model
+
+    packed, labels = navit_train_batch(dev)
+    model = navit_model(dev, bf16, token_dropout_prob=NAVIT_TOKEN_DROPOUT)
+    state, step = create_train_state(model), make_train_step(model, masked_ce)
+
+    def kernel_step():
+        step(state, packed, labels)
+
+    def plain_step():
+        with plain_flash():
+            step(state, packed, labels)
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                  for f in (plain_step, kernel_step, kernel_step, plain_step))
+    k_ms = (k1 + k2) / 2
+    log(f"  training step, {packed.image_ids.shape[0]} packs ({NAVIT_IMAGES} images, token dropout "
+        f"{NAVIT_TOKEN_DROPOUT}): kernel path {k_ms:.3f} ms/step ({NAVIT_IMAGES * 1e3 / k_ms:.1f} img/s), plain bf16 "
+        f"path {(p1 + p2) / 2:.3f} ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; "
+        f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    del model, state, step
+
+    ids = packed.image_ids
+    shape = (ids.shape[0], HEADS, NAVIT_SEQ, DH)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    q, k = fa.rms_norm(q, 1.0), fa.rms_norm(k, 1.0)
+    q, k, v, do = (t.to(bf16) for t in (q, k, v, do))
+    kw = dict(scale=1.0, q_segment_ids=ids, kv_segment_ids=ids)
+    per_kernel = {}
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        launches = (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, **kw), lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+             lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)),
+        )
+        log(f"  each flash launch at the packed shape ({shape[0]} packs x {HEADS} heads x {NAVIT_SEQ} tokens, NaViT's "
+            f"ids; the backward kernels' plain twin computes dq, dk and dv at once):")
+        for name, kern, plain in launches:
+            km, pm = in_turns(kern, plain, 5)
+            per_kernel[name] = (km, pm)
+            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    sync()
+    return per_kernel
+
+
+def host_ms(fn, iters=10):
+    """Host ms of fn (after one warm-up call), bracketed by synchronize()."""
+    fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -840,15 +1356,6 @@ def main():
     log(f"[5 timing] bs={B_TIME}, {smi}")
     img = images[130][:B_TIME].to(bf16)
     with torch.inference_mode():
-        def host_ms(fn, iters=10):
-            fn()
-            sync()
-            t = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            sync()
-            return (time.perf_counter() - t) * 1e3 / iters
-
         run_kernel, run_plain = (lambda: served(img)), (lambda: plain_forward(img))
         p1, k1, k2, p2 = (host_ms(f) for f in (run_plain, run_kernel, run_kernel, run_plain))
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
@@ -923,6 +1430,24 @@ def main():
     per_kernel.update({name: list(t) for name, t in time_dropout_training(fb, dev, gen, smi).items()})
     phase_done("phase 11")
 
+    # -- 12. flash kernels against their plain twins ---------------------------
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    errs.update(check_flash(fa, dev, gen))
+    phase_done("phase 12")
+
+    # -- 13. NaViT-B serving -------------------------------------------------------
+    navit_serving_counts = check_navit_serving(fb, fa, dev)
+    phase_done("phase 13")
+
+    # -- 14. NaViT-B training ------------------------------------------------------
+    navit_train_counts = check_navit_training(fb, fa, dev)
+    phase_done("phase 14")
+
+    # -- 15. NaViT timing ----------------------------------------------------------
+    per_kernel.update({name: list(t) for name, t in time_navit(fb, fa, dev, gen, smi).items()})
+    phase_done("phase 15")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks
@@ -946,13 +1471,20 @@ def main():
          "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
         for name, source, replaces in dropout_kernels
     ] + [
+        {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": TPU_FLASH[name],
+         "path": "NaViT serving" if name == "flash_fwd" else "NaViT training",
+         "launches": (navit_serving_counts if name == "flash_fwd" else navit_train_counts)[name],
+         "max_abs_err": errs[name], "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
+        for name in TPU_FLASH
+    ] + [
         {"name": "dropout_masks", "route": "cuda", "source": DROPOUT_SOURCE, "replaces": TPU_MASKS_KERNEL,
          "path": "mask replay", "launches": mask_launches, "max_abs_err": errs["dropout_masks"],
          "ms": per_kernel["dropout_masks"][0], "plain_ms": per_kernel["dropout_masks"][1]}
     ]
-    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward; launches: the serving "
-        "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
-        "for the dropout variants, phase 9's mask checks for dropout_masks)")
+    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward, and the flash kernels' "
+        "at NaViT-B's packed shape; launches: the serving requests for the forward kernels, the training steps for "
+        "the backward kernels, the dropout training steps for the dropout variants, phase 9's mask checks for "
+        "dropout_masks, NaViT-B's serving forward for flash_fwd and its 4 training steps for the flash backward)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,6 +1,6 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
-// fused_layer_bwd.cu, dropout.cu).  Everything here has internal linkage:
-// each source that includes it gets its own copy.
+// fused_layer_bwd.cu, dropout.cu, flash_attention.cu).  Everything here has
+// internal linkage: each source that includes it gets its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +36,27 @@ struct DropoutArgs {
 };
 
 namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+// 16 bytes, or 16 zero bytes when !valid (gmem is then not read)
+__device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10 rounds)
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {

@@ -1,0 +1,621 @@
+// Hopper (sm_90a) flash attention with segment-id (packed-sequence) masking:
+// forward and the two backward kernels.
+//
+// They replace the TPU kernels of vit_pytorch_tpu/ops/flash_attention.py:
+//
+//   flash_fwd      _fwd_kernel      (:202, called at :630)  q, k, v -> o, lse
+//   flash_bwd_dq   _bwd_dq_kernel   (:298, called at :739)  ... , do, lse, delta -> dq
+//   flash_bwd_dkv  _bwd_dkv_kernel  (:376, called at :776)  ... , do, lse, delta -> dk, dv
+//
+// for the options of the packed NaViT path: segment ids or none, no bias, no
+// causal mask, no dropout, no in-tile qk-norm (the port normalizes q and k
+// eagerly in the dispatcher, as the JAX package does by default).
+//
+// The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
+// sequential and carry the online-softmax state (or the dq / dk, dv sums) in
+// VMEM scratch from one grid step to the next.  An H100 runs blocks in no
+// order, so here the sequential axis is a loop inside the block: one block
+// of 4 warps per (q-tile, b*h) for flash_fwd and flash_bwd_dq, looping over
+// kv-tiles, and one per (kv-tile, b*h) for flash_bwd_dkv, looping over
+// q-tiles.  Every sum a block makes stays in its registers, so the result
+// does not depend on block order.
+//
+// Bound on this card: at NaViT-B's 2048-token packs the products are
+// 4*d flops per (query, key) pair of one image against a few bytes per row
+// of q, k, v, far above the ~295 flop/byte ridge inside the diagonal tiles;
+// the (n, m) logits, 805 M per layer over 16 packs x 12 heads, would be
+// gigabytes in device memory, so they never leave the registers.  The
+// limit is tensor-core throughput and the tiles a block must visit.
+//
+// Design:
+//  - Tiles are the H100's own, 64 query rows x 64 keys (not the TPU's
+//    1024/512): each warp owns 16 query rows (16 keys in flash_bwd_dkv), and
+//    a 64x64 tile of s = q.k^T is 8 x 4 mma.sync m16n8k16 a warp, with f32
+//    accumulators in registers.  dh = 64 is the one instantiation.
+//  - The operands each warp keeps for the whole loop (its q and dO rows, or
+//    its k and v rows) are read once from device memory straight into mma
+//    A fragments.  The tiles the loop walks (k and v, or q and dO with their
+//    LSE, delta and ids) go through a two-stage cp.async ring in shared
+//    memory (rows 72 bf16 apart, off the bank period), so the next admitted
+//    tile lands while the block computes on this one.  Rows past n or m are
+//    zero-filled: a masked p is exactly 0, and 0 * a zero row stays 0 (a
+//    stale row could hold a NaN).
+//  - The accumulator layout of one product is the A-operand layout of the
+//    next (acc_to_a_frag), so p, ds and their transposes go from f32
+//    registers to bf16 operands without a trip through memory.
+//  - Tile skip (_seg_overlap, :173-188): a (q-tile, kv-tile) pair runs only
+//    if the ranges of the two tiles' non-negative ids overlap.  Each warp
+//    computes a tile's range with shuffles, the same in all four warps, so
+//    the skip is uniform across the block and needs no barrier; the ring
+//    prefetches the next admitted tile.  The test is conservative: the
+//    element mask still decides every (query, key) pair.  The same
+//    predicate is ops/flash_attention.py::tile_admitted on the host.
+//  - Strided operands: q, k, v, o, dO, dq, dk, dv are (b, h, rows, 64) with
+//    any (b, h, row) strides and a contiguous head dim, so the merged-heads
+//    (b, n, h*dh) layout of the model's projections needs no copy.
+//
+// Masking and its hazards (named in the tests too):
+//  - An element (query r, key c) is valid iff r < n, c < m and, with ids,
+//    qseg[r] == kseg[c] >= 0 (_tile_mask, :150-165).  Without ids every
+//    row and key in range is segment 0, so one test serves both.
+//  - Fully masked rows: pad tokens carry id -1 and empty attn_pool slots -2.
+//    As in _fwd_kernel (:284-290) such a row keeps l = 0 and m = -1e30, so
+//    o = acc / 1 = 0 and lse = -1e30, the sentinel.  A block whose tiles
+//    are all skipped writes exactly that, and flash_bwd_dkv writes dk = dv
+//    = 0 for keys no query reaches.
+//  - The backward recomputes p = exp(s - lse).  At a masked element of a
+//    fully masked row that is exp(-1e30 - (-1e30)) = 1 in the TPU kernel,
+//    which zeroes p after the exp (:344-346, :421-423).  Here p is never
+//    taken from a masked logit: it is 0 wherever the element mask says so,
+//    after the exp or instead of it, or pad rows would leak gradient.
+//  - Segments are per image, not per head: block (x, bh) reads the ids of
+//    image bh / heads.
+//
+// Rounding points of the TPU kernels: s = (q.k^T in f32) * scale (NaViT's
+// scale is 1 after qk-norm); p is cast to bf16 before p.v and o = acc * (1/l)
+// is cast once; ds = p * (dp - delta) in f32 with delta = rowsum(dO * o)
+// computed in f32 outside the kernels (_flash_backward :680-685), cast to
+// bf16 before ds.k and ds^T.q; dq, dk, dv accumulate in f32 and are cast
+// once (scale applied to the f32 sums).  exp is exp2f of the argument times
+// log2(e).  No result depends on the tile size except f32 summation order.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kFlashTile = 64;      // query rows and keys of one tile
+constexpr int kFlashThreads = 128;  // 4 warps x 16 rows
+constexpr int kFlashDh = kAttnDh;   // 64
+constexpr int kFlashLd = kAttnLd;   // 72: shared-memory row stride
+constexpr int kTileElems = kFlashTile * kFlashLd;
+constexpr float kNegInf = -1e30f;  // _NEG_INF, the LSE of a fully masked row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBigId = 1 << 30;
+
+// shared memory: two ring stages of two bf16 tiles, and per stage 64 ids
+// (flash_bwd_dkv also 64 lse and 64 delta)
+constexpr int kFwdSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
+constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
+
+struct Strides {
+  long long b, h, row;  // elements; the head dim is contiguous
+};
+
+struct FlashArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  bf16* out0;  // flash_fwd: o; flash_bwd_dq: dq; flash_bwd_dkv: dk
+  bf16* out1;  // flash_bwd_dkv: dv
+  float* lse;  // (b*h, n) f32; written by flash_fwd, read by the backward
+  const float* delta;  // (b*h, n) f32
+  const int* qseg;     // (b, n) int32, or null
+  const int* kseg;     // (b, m) int32, or null
+  Strides sq, sk, sv, sdo, s0, s1;
+  int heads, n, m;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ T* head_ptr(T* p, const Strides& s, int b, int h) {
+  return p + b * s.b + h * s.h;
+}
+
+// The segment id of row r of a (b, len) id array: -1 past len; without ids
+// every row in range is segment 0.
+__device__ __forceinline__ int seg_id(const int* seg, int r, int len) {
+  return r < len ? (seg ? seg[r] : 0) : -1;
+}
+
+// The range of the non-negative ids of rows r0 .. r0 + 63 (lo = 2^30 when
+// none) and their max over all ids (negative when none is >= 0): the
+// reductions of _seg_overlap.  Every lane of the warp gets the result.
+__device__ __forceinline__ void seg_range(const int* seg, int r0, int len, int& lo, int& hi) {
+  const int lane = threadIdx.x & 31;
+  const int a = seg_id(seg, r0 + lane, len), c = seg_id(seg, r0 + 32 + lane, len);
+  hi = max(a, c);
+  lo = min(a >= 0 ? a : kBigId, c >= 0 ? c : kBigId);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+  }
+}
+
+// _seg_overlap: can any (query, key) pair of the two tiles share an id?
+// (Symmetric in the two tiles.)
+__device__ __forceinline__ bool tiles_overlap(int qlo, int qhi, int klo, int khi) {
+  return qhi >= 0 && khi >= 0 && qlo <= khi && klo <= qhi;
+}
+
+// The first tile j' >= j of the other side (`tiles` tiles over the `len`
+// ids of `seg`) that overlaps this block's tile, whose id range is [lo, hi];
+// without ids every tile runs.  Uniform across the block.
+__device__ __forceinline__ int next_admitted(const int* seg, int len, int tiles, int j, int lo, int hi) {
+  if (seg == nullptr) return j;
+  for (; j < tiles; ++j) {
+    int l, h;
+    seg_range(seg, j * kFlashTile, len, l, h);
+    if (tiles_overlap(lo, hi, l, h)) break;
+  }
+  return j;
+}
+
+// One 64-row tile of a (b, h) slice into shared memory (ld kFlashLd), rows
+// r0.. of row stride `stride`; rows >= len are zero-filled.  All threads.
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride, int r0, int len) {
+#pragma unroll
+  for (int i = 0; i < kFlashTile * (kFlashDh / 8) / kFlashThreads; ++i) {
+    const int c = threadIdx.x + i * kFlashThreads;
+    const int r = c / (kFlashDh / 8), d = (c % (kFlashDh / 8)) * 8;
+    const bool ok = r0 + r < len;
+    cp_async_16_zfill(dst + r * kFlashLd + d, ok ? src + (r0 + r) * stride + d : src, ok);
+  }
+}
+
+// Ring stage `stage` of flash_fwd and flash_bwd_dq: kv-tile j of k and v
+// (at 2 * stage and 2 * stage + 1) and its 64 key ids.  All threads.
+__device__ __forceinline__ void prefetch_kv(bf16* ring, int* kids, int stage, int j, const bf16* kb, const bf16* vb,
+                                            const int* kseg, const FlashArgs& a) {
+  load_tile_async(ring + 2 * stage * kTileElems, kb, a.sk.row, j * kFlashTile, a.m);
+  load_tile_async(ring + (2 * stage + 1) * kTileElems, vb, a.sv.row, j * kFlashTile, a.m);
+  if (threadIdx.x < kFlashTile) kids[stage * kFlashTile + threadIdx.x] = seg_id(kseg, j * kFlashTile + threadIdx.x, a.m);
+}
+
+// The A fragments (16 rows x 64 columns, four k16 steps) of rows row_lo and
+// row_lo + 8 of a strided (rows, 64) operand in device memory, read once;
+// rows >= len read as zeros.
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[kFlashDh / 16][4], const bf16* base, long long stride,
+                                            int row_lo, int len, int t) {
+  const bool ok0 = row_lo < len, ok1 = row_lo + 8 < len;
+  const bf16* p0 = base + row_lo * stride + 2 * t;
+  const bf16* p1 = p0 + 8 * stride;
+#pragma unroll
+  for (int kk = 0; kk < kFlashDh / 16; ++kk) {
+    a[kk][0] = ok0 ? ld_pair(p0 + kk * 16) : 0u;
+    a[kk][1] = ok1 ? ld_pair(p1 + kk * 16) : 0u;
+    a[kk][2] = ok0 ? ld_pair(p0 + kk * 16 + 8) : 0u;
+    a[kk][3] = ok1 ? ld_pair(p1 + kk * 16 + 8) : 0u;
+  }
+}
+
+// acc (16 rows x 64 columns as 8 tiles of 16x8) = A . X^T, X a 64-row tile
+// in shared memory whose rows are the columns of the product
+__device__ __forceinline__ void mma_rows_t(float (&acc)[8][4], const uint32_t (&a)[kFlashDh / 16][4], const bf16* x,
+                                           int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kFlashDh / 16; ++kk) {
+      uint32_t b[2];
+      load_b_frag_rows(b, x + j * 8 * kFlashLd + kk * 16, kFlashLd, g, t);
+      mma_16816(acc[j], a[kk], b);
+    }
+  }
+}
+
+// acc (16 rows x 64 head columns) += P . X, P given as four bf16 A fragments
+// over the 64 rows of the tile X (shared memory)
+__device__ __forceinline__ void mma_acc(float (&acc)[8][4], const uint32_t (&p)[4][4], const bf16* x, int g, int t) {
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t b[2];
+      load_b_frag_cols(b, x + kc * 16 * kFlashLd + dj * 8, kFlashLd, g, t);
+      mma_16816(acc[dj], p[kc], b);
+    }
+  }
+}
+
+// the 64 columns of 16 accumulator rows as four bf16 A fragments
+__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&acc)[8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) acc_to_a_frag(f[kc], acc[2 * kc], acc[2 * kc + 1]);
+}
+
+// a 16-row x 64 accumulator block (rows row_lo, row_lo + 8 of this thread),
+// times mul, cast to bf16 into rows < len of a strided operand
+__device__ __forceinline__ void store_rows(bf16* base, long long stride, const float (&acc)[8][4], float mul0,
+                                           float mul1, int row_lo, int len, int t) {
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) {
+    const int col = dj * 8 + 2 * t;
+    if (row_lo < len)
+      *reinterpret_cast<uint32_t*>(base + row_lo * stride + col) = pack_floats(acc[dj][0] * mul0, acc[dj][1] * mul0);
+    if (row_lo + 8 < len)
+      *reinterpret_cast<uint32_t*>(base + (row_lo + 8) * stride + col) =
+          pack_floats(acc[dj][2] * mul1, acc[dj][3] * mul1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd: one block per (64-query tile, b*h); loops over the admitted
+// kv-tiles with the online softmax of _fwd_kernel in registers: per tile
+// m_new = max(m, rowmax(s)), p = exp(s - m_new) (0 where masked),
+// l = exp(m - m_new) * l + rowsum(p), acc = acc * exp(m - m_new) + bf16(p).v.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: K at 2s, V at 2s + 1
+  int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);  // stage s: 64 key ids
+
+  const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool segs = a.qseg != nullptr;
+  const int* qseg = segs ? a.qseg + b * a.n : nullptr;
+  const int* kseg = segs ? a.kseg + b * a.m : nullptr;
+  const bf16* kb = head_ptr(a.k, a.sk, b, h);
+  const bf16* vb = head_ptr(a.v, a.sv, b, h);
+  const int nk = (a.m + kFlashTile - 1) / kFlashTile;
+
+  int qlo = 0, qhi = 0;
+  if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
+  int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
+  if (j < nk) prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+  cp_async_commit();
+
+  const int row_lo = q0 + warp * 16 + g;
+  uint32_t qf[kFlashDh / 16][4];
+  load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
+  const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
+
+  float o[8][4];
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) o[dj][0] = o[dj][1] = o[dj][2] = o[dj][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int stage = 0; j < nk; stage ^= 1) {
+    const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
+    if (jn < nk) prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile j landed
+
+    const bf16* ks = ring + 2 * stage * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const int* ids = kids + stage * kFlashTile;
+    float s[8][4];
+    mma_rows_t(s, qf, ks, g, t);
+
+    // scale, element mask (valid bits: 4j + e for row g, 4j + 2 + e for g + 8)
+    uint32_t valid = 0u;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int id = ids[jj * 8 + 2 * t + e];
+        const bool v0 = qs0 >= 0 && id == qs0, v1 = qs1 >= 0 && id == qs1;
+        valid |= (static_cast<uint32_t>(v0) << (4 * jj + e)) | (static_cast<uint32_t>(v1) << (4 * jj + 2 + e));
+        s[jj][e] = v0 ? s[jj][e] * a.scale : kNegInf;
+        s[jj][2 + e] = v1 ? s[jj][2 + e] * a.scale : kNegInf;
+        mx0 = fmaxf(mx0, s[jj][e]);
+        mx1 = fmaxf(mx1, s[jj][2 + e]);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // p is 0 where masked, never exp of the masked logit (see the top)
+        s[jj][e] = (valid >> (4 * jj + e)) & 1u ? exp2f((s[jj][e] - mn0) * kLog2e) : 0.f;
+        s[jj][2 + e] = (valid >> (4 * jj + 2 + e)) & 1u ? exp2f((s[jj][2 + e] - mn1) * kLog2e) : 0.f;
+        sum0 += s[jj][e];
+        sum1 += s[jj][2 + e];
+      }
+    }
+    const float al0 = exp2f((m0 - mn0) * kLog2e), al1 = exp2f((m1 - mn1) * kLog2e);
+    l0 = al0 * l0 + quad_sum(sum0);
+    l1 = al1 * l1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int dj = 0; dj < 8; ++dj) {
+      o[dj][0] *= al0;
+      o[dj][1] *= al0;
+      o[dj][2] *= al1;
+      o[dj][3] *= al1;
+    }
+    uint32_t pf[4][4];
+    to_a_frags(pf, s);
+    mma_acc(o, pf, vs, g, t);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    j = jn;
+  }
+  cp_async_wait<0>();
+
+  // _finish (:283-290): a row that met no key has l = 0: o = 0, lse = -1e30
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, o, inv0, inv1, row_lo, a.n, t);
+  if (t == 0) {
+    float* lse = a.lse + static_cast<long long>(bh) * a.n;
+    if (row_lo < a.n) lse[row_lo] = l0 == 0.f ? kNegInf : m0 + logf(l0);
+    if (row_lo + 8 < a.n) lse[row_lo + 8] = l1 == 0.f ? kNegInf : m1 + logf(l1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq: one block per (64-query tile, b*h); loops over the admitted
+// kv-tiles: p = exp(s - lse) (0 where masked), dp = dO.v^T, ds = p * (dp -
+// delta), dq += bf16(ds).k; dq = scale * dq, cast once.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(flash_smem);
+  int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);
+
+  const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool segs = a.qseg != nullptr;
+  const int* qseg = segs ? a.qseg + b * a.n : nullptr;
+  const int* kseg = segs ? a.kseg + b * a.m : nullptr;
+  const bf16* kb = head_ptr(a.k, a.sk, b, h);
+  const bf16* vb = head_ptr(a.v, a.sv, b, h);
+  const int nk = (a.m + kFlashTile - 1) / kFlashTile;
+
+  int qlo = 0, qhi = 0;
+  if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
+  int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
+  if (j < nk) prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+  cp_async_commit();
+
+  const int row_lo = q0 + warp * 16 + g;
+  uint32_t qf[kFlashDh / 16][4], df[kFlashDh / 16][4];
+  load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
+  load_a_rows(df, head_ptr(a.dout, a.sdo, b, h), a.sdo.row, row_lo, a.n, t);
+  const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
+  const float* lse = a.lse + static_cast<long long>(bh) * a.n;
+  const float* delta = a.delta + static_cast<long long>(bh) * a.n;
+  const float lse0 = row_lo < a.n ? lse[row_lo] : 0.f, lse1 = row_lo + 8 < a.n ? lse[row_lo + 8] : 0.f;
+  const float dl0 = row_lo < a.n ? delta[row_lo] : 0.f, dl1 = row_lo + 8 < a.n ? delta[row_lo + 8] : 0.f;
+
+  float dq[8][4];
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) dq[dj][0] = dq[dj][1] = dq[dj][2] = dq[dj][3] = 0.f;
+
+  for (int stage = 0; j < nk; stage ^= 1) {
+    const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
+    if (jn < nk) prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* ks = ring + 2 * stage * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const int* ids = kids + stage * kFlashTile;
+    float p[8][4], dp[8][4];
+    mma_rows_t(p, qf, ks, g, t);
+    mma_rows_t(dp, df, vs, g, t);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int id = ids[jj * 8 + 2 * t + e];
+        // p = exp(s - lse), 0 where masked (see the top: never exp of the
+        // masked logit, which is 1 in a fully masked row)
+        p[jj][e] = qs0 >= 0 && id == qs0 ? exp2f((p[jj][e] * a.scale - lse0) * kLog2e) : 0.f;
+        p[jj][2 + e] = qs1 >= 0 && id == qs1 ? exp2f((p[jj][2 + e] * a.scale - lse1) * kLog2e) : 0.f;
+        dp[jj][e] = p[jj][e] * (dp[jj][e] - dl0);
+        dp[jj][2 + e] = p[jj][2 + e] * (dp[jj][2 + e] - dl1);
+      }
+    }
+    uint32_t dsf[4][4];
+    to_a_frags(dsf, dp);
+    mma_acc(dq, dsf, ks, g, t);
+    __syncthreads();
+    j = jn;
+  }
+  cp_async_wait<0>();
+  store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, dq, a.scale, a.scale, row_lo, a.n, t);
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dkv: one block per (64-key tile, b*h); each warp owns 16 keys
+// and loops over the admitted q-tiles with the transposed products:
+// p^T = exp(k.q^T * scale - lse) (0 where masked), dv += bf16(p^T).dO,
+// dp^T = v.dO^T, ds^T = p^T * (dp^T - delta), dk += bf16(ds^T).q; dk =
+// scale * dk, cast once.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: q at 2s, dO at 2s + 1
+  int* qids = reinterpret_cast<int*>(ring + 4 * kTileElems);             // stage s: 64 query ids
+  float* lses = reinterpret_cast<float*>(qids + 2 * kFlashTile);         // stage s: 64 lse
+  float* deltas = lses + 2 * kFlashTile;                                 // stage s: 64 delta
+
+  const int k0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool segs = a.qseg != nullptr;
+  const int* qseg = segs ? a.qseg + b * a.n : nullptr;
+  const int* kseg = segs ? a.kseg + b * a.m : nullptr;
+  const bf16* qb = head_ptr(a.q, a.sq, b, h);
+  const bf16* db = head_ptr(a.dout, a.sdo, b, h);
+  const float* lse = a.lse + static_cast<long long>(bh) * a.n;
+  const float* delta = a.delta + static_cast<long long>(bh) * a.n;
+  const int nq = (a.n + kFlashTile - 1) / kFlashTile;
+
+  int klo = 0, khi = 0;
+  if (segs) seg_range(kseg, k0, a.m, klo, khi);
+  auto prefetch = [&](int stage, int i) {
+    load_tile_async(ring + 2 * stage * kTileElems, qb, a.sq.row, i * kFlashTile, a.n);
+    load_tile_async(ring + (2 * stage + 1) * kTileElems, db, a.sdo.row, i * kFlashTile, a.n);
+    if (threadIdx.x < kFlashTile) {
+      const int r = i * kFlashTile + threadIdx.x;
+      qids[stage * kFlashTile + threadIdx.x] = seg_id(qseg, r, a.n);
+      lses[stage * kFlashTile + threadIdx.x] = r < a.n ? lse[r] : 0.f;
+      deltas[stage * kFlashTile + threadIdx.x] = r < a.n ? delta[r] : 0.f;
+    }
+  };
+
+  int i = next_admitted(qseg, a.n, nq, 0, klo, khi);
+  if (i < nq) prefetch(0, i);
+  cp_async_commit();
+
+  const int key_lo = k0 + warp * 16 + g;
+  uint32_t kf[kFlashDh / 16][4], vf[kFlashDh / 16][4];
+  load_a_rows(kf, head_ptr(a.k, a.sk, b, h), a.sk.row, key_lo, a.m, t);
+  load_a_rows(vf, head_ptr(a.v, a.sv, b, h), a.sv.row, key_lo, a.m, t);
+  const int ks0 = seg_id(kseg, key_lo, a.m), ks1 = seg_id(kseg, key_lo + 8, a.m);
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) {
+    dk[dj][0] = dk[dj][1] = dk[dj][2] = dk[dj][3] = 0.f;
+    dv[dj][0] = dv[dj][1] = dv[dj][2] = dv[dj][3] = 0.f;
+  }
+
+  for (int stage = 0; i < nq; stage ^= 1) {
+    const int in = next_admitted(qseg, a.n, nq, i + 1, klo, khi);
+    if (in < nq) prefetch(stage ^ 1, in);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* qs = ring + 2 * stage * kTileElems;
+    const bf16* dos = qs + kTileElems;
+    const int* ids = qids + stage * kFlashTile;
+    const float* ls = lses + stage * kFlashTile;
+    const float* dls = deltas + stage * kFlashTile;
+    // p^T: rows = this warp's keys (g, g + 8), columns = the tile's queries
+    float p[8][4];
+    mma_rows_t(p, kf, qs, g, t);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = jj * 8 + 2 * t + e;
+        const int id = ids[c];
+        const float l = ls[c];
+        p[jj][e] = ks0 >= 0 && id == ks0 ? exp2f((p[jj][e] * a.scale - l) * kLog2e) : 0.f;
+        p[jj][2 + e] = ks1 >= 0 && id == ks1 ? exp2f((p[jj][2 + e] * a.scale - l) * kLog2e) : 0.f;
+      }
+    }
+    uint32_t f[4][4];
+    to_a_frags(f, p);
+    mma_acc(dv, f, dos, g, t);  // dv += bf16(p^T) . dO
+    float dp[8][4];
+    mma_rows_t(dp, vf, dos, g, t);  // dp^T = v . dO^T
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = dls[jj * 8 + 2 * t + e];
+        dp[jj][e] = p[jj][e] * (dp[jj][e] - dl);
+        dp[jj][2 + e] = p[jj][2 + e] * (dp[jj][2 + e] - dl);
+      }
+    }
+    to_a_frags(f, dp);
+    mma_acc(dk, f, qs, g, t);  // dk += bf16(ds^T) . q
+    __syncthreads();
+    i = in;
+  }
+  cp_async_wait<0>();
+  store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, dk, a.scale, a.scale, key_lo, a.m, t);
+  store_rows(head_ptr(a.out1, a.s1, b, h), a.s1.row, dv, 1.f, 1.f, key_lo, a.m, t);
+}
+
+// strides[3 * i .. 3 * i + 2]: the (b, h, row) strides of q, k, v, dO, out0,
+// out1 in turn (those of an operand a kernel does not take are not read)
+FlashArgs make_args(const void* q, const void* k, const void* v, const void* dout, void* out0, void* out1, void* lse,
+                    const void* delta, const void* qseg, const void* kseg, int heads, int n, int m, float scale,
+                    const long long* strides) {
+  FlashArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.dout = static_cast<const bf16*>(dout);
+  a.out0 = static_cast<bf16*>(out0);
+  a.out1 = static_cast<bf16*>(out1);
+  a.lse = static_cast<float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  Strides* s[6] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.s0, &a.s1};
+  for (int i = 0; i < 6; ++i) *s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.heads = heads;
+  a.n = n;
+  a.m = m;
+  a.scale = scale;
+  return a;
+}
+
+bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qseg, const void* kseg) {
+  return dim_head != kFlashDh || batch <= 0 || heads <= 0 || n <= 0 || m <= 0 ||
+         static_cast<long long>(batch) * heads > 65535 || (qseg == nullptr) != (kseg == nullptr);
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C interface (ctypes).  Operands are device pointers: q, k, v, dO and the
+// outputs bf16 (b, h, rows, 64) with the (b, h, row) strides given (in
+// elements, a contiguous head dim, 16-byte aligned rows); lse and delta f32
+// (b*h, n) contiguous; segment ids int32 (b, n) and (b, m) contiguous, both
+// null for no ids; strides: 18 (b, h, row) strides of q, k, v, dO, out0,
+// out1 (see make_args).  The wrappers in ops/flash_attention.py check all of
+// it.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int vit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* qseg, const void* kseg,
+                  int batch, int heads, int n, int m, int dim_head, float scale, const long long* strides,
+                  void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, heads, n, m, scale, strides);
+  dim3 grid((n + kFlashTile - 1) / kFlashTile, batch * heads);
+  flash_fwd_kernel<<<grid, kFlashThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+                     const void* qseg, const void* kseg, void* dq, int batch, int heads, int n, int m, int dim_head,
+                     float scale, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m,
+                                scale, strides);
+  dim3 grid((n + kFlashTile - 1) / kFlashTile, batch * heads);
+  flash_bwd_dq_kernel<<<grid, kFlashThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* delta, const void* qseg, const void* kseg, void* dk, void* dv, int batch, int heads,
+                      int n, int m, int dim_head, float scale, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m, scale,
+                                strides);
+  dim3 grid((m + kFlashTile - 1) / kFlashTile, batch * heads);
+  flash_bwd_dkv_kernel<<<grid, kFlashThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

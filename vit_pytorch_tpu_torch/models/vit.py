@@ -17,13 +17,32 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.blocks import Transformer
+from ..nn.blocks import RMSNorm, Transformer
 from ..nn.patch import PatchEmbedding
 from ..utils.helpers import pair
 
 # flax's truncated-normal variance_scaling divides by the std of a standard
 # normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_modules_like_jax(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """The JAX package's initialisation of every ``nn.Linear``, LayerNorm and
+    ``RMSNorm`` in ``model``: truncated lecun-normal weights and zero biases,
+    LayerNorm ones/zeros, RMSNorm gamma at its ``gamma_init``."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, RMSNorm):
+            m.gamma.fill_(m.gamma_init)
 
 
 class ViT(nn.Module):
@@ -84,15 +103,7 @@ class ViT(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        init_modules_like_jax(self, generator)
         self.cls_token.normal_(generator=generator)
         self.pos_embedding.normal_(generator=generator)
 

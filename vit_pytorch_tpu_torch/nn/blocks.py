@@ -1,5 +1,5 @@
-"""Transformer blocks, port of ``vit_pytorch_tpu/nn/blocks.py`` (the ViT's
-options so far).
+"""Transformer blocks, port of ``vit_pytorch_tpu/nn/blocks.py`` (the options
+of ViT and NaViT so far).
 
 Modules keep the reference's ``state_dict`` layout (vit.py:15-83):
 ``layers.N.0.norm|to_qkv|to_out.0`` and ``layers.N.1.net.0|1|4``, so the JAX
@@ -12,7 +12,8 @@ whole-layer predicate of the JAX ``Transformer``, blocks.py:618-653).  Where
 the whole layer is refused but the attention block is not (training with
 dropout), ``Attention`` runs the attention-block kernels with in-kernel
 dropout (``fused_block_eligible``, the JAX blocks.py:47-98); everything else
-runs the module composite below.
+runs the module composite below, whose attention goes through
+``ops/attention.py::dot_product_attention`` (segment ids: the flash kernels).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, on_cuda
+from ..ops.flash_attention import rms_norm
 from ..ops.fused_block import (
     LN_EPS,
     fused_attention_block,
@@ -37,17 +39,21 @@ from ..ops.fused_block import (
 
 def fused_block_eligible(
     *, x: torch.Tensor, heads: int, dim_head: int, dim: int, flash, project_out: bool, dropout: float = 0.0,
-    train: bool = False,
+    train: bool = False, force_split_qkv: bool = False, has_context: bool = False, has_segments: bool = False,
 ) -> bool:
     """Whether ``Attention`` takes the attention-block kernels: the JAX
     predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
     predicate for ``Attention.forward`` (to dispatch) and ``Transformer``
-    (to leave remat off the call that fuses).  The JAX predicate's other
-    conditions (context, rotary, masks, bias, segments, recording, qk-norm)
-    are options the port's ``Attention`` does not have yet; they join the
-    predicate with them."""
+    (to leave remat off the call that fuses).  qk-norm does not refuse the
+    block, as in the JAX package; the port's block kernels raise for it
+    until the qk-norm slice.  The JAX predicate's other conditions (rotary,
+    masks, bias, recording, pre_norm) are options the port's ``Attention``
+    does not have yet; they join the predicate with them."""
     return (
-        flash is not False  # explicit flash=False opts out of ALL kernels
+        not has_context
+        and not has_segments
+        and not force_split_qkv
+        and flash is not False  # explicit flash=False opts out of ALL kernels
         # train-time dropout runs inside the kernels when their backward can
         # replay the masks
         and (dropout == 0.0 or not train or fused_dropout_supported(x.shape, heads, dim_head))
@@ -71,15 +77,31 @@ class GELU(nn.Module):
         return gelu(x)
 
 
+class RMSNorm(nn.Module):
+    """Per-head RMSNorm with learned gamma (reference na_vit.py:93-103): the
+    JAX ``RMSNorm``/``_RMSParams`` (blocks.py:165-180, 225-245), gamma of
+    shape (heads, 1, dim) initialised to ``gamma_init``."""
+
+    def __init__(self, heads: int, dim: int, gamma_init: float = 1.0, *, device=None, dtype=None):
+        super().__init__()
+        self.gamma_init = gamma_init
+        self.gamma = nn.Parameter(torch.full((heads, 1, dim), gamma_init, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return rms_norm(x, self.gamma)
+
+
 class FeedForward(nn.Module):
     """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout (reference
-    vit.py:15-28); ``net.0|1|4`` hold the parameters."""
+    vit.py:15-28); ``net.0|1|4`` hold the parameters.  ``norm_bias=False``:
+    a bias-free LayerNorm (na_vit.py:82-89)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *, device=None, dtype=None):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *, norm_bias: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.net = nn.Sequential(
-            nn.LayerNorm(dim, eps=LN_EPS, **kw),
+            nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw),
             nn.Linear(dim, hidden_dim, **kw),
             GELU(),
             nn.Dropout(dropout),
@@ -93,64 +115,104 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """Pre-LN multi-head attention, fused qkv without bias, projection out
-    with bias and dropout (reference vit.py:30-64)."""
+    with bias and dropout (reference vit.py:30-64), with the JAX
+    ``Attention`` options the NaViT slice needs (blocks.py:307-550):
+
+    - ``qk_norm``: per-head RMSNorm on q and k (``q_norm``/``k_norm``, gamma
+      (heads, 1, dim_head) initialised to ``qk_norm_gamma_init``), scale 1
+      (na_vit.py:115-169); the dispatcher applies it;
+    - ``norm_bias``/``out_bias``: bias-free LayerNorm / output projection;
+    - ``force_split_qkv``: split ``to_q``/``to_kv`` projections, which a call
+      with ``context`` (cross-attention: LayerNorm on x only, k and v from
+      the context, blocks.py:443-458) needs;
+    - ``q_segment_ids``/``kv_segment_ids`` at call: packed-sequence
+      block-diagonal masking, the flash kernels on the card."""
 
     def __init__(
         self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
-        *, flash: Optional[bool] = None, device=None, dtype=None,
+        *, qk_norm: bool = False, qk_norm_gamma_init: float = 1.0, norm_bias: bool = True, out_bias: bool = True,
+        force_split_qkv: bool = False, flash: Optional[bool] = None, device=None, dtype=None,
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         inner = heads * dim_head
         self.dim, self.heads, self.dim_head, self.dropout, self.flash = dim, heads, dim_head, dropout, flash
+        self.qk_norm, self.force_split_qkv = qk_norm, force_split_qkv
         self.project_out = not (heads == 1 and dim_head == dim)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False, **kw)
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw)
+        if force_split_qkv:
+            self.to_q = nn.Linear(dim, inner, bias=False, **kw)
+            self.to_kv = nn.Linear(dim, inner * 2, bias=False, **kw)
+        else:
+            self.to_qkv = nn.Linear(dim, inner * 3, bias=False, **kw)
+        if qk_norm:
+            self.q_norm = RMSNorm(heads, dim_head, qk_norm_gamma_init, **kw)
+            self.k_norm = RMSNorm(heads, dim_head, qk_norm_gamma_init, **kw)
         self.to_out = (
-            nn.Sequential(nn.Linear(inner, dim, **kw), nn.Dropout(dropout))
+            nn.Sequential(nn.Linear(inner, dim, bias=out_bias, **kw), nn.Dropout(dropout))
             if self.project_out
             else nn.Identity()
         )
 
-    def fuses(self, x) -> bool:
+    def fuses(self, x, *, context=None, has_segments: bool = False) -> bool:
         """Whether a call on ``x`` takes the attention-block kernels."""
         return fused_block_eligible(
             x=x, heads=self.heads, dim_head=self.dim_head, dim=self.dim, flash=self.flash,
             project_out=self.project_out, dropout=self.dropout, train=self.training,
+            force_split_qkv=self.force_split_qkv, has_context=context is not None, has_segments=has_segments,
         )
 
-    def forward(self, x, context=None, *, residual=None):
+    def forward(self, x, context=None, *, q_segment_ids=None, kv_segment_ids=None, residual=None):
         """``residual``: optional tensor added to the output (the JAX
         ``residual`` keyword, blocks.py:358-363).  On the kernel path it rides
         into the block's last launch; on the module path it is a plain add."""
-        if context is not None:
-            raise NotImplementedError("cross-attention is not ported yet (ROADMAP: modules to port, item 9)")
-        if self.fuses(x):
+        has_segments = q_segment_ids is not None or kv_segment_ids is not None
+        if self.fuses(x, context=context, has_segments=has_segments):
             rate = self.dropout if self.training else 0.0
             # the int32 seed of the kernels' Philox streams, drawn from the
             # CPU generator (seeded per step by make_train_step's generator):
             # a draw on the card would stall the host once a layer
             seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32)) if rate > 0.0 else None
-            cast = lambda t: t.to(x.dtype)
+            cast = lambda t: None if t is None else t.to(x.dtype)
             out_proj = self.to_out[0]
+            ln_bias = self.norm.bias if self.norm.bias is not None else torch.zeros_like(self.norm.weight)
             return fused_attention_block(
                 x, residual, cast(self.to_qkv.weight), cast(out_proj.weight), cast(self.norm.weight),
-                cast(self.norm.bias), heads=self.heads, dim_head=self.dim_head, b_out=cast(out_proj.bias),
-                eps=LN_EPS, dropout_rate=rate, dropout_seed=seed,
+                cast(ln_bias), heads=self.heads, dim_head=self.dim_head, b_out=cast(out_proj.bias),
+                gamma_q=cast(self.q_norm.gamma) if self.qk_norm else None,
+                gamma_k=cast(self.k_norm.gamma) if self.qk_norm else None,
+                scale=1.0 if self.qk_norm else None, eps=LN_EPS, dropout_rate=rate, dropout_seed=seed,
             )
         b, n, _ = x.shape
-        q, k, v = (
-            self.to_qkv(self.norm(x))
-            .reshape(b, n, 3, self.heads, self.dim_head)
-            .permute(2, 0, 3, 1, 4)
+        x = self.norm(x)
+        split = lambda t: t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
+        if context is not None or self.force_split_qkv:
+            if not self.force_split_qkv:
+                raise ValueError("Attention: a call with context needs force_split_qkv=True (split to_q/to_kv)")
+            kv = self.to_kv(x if context is None else context)
+            q, k, v = split(self.to_q(x)), *map(split, kv.chunk(2, dim=-1))
+        else:
+            q, k, v = (
+                self.to_qkv(x)
+                .reshape(b, n, 3, self.heads, self.dim_head)
+                .permute(2, 0, 3, 1, 4)
+            )
+        out = dot_product_attention(
+            q, k, v, scale=1.0 if self.qk_norm else None,
+            gamma_q=self.q_norm.gamma if self.qk_norm else None,
+            gamma_k=self.k_norm.gamma if self.qk_norm else None,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            dropout_rate=self.dropout if self.training else 0.0, use_flash=self.flash,
         )
-        out = dot_product_attention(q, k, v, dropout_rate=self.dropout if self.training else 0.0)
         out = self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
         return out if residual is None else out + residual
 
 
 class Transformer(nn.Module):
-    """Pre-norm residual transformer (reference vit.py:66-83).
+    """Pre-norm residual transformer (reference vit.py:66-83), with the JAX
+    ``Transformer`` options ``qk_norm``, ``norm_bias`` and ``attn_out_bias``
+    (blocks.py:553-779) and segment ids threaded into every attention call
+    (:593-607).
 
     ``flash=False`` opts out of every kernel (JAX blocks.py:75).  ``remat``
     recomputes each attention and FF call in the backward
@@ -164,34 +226,35 @@ class Transformer(nn.Module):
 
     def __init__(
         self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
-        dropout: float = 0.0, *, qk_norm: bool = False, ff_glu: bool = False,
-        flash: Optional[bool] = None, remat: bool = False, device=None, dtype=None,
+        dropout: float = 0.0, *, qk_norm: bool = False, norm_bias: bool = True, attn_out_bias: bool = True,
+        ff_glu: bool = False, flash: Optional[bool] = None, remat: bool = False, device=None, dtype=None,
     ):
         super().__init__()
-        if qk_norm or ff_glu:
-            raise NotImplementedError(
-                "qk_norm and ff_glu are not ported yet (ROADMAP: modules to port, items 2 and 6)"
-            )
+        if ff_glu:
+            raise NotImplementedError("ff_glu is not ported yet (ROADMAP: modules to port, item 9)")
         kw = {"device": device, "dtype": dtype}
         self.dim, self.heads, self.dim_head, self.mlp_dim = dim, heads, dim_head, mlp_dim
-        self.dropout, self.flash, self.remat = dropout, flash, remat
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.dropout, self.flash, self.remat, self.qk_norm = dropout, flash, remat, qk_norm
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw)
         self.layers = nn.ModuleList(
             nn.ModuleList(
                 [
-                    Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout, flash=flash, **kw),
-                    FeedForward(dim, mlp_dim, dropout=dropout, **kw),
+                    Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout, qk_norm=qk_norm,
+                              norm_bias=norm_bias, out_bias=attn_out_bias, flash=flash, **kw),
+                    FeedForward(dim, mlp_dim, dropout=dropout, norm_bias=norm_bias, **kw),
                 ]
             )
             for _ in range(depth)
         )
 
-    def whole_layer_eligible(self, x: torch.Tensor) -> bool:
+    def whole_layer_eligible(self, x: torch.Tensor, *, has_segments: bool = False) -> bool:
         """The JAX whole-layer predicate (blocks.py:618-653) for this
         module's options, with ``on_cuda`` for ``on_tpu`` and
         ``self.training`` for ``train``."""
         return (
             on_cuda(x)
+            and not has_segments
+            and not self.qk_norm  # the whole-layer kernel has no qk-norm (:647)
             and self.flash is not False
             and (self.dropout == 0.0 or not self.training)
             and not (self.heads == 1 and self.dim_head == self.dim)  # project_out
@@ -200,21 +263,25 @@ class Transformer(nn.Module):
 
     def layer_weights(self, i: int, dtype: torch.dtype):
         """Layer ``i``'s operands of :func:`fused_transformer_layer`, in its
-        positional order, cast to ``dtype`` (a no-op for serving weights)."""
+        positional order, cast to ``dtype`` (a no-op for serving weights); a
+        bias-free LayerNorm gives zeros, as the JAX ``_layer_tuple`` does."""
         attn, ff = self.layers[i]
         cast = lambda t: t.to(dtype)
+        bias = lambda ln: cast(ln.bias) if ln.bias is not None else torch.zeros_like(ln.weight, dtype=dtype)
+        out_bias = attn.to_out[0].bias
         return (
             cast(attn.to_qkv.weight), cast(attn.to_out[0].weight),
-            cast(attn.norm.weight), cast(attn.norm.bias),
-            cast(ff.net[0].weight), cast(ff.net[0].bias),
+            cast(attn.norm.weight), bias(attn.norm),
+            cast(ff.net[0].weight), bias(ff.net[0]),
             cast(ff.net[1].weight), cast(ff.net[1].bias),
             cast(ff.net[4].weight), cast(ff.net[4].bias),
-        ), {"b_out": cast(attn.to_out[0].bias)}
+        ), {"b_out": None if out_bias is None else cast(out_bias)}
 
-    def forward(self, x, *, rotary=None, return_hiddens: bool = False):
+    def forward(self, x, *, q_segment_ids=None, kv_segment_ids=None, rotary=None, return_hiddens: bool = False):
         if rotary is not None or return_hiddens:
             raise NotImplementedError("rotary and return_hiddens are not ported yet (ROADMAP: modules to port, item 9)")
-        if self.whole_layer_eligible(x):
+        has_segments = q_segment_ids is not None or kv_segment_ids is not None
+        if self.whole_layer_eligible(x, has_segments=has_segments):
             for i in range(len(self.layers)):
                 weights, biases = self.layer_weights(i, x.dtype)
                 x = fused_transformer_layer(
@@ -222,15 +289,16 @@ class Transformer(nn.Module):
                 )
         else:
             # every layer's Attention shares this predicate (JAX attn_will_fuse)
-            attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(x)
+            attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(x, has_segments=has_segments)
+            segs = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
             for attn, ff in self.layers:
                 # the residual rides into the attention call, as JAX's attn_call
                 # (blocks.py:593-607); remat only where it does not fuse
-                x = attn(x, residual=x) if attn_fuses else self._call(attn, x) + x
+                x = attn(x, residual=x, **segs) if attn_fuses else self._call(attn, x, **segs) + x
                 x = self._call(ff, x) + x
         return self.norm(x)
 
-    def _call(self, module: nn.Module, x):
+    def _call(self, module: nn.Module, x, **kwargs):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(module, x, use_reentrant=False)
-        return module(x)
+            return checkpoint(module, x, use_reentrant=False, **kwargs)
+        return module(x, **kwargs)

@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_longlong
+_S = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 # dropout arguments: drop (0/1), seed (the int32 seed's bit pattern), keep
 # threshold, 1/(1 - rate)
 _DROP = (_I, _U, _U, _F)
@@ -51,6 +52,12 @@ _SIGNATURES = {
     "vit_layernorm_bwd_blocks": (_I,),
     # x, dh, w, res, dx, partial, sums, rows, dim, eps, stream
     "vit_layernorm_bwd_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # q, k, v, o, lse, q ids, kv ids, batch, heads, n, m, dim_head, scale, 18 strides, stream
+    "vit_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P),
+    # q, k, v, dO, lse, delta, q ids, kv ids, dq, batch, heads, n, m, dim_head, scale, strides, stream
+    "vit_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P),
+    # ..., dk, dv, batch, heads, n, m, dim_head, scale, strides, stream
+    "vit_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P),
 }
 
 

@@ -1,10 +1,20 @@
 """Scaled-dot-product attention, port of ``vit_pytorch_tpu/ops/attention.py``.
 
-Only the materialized path is ported so far.  The kernel routes of the JAX
-dispatcher (flash, short, segment ids, per-head bias) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  The ViT's
-inference and training paths do not come here on the card: its whole layer
-goes through ``ops/fused_block.py``.
+Two backends behind one dispatcher, as in the JAX package:
+
+* ``xla_attention`` — the materialized composite (plain PyTorch), the only
+  path that can return the attention matrix;
+* ``flash_attention`` — the Hopper kernels of ``ops/flash_attention.py``
+  (online-softmax tiles, segment-id masking with tile skipping).
+
+``dot_product_attention`` takes the flash route on a CUDA device for packed
+sequences (segment ids) and for m >= 1024, as the JAX dispatcher does on a
+TPU, where the kernels' gate :func:`~.flash_attention.flash_supported`
+admits the operands (bf16, dim_head 64); fp32 and other shapes take the
+composite.  The routes still to port (the short kernel, flash with a bias,
+causal or dropout, a per-head bias) raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.  The ViT's own layers do not come here on the
+card: they go through ``ops/fused_block.py``.
 """
 
 from __future__ import annotations
@@ -13,12 +23,29 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention, flash_supported, rms_norm
+
 
 def on_cuda(x: torch.Tensor) -> bool:
     """True when computation on ``x`` lands on a CUDA device — the
     counterpart of the JAX package's ``on_tpu``.  PyTorch runs where the
     tensor lives, so the test is per tensor."""
     return x.device.type == "cuda"
+
+
+def build_segment_mask(q_segment_ids, kv_segment_ids, n: int, m: int, *, causal: bool = False, mask=None):
+    """Fold NaViT segment ids (token i attends j iff seg[i] == seg[j], both
+    non-negative) and/or a causal triangle into a dense (b, 1, n, m) mask
+    (JAX attention.py:51-68)."""
+    if q_segment_ids is not None and kv_segment_ids is not None:
+        qs, ks = q_segment_ids[:, :, None], kv_segment_ids[:, None, :]
+        seg_mask = ((qs == ks) & (qs >= 0) & (ks >= 0))[:, None, :, :]
+        mask = seg_mask if mask is None else (mask & seg_mask)
+    if causal:
+        device = q_segment_ids.device if q_segment_ids is not None else None
+        cmask = torch.ones((n, m), dtype=torch.bool, device=device).tril()
+        mask = cmask if mask is None else (mask & cmask)
+    return mask
 
 
 def xla_attention(
@@ -81,26 +108,72 @@ def dot_product_attention(
     return_attn: bool = False,
     use_flash: Optional[bool] = None,
 ):
-    """Dispatching attention entry point; the materialized path only."""
-    if use_flash:
+    """Dispatching attention entry point (JAX attention.py:131-310).
+
+    Segment ids (int, (b, n) and (b, m)) build the NaViT block-diagonal mask;
+    on the flash route the kernels consume them tile by tile without a dense
+    mask.  ``gamma_q``/``gamma_k``: per-head qk-RMSNorm gammas, applied here
+    eagerly with :func:`~.flash_attention.rms_norm` before any route (the
+    JAX default; its in-kernel variant is the opt-in ``VIT_TPU_FUSE_QKNORM``,
+    not ported).  ``use_flash``: None decides as the JAX dispatcher does
+    (flash on a CUDA device for segment ids or m >= 1024); True asks for the
+    kernel routes (on CPU tensors the flash route runs its plain twins);
+    False forces the composite."""
+    n, m = q.shape[-2], k.shape[-2]
+    if (gamma_q is None) != (gamma_k is None):
+        raise ValueError("qk-norm gammas must be given for both q and k")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    if causal:
         raise NotImplementedError(
-            "flash/short attention kernels are not ported yet "
-            "(ROADMAP: TPU kernels to port, items 4-6)"
-        )
-    if q_segment_ids is not None or kv_segment_ids is not None or causal:
-        raise NotImplementedError(
-            "segment-id and causal masking are not ported yet (ROADMAP: modules "
-            "to port, item 6, the NaViT packed slice)"
-        )
-    if gamma_q is not None or gamma_k is not None:
-        raise NotImplementedError(
-            "qk-norm is not ported yet (ROADMAP: modules to port, item 6)"
+            "causal attention is not ported yet (ROADMAP: TPU kernels to port, item 4, the flash causal variant)"
         )
     if bias is not None and bias.ndim == 3:
         raise NotImplementedError(
-            "per-head (h, n, m) bias routing is not ported yet (ROADMAP: TPU "
-            "kernels to port, item 6)"
+            "per-head (h, n, m) bias routing is not ported yet (ROADMAP: TPU kernels to port, item 6, "
+            "_short_kernel)"
         )
+    if gamma_q is not None:
+        q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
+
+    # train-time dropout would run inside the flash kernels on the card
+    # (JAX :194-199); a traced scale cannot be baked into a kernel (:204)
+    kernel_dropout_ok = dropout_rate > 0.0 and bias is None and on_cuda(q)
+    static_scale = scale is None or isinstance(scale, (int, float))
+    kernel_ok = (
+        not return_attn
+        and (dropout_rate == 0.0 or kernel_dropout_ok)
+        and mask is None
+        and static_scale
+        and q.shape[-1] <= 256
+    )
+    if use_flash is None:
+        use_flash = kernel_ok and on_cuda(q) and (m >= 1024 or q_segment_ids is not None)
+
+    if use_flash and kernel_ok:
+        if bias is None and q_segment_ids is None and dropout_rate == 0.0 and m <= 1024:
+            raise NotImplementedError(
+                "the short-sequence kernel route is not ported yet (ROADMAP: TPU kernels to port, item 6, "
+                "_short_kernel)"
+            )
+        if dropout_rate > 0.0:
+            raise NotImplementedError(
+                "flash attention with dropout is not ported yet (ROADMAP: TPU kernels to port, item 7, flash "
+                "dropout with flash_dropout_masks)"
+            )
+        if bias is not None:
+            raise NotImplementedError(
+                "flash attention with a bias is not ported yet (ROADMAP: TPU kernels to port, item 4, the flash "
+                "bias variant)"
+            )
+        # the kernels' gate: fp32 and shapes they do not take on the card
+        # go to the composite below
+        if not on_cuda(q) or flash_supported(q.shape, k.shape, q.dtype):
+            return flash_attention(
+                q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            )
+
+    mask = build_segment_mask(q_segment_ids, kv_segment_ids, n, m, mask=mask)
     return xla_attention(
         q, k, v, scale=scale, bias=bias, mask=mask, dropout_rate=dropout_rate,
         generator=generator, return_attn=return_attn,

@@ -1,0 +1,437 @@
+"""Flash attention with segment-id (packed-sequence) masking on Hopper.
+
+Port of ``vit_pytorch_tpu/ops/flash_attention.py`` for the options of the
+packed NaViT path.  Its three TPU kernels are hand-written CUDA kernels in
+``csrc/flash_attention.cu``:
+
+    flash_fwd      (_fwd_kernel, :202)      q, k, v            -> o, lse (f32)
+    flash_bwd_dq   (_bwd_dq_kernel, :298)   q, k, v, dO, lse, delta -> dq
+    flash_bwd_dkv  (_bwd_dkv_kernel, :376)  q, k, v, dO, lse, delta -> dk, dv
+
+Each tiles the (n, m) attention into 64 x 64 tiles that never leave the
+chip, masks by segment id (token i attends j iff both ids are equal and
+non-negative; -1 pads, -2 empty pooling slots) and skips a whole tile whose
+two id ranges cannot overlap (:func:`tile_admitted`).  ``flash_attention``
+is an autograd Function, the counterpart of the JAX ``_flash_attention_core``
+custom_vjp without bias: the forward saves q, k, v, the ids, o and the f32
+LSE; the backward forms ``delta = rowsum(dO * o)`` in f32 outside the kernels
+(:680-685) and launches the two backward kernels.
+
+Each wrapper has a plain PyTorch twin at the kernel's rounding points
+(``flash_fwd_reference``, ``flash_bwd_reference``), which CPU tensors take;
+on a CUDA tensor it launches its kernel or raises.  Each launch adds one to
+``LAUNCHES[kernel]``.  :func:`flash_attention_twins` runs the same Function
+on the twins on any device.  :func:`flash_attention_reference` is the twin
+of the whole op, the JAX ``_reference_attention`` (:809-815): the
+materialized composite with the segment mask, differentiated by autograd.
+
+The kernels take bf16 with ``dim_head == 64`` (their one instantiation) on
+a CUDA device; :func:`flash_supported` is the gate the dispatcher asks.  The
+options the NaViT path does not use raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.  The TPU's block sizes (1024/512 and the
+``VIT_TPU_FLASH_BLOCK_Q/K`` knobs) are not ported: the H100 kernels' tiles
+are fixed at 64 x 64 (:func:`default_blocks`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ._build import load_library
+
+BLOCK_Q = BLOCK_K = 64  # kFlashTile: the kernels' query and key tiles
+DIM_HEAD = 64  # kFlashDh: the one head dim the kernels are built for
+NEG_INF = -1e30  # _NEG_INF: the LSE of a row with no key to attend
+_BIG_ID = 1 << 30
+
+# launches per kernel since the last reset_launch_counts()
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+_FLASH_ITEM = "ROADMAP: TPU kernels to port, item 4"
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """The reference's per-head qk RMSNorm (na_vit.py:93-103): l2-normalize
+    the head dim, scale by gamma * sqrt(d).  ``gamma`` broadcasts (the
+    parameter is (heads, 1, d)).  It computes in x's own dtype, as the JAX
+    ``rms_norm`` (:122-132) does: in bf16 the sum of squares and the product
+    round to bf16."""
+    d = x.shape[-1]
+    normed = x * torch.rsqrt(x.square().sum(-1, keepdim=True) + 1e-12)
+    return normed * gamma * (d**0.5)
+
+
+def default_blocks(n: int, m: int):
+    """(block_q, block_k) of the H100 kernels for an (n, m) problem: their
+    fixed 64 x 64 tiles, chosen from the register and shared-memory budget
+    at dh = 64 (4 warps of 16 query rows; two 64-row ring stages of k and v
+    in 37 KB), not from the TPU's VMEM."""
+    del n, m
+    return BLOCK_Q, BLOCK_K
+
+
+def _tile_ranges(ids: torch.Tensor, block: int):
+    """Per tile of ``block`` rows of (b, L) ids: the min of the non-negative
+    ids (2^30 when none) and the max of all ids, rows past L read as -1."""
+    ids = F.pad(ids.to(torch.int64), (0, (-ids.shape[1]) % block), value=-1)
+    tiles = ids.view(ids.shape[0], -1, block)
+    lo = torch.where(tiles >= 0, tiles, _BIG_ID).amin(-1)
+    return lo, tiles.amax(-1)
+
+
+def tile_admitted(q_segment_ids, kv_segment_ids, *, block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+    """(b, n tiles, m tiles) bool: the tiles the kernels run, the skip test
+    of ``_seg_overlap`` (:173-188) as a plain function of the ids.  A tile
+    runs iff some id of each side is >= 0 and the two ranges of non-negative
+    ids overlap.  It is conservative for any ids (a tile holding a pair that
+    shares an id always runs) and exact for packed sequences, whose ids rise
+    along the sequence."""
+    q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)
+    k_lo, k_hi = _tile_ranges(kv_segment_ids, block_k)
+    q_lo, q_hi, k_lo, k_hi = q_lo[:, :, None], q_hi[:, :, None], k_lo[:, None, :], k_hi[:, None, :]
+    return (q_hi >= 0) & (k_hi >= 0) & (q_lo <= k_hi) & (k_lo <= q_hi)
+
+
+def flash_supported(q_shape, k_shape, dtype) -> bool:
+    """Whether the kernels take (b, h, n, d) q and (b, h, m, d) k, v of
+    ``dtype`` on a CUDA device: bf16, ``d == 64`` and at most 65,535 (b, h)
+    pairs (the grid's y axis).  The dispatcher sends everything else to the
+    materialized composite."""
+    b, h, n, d = q_shape
+    return (
+        dtype == torch.bfloat16
+        and d == DIM_HEAD
+        and len(k_shape) == 4
+        and tuple(k_shape[:2]) == (b, h)
+        and k_shape[3] == d
+        and n > 0
+        and k_shape[2] > 0
+        and b * h <= 65535
+    )
+
+
+# ---------------------------------------------------------------------------
+# the plain twins, at the kernels' rounding points
+# ---------------------------------------------------------------------------
+
+
+def _valid(q_segment_ids, kv_segment_ids, n: int, m: int):
+    """(b, 1, n, m) bool of the pairs that may attend, or None for all."""
+    from .attention import build_segment_mask
+
+    return build_segment_mask(q_segment_ids, kv_segment_ids, n, m)
+
+
+def _logits(q, k, scale, valid):
+    """s = (q.k^T in f32) * scale, the masked entries at the sentinel."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return s if valid is None else s.masked_fill(~valid, NEG_INF)
+
+
+def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+    """Plain twin of :func:`flash_fwd`: ``(o, lse)``, o (b, h, n, d) in q's
+    dtype and lse (b, h, n) f32.  The rounding points of ``_fwd_kernel``
+    with the whole row at once: p = exp(s - max) zeroed where masked (after
+    the exp), cast to v's dtype before p.v in f32, o = acc * (1/l) cast once.
+    A row with no key to attend gives o = 0 and lse = -1e30."""
+    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
+    s = _logits(q, k, scale, valid)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - mx)
+    if valid is not None:
+        p = p.masked_fill(~valid, 0.0)
+    l = p.sum(-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) * (1.0 / safe_l)
+    lse = torch.where(l == 0.0, NEG_INF, mx + torch.log(safe_l)).squeeze(-1)
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+    """Plain twin of :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`:
+    ``(dq, dk, dv)`` at the rounding points of ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel``: p = exp(s - lse) zeroed where masked after the exp
+    (in a fully masked row that exp is 1), dv = bf16(p)^T.dO, ds = p * (dO.v^T
+    - delta) in f32, dq = scale * bf16(ds).k, dk = scale * bf16(ds)^T.q, each
+    accumulated in f32 and cast once."""
+    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
+    p = torch.exp(_logits(q, k, scale, valid) - lse[..., None])
+    if valid is not None:
+        p = p.masked_fill(~valid, 0.0)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None])
+    dq = scale * torch.matmul(ds.to(k.dtype).float(), k.float())
+    dk = scale * torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None):
+    """The plain twin of :func:`flash_attention`: the JAX
+    ``_reference_attention`` (:809-815), the materialized composite
+    (``xla_attention``, logits stored in the input dtype) under the segment
+    mask of ``build_segment_mask``, differentiated by autograd.  Rows with no
+    key to attend give zeros (``xla_attention``'s ``mask.any``)."""
+    from .attention import xla_attention
+
+    mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
+    return xla_attention(q, k, v, scale=scale, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, tensors, ids) -> None:
+    """The kernels' operand contract: CUDA bf16 (b, h, rows, 64) with a
+    contiguous head dim and 16-byte aligned rows; int32 contiguous ids."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on a CUDA device, not {dev}")
+    for t in (*tensors, *ids):
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise ValueError(f"{name}: a kernel call outside autograd; an operand requires grad")
+        if t.device != dev:
+            raise ValueError(f"{name}: operand on {t.device}, expected {dev}")
+    for t in tensors:
+        if t.dtype != torch.bfloat16 or t.dim() != 4 or t.shape[-1] != DIM_HEAD:
+            raise ValueError(f"{name}: operand {t.dtype} {tuple(t.shape)}; the kernel takes bf16 (b, h, rows, {DIM_HEAD})")
+        if not kernel_layout(t):
+            raise ValueError(f"{name}: operand strides {t.stride()}: the head dim must be contiguous, rows 16-byte aligned")
+    for t in ids:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: segment ids must be contiguous int32")
+
+
+def kernel_layout(t: torch.Tensor) -> bool:
+    """Whether the kernels read ``t`` as it lies: unit stride on the head
+    dim, the other strides multiples of 8 elements, a 16-byte aligned base."""
+    return t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
+
+
+def _strides(*tensors):
+    """The 18 (b, h, row) strides of q, k, v, dO, out0, out1 (None: zeros)."""
+    flat = []
+    for t in tensors:
+        flat += [0, 0, 0] if t is None else list(t.stride()[:3])
+    return (ctypes.c_longlong * 18)(*flat)
+
+
+def _ids(q_segment_ids, kv_segment_ids):
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    if q_segment_ids is None:
+        return ()
+    return q_segment_ids, kv_segment_ids
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _merged_heads(b: int, h: int, rows: int, like: torch.Tensor):
+    """An empty (b, h, rows, 64) bf16 view of a (b, rows, h, 64) buffer: the
+    merged-heads layout, so ``.transpose(1, 2).reshape(b, rows, h * 64)``
+    downstream is free."""
+    return torch.empty((b, rows, h, DIM_HEAD), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+    """``(o, lse)`` of softmax attention: o (b, h, n, 64) bf16 in the
+    merged-heads layout, lse (b, h, n) f32 (-1e30 for a row with no key).
+    See :func:`flash_fwd_reference`."""
+    ids = _ids(q_segment_ids, kv_segment_ids)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    _check("flash_fwd", (q, k, v), ids)
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    o = _merged_heads(b, h, n, q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    err = lib.lib.vit_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), b, h, n, m, d, float(scale),
+        _strides(q, k, v, None, o, None), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    lib.check("flash_fwd", err)
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+    """dq (b, h, n, 64) bf16, merged-heads layout; see
+    :func:`flash_bwd_reference`."""
+    ids = _ids(q_segment_ids, kv_segment_ids)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
+                                   kv_segment_ids=kv_segment_ids)[0]
+    _check("flash_bwd_dq", (q, k, v, do), ids)
+    _check_stats("flash_bwd_dq", q, lse, delta)
+    b, h, n, d = q.shape
+    dq = _merged_heads(b, h, n, q)
+    lib = load_library()
+    err = lib.lib.vit_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), b, h, n, k.shape[2], d, float(scale),
+        _strides(q, k, v, do, dq, None), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    lib.check("flash_bwd_dq", err)
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+    """``(dk, dv)``, each (b, h, m, 64) bf16 in the merged-heads layout; see
+    :func:`flash_bwd_reference`."""
+    ids = _ids(q_segment_ids, kv_segment_ids)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
+                                   kv_segment_ids=kv_segment_ids)[1:]
+    _check("flash_bwd_dkv", (q, k, v, do), ids)
+    _check_stats("flash_bwd_dkv", q, lse, delta)
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    dk, dv = _merged_heads(b, h, m, k), _merged_heads(b, h, m, v)
+    lib = load_library()
+    err = lib.lib.vit_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d, float(scale),
+        _strides(q, k, v, do, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    lib.check("flash_bwd_dkv", err)
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _check_stats(name: str, q, lse, delta) -> None:
+    b, h, n, _ = q.shape
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, n) or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and delta must be contiguous f32 ({b}, {h}, {n})")
+
+
+# ---------------------------------------------------------------------------
+# the op: autograd Function and public entry point
+# ---------------------------------------------------------------------------
+
+
+def _kernel_ready(t):
+    """``t`` itself where the kernels read it as it lies, else a contiguous
+    copy (a CPU tensor goes to the twins as it is)."""
+    return t if t.device.type == "cpu" or kernel_layout(t) else t.contiguous()
+
+
+def _kernels_bwd(q, k, v, do, lse, delta, **kw):
+    return (flash_bwd_dq(q, k, v, do, lse, delta, **kw), *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+# the kernels (each falls to its twin for a CPU tensor) and their twins, in
+# the one Function that runs the op either way
+KERNELS = SimpleNamespace(fwd=flash_fwd, bwd=_kernels_bwd)
+TWINS = SimpleNamespace(fwd=flash_fwd_reference, bwd=flash_bwd_reference)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of ``_flash_attention_core``'s custom_vjp without
+    bias (:818-877)."""
+
+    @staticmethod
+    def forward(ctx, ops, scale, q, k, v, q_segment_ids, kv_segment_ids):
+        o, lse = ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse)
+        ctx.ops, ctx.scale = ops, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, qs, ks, o, lse = ctx.saved_tensors
+        g = _kernel_ready(g)
+        delta = (g.float() * o.float()).sum(-1).contiguous()  # (b, h, n) f32, :680-685
+        dq, dk, dv = ctx.ops.bwd(q, k, v, g, lse, delta, scale=ctx.scale, q_segment_ids=qs, kv_segment_ids=ks)
+        return None, None, dq, dk, dv, None, None
+
+
+def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids):
+    ids = _ids(q_segment_ids, kv_segment_ids)
+    if ids:
+        q_segment_ids, kv_segment_ids = (t.to(torch.int32).contiguous() for t in ids)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    q, k, v = (_kernel_ready(t) for t in (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(ops, scale, q, k, v, q_segment_ids, kv_segment_ids)
+    return ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)[0]
+
+
+def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None):
+    """The plain path of :func:`flash_attention` on any device: the same
+    Function with every kernel swapped for its plain twin (the counterpart
+    of ``ops/fused_block.py::layer_reference``).  Like the kernels it keeps
+    only o and the LSE for the backward, so it trains where the
+    materialized :func:`flash_attention_reference` would not fit."""
+    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    gamma_q: Optional[torch.Tensor] = None,
+    gamma_k: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    interpret: Optional[bool] = None,
+) -> torch.Tensor:
+    """Flash attention, q (b, h, n, d), k/v (b, h, m, d) -> (b, h, n, d),
+    with the JAX keywords (flash_attention.py:933-1003).
+
+    ``q_segment_ids`` (b, n) / ``kv_segment_ids`` (b, m): token i attends j
+    iff their ids are equal and non-negative; a row with none gives zeros.
+    Differentiable in q, k and v.  On the CPU it runs the Function on the
+    plain twins; on a CUDA tensor it launches the kernels and raises for
+    what :func:`flash_supported` refuses.  ``block_q``/``block_k`` may only
+    name the kernels' own 64 x 64 tiles, and ``interpret`` (the Pallas
+    interpreter switch) has no meaning here: CPU tensors take the twins.
+    ``bias``, ``causal``, the in-kernel qk-norm gammas and dropout raise
+    ``NotImplementedError``."""
+    if bias is not None:
+        raise NotImplementedError(f"flash_attention: an additive bias is not ported yet ({_FLASH_ITEM}, bias variant)")
+    if causal:
+        raise NotImplementedError(f"flash_attention: causal masking is not ported yet ({_FLASH_ITEM}, causal variant)")
+    if gamma_q is not None or gamma_k is not None:
+        raise NotImplementedError(
+            "flash_attention: the in-kernel qk-norm (the JAX opt-in VIT_TPU_FUSE_QKNORM) is not ported; "
+            "the dispatcher applies rms_norm before the kernels (ROADMAP: TPU kernels to port, items 4-5)"
+        )
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "flash_attention: dropout is not ported yet (ROADMAP: TPU kernels to port, item 7, flash dropout "
+            "with flash_dropout_masks)"
+        )
+    del dropout_seed, interpret
+    if (block_q or BLOCK_Q) != BLOCK_Q or (block_k or BLOCK_K) != BLOCK_K:
+        raise ValueError(f"flash_attention: the kernels' tiles are {BLOCK_Q} x {BLOCK_K}")
+    if q.device.type != "cpu" and not flash_supported(q.shape, k.shape, q.dtype):
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} is not supported by the kernels "
+            f"(bf16, dim_head {DIM_HEAD})"
+        )
+    return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.packing import PackedImages
+
 
 @dataclass
 class TrainState:
@@ -74,6 +76,11 @@ def make_train_step(
 
     ``aux_loss_weight``: for models returning ``(logits, aux_loss)``.
 
+    ``images``: a tensor batch, or a ``PackedImages`` (NaViT) at
+    ``grad_accum=1``, as the JAX step takes its pytree (train.py:72-103);
+    the loss is then the caller's (for NaViT, a cross-entropy over the
+    ``(b, max_images)`` slots masked where the label is -1).
+
     ``grad_accum``: the batch (whose leading dim must divide by it) runs as
     ``grad_accum`` sequential microbatches; their gradients are summed in
     f32, divided by ``grad_accum`` and cast to each parameter's dtype, then
@@ -109,6 +116,8 @@ def make_train_step(
             loss, acc = loss_and_accuracy(images, labels, generator)
             loss.backward()
             loss = loss.detach()
+        elif isinstance(images, PackedImages):
+            raise ValueError("grad_accum > 1 takes a tensor batch; split a PackedImages into packs yourself")
         else:
             b = images.shape[0]
             if b % grad_accum:

@@ -1,11 +1,17 @@
-"""JAX params -> the port's ``state_dict``: the exact inverse of
+"""JAX params -> the port's ``state_dict``.
+
+For the ViT it is the exact inverse of
 ``vit_pytorch_tpu/utils/convert.py::vit_rules``, so that
-``convert_vit(vit_state_dict_from_jax(p)) == {"params": p}``.
+``convert_vit(vit_state_dict_from_jax(p)) == {"params": p}``.  The NaViT
+maps keep the JAX module structure (the fused ``to_qkv`` in the
+Transformer, split ``to_q``/``to_kv`` in ``attn_pool``); the JAX
+``convert_na_vit`` fuses the reference's q/kv, so these maps are held by
+model outputs (tests/test_torch_na_vit.py), not by a round trip.
 
 Dense kernels (in, out) become Linear weights (out, in); LayerNorm
-``scale``/``bias`` become ``weight``/``bias``.  No JAX import: the caller
-hands over the tree as nested dicts of numpy arrays
-(``jax.tree.map(np.asarray, variables["params"])``).
+``scale``/``bias`` become ``weight``/``bias``; RMSNorm ``gamma`` stays
+``gamma``.  No JAX import: the caller hands over the tree as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, variables["params"])``).
 """
 
 from __future__ import annotations
@@ -30,8 +36,28 @@ _VIT_MODULES = (
     (r"transformer/norm", "transformer.norm"),
     (r"mlp_head", "mlp_head"),
 )
-_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_NAVIT_LAYER = (
+    (r"transformer/layers_(\d+)_attn/(norm|to_qkv|to_q|to_k|to_v|q_norm|k_norm)", r"transformer.layers.\1.0.\2"),
+    (r"transformer/layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"transformer/layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"transformer/layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.4"),
+    (r"transformer/norm", "transformer.norm"),
+    (r"(patch_norm_pre|patch_proj|patch_norm_post|head_norm|mlp_head)", r"\1"),
+)
+# models/na_vit.py: Attention keeps its projection out in to_out.0
+_NAVIT_MODULES = (
+    (r"transformer/layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+    (r"attn_pool/(norm|to_q|to_kv|q_norm|k_norm)", r"attn_pool.\1"),
+    (r"attn_pool/to_out", "attn_pool.to_out.0"),
+) + _NAVIT_LAYER
+# models/na_vit_nested_tensor.py: NestedAttention's to_out is a bare Linear
+_NAVIT_NT_MODULES = (
+    (r"transformer/layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out"),
+    (r"attn_pool/(norm|to_q|to_k|to_v|q_norm|k_norm|to_out)", r"attn_pool.\1"),
+) + _NAVIT_LAYER
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma"}
 _TOP_LEVEL = ("cls_token", "pos_embedding")
+_NAVIT_TOP_LEVEL = ("pos_embed_height", "pos_embed_width", "attn_pool_queries")
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -43,24 +69,40 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, value
 
 
-def _torch_key(path: str) -> str:
-    if path in _TOP_LEVEL:
+def _torch_key(path: str, modules, top_level) -> str:
+    if path in top_level:
         return path
     module, _, leaf = path.rpartition("/")
     if leaf in _LEAVES:
-        for pattern, template in _VIT_MODULES:
+        for pattern, template in modules:
             m = re.fullmatch(pattern, module)
             if m:
                 return f"{m.expand(template)}.{_LEAVES[leaf]}"
     raise ValueError(f"no torch key for JAX param {path!r}")
 
 
-def vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """The JAX ``ViT``'s ``params`` tree -> the port ``ViT``'s ``state_dict``."""
+def _state_dict(params: Mapping, modules, top_level) -> dict[str, torch.Tensor]:
     out = {}
     for path, value in _flatten(params):
         array = np.array(value)  # a writable copy torch may own
         if path.endswith("/kernel"):
             array = np.ascontiguousarray(array.T)
-        out[_torch_key(path)] = torch.from_numpy(array)
+        out[_torch_key(path, modules, top_level)] = torch.from_numpy(array)
     return out
+
+
+def vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ViT``'s ``params`` tree -> the port ``ViT``'s ``state_dict``."""
+    return _state_dict(params, _VIT_MODULES, _TOP_LEVEL)
+
+
+def na_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/na_vit.py::NaViT``'s ``params`` tree -> the port
+    ``NaViT``'s ``state_dict``."""
+    return _state_dict(params, _NAVIT_MODULES, _NAVIT_TOP_LEVEL)
+
+
+def na_vit_nested_tensor_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/na_vit_nested_tensor.py::NaViT``'s ``params`` tree
+    -> the port's ``state_dict``."""
+    return _state_dict(params, _NAVIT_NT_MODULES, _NAVIT_TOP_LEVEL)
