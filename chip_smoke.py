@@ -11,7 +11,8 @@ Phases, each printed as it ends:
   4. serving: ViT-B/16 @224 from a seeded generator behind a Predictor with
      buckets (1, 8, 32, 128); requests of 1, 5, 32 and 130 images; launch
      counters; logits against the plain bf16 path and against fp32;
-  5. timing at bs=128: model img/s, one layer, each kernel, kernel vs plain;
+  5. timing at bs=128: model img/s, one layer, each kernel (gemm_bf16 at
+     each of its four sites), kernel vs plain;
   6. backward kernels against their plain twins at the shapes of phase 3
      (attention_bwd_rows also at n=50), and the whole layer's backward:
      every operand gradient of the kernel Function against the same
@@ -58,10 +59,32 @@ Phases, each printed as it ends:
      step's loss and gradients against both;
  15. NaViT timing: serving img/s and tokens/s and the training ms/step
      (peak memory) at 16 packs, kernel against plain in turns, and each
-     flash launch at the packed shape.
-Each phase prints its seconds.  Then one JSON line with the kernels, and the
-last line {"ok": true, "device": {...}}.  Any failed check exits non-zero
-before it.
+     flash launch at the packed shape;
+ 16. the qk-norm kernels against their twins at the shapes of phase 3 (n =
+     197 and 50) and SimpleViT-qk-norm's served one (b=128, n=196), scale 1,
+     gammas at SimpleViT-qk-norm's init and random: attention_rows[qknorm],
+     attention_bwd_rows[qknorm] (m, dq, dk, dv, dgamma_q, dgamma_k, the
+     dgammas bitwise deterministic), both again with dropout 0.1, and the
+     qk-norm attention-block Function's output and its 7 gradients against
+     the same Function on the twins; attention_rows and attention_bwd_rows at
+     SimpleViT config 2's shapes (b=256, n=64 and 68, 16 heads);
+ 17. SimpleViT serving: BASELINE config 2 (tools/bench_zoo.py:132-141, 64
+     tokens) behind buckets (1, 8, 32, 256), its register-token variant (n =
+     68), and SimpleViT-qk-norm (tools/bench_qknorm_model.py:28-29, 196
+     tokens) behind the ViT buckets: exact launch counters (4 attention-block
+     launches a layer), outputs against the plain bf16 path and fp32;
+ 18. SimpleViT training: both models through make_train_step, 4 steps each
+     (loss falls, exact counters: 10 launches a layer a step), the first
+     step's loss and gradients (the gammas' included) against the plain bf16
+     path and fp32;
+ 19. SimpleViT timing: serving img/s (config 2 at bs=256, qk-norm at
+     bs=128), training ms/step and peak memory at bs=256, kernel against
+     plain in turns; each qk-norm launch alone; attention_rows at config 2's
+     64 tokens against its bound; each model's gemm_bf16[block_out] site
+     against its twin, its bound and the one torch call computing it.
+Each phase prints its seconds.  Then one JSON line with the kernels (their
+times, bounds and library-call times), and the last line {"ok": true,
+"device": {...}}.  Any failed check exits non-zero before it.
 
 Imports nothing of JAX.
 """
@@ -82,6 +105,9 @@ B_TIME = 128
 BUCKETS = (1, 8, 32, 128)
 REQUESTS = (1, 5, 32, 130)
 LAUNCHES_PER_LAYER = {"layernorm_rows": 2, "gemm_bf16": 4, "attention_rows": 1}
+# gemm_bf16's four sites of a layer, one launch each: each its own entry of
+# the kernels line, since only some of them are one torch call
+GEMM_SITES = ("qkv", "out", "fc1", "fc2")
 ATTN_CHECK_N = (N, 50)  # 11 and 158 padded keys in the 208 the kernel holds
 # Each kernel is held to its plain twin twice.  The twins round at the same
 # points, so what differs is f32 summation order and exp2/rsqrt ulps, which
@@ -222,6 +248,15 @@ TPU_MASKS_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:190"
 SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer.cu"
 BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer_bwd.cu"
 DROPOUT_SOURCE = "vit_pytorch_tpu_torch/csrc/dropout.cu"
+# The least time the card could take for a kernel's work (its bound): the
+# larger of the bytes it must move (each input read once, each output written
+# once) over the memory rate, and its operations over the peak rate of their
+# type.  Published peaks of one H100 SXM, dense: bf16 tensor-core products,
+# f32 and 32-bit integer work on the CUDA cores, HBM3.
+HBM_BYTES_PER_S, BF16_TENSOR_OPS_PER_S, F32_OPS_PER_S = 3.35e12, 989e12, 67e12
+# Philox4x32-10 gives 4 keep bits for ~100 32-bit operations (10 rounds of two
+# multiplies-hi/lo, xors and key adds): ~25 a dropout element
+PHILOX_OPS_PER_ELEMENT = 25
 
 
 def fail(msg):
@@ -255,6 +290,89 @@ def in_turns(kernel, plain, iters):
     """plain, kernel, kernel, plain on one card; the mean of each pair."""
     p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def work(bytes_=0, tensor=0, f32=0):
+    """A kernel's work: bytes moved, bf16 tensor-core operations, and f32 or
+    32-bit integer operations on the CUDA cores."""
+    return {"bytes": bytes_, "tensor": tensor, "f32": f32}
+
+
+def bound_ms(w):
+    """(ms, "bytes" or "operations"): the least time of the work ``w``."""
+    t_bytes = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = (w["tensor"] / BF16_TENSOR_OPS_PER_S + w["f32"] / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ln_work(rows, dim):
+    """LayerNorm: read x, write the bf16 output; ~8 f32 operations an element."""
+    return work(2 * 2 * rows * dim + 2 * 2 * dim, f32=8 * rows * dim)
+
+
+def ln_bwd_work(rows, dim, residual):
+    """LayerNorm backward: read x (bf16), dh (f32), the residual; write dx;
+    ~12 f32 operations an element; dgamma and dbeta written once."""
+    return work(rows * dim * (2 + 4 + 2 + (2 if residual else 0)) + 2 * dim + 2 * 4 * dim, f32=12 * rows * dim)
+
+
+def gemm_work(m, n, k, *, bias=False, residual=False, out_bytes=2, dropout=False):
+    """C[m, n] = A[m, k] . W[n, k]^T in bf16, with its epilogue's reads."""
+    b = 2 * (m * k + n * k) + out_bytes * m * n + (2 * n if bias else 0) + (2 * m * n if residual else 0)
+    return work(b, tensor=2 * m * n * k, f32=PHILOX_OPS_PER_ELEMENT * m * n if dropout else 0)
+
+
+def attention_work(b, n, heads, *, backward=False, dropout=False, qknorm=False):
+    """attention_rows (qkv in, merged heads out; q.k and p.v) or
+    attention_bwd_rows (qkv and dm in, m and dqkv out; q.k, p.v, dv, dp, dq,
+    dk): 4 or 12 n^2 dh bf16 products a head, ~5 f32 operations a logit, a
+    Philox draw a logit with dropout; qk-norm adds the gammas (and the
+    dgammas) and ~6 f32 operations an element of q and k (twice backward)."""
+    inner = heads * DH
+    bytes_ = b * n * inner * 2 * (8 if backward else 4)
+    logits = b * heads * n * n
+    f32 = 5 * logits + (PHILOX_OPS_PER_ELEMENT * logits if dropout else 0)
+    if qknorm:
+        bytes_ += 2 * inner * 2 + (2 * inner * 4 if backward else 0)
+        f32 += 6 * 2 * b * n * inner * (2 if backward else 1)
+    return work(bytes_, tensor=(12 if backward else 4) * logits * DH, f32=f32)
+
+
+def flash_work(name, ids, heads):
+    """The flash kernels on packs with segment ids: the work the same-image
+    (query, key) pairs of this data need (4, 6, 8 dh bf16 products a pair
+    for flash_fwd, flash_bwd_dq, flash_bwd_dkv), and their operands: q, k, v
+    (and dO) in, o (dq; dk and dv) out, the f32 lse (and delta)."""
+    pairs = 0
+    for row in ids.tolist():
+        counts = np.bincount([i for i in row if i >= 0])
+        pairs += int((counts.astype(np.int64) ** 2).sum())
+    pairs *= heads
+    b, n = ids.shape
+    t = b * heads * n * DH * 2  # one (b, h, n, dh) bf16 tensor
+    vec = b * heads * n * 4  # one (b, h, n) f32 vector
+    ops = {"flash_fwd": (4, 4 * t + vec), "flash_bwd_dq": (6, 5 * t + 2 * vec), "flash_bwd_dkv": (8, 6 * t + 2 * vec)}
+    per_pair, bytes_ = ops[name]
+    return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=5 * pairs)
+
+
+def record(per_kernel, name, km, pm, w, library_ms=None):
+    """Add one call site's kernel and plain times, work and library time to
+    a kernel's entry (a kernel timed at several sites sums them)."""
+    e = per_kernel.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "work": work(), "library_ms": None})
+    e["ms"] += km
+    e["plain_ms"] += pm
+    e["work"] = {k: e["work"][k] + w[k] for k in w}
+    if library_ms is not None:
+        e["library_ms"] = (e["library_ms"] or 0.0) + library_ms
+
+
+def sdpa_ms(qkv, heads, iters, **kw):
+    """Device ms of torch's scaled_dot_product_attention on the heads of a
+    packed (b, n, 3*inner) qkv: the library call beside attention_rows."""
+    b, n, _ = qkv.shape
+    q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw), iters)
 
 
 def rel_l2(got, want):
@@ -305,13 +423,11 @@ def check_kernels(fb, rnd):
             ("out", m, w["w_out"], b_out, x), ("fc1", h, w["w1"], w["b1"], None),
             ("fc2", a, w["w2"], w["b2"], x),
         )
-        gemm_errs = []
         for site, inp, weight, bias, res in sites:
             epi = site.split("+")[0]
-            gemm_errs.append(compare(
-                f"gemm_bf16[{site}]", fb.gemm_bf16(inp, weight, epi, bias=bias, residual=res),
-                fb.gemm_bf16_reference(inp, weight, epi, bias=bias, residual=res), KERNEL_ATOL, KERNEL_RTOL))
-        errs["gemm_bf16"] = max(gemm_errs)
+            e = compare(f"gemm_bf16[{site}]", fb.gemm_bf16(inp, weight, epi, bias=bias, residual=res),
+                        fb.gemm_bf16_reference(inp, weight, epi, bias=bias, residual=res), KERNEL_ATOL, KERNEL_RTOL)
+            errs[f"gemm_bf16[{epi}]"] = max(errs.get(f"gemm_bf16[{epi}]", 0.0), e)
         sync()
         attn_errs = []
         for n in ATTN_CHECK_N:
@@ -570,11 +686,15 @@ def time_training(fb, dev, gen, smi):
              lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy)),
         )
         per_kernel = {}
+        inner = HEADS * DH
+        works = {"attention_bwd_rows": attention_work(b, N, HEADS, backward=True),
+                 "gemm_f32out": gemm_work(b * N, DIM, 3 * inner, out_bytes=4),
+                 "layernorm_bwd_rows": ln_bwd_work(b * N, DIM, residual=True)}
         log(f"  one layer's backward launches at bs={b}:")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
-            if name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows"):
-                per_kernel[name] = (km, pm)
+            if name in works:
+                record(per_kernel, name, km, pm, works[name])
             log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
     g = dy
     lk, lp = in_turns(lambda: layer_grads(fb.fused_transformer_layer, x, w, kw, g),
@@ -811,12 +931,24 @@ def time_dropout_training(fb, dev, gen, smi):
              lambda: fb.dropout_masks_reference(DROP_SEED, b, N, DIM, HEADS, RATE, device=dev)),
         )
         per_kernel = {}
+        inner = HEADS * DH
+        works = {
+            "attention_rows[dropout]": attention_work(b, N, HEADS, dropout=True),
+            "gemm_bf16[block_out]": gemm_work(b * N, DIM, inner, bias=True, residual=True, dropout=True),
+            "dropout_apply": work(2 * 2 * b * N * DIM, f32=PHILOX_OPS_PER_ELEMENT * b * N * DIM),
+            "attention_bwd_rows[dropout]": attention_work(b, N, HEADS, backward=True, dropout=True),
+            "dropout_masks": work(4 * (b * HEADS * N * N + b * N * DIM),
+                                  f32=PHILOX_OPS_PER_ELEMENT * (b * HEADS * N * N + b * N * DIM)),
+        }
+        library = {"attention_rows[dropout]": sdpa_ms(qkv, HEADS, 10, dropout_p=RATE)}
         log(f"  one attention block's launches at bs={b} (forward, backward, then the mask replay):")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
-            if "[" in name or name.startswith("dropout"):
-                per_kernel[name] = (km, pm)
+            if name in works:
+                record(per_kernel, name, km, pm, works[name], library.get(name))
             log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+        log(f"  scaled_dot_product_attention(dropout_p={RATE}) on the same qkv: "
+            f"{library['attention_rows[dropout]']:.4f} ms")
     bk, bp = in_turns(lambda: block_grads(fb.fused_attention_block, x, w, kw, g, RATE),
                       lambda: block_grads(fb.attention_block_reference, x, w, kw, g, RATE), 5)
     log(f"  one attention block forward+backward at bs={b}, rate {RATE}: kernels {bk:.4f} ms, plain {bp:.4f} ms")
@@ -1235,12 +1367,436 @@ def time_navit(fb, fa, dev, gen, smi):
         )
         log(f"  each flash launch at the packed shape ({shape[0]} packs x {HEADS} heads x {NAVIT_SEQ} tokens, NaViT's "
             f"ids; the backward kernels' plain twin computes dq, dk and dv at once):")
+        # the library call beside flash_fwd: SDPA under the block-diagonal mask
+        mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))[:, None]
+        library = {"flash_fwd": cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0), 5)}
+        del mask
         for name, kern, plain in launches:
             km, pm = in_turns(kern, plain, 5)
-            per_kernel[name] = (km, pm)
+            record(per_kernel, name, km, pm, flash_work(name, ids, HEADS), library.get(name))
             log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms")
+        log(f"  scaled_dot_product_attention with the (b, 1, n, n) block-diagonal mask: {library['flash_fwd']:.4f} ms")
     sync()
     return per_kernel
+
+
+# -- the SimpleViT slice (phases 16-19) ----------------------------------------
+# SimpleViT, BASELINE config 2 as the JAX bench runs it (tools/bench_zoo.py:
+# 132-141): 64 tokens, served at bs=256; SimpleViT-qk-norm at the repo's qk-norm
+# bench config (tools/bench_qknorm_model.py:28-29): 196 tokens, served at
+# bs=128 behind the ViT buckets, trained at bs=256.  Its "head" is a LayerNorm
+# over the mean-pooled tokens, so outputs and training labels are dim (768)
+# wide, as in the JAX model.
+SIMPLE = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16, mlp_dim=2048, dim_head=64)
+QKNORM = dict(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP)
+SIMPLE_BS, QKNORM_BS, QKNORM_TRAIN_BS = 256, 128, 256
+SIMPLE_N = (SIMPLE["image_size"] // SIMPLE["patch_size"]) ** 2
+QKNORM_N = (QKNORM["image_size"] // QKNORM["patch_size"]) ** 2
+SIMPLE_BUCKETS, SIMPLE_REQUESTS = (1, 8, 32, 256), (1, 5, 32, 256)
+REGISTER_TOKENS, REGISTER_REQUEST = 4, 8
+# the attention block's launches: forward 4; a training step adds the
+# backward's 6 (the FF is plain PyTorch); the qk-norm model's attention
+# launches are the [qknorm] variants
+BLOCK_FWD_LAUNCHES = {"layernorm_rows": 1, "gemm_bf16": 1, "attention_rows": 1, "gemm_bf16[block_out]": 1}
+BLOCK_TRAIN_LAUNCHES = {"layernorm_rows": 2, "gemm_bf16": 3, "attention_rows": 1, "gemm_bf16[block_out]": 1,
+                        "attention_bwd_rows": 1, "gemm_f32out": 1, "layernorm_bwd_rows": 1}
+# Phase 16: the qk-norm kernels against their twins, at the shapes of phase 3
+# and at SimpleViT-qk-norm's served shape (b=128, n=196).
+# dq, dk, dv: the backward bounds of phase 6.  The attention output m: the
+# relative-L2 bound of phase 3, and elementwise 2^-5 of the largest element
+# (4 ulps) instead of phase 3's 2 ulps of each: with gammas 1 + 0.2 N(0, 1) the
+# normed rows have norm ~8 and the scale-1 logits reach ~64, so a q or k
+# element whose bf16 rounding flips (the f32 sum of squares in another order)
+# moves a logit by a few hundredths and the near-top softmax weights by
+# percents; a right kernel reads max_abs/max|want| <= 6.5e-3 there (3.4e-3 at
+# the init gammas) and rel L2 <= 1.7e-4.  The f32 dgamma_q/dgamma_k (sums over
+# every row of the batch of dq * qhat) inherit those flips through dq and
+# qhat: a right kernel reads rel L2 1.1e-4 to 1.7e-4 at the random gammas,
+# 2.3e-5 to 2.9e-5 at the init gammas, max_abs/max|want| <= 5.9e-4 (H100 80GB
+# HBM3, 700 W); bounds ~3x those.  A dgamma without its sqrt(dh) factor is off
+# by 7/8 of itself.
+QK_ATTN_ATOL_FRAC = 2.0**-5
+QK_DGAMMA_ATOL_FRAC, QK_DGAMMA_RTOL, QK_DGAMMA_REL_L2 = 2e-3, 1e-3, 5e-4
+QK_BLOCK_OPERANDS = ("x", "w_qkv", "w_out", "ln_scale", "ln_bias", "gamma_q", "gamma_k")
+# Phases 17-18: logits, first-step loss and gradients of both models against
+# the plain bf16 path and fp32.
+SIMPLE_LOGITS_VS_PLAIN, SIMPLE_LOGITS_VS_FP32 = 3e-2, 5e-2
+SIMPLE_TRAIN_VS_PLAIN = dict(loss=2e-3, grads=3e-2, worst=5e-2)
+SIMPLE_TRAIN_VS_FP32 = dict(loss=2e-3, grads=3e-2, worst=5e-2)
+TPU_QK_KERNELS = {"attention_rows[qknorm]": (SOURCE, TPU_BLOCK_KERNEL),
+                  "attention_bwd_rows[qknorm]": (BWD_SOURCE, TPU_BWD_KERNEL)}
+
+
+def variant_launches(launches, qk_norm: bool):
+    """A per-layer launch table with the attention kernels' [qknorm] names."""
+    rename = {"attention_rows": "attention_rows[qknorm]", "attention_bwd_rows": "attention_bwd_rows[qknorm]"}
+    return {(rename.get(k, k) if qk_norm else k): v for k, v in launches.items()}
+
+
+def qk_gammas(rnd, kind, dev):
+    """(heads, 1, dh) bf16 gammas: SimpleViT-qk-norm's init dh**-0.5 (unit
+    rows, logits in [-1, 1]) or 1 + 0.2 N(0, 1) (rows of norm ~8, logits up
+    to ~64, as tests/test_fused_qknorm.py draws them)."""
+    if kind == "init":
+        g = torch.full((HEADS, 1, DH), DH**-0.5, dtype=torch.bfloat16, device=dev)
+        return g, g.clone()
+    return 1 + rnd(HEADS, 1, DH, scale=0.2), 1 + rnd(HEADS, 1, DH, scale=0.2)
+
+
+def qk_block_grads(block, x, w, gq, gk, g, rate):
+    """Output and every operand gradient of one qk-norm attention block
+    (``block`` is the kernel Function or its twin), called as
+    SimpleViT-qk-norm calls it (no residual, no biases), for ``g``."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, w["w_qkv"], w["w_out"], w["ln1_scale"], w["ln1_bias"], gq, gk)]
+    xl, w_qkv, w_out, ln_s, ln_b, gql, gkl = leaves
+    out = block(xl, None, w_qkv, w_out, ln_s, ln_b, heads=HEADS, dim_head=DH, gamma_q=gql, gamma_k=gkl,
+                dropout_rate=rate, dropout_seed=DROP_SEED if rate else None)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def check_qknorm(fb, rnd, dev):
+    """Phase 16: attention_rows[qknorm] and attention_bwd_rows[qknorm] (m,
+    dqkv, dgamma_q, dgamma_k), with and without dropout 0.1, against their
+    twins at phase 3's shapes and SimpleViT-qk-norm's served one; the dgammas twice, bitwise (no atomics); the qk-norm block
+    Function's output and its 7 gradients against the same Function on the
+    twins.  Returns the largest max_abs of each variant."""
+    log(f"[16 qk-norm kernels] b={B_CHECK} n={N} and 50, b={QKNORM_BS} n={QKNORM_N}, dim={DIM} heads={HEADS} "
+        f"dh={DH}, scale 1, bf16; gammas "
+        f"at SimpleViT-qk-norm's init {DH**-0.5:.3f} and 1 + 0.2 N(0, 1); dropout 0 and {RATE}")
+    inner = HEADS * DH
+    akw = dict(heads=HEADS, dim_head=DH, scale=1.0)
+    w, kw = layer_weights(rnd)
+    x = rnd(B_CHECK, N, DIM)
+    random_g, init_g = qk_gammas(rnd, "random", dev), qk_gammas(rnd, "init", dev)
+    errs = {}
+    with torch.inference_mode():
+        h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
+        qkv_full = fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])
+        qkv_main = rnd(QKNORM_BS, QKNORM_N, 3 * inner)  # SimpleViT-qk-norm's served shape
+        cases = ((f"n={N}, random gammas", qkv_full, random_g), (f"n={N}, init gammas", qkv_full, init_g),
+                 ("n=50, random gammas", rnd(B_CHECK, 50, 3 * inner), random_g),
+                 (f"b={QKNORM_BS} n={QKNORM_N}, init gammas", qkv_main, init_g),
+                 (f"b={QKNORM_BS} n={QKNORM_N}, random gammas", qkv_main, random_g))
+        for rate in (0.0, RATE):
+            tag = "qknorm" if rate == 0.0 else "dropout,qknorm"
+            fwd, bwd = f"attention_rows[{tag}]", f"attention_bwd_rows[{tag}]"
+            fwd_errs, bwd_errs = [], []
+            for label, qkv, (gq, gk) in cases:
+                dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None, gamma_q=gq, gamma_k=gk)
+                fwd_errs.append(compare(f"{fwd} [{label}]", fb.attention_rows(qkv, **akw, **dkw),
+                                        fb.attention_rows_reference(qkv, **akw, **dkw), None, ATTN_RTOL,
+                                        atol_frac=QK_ATTN_ATOL_FRAC))
+                dm = rnd(qkv.shape[0], qkv.shape[1], inner)
+                got = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
+                want = fb.attention_bwd_rows_reference(qkv, dm, **akw, **dkw)
+                bwd_errs.append(compare(f"{bwd} m [{label}]", got[0], want[0], None, ATTN_RTOL,
+                                        atol_frac=QK_ATTN_ATOL_FRAC))
+                for i, part in enumerate("qkv"):
+                    cols = slice(i * inner, (i + 1) * inner)
+                    bwd_errs.append(compare(f"{bwd} d{part} [{label}]", got[1][..., cols], want[1][..., cols], None,
+                                            ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+                for part, a, b in (("dgamma_q", got[2], want[2]), ("dgamma_k", got[3], want[3])):
+                    bwd_errs.append(compare(f"{bwd} {part} [{label}]", a, b, None, QK_DGAMMA_RTOL, QK_DGAMMA_REL_L2,
+                                            atol_frac=QK_DGAMMA_ATOL_FRAC))
+                again = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{bwd} is not deterministic")
+            errs[fwd], errs[bwd] = max(fwd_errs), max(bwd_errs)
+            sync()
+    g = rnd(B_CHECK, N, DIM)
+    for rate in (0.0, RATE):
+        fb.reset_launch_counts()
+        out, grads = qk_block_grads(fb.fused_attention_block, x, w, *random_g, g, rate)
+        sync()
+        counts = {k: v for k, v in fb.LAUNCHES.items() if v}
+        out_want, grads_want = qk_block_grads(fb.attention_block_reference, x, w, *random_g, g, rate)
+        log(f"  qk-norm attention block [rate {rate}]: launches {counts}")
+        compare(f"qk-norm block [rate {rate}] (out)", out, out_want, KERNEL_ATOL, KERNEL_RTOL)
+        for name, a, b in zip(QK_BLOCK_OPERANDS, grads, grads_want):
+            compare(f"qk-norm block grad d{name} [rate {rate}]", a, b, None, KERNEL_RTOL, BLOCK_GRAD_REL_L2,
+                    atol_frac=BLOCK_GRAD_ATOL_FRAC)
+    sync()
+    return errs
+
+
+def check_simple_attention(fb, rnd):
+    """Phase 16: attention_rows and attention_bwd_rows against their twins
+    on the same inputs at SimpleViT config 2's shapes (b=256, n=64 and 64 +
+    4 register tokens, 16 heads), with the bounds of phases 3 and 6.  Returns
+    the largest max_abs of each kernel."""
+    heads = SIMPLE["heads"]
+    inner = heads * DH
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    fwd_errs, bwd_errs = [], []
+    with torch.inference_mode():
+        for n in (SIMPLE_N, SIMPLE_N + REGISTER_TOKENS):
+            label = f"b={SIMPLE_BS} n={n} heads={heads}"
+            qkv, dm = rnd(SIMPLE_BS, n, 3 * inner), rnd(SIMPLE_BS, n, inner)
+            fwd_errs.append(compare(f"attention_rows [{label}]", fb.attention_rows(qkv, **akw),
+                                    fb.attention_rows_reference(qkv, **akw), ATTN_ATOL, ATTN_RTOL))
+            m, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw)
+            bwd_errs.append(compare(f"attention_bwd_rows m [{label}]", m, m_want, ATTN_ATOL, ATTN_RTOL))
+            for i, part in enumerate("qkv"):
+                cols = slice(i * inner, (i + 1) * inner)
+                bwd_errs.append(compare(f"attention_bwd_rows d{part} [{label}]", dqkv[..., cols],
+                                        dqkv_want[..., cols], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+    sync()
+    return {"attention_rows": max(fwd_errs), "attention_bwd_rows": max(bwd_errs)}
+
+
+def simple_model(kind, dev, dtype, **kw):
+    """SimpleViT config 2 ("simple"), its register-token variant
+    ("registers") or SimpleViT-qk-norm ("qknorm"), random weights from SEED,
+    initialised in f32 and cast as the JAX bench casts its params."""
+    from vit_pytorch_tpu_torch.models import simple_vit, simple_vit_with_qk_norm, simple_vit_with_register_tokens
+
+    cls, cfg = {"simple": (simple_vit.SimpleViT, SIMPLE), "qknorm": (simple_vit_with_qk_norm.SimpleViT, QKNORM),
+                "registers": (simple_vit_with_register_tokens.SimpleViT, SIMPLE)}[kind]
+    if kind == "registers":
+        kw = {"num_register_tokens": REGISTER_TOKENS, **kw}
+    return cls(**cfg, **kw, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def serve_simple(fb, kind, dev, rnd):
+    """Serve one SimpleViT behind a Predictor: exact launch counters, logits
+    against the plain bf16 path and fp32.  Returns the launch counts of the
+    requests."""
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    cfg = QKNORM if kind == "qknorm" else SIMPLE
+    buckets, requests = (BUCKETS, REQUESTS) if kind == "qknorm" else (SIMPLE_BUCKETS, SIMPLE_REQUESTS)
+    size, depth = cfg["image_size"], cfg["depth"]
+    fp32 = simple_model(kind, dev, torch.float32).eval()
+    pred = Predictor(fp32, example_shape=(3, size, size), batch_sizes=buckets, device=dev).warmup()
+    images = {k: rnd(k, 3, size, size, dtype=torch.float32) for k in requests}
+    runs = sum(-(-k // buckets[-1]) for k in requests)
+    fb.reset_launch_counts()
+    outs = {k: pred(images[k]) for k in requests}
+    sync()
+    width = cfg["dim"] if kind == "qknorm" else cfg["num_classes"]
+    for k, out in outs.items():
+        if out.shape != (k, width) or not bool(torch.isfinite(out).all()):
+            fail(f"{kind} request of {k} images: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    per_layer = variant_launches(BLOCK_FWD_LAUNCHES, kind == "qknorm")
+    want = {name: depth * per_layer.get(name, 0) * runs for name in fb.LAUNCHES}
+    log(f"  requests {requests} -> {runs} bucket runs; launches {({k: v for k, v in fb.LAUNCHES.items() if v})} "
+        f"(expected {depth} layers x {sum(per_layer.values())} launches x {runs} runs)")
+    counts = dict(fb.LAUNCHES)
+    if counts != want:
+        fail(f"{kind} serving did not launch every attention kernel of every layer")
+    k = 32
+    fb.reset_launch_counts()
+    with torch.inference_mode():
+        with plain_layers():
+            plain = pred.model(images[k].to(torch.bfloat16))
+        want_fp32 = fp32(images[k])
+    sync()
+    if any(fb.LAUNCHES.values()):
+        fail(f"the plain and fp32 paths launched kernels: {fb.LAUNCHES}")
+    e_plain, e_fp32, floor = rel_l2(outs[k], plain), rel_l2(outs[k], want_fp32), rel_l2(plain, want_fp32)
+    ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
+    log(f"  outputs of the {k}-image request, rel L2: vs plain bf16 {e_plain:.4e} (bound {SIMPLE_LOGITS_VS_PLAIN}), "
+        f"vs fp32 {e_fp32:.4e} (bound {SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 {floor:.4e}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{kind} served outputs disagree with the plain path or fp32")
+    return counts
+
+
+def check_simple_serving(fb, dev, rnd):
+    """Phase 17: SimpleViT config 2 behind buckets up to 256, its register
+    variant (n = 64 + 4) and SimpleViT-qk-norm behind the ViT buckets, each
+    with exact launch counters and outputs against the plain bf16 path and
+    fp32.  Returns the launch counts of config 2's and of the qk-norm
+    model's requests."""
+    log(f"[17 SimpleViT serving] config 2 {SIMPLE}, bf16, random weights (seed {SEED}), buckets {SIMPLE_BUCKETS}")
+    simple_counts = serve_simple(fb, "simple", dev, rnd)
+    model = simple_model("registers", dev, torch.bfloat16).eval()
+    img = rnd(REGISTER_REQUEST, 3, SIMPLE["image_size"], SIMPLE["image_size"])
+    with torch.inference_mode():
+        fb.reset_launch_counts()
+        got = model(img)
+        sync()
+        counts = dict(fb.LAUNCHES)
+        with plain_layers():
+            want = model(img)
+    per_layer = BLOCK_FWD_LAUNCHES
+    e = rel_l2(got, want)
+    ok = counts == {k: SIMPLE["depth"] * per_layer.get(k, 0) for k in counts} and e <= SIMPLE_LOGITS_VS_PLAIN
+    log(f"  with {REGISTER_TOKENS} register tokens (n = 64 + {REGISTER_TOKENS}), {REGISTER_REQUEST} images: "
+        f"launches {({k: v for k, v in counts.items() if v})}; logits rel L2 vs plain bf16 {e:.4e} (bound "
+        f"{SIMPLE_LOGITS_VS_PLAIN}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("SimpleViT with register tokens: launches or logits wrong")
+    del model
+    log(f"  SimpleViT-qk-norm {QKNORM}, bf16, buckets {BUCKETS}")
+    return simple_counts, serve_simple(fb, "qknorm", dev, rnd)
+
+
+def check_simple_training(fb, dev, gen):
+    """Phase 18: SimpleViT config 2 and SimpleViT-qk-norm through
+    make_train_step, 4 Adam steps on one batch each: loss finite and
+    falling, exact launch counters, the first step's loss and gradients
+    (the gammas' included) against the plain bf16 path and fp32.  Returns
+    the launch counts of the qk-norm steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    for kind in ("simple", "qknorm"):
+        cfg = QKNORM if kind == "qknorm" else SIMPLE
+        width = cfg["dim"] if kind == "qknorm" else cfg["num_classes"]
+        log(f"[18 SimpleViT training] {kind}: depth {cfg['depth']}, bf16, seed {SEED}; bs={B_TRAIN}, {TRAIN_STEPS} "
+            f"Adam steps on one batch, labels in [0, {width})")
+        fp32 = simple_model(kind, dev, torch.float32)
+        model = copy.deepcopy(fp32).to(bf16)
+        initial = copy.deepcopy(model)
+        names = [n for n, _ in model.named_parameters()]
+        size = cfg["image_size"]
+        images = torch.randn(B_TRAIN, 3, size, size, generator=gen, device=dev)
+        labels = torch.randint(0, width, (B_TRAIN,), generator=gen, device=dev)
+        state, step = create_train_state(model), make_train_step(model)
+        fb.reset_launch_counts()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            losses.append(step(state, images.to(bf16), labels)["loss"].item())
+            if i == 0:
+                grads = grad_vector(model)
+        sync()
+        counts = dict(fb.LAUNCHES)
+        per_layer = variant_launches(BLOCK_TRAIN_LAUNCHES, kind == "qknorm")
+        want = {k: cfg["depth"] * per_layer.get(k, 0) * TRAIN_STEPS for k in fb.LAUNCHES}
+        log(f"  losses {[f'{v:.6f}' for v in losses]}; launches {({k: v for k, v in counts.items() if v})} "
+            f"(expected {cfg['depth']} layers x {sum(per_layer.values())} launches x {TRAIN_STEPS} steps)")
+        if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+            fail(f"{kind} training loss is not finite or does not fall on the repeated batch")
+        if counts != want:
+            fail(f"{kind} training did not launch every attention kernel of every layer")
+        if kind == "qknorm":
+            qk_counts = counts
+        plain = copy.deepcopy(initial)
+        fb.reset_launch_counts()
+        with plain_layers():
+            loss_plain = make_train_step(plain)(create_train_state(plain), images.to(bf16), labels)["loss"].item()
+        sync()
+        if any(fb.LAUNCHES.values()):
+            fail(f"the plain path launched kernels: {fb.LAUNCHES}")
+        loss_fp32 = make_train_step(fp32)(create_train_state(fp32), images, labels)["loss"].item()
+        plain_grads, fp32_grads = grad_vector(plain), grad_vector(fp32)
+        log(f"  plain bf16 vs fp32: loss rel {abs(loss_plain - loss_fp32) / abs(loss_fp32):.3e}, gradients rel L2 "
+            f"{grads_rel_l2(plain_grads, fp32_grads):.4e}")
+        compare_grads(f"{kind} first step vs plain bf16", grads, plain_grads, losses[0], loss_plain,
+                      SIMPLE_TRAIN_VS_PLAIN, names)
+        compare_grads(f"{kind} first step vs fp32", grads, fp32_grads, losses[0], loss_fp32, SIMPLE_TRAIN_VS_FP32,
+                      names)
+        del model, plain, fp32, initial, state, step
+        sync()
+    return qk_counts
+
+
+def time_simple(fb, dev, gen, smi):
+    """Phase 19: serving img/s (SimpleViT config 2 at bs=256, SimpleViT-qk-norm
+    at bs=128) and training ms/step with peak memory (both at bs=256), kernel
+    against plain paths in turns; each qk-norm launch alone at the served
+    shape; attention_rows at config 2's 64 tokens against its bound and the
+    library call; both models' gemm_bf16[block_out] sites against their twins,
+    bounds and library calls.  Returns the timing entries of the qk-norm
+    variants and of the two block_out sites, and the sites' max_abs."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[19 SimpleViT timing] {smi}")
+    for kind, bs in (("simple", SIMPLE_BS), ("qknorm", QKNORM_BS)):
+        size = (QKNORM if kind == "qknorm" else SIMPLE)["image_size"]
+        model = simple_model(kind, dev, bf16).eval()
+        img = torch.randn(bs, 3, size, size, generator=gen, device=dev).to(bf16)
+        with torch.inference_mode():
+            def serve_plain():
+                with plain_layers():
+                    model(img)
+
+            p1, k1, k2, p2 = (host_ms(f) for f in (serve_plain, lambda: model(img), lambda: model(img), serve_plain))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        log(f"  {kind} serving at bs={bs}: kernel path {bs * 1e3 / k_ms:.1f} img/s ({k_ms:.3f} ms/batch), plain bf16 "
+            f"path {bs * 1e3 / p_ms:.1f} img/s ({p_ms:.3f} ms/batch); turns ms plain {p1:.3f} kernel {k1:.3f} "
+            f"kernel {k2:.3f} plain {p2:.3f}")
+        del model, img
+    for kind, bs in (("simple", SIMPLE_BS), ("qknorm", QKNORM_TRAIN_BS)):
+        cfg = QKNORM if kind == "qknorm" else SIMPLE
+        width = cfg["dim"] if kind == "qknorm" else cfg["num_classes"]
+        model = simple_model(kind, dev, bf16)
+        images = torch.randn(bs, 3, cfg["image_size"], cfg["image_size"], generator=gen, device=dev).to(bf16)
+        labels = torch.randint(0, width, (bs,), generator=gen, device=dev)
+        state, step = create_train_state(model), make_train_step(model)
+
+        def plain_step():
+            with plain_layers():
+                step(state, images, labels)
+
+        kernel_step = lambda: step(state, images, labels)
+        (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                      for f in (plain_step, kernel_step, kernel_step, plain_step))
+        log(f"  {kind} training at bs={bs}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+            f"{(p1 + p2) / 2:.3f} ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; "
+            f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+        del model, state, step, images
+
+    b, n, inner = QKNORM_BS, QKNORM_N, HEADS * DH
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(bf16)
+    qkv, dm = rnd(b, n, 3 * inner), rnd(b, n, inner)
+    gq = torch.full((HEADS, 1, DH), DH**-0.5, dtype=bf16, device=dev)
+    akw = dict(heads=HEADS, dim_head=DH, scale=1.0, gamma_q=gq, gamma_k=gq.clone())
+    per_kernel = {}
+    with torch.inference_mode():
+        log(f"  each qk-norm launch at SimpleViT-qk-norm's serving shape (b={b}, n={n}, heads={HEADS}; no single "
+            f"torch call computes the qk-norm attention):")
+        for name, kern, plain, w in (
+            ("attention_rows[qknorm]", lambda: fb.attention_rows(qkv, **akw),
+             lambda: fb.attention_rows_reference(qkv, **akw), attention_work(b, n, HEADS, qknorm=True)),
+            ("attention_bwd_rows[qknorm]", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw),
+             attention_work(b, n, HEADS, backward=True, qknorm=True)),
+        ):
+            km, pm = in_turns(kern, plain, 10)
+            record(per_kernel, name, km, pm, w)
+            bound, by = bound_ms(w)
+            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by})")
+        plain_akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        km = cuda_ms(lambda: fb.attention_rows(qkv, **plain_akw), 10)
+        log(f"  attention_rows (no qk-norm) at the same shape: {km:.4f} ms")
+        b2, n2, h2 = SIMPLE_BS, SIMPLE_N, SIMPLE["heads"]
+        qkv2 = rnd(b2, n2, 3 * h2 * DH)
+        km = cuda_ms(lambda: fb.attention_rows(qkv2, heads=h2, dim_head=DH, scale=DH**-0.5), 20)
+        bound, by = bound_ms(attention_work(b2, n2, h2))
+        log(f"  attention_rows at SimpleViT config 2's shape (b={b2}, n={n2}, heads={h2}; the kernel holds 208 keys): "
+            f"{km:.4f} ms, bound {bound:.4f} ms ({by}), scaled_dot_product_attention {sdpa_ms(qkv2, h2, 20):.4f} ms")
+        # the out projection of both models' blocks: no bias, so one torch
+        # call computes it (SimpleViT adds the residual in the epilogue:
+        # torch.addmm; SimpleViT-qk-norm adds it outside the block: F.linear)
+        errs = {}
+        for name, b_, n_, d, res in (("gemm_bf16[block_out, +x]", b2, n2, SIMPLE["dim"], True),
+                                     ("gemm_bf16[block_out, bare]", b, n, DIM, False)):
+            m, w_out = rnd(b_, n_, d), rnd(d, d) * d**-0.5
+            x = rnd(b_, n_, d) if res else None
+            okw = dict(residual=x)
+            errs[name] = compare(name, fb.gemm_bf16(m, w_out, "block_out", **okw),
+                                 fb.gemm_bf16_reference(m, w_out, "block_out", **okw), KERNEL_ATOL, KERNEL_RTOL,
+                                 BLOCK_OUT_REL_L2)
+            if res:
+                lib = lambda: torch.addmm(x.view(-1, d), m.view(-1, d), w_out.t())
+            else:
+                lib = lambda: torch.nn.functional.linear(m, w_out)
+            km, pm = in_turns(lambda: fb.gemm_bf16(m, w_out, "block_out", **okw),
+                              lambda: fb.gemm_bf16_reference(m, w_out, "block_out", **okw), 20)
+            lib_ms, w = cuda_ms(lib, 20), gemm_work(b_ * n_, d, d, residual=res)
+            record(per_kernel, name, km, pm, w, lib_ms)
+            bound, by = bound_ms(w)
+            log(f"  {name} at b={b_} n={n_} dim={d}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms "
+                f"({by}), {'torch.addmm' if res else 'F.linear'} {lib_ms:.4f} ms")
+    sync()
+    return per_kernel, errs
 
 
 def host_ms(fn, iters=10):
@@ -1320,13 +1876,15 @@ def main():
     outs = {k: pred(images[k]) for k in REQUESTS}
     sync()
     counts = dict(fb.LAUNCHES)
+    gemm_counts = {f"gemm_bf16[{site}]": v for site, v in fb.GEMM_LAUNCHES.items()}
     for k, out in outs.items():
         if out.shape != (k, 1000) or not bool(torch.isfinite(out).all()):
             fail(f"request of {k} images: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
     want_counts = {name: DEPTH * LAUNCHES_PER_LAYER.get(name, 0) * runs for name in fb.LAUNCHES}  # no backward
+    want_gemm = {f"gemm_bf16[{site}]": DEPTH * runs * (site in GEMM_SITES) for site in fb.GEMM_LAUNCHES}
     log(f"  requests {REQUESTS} -> {runs} bucket runs; launches {counts} (expected {want_counts}, "
-        f"{DEPTH} layers x 7 launches x {runs} runs = {DEPTH * 7 * runs})")
-    if counts != want_counts:
+        f"{DEPTH} layers x 7 launches x {runs} runs = {DEPTH * 7 * runs}); gemm_bf16 by site {gemm_counts}")
+    if counts != want_counts or gemm_counts != want_gemm:
         fail("the serving path did not launch every kernel of every layer")
 
     served = pred.model
@@ -1393,12 +1951,24 @@ def main():
             ("gemm_bf16", "fc2", lambda: fb.gemm_bf16(a, w2, "fc2", bias=b2, residual=y),
              lambda: fb.gemm_bf16_reference(a, w2, "fc2", bias=b2, residual=y)),
         )
-        per_kernel = {name: [0.0, 0.0] for name in LAUNCHES_PER_LAYER}
+        rows, inner = B_TIME * N, HEADS * DH
+        layer_norm_ms = lambda t, w, b: cuda_ms(lambda: torch.nn.functional.layer_norm(t, (DIM,), w, b, 1e-5), 20)
+        works = {  # each site's work and the one PyTorch call that computes the same function, where there is one
+            # (out and fc2 round after the product, the bias and the residual; fc1 adds the tanh GELU)
+            "ln1": (ln_work(rows, DIM), layer_norm_ms(x, ln1s, ln1b)),
+            "qkv": (gemm_work(rows, 3 * inner, DIM), cuda_ms(lambda: torch.nn.functional.linear(h, w_qkv), 20)),
+            "attention": (attention_work(B_TIME, N, HEADS), sdpa_ms(qkv, HEADS, 20)),
+            "out": (gemm_work(rows, DIM, inner, bias=True, residual=True), None),
+            "ln2": (ln_work(rows, DIM), layer_norm_ms(y, ln2s, ln2b)),
+            "fc1": (gemm_work(rows, MLP, DIM, bias=True), None),
+            "fc2": (gemm_work(rows, DIM, MLP, bias=True, residual=True), None),
+        }
+        per_kernel = {}
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 20)
-            per_kernel[name][0] += km
-            per_kernel[name][1] += pm
-            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+            record(per_kernel, f"gemm_bf16[{site}]" if name == "gemm_bf16" else name, km, pm, *works[site])
+            lib_note = "" if works[site][1] is None else f", library call {works[site][1]:.4f} ms"
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms{lib_note}")
     sync()
     del pred, served, tr, model, outs, images
     phase_done("phase 5")
@@ -1412,7 +1982,7 @@ def main():
     phase_done("phase 7")
 
     # -- 8. training timing ----------------------------------------------------
-    per_kernel.update({name: list(t) for name, t in time_training(fb, dev, gen, smi).items()})
+    per_kernel.update(time_training(fb, dev, gen, smi))
     phase_done("phase 8")
 
     # -- 9. dropout kernels against their plain twins --------------------------
@@ -1427,7 +1997,7 @@ def main():
     phase_done("phase 10")
 
     # -- 11. dropout training timing --------------------------------------------
-    per_kernel.update({name: list(t) for name, t in time_dropout_training(fb, dev, gen, smi).items()})
+    per_kernel.update(time_dropout_training(fb, dev, gen, smi))
     phase_done("phase 11")
 
     # -- 12. flash kernels against their plain twins ---------------------------
@@ -1445,46 +2015,75 @@ def main():
     phase_done("phase 14")
 
     # -- 15. NaViT timing ----------------------------------------------------------
-    per_kernel.update({name: list(t) for name, t in time_navit(fb, fa, dev, gen, smi).items()})
+    per_kernel.update(time_navit(fb, fa, dev, gen, smi))
     phase_done("phase 15")
+
+    # -- 16. qk-norm kernels against their plain twins ---------------------------
+    errs.update(check_qknorm(fb, rnd, dev))
+    for name, e in check_simple_attention(fb, rnd).items():
+        errs[name] = max(errs[name], e)
+    phase_done("phase 16")
+
+    # -- 17. SimpleViT serving -----------------------------------------------------
+    simple_serving_counts, qk_serving_counts = check_simple_serving(fb, dev, rnd)
+    phase_done("phase 17")
+
+    # -- 18. SimpleViT training ----------------------------------------------------
+    qk_train_counts = check_simple_training(fb, dev, gen)
+    phase_done("phase 18")
+
+    # -- 19. SimpleViT timing ------------------------------------------------------
+    simple_times, simple_errs = time_simple(fb, dev, gen, smi)
+    per_kernel.update(simple_times)
+    errs.update(simple_errs)
+    phase_done("phase 19")
 
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
-    # training path's (phase 10); the mask replay: phase 9's checks
+    # training path's (phase 10); the mask replay: phase 9's checks; the
+    # qk-norm variants: SimpleViT-qk-norm's serving requests and training
+    # steps (phases 17 and 18)
+    def entry(name, source, replaces, path, launches):
+        t = per_kernel[name]
+        bound, by = bound_ms(t["work"])
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,
+                "launches": launches, "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": bound, "bound_by": by, "library_ms": t["library_ms"]}
+
     dropout_kernels = (
         ("attention_rows[dropout]", SOURCE, TPU_BLOCK_KERNEL), ("gemm_bf16[block_out]", SOURCE, TPU_BLOCK_KERNEL),
         ("dropout_apply", DROPOUT_SOURCE, TPU_BWD_KERNEL), ("attention_bwd_rows[dropout]", BWD_SOURCE, TPU_BWD_KERNEL),
     )
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL, "path": "serving",
-         "launches": counts[name], "max_abs_err": errs[name],
-         "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
-        for name in LAUNCHES_PER_LAYER
-    ] + [
-        {"name": name, "route": "cuda", "source": SOURCE if name == "gemm_f32out" else BWD_SOURCE,
-         "replaces": TPU_BWD_KERNEL, "path": "training", "launches": train_counts[name], "max_abs_err": errs[name],
-         "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
-        for name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")
-    ] + [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": "dropout training",
-         "launches": dropout_counts[name], "max_abs_err": errs[name],
-         "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
-        for name, source, replaces in dropout_kernels
-    ] + [
-        {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": TPU_FLASH[name],
-         "path": "NaViT serving" if name == "flash_fwd" else "NaViT training",
-         "launches": (navit_serving_counts if name == "flash_fwd" else navit_train_counts)[name],
-         "max_abs_err": errs[name], "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1]}
-        for name in TPU_FLASH
-    ] + [
-        {"name": "dropout_masks", "route": "cuda", "source": DROPOUT_SOURCE, "replaces": TPU_MASKS_KERNEL,
-         "path": "mask replay", "launches": mask_launches, "max_abs_err": errs["dropout_masks"],
-         "ms": per_kernel["dropout_masks"][0], "plain_ms": per_kernel["dropout_masks"][1]}
-    ]
-    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward, and the flash kernels' "
-        "at NaViT-B's packed shape; launches: the serving requests for the forward kernels, the training steps for "
-        "the backward kernels, the dropout training steps for the dropout variants, phase 9's mask checks for "
-        "dropout_masks, NaViT-B's serving forward for flash_fwd and its 4 training steps for the flash backward)")
+    kernels = (
+        [entry(name, SOURCE, TPU_KERNEL, "serving", {**counts, **gemm_counts}[name])
+         for name in ("layernorm_rows", *(f"gemm_bf16[{site}]" for site in GEMM_SITES), "attention_rows")]
+        + [entry(name, SOURCE if name == "gemm_f32out" else BWD_SOURCE, TPU_BWD_KERNEL, "training", train_counts[name])
+           for name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")]
+        + [entry(name, source, replaces, "dropout training", dropout_counts[name])
+           for name, source, replaces in dropout_kernels]
+        + [entry(name, FLASH_SOURCE, TPU_FLASH[name], "NaViT serving" if name == "flash_fwd" else "NaViT training",
+                 (navit_serving_counts if name == "flash_fwd" else navit_train_counts)[name]) for name in TPU_FLASH]
+        + [entry("dropout_masks", DROPOUT_SOURCE, TPU_MASKS_KERNEL, "mask replay", mask_launches)]
+        + [entry(name, source, replaces, "SimpleViT-qk-norm serving" if "bwd" not in name
+                 else "SimpleViT-qk-norm training", (qk_train_counts if "bwd" in name else qk_serving_counts)[name])
+           for name, (source, replaces) in TPU_QK_KERNELS.items()]
+        + [entry("gemm_bf16[block_out, +x]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT serving",
+                 simple_serving_counts["gemm_bf16[block_out]"]),
+           entry("gemm_bf16[block_out, bare]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-qk-norm serving",
+                 qk_serving_counts["gemm_bf16[block_out]"])]
+    )
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched on its path ({k['path']})")
+    log("  (ms, plain_ms: the kernel's launches in one layer at bs=128, forward or backward, the flash kernels' "
+        "at NaViT-B's packed shape, the qk-norm variants' and block_out bare at SimpleViT-qk-norm's bs=128, "
+        "block_out +x at SimpleViT config 2's bs=256; gemm_bf16 one entry a site; bound_ms: the larger of "
+        "their bytes over 3.35 TB/s and their operations over 989 TFLOP/s bf16 tensor / 67 T/s CUDA-core peaks; "
+        "library_ms: the one torch call computing the same function, where there is one; launches: the serving "
+        "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
+        "for the dropout variants, phase 9's mask checks for dropout_masks, NaViT-B's serving forward for "
+        "flash_fwd and its 4 training steps for the flash backward, SimpleViT-qk-norm's requests and 4 training "
+        "steps for the qk-norm variants, each SimpleViT's requests for its block_out site)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -49,7 +49,7 @@ def test_mask_layout():
     kept iff >= the threshold; the output dropout is head ``heads``; a
     negative int32 seed keys with its bit pattern."""
     seed, b, n, dim, heads, rate = -5, 2, 9, 16, 3, 0.3
-    attn, out = port.dropout_masks(seed, b, n, dim, heads, rate)
+    attn, out = port.dropout_masks(seed, b, n, dim, heads, rate, device="cpu")
     t = port.dropout_threshold(rate)
 
     def bit(img, head, row, col):
@@ -64,14 +64,14 @@ def test_mask_layout():
 
 
 def test_mask_statistics_and_determinism():
-    attn, out = port.dropout_masks(7, 4, 128, 256, 4, 0.25)
+    attn, out = port.dropout_masks(7, 4, 128, 256, 4, 0.25, device="cpu")
     assert attn.shape == (4, 4, 128, 128) and out.shape == (4, 128, 256)
     assert attn.dtype == out.dtype == torch.int32
     assert abs(attn.float().mean().item() - 0.75) < 0.01
     assert abs(out.float().mean().item() - 0.75) < 0.01
-    a2, o2 = port.dropout_masks(7, 4, 128, 256, 4, 0.25)
+    a2, o2 = port.dropout_masks(7, 4, 128, 256, 4, 0.25, device="cpu")
     assert torch.equal(attn, a2) and torch.equal(out, o2)
-    a3, _ = port.dropout_masks(8, 4, 128, 256, 4, 0.25)
+    a3, _ = port.dropout_masks(8, 4, 128, 256, 4, 0.25, device="cpu")
     assert not torch.equal(attn, a3)
     # per-(img, head) streams differ
     assert not torch.equal(attn[0, 0], attn[0, 1])
@@ -81,13 +81,13 @@ def test_mask_statistics_and_determinism():
 def test_masks_do_not_depend_on_the_batch():
     """An image's masks are a function of (seed, img, head) alone: a b=3
     call gives the leading images of a b=5 call."""
-    a3, o3 = port.dropout_masks(11, 3, 50, 64, 2, 0.1)
-    a5, o5 = port.dropout_masks(11, 5, 50, 64, 2, 0.1)
+    a3, o3 = port.dropout_masks(11, 3, 50, 64, 2, 0.1, device="cpu")
+    a5, o5 = port.dropout_masks(11, 5, 50, 64, 2, 0.1, device="cpu")
     assert torch.equal(a3, a5[:3]) and torch.equal(o3, o5[:3])
 
 
 def test_rate_zero_keeps_everything_and_rate_edges():
-    attn, out = port.dropout_masks(3, 2, 10, 8, 2, 0.0)
+    attn, out = port.dropout_masks(3, 2, 10, 8, 2, 0.0, device="cpu")
     assert bool(attn.all()) and bool(out.all())
     assert port._dropout_args("x", 0.0, None) == (0, 0, 0, 1.0)
     assert port._dropout_args("x", 0.5, -1) == (1, 0xFFFFFFFF, 2**31, 2.0)
@@ -109,6 +109,6 @@ def test_twin_masks_apply_where_they_say():
     rate, seed = 0.3, 9
     got = port.attention_rows_reference(qkv, heads=heads, dim_head=dh, scale=dh**-0.5, dropout_rate=rate, seed=seed)
     p = port.attention_rows_reference(qkv, heads=heads, dim_head=dh, scale=dh**-0.5)
-    keep = port.dropout_masks(seed, b, n, dh, heads, rate)[0][:, 0].bool()
+    keep = port.dropout_masks(seed, b, n, dh, heads, rate, device="cpu")[0][:, 0].bool()
     want = torch.where(keep, p, 0.0) / (1 - rate)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)

@@ -11,6 +11,10 @@ runs its plain twins.
   ``jax.grad``: the JAX kernel's own masks come from the TPU PRNG, which has
   no interpret lowering (fused_block.py:2209-2215).
 
+With qk-norm (``gamma_q``/``gamma_k``, module-shaped (H, 1, D)) the same two
+comparisons hold every gradient, dgamma_q and dgamma_k included, as
+tests/test_fused_qknorm.py:40-110 holds the JAX kernel.
+
 Tolerance atol 5e-5 (the JAX package's fp32 parity bar) and rtol 1e-4: both
 sides compute in fp32 and differ in summation order and exp vs exp2."""
 
@@ -39,13 +43,15 @@ def _arrays(seed=0):
         w_qkv=f(DIM, 3 * DIM, scale=0.05), b_qkv=f(3 * DIM, scale=0.05),
         w_out=f(DIM, DIM, scale=0.05), b_out=f(DIM, scale=0.05),
         ln_s=1.0 + f(DIM, scale=0.1), ln_b=f(DIM, scale=0.1),
+        # module-shaped (heads, 1, dim_head) qk-norm gammas, non-trivial values
+        gq=1.0 + f(H, 1, D, scale=0.2), gk=1.0 + f(H, 1, D, scale=0.2),
     )
 
 
-def _names(residual, qkv_bias, out_bias):
-    return [n for n in ("x", "res", "w_qkv", "w_out", "ln_s", "ln_b", "b_qkv", "b_out")
+def _names(residual, qkv_bias, out_bias, qk_norm=False):
+    return [n for n in ("x", "res", "w_qkv", "w_out", "ln_s", "ln_b", "b_qkv", "b_out", "gq", "gk")
             if not ((n == "res" and residual != "other") or (n == "b_qkv" and not qkv_bias)
-                    or (n == "b_out" and not out_bias))]
+                    or (n == "b_out" and not out_bias) or (n in ("gq", "gk") and not qk_norm))]
 
 
 def _port(a, names, residual, **kw):
@@ -55,7 +61,8 @@ def _port(a, names, residual, **kw):
     res = leaves["x"] if residual == "x" else leaves.get("res")
     out = port.fused_attention_block(
         leaves["x"], res, leaves["w_qkv"], leaves["w_out"], leaves["ln_s"], leaves["ln_b"], heads=H, dim_head=D,
-        b_qkv=leaves.get("b_qkv"), b_out=leaves.get("b_out"), **kw,
+        b_qkv=leaves.get("b_qkv"), b_out=leaves.get("b_out"), gamma_q=leaves.get("gq"), gamma_k=leaves.get("gk"),
+        **kw,
     )
     assert type(out.grad_fn).__name__ == "_FusedAttentionBlockBackward"
     grads = torch.autograd.grad((out**2).sum(), [leaves[n] for n in names])
@@ -72,32 +79,56 @@ def _check(names, got, want):
 CASES = [("x", True, True), ("other", False, True), (None, True, False), ("x", False, False)]
 
 
-@pytest.mark.parametrize("residual,qkv_bias,out_bias", CASES)
-def test_block_matches_jax_kernel_at_rate_0(residual, qkv_bias, out_bias):
-    """Residual x (the Transformer's call: the LayerNorm backward adds g),
-    another tensor, or none; with and without the biases."""
-    a = _arrays()
-    names = _names(residual, qkv_bias, out_bias)
+def _jax_kernel_grads(a, names, residual):
+    """Output and gradients of sum(out^2) through the JAX block in interpret
+    mode (its Pallas ``_kernel`` and ``_bwd_kernel``)."""
 
     def jax_loss(*values):
         v = dict(zip(names, values))
         res = v["x"] if residual == "x" else v.get("res")
         out = jax_fb.fused_attention_block(
             v["x"], res, v["w_qkv"], v["w_out"], v["ln_s"], v["ln_b"], heads=H, dim_head=D,
-            b_qkv=v.get("b_qkv"), b_out=v.get("b_out"), interpret=True,
+            b_qkv=v.get("b_qkv"), b_out=v.get("b_out"), gamma_q=v.get("gq"), gamma_k=v.get("gk"), interpret=True,
         )
         return jnp.sum(out**2), out
 
     grads, out = jax.grad(jax_loss, argnums=tuple(range(len(names))), has_aux=True)(
         *(jnp.asarray(a[n]) for n in names))
+    return out, grads
+
+
+@pytest.mark.parametrize("residual,qkv_bias,out_bias", CASES)
+def test_block_matches_jax_kernel_at_rate_0(residual, qkv_bias, out_bias):
+    """Residual x (the Transformer's call: the LayerNorm backward adds g),
+    another tensor, or none; with and without the biases."""
+    a = _arrays()
+    names = _names(residual, qkv_bias, out_bias)
     port.reset_launch_counts()
-    _check(names, _port(a, names, residual), (out, grads))
+    _check(names, _port(a, names, residual), _jax_kernel_grads(a, names, residual))
     assert not any(port.LAUNCHES.values())
 
 
-def _ref_with_masks(x, residual, w_qkv, b_qkv, w_out, b_out, lns, lnb, akeep, okeep):
+@pytest.mark.parametrize("residual,qkv_bias,out_bias", CASES)
+def test_qk_norm_block_matches_jax_kernel(residual, qkv_bias, out_bias):
+    """The qk-norm block (scale 1 by default) against the JAX kernels with
+    the same gammas: the output and every gradient, dgamma_q and dgamma_k
+    in the gammas' (H, 1, D) shape included.  (None, False, False) is
+    SimpleViT-qk-norm's call (bias-free out projection, residual added
+    outside)."""
+    a = _arrays(seed=3)
+    names = _names(residual, qkv_bias, out_bias, qk_norm=True)
+    port.reset_launch_counts()
+    got = _port(a, names, residual)
+    assert [g.shape for n, g in zip(names, got[1]) if n in ("gq", "gk")] == [(H, 1, D)] * 2
+    _check(names, got, _jax_kernel_grads(a, names, residual))
+    assert not any(port.LAUNCHES.values())
+
+
+def _ref_with_masks(x, residual, w_qkv, b_qkv, w_out, b_out, lns, lnb, akeep, okeep, gq=None, gk=None):
     """XLA composite of ``_kernel``'s function with the masks injected (after
-    tests/test_fused_dropout.py:84-114, in fp32, with both biases)."""
+    tests/test_fused_dropout.py:84-114, in fp32, with both biases); with the
+    gammas the qk-norm of ``_xla_reference`` (fused_block.py:400-411) and
+    scale 1."""
     b, n, dim = x.shape
     inv = 1.0 / (1.0 - RATE)
     mu = x.mean(-1, keepdims=True)
@@ -109,7 +140,11 @@ def _ref_with_masks(x, residual, w_qkv, b_qkv, w_out, b_out, lns, lnb, akeep, ok
     q, k, v = jnp.split(qkv, 3, axis=-1)
     rs = lambda t: t.reshape(b, n, H, D).transpose(0, 2, 1, 3)
     q, k, v = rs(q), rs(k), rs(v)
-    dots = jnp.einsum("bhnd,bhmd->bhnm", q, k) * D**-0.5
+    scale = D**-0.5
+    if gq is not None:
+        rms = lambda t, g: t * jax.lax.rsqrt(jnp.sum(t * t, -1, keepdims=True) + 1e-12) * g.reshape(1, H, 1, D) * D**0.5
+        q, k, scale = rms(q, gq), rms(k, gk), 1.0
+    dots = jnp.einsum("bhnd,bhmd->bhnm", q, k) * scale
     p = jax.nn.softmax(dots, axis=-1)
     p = jnp.where(akeep, p, 0.0) * inv
     o = jnp.einsum("bhnm,bhmd->bhnd", p, v).transpose(0, 2, 1, 3).reshape(b, n, H * D)
@@ -122,15 +157,25 @@ def _ref_with_masks(x, residual, w_qkv, b_qkv, w_out, b_out, lns, lnb, akeep, ok
 
 @pytest.mark.parametrize("residual,qkv_bias,out_bias", CASES)
 def test_block_with_dropout_matches_jax_composite_with_the_port_masks(residual, qkv_bias, out_bias):
-    a = _arrays(seed=1)
-    names = _names(residual, qkv_bias, out_bias)
-    akeep, okeep = (jnp.asarray(m.numpy().astype(bool)) for m in port.dropout_masks(SEED, B, N, DIM, H, RATE))
+    _check_dropout(_arrays(seed=1), _names(residual, qkv_bias, out_bias), residual)
+
+
+@pytest.mark.parametrize("residual,qkv_bias,out_bias", CASES)
+def test_qk_norm_block_with_dropout_matches_jax_composite_with_the_port_masks(residual, qkv_bias, out_bias):
+    """qk-norm and dropout 0.1 together (the JAX kernels compose them, round
+    4): every gradient, the gammas' included."""
+    _check_dropout(_arrays(seed=4), _names(residual, qkv_bias, out_bias, qk_norm=True), residual)
+
+
+def _check_dropout(a, names, residual):
+    akeep, okeep = (jnp.asarray(m.numpy().astype(bool))
+                    for m in port.dropout_masks(SEED, B, N, DIM, H, RATE, device="cpu"))
 
     def jax_loss(*values):
         v = dict(zip(names, values))
         res = v["x"] if residual == "x" else v.get("res")
         out = _ref_with_masks(v["x"], res, v["w_qkv"], v.get("b_qkv"), v["w_out"], v.get("b_out"), v["ln_s"],
-                              v["ln_b"], akeep, okeep)
+                              v["ln_b"], akeep, okeep, v.get("gq"), v.get("gk"))
         return jnp.sum(out**2), out
 
     grads, out = jax.grad(jax_loss, argnums=tuple(range(len(names))), has_aux=True)(
@@ -161,10 +206,15 @@ def test_dropout_requires_seed():
 
 
 def test_qk_norm_is_refused_until_its_slice():
+    """The qk-norm slice is ported: with gammas the block no longer raises on
+    the CPU (its twins run) and returns the block's output; one gamma alone
+    is still refused."""
     x, w_qkv, w_out, s, b = _zeros()
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        port.fused_attention_block(x, None, w_qkv, w_out, s, b, heads=1, dim_head=64,
-                                   gamma_q=torch.ones(1, 64), gamma_k=torch.ones(1, 64))
+    g = torch.ones(1, 64)
+    out = port.fused_attention_block(x, None, w_qkv, w_out, s, b, heads=1, dim_head=64, gamma_q=g, gamma_k=g)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="together"):
+        port.fused_attention_block(x, None, w_qkv, w_out, s, b, heads=1, dim_head=64, gamma_q=g)
 
 
 def test_block_refuses_shapes_the_kernels_cannot_take():

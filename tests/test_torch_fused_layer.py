@@ -61,7 +61,7 @@ def test_port_layer_matches_jax_kernel(qkv_bias):
     pos, kw = _port_args(a)
     got = port.fused_transformer_layer(*pos, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
-    assert not any(port.LAUNCHES.values())
+    assert not any(port.LAUNCHES.values()) and not any(port.GEMM_LAUNCHES.values())
 
 
 def test_cpu_wrappers_are_their_plain_twins():

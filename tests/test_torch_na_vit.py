@@ -59,7 +59,7 @@ def _packs(train=False, seed=1):
     training, from the same numpy seed), 4 query slots a pack."""
     kw = dict(max_seq_len=SEQ, token_dropout_prob=0.25 if train else None, train=train, max_images=4)
     return (jax_pack_images(_images(), 16, rng=np.random.default_rng(seed), **kw),
-            pack_images(_images(), 16, rng=np.random.default_rng(seed), **kw))
+            pack_images(_images(), 16, rng=np.random.default_rng(seed), device="cpu", **kw))
 
 
 def _setup(name, **model_kw):
@@ -67,7 +67,7 @@ def _setup(name, **model_kw):
     jpacked, _ = _packs()
     jmodel = jax_cls(**KW, **model_kw)
     params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0), jpacked)["params"])
-    model = port_cls(**KW, **model_kw)
+    model = port_cls(**KW, **model_kw, device="cpu")
     model.load_state_dict(to_torch(params), strict=True)
     return jmodel, params, model
 
@@ -176,7 +176,7 @@ def test_train_step_matches_jax():
 
 def test_packed_input_refuses_grad_accum():
     _, packed = _packs()
-    model = na_vit.NaViT(**KW)
+    model = na_vit.NaViT(**KW, device="cpu")
     step = port_train.make_train_step(model, masked_ce, grad_accum=2)
     with pytest.raises(ValueError, match="PackedImages"):
         step(port_train.create_train_state(model), packed, torch.zeros(packed.image_ids.shape[0], 4).long())
@@ -218,7 +218,7 @@ def test_state_dict_maps_cover_every_parameter():
         _, params, model = _setup(name)
         sd = MODELS[name][2](params)
         assert set(sd) == set(model.state_dict())
-    keys = set(na_vit.NaViT(**KW).state_dict())
+    keys = set(na_vit.NaViT(**KW, device="cpu").state_dict())
     assert {"transformer.layers.0.0.to_qkv.weight", "attn_pool.to_q.weight", "attn_pool.to_kv.weight",
             "transformer.layers.1.0.q_norm.gamma", "attn_pool.k_norm.gamma"} <= keys
     assert not any(k.endswith("norm.bias") or k == "mlp_head.bias" for k in keys)  # bias-free
@@ -242,13 +242,22 @@ def test_block_predicates(monkeypatch):
 
 
 def test_qk_norm_without_segments_names_its_slice(monkeypatch):
-    """The one case the JAX package fuses and the port cannot yet:
-    qk-norm self-attention with no segments or context (SimpleViT with
-    qk-norm) takes the attention-block kernels, which raise for qk-norm."""
+    """The case the JAX package fuses and the port could not before its
+    qk-norm slice: qk-norm self-attention with no segments or context
+    (SimpleViT with qk-norm) takes the attention-block kernels (their twins
+    on the CPU), which now run the qk-norm and agree with the module
+    composite within 5e-5; with segments the call keeps the flash route."""
     monkeypatch.setattr(torch_blocks, "on_cuda", lambda x: True)
     monkeypatch.setattr(torch_blocks, "fused_block_supported", lambda *a, **k: True)
+    block, calls = torch_blocks.fused_attention_block, []
+    monkeypatch.setattr(torch_blocks, "fused_attention_block", lambda *a, **k: calls.append(1) or block(*a, **k))
     layer = torch_blocks.Transformer(64, 1, 4, 16, 128, qk_norm=True)
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        layer(torch.zeros(1, 5, 64))
+    x = torch.randn(1, 5, 64, generator=torch.Generator().manual_seed(0))
+    fused = layer(x)
+    assert calls == [1]
+    for attn, _ in layer.layers:
+        attn.flash = False  # the module composite
+    torch.testing.assert_close(fused, layer(x), atol=ATOL, rtol=RTOL)
+    assert calls == [1]
     segs = torch.zeros(1, 5, dtype=torch.int32)
     assert layer(torch.zeros(1, 5, 64), q_segment_ids=segs, kv_segment_ids=segs).shape == (1, 5, 64)

@@ -54,7 +54,7 @@ def test_pack_images_matches_jax(kw):
     """Identical arrays from the same numpy seed; the token dropout draws
     ``rng.permutation`` in the same order on both sides."""
     imgs = _images()
-    got = packing.pack_images(imgs, 16, rng=np.random.default_rng(3), **kw)
+    got = packing.pack_images(imgs, 16, rng=np.random.default_rng(3), device="cpu", **kw)
     want = jax_packing.pack_images(imgs, 16, rng=np.random.default_rng(3), **kw)
     _assert_same(got, want)
 
@@ -63,7 +63,7 @@ def test_pre_grouped_and_tensor_images():
     """A list of lists is packed as given; torch images pack as numpy ones."""
     imgs = _images()
     groups = [imgs[:2], imgs[2:3], imgs[3:]]
-    got = packing.pack_images([[torch.from_numpy(i) for i in g] for g in groups], 16, max_seq_len=64)
+    got = packing.pack_images([[torch.from_numpy(i) for i in g] for g in groups], 16, max_seq_len=64, device="cpu")
     _assert_same(got, jax_packing.pack_images(groups, 16, max_seq_len=64))
     assert got.patches.shape[0] == 3
 
@@ -81,6 +81,6 @@ def test_dtype_and_device():
 def test_packing_refuses_what_jax_refuses():
     imgs = _images(sizes=[(64, 64)])
     with pytest.raises(AssertionError):
-        packing.pack_images(imgs, 16, max_seq_len=8)  # 16 tokens > 8
+        packing.pack_images(imgs, 16, max_seq_len=8, device="cpu")  # 16 tokens > 8
     with pytest.raises(AssertionError):
-        packing.pack_images(_images(sizes=[(40, 32)]), 16, max_seq_len=32)  # not divisible
+        packing.pack_images(_images(sizes=[(40, 32)]), 16, max_seq_len=32, device="cpu")  # not divisible

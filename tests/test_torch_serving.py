@@ -20,7 +20,7 @@ ATOL, RTOL = 1e-5, 1e-5
 
 @pytest.mark.parametrize("k", [3, 11])
 def test_predictor_pads_and_chunks(k):
-    model = ViT(**KW, generator=torch.Generator().manual_seed(0)).eval()
+    model = ViT(**KW, device="cpu", generator=torch.Generator().manual_seed(0)).eval()
     pred = Predictor(
         model, example_shape=(3, 32, 32), batch_sizes=(2, 4), param_dtype=torch.float32, device="cpu"
     ).warmup()
@@ -34,7 +34,7 @@ def test_predictor_pads_and_chunks(k):
 
 
 def test_predictor_rejects_wrong_example_shape():
-    pred = Predictor(ViT(**KW), example_shape=(3, 32, 32), batch_sizes=(2,), param_dtype=torch.float32, device="cpu")
+    pred = Predictor(ViT(**KW, device="cpu"), example_shape=(3, 32, 32), batch_sizes=(2,), param_dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="expected"):
         pred(torch.zeros(1, 3, 16, 16))
 

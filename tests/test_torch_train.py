@@ -41,7 +41,7 @@ def _setup(batch=4, **model_kw):
     labels = rng.integers(0, KW["num_classes"], batch).astype(np.int32)
     jmodel = JaxViT(**KW, **model_kw)
     params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))["params"])
-    model = ViT(**KW, **model_kw)
+    model = ViT(**KW, **model_kw, device="cpu")
     model.load_state_dict(vit_state_dict_from_jax(params))
     return jmodel, params, model, img, labels
 
@@ -133,7 +133,7 @@ def test_vit_options_match_default(option):
     logits and gradients of the default model exactly (on the CPU both run
     the composite; remat replays the same operations)."""
     _, params, model, img, labels = _setup()
-    other = ViT(**KW, **({"remat": True} if option == "remat" else {"flash": False}))
+    other = ViT(**KW, **({"remat": True} if option == "remat" else {"flash": False}), device="cpu")
     other.load_state_dict(vit_state_dict_from_jax(params))
     assert other.transformer.remat == (option == "remat")
     outs = []

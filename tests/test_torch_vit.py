@@ -29,7 +29,7 @@ def _jax_and_port(pool):
     img = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(np.float32)
     variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))
     params = jax.tree.map(np.asarray, variables["params"])
-    port = ViT(**KW, pool=pool).eval()
+    port = ViT(**KW, pool=pool, device="cpu").eval()
     port.load_state_dict(vit_state_dict_from_jax(params))
     return jmodel, variables, params, port, img
 
@@ -57,7 +57,7 @@ def test_state_dict_round_trip_is_exact(pool):
 
 
 def test_num_classes_zero_returns_tokens():
-    port = ViT(**{**KW, "num_classes": 0}).eval()
+    port = ViT(**{**KW, "num_classes": 0}, device="cpu").eval()
     with torch.no_grad():
         out = port(torch.zeros(2, 3, 32, 32))
     assert out.shape == (2, 17, 64)

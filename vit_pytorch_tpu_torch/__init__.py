@@ -8,11 +8,14 @@ first use into ``build/``).  No JAX import anywhere in the package.
 
 Ported so far: the ViT serving path (``models.vit.ViT``,
 ``serving.Predictor``) and its training step (``parallel.train``), with the
-whole-layer kernels forward and backward.
+whole-layer kernels forward and backward; SimpleViT (``models.simple_vit``,
+with qk-norm and register tokens beside it) on the attention-block kernels;
+NaViT (``models.na_vit``) on the flash kernels.
 """
 
+from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT
 from vit_pytorch_tpu_torch.models.vit import ViT
 
-__all__ = ["ViT"]
+__all__ = ["SimpleViT", "ViT"]
 
 __version__ = "0.1.0"

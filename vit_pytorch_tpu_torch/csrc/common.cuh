@@ -216,6 +216,117 @@ __device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_
   }
 }
 
+// qk-norm: the per-head RMSNorm of _kernel (:323-338) and _bwd_kernel
+// (:614-627), reference na_vit.py:93-103.  Each 64-wide q or k row x becomes
+//   bf16((x * rsqrt(sum(x^2) + 1e-12)) * (gamma * sqrt(64)))
+// with the statistic in f32 (a sum, not a mean) and both products in f32.
+constexpr float kRmsEps = 1e-12f;
+constexpr float kRmsRoot = 8.0f;  // sqrt(kAttnDh)
+
+__device__ __forceinline__ void unpack8(float f[8], uint4 u) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x, f[2 * i + 1] = v.y;
+  }
+}
+
+// Normalise ROWS rows (64 bf16 each, leading dimension kAttnLd) of shared
+// memory in place.  All kAttnThreads threads, 8 to a row, each one 16-byte
+// chunk; the row's sum of squares is reduced over its 8 lanes by shuffles,
+// so ROWS * 8 is a multiple of the block and every lane takes part.  gamma:
+// the head's 64 gammas (bf16, device memory).  With raw, each row's input is
+// copied there first; with r, its rsqrt is stored there (the backward's
+// closing of the norm needs both).
+template <int ROWS>
+__device__ __forceinline__ void rms_norm_rows(bf16* rows, const bf16* __restrict__ gamma, bf16* raw, float* r) {
+  static_assert((ROWS * 8) % kAttnThreads == 0, "8 lanes a row, every lane busy");
+  const int c = (threadIdx.x & 7) * 8;
+  float g8[8];
+  unpack8(g8, *reinterpret_cast<const uint4*>(gamma + c));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) g8[i] *= kRmsRoot;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * 8; i += kAttnThreads) {
+    const int row = i >> 3;
+    bf16* p = rows + row * kAttnLd + c;
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    if (raw) *reinterpret_cast<uint4*>(raw + row * kAttnLd + c) = u;
+    float f[8];
+    unpack8(f, u);
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+    const float rr = rsqrtf(ss + kRmsEps);
+    if (r && c == 0) r[row] = rr;
+    uint4 o;
+    uint32_t* po = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) po[j] = pack_floats(f[2 * j] * rr * g8[2 * j], f[2 * j + 1] * rr * g8[2 * j + 1]);
+    *reinterpret_cast<uint4*>(p) = o;
+  }
+}
+
+// The norm's backward (_bwd_kernel :665-673) on one warp's 16 rows of f32
+// gradients d of the normed rows, in the accumulator layout (rows g, g + 8;
+// columns 8dj + 2t, +1).  With xhat = raw * r (f32, as the forward computed
+// it) and g8 = gamma * sqrt(64):
+//   colsum[c] = sum over the warp's rows of d * xhat      (dgamma / sqrt(64))
+//   d        <- r * (d*g8 - xhat * sum_c(d*g8 * xhat))
+// raw_rows: the warp's 16 raw rows in shared memory (ld kAttnLd), r_rows
+// their rsqrt, colsum the warp's 64 floats of shared memory.
+template <int DT>
+__device__ __forceinline__ void rms_norm_bwd_rows(float (&d)[DT][4], const bf16* raw_rows, const float* r_rows,
+                                                  const bf16* __restrict__ gamma, float* colsum, int g, int t) {
+  const float r0 = r_rows[g], r1 = r_rows[g + 8];
+  const bf16* raw0 = raw_rows + g * kAttnLd + 2 * t;
+  const bf16* raw1 = raw0 + 8 * kAttnLd;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw0 + dj * 8));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw1 + dj * 8));
+    const float2 gg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gamma + dj * 8 + 2 * t));
+    const float x0 = a.x * r0, y0 = a.y * r0, x1 = b.x * r1, y1 = b.y * r1;
+    float px = d[dj][0] * x0 + d[dj][2] * x1, py = d[dj][1] * y0 + d[dj][3] * y1;
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {  // over g: the lanes of one t
+      px += __shfl_xor_sync(0xffffffffu, px, o);
+      py += __shfl_xor_sync(0xffffffffu, py, o);
+    }
+    if (g == 0) colsum[dj * 8 + 2 * t] = px, colsum[dj * 8 + 2 * t + 1] = py;
+    d[dj][0] *= gg.x * kRmsRoot, d[dj][1] *= gg.y * kRmsRoot;
+    d[dj][2] *= gg.x * kRmsRoot, d[dj][3] *= gg.y * kRmsRoot;
+    s0 += d[dj][0] * x0 + d[dj][1] * y0;
+    s1 += d[dj][2] * x1 + d[dj][3] * y1;
+  }
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw0 + dj * 8));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw1 + dj * 8));
+    d[dj][0] = r0 * (d[dj][0] - a.x * r0 * s0);
+    d[dj][1] = r0 * (d[dj][1] - a.y * r0 * s0);
+    d[dj][2] = r1 * (d[dj][2] - b.x * r1 * s1);
+    d[dj][3] = r1 * (d[dj][3] - b.y * r1 * s1);
+  }
+}
+
+// The block's dgamma partial of one head: the 4 warps' column sums (4 x 64
+// floats of shared memory) added in warp order by threads 0..63, into
+// out[0..63] (device memory).  After a __syncthreads.
+__device__ __forceinline__ void store_colsum(float* __restrict__ out, const float* colsum) {
+  if (threadIdx.x < kAttnDh) {
+    const float* c = colsum + threadIdx.x;
+    out[threadIdx.x] = ((c[0] + c[kAttnDh]) + c[2 * kAttnDh]) + c[3 * kAttnDh];
+  }
+}
+
 // One warp's logits for its 16 rows q_rows (shared memory, ld kAttnLd)
 // against the NT * 8 rows k_rows: s[j] holds rows (g, g+8) x keys
 // (8j + 2t, 8j + 2t + 1), f32.

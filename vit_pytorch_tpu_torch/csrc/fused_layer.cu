@@ -23,10 +23,12 @@
 // cast to bf16 first and their bias and residual adds round to bf16 each.
 //
 // The attention-block kernel _kernel (fused_block.py:260), which the JAX
-// package runs where the whole layer is refused (training with dropout),
-// runs here as layernorm_rows -> gemm_bf16<QKV> -> attention_rows<DROP>
-// (dropout on P) -> gemm_bf16<BLOCK_OUT> (bias, output dropout and residual
-// in f32, one cast), the dropout drawn in-kernel from common.cuh's Philox.
+// package runs where the whole layer is refused (training with dropout,
+// qk-norm, SimpleViT's layers), runs here as layernorm_rows ->
+// gemm_bf16<QKV> -> attention_rows<DROP, QKNORM> (qk-norm of the q and k
+// tiles, dropout on P) -> gemm_bf16<BLOCK_OUT> (bias, output dropout and
+// residual in f32, one cast), the dropout drawn in-kernel from common.cuh's
+// Philox.
 //
 // Built by ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC
@@ -404,10 +406,17 @@ constexpr int kAttnDropSmem = kAttnSmem + kAttnQT * kKeepWords * static_cast<int
 // is where(keep, p, 0) * 1/(1 - rate) before its bf16 cast, keep from the
 // (seed, img, head) stream.  The block draws its 64 x n keep bits once into
 // shared memory (fill_keep_tile) before the logits take the registers.
-template <bool DROP>
+// QKNORM: the qk-norm of _kernel (:323-338).  Bound on this card: the norm
+// reads and writes the q and k tiles once more in shared memory, ~10 flops
+// an element against the logits' 2*n, so the bound is the attention's.
+// Design: after the tile loads, the block rewrites its 64 q rows and every
+// k row in shared memory as bf16(x * rsqrt(sum x^2 + 1e-12) * gamma * 8)
+// (rms_norm_rows, common.cuh); the logits then read them as before.  Every
+// q-tile block normalises its head's k rows again, as it reloads them.
+template <bool DROP, bool QKNORM>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads, float scale_log2e,
-                      DropoutArgs drop) {
+                      DropoutArgs drop, const bf16* __restrict__ gq, const bf16* __restrict__ gk) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // keys, padded
   constexpr int NT = 2 * KT;   // 8-key logit tiles
@@ -427,6 +436,11 @@ attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n);
   if constexpr (DROP) fill_keep_tile<kAttnQT, kKeepWords>(Keep, drop, dropout_stream(img, h), q0, 0, n, n);
   __syncthreads();
+  if constexpr (QKNORM) {
+    rms_norm_rows<kAttnQT>(Qs, gq + h * kAttnDh, nullptr, nullptr);
+    rms_norm_rows<NP>(Ks, gk + h * kAttnDh, nullptr, nullptr);
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float s[NT][4];  // logits, then p in f32
@@ -510,19 +524,24 @@ int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* re
   }
 }
 
-// drop = 0: no dropout (seed, threshold, inv unread)
+// drop = 0: no dropout (seed, threshold, inv unread); gq, gk: the qk-norm
+// gammas, (heads * dim_head) bf16 each, or both null (no qk-norm)
 int vit_attention_rows(const void* qkv, void* out, int batch, int n, int heads, int dim_head, float scale_log2e,
-                       int drop, unsigned seed, unsigned threshold, float inv, void* stream) {
-  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0)
+                       int drop, unsigned seed, unsigned threshold, float inv, const void* gq, const void* gk,
+                       void* stream) {
+  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0 ||
+      (gq == nullptr) != (gk == nullptr))
     return cudaErrorInvalidValue;
-  const auto kernel = drop ? attention_rows_kernel<true> : attention_rows_kernel<false>;
+  const bool qk = gq != nullptr;
+  const auto kernel = drop ? (qk ? attention_rows_kernel<true, true> : attention_rows_kernel<true, false>)
+                           : (qk ? attention_rows_kernel<false, true> : attention_rows_kernel<false, false>);
   const int smem = drop ? kAttnDropSmem : kAttnSmem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
   kernel<<<grid, kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale_log2e,
-      DropoutArgs{seed, threshold, inv});
+      DropoutArgs{seed, threshold, inv}, static_cast<const bf16*>(gq), static_cast<const bf16*>(gk));
   return cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 // ViT layer.
 //
 // They replace the TPU kernel vit_pytorch_tpu/ops/fused_block.py::_bwd_kernel
-// (:524, called at :786 by _pallas_backward) without qk-norm; its dropout
-// replay is the DROP variant of attention_bwd_rows and, for gm, dropout.cu.
+// (:524, called at :786 by _pallas_backward); its dropout replay is the DROP
+// variant of attention_bwd_rows and, for gm, dropout.cu; its qk-norm (the
+// norm's recompute and backward, the dgamma_q/dgamma_k accumulators) the
+// QKNORM variant.
 // That kernel runs one image per sequential grid step with both weight
 // matrices resident in VMEM: it recomputes LN1 and qkv, forms dm = dy.Wout^T,
 // runs the per-head attention backward with the logits in VMEM, forms
@@ -73,6 +75,32 @@ constexpr int kBwdKeySmem = kBwdRowSmem + 16 * kAttnKT * static_cast<int>(sizeof
 constexpr int kBwdRowDropSmem = kBwdRowSmem + kAttnQT * kKeepWords * static_cast<int>(sizeof(uint32_t));
 constexpr int kBwdKeyKeepWords = kAttnQT / 32;
 constexpr int kBwdKeyDropSmem = kBwdKeySmem + 16 * kAttnKT * kBwdKeyKeepWords * static_cast<int>(sizeof(uint32_t));
+// with qk-norm, after those: the block's 64 rows of raw q (row pass) or raw
+// k (key pass), their rsqrt, and the 4 warps' dgamma column sums
+constexpr int kBwdQkNormSmem = kAttnQT * kAttnLd * static_cast<int>(sizeof(bf16)) +
+                               (kAttnQT + 4 * kAttnDh) * static_cast<int>(sizeof(float));
+
+// QKNORM: the qk-norm of _bwd_kernel (:614-627, 665-688).  Each pass
+// normalises the q and k rows it loaded, in shared memory, as the forward
+// does (rms_norm_rows), keeping a raw copy and the rsqrt of the rows it owns
+// (the row pass its 64 queries, the key pass its 64 keys).  The logits, dq
+// and dk then take the normed rows, as in the JAX kernel; the f32 dq (dk) of
+// a full row, times scale, is the cotangent of the normed row, and
+// rms_norm_bwd_rows closes the norm on it: the row's dgamma terms d * xhat
+// and d <- r (d g8 - xhat <d g8, xhat>).  On the TPU dgamma_q/dgamma_k
+// accumulate across the sequential grid; here each block adds its rows'
+// terms per column, in a fixed order, into its row of a (blocks, 2, inner)
+// f32 scratch buffer (q in the first half, k in the second), and
+// layernorm_bwd_sum_kernel adds the blocks in a fixed order and applies the
+// sqrt(64) factor: the result does not depend on block scheduling.  Bound:
+// the norm adds a few passes over 64-element rows of shared memory and a
+// 2 * inner * 4-byte partial per block, next to the attention's 12 n dh
+// flops a row.
+__device__ __forceinline__ void qknorm_smem(unsigned char* base, bf16*& raw, float*& r, float*& colsum) {
+  raw = reinterpret_cast<bf16*>(base);
+  r = reinterpret_cast<float*>(raw + kAttnQT * kAttnLd);
+  colsum = r + kAttnQT;
+}
 
 // DROP: the dropout replay of _bwd_kernel (:634-656).  The keep mask of the
 // forward's (seed, img, head) stream is drawn again, into shared memory as
@@ -80,11 +108,12 @@ constexpr int kBwdKeyDropSmem = kBwdKeySmem + 16 * kAttnKT * kBwdKeyKeepWords * 
 // bf16(pd), dp is masked and scaled the same way, and
 // ds = p * (dp - rowsum(dp * p)) takes the unmasked f32 p.  The row pass's D
 // is that rowsum.
-template <bool DROP>
+template <bool DROP, bool QKNORM>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm, bf16* __restrict__ m_out,
                          bf16* __restrict__ dqkv, float4* __restrict__ stats, int n, int heads, float scale_log2e,
-                         float scale, DropoutArgs drop) {
+                         float scale, DropoutArgs drop, const bf16* __restrict__ gq, const bf16* __restrict__ gk,
+                         float* __restrict__ dg_partial) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // keys, padded
   constexpr int NT = 2 * KT;   // 8-key logit tiles
@@ -107,6 +136,14 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n);
   if constexpr (DROP) fill_keep_tile<kAttnQT, kKeepWords>(Keep, drop, dropout_stream(img, h), q0, 0, n, n);
   __syncthreads();
+  bf16* Raw = nullptr;  // QKNORM: the block's raw q rows, their rsqrt, dgamma_q column sums
+  float *Rr = nullptr, *Col = nullptr;
+  if constexpr (QKNORM) {
+    qknorm_smem(bwd_row_smem + (DROP ? kBwdRowDropSmem : kBwdRowSmem), Raw, Rr, Col);
+    rms_norm_rows<kAttnQT>(Qs, gq + h * kAttnDh, Raw, Rr);
+    rms_norm_rows<NP>(Ks, gk + h * kAttnDh, nullptr, nullptr);
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
@@ -209,24 +246,33 @@ attention_bwd_row_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   }
 #pragma unroll
   for (int dj = 0; dj < DT; ++dj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[dj][e] *= scale;
+  }
+  if constexpr (QKNORM) rms_norm_bwd_rows(dq, Raw + wrow * kAttnLd, Rr + wrow, gq + h * kAttnDh, Col + warp * kAttnDh, g, t);
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) {
     const int col = h * kAttnDh + dj * 8 + 2 * t;
-    if (row0 < n)
-      *reinterpret_cast<uint32_t*>(dqkv + orow0 * rstride + col) = pack_floats(dq[dj][0] * scale, dq[dj][1] * scale);
-    if (row1 < n)
-      *reinterpret_cast<uint32_t*>(dqkv + orow1 * rstride + col) = pack_floats(dq[dj][2] * scale, dq[dj][3] * scale);
+    if (row0 < n) *reinterpret_cast<uint32_t*>(dqkv + orow0 * rstride + col) = pack_floats(dq[dj][0], dq[dj][1]);
+    if (row1 < n) *reinterpret_cast<uint32_t*>(dqkv + orow1 * rstride + col) = pack_floats(dq[dj][2], dq[dj][3]);
   }
   if (t == 0) {
     float4* st = stats + (static_cast<size_t>(img) * heads + h) * n;
     if (row0 < n) st[row0] = make_float4(mx0, inv0, d0, 0.f);
     if (row1 < n) st[row1] = make_float4(mx1, inv1, d1, 0.f);
   }
+  if constexpr (QKNORM) {
+    __syncthreads();
+    store_colsum(dg_partial + (static_cast<size_t>(img) * gridDim.x + blockIdx.x) * 2 * inner + h * kAttnDh, Col);
+  }
 }
 
-template <bool DROP>
+template <bool DROP, bool QKNORM>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dm, bf16* __restrict__ dqkv,
                          const float4* __restrict__ stats, int n, int heads, float scale_log2e, float scale,
-                         DropoutArgs drop) {
+                         DropoutArgs drop, const bf16* __restrict__ gq, const bf16* __restrict__ gk,
+                         float* __restrict__ dg_partial) {
   constexpr int KT = kAttnKT;
   constexpr int NP = 16 * KT;  // queries, padded
   constexpr int DK = kAttnDh / 16;
@@ -253,6 +299,14 @@ attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   // walked by key: rows are every query, columns this block's 64 keys
   if constexpr (DROP) fill_keep_tile<NP, kBwdKeyKeepWords>(Keep, drop, dropout_stream(img, h), 0, k0, n, n);
   __syncthreads();
+  bf16* Raw = nullptr;  // QKNORM: the block's raw k rows, their rsqrt, dgamma_k column sums
+  float *Rr = nullptr, *Col = nullptr;
+  if constexpr (QKNORM) {
+    qknorm_smem(bwd_key_smem + (DROP ? kBwdKeyDropSmem : kBwdKeySmem), Raw, Rr, Col);
+    rms_norm_rows<kAttnQT>(Ks, gk + h * kAttnDh, Raw, Rr);
+    rms_norm_rows<NP>(Qs, gq + h * kAttnDh, nullptr, nullptr);
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
@@ -327,19 +381,30 @@ attention_bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
     }
   }
 
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dj][e] *= scale;
+  }
+  if constexpr (QKNORM) rms_norm_bwd_rows(dk, Raw + wrow * kAttnLd, Rr + wrow, gk + h * kAttnDh, Col + warp * kAttnDh, g, t);
   const int key0 = k0 + wrow + g, key1 = key0 + 8;
   bf16* out0 = dqkv + (static_cast<size_t>(img) * n + key0) * rstride + h * kAttnDh + 2 * t;
   bf16* out1 = out0 + 8 * rstride;
 #pragma unroll
   for (int dj = 0; dj < DT; ++dj) {
     if (key0 < n) {
-      *reinterpret_cast<uint32_t*>(out0 + inner + dj * 8) = pack_floats(dk[dj][0] * scale, dk[dj][1] * scale);
+      *reinterpret_cast<uint32_t*>(out0 + inner + dj * 8) = pack_floats(dk[dj][0], dk[dj][1]);
       *reinterpret_cast<uint32_t*>(out0 + 2 * inner + dj * 8) = pack_floats(dv[dj][0], dv[dj][1]);
     }
     if (key1 < n) {
-      *reinterpret_cast<uint32_t*>(out1 + inner + dj * 8) = pack_floats(dk[dj][2] * scale, dk[dj][3] * scale);
+      *reinterpret_cast<uint32_t*>(out1 + inner + dj * 8) = pack_floats(dk[dj][2], dk[dj][3]);
       *reinterpret_cast<uint32_t*>(out1 + 2 * inner + dj * 8) = pack_floats(dv[dj][2], dv[dj][3]);
     }
+  }
+  if constexpr (QKNORM) {
+    __syncthreads();
+    store_colsum(dg_partial + (static_cast<size_t>(img) * gridDim.x + blockIdx.x) * 2 * inner + inner + h * kAttnDh,
+                 Col);
   }
 }
 
@@ -478,10 +543,13 @@ layernorm_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// sums[c] = sum over b of partial[b][c], in a fixed order: slice s of a
-// block adds rows s, s + 8, ...; the block then adds its 8 slices in order
+// sums[c] = factor * sum over b of partial[b][c], in a fixed order: slice s
+// of a block adds rows s, s + 8, ...; the block then adds its 8 slices in
+// order.  The LayerNorm backward's second pass (factor 1) and the qk-norm
+// dgammas' (factor sqrt(64): gamma enters the norm as gamma * sqrt(dh))
 __global__ void __launch_bounds__(kLnSumCols * kLnSumSlices)
-layernorm_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ sums, int blocks, int width) {
+layernorm_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ sums, int blocks, int width,
+                         float factor) {
   __shared__ float part[kLnSumSlices][kLnSumCols];
   const int col = blockIdx.x * kLnSumCols + (threadIdx.x % kLnSumCols), slice = threadIdx.x / kLnSumCols;
   float s = 0.f;
@@ -493,7 +561,7 @@ layernorm_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ 
     float total = 0.f;
 #pragma unroll
     for (int i = 0; i < kLnSumSlices; ++i) total += part[i][threadIdx.x];
-    sums[col] = total;
+    sums[col] = total * factor;
   }
 }
 
@@ -509,15 +577,24 @@ extern "C" {
 
 // qkv (b, n, 3*inner) and dm (b, n, inner) bf16 -> m (b, n, inner) and
 // dqkv (b, n, 3*inner) bf16; stats (b, heads, n) float4 scratch; drop = 0:
-// no dropout (seed, threshold, inv unread)
+// no dropout (seed, threshold, inv unread).  qk-norm: gq, gk the gammas,
+// (inner) bf16 each, dg_partial a (b * ceil(n / 64), 2, inner) f32 scratch
+// buffer and dg (2, inner) f32 = dgamma_q, dgamma_k; all four null without
 int vit_attention_bwd_rows(const void* qkv, const void* dm, void* m, void* dqkv, void* stats, int batch, int n,
                            int heads, int dim_head, float scale_log2e, float scale, int drop, unsigned seed,
-                           unsigned threshold, float inv, void* stream) {
-  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0)
+                           unsigned threshold, float inv, const void* gq, const void* gk, void* dg_partial, void* dg,
+                           void* stream) {
+  const bool qk = gq != nullptr;
+  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0 ||
+      qk != (gk != nullptr) || qk != (dg_partial != nullptr) || qk != (dg != nullptr))
     return cudaErrorInvalidValue;
-  const auto row_kernel = drop ? attention_bwd_row_kernel<true> : attention_bwd_row_kernel<false>;
-  const auto key_kernel = drop ? attention_bwd_key_kernel<true> : attention_bwd_key_kernel<false>;
-  const int row_smem = drop ? kBwdRowDropSmem : kBwdRowSmem, key_smem = drop ? kBwdKeyDropSmem : kBwdKeySmem;
+  const auto row_kernel = drop ? (qk ? attention_bwd_row_kernel<true, true> : attention_bwd_row_kernel<true, false>)
+                               : (qk ? attention_bwd_row_kernel<false, true> : attention_bwd_row_kernel<false, false>);
+  const auto key_kernel = drop ? (qk ? attention_bwd_key_kernel<true, true> : attention_bwd_key_kernel<true, false>)
+                               : (qk ? attention_bwd_key_kernel<false, true> : attention_bwd_key_kernel<false, false>);
+  const int extra = qk ? kBwdQkNormSmem : 0;
+  const int row_smem = (drop ? kBwdRowDropSmem : kBwdRowSmem) + extra;
+  const int key_smem = (drop ? kBwdKeyDropSmem : kBwdKeySmem) + extra;
   cudaError_t err = cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, row_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, key_smem);
@@ -526,12 +603,22 @@ int vit_attention_bwd_rows(const void* qkv, const void* dm, void* m, void* dqkv,
   const dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
   const bf16 *pq = static_cast<const bf16*>(qkv), *pd = static_cast<const bf16*>(dm);
   const DropoutArgs d{seed, threshold, inv};
+  const bf16 *g_q = static_cast<const bf16*>(gq), *g_k = static_cast<const bf16*>(gk);
+  float* part = static_cast<float*>(dg_partial);
   row_kernel<<<grid, kAttnThreads, row_smem, s>>>(pq, pd, static_cast<bf16*>(m), static_cast<bf16*>(dqkv),
-                                                  static_cast<float4*>(stats), n, heads, scale_log2e, scale, d);
+                                                  static_cast<float4*>(stats), n, heads, scale_log2e, scale, d, g_q,
+                                                  g_k, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   key_kernel<<<grid, kAttnThreads, key_smem, s>>>(pq, pd, static_cast<bf16*>(dqkv),
-                                                  static_cast<const float4*>(stats), n, heads, scale_log2e, scale, d);
+                                                  static_cast<const float4*>(stats), n, heads, scale_log2e, scale, d,
+                                                  g_q, g_k, part);
+  if (!qk) return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int width = 2 * heads * kAttnDh;
+  layernorm_bwd_sum_kernel<<<(width + kLnSumCols - 1) / kLnSumCols, kLnSumCols * kLnSumSlices, 0, s>>>(
+      part, static_cast<float*>(dg), batch * static_cast<int>(grid.x), width, kRmsRoot);
   return cudaGetLastError();
 }
 
@@ -555,7 +642,7 @@ int vit_layernorm_bwd_rows(const void* x, const void* dh, const void* w, const v
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   layernorm_bwd_sum_kernel<<<(2 * dim + kLnSumCols - 1) / kLnSumCols, kLnSumCols * kLnSumSlices, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(sums), blocks, 2 * dim);
+      static_cast<const float*>(partial), static_cast<float*>(sums), blocks, 2 * dim, 1.f);
   return cudaGetLastError();
 }
 

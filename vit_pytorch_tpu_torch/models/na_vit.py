@@ -31,7 +31,7 @@ from torch import nn
 
 from ..nn.blocks import LN_EPS, Attention, Transformer
 from ..ops.packing import PackedImages, pack_images
-from ..utils.helpers import pair
+from ..utils.helpers import default_device, pair
 from .vit import init_modules_like_jax
 
 
@@ -59,7 +59,8 @@ def embed_packed(model: nn.Module, packed: PackedImages) -> torch.Tensor:
 class NaViT(nn.Module):
     """reference na_vit.py:196 — same keyword constructor.  ``flash`` is the
     JAX ``NaViT``'s (``flash=False`` forces the composite attention);
-    ``device``/``dtype`` place the parameters and ``generator`` seeds their
+    ``device``/``dtype`` place the parameters (on the CUDA card unless
+    ``device`` names another) and ``generator`` seeds their
     initialisation (the JAX package's: normal(1) position tables and pooling
     query, truncated lecun-normal Linear weights, unit LayerNorms and
     gammas)."""
@@ -88,7 +89,7 @@ class NaViT(nn.Module):
         image_height, image_width = pair(image_size)
         if image_height % patch_size or image_width % patch_size:
             raise ValueError("Image dimensions must be divisible by the patch size.")
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": default_device(device), "dtype": dtype}
         self.patch_size = patch_size
         self.token_dropout_prob = token_dropout_prob
         patch_dim = channels * patch_size**2

@@ -29,7 +29,7 @@ from torch import nn
 from ..nn.blocks import LN_EPS, FeedForward
 from ..ops.attention import dot_product_attention
 from ..ops.packing import PackedImages
-from ..utils.helpers import pair
+from ..utils.helpers import default_device, pair
 from .na_vit import embed_packed, pooling_query_ids, run_packed
 from .vit import init_modules_like_jax
 
@@ -94,7 +94,8 @@ class NestedTransformer(nn.Module):
 
 class NaViT(nn.Module):
     """reference na_vit_nested_tensor.py:134 — same keyword constructor;
-    ``device``, ``dtype`` and ``generator`` as in ``models/na_vit.py``."""
+    ``device`` (the CUDA card by default), ``dtype`` and ``generator`` as in
+    ``models/na_vit.py``."""
 
     def __init__(
         self,
@@ -120,7 +121,7 @@ class NaViT(nn.Module):
         image_height, image_width = pair(image_size)
         if image_height % patch_size or image_width % patch_size:
             raise ValueError("Image dimensions must be divisible by the patch size.")
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": default_device(device), "dtype": dtype}
         self.patch_size = patch_size
         self.token_dropout_prob = token_dropout_prob
         patch_dim = channels * patch_size**2

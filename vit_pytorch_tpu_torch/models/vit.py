@@ -19,7 +19,7 @@ from torch import nn
 
 from ..nn.blocks import RMSNorm, Transformer
 from ..nn.patch import PatchEmbedding
-from ..utils.helpers import pair
+from ..utils.helpers import default_device, pair
 
 # flax's truncated-normal variance_scaling divides by the std of a standard
 # normal truncated to [-2, 2]
@@ -51,8 +51,9 @@ class ViT(nn.Module):
     ``generator`` seeds the initialisation (the JAX package's: LayerNorm
     ones/zeros, truncated lecun-normal Linear weights, zero biases, unit
     normal cls token and position embedding); ``device``/``dtype`` place the
-    parameters.  ``flash`` and ``remat`` are the JAX ``ViT``'s
-    (models/vit.py:43-44), passed to the :class:`Transformer`:
+    parameters, on the CUDA card unless ``device`` names another
+    (``utils/helpers.py::default_device``).  ``flash`` and ``remat`` are the
+    JAX ``ViT``'s (models/vit.py:43-44), passed to the :class:`Transformer`:
     ``flash=False`` opts out of every kernel, ``remat`` recomputes the
     layers in the backward.  ``model.train()`` stands for the JAX
     ``train=True``.
@@ -86,7 +87,7 @@ class ViT(nn.Module):
             raise ValueError("Image dimensions must be divisible by the patch size.")
         if pool not in ("cls", "mean"):
             raise ValueError("pool type must be either cls or mean")
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": default_device(device), "dtype": dtype}
         self.pool = pool
         self.num_classes = num_classes
         self.num_patches = (image_height // patch_height) * (image_width // patch_width)

@@ -1,18 +1,21 @@
 """Transformer blocks, port of ``vit_pytorch_tpu/nn/blocks.py`` (the options
-of ViT and NaViT so far).
+of ViT, NaViT and SimpleViT so far).
 
 Modules keep the reference's ``state_dict`` layout (vit.py:15-83):
 ``layers.N.0.norm|to_qkv|to_out.0`` and ``layers.N.1.net.0|1|4``, so the JAX
 package's ``utils/convert.py::convert_vit`` maps them onto JAX params
-unchanged.
+unchanged; ``SimpleTransformer`` keeps the simple layout (simple_vit.py:
+23-78): ``layers.N.0.to_out`` a bare Linear, ``layers.N.1.net.0|1|3``
+(``transformer_rules(simple=True)``).
 
 On a CUDA device, in bf16, ``Transformer`` sends each layer through the
 Hopper kernels of ``ops/fused_block.py``, forward and backward (the
 whole-layer predicate of the JAX ``Transformer``, blocks.py:618-653).  Where
 the whole layer is refused but the attention block is not (training with
-dropout), ``Attention`` runs the attention-block kernels with in-kernel
-dropout (``fused_block_eligible``, the JAX blocks.py:47-98); everything else
-runs the module composite below, whose attention goes through
+dropout, qk-norm) and in ``SimpleTransformer``, ``Attention`` runs the
+attention-block kernels, with in-kernel dropout and qk-norm
+(``fused_block_eligible``, the JAX blocks.py:47-98); everything else runs
+the module composite below, whose attention goes through
 ``ops/attention.py::dot_product_attention`` (segment ids: the flash kernels).
 """
 
@@ -45,10 +48,10 @@ def fused_block_eligible(
     predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
     predicate for ``Attention.forward`` (to dispatch) and ``Transformer``
     (to leave remat off the call that fuses).  qk-norm does not refuse the
-    block, as in the JAX package; the port's block kernels raise for it
-    until the qk-norm slice.  The JAX predicate's other conditions (rotary,
-    masks, bias, recording, pre_norm) are options the port's ``Attention``
-    does not have yet; they join the predicate with them."""
+    block, as in the JAX package: the attention kernels normalise q and k
+    themselves, forward and backward.  The JAX predicate's other conditions
+    (rotary, masks, bias, recording, pre_norm) are options the port's
+    ``Attention`` does not have yet; they join the predicate with them."""
     return (
         not has_context
         and not has_segments
@@ -94,20 +97,20 @@ class RMSNorm(nn.Module):
 class FeedForward(nn.Module):
     """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout (reference
     vit.py:15-28); ``net.0|1|4`` hold the parameters.  ``norm_bias=False``:
-    a bias-free LayerNorm (na_vit.py:82-89)."""
+    a bias-free LayerNorm (na_vit.py:82-89).  ``simple=True``: the
+    SimpleViT FF without dropout, LN -> Linear -> GELU -> Linear,
+    ``net.0|1|3`` (simple_vit.py:23-34)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *, norm_bias: bool = True, device=None,
-                 dtype=None):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *, norm_bias: bool = True,
+                 simple: bool = False, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.net = nn.Sequential(
-            nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw),
-            nn.Linear(dim, hidden_dim, **kw),
-            GELU(),
-            nn.Dropout(dropout),
-            nn.Linear(hidden_dim, dim, **kw),
-            nn.Dropout(dropout),
-        )
+        layers = [nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw), nn.Linear(dim, hidden_dim, **kw), GELU()]
+        if simple:
+            layers.append(nn.Linear(hidden_dim, dim, **kw))
+        else:
+            layers += [nn.Dropout(dropout), nn.Linear(hidden_dim, dim, **kw), nn.Dropout(dropout)]
+        self.net = nn.Sequential(*layers)
 
     def forward(self, x):
         return self.net(x)
@@ -126,12 +129,14 @@ class Attention(nn.Module):
       with ``context`` (cross-attention: LayerNorm on x only, k and v from
       the context, blocks.py:443-458) needs;
     - ``q_segment_ids``/``kv_segment_ids`` at call: packed-sequence
-      block-diagonal masking, the flash kernels on the card."""
+      block-diagonal masking, the flash kernels on the card;
+    - ``simple``: the projection out is a bare Linear at ``to_out``, without
+      dropout (simple_vit.py:36-62)."""
 
     def __init__(
         self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
         *, qk_norm: bool = False, qk_norm_gamma_init: float = 1.0, norm_bias: bool = True, out_bias: bool = True,
-        force_split_qkv: bool = False, flash: Optional[bool] = None, device=None, dtype=None,
+        force_split_qkv: bool = False, simple: bool = False, flash: Optional[bool] = None, device=None, dtype=None,
     ):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
@@ -148,11 +153,17 @@ class Attention(nn.Module):
         if qk_norm:
             self.q_norm = RMSNorm(heads, dim_head, qk_norm_gamma_init, **kw)
             self.k_norm = RMSNorm(heads, dim_head, qk_norm_gamma_init, **kw)
-        self.to_out = (
-            nn.Sequential(nn.Linear(inner, dim, bias=out_bias, **kw), nn.Dropout(dropout))
-            if self.project_out
-            else nn.Identity()
-        )
+        if not self.project_out:
+            self.to_out = nn.Identity()
+        elif simple:
+            self.to_out = nn.Linear(inner, dim, bias=out_bias, **kw)
+        else:
+            self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=out_bias, **kw), nn.Dropout(dropout))
+
+    @property
+    def out_proj(self) -> nn.Linear:
+        """The projection out's Linear, in either layout."""
+        return self.to_out if isinstance(self.to_out, nn.Linear) else self.to_out[0]
 
     def fuses(self, x, *, context=None, has_segments: bool = False) -> bool:
         """Whether a call on ``x`` takes the attention-block kernels."""
@@ -174,7 +185,7 @@ class Attention(nn.Module):
             # a draw on the card would stall the host once a layer
             seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32)) if rate > 0.0 else None
             cast = lambda t: None if t is None else t.to(x.dtype)
-            out_proj = self.to_out[0]
+            out_proj = self.out_proj
             ln_bias = self.norm.bias if self.norm.bias is not None else torch.zeros_like(self.norm.weight)
             return fused_attention_block(
                 x, residual, cast(self.to_qkv.weight), cast(out_proj.weight), cast(self.norm.weight),
@@ -206,6 +217,43 @@ class Attention(nn.Module):
         )
         out = self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
         return out if residual is None else out + residual
+
+
+class SimpleTransformer(nn.Module):
+    """SimpleViT's transformer (reference simple_vit.py:64-78, JAX
+    models/simple_vit.py:17-51): no dropout, bias-free projection out, the
+    simple state_dict layout, a final LayerNorm, and no whole-layer kernel
+    (as in the JAX package, each layer is an attention call and an FF call).
+
+    Each attention call takes ``residual=x``, which on the card rides into
+    the attention block's last launch.  With ``qk_norm`` (the JAX
+    ``simple_vit_with_qk_norm`` loop, :44-64) the attention normalises q and
+    k with gammas initialised to ``dim_head**-0.5`` and scale 1, and the
+    residual is added outside the call, as that loop adds it (a second
+    rounding in bf16)."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int, *, qk_norm: bool = False,
+                 flash: Optional[bool] = None, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.qk_norm = qk_norm
+        self.layers = nn.ModuleList(
+            nn.ModuleList(
+                [
+                    Attention(dim, heads=heads, dim_head=dim_head, qk_norm=qk_norm,
+                              qk_norm_gamma_init=dim_head**-0.5, out_bias=False, simple=True, flash=flash, **kw),
+                    FeedForward(dim, mlp_dim, simple=True, **kw),
+                ]
+            )
+            for _ in range(depth)
+        )
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+
+    def forward(self, x):
+        for attn, ff in self.layers:
+            x = attn(x) + x if self.qk_norm else attn(x, residual=x)
+            x = ff(x) + x
+        return self.norm(x)
 
 
 class Transformer(nn.Module):

@@ -38,6 +38,11 @@ the TPU PRNG with the same key)::
          attention_bwd_rows replaying the attention mask
 
 ``dropout_masks`` replays both masks (the JAX ``dropout_masks``, :190).
+With ``gamma_q``/``gamma_k`` (qk-norm, SimpleViT-qk-norm's attention) the
+attention launches normalise q and k in-kernel (``attention_rows[qknorm]``,
+``_kernel`` :323-338) and the backward recomputes the norm, closes it on dq
+and dk and returns dgamma_q/dgamma_k (``attention_bwd_rows[qknorm]``,
+``_bwd_kernel`` :614-688).
 
 Each kernel wrapper has its plain PyTorch twin (``*_reference``) in this
 module.  A wrapper takes the twin only for a tensor on the CPU; on a CUDA
@@ -55,6 +60,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.helpers import default_device
 from ._build import load_library
 
 LN_EPS = 1e-5  # torch's LayerNorm default
@@ -69,12 +75,15 @@ GEMM_MAX_ROWS = 65535 * 128  # M-tiles ride on gridDim.y
 LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
 
 # launches per kernel since the last reset_launch_counts(); a variant
-# ("[dropout]", "[block_out]") counts apart from its kernel's plain launches
+# ("[dropout]", "[qknorm]", "[block_out]") counts apart from its kernel's
+# plain launches
 LAUNCHES = {
     "layernorm_rows": 0, "gemm_bf16": 0, "attention_rows": 0,
     "attention_bwd_rows": 0, "gemm_f32out": 0, "layernorm_bwd_rows": 0,
     "attention_rows[dropout]": 0, "gemm_bf16[block_out]": 0, "dropout_apply": 0,
     "attention_bwd_rows[dropout]": 0, "dropout_masks": 0,
+    "attention_rows[qknorm]": 0, "attention_rows[dropout,qknorm]": 0,
+    "attention_bwd_rows[qknorm]": 0, "attention_bwd_rows[dropout,qknorm]": 0,
 }
 
 # gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
@@ -82,13 +91,19 @@ LAUNCHES = {
 _EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5}
 _EPI_F32 = 4  # gemm_f32out: the f32 dot stored as it is
 
+# gemm_bf16's launches by epilogue (its call site), beside its LAUNCHES entry
+GEMM_LAUNCHES = dict.fromkeys(_EPILOGUES, 0)
+
+QK_NORM_EPS = 1e-12  # the qk-norm's rsqrt(sum(x^2) + eps), fused_block.py:331-336
+
 _U32 = 0xFFFFFFFF
 STREAM_STRIDE = 1024  # Philox key word 2 = img * 1024 + head (_attn_keep, fused_block.py:171-179)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, GEMM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -241,25 +256,46 @@ def gemm_f32out_reference(a, w):
     return F.linear(a.float(), w.float())
 
 
-def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float):
+def _qk_norm_rows(t, gamma, *, heads: int, dim_head: int, dtype):
+    """The per-head RMSNorm of ``_kernel`` (fused_block.py:323-338) on the
+    f32 rows ``t`` (b, heads, n, dh): ``xhat = t * rsqrt(sum(t^2) + 1e-12)``,
+    then ``xhat * (gamma * sqrt(dh))`` in f32, cast to ``dtype``.  Returns
+    (the normed rows as f32, xhat, the rsqrt), the last two for the
+    backward."""
+    r = torch.rsqrt(t.square().sum(-1, keepdim=True) + QK_NORM_EPS)
+    xhat = t * r
+    g = gamma.float().reshape(1, heads, 1, dim_head) * dim_head**0.5
+    return (xhat * g).to(dtype).float(), xhat, r
+
+
+def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float, gamma_q=None, gamma_k=None):
     """q, k, v as f32 (b, h, n, d) and P of ``_softmax_from_dots``
-    (fused_block.py:82-93) in f32."""
+    (fused_block.py:82-93) in f32; with the gammas q and k are the normed
+    rows, and the last item is (qhat, rq, khat, rk) for the backward (else
+    None)."""
     b, n, _ = qkv.shape
     q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4).float()
+    norm = None
+    if gamma_q is not None:
+        kw = dict(heads=heads, dim_head=dim_head, dtype=qkv.dtype)
+        (q, qhat, rq), (k, khat, rk) = _qk_norm_rows(q, gamma_q, **kw), _qk_norm_rows(k, gamma_k, **kw)
+        norm = (qhat, rq, khat, rk)
     logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E)
     p = torch.exp2(logits - logits.amax(-1, keepdim=True))
-    return q, k, v, p * (1.0 / p.sum(-1, keepdim=True))
+    return q, k, v, p * (1.0 / p.sum(-1, keepdim=True)), norm
 
 
 def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0,
-                             seed=None):
+                             seed=None, gamma_q=None, gamma_k=None):
     """Per-head softmax attention from the packed (b, n, 3*inner) qkv rows to
     merged heads (b, n, inner): f32 logits, ``_softmax_from_dots``
     (fused_block.py:82-93), with ``dropout_rate`` > 0 P = where(keep, P, 0)
     * 1/(1 - rate) in f32 (``_kernel`` :345-348), P cast to qkv.dtype, P.V
-    accumulated in f32."""
+    accumulated in f32.  With ``gamma_q``/``gamma_k`` (heads * dim_head
+    values each) q and k first go through the qk-norm (:323-338)."""
     b, n, _ = qkv.shape
-    _, _, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    _, _, v, p, _ = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, gamma_q=gamma_q,
+                                  gamma_k=gamma_k)
     if dropout_rate > 0.0:
         keep = _attn_keep(seed, b, n, heads, dropout_rate, qkv.device)
         p = torch.where(keep, p, 0.0) * _inv_keep(dropout_rate)
@@ -268,18 +304,25 @@ def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float, dr
 
 
 def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0,
-                                 seed=None):
-    """The per-head loop of ``_bwd_kernel`` without qk-norm
-    (fused_block.py:608-692): from the packed qkv rows and the gradient of
-    the merged heads ``dm`` (both (b, n, .) in one dtype) to the recomputed
-    merged heads ``m`` and the packed ``dqkv``.  P is recomputed as the
-    forward computes it; ``pb = pd`` in the IO dtype feeds m and dv, where
-    pd = P or, with ``dropout_rate`` > 0, where(keep, P, 0) * 1/(1 - rate);
-    dp is masked and scaled the same way (:634-654); ``ds`` uses the
-    unmasked f32 P; dq and dk take ``scale`` on the f32 product before the
-    cast."""
+                                 seed=None, gamma_q=None, gamma_k=None):
+    """The per-head loop of ``_bwd_kernel`` (fused_block.py:608-692): from
+    the packed qkv rows and the gradient of the merged heads ``dm`` (both
+    (b, n, .) in one dtype) to the recomputed merged heads ``m`` and the
+    packed ``dqkv``.  P is recomputed as the forward computes it; ``pb =
+    pd`` in the IO dtype feeds m and dv, where pd = P or, with
+    ``dropout_rate`` > 0, where(keep, P, 0) * 1/(1 - rate); dp is masked and
+    scaled the same way (:634-654); ``ds`` uses the unmasked f32 P; dq and dk
+    take ``scale`` on the f32 product.
+
+    With ``gamma_q``/``gamma_k`` the norm is recomputed (:614-627) and
+    closed on the f32 dq and dk (:665-673): ``dgq = sum over rows of dq *
+    qhat``, ``dq = rq (dq g - qhat <dq g, qhat>)`` with g = gamma * sqrt(dh),
+    the same for k; the result is then ``(m, dqkv, dgamma_q, dgamma_k)``,
+    the dgammas (heads * dim_head,) f32 summed over every row of the batch
+    with the sqrt(dh) factor (:678-688)."""
     dt, (b, n, _) = qkv.dtype, qkv.shape
-    q, k, v, p = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
+    q, k, v, p, norm = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, gamma_q=gamma_q,
+                                     gamma_k=gamma_k)
     dmh = dm.reshape(b, n, heads, dim_head).transpose(1, 2).float()
     pd = p
     if dropout_rate > 0.0:
@@ -294,8 +337,20 @@ def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: f
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dgammas = ()
+    if norm is not None:
+        qhat, rq, khat, rk = norm
+        root = dim_head**0.5
+
+        def close(d, xhat, r, gamma):
+            dg = (d * xhat).sum((0, 2)).reshape(-1) * root
+            dh = d * (gamma.float().reshape(1, heads, 1, dim_head) * root)
+            return r * (dh - xhat * (dh * xhat).sum(-1, keepdim=True)), dg
+
+        (dq, dgq), (dk, dgk) = close(dq, qhat, rq, gamma_q), close(dk, khat, rk, gamma_k)
+        dgammas = (dgq, dgk)
     dqkv = torch.stack((dq, dk, dv)).to(dt).permute(1, 3, 0, 2, 4)  # (b, n, 3, heads, dh)
-    return m.transpose(1, 2).reshape(b, n, -1), dqkv.reshape(b, n, -1)
+    return (m.transpose(1, 2).reshape(b, n, -1), dqkv.reshape(b, n, -1), *dgammas)
 
 
 def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, eps: float = LN_EPS):
@@ -361,6 +416,25 @@ def _check_operands(name: str, device, *tensors, dtype=torch.bfloat16) -> None:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _variant(name: str, drop: int, qk: bool) -> str:
+    """The launch counter of a variant: ``name``, ``name[dropout]``,
+    ``name[qknorm]`` or ``name[dropout,qknorm]``."""
+    tags = [tag for tag, on in (("dropout", drop), ("qknorm", qk)) if on]
+    return f"{name}[{','.join(tags)}]" if tags else name
+
+
+def _gammas(name: str, gamma_q, gamma_k, inner: int):
+    """The qk-norm gammas as flat (inner,) views for the kernels, or (None,
+    None)."""
+    if (gamma_q is None) != (gamma_k is None):
+        raise ValueError(f"{name}: gamma_q and gamma_k must be given together")
+    if gamma_q is None:
+        return None, None
+    if gamma_q.numel() != inner or gamma_k.numel() != inner:
+        raise ValueError(f"{name}: gammas of {gamma_q.numel()} and {gamma_k.numel()} values for {inner} columns")
+    return gamma_q.reshape(-1), gamma_k.reshape(-1)
 
 
 def _dropout_args(name: str, rate: float, seed):
@@ -433,6 +507,7 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: fl
     )
     lib.check(f"gemm_bf16[{epilogue}]", err)
     LAUNCHES["gemm_bf16[block_out]" if epilogue == "block_out" else "gemm_bf16"] += 1
+    GEMM_LAUNCHES[epilogue] += 1
     return out
 
 
@@ -471,60 +546,76 @@ def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
         )
 
 
-def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None):
+def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None,
+                   gamma_q=None, gamma_k=None):
     """Softmax attention of every head, from packed qkv rows (b, n, 3*inner)
     to merged heads (b, n, inner); the logits stay on chip.  With
     ``dropout_rate`` > 0 (the ``[dropout]`` variant) P is masked in-kernel
-    from the (seed, img, head) Philox streams, see
-    :func:`attention_rows_reference`."""
+    from the (seed, img, head) Philox streams; with ``gamma_q``/``gamma_k``
+    (the ``[qknorm]`` variant, heads * dim_head gammas each) q and k are
+    normalised in-kernel.  See :func:`attention_rows_reference`."""
     if qkv.device.type == "cpu":
         return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale,
-                                        dropout_rate=dropout_rate, seed=seed)
+                                        dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
     _check_attention("attention_rows", qkv, heads, dim_head)
     drop = _dropout_args("attention_rows", dropout_rate, seed)
-    _check_operands("attention_rows", qkv.device, qkv)
+    gq, gk = _gammas("attention_rows", gamma_q, gamma_k, heads * dim_head)
+    _check_operands("attention_rows", qkv.device, qkv, gq, gk)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     err = lib.lib.vit_attention_rows(
-        qkv.data_ptr(), out.data_ptr(), b, n, heads, dim_head,
-        scale * _LOG2E, *drop, _stream(qkv.device),
+        qkv.data_ptr(), out.data_ptr(), b, n, heads, dim_head, scale * _LOG2E, *drop,
+        None if gq is None else gq.data_ptr(), None if gk is None else gk.data_ptr(), _stream(qkv.device),
     )
-    name = "attention_rows[dropout]" if drop[0] else "attention_rows"
+    name = _variant("attention_rows", drop[0], gq is not None)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return out
 
 
-def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None):
+def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None,
+                       gamma_q=None, gamma_k=None):
     """The attention backward of every head, from packed qkv rows and the
     merged-heads gradient ``dm`` to ``(m, dqkv)``, see
     :func:`attention_bwd_rows_reference`.  One launch runs a row pass (m,
     dq and each row's softmax statistics, into a scratch buffer) and a key
     pass (dk, dv); the logits stay on chip in both.  With ``dropout_rate`` >
-    0 (the ``[dropout]`` variant) both passes replay the forward's mask."""
+    0 (the ``[dropout]`` variant) both passes replay the forward's mask.
+    With ``gamma_q``/``gamma_k`` (the ``[qknorm]`` variant) both passes
+    recompute the qk-norm and close it on dq and dk, each block writes its
+    rows' dgamma terms into a scratch buffer, and a fixed-order sum of those
+    ends the launch: the result is ``(m, dqkv, dgamma_q, dgamma_k)``."""
     if qkv.device.type == "cpu":
         return attention_bwd_rows_reference(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
-                                            dropout_rate=dropout_rate, seed=seed)
+                                            dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
     _check_attention("attention_bwd_rows", qkv, heads, dim_head)
     b, n, _ = qkv.shape
     inner = heads * dim_head
     if dm.shape != (b, n, inner):
         raise ValueError(f"attention_bwd_rows: dm {tuple(dm.shape)} for qkv {tuple(qkv.shape)}")
     drop = _dropout_args("attention_bwd_rows", dropout_rate, seed)
-    _check_operands("attention_bwd_rows", qkv.device, qkv, dm)
+    gq, gk = _gammas("attention_bwd_rows", gamma_q, gamma_k, inner)
+    _check_operands("attention_bwd_rows", qkv.device, qkv, dm, gq, gk)
     m = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b, heads, n, 4), dtype=torch.float32, device=qkv.device)
+    partial = dg = None
+    if gq is not None:
+        tiles = -(-n // ATTN_Q_TILE)
+        partial = torch.empty((b * tiles, 2, inner), dtype=torch.float32, device=qkv.device)
+        dg = torch.empty((2, inner), dtype=torch.float32, device=qkv.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     err = lib.lib.vit_attention_bwd_rows(
         qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        b, n, heads, dim_head, scale * _LOG2E, scale, *drop, _stream(qkv.device),
+        b, n, heads, dim_head, scale * _LOG2E, scale, *drop, ptr(gq), ptr(gk), ptr(partial), ptr(dg),
+        _stream(qkv.device),
     )
-    name = "attention_bwd_rows[dropout]" if drop[0] else "attention_bwd_rows"
+    name = _variant("attention_bwd_rows", drop[0], gq is not None)
     lib.check(name, err)
     LAUNCHES[name] += 1
-    return m, dqkv
+    return (m, dqkv) if dg is None else (m, dqkv, dg[0], dg[1])
 
 
 def dropout_apply(g, seed, *, heads: int, rate: float):
@@ -550,9 +641,10 @@ def dropout_apply(g, seed, *, heads: int, rate: float):
 def dropout_masks(seed, b: int, n: int, dim: int, heads: int, rate: float, *, device=None):
     """Replay of the attention block's keep masks, the JAX ``dropout_masks``
     (fused_block.py:190): ``(attn_keep (b, heads, n, n), out_keep (b, n,
-    dim))`` int32 0/1.  On a CUDA ``device`` one launch of the replay kernel;
-    on the CPU (the default) :func:`dropout_masks_reference`."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    dim))`` int32 0/1.  On a CUDA ``device`` (the default, see
+    :func:`~vit_pytorch_tpu_torch.utils.helpers.default_device`) one launch
+    of the replay kernel; on ``device="cpu"`` :func:`dropout_masks_reference`."""
+    device = default_device(device)
     if device.type == "cpu":
         return dropout_masks_reference(seed, b, n, dim, heads, rate, device=device)
     if device.type != "cuda":
@@ -703,17 +795,20 @@ class AttentionBlockGrads(NamedTuple):
     dgamma: torch.Tensor
     dbeta: torch.Tensor
     gm: torch.Tensor  # g after the output dropout (g itself without dropout)
+    dgamma_q: Optional[torch.Tensor] = None  # qk-norm: (heads * dim_head,) f32
+    dgamma_k: Optional[torch.Tensor] = None
 
 
 def _attention_block_bwd(
     ops, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, scale, eps, residual=None,
-    dropout_rate: float = 0.0, seed=None,
+    dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None,
 ) -> AttentionBlockGrads:
     """Backward of ``y = x + Attn(LN(x))`` with respect to everything but the
     residual path, from ``g = dL/dy``; with ``residual`` the LayerNorm
     backward also adds it to dx (the ``dx_ln + dy`` of :1868).  With
     ``dropout_rate`` > 0, g first goes through the output dropout's mask
-    (``gm``, :574-580) and the attention backward replays the attention mask.
+    (``gm``, :574-580) and the attention backward replays the attention mask;
+    with the qk-norm gammas it also returns dgamma_q and dgamma_k.
 
     The products in ``_bwd_kernel``'s body (dm, the attention products, dh)
     run through ``ops``; the weight gradients are ``torch.matmul`` over the
@@ -726,15 +821,15 @@ def _attention_block_bwd(
     # a.w products as a.(w^T)^T: a transposed copy of each weight, once a
     # backward, for the kernel's (out, in) operand layout
     dm = ops.gemm_bf16(gm, w_out.t().contiguous(), "cast")
-    m, dqkv = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
-                                     dropout_rate=dropout_rate, seed=seed)
+    m, dqkv, *dgammas = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
+                                               dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
     dh = ops.gemm_f32out(dqkv, w_qkv.t().contiguous())
     dx, dgamma, dbeta = ops.layernorm_bwd_rows(x, dh, ln_scale, residual=residual, eps=eps)
     rows = lambda t: t.reshape(-1, t.shape[-1])
     dW_qkv = torch.matmul(rows(dqkv).t(), rows(h))
     dW_out = torch.matmul(rows(gm).t(), rows(m))
     db_qkv = rows(dqkv).float().sum(0) if b_qkv is not None else None
-    return AttentionBlockGrads(dx, h, dqkv, m, dW_qkv, db_qkv, dW_out, dgamma, dbeta, gm)
+    return AttentionBlockGrads(dx, h, dqkv, m, dW_qkv, db_qkv, dW_out, dgamma, dbeta, gm, *dgammas)
 
 
 def attention_block_bwd_reference(
@@ -838,72 +933,78 @@ def fused_transformer_layer(
 # ---------------------------------------------------------------------------
 
 
-def _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, *, heads, dim_head,
-                             scale, eps, dropout_rate, seed):
+def _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k, *,
+                             heads, dim_head, scale, eps, dropout_rate, seed):
     """The four launches of ``_kernel``'s body (fused_block.py:298-374)."""
     h = ops.layernorm_rows(x, ln_scale, ln_bias, eps=eps)
     qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
-    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, dropout_rate=dropout_rate, seed=seed)
+    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, dropout_rate=dropout_rate, seed=seed,
+                           gamma_q=gamma_q, gamma_k=gamma_k)
     return ops.gemm_bf16(m, w_out, "block_out", bias=b_out, residual=residual, dropout_rate=dropout_rate,
                          seed=seed, heads=heads)
 
 
 class _FusedAttentionBlock(torch.autograd.Function):
     """The counterpart of the JAX ``_fused`` custom_vjp (fused_block.py:
-    820-916): the forward saves x, the weights and the seed; the backward
-    replays both dropout masks and returns d_residual = g unmasked (:894).
+    820-916): the forward saves x, the weights, the gammas and the seed; the
+    backward replays both dropout masks and returns d_residual = g unmasked
+    (:894), and dgamma_q/dgamma_k in the gammas' shape and dtype (:908-911).
     When the residual is x itself (the ``Transformer``'s call), the
     LayerNorm backward adds g to dx_ln in its own epilogue, rounded once as
     the JAX package's bf16 add of the two cotangents, and the residual gets
     no gradient of its own."""
 
     @staticmethod
-    def forward(ctx, ops, kw, residual_is_x, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias):
+    def forward(ctx, ops, kw, residual_is_x, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q,
+                gamma_k):
         res = x if residual_is_x else residual
-        out = _attention_block_forward(ops, x, res, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, **kw)
-        ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
+        out = _attention_block_forward(ops, x, res, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k,
+                                       **kw)
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k)
         ctx.ops, ctx.kw, ctx.residual_is_x, ctx.has_residual = ops, kw, residual_is_x, residual is not None
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias = ctx.saved_tensors
+        x, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k = ctx.saved_tensors
         g = g.contiguous()
         attn = _attention_block_bwd(ctx.ops, x, g, w_qkv, b_qkv, w_out, ln_scale, ln_bias,
-                                    residual=g if ctx.residual_is_x else None, **ctx.kw)
+                                    residual=g if ctx.residual_is_x else None, gamma_q=gamma_q, gamma_k=gamma_k,
+                                    **ctx.kw)
         db_out = attn.gm.float().sum((0, 1)).to(b_out.dtype) if b_out is not None else None
         db_qkv = attn.db_qkv.to(b_qkv.dtype) if b_qkv is not None else None
         d_residual = g if ctx.has_residual else None
+        as_param = lambda d, p: None if p is None else d.reshape(p.shape).to(p.dtype)
         return (
             None, None, None, attn.dx, d_residual, attn.dW_qkv.to(w_qkv.dtype), db_qkv,
             attn.dW_out.to(w_out.dtype), db_out, attn.dgamma.to(ln_scale.dtype), attn.dbeta.to(ln_bias.dtype),
+            as_param(attn.dgamma_q, gamma_q), as_param(attn.dgamma_k, gamma_k),
         )
 
 
 def _attention_block(ops, x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, b_qkv, b_out, gamma_q,
                      gamma_k, scale, eps, dropout_rate, dropout_seed):
-    if gamma_q is not None or gamma_k is not None:
-        raise NotImplementedError(
-            "fused_attention_block: qk-norm is not ported yet (ROADMAP: modules to port, next in order: "
-            "qk-norm, with models/simple_vit_with_qk_norm.py)"
-        )
+    if (gamma_q is None) != (gamma_k is None):
+        raise ValueError("gamma_q and gamma_k must be given together")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"fused_attention_block: dropout_rate {dropout_rate} is not in [0, 1)")
+    if scale is None:  # the sqrt(dh) factor lives in the qk-norm (fused_block.py:2184-2188)
+        scale = 1.0 if gamma_q is not None else dim_head**-0.5
     kw = dict(
-        heads=heads, dim_head=dim_head, scale=dim_head**-0.5 if scale is None else float(scale), eps=eps,
+        heads=heads, dim_head=dim_head, scale=float(scale), eps=eps,
         dropout_rate=float(dropout_rate), seed=None if dropout_rate == 0.0 else int(dropout_seed),
     )
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
-    ):
+    operands = (x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
         # a residual that is x rides as a flag: its gradient joins dx inside
         # the LayerNorm backward instead of autograd's add
         residual_is_x = residual is x
         return _FusedAttentionBlock.apply(ops, kw, residual_is_x, x, None if residual_is_x else residual,
-                                          w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias)
-    return _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, **kw)
+                                          w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k)
+    return _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k,
+                                    **kw)
 
 
 def attention_block_reference(
@@ -932,13 +1033,15 @@ def fused_attention_block(
     tensor operand.  ``dropout_rate`` > 0 applies train-time dropout at both
     reference sites (after the softmax, vit.py:60; after the out projection,
     vit.py:47-49) inside the kernels, from the Philox streams of the int
-    ``dropout_seed``, which the backward replays.  On the CPU it is
+    ``dropout_seed``, which the backward replays.  ``gamma_q``/``gamma_k``
+    (any shape of heads * dim_head values, e.g. the module's (heads, 1,
+    dim_head)) turn on the qk-norm of q and k inside the attention kernels,
+    forward and backward; ``scale`` then defaults to 1.  On the CPU it is
     :func:`attention_block_reference`; on a CUDA tensor the forward is four
-    kernel launches and the backward seven (with dropout) plus plain
+    kernel launches and the backward six (seven with dropout) plus plain
     PyTorch for the weight gradients, and it raises for a shape
     :func:`fused_block_supported` or, with dropout,
-    :func:`fused_dropout_supported` refuses.  ``gamma_q``/``gamma_k``
-    (qk-norm) raise ``NotImplementedError``."""
+    :func:`fused_dropout_supported` refuses."""
     if x.device.type != "cpu" and not (
         fused_block_supported(x.shape, x.dtype, heads, dim_head, x.shape[-1])
         and (dropout_rate == 0.0 or fused_dropout_supported(x.shape, heads, dim_head))

@@ -19,6 +19,8 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.helpers import default_device
+
 
 @dataclass
 class PackedImages:
@@ -112,10 +114,12 @@ def pack_images(
     device=None,
 ) -> PackedImages:
     """Pack a list of (c, H, W) images (numpy arrays or tensors; or a list of
-    lists, pre-grouped) into fixed-shape tensors on ``device``, ``patches``
-    in ``dtype``.  The JAX ``pack_images`` (packing.py:99-213) step for step:
-    ``rng=None`` draws OS entropy for the token dropout; pass an
+    lists, pre-grouped) into fixed-shape tensors on ``device`` (the CUDA card
+    unless it names another), ``patches`` in ``dtype``.  The JAX
+    ``pack_images`` (packing.py:99-213) step for step: ``rng=None`` draws OS
+    entropy for the token dropout; pass an
     ``np.random.Generator`` for reproducible packing."""
+    device = default_device(device)
     use_dropout = train and token_dropout_prob is not None
     calc_dropout = token_dropout_prob
     if isinstance(calc_dropout, (float, int)):

@@ -2,11 +2,16 @@
 
 For the ViT it is the exact inverse of
 ``vit_pytorch_tpu/utils/convert.py::vit_rules``, so that
-``convert_vit(vit_state_dict_from_jax(p)) == {"params": p}``.  The NaViT
-maps keep the JAX module structure (the fused ``to_qkv`` in the
-Transformer, split ``to_q``/``to_kv`` in ``attn_pool``); the JAX
-``convert_na_vit`` fuses the reference's q/kv, so these maps are held by
-model outputs (tests/test_torch_na_vit.py), not by a round trip.
+``convert_vit(vit_state_dict_from_jax(p)) == {"params": p}``; for the
+SimpleViTs the inverse of ``transformer_rules(simple=True)`` and
+``patch_embed_rules`` (``convert_simple_vit``) and of
+``convert_simple_vit_with_qk_norm``, whose JAX module names
+(``transformer_layers_{i}_attn/q_norm``, ``transformer_norm``, a LayerNorm
+``linear_head``) it reads.  The NaViT maps keep the JAX module structure
+(the fused ``to_qkv`` in the Transformer, split ``to_q``/``to_kv`` in
+``attn_pool``); the JAX ``convert_na_vit`` fuses the reference's q/kv, so
+these maps are held by model outputs (tests/test_torch_na_vit.py), not by a
+round trip.
 
 Dense kernels (in, out) become Linear weights (out, in); LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``; RMSNorm ``gamma`` stays
@@ -55,6 +60,25 @@ _NAVIT_NT_MODULES = (
     (r"transformer/layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out"),
     (r"attn_pool/(norm|to_q|to_k|to_v|q_norm|k_norm|to_out)", r"attn_pool.\1"),
 ) + _NAVIT_LAYER
+_PATCH_EMBEDDING = _VIT_MODULES[:3]
+# models/simple_vit.py: bare to_out, FF net.0|1|3 (transformer_rules(simple=True))
+_SIMPLE_VIT_MODULES = _PATCH_EMBEDDING + (
+    (r"transformer/layers_(\d+)_attn/(norm|to_qkv|to_out)", r"transformer.layers.\1.0.\2"),
+    (r"transformer/layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"transformer/layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"transformer/layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.3"),
+    (r"transformer/norm", "transformer.norm"),
+    (r"linear_head", "linear_head"),
+)
+# models/simple_vit_with_qk_norm.py: the JAX model's flat module names
+_SIMPLE_VIT_QK_NORM_MODULES = _PATCH_EMBEDDING + (
+    (r"transformer_layers_(\d+)_attn/(norm|to_qkv|to_out|q_norm|k_norm)", r"transformer.layers.\1.0.\2"),
+    (r"transformer_layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"transformer_layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"transformer_layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.3"),
+    (r"transformer_norm", "transformer.norm"),
+    (r"linear_head", "linear_head"),  # a LayerNorm: scale/bias
+)
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma"}
 _TOP_LEVEL = ("cls_token", "pos_embedding")
 _NAVIT_TOP_LEVEL = ("pos_embed_height", "pos_embed_width", "attn_pool_queries")
@@ -106,3 +130,21 @@ def na_vit_nested_tensor_state_dict_from_jax(params: Mapping) -> dict[str, torch
     """The JAX ``models/na_vit_nested_tensor.py::NaViT``'s ``params`` tree
     -> the port's ``state_dict``."""
     return _state_dict(params, _NAVIT_NT_MODULES, _NAVIT_TOP_LEVEL)
+
+
+def simple_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit.py::SimpleViT``'s ``params`` tree -> the
+    port ``SimpleViT``'s ``state_dict``."""
+    return _state_dict(params, _SIMPLE_VIT_MODULES, ())
+
+
+def simple_vit_qk_norm_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_qk_norm.py::SimpleViT``'s ``params``
+    tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_VIT_QK_NORM_MODULES, ())
+
+
+def simple_vit_register_tokens_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_register_tokens.py::SimpleViT``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_VIT_MODULES, ("register_tokens",))

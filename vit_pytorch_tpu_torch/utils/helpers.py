@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import torch
+
 
 def exists(v):
     return v is not None
@@ -14,3 +16,16 @@ def default(v, d):
 def pair(t):
     """reference vit.py:10-11"""
     return t if isinstance(t, (tuple, list)) else (t, t)
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point of the port builds on: ``device`` when the
+    caller names one, else the current CUDA card.  The port's kernels run on
+    the card, so a caller who names no device gets the card, and on a
+    machine without one an error instead of the plain CPU path: the CPU is
+    taken only when asked for (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
