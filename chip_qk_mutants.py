@@ -31,9 +31,9 @@ MUTANTS = {
 }
 
 
-def run_phase16(fb, dev, csrc_dir):
-    """Phase 16's qk-norm checks on the kernels built from ``csrc_dir``;
-    returns the messages of the checks that failed."""
+def run_checks(check, fb, dev, csrc_dir):
+    """``check(fb, rnd, dev)`` (a phase of chip_smoke.py) on the kernels built
+    from ``csrc_dir``; returns the messages of the checks that failed."""
     from vit_pytorch_tpu_torch.ops import _build
 
     _build.CSRC_DIR, _build._library = csrc_dir, None
@@ -45,13 +45,16 @@ def run_phase16(fb, dev, csrc_dir):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     try:
-        cs.check_qknorm(fb, rnd, dev)
+        check(fb, rnd, dev)
     except Exception as e:  # a mutant may also break a launch; that refuses it too
         fails.append(repr(e))
     return fails
 
 
-def main():
+def main(mutants=MUTANTS, check=lambda fb, rnd, dev: cs.check_qknorm(fb, rnd, dev), tag="qk"):
+    """The right kernels through ``check``, then each of ``mutants`` (name:
+    (file in csrc/, text, replacement)) built under build/mutants/<tag>-<i>;
+    exits 1 unless the right kernels pass and every mutant fails."""
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; the mutation check needs a CUDA card", file=sys.stderr)
         sys.exit(1)
@@ -64,12 +67,12 @@ def main():
     src = _build.CSRC_DIR
     ok = True
     t = time.perf_counter()
-    fails = run_phase16(fb, dev, src)
+    fails = run_checks(check, fb, dev, src)
     ok &= not fails
     print(f"right kernels: {len(fails)} failed checks ({time.perf_counter() - t:.1f} s) "
           f"{'ok' if not fails else 'FAILED: ' + '; '.join(fails[:3])}", flush=True)
-    for i, (name, (fname, old, new)) in enumerate(MUTANTS.items()):
-        d = _build.BUILD_DIR / "mutants" / str(i)
+    for i, (name, (fname, old, new)) in enumerate(mutants.items()):
+        d = _build.build_dir() / "mutants" / f"{tag}-{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d)
         text = (d / fname).read_text()
@@ -78,7 +81,7 @@ def main():
             sys.exit(1)
         (d / fname).write_text(text.replace(old, new))
         t = time.perf_counter()
-        fails = run_phase16(fb, dev, Path(d))
+        fails = run_checks(check, fb, dev, Path(d))
         ok &= bool(fails)
         print(f"{'refused' if fails else 'NOT REFUSED'}: {name}: {len(fails)} failed checks "
               f"({time.perf_counter() - t:.1f} s); first: {fails[:2]}", flush=True)

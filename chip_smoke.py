@@ -81,7 +81,22 @@ Phases, each printed as it ends:
      bs=128), training ms/step and peak memory at bs=256, kernel against
      plain in turns; each qk-norm launch alone; attention_rows at config 2's
      64 tokens against its bound; each model's gemm_bf16[block_out] site
-     against its twin, its bound and the one torch call computing it.
+     against its twin, its bound and the one torch call computing it;
+ 20. the kernels of the JAX package's opt-in backwards of the whole layer
+     (the ports of _ff_bwd_kernel and _layer_bwd_kernel) against their plain
+     twins at 1,576 rows (phase 6's b=8, n=197) and at 183 rows:
+     gemm_bf16[fc1_save] (act, h1), gemm_bf16[gelu_bwd] (dh1, db1),
+     layernorm_bwd_rows[res_f32] (bf16 and f32 residual and dx; dgamma,
+     dbeta, the residual's column sum), gemm_wgrad at its four sites; the
+     column sums and gemm_wgrad bitwise deterministic; the whole layer's 13
+     gradients under each switch against the same Function on the twins;
+ 21. ViT-B/16 training under VIT_TPU_FF_BWD=full, =hybrid and
+     VIT_TPU_ENABLE_WHOLE_LAYER_BWD=1, each set in-process: 4 steps (loss
+     falls, exact launch counters), the first step's loss and gradients
+     against the plain twins under the same switch; ms/step and peak memory
+     at bs=1024 of each beside the default backward, in turns; each new
+     launch at bs=128 against its twin, bound and library call, and one
+     gemm_wgrad launch at bs=1024.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -92,6 +107,7 @@ Imports nothing of JAX.
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1799,6 +1815,279 @@ def time_simple(fb, dev, gen, smi):
     return per_kernel, errs
 
 
+# -- the opt-in backwards of the whole layer (phases 20-21): the ports of
+# _ff_bwd_kernel (VIT_TPU_FF_BWD=full|hybrid) and _layer_bwd_kernel
+# (VIT_TPU_ENABLE_WHOLE_LAYER_BWD), switched on in-process, one at a time
+TPU_FF_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:1493"
+TPU_LAYER_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:1156"
+WGRAD_SOURCE = "vit_pytorch_tpu_torch/csrc/gemm_wgrad.cu"
+FF_CHECK_SHAPES = ((B_CHECK, N), (3, 61))  # 1,576 rows, and 183: a multiple of no tile (8, 64, 128)
+# (mode, environment) of phase 21, and each mode's launches a layer a step
+FF_MODES = (("full", {"VIT_TPU_FF_BWD": "full"}), ("hybrid", {"VIT_TPU_FF_BWD": "hybrid"}),
+            ("layer", {"VIT_TPU_ENABLE_WHOLE_LAYER_BWD": "1"}))
+_FF_CHAIN = {"layernorm_rows": 1, "gemm_bf16[fc1_save]": 1, "gemm_bf16[gelu_bwd]": 1, "gemm_f32out": 1,
+             "layernorm_bwd_rows[res_f32]": 1}
+_FWD = {"layernorm_rows": 2, "gemm_bf16": 4, "attention_rows": 1}
+_ATTN_BWD = {"layernorm_rows": 1, "gemm_bf16": 2, "attention_bwd_rows": 1, "gemm_f32out": 1}
+
+
+def _add(*parts):
+    out = {}
+    for p in parts:
+        for k, v in p.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+FF_MODE_LAUNCHES_PER_LAYER = {
+    "full": _add(_FWD, _FF_CHAIN, {"gemm_wgrad": 2}, _ATTN_BWD, {"layernorm_bwd_rows": 1}),
+    "hybrid": _add(_FWD, _FF_CHAIN, _ATTN_BWD, {"layernorm_bwd_rows": 1}),
+    "layer": _add(_FWD, _FF_CHAIN, {"gemm_wgrad": 2}, _ATTN_BWD, {"layernorm_bwd_rows[res_f32]": 1, "gemm_wgrad": 2}),
+}
+FF_KERNELS = {  # the new kernels and variants: (source, the TPU kernel it replaces)
+    "gemm_bf16[fc1_save]": (SOURCE, TPU_FF_BWD_KERNEL), "gemm_bf16[gelu_bwd]": (SOURCE, TPU_FF_BWD_KERNEL),
+    "layernorm_bwd_rows[res_f32]": (BWD_SOURCE, TPU_FF_BWD_KERNEL), "gemm_wgrad": (WGRAD_SOURCE, TPU_LAYER_BWD_KERNEL),
+}
+
+
+@contextlib.contextmanager
+def ff_switch(env):
+    """One of the JAX package's backward switches, set in-process and unset
+    after (the port reads them at call time)."""
+    saved = {k: os.environ.get(k) for k in ("VIT_TPU_FF_BWD", "VIT_TPU_ENABLE_FF_BWD",
+                                            "VIT_TPU_ENABLE_WHOLE_LAYER_BWD")}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def wgrad_work(k, m, n):
+    """dW (m, n) f32 = a^T b over k rows: both bf16 operands read once, the
+    f32 result written once."""
+    return work(2 * k * (m + n) + 4 * m * n, tensor=2 * m * n * k)
+
+
+def ff_works(rows):
+    """The work of the FF chain's new launches at ``rows`` rows of ViT-B
+    (layernorm_bwd_rows[res_f32] with the bf16 residual and output of the
+    ``full`` and ``hybrid`` chains)."""
+    ln = ln_bwd_work(rows, DIM, residual=True)
+    return {
+        "gemm_bf16[fc1_save]": gemm_work(rows, MLP, DIM, bias=True, out_bytes=4),
+        "gemm_bf16[gelu_bwd]": work(gemm_work(rows, MLP, DIM, residual=True)["bytes"] + 4 * MLP,
+                                    tensor=2 * rows * MLP * DIM, f32=15 * rows * MLP),
+        "layernorm_bwd_rows[res_f32]": work(ln["bytes"] + 4 * DIM, f32=ln["f32"] + 2 * rows * DIM),
+    }
+
+
+def check_ff_kernels(fb, rnd):
+    """Phase 20: each new kernel of the opt-in backwards against its plain
+    twin at phase 6's shapes and at 183 rows, the column sums and gemm_wgrad
+    bitwise deterministic, and the whole layer's 13 gradients under each
+    switch against the same Function on the twins; returns the largest
+    max_abs of each kernel."""
+    log(f"[20 FF backward kernels] rows {[b * n for b, n in FF_CHECK_SHAPES]}, dim={DIM}, mlp={MLP}, bf16")
+    inner = HEADS * DH
+    w, kw = layer_weights(rnd)
+    errs = dict.fromkeys(FF_KERNELS, 0.0)
+
+    def f32_check(name, got, want):
+        return compare(name, got, want, None, F32_RTOL, F32_REL_L2, atol_frac=F32_ATOL_FRAC)
+
+    def same(name, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"{name} is not bitwise deterministic")
+
+    with torch.inference_mode():
+        for b, n in FF_CHECK_SHAPES:
+            tag = f"[rows={b * n}]"
+            y, g = rnd(b, n, DIM), rnd(b, n, DIM)
+            y2 = fb.layernorm_rows_reference(y, w["ln2_scale"], w["ln2_bias"])
+            act, h1 = fb.gemm_bf16(y2, w["w1"], "fc1_save", bias=w["b1"])
+            act_w, h1_w = fb.gemm_bf16_reference(y2, w["w1"], "fc1_save", bias=w["b1"])
+            e = max(compare(f"gemm_bf16[fc1_save] act {tag}", act, act_w, KERNEL_ATOL, KERNEL_RTOL),
+                    compare(f"gemm_bf16[fc1_save] h1 {tag}", h1, h1_w, KERNEL_ATOL, KERNEL_RTOL))
+            errs["gemm_bf16[fc1_save]"] = max(errs["gemm_bf16[fc1_save]"], e)
+            w2_t = w["w2"].t().contiguous()
+            got = fb.gemm_bf16(g, w2_t, "gelu_bwd", aux=h1_w)
+            dh1_w, db1_w = fb.gemm_bf16_reference(g, w2_t, "gelu_bwd", aux=h1_w)
+            e = max(compare(f"gemm_bf16[gelu_bwd] dh1 {tag}", got[0], dh1_w, KERNEL_ATOL, KERNEL_RTOL),
+                    f32_check(f"gemm_bf16[gelu_bwd] db1 {tag}", got[1], db1_w))
+            errs["gemm_bf16[gelu_bwd]"] = max(errs["gemm_bf16[gelu_bwd]"], e)
+            same("gemm_bf16[gelu_bwd]", got, fb.gemm_bf16(g, w2_t, "gelu_bwd", aux=h1_w))
+            dyln = fb.gemm_f32out_reference(dh1_w, w["w1"].t().contiguous())
+            for res, out_f32 in ((g, False), (rnd(b, n, DIM, dtype=torch.float32), True)):
+                kind = f"{'f32' if res.dtype == torch.float32 else 'bf16'} residual, {'f32' if out_f32 else 'bf16'} dx"
+                lkw = dict(residual=res, res_f32=True, out_f32=out_f32)
+                got = fb.layernorm_bwd_rows(y, dyln, w["ln2_scale"], **lkw)
+                want = fb.layernorm_bwd_rows_reference(y, dyln, w["ln2_scale"], **lkw)
+                name = f"layernorm_bwd_rows[res_f32] {tag} {kind}"
+                e = (f32_check(f"{name} dx", got[0], want[0]) if out_f32
+                     else compare(f"{name} dx", got[0], want[0], KERNEL_ATOL, KERNEL_RTOL))
+                for i, part in enumerate(("dgamma", "dbeta", "residual sum"), 1):
+                    e = max(e, f32_check(f"{name} {part}", got[i], want[i]))
+                errs["layernorm_bwd_rows[res_f32]"] = max(errs["layernorm_bwd_rows[res_f32]"], e)
+                same("layernorm_bwd_rows[res_f32]", got, fb.layernorm_bwd_rows(y, dyln, w["ln2_scale"], **lkw))
+            rows = lambda t: t.reshape(-1, t.shape[-1])
+            m, dqkv = rnd(b, n, inner), rnd(b, n, 3 * inner)
+            for site, a_, b_ in (("dW2 = g^T act", g, act_w), ("dW1 = dh1^T y2", dh1_w, y2),
+                                 ("dW_out = dy^T m", g, m), ("dW_qkv = dqkv^T h", dqkv, y2)):
+                got = fb.gemm_wgrad(rows(a_), rows(b_))
+                e = f32_check(f"gemm_wgrad {site} {tag}", got, fb.gemm_wgrad_reference(rows(a_), rows(b_)))
+                errs["gemm_wgrad"] = max(errs["gemm_wgrad"], e)
+                same("gemm_wgrad", (got,), (fb.gemm_wgrad(rows(a_), rows(b_)),))
+            sync()
+    x, g = rnd(B_CHECK, N, DIM), rnd(B_CHECK, N, DIM)
+    for mode, env in FF_MODES:
+        with ff_switch(env):
+            out, grads = layer_grads(fb.fused_transformer_layer, x, w, kw, g)
+            out_want, grads_want = layer_grads(fb.layer_reference, x, w, kw, g)
+        compare(f"fused_transformer_layer [{mode}] (out)", out, out_want, LAYER_ATOL, LAYER_RTOL)
+        for name, a, b in zip(("x", *w, *kw), grads, grads_want):
+            compare(f"layer grad d{name} [{mode}]", a, b, None, KERNEL_RTOL, LAYER_GRAD_REL_L2,
+                    atol_frac=LAYER_GRAD_ATOL_FRAC)
+        sync()
+    return errs
+
+
+def train_ff_modes(fb, dev, gen):
+    """Phase 21, correctness: ViT-B/16 trained 4 steps under each switch
+    (loss falls, exact launch counters), the first step's loss and gradients
+    against the plain twins under the same switch; returns the new kernels'
+    launches summed over the three modes' kernel-path steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[21 opt-in backwards] ViT-B/16 @224, depth {DEPTH}, remat=True, dropout 0, bf16, seed {SEED}; bs={B_TRAIN}, "
+        f"{TRAIN_STEPS} Adam steps on one batch under each of {[env for _, env in FF_MODES]}")
+    base = vit_b(dev, bf16)
+    names = [n for n, _ in base.named_parameters()]
+    images = torch.randn(B_TRAIN, 3, 224, 224, generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
+    launches = dict.fromkeys(FF_KERNELS, 0)
+    for mode, env in FF_MODES:
+        with ff_switch(env):
+            model = copy.deepcopy(base)
+            state, step = create_train_state(model), make_train_step(model)
+            fb.reset_launch_counts()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                losses.append(step(state, images, labels)["loss"].item())
+                if i == 0:
+                    grads = grad_vector(model)
+            sync()
+            counts = dict(fb.LAUNCHES)
+            per_layer = FF_MODE_LAUNCHES_PER_LAYER[mode]
+            want = {k: DEPTH * per_layer.get(k, 0) * TRAIN_STEPS for k in fb.LAUNCHES}
+            log(f"  [{mode}] losses {[f'{v:.6f}' for v in losses]}; launches {counts} (expected {want}: {DEPTH} "
+                f"layers x {sum(per_layer.values())} launches x {TRAIN_STEPS} steps)")
+            if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+                fail(f"[{mode}] the training loss is not finite or does not fall on the repeated batch")
+            if counts != want:
+                fail(f"[{mode}] the training path did not launch every kernel of every layer")
+            for k in launches:
+                launches[k] += counts[k]
+            plain = copy.deepcopy(base)
+            fb.reset_launch_counts()
+            with plain_layers():
+                loss_plain = make_train_step(plain)(create_train_state(plain), images, labels)["loss"].item()
+            sync()
+            if any(fb.LAUNCHES.values()):
+                fail(f"[{mode}] the plain path launched kernels: {fb.LAUNCHES}")
+            compare_grads(f"[{mode}] first step vs plain bf16, same switch", grads, grad_vector(plain), losses[0],
+                          loss_plain, TRAIN_VS_PLAIN, names)
+            del model, plain, state, step
+    return launches
+
+
+def time_ff_modes(fb, dev, gen, smi):
+    """Phase 21, timing: ms/step at bs=1024 of the default backward and of
+    each switch, in turns (default, full, hybrid, layer, layer, hybrid,
+    full, default), with peak memory; each new launch at bs=128 against its
+    twin, its bound and the library call; one gemm_wgrad launch at bs=1024.
+    Returns the timing entries."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[21 opt-in backwards timing] ViT-B/16 bs={B_TRAIN_TIME}, {smi}")
+    model = vit_b(dev, bf16)
+    images = torch.randn(B_TRAIN_TIME, 3, 224, 224, generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (B_TRAIN_TIME,), generator=gen, device=dev)
+    state, step = create_train_state(model), make_train_step(model)
+    modes = (("default", {}), *FF_MODES)
+    runs = {name: [] for name, _ in modes}
+    for name, env in (*modes, *reversed(modes)):
+        with ff_switch(env):
+            runs[name].append(train_step_ms(dev, lambda: step(state, images, labels)))
+    for name, r in runs.items():
+        log(f"  train step [{name}]: {sum(t for t, _ in r) / len(r):.3f} ms/step (turns {[round(t, 3) for t, _ in r]}), "
+            f"peak device memory {max(m for _, m in r):.2f} GiB")
+    del model, state, step, images
+
+    b = B_TIME
+    rows = b * N
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+    w, _ = layer_weights(rnd)
+    y, g, m = rnd(b, N, DIM), rnd(b, N, DIM), rnd(b, N, HEADS * DH)
+    dqkv = rnd(b, N, 3 * HEADS * DH)
+    per_kernel = {}
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    with torch.inference_mode():
+        y2 = fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"])
+        act, h1 = fb.gemm_bf16(y2, w["w1"], "fc1_save", bias=w["b1"])
+        w2_t, w1_t = w["w2"].t().contiguous(), w["w1"].t().contiguous()
+        dh1, _ = fb.gemm_bf16(g, w2_t, "gelu_bwd", aux=h1)
+        dyln = fb.gemm_f32out(dh1, w1_t)
+        works = ff_works(rows)
+        launches = (  # (kernel, site, kernel call, plain call) in the FF chain's order; no one torch call
+            # computes any of them
+            ("gemm_bf16[fc1_save]", "act, h1 = gelu(y2.W1 + b1)",
+             lambda: fb.gemm_bf16(y2, w["w1"], "fc1_save", bias=w["b1"]),
+             lambda: fb.gemm_bf16_reference(y2, w["w1"], "fc1_save", bias=w["b1"])),
+            ("gemm_bf16[gelu_bwd]", "dh1 = g.W2 * gelu'(h1), db1", lambda: fb.gemm_bf16(g, w2_t, "gelu_bwd", aux=h1),
+             lambda: fb.gemm_bf16_reference(g, w2_t, "gelu_bwd", aux=h1)),
+            ("layernorm_bwd_rows[res_f32]", "LN2 backward (+g, one cast)",
+             lambda: fb.layernorm_bwd_rows(y, dyln, w["ln2_scale"], residual=g, res_f32=True),
+             lambda: fb.layernorm_bwd_rows_reference(y, dyln, w["ln2_scale"], residual=g, res_f32=True)),
+        )
+        log(f"  each new launch at bs={b} (rows {rows}):")
+        for name, site, kern, plain in launches:
+            km, pm = in_turns(kern, plain, 10)
+            record(per_kernel, name, km, pm, works[name])
+            bound, by = bound_ms(works[name])
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by})")
+        # gemm_wgrad: one layer's four sites (the whole-layer backward's; full mode runs the first two)
+        for site, a_, b_ in (("dW2 = g^T act", g, act), ("dW1 = dh1^T y2", dh1, y2),
+                             ("dW_out = dy^T m", g, m), ("dW_qkv = dqkv^T h", dqkv, y2)):
+            a2, b2 = flat(a_), flat(b_)
+            km, pm = in_turns(lambda: fb.gemm_wgrad(a2, b2), lambda: fb.gemm_wgrad_reference(a2, b2), 10)
+            lib_ms = cuda_ms(lambda: torch.matmul(a2.t(), b2), 10)
+            wk = wgrad_work(rows, a2.shape[1], b2.shape[1])
+            record(per_kernel, "gemm_wgrad", km, pm, wk, lib_ms)
+            bound, by = bound_ms(wk)
+            log(f"  gemm_wgrad[{site}] ({a2.shape[1]} x {b2.shape[1]}, K={rows}): kernel {km:.4f} ms, plain "
+                f"{pm:.4f} ms, bound {bound:.4f} ms ({by}), torch.matmul(a.t(), b) {lib_ms:.4f} ms")
+        del y2, act, h1, dh1, dyln
+        k_big = B_TRAIN_TIME * N
+        a_big, b_big = rnd(k_big, MLP), rnd(k_big, DIM)
+        km = cuda_ms(lambda: fb.gemm_wgrad(a_big, b_big), 5)
+        lib_ms = cuda_ms(lambda: torch.matmul(a_big.t(), b_big), 5)
+        bound, by = bound_ms(wgrad_work(k_big, MLP, DIM))
+        log(f"  gemm_wgrad[dW1] at bs={B_TRAIN_TIME} (K={k_big}): kernel {km:.4f} ms "
+            f"({2 * k_big * MLP * DIM / km / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({by}), torch.matmul(a.t(), b) "
+            f"{lib_ms:.4f} ms")
+        del a_big, b_big
+    sync()
+    return per_kernel
+
+
 def host_ms(fn, iters=10):
     """Host ms of fn (after one warm-up call), bracketed by synchronize()."""
     fn()
@@ -2038,6 +2327,15 @@ def main():
     errs.update(simple_errs)
     phase_done("phase 19")
 
+    # -- 20. the opt-in backwards' kernels against their plain twins ------------
+    errs.update(check_ff_kernels(fb, rnd))
+    phase_done("phase 20")
+
+    # -- 21. ViT-B/16 training under each opt-in backward ------------------------
+    ff_counts = train_ff_modes(fb, dev, gen)
+    per_kernel.update(time_ff_modes(fb, dev, gen, smi))
+    phase_done("phase 21")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -2071,6 +2369,8 @@ def main():
                  simple_serving_counts["gemm_bf16[block_out]"]),
            entry("gemm_bf16[block_out, bare]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-qk-norm serving",
                  qk_serving_counts["gemm_bf16[block_out]"])]
+        + [entry(name, source, replaces, "ViT-B/16 training under VIT_TPU_FF_BWD=full|hybrid and "
+                 "VIT_TPU_ENABLE_WHOLE_LAYER_BWD=1", ff_counts[name]) for name, (source, replaces) in FF_KERNELS.items()]
     )
     for k in kernels:
         if not k["launches"]:
@@ -2083,7 +2383,9 @@ def main():
         "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
         "for the dropout variants, phase 9's mask checks for dropout_masks, NaViT-B's serving forward for "
         "flash_fwd and its 4 training steps for the flash backward, SimpleViT-qk-norm's requests and 4 training "
-        "steps for the qk-norm variants, each SimpleViT's requests for its block_out site)")
+        "steps for the qk-norm variants, each SimpleViT's requests for its block_out site, the three opt-in "
+        "backwards' 4 training steps each for their kernels; gemm_wgrad's times are one layer's four sites at "
+        "bs=128, its library call torch.matmul(a.t(), b) at each)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -273,9 +273,9 @@ def test_dispatcher_raises_for_routes_still_to_port(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 6"):
         attention.dot_product_attention(q, q, q, use_flash=True)  # the short kernel
     with pytest.raises(NotImplementedError, match="item 6"):
-        attention.dot_product_attention(q, q, q, bias=torch.zeros(2, 8, 8))
+        attention.dot_product_attention(q, q, q, bias=torch.zeros(2, 8, 8), use_flash=True)
     with pytest.raises(NotImplementedError, match="item 4"):
-        attention.dot_product_attention(q, q, q, causal=True)
+        attention.dot_product_attention(q, q, q, causal=True, use_flash=True)
     with pytest.raises(NotImplementedError, match="item 4"):
         attention.dot_product_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8), q_segment_ids=ids,
                                         kv_segment_ids=ids, use_flash=True)

@@ -1,6 +1,8 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
-// fused_layer_bwd.cu, dropout.cu, flash_attention.cu).  Everything here has
-// internal linkage: each source that includes it gets its own copy.
+// fused_layer_bwd.cu, gemm_wgrad.cu, dropout.cu, flash_attention.cu).
+// Everything here has internal linkage (each source that includes it gets its
+// own copy), apart from launch_column_sum, declared here and defined once in
+// fused_layer_bwd.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +36,12 @@ struct DropoutArgs {
   uint32_t threshold;  // keep iff bits >= threshold
   float inv;           // 1 / (1 - rate), applied in f32
 };
+
+// sums[c] = factor * sum over r of partial[r][c] for a (rows, width) f32
+// buffer, in a fixed order (deterministic): the second pass of every
+// column sum that blocks write as per-block partial rows (fused_layer_bwd.cu)
+cudaError_t launch_column_sum(const float* partial, float* sums, int rows, int width, float factor,
+                              cudaStream_t stream);
 
 namespace {
 
@@ -389,6 +397,62 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NT][4], int n, int t, fl
     s[j][2] *= inv1;
     s[j][3] *= inv1;
   }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): gemm_bf16 (fused_layer.cu) and gemm_wgrad (gemm_wgrad.cu)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes shared memory through the generic proxy; wgmma reads it
+// through the async proxy
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// keep the compiler from moving accumulator reads across the async wgmma
+__device__ __forceinline__ void fence_operands(float* d, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (bits 16-29 and 32-45, in 16-byte units).
+// K-major tiles (rows of 64 bf16 along K): lbo unused, sbo = 1024, the 8-row
+// group stride.  MN-major tiles (rows of 64 bf16 along M or N, one row a k):
+// lbo = the stride between 64-wide groups along M or N, sbo = the stride
+// between 8-row groups along K.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const bf16* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D(64x128, f32 regs) += A(64x16) . B(16x128), both in 128B-swizzled shared
+// memory given by descriptors; TRANS_A/TRANS_B = 0: the operand is K-major,
+// 1: MN-major (the transpose wgmma takes for 16-bit types); accumulates
+// (scale-d = 1)
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 }  // namespace

@@ -58,6 +58,14 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
 }
 
+// d/dh of the tanh GELU in f32, ops/fused_block.py::_gelu_tanh_grad
+// (:1147-1153), the term order kept
+__device__ __forceinline__ float gelu_tanh_grad(float h) {
+  const float c = 0.7978845608028654f, a = 0.044715f;
+  const float t = tanhf(c * (h + a * h * h * h));
+  return 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * c * (1.0f + 3.0f * a * h * h);
+}
+
 // ---------------------------------------------------------------------------
 // layernorm_rows
 //
@@ -153,7 +161,9 @@ layernorm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, co
 // tile loop are later work.
 // ---------------------------------------------------------------------------
 
-enum Epilogue { kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4, kEpiBlockOut = 5 };
+enum Epilogue {
+  kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4, kEpiBlockOut = 5, kEpiFc1Save = 6, kEpiGeluBwd = 7
+};
 
 // kEpiBlockOut is the out projection of the attention-block kernel.
 // Replaces: the out-proj site of ops/fused_block.py::_kernel (:357-374), which
@@ -172,6 +182,31 @@ struct BlockOutArgs {
   int drop;   // 0: no mask
 };
 
+// kEpiFc1Save and kEpiGeluBwd are the FF backward's two products with a
+// weight that carry an elementwise epilogue.
+// Replaces: the fc1 recompute and the dact/GELU' lines of the row-tiled FF
+// backward ops/fused_block.py::_ff_bwd_kernel (:1553-1567) and of the
+// whole-layer backward _layer_bwd_kernel (:1229-1243).
+//  - kEpiFc1Save: h1 = bf16(bf16(y2 . W1^T) + b1), act = bf16(gelu_tanh(h1));
+//    both are stored (act to out, h1 to ff.aux), so the backward's GELU'
+//    reads the exact bf16 h1 the forward's GELU took.
+//  - kEpiGeluBwd: dh1 = (g . W2) * gelu_tanh_grad(h1) in f32, with h1 read
+//    from res; bf16(dh1) to out, and db1 = sum over rows of the f32 dh1
+//    (:1566, before the cast): each block adds its 128 rows per column
+//    (within a thread, over the 8 lanes of a column by shuffles, then the 8
+//    warps in order through shared memory) into its row of the (row tiles,
+//    N) f32 buffer ff.colpart, which launch_column_sum adds in a fixed order.
+// Bound on this card: tensor-core throughput (K = dim 768, N = mlp 3072 at
+// ViT-B), as fc1; the epilogues add one (M, N) bf16 store (fc1_save) or one
+// (M, N) bf16 read (gelu_bwd) to the product's bytes.
+// Design: the main loop unchanged; the dh1 column partials are one shuffle
+// tree and 4 KB of the pipeline's shared memory after the last product, so
+// db1 is bitwise deterministic and needs no atomics.
+struct FfArgs {
+  bf16* aux;      // kEpiFc1Save: h1 out
+  float* colpart; // kEpiGeluBwd: (ceil(M / 128), N) f32 column partials of dh1
+};
+
 // kEpiF32 (gemm_f32out) stores the f32 dot as it is.
 // Replaces: dh = dqkv . Wqkv^T of ops/fused_block.py::_bwd_kernel
 // (fused_block.py:695-700, the product in f32 that feeds the LayerNorm
@@ -185,7 +220,7 @@ struct BlockOutArgs {
 template <int EPI>
 __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
                                            const bf16* __restrict__ res, void* __restrict__ out,
-                                           const BlockOutArgs& bo) {
+                                           const BlockOutArgs& bo, const FfArgs& ff) {
   const size_t off = static_cast<size_t>(row) * N + col;
   if constexpr (EPI == kEpiF32) {
     *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
@@ -224,7 +259,8 @@ __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col,
       float2 bb = load_pair_f32(bias + col);
       t = round_bf16(t.x + bb.x, t.y + bb.y);
     }
-    if (EPI == kEpiFc1) {
+    if (EPI == kEpiFc1 || EPI == kEpiFc1Save) {
+      if constexpr (EPI == kEpiFc1Save) *reinterpret_cast<uint32_t*>(ff.aux + off) = pack_floats(t.x, t.y);
       o = pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
     } else {  // out-proj (+x) and fc2 (+y): residual add in bf16
       float2 r = load_pair_f32(res + off);
@@ -234,49 +270,9 @@ __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col,
   *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = o;
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// cp.async writes shared memory through the generic proxy; wgmma reads it
-// through the async proxy
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// keep the compiler from moving accumulator reads across the async wgmma
-__device__ __forceinline__ void fence_operands(float* d, int n) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // K-major operand descriptor, 128-byte swizzle: rows of 64 bf16 (128 B),
 // 8-row groups 1024 B apart
-__device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// D(64x128, f32 regs) += A(64x16) . B(16x128), both K-major in 128B-swizzled
-// shared memory, given by descriptors; accumulates (scale-d = 1)
-__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
+__device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) { return wgmma_desc_sw128(p, 16, 1024); }
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64;
 // the stage a load fills must not be read by the wgmma group in flight
@@ -288,7 +284,8 @@ constexpr int kGemmSmem = kGemmStages * (kGemmATile + kGemmBTile) * static_cast<
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const bf16* __restrict__ bias,
-                 const bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K, BlockOutArgs bo) {
+                 const bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K, BlockOutArgs bo,
+                 FfArgs ff) {
   extern __shared__ unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
   bf16* Bs = As + kGemmStages * kGemmATile;
@@ -337,7 +334,8 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const b
     const bf16* bs = Bs + (kt % kGemmStages) * kGemmBTile;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) wgmma_m64n128k16(d, wgmma_desc(as + kk * 16), wgmma_desc(bs + kk * 16));
+    for (int kk = 0; kk < kGemmBK / 16; ++kk)
+      wgmma_m64n128k16<0, 0>(d, wgmma_desc(as + kk * 16), wgmma_desc(bs + kk * 16));
     wgmma_commit();
     wgmma_wait<1>();  // tile kt-1's products are done; tile kt's stay in flight
   }
@@ -346,26 +344,64 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const b
 
   // accumulator layout: warp w of the warpgroup holds rows 16w + (g, g+8),
   // and d[4j..4j+3] their columns 8j + 2t, 8j + 2t + 1
+  if constexpr (EPI == kEpiGeluBwd) {
+    __syncthreads();  // both warpgroups' products are done: the ring's shared memory is free
+    float* colbuf = reinterpret_cast<float*>(As);  // [8 warps][128 columns]
+    const int warp8 = tid >> 5;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = n0 + j * 8 + 2 * t;
-    if (col >= N) continue;
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + j * 8 + 2 * t;  // N % 8 == 0: col < N is the same for the whole warp
+      float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
-      if (row < M) gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out, bo);
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
+        if (row < M && col < N) {
+          const size_t off = static_cast<size_t>(row) * N + col;
+          const float2 h = load_pair_f32(res + off);
+          const float2 v = make_float2(d[4 * j + 2 * half] * gelu_tanh_grad(h.x),
+                                       d[4 * j + 2 * half + 1] * gelu_tanh_grad(h.y));  // dh1 in f32
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = pack_floats(v.x, v.y);
+          p0 += v.x;
+          p1 += v.y;
+        }
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {  // over g: the lanes of one column pair
+        p0 += __shfl_xor_sync(0xffffffffu, p0, o);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, o);
+      }
+      if (g == 0) colbuf[warp8 * kGemmBN + j * 8 + 2 * t] = p0, colbuf[warp8 * kGemmBN + j * 8 + 2 * t + 1] = p1;
+    }
+    __syncthreads();
+    if (tid < kGemmBN && n0 + tid < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kGemmThreads / 32; ++w) s += colbuf[w * kGemmBN + tid];
+      ff.colpart[static_cast<size_t>(blockIdx.y) * N + n0 + tid] = s;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+      if (col >= N) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
+        if (row < M)
+          gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out, bo, ff);
+      }
     }
   }
 }
 
 template <int EPI>
 cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf16* res, void* out, int M, int N,
-                        int K, const BlockOutArgs& bo, cudaStream_t stream) {
+                        int K, const BlockOutArgs& bo, cudaStream_t stream, const FfArgs& ff = FfArgs{}) {
   cudaError_t err =
       cudaFuncSetAttribute(gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, bias, res, out, M, N, K, bo);
+  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, bias, res, out, M, N, K, bo, ff);
   return cudaGetLastError();
 }
 
@@ -522,6 +558,28 @@ int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* re
       return launch_gemm<kEpiBlockOut>(pa, pw, pb, pr, out, M, N, K, bo, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The FF backward's epilogues: epilogue kEpiFc1Save (6): out = act, h1_out =
+// h1, bias = b1 or null; kEpiGeluBwd (7): out = dh1, h1 = the saved h1,
+// colpart a (ceil(M / 128), N) f32 scratch buffer, colsum (N) f32 = db1
+int vit_gemm_ff(const void* a, const void* w, const void* bias, const void* h1, void* out, void* h1_out,
+                void* colpart, void* colsum, int M, int N, int K, int epilogue, void* stream) {
+  if (M <= 0 || N <= 0 || N % 8 || K % kGemmBK || (M + kGemmBM - 1) / kGemmBM > 65535) return cudaErrorInvalidValue;
+  const bf16 *pa = static_cast<const bf16*>(a), *pw = static_cast<const bf16*>(w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BlockOutArgs bo{};
+  if (epilogue == kEpiFc1Save) {
+    if (!h1_out) return cudaErrorInvalidValue;
+    return launch_gemm<kEpiFc1Save>(pa, pw, static_cast<const bf16*>(bias), nullptr, out, M, N, K, bo, s,
+                                    FfArgs{static_cast<bf16*>(h1_out), nullptr});
+  }
+  if (epilogue != kEpiGeluBwd || bias || !h1 || !colpart || !colsum) return cudaErrorInvalidValue;
+  float* part = static_cast<float*>(colpart);
+  cudaError_t err = launch_gemm<kEpiGeluBwd>(pa, pw, nullptr, static_cast<const bf16*>(h1), out, M, N, K, bo, s,
+                                             FfArgs{nullptr, part});
+  if (err != cudaSuccess) return err;
+  return launch_column_sum(part, static_cast<float*>(colsum), (M + kGemmBM - 1) / kGemmBM, N, 1.f, s);
 }
 
 // drop = 0: no dropout (seed, threshold, inv unread); gq, gk: the qk-norm

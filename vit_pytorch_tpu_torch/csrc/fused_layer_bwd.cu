@@ -20,7 +20,10 @@
 //   layernorm_bwd_rows   x, dh (f32), dy -> dx = bf16(bf16(dx_ln) + dy),
 //                        dgamma, dbeta (f32, summed over all rows)
 //
-// Rounding points follow _bwd_kernel :628-717 and the add of :1868.
+// Rounding points follow _bwd_kernel :628-717 and the add of :1868.  The
+// [res_f32] variant of layernorm_bwd_rows is the LayerNorm backward of the
+// row-tiled FF backward _ff_bwd_kernel (:1588-1596) and of the whole-layer
+// backward _layer_bwd_kernel (:1253-1261, :1339-1342).
 
 #include "common.cuh"
 
@@ -435,6 +438,7 @@ constexpr int kLnBwdWarps = 8;
 constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
 constexpr int kLnBwdMaxBlocks = 528;
 constexpr int kLnBwdMaxDim = 3584;  // 64 * dim bytes of slices <= 232,448
+constexpr int kLnBwdResMaxDim = 2416;  // [res_f32]: 96 * dim bytes of slices <= 232,448
 constexpr int kLnSumCols = 32, kLnSumSlices = 8;  // the partials' sum: 32 columns x 8 row slices a block
 
 int layernorm_bwd_blocks(int rows) {
@@ -457,17 +461,33 @@ __device__ __forceinline__ void load8_bf16(float f[8], const bf16* p) {
   }
 }
 
+// RES_F32: the [res_f32] variant.
+// Replaces: the LayerNorm backward with its residual of _ff_bwd_kernel,
+// dy = (dy_ln + g).astype(io) (fused_block.py:1588-1596), and of
+// _layer_bwd_kernel, dy = ln_bwd(dyln) + g kept in f32 (:1261) and dx =
+// ln_bwd(dh) + dy (:1342): the residual (bf16 g, or the f32 dy) is added to
+// the f32 dx_ln before one cast, or none (res_f32 and dx_f32 say which).
+// It also sums the f32 residual per column into a third slice: db2 = sum of
+// g (:1559) and db_out = sum of dy (:1274).
+// Bound on this card: memory, as the plain variant: x, dh and the residual
+// in, dx out.
+// Design: the plain variant's, with three slices (dgamma, dbeta, the
+// residual's sum) a warp, so dim <= 2416.
+template <bool RES_F32>
 __global__ void __launch_bounds__(kLnBwdThreads)
 layernorm_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dh, const bf16* __restrict__ w,
-                          const bf16* __restrict__ res, bf16* __restrict__ dx, float* __restrict__ partial, int rows,
-                          int dim, float eps) {
-  extern __shared__ float ln_bwd_smem[];  // [warps][2][dim]: dgamma, dbeta
+                          const void* __restrict__ res, int res_f32, void* __restrict__ dx, int dx_f32,
+                          float* __restrict__ partial, int rows, int dim, float eps) {
+  constexpr int kSlices = RES_F32 ? 3 : 2;
+  extern __shared__ float ln_bwd_smem[];  // [warps][kSlices][dim]: dgamma, dbeta (, the residual's sum)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* acc = ln_bwd_smem + warp * 2 * dim;
+  float* acc = ln_bwd_smem + warp * kSlices * dim;
   const int nvec = dim / 8;
   for (int v = lane; v < nvec; v += 32) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[8 * v + i] = acc[dim + 8 * v + i] = 0.f;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int sl = 0; sl < kSlices; ++sl) acc[sl * dim + 8 * v + i] = 0.f;
   }
 
   for (int row = blockIdx.x * kLnBwdWarps + warp; row < rows; row += gridDim.x * kLnBwdWarps) {
@@ -516,11 +536,31 @@ layernorm_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ 
         acc[8 * v + i] += dv[i] * xh;
         acc[dim + 8 * v + i] += dv[i];
       }
+      const size_t off = static_cast<size_t>(row) * dim + 8 * v;
+      if constexpr (RES_F32) {
+        float rv[8];
+        if (res_f32) {
+          load8_f32(rv, static_cast<const float*>(res) + off);
+        } else {
+          load8_bf16(rv, static_cast<const bf16*>(res) + off);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          out[i] += rv[i];  // in f32, before the one cast
+          acc[2 * dim + 8 * v + i] += rv[i];
+        }
+        if (dx_f32) {
+          float4* o4 = reinterpret_cast<float4*>(static_cast<float*>(dx) + off);
+          o4[0] = make_float4(out[0], out[1], out[2], out[3]);
+          o4[1] = make_float4(out[4], out[5], out[6], out[7]);
+          continue;
+        }
+      }
       uint4 o;
       uint32_t* po = reinterpret_cast<uint32_t*>(&o);
-      if (res) {
+      if (!RES_F32 && res) {
         float rv[8];
-        load8_bf16(rv, res + static_cast<size_t>(row) * dim + 8 * v);
+        load8_bf16(rv, static_cast<const bf16*>(res) + off);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const __nv_bfloat162 r = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);  // dx_ln in bf16
@@ -531,15 +571,15 @@ layernorm_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < 4; ++i) po[i] = pack_floats(out[2 * i], out[2 * i + 1]);
       }
-      *reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * dim + 8 * v) = o;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(dx) + off) = o;
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * dim; c += kLnBwdThreads) {
+  for (int c = threadIdx.x; c < kSlices * dim; c += kLnBwdThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kLnBwdWarps; ++wi) s += ln_bwd_smem[wi * 2 * dim + c];
-    partial[static_cast<size_t>(blockIdx.x) * 2 * dim + c] = s;
+    for (int wi = 0; wi < kLnBwdWarps; ++wi) s += ln_bwd_smem[wi * kSlices * dim + c];
+    partial[static_cast<size_t>(blockIdx.x) * kSlices * dim + c] = s;
   }
 }
 
@@ -566,6 +606,13 @@ layernorm_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ 
 }
 
 }  // namespace
+
+cudaError_t launch_column_sum(const float* partial, float* sums, int rows, int width, float factor,
+                              cudaStream_t stream) {
+  layernorm_bwd_sum_kernel<<<(width + kLnSumCols - 1) / kLnSumCols, kLnSumCols * kLnSumSlices, 0, stream>>>(
+      partial, sums, rows, width, factor);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes).  Pointers are device pointers of contiguous tensors,
@@ -632,18 +679,36 @@ int vit_layernorm_bwd_rows(const void* x, const void* dh, const void* w, const v
   if (rows <= 0 || dim <= 0 || dim % 8 || dim > kLnBwdMaxDim) return cudaErrorInvalidValue;
   const int smem = kLnBwdWarps * 2 * dim * static_cast<int>(sizeof(float));
   cudaError_t err =
-      cudaFuncSetAttribute(layernorm_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(layernorm_bwd_rows_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = layernorm_bwd_blocks(rows);
-  layernorm_bwd_rows_kernel<<<blocks, kLnBwdThreads, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dh), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(res), static_cast<bf16*>(dx), static_cast<float*>(partial), rows, dim, eps);
+  layernorm_bwd_rows_kernel<false><<<blocks, kLnBwdThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dh), static_cast<const bf16*>(w), res, 0, dx, 0,
+      static_cast<float*>(partial), rows, dim, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  layernorm_bwd_sum_kernel<<<(2 * dim + kLnSumCols - 1) / kLnSumCols, kLnSumCols * kLnSumSlices, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(sums), blocks, 2 * dim, 1.f);
-  return cudaGetLastError();
+  return launch_column_sum(static_cast<const float*>(partial), static_cast<float*>(sums), blocks, 2 * dim, 1.f, s);
+}
+
+// The [res_f32] variant: res (rows, dim) bf16 (res_f32 = 0) or f32 (1), dx
+// (rows, dim) bf16 (dx_f32 = 0) or f32 (1), partial (blocks, 3, dim) f32
+// scratch -> sums (3, dim) f32 = dgamma, dbeta, the residual's column sum
+int vit_layernorm_bwd_rows_res(const void* x, const void* dh, const void* w, const void* res, int res_f32, void* dx,
+                               int dx_f32, void* partial, void* sums, int rows, int dim, float eps, void* stream) {
+  if (rows <= 0 || dim <= 0 || dim % 8 || dim > kLnBwdResMaxDim || !res) return cudaErrorInvalidValue;
+  const int smem = kLnBwdWarps * 3 * dim * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(layernorm_bwd_rows_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = layernorm_bwd_blocks(rows);
+  layernorm_bwd_rows_kernel<true><<<blocks, kLnBwdThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dh), static_cast<const bf16*>(w), res, res_f32, dx,
+      dx_f32, static_cast<float*>(partial), rows, dim, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_column_sum(static_cast<const float*>(partial), static_cast<float*>(sums), blocks, 3 * dim, 1.f, s);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 nvcc compiles each source to an object, all sources at once in parallel, and
-links them into one shared library with a plain C interface, under ``build/``
-at the repository root (git-ignored), named by a hash of the sources, their
-headers (``csrc/*.cuh``) and the flags, so that an edit rebuilds and an
-unchanged tree reuses the library.  ``ctypes`` loads it: every pointer and the stream are passed as
+links them into one shared library with a plain C interface, under
+:func:`build_dir` (``build/`` at the repository root in a checkout,
+git-ignored; a user cache directory for an installed package), named by a
+hash of the sources, their headers (``csrc/*.cuh``) and the flags, so that an
+edit rebuilds and an unchanged tree reuses the library.  ``ctypes`` loads it: every pointer and the stream are passed as
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
@@ -23,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_ROOT = Path(__file__).resolve().parents[2]  # the repository root in a checkout, site-packages once installed
+BUILD_DIR_ENV = "VIT_TORCH_BUILD_DIR"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -53,6 +55,15 @@ _SIGNATURES = {
     "vit_layernorm_bwd_blocks": (_I,),
     # x, dh, w, res, dx, partial, sums, rows, dim, eps, stream
     "vit_layernorm_bwd_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # the [res_f32] variant: x, dh, w, res, res is f32, dx, dx is f32, partial, sums, rows, dim, eps, stream
+    "vit_layernorm_bwd_rows_res": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P),
+    # the FF backward's gemm_bf16 epilogues: a, w, bias, h1 in, out, h1 out, column partials, column sums,
+    # M, N, K, epilogue, stream
+    "vit_gemm_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # M, N, K -> splits of the K axis
+    "vit_gemm_wgrad_splits": (_I, _I, _I),
+    # a, b, out, partials, M, N, K, splits, stream
+    "vit_gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, q ids, kv ids, batch, heads, n, m, dim_head, scale, 18 strides, stream
     "vit_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P),
     # q, k, v, dO, lse, delta, q ids, kv ids, dq, batch, heads, n, m, dim_head, scale, strides, stream
@@ -60,6 +71,21 @@ _SIGNATURES = {
     # ..., dk, dv, batch, heads, n, m, dim_head, scale, strides, stream
     "vit_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P),
 }
+
+
+def build_dir(root: Path = _ROOT) -> Path:
+    """Where the library is built: ``$VIT_TORCH_BUILD_DIR`` when set; else
+    ``build/`` under ``root`` when ``root`` is a checkout (it holds ``.git``
+    or ``pyproject.toml``); else ``vit_pytorch_tpu_torch`` under the user's
+    cache directory (``$XDG_CACHE_HOME``, or ``~/.cache``), since an
+    installed package's ``root`` is ``site-packages``."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    if override:
+        return Path(override)
+    if (root / ".git").exists() or (root / "pyproject.toml").is_file():
+        return root / "build"
+    cache = os.environ.get("XDG_CACHE_HOME")
+    return (Path(cache) if cache else Path.home() / ".cache") / "vit_pytorch_tpu_torch"
 
 
 class KernelLibrary:
@@ -106,7 +132,7 @@ def load_library() -> KernelLibrary:
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libvit_kernels_{digest.hexdigest()[:16]}.so"
+    path = build_dir() / f"libvit_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = None, ""
     if not path.is_file():
         t0 = time.perf_counter()
@@ -120,8 +146,8 @@ def _build(path: Path, sources) -> str:
     """nvcc each source to an object, all at once, then link them into
     ``path``; returns nvcc's output."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
         objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
         procs = [
             subprocess.Popen(

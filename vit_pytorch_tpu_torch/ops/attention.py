@@ -11,9 +11,11 @@ Two backends behind one dispatcher, as in the JAX package:
 sequences (segment ids) and for m >= 1024, as the JAX dispatcher does on a
 TPU, where the kernels' gate :func:`~.flash_attention.flash_supported`
 admits the operands (bf16, dim_head 64); fp32 and other shapes take the
-composite.  The routes still to port (the short kernel, flash with a bias,
-causal or dropout, a per-head bias) raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.  The ViT's own layers do not come here on the
+composite.  The composite takes a causal triangle and a bias of shape (h,
+n, m) or (b, h, n, m), as the JAX dispatcher's does; the kernel routes still
+to port (the short kernel, flash with a bias, causal or dropout) raise
+``NotImplementedError`` naming the ROADMAP item that brings them, and only
+when the caller asks for them with ``use_flash=True``.  The ViT's own layers do not come here on the
 card: they go through ``ops/fused_block.py``.
 """
 
@@ -33,16 +35,19 @@ def on_cuda(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def build_segment_mask(q_segment_ids, kv_segment_ids, n: int, m: int, *, causal: bool = False, mask=None):
+def build_segment_mask(q_segment_ids, kv_segment_ids, n: int, m: int, *, causal: bool = False, mask=None,
+                       device=None):
     """Fold NaViT segment ids (token i attends j iff seg[i] == seg[j], both
     non-negative) and/or a causal triangle into a dense (b, 1, n, m) mask
-    (JAX attention.py:51-68)."""
+    (JAX attention.py:51-68).  The triangle is built on ``device`` (the
+    dispatcher passes q's), else on the segment ids' device, else the CPU."""
     if q_segment_ids is not None and kv_segment_ids is not None:
         qs, ks = q_segment_ids[:, :, None], kv_segment_ids[:, None, :]
         seg_mask = ((qs == ks) & (qs >= 0) & (ks >= 0))[:, None, :, :]
         mask = seg_mask if mask is None else (mask & seg_mask)
     if causal:
-        device = q_segment_ids.device if q_segment_ids is not None else None
+        if device is None:
+            device = q_segment_ids.device if q_segment_ids is not None else "cpu"
         cmask = torch.ones((n, m), dtype=torch.bool, device=device).tril()
         mask = cmask if mask is None else (mask & cmask)
     return mask
@@ -124,17 +129,11 @@ def dot_product_attention(
         raise ValueError("qk-norm gammas must be given for both q and k")
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    if causal:
-        raise NotImplementedError(
-            "causal attention is not ported yet (ROADMAP: TPU kernels to port, item 4, the flash causal variant)"
-        )
-    if bias is not None and bias.ndim == 3:
-        raise NotImplementedError(
-            "per-head (h, n, m) bias routing is not ported yet (ROADMAP: TPU kernels to port, item 6, "
-            "_short_kernel)"
-        )
     if gamma_q is not None:
         q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
+    # a per-head (h, n, m) rel-pos table shared by the batch (windowed
+    # attention), the short kernel's operand (JAX :183-188)
+    per_head_bias = bias is not None and bias.ndim == 3 and tuple(bias.shape) == (q.shape[1], n, m)
 
     # train-time dropout would run inside the flash kernels on the card
     # (JAX :194-199); a traced scale cannot be baked into a kernel (:204)
@@ -151,7 +150,8 @@ def dot_product_attention(
         use_flash = kernel_ok and on_cuda(q) and (m >= 1024 or q_segment_ids is not None)
 
     if use_flash and kernel_ok:
-        if bias is None and q_segment_ids is None and dropout_rate == 0.0 and m <= 1024:
+        if (bias is None or per_head_bias) and q_segment_ids is None and not causal and dropout_rate == 0.0 \
+                and m <= 1024:
             raise NotImplementedError(
                 "the short-sequence kernel route is not ported yet (ROADMAP: TPU kernels to port, item 6, "
                 "_short_kernel)"
@@ -160,6 +160,11 @@ def dot_product_attention(
             raise NotImplementedError(
                 "flash attention with dropout is not ported yet (ROADMAP: TPU kernels to port, item 7, flash "
                 "dropout with flash_dropout_masks)"
+            )
+        if causal:
+            raise NotImplementedError(
+                "flash attention with causal masking is not ported yet (ROADMAP: TPU kernels to port, item 4, the "
+                "flash causal variant)"
             )
         if bias is not None:
             raise NotImplementedError(
@@ -173,7 +178,9 @@ def dot_product_attention(
                 q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             )
 
-    mask = build_segment_mask(q_segment_ids, kv_segment_ids, n, m, mask=mask)
+    # segments and the causal triangle fold into the dense mask; a bias of
+    # shape (h, n, m) or (b, h, n, m) adds to the logits (JAX :290-310)
+    mask = build_segment_mask(q_segment_ids, kv_segment_ids, n, m, causal=causal, mask=mask, device=q.device)
     return xla_attention(
         q, k, v, scale=scale, bias=bias, mask=mask, dropout_rate=dropout_rate,
         generator=generator, return_attn=return_attn,

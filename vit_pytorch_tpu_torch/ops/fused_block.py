@@ -38,11 +38,32 @@ the TPU PRNG with the same key)::
          attention_bwd_rows replaying the attention mask
 
 ``dropout_masks`` replays both masks (the JAX ``dropout_masks``, :190).
+
 With ``gamma_q``/``gamma_k`` (qk-norm, SimpleViT-qk-norm's attention) the
 attention launches normalise q and k in-kernel (``attention_rows[qknorm]``,
 ``_kernel`` :323-338) and the backward recomputes the norm, closes it on dq
 and dk and returns dgamma_q/dgamma_k (``attention_bwd_rows[qknorm]``,
 ``_bwd_kernel`` :614-688).
+
+The JAX package's two opt-in backwards of the whole layer run here behind the
+same switches, read at call time (:1364-1386, :1619-1655), off by default:
+
+- ``VIT_TPU_FF_BWD=full|hybrid`` (legacy ``VIT_TPU_ENABLE_FF_BWD=1`` is
+  ``full``): the FF half is the port of the row-tiled ``_ff_bwd_kernel``
+  (:1493), then the attention half as above::
+
+    y  -> layernorm_rows                                    = y2   (recompute)
+    y2 -> gemm_bf16[fc1_save] with W1                       = act, h1
+    g  -> gemm_bf16[gelu_bwd] with W2, h1                   = dh1, db1
+    dh1 -> gemm_f32out with W1                              = dyln (f32)
+    y, dyln, g -> layernorm_bwd_rows[res_f32]               = dy, dln2 gamma/beta, db2
+    full: gemm_wgrad(g, act) = dW2, gemm_wgrad(dh1, y2) = dW1;
+    hybrid: the same two products as torch.matmul (XLA GEMMs in JAX, :1737-1745)
+
+- ``VIT_TPU_ENABLE_WHOLE_LAYER_BWD``: the whole-layer ``_layer_bwd_kernel``
+  (:1156): the FF chain with dy kept in f32, the attention half's launches
+  from bf16(dy), ``layernorm_bwd_rows[res_f32]`` adding the f32 dy, and
+  ``gemm_wgrad`` for dW_out and dW_qkv too.
 
 Each kernel wrapper has its plain PyTorch twin (``*_reference``) in this
 module.  A wrapper takes the twin only for a tensor on the CPU; on a CUDA
@@ -54,6 +75,7 @@ Weights are in ``nn.Linear``'s (out, in) layout; the kernels read them so.
 
 from __future__ import annotations
 
+import os
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -73,6 +95,11 @@ ATTN_MAX_KEYS = 208  # 16 * kAttnKT: keys padded to 13 chunks of 16
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # M-tiles ride on gridDim.y
 LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
+LN_BWD_RES_MAX_DIM = 2416  # kLnBwdResMaxDim: the [res_f32] variant's 3 slices
+GEMM_BM = 128  # kGemmBM: rows of a gemm_bf16 block (gelu_bwd's column partials, one row a block)
+
+# the opt-in backwards of the whole layer, the JAX package's switches
+FF_BWD_ENV, FF_BWD_LEGACY_ENV, LAYER_BWD_ENV = "VIT_TPU_FF_BWD", "VIT_TPU_ENABLE_FF_BWD", "VIT_TPU_ENABLE_WHOLE_LAYER_BWD"
 
 # launches per kernel since the last reset_launch_counts(); a variant
 # ("[dropout]", "[qknorm]", "[block_out]") counts apart from its kernel's
@@ -84,11 +111,14 @@ LAUNCHES = {
     "attention_bwd_rows[dropout]": 0, "dropout_masks": 0,
     "attention_rows[qknorm]": 0, "attention_rows[dropout,qknorm]": 0,
     "attention_bwd_rows[qknorm]": 0, "attention_bwd_rows[dropout,qknorm]": 0,
+    "gemm_bf16[fc1_save]": 0, "gemm_bf16[gelu_bwd]": 0, "layernorm_bwd_rows[res_f32]": 0, "gemm_wgrad": 0,
 }
 
 # gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
-# of the f32 dot), named for the backward's dm = dy . W_out
-_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5}
+# of the f32 dot), named for the backward's dm = dy . W_out; the FF
+# backward's two ("fc1_save", "gelu_bwd") return two tensors each
+_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5, "fc1_save": 6, "gelu_bwd": 7}
+_FF_EPILOGUES = ("fc1_save", "gelu_bwd")
 _EPI_F32 = 4  # gemm_f32out: the f32 dot stored as it is
 
 # gemm_bf16's launches by epilogue (its call site), beside its LAUNCHES entry
@@ -213,7 +243,15 @@ def layernorm_rows_reference(x, weight, bias, *, eps: float = LN_EPS):
     return (out * weight.float() + bias.float()).to(x.dtype)
 
 
-def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: float = 0.0,
+def gelu_tanh_grad_reference(h):
+    """d/dh of the tanh GELU in f32: the JAX ``_gelu_tanh_grad``
+    (fused_block.py:1147-1153)."""
+    c, a = 0.7978845608028654, 0.044715
+    t = torch.tanh(c * (h + a * h * h * h))
+    return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3.0 * a * h * h)
+
+
+def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, aux=None, dropout_rate: float = 0.0,
                         seed=None, heads: int = 0):
     """``a @ w.T`` with f32 accumulation and the epilogue of one of the four
     GEMM sites of ``_layer_rows``:
@@ -226,8 +264,24 @@ def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, dropou
     or ``block_out``, the out projection of the attention-block kernel
     ``_kernel`` (:357-374): f32 dot + f32 bias, times keep * 1/(1 - rate) of
     the output stream (stream head ``heads``) with ``dropout_rate`` > 0,
-    + the f32 residual if given, one cast; ``a`` is (b, n, inner).
+    + the f32 residual if given, one cast; ``a`` is (b, n, inner);
+
+    or one of the FF backward's two sites (``_ff_bwd_kernel`` :1553-1567):
+
+    - ``fc1_save``: ``fc1``'s result and its GELU input, ``(act, h1)`` with
+      ``h1 = cast(cast(dot) + bias)``;
+    - ``gelu_bwd``: ``dh1 = f32 dot * gelu_tanh_grad(h1)`` for ``aux = h1``,
+      ``(cast(dh1), db1)`` with ``db1`` the f32 column sum of dh1 over all
+      rows.
     """
+    if epilogue == "gelu_bwd":
+        dh1 = F.linear(a.float(), w.float()) * gelu_tanh_grad_reference(aux.float())
+        return dh1.to(a.dtype), dh1.reshape(-1, dh1.shape[-1]).sum(0)
+    if epilogue == "fc1_save":
+        h1 = F.linear(a, w)
+        if bias is not None:
+            h1 = h1 + bias
+        return F.gelu(h1, approximate="tanh"), h1
     if epilogue == "block_out":
         out = F.linear(a.float(), w.float(), None if bias is None else bias.float())
         if dropout_rate > 0.0:
@@ -353,13 +407,19 @@ def attention_bwd_rows_reference(qkv, dm, *, heads: int, dim_head: int, scale: f
     return (m.transpose(1, 2).reshape(b, n, -1), dqkv.reshape(b, n, -1), *dgammas)
 
 
-def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, eps: float = LN_EPS):
+def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, res_f32: bool = False, out_f32: bool = False,
+                                 eps: float = LN_EPS):
     """LayerNorm backward of ``_bwd_kernel`` (fused_block.py:702-717) from the
     f32 gradient ``dh`` of the normalised rows: ``xhat`` and ``r`` recomputed
     from x in f32, ``dx = r (dxhat - mean(dxhat) - xhat mean(dxhat xhat))``
     cast to x.dtype, and with ``residual`` the add of :1868,
     ``(f32(dx) + f32(residual))`` cast once more.  Returns ``(dx, dgamma,
-    dbeta)``, the last two summed over every row in f32."""
+    dbeta)``, the last two summed over every row in f32.
+
+    ``res_f32`` (the ``[res_f32]`` variant, ``_ff_bwd_kernel`` :1588-1596 and
+    ``_layer_bwd_kernel`` :1261, :1342): the residual (x.dtype or f32) is
+    added to the f32 dx before the one cast, which ``out_f32`` leaves out;
+    the result is ``(dx, dgamma, dbeta, the residual's f32 column sum)``."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
@@ -368,11 +428,16 @@ def layernorm_bwd_rows_reference(x, dh, weight, *, residual=None, eps: float = L
     dh = dh.float()
     dxhat = dh * weight.float()
     dx = r * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dim = x.shape[-1]
+    sums = ((dh * xhat).reshape(-1, dim).sum(0), dh.reshape(-1, dim).sum(0))
+    if res_f32:
+        res = residual.float()
+        dx = dx + res
+        return (dx if out_f32 else dx.to(x.dtype)), *sums, res.reshape(-1, dim).sum(0)
     dx = dx.to(x.dtype)
     if residual is not None:
         dx = (dx.float() + residual.float()).to(x.dtype)
-    dim = x.shape[-1]
-    return dx, (dh * xhat).reshape(-1, dim).sum(0), dh.reshape(-1, dim).sum(0)
+    return (dx, *sums)
 
 
 def out_dropout_bwd_reference(g, seed, *, heads: int, rate: float):
@@ -382,6 +447,13 @@ def out_dropout_bwd_reference(g, seed, *, heads: int, rate: float):
     b, n, dim = g.shape
     keep = _out_keep(seed, b, n, dim, heads, rate, g.device)
     return (torch.where(keep, g.float(), 0.0) * _inv_keep(rate)).to(g.dtype)
+
+
+def gemm_wgrad_reference(a, b):
+    """``a^T b`` over the row axis, in f32: a (K, M) and b (K, N) to (M, N),
+    the weight gradients ``_ff_bwd_kernel`` and ``_layer_bwd_kernel``
+    accumulate in f32 (fused_block.py:1245-1252, :1321-1333, :1573-1580)."""
+    return torch.matmul(a.float().t(), b.float())
 
 
 def ff_reference(y, ln2_scale, ln2_bias, w1, b1, w2, b2, *, eps: float = LN_EPS):
@@ -474,18 +546,21 @@ def _check_gemm(name: str, a, w) -> None:
         raise ValueError(f"{name}: a {tuple(a.shape)} and w {tuple(w.shape)}")
 
 
-def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: float = 0.0, seed=None,
+def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, aux=None, dropout_rate: float = 0.0, seed=None,
               heads: int = 0):
     """``a @ w.T`` (w is (out, in)) with the named epilogue, see
-    :func:`gemm_bf16_reference`; ``block_out`` counts as its own variant."""
+    :func:`gemm_bf16_reference`; ``block_out``, ``fc1_save`` and
+    ``gelu_bwd`` count as variants of their own."""
     if epilogue not in _EPILOGUES:
         raise ValueError(f"gemm_bf16: unknown epilogue {epilogue!r}")
     if dropout_rate and epilogue != "block_out":
         raise ValueError(f"gemm_bf16[{epilogue}]: only the block_out epilogue takes dropout")
     if a.device.type == "cpu":
-        return gemm_bf16_reference(a, w, epilogue, bias=bias, residual=residual, dropout_rate=dropout_rate,
+        return gemm_bf16_reference(a, w, epilogue, bias=bias, residual=residual, aux=aux, dropout_rate=dropout_rate,
                                    seed=seed, heads=heads)
     _check_gemm("gemm_bf16", a, w)
+    if epilogue in _FF_EPILOGUES:
+        return _gemm_ff(a, w, epilogue, bias, aux)
     n_out, k = w.shape
     if bias is not None and (epilogue == "cast" or bias.shape != (n_out,)):
         raise ValueError(f"gemm_bf16[{epilogue}]: bias {tuple(bias.shape)} for {n_out} outputs")
@@ -508,6 +583,65 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, dropout_rate: fl
     lib.check(f"gemm_bf16[{epilogue}]", err)
     LAUNCHES["gemm_bf16[block_out]" if epilogue == "block_out" else "gemm_bf16"] += 1
     GEMM_LAUNCHES[epilogue] += 1
+    return out
+
+
+def _gemm_ff(a, w, epilogue: str, bias, aux):
+    """The FF backward's two epilogues of the gemm_bf16 kernel: ``fc1_save``
+    returns ``(act, h1)``, ``gelu_bwd`` (``aux`` = h1) ``(dh1, db1)``; the
+    latter's launch ends with the fixed-order sum of its blocks' column
+    partials, so db1 is deterministic."""
+    n_out, k = w.shape
+    out_shape = (*a.shape[:-1], n_out)
+    name = f"gemm_bf16[{epilogue}]"
+    if bias is not None and (epilogue == "gelu_bwd" or bias.shape != (n_out,)):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} for {n_out} outputs")
+    if epilogue == "gelu_bwd" and (aux is None or aux.shape != out_shape):
+        raise ValueError(f"{name}: needs h1 (aux) of shape {out_shape}")
+    _check_operands("gemm_bf16", a.device, a, w, bias, aux)
+    rows = a.numel() // k
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    h1 = colpart = colsum = None
+    if epilogue == "fc1_save":
+        h1 = torch.empty_like(out)
+    else:
+        colpart = torch.empty((-(-rows // GEMM_BM), n_out), dtype=torch.float32, device=a.device)
+        colsum = torch.empty((n_out,), dtype=torch.float32, device=a.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = load_library()
+    err = lib.lib.vit_gemm_ff(
+        a.data_ptr(), w.data_ptr(), ptr(bias), ptr(aux), out.data_ptr(), ptr(h1), ptr(colpart), ptr(colsum),
+        rows, n_out, k, _EPILOGUES[epilogue], _stream(a.device),
+    )
+    lib.check(name, err)
+    LAUNCHES[name] += 1
+    GEMM_LAUNCHES[epilogue] += 1
+    return (out, h1) if epilogue == "fc1_save" else (out, colsum)
+
+
+def gemm_wgrad(a, b):
+    """``a^T b`` over the row axis: a (K, M) and b (K, N) bf16 to (M, N) f32,
+    a weight gradient (see :func:`gemm_wgrad_reference`).  One launch: the K
+    axis split into ranges whose f32 partial tiles a second kernel adds in a
+    fixed order, so the result is bitwise deterministic; neither operand is
+    transposed in memory."""
+    if a.device.type == "cpu":
+        return gemm_wgrad_reference(a, b)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[0] > GEMM_MAX_ROWS or any(
+        d < 8 or d % 8 for d in (a.shape[1], b.shape[1])
+    ):
+        raise ValueError(f"gemm_wgrad: a {tuple(a.shape)} and b {tuple(b.shape)}; needs (K, M) and (K, N), "
+                         f"M and N multiples of 8")
+    _check_operands("gemm_wgrad", a.device, a, b)
+    (k, m), n = a.shape, b.shape[1]
+    lib = load_library()
+    splits = lib.lib.vit_gemm_wgrad_splits(m, n, k)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=a.device) if splits > 1 else None
+    err = lib.lib.vit_gemm_wgrad(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 None if partial is None else partial.data_ptr(), m, n, k, splits, _stream(a.device))
+    lib.check("gemm_wgrad", err)
+    LAUNCHES["gemm_wgrad"] += 1
     return out
 
 
@@ -662,14 +796,23 @@ def dropout_masks(seed, b: int, n: int, dim: int, heads: int, rate: float, *, de
     return attn, out
 
 
-def layernorm_bwd_rows(x, dh, weight, *, residual=None, eps: float = LN_EPS):
+def layernorm_bwd_rows(x, dh, weight, *, residual=None, res_f32: bool = False, out_f32: bool = False,
+                       eps: float = LN_EPS):
     """LayerNorm backward of each row from its f32 gradient ``dh``, with the
     residual add, and dgamma/dbeta over all rows, see
     :func:`layernorm_bwd_rows_reference`.  One launch runs the row pass
     (per-block partial sums into a scratch buffer) and a fixed-order sum of
-    the partials, so the result does not depend on block scheduling."""
+    the partials, so the result does not depend on block scheduling.
+    ``res_f32`` is the ``[res_f32]`` variant (the residual, bf16 or f32,
+    added before the one cast; ``out_f32`` keeps dx in f32; the residual's
+    column sum as a fourth result)."""
     if x.device.type == "cpu":
-        return layernorm_bwd_rows_reference(x, dh, weight, residual=residual, eps=eps)
+        return layernorm_bwd_rows_reference(x, dh, weight, residual=residual, res_f32=res_f32, out_f32=out_f32,
+                                            eps=eps)
+    if res_f32:
+        return _layernorm_bwd_rows_res(x, dh, weight, residual, out_f32, eps)
+    if out_f32:
+        raise ValueError("layernorm_bwd_rows: out_f32 is an option of the [res_f32] variant")
     dim = x.shape[-1]
     if (
         dh.shape != x.shape or weight.shape != (dim,) or dim % 8 or dim > LN_BWD_MAX_DIM
@@ -694,18 +837,46 @@ def layernorm_bwd_rows(x, dh, weight, *, residual=None, eps: float = LN_EPS):
     return dx, sums[0], sums[1]
 
 
+def _layernorm_bwd_rows_res(x, dh, weight, residual, out_f32: bool, eps: float):
+    """The ``[res_f32]`` launch of :func:`layernorm_bwd_rows`."""
+    dim = x.shape[-1]
+    name = "layernorm_bwd_rows[res_f32]"
+    if (
+        residual is None or residual.shape != x.shape or residual.dtype not in (x.dtype, torch.float32)
+        or dh.shape != x.shape or weight.shape != (dim,) or dim % 8 or dim > LN_BWD_RES_MAX_DIM
+    ):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, dh {tuple(dh.shape)}, weight {tuple(weight.shape)}, residual "
+                         f"{None if residual is None else (tuple(residual.shape), residual.dtype)}")
+    _check_operands(name, x.device, x, weight)
+    _check_operands(name, x.device, dh, dtype=torch.float32)
+    _check_operands(name, x.device, residual, dtype=residual.dtype)
+    rows = x.numel() // dim
+    lib = load_library()
+    blocks = lib.lib.vit_layernorm_bwd_blocks(rows)
+    dx = torch.empty(x.shape, dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
+    partial = torch.empty((blocks, 3, dim), dtype=torch.float32, device=x.device)
+    sums = torch.empty((3, dim), dtype=torch.float32, device=x.device)
+    err = lib.lib.vit_layernorm_bwd_rows_res(
+        x.data_ptr(), dh.data_ptr(), weight.data_ptr(), residual.data_ptr(), int(residual.dtype == torch.float32),
+        dx.data_ptr(), int(out_f32), partial.data_ptr(), sums.data_ptr(), rows, dim, eps, _stream(x.device),
+    )
+    lib.check(name, err)
+    LAUNCHES[name] += 1
+    return dx, sums[0], sums[1], sums[2]
+
+
 # the kernels (each falls to its twin for a CPU tensor) and their twins, in
 # the one chain that runs the layer either way
 KERNELS = SimpleNamespace(
     layernorm_rows=layernorm_rows, gemm_bf16=gemm_bf16, attention_rows=attention_rows,
     attention_bwd_rows=attention_bwd_rows, gemm_f32out=gemm_f32out,
-    layernorm_bwd_rows=layernorm_bwd_rows, dropout_apply=dropout_apply,
+    layernorm_bwd_rows=layernorm_bwd_rows, dropout_apply=dropout_apply, gemm_wgrad=gemm_wgrad,
 )
 TWINS = SimpleNamespace(
     layernorm_rows=layernorm_rows_reference, gemm_bf16=gemm_bf16_reference,
     attention_rows=attention_rows_reference, attention_bwd_rows=attention_bwd_rows_reference,
     gemm_f32out=gemm_f32out_reference, layernorm_bwd_rows=layernorm_bwd_rows_reference,
-    dropout_apply=out_dropout_bwd_reference,
+    dropout_apply=out_dropout_bwd_reference, gemm_wgrad=gemm_wgrad_reference,
 )
 
 
@@ -766,6 +937,50 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
       of dgamma and dbeta in shared memory).
     """
     return fused_block_supported(x_shape, dtype, heads, dim_head, dim) and mlp_dim % GEMM_BK == 0
+
+
+def _ff_bwd_kernels_take(x_shape, dim: int, mlp_dim: int) -> bool:
+    """The shapes the FF backward's kernels take beyond the forward's (the
+    H100 kernels' own limits, not the TPU's VMEM estimates ``_ff_bwd_rows``,
+    ``_vmem_bytes_*`` and the ``*_EST_LIMIT``s): every K a multiple of 64,
+    layernorm_bwd_rows[res_f32]'s dim <= 2416; the rows are masked, so any
+    b*n up to the GEMM's row limit goes."""
+    b, n, _ = x_shape
+    return (
+        dim % GEMM_BK == 0 and mlp_dim % GEMM_BK == 0 and 0 < dim <= LN_BWD_RES_MAX_DIM
+        and 0 < b * n <= GEMM_MAX_ROWS
+    )
+
+
+def ff_bwd_mode(x_shape, dtype, dim: int, mlp_dim: int) -> str:
+    """The FF backward of the whole layer: ``""`` (autograd through
+    :func:`ff_reference`, the default), ``"full"`` or ``"hybrid"`` (the port
+    of ``_ff_bwd_kernel``), as the JAX ``ff_bwd_mode`` (fused_block.py:
+    1619-1655) reads it at call time: ``VIT_TPU_FF_BWD``, else the legacy
+    ``VIT_TPU_ENABLE_FF_BWD`` set means ``full``; any other value is off.
+    The shape gate is the H100 kernels' (:func:`_ff_bwd_kernels_take`);
+    ``dtype`` and the attention's shapes are the whole layer's own gate's
+    (:func:`whole_layer_supported`), which admitted the forward on the card,
+    and on the CPU the twins take any."""
+    mode = os.environ.get(FF_BWD_ENV, "")
+    if not mode and os.environ.get(FF_BWD_LEGACY_ENV):
+        mode = "full"
+    if mode not in ("full", "hybrid"):
+        return ""
+    return mode if _ff_bwd_kernels_take(x_shape, dim, mlp_dim) else ""
+
+
+def ff_bwd_supported(x_shape, dtype, dim: int, mlp_dim: int) -> bool:
+    return bool(ff_bwd_mode(x_shape, dtype, dim, mlp_dim))
+
+
+def layer_bwd_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int) -> bool:
+    """The whole-layer backward (the port of ``_layer_bwd_kernel``), opt-in
+    as in the JAX package (fused_block.py:1364-1386): ``VIT_TPU_ENABLE_
+    WHOLE_LAYER_BWD`` set at call time, and the FF kernels' shapes, as
+    :func:`ff_bwd_mode`; its attention half runs the kernels of the default
+    backward, whose shapes the forward's gate admitted."""
+    return bool(os.environ.get(LAYER_BWD_ENV)) and _ff_bwd_kernels_take(x_shape, dim, mlp_dim)
 
 
 def _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads, dim_head, scale, eps):
@@ -845,11 +1060,74 @@ def attention_block_bwd_reference(
     )
 
 
+def _ff_backward(ops, y, g, ln2s, ln2b, w1, b1, w2, *, eps, hybrid: bool = False, dy_f32: bool = False):
+    """The backward of ``z = y + FF(LN2(y)) + b2`` from ``g = dL/dz``, the
+    port of ``_ff_pallas_backward`` (fused_block.py:1662-1756): ``(dy,
+    dln2s, dln2b, dW1, db1, dW2, db2)``, dy in y's dtype (in f32 with
+    ``dy_f32``, as ``_layer_bwd_kernel`` keeps it, :1261), db2 in f32, the
+    rest in their parameters' dtypes, the weights' in the port's (out, in)
+    layout.  ``hybrid``: the two dW products are ``torch.matmul`` on the
+    emitted y2, act and dh1, as JAX leaves them to XLA (:1737-1745); else
+    ``gemm_wgrad``, the accumulators of ``_ff_bwd_kernel``'s body."""
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    y2 = ops.layernorm_rows(y, ln2s, ln2b, eps=eps)
+    act, h1 = ops.gemm_bf16(y2, w1, "fc1_save", bias=b1)
+    # g . W2 and dh1 . W1 as a . (w^T)^T: a transposed copy of each weight,
+    # for the kernel's (out, in) operand layout
+    dh1, db1 = ops.gemm_bf16(g, w2.t().contiguous(), "gelu_bwd", aux=h1)
+    del h1  # the (b*n, mlp) transients are 1.24 GB each at ViT-B bs=1024: each goes when it is read last
+    dyln = ops.gemm_f32out(dh1, w1.t().contiguous())
+    dy, dln2s, dln2b, db2 = ops.layernorm_bwd_rows(y, dyln, ln2s, residual=g, res_f32=True, out_f32=dy_f32, eps=eps)
+    del dyln
+    if hybrid:
+        dW1, dW2 = torch.matmul(rows(dh1).t(), rows(y2)), torch.matmul(rows(g).t(), rows(act))
+    else:
+        dW1, dW2 = ops.gemm_wgrad(rows(dh1), rows(y2)), ops.gemm_wgrad(rows(g), rows(act))
+    return (dy, dln2s.to(ln2s.dtype), dln2b.to(ln2b.dtype), dW1.to(w1.dtype), db1.to(b1.dtype), dW2.to(w2.dtype),
+            db2)
+
+
+def _layer_backward(ops, x, y, g, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, *,
+                    heads, dim_head, scale, eps):
+    """The whole layer's backward from the saved ``(x, y)``, the port of
+    ``_layer_pallas_backward`` (fused_block.py:1389-1490): the FF half with dy
+    kept in f32 (:1227-1261), then the attention half from bf16(dy)
+    (:1263-1343, ``_bwd_kernel``'s math), dx = ln_bwd(dh) + dy added in f32
+    before one cast, and every weight gradient from ``gemm_wgrad``.
+    Returns its thirteen results: ``(dx, dW_qkv, db_qkv, dW_out, db_out,
+    dln1s, dln1b, dln2s, dln2b, dW1, db1, dW2, db2)``, dx in x's dtype, the
+    rest in their parameters' (db_qkv and db_out None without the bias).
+    db_qkv sums the bf16 dqkv that attention_bwd_rows emits, where JAX sums
+    the f32 one (:1327); ViT has no qkv bias."""
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    dy, dln2s, dln2b, dW1, db1, dW2, db2 = _ff_backward(ops, y, g, ln2s, ln2b, w1, b1, w2, eps=eps, dy_f32=True)
+    dyb = dy.to(x.dtype)
+    h = ops.layernorm_rows(x, ln1s, ln1b, eps=eps)
+    qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
+    dm = ops.gemm_bf16(dyb, w_out.t().contiguous(), "cast")
+    m, dqkv = ops.attention_bwd_rows(qkv, dm, heads=heads, dim_head=dim_head, scale=scale)
+    del qkv, dm
+    dh = ops.gemm_f32out(dqkv, w_qkv.t().contiguous())
+    dx, dln1s, dln1b, db_out = ops.layernorm_bwd_rows(x, dh, ln1s, residual=dy, res_f32=True, eps=eps)
+    del dh, dy
+    dW_out = ops.gemm_wgrad(rows(dyb), rows(m))
+    dW_qkv = ops.gemm_wgrad(rows(dqkv), rows(h))
+    db_qkv = rows(dqkv).float().sum(0).to(b_qkv.dtype) if b_qkv is not None else None
+    return (
+        dx, dW_qkv.to(w_qkv.dtype), db_qkv, dW_out.to(w_out.dtype), None if b_out is None else db_out.to(b_out.dtype),
+        dln1s.to(ln1s.dtype), dln1b.to(ln1b.dtype), dln2s, dln2b, dW1, db1, dW2, db2.to(b2.dtype),
+    )
+
+
 class _FusedLayer(torch.autograd.Function):
     """The counterpart of the JAX ``_fused_layer`` custom_vjp
     (fused_block.py:1773-1875): the forward saves ``(x, y)`` and the
-    weights; the backward is the decomposed one, FF vjp from y by autograd
-    through :func:`ff_reference`, then the attention-block backward on dy."""
+    weights; the backward dispatches as ``_fused_layer_bwd`` does
+    (:1793-1872), reading the switches at call time: the whole-layer
+    backward :func:`_layer_backward` where :func:`layer_bwd_supported`;
+    else the FF half by :func:`_ff_backward` where :func:`ff_bwd_mode` says
+    ``full`` or ``hybrid``, or by autograd through :func:`ff_reference` (the
+    default), then the attention-block backward on dy."""
 
     @staticmethod
     def forward(ctx, ops, heads, dim_head, scale, eps, x, w_qkv, b_qkv, w_out, b_out,
@@ -862,13 +1140,24 @@ class _FusedLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, y, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = ctx.saved_tensors
-        ff_in = (y, ln2s, ln2b, w1, b1, w2, b2)
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ff_in]
-            ff_out = ff_reference(*leaves, eps=ctx.cfg["eps"])
-        dy, dln2s, dln2b, dW1, db1, dW2, db2 = torch.autograd.grad(ff_out, leaves, g)
-        dy = dy.contiguous()
+        saved = ctx.saved_tensors
+        x, y, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = saved
+        g = g.contiguous()
+        dim, mlp_dim, eps = x.shape[-1], w1.shape[0], ctx.cfg["eps"]
+        if layer_bwd_supported(x.shape, x.dtype, ctx.cfg["heads"], ctx.cfg["dim_head"], dim, mlp_dim):
+            return (None,) * 5 + _layer_backward(ctx.ops, x, y, g, *saved[2:], **ctx.cfg)
+        mode = ff_bwd_mode(x.shape, x.dtype, dim, mlp_dim)
+        if mode:
+            dy, dln2s, dln2b, dW1, db1, dW2, db2 = _ff_backward(ctx.ops, y, g, ln2s, ln2b, w1, b1, w2, eps=eps,
+                                                                hybrid=mode == "hybrid")
+            db2 = db2.to(b2.dtype)
+        else:
+            ff_in = (y, ln2s, ln2b, w1, b1, w2, b2)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in ff_in]
+                ff_out = ff_reference(*leaves, eps=eps)
+            dy, dln2s, dln2b, dW1, db1, dW2, db2 = torch.autograd.grad(ff_out, leaves, g)
+            dy = dy.contiguous()
         attn = _attention_block_bwd(
             ctx.ops, x, dy, w_qkv, b_qkv, w_out, ln1s, ln1b, residual=dy, **ctx.cfg,
         )
