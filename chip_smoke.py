@@ -96,7 +96,25 @@ Phases, each printed as it ends:
      against the plain twins under the same switch; ms/step and peak memory
      at bs=1024 of each beside the default backward, in turns; each new
      launch at bs=128 against its twin, bound and library call, and one
-     gemm_wgrad launch at bs=1024.
+     gemm_wgrad launch at bs=1024;
+ 22. the flash kernels' dropout instantiations against their plain twins
+     at rate 0.1 on phase 12's cases and a packed case with q = 0 (every p
+     exactly 1, a tight bound on o): flash_fwd[dropout] (o, lse; it differs
+     from the rate-0 kernel), flash_bwd_dq[dropout], flash_bwd_dkv[dropout];
+     the flash_dropout_masks replay bitwise against its twin and, at n = m,
+     against dropout_masks' attention mask, keep fraction 0.9 +- 0.005; the
+     Function's o, dq, dk, dv against autograd through the f32
+     materialized composite fed the same masks;
+ 23. NaViT-B training with dropout 0.1, emb_dropout 0.1 (phase 14's batch,
+     a generator a step): depth 12, 4 steps (loss finite, exact counters:
+     12 of each [dropout] flash kernel and 1 of each rate-0 one a step, the
+     first step's loss against the plain bf16 path with an equal
+     generator); depth 2, the first step's loss and gradients against it; a
+     depth-2 nested-tensor NaViT, 2 steps with exact counters;
+ 24. its timing: ms/step and peak memory, kernel against plain in turns
+     (plain one step a turn) and against dropout 0 in turns; each [dropout]
+     launch at the packed shape against its twin and its rate-0 kernel,
+     SDPA with dropout_p beside flash_fwd[dropout]; the mask replay.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -354,11 +372,12 @@ def attention_work(b, n, heads, *, backward=False, dropout=False, qknorm=False):
     return work(bytes_, tensor=(12 if backward else 4) * logits * DH, f32=f32)
 
 
-def flash_work(name, ids, heads):
+def flash_work(name, ids, heads, dropout=False):
     """The flash kernels on packs with segment ids: the work the same-image
     (query, key) pairs of this data need (4, 6, 8 dh bf16 products a pair
-    for flash_fwd, flash_bwd_dq, flash_bwd_dkv), and their operands: q, k, v
-    (and dO) in, o (dq; dk and dv) out, the f32 lse (and delta)."""
+    for flash_fwd, flash_bwd_dq, flash_bwd_dkv, and a Philox draw a pair with
+    dropout), and their operands: q, k, v (and dO) in, o (dq; dk and dv)
+    out, the f32 lse (and delta)."""
     pairs = 0
     for row in ids.tolist():
         counts = np.bincount([i for i in row if i >= 0])
@@ -369,7 +388,8 @@ def flash_work(name, ids, heads):
     vec = b * heads * n * 4  # one (b, h, n) f32 vector
     ops = {"flash_fwd": (4, 4 * t + vec), "flash_bwd_dq": (6, 5 * t + 2 * vec), "flash_bwd_dkv": (8, 6 * t + 2 * vec)}
     per_pair, bytes_ = ops[name]
-    return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=5 * pairs)
+    f32 = (5 + (PHILOX_OPS_PER_ELEMENT if dropout else 0)) * pairs
+    return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=f32)
 
 
 def record(per_kernel, name, km, pm, w, library_ms=None):
@@ -1048,7 +1068,7 @@ def check_flash(fa, dev, gen):
     admitted = fa.tile_admitted(packed.image_ids, packed.image_ids)
     log(f"  tiles admitted by the skip test at the packed shape ({NAVIT_PACKS} packs x {NAVIT_SEQ} tokens, "
         f"{fa.BLOCK_Q}x{fa.BLOCK_K} tiles): {admitted.float().mean().item():.4f} of {admitted.numel()}")
-    errs = {name: 0.0 for name in fa.LAUNCHES}
+    errs = {name: 0.0 for name in TPU_FLASH}
     for name, q, k, v, qs, ks, scale in cases:
         kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
         do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -1275,7 +1295,7 @@ def check_navit_training(fb, fa, dev):
             if i == 0:
                 grads = grad_vector(model)
         sync()
-        launches = expect_launches(fb, fa, {k: (depth + 1) * steps for k in fa.LAUNCHES},
+        launches = expect_launches(fb, fa, {k: (depth + 1) * steps for k in TPU_FLASH},
                                    f"NaViT training at depth {depth}")
         plain = copy.deepcopy(initial)
         reset_all(fb, fa)
@@ -2088,6 +2108,284 @@ def time_ff_modes(fb, dev, gen, smi):
     return per_kernel
 
 
+# -- the NaViT dropout slice (phases 22-24) -------------------------------------
+# NaViT-B trained at dropout 0.1, emb_dropout 0.1 (the upstream README's NaViT
+# example) on phase 14's packed batch: each layer's attention runs the
+# [dropout] instantiations of the flash kernels; attn_pool has none (JAX
+# models/na_vit.py:92-100), so a step launches DEPTH of each [dropout] kernel
+# and one of each rate-0 kernel.
+FLASH_DROPOUT = ("flash_fwd[dropout]", "flash_bwd_dq[dropout]", "flash_bwd_dkv[dropout]")
+TPU_FLASH_DROPOUT = {  # their dropout branches: :255-290, :352-361, :425-456
+    **{f"{name}[dropout]": TPU_FLASH[name] for name in TPU_FLASH},
+    "flash_dropout_masks": "vit_pytorch_tpu/ops/flash_attention.py:897",
+}
+# Phase 22 holds each [dropout] kernel to its twin with phase 12's bounds, and
+# adds a packed case with q = 0, where every p is exactly 1: there the kernel
+# and its twin round at the same points on identical p, so o differs only by
+# f32 summation order, and its rel L2 to the twin is bounded tightly, to
+# refuse a kernel that scales p by 1/(1 - rate) before its bf16 cast (a 0.16%
+# shift at rate 0.1) where the random cases' bf16 flips would hide it.
+FLASH_UNIFORM_REL_L2 = 5e-4
+NESTED_DROPOUT_STEPS = 2
+
+
+def check_flash_dropout(fa, fb, dev, gen):
+    """Phase 22: the flash_dropout_masks replay bitwise against its twin and,
+    at n = m, against the attention block's dropout_masks, with the keep
+    fraction; each [dropout] flash kernel against its twin at rate 0.1 on
+    phase 12's cases and a packed case with q = 0; the Function against
+    autograd through the f32 materialized composite fed the same masks.
+    Returns the largest max_abs of each kernel against its twin and the
+    replay kernel's launches in its checks."""
+    log(f"[22 flash dropout kernels] rate {RATE}, seed {DROP_SEED}; bf16, heads={HEADS}, dh={DH}: phase 12's cases and "
+        f"the packed case with q = 0 (every p exactly 1)")
+    cases, _ = flash_cases(fa, dev, gen)
+    _, q, *rest = cases[0]  # the two 2048-token packs
+    cases = (*cases, ("packed, q = 0", torch.zeros_like(q), *rest))
+    dkw = dict(dropout_rate=RATE, seed=DROP_SEED)
+    errs = {name: 0.0 for name in TPU_FLASH_DROPOUT}
+    reset_all(fb, fa)
+    with torch.inference_mode():
+        for b, n, m in sorted({(q.shape[0], q.shape[2], k.shape[2]) for _, q, k, *_ in cases}):
+            got = fa.flash_dropout_masks(DROP_SEED, b, HEADS, n, m, RATE, device=dev)
+            same = torch.equal(got, fa.flash_dropout_masks_reference(DROP_SEED, b, HEADS, n, m, RATE, device=dev))
+            block = n != m or torch.equal(got, fb.dropout_masks(DROP_SEED, b, n, 8, HEADS, RATE, device=dev)[0])
+            frac = got.float().mean().item()
+            ok = same and block and abs(frac - (1 - RATE)) <= KEEP_FRACTION_TOL
+            log(f"  flash_dropout_masks ({b}, {HEADS}, {n}, {m}): bitwise equal to the twin: {same}; to "
+                f"dropout_masks' attention mask: {block if n == m else 'n/a (n != m)'}; keep fraction {frac:.5f} (want "
+                f"{1 - RATE} +- {KEEP_FRACTION_TOL}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"flash_dropout_masks ({b}, {HEADS}, {n}, {m}) disagrees with its twin or keeps the wrong fraction")
+            del got
+        sync()
+    mask_launches = fa.LAUNCHES["flash_dropout_masks"]
+    for name, q, k, v, qs, ks, scale in cases:
+        kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, **kw, **dkw)
+            o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw, **dkw)
+            errs["flash_fwd[dropout]"] = max(errs["flash_fwd[dropout]"], compare_or_zero(
+                f"flash_fwd[dropout] o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+            if name == "packed, q = 0":
+                l2, equal = rel_l2(o, o_want), (o == o_want).float().mean().item()
+                ok = l2 <= FLASH_UNIFORM_REL_L2
+                log(f"  flash_fwd[dropout] o [{name}]: rel L2 {l2:.3e} (bound {FLASH_UNIFORM_REL_L2}), {equal:.4f} of "
+                    f"the elements bitwise equal {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    fail("flash_fwd[dropout] rounds p elsewhere than its twin (the uniform case)")
+            live = lse_want > 0.5 * fa.NEG_INF
+            if not bool((lse[~live] == fa.NEG_INF).all()):
+                fail(f"flash_fwd[dropout] lse [{name}]: a fully masked row does not read the sentinel")
+            if live.any():
+                errs["flash_fwd[dropout]"] = max(errs["flash_fwd[dropout]"], compare(
+                    f"flash_fwd[dropout] lse [{name}]", lse[live], lse_want[live], FLASH_LSE_ATOL, FLASH_LSE_RTOL,
+                    F32_REL_L2))
+                drops = not torch.equal(o, fa.flash_fwd(q, k, v, **kw)[0])
+                log(f"  flash_fwd[dropout] o [{name}] differs from the rate-0 kernel's: {drops}")
+                if not drops:
+                    fail(f"flash_fwd[dropout] [{name}] drops nothing")
+            delta = (do.float() * o.float()).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw)
+            want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw)
+            for kernel, part, got, w in (("flash_bwd_dq[dropout]", "dq", dq, want[0]),
+                                         ("flash_bwd_dkv[dropout]", "dk", dk, want[1]),
+                                         ("flash_bwd_dkv[dropout]", "dv", dv, want[2])):
+                errs[kernel] = max(errs[kernel], compare_or_zero(f"{kernel} {part} [{name}]", got, w, None, ATTN_RTOL,
+                                                                 atol_frac=BWD_ATOL_FRAC))
+            del o, o_want, lse, lse_want, dq, dk, dv, want
+        sync()
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, **kw, dropout_rate=RATE, dropout_seed=DROP_SEED)
+        got = (out, *torch.autograd.grad(out, leaves, do))
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out_ref = fa.flash_attention_reference(*ref, **kw, dropout_rate=RATE, dropout_seed=DROP_SEED)
+        want = (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))
+        for part, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            compare_or_zero(f"flash_attention[dropout] {part} vs f32 twin [{name}]", a, b, None, ATTN_RTOL,
+                            FLASH_VS_F32_REL_L2, atol_frac=FLASH_VS_F32_ATOL_FRAC)
+        del leaves, ref, out, out_ref, got, want
+        sync()
+    return errs, mask_launches
+
+
+def navit_dropout_launches(depth, steps):
+    """A training step's flash launches: depth of each [dropout] kernel (the
+    layers) and one of each rate-0 kernel (attn_pool)."""
+    return {**{k: depth * steps for k in FLASH_DROPOUT}, **{k: steps for k in TPU_FLASH}}
+
+
+def check_navit_dropout_training(fb, fa, dev):
+    """Phase 23: NaViT-B at dropout 0.1, emb_dropout 0.1 through
+    make_train_step with the masked loss and a generator on phase 14's batch.
+    Depth 12: 4 steps, loss finite, exact launch counters, the first step's
+    loss against the plain bf16 path with an equal generator (the same
+    nn.Dropout masks and the same flash seeds, hence the same keep masks);
+    depth 2: the first step's loss and gradients against it; a depth-2
+    nested-tensor NaViT: 2 steps with exact counters.  Returns the launch
+    counts of the depth-12 steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    packed, labels = navit_train_batch(dev)
+    drop = dict(token_dropout_prob=NAVIT_TOKEN_DROPOUT, dropout=RATE, emb_dropout=RATE)
+    gen_seed = SEED + 3
+    log(f"[23 NaViT dropout training] NaViT-B, dropout {RATE}, emb_dropout {RATE}, token dropout {NAVIT_TOKEN_DROPOUT}, "
+        f"bf16, seed {SEED}; {packed.image_ids.shape[0]} packs x {NAVIT_SEQ}; dropout generator seed {gen_seed}; depth "
+        f"{DEPTH}: {TRAIN_STEPS} steps; depth {NAVIT_SHALLOW}: one; nested-tensor NaViT depth {NESTED_DEPTH}: "
+        f"{NESTED_DROPOUT_STEPS}")
+    for depth in (DEPTH, NAVIT_SHALLOW):
+        model = navit_model(dev, bf16, depth=depth, **drop)
+        initial = copy.deepcopy(model)
+        names = [n for n, _ in model.named_parameters()]
+        steps = TRAIN_STEPS if depth == DEPTH else 1
+        state, step = create_train_state(model), make_train_step(model, masked_ce)
+        drop_gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        reset_all(fb, fa)
+        losses = []
+        for i in range(steps):
+            losses.append(step(state, packed, labels, drop_gen)["loss"].item())
+            if i == 0:
+                grads = grad_vector(model)
+        sync()
+        launches = expect_launches(fb, fa, navit_dropout_launches(depth, steps),
+                                   f"NaViT dropout training at depth {depth}")
+        plain = copy.deepcopy(initial)
+        reset_all(fb, fa)
+        with plain_flash():
+            loss_plain = make_train_step(plain, masked_ce)(create_train_state(plain), packed, labels,
+                                                           torch.Generator(device=dev).manual_seed(gen_seed))
+        loss_plain = loss_plain["loss"].item()
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"the plain path launched kernels: {all_launches(fb, fa)}")
+        if not all(v == v and abs(v) != float("inf") for v in losses):
+            fail("the NaViT dropout training loss is not finite")
+        if depth == DEPTH:
+            counts = launches
+            d_plain = abs(losses[0] - loss_plain) / abs(loss_plain)
+            ok = d_plain <= NAVIT_DEEP_LOSS and all(bool(torch.isfinite(g).all()) for g in grads)
+            log(f"  depth {depth}: losses {[f'{v:.6f}' for v in losses]}; first step loss {losses[0]:.6f}, plain bf16 "
+                f"{loss_plain:.6f}, rel {d_plain:.3e} (bound {NAVIT_DEEP_LOSS}) {'ok' if ok else 'FAILED'}; gradients "
+                f"(finite; not bounded at this depth) rel L2 kernel vs plain bf16 "
+                f"{grads_rel_l2(grads, grad_vector(plain)):.4e}")
+            if not ok:
+                fail(f"NaViT dropout training at depth {depth}: the first step's loss is out of bounds")
+        else:
+            compare_grads(f"depth {depth}, first step vs plain bf16, same masks", grads, grad_vector(plain), losses[0],
+                          loss_plain, NAVIT_TRAIN_VS_PLAIN, names)
+        del model, plain, initial, state, step
+        sync()
+
+    nested = navit_model(dev, bf16, nested=True, depth=NESTED_DEPTH, **drop)
+    state, step = create_train_state(nested), make_train_step(nested, masked_ce)
+    drop_gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    reset_all(fb, fa)
+    losses = [step(state, packed, labels, drop_gen)["loss"].item() for _ in range(NESTED_DROPOUT_STEPS)]
+    sync()
+    expect_launches(fb, fa, navit_dropout_launches(NESTED_DEPTH, NESTED_DROPOUT_STEPS),
+                    "nested-tensor NaViT dropout training")
+    log(f"  nested-tensor NaViT (depth {NESTED_DEPTH}): losses {[f'{v:.6f}' for v in losses]}")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        fail("the nested-tensor NaViT dropout training loss is not finite")
+    del nested, state, step
+    sync()
+    return counts
+
+
+def time_navit_dropout(fb, fa, dev, gen, smi):
+    """Phase 24: NaViT-B training ms/step and peak memory at dropout 0.1,
+    the kernel path against the plain path in turns (plain one step a turn:
+    its int64 Philox masks take seconds a step), and against the dropout-0
+    kernel path in turns; each [dropout] launch at the packed shape against
+    its twin and its rate-0 kernel, flash_fwd[dropout] against SDPA with
+    dropout_p under the block-diagonal mask, and the mask replay.  Returns
+    the timing entries."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[24 NaViT dropout timing] {smi}")
+    packed, labels = navit_train_batch(dev)
+    drop = dict(token_dropout_prob=NAVIT_TOKEN_DROPOUT, dropout=RATE, emb_dropout=RATE)
+    model = navit_model(dev, bf16, **drop)
+    model0 = navit_model(dev, bf16, token_dropout_prob=NAVIT_TOKEN_DROPOUT)
+    state, step = create_train_state(model), make_train_step(model, masked_ce)
+    state0, step0 = create_train_state(model0), make_train_step(model0, masked_ce)
+    drop_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def kernel_step():
+        step(state, packed, labels, drop_gen)
+
+    def plain_step():
+        with plain_flash():
+            step(state, packed, labels, drop_gen)
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (
+        train_step_ms(dev, f, iters)
+        for f, iters in ((plain_step, 1), (kernel_step, 2), (kernel_step, 2), (plain_step, 1)))
+    r1, (d1, _), (d2, _), r2 = (train_step_ms(dev, f) for f in (
+        lambda: step0(state0, packed, labels), kernel_step, kernel_step, lambda: step0(state0, packed, labels)))
+    k_ms = (k1 + k2) / 2
+    log(f"  training step at dropout {RATE}, {packed.image_ids.shape[0]} packs: kernel path {k_ms:.3f} ms/step "
+        f"({NAVIT_IMAGES * 1e3 / k_ms:.1f} img/s), plain bf16 path {(p1 + p2) / 2:.3f} ms/step (one step a turn); turns "
+        f"ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory kernel "
+        f"{max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    log(f"  against dropout 0 in turns: dropout 0 {(r1[0] + r2[0]) / 2:.3f} ms/step (peak {max(r1[1], r2[1]):.2f} GiB), "
+        f"dropout {RATE} {(d1 + d2) / 2:.3f}; turns ms {r1[0]:.3f} {d1:.3f} {d2:.3f} {r2[0]:.3f}")
+    del model, model0, state, state0, step, step0
+
+    ids = packed.image_ids
+    shape = (ids.shape[0], HEADS, NAVIT_SEQ, DH)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    q, k = fa.rms_norm(q, 1.0), fa.rms_norm(k, 1.0)
+    q, k, v, do = (t.to(bf16) for t in (q, k, v, do))
+    kw = dict(scale=1.0, q_segment_ids=ids, kv_segment_ids=ids)
+    dkw = dict(dropout_rate=RATE, seed=DROP_SEED)
+    per_kernel = {}
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, **kw, **dkw)
+        delta = (do.float() * o.float()).sum(-1)
+        launches = (  # (kernel, its call, its plain twin, the rate-0 kernel)
+            ("flash_fwd[dropout]", lambda: fa.flash_fwd(q, k, v, **kw, **dkw),
+             lambda: fa.flash_fwd_reference(q, k, v, **kw, **dkw), lambda: fa.flash_fwd(q, k, v, **kw)),
+            ("flash_bwd_dq[dropout]", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw),
+             lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw),
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            ("flash_bwd_dkv[dropout]", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw),
+             lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw),
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+        )
+        log(f"  each [dropout] launch at the packed shape ({shape[0]} packs x {HEADS} heads x {NAVIT_SEQ} tokens, "
+            f"rate {RATE}), in turns with its rate-0 kernel; the plain twin (dq, dk and dv at once) 2 calls:")
+        mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))[:, None]
+        library = {"flash_fwd[dropout]": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=RATE, scale=1.0), 5)}
+        del mask
+        for name, kern, plain, rate0 in launches:
+            km, r0 = in_turns(kern, rate0, 10)
+            pm = cuda_ms(plain, 2)
+            w = flash_work(name.removesuffix("[dropout]"), ids, HEADS, dropout=True)
+            record(per_kernel, name, km, pm, w, library.get(name))
+            bound, by = bound_ms(w)
+            log(f"  {name}: kernel {km:.4f} ms, rate-0 kernel {r0:.4f} ms (+{km - r0:.4f}), plain {pm:.4f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+        log(f"  scaled_dot_product_attention(dropout_p={RATE}) with the (b, 1, n, n) block-diagonal mask: "
+            f"{library['flash_fwd[dropout]']:.4f} ms")
+        del o, lse, delta
+        b, n = 2, NAVIT_SEQ
+        km, pm = cuda_ms(lambda: fa.flash_dropout_masks(DROP_SEED, b, HEADS, n, n, RATE, device=dev), 10), cuda_ms(
+            lambda: fa.flash_dropout_masks_reference(DROP_SEED, b, HEADS, n, n, RATE, device=dev), 2)
+        elements = b * HEADS * n * n
+        w = work(4 * elements, f32=PHILOX_OPS_PER_ELEMENT * elements)
+        record(per_kernel, "flash_dropout_masks", km, pm, w)
+        log(f"  flash_dropout_masks ({b}, {HEADS}, {n}, {n}), phase 22's packed shape: kernel {km:.4f} ms, plain "
+            f"{pm:.4f} ms, bound {bound_ms(w)[0]:.4f} ms ({bound_ms(w)[1]})")
+    sync()
+    return per_kernel
+
+
 def host_ms(fn, iters=10):
     """Host ms of fn (after one warm-up call), bracketed by synchronize()."""
     fn()
@@ -2336,6 +2634,19 @@ def main():
     per_kernel.update(time_ff_modes(fb, dev, gen, smi))
     phase_done("phase 21")
 
+    # -- 22. flash dropout kernels against their plain twins --------------------
+    flash_dropout_errs, flash_mask_launches = check_flash_dropout(fa, fb, dev, gen)
+    errs.update(flash_dropout_errs)
+    phase_done("phase 22")
+
+    # -- 23. NaViT-B training with dropout ----------------------------------------
+    navit_dropout_counts = check_navit_dropout_training(fb, fa, dev)
+    phase_done("phase 23")
+
+    # -- 24. NaViT dropout timing ---------------------------------------------------
+    per_kernel.update(time_navit_dropout(fb, fa, dev, gen, smi))
+    phase_done("phase 24")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -2371,6 +2682,10 @@ def main():
                  qk_serving_counts["gemm_bf16[block_out]"])]
         + [entry(name, source, replaces, "ViT-B/16 training under VIT_TPU_FF_BWD=full|hybrid and "
                  "VIT_TPU_ENABLE_WHOLE_LAYER_BWD=1", ff_counts[name]) for name, (source, replaces) in FF_KERNELS.items()]
+        + [entry(name, FLASH_SOURCE, TPU_FLASH_DROPOUT[name], "NaViT training at dropout 0.1",
+                 navit_dropout_counts[name]) for name in FLASH_DROPOUT]
+        + [entry("flash_dropout_masks", DROPOUT_SOURCE, TPU_FLASH_DROPOUT["flash_dropout_masks"], "flash mask replay",
+                 flash_mask_launches)]
     )
     for k in kernels:
         if not k["launches"]:
@@ -2384,8 +2699,11 @@ def main():
         "for the dropout variants, phase 9's mask checks for dropout_masks, NaViT-B's serving forward for "
         "flash_fwd and its 4 training steps for the flash backward, SimpleViT-qk-norm's requests and 4 training "
         "steps for the qk-norm variants, each SimpleViT's requests for its block_out site, the three opt-in "
-        "backwards' 4 training steps each for their kernels; gemm_wgrad's times are one layer's four sites at "
-        "bs=128, its library call torch.matmul(a.t(), b) at each)")
+        "backwards' 4 training steps each for their kernels, NaViT-B's 4 training steps at dropout 0.1 for the "
+        "flash [dropout] kernels, phase 22's checks for flash_dropout_masks; gemm_wgrad's times are one layer's "
+        "four sites at bs=128, its library call torch.matmul(a.t(), b) at each; the flash [dropout] kernels' at "
+        "NaViT-B's packed training shape, flash_fwd[dropout]'s library call SDPA with dropout_p=0.1 under the "
+        "block-diagonal mask; flash_dropout_masks' at (2, 12, 2048, 2048))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

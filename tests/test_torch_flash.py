@@ -191,10 +191,16 @@ def test_flash_refuses_the_options_off_this_path():
         (dict(bias=torch.zeros(1, 2, 8, 8)), "item 4"),
         (dict(causal=True), "item 4"),
         (dict(gamma_q=torch.ones(2, 1, 64), gamma_k=torch.ones(2, 1, 64)), "VIT_TPU_FUSE_QKNORM"),
-        (dict(dropout_rate=0.1, dropout_seed=1), "item 7"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             flash.flash_attention(q, q, q, **kw)
+    # dropout is on this path now: it runs, with the seed JAX requires
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 2, 8, 64)).astype(np.float32))
+    out = flash.flash_attention(x, x, x, dropout_rate=0.1, dropout_seed=1)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert not torch.equal(out, flash.flash_attention(x, x, x))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="both"):
         flash.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8, dtype=torch.int32))
     with pytest.raises(ValueError, match="tiles"):
@@ -279,8 +285,14 @@ def test_dispatcher_raises_for_routes_still_to_port(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 4"):
         attention.dot_product_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8), q_segment_ids=ids,
                                         kv_segment_ids=ids, use_flash=True)
+    # segment ids with dropout on the card: the flash route runs (its twins
+    # here), no longer a raise
+    calls = _spy_flash(monkeypatch)
     monkeypatch.setattr(attention, "on_cuda", lambda x: True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        attention.dot_product_attention(q, q, q, q_segment_ids=ids, kv_segment_ids=ids, dropout_rate=0.1)
+    monkeypatch.setattr(attention, "flash_supported", lambda *a: True)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 2, 8, 64)).astype(np.float32))
+    out = attention.dot_product_attention(x, x, x, q_segment_ids=ids, kv_segment_ids=ids, dropout_rate=0.1)
+    assert calls == [(torch.float32, True)]
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="both"):
         attention.dot_product_attention(q, q, q, q_segment_ids=ids)

@@ -97,13 +97,14 @@ __device__ __forceinline__ uint32_t keep_nibble(const DropoutArgs& d, uint32_t s
 
 // A block's keep tile, bit-packed in shared memory: words[r * WORDS + w] bit
 // i is the keep bit of row r0 + r, column c0 + 32w + i (c0 a multiple of 4);
-// rows >= n_rows and columns >= n_cols read 0.  All kAttnThreads threads;
-// each word is 8 Philox calls, so the attention loops read one shared word
-// per element pair instead of drawing bits in their register-bound bodies.
-template <int ROWS, int WORDS>
+// rows >= n_rows and columns >= n_cols read 0.  All THREADS threads of the
+// block; each word is 8 Philox calls, so the attention loops read one shared
+// word per element pair instead of drawing bits in their register-bound
+// bodies.
+template <int ROWS, int WORDS, int THREADS = kAttnThreads>
 __device__ __forceinline__ void fill_keep_tile(uint32_t* words, const DropoutArgs& d, uint32_t stream, int r0, int c0,
                                                int n_rows, int n_cols) {
-  for (int i = threadIdx.x; i < ROWS * WORDS; i += kAttnThreads) {
+  for (int i = threadIdx.x; i < ROWS * WORDS; i += THREADS) {
     const int r = i / WORDS, w = i % WORDS;
     const int col = c0 + 32 * w;
     uint32_t bits = 0u;

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) kernels of the attention block's dropout that stand apart
-// from its products: the output-dropout gradient and the mask replay.  Both
-// draw their bits from keep_nibble (common.cuh), the Philox4x32-10 function
-// every kernel of the block draws from, so they see the masks that
-// attention_rows, gemm_bf16[block_out] and attention_bwd_rows apply.
+// Hopper (sm_90a) kernels of the attention dropout that stand apart from
+// the products: the attention block's output-dropout gradient, and the mask
+// replays of the attention block and of the flash kernels.  All draw their
+// bits from keep_nibble (common.cuh), the Philox4x32-10 function every
+// dropout kernel draws from, so they see the masks that attention_rows,
+// gemm_bf16[block_out], attention_bwd_rows and the flash kernels'
+// [dropout] instantiations (flash_attention.cu) apply.
 
 #include "common.cuh"
 
@@ -52,38 +54,55 @@ dropout_apply_kernel(const bf16* __restrict__ g, bf16* __restrict__ gm, long lon
 }
 
 // ---------------------------------------------------------------------------
-// dropout_masks
+// dropout_masks and flash_dropout_masks
 //
-// Replaces: ops/fused_block.py::dropout_masks (:190, its pallas_call :210),
+// Replace: ops/fused_block.py::dropout_masks (:190, its pallas_call :210),
 // the replay of the fused kernels' keep masks for equivalence tests:
-// attn_keep (b, heads, n, n) and out_keep (b, n, dim), int32 0/1.
-// Bound on this card: the int32 stores, 4 bytes a bit (b*heads*n*n + b*n*dim
-// elements), against one Philox call per 4 of them.
-// Design: a block row of the grid per (stream, image), stream < heads an
-// attention head and stream == heads the output dropout; one thread per 4
-// columns of a row, one Philox call, up to 4 stores.  It is a test tool: the
-// fused kernels draw their bits themselves.
+// attn_keep (b, heads, n, n) and out_keep (b, n, dim), int32 0/1; and
+// ops/flash_attention.py::flash_dropout_masks (:897, its pallas_call :923),
+// the flash kernels' keep masks (b, heads, n, m), int32 0/1.  The TPU's
+// flash masks depend on its tiles (_tile_keep :84-98); these are keyed by
+// element, so flash_dropout_masks(seed, b, h, n, n) equals dropout_masks'
+// attn_keep bit for bit.
+// Bound on this card: the int32 stores, 4 bytes a bit, against one Philox
+// call per 4 of them.
+// Design: a block row of the grid per (stream, image); one thread per 4
+// columns of a row, one Philox call, up to 4 stores (store_keep_rows).  They
+// are test tools: the attention kernels draw their bits themselves.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaskThreads = 256;
 
-__global__ void __launch_bounds__(kMaskThreads)
-dropout_masks_kernel(int* __restrict__ attn_keep, int* __restrict__ out_keep, int n, int dim, int heads,
-                     DropoutArgs drop) {
-  const int stream = blockIdx.y, img = blockIdx.z;
-  const int cols = stream < heads ? n : dim;
+// the (rows, cols) int32 keep bits of one stream into dst, row-major; the
+// block row of the grid strides over the (row, 4-column group) pairs
+__device__ __forceinline__ void store_keep_rows(int* __restrict__ dst, const DropoutArgs& drop, uint32_t stream,
+                                                int rows, int cols) {
   const int groups = (cols + 3) / 4;
-  int* dst = stream < heads ? attn_keep + (static_cast<size_t>(img) * heads + stream) * n * n
-                            : out_keep + static_cast<size_t>(img) * n * dim;
-  for (int i = blockIdx.x * kMaskThreads + threadIdx.x; i < n * groups; i += gridDim.x * kMaskThreads) {
+  for (int i = blockIdx.x * kMaskThreads + threadIdx.x; i < rows * groups; i += gridDim.x * kMaskThreads) {
     const int row = i / groups, c4 = i % groups;
-    const uint32_t keep = keep_nibble(drop, dropout_stream(img, stream), row, c4);
+    const uint32_t keep = keep_nibble(drop, stream, row, c4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 4 * c4 + e;
       if (col < cols) dst[static_cast<size_t>(row) * cols + col] = static_cast<int>((keep >> e) & 1u);
     }
   }
+}
+
+// stream < heads an attention head, stream == heads the output dropout
+__global__ void __launch_bounds__(kMaskThreads)
+dropout_masks_kernel(int* __restrict__ attn_keep, int* __restrict__ out_keep, int n, int dim, int heads,
+                     DropoutArgs drop) {
+  const int stream = blockIdx.y, img = blockIdx.z;
+  int* dst = stream < heads ? attn_keep + (static_cast<size_t>(img) * heads + stream) * n * n
+                            : out_keep + static_cast<size_t>(img) * n * dim;
+  store_keep_rows(dst, drop, dropout_stream(img, stream), n, stream < heads ? n : dim);
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
+flash_dropout_masks_kernel(int* __restrict__ keep, int n, int m, int heads, DropoutArgs drop) {
+  const int head = blockIdx.y, img = blockIdx.z;
+  store_keep_rows(keep + (static_cast<size_t>(img) * heads + head) * n * m, drop, dropout_stream(img, head), n, m);
 }
 
 }  // namespace
@@ -116,6 +135,19 @@ int vit_dropout_masks(void* attn_keep, void* out_keep, int batch, int n, int dim
   const dim3 grid(blocks < 64 ? blocks : 64, heads + 1, batch);
   dropout_masks_kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(attn_keep), static_cast<int*>(out_keep), n, dim, heads, DropoutArgs{seed, threshold, 1.f});
+  return cudaGetLastError();
+}
+
+// -> keep (batch, heads, n, m) int32; heads < 1024 (one Philox stream a head)
+int vit_flash_dropout_masks(void* keep, int batch, int heads, int n, int m, unsigned seed, unsigned threshold,
+                            void* stream) {
+  if (batch <= 0 || batch > 65535 || heads <= 0 || heads >= 1024 || n <= 0 || m <= 0 ||
+      static_cast<long long>(n) * ((m + 3) / 4) > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const long long blocks = (static_cast<long long>(n) * ((m + 3) / 4) + kMaskThreads - 1) / kMaskThreads;
+  const dim3 grid(blocks < 64 ? static_cast<int>(blocks) : 64, heads, batch);
+  flash_dropout_masks_kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(keep), n, m, heads, DropoutArgs{seed, threshold, 1.f});
   return cudaGetLastError();
 }
 

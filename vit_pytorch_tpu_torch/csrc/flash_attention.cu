@@ -7,9 +7,12 @@
 //   flash_bwd_dq   _bwd_dq_kernel   (:298, called at :739)  ... , do, lse, delta -> dq
 //   flash_bwd_dkv  _bwd_dkv_kernel  (:376, called at :776)  ... , do, lse, delta -> dk, dv
 //
-// for the options of the packed NaViT path: segment ids or none, no bias, no
-// causal mask, no dropout, no in-tile qk-norm (the port normalizes q and k
-// eagerly in the dispatcher, as the JAX package does by default).
+// for the options of the packed NaViT path: segment ids or none, attention
+// dropout or none, no bias, no causal mask, no in-tile qk-norm (the port
+// normalizes q and k eagerly in the dispatcher, as the JAX package does by
+// default).  Each kernel has two instantiations, kDropout false and true
+// (the launch counters' "flash_fwd" and "flash_fwd[dropout]"); the rate-0
+// ones hold no dropout code.
 //
 // The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
 // sequential and carry the online-softmax state (or the dq / dk, dv sums) in
@@ -71,6 +74,34 @@
 //  - Segments are per image, not per head: block (x, bh) reads the ids of
 //    image bh / heads.
 //
+// Dropout (_fwd_kernel :255-290, _bwd_dq_kernel :352-361, _bwd_dkv_kernel
+// :425-456), applied to the normalized attention matrix as the reference
+// does (vit.py:60):
+//  - Keep bits are keyed by element, not by the TPU's tile id (_tile_keep
+//    :84-98 seeds its PRNG per (seed, tile), so its masks depend on its
+//    1024/512 tiles): the bit of (query i, key j) in pack b, head h is word
+//    j % 4 of Philox4x32-10 at counter (i, j / 4, 0, 0) and key (seed, b *
+//    1024 + h), kept iff >= the rate's threshold (keep_nibble, common.cuh),
+//    the function the attention-block kernels draw from.  So the three
+//    kernels, whose loops walk the tiles in different orders, and the
+//    replay kernel flash_dropout_masks (dropout.cu) see one mask.
+//  - Each ring stage carries the keep tile of its (q-tile, kv-tile) pair,
+//    64 x 64 bits keyed (query, key) in 128 words of shared memory, filled
+//    by all 128 threads (8 Philox calls each) right after the stage's
+//    copies are issued, so the barrier that publishes the copies publishes
+//    the bits; a skipped tile draws none.  The register-bound bodies read
+//    one 32-bit mask a thread a tile (keep_bits_rows), and flash_bwd_dkv,
+//    whose accumulators are (key, query), reads the same tile transposed
+//    (keep_bits_cols).
+//  - flash_fwd: l sums the UNDROPPED p (:260-263); where(keep, p, 0) is
+//    cast to bf16 before p.v (:265-276); o = acc * (inv_keep / l), one f32
+//    factor (:286-287); the lse is that of the undropped softmax.
+//  - flash_bwd_dq: dp = where(keep, dO.v^T, 0) * inv in f32, then ds = p *
+//    (dp - delta); delta = rowsum(dO * o) stays exact, since o already
+//    holds the dropped p (:352-361).
+//  - flash_bwd_dkv: pd = where(keep, p, 0) * inv, cast to bf16 after the
+//    scale, dv += pd^T.dO; dp masked as in dq; ds from the undropped p.
+//
 // Rounding points of the TPU kernels: s = (q.k^T in f32) * scale (NaViT's
 // scale is 1 after qk-norm); p is cast to bf16 before p.v and o = acc * (1/l)
 // is cast once; ds = p * (dp - delta) in f32 with delta = rowsum(dO * o)
@@ -91,9 +122,12 @@ constexpr int kTileElems = kFlashTile * kFlashLd;
 constexpr float kNegInf = -1e30f;  // _NEG_INF, the LSE of a fully masked row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBigId = 1 << 30;
+constexpr int kFlashKeepWords = kFlashTile / 32;                  // 32-key words of one keep row
+constexpr int kFlashKeepTile = kFlashTile * kFlashKeepWords;      // 128 words: one tile's keep bits
+constexpr int kKeepSmem = 2 * kFlashKeepTile * 4;                 // a keep tile per ring stage
 
 // shared memory: two ring stages of two bf16 tiles, and per stage 64 ids
-// (flash_bwd_dkv also 64 lse and 64 delta)
+// (flash_bwd_dkv also 64 lse and 64 delta); with dropout a keep tile a stage
 constexpr int kFwdSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
 constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
 
@@ -115,6 +149,7 @@ struct FlashArgs {
   Strides sq, sk, sv, sdo, s0, s1;
   int heads, n, m;
   float scale;
+  DropoutArgs drop;  // read by the kDropout instantiations only
 };
 
 template <typename T>
@@ -236,6 +271,73 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&ac
   for (int kc = 0; kc < 4; ++kc) acc_to_a_frag(f[kc], acc[2 * kc], acc[2 * kc + 1]);
 }
 
+// Ring stage `stage`'s keep tile: the keep bits of queries q0.. x keys
+// k0.. of this block's (image, head) stream.  All threads, beside the
+// stage's copies; the barrier after the ring's wait publishes it.
+__device__ __forceinline__ void fill_flash_keep(uint32_t* keep, int stage, const FlashArgs& a, uint32_t stream, int q0,
+                                                int k0) {
+  fill_keep_tile<kFlashTile, kFlashKeepWords, kFlashThreads>(keep + stage * kFlashKeepTile, a.drop, stream, q0, k0,
+                                                             a.n, a.m);
+}
+
+// The keep bits of this thread's accumulator elements, rows g, g + 8 of the
+// warp's 16 from tile row `row`, columns 8j + 2t, +1: bit 4j + i for acc[j][i]
+// (the layout of flash_fwd's element mask).  The tile is keyed (query, key)
+// and so is the accumulator (flash_fwd, flash_bwd_dq).
+__device__ __forceinline__ uint32_t keep_bits_rows(const uint32_t* tile, int row, int t) {
+  const uint32_t* k0 = tile + row * kFlashKeepWords;
+  const uint32_t* k1 = k0 + 8 * kFlashKeepWords;
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;  // even: c and c + 1 share a word
+    bits |= (((k0[c >> 5] >> (c & 31)) & 3u) << (4 * j)) | (((k1[c >> 5] >> (c & 31)) & 3u) << (4 * j + 2));
+  }
+  return bits;
+}
+
+// The same bits for flash_bwd_dkv's transposed accumulator, whose rows are
+// keys (g, g + 8 of the warp's 16 from tile key `key`) and whose columns are
+// queries: the tile, keyed (query, key) as the forward draws it, read
+// transposed, word (query c, key / 32), bit key % 32.
+__device__ __forceinline__ uint32_t keep_bits_cols(const uint32_t* tile, int key, int t) {
+  const uint32_t* kw = tile + (key >> 5);
+  const int sh = key & 31;  // key % 16 < 8, so key + 8 sits in the same word
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const uint32_t w0 = kw[c * kFlashKeepWords] >> sh, w1 = kw[(c + 1) * kFlashKeepWords] >> sh;
+    bits |= ((w0 & 1u) | ((w1 & 1u) << 1) | (((w0 >> 8) & 1u) << 2) | (((w1 >> 8) & 1u) << 3)) << (4 * j);
+  }
+  return bits;
+}
+
+// acc = where(keep, acc, 0) * mul, with the keep bits of keep_bits_rows/cols
+__device__ __forceinline__ void apply_keep_bits(float (&acc)[8][4], uint32_t bits, float mul) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = (bits >> (4 * j + i)) & 1u ? acc[j][i] * mul : 0.f;
+  }
+}
+
+// the four bf16 A fragments of where(keep, acc, 0) * mul (scaled in f32,
+// then cast), acc left as it is
+__device__ __forceinline__ void keep_to_a_frags(uint32_t (&f)[4][4], const float (&acc)[8][4], uint32_t bits,
+                                                float mul) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    float lo[4], hi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lo[i] = (bits >> (8 * kc + i)) & 1u ? acc[2 * kc][i] * mul : 0.f;
+      hi[i] = (bits >> (8 * kc + 4 + i)) & 1u ? acc[2 * kc + 1][i] * mul : 0.f;
+    }
+    acc_to_a_frag(f[kc], lo, hi);
+  }
+}
+
 // a 16-row x 64 accumulator block (rows row_lo, row_lo + 8 of this thread),
 // times mul, cast to bf16 into rows < len of a strided operand
 __device__ __forceinline__ void store_rows(bf16* base, long long stride, const float (&acc)[8][4], float mul0,
@@ -255,13 +357,16 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, const f
 // flash_fwd: one block per (64-query tile, b*h); loops over the admitted
 // kv-tiles with the online softmax of _fwd_kernel in registers: per tile
 // m_new = max(m, rowmax(s)), p = exp(s - m_new) (0 where masked),
-// l = exp(m - m_new) * l + rowsum(p), acc = acc * exp(m - m_new) + bf16(p).v.
+// l = exp(m - m_new) * l + rowsum(p), acc = acc * exp(m - m_new) + bf16(p).v;
+// with dropout p is masked after l takes its sum, and o = acc * (inv / l).
 // ---------------------------------------------------------------------------
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: K at 2s, V at 2s + 1
   int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);  // stage s: 64 key ids
+  uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);  // stage s: its keep tile (dropout)
 
   const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -272,10 +377,15 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   const bf16* vb = head_ptr(a.v, a.sv, b, h);
   const int nk = (a.m + kFlashTile - 1) / kFlashTile;
 
+  const uint32_t stream = dropout_stream(b, h);
+
   int qlo = 0, qhi = 0;
   if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
   int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
-  if (j < nk) prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+  if (j < nk) {
+    prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+    if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
+  }
   cp_async_commit();
 
   const int row_lo = q0 + warp * 16 + g;
@@ -290,7 +400,10 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
 
   for (int stage = 0; j < nk; stage ^= 1) {
     const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
-    if (jn < nk) prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+    if (jn < nk) {
+      prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+      if constexpr (kDropout) fill_flash_keep(keep, stage ^ 1, a, stream, q0, jn * kFlashTile);
+    }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile j landed
@@ -342,6 +455,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
       o[dj][2] *= al1;
       o[dj][3] *= al1;
     }
+    // dropout: l has summed the undropped p; only p.v sees the mask
+    if constexpr (kDropout) apply_keep_bits(s, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), 1.f);
     uint32_t pf[4][4];
     to_a_frags(pf, s);
     mma_acc(o, pf, vs, g, t);
@@ -350,8 +465,10 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   }
   cp_async_wait<0>();
 
-  // _finish (:283-290): a row that met no key has l = 0: o = 0, lse = -1e30
-  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  // _finish (:283-290): a row that met no key has l = 0: o = 0, lse = -1e30;
+  // dropout's 1/(1 - rate) joins 1/l as one f32 factor
+  const float num = kDropout ? a.drop.inv : 1.f;
+  const float inv0 = num / (l0 == 0.f ? 1.f : l0), inv1 = num / (l1 == 0.f ? 1.f : l1);
   store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, o, inv0, inv1, row_lo, a.n, t);
   if (t == 0) {
     float* lse = a.lse + static_cast<long long>(bh) * a.n;
@@ -363,13 +480,16 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
 // ---------------------------------------------------------------------------
 // flash_bwd_dq: one block per (64-query tile, b*h); loops over the admitted
 // kv-tiles: p = exp(s - lse) (0 where masked), dp = dO.v^T, ds = p * (dp -
-// delta), dq += bf16(ds).k; dq = scale * dq, cast once.
+// delta), dq += bf16(ds).k; dq = scale * dq, cast once.  With dropout dp =
+// where(keep, dp, 0) * inv in f32 before ds.
 // ---------------------------------------------------------------------------
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);
   int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);
+  uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);
 
   const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -380,10 +500,15 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
   const bf16* vb = head_ptr(a.v, a.sv, b, h);
   const int nk = (a.m + kFlashTile - 1) / kFlashTile;
 
+  const uint32_t stream = dropout_stream(b, h);
+
   int qlo = 0, qhi = 0;
   if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
   int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
-  if (j < nk) prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+  if (j < nk) {
+    prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
+    if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
+  }
   cp_async_commit();
 
   const int row_lo = q0 + warp * 16 + g;
@@ -402,7 +527,10 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
 
   for (int stage = 0; j < nk; stage ^= 1) {
     const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
-    if (jn < nk) prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+    if (jn < nk) {
+      prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
+      if constexpr (kDropout) fill_flash_keep(keep, stage ^ 1, a, stream, q0, jn * kFlashTile);
+    }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -413,6 +541,9 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
     float p[8][4], dp[8][4];
     mma_rows_t(p, qf, ks, g, t);
     mma_rows_t(dp, df, vs, g, t);
+    // dropout: d softmax rides the mask (:352-361)
+    if constexpr (kDropout)
+      apply_keep_bits(dp, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), a.drop.inv);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -441,15 +572,18 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
 // and loops over the admitted q-tiles with the transposed products:
 // p^T = exp(k.q^T * scale - lse) (0 where masked), dv += bf16(p^T).dO,
 // dp^T = v.dO^T, ds^T = p^T * (dp^T - delta), dk += bf16(ds^T).q; dk =
-// scale * dk, cast once.
+// scale * dk, cast once.  With dropout dv takes bf16(where(keep, p^T, 0) *
+// inv) and dp^T is masked as in flash_bwd_dq; ds^T takes the undropped p^T.
 // ---------------------------------------------------------------------------
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: q at 2s, dO at 2s + 1
   int* qids = reinterpret_cast<int*>(ring + 4 * kTileElems);             // stage s: 64 query ids
   float* lses = reinterpret_cast<float*>(qids + 2 * kFlashTile);         // stage s: 64 lse
   float* deltas = lses + 2 * kFlashTile;                                 // stage s: 64 delta
+  uint32_t* keep = reinterpret_cast<uint32_t*>(deltas + 2 * kFlashTile);  // stage s: its keep tile (dropout)
 
   const int k0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -462,6 +596,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
   const float* delta = a.delta + static_cast<long long>(bh) * a.n;
   const int nq = (a.n + kFlashTile - 1) / kFlashTile;
 
+  const uint32_t stream = dropout_stream(b, h);
+
   int klo = 0, khi = 0;
   if (segs) seg_range(kseg, k0, a.m, klo, khi);
   auto prefetch = [&](int stage, int i) {
@@ -473,6 +609,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
       lses[stage * kFlashTile + threadIdx.x] = r < a.n ? lse[r] : 0.f;
       deltas[stage * kFlashTile + threadIdx.x] = r < a.n ? delta[r] : 0.f;
     }
+    // keyed (query, key), as the forward draws it
+    if constexpr (kDropout) fill_flash_keep(keep, stage, a, stream, i * kFlashTile, k0);
   };
 
   int i = next_admitted(qseg, a.n, nq, 0, klo, khi);
@@ -519,10 +657,17 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
       }
     }
     uint32_t f[4][4];
-    to_a_frags(f, p);
+    uint32_t kbits = 0u;
+    if constexpr (kDropout) {
+      kbits = keep_bits_cols(keep + stage * kFlashKeepTile, warp * 16 + g, t);
+      keep_to_a_frags(f, p, kbits, a.drop.inv);  // pd^T, scaled before its cast
+    } else {
+      to_a_frags(f, p);
+    }
     mma_acc(dv, f, dos, g, t);  // dv += bf16(p^T) . dO
     float dp[8][4];
     mma_rows_t(dp, vf, dos, g, t);  // dp^T = v . dO^T
+    if constexpr (kDropout) apply_keep_bits(dp, kbits, a.drop.inv);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -546,7 +691,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
 // out1 in turn (those of an operand a kernel does not take are not read)
 FlashArgs make_args(const void* q, const void* k, const void* v, const void* dout, void* out0, void* out1, void* lse,
                     const void* delta, const void* qseg, const void* kseg, int heads, int n, int m, float scale,
-                    const long long* strides) {
+                    DropoutArgs drop, const long long* strides) {
   FlashArgs a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -564,12 +709,29 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* dou
   a.n = n;
   a.m = m;
   a.scale = scale;
+  a.drop = drop;
   return a;
 }
 
-bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qseg, const void* kseg) {
+// heads >= 1024 would share Philox streams (dropout_stream is img * 1024 + head)
+bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qseg, const void* kseg, int drop) {
   return dim_head != kFlashDh || batch <= 0 || heads <= 0 || n <= 0 || m <= 0 ||
-         static_cast<long long>(batch) * heads > 65535 || (qseg == nullptr) != (kseg == nullptr);
+         static_cast<long long>(batch) * heads > 65535 || (qseg == nullptr) != (kseg == nullptr) ||
+         (drop && heads >= 1024);
+}
+
+typedef void (*FlashKernel)(FlashArgs);
+
+// one launch of a kernel's rate-0 or dropout instantiation on a (tiles,
+// b*h) grid, the latter with a keep tile a ring stage
+int launch(FlashKernel plain, FlashKernel dropped, const FlashArgs& a, int drop, int tiles, int batch, int smem,
+           void* stream) {
+  const dim3 grid(tiles, batch * a.heads);
+  if (drop)
+    dropped<<<grid, kFlashThreads, smem + kKeepSmem, static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    plain<<<grid, kFlashThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -579,43 +741,44 @@ bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qse
 // outputs bf16 (b, h, rows, 64) with the (b, h, row) strides given (in
 // elements, a contiguous head dim, 16-byte aligned rows); lse and delta f32
 // (b*h, n) contiguous; segment ids int32 (b, n) and (b, m) contiguous, both
-// null for no ids; strides: 18 (b, h, row) strides of q, k, v, dO, out0,
-// out1 (see make_args).  The wrappers in ops/flash_attention.py check all of
-// it.
+// null for no ids; dropout: drop (0/1), the int32 seed's bits, the keep
+// threshold and 1/(1 - rate), heads < 1024 with drop; strides: 18 (b, h,
+// row) strides of q, k, v, dO, out0, out1 (see make_args).  The wrappers in
+// ops/flash_attention.py check all of it.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int vit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* qseg, const void* kseg,
-                  int batch, int heads, int n, int m, int dim_head, float scale, const long long* strides,
-                  void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, heads, n, m, scale, strides);
-  dim3 grid((n + kFlashTile - 1) / kFlashTile, batch * heads);
-  flash_fwd_kernel<<<grid, kFlashThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                  int batch, int heads, int n, int m, int dim_head, float scale, int drop, unsigned seed,
+                  unsigned threshold, float inv, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, heads, n, m, scale,
+                                DropoutArgs{seed, threshold, inv}, strides);
+  return launch(flash_fwd_kernel<false>, flash_fwd_kernel<true>, a, drop, (n + kFlashTile - 1) / kFlashTile, batch,
+                kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
                      const void* qseg, const void* kseg, void* dq, int batch, int heads, int n, int m, int dim_head,
-                     float scale, const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
+                     float scale, int drop, unsigned seed, unsigned threshold, float inv, const long long* strides,
+                     void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
   const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m,
-                                scale, strides);
-  dim3 grid((n + kFlashTile - 1) / kFlashTile, batch * heads);
-  flash_bwd_dq_kernel<<<grid, kFlashThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                                scale, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(flash_bwd_dq_kernel<false>, flash_bwd_dq_kernel<true>, a, drop, (n + kFlashTile - 1) / kFlashTile,
+                batch, kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, const void* qseg, const void* kseg, void* dk, void* dv, int batch, int heads,
-                      int n, int m, int dim_head, float scale, const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg)) return cudaErrorInvalidValue;
+                      int n, int m, int dim_head, float scale, int drop, unsigned seed, unsigned threshold, float inv,
+                      const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
   const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m, scale,
-                                strides);
-  dim3 grid((m + kFlashTile - 1) / kFlashTile, batch * heads);
-  flash_bwd_dkv_kernel<<<grid, kFlashThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                                DropoutArgs{seed, threshold, inv}, strides);
+  return launch(flash_bwd_dkv_kernel<false>, flash_bwd_dkv_kernel<true>, a, drop, (m + kFlashTile - 1) / kFlashTile,
+                batch, kDkvSmem, stream);
 }
 
 }  // extern "C"

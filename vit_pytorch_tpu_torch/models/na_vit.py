@@ -5,7 +5,11 @@ The host packs images into fixed-shape tensors (``ops/packing.py``) and the
 model consumes the segment ids directly: on a CUDA device in bf16 every
 attention call is the flash kernels of ``ops/flash_attention.py``, which
 skip cross-segment tiles instead of materializing the (b, 1, n, n)
-block-diagonal mask.  Reference behaviours kept, as in the JAX model:
+block-diagonal mask.  In training with ``dropout`` > 0 each layer's
+attention dropout runs inside those kernels (their ``[dropout]``
+instantiations, a seed drawn on the host a call); ``attn_pool`` has no
+dropout (JAX na_vit.py:92-100).  Reference behaviours kept, as in the JAX
+model:
 
   - bias-free LayerNorms throughout (na_vit.py:82-89);
   - qk RMSNorm with learned per-head gamma, attention scale 1

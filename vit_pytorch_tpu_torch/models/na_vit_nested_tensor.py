@@ -4,8 +4,9 @@ port of ``vit_pytorch_tpu/models/na_vit_nested_tensor.py``.
 The reference runs on ``torch.nested`` jagged tensors; like the JAX package,
 the port runs it on the packed fixed-shape batch of ``ops/packing.py`` with
 segment-id block-diagonal masking, so on a CUDA device in bf16 its attention
-is the same flash kernels as ``models/na_vit.py``.  What makes the variant
-distinct is its architecture, all of it here:
+is the same flash kernels as ``models/na_vit.py``, attention dropout
+included in training.  What makes the variant distinct is its architecture,
+all of it here:
 
   - split q/k/v projections, all bias-free (reference :52-54);
   - qk-norm is a bias-free LayerNorm over dim_head shared across heads

@@ -176,7 +176,11 @@ class Attention(nn.Module):
     def forward(self, x, context=None, *, q_segment_ids=None, kv_segment_ids=None, residual=None):
         """``residual``: optional tensor added to the output (the JAX
         ``residual`` keyword, blocks.py:358-363).  On the kernel path it rides
-        into the block's last launch; on the module path it is a plain add."""
+        into the block's last launch; on the module path it is a plain add.
+        In training the attention dropout runs in the attention-block
+        kernels (seed drawn here) or, with segment ids or context, in the
+        dispatcher's route: the flash kernels' (seed drawn there) or the
+        composite's."""
         has_segments = q_segment_ids is not None or kv_segment_ids is not None
         if self.fuses(x, context=context, has_segments=has_segments):
             rate = self.dropout if self.training else 0.0

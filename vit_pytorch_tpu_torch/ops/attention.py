@@ -5,18 +5,22 @@ Two backends behind one dispatcher, as in the JAX package:
 * ``xla_attention`` — the materialized composite (plain PyTorch), the only
   path that can return the attention matrix;
 * ``flash_attention`` — the Hopper kernels of ``ops/flash_attention.py``
-  (online-softmax tiles, segment-id masking with tile skipping).
+  (online-softmax tiles, segment-id masking with tile skipping, attention
+  dropout inside the kernels).
 
 ``dot_product_attention`` takes the flash route on a CUDA device for packed
 sequences (segment ids) and for m >= 1024, as the JAX dispatcher does on a
 TPU, where the kernels' gate :func:`~.flash_attention.flash_supported`
 admits the operands (bf16, dim_head 64); fp32 and other shapes take the
-composite.  The composite takes a causal triangle and a bias of shape (h,
-n, m) or (b, h, n, m), as the JAX dispatcher's does; the kernel routes still
-to port (the short kernel, flash with a bias, causal or dropout) raise
+composite.  Train-time dropout without a bias stays on the flash route: the
+dispatcher draws the kernels' int32 seed on the host (JAX :264-268) and the
+kernels drop the attention matrix themselves; the composite draws its mask
+with ``torch.rand``.  The composite takes a causal triangle and a bias of
+shape (h, n, m) or (b, h, n, m), as the JAX dispatcher's does; the kernel
+routes still to port (the short kernel, flash with a bias or causal) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, and only
-when the caller asks for them with ``use_flash=True``.  The ViT's own layers do not come here on the
-card: they go through ``ops/fused_block.py``.
+when the caller asks for them with ``use_flash=True``.  The ViT's own layers
+do not come here on the card: they go through ``ops/fused_block.py``.
 """
 
 from __future__ import annotations
@@ -64,10 +68,15 @@ def xla_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     return_attn: bool = False,
+    keep: Optional[torch.Tensor] = None,
 ):
     """Materialized attention.  q: (b, h, n, d); k, v: (b, h, m, d).
 
-    ``mask`` broadcasts against (b, h, n, m); True = may attend.
+    ``mask`` broadcasts against (b, h, n, m); True = may attend.  With
+    ``dropout_rate`` > 0 the normalized matrix is dropped with ``keep``
+    ((b, h, n, m) bool, a mask drawn elsewhere: the flash kernels' for
+    :func:`~.flash_attention.flash_attention_reference`), else with a mask
+    drawn from ``torch.rand`` and ``generator``.
 
     Dtype policy of the JAX package: fp32 inputs keep the logits in fp32;
     bf16/f16 inputs store the logits in the input dtype, and the softmax is
@@ -87,7 +96,8 @@ def xla_attention(
     attn = attn.to(v.dtype)
     attn_out = attn
     if dropout_rate > 0.0:
-        keep = torch.rand(attn.shape, generator=generator, device=attn.device) >= dropout_rate
+        if keep is None:
+            keep = torch.rand(attn.shape, generator=generator, device=attn.device) >= dropout_rate
         attn = torch.where(keep, attn / (1.0 - dropout_rate), 0.0).to(v.dtype)
     out = torch.matmul(attn, v)
     if return_attn:
@@ -123,7 +133,15 @@ def dot_product_attention(
     not ported).  ``use_flash``: None decides as the JAX dispatcher does
     (flash on a CUDA device for segment ids or m >= 1024); True asks for the
     kernel routes (on CPU tensors the flash route runs its plain twins);
-    False forces the composite."""
+    False forces the composite.
+
+    ``dropout_rate`` > 0 (train time): on the flash route the kernels drop
+    the attention matrix with an int32 seed drawn here, on the host, from
+    ``generator`` (on its device) or, without one, from the global CPU
+    generator, which ``make_train_step`` seeds from its own each step; a
+    draw on the card would stall the host once a layer.  The composite
+    draws its mask with ``torch.rand``.  With a bias dropout takes the
+    composite, as in JAX (the kernels' bias backward cannot replay it)."""
     n, m = q.shape[-2], k.shape[-2]
     if (gamma_q is None) != (gamma_k is None):
         raise ValueError("qk-norm gammas must be given for both q and k")
@@ -135,9 +153,11 @@ def dot_product_attention(
     # attention), the short kernel's operand (JAX :183-188)
     per_head_bias = bias is not None and bias.ndim == 3 and tuple(bias.shape) == (q.shape[1], n, m)
 
-    # train-time dropout would run inside the flash kernels on the card
-    # (JAX :194-199); a traced scale cannot be baked into a kernel (:204)
-    kernel_dropout_ok = dropout_rate > 0.0 and bias is None and on_cuda(q)
+    # train-time dropout runs inside the flash kernels, without a bias (JAX
+    # :194-199; JAX also needs the TPU, while the port's CPU twins replay the
+    # kernels' masks, so use_flash=True takes them on the CPU too); a traced
+    # scale cannot be baked into a kernel (:204)
+    kernel_dropout_ok = dropout_rate > 0.0 and bias is None
     static_scale = scale is None or isinstance(scale, (int, float))
     kernel_ok = (
         not return_attn
@@ -156,11 +176,6 @@ def dot_product_attention(
                 "the short-sequence kernel route is not ported yet (ROADMAP: TPU kernels to port, item 6, "
                 "_short_kernel)"
             )
-        if dropout_rate > 0.0:
-            raise NotImplementedError(
-                "flash attention with dropout is not ported yet (ROADMAP: TPU kernels to port, item 7, flash "
-                "dropout with flash_dropout_masks)"
-            )
         if causal:
             raise NotImplementedError(
                 "flash attention with causal masking is not ported yet (ROADMAP: TPU kernels to port, item 4, the "
@@ -174,8 +189,13 @@ def dot_product_attention(
         # the kernels' gate: fp32 and shapes they do not take on the card
         # go to the composite below
         if not on_cuda(q) or flash_supported(q.shape, k.shape, q.dtype):
+            seed = None
+            if dropout_rate > 0.0:  # JAX :264-268, on the host
+                device = "cpu" if generator is None else generator.device
+                seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32, generator=generator, device=device))
             return flash_attention(
                 q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                dropout_rate=dropout_rate, dropout_seed=seed,
             )
 
     # segments and the causal triangle fold into the dense mask; a bias of

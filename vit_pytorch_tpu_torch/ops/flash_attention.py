@@ -17,18 +17,33 @@ custom_vjp without bias: the forward saves q, k, v, the ids, o and the f32
 LSE; the backward forms ``delta = rowsum(dO * o)`` in f32 outside the kernels
 (:680-685) and launches the two backward kernels.
 
-Each wrapper has a plain PyTorch twin at the kernel's rounding points
-(``flash_fwd_reference``, ``flash_bwd_reference``), which CPU tensors take;
-on a CUDA tensor it launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[kernel]``.  :func:`flash_attention_twins` runs the same Function
-on the twins on any device.  :func:`flash_attention_reference` is the twin
-of the whole op, the JAX ``_reference_attention`` (:809-815): the
-materialized composite with the segment mask, differentiated by autograd.
+Attention dropout (``dropout_rate`` > 0 with an int ``seed``) runs inside
+all three kernels, their ``[dropout]`` instantiations, on the normalized
+attention matrix (reference vit.py:60): the forward's row sum takes the
+undropped p, p.v the dropped one, and both backward kernels replay the
+mask.  The keep bit of (query i, key j) in pack b, head h is a pure function
+of (seed, b, h, i, j): word ``j % 4`` of Philox4x32-10 at counter (i, j // 4,
+0, 0), key (seed, b * 1024 + h), the function of the attention-block kernels
+(``ops/fused_block.py::_attn_keep``).  The TPU keys its bits by its tile
+(``_tile_keep`` :84-98), so the bits are not the TPU's, and not tied to a
+tile size: :func:`flash_dropout_masks` (:897) replays them, and equals
+``fused_block.dropout_masks``' attention mask at n = m.  Heads >= 1024 would
+share a stream and are refused.
 
-The kernels take bf16 with ``dim_head == 64`` (their one instantiation) on
-a CUDA device; :func:`flash_supported` is the gate the dispatcher asks.  The
-options the NaViT path does not use raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.  The TPU's block sizes (1024/512 and the
+Each wrapper has a plain PyTorch twin at the kernel's rounding points
+(``flash_fwd_reference``, ``flash_bwd_reference``,
+``flash_dropout_masks_reference``), which CPU tensors take; on a CUDA tensor
+it launches its kernel or raises.  Each launch adds one to
+``LAUNCHES[kernel]``, a ``[dropout]`` instantiation to its own entry.
+:func:`flash_attention_twins` runs the same Function on the twins on any
+device.  :func:`flash_attention_reference` is the twin of the whole op, the
+JAX ``_reference_attention`` (:809-815): the materialized composite with the
+segment mask (and the same keep mask), differentiated by autograd.
+
+The kernels take bf16 with ``dim_head == 64`` (their one head dim) on a
+CUDA device; :func:`flash_supported` is the gate the dispatcher asks.  The
+options the NaViT path does not use (bias, causal, the in-kernel qk-norm)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.  The TPU's block sizes (1024/512 and the
 ``VIT_TPU_FLASH_BLOCK_Q/K`` knobs) are not ported: the H100 kernels' tiles
 are fixed at 64 x 64 (:func:`default_blocks`).
 """
@@ -42,15 +57,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.helpers import default_device
 from ._build import load_library
+from .fused_block import STREAM_STRIDE, _attn_keep, _dropout_args
 
 BLOCK_Q = BLOCK_K = 64  # kFlashTile: the kernels' query and key tiles
 DIM_HEAD = 64  # kFlashDh: the one head dim the kernels are built for
 NEG_INF = -1e30  # _NEG_INF: the LSE of a row with no key to attend
 _BIG_ID = 1 << 30
 
-# launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# launches per kernel since the last reset_launch_counts(); a [dropout]
+# instantiation counts apart from its kernel's rate-0 launches
+LAUNCHES = {
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd[dropout]": 0, "flash_bwd_dq[dropout]": 0, "flash_bwd_dkv[dropout]": 0, "flash_dropout_masks": 0,
+}
 
 _FLASH_ITEM = "ROADMAP: TPU kernels to port, item 4"
 
@@ -138,12 +159,35 @@ def _logits(q, k, scale, valid):
     return s if valid is None else s.masked_fill(~valid, NEG_INF)
 
 
-def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+def _dropout(name: str, rate: float, seed, heads: int):
+    """The kernels' dropout arguments (drop, seed bits, threshold, 1/(1 -
+    rate)); with dropout, heads must fit the Philox stream key img * 1024 +
+    head."""
+    drop = _dropout_args(name, rate, seed)
+    if drop[0] and heads >= STREAM_STRIDE:
+        raise ValueError(f"{name}: {heads} heads; dropout keys a Philox stream by img * {STREAM_STRIDE} + head, "
+                         f"so at most {STREAM_STRIDE - 1} heads")
+    return drop
+
+
+def _keep(q, k, rate: float, seed):
+    """(b, h, n, m) bool keep mask of the kernels' dropout on q (b, h, n, d)
+    and k (b, h, m, d): (query i, key j) of pack b, head h is the Philox bit
+    of stream b * 1024 + h at (row i, column j), the attention block's."""
+    b, h, n, _ = q.shape
+    return _attn_keep(seed, b, n, h, rate, q.device, k.shape[2])
+
+
+def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
+                        seed=None):
     """Plain twin of :func:`flash_fwd`: ``(o, lse)``, o (b, h, n, d) in q's
     dtype and lse (b, h, n) f32.  The rounding points of ``_fwd_kernel``
     with the whole row at once: p = exp(s - max) zeroed where masked (after
     the exp), cast to v's dtype before p.v in f32, o = acc * (1/l) cast once.
-    A row with no key to attend gives o = 0 and lse = -1e30."""
+    A row with no key to attend gives o = 0 and lse = -1e30.  With dropout
+    l sums the undropped p, p is masked before its cast, and o = acc *
+    (inv_keep / l), one f32 factor (:255-290)."""
+    drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
     valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
     s = _logits(q, k, scale, valid)
     mx = s.amax(-1, keepdim=True)
@@ -152,39 +196,67 @@ def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment
         p = p.masked_fill(~valid, 0.0)
     l = p.sum(-1, keepdim=True)
     safe_l = torch.where(l == 0.0, 1.0, l)
-    o = torch.matmul(p.to(v.dtype).float(), v.float()) * (1.0 / safe_l)
+    if drop[0]:
+        p = p.masked_fill(~_keep(q, k, dropout_rate, seed), 0.0)
+        factor = safe_l.new_tensor(drop[3]) / safe_l  # inv_keep in f32, one division
+    else:
+        factor = 1.0 / safe_l
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) * factor
     lse = torch.where(l == 0.0, NEG_INF, mx + torch.log(safe_l)).squeeze(-1)
     return o.to(q.dtype), lse
 
 
-def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
+                        dropout_rate: float = 0.0, seed=None):
     """Plain twin of :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`:
     ``(dq, dk, dv)`` at the rounding points of ``_bwd_dq_kernel`` and
     ``_bwd_dkv_kernel``: p = exp(s - lse) zeroed where masked after the exp
     (in a fully masked row that exp is 1), dv = bf16(p)^T.dO, ds = p * (dO.v^T
     - delta) in f32, dq = scale * bf16(ds).k, dk = scale * bf16(ds)^T.q, each
-    accumulated in f32 and cast once."""
+    accumulated in f32 and cast once.  With dropout dv takes bf16(where(keep,
+    p, 0) * inv), scaled before the cast, and dp = where(keep, dO.v^T, 0) *
+    inv in f32 (:352-361, :425-456); ds keeps the undropped p."""
+    drop = _dropout("flash_bwd", dropout_rate, seed, q.shape[1])
     valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
     p = torch.exp(_logits(q, k, scale, valid) - lse[..., None])
     if valid is not None:
         p = p.masked_fill(~valid, 0.0)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None])
+    pd, dp = p, torch.matmul(do.float(), v.float().transpose(-1, -2))
+    if drop[0]:
+        keep = _keep(q, k, dropout_rate, seed)
+        pd = torch.where(keep, p, 0.0) * drop[3]
+        dp = torch.where(keep, dp, 0.0) * drop[3]
+    dv = torch.matmul(pd.to(do.dtype).float().transpose(-1, -2), do.float())
+    ds = p * (dp - delta[..., None])
     dq = scale * torch.matmul(ds.to(k.dtype).float(), k.float())
     dk = scale * torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None):
+def flash_dropout_masks_reference(seed, b: int, h: int, n: int, m: int, rate: float, *, device=None):
+    """Plain twin of :func:`flash_dropout_masks`: (b, h, n, m) int32 0/1."""
+    _dropout("flash_dropout_masks", rate, seed, h)
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return _attn_keep(seed, b, n, h, rate, device, m).to(torch.int32)
+
+
+def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
+                              dropout_rate: float = 0.0, dropout_seed=None):
     """The plain twin of :func:`flash_attention`: the JAX
     ``_reference_attention`` (:809-815), the materialized composite
     (``xla_attention``, logits stored in the input dtype) under the segment
     mask of ``build_segment_mask``, differentiated by autograd.  Rows with no
-    key to attend give zeros (``xla_attention``'s ``mask.any``)."""
+    key to attend give zeros (``xla_attention``'s ``mask.any``).  With
+    dropout the composite drops the normalized matrix with the kernels' keep
+    mask of ``dropout_seed``."""
     from .attention import xla_attention
 
     mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
-    return xla_attention(q, k, v, scale=scale, mask=mask)
+    keep = None
+    if dropout_rate > 0.0:
+        _check_dropout_request(dropout_rate, dropout_seed, None)
+        keep = _keep(q, k, dropout_rate, dropout_seed)
+    return xla_attention(q, k, v, scale=scale, mask=mask, dropout_rate=dropout_rate, keep=keep)
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +318,22 @@ def _merged_heads(b: int, h: int, rows: int, like: torch.Tensor):
     return torch.empty((b, rows, h, DIM_HEAD), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
+def _counter(name: str, drop) -> str:
+    return f"{name}[dropout]" if drop[0] else name
+
+
+def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
+              seed=None):
     """``(o, lse)`` of softmax attention: o (b, h, n, 64) bf16 in the
-    merged-heads layout, lse (b, h, n) f32 (-1e30 for a row with no key).
-    See :func:`flash_fwd_reference`."""
+    merged-heads layout, lse (b, h, n) f32 (-1e30 for a row with no key);
+    with ``dropout_rate`` > 0 (the ``[dropout]`` instantiation) the
+    attention matrix is dropped with the keep mask of ``seed``.  See
+    :func:`flash_fwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
+    drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+        return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                                   dropout_rate=dropout_rate, seed=seed)
     _check("flash_fwd", (q, k, v), ids)
     b, h, n, d = q.shape
     m = k.shape[2]
@@ -261,21 +342,24 @@ def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None)
     lib = load_library()
     err = lib.lib.vit_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), b, h, n, m, d, float(scale),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), b, h, n, m, d, float(scale), *drop,
         _strides(q, k, v, None, o, None), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("flash_fwd", err)
-    LAUNCHES["flash_fwd"] += 1
+    name = _counter("flash_fwd", drop)
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
-    """dq (b, h, n, 64) bf16, merged-heads layout; see
-    :func:`flash_bwd_reference`."""
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
+                 dropout_rate: float = 0.0, seed=None):
+    """dq (b, h, n, 64) bf16, merged-heads layout, replaying the forward's
+    keep mask with ``dropout_rate`` > 0; see :func:`flash_bwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
+    drop = _dropout("flash_bwd_dq", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
-                                   kv_segment_ids=kv_segment_ids)[0]
+                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed)[0]
     _check("flash_bwd_dq", (q, k, v, do), ids)
     _check_stats("flash_bwd_dq", q, lse, delta)
     b, h, n, d = q.shape
@@ -283,21 +367,25 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, k
     lib = load_library()
     err = lib.lib.vit_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), b, h, n, k.shape[2], d, float(scale),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), b, h, n, k.shape[2], d, float(scale), *drop,
         _strides(q, k, v, do, dq, None), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("flash_bwd_dq", err)
-    LAUNCHES["flash_bwd_dq"] += 1
+    name = _counter("flash_bwd_dq", drop)
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None):
-    """``(dk, dv)``, each (b, h, m, 64) bf16 in the merged-heads layout; see
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
+                  dropout_rate: float = 0.0, seed=None):
+    """``(dk, dv)``, each (b, h, m, 64) bf16 in the merged-heads layout,
+    replaying the forward's keep mask with ``dropout_rate`` > 0; see
     :func:`flash_bwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
+    drop = _dropout("flash_bwd_dkv", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
-                                   kv_segment_ids=kv_segment_ids)[1:]
+                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed)[1:]
     _check("flash_bwd_dkv", (q, k, v, do), ids)
     _check_stats("flash_bwd_dkv", q, lse, delta)
     b, h, n, d = q.shape
@@ -306,12 +394,38 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, 
     lib = load_library()
     err = lib.lib.vit_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d, float(scale),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d, float(scale), *drop,
         _strides(q, k, v, do, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("flash_bwd_dkv", err)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    name = _counter("flash_bwd_dkv", drop)
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return dk, dv
+
+
+def flash_dropout_masks(seed, b: int, h: int, n: int, m: int, rate: float, *, device=None):
+    """Replay of the flash kernels' keep masks, the JAX
+    ``flash_dropout_masks`` (:897): (b, h, n, m) int32 0/1, for equivalence
+    tests.  The masks do not depend on a tile size, so the JAX ``block_q``/
+    ``block_k`` have no counterpart.  On a CUDA ``device`` (the default, see
+    :func:`~vit_pytorch_tpu_torch.utils.helpers.default_device`) one launch
+    of the replay kernel; on ``device="cpu"``
+    :func:`flash_dropout_masks_reference`."""
+    device = default_device(device)
+    if device.type == "cpu":
+        return flash_dropout_masks_reference(seed, b, h, n, m, rate, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"flash_dropout_masks: the kernel runs on a CUDA device, not {device}")
+    if not (0 < b <= 65535 and n > 0 and m > 0 and h > 0):
+        raise ValueError(f"flash_dropout_masks: b={b}, h={h}, n={n}, m={m}")
+    _, seed_bits, threshold, _ = _dropout("flash_dropout_masks", rate, seed, h)
+    keep = torch.empty((b, h, n, m), dtype=torch.int32, device=device)
+    lib = load_library()
+    err = lib.lib.vit_flash_dropout_masks(keep.data_ptr(), b, h, n, m, seed_bits, threshold,
+                                          torch.cuda.current_stream(device).cuda_stream)
+    lib.check("flash_dropout_masks", err)
+    LAUNCHES["flash_dropout_masks"] += 1
+    return keep
 
 
 def _check_stats(name: str, q, lse, delta) -> None:
@@ -344,42 +458,60 @@ TWINS = SimpleNamespace(fwd=flash_fwd_reference, bwd=flash_bwd_reference)
 
 class _FlashAttention(torch.autograd.Function):
     """The counterpart of ``_flash_attention_core``'s custom_vjp without
-    bias (:818-877)."""
+    bias (:818-877).  The dropout rate and seed ride as Python numbers: the
+    backward replays the forward's mask from them."""
 
     @staticmethod
-    def forward(ctx, ops, scale, q, k, v, q_segment_ids, kv_segment_ids):
-        o, lse = ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    def forward(ctx, ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids):
+        o, lse = ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                         dropout_rate=dropout_rate, seed=seed)
         ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse)
-        ctx.ops, ctx.scale = ops, scale
+        ctx.ops, ctx.scale, ctx.dropout_rate, ctx.seed = ops, scale, dropout_rate, seed
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, qs, ks, o, lse = ctx.saved_tensors
         g = _kernel_ready(g)
-        delta = (g.float() * o.float()).sum(-1).contiguous()  # (b, h, n) f32, :680-685
-        dq, dk, dv = ctx.ops.bwd(q, k, v, g, lse, delta, scale=ctx.scale, q_segment_ids=qs, kv_segment_ids=ks)
-        return None, None, dq, dk, dv, None, None
+        delta = (g.float() * o.float()).sum(-1).contiguous()  # (b, h, n) f32, :680-685; exact under dropout
+        dq, dk, dv = ctx.ops.bwd(q, k, v, g, lse, delta, scale=ctx.scale, q_segment_ids=qs, kv_segment_ids=ks,
+                                 dropout_rate=ctx.dropout_rate, seed=ctx.seed)
+        return None, None, None, None, dq, dk, dv, None, None
 
 
-def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids):
+def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed):
     ids = _ids(q_segment_ids, kv_segment_ids)
     if ids:
         q_segment_ids, kv_segment_ids = (t.to(torch.int32).contiguous() for t in ids)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    dropout_rate = float(dropout_rate)
+    seed = int(seed) if dropout_rate > 0.0 else None
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(ops, scale, q, k, v, q_segment_ids, kv_segment_ids)
-    return ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)[0]
+        return _FlashAttention.apply(ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids)
+    return ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                   dropout_rate=dropout_rate, seed=seed)[0]
 
 
-def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None):
+def _check_dropout_request(dropout_rate: float, dropout_seed, bias) -> None:
+    """The JAX ``flash_attention``'s refusals of a dropout call (:981-989)."""
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("flash_attention: dropout_rate > 0 requires dropout_seed")
+        if bias is not None:
+            raise ValueError("flash_attention: flash dropout is unsupported with bias")
+
+
+def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
+                          dropout_rate: float = 0.0, dropout_seed=None):
     """The plain path of :func:`flash_attention` on any device: the same
     Function with every kernel swapped for its plain twin (the counterpart
-    of ``ops/fused_block.py::layer_reference``).  Like the kernels it keeps
-    only o and the LSE for the backward, so it trains where the
-    materialized :func:`flash_attention_reference` would not fit."""
-    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids)
+    of ``ops/fused_block.py::layer_reference``), the same keep masks from
+    the same seed.  Like the kernels it keeps only o and the LSE for the
+    backward, so it trains where the materialized
+    :func:`flash_attention_reference` would not fit."""
+    _check_dropout_request(dropout_rate, dropout_seed, None)
+    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed)
 
 
 def flash_attention(
@@ -405,13 +537,18 @@ def flash_attention(
 
     ``q_segment_ids`` (b, n) / ``kv_segment_ids`` (b, m): token i attends j
     iff their ids are equal and non-negative; a row with none gives zeros.
+    ``dropout_rate`` > 0 drops the normalized attention matrix inside the
+    kernels with the keep mask of the int ``dropout_seed`` (required; see
+    :func:`flash_dropout_masks`), and the backward replays it; with a
+    ``bias`` it raises ``ValueError``, as the JAX function does.
     Differentiable in q, k and v.  On the CPU it runs the Function on the
     plain twins; on a CUDA tensor it launches the kernels and raises for
     what :func:`flash_supported` refuses.  ``block_q``/``block_k`` may only
     name the kernels' own 64 x 64 tiles, and ``interpret`` (the Pallas
     interpreter switch) has no meaning here: CPU tensors take the twins.
-    ``bias``, ``causal``, the in-kernel qk-norm gammas and dropout raise
+    ``bias``, ``causal`` and the in-kernel qk-norm gammas raise
     ``NotImplementedError``."""
+    _check_dropout_request(dropout_rate, dropout_seed, bias)
     if bias is not None:
         raise NotImplementedError(f"flash_attention: an additive bias is not ported yet ({_FLASH_ITEM}, bias variant)")
     if causal:
@@ -421,12 +558,7 @@ def flash_attention(
             "flash_attention: the in-kernel qk-norm (the JAX opt-in VIT_TPU_FUSE_QKNORM) is not ported; "
             "the dispatcher applies rms_norm before the kernels (ROADMAP: TPU kernels to port, items 4-5)"
         )
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash_attention: dropout is not ported yet (ROADMAP: TPU kernels to port, item 7, flash dropout "
-            "with flash_dropout_masks)"
-        )
-    del dropout_seed, interpret
+    del interpret
     if (block_q or BLOCK_Q) != BLOCK_Q or (block_k or BLOCK_K) != BLOCK_K:
         raise ValueError(f"flash_attention: the kernels' tiles are {BLOCK_Q} x {BLOCK_K}")
     if q.device.type != "cpu" and not flash_supported(q.shape, k.shape, q.dtype):
@@ -434,4 +566,4 @@ def flash_attention(
             f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} is not supported by the kernels "
             f"(bf16, dim_head {DIM_HEAD})"
         )
-    return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids)
+    return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed)

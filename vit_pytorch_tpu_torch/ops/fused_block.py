@@ -204,12 +204,13 @@ def _keep_mask(seed, streams, n_rows: int, n_cols: int, rate: float):
     return torch.cat(out)
 
 
-def _attn_keep(seed, b: int, n: int, heads: int, rate: float, device):
-    """(b, heads, n, n) keep mask of the attention matrix (``_attn_keep``,
-    fused_block.py:171-179)."""
+def _attn_keep(seed, b: int, n: int, heads: int, rate: float, device, m: Optional[int] = None):
+    """(b, heads, n, m) keep mask of the attention matrix, m = n unless given
+    (``_attn_keep``, fused_block.py:171-179; the flash kernels' (n, m)
+    masks)."""
     imgs = torch.arange(b, device=device, dtype=torch.int64)
     hs = torch.arange(heads, device=device, dtype=torch.int64)
-    return _keep_mask(seed, imgs[:, None] * STREAM_STRIDE + hs[None, :], n, n, rate)
+    return _keep_mask(seed, imgs[:, None] * STREAM_STRIDE + hs[None, :], n, n if m is None else m, rate)
 
 
 def _out_keep(seed, b: int, n: int, dim: int, heads: int, rate: float, device):
