@@ -114,7 +114,27 @@ Phases, each printed as it ends:
  24. its timing: ms/step and peak memory, kernel against plain in turns
      (plain one step a turn) and against dropout 0 in turns; each [dropout]
      launch at the packed shape against its twin and its rate-0 kernel,
-     SDPA with dropout_p beside flash_fwd[dropout]; the mask replay.
+     SDPA with dropout_p beside flash_fwd[dropout]; the mask replay;
+ 25. the flash kernels' in-tile qk-norm instantiations ([qknorm] and
+     [dropout,qknorm] of flash_fwd, flash_bwd_dq, flash_bwd_dkv) against
+     their plain twins on phase 12's cases and phase 22's q = 0 case, q and
+     k raw with row norms spread over ~e^+-4.5, gammas 1 + 0.2 N(0, 1); o
+     also differs from the kernel without gammas; the Function's o, dq, dk,
+     dv, dgamma_q and dgamma_k against autograd through the f32 composite
+     with the eager rms_norm;
+ 26. NaViT-B under VIT_TPU_FUSE_QKNORM=1 (set in-process): serving at depth
+     12 and 2 (exact counters: depth + 1 flash_fwd[qknorm] a forward; the
+     switch unset, depth + 1 rate-0 flash_fwd as in phase 13), logits
+     against the plain twins under the switch, the eager default and fp32;
+     training at dropout 0 (depth + 1 of each [qknorm] kernel a step) and
+     0.1 (depth of each [dropout,qknorm] and one of each [qknorm]), the
+     first step's loss at depth 12 and gradients at depth 2 against the
+     plain twins; a depth-2 3-D NaViT (pack_volumes, register tokens)
+     served and trained 2 steps, on the rate-0 kernels;
+ 27. its timing, the switch on and off in turns: serving img/s and real
+     tokens/s, training ms/step and peak memory at dropout 0 and 0.1; each
+     new launch against its twin and its kernel without qk-norm; the eager
+     rms_norm pair and the plain VJP epilogue alone.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -126,6 +146,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -372,12 +393,13 @@ def attention_work(b, n, heads, *, backward=False, dropout=False, qknorm=False):
     return work(bytes_, tensor=(12 if backward else 4) * logits * DH, f32=f32)
 
 
-def flash_work(name, ids, heads, dropout=False):
+def flash_work(name, ids, heads, dropout=False, qknorm=False):
     """The flash kernels on packs with segment ids: the work the same-image
     (query, key) pairs of this data need (4, 6, 8 dh bf16 products a pair
     for flash_fwd, flash_bwd_dq, flash_bwd_dkv, and a Philox draw a pair with
     dropout), and their operands: q, k, v (and dO) in, o (dq; dk and dv)
-    out, the f32 lse (and delta)."""
+    out, the f32 lse (and delta); the in-tile qk-norm adds the gammas and
+    ~6 f32 operations an element of q and of k, each normalised once."""
     pairs = 0
     for row in ids.tolist():
         counts = np.bincount([i for i in row if i >= 0])
@@ -389,6 +411,9 @@ def flash_work(name, ids, heads, dropout=False):
     ops = {"flash_fwd": (4, 4 * t + vec), "flash_bwd_dq": (6, 5 * t + 2 * vec), "flash_bwd_dkv": (8, 6 * t + 2 * vec)}
     per_pair, bytes_ = ops[name]
     f32 = (5 + (PHILOX_OPS_PER_ELEMENT if dropout else 0)) * pairs
+    if qknorm:
+        bytes_ += 2 * heads * DH * 4
+        f32 += 6 * 2 * b * heads * n * DH
     return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=f32)
 
 
@@ -1871,11 +1896,11 @@ FF_KERNELS = {  # the new kernels and variants: (source, the TPU kernel it repla
 
 
 @contextlib.contextmanager
-def ff_switch(env):
-    """One of the JAX package's backward switches, set in-process and unset
-    after (the port reads them at call time)."""
-    saved = {k: os.environ.get(k) for k in ("VIT_TPU_FF_BWD", "VIT_TPU_ENABLE_FF_BWD",
-                                            "VIT_TPU_ENABLE_WHOLE_LAYER_BWD")}
+def env_switch(env, keys=("VIT_TPU_FF_BWD", "VIT_TPU_ENABLE_FF_BWD", "VIT_TPU_ENABLE_WHOLE_LAYER_BWD")):
+    """The JAX package's switches ``keys`` (by default the backward ones)
+    unset, then ``env`` set, in-process, and restored after (the port reads
+    them at call time)."""
+    saved = {k: os.environ.get(k) for k in keys}
     for k in saved:
         os.environ.pop(k, None)
     os.environ.update(env)
@@ -1966,7 +1991,7 @@ def check_ff_kernels(fb, rnd):
             sync()
     x, g = rnd(B_CHECK, N, DIM), rnd(B_CHECK, N, DIM)
     for mode, env in FF_MODES:
-        with ff_switch(env):
+        with env_switch(env):
             out, grads = layer_grads(fb.fused_transformer_layer, x, w, kw, g)
             out_want, grads_want = layer_grads(fb.layer_reference, x, w, kw, g)
         compare(f"fused_transformer_layer [{mode}] (out)", out, out_want, LAYER_ATOL, LAYER_RTOL)
@@ -1993,7 +2018,7 @@ def train_ff_modes(fb, dev, gen):
     labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
     launches = dict.fromkeys(FF_KERNELS, 0)
     for mode, env in FF_MODES:
-        with ff_switch(env):
+        with env_switch(env):
             model = copy.deepcopy(base)
             state, step = create_train_state(model), make_train_step(model)
             fb.reset_launch_counts()
@@ -2044,7 +2069,7 @@ def time_ff_modes(fb, dev, gen, smi):
     modes = (("default", {}), *FF_MODES)
     runs = {name: [] for name, _ in modes}
     for name, env in (*modes, *reversed(modes)):
-        with ff_switch(env):
+        with env_switch(env):
             runs[name].append(train_step_ms(dev, lambda: step(state, images, labels)))
     for name, r in runs.items():
         log(f"  train step [{name}]: {sum(t for t, _ in r) / len(r):.3f} ms/step (turns {[round(t, 3) for t, _ in r]}), "
@@ -2386,6 +2411,428 @@ def time_navit_dropout(fb, fa, dev, gen, smi):
     return per_kernel
 
 
+# -- the NaViT in-tile qk-norm slice (phases 25-27) ----------------------------
+# NaViT-B under VIT_TPU_FUSE_QKNORM=1 (the JAX opt-in, set in-process): every
+# attention call hands its gammas to the flash kernels' [qknorm]
+# instantiations (the layers' at dropout 0.1: [dropout,qknorm]; attn_pool has
+# no dropout), which normalise q and k in the tile.  Off by default.
+FLASH_QK = tuple(f"{name}[qknorm]" for name in TPU_FLASH)
+FLASH_DROPOUT_QK = tuple(f"{name}[dropout,qknorm]" for name in TPU_FLASH)
+TPU_FLASH_QK = {  # their qk-norm branches: _fwd_kernel :229-235, _bwd_dq_kernel :324-329, _bwd_dkv_kernel :404-406
+    **{f"{name}[qknorm]": TPU_FLASH[name] for name in TPU_FLASH},
+    **{f"{name}[dropout,qknorm]": TPU_FLASH[name] for name in TPU_FLASH},
+}
+# Phase 25's raw q and k rows are scaled by exp(QK_ROW_SPREAD * N(0, 1)), norms
+# spread over ~e^+-4.5, so that a tile the kernel leaves unnormalised moves its
+# logits by orders of magnitude; the gammas are 1 + 0.2 N(0, 1) in bf16, as a
+# bf16 model's parameters are, one row a head, q's and k's apart.
+QK_ROW_SPREAD = 1.5
+# Phase 25 holds each instantiation to its twin with phase 12's and 22's
+# bounds but one: the kernel normalises q and k with the sum of squares in
+# another f32 order than the twin, which flips the bf16 rounding of a few
+# elements of q^ and k^ by one ulp and moves their logits (up to ~80 at scale
+# 1) by hundredths, so the lse of a right kernel reads up to 8.4e-3 from its
+# twin's (H100 80GB HBM3, 700 W): bound ~3x that.  Against the f32 composite
+# (which normalises without rounding) a right kernel reads rel L2 <= 1.5e-2
+# for every output and dgamma, inside phase 12's 2e-2.
+QK_LSE_ATOL = 2.5e-2
+# The 3-D NaViT of phase 26: the 2-D nested variant's blocks at its widths
+# (dim 1024, heads 16, mlp 2048), videos of up to 8 frames of 256 x 256 in
+# 32 x 32 x 2 patches with 4 register tokens a video, depth cut to 2; 24
+# videos from a seeded mix of (frames, height, width), packs of 1024 tokens.
+NAVIT_3D = dict(image_size=256, max_frames=8, patch_size=32, frame_patch_size=2, num_classes=1000, dim=1024, depth=2,
+                heads=16, mlp_dim=2048)
+NAVIT_3D_VIDEOS, NAVIT_3D_SEQ, NAVIT_3D_STEPS = 24, 1024, 2
+NAVIT_3D_SHAPES = ((8, 256, 256), (4, 256, 128), (8, 128, 128), (2, 256, 256), (4, 128, 256))
+
+
+def fuse_qknorm(on=True):
+    """VIT_TPU_FUSE_QKNORM set to 1 (or unset) for a ``with`` block."""
+    return env_switch({"VIT_TPU_FUSE_QKNORM": "1"} if on else {}, ("VIT_TPU_FUSE_QKNORM",))
+
+
+def qk_gamma_pair(gen, dev):
+    return tuple((1 + 0.2 * torch.randn(HEADS, 1, DH, generator=gen, device=dev)).to(torch.bfloat16)
+                 for _ in range(2))
+
+
+def flash_qk_cases(fa, dev, gen):
+    """Phase 25's cases: phase 12's and phase 22's packed q = 0 case, q and k
+    raw (their rows' norms spread by QK_ROW_SPREAD), and the gamma pair."""
+    cases, _ = flash_cases(fa, dev, gen)
+    spread = lambda t: (t.float() * torch.exp(QK_ROW_SPREAD * torch.randn(
+        *t.shape[:3], 1, generator=gen, device=dev))).to(torch.bfloat16)
+    cases = [(name, spread(q), spread(k), v, qs, ks, scale) for name, q, k, v, qs, ks, scale in cases]
+    _, q, *rest = cases[0]  # the two 2048-token packs
+    return (*cases, ("packed, q = 0", torch.zeros_like(q), *rest)), qk_gamma_pair(gen, dev)
+
+
+def check_flash_qknorm(fa, dev, gen):
+    """Phase 25: each [qknorm] and [dropout,qknorm] instantiation against its
+    twin on phase 12's cases and the packed q = 0 case; o also differs from
+    the kernel without gammas (and, with dropout, from the [qknorm] one); the
+    Function's o, dq, dk, dv, dgamma_q and dgamma_k against autograd through
+    the f32 materialized composite with the eager rms_norm (and the same keep
+    masks).  Returns the largest max_abs of each kernel against its twin."""
+    log(f"[25 flash qk-norm kernels] bf16, heads={HEADS}, dh={DH}, gammas 1 + 0.2 N(0, 1), q and k rows scaled by "
+        f"exp({QK_ROW_SPREAD} N(0, 1)); rate 0 and {RATE} (seed {DROP_SEED}); phase 12's cases and the packed case "
+        f"with q = 0")
+    cases, (gq, gk) = flash_qk_cases(fa, dev, gen)
+    gkw = dict(gamma_q=gq, gamma_k=gk)
+    errs = {name: 0.0 for name in TPU_FLASH_QK}
+    for name, q, k, v, qs, ks, scale in cases:
+        kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+        for rate, tag in ((0.0, "[qknorm]"), (RATE, "[dropout,qknorm]")):
+            dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None)
+            fwd, dq_name, dkv_name = (f"{kernel}{tag}" for kernel in TPU_FLASH)
+            with torch.inference_mode():
+                o, lse = fa.flash_fwd(q, k, v, **kw, **dkw, **gkw)
+                o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw, **dkw, **gkw)
+                errs[fwd] = max(errs[fwd], compare_or_zero(f"{fwd} o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+                if name == "packed, q = 0" and rate:
+                    l2 = rel_l2(o, o_want)
+                    log(f"  {fwd} o [{name}]: rel L2 {l2:.3e} (bound {FLASH_UNIFORM_REL_L2}) "
+                        f"{'ok' if l2 <= FLASH_UNIFORM_REL_L2 else 'FAILED'}")
+                    if not l2 <= FLASH_UNIFORM_REL_L2:
+                        fail(f"{fwd} rounds p elsewhere than its twin (the uniform case)")
+                live = lse_want > 0.5 * fa.NEG_INF
+                if not bool((lse[~live] == fa.NEG_INF).all()):
+                    fail(f"{fwd} lse [{name}]: a fully masked row does not read the sentinel")
+                if live.any():
+                    errs[fwd] = max(errs[fwd], compare(f"{fwd} lse [{name}]", lse[live], lse_want[live],
+                                                       QK_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2))
+                    others = {"the kernel without gammas": fa.flash_fwd(q, k, v, **kw, **dkw)[0]}
+                    if rate:
+                        others["the rate-0 [qknorm] kernel"] = fa.flash_fwd(q, k, v, **kw, **gkw)[0]
+                    for other, o_other in others.items():
+                        differs = not torch.equal(o, o_other)
+                        log(f"  {fwd} o [{name}] differs from {other}'s: {differs}")
+                        if not differs and name != "packed, q = 0":
+                            fail(f"{fwd} [{name}] gives what {other} gives")
+                delta = (do.float() * o.float()).sum(-1)
+                dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
+                want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
+                for kernel, part, got, w in ((dq_name, "dq^", dq, want[0]), (dkv_name, "dk^", dk, want[1]),
+                                             (dkv_name, "dv", dv, want[2])):
+                    errs[kernel] = max(errs[kernel], compare_or_zero(f"{kernel} {part} [{name}]", got, w, None,
+                                                                     ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+                del o, o_want, lse, lse_want, dq, dk, dv, want
+            sync()
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, gq, gk)]
+            fkw = dict(**kw, dropout_rate=rate, dropout_seed=DROP_SEED if rate else None)
+            out = fa.flash_attention(*leaves[:3], gamma_q=leaves[3], gamma_k=leaves[4], **fkw)
+            got = (out, *torch.autograd.grad(out, leaves, do))
+            ref = [t.detach().float().requires_grad_() for t in (q, k, v, gq, gk)]
+            out_ref = fa.flash_attention_reference(*ref[:3], gamma_q=ref[3], gamma_k=ref[4], **fkw)
+            want = (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))
+            for part, a, b in zip(("o", "dq", "dk", "dv", "dgamma_q", "dgamma_k"), got, want):
+                compare_or_zero(f"flash_attention{tag} {part} vs f32 composite [{name}]", a, b, None, ATTN_RTOL,
+                                FLASH_VS_F32_REL_L2, atol_frac=FLASH_VS_F32_ATOL_FRAC)
+            del leaves, ref, out, out_ref, got, want
+            sync()
+    return errs
+
+
+def navit_3d_videos(seed):
+    rng = np.random.default_rng(seed)
+    shapes = [NAVIT_3D_SHAPES[rng.integers(len(NAVIT_3D_SHAPES))] for _ in range(NAVIT_3D_VIDEOS)]
+    return [rng.normal(size=(3, *s)).astype(np.float32) for s in shapes]
+
+
+def check_navit_qknorm(fb, fa, dev):
+    """Phase 26: NaViT-B under VIT_TPU_FUSE_QKNORM=1.  Serving at depth 12
+    and 2 (exact counters: depth + 1 flash_fwd[qknorm], no rate-0 flash_fwd;
+    logits against the plain twins under the switch, the eager default and
+    fp32: at depth 12 against the noise floor and the eager default's own
+    distance to fp32, at depth 2 against fixed bounds); training at dropout 0
+    and 0.1 (exact counters a step: depth + 1 of each [qknorm] kernel;
+    depth of each [dropout,qknorm] and one of each [qknorm]; at depth 12 the
+    first step's loss against the plain twins under the switch, at depth 2
+    the first step's gradients); a depth-2 3-D NaViT served and trained 2
+    steps under the switch, which it leaves on the rate-0 kernels (its
+    qk-norm is a LayerNorm).  Returns the launch counts of the depth-12 runs."""
+    from vit_pytorch_tpu_torch.models.na_vit import forward_packed
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[26 NaViT-B under VIT_TPU_FUSE_QKNORM=1] NaViT-B ({NAVIT}), bf16, seed {SEED}: serving the {NAVIT_IMAGES}-"
+        f"image mix, training on phase 14's batch at dropout 0 ({TRAIN_STEPS} steps at depth {DEPTH}) and {RATE} (2 "
+        f"steps); depth {NAVIT_SHALLOW}: one; a depth-{NAVIT_3D['depth']} 3-D NaViT")
+    counts = {}
+    images, _, _ = navit_images(SEED, labels=False)
+    noise = np.random.default_rng(SEED + 1)
+    noisy = [img * (1 + NAVIT_INPUT_NOISE * noise.standard_normal(img.shape, dtype=np.float32)) for img in images]
+    with torch.inference_mode():
+        for depth in (DEPTH, NAVIT_SHALLOW):
+            fp32 = navit_model(dev, torch.float32, depth=depth).eval()
+            model = copy.deepcopy(fp32).to(bf16)
+            reset_all(fb, fa)
+            eager = forward_packed(model, images)  # the switch unset: today's path
+            sync()
+            expect_launches(fb, fa, {"flash_fwd": depth + 1}, f"NaViT serving at depth {depth}, the switch unset")
+            with fuse_qknorm():
+                reset_all(fb, fa)
+                logits = forward_packed(model, images)
+                sync()
+                launches = expect_launches(fb, fa, {"flash_fwd[qknorm]": depth + 1},
+                                           f"NaViT serving under the switch at depth {depth}")
+                reset_all(fb, fa)
+                with plain_flash():
+                    plain = forward_packed(model, images)
+                    floor = rel_l2(forward_packed(model, noisy), plain) if depth == DEPTH else None
+                want = forward_packed(fp32, images)  # fp32: the composite with the eager f32 norm
+                sync()
+                if any(all_launches(fb, fa).values()):
+                    fail(f"the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
+            if logits.shape != (NAVIT_IMAGES, NAVIT["num_classes"]) or not bool(torch.isfinite(logits).all()):
+                fail(f"NaViT serving under the switch: logits {tuple(logits.shape)}, not all finite")
+            e_kp, e_kf, e_ke, e_ef = (rel_l2(a, b) for a, b in ((logits, plain), (logits, want), (logits, eager),
+                                                                 (eager, want)))
+            if depth == DEPTH:
+                counts["serving"] = launches
+                ok = e_kf <= NAVIT_NOISE_RATIO * e_ef and e_kp <= NAVIT_NOISE_RATIO * floor
+                log(f"  depth {depth}, logits rel L2: fused vs fp32 {e_kf:.4e} (bound {NAVIT_NOISE_RATIO} x the eager "
+                    f"default vs fp32, {e_ef:.4e}); fused vs plain twins under the switch {e_kp:.4e} (bound "
+                    f"{NAVIT_NOISE_RATIO} x plain vs plain with {NAVIT_INPUT_NOISE} relative noise on the pixels, "
+                    f"{floor:.4e}); fused vs the eager default {e_ke:.4e} {'ok' if ok else 'FAILED'}")
+            else:
+                ok = e_kp <= NAVIT_SHALLOW_VS_PLAIN and e_kf <= NAVIT_SHALLOW_VS_FP32
+                log(f"  depth {depth}, logits rel L2: fused vs plain twins under the switch {e_kp:.4e} (bound "
+                    f"{NAVIT_SHALLOW_VS_PLAIN}); fused vs fp32 {e_kf:.4e} (bound {NAVIT_SHALLOW_VS_FP32}); the eager "
+                    f"default vs fp32 {e_ef:.4e}; fused vs the eager default {e_ke:.4e} {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"NaViT serving under the switch at depth {depth} disagrees with the plain path or fp32")
+            del model, fp32
+        sync()
+
+    packed, labels = navit_train_batch(dev)
+    for rate, steps_deep in ((0.0, TRAIN_STEPS), (RATE, 2)):
+        drop = dict(token_dropout_prob=NAVIT_TOKEN_DROPOUT, dropout=rate, emb_dropout=rate)
+        gen_seed = SEED + 3
+        for depth in (DEPTH, NAVIT_SHALLOW):
+            fp32 = navit_model(dev, torch.float32, depth=depth, **drop)
+            model = copy.deepcopy(fp32).to(bf16)
+            initial = copy.deepcopy(model)
+            names = [n for n, _ in model.named_parameters()]
+            steps = steps_deep if depth == DEPTH else 1
+            new_gen = lambda: torch.Generator(device=dev).manual_seed(gen_seed) if rate else None
+            with fuse_qknorm():
+                state, step = create_train_state(model), make_train_step(model, masked_ce)
+                drop_gen = new_gen()
+                reset_all(fb, fa)
+                losses = []
+                for i in range(steps):
+                    losses.append(step(state, packed, labels, drop_gen)["loss"].item())
+                    if i == 0:
+                        grads = grad_vector(model)
+                sync()
+                want = ({k: (depth + 1) * steps for k in FLASH_QK} if not rate else
+                        {**{k: depth * steps for k in FLASH_DROPOUT_QK}, **{k: steps for k in FLASH_QK}})
+                launches = expect_launches(fb, fa, want, f"NaViT training under the switch, dropout {rate}, depth "
+                                                         f"{depth}")
+                plain = copy.deepcopy(initial)
+                reset_all(fb, fa)
+                with plain_flash():
+                    loss_plain = make_train_step(plain, masked_ce)(create_train_state(plain), packed, labels,
+                                                                   new_gen())["loss"].item()
+                sync()
+                if any(all_launches(fb, fa).values()):
+                    fail(f"the plain path launched kernels: {all_launches(fb, fa)}")
+            if not all(v == v and abs(v) != float("inf") for v in losses):
+                fail(f"NaViT training under the switch at dropout {rate}: the loss is not finite")
+            what = f"dropout {rate}, depth {depth}"
+            if depth == DEPTH:
+                counts[rate] = launches
+                d_plain = abs(losses[0] - loss_plain) / abs(loss_plain)
+                ok = d_plain <= NAVIT_DEEP_LOSS and all(bool(torch.isfinite(g).all()) for g in grads)
+                log(f"  {what}: losses {[f'{v:.6f}' for v in losses]}; first step vs the plain twins under the switch "
+                    f"{loss_plain:.6f}, rel {d_plain:.3e} (bound {NAVIT_DEEP_LOSS}) {'ok' if ok else 'FAILED'}; "
+                    f"gradients (finite; not bounded at this depth) rel L2 {grads_rel_l2(grads, grad_vector(plain)):.4e}")
+                if not ok:
+                    fail(f"NaViT training under the switch, {what}: the first step's loss is out of bounds")
+            else:
+                compare_grads(f"{what}, first step vs the plain twins under the switch", grads, grad_vector(plain),
+                              losses[0], loss_plain, NAVIT_TRAIN_VS_PLAIN, names)
+                if not rate:  # fp32 through the twins in f32 (the f32 in-tile norm)
+                    with fuse_qknorm(), plain_flash(admit_fp32=True):
+                        metrics = make_train_step(fp32, masked_ce)(create_train_state(fp32),
+                                                                   packed.to(dtype=torch.float32), labels)
+                    compare_grads(f"{what}, first step vs fp32", grads, grad_vector(fp32), losses[0],
+                                  metrics["loss"].item(), NAVIT_TRAIN_VS_FP32, names)
+            del model, plain, fp32, initial, state, step
+            sync()
+
+    # the 3-D NaViT: its qk-norm is a LayerNorm, so the switch leaves it on
+    # the rate-0 kernels
+    from vit_pytorch_tpu_torch.models.na_vit_nested_tensor_3d import NaViT as NaViT3d
+    from vit_pytorch_tpu_torch.models.na_vit_nested_tensor_3d import pack_volumes
+
+    videos = navit_3d_videos(SEED)
+    kw3 = dict(max_seq_len=NAVIT_3D_SEQ, dtype=bf16, device=dev)
+    model = NaViT3d(**NAVIT_3D, token_dropout_prob=0.25, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED)).to(bf16)
+    serve_packed = pack_volumes(videos, NAVIT_3D["patch_size"], NAVIT_3D["frame_patch_size"], **kw3)
+    depth3 = NAVIT_3D["depth"]
+    with fuse_qknorm():
+        with torch.inference_mode():
+            model.eval()
+            reset_all(fb, fa)
+            got = model(serve_packed)
+            sync()
+            expect_launches(fb, fa, {"flash_fwd": depth3 + 1}, "3-D NaViT serving under the switch")
+            with plain_flash():
+                want = model(serve_packed)
+        e = rel_l2(got[serve_packed.is_video], want[serve_packed.is_video])
+        log(f"  3-D NaViT (depth {depth3}, {NAVIT_3D_VIDEOS} videos in {serve_packed.segment_ids.shape[0]} packs of "
+            f"{NAVIT_3D_SEQ} + {serve_packed.max_videos} x 4 registers) logits: rel L2 vs plain bf16 {e:.4e} (bound "
+            f"{NESTED_VS_PLAIN})")
+        if not e <= NESTED_VS_PLAIN or not bool(torch.isfinite(got).all()):
+            fail("3-D NaViT logits disagree with the plain path")
+        train_packed = pack_volumes(videos, NAVIT_3D["patch_size"], NAVIT_3D["frame_patch_size"], train=True,
+                                    token_dropout_prob=0.25, rng=np.random.default_rng(SEED + 5), **kw3)
+        labels3 = torch.where(train_packed.is_video, torch.randint(
+            0, NAVIT_3D["num_classes"], train_packed.is_video.shape, generator=torch.Generator(device=dev).manual_seed(
+                SEED), device=dev), -1)
+        state, step = create_train_state(model), make_train_step(model, masked_ce)
+        reset_all(fb, fa)
+        losses = [step(state, train_packed, labels3)["loss"].item() for _ in range(NAVIT_3D_STEPS)]
+        sync()
+        expect_launches(fb, fa, {k: (depth3 + 1) * NAVIT_3D_STEPS for k in TPU_FLASH}, "3-D NaViT training")
+    log(f"  3-D NaViT training, token dropout 0.25: losses {[f'{v:.6f}' for v in losses]}")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        fail("the 3-D NaViT training loss is not finite")
+    del model, state, step
+    sync()
+    return counts
+
+
+def time_navit_qknorm(fa, dev, gen, smi):
+    """Phase 27: NaViT-B with the switch on and off in turns (off, on, on,
+    off): serving img/s and real tokens/s, training ms/step and peak memory
+    at dropout 0 and 0.1; each new launch at the packed shape against its
+    twin and, in turns, against its kernel without qk-norm on q and k
+    normalised before; the eager bf16 rms_norm pair and the plain f32 VJP
+    epilogue alone.  Returns the timing entries."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    log(f"[27 NaViT qk-norm timing] {smi}")
+    images, _, rng = navit_images(SEED, labels=False)
+    packed = pack_navit(images, rng, dev, train=False)
+    tokens = int((packed.image_ids >= 0).sum())
+    model = navit_model(dev, bf16).eval()
+    with torch.inference_mode():
+        def serve(on):
+            def run():
+                with fuse_qknorm(on):
+                    model(packed)
+            return run
+
+        e1, f1, f2, e2 = (host_ms(serve(on), 5) for on in (False, True, True, False))
+    f_ms, e_ms = (f1 + f2) / 2, (e1 + e2) / 2
+    log(f"  serving {NAVIT_IMAGES} images ({tokens} real tokens, {NAVIT_PACKS} packs): switch on "
+        f"{NAVIT_IMAGES * 1e3 / f_ms:.1f} img/s, {tokens / f_ms:.1f} k tokens/s ({f_ms:.3f} ms/batch); off "
+        f"{NAVIT_IMAGES * 1e3 / e_ms:.1f} img/s, {tokens / e_ms:.1f} k tokens/s ({e_ms:.3f} ms/batch); turns ms off "
+        f"{e1:.3f} on {f1:.3f} on {f2:.3f} off {e2:.3f}")
+    del model
+
+    packed, labels = navit_train_batch(dev)
+    for rate in (0.0, RATE):
+        model = navit_model(dev, bf16, token_dropout_prob=NAVIT_TOKEN_DROPOUT, dropout=rate, emb_dropout=rate)
+        state, step = create_train_state(model), make_train_step(model, masked_ce)
+        drop_gen = torch.Generator(device=dev).manual_seed(SEED + 4) if rate else None
+
+        def train(on):
+            def run():
+                with fuse_qknorm(on):
+                    step(state, packed, labels, drop_gen)
+            return run
+
+        (e1, em1), (f1, fm1), (f2, fm2), (e2, em2) = (train_step_ms(dev, train(on)) for on in (False, True, True, False))
+        log(f"  training at dropout {rate}: switch on {(f1 + f2) / 2:.3f} ms/step, off {(e1 + e2) / 2:.3f}; turns ms "
+            f"off {e1:.3f} on {f1:.3f} on {f2:.3f} off {e2:.3f}; peak device memory on {max(fm1, fm2):.2f} GiB, off "
+            f"{max(em1, em2):.2f} GiB")
+        del model, state, step
+
+    ids = packed.image_ids
+    shape = (ids.shape[0], HEADS, NAVIT_SEQ, DH)
+    q, k = ((torch.randn(shape, generator=gen, device=dev) * torch.exp(QK_ROW_SPREAD * torch.randn(
+        *shape[:3], 1, generator=gen, device=dev))).to(bf16) for _ in range(2))
+    v, do = (torch.randn(shape, generator=gen, device=dev).to(bf16) for _ in range(2))
+    gq, gk = qk_gamma_pair(gen, dev)
+    rows = fa.gamma_rows(gq, gk, q)
+    gkw = dict(zip(("gamma_q", "gamma_k"), rows))
+    qn, kn = fa.rms_norm(q, gq), fa.rms_norm(k, gk)  # the eager default's bf16 norm
+    kw = dict(scale=1.0, q_segment_ids=ids, kv_segment_ids=ids)
+    per_kernel = {}
+    with torch.inference_mode():
+        log(f"  each new launch at the packed shape ({shape[0]} packs x {HEADS} heads x {NAVIT_SEQ} tokens), in turns "
+            f"with its kernel without qk-norm on q and k normalised eagerly; the plain twin (dq, dk and dv at once) 2 "
+            f"calls:")
+        for rate, tag in ((0.0, "[qknorm]"), (RATE, "[dropout,qknorm]")):
+            dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None)
+            o, lse = fa.flash_fwd(q, k, v, **kw, **dkw, **gkw)
+            delta = (do.float() * o.float()).sum(-1)
+            o0, lse0 = fa.flash_fwd(qn, kn, v, **kw, **dkw)
+            delta0 = (do.float() * o0.float()).sum(-1)
+            launches = (  # (kernel, its call, its plain twin, the kernel without qk-norm)
+                (f"flash_fwd{tag}", lambda: fa.flash_fwd(q, k, v, **kw, **dkw, **gkw),
+                 lambda: fa.flash_fwd_reference(q, k, v, **kw, **dkw, **gkw), lambda: fa.flash_fwd(qn, kn, v, **kw, **dkw)),
+                (f"flash_bwd_dq{tag}", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw, **gkw),
+                 lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw, **gkw),
+                 lambda: fa.flash_bwd_dq(qn, kn, v, do, lse0, delta0, **kw, **dkw)),
+                (f"flash_bwd_dkv{tag}", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw, **gkw),
+                 lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw, **gkw),
+                 lambda: fa.flash_bwd_dkv(qn, kn, v, do, lse0, delta0, **kw, **dkw)),
+            )
+            for name, kern, plain, without in launches:
+                km, wm = in_turns(kern, without, 10)
+                pm = cuda_ms(plain, 2)
+                w = flash_work(name.split("[")[0], ids, HEADS, dropout=bool(rate), qknorm=True)
+                record(per_kernel, name, km, pm, w)
+                bound, by = bound_ms(w)
+                log(f"  {name}: kernel {km:.4f} ms, without qk-norm {wm:.4f} ms ({km - wm:+.4f}), plain {pm:.4f} ms, "
+                    f"bound {bound:.4f} ms ({by})")
+            del o, lse, delta, o0, lse0, delta0
+        norm_ms = cuda_ms(lambda: (fa.rms_norm(q, gq), fa.rms_norm(k, gk)), 10)
+    # the epilogue differentiates with autograd: outside inference mode
+    dq_hat, dk_hat = (torch.randn(shape, generator=gen, device=dev).to(bf16) for _ in range(2))
+    epilogue_ms = cuda_ms(lambda: (fa.rms_norm_vjp(q, gq, dq_hat), fa.rms_norm_vjp(k, gk, dk_hat)), 5)
+    log(f"  the eager bf16 rms_norm of q and k (the switch unset, once a layer forward): {norm_ms:.4f} ms; the plain "
+        f"f32 VJP epilogue of q and k (the switch set, once a layer backward): {epilogue_ms:.4f} ms")
+    sync()
+    return per_kernel
+
+
+def ptxas_report(build_log):
+    """One line a kernel from nvcc's ptxas report: the kernel's name with
+    its template arguments (flash kernels: <kDropout, kQkNorm>), its
+    registers and its spill stores and loads.  An empty report (a reused
+    build) gives no line."""
+    lines, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            tail = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)$", mangled)
+            if tail:
+                n = int(tail.group(1))
+                base, args = tail.group(2)[:n], tail.group(2)[n:]
+                flags = re.findall(r"Lb(\d)E", args.split("EEv")[0]) if args.startswith("I") else []
+                name = base + (f"<{', '.join(flags)}>" if flags else "")
+            else:
+                name = mangled
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return lines
+
+
 def host_ms(fn, iters=10):
     """Host ms of fn (after one warm-up call), bracketed by synchronize()."""
     fn()
@@ -2431,9 +2878,8 @@ def main():
     lib = load_library()
     nvcc = "reused an existing build" if lib.build_seconds is None else f"nvcc {lib.build_seconds:.2f} s"
     log(f"[2 build] {lib.path.name}: {nvcc}, build+load {time.perf_counter() - t0:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    for line in ptxas_report(lib.build_log):
+        log(f"  {line}")
     phase_done("phase 2")
 
     dev = torch.device("cuda", 0)
@@ -2647,6 +3093,18 @@ def main():
     per_kernel.update(time_navit_dropout(fb, fa, dev, gen, smi))
     phase_done("phase 24")
 
+    # -- 25. flash qk-norm kernels against their plain twins --------------------
+    errs.update(check_flash_qknorm(fa, dev, gen))
+    phase_done("phase 25")
+
+    # -- 26. NaViT-B under VIT_TPU_FUSE_QKNORM=1, and the 3-D NaViT ----------------
+    navit_qk_counts = check_navit_qknorm(fb, fa, dev)
+    phase_done("phase 26")
+
+    # -- 27. NaViT qk-norm timing -----------------------------------------------------
+    per_kernel.update(time_navit_qknorm(fa, dev, gen, smi))
+    phase_done("phase 27")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -2686,6 +3144,10 @@ def main():
                  navit_dropout_counts[name]) for name in FLASH_DROPOUT]
         + [entry("flash_dropout_masks", DROPOUT_SOURCE, TPU_FLASH_DROPOUT["flash_dropout_masks"], "flash mask replay",
                  flash_mask_launches)]
+        + [entry(name, FLASH_SOURCE, TPU_FLASH_QK[name], "NaViT serving under VIT_TPU_FUSE_QKNORM=1"
+                 if name == "flash_fwd[qknorm]" else "NaViT training under VIT_TPU_FUSE_QKNORM=1",
+                 (navit_qk_counts["serving"] if name == "flash_fwd[qknorm]" else
+                  navit_qk_counts[RATE if "dropout" in name else 0.0])[name]) for name in TPU_FLASH_QK]
     )
     for k in kernels:
         if not k["launches"]:
@@ -2703,7 +3165,10 @@ def main():
         "flash [dropout] kernels, phase 22's checks for flash_dropout_masks; gemm_wgrad's times are one layer's "
         "four sites at bs=128, its library call torch.matmul(a.t(), b) at each; the flash [dropout] kernels' at "
         "NaViT-B's packed training shape, flash_fwd[dropout]'s library call SDPA with dropout_p=0.1 under the "
-        "block-diagonal mask; flash_dropout_masks' at (2, 12, 2048, 2048))")
+        "block-diagonal mask; flash_dropout_masks' at (2, 12, 2048, 2048); the flash [qknorm] and "
+        "[dropout,qknorm] kernels' at NaViT-B's packed training shape, launches from NaViT-B under "
+        "VIT_TPU_FUSE_QKNORM=1: its serving forward for flash_fwd[qknorm], its 4 training steps at dropout 0 for "
+        "the backward [qknorm] kernels, its 2 at dropout 0.1 for the [dropout,qknorm] kernels)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -190,10 +190,20 @@ def test_flash_refuses_the_options_off_this_path():
     for kw, match in (
         (dict(bias=torch.zeros(1, 2, 8, 8)), "item 4"),
         (dict(causal=True), "item 4"),
-        (dict(gamma_q=torch.ones(2, 1, 64), gamma_k=torch.ones(2, 1, 64)), "VIT_TPU_FUSE_QKNORM"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             flash.flash_attention(q, q, q, **kw)
+    # the in-kernel qk-norm is on this path now: it runs, with JAX's refusals
+    # (both gammas or neither, none with a bias)
+    gamma = torch.ones(2, 1, 64)
+    x, y = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 1, 2, 8, 64)).astype(np.float32))
+    normed = flash.flash_attention(x, 2 * y, y, scale=1.0, gamma_q=gamma, gamma_k=gamma)
+    assert normed.shape == x.shape and bool(torch.isfinite(normed).all())
+    assert not torch.allclose(normed, flash.flash_attention(x, 2 * y, y, scale=1.0), atol=1e-3)
+    with pytest.raises(ValueError, match="both q and k"):
+        flash.flash_attention(q, q, q, gamma_q=gamma)
+    with pytest.raises(ValueError, match="unsupported with bias"):
+        flash.flash_attention(q, q, q, gamma_q=gamma, gamma_k=gamma, bias=torch.zeros(1, 2, 8, 8))
     # dropout is on this path now: it runs, with the seed JAX requires
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 2, 8, 64)).astype(np.float32))
     out = flash.flash_attention(x, x, x, dropout_rate=0.1, dropout_seed=1)

@@ -241,27 +241,38 @@ __device__ __forceinline__ void unpack8(float f[8], uint4 u) {
   }
 }
 
-// Normalise ROWS rows (64 bf16 each, leading dimension kAttnLd) of shared
-// memory in place.  All kAttnThreads threads, 8 to a row, each one 16-byte
+// gammas c .. c + 7 of a head's row as f32: bf16 (the attention block's) or
+// f32 (the flash kernels')
+__device__ __forceinline__ void load_gamma8(float g[8], const bf16* p) {
+  unpack8(g, *reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void load_gamma8(float g[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p), hi = *reinterpret_cast<const float4*>(p + 4);
+  g[0] = lo.x, g[1] = lo.y, g[2] = lo.z, g[3] = lo.w, g[4] = hi.x, g[5] = hi.y, g[6] = hi.z, g[7] = hi.w;
+}
+
+// Normalise ROWS rows (64 bf16 each, leading dimension LD) of shared memory
+// in place.  All THREADS threads of the block, 8 to a row, each one 16-byte
 // chunk; the row's sum of squares is reduced over its 8 lanes by shuffles,
 // so ROWS * 8 is a multiple of the block and every lane takes part.  gamma:
-// the head's 64 gammas (bf16, device memory).  With raw, each row's input is
-// copied there first; with r, its rsqrt is stored there (the backward's
-// closing of the norm needs both).
-template <int ROWS>
-__device__ __forceinline__ void rms_norm_rows(bf16* rows, const bf16* __restrict__ gamma, bf16* raw, float* r) {
-  static_assert((ROWS * 8) % kAttnThreads == 0, "8 lanes a row, every lane busy");
+// the head's 64 gammas (bf16 or f32; device or shared memory).  With raw,
+// each row's input is copied there first (leading dimension LD); with r, its
+// rsqrt is stored there (the backward's closing of the norm needs both).
+template <int ROWS, int LD = kAttnLd, int THREADS = kAttnThreads, typename G = bf16>
+__device__ __forceinline__ void rms_norm_rows(bf16* rows, const G* __restrict__ gamma, bf16* raw, float* r) {
+  static_assert((ROWS * 8) % THREADS == 0, "8 lanes a row, every lane busy");
   const int c = (threadIdx.x & 7) * 8;
   float g8[8];
-  unpack8(g8, *reinterpret_cast<const uint4*>(gamma + c));
+  load_gamma8(g8, gamma + c);
 #pragma unroll
   for (int i = 0; i < 8; ++i) g8[i] *= kRmsRoot;
 #pragma unroll
-  for (int i = threadIdx.x; i < ROWS * 8; i += kAttnThreads) {
+  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
     const int row = i >> 3;
-    bf16* p = rows + row * kAttnLd + c;
+    bf16* p = rows + row * LD + c;
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    if (raw) *reinterpret_cast<uint4*>(raw + row * kAttnLd + c) = u;
+    if (raw) *reinterpret_cast<uint4*>(raw + row * LD + c) = u;
     float f[8];
     unpack8(f, u);
     float ss = 0.f;

@@ -8,11 +8,11 @@
 //   flash_bwd_dkv  _bwd_dkv_kernel  (:376, called at :776)  ... , do, lse, delta -> dk, dv
 //
 // for the options of the packed NaViT path: segment ids or none, attention
-// dropout or none, no bias, no causal mask, no in-tile qk-norm (the port
-// normalizes q and k eagerly in the dispatcher, as the JAX package does by
-// default).  Each kernel has two instantiations, kDropout false and true
-// (the launch counters' "flash_fwd" and "flash_fwd[dropout]"); the rate-0
-// ones hold no dropout code.
+// dropout or none, the in-tile qk-norm or none, no bias, no causal mask.
+// Each kernel has four instantiations, kDropout x kQkNorm (the launch
+// counters' "flash_fwd", "flash_fwd[dropout]", "flash_fwd[qknorm]" and
+// "flash_fwd[dropout,qknorm]"); an instantiation without an option holds
+// none of its code.
 //
 // The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
 // sequential and carry the online-softmax state (or the dq / dk, dv sums) in
@@ -102,6 +102,26 @@
 //  - flash_bwd_dkv: pd = where(keep, p, 0) * inv, cast to bf16 after the
 //    scale, dv += pd^T.dO; dp masked as in dq; ds from the undropped p.
 //
+// In-tile qk-norm (the JAX opt-in VIT_TPU_FUSE_QKNORM; _fwd_kernel :229-235,
+// _bwd_dq_kernel :324-329, _bwd_dkv_kernel :404-406), the reference's
+// per-head RMSNorm (na_vit.py:93-103) at _rms_tile's rounding points
+// (:135-142): statistics in f32 from the bf16 row, r = rsqrt(sum(x^2) +
+// 1e-12), each element (x * r) * (gamma * sqrt(64)) in f32, one cast to bf16
+// before the products.  The gammas are (heads, 64) f32; block (x, bh) reads
+// row bh % heads.  The TPU renormalises q and k for every (q, kv) tile of all
+// three grids; here each operand is normalised once where it lives:
+//  - the operand a block keeps for its whole loop (q in flash_fwd and
+//    flash_bwd_dq, k in flash_bwd_dkv), in its A fragments, once before the
+//    loop (rms_norm_a_rows: a quad holds a row);
+//  - each tile the loop walks (k, or q in flash_bwd_dkv), in place in its
+//    ring stage once it has landed, behind one more barrier
+//    (rms_norm_rows, common.cuh, with the gammas in shared memory); a tile
+//    the skip test refuses is neither loaded nor normalised.
+// Every product reads the normalised operands: dq = ds.k^, dk = ds^T.q^.
+// So dq and dk come out in normalised space, as the TPU kernels emit them;
+// the host closes the RMSNorm VJP, dgamma included
+// (ops/flash_attention.py::_FlashAttention, JAX _bwd :859-876).
+//
 // Rounding points of the TPU kernels: s = (q.k^T in f32) * scale (NaViT's
 // scale is 1 after qk-norm); p is cast to bf16 before p.v and o = acc * (1/l)
 // is cast once; ds = p * (dp - delta) in f32 with delta = rowsum(dO * o)
@@ -125,9 +145,11 @@ constexpr int kBigId = 1 << 30;
 constexpr int kFlashKeepWords = kFlashTile / 32;                  // 32-key words of one keep row
 constexpr int kFlashKeepTile = kFlashTile * kFlashKeepWords;      // 128 words: one tile's keep bits
 constexpr int kKeepSmem = 2 * kFlashKeepTile * 4;                 // a keep tile per ring stage
+constexpr int kGammaSmem = kFlashDh * 4;                          // qk-norm: the ring operand's f32 gammas
 
 // shared memory: two ring stages of two bf16 tiles, and per stage 64 ids
-// (flash_bwd_dkv also 64 lse and 64 delta); with dropout a keep tile a stage
+// (flash_bwd_dkv also 64 lse and 64 delta); with dropout a keep tile a
+// stage; with qk-norm the 64 gammas of the operand the ring carries
 constexpr int kFwdSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
 constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
 
@@ -146,6 +168,8 @@ struct FlashArgs {
   const float* delta;  // (b*h, n) f32
   const int* qseg;     // (b, n) int32, or null
   const int* kseg;     // (b, m) int32, or null
+  const float* gq;     // (heads, 64) f32 qk-norm gammas, read by the kQkNorm instantiations only
+  const float* gk;
   Strides sq, sk, sv, sdo, s0, s1;
   int heads, n, m;
   float scale;
@@ -235,6 +259,40 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[kFlashDh / 16][4], con
   }
 }
 
+__device__ __forceinline__ float2 unpack_pair(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// qk-norm of the rows held as A fragments by load_a_rows, in place: fragment
+// [kk][i] is row row_lo (i even) or row_lo + 8 (i odd), columns 16kk + 8(i /
+// 2) + 2t, +1, so the quad of lanes t = 0..3 holds a row.  Its sum of squares
+// is taken in f32 and reduced over the quad; each element becomes (x * r) *
+// (gamma * sqrt(64)) in f32, cast once (_rms_tile :135-142).  gamma: the
+// head's 64 f32 gammas.  A zero row (past n or m) stays zero.
+__device__ __forceinline__ void rms_norm_a_rows(uint32_t (&a)[kFlashDh / 16][4], const float* gamma, int t) {
+  float ss0 = 0.f, ss1 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kFlashDh / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const float2 x0 = unpack_pair(a[kk][i]), x1 = unpack_pair(a[kk][i + 1]);
+      ss0 += x0.x * x0.x + x0.y * x0.y;
+      ss1 += x1.x * x1.x + x1.y * x1.y;
+    }
+  }
+  const float r0 = rsqrtf(quad_sum(ss0) + kRmsEps), r1 = rsqrtf(quad_sum(ss1) + kRmsEps);
+#pragma unroll
+  for (int kk = 0; kk < kFlashDh / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = unpack_pair(a[kk][i]);
+      const float2 g = *reinterpret_cast<const float2*>(gamma + kk * 16 + (i >> 1) * 8 + 2 * t);
+      const float r = i & 1 ? r1 : r0;
+      a[kk][i] = pack_floats(x.x * r * (g.x * kRmsRoot), x.y * r * (g.y * kRmsRoot));
+    }
+  }
+}
+
 // acc (16 rows x 64 columns as 8 tiles of 16x8) = A . X^T, X a 64-row tile
 // in shared memory whose rows are the columns of the product
 __device__ __forceinline__ void mma_rows_t(float (&acc)[8][4], const uint32_t (&a)[kFlashDh / 16][4], const bf16* x,
@@ -278,6 +336,20 @@ __device__ __forceinline__ void fill_flash_keep(uint32_t* keep, int stage, const
                                                 int k0) {
   fill_keep_tile<kFlashTile, kFlashKeepWords, kFlashThreads>(keep + stage * kFlashKeepTile, a.drop, stream, q0, k0,
                                                              a.n, a.m);
+}
+
+// qk-norm: the head's 64 gammas of the operand the ring carries into shared
+// memory (threads 0..63); the loop's first barrier publishes them
+__device__ __forceinline__ void stage_gammas(float* dst, const float* gamma) {
+  if (threadIdx.x < kFlashDh) dst[threadIdx.x] = gamma[threadIdx.x];
+}
+
+// qk-norm of ring stage `stage`'s first tile (k, or q in flash_bwd_dkv) in
+// place, once it has landed, then a barrier, so that every warp reads it
+// normalised.  All threads; rows past n or m are zeros and stay zeros.
+__device__ __forceinline__ void rms_norm_stage(bf16* ring, int stage, const float* gammas) {
+  rms_norm_rows<kFlashTile, kFlashLd, kFlashThreads>(ring + 2 * stage * kTileElems, gammas, nullptr, nullptr);
+  __syncthreads();
 }
 
 // The keep bits of this thread's accumulator elements, rows g, g + 8 of the
@@ -361,12 +433,13 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, const f
 // with dropout p is masked after l takes its sum, and o = acc * (inv / l).
 // ---------------------------------------------------------------------------
 
-template <bool kDropout>
+template <bool kDropout, bool kQkNorm>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: K at 2s, V at 2s + 1
   int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);  // stage s: 64 key ids
   uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);  // stage s: its keep tile (dropout)
+  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: k's gammas
 
   const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -387,10 +460,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
     if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
   }
   cp_async_commit();
+  if constexpr (kQkNorm) stage_gammas(gring, a.gk + h * kFlashDh);
 
   const int row_lo = q0 + warp * 16 + g;
   uint32_t qf[kFlashDh / 16][4];
   load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
+  if constexpr (kQkNorm) rms_norm_a_rows(qf, a.gq + h * kFlashDh, t);
   const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
 
   float o[8][4];
@@ -407,6 +482,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // tile j landed
+    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
 
     const bf16* ks = ring + 2 * stage * kTileElems;
     const bf16* vs = ks + kTileElems;
@@ -481,15 +557,17 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
 // flash_bwd_dq: one block per (64-query tile, b*h); loops over the admitted
 // kv-tiles: p = exp(s - lse) (0 where masked), dp = dO.v^T, ds = p * (dp -
 // delta), dq += bf16(ds).k; dq = scale * dq, cast once.  With dropout dp =
-// where(keep, dp, 0) * inv in f32 before ds.
+// where(keep, dp, 0) * inv in f32 before ds.  With qk-norm q and k are
+// normalised (s and dq read q^ and k^), and dq is the gradient of q^.
 // ---------------------------------------------------------------------------
 
-template <bool kDropout>
+template <bool kDropout, bool kQkNorm>
 __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);
   int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);
   uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);
+  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: k's gammas
 
   const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -510,10 +588,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
     if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
   }
   cp_async_commit();
+  if constexpr (kQkNorm) stage_gammas(gring, a.gk + h * kFlashDh);
 
   const int row_lo = q0 + warp * 16 + g;
   uint32_t qf[kFlashDh / 16][4], df[kFlashDh / 16][4];
   load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
+  if constexpr (kQkNorm) rms_norm_a_rows(qf, a.gq + h * kFlashDh, t);
   load_a_rows(df, head_ptr(a.dout, a.sdo, b, h), a.sdo.row, row_lo, a.n, t);
   const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
   const float* lse = a.lse + static_cast<long long>(bh) * a.n;
@@ -534,6 +614,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
 
     const bf16* ks = ring + 2 * stage * kTileElems;
     const bf16* vs = ks + kTileElems;
@@ -574,9 +655,11 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
 // dp^T = v.dO^T, ds^T = p^T * (dp^T - delta), dk += bf16(ds^T).q; dk =
 // scale * dk, cast once.  With dropout dv takes bf16(where(keep, p^T, 0) *
 // inv) and dp^T is masked as in flash_bwd_dq; ds^T takes the undropped p^T.
+// With qk-norm k (resident) and each q stage are normalised: p^T and dk read
+// k^ and q^ (JAX :451-456), and dk is the gradient of k^.
 // ---------------------------------------------------------------------------
 
-template <bool kDropout>
+template <bool kDropout, bool kQkNorm>
 __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: q at 2s, dO at 2s + 1
@@ -584,6 +667,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
   float* lses = reinterpret_cast<float*>(qids + 2 * kFlashTile);         // stage s: 64 lse
   float* deltas = lses + 2 * kFlashTile;                                 // stage s: 64 delta
   uint32_t* keep = reinterpret_cast<uint32_t*>(deltas + 2 * kFlashTile);  // stage s: its keep tile (dropout)
+  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: q's gammas
 
   const int k0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -616,10 +700,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
   int i = next_admitted(qseg, a.n, nq, 0, klo, khi);
   if (i < nq) prefetch(0, i);
   cp_async_commit();
+  if constexpr (kQkNorm) stage_gammas(gring, a.gq + h * kFlashDh);
 
   const int key_lo = k0 + warp * 16 + g;
   uint32_t kf[kFlashDh / 16][4], vf[kFlashDh / 16][4];
   load_a_rows(kf, head_ptr(a.k, a.sk, b, h), a.sk.row, key_lo, a.m, t);
+  if constexpr (kQkNorm) rms_norm_a_rows(kf, a.gk + h * kFlashDh, t);
   load_a_rows(vf, head_ptr(a.v, a.sv, b, h), a.sv.row, key_lo, a.m, t);
   const int ks0 = seg_id(kseg, key_lo, a.m), ks1 = seg_id(kseg, key_lo + 8, a.m);
 
@@ -636,6 +722,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
 
     const bf16* qs = ring + 2 * stage * kTileElems;
     const bf16* dos = qs + kTileElems;
@@ -678,7 +765,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
       }
     }
     to_a_frags(f, dp);
-    mma_acc(dk, f, qs, g, t);  // dk += bf16(ds^T) . q
+    mma_acc(dk, f, qs, g, t);  // dk += bf16(ds^T) . q (q^ with qk-norm)
     __syncthreads();
     i = in;
   }
@@ -690,8 +777,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
 // strides[3 * i .. 3 * i + 2]: the (b, h, row) strides of q, k, v, dO, out0,
 // out1 in turn (those of an operand a kernel does not take are not read)
 FlashArgs make_args(const void* q, const void* k, const void* v, const void* dout, void* out0, void* out1, void* lse,
-                    const void* delta, const void* qseg, const void* kseg, int heads, int n, int m, float scale,
-                    DropoutArgs drop, const long long* strides) {
+                    const void* delta, const void* qseg, const void* kseg, const void* gq, const void* gk, int heads,
+                    int n, int m, float scale, DropoutArgs drop, const long long* strides) {
   FlashArgs a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -703,6 +790,8 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* dou
   a.delta = static_cast<const float*>(delta);
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
+  a.gq = static_cast<const float*>(gq);
+  a.gk = static_cast<const float*>(gk);
   Strides* s[6] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.s0, &a.s1};
   for (int i = 0; i < 6; ++i) *s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.heads = heads;
@@ -714,25 +803,35 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* dou
 }
 
 // heads >= 1024 would share Philox streams (dropout_stream is img * 1024 + head)
-bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qseg, const void* kseg, int drop) {
+bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qseg, const void* kseg, const void* gq,
+               const void* gk, int drop) {
   return dim_head != kFlashDh || batch <= 0 || heads <= 0 || n <= 0 || m <= 0 ||
          static_cast<long long>(batch) * heads > 65535 || (qseg == nullptr) != (kseg == nullptr) ||
-         (drop && heads >= 1024);
+         (gq == nullptr) != (gk == nullptr) || (drop && heads >= 1024);
 }
 
 typedef void (*FlashKernel)(FlashArgs);
 
-// one launch of a kernel's rate-0 or dropout instantiation on a (tiles,
-// b*h) grid, the latter with a keep tile a ring stage
-int launch(FlashKernel plain, FlashKernel dropped, const FlashArgs& a, int drop, int tiles, int batch, int smem,
+// one launch on a (tiles, b*h) grid of a kernel's instantiation for the
+// options: kernels[drop + 2 * qknorm] (rate 0, [dropout], [qknorm],
+// [dropout,qknorm]), with a keep tile a ring stage for dropout and a gamma
+// row for qk-norm beside the kernel's own shared memory
+int launch(const FlashKernel (&kernels)[4], const FlashArgs& a, int drop, int tiles, int batch, int smem,
            void* stream) {
   const dim3 grid(tiles, batch * a.heads);
-  if (drop)
-    dropped<<<grid, kFlashThreads, smem + kKeepSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  else
-    plain<<<grid, kFlashThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const bool qknorm = a.gq != nullptr;
+  smem += (drop ? kKeepSmem : 0) + (qknorm ? kGammaSmem : 0);
+  const FlashKernel kernel = kernels[(drop ? 1 : 0) + (qknorm ? 2 : 0)];
+  kernel<<<grid, kFlashThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
+
+const FlashKernel kFwdKernels[4] = {flash_fwd_kernel<false, false>, flash_fwd_kernel<true, false>,
+                                    flash_fwd_kernel<false, true>, flash_fwd_kernel<true, true>};
+const FlashKernel kDqKernels[4] = {flash_bwd_dq_kernel<false, false>, flash_bwd_dq_kernel<true, false>,
+                                   flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, true>};
+const FlashKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bwd_dkv_kernel<true, false>,
+                                    flash_bwd_dkv_kernel<false, true>, flash_bwd_dkv_kernel<true, true>};
 
 }  // namespace
 
@@ -741,44 +840,42 @@ int launch(FlashKernel plain, FlashKernel dropped, const FlashArgs& a, int drop,
 // outputs bf16 (b, h, rows, 64) with the (b, h, row) strides given (in
 // elements, a contiguous head dim, 16-byte aligned rows); lse and delta f32
 // (b*h, n) contiguous; segment ids int32 (b, n) and (b, m) contiguous, both
-// null for no ids; dropout: drop (0/1), the int32 seed's bits, the keep
-// threshold and 1/(1 - rate), heads < 1024 with drop; strides: 18 (b, h,
-// row) strides of q, k, v, dO, out0, out1 (see make_args).  The wrappers in
+// null for no ids; qk-norm gammas f32 (heads, 64) contiguous, both null for
+// none; dropout: drop (0/1), the int32 seed's bits, the keep threshold and
+// 1/(1 - rate), heads < 1024 with drop; strides: 18 (b, h, row) strides of
+// q, k, v, dO, out0, out1 (see make_args).  The wrappers in
 // ops/flash_attention.py check all of it.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int vit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* qseg, const void* kseg,
-                  int batch, int heads, int n, int m, int dim_head, float scale, int drop, unsigned seed,
-                  unsigned threshold, float inv, const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, heads, n, m, scale,
+                  const void* gq, const void* gk, int batch, int heads, int n, int m, int dim_head, float scale,
+                  int drop, unsigned seed, unsigned threshold, float inv, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, gq, gk, heads, n, m, scale,
                                 DropoutArgs{seed, threshold, inv}, strides);
-  return launch(flash_fwd_kernel<false>, flash_fwd_kernel<true>, a, drop, (n + kFlashTile - 1) / kFlashTile, batch,
-                kFwdSmem, stream);
+  return launch(kFwdKernels, a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
-                     const void* qseg, const void* kseg, void* dq, int batch, int heads, int n, int m, int dim_head,
-                     float scale, int drop, unsigned seed, unsigned threshold, float inv, const long long* strides,
-                     void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m,
-                                scale, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(flash_bwd_dq_kernel<false>, flash_bwd_dq_kernel<true>, a, drop, (n + kFlashTile - 1) / kFlashTile,
-                batch, kFwdSmem, stream);
+                     const void* qseg, const void* kseg, const void* gq, const void* gk, void* dq, int batch,
+                     int heads, int n, int m, int dim_head, float scale, int drop, unsigned seed, unsigned threshold,
+                     float inv, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, heads,
+                                n, m, scale, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(kDqKernels, a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                      const void* delta, const void* qseg, const void* kseg, void* dk, void* dv, int batch, int heads,
-                      int n, int m, int dim_head, float scale, int drop, unsigned seed, unsigned threshold, float inv,
-                      const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, heads, n, m, scale,
-                                DropoutArgs{seed, threshold, inv}, strides);
-  return launch(flash_bwd_dkv_kernel<false>, flash_bwd_dkv_kernel<true>, a, drop, (m + kFlashTile - 1) / kFlashTile,
-                batch, kDkvSmem, stream);
+                      const void* delta, const void* qseg, const void* kseg, const void* gq, const void* gk, void* dk,
+                      void* dv, int batch, int heads, int n, int m, int dim_head, float scale, int drop,
+                      unsigned seed, unsigned threshold, float inv, const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, heads, n, m,
+                                scale, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(kDkvKernels, a, drop, (m + kFlashTile - 1) / kFlashTile, batch, kDkvSmem, stream);
 }
 
 }  // extern "C"

@@ -13,7 +13,10 @@ model:
 
   - bias-free LayerNorms throughout (na_vit.py:82-89);
   - qk RMSNorm with learned per-head gamma, attention scale 1
-    (na_vit.py:93-101, 161-166), applied eagerly by the dispatcher;
+    (na_vit.py:93-101, 161-166): the attention hands the gammas to the
+    dispatcher, which applies them eagerly by default and, with
+    ``VIT_TPU_FUSE_QKNORM`` set, sends them into the flash kernels'
+    ``[qknorm]`` instantiations (every layer and ``attn_pool``);
   - factorized learned h/w position embeddings (na_vit.py:230-231, 352-359);
   - per-image attention pooling with a learned query (na_vit.py:371-387);
     empty query slots carry segment id -2 and attend nothing;

@@ -17,7 +17,8 @@ all of it here:
   - attention pooling WITHOUT a residual connection (:291);
   - token keep count per image = int((1-p)·len), min 1 (:239).
 
-The 3-D variant (``na_vit_nested_tensor_3d.py``) is not ported yet.
+The 3-D variant, ``na_vit_nested_tensor_3d.py``, reuses its
+``NestedAttention`` and ``NestedTransformer``.
 """
 
 from __future__ import annotations

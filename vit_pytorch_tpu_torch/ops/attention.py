@@ -6,7 +6,7 @@ Two backends behind one dispatcher, as in the JAX package:
   path that can return the attention matrix;
 * ``flash_attention`` — the Hopper kernels of ``ops/flash_attention.py``
   (online-softmax tiles, segment-id masking with tile skipping, attention
-  dropout inside the kernels).
+  dropout and, opt-in, the qk-norm inside the kernels).
 
 ``dot_product_attention`` takes the flash route on a CUDA device for packed
 sequences (segment ids) and for m >= 1024, as the JAX dispatcher does on a
@@ -15,8 +15,13 @@ admits the operands (bf16, dim_head 64); fp32 and other shapes take the
 composite.  Train-time dropout without a bias stays on the flash route: the
 dispatcher draws the kernels' int32 seed on the host (JAX :264-268) and the
 kernels drop the attention matrix themselves; the composite draws its mask
-with ``torch.rand``.  The composite takes a causal triangle and a bias of
-shape (h, n, m) or (b, h, n, m), as the JAX dispatcher's does; the kernel
+with ``torch.rand``.  qk-norm gammas are applied here with the eager
+:func:`~.flash_attention.rms_norm`, unless ``VIT_TPU_FUSE_QKNORM`` is set
+(the JAX opt-in, read at each call as JAX reads it at trace time; off by
+default): then they ride to the flash route, whose kernels normalise in the
+tile, and still normalise here on every other route.  The composite takes
+a causal triangle and a bias of shape (h, n, m) or (b, h, n, m), as the JAX
+dispatcher's does; the kernel
 routes still to port (the short kernel, flash with a bias or causal) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, and only
 when the caller asks for them with ``use_flash=True``.  The ViT's own layers
@@ -25,6 +30,7 @@ do not come here on the card: they go through ``ops/fused_block.py``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -127,10 +133,12 @@ def dot_product_attention(
 
     Segment ids (int, (b, n) and (b, m)) build the NaViT block-diagonal mask;
     on the flash route the kernels consume them tile by tile without a dense
-    mask.  ``gamma_q``/``gamma_k``: per-head qk-RMSNorm gammas, applied here
-    eagerly with :func:`~.flash_attention.rms_norm` before any route (the
-    JAX default; its in-kernel variant is the opt-in ``VIT_TPU_FUSE_QKNORM``,
-    not ported).  ``use_flash``: None decides as the JAX dispatcher does
+    mask.  ``gamma_q``/``gamma_k``: per-head qk-RMSNorm gammas, which callers
+    pass instead of normalising q and k (JAX :156-181): applied here eagerly
+    with :func:`~.flash_attention.rms_norm` before any route (the JAX
+    default); with ``VIT_TPU_FUSE_QKNORM`` set they ride to the flash route
+    (its ``[qknorm]`` kernels), and every other route applies them here.
+    ``use_flash``: None decides as the JAX dispatcher does
     (flash on a CUDA device for segment ids or m >= 1024); True asks for the
     kernel routes (on CPU tensors the flash route runs its plain twins);
     False forces the composite.
@@ -147,8 +155,10 @@ def dot_product_attention(
         raise ValueError("qk-norm gammas must be given for both q and k")
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    if gamma_q is not None:
+    # the in-kernel qk-norm is opt-in, read at each call (JAX :171-181)
+    if gamma_q is not None and not os.environ.get("VIT_TPU_FUSE_QKNORM"):
         q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
+        gamma_q = gamma_k = None
     # a per-head (h, n, m) rel-pos table shared by the batch (windowed
     # attention), the short kernel's operand (JAX :183-188)
     per_head_bias = bias is not None and bias.ndim == 3 and tuple(bias.shape) == (q.shape[1], n, m)
@@ -194,10 +204,13 @@ def dot_product_attention(
                 device = "cpu" if generator is None else generator.device
                 seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32, generator=generator, device=device))
             return flash_attention(
-                q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                dropout_rate=dropout_rate, dropout_seed=seed,
+                q, k, v, scale=scale, gamma_q=gamma_q, gamma_k=gamma_k, q_segment_ids=q_segment_ids,
+                kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, dropout_seed=seed,
             )
 
+    # every route but the flash kernels normalises here (JAX :290-291)
+    if gamma_q is not None:
+        q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
     # segments and the causal triangle fold into the dense mask; a bias of
     # shape (h, n, m) or (b, h, n, m) adds to the logits (JAX :290-310)
     mask = build_segment_mask(q_segment_ids, kv_segment_ids, n, m, causal=causal, mask=mask, device=q.device)

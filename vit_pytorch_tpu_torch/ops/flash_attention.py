@@ -30,11 +30,22 @@ tile size: :func:`flash_dropout_masks` (:897) replays them, and equals
 ``fused_block.dropout_masks``' attention mask at n = m.  Heads >= 1024 would
 share a stream and are refused.
 
+The in-tile qk-norm (``gamma_q``/``gamma_k``, the JAX opt-in
+``VIT_TPU_FUSE_QKNORM``: its dispatcher hands the gammas here instead of
+normalising q and k itself) runs inside all three kernels, their
+``[qknorm]`` and ``[dropout,qknorm]`` instantiations: each normalises q and k
+with the reference's per-head RMSNorm at ``_rms_tile``'s rounding points
+(:135-142; :func:`rms_tile_reference`), and the backward kernels emit dq and
+dk of the normalised q and k, as the TPU kernels do.  The Function closes the
+RMSNorm VJP on the host in plain PyTorch (:func:`rms_norm_vjp`, JAX ``_bwd``
+:859-876), dgamma included.  Gammas with a bias are refused, as in JAX.
+
 Each wrapper has a plain PyTorch twin at the kernel's rounding points
 (``flash_fwd_reference``, ``flash_bwd_reference``,
 ``flash_dropout_masks_reference``), which CPU tensors take; on a CUDA tensor
 it launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[kernel]``, a ``[dropout]`` instantiation to its own entry.
+``LAUNCHES[kernel]``, each instantiation to its own entry (``[dropout]``,
+``[qknorm]``, ``[dropout,qknorm]``).
 :func:`flash_attention_twins` runs the same Function on the twins on any
 device.  :func:`flash_attention_reference` is the twin of the whole op, the
 JAX ``_reference_attention`` (:809-815): the materialized composite with the
@@ -42,10 +53,11 @@ segment mask (and the same keep mask), differentiated by autograd.
 
 The kernels take bf16 with ``dim_head == 64`` (their one head dim) on a
 CUDA device; :func:`flash_supported` is the gate the dispatcher asks.  The
-options the NaViT path does not use (bias, causal, the in-kernel qk-norm)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.  The TPU's block sizes (1024/512 and the
-``VIT_TPU_FLASH_BLOCK_Q/K`` knobs) are not ported: the H100 kernels' tiles
-are fixed at 64 x 64 (:func:`default_blocks`).
+options the NaViT path does not use (bias, causal) raise
+``NotImplementedError`` naming the ROADMAP item that brings them.  The
+TPU's block sizes (1024/512 and the ``VIT_TPU_FLASH_BLOCK_Q/K`` knobs) are
+not ported: the H100 kernels' tiles are fixed at 64 x 64
+(:func:`default_blocks`).
 """
 
 from __future__ import annotations
@@ -66,11 +78,13 @@ DIM_HEAD = 64  # kFlashDh: the one head dim the kernels are built for
 NEG_INF = -1e30  # _NEG_INF: the LSE of a row with no key to attend
 _BIG_ID = 1 << 30
 
-# launches per kernel since the last reset_launch_counts(); a [dropout]
-# instantiation counts apart from its kernel's rate-0 launches
+# launches per kernel since the last reset_launch_counts(); each
+# instantiation ([dropout], [qknorm], [dropout,qknorm]) counts apart from its
+# kernel's plain launches
 LAUNCHES = {
-    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-    "flash_fwd[dropout]": 0, "flash_bwd_dq[dropout]": 0, "flash_bwd_dkv[dropout]": 0, "flash_dropout_masks": 0,
+    **{f"{name}{tag}": 0 for tag in ("", "[dropout]", "[qknorm]", "[dropout,qknorm]")
+       for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+    "flash_dropout_masks": 0,
 }
 
 _FLASH_ITEM = "ROADMAP: TPU kernels to port, item 4"
@@ -90,6 +104,30 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     normed = x * torch.rsqrt(x.square().sum(-1, keepdim=True) + 1e-12)
     return normed * gamma * (d**0.5)
+
+
+def rms_tile_reference(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the kernels' in-tile qk-norm, the JAX ``_rms_tile``
+    (:135-142): statistics in f32 from x as it is, ``r = rsqrt(sum(x^2) +
+    1e-12)``, ``(x * r) * (gamma * sqrt(d))`` in f32, one cast to x's dtype.
+    ``x`` is (b, h, rows, d); ``gamma`` any shape reshaping to (h, d)."""
+    x32 = x.float()
+    r = torch.rsqrt((x32 * x32).sum(-1, keepdim=True) + 1e-12)
+    g = gamma.float().reshape(x.shape[1], 1, x.shape[-1])
+    return (x32 * r * (g * x.shape[-1] ** 0.5)).to(x.dtype)
+
+
+def rms_norm_vjp(x: torch.Tensor, gamma: torch.Tensor, d_normed: torch.Tensor):
+    """The host epilogue of the qk-norm backward (JAX ``_bwd`` :859-876):
+    the VJP of :func:`rms_norm` on f32 ``x`` (b, h, rows, d) and f32
+    ``gamma`` (reshaped to (h, 1, d)), fed the kernels' gradient of the
+    normalised x upcast to f32.  Returns (dx in x's dtype, dgamma in gamma's
+    dtype and shape)."""
+    with torch.enable_grad():
+        x32 = x.detach().float().requires_grad_()
+        g32 = gamma.detach().float().reshape(x.shape[1], 1, x.shape[-1]).requires_grad_()
+        dx, dg = torch.autograd.grad(rms_norm(x32, g32), (x32, g32), d_normed.float())
+    return dx.to(x.dtype), dg.reshape(gamma.shape).to(gamma.dtype)
 
 
 def default_blocks(n: int, m: int):
@@ -178,16 +216,25 @@ def _keep(q, k, rate: float, seed):
     return _attn_keep(seed, b, n, h, rate, q.device, k.shape[2])
 
 
+def _normed(q, k, gamma_q, gamma_k):
+    """q and k through the kernels' in-tile qk-norm, or as they are."""
+    if gamma_q is None:
+        return q, k
+    return rms_tile_reference(q, gamma_q), rms_tile_reference(k, gamma_k)
+
+
 def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
-                        seed=None):
+                        seed=None, gamma_q=None, gamma_k=None):
     """Plain twin of :func:`flash_fwd`: ``(o, lse)``, o (b, h, n, d) in q's
     dtype and lse (b, h, n) f32.  The rounding points of ``_fwd_kernel``
     with the whole row at once: p = exp(s - max) zeroed where masked (after
     the exp), cast to v's dtype before p.v in f32, o = acc * (1/l) cast once.
     A row with no key to attend gives o = 0 and lse = -1e30.  With dropout
     l sums the undropped p, p is masked before its cast, and o = acc *
-    (inv_keep / l), one f32 factor (:255-290)."""
+    (inv_keep / l), one f32 factor (:255-290).  With gammas q and k first
+    go through :func:`rms_tile_reference` (:229-235)."""
     drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
+    q, k = _normed(q, k, gamma_q, gamma_k)
     valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
     s = _logits(q, k, scale, valid)
     mx = s.amax(-1, keepdim=True)
@@ -207,7 +254,7 @@ def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment
 
 
 def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
     """Plain twin of :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`:
     ``(dq, dk, dv)`` at the rounding points of ``_bwd_dq_kernel`` and
     ``_bwd_dkv_kernel``: p = exp(s - lse) zeroed where masked after the exp
@@ -215,8 +262,11 @@ def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=
     - delta) in f32, dq = scale * bf16(ds).k, dk = scale * bf16(ds)^T.q, each
     accumulated in f32 and cast once.  With dropout dv takes bf16(where(keep,
     p, 0) * inv), scaled before the cast, and dp = where(keep, dO.v^T, 0) *
-    inv in f32 (:352-361, :425-456); ds keeps the undropped p."""
+    inv in f32 (:352-361, :425-456); ds keeps the undropped p.  With gammas
+    q and k are normalised first (:324-329, :404-406), so dq and dk are the
+    gradients of the normalised q and k."""
     drop = _dropout("flash_bwd", dropout_rate, seed, q.shape[1])
+    q, k = _normed(q, k, gamma_q, gamma_k)
     valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
     p = torch.exp(_logits(q, k, scale, valid) - lse[..., None])
     if valid is not None:
@@ -241,15 +291,20 @@ def flash_dropout_masks_reference(seed, b: int, h: int, n: int, m: int, rate: fl
 
 
 def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
-                              dropout_rate: float = 0.0, dropout_seed=None):
+                              dropout_rate: float = 0.0, dropout_seed=None, gamma_q=None, gamma_k=None):
     """The plain twin of :func:`flash_attention`: the JAX
     ``_reference_attention`` (:809-815), the materialized composite
     (``xla_attention``, logits stored in the input dtype) under the segment
     mask of ``build_segment_mask``, differentiated by autograd.  Rows with no
     key to attend give zeros (``xla_attention``'s ``mask.any``).  With
     dropout the composite drops the normalized matrix with the kernels' keep
-    mask of ``dropout_seed``."""
+    mask of ``dropout_seed``.  With gammas q and k first go through the eager
+    :func:`rms_norm`, as the JAX dispatcher's composite route takes them."""
     from .attention import xla_attention
+
+    _check_gammas(gamma_q, gamma_k, None)
+    if gamma_q is not None:
+        q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
 
     mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
     keep = None
@@ -311,6 +366,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _gamma_kw(rows):
+    return dict(zip(("gamma_q", "gamma_k"), rows))
+
+
+def _gamma_ptrs(rows):
+    return tuple(g.data_ptr() for g in rows) if rows else (None, None)
+
+
 def _merged_heads(b: int, h: int, rows: int, like: torch.Tensor):
     """An empty (b, h, rows, 64) bf16 view of a (b, rows, h, 64) buffer: the
     merged-heads layout, so ``.transpose(1, 2).reshape(b, rows, h * 64)``
@@ -318,86 +381,114 @@ def _merged_heads(b: int, h: int, rows: int, like: torch.Tensor):
     return torch.empty((b, rows, h, DIM_HEAD), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def _counter(name: str, drop) -> str:
-    return f"{name}[dropout]" if drop[0] else name
+def _counter(name: str, drop, gammas) -> str:
+    tags = [tag for tag, on in (("dropout", drop[0]), ("qknorm", gammas)) if on]
+    return f"{name}[{','.join(tags)}]" if tags else name
+
+
+def gamma_rows(gamma_q, gamma_k, q):
+    """The kernels' qk-norm operands for q (b, h, n, d): each gamma (any
+    shape reshaping to (h, d)) as contiguous f32 (h, d) rows, the JAX
+    ``_gamma_specs_inputs`` (:511-523); ``()`` without gammas."""
+    _check_gammas(gamma_q, gamma_k, None)
+    if gamma_q is None:
+        return ()
+    h, d = q.shape[1], q.shape[-1]
+    return tuple(g.detach().to(torch.float32).reshape(h, d).contiguous() for g in (gamma_q, gamma_k))
+
+
+def _check_gamma_rows(name: str, rows, q) -> None:
+    for g in rows:
+        if g.device != q.device:
+            raise ValueError(f"{name}: gammas on {g.device}, expected {q.device}")
 
 
 def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
-              seed=None):
+              seed=None, gamma_q=None, gamma_k=None):
     """``(o, lse)`` of softmax attention: o (b, h, n, 64) bf16 in the
     merged-heads layout, lse (b, h, n) f32 (-1e30 for a row with no key);
     with ``dropout_rate`` > 0 (the ``[dropout]`` instantiation) the
-    attention matrix is dropped with the keep mask of ``seed``.  See
-    :func:`flash_fwd_reference`."""
+    attention matrix is dropped with the keep mask of ``seed``; with gammas
+    (the ``[qknorm]`` instantiations) q and k are normalised in the kernel.
+    See :func:`flash_fwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
     drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                                   dropout_rate=dropout_rate, seed=seed)
+                                   dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
     _check("flash_fwd", (q, k, v), ids)
     b, h, n, d = q.shape
     m = k.shape[2]
+    rows = gamma_rows(gamma_q, gamma_k, q)
+    _check_gamma_rows("flash_fwd", rows, q)
     o = _merged_heads(b, h, n, q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = load_library()
     err = lib.lib.vit_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), b, h, n, m, d, float(scale), *drop,
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), b, h, n, m, d, float(scale), *drop,
         _strides(q, k, v, None, o, None), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_fwd", drop)
+    name = _counter("flash_fwd", drop, rows)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                 dropout_rate: float = 0.0, seed=None):
+                 dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
     """dq (b, h, n, 64) bf16, merged-heads layout, replaying the forward's
-    keep mask with ``dropout_rate`` > 0; see :func:`flash_bwd_reference`."""
+    keep mask with ``dropout_rate`` > 0; with gammas the gradient of the
+    normalised q; see :func:`flash_bwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
     drop = _dropout("flash_bwd_dq", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
-                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed)[0]
+                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed,
+                                   gamma_q=gamma_q, gamma_k=gamma_k)[0]
     _check("flash_bwd_dq", (q, k, v, do), ids)
     _check_stats("flash_bwd_dq", q, lse, delta)
     b, h, n, d = q.shape
+    rows = gamma_rows(gamma_q, gamma_k, q)
+    _check_gamma_rows("flash_bwd_dq", rows, q)
     dq = _merged_heads(b, h, n, q)
     lib = load_library()
     err = lib.lib.vit_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), b, h, n, k.shape[2], d, float(scale), *drop,
-        _strides(q, k, v, do, dq, None), torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), dq.data_ptr(), b, h, n, k.shape[2], d,
+        float(scale), *drop, _strides(q, k, v, do, dq, None), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_bwd_dq", drop)
+    name = _counter("flash_bwd_dq", drop, rows)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                  dropout_rate: float = 0.0, seed=None):
+                  dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
     """``(dk, dv)``, each (b, h, m, 64) bf16 in the merged-heads layout,
-    replaying the forward's keep mask with ``dropout_rate`` > 0; see
-    :func:`flash_bwd_reference`."""
+    replaying the forward's keep mask with ``dropout_rate`` > 0; with gammas
+    dk is the gradient of the normalised k; see :func:`flash_bwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
     drop = _dropout("flash_bwd_dkv", dropout_rate, seed, q.shape[1])
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
-                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed)[1:]
+                                   kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed,
+                                   gamma_q=gamma_q, gamma_k=gamma_k)[1:]
     _check("flash_bwd_dkv", (q, k, v, do), ids)
     _check_stats("flash_bwd_dkv", q, lse, delta)
     b, h, n, d = q.shape
     m = k.shape[2]
+    rows = gamma_rows(gamma_q, gamma_k, q)
+    _check_gamma_rows("flash_bwd_dkv", rows, q)
     dk, dv = _merged_heads(b, h, m, k), _merged_heads(b, h, m, v)
     lib = load_library()
     err = lib.lib.vit_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d, float(scale), *drop,
-        _strides(q, k, v, do, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d,
+        float(scale), *drop, _strides(q, k, v, do, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_bwd_dkv", drop)
+    name = _counter("flash_bwd_dkv", drop, rows)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return dk, dv
@@ -459,27 +550,37 @@ TWINS = SimpleNamespace(fwd=flash_fwd_reference, bwd=flash_bwd_reference)
 class _FlashAttention(torch.autograd.Function):
     """The counterpart of ``_flash_attention_core``'s custom_vjp without
     bias (:818-877).  The dropout rate and seed ride as Python numbers: the
-    backward replays the forward's mask from them."""
+    backward replays the forward's mask from them.  With qk-norm gammas the
+    kernels take their f32 rows, the Function saves the raw q and k, and its
+    backward closes the RMSNorm VJP on the kernels' normalised-space dq and
+    dk in plain PyTorch (:func:`rms_norm_vjp`, JAX ``_bwd`` :859-876)."""
 
     @staticmethod
-    def forward(ctx, ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids):
+    def forward(ctx, ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids, gamma_q, gamma_k):
+        rows = gamma_rows(gamma_q, gamma_k, q)
+        kw = _gamma_kw(rows)
         o, lse = ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                         dropout_rate=dropout_rate, seed=seed)
-        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse)
+                         dropout_rate=dropout_rate, seed=seed, **kw)
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse, gamma_q, gamma_k, *rows)
         ctx.ops, ctx.scale, ctx.dropout_rate, ctx.seed = ops, scale, dropout_rate, seed
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, qs, ks, o, lse = ctx.saved_tensors
+        q, k, v, qs, ks, o, lse, gamma_q, gamma_k, *rows = ctx.saved_tensors
         g = _kernel_ready(g)
         delta = (g.float() * o.float()).sum(-1).contiguous()  # (b, h, n) f32, :680-685; exact under dropout
         dq, dk, dv = ctx.ops.bwd(q, k, v, g, lse, delta, scale=ctx.scale, q_segment_ids=qs, kv_segment_ids=ks,
-                                 dropout_rate=ctx.dropout_rate, seed=ctx.seed)
-        return None, None, None, None, dq, dk, dv, None, None
+                                 dropout_rate=ctx.dropout_rate, seed=ctx.seed,
+                                 **_gamma_kw(rows))
+        dgq = dgk = None
+        if rows:
+            dq, dgq = rms_norm_vjp(q, gamma_q, dq)
+            dk, dgk = rms_norm_vjp(k, gamma_k, dk)
+        return None, None, None, None, dq, dk, dv, None, None, dgq, dgk
 
 
-def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed):
+def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gamma_q, gamma_k):
     ids = _ids(q_segment_ids, kv_segment_ids)
     if ids:
         q_segment_ids, kv_segment_ids = (t.to(torch.int32).contiguous() for t in ids)
@@ -487,10 +588,21 @@ def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, see
     dropout_rate = float(dropout_rate)
     seed = int(seed) if dropout_rate > 0.0 else None
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids)
+    operands = (q, k, v) if gamma_q is None else (q, k, v, gamma_q, gamma_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return _FlashAttention.apply(ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids, gamma_q,
+                                     gamma_k)
+    rows = gamma_rows(gamma_q, gamma_k, q)
     return ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                   dropout_rate=dropout_rate, seed=seed)[0]
+                   dropout_rate=dropout_rate, seed=seed, **_gamma_kw(rows))[0]
+
+
+def _check_gammas(gamma_q, gamma_k, bias) -> None:
+    """The JAX ``flash_attention``'s refusals of qk-norm gammas (:977-980)."""
+    if (gamma_q is None) != (gamma_k is None):
+        raise ValueError("qk-norm gammas must be given for both q and k")
+    if gamma_q is not None and bias is not None:
+        raise ValueError("fused qk-norm is unsupported with bias")
 
 
 def _check_dropout_request(dropout_rate: float, dropout_seed, bias) -> None:
@@ -503,15 +615,16 @@ def _check_dropout_request(dropout_rate: float, dropout_seed, bias) -> None:
 
 
 def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
-                          dropout_rate: float = 0.0, dropout_seed=None):
+                          dropout_rate: float = 0.0, dropout_seed=None, gamma_q=None, gamma_k=None):
     """The plain path of :func:`flash_attention` on any device: the same
     Function with every kernel swapped for its plain twin (the counterpart
     of ``ops/fused_block.py::layer_reference``), the same keep masks from
-    the same seed.  Like the kernels it keeps only o and the LSE for the
-    backward, so it trains where the materialized
+    the same seed, the same qk-norm epilogue.  Like the kernels it keeps only
+    o and the LSE for the backward, so it trains where the materialized
     :func:`flash_attention_reference` would not fit."""
+    _check_gammas(gamma_q, gamma_k, None)
     _check_dropout_request(dropout_rate, dropout_seed, None)
-    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed)
+    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q, gamma_k)
 
 
 def flash_attention(
@@ -537,6 +650,11 @@ def flash_attention(
 
     ``q_segment_ids`` (b, n) / ``kv_segment_ids`` (b, m): token i attends j
     iff their ids are equal and non-negative; a row with none gives zeros.
+    ``gamma_q``/``gamma_k`` (both or neither; any shape reshaping to (h, d),
+    the modules keep (h, 1, d)): the reference's per-head qk RMSNorm runs
+    inside the kernels (their ``[qknorm]`` instantiations), and the backward
+    closes its VJP on the host; callers pass ``scale=1.0`` with it.  With a
+    ``bias`` they raise ``ValueError``, as in JAX.
     ``dropout_rate`` > 0 drops the normalized attention matrix inside the
     kernels with the keep mask of the int ``dropout_seed`` (required; see
     :func:`flash_dropout_masks`), and the backward replays it; with a
@@ -546,18 +664,13 @@ def flash_attention(
     what :func:`flash_supported` refuses.  ``block_q``/``block_k`` may only
     name the kernels' own 64 x 64 tiles, and ``interpret`` (the Pallas
     interpreter switch) has no meaning here: CPU tensors take the twins.
-    ``bias``, ``causal`` and the in-kernel qk-norm gammas raise
-    ``NotImplementedError``."""
+    ``bias`` and ``causal`` raise ``NotImplementedError``."""
+    _check_gammas(gamma_q, gamma_k, bias)
     _check_dropout_request(dropout_rate, dropout_seed, bias)
     if bias is not None:
         raise NotImplementedError(f"flash_attention: an additive bias is not ported yet ({_FLASH_ITEM}, bias variant)")
     if causal:
         raise NotImplementedError(f"flash_attention: causal masking is not ported yet ({_FLASH_ITEM}, causal variant)")
-    if gamma_q is not None or gamma_k is not None:
-        raise NotImplementedError(
-            "flash_attention: the in-kernel qk-norm (the JAX opt-in VIT_TPU_FUSE_QKNORM) is not ported; "
-            "the dispatcher applies rms_norm before the kernels (ROADMAP: TPU kernels to port, items 4-5)"
-        )
     del interpret
     if (block_q or BLOCK_Q) != BLOCK_Q or (block_k or BLOCK_K) != BLOCK_K:
         raise ValueError(f"flash_attention: the kernels' tiles are {BLOCK_Q} x {BLOCK_K}")
@@ -566,4 +679,5 @@ def flash_attention(
             f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} is not supported by the kernels "
             f"(bf16, dim_head {DIM_HEAD})"
         )
-    return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed)
+    return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q,
+                  gamma_k)

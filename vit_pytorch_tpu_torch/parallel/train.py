@@ -18,8 +18,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.packing import PackedImages
-
 
 @dataclass
 class TrainState:
@@ -76,10 +74,11 @@ def make_train_step(
 
     ``aux_loss_weight``: for models returning ``(logits, aux_loss)``.
 
-    ``images``: a tensor batch, or a ``PackedImages`` (NaViT) at
-    ``grad_accum=1``, as the JAX step takes its pytree (train.py:72-103);
-    the loss is then the caller's (for NaViT, a cross-entropy over the
-    ``(b, max_images)`` slots masked where the label is -1).
+    ``images``: a tensor batch, or a packed batch (NaViT's ``PackedImages``,
+    the 3-D NaViT's ``PackedVolumes``) at ``grad_accum=1``, as the JAX step
+    takes its pytree (train.py:72-103); the loss is then the caller's (for
+    NaViT, a cross-entropy over the ``(b, max_images)`` slots masked where
+    the label is -1).
 
     ``grad_accum``: the batch (whose leading dim must divide by it) runs as
     ``grad_accum`` sequential microbatches; their gradients are summed in
@@ -116,8 +115,9 @@ def make_train_step(
             loss, acc = loss_and_accuracy(images, labels, generator)
             loss.backward()
             loss = loss.detach()
-        elif isinstance(images, PackedImages):
-            raise ValueError("grad_accum > 1 takes a tensor batch; split a PackedImages into packs yourself")
+        elif not isinstance(images, torch.Tensor):
+            raise ValueError(f"grad_accum > 1 takes a tensor batch; split a packed batch ({type(images).__name__}) "
+                             f"into packs yourself")
         else:
             b = images.shape[0]
             if b % grad_accum:

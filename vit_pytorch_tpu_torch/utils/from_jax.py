@@ -82,6 +82,7 @@ _SIMPLE_VIT_QK_NORM_MODULES = _PATCH_EMBEDDING + (
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma"}
 _TOP_LEVEL = ("cls_token", "pos_embedding")
 _NAVIT_TOP_LEVEL = ("pos_embed_height", "pos_embed_width", "attn_pool_queries")
+_NAVIT_3D_TOP_LEVEL = ("pos_embed_frame", *_NAVIT_TOP_LEVEL, "register_tokens")
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -130,6 +131,13 @@ def na_vit_nested_tensor_state_dict_from_jax(params: Mapping) -> dict[str, torch
     """The JAX ``models/na_vit_nested_tensor.py::NaViT``'s ``params`` tree
     -> the port's ``state_dict``."""
     return _state_dict(params, _NAVIT_NT_MODULES, _NAVIT_TOP_LEVEL)
+
+
+def na_vit_nested_tensor_3d_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/na_vit_nested_tensor_3d.py::NaViT``'s ``params``
+    tree -> the port's ``state_dict`` (the 2-D nested variant's modules, the
+    frame table and the register tokens)."""
+    return _state_dict(params, _NAVIT_NT_MODULES, _NAVIT_3D_TOP_LEVEL)
 
 
 def simple_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
