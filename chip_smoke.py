@@ -134,7 +134,28 @@ Phases, each printed as it ends:
  27. its timing, the switch on and off in turns: serving img/s and real
      tokens/s, training ms/step and peak memory at dropout 0 and 0.1; each
      new launch against its twin and its kernel without qk-norm; the eager
-     rms_norm pair and the plain VJP epilogue alone.
+     rms_norm pair and the plain VJP epilogue alone;
+ 28. the short kernel (short_attention, [bias] with an f32 and a bf16
+     per-head bias) against its twin at b x h = 32 x 12, (n, m) from 49 to
+     1024 and n != m, and at q = 0 (every p exactly 1); the flash kernels'
+     causal variants ([causal], [dropout,causal], [qknorm,causal],
+     [dropout,qknorm,causal] of flash_fwd, flash_bwd_dq, flash_bwd_dkv) at
+     n = m = 2048, n = 1100 < m = 2048, n = 2048 > m = 1100 and two packs
+     with segment ids; flash_fwd[bias] and [bias,causal] with (1, h), (b, 1),
+     (b, h) biases, f32 and bf16, causal, with segment ids; the Functions
+     against autograd through the f32 composite, dbias included;
+ 29. SimpleViT-B/16 @512 and SimpleViT-qk-norm @512 (1024 tokens: the
+     dispatcher's short route) served behind buckets (1, 8, 32) (exact
+     counters: 12 short_attention a forward, no other launch; outputs
+     against the plain bf16 path and fp32) and trained 4 steps at bs=32
+     (short forward, composite backward; exact counters, first-step loss and
+     gradients against the plain bf16 path and fp32); dot_product_attention
+     on the card at the m = 1024 / 1025 edge, fp32 and dim_head 32 on the
+     composite, then its causal and bias calls at m = 2048 (and a per-head
+     bias at m = 1024), forward and backward, one launch of each variant;
+ 30. their timing: serving img/s and training ms/step with peak memory of
+     both models, kernel against plain in turns; each new launch against its
+     twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask).
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -1166,12 +1187,19 @@ def navit_model(dev, dtype, nested=False, **kw):
 
 
 def all_launches(fb, fa):
-    return {**fb.LAUNCHES, **fa.LAUNCHES}
+    """Every launch counter: the attention-block and layer kernels', the
+    flash kernels', the short kernel's."""
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
+    return {**fb.LAUNCHES, **fa.LAUNCHES, **sa.LAUNCHES}
 
 
 def reset_all(fb, fa):
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
     fb.reset_launch_counts()
     fa.reset_launch_counts()
+    sa.reset_launch_counts()
 
 
 def expect_launches(fb, fa, want, what):
@@ -2806,9 +2834,527 @@ def time_navit_qknorm(fa, dev, gen, smi):
     return per_kernel
 
 
+# -- the short kernel and the flash kernels' causal and bias variants (phases
+# 28-30): the short kernel on its model path, SimpleViT-B/16 @512 (1024
+# patches, no cls token: m = 1024, the dispatcher's short route), served and
+# trained; the causal and bias variants on the ops entry point that reaches
+# them, dot_product_attention at m >= 1024 (no model of the zoo sends them
+# there: ViViT-MOSS's causal attention has far fewer than 1024 frames, the
+# windowed rel-pos tables 49-196 keys)
+TPU_SHORT = "vit_pytorch_tpu/ops/short_attention.py:31"
+SHORT_SOURCE = "vit_pytorch_tpu_torch/csrc/short_attention.cu"
+SHORT_KERNELS = ("short_attention", "short_attention[bias]")
+CAUSAL_TAGS = ("[causal]", "[dropout,causal]", "[qknorm,causal]", "[dropout,qknorm,causal]")
+FLASH_CAUSAL = tuple(f"{name}{tag}" for tag in CAUSAL_TAGS for name in TPU_FLASH)
+FLASH_BIAS = ("flash_fwd[bias]", "flash_fwd[bias,causal]")
+TPU_NEW = {  # each new variant and the TPU kernel it replaces
+    **{name: TPU_SHORT for name in SHORT_KERNELS},
+    **{name: TPU_FLASH[name.split("[")[0]] for name in FLASH_CAUSAL + FLASH_BIAS},
+}
+B_SHORT = 32  # b x h = 32 x 12 slices: SimpleViT-B/16 @512's training batch
+SHORT_SHAPES = ((49, 49), (197, 197), (577, 577), (1024, 1024), (65, 130), (577, 1024))
+# Phase 28 holds the short kernel to its twin with phase 3's attention bounds
+# and adds q = 0 at m = 49, 197 and 577, where every p is exactly 1 and the
+# twin's o is bf16 of the f32 mean of v: a kernel that divides by l before the
+# p.v product casts 1/m, which bf16 rounds (by 1.1e-3 at m = 49, 2.0e-3 at
+# 197), so the rel L2 bound of phase 22's uniform case refuses it.
+SHORT_UNIFORM_M = (49, 197, 577)
+SIMPLE_512 = dict(image_size=512, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP)
+SIMPLE_512_N = (SIMPLE_512["image_size"] // SIMPLE_512["patch_size"]) ** 2  # 1024
+SIMPLE_512_BUCKETS, SIMPLE_512_REQUESTS = (1, 8, 32), (1, 5, 32)
+N_LONG, N_MID = 2048, 1100  # phase 28's flash problems: n, m in {2048, 1100}
+B_CAUSAL_TIME, N_CAUSAL_TIME = 8, 2048  # phase 30's shape for the flash variants
+N_EDGE = 1024  # the dispatcher's edge: m = 1024 is the short route, 1025 flash
+
+
+def causal_pairs(n, m):
+    """(query, key) pairs the causal mask leaves, top-left aligned."""
+    i = np.arange(n)
+    return int(np.minimum(i + 1, m).sum())
+
+
+def pair_work(name, b, n, m, pairs, *, dropout=False, qknorm=False, bias_bytes=0):
+    """The work of one launch of the short kernel or a flash variant on
+    (b, HEADS, n | m, DH) operands, of which ``pairs`` (query, key) pairs a
+    slice are visible: 4, 6, 8 DH bf16 products a pair for the forward, dq,
+    dkv (4 for the short kernel), ~5 f32 operations a pair, a Philox draw a
+    pair with dropout; each operand read once, each output written once (q,
+    k, v, o; dO, dq; dk, dv; the f32 lse and delta), the bias's unique bytes;
+    qk-norm adds the gammas and ~6 f32 operations an element of q and k."""
+    tq, tk, vec = b * HEADS * n * DH * 2, b * HEADS * m * DH * 2, b * HEADS * n * 4
+    per_pair, bytes_ = {"short_attention": (4, 2 * tq + 2 * tk), "flash_fwd": (4, 2 * tq + 2 * tk + vec),
+                        "flash_bwd_dq": (6, 3 * tq + 2 * tk + 2 * vec),
+                        "flash_bwd_dkv": (8, 2 * tq + 4 * tk + 2 * vec)}[name.split("[")[0]]
+    total = b * HEADS * pairs
+    f32 = (5 + (PHILOX_OPS_PER_ELEMENT if dropout else 0)) * total
+    if qknorm:
+        bytes_ += 2 * HEADS * DH * 4
+        f32 += 6 * b * HEADS * (n + m) * DH
+    return work(bytes_ + bias_bytes, tensor=per_pair * DH * total, f32=f32)
+
+
+@contextlib.contextmanager
+def plain_short(admit_fp32=False):
+    """Every short-route call of the dispatcher through the plain twin: the
+    same Function with the kernel swapped for ``short_attention_reference``.
+    With ``admit_fp32`` the gate admits fp32 too, so that an fp32 model runs
+    the twin in f32 (saving q, k, v a layer) instead of the materialized
+    composite (saving its (n, m) matrices)."""
+    from vit_pytorch_tpu_torch.ops import attention
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
+    saved = attention.short_attention, attention.short_supported
+    attention.short_attention = sa.short_attention_twins
+    if admit_fp32:
+        attention.short_supported = lambda *args: True
+    try:
+        yield
+    finally:
+        attention.short_attention, attention.short_supported = saved
+
+
+def check_short_causal_bias(fa, dev, gen):
+    """Phase 28: the short kernel (no bias, an f32 and a bf16 per-head bias)
+    against its twin at b x h = 32 x 12 and n, m in SHORT_SHAPES, and at q =
+    0 (SHORT_UNIFORM_M); the flash kernels' causal variants (rate 0 and 0.1,
+    with and without qk-norm gammas) against their twins at n = m = 2048,
+    n = 1100 < m = 2048, n = 2048 > m = 1100 and two packs of 2048 with
+    segment ids; flash_fwd[bias] and [bias,causal] (bias (1, h), (b, 1),
+    (b, h) in f32, (1, h) in bf16, with the causal mask, with segment ids);
+    the Functions (flash causal, flash bias + causal, short with a bias)
+    against autograd through the f32 composite, dbias included.  Returns the
+    largest max_abs of each variant against its twin."""
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
+    bf16 = torch.bfloat16
+    log(f"[28 short kernel, flash causal and bias] bf16, heads={HEADS}, dh={DH}; short: b={B_SHORT}, (n, m) in "
+        f"{SHORT_SHAPES}; flash: b=2 at {N_LONG} / {N_MID} keys and the two {NAVIT_SEQ}-token packs; dropout {RATE}")
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    errs = {name: 0.0 for name in TPU_NEW}
+    scale = DH**-0.5
+    with torch.inference_mode():
+        for n, m in SHORT_SHAPES:
+            q, k, v = rn(B_SHORT, HEADS, n, DH).to(bf16), rn(B_SHORT, HEADS, m, DH).to(bf16), rn(B_SHORT, HEADS, m,
+                                                                                                  DH).to(bf16)
+            bias = rn(HEADS, n, m)
+            for label, b in (("", None), (", bias f32", bias), (", bias bf16", bias.to(bf16))):
+                name = "short_attention" if b is None else "short_attention[bias]"
+                errs[name] = max(errs[name], compare(
+                    f"{name} [n={n} m={m}{label}]", sa.short_fwd(q, k, v, scale=scale, bias=b),
+                    sa.short_attention_reference(q, k, v, scale=scale, bias=b), ATTN_ATOL, ATTN_RTOL))
+            if n == m and m in SHORT_UNIFORM_M:
+                z = torch.zeros_like(q)
+                got, want = sa.short_fwd(z, k, v, scale=scale), sa.short_attention_reference(z, k, v, scale=scale)
+                l2, equal = rel_l2(got, want), (got == want).float().mean().item()
+                ok = l2 <= FLASH_UNIFORM_REL_L2
+                log(f"  short_attention o [q = 0, m={m}]: rel L2 {l2:.3e} (bound {FLASH_UNIFORM_REL_L2}), {equal:.4f} "
+                    f"of the elements bitwise equal {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    fail("short_attention rounds p elsewhere than its twin (the uniform case)")
+            del q, k, v, bias
+        sync()
+
+        cases, _ = flash_cases(fa, dev, gen)
+        _, qp, kp, vp, ids, _, _ = cases[0]  # the two 2048-token packs
+        ops3 = lambda b, n, m: (rn(b, HEADS, n, DH).to(bf16), rn(b, HEADS, m, DH).to(bf16),
+                                rn(b, HEADS, m, DH).to(bf16))
+        causal_cases = (
+            (f"n=m={N_LONG}", *ops3(2, N_LONG, N_LONG), None, None, scale),
+            (f"n={N_MID} m={N_LONG}", *ops3(2, N_MID, N_LONG), None, None, scale),
+            (f"n={N_LONG} m={N_MID}", *ops3(2, N_LONG, N_MID), None, None, scale),
+            ("packed ids", qp, kp, vp, ids, ids, 1.0),
+        )
+        gq, gk = qk_gamma_pair(gen, dev)
+        same = torch.equal(fa.flash_dropout_masks(DROP_SEED, 2, HEADS, N_MID, N_LONG, RATE, device=dev),
+                           fa.flash_dropout_masks_reference(DROP_SEED, 2, HEADS, N_MID, N_LONG, RATE, device=dev))
+        log(f"  flash_dropout_masks (2, {HEADS}, {N_MID}, {N_LONG}), the [dropout,causal] kernels' bits: bitwise equal "
+            f"to the twin: {same}")
+        if not same:
+            fail("flash_dropout_masks disagrees with its twin at n != m")
+        for label, q, k, v, qs, ks, sc in causal_cases:
+            kw = dict(scale=sc, q_segment_ids=qs, kv_segment_ids=ks, causal=True)
+            do = rn(*q.shape).to(bf16)
+            for rate, gammas in ((0.0, False), (RATE, False), (0.0, True), (RATE, True)):
+                dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None)
+                if gammas:
+                    dkw.update(gamma_q=gq, gamma_k=gk)
+                tag = fa._counter("", rate > 0, gammas, True)
+                fwd, dq_name, dkv_name = (f"{name}{tag}" for name in TPU_FLASH)
+                o, lse = fa.flash_fwd(q, k, v, **kw, **dkw)
+                o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw, **dkw)
+                errs[fwd] = max(errs[fwd], compare(f"{fwd} o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+                live = lse_want > 0.5 * fa.NEG_INF
+                if not bool((lse[~live] == fa.NEG_INF).all()):
+                    fail(f"{fwd} lse [{label}]: a fully masked row does not read the sentinel")
+                errs[fwd] = max(errs[fwd], compare(f"{fwd} lse [{label}]", lse[live], lse_want[live],
+                                                   QK_LSE_ATOL if gammas else FLASH_LSE_ATOL, FLASH_LSE_RTOL,
+                                                   F32_REL_L2))
+                if rate == 0.0 and not gammas:
+                    unmasked = fa.flash_fwd(q, k, v, scale=sc, q_segment_ids=qs, kv_segment_ids=ks)[0]
+                    if torch.equal(o, unmasked):
+                        fail(f"{fwd} [{label}] gives what the kernel without the causal mask gives")
+                delta = (do.float() * o.float()).sum(-1)
+                dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw)
+                want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw)
+                for kernel, part, got, w in ((dq_name, "dq", dq, want[0]), (dkv_name, "dk", dk, want[1]),
+                                             (dkv_name, "dv", dv, want[2])):
+                    errs[kernel] = max(errs[kernel], compare_or_zero(f"{kernel} {part} [{label}]", got, w, None,
+                                                                     ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+                del o, o_want, lse, lse_want, dq, dk, dv, want
+            sync()
+
+        q, k, v = ops3(2, N_MID, N_MID)
+        bias_cases = (
+            ("(1, h) f32", q, k, v, rn(1, HEADS, N_MID, N_MID), False, None, scale),
+            ("(b, 1) f32", q, k, v, rn(2, 1, N_MID, N_MID), False, None, scale),
+            ("(b, h) f32", q, k, v, rn(2, HEADS, N_MID, N_MID), False, None, scale),
+            ("(1, h) bf16", q, k, v, rn(1, HEADS, N_MID, N_MID).to(bf16), False, None, scale),
+            ("(1, h) f32, causal", q, k, v, rn(1, HEADS, N_MID, N_MID), True, None, scale),
+            ("(b, h) f32, packed ids", qp, kp, vp, 4 * rn(*qp.shape[:3], kp.shape[2]), False, ids, 1.0),
+        )
+        for label, q_, k_, v_, bias, causal, qs, sc in bias_cases:
+            name = "flash_fwd[bias,causal]" if causal else "flash_fwd[bias]"
+            kw = dict(scale=sc, q_segment_ids=qs, kv_segment_ids=qs, causal=causal, bias=bias)
+            o, lse = fa.flash_fwd(q_, k_, v_, **kw)
+            o_want, lse_want = fa.flash_fwd_reference(q_, k_, v_, **kw)
+            errs[name] = max(errs[name], compare_or_zero(f"{name} o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+            live = lse_want > 0.5 * fa.NEG_INF
+            if not bool((lse[~live] == fa.NEG_INF).all()):
+                fail(f"{name} lse [{label}]: a fully masked row does not read the sentinel")
+            errs[name] = max(errs[name], compare(f"{name} lse [{label}]", lse[live], lse_want[live], FLASH_LSE_ATOL,
+                                                 FLASH_LSE_RTOL, F32_REL_L2))
+            del o, o_want, lse, lse_want
+        sync()
+
+    # the Functions against autograd through the f32 composite
+    functions = (
+        (f"flash_attention[causal] vs f32 composite [n={N_MID} m={N_LONG}]", fa.flash_attention, causal_cases[1][1:4],
+         dict(causal=True), None),
+        ("flash_attention[bias,causal] vs f32 composite [(1, h)]", fa.flash_attention, (q, k, v), dict(causal=True),
+         rn(1, HEADS, N_MID, N_MID)),
+        ("short_attention[bias] vs f32 composite [n=m=197]", sa.short_attention,
+         tuple(rn(B_SHORT, HEADS, 197, DH).to(bf16) for _ in range(3)), {}, rn(HEADS, 197, 197)),
+    )
+    for label, fn, qkv, kw, bias in functions:
+        leaves = [t.detach().clone().requires_grad_() for t in (*qkv, *(() if bias is None else (bias,)))]
+        do = rn(*qkv[0].shape).to(bf16)
+        bkw = {} if bias is None else dict(bias=leaves[3])
+        out = fn(*leaves[:3], **kw, **bkw)
+        got = (out, *torch.autograd.grad(out, leaves, do))
+        ref = [t.detach().float().requires_grad_() for t in leaves]
+        rkw = {} if bias is None else dict(bias=ref[3])
+        out_ref = fa.flash_attention_reference(*ref[:3], **kw, **rkw)
+        want = (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))
+        for part, a, b in zip(("o", "dq", "dk", "dv", "dbias"), got, want):
+            compare_or_zero(f"{label} {part}", a, b, None, ATTN_RTOL, FLASH_VS_F32_REL_L2,
+                            atol_frac=FLASH_VS_F32_ATOL_FRAC)
+        del leaves, ref, out, out_ref, got, want
+        sync()
+    return errs
+
+
+def simple_512_model(kind, dev, dtype):
+    """SimpleViT ("simple") or SimpleViT-qk-norm ("qknorm") at the ViT-B/16
+    widths, image 512, patch 16: 1024 tokens; random weights from SEED,
+    initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch.models import simple_vit, simple_vit_with_qk_norm
+
+    cls = simple_vit_with_qk_norm.SimpleViT if kind == "qknorm" else simple_vit.SimpleViT
+    return cls(**SIMPLE_512, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def check_simple_512(fb, fa, dev, rnd, gen):
+    """Phase 29, the model path: SimpleViT-B/16 @512 and SimpleViT-qk-norm
+    @512 served behind buckets SIMPLE_512_BUCKETS (exact counters: 12
+    short_attention a forward, no other launch; outputs against the plain
+    bf16 path, the short Function on its twin, and fp32, which the gate sends
+    to the composite) and trained TRAIN_STEPS steps at bs=B_TRAIN (short
+    forward, composite backward; loss falls, exact counters, first-step
+    loss and gradients against the plain bf16 path and fp32).  Returns the
+    launch counts of SimpleViT's requests."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    bf16 = torch.bfloat16
+    size = SIMPLE_512["image_size"]
+    log(f"[29 SimpleViT @512 on the short kernel] {SIMPLE_512} ({SIMPLE_512_N} tokens, no cls token: m = "
+        f"{SIMPLE_512_N}, the dispatcher's short route), bf16, seed {SEED}; buckets {SIMPLE_512_BUCKETS}, requests "
+        f"{SIMPLE_512_REQUESTS}; training at bs={B_TRAIN}, {TRAIN_STEPS} steps")
+    for kind in ("simple", "qknorm"):
+        fp32 = simple_512_model(kind, dev, torch.float32).eval()
+        pred = Predictor(fp32, example_shape=(3, size, size), batch_sizes=SIMPLE_512_BUCKETS, device=dev).warmup()
+        images = {k: rnd(k, 3, size, size, dtype=torch.float32) for k in SIMPLE_512_REQUESTS}
+        runs = sum(-(-k // SIMPLE_512_BUCKETS[-1]) for k in SIMPLE_512_REQUESTS)
+        reset_all(fb, fa)
+        outs = {k: pred(images[k]) for k in SIMPLE_512_REQUESTS}
+        sync()
+        counts = expect_launches(fb, fa, {"short_attention": DEPTH * runs},
+                               f"SimpleViT{'-qk-norm' if kind == 'qknorm' else ''} @512 serving ({runs} bucket runs)")
+        if kind == "simple":
+            serving_counts = counts
+        width = SIMPLE_512["dim"] if kind == "qknorm" else SIMPLE_512["num_classes"]
+        for k, out in outs.items():
+            if out.shape != (k, width) or not bool(torch.isfinite(out).all()):
+                fail(f"{kind} @512 request of {k} images: shape {tuple(out.shape)}, finite "
+                     f"{bool(torch.isfinite(out).all())}")
+        k = SIMPLE_512_REQUESTS[-1]
+        reset_all(fb, fa)
+        with torch.inference_mode():
+            with plain_short():
+                plain = pred.model(images[k].to(bf16))
+            want = fp32(images[k])
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
+        e_plain, e_fp32, floor = rel_l2(outs[k], plain), rel_l2(outs[k], want), rel_l2(plain, want)
+        ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
+        log(f"  {kind}: outputs of the {k}-image request, rel L2: vs plain bf16 {e_plain:.4e} (bound "
+            f"{SIMPLE_LOGITS_VS_PLAIN}), vs fp32 {e_fp32:.4e} (bound {SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 "
+            f"{floor:.4e}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{kind} @512 served outputs disagree with the plain path or fp32")
+        del pred, fp32, outs, plain, want
+        sync()
+
+    for kind in ("simple", "qknorm"):
+        width = SIMPLE_512["dim"] if kind == "qknorm" else SIMPLE_512["num_classes"]
+        fp32 = simple_512_model(kind, dev, torch.float32)
+        model = copy.deepcopy(fp32).to(bf16)
+        initial = copy.deepcopy(model)
+        names = [n for n, _ in model.named_parameters()]
+        images = torch.randn(B_TRAIN, 3, size, size, generator=gen, device=dev)
+        labels = torch.randint(0, width, (B_TRAIN,), generator=gen, device=dev)
+        state, step = create_train_state(model), make_train_step(model)
+        reset_all(fb, fa)
+        losses = []
+        for i in range(TRAIN_STEPS):
+            losses.append(step(state, images.to(bf16), labels)["loss"].item())
+            if i == 0:
+                grads = grad_vector(model)
+        sync()
+        log(f"  {kind} training: losses {[f'{v:.6f}' for v in losses]}")
+        expect_launches(fb, fa, {"short_attention": DEPTH * TRAIN_STEPS}, f"{kind} @512 training")
+        if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+            fail(f"{kind} @512 training loss is not finite or does not fall on the repeated batch")
+        plain = copy.deepcopy(initial)
+        reset_all(fb, fa)
+        with plain_short():
+            loss_plain = make_train_step(plain)(create_train_state(plain), images.to(bf16), labels)["loss"].item()
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"the plain path launched kernels: {all_launches(fb, fa)}")
+        with plain_short(admit_fp32=True):
+            loss_fp32 = make_train_step(fp32)(create_train_state(fp32), images, labels)["loss"].item()
+        plain_grads, fp32_grads = grad_vector(plain), grad_vector(fp32)
+        log(f"  plain bf16 vs fp32: loss rel {abs(loss_plain - loss_fp32) / abs(loss_fp32):.3e}, gradients rel L2 "
+            f"{grads_rel_l2(plain_grads, fp32_grads):.4e}")
+        compare_grads(f"{kind} @512 first step vs plain bf16", grads, plain_grads, losses[0], loss_plain,
+                      SIMPLE_TRAIN_VS_PLAIN, names)
+        compare_grads(f"{kind} @512 first step vs fp32", grads, fp32_grads, losses[0], loss_fp32,
+                      SIMPLE_TRAIN_VS_FP32, names)
+        del model, plain, fp32, initial, state, step, grads, plain_grads, fp32_grads
+        sync()
+    return serving_counts
+
+
+def check_dispatch_on_card(fb, fa, dev, gen):
+    """Phase 29, the ops entry point: dot_product_attention on the card at
+    the edge of the short route (m = 1024: short_attention; m = 1025:
+    flash_fwd; fp32 and dim_head 32 at m = 1024: the composite, no launch),
+    each against the f32 composite; then, counters zeroed just before, the
+    calls that reach the causal and bias variants, forward and backward:
+    causal at m = N_LONG (rate 0 and 0.1, and with qk-norm gammas under
+    VIT_TPU_FUSE_QKNORM=1), a (1, h, n, m) bias with and without the causal
+    mask, a per-head (h, n, m) bias at m = 1024 (the short kernel's [bias]).
+    Returns the launch counts of that second run."""
+    from vit_pytorch_tpu_torch.ops.attention import dot_product_attention
+
+    bf16 = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    log(f"[29 dispatcher on the card] dot_product_attention, b=2, heads={HEADS}, dh={DH}, bf16")
+
+    def against_f32(label, got, q, k, v, **kw):
+        want = dot_product_attention(q.float(), k.float(), v.float(), use_flash=False, **kw)
+        e = rel_l2(got, want)
+        ok = bool(torch.isfinite(got).all()) and e <= FLASH_VS_F32_REL_L2
+        log(f"  {label}: rel L2 vs the f32 composite {e:.3e} (bound {FLASH_VS_F32_REL_L2}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"dot_product_attention {label} disagrees with the f32 composite")
+
+    q = rn(2, HEADS, N_EDGE, DH).to(bf16)
+    with torch.inference_mode():
+        for m, want in ((N_EDGE, {"short_attention": 1}), (N_EDGE + 1, {"flash_fwd": 1})):
+            k, v = rn(2, HEADS, m, DH).to(bf16), rn(2, HEADS, m, DH).to(bf16)
+            reset_all(fb, fa)
+            out = dot_product_attention(q, k, v)
+            sync()
+            expect_launches(fb, fa, want, f"the dispatcher at m = {m}")
+            against_f32(f"m = {m}", out, q, k, v)
+        k, v = rn(2, HEADS, N_EDGE, DH).to(bf16), rn(2, HEADS, N_EDGE, DH).to(bf16)
+        reset_all(fb, fa)
+        dot_product_attention(q.float(), k.float(), v.float())
+        dot_product_attention(q[..., :32], k[..., :32], v[..., :32])
+        sync()
+        expect_launches(fb, fa, {}, "the dispatcher at m = 1024 in fp32 and at dim_head 32 (the composite)")
+
+    n = m = N_LONG
+    q, k, v, do = (rn(2, HEADS, n, DH).to(bf16) for _ in range(4))
+    gq, gk = qk_gamma_pair(gen, dev)
+    drop_gen = torch.Generator(device="cpu").manual_seed(SEED)
+    calls = (  # (label, keywords, gammas, under VIT_TPU_FUSE_QKNORM)
+        ("causal", dict(causal=True), False),
+        ("causal, dropout 0.1", dict(causal=True, dropout_rate=RATE, generator=drop_gen), False),
+        ("causal, qk-norm gammas", dict(causal=True, scale=1.0), True),
+        ("causal, dropout 0.1, qk-norm gammas", dict(causal=True, scale=1.0, dropout_rate=RATE, generator=drop_gen),
+         True),
+        ("bias (1, h, n, m)", dict(bias=rn(1, HEADS, n, m)), False),
+        ("bias (1, h, n, m), causal", dict(bias=rn(1, HEADS, n, m), causal=True), False),
+    )
+    reset_all(fb, fa)
+    for label, kw, gammas in calls:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        gkw = dict(gamma_q=gq, gamma_k=gk) if gammas else {}
+        with fuse_qknorm(gammas):
+            out = dot_product_attention(*leaves, **kw, **gkw)
+            torch.autograd.grad(out, leaves, do)
+        if "dropout_rate" not in kw:
+            fkw = {key: val for key, val in kw.items() if key != "generator"}
+            with torch.inference_mode():
+                against_f32(label, out.detach(), q, k, v, **fkw, **gkw)
+        del leaves, out
+    qs = q[:, :, :N_EDGE]
+    ks, vs = k[:, :, :N_EDGE], v[:, :, :N_EDGE]
+    bias = rn(HEADS, N_EDGE, N_EDGE)
+    leaves = [t.detach().clone().requires_grad_() for t in (qs, ks, vs, bias)]
+    out = dot_product_attention(*leaves[:3], bias=leaves[3])
+    torch.autograd.grad(out, leaves, do[:, :, :N_EDGE])
+    with torch.inference_mode():
+        against_f32("per-head bias (h, n, m) at m = 1024", out.detach(), qs, ks, vs, bias=bias)
+    sync()
+    want = {**{name: 1 for name in FLASH_CAUSAL}, **{name: 1 for name in FLASH_BIAS}, "short_attention[bias]": 1}
+    return expect_launches(fb, fa, want, "dot_product_attention's causal and bias calls, forward and backward")
+
+
+def time_short_causal_bias(fa, dev, gen, smi):
+    """Phase 30: SimpleViT-B/16 @512 and SimpleViT-qk-norm @512 serving img/s
+    at bs=32 and training ms/step with peak memory at bs=B_TRAIN, kernel
+    against plain paths in turns; each new launch alone against its twin,
+    its bound and its library call (SDPA; is_causal for the causal mask, a
+    float attn_mask for a bias): the short kernel at SimpleViT @512's shape
+    (32 x 12 x 1024), the flash variants at 8 x 12 x 2048.  Returns the
+    timing entries."""
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    size = SIMPLE_512["image_size"]
+    log(f"[30 short kernel, flash causal and bias timing] {smi}")
+    bs = SIMPLE_512_BUCKETS[-1]
+    for kind in ("simple", "qknorm"):
+        model = simple_512_model(kind, dev, bf16).eval()
+        img = torch.randn(bs, 3, size, size, generator=gen, device=dev).to(bf16)
+        with torch.inference_mode():
+            def serve_plain():
+                with plain_short():
+                    model(img)
+
+            p1, k1, k2, p2 = (host_ms(f, 5) for f in (serve_plain, lambda: model(img), lambda: model(img), serve_plain))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        log(f"  {kind} @512 serving at bs={bs}: kernel path {bs * 1e3 / k_ms:.1f} img/s ({k_ms:.3f} ms/batch), plain "
+            f"bf16 path {bs * 1e3 / p_ms:.1f} img/s ({p_ms:.3f} ms/batch); turns ms plain {p1:.3f} kernel {k1:.3f} "
+            f"kernel {k2:.3f} plain {p2:.3f}")
+        del model, img
+        width = SIMPLE_512["dim"] if kind == "qknorm" else SIMPLE_512["num_classes"]
+        model = simple_512_model(kind, dev, bf16)
+        images = torch.randn(B_TRAIN, 3, size, size, generator=gen, device=dev).to(bf16)
+        labels = torch.randint(0, width, (B_TRAIN,), generator=gen, device=dev)
+        state, step = create_train_state(model), make_train_step(model)
+
+        def plain_step():
+            with plain_short():
+                step(state, images, labels)
+
+        kernel_step = lambda: step(state, images, labels)
+        (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                      for f in (plain_step, kernel_step, kernel_step, plain_step))
+        log(f"  {kind} @512 training at bs={B_TRAIN}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+            f"{(p1 + p2) / 2:.3f} ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; "
+            f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+        del model, state, step, images
+
+    per_kernel = {}
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    with torch.inference_mode():
+        b, n = B_SHORT, SIMPLE_512_N
+        q, k, v = (rn(b, HEADS, n, DH).to(bf16) for _ in range(3))
+        bias = rn(HEADS, n, n)
+        log(f"  the short kernel at SimpleViT @512's shape ({b} x {HEADS} heads x {n} tokens); its library call "
+            f"scaled_dot_product_attention, with the bias as a float attn_mask:")
+        for name, b_, lib in (("short_attention", None, lambda: sdpa(q, k, v)),
+                              ("short_attention[bias]", bias,
+                               lambda m=bias.to(bf16)[None]: sdpa(q, k, v, attn_mask=m))):
+            km, pm = in_turns(lambda: sa.short_fwd(q, k, v, scale=DH**-0.5, bias=b_),
+                              lambda: sa.short_attention_reference(q, k, v, scale=DH**-0.5, bias=b_), 5)
+            lib_ms = cuda_ms(lib, 5)
+            w = pair_work(name, b, n, n, n * n, bias_bytes=0 if b_ is None else b_.numel() * 4)
+            record(per_kernel, name, km, pm, w, lib_ms)
+            bound, by = bound_ms(w)
+            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}), library {lib_ms:.4f} ms")
+        del q, k, v, bias
+
+        b, n = B_CAUSAL_TIME, N_CAUSAL_TIME
+        q, k, v, do = (rn(b, HEADS, n, DH).to(bf16) for _ in range(4))
+        gq, gk = qk_gamma_pair(gen, dev)
+        pairs = causal_pairs(n, n)
+        log(f"  each flash variant at {b} x {HEADS} heads x {n} tokens, no ids ({pairs / n / n:.4f} of the pairs "
+            f"visible under the causal mask); the backward twin computes dq, dk and dv at once:")
+        for tag in CAUSAL_TAGS:
+            rate, gammas = (RATE if "dropout" in tag else 0.0), "qknorm" in tag
+            kw = dict(scale=DH**-0.5, causal=True, dropout_rate=rate, seed=DROP_SEED if rate else None)
+            if gammas:
+                kw.update(gamma_q=gq, gamma_k=gk)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            library = {"flash_fwd[causal]": lambda: sdpa(q, k, v, is_causal=True),
+                       "flash_fwd[dropout,causal]": lambda: sdpa(q, k, v, is_causal=True, dropout_p=RATE)}
+            for name, kern, plain in (
+                (f"flash_fwd{tag}", lambda: fa.flash_fwd(q, k, v, **kw), lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+                (f"flash_bwd_dq{tag}", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)),
+                (f"flash_bwd_dkv{tag}", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                 lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)),
+            ):
+                km, pm = in_turns(kern, plain, 3)
+                lib_ms = cuda_ms(library[name], 5) if name in library else None
+                w = pair_work(name, b, n, n, pairs, dropout=bool(rate), qknorm=gammas)
+                record(per_kernel, name, km, pm, w, lib_ms)
+                bound, by = bound_ms(w)
+                lib_note = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+                log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}){lib_note}")
+            del o, lse, delta
+        bias = rn(1, HEADS, n, n)
+        causal_mask = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+        for name, causal in (("flash_fwd[bias]", False), ("flash_fwd[bias,causal]", True)):
+            kw = dict(scale=DH**-0.5, causal=causal, bias=bias)
+            mask = bias.to(bf16) if not causal else bias.masked_fill(~causal_mask, float("-inf")).to(bf16)
+            km, pm = in_turns(lambda: fa.flash_fwd(q, k, v, **kw), lambda: fa.flash_fwd_reference(q, k, v, **kw), 3)
+            lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), 5)
+            w = pair_work(name, b, n, n, pairs if causal else n * n, bias_bytes=bias.numel() * 4)
+            record(per_kernel, name, km, pm, w, lib_ms)
+            bound, by = bound_ms(w)
+            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}), library {lib_ms:.4f} "
+                f"ms (SDPA, the bias{' with -inf above the diagonal' if causal else ''} as a bf16 attn_mask)")
+            del mask
+    sync()
+    return per_kernel
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
-    its template arguments (flash kernels: <kDropout, kQkNorm>), its
+    its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
+    <kDropout, kQkNorm, kBias>, short_attention <kBias>), its
     registers and its spill stores and loads.  An empty report (a reused
     build) gives no line."""
     lines, name, spill = [], None, ""
@@ -3105,6 +3651,19 @@ def main():
     per_kernel.update(time_navit_qknorm(fa, dev, gen, smi))
     phase_done("phase 27")
 
+    # -- 28. the short kernel, flash causal and bias against their twins ---------------
+    errs.update(check_short_causal_bias(fa, dev, gen))
+    phase_done("phase 28")
+
+    # -- 29. SimpleViT @512 on the short kernel; the dispatcher on the card ------------
+    simple_512_counts = check_simple_512(fb, fa, dev, rnd, gen)
+    ops_counts = check_dispatch_on_card(fb, fa, dev, gen)
+    phase_done("phase 29")
+
+    # -- 30. their timing ------------------------------------------------------------
+    per_kernel.update(time_short_causal_bias(fa, dev, gen, smi))
+    phase_done("phase 30")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -3148,6 +3707,11 @@ def main():
                  if name == "flash_fwd[qknorm]" else "NaViT training under VIT_TPU_FUSE_QKNORM=1",
                  (navit_qk_counts["serving"] if name == "flash_fwd[qknorm]" else
                   navit_qk_counts[RATE if "dropout" in name else 0.0])[name]) for name in TPU_FLASH_QK]
+        + [entry(name, SHORT_SOURCE if name in SHORT_KERNELS else FLASH_SOURCE, replaces,
+                 "SimpleViT-B/16 @512 serving" if name == "short_attention" else
+                 "dot_product_attention at m >= 1024 (causal, a bias), forward and backward",
+                 (simple_512_counts if name == "short_attention" else ops_counts)[name])
+           for name, replaces in TPU_NEW.items()]
     )
     for k in kernels:
         if not k["launches"]:
@@ -3168,7 +3732,11 @@ def main():
         "block-diagonal mask; flash_dropout_masks' at (2, 12, 2048, 2048); the flash [qknorm] and "
         "[dropout,qknorm] kernels' at NaViT-B's packed training shape, launches from NaViT-B under "
         "VIT_TPU_FUSE_QKNORM=1: its serving forward for flash_fwd[qknorm], its 4 training steps at dropout 0 for "
-        "the backward [qknorm] kernels, its 2 at dropout 0.1 for the [dropout,qknorm] kernels)")
+        "the backward [qknorm] kernels, its 2 at dropout 0.1 for the [dropout,qknorm] kernels; short_attention "
+        "and [bias] at SimpleViT-B/16 @512's shape (32 x 12 x 1024), launches from its served requests and, for "
+        "[bias], from dot_product_attention with a per-head bias at m = 1024; the flash [causal] and [bias] variants "
+        "at 8 x 12 x 2048, launches from dot_product_attention's causal and bias calls at m = 2048, forward and "
+        "backward; library_ms SDPA with is_causal, dropout_p or the bias as a float attn_mask)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,13 +1,15 @@
 """The port's materialized attention (vit_pytorch_tpu_torch/ops/attention.py)
 against the JAX package's ``xla_attention`` on the CPU, fp32, with the
 options the ported signature keeps: additive bias, boolean mask (a fully
-masked row gives zeros) and the returned attention matrix."""
+masked row gives zeros) and the returned attention matrix; and the
+dispatcher's kernel routes asked for with ``use_flash=True``."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vit_pytorch_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
 from vit_pytorch_tpu.ops.attention import xla_attention as jax_attention
 from vit_pytorch_tpu_torch.ops.attention import dot_product_attention, xla_attention
 
@@ -37,11 +39,16 @@ def test_xla_attention_matches_jax(with_bias, with_mask):
 
 
 def test_dispatcher_raises_for_unported_routes():
-    """Only the kernel routes still to port raise, and only when asked for;
-    the composite takes causal attention (tests/test_torch_attention_dispatch.py)."""
-    q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_product_attention(q, q, q, use_flash=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_product_attention(q, q, q, causal=True, use_flash=True)
-    assert dot_product_attention(q, q, q, causal=True).shape == q.shape
+    """No route raises any more: what ``use_flash=True`` asks for, the short
+    kernel (no mask, m <= 1024) and flash with the causal mask, runs on the
+    CPU on the kernels' plain twins and matches the JAX dispatcher's kernels
+    in interpret mode (atol 2e-5); the composite takes causal attention as
+    before (tests/test_torch_attention_dispatch.py)."""
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((1, 2, 4, 8)).astype(np.float32) for _ in range(3))
+    for kw in (dict(), dict(causal=True)):
+        want = jax_dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_flash=True, **kw)
+        got = dot_product_attention(*map(torch.from_numpy, (q, k, v)), use_flash=True, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    t = torch.from_numpy(q)
+    assert dot_product_attention(t, t, t, causal=True).shape == t.shape

@@ -4,8 +4,8 @@
   attention.py) computes causal attention and a per-head (h, n, m) or
   per-image (b, h, n, m) additive bias on its composite, as the JAX
   dispatcher does (vit_pytorch_tpu/ops/attention.py:183-188, :290-310), in
-  fp32 against it; the causal triangle lands on q's device; only the kernel
-  routes still to port raise, and only when asked for with ``use_flash``;
+  fp32 against it; the causal triangle lands on q's device; ``use_flash``
+  sends causal and a bias to the kernel routes JAX takes, on their twins;
 - the CUDA sources ship with the package (``pyproject.toml``'s package
   data), and the kernels build under ``build/`` in a checkout and under a
   user cache directory, or ``$VIT_TORCH_BUILD_DIR``, outside one (nothing is
@@ -81,14 +81,31 @@ def test_causal_mask_builds_on_q_device():
     (dict(bias=torch.zeros(B, H, N, M), seg=True), "item 4"),  # flash with a bias
     (dict(causal=True, seg=True), "item 4"),
 ])
-def test_use_flash_still_raises_for_causal_and_bias(kw, match):
+def test_use_flash_still_raises_for_causal_and_bias(kw, match, monkeypatch):
+    """``use_flash=True`` with causal or a bias takes the kernel route the
+    JAX dispatcher takes ("item 6", the short kernel's ROADMAP item: the
+    short route; "item 4": the flash route), runs it on the kernels' plain
+    twins here, and matches the JAX dispatcher's kernels in interpret
+    mode."""
     kw = dict(kw)
-    q = torch.zeros(B, H, N, D)
+    routes = []
+    for name in ("flash_attention", "short_attention"):
+        fn = getattr(attention, name)
+        monkeypatch.setattr(attention, name, lambda *a, _fn=fn, _name=name, **k: routes.append(_name) or _fn(*a, **k))
+    q, k, v, rng = _inputs()
+    jkw = {}
     if kw.pop("seg", False):
-        ids = torch.zeros(B, N, dtype=torch.int32)
-        kw.update(q_segment_ids=ids, kv_segment_ids=ids)
-    with pytest.raises(NotImplementedError, match=match):
-        attention.dot_product_attention(q, q, q, use_flash=True, **kw)
+        ids = np.array([[0, 0, 0, 1, 1, -1], [0, 1, 1, 1, 2, 2]], np.int32)
+        kw.update(q_segment_ids=torch.from_numpy(ids), kv_segment_ids=torch.from_numpy(ids))
+        jkw.update(q_segment_ids=jnp.asarray(ids), kv_segment_ids=jnp.asarray(ids))
+    if "bias" in kw:
+        kw["bias"] = torch.from_numpy(rng.standard_normal(tuple(kw["bias"].shape)).astype(np.float32))
+    jkw.update({key: jnp.asarray(val.numpy()) if key == "bias" else val for key, val in kw.items()
+                if key not in jkw})
+    want = jax_attention.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_flash=True, **jkw)
+    got = attention.dot_product_attention(*map(torch.from_numpy, (q, k, v)), use_flash=True, **kw)
+    assert routes == ["short_attention" if match == "item 6" else "flash_attention"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
 
 
 def test_pyproject_ships_the_cuda_sources():

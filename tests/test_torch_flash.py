@@ -186,13 +186,18 @@ def test_tile_skip_predicate(layout):
 
 
 def test_flash_refuses_the_options_off_this_path():
+    """Every option of the JAX function is on the path now: a bias and the
+    causal mask run on the twins and match the JAX kernels in interpret mode
+    (atol 2e-5); gammas and dropout run with JAX's refusals."""
     q = torch.zeros(1, 2, 8, 64)
-    for kw, match in (
-        (dict(bias=torch.zeros(1, 2, 8, 8)), "item 4"),
-        (dict(causal=True), "item 4"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            flash.flash_attention(q, q, q, **kw)
+    rng = np.random.default_rng(4)
+    qa, ka, va = (rng.standard_normal((1, 2, 8, 64)).astype(np.float32) for _ in range(3))
+    for kw in (dict(bias=rng.standard_normal((1, 2, 8, 8)).astype(np.float32)), dict(causal=True)):
+        jkw = {k: _j(a) if isinstance(a, np.ndarray) else a for k, a in kw.items()}
+        want = jax_flash.flash_attention(jnp.asarray(qa), jnp.asarray(ka), jnp.asarray(va), interpret=True, **jkw)
+        tkw = {k: _t(a) if isinstance(a, np.ndarray) else a for k, a in kw.items()}
+        got = flash.flash_attention(*map(torch.from_numpy, (qa, ka, va)), **tkw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     # the in-kernel qk-norm is on this path now: it runs, with JAX's refusals
     # (both gammas or neither, none with a bias)
     gamma = torch.ones(2, 1, 64)
@@ -283,18 +288,24 @@ def test_dispatcher_flash_route(monkeypatch):
 
 
 def test_dispatcher_raises_for_routes_still_to_port(monkeypatch):
-    """Each raise names the ROADMAP item that brings its route."""
+    """The routes that raised until their kernels were ported (the short
+    kernel with and without a per-head bias, flash with the causal mask and
+    with a bias beside segment ids) now run their plain twins on the CPU and
+    match the JAX dispatcher's kernels in interpret mode (atol 2e-5)."""
     q = torch.zeros(1, 2, 8, 64)
     ids = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        attention.dot_product_attention(q, q, q, use_flash=True)  # the short kernel
-    with pytest.raises(NotImplementedError, match="item 6"):
-        attention.dot_product_attention(q, q, q, bias=torch.zeros(2, 8, 8), use_flash=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        attention.dot_product_attention(q, q, q, causal=True, use_flash=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        attention.dot_product_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8), q_segment_ids=ids,
-                                        kv_segment_ids=ids, use_flash=True)
+    rng = np.random.default_rng(8)
+    qa, ka, va = (rng.standard_normal((1, 2, 8, 64)).astype(np.float32) for _ in range(3))
+    ida = np.array([[0, 0, 0, 1, 1, 1, 1, -1]], np.int32)
+    for kw in (dict(), dict(bias=rng.standard_normal((2, 8, 8)).astype(np.float32)), dict(causal=True),
+               dict(bias=rng.standard_normal((1, 2, 8, 8)).astype(np.float32), q_segment_ids=ida,
+                    kv_segment_ids=ida)):
+        jkw = {k: _j(a) if isinstance(a, np.ndarray) else a for k, a in kw.items()}
+        want = jax_attention.dot_product_attention(jnp.asarray(qa), jnp.asarray(ka), jnp.asarray(va),
+                                                   use_flash=True, **jkw)
+        tkw = {k: _t(a) if isinstance(a, np.ndarray) else a for k, a in kw.items()}
+        got = attention.dot_product_attention(*map(torch.from_numpy, (qa, ka, va)), use_flash=True, **tkw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     # segment ids with dropout on the card: the flash route runs (its twins
     # here), no longer a raise
     calls = _spy_flash(monkeypatch)

@@ -7,12 +7,34 @@
 //   flash_bwd_dq   _bwd_dq_kernel   (:298, called at :739)  ... , do, lse, delta -> dq
 //   flash_bwd_dkv  _bwd_dkv_kernel  (:376, called at :776)  ... , do, lse, delta -> dk, dv
 //
-// for the options of the packed NaViT path: segment ids or none, attention
-// dropout or none, the in-tile qk-norm or none, no bias, no causal mask.
-// Each kernel has four instantiations, kDropout x kQkNorm (the launch
-// counters' "flash_fwd", "flash_fwd[dropout]", "flash_fwd[qknorm]" and
-// "flash_fwd[dropout,qknorm]"); an instantiation without an option holds
-// none of its code.
+// with every option of the JAX kernels: segment ids or none, attention
+// dropout or none, the in-tile qk-norm or none, the causal mask or none, and
+// in the forward an additive bias or none.  Each kernel has four
+// instantiations, kDropout x kQkNorm (the launch counters' "flash_fwd",
+// "flash_fwd[dropout]", "flash_fwd[qknorm]" and "flash_fwd[dropout,qknorm]");
+// an instantiation without an option holds none of its code.  flash_fwd has
+// a fifth, kBias (rate 0, no qk-norm: "flash_fwd[bias]").  Causal is a
+// runtime flag of every instantiation ("[...,causal]" in the counters): it
+// bounds the tile loops, and only the diagonal tile, behind a branch uniform
+// across the block, hides its future keys' logits (-inf) before the element
+// mask, which is the one a call without the flag runs.
+//
+// Causal (_tile_mask :161-164, the tile tests :220-221, :315-316, :394-396):
+// top-left aligned in absolute positions, key c visible to query r iff c <=
+// r, for n != m too (PyTorch's tril and SDPA's is_causal align the same way).
+// With 64 x 64 tiles query tile i sees key tiles 0 .. i: flash_fwd and
+// flash_bwd_dq loop over those and no further, flash_bwd_dkv's key tile j
+// starts its loop at query tile j; the element test runs on the diagonal tile
+// (i, i) alone, every key of an earlier tile being visible to every query of
+// a later one.  Keys past n reach no query: their dk and dv are 0.
+//
+// Bias (_fwd_kernel :241-242, its index map :559-587): a (1|b, 1|h, n, m)
+// f32 or bf16 table, the broadcast dims given zero strides (never copied),
+// read straight from device memory by each thread for its own accumulator
+// elements, and only where the element mask admits them (rows past n and keys
+// past m are never read); upcast to f32 and added after the scale, before the
+// mask.  Its backward is the composite (JAX _bwd :879-891), so only the
+// forward has the variant, and the lse it writes is not kept.
 //
 // The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
 // sequential and carry the online-softmax state (or the dq / dk, dv sums) in
@@ -130,17 +152,10 @@
 // once (scale applied to the f32 sums).  exp is exp2f of the argument times
 // log2(e).  No result depends on the tile size except f32 summation order.
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kFlashTile = 64;      // query rows and keys of one tile
-constexpr int kFlashThreads = 128;  // 4 warps x 16 rows
-constexpr int kFlashDh = kAttnDh;   // 64
-constexpr int kFlashLd = kAttnLd;   // 72: shared-memory row stride
-constexpr int kTileElems = kFlashTile * kFlashLd;
-constexpr float kNegInf = -1e30f;  // _NEG_INF, the LSE of a fully masked row
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBigId = 1 << 30;
 constexpr int kFlashKeepWords = kFlashTile / 32;                  // 32-key words of one keep row
 constexpr int kFlashKeepTile = kFlashTile * kFlashKeepWords;      // 128 words: one tile's keep bits
@@ -152,10 +167,6 @@ constexpr int kGammaSmem = kFlashDh * 4;                          // qk-norm: th
 // stage; with qk-norm the 64 gammas of the operand the ring carries
 constexpr int kFwdSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
 constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
-
-struct Strides {
-  long long b, h, row;  // elements; the head dim is contiguous
-};
 
 struct FlashArgs {
   const bf16* q;
@@ -170,16 +181,14 @@ struct FlashArgs {
   const int* kseg;     // (b, m) int32, or null
   const float* gq;     // (heads, 64) f32 qk-norm gammas, read by the kQkNorm instantiations only
   const float* gk;
-  Strides sq, sk, sv, sdo, s0, s1;
+  const void* bias;  // (1|b, 1|h, n, m) f32 or bf16, read by flash_fwd's kBias instantiation only
+  int bias_bf16;
+  Strides sq, sk, sv, sdo, s0, s1, sbias;  // sbias: 0 on a broadcast dim
   int heads, n, m;
+  int causal;  // key c visible to query r iff c <= r (top-left aligned)
   float scale;
   DropoutArgs drop;  // read by the kDropout instantiations only
 };
-
-template <typename T>
-__device__ __forceinline__ T* head_ptr(T* p, const Strides& s, int b, int h) {
-  return p + b * s.b + h * s.h;
-}
 
 // The segment id of row r of a (b, len) id array: -1 past len; without ids
 // every row in range is segment 0.
@@ -221,15 +230,44 @@ __device__ __forceinline__ int next_admitted(const int* seg, int len, int tiles,
   return j;
 }
 
-// One 64-row tile of a (b, h) slice into shared memory (ld kFlashLd), rows
-// r0.. of row stride `stride`; rows >= len are zero-filled.  All threads.
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride, int r0, int len) {
+// The causal mask (_tile_mask :161-164), top-left aligned in absolute
+// positions: whether key c is visible to query r.  The flag is read from the
+// kernel's parameters at each test, so a call without the mask holds no
+// limit in a register.
+__device__ __forceinline__ bool causal_visible(const FlashArgs& a, int c, int r) { return !a.causal || c <= r; }
+
+// Causal tile bounds (_fwd_kernel :220-221, _bwd_dq_kernel :315-316,
+// _bwd_dkv_kernel :394-396) for 64 x 64 tiles: query tile i sees key tiles
+// 0 .. i, key tile j is seen by query tiles j .. end.  The loops are bounded,
+// not skipped: a tile past the diagonal is never visited.
+__device__ __forceinline__ int causal_key_tiles(int qtile, int nk) { return min(nk, qtile + 1); }
+__device__ __forceinline__ int causal_first_query_tile(int ktile) { return ktile; }
+
+// s * scale + bias in f32, two roundings, after the scale and before the
+// mask (_fwd_kernel :237-248)
+__device__ __forceinline__ float scaled_biased(float s, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(s, scale), bias);
+}
+
+// The causal triangle of the diagonal tile, applied before the element mask:
+// each raw logit the triangle hides becomes -inf, so that the mask below,
+// the one a call without the flag runs, leaves it out of the row max and
+// turns it into p = 0 (the scale is positive).  Rows r0 and r0 + 8 of this
+// thread are queries and columns c0 + 8jj + 2t, +1 keys (flash_fwd,
+// flash_bwd_dq); in flash_bwd_dkv's transposed tile (kTransposed) the rows
+// are keys and the columns queries.
+template <bool kTransposed>
+__device__ __forceinline__ void hide_above_diagonal(float (&s)[8][4], const FlashArgs& a, int r0, int c0, int t) {
 #pragma unroll
-  for (int i = 0; i < kFlashTile * (kFlashDh / 8) / kFlashThreads; ++i) {
-    const int c = threadIdx.x + i * kFlashThreads;
-    const int r = c / (kFlashDh / 8), d = (c % (kFlashDh / 8)) * 8;
-    const bool ok = r0 + r < len;
-    cp_async_16_zfill(dst + r * kFlashLd + d, ok ? src + (r0 + r) * stride + d : src, ok);
+  for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + jj * 8 + 2 * t + e;
+      const bool v0 = kTransposed ? causal_visible(a, r0, c) : causal_visible(a, c, r0);
+      const bool v1 = kTransposed ? causal_visible(a, r0 + 8, c) : causal_visible(a, c, r0 + 8);
+      if (!v0) s[jj][e] = -CUDART_INF_F;
+      if (!v1) s[jj][2 + e] = -CUDART_INF_F;
+    }
   }
 }
 
@@ -240,23 +278,6 @@ __device__ __forceinline__ void prefetch_kv(bf16* ring, int* kids, int stage, in
   load_tile_async(ring + 2 * stage * kTileElems, kb, a.sk.row, j * kFlashTile, a.m);
   load_tile_async(ring + (2 * stage + 1) * kTileElems, vb, a.sv.row, j * kFlashTile, a.m);
   if (threadIdx.x < kFlashTile) kids[stage * kFlashTile + threadIdx.x] = seg_id(kseg, j * kFlashTile + threadIdx.x, a.m);
-}
-
-// The A fragments (16 rows x 64 columns, four k16 steps) of rows row_lo and
-// row_lo + 8 of a strided (rows, 64) operand in device memory, read once;
-// rows >= len read as zeros.
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[kFlashDh / 16][4], const bf16* base, long long stride,
-                                            int row_lo, int len, int t) {
-  const bool ok0 = row_lo < len, ok1 = row_lo + 8 < len;
-  const bf16* p0 = base + row_lo * stride + 2 * t;
-  const bf16* p1 = p0 + 8 * stride;
-#pragma unroll
-  for (int kk = 0; kk < kFlashDh / 16; ++kk) {
-    a[kk][0] = ok0 ? ld_pair(p0 + kk * 16) : 0u;
-    a[kk][1] = ok1 ? ld_pair(p1 + kk * 16) : 0u;
-    a[kk][2] = ok0 ? ld_pair(p0 + kk * 16 + 8) : 0u;
-    a[kk][3] = ok1 ? ld_pair(p1 + kk * 16 + 8) : 0u;
-  }
 }
 
 __device__ __forceinline__ float2 unpack_pair(uint32_t u) {
@@ -291,42 +312,6 @@ __device__ __forceinline__ void rms_norm_a_rows(uint32_t (&a)[kFlashDh / 16][4],
       a[kk][i] = pack_floats(x.x * r * (g.x * kRmsRoot), x.y * r * (g.y * kRmsRoot));
     }
   }
-}
-
-// acc (16 rows x 64 columns as 8 tiles of 16x8) = A . X^T, X a 64-row tile
-// in shared memory whose rows are the columns of the product
-__device__ __forceinline__ void mma_rows_t(float (&acc)[8][4], const uint32_t (&a)[kFlashDh / 16][4], const bf16* x,
-                                           int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kFlashDh / 16; ++kk) {
-      uint32_t b[2];
-      load_b_frag_rows(b, x + j * 8 * kFlashLd + kk * 16, kFlashLd, g, t);
-      mma_16816(acc[j], a[kk], b);
-    }
-  }
-}
-
-// acc (16 rows x 64 head columns) += P . X, P given as four bf16 A fragments
-// over the 64 rows of the tile X (shared memory)
-__device__ __forceinline__ void mma_acc(float (&acc)[8][4], const uint32_t (&p)[4][4], const bf16* x, int g, int t) {
-#pragma unroll
-  for (int dj = 0; dj < 8; ++dj) {
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t b[2];
-      load_b_frag_cols(b, x + kc * 16 * kFlashLd + dj * 8, kFlashLd, g, t);
-      mma_16816(acc[dj], p[kc], b);
-    }
-  }
-}
-
-// the 64 columns of 16 accumulator rows as four bf16 A fragments
-__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) acc_to_a_frag(f[kc], acc[2 * kc], acc[2 * kc + 1]);
 }
 
 // Ring stage `stage`'s keep tile: the keep bits of queries q0.. x keys
@@ -410,21 +395,6 @@ __device__ __forceinline__ void keep_to_a_frags(uint32_t (&f)[4][4], const float
   }
 }
 
-// a 16-row x 64 accumulator block (rows row_lo, row_lo + 8 of this thread),
-// times mul, cast to bf16 into rows < len of a strided operand
-__device__ __forceinline__ void store_rows(bf16* base, long long stride, const float (&acc)[8][4], float mul0,
-                                           float mul1, int row_lo, int len, int t) {
-#pragma unroll
-  for (int dj = 0; dj < 8; ++dj) {
-    const int col = dj * 8 + 2 * t;
-    if (row_lo < len)
-      *reinterpret_cast<uint32_t*>(base + row_lo * stride + col) = pack_floats(acc[dj][0] * mul0, acc[dj][1] * mul0);
-    if (row_lo + 8 < len)
-      *reinterpret_cast<uint32_t*>(base + (row_lo + 8) * stride + col) =
-          pack_floats(acc[dj][2] * mul1, acc[dj][3] * mul1);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // flash_fwd: one block per (64-query tile, b*h); loops over the admitted
 // kv-tiles with the online softmax of _fwd_kernel in registers: per tile
@@ -433,7 +403,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, const f
 // with dropout p is masked after l takes its sum, and o = acc * (inv / l).
 // ---------------------------------------------------------------------------
 
-template <bool kDropout, bool kQkNorm>
+template <bool kDropout, bool kQkNorm, bool kBias>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: K at 2s, V at 2s + 1
@@ -448,7 +418,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   const int* kseg = segs ? a.kseg + b * a.m : nullptr;
   const bf16* kb = head_ptr(a.k, a.sk, b, h);
   const bf16* vb = head_ptr(a.v, a.sv, b, h);
-  const int nk = (a.m + kFlashTile - 1) / kFlashTile;
+  const int nk = a.causal ? causal_key_tiles(blockIdx.x, (a.m + kFlashTile - 1) / kFlashTile)
+                          : (a.m + kFlashTile - 1) / kFlashTile;
 
   const uint32_t stream = dropout_stream(b, h);
 
@@ -467,6 +438,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
   load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
   if constexpr (kQkNorm) rms_norm_a_rows(qf, a.gq + h * kFlashDh, t);
   const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
+  // bias rows row_lo and row_lo + 8 of this (image, head); read only where valid
+  const long long brow0 = b * a.sbias.b + h * a.sbias.h + row_lo * a.sbias.row, brow1 = brow0 + 8 * a.sbias.row;
 
   float o[8][4];
 #pragma unroll
@@ -490,7 +463,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
     float s[8][4];
     mma_rows_t(s, qf, ks, g, t);
 
-    // scale, element mask (valid bits: 4j + e for row g, 4j + 2 + e for g + 8)
+    // the causal triangle on the diagonal tile alone (a branch uniform
+    // across the block); every earlier key is visible to the whole tile
+    if (a.causal && j == static_cast<int>(blockIdx.x)) hide_above_diagonal<false>(s, a, row_lo, j * kFlashTile, t);
+
+    // scale, bias, element mask (valid bits: 4jj + e for row g, 4jj + 2 + e
+    // for g + 8)
     uint32_t valid = 0u;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
@@ -500,8 +478,14 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
         const int id = ids[jj * 8 + 2 * t + e];
         const bool v0 = qs0 >= 0 && id == qs0, v1 = qs1 >= 0 && id == qs1;
         valid |= (static_cast<uint32_t>(v0) << (4 * jj + e)) | (static_cast<uint32_t>(v1) << (4 * jj + 2 + e));
-        s[jj][e] = v0 ? s[jj][e] * a.scale : kNegInf;
-        s[jj][2 + e] = v1 ? s[jj][2 + e] * a.scale : kNegInf;
+        if constexpr (kBias) {
+          const int c = j * kFlashTile + jj * 8 + 2 * t + e;
+          s[jj][e] = v0 ? scaled_biased(s[jj][e], a.scale, bias_at(a.bias, a.bias_bf16, brow0 + c)) : kNegInf;
+          s[jj][2 + e] = v1 ? scaled_biased(s[jj][2 + e], a.scale, bias_at(a.bias, a.bias_bf16, brow1 + c)) : kNegInf;
+        } else {
+          s[jj][e] = v0 ? s[jj][e] * a.scale : kNegInf;
+          s[jj][2 + e] = v1 ? s[jj][2 + e] * a.scale : kNegInf;
+        }
         mx0 = fmaxf(mx0, s[jj][e]);
         mx1 = fmaxf(mx1, s[jj][2 + e]);
       }
@@ -561,8 +545,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
 // normalised (s and dq read q^ and k^), and dq is the gradient of q^.
 // ---------------------------------------------------------------------------
 
+// Three blocks an SM at rate 0 (at most 170 registers a thread), as the
+// kernel ran before the causal flag: left to itself ptxas gives the flagged
+// kernel 238 registers, two blocks an SM and +27% at NaViT-B's packs.  The
+// [dropout] instantiations keep their two blocks.
 template <bool kDropout, bool kQkNorm>
-__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a) {
+__global__ void __launch_bounds__(kFlashThreads, kDropout ? 2 : 3) flash_bwd_dq_kernel(FlashArgs a) {
   extern __shared__ __align__(16) unsigned char flash_smem[];
   bf16* ring = reinterpret_cast<bf16*>(flash_smem);
   int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);
@@ -576,7 +564,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
   const int* kseg = segs ? a.kseg + b * a.m : nullptr;
   const bf16* kb = head_ptr(a.k, a.sk, b, h);
   const bf16* vb = head_ptr(a.v, a.sv, b, h);
-  const int nk = (a.m + kFlashTile - 1) / kFlashTile;
+  const int nk = a.causal ? causal_key_tiles(blockIdx.x, (a.m + kFlashTile - 1) / kFlashTile)
+                          : (a.m + kFlashTile - 1) / kFlashTile;
 
   const uint32_t stream = dropout_stream(b, h);
 
@@ -625,6 +614,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(FlashArgs a
     // dropout: d softmax rides the mask (:352-361)
     if constexpr (kDropout)
       apply_keep_bits(dp, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), a.drop.inv);
+    if (a.causal && j == static_cast<int>(blockIdx.x)) hide_above_diagonal<false>(p, a, row_lo, j * kFlashTile, t);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -697,7 +687,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
     if constexpr (kDropout) fill_flash_keep(keep, stage, a, stream, i * kFlashTile, k0);
   };
 
-  int i = next_admitted(qseg, a.n, nq, 0, klo, khi);
+  int i = next_admitted(qseg, a.n, nq, a.causal ? causal_first_query_tile(blockIdx.x) : 0, klo, khi);
   if (i < nq) prefetch(0, i);
   cp_async_commit();
   if constexpr (kQkNorm) stage_gammas(gring, a.gq + h * kFlashDh);
@@ -732,6 +722,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
     // p^T: rows = this warp's keys (g, g + 8), columns = the tile's queries
     float p[8][4];
     mma_rows_t(p, kf, qs, g, t);
+    if (a.causal && i == static_cast<int>(blockIdx.x)) hide_above_diagonal<true>(p, a, key_lo, i * kFlashTile, t);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -775,10 +766,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs 
 }
 
 // strides[3 * i .. 3 * i + 2]: the (b, h, row) strides of q, k, v, dO, out0,
-// out1 in turn (those of an operand a kernel does not take are not read)
+// out1 and the bias in turn (those of an operand a kernel does not take are
+// not read)
 FlashArgs make_args(const void* q, const void* k, const void* v, const void* dout, void* out0, void* out1, void* lse,
-                    const void* delta, const void* qseg, const void* kseg, const void* gq, const void* gk, int heads,
-                    int n, int m, float scale, DropoutArgs drop, const long long* strides) {
+                    const void* delta, const void* qseg, const void* kseg, const void* gq, const void* gk,
+                    const void* bias, int bias_bf16, int heads, int n, int m, float scale, int causal,
+                    DropoutArgs drop, const long long* strides) {
   FlashArgs a{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -792,11 +785,14 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* dou
   a.kseg = static_cast<const int*>(kseg);
   a.gq = static_cast<const float*>(gq);
   a.gk = static_cast<const float*>(gk);
-  Strides* s[6] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.s0, &a.s1};
-  for (int i = 0; i < 6; ++i) *s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.bias = bias;
+  a.bias_bf16 = bias_bf16;
+  Strides* s[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.s0, &a.s1, &a.sbias};
+  for (int i = 0; i < 7; ++i) *s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.heads = heads;
   a.n = n;
   a.m = m;
+  a.causal = causal;
   a.scale = scale;
   a.drop = drop;
   return a;
@@ -812,22 +808,26 @@ bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qse
 
 typedef void (*FlashKernel)(FlashArgs);
 
-// one launch on a (tiles, b*h) grid of a kernel's instantiation for the
-// options: kernels[drop + 2 * qknorm] (rate 0, [dropout], [qknorm],
-// [dropout,qknorm]), with a keep tile a ring stage for dropout and a gamma
-// row for qk-norm beside the kernel's own shared memory
-int launch(const FlashKernel (&kernels)[4], const FlashArgs& a, int drop, int tiles, int batch, int smem,
-           void* stream) {
+// a kernel's instantiation for the options: kernels[drop + 2 * qknorm] (rate
+// 0, [dropout], [qknorm], [dropout,qknorm]); causal is a runtime flag of each
+FlashKernel pick(const FlashKernel (&kernels)[4], int drop, const FlashArgs& a) {
+  return kernels[(drop ? 1 : 0) + (a.gq != nullptr ? 2 : 0)];
+}
+
+// one launch on a (tiles, b*h) grid, with a keep tile a ring stage for
+// dropout and a gamma row for qk-norm beside the kernel's own shared memory
+int launch(FlashKernel kernel, const FlashArgs& a, int drop, int tiles, int batch, int smem, void* stream) {
   const dim3 grid(tiles, batch * a.heads);
-  const bool qknorm = a.gq != nullptr;
-  smem += (drop ? kKeepSmem : 0) + (qknorm ? kGammaSmem : 0);
-  const FlashKernel kernel = kernels[(drop ? 1 : 0) + (qknorm ? 2 : 0)];
+  smem += (drop ? kKeepSmem : 0) + (a.gq != nullptr ? kGammaSmem : 0);
   kernel<<<grid, kFlashThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
-const FlashKernel kFwdKernels[4] = {flash_fwd_kernel<false, false>, flash_fwd_kernel<true, false>,
-                                    flash_fwd_kernel<false, true>, flash_fwd_kernel<true, true>};
+const FlashKernel kFwdKernels[4] = {flash_fwd_kernel<false, false, false>, flash_fwd_kernel<true, false, false>,
+                                    flash_fwd_kernel<false, true, false>, flash_fwd_kernel<true, true, false>};
+// the bias variant: rate 0, no qk-norm (the dispatcher never sends a bias
+// with dropout or gammas, JAX :882-883)
+const FlashKernel kFwdBiasKernel = flash_fwd_kernel<false, false, true>;
 const FlashKernel kDqKernels[4] = {flash_bwd_dq_kernel<false, false>, flash_bwd_dq_kernel<true, false>,
                                    flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, true>};
 const FlashKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bwd_dkv_kernel<true, false>,
@@ -841,41 +841,46 @@ const FlashKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bw
 // elements, a contiguous head dim, 16-byte aligned rows); lse and delta f32
 // (b*h, n) contiguous; segment ids int32 (b, n) and (b, m) contiguous, both
 // null for no ids; qk-norm gammas f32 (heads, 64) contiguous, both null for
-// none; dropout: drop (0/1), the int32 seed's bits, the keep threshold and
-// 1/(1 - rate), heads < 1024 with drop; strides: 18 (b, h, row) strides of
-// q, k, v, dO, out0, out1 (see make_args).  The wrappers in
-// ops/flash_attention.py check all of it.
+// none; flash_fwd's bias (1|b, 1|h, n, m) f32 or bf16 (bias_bf16) with a
+// contiguous last dim, null for none, never with dropout or gammas; causal
+// (0/1); dropout: drop (0/1), the int32 seed's bits, the keep threshold and
+// 1/(1 - rate), heads < 1024 with drop; strides: 21 (b, h, row) strides of
+// q, k, v, dO, out0, out1 and the bias (0 on its broadcast dims; see
+// make_args).  The wrappers in ops/flash_attention.py check all of it.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int vit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* qseg, const void* kseg,
-                  const void* gq, const void* gk, int batch, int heads, int n, int m, int dim_head, float scale,
-                  int drop, unsigned seed, unsigned threshold, float inv, const long long* strides, void* stream) {
-  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, gq, gk, heads, n, m, scale,
-                                DropoutArgs{seed, threshold, inv}, strides);
-  return launch(kFwdKernels, a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
+                  const void* gq, const void* gk, const void* bias, int bias_bf16, int batch, int heads, int n, int m,
+                  int dim_head, float scale, int causal, int drop, unsigned seed, unsigned threshold, float inv,
+                  const long long* strides, void* stream) {
+  if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop) || (bias && (drop || gq)))
+    return cudaErrorInvalidValue;
+  const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, gq, gk, bias, bias_bf16, heads,
+                                n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(bias ? kFwdBiasKernel : pick(kFwdKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch,
+                kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
                      const void* qseg, const void* kseg, const void* gq, const void* gk, void* dq, int batch,
-                     int heads, int n, int m, int dim_head, float scale, int drop, unsigned seed, unsigned threshold,
-                     float inv, const long long* strides, void* stream) {
+                     int heads, int n, int m, int dim_head, float scale, int causal, int drop, unsigned seed,
+                     unsigned threshold, float inv, const long long* strides, void* stream) {
   if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, heads,
-                                n, m, scale, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(kDqKernels, a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
+  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr,
+                                0, heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(pick(kDqKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
 }
 
 int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, const void* qseg, const void* kseg, const void* gq, const void* gk, void* dk,
-                      void* dv, int batch, int heads, int n, int m, int dim_head, float scale, int drop,
+                      void* dv, int batch, int heads, int n, int m, int dim_head, float scale, int causal, int drop,
                       unsigned seed, unsigned threshold, float inv, const long long* strides, void* stream) {
   if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, heads, n, m,
-                                scale, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(kDkvKernels, a, drop, (m + kFlashTile - 1) / kFlashTile, batch, kDkvSmem, stream);
+  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr, 0,
+                                heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
+  return launch(pick(kDkvKernels, drop, a), a, drop, (m + kFlashTile - 1) / kFlashTile, batch, kDkvSmem, stream);
 }
 
 }  // extern "C"

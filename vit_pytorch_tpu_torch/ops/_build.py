@@ -64,14 +64,18 @@ _SIGNATURES = {
     "vit_gemm_wgrad_splits": (_I, _I, _I),
     # a, b, out, partials, M, N, K, splits, stream
     "vit_gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, o, lse, q ids, kv ids, gamma_q, gamma_k, batch, heads, n, m, dim_head, scale, dropout,
-    # 18 strides, stream
-    "vit_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _S, _P),
+    # q, k, v, o, lse, q ids, kv ids, gamma_q, gamma_k, bias, bias is bf16, batch, heads, n, m, dim_head,
+    # scale, causal, dropout, 21 strides, stream
+    "vit_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _S, _P),
     # q, k, v, dO, lse, delta, q ids, kv ids, gamma_q, gamma_k, dq, batch, heads, n, m, dim_head, scale,
-    # dropout, strides, stream
-    "vit_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _S, _P),
-    # ..., gamma_q, gamma_k, dk, dv, batch, heads, n, m, dim_head, scale, dropout, strides, stream
-    "vit_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _S, _P),
+    # causal, dropout, strides, stream
+    "vit_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, *_DROP, _S, _P),
+    # ..., gamma_q, gamma_k, dk, dv, batch, heads, n, m, dim_head, scale, causal, dropout, strides, stream
+    "vit_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, *_DROP, _S,
+                          _P),
+    # q, k, v, o, bias, bias is bf16, its head and row strides, batch, heads, n, m, dim_head, dim_value, scale,
+    # 12 strides, stream
+    "vit_short_attention": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _I, _I, _F, _S, _P),
     # keep, batch, heads, n, m, seed, threshold, stream
     "vit_flash_dropout_masks": (_P, _I, _I, _I, _I, _U, _U, _P),
 }

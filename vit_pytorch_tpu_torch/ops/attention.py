@@ -1,31 +1,47 @@
 """Scaled-dot-product attention, port of ``vit_pytorch_tpu/ops/attention.py``.
 
-Two backends behind one dispatcher, as in the JAX package:
+Three backends behind one dispatcher, as in the JAX package:
 
 * ``xla_attention`` — the materialized composite (plain PyTorch), the only
   path that can return the attention matrix;
+* ``short_attention`` — the Hopper kernel of ``ops/short_attention.py``
+  (one-shot softmax over a whole key row, m <= 1024, an optional per-head
+  (h, n, m) bias);
 * ``flash_attention`` — the Hopper kernels of ``ops/flash_attention.py``
-  (online-softmax tiles, segment-id masking with tile skipping, attention
-  dropout and, opt-in, the qk-norm inside the kernels).
+  (online-softmax tiles, segment-id masking with tile skipping, the causal
+  mask, a (1|b, 1|h, n, m) bias, attention dropout and, opt-in, the qk-norm
+  inside the kernels).
 
-``dot_product_attention`` takes the flash route on a CUDA device for packed
-sequences (segment ids) and for m >= 1024, as the JAX dispatcher does on a
-TPU, where the kernels' gate :func:`~.flash_attention.flash_supported`
-admits the operands (bf16, dim_head 64); fp32 and other shapes take the
-composite.  Train-time dropout without a bias stays on the flash route: the
-dispatcher draws the kernels' int32 seed on the host (JAX :264-268) and the
-kernels drop the attention matrix themselves; the composite draws its mask
-with ``torch.rand``.  qk-norm gammas are applied here with the eager
-:func:`~.flash_attention.rms_norm`, unless ``VIT_TPU_FUSE_QKNORM`` is set
-(the JAX opt-in, read at each call as JAX reads it at trace time; off by
-default): then they ride to the flash route, whose kernels normalise in the
-tile, and still normalise here on every other route.  The composite takes
-a causal triangle and a bias of shape (h, n, m) or (b, h, n, m), as the JAX
-dispatcher's does; the kernel
-routes still to port (the short kernel, flash with a bias or causal) raise
-``NotImplementedError`` naming the ROADMAP item that brings them, and only
-when the caller asks for them with ``use_flash=True``.  The ViT's own layers
-do not come here on the card: they go through ``ops/fused_block.py``.
+``dot_product_attention`` takes a kernel route on a CUDA device for packed
+sequences (segment ids) and for m >= 1024, or when the caller asks with
+``use_flash=True``, and then mirrors the JAX routes (:241-288):
+
+* the short route for a call without segment ids, causal mask or dropout,
+  with no bias or a per-head (h, n, m) one, and m <= 1024 (so m = 1024
+  exactly, on the automatic route): ``short_attention``;
+* the flash route for everything else: causal, a 4-D bias, a per-head bias
+  that misses the short route (as ``bias[None]``), segment ids, dropout.
+
+Each kernel route asks its gate (:func:`~.short_attention.short_supported`,
+:func:`~.flash_attention.flash_supported`: bf16, dim_head 64) before it
+launches on a CUDA tensor; fp32 and the shapes a kernel does not take go to
+the composite, where the TPU sent what did not fit its VMEM.  On a CPU
+tensor a kernel route runs its Function on the plain twins.  No route
+raises ``NotImplementedError``.
+
+Train-time dropout without a bias stays on the flash route: the dispatcher
+draws the kernels' int32 seed on the host (JAX :264-268) and the kernels
+drop the attention matrix themselves; with a bias it takes the composite, as
+in JAX (:194-199), which draws its mask with ``torch.rand``.  qk-norm gammas
+are applied here with the eager :func:`~.flash_attention.rms_norm`, unless
+``VIT_TPU_FUSE_QKNORM`` is set (the JAX opt-in, read at each call as JAX
+reads it at trace time; off by default): then they ride to the flash route,
+whose kernels normalise in the tile, and are still normalised eagerly on
+every other route, and on the flash route with a bias (:252-253,
+:269-272).  The composite takes a causal triangle and a bias of shape
+(h, n, m) or (b, h, n, m), as the JAX dispatcher's does.  The ViT's own
+layers do not come here on the card: they go through
+``ops/fused_block.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention, flash_supported, rms_norm
+from .short_attention import short_attention, short_supported
 
 
 def on_cuda(x: torch.Tensor) -> bool:
@@ -139,9 +156,9 @@ def dot_product_attention(
     default); with ``VIT_TPU_FUSE_QKNORM`` set they ride to the flash route
     (its ``[qknorm]`` kernels), and every other route applies them here.
     ``use_flash``: None decides as the JAX dispatcher does
-    (flash on a CUDA device for segment ids or m >= 1024); True asks for the
-    kernel routes (on CPU tensors the flash route runs its plain twins);
-    False forces the composite.
+    (a kernel route on a CUDA device for segment ids or m >= 1024); True
+    asks for the kernel routes (on CPU tensors the short and flash routes run
+    their plain twins); False forces the composite.
 
     ``dropout_rate`` > 0 (train time): on the flash route the kernels drop
     the attention matrix with an int32 seed drawn here, on the host, from
@@ -182,31 +199,32 @@ def dot_product_attention(
     if use_flash and kernel_ok:
         if (bias is None or per_head_bias) and q_segment_ids is None and not causal and dropout_rate == 0.0 \
                 and m <= 1024:
-            raise NotImplementedError(
-                "the short-sequence kernel route is not ported yet (ROADMAP: TPU kernels to port, item 6, "
-                "_short_kernel)"
-            )
-        if causal:
-            raise NotImplementedError(
-                "flash attention with causal masking is not ported yet (ROADMAP: TPU kernels to port, item 4, the "
-                "flash causal variant)"
-            )
-        if bias is not None:
-            raise NotImplementedError(
-                "flash attention with a bias is not ported yet (ROADMAP: TPU kernels to port, item 4, the flash "
-                "bias variant)"
-            )
-        # the kernels' gate: fp32 and shapes they do not take on the card
-        # go to the composite below
-        if not on_cuda(q) or flash_supported(q.shape, k.shape, q.dtype):
-            seed = None
-            if dropout_rate > 0.0:  # JAX :264-268, on the host
-                device = "cpu" if generator is None else generator.device
-                seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32, generator=generator, device=device))
-            return flash_attention(
-                q, k, v, scale=scale, gamma_q=gamma_q, gamma_k=gamma_k, q_segment_ids=q_segment_ids,
-                kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, dropout_seed=seed,
-            )
+            # the short route (JAX :242-254): gammas normalised here
+            if gamma_q is not None:
+                q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
+                gamma_q = gamma_k = None
+            # the kernel's gate: fp32 and shapes it does not take on the card
+            # go to the composite below
+            if not on_cuda(q) or short_supported(q.shape, k.shape, v.shape, q.dtype):
+                return short_attention(q, k, v, scale=scale, bias=bias)
+        else:
+            # the flash route (JAX :256-288): a per-head table as (1, h, n,
+            # m); gammas with a bias normalised here (its backward is the
+            # composite)
+            flash_bias = bias[None] if per_head_bias else bias
+            if gamma_q is not None and bias is not None:
+                q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
+                gamma_q = gamma_k = None
+            if not on_cuda(q) or flash_supported(q.shape, k.shape, q.dtype):
+                seed = None
+                if dropout_rate > 0.0:  # JAX :264-268, on the host
+                    device = "cpu" if generator is None else generator.device
+                    seed = int(torch.randint(0, 2**31 - 1, (), dtype=torch.int32, generator=generator, device=device))
+                return flash_attention(
+                    q, k, v, scale=scale, bias=flash_bias, gamma_q=gamma_q, gamma_k=gamma_k,
+                    q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, causal=causal,
+                    dropout_rate=dropout_rate, dropout_seed=seed,
+                )
 
     # every route but the flash kernels normalises here (JAX :290-291)
     if gamma_q is not None:

@@ -1,7 +1,7 @@
 """Flash attention with segment-id (packed-sequence) masking on Hopper.
 
-Port of ``vit_pytorch_tpu/ops/flash_attention.py`` for the options of the
-packed NaViT path.  Its three TPU kernels are hand-written CUDA kernels in
+Port of ``vit_pytorch_tpu/ops/flash_attention.py`` with all its options.
+Its three TPU kernels are hand-written CUDA kernels in
 ``csrc/flash_attention.cu``:
 
     flash_fwd      (_fwd_kernel, :202)      q, k, v            -> o, lse (f32)
@@ -13,9 +13,21 @@ chip, masks by segment id (token i attends j iff both ids are equal and
 non-negative; -1 pads, -2 empty pooling slots) and skips a whole tile whose
 two id ranges cannot overlap (:func:`tile_admitted`).  ``flash_attention``
 is an autograd Function, the counterpart of the JAX ``_flash_attention_core``
-custom_vjp without bias: the forward saves q, k, v, the ids, o and the f32
-LSE; the backward forms ``delta = rowsum(dO * o)`` in f32 outside the kernels
-(:680-685) and launches the two backward kernels.
+custom_vjp: without a bias the forward saves q, k, v, the ids, o and the f32
+LSE, and the backward forms ``delta = rowsum(dO * o)`` in f32 outside the
+kernels (:680-685) and launches the two backward kernels.
+
+``causal`` masks key j from query i unless j <= i (absolute positions,
+top-left aligned also when n != m, as ``_tile_mask`` :161-164), in all three
+kernels, with every other option: the kernels stop their tile loops at the
+diagonal tile (:func:`tile_admitted` with ``causal``).  An additive ``bias``
+of shape (1|b, 1|h, n, m) (any float dtype; f32 and bf16 reach the kernel as
+they are, its broadcast dims as zero strides) is added in f32 after the scale
+and before the mask by the forward's ``[bias]`` instantiation; as in JAX
+(:839-845, :879-891) the forward keeps no LSE then, and the backward is
+autograd through the composite (segment mask, causal triangle, bias) on the
+saved inputs, dbias in the bias's own shape.  A bias with gammas or dropout
+raises ``ValueError``, as in JAX.
 
 Attention dropout (``dropout_rate`` > 0 with an int ``seed``) runs inside
 all three kernels, their ``[dropout]`` instantiations, on the normalized
@@ -38,23 +50,23 @@ with the reference's per-head RMSNorm at ``_rms_tile``'s rounding points
 (:135-142; :func:`rms_tile_reference`), and the backward kernels emit dq and
 dk of the normalised q and k, as the TPU kernels do.  The Function closes the
 RMSNorm VJP on the host in plain PyTorch (:func:`rms_norm_vjp`, JAX ``_bwd``
-:859-876), dgamma included.  Gammas with a bias are refused, as in JAX.
+:859-876), dgamma included.
 
 Each wrapper has a plain PyTorch twin at the kernel's rounding points
 (``flash_fwd_reference``, ``flash_bwd_reference``,
 ``flash_dropout_masks_reference``), which CPU tensors take; on a CUDA tensor
 it launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[kernel]``, each instantiation to its own entry (``[dropout]``,
-``[qknorm]``, ``[dropout,qknorm]``).
+``LAUNCHES[kernel]``, each variant to its own entry, tagged in the order
+bias, dropout, qknorm, causal (``flash_fwd[dropout,qknorm]``,
+``flash_bwd_dq[causal]``, ``flash_fwd[bias,causal]``, ...).
 :func:`flash_attention_twins` runs the same Function on the twins on any
 device.  :func:`flash_attention_reference` is the twin of the whole op, the
 JAX ``_reference_attention`` (:809-815): the materialized composite with the
-segment mask (and the same keep mask), differentiated by autograd.
+segment mask and causal triangle, the bias (and the same keep mask),
+differentiated by autograd.
 
 The kernels take bf16 with ``dim_head == 64`` (their one head dim) on a
 CUDA device; :func:`flash_supported` is the gate the dispatcher asks.  The
-options the NaViT path does not use (bias, causal) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  The
 TPU's block sizes (1024/512 and the ``VIT_TPU_FLASH_BLOCK_Q/K`` knobs) are
 not ported: the H100 kernels' tiles are fixed at 64 x 64
 (:func:`default_blocks`).
@@ -78,16 +90,22 @@ DIM_HEAD = 64  # kFlashDh: the one head dim the kernels are built for
 NEG_INF = -1e30  # _NEG_INF: the LSE of a row with no key to attend
 _BIG_ID = 1 << 30
 
-# launches per kernel since the last reset_launch_counts(); each
-# instantiation ([dropout], [qknorm], [dropout,qknorm]) counts apart from its
-# kernel's plain launches
+
+def _counter(name: str, drop=False, gammas=False, causal=False, bias=False) -> str:
+    """A kernel's launch counter: its name with the variant's tags."""
+    tags = [tag for tag, on in (("bias", bias), ("dropout", drop), ("qknorm", gammas), ("causal", causal)) if on]
+    return f"{name}[{','.join(tags)}]" if tags else name
+
+
+# launches per kernel since the last reset_launch_counts(); each variant
+# counts apart from its kernel's plain launches
 LAUNCHES = {
-    **{f"{name}{tag}": 0 for tag in ("", "[dropout]", "[qknorm]", "[dropout,qknorm]")
-       for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+    **{_counter(name, drop, qk, causal): 0 for causal in (False, True) for drop in (False, True)
+       for qk in (False, True) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+    "flash_fwd[bias]": 0,
+    "flash_fwd[bias,causal]": 0,
     "flash_dropout_masks": 0,
 }
-
-_FLASH_ITEM = "ROADMAP: TPU kernels to port, item 4"
 
 
 def reset_launch_counts() -> None:
@@ -148,17 +166,25 @@ def _tile_ranges(ids: torch.Tensor, block: int):
     return lo, tiles.amax(-1)
 
 
-def tile_admitted(q_segment_ids, kv_segment_ids, *, block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+def tile_admitted(q_segment_ids, kv_segment_ids, *, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                  causal: bool = False):
     """(b, n tiles, m tiles) bool: the tiles the kernels run, the skip test
     of ``_seg_overlap`` (:173-188) as a plain function of the ids.  A tile
     runs iff some id of each side is >= 0 and the two ranges of non-negative
     ids overlap.  It is conservative for any ids (a tile holding a pair that
     shares an id always runs) and exact for packed sequences, whose ids rise
-    along the sequence."""
+    along the sequence.  With ``causal`` a tile runs only if its first key
+    is at most its last query (:220-221): the kernels' loops end at the
+    diagonal tile."""
     q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)
     k_lo, k_hi = _tile_ranges(kv_segment_ids, block_k)
     q_lo, q_hi, k_lo, k_hi = q_lo[:, :, None], q_hi[:, :, None], k_lo[:, None, :], k_hi[:, None, :]
-    return (q_hi >= 0) & (k_hi >= 0) & (q_lo <= k_hi) & (k_lo <= q_hi)
+    admitted = (q_hi >= 0) & (k_hi >= 0) & (q_lo <= k_hi) & (k_lo <= q_hi)
+    if causal:
+        qi = torch.arange(admitted.shape[1], device=admitted.device)[:, None]
+        kj = torch.arange(admitted.shape[2], device=admitted.device)[None, :]
+        admitted = admitted & (kj * block_k <= qi * block_q + block_q - 1)
+    return admitted
 
 
 def flash_supported(q_shape, k_shape, dtype) -> bool:
@@ -184,16 +210,20 @@ def flash_supported(q_shape, k_shape, dtype) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _valid(q_segment_ids, kv_segment_ids, n: int, m: int):
-    """(b, 1, n, m) bool of the pairs that may attend, or None for all."""
+def _valid(q_segment_ids, kv_segment_ids, n: int, m: int, causal: bool = False, device=None):
+    """(b, 1, n, m) (or (n, m), causal alone) bool of the pairs that may
+    attend, or None for all."""
     from .attention import build_segment_mask
 
-    return build_segment_mask(q_segment_ids, kv_segment_ids, n, m)
+    return build_segment_mask(q_segment_ids, kv_segment_ids, n, m, causal=causal, device=device)
 
 
-def _logits(q, k, scale, valid):
-    """s = (q.k^T in f32) * scale, the masked entries at the sentinel."""
+def _logits(q, k, scale, valid, bias=None):
+    """s = (q.k^T in f32) * scale (+ the bias in f32), the masked entries at
+    the sentinel."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
     return s if valid is None else s.masked_fill(~valid, NEG_INF)
 
 
@@ -224,7 +254,7 @@ def _normed(q, k, gamma_q, gamma_k):
 
 
 def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
-                        seed=None, gamma_q=None, gamma_k=None):
+                        seed=None, gamma_q=None, gamma_k=None, causal: bool = False, bias=None):
     """Plain twin of :func:`flash_fwd`: ``(o, lse)``, o (b, h, n, d) in q's
     dtype and lse (b, h, n) f32.  The rounding points of ``_fwd_kernel``
     with the whole row at once: p = exp(s - max) zeroed where masked (after
@@ -232,11 +262,13 @@ def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment
     A row with no key to attend gives o = 0 and lse = -1e30.  With dropout
     l sums the undropped p, p is masked before its cast, and o = acc *
     (inv_keep / l), one f32 factor (:255-290).  With gammas q and k first
-    go through :func:`rms_tile_reference` (:229-235)."""
+    go through :func:`rms_tile_reference` (:229-235).  ``causal`` masks key j
+    from query i unless j <= i; ``bias`` (broadcasting against (b, h, n, m))
+    is added in f32 after the scale, before the mask (:241-248)."""
     drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
     q, k = _normed(q, k, gamma_q, gamma_k)
-    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
-    s = _logits(q, k, scale, valid)
+    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2], causal, q.device)
+    s = _logits(q, k, scale, valid, bias)
     mx = s.amax(-1, keepdim=True)
     p = torch.exp(s - mx)
     if valid is not None:
@@ -254,7 +286,7 @@ def flash_fwd_reference(q, k, v, *, scale: float, q_segment_ids=None, kv_segment
 
 
 def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                        dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
+                        dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None, causal: bool = False):
     """Plain twin of :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`:
     ``(dq, dk, dv)`` at the rounding points of ``_bwd_dq_kernel`` and
     ``_bwd_dkv_kernel``: p = exp(s - lse) zeroed where masked after the exp
@@ -264,10 +296,10 @@ def flash_bwd_reference(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=
     p, 0) * inv), scaled before the cast, and dp = where(keep, dO.v^T, 0) *
     inv in f32 (:352-361, :425-456); ds keeps the undropped p.  With gammas
     q and k are normalised first (:324-329, :404-406), so dq and dk are the
-    gradients of the normalised q and k."""
+    gradients of the normalised q and k.  ``causal`` as in the forward."""
     drop = _dropout("flash_bwd", dropout_rate, seed, q.shape[1])
     q, k = _normed(q, k, gamma_q, gamma_k)
-    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
+    valid = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2], causal, q.device)
     p = torch.exp(_logits(q, k, scale, valid) - lse[..., None])
     if valid is not None:
         p = p.masked_fill(~valid, 0.0)
@@ -290,28 +322,30 @@ def flash_dropout_masks_reference(seed, b: int, h: int, n: int, m: int, rate: fl
     return _attn_keep(seed, b, n, h, rate, device, m).to(torch.int32)
 
 
-def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
-                              dropout_rate: float = 0.0, dropout_seed=None, gamma_q=None, gamma_k=None):
+def flash_attention_reference(q, k, v, *, scale: Optional[float] = None, bias=None, q_segment_ids=None,
+                              kv_segment_ids=None, causal: bool = False, dropout_rate: float = 0.0, dropout_seed=None,
+                              gamma_q=None, gamma_k=None):
     """The plain twin of :func:`flash_attention`: the JAX
     ``_reference_attention`` (:809-815), the materialized composite
     (``xla_attention``, logits stored in the input dtype) under the segment
-    mask of ``build_segment_mask``, differentiated by autograd.  Rows with no
-    key to attend give zeros (``xla_attention``'s ``mask.any``).  With
-    dropout the composite drops the normalized matrix with the kernels' keep
-    mask of ``dropout_seed``.  With gammas q and k first go through the eager
-    :func:`rms_norm`, as the JAX dispatcher's composite route takes them."""
+    mask and causal triangle of ``build_segment_mask``, with the bias,
+    differentiated by autograd.  Rows with no key to attend give zeros
+    (``xla_attention``'s ``mask.any``).  With dropout the composite drops the
+    normalized matrix with the kernels' keep mask of ``dropout_seed``.  With
+    gammas q and k first go through the eager :func:`rms_norm`, as the JAX
+    dispatcher's composite route takes them."""
     from .attention import xla_attention
 
-    _check_gammas(gamma_q, gamma_k, None)
+    _check_gammas(gamma_q, gamma_k, bias)
     if gamma_q is not None:
         q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
 
-    mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2])
+    mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2], causal, q.device)
     keep = None
     if dropout_rate > 0.0:
-        _check_dropout_request(dropout_rate, dropout_seed, None)
+        _check_dropout_request(dropout_rate, dropout_seed, bias)
         keep = _keep(q, k, dropout_rate, dropout_seed)
-    return xla_attention(q, k, v, scale=scale, mask=mask, dropout_rate=dropout_rate, keep=keep)
+    return xla_attention(q, k, v, scale=scale, bias=bias, mask=mask, dropout_rate=dropout_rate, keep=keep)
 
 
 # ---------------------------------------------------------------------------
@@ -346,12 +380,14 @@ def kernel_layout(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
 
 
-def _strides(*tensors):
-    """The 18 (b, h, row) strides of q, k, v, dO, out0, out1 (None: zeros)."""
+def _strides(*tensors, bias=None):
+    """The 21 (b, h, row) strides of q, k, v, dO, out0, out1 (None: zeros)
+    and the bias (4-D; 0 on its broadcast dims)."""
     flat = []
     for t in tensors:
         flat += [0, 0, 0] if t is None else list(t.stride()[:3])
-    return (ctypes.c_longlong * 18)(*flat)
+    flat += [0, 0, 0] if bias is None else [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
+    return (ctypes.c_longlong * 21)(*flat)
 
 
 def _ids(q_segment_ids, kv_segment_ids):
@@ -381,11 +417,6 @@ def _merged_heads(b: int, h: int, rows: int, like: torch.Tensor):
     return torch.empty((b, rows, h, DIM_HEAD), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def _counter(name: str, drop, gammas) -> str:
-    tags = [tag for tag, on in (("dropout", drop[0]), ("qknorm", gammas)) if on]
-    return f"{name}[{','.join(tags)}]" if tags else name
-
-
 def gamma_rows(gamma_q, gamma_k, q):
     """The kernels' qk-norm operands for q (b, h, n, d): each gamma (any
     shape reshaping to (h, d)) as contiguous f32 (h, d) rows, the JAX
@@ -403,40 +434,76 @@ def _check_gamma_rows(name: str, rows, q) -> None:
             raise ValueError(f"{name}: gammas on {g.device}, expected {q.device}")
 
 
+def check_bias(bias, q_shape, m: int):
+    """The JAX flash bias checks (:563-573) on a 4-D bias against q (b, h,
+    n, d) and m keys."""
+    b, h, n, _ = q_shape
+    if bias.ndim != 4 or tuple(bias.shape[2:]) != (n, m):
+        raise ValueError(f"flash attention bias must have shape (b|1, h|1, {n}, {m}); got {tuple(bias.shape)}")
+    if bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h):
+        raise ValueError(f"flash attention bias leading dims must broadcast against (b={b}, h={h}); got "
+                         f"{tuple(bias.shape[:2])}")
+
+
+def bias_operand(bias, device):
+    """A bias as a kernel reads it: f32 or bf16 as it is (any other float
+    dtype upcast to f32), on ``device``, its last dim contiguous.  Returns
+    (tensor, 1 if bf16 else 0)."""
+    if bias.device != device:
+        raise ValueError(f"bias on {bias.device}, expected {device}")
+    bias = bias.detach()
+    if bias.dtype not in (torch.float32, torch.bfloat16):
+        bias = bias.float()
+    if bias.stride(-1) != 1:
+        bias = bias.contiguous()
+    return bias, int(bias.dtype == torch.bfloat16)
+
+
 def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None, dropout_rate: float = 0.0,
-              seed=None, gamma_q=None, gamma_k=None):
+              seed=None, gamma_q=None, gamma_k=None, causal: bool = False, bias=None):
     """``(o, lse)`` of softmax attention: o (b, h, n, 64) bf16 in the
     merged-heads layout, lse (b, h, n) f32 (-1e30 for a row with no key);
     with ``dropout_rate`` > 0 (the ``[dropout]`` instantiation) the
     attention matrix is dropped with the keep mask of ``seed``; with gammas
-    (the ``[qknorm]`` instantiations) q and k are normalised in the kernel.
-    See :func:`flash_fwd_reference`."""
+    (the ``[qknorm]`` instantiations) q and k are normalised in the kernel;
+    ``causal`` masks key j from query i unless j <= i; ``bias`` (4-D,
+    (1|b, 1|h, n, m), the ``[bias]`` instantiation, without dropout or
+    gammas) is added after the scale.  See :func:`flash_fwd_reference`."""
     ids = _ids(q_segment_ids, kv_segment_ids)
     drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
+    if bias is not None:
+        check_bias(bias, q.shape, k.shape[2])
+        _check_gammas(gamma_q, gamma_k, bias)
+        _check_dropout_request(dropout_rate, seed, bias)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                                   dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
+                                   dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k,
+                                   causal=causal, bias=bias)
     _check("flash_fwd", (q, k, v), ids)
     b, h, n, d = q.shape
     m = k.shape[2]
     rows = gamma_rows(gamma_q, gamma_k, q)
     _check_gamma_rows("flash_fwd", rows, q)
+    bias_bf16 = 0
+    if bias is not None:
+        bias, bias_bf16 = bias_operand(bias, q.device)
     o = _merged_heads(b, h, n, q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = load_library()
     err = lib.lib.vit_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), b, h, n, m, d, float(scale), *drop,
-        _strides(q, k, v, None, o, None), torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), _ptr(bias), bias_bf16, b, h, n, m, d,
+        float(scale), int(causal), *drop, _strides(q, k, v, None, o, None, bias=bias),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_fwd", drop, rows)
+    name = _counter("flash_fwd", drop[0], bool(rows), causal, bias is not None)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                 dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
+                 dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None, causal: bool = False):
     """dq (b, h, n, 64) bf16, merged-heads layout, replaying the forward's
     keep mask with ``dropout_rate`` > 0; with gammas the gradient of the
     normalised q; see :func:`flash_bwd_reference`."""
@@ -445,7 +512,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, k
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
                                    kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed,
-                                   gamma_q=gamma_q, gamma_k=gamma_k)[0]
+                                   gamma_q=gamma_q, gamma_k=gamma_k, causal=causal)[0]
     _check("flash_bwd_dq", (q, k, v, do), ids)
     _check_stats("flash_bwd_dq", q, lse, delta)
     b, h, n, d = q.shape
@@ -456,16 +523,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, k
     err = lib.lib.vit_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), dq.data_ptr(), b, h, n, k.shape[2], d,
-        float(scale), *drop, _strides(q, k, v, do, dq, None), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), int(causal), *drop, _strides(q, k, v, do, dq, None),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_bwd_dq", drop, rows)
+    name = _counter("flash_bwd_dq", drop[0], bool(rows), causal)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
-                  dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None):
+                  dropout_rate: float = 0.0, seed=None, gamma_q=None, gamma_k=None, causal: bool = False):
     """``(dk, dv)``, each (b, h, m, 64) bf16 in the merged-heads layout,
     replaying the forward's keep mask with ``dropout_rate`` > 0; with gammas
     dk is the gradient of the normalised k; see :func:`flash_bwd_reference`."""
@@ -474,7 +542,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, 
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, delta, scale=scale, q_segment_ids=q_segment_ids,
                                    kv_segment_ids=kv_segment_ids, dropout_rate=dropout_rate, seed=seed,
-                                   gamma_q=gamma_q, gamma_k=gamma_k)[1:]
+                                   gamma_q=gamma_q, gamma_k=gamma_k, causal=causal)[1:]
     _check("flash_bwd_dkv", (q, k, v, do), ids)
     _check_stats("flash_bwd_dkv", q, lse, delta)
     b, h, n, d = q.shape
@@ -486,9 +554,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, q_segment_ids=None, 
     err = lib.lib.vit_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         _ptr(q_segment_ids), _ptr(kv_segment_ids), *_gamma_ptrs(rows), dk.data_ptr(), dv.data_ptr(), b, h, n, m, d,
-        float(scale), *drop, _strides(q, k, v, do, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), int(causal), *drop, _strides(q, k, v, do, dk, dv),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    name = _counter("flash_bwd_dkv", drop, rows)
+    name = _counter("flash_bwd_dkv", drop[0], bool(rows), causal)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return dk, dv
@@ -547,54 +616,83 @@ KERNELS = SimpleNamespace(fwd=flash_fwd, bwd=_kernels_bwd)
 TWINS = SimpleNamespace(fwd=flash_fwd_reference, bwd=flash_bwd_reference)
 
 
+def _composite_bwd(q, k, v, bias, q_segment_ids, kv_segment_ids, scale, causal, g):
+    """dq, dk, dv, dbias of the composite (JAX ``_bwd`` with a bias,
+    :879-891): autograd through ``_reference_attention`` on the saved
+    inputs; dbias comes back in the bias's own (broadcast) shape."""
+    from .attention import xla_attention
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        mask = _valid(q_segment_ids, kv_segment_ids, q.shape[2], k.shape[2], causal, q.device)
+        out = xla_attention(*leaves[:3], scale=scale, bias=leaves[3], mask=mask)
+        return torch.autograd.grad(out, leaves, g)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The counterpart of ``_flash_attention_core``'s custom_vjp without
-    bias (:818-877).  The dropout rate and seed ride as Python numbers: the
-    backward replays the forward's mask from them.  With qk-norm gammas the
-    kernels take their f32 rows, the Function saves the raw q and k, and its
-    backward closes the RMSNorm VJP on the kernels' normalised-space dq and
-    dk in plain PyTorch (:func:`rms_norm_vjp`, JAX ``_bwd`` :859-876)."""
+    """The counterpart of ``_flash_attention_core``'s custom_vjp (:818-891).
+    The dropout rate and seed ride as Python numbers: the backward replays
+    the forward's mask from them.  With qk-norm gammas the kernels take their
+    f32 rows, the Function saves the raw q and k, and its backward closes the
+    RMSNorm VJP on the kernels' normalised-space dq and dk in plain PyTorch
+    (:func:`rms_norm_vjp`, JAX ``_bwd`` :859-876).  With a bias the forward
+    keeps no o or LSE and the backward is :func:`_composite_bwd`."""
 
     @staticmethod
-    def forward(ctx, ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids, gamma_q, gamma_k):
+    def forward(ctx, ops, scale, dropout_rate, seed, causal, q, k, v, q_segment_ids, kv_segment_ids, gamma_q, gamma_k,
+                bias):
         rows = gamma_rows(gamma_q, gamma_k, q)
         kw = _gamma_kw(rows)
         o, lse = ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                         dropout_rate=dropout_rate, seed=seed, **kw)
-        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse, gamma_q, gamma_k, *rows)
-        ctx.ops, ctx.scale, ctx.dropout_rate, ctx.seed = ops, scale, dropout_rate, seed
+                         dropout_rate=dropout_rate, seed=seed, causal=causal, bias=bias, **kw)
+        if bias is not None:
+            ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, bias)
+        else:
+            ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse, gamma_q, gamma_k, *rows)
+        ctx.ops, ctx.scale, ctx.dropout_rate, ctx.seed, ctx.causal = ops, scale, dropout_rate, seed, causal
+        ctx.has_bias = bias is not None
         return o
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.has_bias:
+            q, k, v, qs, ks, bias = ctx.saved_tensors
+            dq, dk, dv, dbias = _composite_bwd(q, k, v, bias, qs, ks, ctx.scale, ctx.causal, g)
+            return None, None, None, None, None, dq, dk, dv, None, None, None, None, dbias
         q, k, v, qs, ks, o, lse, gamma_q, gamma_k, *rows = ctx.saved_tensors
         g = _kernel_ready(g)
         delta = (g.float() * o.float()).sum(-1).contiguous()  # (b, h, n) f32, :680-685; exact under dropout
         dq, dk, dv = ctx.ops.bwd(q, k, v, g, lse, delta, scale=ctx.scale, q_segment_ids=qs, kv_segment_ids=ks,
-                                 dropout_rate=ctx.dropout_rate, seed=ctx.seed,
+                                 dropout_rate=ctx.dropout_rate, seed=ctx.seed, causal=ctx.causal,
                                  **_gamma_kw(rows))
         dgq = dgk = None
         if rows:
             dq, dgq = rms_norm_vjp(q, gamma_q, dq)
             dk, dgk = rms_norm_vjp(k, gamma_k, dk)
-        return None, None, None, None, dq, dk, dv, None, None, dgq, dgk
+        return None, None, None, None, None, dq, dk, dv, None, None, dgq, dgk, None
 
 
-def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gamma_q, gamma_k):
+def _flash(ops, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gamma_q, gamma_k, causal=False,
+           bias=None):
     ids = _ids(q_segment_ids, kv_segment_ids)
     if ids:
         q_segment_ids, kv_segment_ids = (t.to(torch.int32).contiguous() for t in ids)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     dropout_rate = float(dropout_rate)
     seed = int(seed) if dropout_rate > 0.0 else None
+    causal = bool(causal)
+    if bias is not None:
+        while bias.ndim < 4:  # JAX :990-992
+            bias = bias[None]
+        check_bias(bias, q.shape, k.shape[2])
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
-    operands = (q, k, v) if gamma_q is None else (q, k, v, gamma_q, gamma_k)
+    operands = [t for t in (q, k, v, gamma_q, gamma_k, bias) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        return _FlashAttention.apply(ops, scale, dropout_rate, seed, q, k, v, q_segment_ids, kv_segment_ids, gamma_q,
-                                     gamma_k)
+        return _FlashAttention.apply(ops, scale, dropout_rate, seed, causal, q, k, v, q_segment_ids, kv_segment_ids,
+                                     gamma_q, gamma_k, bias)
     rows = gamma_rows(gamma_q, gamma_k, q)
     return ops.fwd(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                   dropout_rate=dropout_rate, seed=seed, **_gamma_kw(rows))[0]
+                   dropout_rate=dropout_rate, seed=seed, causal=causal, bias=bias, **_gamma_kw(rows))[0]
 
 
 def _check_gammas(gamma_q, gamma_k, bias) -> None:
@@ -614,17 +712,20 @@ def _check_dropout_request(dropout_rate: float, dropout_seed, bias) -> None:
             raise ValueError("flash_attention: flash dropout is unsupported with bias")
 
 
-def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
-                          dropout_rate: float = 0.0, dropout_seed=None, gamma_q=None, gamma_k=None):
+def flash_attention_twins(q, k, v, *, scale: Optional[float] = None, bias=None, q_segment_ids=None,
+                          kv_segment_ids=None, causal: bool = False, dropout_rate: float = 0.0, dropout_seed=None,
+                          gamma_q=None, gamma_k=None):
     """The plain path of :func:`flash_attention` on any device: the same
     Function with every kernel swapped for its plain twin (the counterpart
     of ``ops/fused_block.py::layer_reference``), the same keep masks from
-    the same seed, the same qk-norm epilogue.  Like the kernels it keeps only
-    o and the LSE for the backward, so it trains where the materialized
+    the same seed, the same qk-norm epilogue, the same composite backward
+    with a bias.  Like the kernels it keeps only o and the LSE for the
+    backward, so it trains where the materialized
     :func:`flash_attention_reference` would not fit."""
-    _check_gammas(gamma_q, gamma_k, None)
-    _check_dropout_request(dropout_rate, dropout_seed, None)
-    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q, gamma_k)
+    _check_gammas(gamma_q, gamma_k, bias)
+    _check_dropout_request(dropout_rate, dropout_seed, bias)
+    return _flash(TWINS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q, gamma_k,
+                  causal, bias)
 
 
 def flash_attention(
@@ -650,6 +751,10 @@ def flash_attention(
 
     ``q_segment_ids`` (b, n) / ``kv_segment_ids`` (b, m): token i attends j
     iff their ids are equal and non-negative; a row with none gives zeros.
+    ``causal``: token i attends j only if j <= i (top-left aligned).
+    ``bias``: an additive logits bias broadcasting as (1|b, 1|h, n, m)
+    (fewer dims gain leading ones, as in JAX), differentiable; its backward is
+    the composite's, and its shape checks raise ``ValueError`` as JAX's do.
     ``gamma_q``/``gamma_k`` (both or neither; any shape reshaping to (h, d),
     the modules keep (h, 1, d)): the reference's per-head qk RMSNorm runs
     inside the kernels (their ``[qknorm]`` instantiations), and the backward
@@ -659,18 +764,14 @@ def flash_attention(
     kernels with the keep mask of the int ``dropout_seed`` (required; see
     :func:`flash_dropout_masks`), and the backward replays it; with a
     ``bias`` it raises ``ValueError``, as the JAX function does.
-    Differentiable in q, k and v.  On the CPU it runs the Function on the
-    plain twins; on a CUDA tensor it launches the kernels and raises for
-    what :func:`flash_supported` refuses.  ``block_q``/``block_k`` may only
-    name the kernels' own 64 x 64 tiles, and ``interpret`` (the Pallas
-    interpreter switch) has no meaning here: CPU tensors take the twins.
-    ``bias`` and ``causal`` raise ``NotImplementedError``."""
+    Differentiable in q, k and v (and the gammas, the bias).  On the CPU it
+    runs the Function on the plain twins; on a CUDA tensor it launches the
+    kernels and raises for what :func:`flash_supported` refuses.
+    ``block_q``/``block_k`` may only name the kernels' own 64 x 64 tiles, and
+    ``interpret`` (the Pallas interpreter switch) has no meaning here: CPU
+    tensors take the twins."""
     _check_gammas(gamma_q, gamma_k, bias)
     _check_dropout_request(dropout_rate, dropout_seed, bias)
-    if bias is not None:
-        raise NotImplementedError(f"flash_attention: an additive bias is not ported yet ({_FLASH_ITEM}, bias variant)")
-    if causal:
-        raise NotImplementedError(f"flash_attention: causal masking is not ported yet ({_FLASH_ITEM}, causal variant)")
     del interpret
     if (block_q or BLOCK_Q) != BLOCK_Q or (block_k or BLOCK_K) != BLOCK_K:
         raise ValueError(f"flash_attention: the kernels' tiles are {BLOCK_Q} x {BLOCK_K}")
@@ -680,4 +781,4 @@ def flash_attention(
             f"(bf16, dim_head {DIM_HEAD})"
         )
     return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q,
-                  gamma_k)
+                  gamma_k, causal, bias)
