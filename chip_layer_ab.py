@@ -1,0 +1,71 @@
+"""Times the layer chain's forward kernels (and gemm_f32out) of one checkout
+at ViT-B/16's bs=128 on one CUDA card (H100, sm_90a), for comparing two
+commits in one call.
+
+    python3 chip_layer_ab.py <checkout> <label>
+
+Builds ``<checkout>``'s kernels into its own ``build/`` and imports its
+``chip_smoke.py`` and package (not this file's), then times layernorm_rows,
+gemm_bf16 at its four sites (qkv, out +x, fc1, fc2 +y), attention_rows and
+its [dropout] (rate 0.1) and [qknorm] instantiations, and gemm_f32out (the
+backward's dh = dqkv . W_qkv) on one layer's random operands (b=128, n=197,
+dim 768, 12 heads, mlp 3072): CUDA events over 30 chained launches after 3
+warm-up ones.  Prints one JSON line {"tree": label, kernel: ms, ...} and,
+after a fresh build, the ptxas lines of those kernels.  Run two checkouts in
+turns (A, B, B, A) in one call; to time a parent commit, unpack it with
+``git archive`` into a git-ignored directory.
+"""
+
+import json
+import os
+import sys
+
+if __name__ == "__main__":
+    tree, label = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import chip_smoke as cs
+    from vit_pytorch_tpu_torch.ops import fused_block as fb
+    from vit_pytorch_tpu_torch.ops._build import load_library
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; the timing needs a CUDA card", file=sys.stderr)
+        sys.exit(1)
+    lib = load_library()
+    if not str(lib.path).startswith(os.path.abspath(tree)):
+        print(f"FAIL: the kernels came from {lib.path}, not from {tree}", file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    b, n, dim, heads, mlp, inner = cs.B_TIME, cs.N, cs.DIM, cs.HEADS, cs.MLP, cs.HEADS * cs.DH
+    w, kw = cs.layer_weights(rnd)
+    x, m, a, qkv = rnd(b, n, dim), rnd(b, n, inner), rnd(b, n, mlp), rnd(b, n, 3 * inner)
+    h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
+    gq, gk = 1 + rnd(inner, scale=0.2), 1 + rnd(inner, scale=0.2)
+    akw = dict(heads=heads, dim_head=cs.DH, scale=cs.DH**-0.5)
+    w_qkv_t = w["w_qkv"].t().contiguous()
+    calls = {
+        "layernorm_rows": lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+        "gemm_bf16[qkv]": lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv"),
+        "gemm_bf16[out]": lambda: fb.gemm_bf16(m, w["w_out"], "out", bias=kw["b_out"], residual=x),
+        "gemm_bf16[fc1]": lambda: fb.gemm_bf16(h, w["w1"], "fc1", bias=w["b1"]),
+        "gemm_bf16[fc2]": lambda: fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"], residual=x),
+        "attention_rows": lambda: fb.attention_rows(qkv, **akw),
+        "attention_rows[dropout]": lambda: fb.attention_rows(qkv, **akw, dropout_rate=cs.RATE, seed=cs.DROP_SEED),
+        "attention_rows[qknorm]": lambda: fb.attention_rows(qkv, heads=heads, dim_head=cs.DH, scale=1.0, gamma_q=gq,
+                                                            gamma_k=gk),
+        "gemm_f32out": lambda: fb.gemm_f32out(qkv, w_qkv_t),
+    }
+    out = {"tree": label}
+    with torch.inference_mode():
+        for name, call in calls.items():
+            out[name] = cs.cuda_ms(call, 30)
+    print(json.dumps(out), flush=True)
+    for line in cs.ptxas_report(lib.build_log):
+        if any(k in line for k in ("layernorm_rows", "gemm_bf16", "attention_rows_kernel")):
+            print(label, line)

@@ -156,6 +156,24 @@ Phases, each printed as it ends:
  30. their timing: serving img/s and training ms/step with peak memory of
      both models, kernel against plain in turns; each new launch against its
      twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask).
+ 31. stack_layers (VIT_TPU_STACK_LAYERS: g whole layers in one launch)
+     against the chain of 7g launches, bitwise, its last layer against the
+     twin's step within the whole layer's bounds and the whole stack against
+     the twins' chain within g times them, at ViT-B widths, (b, n) =
+     (8, 197) and (3, 50), g in (1, 2, 3, 6), each optional bias on and
+     off; the grad route (the per-layer Functions) bitwise, output and
+     12g + 1 gradients; a mixed-bias stack and n = 209 refused;
+ 32. ViT-B/16 @224 behind the buckets (1, 8, 32, 128) with the switch set
+     in-process: exact counters (g = 6: 2 stack_layers a bucket run and no
+     other launch; g = 5: 3; unset, or VIT_TPU_DISABLE_STACK beside g = 6:
+     the 12 x 7 chain), logits bitwise the switch unset's at every bucket
+     and within phase 4's bounds of plain bf16 and fp32; two training steps
+     at g = 6: the default's counters (no stack_layers), loss and gradients
+     bitwise;
+ 33. its timing: serving img/s at each bucket, unset against g = 2, 3, 6 in
+     turns; one stack_layers launch at bs=128 for g = 1 .. 6 against its
+     chain of 7g launches in turns, in ms a layer, beside its bound; the
+     g = 6 launch against its twin.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -3351,6 +3369,258 @@ def time_short_causal_bias(fa, dev, gen, smi):
     return per_kernel
 
 
+# -- the multi-layer stack (phases 31-33): VIT_TPU_STACK_LAYERS=g runs g whole
+# layers in one stack_layers launch (the port of _stack_kernel)
+STACK_SOURCE = "vit_pytorch_tpu_torch/csrc/stack_layers.cu"
+TPU_STACK = "vit_pytorch_tpu/ops/fused_block.py:1979"
+STACK_KEYS = ("VIT_TPU_STACK_LAYERS", "VIT_TPU_DISABLE_STACK")
+STACK_SHAPES = ((B_CHECK, N), (3, 50))  # 1,576 rows (12 full 128-row tiles and 40) and 150 (one and 22)
+STACK_GROUPS = (1, 2, 3, 6)
+STACK_BIASES = ((False, False), (True, True), (True, False), (False, True))  # (b_qkv, b_out)
+STACK_GRAD_GROUP = 3
+# Against its twin, stack_layers is held twice: its last layer against the
+# twin of that layer on the kernels' output of the g - 1 before it, within
+# the whole layer's bounds; and the whole stack against the twins' chain of
+# g layers, where each layer adds its own flips of a bf16 rounding: a right
+# kernel (bitwise the chain) reads rel L2 2.2e-4 to 2.0e-3 at g = 1, 2.5e-3
+# to 3.8e-3 at 2, 4.2e-3 to 5.2e-3 at 3 and 6.9e-3 to 7.8e-3 at 6, max_abs
+# up to 0.16, and 2.1e-3 at most on the last layer's step (H100 80GB HBM3,
+# 700 W), so that bound is g times one layer's (LAYER_ATOL, KERNEL_REL_L2).
+STACK_SERVE = (  # (label, switches, stack_layers launches a bucket run; 0: the 12 x 7 chain)
+    ("unset", {}, 0), ("g=6", {"VIT_TPU_STACK_LAYERS": "6"}, 2), ("g=5", {"VIT_TPU_STACK_LAYERS": "5"}, 3),
+    ("g=6, disabled", {"VIT_TPU_STACK_LAYERS": "6", "VIT_TPU_DISABLE_STACK": "1"}, 0),
+)
+STACK_TIME_GROUPS = (2, 3, 6)
+STACK_TRAIN_STEPS = 2
+
+
+def stack_tuples(rnd, layers, b_qkv, b_out):
+    """``layers`` random ViT-B layers (phase 3's scales) as stack tuples,
+    with or without the optional biases."""
+    out = []
+    for _ in range(layers):
+        w, kw = layer_weights(rnd)
+        out.append((w["w_qkv"], kw["b_qkv"] if b_qkv else None, w["w_out"], kw["b_out"] if b_out else None,
+                    w["ln1_scale"], w["ln1_bias"], w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"], w["w2"], w["b2"]))
+    return out
+
+
+def layer_chain(fb, x, layers):
+    """The same layers as the chain of 7 launches a layer."""
+    for lw in layers:
+        x = fb._layer_forward(fb.KERNELS, x, *lw, HEADS, DH, DH**-0.5, fb.LN_EPS)[0]
+    return x
+
+
+def check_stack(fb, rnd, dev):
+    """Phase 31: stack_layers bitwise against the chain of 7g launches and
+    within the whole layer's bounds of its twin, at each shape, group and
+    bias option; the grad route's output and 12g + 1 gradients bitwise the
+    per-layer Functions'; the refusals.  Returns the largest max_abs
+    against the twin."""
+    log(f"[31 stack_layers] ViT-B widths, (b, n) in {STACK_SHAPES}, g in {STACK_GROUPS}, (b_qkv, b_out) in "
+        f"{STACK_BIASES}, bf16")
+    skw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+    worst = 0.0
+    with torch.inference_mode():
+        for b_qkv, b_out in STACK_BIASES:
+            layers = stack_tuples(rnd, max(STACK_GROUPS), b_qkv, b_out)
+            for b, n in STACK_SHAPES:
+                x = rnd(b, n, DIM)
+                for g in STACK_GROUPS:
+                    tag = f"g={g} b={b} n={n} b_qkv={int(b_qkv)} b_out={int(b_out)}"
+                    got = fb.stack_layers(x, layers[:g], **skw)
+                    chain = layer_chain(fb, x, layers[:g])
+                    sync()
+                    same = torch.equal(got, chain)
+                    log(f"  stack_layers[{tag}] vs the chain of {7 * g} launches: "
+                        f"{'bitwise' if same else 'DIFFERS, max_abs %.4e' % (got.float() - chain.float()).abs().max().item()}")
+                    if not same:
+                        fail(f"stack_layers[{tag}] differs from the chain")
+                    # the last layer's step: the twin of layer g on the kernels' output of g - 1 layers
+                    prev = layer_chain(fb, x, layers[:g - 1])
+                    step = fb.stack_layers_reference(prev, layers[g - 1:g], **skw)
+                    worst = max(worst, compare(f"stack_layers[{tag}] vs twin step", got, step, LAYER_ATOL, LAYER_RTOL))
+                    twin = fb.stack_layers_reference(x, layers[:g], **skw)
+                    compare(f"stack_layers[{tag}] vs twin chain", got, twin, g * LAYER_ATOL, LAYER_RTOL,
+                            g * KERNEL_REL_L2)
+        sync()
+        mixed = stack_tuples(rnd, 2, True, True)
+        mixed[1] = (mixed[1][0], None) + mixed[1][2:]
+        x209 = rnd(2, 209, DIM)
+        refusals = {
+            "a mixed-bias stack": lambda: fb.fused_transformer_stack(rnd(2, N, DIM), mixed, heads=HEADS, dim_head=DH),
+            "stack_layers at n = 209": lambda: fb.stack_layers(x209, layers[:2], **skw),
+            "fused_transformer_stack at n = 209": lambda: fb.fused_transformer_stack(x209, layers[:2], heads=HEADS,
+                                                                                     dim_head=DH),
+        }
+        for what, call in refusals.items():
+            try:
+                call()
+            except ValueError as e:
+                log(f"  {what}: refused ({str(e)[:80]}...)")
+            else:
+                fail(f"{what} was not refused")
+    # the grad route: the per-layer Functions, bitwise
+    layers = stack_tuples(rnd, STACK_GRAD_GROUP, True, True)
+    x, cot = rnd(B_CHECK, N, DIM), rnd(B_CHECK, N, DIM)
+    results = []
+    for stacked in (True, False):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *(t for lw in layers for t in lw))]
+        ls = [tuple(leaves[1 + 12 * i: 13 + 12 * i]) for i in range(STACK_GRAD_GROUP)]
+        before = fb.LAUNCHES["stack_layers"]
+        if stacked:
+            out = fb.fused_transformer_stack(leaves[0], ls, heads=HEADS, dim_head=DH)
+        else:
+            out = leaves[0]
+            for w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 in ls:
+                out = fb.fused_transformer_layer(out, w_qkv, w_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                                                 heads=HEADS, dim_head=DH, b_qkv=b_qkv, b_out=b_out)
+        results.append((out, torch.autograd.grad(out, leaves, cot)))
+        if fb.LAUNCHES["stack_layers"] != before:
+            fail("the stack's grad route launched stack_layers")
+    sync()
+    (out, grads), (out_want, grads_want) = results
+    same = torch.equal(out, out_want) and all(torch.equal(a, b) for a, b in zip(grads, grads_want))
+    log(f"  grad route at g={STACK_GRAD_GROUP}: output and {len(grads)} gradients "
+        f"{'bitwise the per-layer Functions' if same else 'DIFFER from the per-layer Functions'}")
+    if not same or len(grads) != 12 * STACK_GRAD_GROUP + 1:
+        fail("the stack's grad route differs from the per-layer route")
+    return {"stack_layers": worst}
+
+
+def serve_stack(fb, dev, rnd, smi):
+    """Phase 32: ViT-B/16 @224 behind the Predictor buckets under each stack
+    switch (set in-process): exact launch counters, logits bitwise the
+    switch unset's at every bucket and within phase 4's bounds of plain bf16
+    and fp32; two training steps at g = 6 with the default's counters, loss
+    and gradients.  Returns the main path's counters (g = 6), the predictor
+    and the requests for phase 33."""
+    from vit_pytorch_tpu_torch import ViT
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    log(f"[32 stack serving] ViT-B/16 @224, depth {DEPTH}, buckets {BUCKETS}, one request a bucket, bf16")
+    model = ViT(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP,
+                device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).eval()
+    pred = Predictor(model, example_shape=(3, 224, 224), batch_sizes=BUCKETS, device=dev).warmup()
+    images = {k: rnd(k, 3, 224, 224, dtype=torch.float32) for k in BUCKETS}
+    chain = {name: DEPTH * LAUNCHES_PER_LAYER.get(name, 0) * len(BUCKETS) for name in fb.LAUNCHES}
+    logits, main_counts = {}, None
+    for label, env, stacks in STACK_SERVE:
+        with env_switch(env, STACK_KEYS):
+            fb.reset_launch_counts()
+            logits[label] = {k: pred(images[k]) for k in BUCKETS}
+            sync()
+            counts = dict(fb.LAUNCHES)
+        want = ({name: stacks * len(BUCKETS) if name == "stack_layers" else 0 for name in fb.LAUNCHES} if stacks
+                else chain)
+        log(f"  {label}: launches {({k: v for k, v in counts.items() if v})} (expected "
+            f"{({k: v for k, v in want.items() if v})})")
+        if counts != want:
+            fail(f"serving under {label}: launch counters off")
+        if label == "g=6":
+            main_counts = counts
+        for k in BUCKETS:
+            out = logits[label][k]
+            if out.shape != (k, 1000) or not bool(torch.isfinite(out).all()):
+                fail(f"{label}, bucket {k}: shape {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+            if not torch.equal(out, logits["unset"][k]):
+                fail(f"{label}, bucket {k}: logits differ from the switch unset "
+                     f"(max_abs {(out.float() - logits['unset'][k].float()).abs().max().item():.4e})")
+    log(f"  logits bitwise the switch unset's at every bucket under {[lab for lab, _, _ in STACK_SERVE[1:]]}")
+    served, tr = pred.model, pred.model.transformer
+    with torch.inference_mode():
+        x = served.embed(images[32].to(torch.bfloat16))
+        for i in range(DEPTH):
+            ws, kws = tr.layer_weights(i, torch.bfloat16)
+            x = fb.layer_reference(x, *ws, heads=HEADS, dim_head=DH, **kws)
+        plain = served.mlp_head(tr.norm(x)[:, 0])
+        fp32 = model(images[32])
+    e_plain, e_fp32 = rel_l2(logits["g=6"][32], plain), rel_l2(logits["g=6"][32], fp32)
+    log(f"  g=6 logits of the 32-image bucket: rel L2 vs plain bf16 {e_plain:.4e} (bound {LOGITS_VS_PLAIN_BF16}), "
+        f"vs fp32 {e_fp32:.4e} (bound {LOGITS_VS_FP32})")
+    if not (e_plain <= LOGITS_VS_PLAIN_BF16 and e_fp32 <= LOGITS_VS_FP32):
+        fail("the stack's logits disagree with the plain path")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    images_t = torch.randn(B_TRAIN, 3, 224, 224, generator=gen, device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
+    initial = vit_b(dev, torch.bfloat16)
+    runs = {}
+    for label, env in (("default", {}), ("g=6", {"VIT_TPU_STACK_LAYERS": "6"})):
+        train_model = copy.deepcopy(initial)
+        with env_switch(env, STACK_KEYS):
+            state, step = create_train_state(train_model), make_train_step(train_model)
+            fb.reset_launch_counts()
+            losses = [step(state, images_t, labels)["loss"].item() for _ in range(STACK_TRAIN_STEPS)]
+            sync()
+        runs[label] = (losses, grad_vector(train_model), dict(fb.LAUNCHES))
+    want = {k: DEPTH * TRAIN_LAUNCHES_PER_LAYER.get(k, 0) * STACK_TRAIN_STEPS for k in fb.LAUNCHES}
+    (l_def, g_def, c_def), (l_st, g_st, c_st) = runs["default"], runs["g=6"]
+    same = l_def == l_st and all(torch.equal(a, b) for a, b in zip(g_def, g_st))
+    log(f"  training, {STACK_TRAIN_STEPS} steps at bs={B_TRAIN}: g=6 losses {l_st}, default {l_def}; launches under "
+        f"g=6 {({k: v for k, v in c_st.items() if v})} (expected {({k: v for k, v in want.items() if v})}); loss and "
+        f"gradients {'bitwise the default' if same else 'DIFFER from the default'}")
+    if c_st != want or c_def != want:
+        fail("training under the stack switch: launch counters off")
+    if not same:
+        fail("training under the stack switch differs from the default step")
+    return main_counts, pred, images
+
+
+def stack_work(b, n, layers):
+    """g layers' work as one function: x in, the output and every layer's
+    weights (bias vectors included) read once; the chain's operations."""
+    rows, inner = b * n, HEADS * DH
+    weights = 2 * (4 * inner * DIM + 2 * DIM * MLP + 3 * inner + MLP + 7 * DIM)
+    per_layer = [ln_work(rows, DIM), ln_work(rows, DIM), gemm_work(rows, 3 * inner, DIM),
+                 gemm_work(rows, DIM, inner), gemm_work(rows, MLP, DIM), gemm_work(rows, DIM, MLP),
+                 attention_work(b, n, HEADS)]
+    return work(2 * 2 * rows * DIM + layers * weights, tensor=layers * sum(w["tensor"] for w in per_layer),
+                f32=layers * sum(w["f32"] for w in per_layer))
+
+
+def time_stack(fb, dev, rnd, smi, pred, images):
+    """Phase 33: serving img/s at each bucket, the switch unset against g in
+    STACK_TIME_GROUPS in turns; one stack_layers launch at bs=128 for g = 1
+    .. 6 against its chain of 7g launches in turns, in ms a layer, its
+    bound; the g = 6 launch against its twin.  Returns the kernels-line
+    timing of stack_layers (the g = 6 launch at bs=128)."""
+    log(f"[33 stack timing] {smi}")
+    with torch.inference_mode():
+        for k in BUCKETS:
+            def served(env, k=k):
+                def run():
+                    with env_switch(env, STACK_KEYS):
+                        pred(images[k])
+                return run
+
+            for g in STACK_TIME_GROUPS:
+                env = {"VIT_TPU_STACK_LAYERS": str(g)}
+                u1, s1, s2, u2 = (host_ms(f) for f in (served({}), served(env), served(env), served({})))
+                su, ss = (u1 + u2) / 2, (s1 + s2) / 2
+                log(f"  bucket {k}, g={g}: stack {k * 1e3 / ss:.1f} img/s ({ss:.4f} ms), unset {k * 1e3 / su:.1f} "
+                    f"img/s ({su:.4f} ms); turns ms unset {u1:.4f} g {s1:.4f} g {s2:.4f} unset {u2:.4f}")
+        layers = stack_tuples(rnd, max(STACK_GROUPS + STACK_TIME_GROUPS), False, True)
+        x = rnd(B_TIME, N, DIM)
+        skw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        per_kernel = {}
+        for g in range(1, 7):
+            km, cm = in_turns(lambda: fb.stack_layers(x, layers[:g], **skw), lambda: layer_chain(fb, x, layers[:g]),
+                              10)
+            bound, by = bound_ms(stack_work(B_TIME, N, g))
+            log(f"  bs={B_TIME}, g={g}: stack_layers {km:.4f} ms ({km / g:.4f} a layer), chain of {7 * g} launches "
+                f"{cm:.4f} ms ({cm / g:.4f} a layer), bound {bound:.4f} ms ({bound / g:.4f} a layer, {by})")
+            if g == 6:
+                pm = cuda_ms(lambda: fb.stack_layers_reference(x, layers[:g], **skw), 3)
+                log(f"  g=6: twin {pm:.4f} ms; no torch call computes a layer (library_ms null), the chain "
+                    f"{cm:.4f} ms stands beside it")
+                record(per_kernel, "stack_layers", km, pm, stack_work(B_TIME, N, g))
+    sync()
+    return per_kernel
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -3664,6 +3934,19 @@ def main():
     per_kernel.update(time_short_causal_bias(fa, dev, gen, smi))
     phase_done("phase 30")
 
+    # -- 31. stack_layers against the chain and its twin ------------------------------
+    errs.update(check_stack(fb, rnd, dev))
+    phase_done("phase 31")
+
+    # -- 32. ViT-B/16 served and trained under VIT_TPU_STACK_LAYERS --------------------
+    stack_counts, stack_pred, stack_images = serve_stack(fb, dev, rnd, smi)
+    phase_done("phase 32")
+
+    # -- 33. its timing -----------------------------------------------------------------
+    per_kernel.update(time_stack(fb, dev, rnd, smi, stack_pred, stack_images))
+    del stack_pred, stack_images
+    phase_done("phase 33")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -3712,6 +3995,8 @@ def main():
                  "dot_product_attention at m >= 1024 (causal, a bias), forward and backward",
                  (simple_512_counts if name == "short_attention" else ops_counts)[name])
            for name, replaces in TPU_NEW.items()]
+        + [entry("stack_layers", STACK_SOURCE, TPU_STACK, "ViT-B/16 serving under VIT_TPU_STACK_LAYERS=6",
+                 stack_counts["stack_layers"])]
     )
     for k in kernels:
         if not k["launches"]:
@@ -3736,7 +4021,9 @@ def main():
         "and [bias] at SimpleViT-B/16 @512's shape (32 x 12 x 1024), launches from its served requests and, for "
         "[bias], from dot_product_attention with a per-head bias at m = 1024; the flash [causal] and [bias] variants "
         "at 8 x 12 x 2048, launches from dot_product_attention's causal and bias calls at m = 2048, forward and "
-        "backward; library_ms SDPA with is_causal, dropout_p or the bias as a float attn_mask)")
+        "backward; library_ms SDPA with is_causal, dropout_p or the bias as a float attn_mask; stack_layers: one "
+        "g = 6 launch at bs=128, its twin the 6-layer chain of twins, bound the 6 layers' operations (x, the output "
+        "and the weights as bytes), launches from ViT-B/16's bucket runs under VIT_TPU_STACK_LAYERS=6)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,5 +1,6 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
-// fused_layer_bwd.cu, gemm_wgrad.cu, dropout.cu, flash_attention.cu).
+// fused_layer_bwd.cu, gemm_wgrad.cu, dropout.cu, flash_attention.cu,
+// short_attention.cu, stack_layers.cu).
 // Everything here has internal linkage (each source that includes it gets its
 // own copy), apart from launch_column_sum, declared here and defined once in
 // fused_layer_bwd.cu.
@@ -211,18 +212,24 @@ __device__ __forceinline__ void acc_to_a_frag(uint32_t a[4], const float lo[4], 
 
 // ROWS rows from r0 of one head's 64 columns into shared memory (leading
 // dimension kAttnLd), zero-filled from row n on; all kAttnThreads threads of
-// the block.  The trip count is a constant, so the loop unrolls and every
+// the block (tid their index in it; a warpgroup of a larger block passes its
+// own).  The trip count is a constant, so the loop unrolls and every
 // thread's loads are in flight at once.
 template <int ROWS>
-__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n) {
+__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n, int tid) {
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-  for (int c = threadIdx.x; c < ROWS * (kAttnDh / 8); c += kAttnThreads) {
+  for (int c = tid; c < ROWS * (kAttnDh / 8); c += kAttnThreads) {
     const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
     uint4 v = zero;
     if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + d);
     *reinterpret_cast<uint4*>(dst + r * kAttnLd + d) = v;
   }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n) {
+  load_head_rows<ROWS>(dst, src, stride, r0, n, threadIdx.x);
 }
 
 // qk-norm: the per-head RMSNorm of _kernel (:323-338) and _bwd_kernel

@@ -36,6 +36,8 @@ from ..ops.fused_block import (
     fused_block_supported,
     fused_dropout_supported,
     fused_transformer_layer,
+    fused_transformer_stack,
+    whole_layer_stack_group,
     whole_layer_supported,
 )
 
@@ -329,16 +331,35 @@ class Transformer(nn.Module):
             cast(ff.net[4].weight), cast(ff.net[4].bias),
         ), {"b_out": None if out_bias is None else cast(out_bias)}
 
+    def layer_tuple(self, i: int, dtype: torch.dtype):
+        """Layer ``i``'s operands as one tuple of
+        :func:`fused_transformer_stack`: ``(w_qkv, b_qkv, w_out, b_out, ln1s,
+        ln1b, ln2s, ln2b, w1, b1, w2, b2)``, the JAX ``_layer_tuple``'s order
+        (the ViT has no qkv bias)."""
+        (w_qkv, w_out, *rest), biases = self.layer_weights(i, dtype)
+        return (w_qkv, None, w_out, biases["b_out"], *rest)
+
     def forward(self, x, *, q_segment_ids=None, kv_segment_ids=None, rotary=None, return_hiddens: bool = False):
         if rotary is not None or return_hiddens:
             raise NotImplementedError("rotary and return_hiddens are not ported yet (ROADMAP: modules to port, item 9)")
         has_segments = q_segment_ids is not None or kv_segment_ids is not None
         if self.whole_layer_eligible(x, has_segments=has_segments):
-            for i in range(len(self.layers)):
-                weights, biases = self.layer_weights(i, x.dtype)
-                x = fused_transformer_layer(
-                    x, *weights, heads=self.heads, dim_head=self.dim_head, eps=LN_EPS, **biases
-                )
+            depth = len(self.layers)
+            # layers a stack_layers launch, 1 unless VIT_TPU_STACK_LAYERS asks
+            # for more; groups of min(g, depth - i) as JAX blocks.py:667-721
+            group = whole_layer_stack_group(x.shape, x.dtype, self.heads, self.dim_head, self.dim, self.mlp_dim, depth)
+            if group > 1:
+                for i in range(0, depth, group):
+                    x = fused_transformer_stack(
+                        x, [self.layer_tuple(j, x.dtype) for j in range(i, min(i + group, depth))],
+                        heads=self.heads, dim_head=self.dim_head, eps=LN_EPS,
+                    )
+            else:
+                for i in range(depth):
+                    weights, biases = self.layer_weights(i, x.dtype)
+                    x = fused_transformer_layer(
+                        x, *weights, heads=self.heads, dim_head=self.dim_head, eps=LN_EPS, **biases
+                    )
         else:
             # every layer's Attention shares this predicate (JAX attn_will_fuse)
             attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(x, has_segments=has_segments)

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 # dropout arguments: drop (0/1), seed (the int32 seed's bit pattern), keep
 # threshold, 1/(1 - rate)
 _DROP = (_I, _U, _U, _F)
@@ -78,6 +79,9 @@ _SIGNATURES = {
     "vit_short_attention": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _I, _I, _F, _S, _P),
     # keep, batch, heads, n, m, seed, threshold, stream
     "vit_flash_dropout_masks": (_P, _I, _I, _I, _I, _U, _U, _P),
+    # x, out, layers x 12 weight pointers, layers, scratch h, qkv, m, y, a, barrier, batch, n, dim, heads,
+    # dim_head, mlp, scale*log2(e), eps, stream
+    "vit_stack_layers": (_P, _P, _PP, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

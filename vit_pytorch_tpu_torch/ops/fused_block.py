@@ -65,6 +65,14 @@ same switches, read at call time (:1364-1386, :1619-1655), off by default:
   from bf16(dy), ``layernorm_bwd_rows[res_f32]`` adding the f32 dy, and
   ``gemm_wgrad`` for dW_out and dW_qkv too.
 
+The JAX switch ``VIT_TPU_STACK_LAYERS=g`` (the port of ``_stack_kernel``,
+:1979) runs g consecutive layers' forward in one launch of ``stack_layers``
+(``csrc/stack_layers.cu``): a cooperative grid walks the chain's seven steps
+of every layer, each tile the chain's own body (``csrc/layer_tiles.cuh``),
+so the result is bitwise the chain's.  ``fused_transformer_stack`` takes it
+outside autograd; under autograd it runs the per-layer Functions, as JAX's
+``_fused_stack`` custom_vjp does.  Off by default, as in JAX.
+
 Each kernel wrapper has its plain PyTorch twin (``*_reference``) in this
 module.  A wrapper takes the twin only for a tensor on the CPU; on a CUDA
 tensor it launches its kernel or raises.  Each launch adds one to
@@ -75,6 +83,7 @@ Weights are in ``nn.Linear``'s (out, in) layout; the kernels read them so.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
@@ -100,6 +109,9 @@ GEMM_BM = 128  # kGemmBM: rows of a gemm_bf16 block (gelu_bwd's column partials,
 
 # the opt-in backwards of the whole layer, the JAX package's switches
 FF_BWD_ENV, FF_BWD_LEGACY_ENV, LAYER_BWD_ENV = "VIT_TPU_FF_BWD", "VIT_TPU_ENABLE_FF_BWD", "VIT_TPU_ENABLE_WHOLE_LAYER_BWD"
+# the multi-layer stack, the JAX package's switches and its most layers a call
+STACK_ENV, DISABLE_STACK_ENV = "VIT_TPU_STACK_LAYERS", "VIT_TPU_DISABLE_STACK"
+STACK_MAX_LAYERS = 6  # _STACK_MAX_LAYERS; kStackMaxLayers in csrc/stack_layers.cu
 
 # launches per kernel since the last reset_launch_counts(); a variant
 # ("[dropout]", "[qknorm]", "[block_out]") counts apart from its kernel's
@@ -112,6 +124,7 @@ LAUNCHES = {
     "attention_rows[qknorm]": 0, "attention_rows[dropout,qknorm]": 0,
     "attention_bwd_rows[qknorm]": 0, "attention_bwd_rows[dropout,qknorm]": 0,
     "gemm_bf16[fc1_save]": 0, "gemm_bf16[gelu_bwd]": 0, "layernorm_bwd_rows[res_f32]": 0, "gemm_wgrad": 0,
+    "stack_layers": 0,
 }
 
 # gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
@@ -1343,3 +1356,140 @@ def fused_attention_block(
     return _attention_block(KERNELS, x, residual, w_qkv, w_out, ln_scale, ln_bias, heads=heads, dim_head=dim_head,
                             b_qkv=b_qkv, b_out=b_out, gamma_q=gamma_q, gamma_k=gamma_k, scale=scale, eps=eps,
                             dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
+# ---------------------------------------------------------------------------
+# several whole layers in one launch: the port of _stack_kernel and its
+# custom_vjp _fused_stack
+# ---------------------------------------------------------------------------
+
+
+def whole_layer_stack_group(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int, depth: int) -> int:
+    """Layers a ``stack_layers`` launch for the whole-layer route (1: one
+    layer a call), the JAX ``whole_layer_stack_group`` (fused_block.py:
+    1939-1976) read at call time: 1 with ``VIT_TPU_DISABLE_STACK`` set, for
+    a shape :func:`whole_layer_supported` refuses, or with
+    ``VIT_TPU_STACK_LAYERS`` unset (the default, as JAX's
+    ``_STACK_DEFAULT_GROUP``); a value that is not an integer raises
+    ``ValueError`` naming the variable; else ``min(value, 6, depth)``, and 1
+    for a value <= 1.  JAX's loop that then shrinks the group until its
+    resident weights fit the ``_STACK_EST_LIMIT`` of VMEM is a TPU
+    calibration and is not ported (ROADMAP §1 item 12): the H100 kernel
+    holds no weights on chip, so every group of up to 6 runs."""
+    if os.environ.get(DISABLE_STACK_ENV):
+        return 1
+    if not whole_layer_supported(x_shape, dtype, heads, dim_head, dim, mlp_dim):
+        return 1
+    forced = os.environ.get(STACK_ENV)
+    if not forced:
+        return 1
+    try:
+        want = int(forced)
+    except ValueError:
+        raise ValueError(f"{STACK_ENV} must be an integer, got {forced!r}") from None
+    return 1 if want <= 1 else min(want, STACK_MAX_LAYERS, depth)
+
+
+def _uniform_biases(layers) -> bool:
+    """Whether the optional biases (b_qkv, b_out) are each present in every
+    layer or in none, as ``fused_transformer_stack`` requires."""
+    return all((lw[1] is None) == (layers[0][1] is None) and (lw[3] is None) == (layers[0][3] is None)
+               for lw in layers)
+
+
+def stack_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int, layers) -> bool:
+    """Static eligibility of ``stack_layers`` on an H100: the whole layer's
+    (:func:`whole_layer_supported`; the stack runs its tile bodies), 1 to
+    :data:`STACK_MAX_LAYERS` layers, and uniform optional biases."""
+    return (
+        whole_layer_supported(x_shape, dtype, heads, dim_head, dim, mlp_dim)
+        and 1 <= len(layers) <= STACK_MAX_LAYERS
+        and _uniform_biases(layers)
+    )
+
+
+def stack_layers_reference(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS):
+    """Plain twin of :func:`stack_layers`: the seven-step chain of every layer
+    on the twins, one layer after another (``layers`` as there)."""
+    for lw in layers:
+        x = _layer_forward(TWINS, x, *lw, heads, dim_head, scale, eps)[0]
+    return x
+
+
+def stack_layers(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS):
+    """``len(layers)`` consecutive pre-norm layers' forward in one launch,
+    the port of ``_stack_kernel`` (fused_block.py:1979).  ``layers`` is a
+    sequence of per-layer tuples ``(w_qkv, b_qkv, w_out, b_out, ln1s, ln1b,
+    ln2s, ln2b, w1, b1, w2, b2)``, the JAX layer tuple with the weights in
+    ``nn.Linear``'s (out, in) layout; b_qkv and b_out may be None (in every
+    layer or in none).  Every step of every layer runs the chain's tile
+    bodies, so the result is bitwise that of the 7g-launch chain.  See
+    :func:`stack_layers_reference`."""
+    if x.device.type == "cpu":
+        return stack_layers_reference(x, layers, heads=heads, dim_head=dim_head, scale=scale, eps=eps)
+    dim = x.shape[-1]
+    mlp_dim = layers[0][8].shape[0] if layers else 0
+    if not stack_supported(x.shape, x.dtype, heads, dim_head, dim, mlp_dim, layers):
+        raise ValueError(f"stack_layers: x {tuple(x.shape)} {x.dtype} with {len(layers)} layers, heads={heads}, "
+                         f"dim_head={dim_head}, mlp_dim={mlp_dim} is not supported by the kernel")
+    inner = heads * dim_head
+    shapes = ((3 * inner, dim), (3 * inner,), (dim, inner), (dim,), (dim,), (dim,), (dim,), (dim,),
+              (mlp_dim, dim), (mlp_dim,), (dim, mlp_dim), (dim,))
+    for lw in layers:
+        if len(lw) != 12 or any(t is not None and tuple(t.shape) != s for t, s in zip(lw, shapes)):
+            raise ValueError(f"stack_layers: a layer's operands {[None if t is None else tuple(t.shape) for t in lw]}"
+                             f", expected {list(shapes)}")
+        if any(lw[i] is None for i in (0, 2, 4, 5, 6, 7, 8, 10)):
+            raise ValueError("stack_layers: only b_qkv, b_out, b1 and b2 may be None")
+    _check_operands("stack_layers", x.device, x, *(t for lw in layers for t in lw))
+    b, n, _ = x.shape
+    rows = b * n
+    out = torch.empty_like(x)
+    scratch = [torch.empty((rows, width), dtype=x.dtype, device=x.device)
+               for width in (dim, 3 * inner, inner, dim, mlp_dim)]  # h, qkv, m, y, a
+    barrier = torch.empty((2,), dtype=torch.int32, device=x.device)
+    ptrs = (ctypes.c_void_p * (12 * len(layers)))(*(None if t is None else t.data_ptr() for lw in layers for t in lw))
+    lib = load_library()
+    err = lib.lib.vit_stack_layers(
+        x.data_ptr(), out.data_ptr(), ptrs, len(layers), *(t.data_ptr() for t in scratch), barrier.data_ptr(),
+        b, n, dim, heads, dim_head, mlp_dim, scale * _LOG2E, eps, _stream(x.device),
+    )
+    lib.check("stack_layers", err)
+    LAUNCHES["stack_layers"] += 1
+    return out
+
+
+def fused_transformer_stack(x, layers, *, heads: int, dim_head: int, scale: Optional[float] = None,
+                            eps: float = LN_EPS):
+    """``len(layers)`` consecutive pre-norm layers, the JAX
+    ``fused_transformer_stack`` (fused_block.py:2096-2137), differentiable in
+    every operand; ``layers`` as in :func:`stack_layers`.  One layer is
+    :func:`fused_transformer_layer`.  Under autograd it runs the per-layer
+    Functions (:func:`fused_transformer_layer` a layer), as JAX's
+    ``_fused_stack`` custom_vjp runs the per-layer grad path, so gradients
+    and launches are exactly the per-layer route's; otherwise one
+    :func:`stack_layers` launch (on the CPU its twin).  On a CUDA tensor it
+    raises for what :func:`stack_supported` refuses."""
+    scale = dim_head**-0.5 if scale is None else float(scale)
+    layers = tuple(tuple(lw) for lw in layers)
+
+    def one(x, lw):
+        w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = lw
+        return fused_transformer_layer(x, w_qkv, w_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads=heads,
+                                       dim_head=dim_head, b_qkv=b_qkv, b_out=b_out, scale=scale, eps=eps)
+
+    if len(layers) == 1:
+        return one(x, layers[0])
+    if not _uniform_biases(layers):
+        raise ValueError("fused_transformer_stack: optional biases must be uniformly present or absent across the "
+                         "stacked layers")
+    if x.device.type != "cpu" and not stack_supported(x.shape, x.dtype, heads, dim_head, x.shape[-1],
+                                                      layers[0][8].shape[0], layers):
+        raise ValueError(f"fused_transformer_stack: x {tuple(x.shape)} {x.dtype} with {len(layers)} layers, "
+                         f"heads={heads}, dim_head={dim_head} is not supported by the kernel")
+    operands = (x, *(t for lw in layers for t in lw))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        for lw in layers:
+            x = one(x, lw)
+        return x
+    return stack_layers(x, layers, heads=heads, dim_head=dim_head, scale=scale, eps=eps)
