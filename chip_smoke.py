@@ -121,7 +121,9 @@ Phases, each printed as it ends:
      k raw with row norms spread over ~e^+-4.5, gammas 1 + 0.2 N(0, 1); o
      also differs from the kernel without gammas; the Function's o, dq, dk,
      dv, dgamma_q and dgamma_k against autograd through the f32 composite
-     with the eager rms_norm;
+     with the eager rms_norm; that check again over 20 fresh draws at rate
+     0 and 20 at rate 0.1, for the kernels and for the Function on its plain
+     twins, logged (each output's worst rel L2 a draw);
  26. NaViT-B under VIT_TPU_FUSE_QKNORM=1 (set in-process): serving at depth
      12 and 2 (exact counters: depth + 1 flash_fwd[qknorm] a forward; the
      switch unset, depth + 1 rate-0 flash_fwd as in phase 13), logits
@@ -173,7 +175,26 @@ Phases, each printed as it ends:
  33. its timing: serving img/s at each bucket, unset against g = 2, 3, 6 in
      turns; one stack_layers launch at bs=128 for g = 1 .. 6 against its
      chain of 7g launches in turns, in ms a layer, beside its bound; the
-     g = 6 launch against its twin.
+     g = 6 launch against its twin;
+ 34. the port's bench tools (vit_pytorch_tpu_torch/tools/, the JAX
+     package's layer prototypes in tools/ with their f32 epilogues): each of
+     the ten counterparts against its plain twin at b = 8, ViT-B widths, n =
+     197 and n_pad = 200 (n_real = 197), with exact launch counters (7 a
+     layer, 4 an attention block, 3 an FF block, 1 stack_layers[tools] a
+     stack); the padded calls' real rows bitwise unchanged when the padded
+     rows' inputs change; make_stack bitwise the chain of 7L launches at
+     L = 1, 2, 3, 4, 6 and within L times the layer bounds of its twin;
+     gemm_bf16[block_out] at the tools' three sites bitwise bf16(gemm_f32out
+     + bias + residual); gemm_bf16[fc1_f32] against bf16(gelu(bf16(
+     gemm_f32out + b1))) by the share of elements that differ;
+     attention_rows[n_keys] against its twin, n_keys of 0 and n + 1
+     refused;
+ 35. each tool's main() at bs=128 (the main path of this slice, its
+     counters zeroed before each and read after); each new kernel entry
+     against its twin in turns, its bound and its library call; each of the
+     ten counterparts against its twin; the tools' layer against
+     fused_transformer_layer and make_stack(6) against its chain, in ms a
+     layer.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -2479,9 +2500,20 @@ QK_ROW_SPREAD = 1.5
 # elements of q^ and k^ by one ulp and moves their logits (up to ~80 at scale
 # 1) by hundredths, so the lse of a right kernel reads up to 8.4e-3 from its
 # twin's (H100 80GB HBM3, 700 W): bound ~3x that.  Against the f32 composite
-# (which normalises without rounding) a right kernel reads rel L2 <= 1.5e-2
-# for every output and dgamma, inside phase 12's 2e-2.
+# (which normalises without rounding) this seeded draw reads rel L2 <= 1.52e-2
+# for every output and dgamma, inside phase 12's 2e-2; fresh draws read up to
+# ~2.8e-2 (dq, dk of the attn_pool case), and the Function on its plain twins
+# reads the same within ~1% on every draw: the distance is the bf16 rounding
+# of q^ and k^, which the JAX kernel shares, not a kernel fault (suspect 5,
+# PERF.md §7).  The bound holds for this draw, not for any draw.
 QK_LSE_ATOL = 2.5e-2
+# Suspect 5: that f32 check reads more on other draws.  Phase 25 repeats it,
+# logged and not bounded, over QK_F32_DRAWS fresh draws of its cases at rate
+# 0 and at RATE, for the kernels and for the same Function on its plain twins
+# (flash_attention_twins: bf16 q^ and k^ at the kernels' rounding points),
+# each against the f32 composite: if the twins read the same excursions, the
+# distance is the bf16 numerics the JAX kernel shares.
+QK_F32_DRAWS = 20
 # The 3-D NaViT of phase 26: the 2-D nested variant's blocks at its widths
 # (dim 1024, heads 16, mlp 2048), videos of up to 8 frames of 256 x 256 in
 # 32 x 32 x 2 patches with 4 register tokens a video, depth cut to 2; 24
@@ -2578,7 +2610,65 @@ def check_flash_qknorm(fa, dev, gen):
                                 FLASH_VS_F32_REL_L2, atol_frac=FLASH_VS_F32_ATOL_FRAC)
             del leaves, ref, out, out_ref, got, want
             sync()
+    qk_vs_f32_draws(fa, dev)
     return errs
+
+
+def qk_vs_f32_draws(fa, dev):
+    """Suspect 5: the Function-vs-f32 check of phase 25 over fresh draws of
+    its cases, for the kernels and for the twins, each output's worst rel L2
+    over the cases (and which case) a draw; then the worst over the draws and
+    the draws above FLASH_VS_F32_REL_L2.  Beside it, the kernels' o against
+    the twins' o: the worst of |d| / (ATTN_ATOL + ATTN_RTOL |want|) over the
+    cases, the bound of phase 25's o check against its twin (above 1 that
+    check would fail on the draw).  Logged, not bounded.  The draws come
+    from a generator of their own, so the later phases' inputs stay those
+    their bounds were read on."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    parts = ("o", "dq", "dk", "dv", "dgamma_q", "dgamma_k")
+    routes = {"kernel": fa.flash_attention, "twins": fa.flash_attention_twins}
+    fmt = lambda w: ", ".join(f"{part} {v:.3e} ({c})" for part, (v, c) in w.items())
+    for rate, draws in ((0.0, QK_F32_DRAWS), (RATE, QK_F32_DRAWS)):
+        overall = {r: dict.fromkeys(parts, (0.0, "")) for r in routes}
+        above = dict.fromkeys(routes, 0)
+        o_excess, o_above = (0.0, ""), 0
+        for draw in range(draws):
+            cases, (gq, gk) = flash_qk_cases(fa, dev, gen)
+            worst = {r: dict.fromkeys(parts, (0.0, "")) for r in routes}
+            draw_excess = (0.0, "")
+            for name, q, k, v, qs, ks, scale in cases:
+                do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+                fkw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks, dropout_rate=rate,
+                           dropout_seed=DROP_SEED if rate else None)
+                ref = [t.detach().float().requires_grad_() for t in (q, k, v, gq, gk)]
+                out_ref = fa.flash_attention_reference(*ref[:3], gamma_q=ref[3], gamma_k=ref[4], **fkw)
+                want = (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))
+                outs = {}
+                for route, fn in routes.items():
+                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, gq, gk)]
+                    out = fn(*leaves[:3], gamma_q=leaves[3], gamma_k=leaves[4], **fkw)
+                    got = (out, *torch.autograd.grad(out, leaves, do))
+                    outs[route] = out.detach()
+                    for part, a, b in zip(parts, got, want):
+                        if b.float().norm().item() > 0:
+                            worst[route][part] = max(worst[route][part], (rel_l2(a, b), name))
+                o_k, o_t = outs["kernel"].float(), outs["twins"].float()
+                ratio = ((o_k - o_t).abs() / (ATTN_ATOL + ATTN_RTOL * o_t.abs())).max().item()
+                draw_excess = max(draw_excess, (ratio, name))
+                del ref, out_ref, want, leaves, out, got, outs
+            sync()
+            for route in routes:
+                for part in parts:
+                    overall[route][part] = max(overall[route][part], worst[route][part])
+                above[route] += max(v for v, _ in worst[route].values()) > FLASH_VS_F32_REL_L2
+            o_excess, o_above = max(o_excess, draw_excess), o_above + (draw_excess[0] > 1)
+            log(f"  suspect 5, rate {rate}, draw {draw}: worst rel L2 vs f32: kernel {fmt(worst['kernel'])}; "
+                f"twins {fmt(worst['twins'])}; o kernel vs twins {draw_excess[0]:.3f} of the bound ({draw_excess[1]})")
+        for route in routes:
+            log(f"  suspect 5, rate {rate}, {route} over {draws} draws: worst {fmt(overall[route])}; "
+                f"{above[route]} draws above {FLASH_VS_F32_REL_L2}")
+        log(f"  suspect 5, rate {rate}, o kernel vs twins over {draws} draws: worst {o_excess[0]:.3f} of the bound "
+            f"|d| <= {ATTN_ATOL} + {ATTN_RTOL}|want| ({o_excess[1]}); {o_above} draws above it")
 
 
 def navit_3d_videos(seed):
@@ -3621,6 +3711,363 @@ def time_stack(fb, dev, rnd, smi, pred, images):
     return per_kernel
 
 
+# -- the layer prototypes of tools/ (phases 34-35): the port's bench tools,
+# vit_pytorch_tpu_torch/tools/, on the kernels with the prototypes' f32
+# epilogues (gemm_bf16[fc1_f32], gemm_bf16[block_out] at their out and fc2
+# sites, attention_rows[n_keys], stack_layers[tools])
+TPU_TOOLS = {  # each JAX kernel of tools/ (the function reaching pl.pallas_call) and the port's counterpart
+    "make_whole_resident": "tools/bench_layer_fused.py:123",
+    "make_whole_tiled": "tools/bench_layer_fused.py:178",
+    "make_whole_padded": "tools/bench_layer_fused.py:252",
+    "make_whole_padded_tiled": "tools/bench_layer_fused.py:324",
+    "make_attn_padded": "tools/bench_layer_fused.py:405",
+    "make_stack": "tools/bench_stack_fusion.py:105",
+    "_attn_block_kernel": "tools/fused_block_proto.py:26",
+    "_ff_block_kernel": "tools/fused_block_proto.py:99",
+    "_ff_rows_kernel": "tools/fused_block_proto.py:135",
+    "make_fused": "tools/bench_fused_tuning.py:40",
+}
+TOOLS_N_PAD, TOOLS_N_REAL = 200, 197
+TOOLS_STACK_GROUPS = (1, 2, 3, 4, 6)
+TOOLS_ENTRIES = (  # the kernels line: (entry, source, TPU kernel, the tool whose main() launches it, its counter)
+    ("gemm_bf16[fc1_f32]", SOURCE, "make_whole_resident", "bench_layer_fused", "gemm_bf16[fc1_f32]"),
+    ("attention_rows[n_keys]", SOURCE, "make_whole_padded", "bench_layer_fused", "attention_rows[n_keys]"),
+    ("gemm_bf16[block_out, att+x]", SOURCE, "make_whole_resident", "bench_layer_fused", "gemm_bf16[block_out]"),
+    ("gemm_bf16[block_out, fc2+b2+y]", SOURCE, "make_whole_resident", "bench_layer_fused", "gemm_bf16[block_out]"),
+    ("gemm_bf16[block_out, +b_out+x]", SOURCE, "_attn_block_kernel", "fused_block_proto", "gemm_bf16[block_out]"),
+    ("stack_layers[tools]", STACK_SOURCE, "make_stack", "bench_stack_fusion", "stack_layers[tools]"),
+)
+_ATTN_CHAIN = {"layernorm_rows": 1, "gemm_bf16": 1, "attention_rows": 1, "gemm_bf16[block_out]": 1}
+_FF_CHAIN_TOOLS = {"layernorm_rows": 1, "gemm_bf16": 1, "gemm_bf16[block_out]": 1}
+# gemm_bf16[fc1_f32] against its exact reference, bf16(gelu_tanh(bf16(gemm_f32out + b1))) with the kernel's
+# GELU formula in f32 (gemm_f32out shares gemm_bf16's main loop, so its dot is bitwise the kernel's): only the
+# GELU's f32 ulps differ, flipping the final rounding of a few elements in 10^4; rounding the dot before the
+# bias (the package's fc1) moves most GELU inputs by an ulp.  Bound on the share of elements that differ.
+FC1_F32_MISMATCH = 1e-3
+# the tools' block_out sites are bitwise bf16(gemm_f32out + f32 bias + f32 residual), the adds in that order
+
+
+def tools_args(rnd, b, n):
+    """One layer's bench-tool operands at ViT-B widths (phase 3's scales; no
+    b_qkv or b_out, which the prototypes' layer lacks): (x, wqkv, wout,
+    ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2), and the proto's b_out."""
+    w, kw = layer_weights(rnd)
+    return (rnd(b, n, DIM), w["w_qkv"], w["w_out"], w["ln1_scale"], w["ln1_bias"], w["ln2_scale"], w["ln2_bias"],
+            w["w1"], w["b1"], w["w2"], w["b2"]), kw["b_out"]
+
+
+def tools_cases(args, pargs, b_out):
+    """The ten counterparts: (TPU kernel, the port's call on the card, its
+    plain twin on the same tensors, kernel launches of one call)."""
+    from vit_pytorch_tpu_torch.tools import _common as tc
+    from vit_pytorch_tpu_torch.tools import bench_fused_tuning, bench_layer_fused, fused_block_proto
+
+    x, wqkv, wout, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = args
+    n_real = TOOLS_N_REAL
+    layer = _add(_ATTN_CHAIN, _FF_CHAIN_TOOLS)
+    padded = {**layer, "attention_rows": 0, "attention_rows[n_keys]": 1}
+    return (
+        ("make_whole_resident", lambda: bench_layer_fused.make_whole_resident(2)(*args),
+         lambda: tc.layer_twin(*args), layer),
+        ("make_whole_tiled", lambda: bench_layer_fused.make_whole_tiled(8, 768)(*args),
+         lambda: tc.layer_twin(*args), layer),
+        ("make_whole_padded", lambda: bench_layer_fused.make_whole_padded(8, TOOLS_N_PAD, n_real)(*pargs),
+         lambda: tc.layer_twin(*pargs, n_real=n_real), padded),
+        ("make_whole_padded_tiled",
+         lambda: bench_layer_fused.make_whole_padded_tiled(8, 768, TOOLS_N_PAD, n_real)(*pargs),
+         lambda: tc.layer_twin(*pargs, n_real=n_real), padded),
+        ("make_attn_padded", lambda: bench_layer_fused.make_attn_padded(8, TOOLS_N_PAD, n_real)(*pargs),
+         lambda: tc.plain_ff(tc.attention_twin(*pargs[:5], n_real=n_real), w1, b1, w2, b2, ln2s, ln2b),
+         {**_ATTN_CHAIN, "attention_rows": 0, "attention_rows[n_keys]": 1}),
+        ("_attn_block_kernel", lambda: fused_block_proto.fused_attention_block(x, wqkv, wout, b_out, ln1s, ln1b,
+                                                                               heads=HEADS, dim_head=DH),
+         lambda: tc.attention_twin(x, wqkv, wout, ln1s, ln1b, b_out=b_out), _ATTN_CHAIN),
+        ("_ff_block_kernel", lambda: fused_block_proto.fused_ff_block(x, w1, b1, w2, b2, ln2s, ln2b),
+         lambda: tc.ff_twin(x, w1, b1, w2, b2, ln2s, ln2b), _FF_CHAIN_TOOLS),
+        ("_ff_rows_kernel", lambda: fused_block_proto.fused_ff_block_rows(x, w1, b1, w2, b2, ln2s, ln2b),
+         lambda: tc.ff_twin(x, w1, b1, w2, b2, ln2s, ln2b), _FF_CHAIN_TOOLS),
+        ("make_fused", lambda: bench_fused_tuning.make_fused(2)(x, wqkv, wout, ln1s, ln1b),
+         lambda: tc.attention_twin(x, wqkv, wout, ln1s, ln1b), _ATTN_CHAIN),
+    )
+
+
+def tools_stack(rnd, layers):
+    """``layers`` layers' weights in make_stack's flat order, 10 a layer."""
+    return [t for _ in range(layers) for t in tools_args(rnd, 1, 1)[0][1:]]
+
+
+def gelu_tanh_f32(v):
+    """The kernel's tanh GELU (layer_tiles.cuh::gelu_tanh), in f32."""
+    return 0.5 * v * (1.0 + torch.tanh(0.7978845608028654 * (v + 0.044715 * v * v * v)))
+
+
+def check_tools(fb, rnd, dev):
+    """Phase 34: each of the ten counterparts of the tools/ prototypes
+    against its plain twin within phase 3's bounds, at b = 8, n = 197 and
+    n_pad = 200 (n_real = 197), with exact launch counters; the padded calls'
+    real rows unchanged when the padded rows' inputs change; make_stack
+    (stack_layers[tools]) bitwise the chain of 7L launches and within L
+    times the layer bounds of its twin at L in TOOLS_STACK_GROUPS; the new
+    epilogues against their exact references (block_out bitwise, fc1_f32 by
+    the share of elements that differ); attention_rows[n_keys] against its
+    twin, n_keys of 0 and n + 1 refused.  Returns the largest max_abs of
+    each new kernel entry."""
+    from vit_pytorch_tpu_torch.tools import _common as tc
+    from vit_pytorch_tpu_torch.tools import bench_stack_fusion
+
+    log(f"[34 tools prototypes] b={B_CHECK}, n={N} and n_pad={TOOLS_N_PAD} (n_real={TOOLS_N_REAL}), ViT-B widths, "
+        f"bf16")
+    errs = {}
+    with torch.inference_mode():
+        args, b_out = tools_args(rnd, B_CHECK, N)
+        pargs = (rnd(B_CHECK, TOOLS_N_PAD, DIM),) + args[1:]
+        for name, kernel, twin, launches in tools_cases(args, pargs, b_out):
+            fb.reset_launch_counts()
+            got = kernel()
+            sync()
+            counts = {k: v for k, v in fb.LAUNCHES.items() if v}
+            want = {k: v for k, v in launches.items() if v}
+            log(f"  {name} ({TPU_TOOLS[name]}): launches {counts} (expected {want})")
+            if counts != want:
+                fail(f"{name}: launch counters off")
+            whole = sum(launches.values()) == 7
+            compare(f"{name} vs twin", got, twin(), LAYER_ATOL if whole else KERNEL_ATOL,
+                    LAYER_RTOL if whole else KERNEL_RTOL)
+            if "padded" in name:
+                moved = pargs[0].clone()
+                moved[:, TOOLS_N_REAL:] = rnd(B_CHECK, TOOLS_N_PAD - TOOLS_N_REAL, DIM, scale=3.0)
+                pargs_moved = (moved,) + pargs[1:]
+                again = dict((c[0], c[1]) for c in tools_cases(args, pargs_moved, b_out))[name]()
+                same = torch.equal(got[:, :TOOLS_N_REAL], again[:, :TOOLS_N_REAL])
+                log(f"  {name}: real rows with the padded rows' inputs changed: {'bitwise unchanged' if same else 'MOVED'}")
+                if not same:
+                    fail(f"{name}: the padded rows reach the real rows")
+        sync()
+
+        # make_stack: one stack_layers[tools] launch, bitwise the chain
+        skw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        flat = tools_stack(rnd, max(TOOLS_STACK_GROUPS))
+        x = args[0]
+        worst = 0.0
+        for g in TOOLS_STACK_GROUPS:
+            fb.reset_launch_counts()
+            got = bench_stack_fusion.make_stack(g)(x, *flat[:10 * g])
+            sync()
+            if {k: v for k, v in fb.LAUNCHES.items() if v} != {"stack_layers[tools]": 1}:
+                fail(f"make_stack({g}): launches {({k: v for k, v in fb.LAUNCHES.items() if v})}, expected one "
+                     f"stack_layers[tools]")
+            chain, twin = x, x
+            for i in range(g):
+                w = flat[10 * i: 10 * (i + 1)]
+                prev, chain = chain, tc.layer_chain(chain, *w)
+                twin = tc.layer_twin(twin, *w, exp2=True)
+            sync()
+            same = torch.equal(got, chain)
+            log(f"  make_stack({g}) = stack_layers[tools] vs the chain of {7 * g} launches: "
+                f"{'bitwise' if same else 'DIFFERS, max_abs %.4e' % (got.float() - chain.float()).abs().max().item()}")
+            if not same:
+                fail(f"stack_layers[tools] at L={g} differs from the chain")
+            step = tc.layer_twin(prev, *flat[10 * (g - 1): 10 * g], exp2=True)
+            worst = max(worst, compare(f"stack_layers[tools, L={g}] vs twin step", got, step, LAYER_ATOL, LAYER_RTOL))
+            compare(f"stack_layers[tools, L={g}] vs twin chain", got, twin, g * LAYER_ATOL, LAYER_RTOL,
+                    g * KERNEL_REL_L2)
+        errs["stack_layers[tools]"] = worst
+        try:
+            fb.stack_layers(x, [(flat[0], flat[0][:, 0].contiguous(), flat[1], None, *flat[2:10])], **skw,
+                            epilogues="tools")
+        except ValueError as e:
+            log(f"  stack_layers[tools] with a b_qkv: refused ({str(e)[:60]}...)")
+        else:
+            fail("stack_layers[tools] took a b_qkv")
+
+        # the epilogues against their exact references
+        x, wqkv, wout, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = args
+        h = fb.layernorm_rows(x, ln1s, ln1b)
+        qkv = fb.gemm_bf16(h, wqkv, "qkv")
+        m = fb.attention_rows(qkv, heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        y = fb.gemm_bf16(m, wout, "block_out", residual=x)
+        h2 = fb.layernorm_rows(y, ln2s, ln2b)
+        a = fb.gemm_bf16(h2, w1, "fc1_f32", bias=b1)
+        sites = (("att+x", m, wout, None, x), ("fc2+b2+y", a, w2, b2, y), ("+b_out+x", m, wout, b_out, x))
+        for site, inp, w, bias, res in sites:
+            got = fb.gemm_bf16(inp, w, "block_out", bias=bias, residual=res)
+            exact = fb.gemm_f32out(inp, w)
+            if bias is not None:
+                exact = exact + bias.float()
+            exact = (exact + res.float()).to(torch.bfloat16)
+            same = torch.equal(got, exact)
+            log(f"  gemm_bf16[block_out, {site}] vs bf16(gemm_f32out + bias + residual): "
+                f"{'bitwise' if same else 'DIFFERS'}")
+            if not same:
+                fail(f"gemm_bf16[block_out, {site}] rounds elsewhere than once")
+            errs[f"gemm_bf16[block_out, {site}]"] = compare(
+                f"gemm_bf16[block_out, {site}] vs twin", got,
+                fb.gemm_bf16_reference(inp, w, "block_out", bias=bias, residual=res), KERNEL_ATOL, KERNEL_RTOL,
+                BLOCK_OUT_REL_L2)
+        gelu_in = (fb.gemm_f32out(h2, w1) + b1.float()).to(torch.bfloat16)
+        exact = gelu_tanh_f32(gelu_in.float()).to(torch.bfloat16)
+        share = (a != exact).float().mean().item()
+        package = (fb.gemm_bf16(h2, w1, "fc1", bias=b1) != exact).float().mean().item()
+        log(f"  gemm_bf16[fc1_f32] vs bf16(gelu(bf16(gemm_f32out + b1))): {share:.3e} of the elements differ "
+            f"(bound {FC1_F32_MISMATCH}; the package's fc1, which rounds the dot first: {package:.3e}) "
+            f"{'ok' if share <= FC1_F32_MISMATCH else 'FAILED'}")
+        if not share <= FC1_F32_MISMATCH:
+            fail("gemm_bf16[fc1_f32] rounds elsewhere than its reference")
+        errs["gemm_bf16[fc1_f32]"] = compare("gemm_bf16[fc1_f32] vs twin", a,
+                                             fb.gemm_bf16_reference(h2, w1, "fc1_f32", bias=b1), KERNEL_ATOL,
+                                             KERNEL_RTOL)
+
+        # attention_rows[n_keys] alone, and its refusals
+        qkv_p = fb.gemm_bf16(fb.layernorm_rows(pargs[0], ln1s, ln1b), wqkv, "qkv")
+        akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        errs["attention_rows[n_keys]"] = compare(
+            f"attention_rows[n_keys={TOOLS_N_REAL}, n={TOOLS_N_PAD}]",
+            fb.attention_rows(qkv_p, **akw, n_keys=TOOLS_N_REAL),
+            fb.attention_rows_reference(qkv_p, **akw, n_keys=TOOLS_N_REAL), ATTN_ATOL, ATTN_RTOL)
+        for n_keys in (0, TOOLS_N_PAD + 1):
+            try:
+                fb.attention_rows(qkv_p, **akw, n_keys=n_keys)
+            except ValueError as e:
+                log(f"  attention_rows with n_keys={n_keys} at n={TOOLS_N_PAD}: refused ({str(e)[:60]}...)")
+            else:
+                fail(f"attention_rows took n_keys={n_keys} at n={TOOLS_N_PAD}")
+        sync()
+    return errs
+
+
+def tools_work(name, b, n):
+    """The work of one call of a counterpart at (b, n): x in, the output and
+    the weights read once; the products' operations (the padded attention's
+    over n rows and TOOLS_N_REAL keys)."""
+    rows, inner = b * n, HEADS * DH
+    attn = attention_work(b, n, HEADS)
+    if "padded" in name:
+        attn = work(attn["bytes"], tensor=attn["tensor"] * TOOLS_N_REAL // n, f32=attn["f32"] * TOOLS_N_REAL // n)
+    # (operations, weight and vector bytes) of each half
+    attn_half = ([ln_work(rows, DIM), gemm_work(rows, 3 * inner, DIM), attn, gemm_work(rows, DIM, inner)],
+                 2 * (4 * inner * DIM + 2 * DIM))
+    ff_half = ([ln_work(rows, DIM), gemm_work(rows, MLP, DIM), gemm_work(rows, DIM, MLP)],
+               2 * (2 * DIM * MLP + MLP + 3 * DIM))
+    if "_ff_" in name:
+        halves = (ff_half,)
+    elif name in ("_attn_block_kernel", "make_fused", "make_attn_padded"):  # make_attn_padded's FF is plain
+        halves = (attn_half,)
+    else:
+        halves = (attn_half, ff_half)
+    parts = [w for ops, _ in halves for w in ops]
+    return work(2 * 2 * rows * DIM + sum(b for _, b in halves), tensor=sum(w["tensor"] for w in parts),
+                f32=sum(w["f32"] for w in parts))
+
+
+def time_tools(fb, dev, rnd, smi):
+    """Phase 35: each tool's main() on the card at bs=128 (the main path:
+    every counter zeroed just before each and read just after); then at
+    bs=128 each new kernel entry against its twin in turns, its bound and its
+    library call; each counterpart against its twin; the tools' layer
+    against fused_transformer_layer and the g = 6 stack against its chain,
+    in ms a layer.  Returns (the kernels-line timings, the main path's
+    counters by tool)."""
+    from vit_pytorch_tpu_torch.tools import _common as tc
+    from vit_pytorch_tpu_torch.tools import bench_fused_tuning, bench_layer_fused, bench_stack_fusion
+    from vit_pytorch_tpu_torch.tools import fused_block_proto
+
+    log(f"[35 tools timing] {smi}")
+    mains = {"bench_layer_fused": bench_layer_fused.main, "bench_stack_fusion": bench_stack_fusion.main,
+             "fused_block_proto": fused_block_proto.main, "bench_fused_tuning": bench_fused_tuning.tune_kernel}
+    counts = {}
+    for tool, main_fn in mains.items():
+        log(f"  -- python -m vit_pytorch_tpu_torch.tools.{tool}")
+        fb.reset_launch_counts()
+        results = main_fn()
+        sync()
+        counts[tool] = {**fb.LAUNCHES, **{f"gemm_bf16[{e}]": v for e, v in fb.GEMM_LAUNCHES.items()}}
+        flat = [v for r in results.values() for v in (r if isinstance(r, tuple) else (r,)) if v is not None]
+        if not flat or not all(np.isfinite(flat)):
+            fail(f"{tool}.main(): results {results}")
+        log(f"  {tool}: launches {({k: v for k, v in counts[tool].items() if v})}")
+
+    per_kernel = {}
+    with torch.inference_mode():
+        args, b_out = tools_args(rnd, B_TIME, N)
+        pargs = (rnd(B_TIME, TOOLS_N_PAD, DIM),) + args[1:]
+        x, wqkv, wout, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2 = args
+        rows, inner = B_TIME * N, HEADS * DH
+        h = fb.layernorm_rows(x, ln1s, ln1b)
+        m = fb.attention_rows(fb.gemm_bf16(h, wqkv, "qkv"), heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        y = fb.gemm_bf16(m, wout, "block_out", residual=x)
+        h2 = fb.layernorm_rows(y, ln2s, ln2b)
+        a = fb.gemm_bf16(h2, w1, "fc1_f32", bias=b1)
+        qkv_p = fb.gemm_bf16(fb.layernorm_rows(pargs[0], ln1s, ln1b), wqkv, "qkv")
+        akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
+        mask = (torch.arange(TOOLS_N_PAD, device=dev) < TOOLS_N_REAL).expand(TOOLS_N_PAD, TOOLS_N_PAD)
+        attn_p = attention_work(B_TIME, TOOLS_N_PAD, HEADS)
+        entries = (  # (entry, kernel call, twin call, work, the one torch call computing the same, or None)
+            ("gemm_bf16[fc1_f32]", lambda: fb.gemm_bf16(h2, w1, "fc1_f32", bias=b1),
+             lambda: fb.gemm_bf16_reference(h2, w1, "fc1_f32", bias=b1), gemm_work(rows, MLP, DIM, bias=True), None),
+            ("attention_rows[n_keys]", lambda: fb.attention_rows(qkv_p, **akw, n_keys=TOOLS_N_REAL),
+             lambda: fb.attention_rows_reference(qkv_p, **akw, n_keys=TOOLS_N_REAL),
+             work(attn_p["bytes"], tensor=attn_p["tensor"] * TOOLS_N_REAL // TOOLS_N_PAD,
+                  f32=attn_p["f32"] * TOOLS_N_REAL // TOOLS_N_PAD),
+             lambda: sdpa_ms(qkv_p, HEADS, 20, attn_mask=mask)),
+            ("gemm_bf16[block_out, att+x]", lambda: fb.gemm_bf16(m, wout, "block_out", residual=x),
+             lambda: fb.gemm_bf16_reference(m, wout, "block_out", residual=x),
+             gemm_work(rows, DIM, inner, residual=True),
+             lambda: cuda_ms(lambda: torch.addmm(x.view(rows, DIM), m.view(rows, inner), wout.t()), 20)),
+            ("gemm_bf16[block_out, fc2+b2+y]", lambda: fb.gemm_bf16(a, w2, "block_out", bias=b2, residual=y),
+             lambda: fb.gemm_bf16_reference(a, w2, "block_out", bias=b2, residual=y),
+             gemm_work(rows, DIM, MLP, bias=True, residual=True), None),
+            ("gemm_bf16[block_out, +b_out+x]", lambda: fb.gemm_bf16(m, wout, "block_out", bias=b_out, residual=x),
+             lambda: fb.gemm_bf16_reference(m, wout, "block_out", bias=b_out, residual=x),
+             gemm_work(rows, DIM, inner, bias=True, residual=True), None),
+        )
+        for name, kern, plain, w, library in entries:
+            km, pm = in_turns(kern, plain, 20)
+            lib_ms = library() if library else None
+            record(per_kernel, name, km, pm, w, lib_ms)
+            bound, by = bound_ms(w)
+            log(f"  {name}: kernel {km:.4f} ms, twin {pm:.4f} ms, bound {bound:.4f} ms ({by}), library "
+                f"{'none' if lib_ms is None else '%.4f ms' % lib_ms}")
+
+        # the ten counterparts against their twins, and the layers against their neighbours
+        for name, kern, plain, launches in tools_cases(args, pargs, b_out):
+            km, pm = in_turns(kern, plain, 5)
+            bound, by = bound_ms(tools_work(name, B_TIME, TOOLS_N_PAD if "padded" in name else N))
+            log(f"  row {name} ({TPU_TOOLS[name]}): {sum(launches.values())} launches {km:.4f} ms, twin {pm:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), library none")
+        layer_kw = dict(heads=HEADS, dim_head=DH)
+        tk, pk = in_turns(lambda: bench_layer_fused.make_whole_resident(2)(*args),
+                          lambda: fb.fused_transformer_layer(x, wqkv, wout, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                                                             **layer_kw), 20)
+        log(f"  the tools' layer {tk:.4f} ms a layer, fused_transformer_layer (the package's rounding) {pk:.4f} ms "
+            f"(turns: package, tools, tools, package)")
+        g = max(TOOLS_STACK_GROUPS)
+        flat = tools_stack(rnd, g)
+        stack = lambda: bench_stack_fusion.make_stack(g)(x, *flat)
+
+        def chain():
+            out = x
+            for i in range(g):
+                out = tc.layer_chain(out, *flat[10 * i: 10 * (i + 1)])
+            return out
+
+        def twin():
+            out = x
+            for i in range(g):
+                out = tc.layer_twin(out, *flat[10 * i: 10 * (i + 1)], exp2=True)
+            return out
+
+        km, cm = in_turns(stack, chain, 10)
+        pm = cuda_ms(twin, 3)
+        w = stack_work(B_TIME, N, g)
+        bound, by = bound_ms(w)
+        log(f"  make_stack({g}) = stack_layers[tools]: {km:.4f} ms ({km / g:.4f} a layer), its chain of {7 * g} "
+            f"launches {cm:.4f} ms ({cm / g:.4f} a layer), twin {pm:.4f} ms, bound {bound:.4f} ms ({bound / g:.4f} "
+            f"a layer, {by}); library none (the chain stands beside it)")
+        record(per_kernel, "stack_layers[tools]", km, pm, w)
+    sync()
+    return per_kernel, counts
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -3947,6 +4394,15 @@ def main():
     del stack_pred, stack_images
     phase_done("phase 33")
 
+    # -- 34. the tools/ prototypes' counterparts against their twins --------------------
+    errs.update(check_tools(fb, rnd, dev))
+    phase_done("phase 34")
+
+    # -- 35. the port's bench tools on the card: their main(), each new launch -----------
+    tools_times, tools_counts = time_tools(fb, dev, rnd, smi)
+    per_kernel.update(tools_times)
+    phase_done("phase 35")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -3997,6 +4453,9 @@ def main():
            for name, replaces in TPU_NEW.items()]
         + [entry("stack_layers", STACK_SOURCE, TPU_STACK, "ViT-B/16 serving under VIT_TPU_STACK_LAYERS=6",
                  stack_counts["stack_layers"])]
+        + [entry(name, source, TPU_TOOLS[tpu], f"python -m vit_pytorch_tpu_torch.tools.{tool}",
+                 tools_counts[tool][counter])
+           for name, source, tpu, tool, counter in TOOLS_ENTRIES]
     )
     for k in kernels:
         if not k["launches"]:
@@ -4023,7 +4482,10 @@ def main():
         "at 8 x 12 x 2048, launches from dot_product_attention's causal and bias calls at m = 2048, forward and "
         "backward; library_ms SDPA with is_causal, dropout_p or the bias as a float attn_mask; stack_layers: one "
         "g = 6 launch at bs=128, its twin the 6-layer chain of twins, bound the 6 layers' operations (x, the output "
-        "and the weights as bytes), launches from ViT-B/16's bucket runs under VIT_TPU_STACK_LAYERS=6)")
+        "and the weights as bytes), launches from ViT-B/16's bucket runs under VIT_TPU_STACK_LAYERS=6; the tools' "
+        "entries at bs=128 (n = 197; attention_rows[n_keys] at n = 200, 197 keys; stack_layers[tools] one L = 6 "
+        "launch), launches from the main() of the tool named in the entry's path, library_ms SDPA with the key "
+        "mask and torch.addmm beside att+x)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -12,7 +12,8 @@ whole-layer kernels forward and backward; SimpleViT (``models.simple_vit``,
 with qk-norm and register tokens beside it) on the attention-block kernels;
 NaViT (``models.na_vit``, the nested-tensor variants in 2-D and 3-D beside
 it) on the flash kernels, with the in-tile qk-norm behind the JAX switch
-``VIT_TPU_FUSE_QKNORM``.
+``VIT_TPU_FUSE_QKNORM``; the JAX package's layer prototypes of ``tools/``
+as the port's bench tools (``tools/``).
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT

@@ -76,11 +76,11 @@ cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias, const bf
 
 template <bool DROP, bool QKNORM>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads, float scale_log2e,
-                      DropoutArgs drop, const bf16* __restrict__ gq, const bf16* __restrict__ gk) {
+attention_rows_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int n_keys, int heads,
+                      float scale_log2e, DropoutArgs drop, const bf16* __restrict__ gq, const bf16* __restrict__ gk) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
-  attention_tile<DROP, QKNORM>(attn_smem, qkv, out, n, heads, scale_log2e, drop, gq, gk, blockIdx.x * kAttnQT,
-                               blockIdx.y, blockIdx.z, threadIdx.x, BlockSync{});
+  attention_tile<DROP, QKNORM>(attn_smem, qkv, out, n, n_keys, heads, scale_log2e, drop, gq, gk,
+                               blockIdx.x * kAttnQT, blockIdx.y, blockIdx.z, threadIdx.x, BlockSync{});
 }
 
 }  // namespace
@@ -120,6 +120,7 @@ int vit_gemm_bf16(const void* a, const void* w, const void* bias, const void* re
     case kEpiQkv: return launch_gemm<kEpiQkv>(pa, pw, pb, pr, out, M, N, K, bo, s);
     case kEpiOut: return pr ? launch_gemm<kEpiOut>(pa, pw, pb, pr, out, M, N, K, bo, s) : cudaErrorInvalidValue;
     case kEpiFc1: return launch_gemm<kEpiFc1>(pa, pw, pb, pr, out, M, N, K, bo, s);
+    case kEpiFc1F32: return launch_gemm<kEpiFc1F32>(pa, pw, pb, nullptr, out, M, N, K, bo, s);
     case kEpiFc2: return pr ? launch_gemm<kEpiFc2>(pa, pw, pb, pr, out, M, N, K, bo, s) : cudaErrorInvalidValue;
     case kEpiF32: return launch_gemm<kEpiF32>(pa, pw, nullptr, nullptr, out, M, N, K, bo, s);
     case kEpiBlockOut:
@@ -151,13 +152,14 @@ int vit_gemm_ff(const void* a, const void* w, const void* bias, const void* h1, 
   return launch_column_sum(part, static_cast<float*>(colsum), (M + kGemmBM - 1) / kGemmBM, N, 1.f, s);
 }
 
-// drop = 0: no dropout (seed, threshold, inv unread); gq, gk: the qk-norm
-// gammas, (heads * dim_head) bf16 each, or both null (no qk-norm)
-int vit_attention_rows(const void* qkv, void* out, int batch, int n, int heads, int dim_head, float scale_log2e,
-                       int drop, unsigned seed, unsigned threshold, float inv, const void* gq, const void* gk,
-                       void* stream) {
-  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || batch > 65535 || heads <= 0 ||
-      (gq == nullptr) != (gk == nullptr))
+// n_keys: keys j >= n_keys are masked (1 <= n_keys <= n; n: none); drop = 0:
+// no dropout (seed, threshold, inv unread); gq, gk: the qk-norm gammas,
+// (heads * dim_head) bf16 each, or both null (no qk-norm)
+int vit_attention_rows(const void* qkv, void* out, int batch, int n, int n_keys, int heads, int dim_head,
+                       float scale_log2e, int drop, unsigned seed, unsigned threshold, float inv, const void* gq,
+                       const void* gk, void* stream) {
+  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || n_keys < 1 || n_keys > n || batch <= 0 ||
+      batch > 65535 || heads <= 0 || (gq == nullptr) != (gk == nullptr))
     return cudaErrorInvalidValue;
   const bool qk = gq != nullptr;
   const auto kernel = drop ? (qk ? attention_rows_kernel<true, true> : attention_rows_kernel<true, false>)
@@ -167,7 +169,7 @@ int vit_attention_rows(const void* qkv, void* out, int batch, int n, int heads, 
   if (err != cudaSuccess) return err;
   dim3 grid((n + kAttnQT - 1) / kAttnQT, heads, batch);
   kernel<<<grid, kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale_log2e,
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, n_keys, heads, scale_log2e,
       DropoutArgs{seed, threshold, inv}, static_cast<const bf16*>(gq), static_cast<const bf16*>(gk));
   return cudaGetLastError();
 }

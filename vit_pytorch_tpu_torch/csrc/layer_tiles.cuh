@@ -150,8 +150,20 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
-  kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4, kEpiBlockOut = 5, kEpiFc1Save = 6, kEpiGeluBwd = 7
+  kEpiQkv = 0, kEpiOut = 1, kEpiFc1 = 2, kEpiFc2 = 3, kEpiF32 = 4, kEpiBlockOut = 5, kEpiFc1Save = 6, kEpiGeluBwd = 7,
+  kEpiFc1F32 = 8
 };
+
+// kEpiFc1F32 is the fc1 of the JAX package's whole-layer, stack and block
+// prototypes in tools/ (bench_layer_fused.py:141-143, bench_stack_fusion.py:
+// 98-99, fused_block_proto.py:108-109): the f32 bias is added to the f32 dot
+// before the one cast, then the tanh GELU of that bf16 value, o =
+// bf16(gelu_tanh(bf16(dot + b1))).  (kEpiFc1 rounds the dot first, as
+// _layer_rows does.)  Those prototypes' out projection and fc2 are
+// kEpiBlockOut without dropout: f32 dot + optional f32 bias + f32 residual,
+// one cast.
+// Bound on this card: tensor-core throughput, as kEpiFc1.
+// Design: the main loop unchanged; only the epilogue's rounding point moves.
 
 // kEpiBlockOut is the out projection of the attention-block kernel.
 // Replaces: the out-proj site of ops/fused_block.py::_kernel (:357-374), which
@@ -233,6 +245,14 @@ __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col,
       v1 += r.y;
     }
     o = pack_floats(v0, v1);
+  } else if (EPI == kEpiFc1F32) {
+    if (bias) {
+      float2 bb = load_pair_f32(bias + col);
+      v0 += bb.x;
+      v1 += bb.y;
+    }
+    const float2 t = round_bf16(v0, v1);  // (dot + b1).astype(x.dtype)
+    o = pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
   } else if (EPI == kEpiQkv) {
     // _layer_rows :1015-1018 -- bias added to the f32 dot, then one cast
     if (bias) {
@@ -388,7 +408,9 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __res
 // attention_tile
 //
 // Replaces: the per-head loop of ops/fused_block.py::_layer_kernel
-// (_layer_rows :1021-1037: q.k^T, _softmax_from_dots, p.v, heads merged).
+// (_layer_rows :1021-1037: q.k^T, _softmax_from_dots, p.v, heads merged),
+// and the same loop of the layer prototypes in tools/ (exp and a division,
+// the padded ones with a -inf key bias).
 // Bound on this card: at n = 197 the two products are 4*n*n*dh flops per
 // (image, head) against 3*n*dh*2 bytes of q/k/v, ~130 flops per byte, under
 // the ridge, and the (n, n) f32 logits would be 16x the bytes of q/k/v if
@@ -399,15 +421,15 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __res
 // and keeps their full f32 logit rows in registers: 2*KT mma tiles of 16x8,
 // 8*KT = 104 floats a thread.  Exact two-pass softmax as
 // _softmax_from_dots: scale*log2(e) folded into one multiply, max, exp2,
-// one reciprocal of the row sum; padded columns (j >= n) masked to -inf.
+// one reciprocal of the row sum; padded columns (j >= n_keys) masked to -inf.
 // The accumulator layout of q.k^T is the A-operand layout of p.v, so P is cast
 // to bf16 in registers and multiplied by v without a trip through memory.
 // The output goes to the merged-heads (b, n, inner) layout.  Every q-tile
 // re-reads its head's k and v (from L2 after the first); sharing them
 // across q-tiles is later work.
 // Limits: dh = 64; n <= 16*KT = 208, the one instantiation, sized for the
-// 197 tokens of ViT-B/16 @224 and bounded by registers (156 a thread, no
-// spill).  Shared memory is (64 + 2*16*KT) rows of 72 bf16 = 69,120 bytes,
+// 197 tokens of ViT-B/16 @224 and bounded by registers (167 a thread with
+// the runtime key count, 156 before it; no spill; 3 blocks an SM either way).  Shared memory is (64 + 2*16*KT) rows of 72 bf16 = 69,120 bytes,
 // under the 232,448-byte block limit up to 16*KT = 775 keys, so registers,
 // not shared memory, bind n.
 // ---------------------------------------------------------------------------
@@ -429,13 +451,19 @@ constexpr int kAttnDropSmem = kAttnSmem + kAttnQT * kKeepWords * static_cast<int
 // (rms_norm_rows, common.cuh); the logits then read them as before.  Every
 // q-tile block normalises its head's k rows again, as it reloads them.
 //
+// n_keys: keys j >= n_keys (1 <= n_keys <= n) are masked to -inf in the
+// softmax, the additive -inf key bias of the padded prototypes in tools/
+// (bench_layer_fused.py:267-268, make_whole_padded); every one of the n rows
+// is still computed and stored.  The layer chain and the stack pass n.
+//
 // The tile of (q0, h, img), by 128 threads: tid is the thread's index among
 // them and sync their barrier.  DROP and QKNORM draw and normalise with the
 // block's threadIdx.x, so they run only in a block of 128 threads
 // (BlockSync); stack_layers runs <false, false> on each warpgroup.
 template <bool DROP, bool QKNORM, typename Sync>
 __device__ __forceinline__ void attention_tile(unsigned char* smem, const bf16* __restrict__ qkv,
-                                               bf16* __restrict__ out, int n, int heads, float scale_log2e,
+                                               bf16* __restrict__ out, int n, int n_keys, int heads,
+                                               float scale_log2e,
                                                const DropoutArgs& drop, const bf16* __restrict__ gq,
                                                const bf16* __restrict__ gk, int q0, int h, int img, int tid,
                                                Sync sync) {
@@ -466,7 +494,7 @@ __device__ __forceinline__ void attention_tile(unsigned char* smem, const bf16* 
   float s[NT][4];  // logits, then p in f32
   qk_logits(s, Qs + warp * 16 * kAttnLd, Ks, g, t);
   float mx0, mx1, inv0, inv1;
-  softmax_rows(s, n, t, scale_log2e, mx0, mx1, inv0, inv1);
+  softmax_rows(s, n_keys, t, scale_log2e, mx0, mx1, inv0, inv1);
   if constexpr (DROP) {
     const uint32_t* krow0 = Keep + (warp * 16 + g) * kKeepWords;
 #pragma unroll

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) kernel stack_layers: g consecutive pre-norm ViT layers,
-// forward, in one launch (1 <= g <= 6).
+// forward, in one launch (1 <= g <= 6).  Two instantiations: the package's
+// layer (stack_layers_kernel<false>) and the f32 epilogues of its prototype
+// in tools/ (<true>, stack_layers[tools]; see the kernel).
 //
 // Replaces: the TPU multi-layer kernel vit_pytorch_tpu/ops/fused_block.py::
 // _stack_kernel (:1979, call :2044), which holds g layers' weights resident
@@ -128,14 +130,24 @@ __device__ __forceinline__ void attention_step(unsigned char* smem, const bf16* 
   const int qtiles = (n + kAttnQT - 1) / kAttnQT, items = qtiles * heads * batch;
   for (int it = 2 * blockIdx.x + wg; it < items; it += 2 * gridDim.x) {
     sync();  // the warpgroup is done with its last tile's shared memory
-    attention_tile<false, false>(smem + wg * kAttnSmem, qkv, m, n, heads, scale_log2e, DropoutArgs{}, nullptr,
+    attention_tile<false, false>(smem + wg * kAttnSmem, qkv, m, n, n, heads, scale_log2e, DropoutArgs{}, nullptr,
                                  nullptr, (it % qtiles) * kAttnQT, (it / qtiles) % heads, it / (qtiles * heads),
                                  threadIdx.x & 127, sync);
   }
 }
 
+// TOOLS: the epilogues of the layer prototype in tools/ (bench_stack_fusion.py::
+// make_stack, :105, call :129, layer body _layer_rows :72-102), which adds
+// in f32 and casts once: the out projection and fc2 are kEpiBlockOut
+// without dropout (att + x; dot + b2 + y), fc1 kEpiFc1F32.  Else the
+// package's _layer_rows, each product rounded first (kEpiOut, kEpiFc1,
+// kEpiFc2).  Either way every tile is the matching chain's body, so the
+// result is bitwise that chain's.
+template <bool TOOLS>
 __global__ void __launch_bounds__(kStackThreads, 1) stack_layers_kernel(StackArgs p) {
   extern __shared__ __align__(16) unsigned char stack_smem[];
+  constexpr int kOut = TOOLS ? kEpiBlockOut : kEpiOut, kFc1 = TOOLS ? kEpiFc1F32 : kEpiFc1;
+  constexpr int kFc2 = TOOLS ? kEpiBlockOut : kEpiFc2;
   const int M = p.batch * p.n, inner = p.heads * kAttnDh;
   for (int l = 0; l < p.layers; ++l) {
     const StackLayer& L = p.layer[l];
@@ -146,13 +158,13 @@ __global__ void __launch_bounds__(kStackThreads, 1) stack_layers_kernel(StackArg
     grid_sync(p.bar);  // qkv done
     attention_step(stack_smem, p.qkv, p.m, p.batch, p.n, p.heads, p.scale_log2e);
     grid_sync(p.bar);  // m: attention done
-    gemm_step<kEpiOut>(stack_smem, p.m, L.w_out, L.b_out, x, p.y, M, p.dim, inner);
+    gemm_step<kOut>(stack_smem, p.m, L.w_out, L.b_out, x, p.y, M, p.dim, inner);
     grid_sync(p.bar);  // y: out projection done
     ln_step(p.y, L.ln2s, L.ln2b, p.h, M, p.dim, p.eps);
     grid_sync(p.bar);  // h: LN2 done
-    gemm_step<kEpiFc1>(stack_smem, p.h, L.w1, L.b1, nullptr, p.a, M, p.mlp, p.dim);
+    gemm_step<kFc1>(stack_smem, p.h, L.w1, L.b1, nullptr, p.a, M, p.mlp, p.dim);
     grid_sync(p.bar);  // a: fc1 done
-    gemm_step<kEpiFc2>(stack_smem, p.a, L.w2, L.b2, p.y, p.out, M, p.dim, p.mlp);
+    gemm_step<kFc2>(stack_smem, p.a, L.w2, L.b2, p.y, p.out, M, p.dim, p.mlp);
     if (l + 1 < p.layers) grid_sync(p.bar);  // out: the next layer's x
   }
 }
@@ -165,10 +177,10 @@ extern "C" {
 // (w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2; nn.Linear
 // (out, in) weights, b_qkv and b_out may be null); h, qkv, m, y, a: scratch
 // of (b*n) rows of dim, 3*inner, inner, dim, mlp; barrier: 2 unsigned ints,
-// zeroed here on the stream
+// zeroed here on the stream; tools: 1 for the tools/ prototype's epilogues
 int vit_stack_layers(const void* x, void* out, const void* const* weights, int layers, void* h, void* qkv, void* m,
                      void* y, void* a, void* barrier, int batch, int n, int dim, int heads, int dim_head, int mlp,
-                     float scale_log2e, float eps, void* stream) {
+                     float scale_log2e, float eps, int tools, void* stream) {
   if (layers < 1 || layers > kStackMaxLayers || dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 ||
       heads <= 0 || dim % kGemmBK || (heads * kAttnDh) % kGemmBK || mlp % kGemmBK)
     return cudaErrorInvalidValue;
@@ -187,18 +199,19 @@ int vit_stack_layers(const void* x, void* out, const void* const* weights, int l
   p.scale_log2e = scale_log2e, p.eps = eps;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(stack_layers_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStackSmem);
+  const auto kernel = tools ? stack_layers_kernel<true> : stack_layers_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStackSmem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stack_layers_kernel, kStackThreads, kStackSmem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStackThreads, kStackSmem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   if ((err = cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned), s)) != cudaSuccess) return err;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stack_layers_kernel), dim3(sms * per_sm),
-                                    dim3(kStackThreads), args, kStackSmem, s);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(sms * per_sm), dim3(kStackThreads),
+                                    args, kStackSmem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "vit_layernorm_rows": (_P, _P, _P, _P, _I, _I, _F, _P),
     # a, w, bias, res, out, M, N, K, epilogue, rows per image, heads, dropout, stream
     "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_DROP, _P),
-    # qkv, out, batch, n, heads, dim_head, scale*log2(e), dropout, gamma_q, gamma_k, stream
-    "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _F, *_DROP, _P, _P, _P),
+    # qkv, out, batch, n, n_keys, heads, dim_head, scale*log2(e), dropout, gamma_q, gamma_k, stream
+    "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _P, _P),
     # qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale*log2(e), scale, dropout,
     # gamma_q, gamma_k, dgamma partials, dgamma, stream
     "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, *_DROP, _P, _P, _P, _P, _P),
@@ -80,8 +80,8 @@ _SIGNATURES = {
     # keep, batch, heads, n, m, seed, threshold, stream
     "vit_flash_dropout_masks": (_P, _I, _I, _I, _I, _U, _U, _P),
     # x, out, layers x 12 weight pointers, layers, scratch h, qkv, m, y, a, barrier, batch, n, dim, heads,
-    # dim_head, mlp, scale*log2(e), eps, stream
-    "vit_stack_layers": (_P, _P, _PP, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # dim_head, mlp, scale*log2(e), eps, the tools/ epilogues (0/1), stream
+    "vit_stack_layers": (_P, _P, _PP, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
 }
 
 

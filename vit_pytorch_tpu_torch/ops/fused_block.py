@@ -124,13 +124,15 @@ LAUNCHES = {
     "attention_rows[qknorm]": 0, "attention_rows[dropout,qknorm]": 0,
     "attention_bwd_rows[qknorm]": 0, "attention_bwd_rows[dropout,qknorm]": 0,
     "gemm_bf16[fc1_save]": 0, "gemm_bf16[gelu_bwd]": 0, "layernorm_bwd_rows[res_f32]": 0, "gemm_wgrad": 0,
-    "stack_layers": 0,
+    "stack_layers": 0, "attention_rows[n_keys]": 0, "stack_layers[tools]": 0,
 }
 
 # gemm_bf16 epilogues; "cast" is the qkv epilogue without a bias (one cast
 # of the f32 dot), named for the backward's dm = dy . W_out; the FF
-# backward's two ("fc1_save", "gelu_bwd") return two tensors each
-_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5, "fc1_save": 6, "gelu_bwd": 7}
+# backward's two ("fc1_save", "gelu_bwd") return two tensors each;
+# "fc1_f32" is the fc1 of the layer prototypes in tools/
+_EPILOGUES = {"qkv": 0, "cast": 0, "out": 1, "fc1": 2, "fc2": 3, "block_out": 5, "fc1_save": 6, "gelu_bwd": 7,
+              "fc1_f32": 8}
 _FF_EPILOGUES = ("fc1_save", "gelu_bwd")
 _EPI_F32 = 4  # gemm_f32out: the f32 dot stored as it is
 
@@ -280,6 +282,12 @@ def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, aux=No
     the output stream (stream head ``heads``) with ``dropout_rate`` > 0,
     + the f32 residual if given, one cast; ``a`` is (b, n, inner);
 
+    or ``fc1_f32``, the fc1 of the layer prototypes in ``tools/``
+    (bench_layer_fused.py:141-143, bench_stack_fusion.py:98-99,
+    fused_block_proto.py:108-109): f32 dot + f32 bias, one cast, then the
+    tanh GELU of that bf16 value (their out projection and fc2 are
+    ``block_out`` without dropout);
+
     or one of the FF backward's two sites (``_ff_bwd_kernel`` :1553-1567):
 
     - ``fc1_save``: ``fc1``'s result and its GELU input, ``(act, h1)`` with
@@ -309,6 +317,9 @@ def gemm_bf16_reference(a, w, epilogue: str, *, bias=None, residual=None, aux=No
         if bias is None:
             return F.linear(a, w)
         return F.linear(a.float(), w.float(), bias.float()).to(a.dtype)
+    if epilogue == "fc1_f32":
+        h = F.linear(a.float(), w.float(), None if bias is None else bias.float()).to(a.dtype)
+        return F.gelu(h, approximate="tanh")
     h = F.linear(a, w)
     if bias is not None:
         h = h + bias
@@ -336,11 +347,11 @@ def _qk_norm_rows(t, gamma, *, heads: int, dim_head: int, dtype):
     return (xhat * g).to(dtype).float(), xhat, r
 
 
-def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float, gamma_q=None, gamma_k=None):
+def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float, gamma_q=None, gamma_k=None, n_keys=None):
     """q, k, v as f32 (b, h, n, d) and P of ``_softmax_from_dots``
     (fused_block.py:82-93) in f32; with the gammas q and k are the normed
     rows, and the last item is (qhat, rq, khat, rk) for the backward (else
-    None)."""
+    None).  Keys j >= ``n_keys`` (None: n) get no weight."""
     b, n, _ = qkv.shape
     q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4).float()
     norm = None
@@ -349,21 +360,27 @@ def _softmax_rows(qkv, *, heads: int, dim_head: int, scale: float, gamma_q=None,
         (q, qhat, rq), (k, khat, rk) = _qk_norm_rows(q, gamma_q, **kw), _qk_norm_rows(k, gamma_k, **kw)
         norm = (qhat, rq, khat, rk)
     logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E)
+    if n_keys is not None:
+        logits = logits.masked_fill(torch.arange(n, device=qkv.device) >= n_keys, -torch.inf)
     p = torch.exp2(logits - logits.amax(-1, keepdim=True))
     return q, k, v, p * (1.0 / p.sum(-1, keepdim=True)), norm
 
 
 def attention_rows_reference(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0,
-                             seed=None, gamma_q=None, gamma_k=None):
+                             seed=None, gamma_q=None, gamma_k=None, n_keys=None):
     """Per-head softmax attention from the packed (b, n, 3*inner) qkv rows to
     merged heads (b, n, inner): f32 logits, ``_softmax_from_dots``
     (fused_block.py:82-93), with ``dropout_rate`` > 0 P = where(keep, P, 0)
     * 1/(1 - rate) in f32 (``_kernel`` :345-348), P cast to qkv.dtype, P.V
     accumulated in f32.  With ``gamma_q``/``gamma_k`` (heads * dim_head
-    values each) q and k first go through the qk-norm (:323-338)."""
+    values each) q and k first go through the qk-norm (:323-338).  With
+    ``n_keys`` (1 <= n_keys <= n) keys j >= n_keys are masked out of every
+    row's softmax, the -inf key bias of the padded prototypes in ``tools/``
+    (bench_layer_fused.py:267-268); all n rows are computed."""
     b, n, _ = qkv.shape
+    n_keys = _n_keys("attention_rows", n, n_keys, dropout_rate, gamma_q)
     _, _, v, p, _ = _softmax_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, gamma_q=gamma_q,
-                                  gamma_k=gamma_k)
+                                  gamma_k=gamma_k, n_keys=None if n_keys == n else n_keys)
     if dropout_rate > 0.0:
         keep = _attn_keep(seed, b, n, heads, dropout_rate, qkv.device)
         p = torch.where(keep, p, 0.0) * _inv_keep(dropout_rate)
@@ -504,11 +521,25 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _variant(name: str, drop: int, qk: bool) -> str:
+def _variant(name: str, drop: int, qk: bool, masked: bool = False) -> str:
     """The launch counter of a variant: ``name``, ``name[dropout]``,
-    ``name[qknorm]`` or ``name[dropout,qknorm]``."""
-    tags = [tag for tag, on in (("dropout", drop), ("qknorm", qk)) if on]
+    ``name[qknorm]``, ``name[dropout,qknorm]`` or ``name[n_keys]``."""
+    tags = [tag for tag, on in (("dropout", drop), ("qknorm", qk), ("n_keys", masked)) if on]
     return f"{name}[{','.join(tags)}]" if tags else name
+
+
+def _n_keys(name: str, n: int, n_keys, dropout_rate: float, gamma_q) -> int:
+    """The key count of an ``attention_rows`` call (None: n), refused
+    outside [1, n] and, when it masks keys, beside dropout or the qk-norm
+    (the key mask is the tools' prototypes' plain attention)."""
+    if n_keys is None:
+        return n
+    n_keys = int(n_keys)
+    if not 1 <= n_keys <= n:
+        raise ValueError(f"{name}: n_keys={n_keys} is not in [1, n={n}]")
+    if n_keys < n and (dropout_rate or gamma_q is not None):
+        raise ValueError(f"{name}: n_keys < n takes neither dropout nor the qk-norm")
+    return n_keys
 
 
 def _gammas(name: str, gamma_q, gamma_k, inner: int):
@@ -579,6 +610,8 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, aux=None, dropou
     if bias is not None and (epilogue == "cast" or bias.shape != (n_out,)):
         raise ValueError(f"gemm_bf16[{epilogue}]: bias {tuple(bias.shape)} for {n_out} outputs")
     out_shape = (*a.shape[:-1], n_out)
+    if epilogue == "fc1_f32" and residual is not None:
+        raise ValueError("gemm_bf16[fc1_f32]: takes no residual")
     if epilogue in ("out", "fc2") and (residual is None or residual.shape != out_shape):
         raise ValueError(f"gemm_bf16[{epilogue}]: needs a residual of shape {out_shape}")
     if epilogue == "block_out" and (a.dim() != 3 or (residual is not None and residual.shape != out_shape)):
@@ -695,17 +728,20 @@ def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
 
 
 def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None,
-                   gamma_q=None, gamma_k=None):
+                   gamma_q=None, gamma_k=None, n_keys=None):
     """Softmax attention of every head, from packed qkv rows (b, n, 3*inner)
     to merged heads (b, n, inner); the logits stay on chip.  With
     ``dropout_rate`` > 0 (the ``[dropout]`` variant) P is masked in-kernel
     from the (seed, img, head) Philox streams; with ``gamma_q``/``gamma_k``
     (the ``[qknorm]`` variant, heads * dim_head gammas each) q and k are
-    normalised in-kernel.  See :func:`attention_rows_reference`."""
+    normalised in-kernel; with ``n_keys`` < n (the ``[n_keys]`` variant)
+    keys j >= n_keys are masked.  See :func:`attention_rows_reference`."""
     if qkv.device.type == "cpu":
         return attention_rows_reference(qkv, heads=heads, dim_head=dim_head, scale=scale,
-                                        dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
+                                        dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k,
+                                        n_keys=n_keys)
     _check_attention("attention_rows", qkv, heads, dim_head)
+    n_keys = _n_keys("attention_rows", qkv.shape[1], n_keys, dropout_rate, gamma_q)
     drop = _dropout_args("attention_rows", dropout_rate, seed)
     gq, gk = _gammas("attention_rows", gamma_q, gamma_k, heads * dim_head)
     _check_operands("attention_rows", qkv.device, qkv, gq, gk)
@@ -713,10 +749,10 @@ def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate
     out = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
     lib = load_library()
     err = lib.lib.vit_attention_rows(
-        qkv.data_ptr(), out.data_ptr(), b, n, heads, dim_head, scale * _LOG2E, *drop,
+        qkv.data_ptr(), out.data_ptr(), b, n, n_keys, heads, dim_head, scale * _LOG2E, *drop,
         None if gq is None else gq.data_ptr(), None if gk is None else gk.data_ptr(), _stream(qkv.device),
     )
-    name = _variant("attention_rows", drop[0], gq is not None)
+    name = _variant("attention_rows", drop[0], gq is not None, n_keys < n)
     lib.check(name, err)
     LAUNCHES[name] += 1
     return out
@@ -997,15 +1033,25 @@ def layer_bwd_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp
     return bool(os.environ.get(LAYER_BWD_ENV)) and _ff_bwd_kernels_take(x_shape, dim, mlp_dim)
 
 
-def _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads, dim_head, scale, eps):
-    """The seven launches of the forward; returns ``(out, y)``."""
+# the gemm_bf16 epilogues of the out projection, fc1 and fc2: the package's
+# _layer_rows rounds each product before its adds; the layer prototypes in
+# tools/ (bench_layer_fused.py, bench_stack_fusion.py) add in f32 and cast once
+LAYER_EPILOGUES = {"package": ("out", "fc1", "fc2"), "tools": ("block_out", "fc1_f32", "block_out")}
+
+
+def _layer_forward(ops, x, w_qkv, b_qkv, w_out, b_out, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, heads, dim_head, scale, eps,
+                   epilogues: str = "package", n_keys=None):
+    """The seven launches of the forward, with the out, fc1 and fc2
+    epilogues of :data:`LAYER_EPILOGUES` ``[epilogues]`` and keys j >=
+    ``n_keys`` masked (None: none); returns ``(out, y)``."""
+    out_epi, fc1_epi, fc2_epi = LAYER_EPILOGUES[epilogues]
     h = ops.layernorm_rows(x, ln1s, ln1b, eps=eps)
     qkv = ops.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv)
-    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale)
-    y = ops.gemm_bf16(m, w_out, "out", bias=b_out, residual=x)
+    m = ops.attention_rows(qkv, heads=heads, dim_head=dim_head, scale=scale, n_keys=n_keys)
+    y = ops.gemm_bf16(m, w_out, out_epi, bias=b_out, residual=x)
     h2 = ops.layernorm_rows(y, ln2s, ln2b, eps=eps)
-    a = ops.gemm_bf16(h2, w1, "fc1", bias=b1)
-    return ops.gemm_bf16(a, w2, "fc2", bias=b2, residual=y), y
+    a = ops.gemm_bf16(h2, w1, fc1_epi, bias=b1)
+    return ops.gemm_bf16(a, w2, fc2_epi, bias=b2, residual=y), y
 
 
 class AttentionBlockGrads(NamedTuple):
@@ -1408,25 +1454,38 @@ def stack_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim
     )
 
 
-def stack_layers_reference(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS):
+def stack_layers_reference(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS,
+                           epilogues: str = "package"):
     """Plain twin of :func:`stack_layers`: the seven-step chain of every layer
-    on the twins, one layer after another (``layers`` as there)."""
+    on the twins, one layer after another (``layers`` and ``epilogues`` as
+    there)."""
     for lw in layers:
-        x = _layer_forward(TWINS, x, *lw, heads, dim_head, scale, eps)[0]
+        x = _layer_forward(TWINS, x, *lw, heads, dim_head, scale, eps, epilogues)[0]
     return x
 
 
-def stack_layers(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS):
+def stack_layers(x, layers, *, heads: int, dim_head: int, scale: float, eps: float = LN_EPS,
+                 epilogues: str = "package"):
     """``len(layers)`` consecutive pre-norm layers' forward in one launch,
     the port of ``_stack_kernel`` (fused_block.py:1979).  ``layers`` is a
     sequence of per-layer tuples ``(w_qkv, b_qkv, w_out, b_out, ln1s, ln1b,
     ln2s, ln2b, w1, b1, w2, b2)``, the JAX layer tuple with the weights in
     ``nn.Linear``'s (out, in) layout; b_qkv and b_out may be None (in every
     layer or in none).  Every step of every layer runs the chain's tile
-    bodies, so the result is bitwise that of the 7g-launch chain.  See
+    bodies, so the result is bitwise that of the 7g-launch chain.
+    ``epilogues="tools"`` (the ``stack_layers[tools]`` instantiation) is the
+    port of the stack prototype ``tools/bench_stack_fusion.py::make_stack``
+    (:105): the out projection and fc2 add in f32 and cast once, fc1 adds
+    its bias in f32 before its cast (:data:`LAYER_EPILOGUES`), and b_qkv and
+    b_out must be None, as that layer has neither.  See
     :func:`stack_layers_reference`."""
+    if epilogues not in LAYER_EPILOGUES:
+        raise ValueError(f"stack_layers: unknown epilogues {epilogues!r}")
+    if epilogues == "tools" and any(lw[1] is not None or lw[3] is not None for lw in layers):
+        raise ValueError("stack_layers[tools]: the prototype's layer has no b_qkv or b_out")
     if x.device.type == "cpu":
-        return stack_layers_reference(x, layers, heads=heads, dim_head=dim_head, scale=scale, eps=eps)
+        return stack_layers_reference(x, layers, heads=heads, dim_head=dim_head, scale=scale, eps=eps,
+                                      epilogues=epilogues)
     dim = x.shape[-1]
     mlp_dim = layers[0][8].shape[0] if layers else 0
     if not stack_supported(x.shape, x.dtype, heads, dim_head, dim, mlp_dim, layers):
@@ -1452,10 +1511,11 @@ def stack_layers(x, layers, *, heads: int, dim_head: int, scale: float, eps: flo
     lib = load_library()
     err = lib.lib.vit_stack_layers(
         x.data_ptr(), out.data_ptr(), ptrs, len(layers), *(t.data_ptr() for t in scratch), barrier.data_ptr(),
-        b, n, dim, heads, dim_head, mlp_dim, scale * _LOG2E, eps, _stream(x.device),
+        b, n, dim, heads, dim_head, mlp_dim, scale * _LOG2E, eps, int(epilogues == "tools"), _stream(x.device),
     )
-    lib.check("stack_layers", err)
-    LAUNCHES["stack_layers"] += 1
+    name = "stack_layers[tools]" if epilogues == "tools" else "stack_layers"
+    lib.check(name, err)
+    LAUNCHES[name] += 1
     return out
 
 

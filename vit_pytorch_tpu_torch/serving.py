@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
 
 class Predictor:
@@ -76,21 +77,27 @@ class Predictor:
         return self.batch_sizes[-1]
 
     def _run_padded(self, x):
-        """x.shape[0] <= largest bucket: pad up, run, slice back."""
+        """x.shape[0] <= largest bucket: pad up, run, slice back each tensor
+        of the output (a tensor, or a tuple, list or dict of them; ``None``
+        passes through), as the JAX ``jax.tree.map`` does."""
         k = x.shape[0]
         b = self._bucket_for(k)
         if k != b:
             pad = x.new_zeros((b - k, *self.example_shape))
             x = torch.cat([x, pad], dim=0)
         with torch.inference_mode():
-            return self.model(x)[:k]
+            out = self.model(x)
+        return tree_map(lambda o: None if o is None else o[:k], out)
 
     def __call__(self, x):
-        """Run inference on ``x`` of shape ``(k, *example_shape)``, any k."""
+        """Run inference on ``x`` of shape ``(k, *example_shape)``, any k;
+        the chunks of a request above the largest bucket are joined tensor by
+        tensor of the output."""
         x = torch.as_tensor(x).to(device=self.device, dtype=self.param_dtype)
         if tuple(x.shape[1:]) != self.example_shape:
             raise ValueError(f"expected (k, {self.example_shape}), got {tuple(x.shape)}")
         big = self.batch_sizes[-1]
         if x.shape[0] <= big:
             return self._run_padded(x)
-        return torch.cat([self._run_padded(x[i : i + big]) for i in range(0, x.shape[0], big)], dim=0)
+        outs = [self._run_padded(x[i : i + big]) for i in range(0, x.shape[0], big)]
+        return tree_map(lambda *os: None if os[0] is None else torch.cat(os, dim=0), *outs)

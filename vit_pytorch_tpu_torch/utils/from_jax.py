@@ -11,7 +11,9 @@ SimpleViTs the inverse of ``transformer_rules(simple=True)`` and
 (the fused ``to_qkv`` in the Transformer, split ``to_q``/``to_kv`` in
 ``attn_pool``); the JAX ``convert_na_vit`` fuses the reference's q/kv, so
 these maps are held by model outputs (tests/test_torch_na_vit.py), not by a
-round trip.
+round trip.  ``tool_layer_from_jax`` carries the weight tuples of the JAX
+package's layer prototypes in ``tools/`` over to the port's bench tools
+(``vit_pytorch_tpu_torch/tools/``).
 
 Dense kernels (in, out) become Linear weights (out, in); LayerNorm
 ``scale``/``bias`` become ``weight``/``bias``; RMSNorm ``gamma`` stays
@@ -156,3 +158,22 @@ def simple_vit_register_tokens_state_dict_from_jax(params: Mapping) -> dict[str,
     """The JAX ``models/simple_vit_with_register_tokens.py::SimpleViT``'s
     ``params`` tree -> the port's ``state_dict``."""
     return _state_dict(params, _SIMPLE_VIT_MODULES, ("register_tokens",))
+
+
+def tool_layer_from_jax(weights) -> tuple[torch.Tensor, ...]:
+    """A JAX tool's weight tuple (``tools/bench_layer_fused.py``,
+    ``bench_stack_fusion.py``, ``fused_block_proto.py``,
+    ``bench_fused_tuning.py``) as numpy arrays -> the port's tuple, in the
+    same order: a matrix (in, out) becomes an ``nn.Linear`` weight (out,
+    in), a row vector (1, d) or a vector (d,) becomes (d,).  float32 stays
+    float32 and bfloat16 (numpy's ``ml_dtypes`` type) becomes
+    ``torch.bfloat16``, exactly."""
+    out = []
+    for w in weights:
+        w = np.asarray(w)
+        bf16 = w.dtype.name == "bfloat16"
+        w = np.asarray(w, np.float32)
+        w = np.ascontiguousarray(w.T) if w.ndim == 2 and w.shape[0] > 1 else w.reshape(-1).copy()
+        t = torch.from_numpy(w)
+        out.append(t.to(torch.bfloat16) if bf16 else t)
+    return tuple(out)
