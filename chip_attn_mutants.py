@@ -1,0 +1,65 @@
+"""Mutation check of the wgmma tile machinery of short_attention and
+flash_fwd (``csrc/attn_wgmma.cuh``) on one CUDA card (H100, sm_90a).
+
+    python3 chip_attn_mutants.py
+
+Runs chip_smoke.py's phases 12 (``check_flash``: the flash kernels against
+their twins, their edge cases included) and 28 (``check_short_causal_bias``:
+the short kernel, the flash causal and bias variants, their edge cases)
+first on the kernels as they are, which must pass every check, then on
+deliberately wrong copies of ``vit_pytorch_tpu_torch/csrc``, each built under
+``build/mutants/`` with one edit, which must each fail at least one check.
+Prints one line a kernel with the number of checks that refused it, and
+exits 1 if the right kernels fail or a mutant passes.  The runner is
+chip_qk_mutants.main.
+"""
+
+import torch
+
+import chip_qk_mutants
+import chip_smoke as cs
+
+_PASS2_QK = "    qk_issue(s, qf, ring + 2 * (step % kStages) * kSwTile);\n    pv_issue(o, pf,"
+
+# name: (file in csrc/, text replaced, replacement); each text occurs once
+MUTANTS = {
+    "the v tile read one 16-byte chunk off its swizzle": (
+        "attn_wgmma.cuh", "desc_mn_major(vs + kc * 16 * kFlashDh)", "desc_mn_major(vs + kc * 16 * kFlashDh + 8)"),
+    "flash_fwd: the bias tile taken from the previous ring stage": (
+        "flash_attention.cu", "    [[maybe_unused]] const unsigned char* bstage = bias_ring + stage * kBiasStage;",
+        "    [[maybe_unused]] const unsigned char* bstage = bias_ring + ((stage + kStages - 1) % kStages) * kBiasStage;"),
+    "short: the bias tile taken from the previous ring stage": (
+        "short_attention.cu", "  auto bias_stage = [&](int step) { return bias_ring + (step % kStages) * kBiasStage; };",
+        "  auto bias_stage = [&](int step) { return bias_ring + ((step + kStages - 1) % kStages) * kBiasStage; };"),
+    "flash_fwd: k copied (kAhead tiles ahead) into the stage this iteration's q.k^T still reads": (
+        "flash_attention.cu", "      tma_load(ring + 2 * stage * kSwTile, maps.k,",
+        "      tma_load(ring + 2 * ((stage + kStages - kAhead) % kStages) * kSwTile, maps.k,"),
+    "short: k copied (kAhead steps ahead) into the stage this step's q.k^T still reads": (
+        "short_attention.cu", "      tma_load(ring + 2 * st * kSwTile, maps.k,",
+        "      tma_load(ring + 2 * ((st + kStages - kAhead) % kStages) * kSwTile, maps.k,"),
+    "short: pass 2's q.k^T sequence other than pass 1's (its last k16 step left out)": (
+        "short_attention.cu", _PASS2_QK,
+        "#pragma unroll\n"
+        "    for (int kk = 0; kk < kFlashDh / 16 - 1; ++kk)\n"
+        "      wgmma_m64n64k16_rs<0>(s, qf[kk], desc_k_major(ring + 2 * (step % kStages) * kSwTile + kk * 16), kk);\n"
+        "    wgmma_commit();\n"
+        "    pv_issue(o, pf,"),
+    # last: the swapped indices can reach past a tensor's end
+    "the head-ordered grid with the image and head indices swapped": (
+        "attn_wgmma.cuh", "  p.b = bid % batch;\n  const int rest = bid / batch;\n  p.qt = rest % qtiles;\n  p.h = rest / qtiles;",
+        "  p.h = bid % batch;\n  const int rest = bid / batch;\n  p.qt = rest % qtiles;\n  p.b = rest / qtiles;"),
+}
+
+
+def check(fb, rnd, dev):
+    """Phases 12 and 28, each with its own generator (``rnd`` is the
+    runner's)."""
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    del fb, rnd
+    cs.check_flash(fa, dev, torch.Generator(device=dev).manual_seed(cs.SEED))
+    cs.check_short_causal_bias(fa, dev, torch.Generator(device=dev).manual_seed(cs.SEED))
+
+
+if __name__ == "__main__":
+    chip_qk_mutants.main(MUTANTS, check, "attn")

@@ -1,0 +1,74 @@
+"""Times the model paths that run the forward attention kernels, for one
+checkout, on one CUDA card (H100, sm_90a), for comparing two commits in one
+call.
+
+    python3 chip_e2e_ab.py <checkout> <label>
+
+Builds ``<checkout>``'s kernels into its own ``build/`` and imports its
+``chip_smoke.py`` and package (not this file's), then times the kernel
+paths of three of its phases, each after a warm-up, on the same seeded
+inputs:
+
+  - SimpleViT-B/16 @512 served at bs=32 (phase 30: 12 ``short_attention``
+    launches a batch), ms a batch over 10 batches;
+  - NaViT-B served on phase 15's 120-image mix in 16 packs of 2048 tokens
+    (13 ``flash_fwd`` a forward), ms a batch over 10;
+  - NaViT-B trained on phase 14's packs (token dropout 0.25) at dropout 0
+    (phase 15) and at dropout 0.1 (phase 24), ms a step over 4 steps.
+
+Prints one JSON line {"tree": label, metric: ms, ...}.  Run two checkouts
+in turns (A, B, B, A) in one call; to time a parent commit, unpack it with
+``git archive`` into a git-ignored directory.
+"""
+
+import json
+import os
+import sys
+
+if __name__ == "__main__":
+    tree, label = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import chip_smoke as cs
+    from vit_pytorch_tpu_torch.ops._build import load_library
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; the timing needs a CUDA card", file=sys.stderr)
+        sys.exit(1)
+    lib = load_library()
+    if not str(lib.path).startswith(os.path.abspath(tree)):
+        print(f"FAIL: the kernels came from {lib.path}, not from {tree}", file=sys.stderr)
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    out = {"tree": label}
+
+    model = cs.simple_512_model("simple", dev, bf16).eval()
+    size = cs.SIMPLE_512["image_size"]
+    img = torch.randn(cs.SIMPLE_512_BUCKETS[-1], 3, size, size, generator=gen, device=dev).to(bf16)
+    with torch.inference_mode():
+        out["simplevit512 serving ms/batch bs=32"] = cs.host_ms(lambda: model(img), 10)
+    del model, img
+
+    images, _, rng = cs.navit_images(cs.SEED, labels=False)
+    packed = cs.pack_navit(images, rng, dev, train=False)
+    model = cs.navit_model(dev, bf16).eval()
+    with torch.inference_mode():
+        out["navit serving ms/batch"] = cs.host_ms(lambda: model(packed), 10)
+    del model
+
+    packed, labels = cs.navit_train_batch(dev)
+    for rate in (0.0, cs.RATE):
+        drop = dict(dropout=rate, emb_dropout=rate) if rate else {}
+        model = cs.navit_model(dev, bf16, token_dropout_prob=cs.NAVIT_TOKEN_DROPOUT, **drop)
+        state, step = create_train_state(model), make_train_step(model, cs.masked_ce)
+        drop_gen = torch.Generator(device=dev).manual_seed(cs.SEED + 4)
+        run = (lambda: step(state, packed, labels, drop_gen)) if rate else (lambda: step(state, packed, labels))
+        out[f"navit training ms/step dropout {rate}"] = cs.train_step_ms(dev, run, 4)[0]
+        del model, state, step
+    print(json.dumps(out), flush=True)

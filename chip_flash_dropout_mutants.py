@@ -31,16 +31,21 @@ def _span(first: str, last: str):
     return text[start:text.index(last, start) + len(last)]
 
 
-_FWD_KEEP = "apply_keep_bits(s, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), "
+_FWD_KEEP = "apply_keep_bits(s, keep_bits_rows(keep + stage * kKeepStage, lr, t), "
 _FWD_NUM = "const float num = kDropout ? a.drop.inv : 1.f;"
 _FWD_TAIL = _span(_FWD_KEEP + "1.f);", _FWD_NUM)
+# flash_fwd's p loop, which sums l from the undropped p
+_FWD_P_SUM = _span("        s[jj][e] = exp2_ftz((s[jj][e] - mn0) * kLog2e);", "        sum1 += s[jj][2 + e];\n      }\n    }\n")
 
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
     "flash_fwd: l accumulating the dropped p": (
-        "flash_attention.cu", "    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));",
-        "    if constexpr (kDropout) valid &= keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t);\n"
-        "    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));"),
+        "flash_attention.cu", _FWD_P_SUM, _FWD_P_SUM.replace(
+            "        sum0 += s[jj][e];\n        sum1 += s[jj][2 + e];\n      }\n    }\n",
+            "      }\n    }\n"
+            "    if constexpr (kDropout) " + _FWD_KEEP + "1.f);\n"
+            "#pragma unroll\n    for (int jj = 0; jj < 8; ++jj) {\n#pragma unroll\n      for (int e = 0; e < 2; ++e) {\n"
+            "        sum0 += s[jj][e];\n        sum1 += s[jj][2 + e];\n      }\n    }\n")),
     "flash_fwd: 1/(1 - rate) applied to p before its bf16 cast": (
         "flash_attention.cu", _FWD_TAIL,
         _FWD_TAIL.replace(_FWD_KEEP + "1.f);", _FWD_KEEP + "a.drop.inv);").replace(_FWD_NUM, "const float num = 1.f;")),

@@ -33,6 +33,7 @@ def _span(first: str, last: str):
 
 
 _NORM_STAGE = "  rms_norm_rows<kFlashTile, kFlashLd, kFlashThreads>(ring + 2 * stage * kTileElems, gammas, nullptr, nullptr);"
+_FWD_NORM_STAGE = "      rms_norm_tile_sw<kThreads>(ring + 2 * stage * kSwTile, gring);"
 # dk from the raw q tile: the ring's q stage is normalised with a raw copy kept
 # in a tile of shared memory past the gammas, which dk's product then reads
 _DKV_SMEM = "constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;"
@@ -42,7 +43,9 @@ _DKV_SPAN = _span(_DKV_SMEM, _DKV_DK)
 
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
-    "only ring stage 0's tile normalised (k in flash_fwd and flash_bwd_dq, q in flash_bwd_dkv)": (
+    "flash_fwd: only ring stage 0's k tile normalised": (
+        "flash_attention.cu", _FWD_NORM_STAGE, _FWD_NORM_STAGE.replace("      rms_norm", "      if (stage == 0) rms_norm")),
+    "flash_bwd_dq, flash_bwd_dkv: only ring stage 0's tile normalised (k in dq, q in dkv)": (
         "flash_attention.cu", _NORM_STAGE, "  if (stage == 0)\n  " + _NORM_STAGE),
     "flash_bwd_dkv: dk from the raw q tile": (
         "flash_attention.cu", _DKV_SPAN,

@@ -23,22 +23,57 @@ import chip_smoke as cs
 
 _SHORT = Path(__file__).resolve().parent / "vit_pytorch_tpu_torch" / "csrc" / "short_attention.cu"
 
-# the short kernel normalising p before its bf16 cast: a first pass 2 for l
-# alone, then pass 2 again with p scaled by 1 / l, and no division at the end
-_PV_CALL = "  pv_pass<kBias>(o, l0, l1, mx0, mx1, 1.f, 1.f, ring, qf, kb, vb, a, bias0, bias1, row0, row1, g, t);\n"
-_DIVISORS = "  const float div0 = l0, div1 = l1;\n"
-_PV_SPAN = _PV_CALL + _DIVISORS
-assert _PV_SPAN in _SHORT.read_text()
+
+def _span(first: str, last: str):
+    """The text of short_attention.cu from ``first`` to the end of ``last``:
+    one replacement that carries several edits apart in the source."""
+    text = _SHORT.read_text()
+    start = text.index(first)
+    return text[start:text.index(last, start) + len(last)]
+
+
+# the short kernel normalising p before its bf16 cast: pass 1 also sums l
+# (online, against its running max), pass 2 casts p / l, and the end divides
+# by 1
+_PASS1_MAX = """#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+    }
+"""
+_PASS1_L = """    {
+      float t0 = kNegInf, t1 = kNegInf;
+      for (int jj = 0; jj < 8; ++jj) {
+        t0 = fmaxf(t0, fmaxf(s[jj][0], s[jj][1]));
+        t1 = fmaxf(t1, fmaxf(s[jj][2], s[jj][3]));
+      }
+      const float n0 = fmaxf(mx0, quad_max(t0)), n1 = fmaxf(mx1, quad_max(t1));
+      float e0 = 0.f, e1 = 0.f;
+      for (int jj = 0; jj < 8; ++jj) {
+        for (int e = 0; e < 2; ++e) {
+          e0 += exp2f((s[jj][e] - n0) * kLog2e);
+          e1 += exp2f((s[jj][2 + e] - n1) * kLog2e);
+        }
+      }
+      ll0 = ll0 * exp2f((mx0 - n0) * kLog2e) + quad_sum(e0);
+      ll1 = ll1 * exp2f((mx1 - n1) * kLog2e) + quad_sum(e1);
+      mx0 = n0;
+      mx1 = n1;
+    }
+"""
+_MX_DECL = "  float mx0 = kNegInf, mx1 = kNegInf;\n"
+_P_STORE = "        s[jj][e] = p0;\n        s[jj][2 + e] = p1;\n"
+_DIVISORS = "  const float div0 = quad_sum(sum0), div1 = quad_sum(sum1);"
+_NORMED_SPAN = _span(_MX_DECL, _DIVISORS)
+assert _PASS1_MAX in _NORMED_SPAN and _P_STORE in _NORMED_SPAN
 
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
     "short: p divided by l before the p.v product (p normalised before its bf16 cast)": (
-        "short_attention.cu", _PV_SPAN,
-        "  float first[8][4] = {};\n"
-        + _PV_CALL.replace("(o, l0, l1,", "(first, l0, l1,")
-        + "  float l0x = 0.f, l1x = 0.f;\n"
-        + _PV_CALL.replace("(o, l0, l1, mx0, mx1, 1.f, 1.f,", "(o, l0x, l1x, mx0, mx1, 1.f / l0, 1.f / l1,")
-        + "  const float div0 = 1.f, div1 = 1.f;\n"),
+        "short_attention.cu", _NORMED_SPAN,
+        _NORMED_SPAN.replace(_MX_DECL, _MX_DECL + "  float ll0 = 0.f, ll1 = 0.f;\n").replace(_PASS1_MAX, _PASS1_L)
+        .replace(_P_STORE, "        s[jj][e] = p0 / ll0;\n        s[jj][2 + e] = p1 / ll1;\n")
+        .replace(_DIVISORS, "  const float div0 = 1.f, div1 = 1.f;")),
     "short: padded keys left in the softmax (m = 49 pads to 64)": (
         "short_attention.cu", "__device__ __forceinline__ bool key_in(int c, int m) { return c < m; }",
         "__device__ __forceinline__ bool key_in(int c, int m) { return c < m || true; }"),
@@ -49,8 +84,8 @@ MUTANTS = {
     "flash: the bias added before the scale": (
         "flash_attention.cu", "return __fadd_rn(__fmul_rn(s, scale), bias);", "return __fmul_rn(__fadd_rn(s, bias), scale);"),
     # last: the wrong head index can read past the table
-    "short: the bias read with the head index bh / heads instead of bh % heads": (
-        "short_attention.cu", "(bh % a.heads) * a.bias_h", "(bh / a.heads) * a.bias_h"),
+    "short: the bias read with the image index as its head": (
+        "short_attention.cu", "(h * a.bias_h + q0 * a.bias_row)", "(b * a.bias_h + q0 * a.bias_row)"),
 }
 
 

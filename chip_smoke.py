@@ -42,9 +42,10 @@ Phases, each printed as it ends:
  12. flash kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
      plain twins, bf16, h=12, dh=64: two 2048-token packs of the NaViT
      resolution mix, the attn_pool shape (16 queries, empty slots at -2),
-     an all-pad pack and no ids at n=m=1100; o, lse, dq, dk, dv, and the
-     Function against autograd through the materialized twin in f32; the
-     fraction of tiles the skip test admits;
+     an all-pad pack and no ids at n=m=1100, and flash_fwd's ring edges (n =
+     1, m = 1000; n = 129, m = 130; ids at n = m = 1000); o, lse, dq, dk,
+     dv, and the Function against autograd through the materialized twin in
+     f32; the fraction of tiles the skip test admits;
  13. NaViT-B serving: forward_packed on the 120-image mix of the JAX bench
      (13 flash_fwd launches, exact), logits against the plain bf16 path
      (flash_attention_twins swapped in: the flash Function on its twins)
@@ -118,12 +119,14 @@ Phases, each printed as it ends:
  25. the flash kernels' in-tile qk-norm instantiations ([qknorm] and
      [dropout,qknorm] of flash_fwd, flash_bwd_dq, flash_bwd_dkv) against
      their plain twins on phase 12's cases and phase 22's q = 0 case, q and
-     k raw with row norms spread over ~e^+-4.5, gammas 1 + 0.2 N(0, 1); o
+     k raw with row norms spread over ~e^+-4.5, gammas 1 + 0.2 N(0, 1) (o
+     against the twin fed the kernels' own q^ and k^); o
      also differs from the kernel without gammas; the Function's o, dq, dk,
      dv, dgamma_q and dgamma_k against autograd through the f32 composite
      with the eager rms_norm; that check again over 20 fresh draws at rate
      0 and 20 at rate 0.1, for the kernels and for the Function on its plain
-     twins, logged (each output's worst rel L2 a draw);
+     twins, logged (each output's worst rel L2 a draw, and o against the
+     twin fed either rounding of q^ and k^);
  26. NaViT-B under VIT_TPU_FUSE_QKNORM=1 (set in-process): serving at depth
      12 and 2 (exact counters: depth + 1 flash_fwd[qknorm] a forward; the
      switch unset, depth + 1 rate-0 flash_fwd as in phase 13), logits
@@ -144,8 +147,9 @@ Phases, each printed as it ends:
      [dropout,qknorm,causal] of flash_fwd, flash_bwd_dq, flash_bwd_dkv) at
      n = m = 2048, n = 1100 < m = 2048, n = 2048 > m = 1100 and two packs
      with segment ids; flash_fwd[bias] and [bias,causal] with (1, h), (b, 1),
-     (b, h) biases, f32 and bf16, causal, with segment ids; the Functions
-     against autograd through the f32 composite, dbias included;
+     (b, h) biases, f32 and bf16, causal, with segment ids; the edges of
+     the ring and the head-ordered grid (SHORT_EDGES, FLASH_EDGES); the
+     Functions against autograd through the f32 composite, dbias included;
  29. SimpleViT-B/16 @512 and SimpleViT-qk-norm @512 (1024 tokens: the
      dispatcher's short route) served behind buckets (1, 8, 32) (exact
      counters: 12 short_attention a forward, no other launch; outputs
@@ -157,7 +161,8 @@ Phases, each printed as it ends:
      bias at m = 1024), forward and backward, one launch of each variant;
  30. their timing: serving img/s and training ms/step with peak memory of
      both models, kernel against plain in turns; each new launch against its
-     twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask).
+     twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask), and
+     flash_fwd without options at the same 8 x 12 x 2048 beside SDPA.
  31. stack_layers (VIT_TPU_STACK_LAYERS: g whole layers in one launch)
      against the chain of 7g launches, bitwise, its last layer against the
      twin's step within the whole layer's bounds and the whole stack against
@@ -1142,6 +1147,25 @@ def flash_cases(fa, dev, gen):
     return cases, packed
 
 
+def flash_edge_cases(packed, dev, gen):
+    """Phase 12's edge cases of flash_fwd's 64-key ring and head-ordered grid,
+    drawn from ``gen``: keys that fill no whole tile (m = 1000, 130), one
+    query and 129 queries, the packs' ids cut to 1000 tokens; rows of norm
+    sqrt(64) as flash_cases'."""
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    def operands(b, n, m):
+        q, k, v = (torch.randn(b, HEADS, r, DH, generator=gen, device=dev) for r in (n, m, m))
+        return fa.rms_norm(q, 1.0).to(torch.bfloat16), fa.rms_norm(k, 1.0).to(torch.bfloat16), v.to(torch.bfloat16)
+
+    ids = packed.image_ids[:2, :1000].contiguous()
+    return (
+        ("no ids, n=1 m=1000", *operands(2, 1, 1000), None, None, DH**-0.5),
+        ("no ids, n=129 m=130", *operands(2, 129, 130), None, None, DH**-0.5),
+        ("ids, n=m=1000", *operands(2, 1000, 1000), ids, ids, 1.0),
+    )
+
+
 def check_flash(fa, dev, gen):
     """Phase 12: each flash kernel against its plain twin, and the Function
     against autograd through the materialized twin in f32, on the packed,
@@ -1154,9 +1178,12 @@ def check_flash(fa, dev, gen):
     log(f"  tiles admitted by the skip test at the packed shape ({NAVIT_PACKS} packs x {NAVIT_SEQ} tokens, "
         f"{fa.BLOCK_Q}x{fa.BLOCK_K} tiles): {admitted.float().mean().item():.4f} of {admitted.numel()}")
     errs = {name: 0.0 for name in TPU_FLASH}
-    for name, q, k, v, qs, ks, scale in cases:
+    egen = torch.Generator(device=dev).manual_seed(SEED + 12)  # the edges' own: later phases keep their inputs
+    edges = flash_edge_cases(packed, dev, egen)
+    log(f"  and the edges of flash_fwd's ring: {', '.join(case[0] for case in edges)}")
+    for (name, q, k, v, qs, ks, scale), g in [(case, gen) for case in cases] + [(case, egen) for case in edges]:
         kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
-        do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
         with torch.inference_mode():
             o, lse = fa.flash_fwd(q, k, v, **kw)
             o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw)
@@ -2506,6 +2533,16 @@ QK_ROW_SPREAD = 1.5
 # reads the same within ~1% on every draw: the distance is the bf16 rounding
 # of q^ and k^, which the JAX kernel shares, not a kernel fault (suspect 5,
 # PERF.md §7).  The bound holds for this draw, not for any draw.
+# The o check of the [qknorm] instantiations (here and in phase 28) holds
+# the kernel to the twin fed the kernels' own q^ and k^ (kernel_order_hats,
+# bitwise the kernels' operands: the kernel with gammas and without them
+# on those hats give the same o, bit for bit), with the attention bounds:
+# against the twin's q^ and k^, which round a few hundred elements in 10^8
+# the other way, fresh draws read o up to 3.9x the bound, and the twin on
+# the kernels' hats reads the same distance from the twin on its own, while
+# the kernel fed either pair reads at most 0.79x of it from the twin fed the
+# same pair (chip_suspect6.py): two valid roundings of q^ and k^, not a
+# kernel fault (suspect 6, PERF.md §7).
 QK_LSE_ATOL = 2.5e-2
 # Suspect 5: that f32 check reads more on other draws.  Phase 25 repeats it,
 # logged and not bounded, over QK_F32_DRAWS fresh draws of its cases at rate
@@ -2527,6 +2564,44 @@ NAVIT_3D_SHAPES = ((8, 256, 256), (4, 256, 128), (8, 128, 128), (2, 256, 256), (
 def fuse_qknorm(on=True):
     """VIT_TPU_FUSE_QKNORM set to 1 (or unset) for a ``with`` block."""
     return env_switch({"VIT_TPU_FUSE_QKNORM": "1"} if on else {}, ("VIT_TPU_FUSE_QKNORM",))
+
+
+def kernel_order_rms(x, gamma, keeps_rows: bool):
+    """q^ or k^ as the flash kernels round them: the twin's
+    ``rms_tile_reference`` with the sum of squares taken in the kernels' f32
+    order, so that it is bitwise the kernels' operand.  Each square of a
+    bf16 element is exact in f32, so only the order of the additions counts:
+    ``keeps_rows`` (q, which each thread keeps as mma A fragments,
+    ``rms_norm_a_rows``): lane t of a quad adds the pair sums x[c]^2 +
+    x[c+1]^2 of columns c = 8j + 2t for j = 0..7 in turn, then the quad
+    adds (s0 + s1) + (s2 + s3); else (k, normalised in its ring stage,
+    ``rms_norm_rows``): lane c of 8 adds x[8c..8c+7]^2 in turn, then the
+    shuffles add ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7)).  x is
+    (b, h, rows, 64) bf16, gamma any shape reshaping to (h, 64)."""
+    x32 = x.float()
+    sq = x32 * x32
+    if keeps_rows:
+        pairs = (sq[..., 0::2] + sq[..., 1::2]).unflatten(-1, (8, 4))  # [j][t]
+        lanes = pairs[..., 0, :]
+        for j in range(1, 8):
+            lanes = lanes + pairs[..., j, :]
+        ss = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+    else:
+        chunks = sq.unflatten(-1, (8, 8))  # [lane][element]
+        lanes = chunks[..., 0]
+        for e in range(1, 8):
+            lanes = lanes + chunks[..., e]
+        ss = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])) + (
+            (lanes[..., 4] + lanes[..., 5]) + (lanes[..., 6] + lanes[..., 7]))
+    r = torch.rsqrt(ss + 1e-12)[..., None]
+    g = gamma.float().reshape(x.shape[1], 1, x.shape[-1])
+    return (x32 * r * (g * x.shape[-1] ** 0.5)).to(x.dtype)
+
+
+def kernel_order_hats(q, k, gq, gk):
+    """(q^, k^) of the flash kernels' in-tile qk-norm, bitwise: see
+    :func:`kernel_order_rms`."""
+    return kernel_order_rms(q, gq, True), kernel_order_rms(k, gk, False)
 
 
 def qk_gamma_pair(gen, dev):
@@ -2567,6 +2642,8 @@ def check_flash_qknorm(fa, dev, gen):
             with torch.inference_mode():
                 o, lse = fa.flash_fwd(q, k, v, **kw, **dkw, **gkw)
                 o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw, **dkw, **gkw)
+                # o against the twin fed the kernels' own q^ and k^ (suspect 6)
+                o_want = fa.flash_fwd_reference(*kernel_order_hats(q, k, gq, gk), v, **kw, **dkw)[0]
                 errs[fwd] = max(errs[fwd], compare_or_zero(f"{fwd} o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
                 if name == "packed, q = 0" and rate:
                     l2 = rel_l2(o, o_want)
@@ -2632,10 +2709,11 @@ def qk_vs_f32_draws(fa, dev):
         overall = {r: dict.fromkeys(parts, (0.0, "")) for r in routes}
         above = dict.fromkeys(routes, 0)
         o_excess, o_above = (0.0, ""), 0
+        h_excess, h_above = (0.0, ""), 0
         for draw in range(draws):
             cases, (gq, gk) = flash_qk_cases(fa, dev, gen)
             worst = {r: dict.fromkeys(parts, (0.0, "")) for r in routes}
-            draw_excess = (0.0, "")
+            draw_excess = hat_excess = (0.0, "")
             for name, q, k, v, qs, ks, scale in cases:
                 do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
                 fkw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks, dropout_rate=rate,
@@ -2655,6 +2733,12 @@ def qk_vs_f32_draws(fa, dev):
                 o_k, o_t = outs["kernel"].float(), outs["twins"].float()
                 ratio = ((o_k - o_t).abs() / (ATTN_ATOL + ATTN_RTOL * o_t.abs())).max().item()
                 draw_excess = max(draw_excess, (ratio, name))
+                with torch.inference_mode():  # suspect 6: the twin fed the kernels' own q^ and k^
+                    o_h = fa.flash_fwd_reference(*kernel_order_hats(q, k, gq, gk), v, scale=scale, q_segment_ids=qs,
+                                                 kv_segment_ids=ks, dropout_rate=rate,
+                                                 seed=DROP_SEED if rate else None)[0].float()
+                hat_excess = max(hat_excess, (((o_k - o_h).abs() / (ATTN_ATOL + ATTN_RTOL * o_h.abs())).max().item(),
+                                              name))
                 del ref, out_ref, want, leaves, out, got, outs
             sync()
             for route in routes:
@@ -2662,13 +2746,16 @@ def qk_vs_f32_draws(fa, dev):
                     overall[route][part] = max(overall[route][part], worst[route][part])
                 above[route] += max(v for v, _ in worst[route].values()) > FLASH_VS_F32_REL_L2
             o_excess, o_above = max(o_excess, draw_excess), o_above + (draw_excess[0] > 1)
+            h_excess, h_above = max(h_excess, hat_excess), h_above + (hat_excess[0] > 1)
             log(f"  suspect 5, rate {rate}, draw {draw}: worst rel L2 vs f32: kernel {fmt(worst['kernel'])}; "
-                f"twins {fmt(worst['twins'])}; o kernel vs twins {draw_excess[0]:.3f} of the bound ({draw_excess[1]})")
+                f"twins {fmt(worst['twins'])}; o kernel vs twins {draw_excess[0]:.3f} of the bound ({draw_excess[1]}), "
+                f"vs the twin on the kernels' q^ and k^ {hat_excess[0]:.3f} ({hat_excess[1]})")
         for route in routes:
             log(f"  suspect 5, rate {rate}, {route} over {draws} draws: worst {fmt(overall[route])}; "
                 f"{above[route]} draws above {FLASH_VS_F32_REL_L2}")
         log(f"  suspect 5, rate {rate}, o kernel vs twins over {draws} draws: worst {o_excess[0]:.3f} of the bound "
-            f"|d| <= {ATTN_ATOL} + {ATTN_RTOL}|want| ({o_excess[1]}); {o_above} draws above it")
+            f"|d| <= {ATTN_ATOL} + {ATTN_RTOL}|want| ({o_excess[1]}); {o_above} draws above it; vs the twin on the "
+            f"kernels' q^ and k^ (phase 25's o check): worst {h_excess[0]:.3f} ({h_excess[1]}); {h_above} draws above it")
 
 
 def navit_3d_videos(seed):
@@ -2967,6 +3054,24 @@ SHORT_SHAPES = ((49, 49), (197, 197), (577, 577), (1024, 1024), (65, 130), (577,
 # p.v product casts 1/m, which bf16 rounds (by 1.1e-3 at m = 49, 2.0e-3 at
 # 197), so the rel L2 bound of phase 22's uniform case refuses it.
 SHORT_UNIFORM_M = (49, 197, 577)
+# Phase 28's edges of the kernels' 64-key ring and head-ordered grid (their
+# own generator): keys that fill no whole tile (130, 1000), one query, 129
+# queries, and a small grid whose batch and head counts differ (b = 3, h =
+# 2); the short kernel as (b, h, n, m), each without a bias and with an f32
+# and a bf16 per-head table (batch stride 0; at m = 130 an f32 row of 520
+# bytes is no whole number of 16-byte chunks: the element-wise staging)
+SHORT_EDGES = ((B_SHORT, HEADS, 1, 130), (B_SHORT, HEADS, 129, 1000), (B_SHORT, HEADS, 1000, 1000), (3, 2, 129, 130))
+# flash_fwd's as (label, b, h, n, m, bias shape before (n, m) or None, bias
+# dtype, causal)
+FLASH_EDGES = (
+    ("(1, h) f32 bias, b=3 h=2, n=129 m=130", 3, 2, 129, 130, (1, 2), torch.float32, False),
+    ("(b, 1) f32 bias, n=129 m=1000", 2, HEADS, 129, 1000, (2, 1), torch.float32, False),
+    ("(1, h) bf16 bias, n=1 m=1000", 2, HEADS, 1, 1000, (1, HEADS), torch.bfloat16, False),
+    ("(b, h) f32 bias, causal, n=1000 m=130", 2, HEADS, 1000, 130, (2, HEADS), torch.float32, True),
+    ("(1, h) f32 bias, causal, n=129 m=1000", 3, 2, 129, 1000, (1, 2), torch.float32, True),
+    ("causal, n=1000 m=130", 2, HEADS, 1000, 130, None, None, True),
+    ("causal, b=3 h=2, n=129 m=1000", 3, 2, 129, 1000, None, None, True),
+)
 SIMPLE_512 = dict(image_size=512, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP)
 SIMPLE_512_N = (SIMPLE_512["image_size"] // SIMPLE_512["patch_size"]) ** 2  # 1024
 SIMPLE_512_BUCKETS, SIMPLE_512_REQUESTS = (1, 8, 32), (1, 5, 32)
@@ -3021,6 +3126,37 @@ def plain_short(admit_fp32=False):
         attention.short_attention, attention.short_supported = saved
 
 
+def check_short_flash_edges(fa, sa, dev, errs):
+    """Phase 28's edge cases of the ring and the head-ordered grid, from a
+    generator of their own (the later phases keep their inputs): the short
+    kernel at SHORT_EDGES, no bias and an f32 and a bf16 per-head table;
+    flash_fwd[bias] / [bias,causal] and [causal] at FLASH_EDGES.  Adds each
+    variant's max_abs to ``errs``."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    scale = DH**-0.5
+    for b, h, n, m in SHORT_EDGES:
+        q, k, v = rn(b, h, n, DH).to(bf16), rn(b, h, m, DH).to(bf16), rn(b, h, m, DH).to(bf16)
+        bias = rn(h, n, m)
+        for label, bb in (("", None), (", bias f32", bias), (", bias bf16", bias.to(bf16))):
+            name = "short_attention" if bb is None else "short_attention[bias]"
+            errs[name] = max(errs[name], compare(
+                f"{name} [b={b} h={h} n={n} m={m}{label}]", sa.short_fwd(q, k, v, scale=scale, bias=bb),
+                sa.short_attention_reference(q, k, v, scale=scale, bias=bb), ATTN_ATOL, ATTN_RTOL))
+    for label, b, h, n, m, bias_shape, bias_dtype, causal in FLASH_EDGES:
+        q, k, v = rn(b, h, n, DH).to(bf16), rn(b, h, m, DH).to(bf16), rn(b, h, m, DH).to(bf16)
+        bias = None if bias_shape is None else rn(*bias_shape, n, m).to(bias_dtype)
+        name = fa._counter("flash_fwd", causal=causal, bias=bias is not None)
+        kw = dict(scale=scale, causal=causal, bias=bias)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw)
+        errs[name] = max(errs[name], compare(f"{name} o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+        errs[name] = max(errs[name], compare(f"{name} lse [{label}]", lse, lse_want, FLASH_LSE_ATOL, FLASH_LSE_RTOL,
+                                             F32_REL_L2))
+    sync()
+
+
 def check_short_causal_bias(fa, dev, gen):
     """Phase 28: the short kernel (no bias, an f32 and a bf16 per-head bias)
     against its twin at b x h = 32 x 12 and n, m in SHORT_SHAPES, and at q =
@@ -3061,6 +3197,7 @@ def check_short_causal_bias(fa, dev, gen):
                     fail("short_attention rounds p elsewhere than its twin (the uniform case)")
             del q, k, v, bias
         sync()
+        check_short_flash_edges(fa, sa, dev, errs)
 
         cases, _ = flash_cases(fa, dev, gen)
         _, qp, kp, vp, ids, _, _ = cases[0]  # the two 2048-token packs
@@ -3090,6 +3227,9 @@ def check_short_causal_bias(fa, dev, gen):
                 fwd, dq_name, dkv_name = (f"{name}{tag}" for name in TPU_FLASH)
                 o, lse = fa.flash_fwd(q, k, v, **kw, **dkw)
                 o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw, **dkw)
+                if gammas:  # o against the twin fed the kernels' own q^ and k^ (suspect 6)
+                    o_want = fa.flash_fwd_reference(*kernel_order_hats(q, k, gq, gk), v, **kw, dropout_rate=rate,
+                                                    seed=DROP_SEED if rate else None)[0]
                 errs[fwd] = max(errs[fwd], compare(f"{fwd} o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
                 live = lse_want > 0.5 * fa.NEG_INF
                 if not bool((lse[~live] == fa.NEG_INF).all()):
@@ -3418,6 +3558,15 @@ def time_short_causal_bias(fa, dev, gen, smi):
         pairs = causal_pairs(n, n)
         log(f"  each flash variant at {b} x {HEADS} heads x {n} tokens, no ids ({pairs / n / n:.4f} of the pairs "
             f"visible under the causal mask); the backward twin computes dq, dk and dv at once:")
+        # flash_fwd without options at this shape, the base of the [bias] and
+        # [causal] ratios (logged; the kernels line's flash_fwd entry is the
+        # NaViT packs')
+        km, pm = in_turns(lambda: fa.flash_fwd(q, k, v, scale=DH**-0.5),
+                          lambda: fa.flash_fwd_reference(q, k, v, scale=DH**-0.5), 3)
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
+        bound, by = bound_ms(pair_work("flash_fwd", b, n, n, n * n))
+        log(f"  flash_fwd (no options): kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}), library "
+            f"{lib_ms:.4f} ms (SDPA)")
         for tag in CAUSAL_TAGS:
             rate, gammas = (RATE if "dropout" in tag else 0.0), "qknorm" in tag
             kw = dict(scale=DH**-0.5, causal=True, dropout_rate=rate, seed=DROP_SEED if rate else None)

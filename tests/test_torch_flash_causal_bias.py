@@ -51,6 +51,11 @@ CASES = {
     "bias (b, h)": (2, 2, 128, 160, False, "bh", False),
     "bias causal": (2, 2, 192, 192, True, "1h", False),
     "bias segments": (2, 2, 256, 256, False, "bh", True),
+    # the edges of the card kernel's 64-key ring and head-ordered grid
+    "causal n = 129, m = 1000": (1, 2, 129, 1000, True, None, False),
+    "bias (b, h) n = 1, m = 130": (2, 2, 1, 130, False, "bh", False),
+    "bias (1, h) b = 3, h = 2": (3, 2, 129, 130, False, "1h", False),
+    "bias (b, 1) m = 1000": (2, 2, 129, 1000, False, "b1", False),
 }
 
 

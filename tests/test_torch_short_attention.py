@@ -35,6 +35,10 @@ CASES = {  # name: b, h, n, m, d
     "three heads": (2, 3, 49, 49, 32),
     "levit n != m": (1, 8, 65, 130, 64),
     "m = 1024": (1, 2, 1024, 1024, 64),
+    # the edges of the card kernel's 64-key ring and head-ordered grid
+    "m = 1000": (1, 2, 129, 1000, 64),
+    "n = 1, m = 130": (2, 2, 1, 130, 64),
+    "b = 3, h = 2": (3, 2, 129, 130, 64),
 }
 
 

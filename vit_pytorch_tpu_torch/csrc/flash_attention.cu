@@ -30,19 +30,19 @@
 //
 // Bias (_fwd_kernel :241-242, its index map :559-587): a (1|b, 1|h, n, m)
 // f32 or bf16 table, the broadcast dims given zero strides (never copied),
-// read straight from device memory by each thread for its own accumulator
-// elements, and only where the element mask admits them (rows past n and keys
-// past m are never read); upcast to f32 and added after the scale, before the
-// mask.  Its backward is the composite (JAX _bwd :879-891), so only the
+// staged tile by tile in flash_fwd's ring (rows past n and keys past m are
+// never read) and read from there by each thread for its own accumulator
+// elements; upcast to f32 and added after the scale, before the mask.  The
+// head-ordered grid runs a batch-stride-0 table's images side by side.  Its backward is the composite (JAX _bwd :879-891), so only the
 // forward has the variant, and the lse it writes is not kept.
 //
 // The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
 // sequential and carry the online-softmax state (or the dq / dk, dv sums) in
 // VMEM scratch from one grid step to the next.  An H100 runs blocks in no
 // order, so here the sequential axis is a loop inside the block: one block
-// of 4 warps per (q-tile, b*h) for flash_fwd and flash_bwd_dq, looping over
-// kv-tiles, and one per (kv-tile, b*h) for flash_bwd_dkv, looping over
-// q-tiles.  Every sum a block makes stays in its registers, so the result
+// of 4 warps per (q-tile, b*h) for flash_bwd_dq and per (q-tile, image,
+// head) for flash_fwd, looping over kv-tiles, and one per (kv-tile, b*h) for
+// flash_bwd_dkv, looping over q-tiles.  Every sum a block makes stays in its registers, so the result
 // does not depend on block order.
 //
 // Bound on this card: at NaViT-B's 2048-token packs the products are
@@ -52,7 +52,8 @@
 // gigabytes in device memory, so they never leave the registers.  The
 // limit is tensor-core throughput and the tiles a block must visit.
 //
-// Design:
+// Design (of the backward kernels; flash_fwd's is in its section below and
+// in attn_wgmma.cuh: wgmma on both products, a three-stage ring):
 //  - Tiles are the H100's own, 64 query rows x 64 keys (not the TPU's
 //    1024/512): each warp owns 16 query rows (16 keys in flash_bwd_dkv), and
 //    a 64x64 tile of s = q.k^T is 8 x 4 mma.sync m16n8k16 a warp, with f32
@@ -74,7 +75,9 @@
 //    the skip is uniform across the block and needs no barrier; the ring
 //    prefetches the next admitted tile.  The test is conservative: the
 //    element mask still decides every (query, key) pair.  The same
-//    predicate is ops/flash_attention.py::tile_admitted on the host.
+//    predicate is ops/flash_attention.py::tile_admitted on the host
+//    (flash_fwd's blocks of two 64-query tiles run a key tile that either
+//    admits).
 //  - Strided operands: q, k, v, o, dO, dq, dk, dv are (b, h, rows, 64) with
 //    any (b, h, row) strides and a contiguous head dim, so the merged-heads
 //    (b, n, h*dh) layout of the model's projections needs no copy.
@@ -149,10 +152,13 @@
 // is cast once; ds = p * (dp - delta) in f32 with delta = rowsum(dO * o)
 // computed in f32 outside the kernels (_flash_backward :680-685), cast to
 // bf16 before ds.k and ds^T.q; dq, dk, dv accumulate in f32 and are cast
-// once (scale applied to the f32 sums).  exp is exp2f of the argument times
-// log2(e).  No result depends on the tile size except f32 summation order.
+// once (scale applied to the f32 sums).  exp is 2^x of the argument times
+// log2(e): exp2f in the backward, exp2_ftz (attn_wgmma.cuh) for flash_fwd's
+// p.  No result depends on the tile size except f32 summation order.
 
-#include "flash_tiles.cuh"
+#include <type_traits>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -162,10 +168,11 @@ constexpr int kFlashKeepTile = kFlashTile * kFlashKeepWords;      // 128 words: 
 constexpr int kKeepSmem = 2 * kFlashKeepTile * 4;                 // a keep tile per ring stage
 constexpr int kGammaSmem = kFlashDh * 4;                          // qk-norm: the ring operand's f32 gammas
 
-// shared memory: two ring stages of two bf16 tiles, and per stage 64 ids
-// (flash_bwd_dkv also 64 lse and 64 delta); with dropout a keep tile a
-// stage; with qk-norm the 64 gammas of the operand the ring carries
-constexpr int kFwdSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
+// shared memory of the backward kernels: two ring stages of two bf16
+// tiles, and per stage 64 ids (flash_bwd_dkv also 64 lse and 64 delta);
+// with dropout a keep tile a stage; with qk-norm the 64 gammas of the
+// operand the ring carries
+constexpr int kDqSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
 constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
 
 struct FlashArgs {
@@ -188,6 +195,7 @@ struct FlashArgs {
   int causal;  // key c visible to query r iff c <= r (top-left aligned)
   float scale;
   DropoutArgs drop;  // read by the kDropout instantiations only
+  int batch;        // flash_fwd's grid (grid_pos)
 };
 
 // The segment id of row r of a (b, len) id array: -1 past len; without ids
@@ -396,95 +404,219 @@ __device__ __forceinline__ void keep_to_a_frags(uint32_t (&f)[4][4], const float
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd: one block per (64-query tile, b*h); loops over the admitted
-// kv-tiles with the online softmax of _fwd_kernel in registers: per tile
-// m_new = max(m, rowmax(s)), p = exp(s - m_new) (0 where masked),
-// l = exp(m - m_new) * l + rowsum(p), acc = acc * exp(m - m_new) + bf16(p).v;
-// with dropout p is masked after l takes its sum, and o = acc * (inv / l).
+// flash_fwd: one block of one warpgroup per (64-query tile, image, head), in
+// grid_pos's head-ordered 1-D grid (heaviest query tiles first when causal);
+// loops over the admitted kv-tiles with the online softmax of _fwd_kernel in
+// registers: per tile m_new = max(m, rowmax(s)), p = exp(s - m_new) (0 where
+// masked), l = exp(m - m_new) * l + rowsum(p), acc = acc * exp(m - m_new) +
+// bf16(p).v; with dropout p is masked after l takes its sum, and o = acc *
+// (inv / l).  Both products are wgmma (attn_wgmma.cuh): s = q.k^T with q in
+// registers (read once) and the ring's k tile, acc += bf16(p).v with p in
+// registers and the v tile MN-major, p.v of one tile beside the softmax of
+// the next.  The ring holds three stages, each a k and a v tile, their 64
+// key ids, with dropout their keep tile and with a bias its 64 x 64 tile.
+// With qk-norm q is normalised in registers once (rms_norm_a_rows), and
+// each k stage in place once it has landed (rms_norm_tile_sw, the order of
+// rms_norm_rows through the swizzle).
 // ---------------------------------------------------------------------------
 
-template <bool kDropout, bool kQkNorm, bool kBias>
-__global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: K at 2s, V at 2s + 1
-  int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);  // stage s: 64 key ids
-  uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);  // stage s: its keep tile (dropout)
-  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: k's gammas
+// warpgroups a block (64 queries each, sharing the ring), by instantiation
+__host__ __device__ constexpr int fwd_wgs(bool drop, bool qknorm, bool bias) { return drop || bias ? 1 : 2; }
 
-  const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// ring stages, by instantiation: the tiles of iteration i + stages - 1 are
+// copied while iteration i computes (a bias stage is large: with two,
+// three blocks fit an SM)
+__host__ __device__ constexpr int fwd_ring(bool drop, bool qknorm, bool bias) { return bias ? 2 : 3; }
+
+// the ring's K and V tiles (stage s's K at 2s, V at 2s + 1), then per stage
+// the bias tile of 64 * wgs query rows, the K and V mbarriers, the 64 key
+// ids, the keep tile
+constexpr int fwd_smem(bool drop, bool qknorm, bool bias) {
+  return kWgAlign +
+         fwd_ring(drop, qknorm, bias) *
+             (2 * kSwTileBytes + (bias ? fwd_wgs(drop, qknorm, bias) * kBiasTileBytes : 0) + 2 * 8 + kFlashTile * 4 +
+              (drop ? fwd_wgs(drop, qknorm, bias) * kFlashKeepTile * 4 : 0)) +
+         (qknorm ? kGammaSmem : 0);
+}
+
+// blocks an SM an instantiation is built for: the dropout ones four (128
+// registers; at NaViT's packs a block walks a few tiles, and its fixed
+// costs want more blocks in flight), the others as wg_blocks
+__host__ __device__ constexpr int fwd_blocks(bool drop, bool qknorm, bool bias) {
+  return drop ? 4 : wg_blocks(fwd_wgs(drop, qknorm, bias));
+}
+
+template <bool kDropout, bool kQkNorm, bool kBias>
+__global__ void __launch_bounds__(kFlashThreads * fwd_wgs(kDropout, kQkNorm, kBias),
+                                  fwd_blocks(kDropout, kQkNorm, kBias))
+    flash_fwd_kernel(FlashArgs a, const __grid_constant__ TmaMaps maps) {
+  constexpr int kWgs = fwd_wgs(kDropout, kQkNorm, kBias), kThreads = kFlashThreads * kWgs;
+  constexpr int kRows = kFlashTile * kWgs, kBiasStage = kWgs * kBiasTileBytes, kKeepStage = kWgs * kFlashKeepTile;
+  constexpr int kStages = fwd_ring(kDropout, kQkNorm, kBias), kAhead = kStages - 1;
+  extern __shared__ unsigned char flash_fwd_raw[];
+  unsigned char* smem = aligned_smem(flash_fwd_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem);                  // stage s: K at 2s, V at 2s + 1
+  unsigned char* bias_ring = smem + 2 * kStages * kSwTileBytes;  // stage s: its bias tile (bias)
+  // stage s's mbarriers: its K (and bias) copies at kfull[s], its V at vfull[s]
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(bias_ring + (kBias ? kStages * kBiasStage : 0));
+  uint64_t* vfull = kfull + kStages;
+  int* kids = reinterpret_cast<int*>(vfull + kStages);  // stage s: 64 key ids
+  uint32_t* keep = reinterpret_cast<uint32_t*>(kids + kStages * kFlashTile);  // stage s: its keep tile (dropout)
+  float* gring = reinterpret_cast<float*>(keep + (kDropout ? kStages * kKeepStage : 0));  // qk-norm: k's gammas
+
+  const int nkt = (a.m + kFlashTile - 1) / kFlashTile;
+  const GridPos pos = grid_pos(a.batch, (a.n + kRows - 1) / kRows, a.causal);
+  const int b = pos.b, h = pos.h, q0 = pos.qt * kRows, bh = b * a.heads + h;
+  const int wg = threadIdx.x / kFlashThreads, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = (q0 + wg * kFlashTile) / kFlashTile;  // this warpgroup's 64-query tile
   const bool segs = a.qseg != nullptr;
   const int* qseg = segs ? a.qseg + b * a.n : nullptr;
   const int* kseg = segs ? a.kseg + b * a.m : nullptr;
-  const bf16* kb = head_ptr(a.k, a.sk, b, h);
-  const bf16* vb = head_ptr(a.v, a.sv, b, h);
-  const int nk = a.causal ? causal_key_tiles(blockIdx.x, (a.m + kFlashTile - 1) / kFlashTile)
-                          : (a.m + kFlashTile - 1) / kFlashTile;
+  // the block's last 64-query tile bounds the causal loop
+  const int nk = a.causal ? causal_key_tiles((q0 + kRows - 1) / kFlashTile, nkt) : nkt;
+  // this (image, head)'s bias rows from the query tile's first, 0 strides on
+  // the broadcast dims
+  const BiasTable bt{kBias ? static_cast<const char*>(a.bias) +
+                                 (b * a.sbias.b + h * a.sbias.h + q0 * a.sbias.row) * (a.bias_bf16 ? 2 : 4)
+                           : nullptr,
+                     a.sbias.row, a.bias_bf16, a.sbias.h ? h : 0, a.sbias.b ? b : 0};
 
   const uint32_t stream = dropout_stream(b, h);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kStages; ++i) mbar_init(kfull + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t kphase = 0u, vphase = 0u;  // bit s: the parity stage s's barrier is waited for next
+
+  // ring stage `stage` for kv-tile jt: k and the bias tile (the TMA, one
+  // thread), the key ids, the keep tile (prefetch), and v (prefetch_v, one
+  // iteration later: the pipelined loop of attn_wgmma.cuh)
+  auto prefetch = [&](int stage, int jt) {
+    [[maybe_unused]] const bool bias_tma = kBias && maps.bias_tma;
+    if (threadIdx.x == 0) {
+      uint32_t bytes = kSwTileBytes;
+      if constexpr (kBias) bytes += bias_tma ? bias_tile_bytes<kRows>(a.bias_bf16) : 0u;
+      mbar_expect(kfull + stage, bytes);
+      tma_load(ring + 2 * stage * kSwTile, maps.k, 0, jt * kFlashTile, h, b, kfull + stage);
+      if constexpr (kBias)
+        if (bias_tma)
+          tma_bias_tile<kRows>(bias_ring + stage * kBiasStage, maps, bt, q0, jt * kFlashTile, kfull + stage);
+    }
+    if (threadIdx.x < kFlashTile)
+      kids[stage * kFlashTile + threadIdx.x] = seg_id(kseg, jt * kFlashTile + threadIdx.x, a.m);
+    if constexpr (kDropout)
+      fill_keep_tile<kRows, kFlashKeepWords, kThreads>(keep + stage * kKeepStage, a.drop, stream, q0, jt * kFlashTile,
+                                                       a.n, a.m);
+    if constexpr (kBias)
+      if (!bias_tma)
+        load_bias_elems<kRows, kThreads>(bias_ring + stage * kBiasStage, bt, jt * kFlashTile, a.n - q0, a.m);
+  };
+  auto prefetch_v = [&](int stage, int jt) {
+    if (threadIdx.x == 0) {
+      mbar_expect(vfull + stage, kSwTileBytes);
+      tma_load(ring + (2 * stage + 1) * kSwTile, maps.v, 0, jt * kFlashTile, h, b, vfull + stage);
+    }
+  };
+  auto wait_v = [&](int stage) {
+    mbar_wait(vfull + stage, (vphase >> stage) & 1u);
+    vphase ^= 1u << stage;
+  };
 
   int qlo = 0, qhi = 0;
-  if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
-  int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
-  if (j < nk) {
-    prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
-    if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
+  if (segs) {
+    seg_range(qseg, q0, a.n, qlo, qhi);
+    for (int r = kFlashTile; r < kRows; r += kFlashTile) {  // the id range of all the block's queries
+      int lo, hi;
+      seg_range(qseg, q0 + r, a.n, lo, hi);
+      qlo = min(qlo, lo);
+      qhi = max(qhi, hi);
+    }
   }
-  cp_async_commit();
-  if constexpr (kQkNorm) stage_gammas(gring, a.gk + h * kFlashDh);
+  // jq[i]: the admitted tile of iteration it + i (nk or more: none);
+  // iteration it fills k of jq[kAhead] and v of jq[kAhead - 1]
+  int jq[kAhead + 1];
+  jq[0] = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
+#pragma unroll
+  for (int i = 1; i <= kAhead; ++i) jq[i] = next_admitted(kseg, a.m, nk, jq[i - 1] + 1, qlo, qhi);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    if (jq[i] < nk) prefetch(i, jq[i]);
+    if (i > 0 && jq[i - 1] < nk) prefetch_v(i - 1, jq[i - 1]);
+  }
 
-  const int row_lo = q0 + warp * 16 + g;
+  const int lr = wg * kFlashTile + warp * 16 + g, row_lo = q0 + lr;  // rows lr, lr + 8 of the block's tile
+  if constexpr (kQkNorm) stage_gammas(gring, a.gk + h * kFlashDh);
   uint32_t qf[kFlashDh / 16][4];
   load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
   if constexpr (kQkNorm) rms_norm_a_rows(qf, a.gq + h * kFlashDh, t);
   const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
-  // bias rows row_lo and row_lo + 8 of this (image, head); read only where valid
-  const long long brow0 = b * a.sbias.b + h * a.sbias.h + row_lo * a.sbias.row, brow1 = brow0 + 8 * a.sbias.row;
 
   float o[8][4];
 #pragma unroll
   for (int dj = 0; dj < 8; ++dj) o[dj][0] = o[dj][1] = o[dj][2] = o[dj][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  uint32_t pf[4][4];  // bf16(p) of the previous tile, the A operand of its p.v
 
-  for (int stage = 0; j < nk; stage ^= 1) {
-    const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
-    if (jn < nk) {
-      prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
-      if constexpr (kDropout) fill_flash_keep(keep, stage ^ 1, a, stream, q0, jn * kFlashTile);
+  // the top of iteration it: every reader of the stages refilled here is
+  // done; then tile jq[0]'s k (ids, keep, bias) have landed (with qk-norm k
+  // is normalised in place, behind one more barrier)
+  auto top = [&](int it) {
+    fence_proxy_async();  // generic reads and writes of the stages before the copies' async writes
+    __syncthreads();
+    if (jq[kAhead] < nk) prefetch((it + kAhead) % kStages, jq[kAhead]);
+    if (jq[kAhead - 1] < nk) prefetch_v((it + kAhead - 1) % kStages, jq[kAhead - 1]);
+    const int stage = it % kStages;
+    mbar_wait(kfull + stage, (kphase >> stage) & 1u);
+    kphase ^= 1u << stage;
+    if constexpr (kQkNorm) {
+      rms_norm_tile_sw<kThreads>(ring + 2 * stage * kSwTile, gring);
+      fence_proxy_async();
+      __syncthreads();
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // tile j landed
-    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
+  };
 
-    const bf16* ks = ring + 2 * stage * kTileElems;
-    const bf16* vs = ks + kTileElems;
+  // tile jq[0]'s logits (in s) to p: scale, bias, element mask, the online
+  // max and l; returns the factor acc must be rescaled by, row g (x) and
+  // g + 8 (y).  A tile with no ids and every key below m (kFull, a
+  // std::bool_constant) tests no element: rows past n are not stored.
+  auto softmax_tile = [&](float (&s)[8][4], int stage, auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    const int j = jq[0];
     const int* ids = kids + stage * kFlashTile;
-    float s[8][4];
-    mma_rows_t(s, qf, ks, g, t);
+    [[maybe_unused]] const unsigned char* bstage = bias_ring + stage * kBiasStage;
+    // the causal triangle on the warpgroup's diagonal tile (and, for the
+    // block's first warpgroups, the tiles past it: every key hidden); every
+    // earlier key is visible to the whole tile (a branch uniform across
+    // the warpgroup)
+    if (a.causal && j >= qt) hide_above_diagonal<false>(s, a, row_lo, j * kFlashTile, t);
 
-    // the causal triangle on the diagonal tile alone (a branch uniform
-    // across the block); every earlier key is visible to the whole tile
-    if (a.causal && j == static_cast<int>(blockIdx.x)) hide_above_diagonal<false>(s, a, row_lo, j * kFlashTile, t);
-
-    // scale, bias, element mask (valid bits: 4jj + e for row g, 4jj + 2 + e
-    // for g + 8)
-    uint32_t valid = 0u;
+    // scale, bias, element mask: a masked logit becomes -inf, so that its p
+    // = 2^(-inf) is exactly 0 and the max and l never see it (a row with no
+    // key keeps m = -1e30 and l = 0)
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
+      [[maybe_unused]] float2 bias0, bias1;
+      if constexpr (kBias) {
+        bias0 = bias_pair<kRows>(bstage, a.bias_bf16, lr, jj * 8 + 2 * t);
+        bias1 = bias_pair<kRows>(bstage, a.bias_bf16, lr + 8, jj * 8 + 2 * t);
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int id = ids[jj * 8 + 2 * t + e];
-        const bool v0 = qs0 >= 0 && id == qs0, v1 = qs1 >= 0 && id == qs1;
-        valid |= (static_cast<uint32_t>(v0) << (4 * jj + e)) | (static_cast<uint32_t>(v1) << (4 * jj + 2 + e));
+        bool v0 = true, v1 = true;
+        if constexpr (!kFull) {
+          const int id = ids[jj * 8 + 2 * t + e];
+          v0 = qs0 >= 0 && id == qs0;
+          v1 = qs1 >= 0 && id == qs1;
+        }
         if constexpr (kBias) {
-          const int c = j * kFlashTile + jj * 8 + 2 * t + e;
-          s[jj][e] = v0 ? scaled_biased(s[jj][e], a.scale, bias_at(a.bias, a.bias_bf16, brow0 + c)) : kNegInf;
-          s[jj][2 + e] = v1 ? scaled_biased(s[jj][2 + e], a.scale, bias_at(a.bias, a.bias_bf16, brow1 + c)) : kNegInf;
+          s[jj][e] = v0 ? scaled_biased(s[jj][e], a.scale, e ? bias0.y : bias0.x) : -CUDART_INF_F;
+          s[jj][2 + e] = v1 ? scaled_biased(s[jj][2 + e], a.scale, e ? bias1.y : bias1.x) : -CUDART_INF_F;
         } else {
-          s[jj][e] = v0 ? s[jj][e] * a.scale : kNegInf;
-          s[jj][2 + e] = v1 ? s[jj][2 + e] * a.scale : kNegInf;
+          s[jj][e] = v0 ? __fmul_rn(s[jj][e], a.scale) : -CUDART_INF_F;
+          s[jj][2 + e] = v1 ? __fmul_rn(s[jj][2 + e], a.scale) : -CUDART_INF_F;
         }
         mx0 = fmaxf(mx0, s[jj][e]);
         mx1 = fmaxf(mx1, s[jj][2 + e]);
@@ -496,9 +628,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        // p is 0 where masked, never exp of the masked logit (see the top)
-        s[jj][e] = (valid >> (4 * jj + e)) & 1u ? exp2f((s[jj][e] - mn0) * kLog2e) : 0.f;
-        s[jj][2 + e] = (valid >> (4 * jj + 2 + e)) & 1u ? exp2f((s[jj][2 + e] - mn1) * kLog2e) : 0.f;
+        s[jj][e] = exp2_ftz((s[jj][e] - mn0) * kLog2e);
+        s[jj][2 + e] = exp2_ftz((s[jj][2 + e] - mn1) * kLog2e);
         sum0 += s[jj][e];
         sum1 += s[jj][2 + e];
       }
@@ -508,22 +639,68 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(FlashArgs a) {
     l1 = al1 * l1 + quad_sum(sum1);
     m0 = mn0;
     m1 = mn1;
+    return make_float2(al0, al1);
+  };
+
+  // acc (holding every earlier tile's p.v) rescaled, then bf16(p) of tile j
+  // for its p.v; dropout: l has summed the undropped p, only p.v sees the mask
+  auto finish_tile = [&](float (&s)[8][4], float2 al, int stage) {
 #pragma unroll
     for (int dj = 0; dj < 8; ++dj) {
-      o[dj][0] *= al0;
-      o[dj][1] *= al0;
-      o[dj][2] *= al1;
-      o[dj][3] *= al1;
+      o[dj][0] *= al.x;
+      o[dj][1] *= al.x;
+      o[dj][2] *= al.y;
+      o[dj][3] *= al.y;
     }
-    // dropout: l has summed the undropped p; only p.v sees the mask
-    if constexpr (kDropout) apply_keep_bits(s, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), 1.f);
-    uint32_t pf[4][4];
+    if constexpr (kDropout) apply_keep_bits(s, keep_bits_rows(keep + stage * kKeepStage, lr, t), 1.f);
     to_a_frags(pf, s);
-    mma_acc(o, pf, vs, g, t);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    j = jn;
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) jq[i] = jq[i + 1];
+    jq[kAhead] = next_admitted(kseg, a.m, nk, jq[kAhead - 1] + 1, qlo, qhi);
+  };
+  auto softmax = [&](float (&s)[8][4], int stage) {
+    return !segs && (jq[0] + 1) * kFlashTile <= a.m ? softmax_tile(s, stage, std::true_type{})
+                                                     : softmax_tile(s, stage, std::false_type{});
+  };
+
+  // the loop, peeled so that every wgmma issue and wait is unconditional:
+  // the first admitted tile (no p.v yet), the rest (q.k^T of this tile beside
+  // p.v of the previous one), the last p.v
+  int it = 0;
+  if (jq[0] < nk) {
+    top(0);
+    float s[8][4];
+    wgmma_fence();
+    qk_issue(s, qf, ring);
+    wgmma_wait<0>();
+    fence_acc(s);
+    const float2 al = softmax(s, 0);
+    finish_tile(s, al, 0);
+    it = 1;
   }
-  cp_async_wait<0>();
+  for (; jq[0] < nk; ++it) {
+    const int stage = it % kStages;
+    top(it);
+    float s[8][4];
+    wait_v((it - 1) % kStages);
+    wgmma_fence();
+    qk_issue(s, qf, ring + 2 * stage * kSwTile);
+    pv_issue(o, pf, ring + (2 * ((it - 1) % kStages) + 1) * kSwTile);
+    wgmma_wait<1>();
+    fence_acc(s);
+    const float2 al = softmax(s, stage);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_frags(pf);
+    finish_tile(s, al, stage);
+  }
+  if (it > 0) {  // the last tile's p.v
+    wait_v((it - 1) % kStages);
+    wgmma_fence();
+    pv_issue(o, pf, ring + (2 * ((it - 1) % kStages) + 1) * kSwTile);
+    wgmma_wait<0>();
+    fence_acc(o);
+  }
 
   // _finish (:283-290): a row that met no key has l = 0: o = 0, lse = -1e30;
   // dropout's 1/(1 - rate) joins 1/l as one f32 factor
@@ -823,11 +1000,14 @@ int launch(FlashKernel kernel, const FlashArgs& a, int drop, int tiles, int batc
   return cudaGetLastError();
 }
 
-const FlashKernel kFwdKernels[4] = {flash_fwd_kernel<false, false, false>, flash_fwd_kernel<true, false, false>,
-                                    flash_fwd_kernel<false, true, false>, flash_fwd_kernel<true, true, false>};
+typedef void (*FwdKernel)(FlashArgs, TmaMaps);
+
+// flash_fwd's instantiations, kFwdKernels[drop + 2 * qknorm]
+const FwdKernel kFwdKernels[4] = {flash_fwd_kernel<false, false, false>, flash_fwd_kernel<true, false, false>,
+                                  flash_fwd_kernel<false, true, false>, flash_fwd_kernel<true, true, false>};
 // the bias variant: rate 0, no qk-norm (the dispatcher never sends a bias
 // with dropout or gammas, JAX :882-883)
-const FlashKernel kFwdBiasKernel = flash_fwd_kernel<false, false, true>;
+const FwdKernel kFwdBiasKernel = flash_fwd_kernel<false, false, true>;
 const FlashKernel kDqKernels[4] = {flash_bwd_dq_kernel<false, false>, flash_bwd_dq_kernel<true, false>,
                                    flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, true>};
 const FlashKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bwd_dkv_kernel<true, false>,
@@ -859,8 +1039,22 @@ int vit_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
     return cudaErrorInvalidValue;
   const FlashArgs a = make_args(q, k, v, nullptr, o, nullptr, lse, nullptr, qseg, kseg, gq, gk, bias, bias_bf16, heads,
                                 n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(bias ? kFwdBiasKernel : pick(kFwdKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch,
-                kFwdSmem, stream);
+  FlashArgs fa = a;
+  fa.batch = batch;
+  const int wgs = fwd_wgs(drop, gq != nullptr, bias != nullptr), rows = kFlashTile * wgs;
+  TmaMaps maps{};
+  if (!encode_operand_map(maps.k, k, a.sk, m, heads, batch) || !encode_operand_map(maps.v, v, a.sv, m, heads, batch))
+    return cudaErrorInvalidValue;
+  if (bias) {  // (1|b, 1|h, n, m): a dim of stride 0 is broadcast, of size 1 in the map
+    const Strides& sb = a.sbias;
+    maps.bias_tma = bias_tma_ok(bias, bias_bf16, sb.b, sb.h, sb.row) &&
+                    encode_bias_map(maps.bias, bias, bias_bf16, n, m, sb.h ? heads : 1, sb.b ? batch : 1, sb.row, sb.h,
+                                    sb.b, rows);
+  }
+  const FwdKernel kernel = bias ? kFwdBiasKernel : kFwdKernels[(drop ? 1 : 0) + (gq != nullptr ? 2 : 0)];
+  const long long blocks = static_cast<long long>((n + rows - 1) / rows) * batch * heads;
+  return launch_attention(kernel, fa, maps, blocks, kFlashThreads * wgs, fwd_smem(drop, gq != nullptr, bias != nullptr),
+                          stream);
 }
 
 int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
@@ -870,7 +1064,7 @@ int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
   if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
   const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr,
                                 0, heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(pick(kDqKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kFwdSmem, stream);
+  return launch(pick(kDqKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kDqSmem, stream);
 }
 
 int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,

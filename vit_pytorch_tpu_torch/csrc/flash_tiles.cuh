@@ -1,5 +1,6 @@
-// The 64-row tile machinery shared by the port's tiled attention kernels
-// (flash_attention.cu, short_attention.cu): one block of 4 warps a 64-row
+// The 64-row tile machinery of the port's flash backward kernels
+// (flash_attention.cu; the forward kernels take its shapes and row helpers
+// into attn_wgmma.cuh's wgmma machinery): one block of 4 warps a 64-row
 // tile of queries (or keys), each warp 16 rows; the operand a warp keeps for
 // its whole loop read once from device memory into mma A fragments; the
 // tiles the loop walks brought through a cp.async ring in shared memory (rows
@@ -107,12 +108,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, const f
       *reinterpret_cast<uint32_t*>(base + (row_lo + 8) * stride + col) =
           pack_floats(acc[dj][2] * mul1, acc[dj][3] * mul1);
   }
-}
-
-// An additive bias element, f32 or bf16 (upcast here), at `off` elements
-// from `p`
-__device__ __forceinline__ float bias_at(const void* p, int is_bf16, long long off) {
-  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[off]) : static_cast<const float*>(p)[off];
 }
 
 }  // namespace

@@ -151,8 +151,9 @@ def rms_norm_vjp(x: torch.Tensor, gamma: torch.Tensor, d_normed: torch.Tensor):
 def default_blocks(n: int, m: int):
     """(block_q, block_k) of the H100 kernels for an (n, m) problem: their
     fixed 64 x 64 tiles, chosen from the register and shared-memory budget
-    at dh = 64 (4 warps of 16 query rows; two 64-row ring stages of k and v
-    in 37 KB), not from the TPU's VMEM."""
+    at dh = 64 (a warpgroup of 4 warps of 16 query rows a 64-query tile;
+    flash_fwd's blocks hold one or two such warpgroups), not from the TPU's
+    VMEM."""
     del n, m
     return BLOCK_Q, BLOCK_K
 
