@@ -1,18 +1,28 @@
-"""Mutation check of the wgmma tile machinery of short_attention and
-flash_fwd (``csrc/attn_wgmma.cuh``) on one CUDA card (H100, sm_90a).
+"""Mutation check of the wgmma attention kernels on one CUDA card (H100,
+sm_90a): the tile machinery of short_attention and flash_fwd
+(``csrc/attn_wgmma.cuh``), then the layer chain's attention_rows
+(``csrc/attention_rows.cu`` and its tile body in ``csrc/layer_tiles.cuh``).
 
     python3 chip_attn_mutants.py
 
-Runs chip_smoke.py's phases 12 (``check_flash``: the flash kernels against
-their twins, their edge cases included) and 28 (``check_short_causal_bias``:
-the short kernel, the flash causal and bias variants, their edge cases)
-first on the kernels as they are, which must pass every check, then on
-deliberately wrong copies of ``vit_pytorch_tpu_torch/csrc``, each built under
-``build/mutants/`` with one edit, which must each fail at least one check.
+Two sets (the layer set first), each first on the kernels as they are,
+which must pass every check, then on deliberately wrong copies of ``vit_pytorch_tpu_torch/csrc``,
+each built under ``build/mutants/`` with one edit, which must each fail at
+least one check:
+  - MUTANTS against chip_smoke.py's phases 12 (``check_flash``: the flash
+    kernels against their twins, their edge cases included) and 28
+    (``check_short_causal_bias``: the short kernel, the flash causal and
+    bias variants, their edge cases);
+  - LAYER_MUTANTS against phase 3 (``check_kernels``: attention_rows at n =
+    197 and 50, the whole layer), phase 16's config-2 shapes
+    (``check_simple_attention``: n = 64 and 68) and phase 34 (``check_tools``:
+    attention_rows[n_keys] among the tools' counterparts).
 Prints one line a kernel with the number of checks that refused it, and
 exits 1 if the right kernels fail or a mutant passes.  The runner is
-chip_qk_mutants.main.
+chip_qk_mutants.run.
 """
+
+import sys
 
 import torch
 
@@ -51,6 +61,29 @@ MUTANTS = {
 }
 
 
+_PV = "  for (int kc = 0; kc < KT; ++kc) wgmma_m64n64k16_rs<1>(o, pf[kc],"
+_K_TILE = "    tma_load_3d(ks, &maps.kv, inner + h * kAttnDh, 0, img, kv_full);"
+
+# the layer chain's attention_rows: (file in csrc/, text replaced, replacement)
+LAYER_MUTANTS = {
+    "p.v without its last key chunk": ("layer_tiles.cuh", _PV, _PV.replace("kc < KT;", "kc < KT - 1;")),
+    "n_keys masking off: keys masked at n": (
+        "attention_rows.cu", "keep, a.n_keys, a.scale_log2e", "keep, a.n, a.scale_log2e"),
+    "the k tile taken from the neighbouring head (the map's column offset one head off)": (
+        "attention_rows.cu", _K_TILE, _K_TILE.replace("inner + h * kAttnDh", "inner + ((h + 1) % a.heads) * kAttnDh")),
+    "KT chosen one chunk short of ceil(n / 16)": (
+        "attention_rows.cu", "const int kt = attn_key_chunks(n);", "const int kt = attn_key_chunks(n) - 1;"),
+}
+
+
+def check_layer(fb, rnd, dev):
+    """Phase 3, phase 16's config-2 attention and phase 34 on the runner's
+    generator."""
+    cs.check_kernels(fb, rnd)
+    cs.check_simple_attention(fb, rnd)
+    cs.check_tools(fb, rnd, dev)
+
+
 def check(fb, rnd, dev):
     """Phases 12 and 28, each with its own generator (``rnd`` is the
     runner's)."""
@@ -62,4 +95,7 @@ def check(fb, rnd, dev):
 
 
 if __name__ == "__main__":
-    chip_qk_mutants.main(MUTANTS, check, "attn")
+    # the layer set first: the last of MUTANTS may fault, which ends every later launch of the process
+    ok = chip_qk_mutants.run(LAYER_MUTANTS, check_layer, "attn-layer")
+    ok &= chip_qk_mutants.run(MUTANTS, check, "attn")
+    sys.exit(0 if ok else 1)

@@ -20,7 +20,7 @@ import chip_smoke as cs
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
     "GELU' of the erf GELU instead of the tanh one": (
-        "fused_layer.cu",
+        "layer_tiles.cuh",
         "  const float t = tanhf(c * (h + a * h * h * h));\n"
         "  return 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * c * (1.0f + 3.0f * a * h * h);",
         "  return normcdff(h) + h * 0.3989422804014327f * expf(-0.5f * h * h) + 0.f * (c + a);"),
@@ -34,8 +34,8 @@ MUTANTS = {
         "    float4 acc = partial[i];\n    acc.x += partial[i].x, acc.y += partial[i].y, acc.z += partial[i].z, "
         "acc.w += partial[i].w;"),
     "db1 summed from the bf16 dh1": (
-        "fused_layer.cu", "          p0 += v.x;\n          p1 += v.y;",
-        "          const float2 r = round_bf16(v.x, v.y);\n          p0 += r.x;\n          p1 += r.y;"),
+        "gemm_bf16.cu", "            p0 += v.x;\n            p1 += v.y;",
+        "            const float2 r = round_bf16(v.x, v.y);\n            p0 += r.x;\n            p1 += r.y;"),
 }
 
 

@@ -7,10 +7,14 @@ commits in one call.
 Builds ``<checkout>``'s kernels into its own ``build/`` and imports its
 ``chip_smoke.py`` and package (not this file's), then times layernorm_rows,
 gemm_bf16 at its four sites (qkv, out +x, fc1, fc2 +y), attention_rows and
-its [dropout] (rate 0.1) and [qknorm] instantiations, and gemm_f32out (the
-backward's dh = dqkv . W_qkv) on one layer's random operands (b=128, n=197,
-dim 768, 12 heads, mlp 3072): CUDA events over 30 chained launches after 3
-warm-up ones.  Prints one JSON line {"tree": label, kernel: ms, ...} and,
+its [dropout] (rate 0.1) and [qknorm] instantiations, gemm_f32out (the
+backward's dh = dqkv . W_qkv), the FF backward's gemm_bf16[fc1_save] and
+[gelu_bwd], and gemm_bf16[block_out] bare at SimpleViT-qk-norm's served
+shape (M = 128 x 196, 768 x 768) on one layer's random operands (b=128,
+n=197, dim 768, 12 heads, mlp 3072); then at SimpleViT config 2's shapes
+(b=256, n=64, dim 1024, 16 heads) gemm_bf16[block_out] +x and
+attention_rows; then one stack_layers launch of 6 layers at bs=128 (phase
+33's): CUDA events over 30 chained launches after 3 warm-up ones.  Prints one JSON line {"tree": label, kernel: ms, ...} and,
 after a fresh build, the ptxas lines of those kernels.  Run two checkouts in
 turns (A, B, B, A) in one call; to time a parent commit, unpack it with
 ``git archive`` into a git-ignored directory.
@@ -61,11 +65,28 @@ if __name__ == "__main__":
                                                             gamma_k=gk),
         "gemm_f32out": lambda: fb.gemm_f32out(qkv, w_qkv_t),
     }
+    # the FF backward's two epilogues, at the forward's widths
+    act_h1 = fb.gemm_bf16(h, w["w1"], "fc1_save", bias=w["b1"])
+    w2_t = w["w2"].t().contiguous()
+    calls["gemm_bf16[fc1_save]"] = lambda: fb.gemm_bf16(h, w["w1"], "fc1_save", bias=w["b1"])
+    calls["gemm_bf16[gelu_bwd]"] = lambda: fb.gemm_bf16(x, w2_t, "gelu_bwd", aux=act_h1[1])
+    # SimpleViT-qk-norm's out projection (no bias, the residual outside the block)
+    m_qk = rnd(b, 196, inner)
+    calls["gemm_bf16[block_out, bare]"] = lambda: fb.gemm_bf16(m_qk, w["w_out"], "block_out")
+    # SimpleViT config 2 (dim 1024, 16 heads, 64 tokens, bs=256)
+    b2, n2, d2, h2 = 256, 64, 1024, 16
+    m2, x2, w_out2 = rnd(b2, n2, d2), rnd(b2, n2, d2), rnd(d2, d2, scale=d2**-0.5)
+    qkv2 = rnd(b2, n2, 3 * h2 * cs.DH)
+    calls["gemm_bf16[block_out, +x]"] = lambda: fb.gemm_bf16(m2, w_out2, "block_out", residual=x2)
+    calls["attention_rows[config 2]"] = lambda: fb.attention_rows(qkv2, heads=h2, dim_head=cs.DH, scale=cs.DH**-0.5)
+    # the multi-layer kernel at g = 6, phase 33's launch (b_out on, b_qkv off)
+    layers = cs.stack_tuples(rnd, 6, False, True)
+    calls["stack_layers[g=6]"] = lambda: fb.stack_layers(x, layers, heads=heads, dim_head=cs.DH, scale=cs.DH**-0.5)
     out = {"tree": label}
     with torch.inference_mode():
         for name, call in calls.items():
             out[name] = cs.cuda_ms(call, 30)
     print(json.dumps(out), flush=True)
     for line in cs.ptxas_report(lib.build_log):
-        if any(k in line for k in ("layernorm_rows", "gemm_bf16", "attention_rows_kernel")):
+        if any(k in line for k in ("layernorm_rows", "gemm_bf16", "attention_rows_kernel", "stack_layers")):
             print(label, line)

@@ -55,6 +55,12 @@ def main(mutants=MUTANTS, check=lambda fb, rnd, dev: cs.check_qknorm(fb, rnd, de
     """The right kernels through ``check``, then each of ``mutants`` (name:
     (file in csrc/, text, replacement)) built under build/mutants/<tag>-<i>;
     exits 1 unless the right kernels pass and every mutant fails."""
+    sys.exit(0 if run(mutants, check, tag) else 1)
+
+
+def run(mutants, check, tag):
+    """main's work: True when the right kernels pass ``check`` and every one
+    of ``mutants`` fails it."""
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; the mutation check needs a CUDA card", file=sys.stderr)
         sys.exit(1)
@@ -85,7 +91,8 @@ def main(mutants=MUTANTS, check=lambda fb, rnd, dev: cs.check_qknorm(fb, rnd, de
         ok &= bool(fails)
         print(f"{'refused' if fails else 'NOT REFUSED'}: {name}: {len(fails)} failed checks "
               f"({time.perf_counter() - t:.1f} s); first: {fails[:2]}", flush=True)
-    sys.exit(0 if ok else 1)
+    _build.CSRC_DIR, _build._library = src, None
+    return ok
 
 
 if __name__ == "__main__":

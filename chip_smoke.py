@@ -12,7 +12,10 @@ Phases, each printed as it ends:
      buckets (1, 8, 32, 128); requests of 1, 5, 32 and 130 images; launch
      counters; logits against the plain bf16 path and against fp32;
   5. timing at bs=128: model img/s, one layer, each kernel (gemm_bf16 at
-     each of its four sites), kernel vs plain;
+     each of its four sites), kernel vs plain; beside each GEMM site that no
+     one torch call computes, its bare product through F.linear (a
+     product-only yardstick; also for gemm_f32out in phase 8, fc1_save and
+     gelu_bwd in 21, fc1_f32 in 35);
   6. backward kernels against their plain twins at the shapes of phase 3
      (attention_bwd_rows also at n=50), and the whole layer's backward:
      every operand gradient of the kernel Function against the same
@@ -81,7 +84,8 @@ Phases, each printed as it ends:
  19. SimpleViT timing: serving img/s (config 2 at bs=256, qk-norm at
      bs=128), training ms/step and peak memory at bs=256, kernel against
      plain in turns; each qk-norm launch alone; attention_rows at config 2's
-     64 tokens against its bound; each model's gemm_bf16[block_out] site
+     64 tokens (4 key chunks) against its twin, its bound and SDPA, an entry
+     of its own in the kernels line; each model's gemm_bf16[block_out] site
      against its twin, its bound and the one torch call computing it;
  20. the kernels of the JAX package's opt-in backwards of the whole layer
      (the ports of _ff_bwd_kernel and _layer_bwd_kernel) against their plain
@@ -228,7 +232,7 @@ LAUNCHES_PER_LAYER = {"layernorm_rows": 2, "gemm_bf16": 4, "attention_rows": 1}
 # gemm_bf16's four sites of a layer, one launch each: each its own entry of
 # the kernels line, since only some of them are one torch call
 GEMM_SITES = ("qkv", "out", "fc1", "fc2")
-ATTN_CHECK_N = (N, 50)  # 11 and 158 padded keys in the 208 the kernel holds
+ATTN_CHECK_N = (N, 50)  # 13 and 4 key chunks of 16: 11 and 14 padded keys
 # Each kernel is held to its plain twin twice.  The twins round at the same
 # points, so what differs is f32 summation order and exp2/rsqrt ulps, which
 # can flip one bf16 rounding of an output element:
@@ -366,6 +370,8 @@ TPU_BWD_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:524"
 TPU_BLOCK_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:260"
 TPU_MASKS_KERNEL = "vit_pytorch_tpu/ops/fused_block.py:190"
 SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer.cu"
+GEMM_SOURCE = "vit_pytorch_tpu_torch/csrc/gemm_bf16.cu"  # gemm_bf16 (every epilogue) and gemm_f32out
+ATTN_SOURCE = "vit_pytorch_tpu_torch/csrc/attention_rows.cu"  # attention_rows and its variants
 BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer_bwd.cu"
 DROPOUT_SOURCE = "vit_pytorch_tpu_torch/csrc/dropout.cu"
 # The least time the card could take for a kernel's work (its bound): the
@@ -482,15 +488,27 @@ def flash_work(name, ids, heads, dropout=False, qknorm=False):
     return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=f32)
 
 
-def record(per_kernel, name, km, pm, w, library_ms=None):
+def record(per_kernel, name, km, pm, w, library_ms=None, product_ms=None):
     """Add one call site's kernel and plain times, work and library time to
-    a kernel's entry (a kernel timed at several sites sums them)."""
-    e = per_kernel.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "work": work(), "library_ms": None})
+    a kernel's entry (a kernel timed at several sites sums them);
+    ``product_ms``: a GEMM site without a library call, the time of its bare
+    product alone through F.linear at the same (M, N, K), a product-only
+    yardstick (the function differs: no epilogue)."""
+    e = per_kernel.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "work": work(), "library_ms": None,
+                                     "product_only_ms": None})
     e["ms"] += km
     e["plain_ms"] += pm
     e["work"] = {k: e["work"][k] + w[k] for k in w}
     if library_ms is not None:
         e["library_ms"] = (e["library_ms"] or 0.0) + library_ms
+    if product_ms is not None:
+        e["product_only_ms"] = (e["product_only_ms"] or 0.0) + product_ms
+
+
+def linear_ms(a, w, iters=20):
+    """Device ms of the bare product a . w^T through F.linear: the
+    product-only yardstick of a GEMM site that no one torch call computes."""
+    return cuda_ms(lambda: torch.nn.functional.linear(a, w), iters)
 
 
 def sdpa_ms(qkv, heads, iters, **kw):
@@ -819,9 +837,11 @@ def time_training(fb, dev, gen, smi):
         log(f"  one layer's backward launches at bs={b}:")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
+            prod = linear_ms(dqkv, w_qkv_t) if name == "gemm_f32out" else None
             if name in works:
-                record(per_kernel, name, km, pm, works[name])
-            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+                record(per_kernel, name, km, pm, works[name], product_ms=prod)
+            prod_note = "" if prod is None else f", product-only yardstick (F.linear, bf16 out) {prod:.4f} ms"
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms{prod_note}")
     g = dy
     lk, lp = in_turns(lambda: layer_grads(fb.fused_transformer_layer, x, w, kw, g),
                       lambda: layer_grads(fb.layer_reference, x, w, kw, g), 5)
@@ -1680,7 +1700,8 @@ def check_simple_attention(fb, rnd):
     """Phase 16: attention_rows and attention_bwd_rows against their twins
     on the same inputs at SimpleViT config 2's shapes (b=256, n=64 and 64 +
     4 register tokens, 16 heads), with the bounds of phases 3 and 6.  Returns
-    the largest max_abs of each kernel."""
+    the largest max_abs of each kernel, and attention_rows' at config 2's 64
+    tokens as "attention_rows[config 2]"."""
     heads = SIMPLE["heads"]
     inner = heads * DH
     akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
@@ -1691,6 +1712,8 @@ def check_simple_attention(fb, rnd):
             qkv, dm = rnd(SIMPLE_BS, n, 3 * inner), rnd(SIMPLE_BS, n, inner)
             fwd_errs.append(compare(f"attention_rows [{label}]", fb.attention_rows(qkv, **akw),
                                     fb.attention_rows_reference(qkv, **akw), ATTN_ATOL, ATTN_RTOL))
+            if n == SIMPLE_N:
+                config2_err = fwd_errs[-1]
             m, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
             m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw)
             bwd_errs.append(compare(f"attention_bwd_rows m [{label}]", m, m_want, ATTN_ATOL, ATTN_RTOL))
@@ -1699,7 +1722,8 @@ def check_simple_attention(fb, rnd):
                 bwd_errs.append(compare(f"attention_bwd_rows d{part} [{label}]", dqkv[..., cols],
                                         dqkv_want[..., cols], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
     sync()
-    return {"attention_rows": max(fwd_errs), "attention_bwd_rows": max(bwd_errs)}
+    return {"attention_rows": max(fwd_errs), "attention_bwd_rows": max(bwd_errs),
+            "attention_rows[config 2]": config2_err}
 
 
 def simple_model(kind, dev, dtype, **kw):
@@ -1923,10 +1947,14 @@ def time_simple(fb, dev, gen, smi):
         log(f"  attention_rows (no qk-norm) at the same shape: {km:.4f} ms")
         b2, n2, h2 = SIMPLE_BS, SIMPLE_N, SIMPLE["heads"]
         qkv2 = rnd(b2, n2, 3 * h2 * DH)
-        km = cuda_ms(lambda: fb.attention_rows(qkv2, heads=h2, dim_head=DH, scale=DH**-0.5), 20)
-        bound, by = bound_ms(attention_work(b2, n2, h2))
-        log(f"  attention_rows at SimpleViT config 2's shape (b={b2}, n={n2}, heads={h2}; the kernel holds 208 keys): "
-            f"{km:.4f} ms, bound {bound:.4f} ms ({by}), scaled_dot_product_attention {sdpa_ms(qkv2, h2, 20):.4f} ms")
+        c2kw = dict(heads=h2, dim_head=DH, scale=DH**-0.5)
+        km, pm = in_turns(lambda: fb.attention_rows(qkv2, **c2kw), lambda: fb.attention_rows_reference(qkv2, **c2kw), 20)
+        w2, lib_ms = attention_work(b2, n2, h2), sdpa_ms(qkv2, h2, 20)
+        record(per_kernel, "attention_rows[config 2]", km, pm, w2, lib_ms)
+        bound, by = bound_ms(w2)
+        log(f"  attention_rows at SimpleViT config 2's shape (b={b2}, n={n2}, heads={h2}; "
+            f"{fb.attention_key_chunks(n2)} key chunks of 16): kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
         # the out projection of both models' blocks: no bias, so one torch
         # call computes it (SimpleViT adds the residual in the epilogue:
         # torch.addmm; SimpleViT-qk-norm adds it outside the block: F.linear)
@@ -2196,12 +2224,15 @@ def time_ff_modes(fb, dev, gen, smi):
              lambda: fb.layernorm_bwd_rows(y, dyln, w["ln2_scale"], residual=g, res_f32=True),
              lambda: fb.layernorm_bwd_rows_reference(y, dyln, w["ln2_scale"], residual=g, res_f32=True)),
         )
+        products = {"gemm_bf16[fc1_save]": (y2, w["w1"]), "gemm_bf16[gelu_bwd]": (g, w2_t)}
         log(f"  each new launch at bs={b} (rows {rows}):")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
-            record(per_kernel, name, km, pm, works[name])
+            prod = linear_ms(*products[name], 10) if name in products else None
+            record(per_kernel, name, km, pm, works[name], product_ms=prod)
             bound, by = bound_ms(works[name])
-            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by})")
+            prod_note = "" if prod is None else f", product-only yardstick (F.linear, no epilogue) {prod:.4f} ms"
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}){prod_note}")
         # gemm_wgrad: one layer's four sites (the whole-layer backward's; full mode runs the first two)
         for site, a_, b_ in (("dW2 = g^T act", g, act), ("dW1 = dh1^T y2", dh1, y2),
                              ("dW_out = dy^T m", g, m), ("dW_qkv = dqkv^T h", dqkv, y2)):
@@ -4172,10 +4203,12 @@ def time_tools(fb, dev, rnd, smi):
         for name, kern, plain, w, library in entries:
             km, pm = in_turns(kern, plain, 20)
             lib_ms = library() if library else None
-            record(per_kernel, name, km, pm, w, lib_ms)
+            prod = linear_ms(h2, w1) if name == "gemm_bf16[fc1_f32]" else None
+            record(per_kernel, name, km, pm, w, lib_ms, product_ms=prod)
             bound, by = bound_ms(w)
+            prod_note = "" if prod is None else f", product-only yardstick (F.linear, no epilogue) {prod:.4f} ms"
             log(f"  {name}: kernel {km:.4f} ms, twin {pm:.4f} ms, bound {bound:.4f} ms ({by}), library "
-                f"{'none' if lib_ms is None else '%.4f ms' % lib_ms}")
+                f"{'none' if lib_ms is None else '%.4f ms' % lib_ms}{prod_note}")
 
         # the ten counterparts against their twins, and the layers against their neighbours
         for name, kern, plain, launches in tools_cases(args, pargs, b_out):
@@ -4232,7 +4265,7 @@ def ptxas_report(build_log):
             if tail:
                 n = int(tail.group(1))
                 base, args = tail.group(2)[:n], tail.group(2)[n:]
-                flags = re.findall(r"Lb(\d)E", args.split("EEv")[0]) if args.startswith("I") else []
+                flags = re.findall(r"L[bi](\d+)E", args.split("EEv")[0]) if args.startswith("I") else []
                 name = base + (f"<{', '.join(flags)}>" if flags else "")
             else:
                 name = mangled
@@ -4408,12 +4441,16 @@ def main():
             "fc1": (gemm_work(rows, MLP, DIM, bias=True), None),
             "fc2": (gemm_work(rows, DIM, MLP, bias=True, residual=True), None),
         }
+        products = {"out": (m, w_out), "fc1": (h2, w1), "fc2": (a, w2)}  # the sites without a library call
         per_kernel = {}
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 20)
-            record(per_kernel, f"gemm_bf16[{site}]" if name == "gemm_bf16" else name, km, pm, *works[site])
+            prod = linear_ms(*products[site]) if site in products else None
+            record(per_kernel, f"gemm_bf16[{site}]" if name == "gemm_bf16" else name, km, pm, *works[site],
+                   product_ms=prod)
             lib_note = "" if works[site][1] is None else f", library call {works[site][1]:.4f} ms"
-            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms{lib_note}")
+            prod_note = "" if prod is None else f", product-only yardstick (F.linear, no epilogue) {prod:.4f} ms"
+            log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms{lib_note}{prod_note}")
     sync()
     del pred, served, tr, model, outs, images
     phase_done("phase 5")
@@ -4466,7 +4503,7 @@ def main():
     # -- 16. qk-norm kernels against their plain twins ---------------------------
     errs.update(check_qknorm(fb, rnd, dev))
     for name, e in check_simple_attention(fb, rnd).items():
-        errs[name] = max(errs[name], e)
+        errs[name] = max(errs.get(name, 0.0), e)
     phase_done("phase 16")
 
     # -- 17. SimpleViT serving -----------------------------------------------------
@@ -4560,9 +4597,14 @@ def main():
     def entry(name, source, replaces, path, launches):
         t = per_kernel[name]
         bound, by = bound_ms(t["work"])
+        if source == SOURCE and name.startswith("gemm_"):
+            source = GEMM_SOURCE
+        elif source == SOURCE and name.startswith("attention_rows"):
+            source = ATTN_SOURCE
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,
                 "launches": launches, "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": bound, "bound_by": by, "library_ms": t["library_ms"]}
+                "bound_ms": bound, "bound_by": by, "library_ms": t["library_ms"],
+                "product_only_ms": t.get("product_only_ms")}
 
     dropout_kernels = (
         ("attention_rows[dropout]", SOURCE, TPU_BLOCK_KERNEL), ("gemm_bf16[block_out]", SOURCE, TPU_BLOCK_KERNEL),
@@ -4581,7 +4623,9 @@ def main():
         + [entry(name, source, replaces, "SimpleViT-qk-norm serving" if "bwd" not in name
                  else "SimpleViT-qk-norm training", (qk_train_counts if "bwd" in name else qk_serving_counts)[name])
            for name, (source, replaces) in TPU_QK_KERNELS.items()]
-        + [entry("gemm_bf16[block_out, +x]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT serving",
+        + [entry("attention_rows[config 2]", SOURCE, TPU_KERNEL, "SimpleViT serving",
+                 simple_serving_counts["attention_rows"]),
+           entry("gemm_bf16[block_out, +x]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT serving",
                  simple_serving_counts["gemm_bf16[block_out]"]),
            entry("gemm_bf16[block_out, bare]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-qk-norm serving",
                  qk_serving_counts["gemm_bf16[block_out]"])]
@@ -4613,7 +4657,11 @@ def main():
         "at NaViT-B's packed shape, the qk-norm variants' and block_out bare at SimpleViT-qk-norm's bs=128, "
         "block_out +x at SimpleViT config 2's bs=256; gemm_bf16 one entry a site; bound_ms: the larger of "
         "their bytes over 3.35 TB/s and their operations over 989 TFLOP/s bf16 tensor / 67 T/s CUDA-core peaks; "
-        "library_ms: the one torch call computing the same function, where there is one; launches: the serving "
+        "library_ms: the one torch call computing the same function, where there is one; product_only_ms: at a "
+        "gemm_bf16 site that no one torch call computes (out, fc1, fc2, gemm_f32out, fc1_save, gelu_bwd, fc1_f32), "
+        "the bare product through F.linear at its (M, N, K), a yardstick of the product alone, null elsewhere; "
+        "attention_rows[config 2]: attention_rows at SimpleViT config 2's b=256 n=64 16 heads, launches from its "
+        "serving requests; launches: the serving "
         "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
         "for the dropout variants, phase 9's mask checks for dropout_masks, NaViT-B's serving forward for "
         "flash_fwd and its 4 training steps for the flash backward, SimpleViT-qk-norm's requests and 4 training "

@@ -23,7 +23,7 @@ MUTANTS = {
     "the fc2 residual taken from the layer's input x instead of y": (
         "stack_layers.cu", "L.w2, L.b2, p.y, p.out,", "L.w2, L.b2, x, p.out,"),
     "x carried between layers unrounded: the fc2 sum (product + b2 + y) kept in f32 to one cast": (
-        "stack_layers.cu", "gemm_step<kEpiFc2>(", "gemm_step<kEpiBlockOut>("),
+        "stack_layers.cu", "gemm_step<kFc2>(", "gemm_step<kEpiBlockOut>("),
     "the last partial 128-row GEMM tile skipped": (
         "stack_layers.cu", "const int mtiles = (M + kGemmBM - 1) / kGemmBM;", "const int mtiles = M / kGemmBM;"),
     "the grid barrier between the attention and the out projection dropped": (

@@ -20,13 +20,13 @@ import chip_smoke as cs
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
     "fc1_f32 rounding the dot before the bias (the package's fc1)": (
-        "layer_tiles.cuh", "  } else if (EPI == kEpiFc1F32) {\n    if (bias) {",
+        "layer_tiles.cuh", "  } else if (EPI == kEpiFc1F32) {\n    if (has_bias) {",
         "  } else if (EPI == kEpiFc1F32) {\n    {\n      const float2 r = round_bf16(v0, v1);\n"
-        "      v0 = r.x, v1 = r.y;\n    }\n    if (bias) {"),
+        "      v0 = r.x, v1 = r.y;\n    }\n    if (has_bias) {"),
     "the tools' stack rounding fc2 before its residual (kEpiFc2)": (
         "stack_layers.cu", "constexpr int kFc2 = TOOLS ? kEpiBlockOut : kEpiFc2;", "constexpr int kFc2 = kEpiFc2;"),
     "n_keys ignored: keys masked at n": (
-        "layer_tiles.cuh", "softmax_rows(s, n_keys, t,", "softmax_rows(s, n, t,"),
+        "attention_rows.cu", "keep, a.n_keys, a.scale_log2e", "keep, a.n, a.scale_log2e"),
     "the tools' stack reading layer 0's weights in every layer": (
         "stack_layers.cu", "const StackLayer& L = p.layer[l];", "const StackLayer& L = p.layer[TOOLS ? 0 : l];"),
 }

@@ -56,10 +56,8 @@
 // Internal linkage, as common.cuh.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap; the encoder is the driver's, fetched at run time
-#include <cudaTypedefs.h>
-
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -77,32 +75,7 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + kWgAlign - 1) & ~uintptr_t(kWgAlign - 1));
 }
 
-// ---- mbarriers and the TMA --------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-}
-
-// the arrival of the thread that issues a stage's copies, expecting their bytes
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` completes.  Bounded: a
-// copy that never lands traps (an error the launch reports) instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (int spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1 << 22)) __trap();
-  }
-}
+// ---- the TMA (hopper.cuh: mbarriers, 2-D and 3-D copies, the encoder) -------
 
 // A 4-D tensor map over (columns, rows, heads, images) and the order of its
 // dims 1..3: order[d] is 0, 1 or 2 for rows, heads or images (the host sorts
@@ -201,19 +174,21 @@ __device__ __forceinline__ void pv_issue(float (&o)[8][4], const uint32_t (&p)[4
   wgmma_commit();
 }
 
-// The qk-norm of a swizzled 64-row tile in place (rms_norm_rows through
-// the swizzle: lane c of a row's 8 takes the row's logical 16-byte chunk c,
-// so the f32 sum order is rms_norm_rows' own).  All THREADS threads of the
-// block; zero rows stay zero.  gamma: the head's 64 f32 gammas.
-template <int THREADS>
-__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const float* gamma) {
+// The qk-norm of a swizzled tile of ROWS rows in place (rms_norm_rows
+// through the swizzle: lane c of a row's 8 takes the row's logical 16-byte
+// chunk c, so the f32 sum order is rms_norm_rows' own).  All THREADS threads
+// of the block; zero rows stay zero.  gamma: the head's 64 gammas (f32, or
+// bf16: the attention block's).
+template <int THREADS, int ROWS = kFlashTile, typename G = float>
+__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma) {
+  static_assert((ROWS * 8) % THREADS == 0, "8 lanes a row, every lane busy");
   const int c = (threadIdx.x & 7) * 8;
   float g8[8];
   load_gamma8(g8, gamma + c);
 #pragma unroll
   for (int i = 0; i < 8; ++i) g8[i] *= kRmsRoot;
 #pragma unroll
-  for (int i = threadIdx.x; i < kFlashTile * 8; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
     const int row = i >> 3;
     bf16* p = rows + sw_off(row, c);
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -295,20 +270,6 @@ __device__ __forceinline__ float2 bias_pair(const unsigned char* stage, int is_b
 }
 
 // ---- the host side: tensor maps ----------------------------------------------
-
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded (no link
-// against the driver library)
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
 
 // A tensor map over a (cols, rows, heads, images) view of `base` with
 // element strides (1, s_row, s_head, s_image) (a dim of size 1 may have any

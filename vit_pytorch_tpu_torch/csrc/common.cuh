@@ -1,6 +1,6 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
-// fused_layer_bwd.cu, gemm_wgrad.cu, dropout.cu, flash_attention.cu,
-// short_attention.cu, stack_layers.cu).
+// gemm_bf16.cu, attention_rows.cu, fused_layer_bwd.cu, gemm_wgrad.cu,
+// dropout.cu, flash_attention.cu, short_attention.cu, stack_layers.cu).
 // Everything here has internal linkage (each source that includes it gets its
 // own copy), apart from launch_column_sum, declared here and defined once in
 // fused_layer_bwd.cu.
@@ -14,7 +14,9 @@
 typedef __nv_bfloat16 bf16;
 
 // attention kernels (attention_rows and attention_bwd_rows): one head of
-// dim 64, keys padded to 16 * kAttnKT = 208 (ViT-B/16 @224 has 197 tokens)
+// dim 64, at most 16 * kAttnKT = 208 keys (ViT-B/16 @224 has 197 tokens);
+// attention_rows runs ceil(n / 16) chunks of 16 (attention_rows.cu),
+// attention_bwd_rows all 13
 constexpr int kAttnQT = 64;        // rows (queries, or keys in the key pass) per block
 constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
 constexpr int kAttnDh = 64;
@@ -45,6 +47,15 @@ cudaError_t launch_column_sum(const float* partial, float* sums, int rows, int w
                               cudaStream_t stream);
 
 namespace {
+
+// the SMs of the current device (132 on an H100 SXM if the query fails)
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+                                                cudaSuccess)
+    return 132;
+  return sms;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -419,7 +430,8 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NT][4], int n, int t, fl
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (sm_90a): gemm_bf16 (fused_layer.cu) and gemm_wgrad (gemm_wgrad.cu)
+// wgmma (sm_90a): gemm_bf16 (gemm_bf16.cu, stack_layers.cu) and gemm_wgrad
+// (gemm_wgrad.cu)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

@@ -485,7 +485,7 @@ __global__ void __launch_bounds__(kFlashThreads * fwd_wgs(kDropout, kQkNorm, kBi
   const uint32_t stream = dropout_stream(b, h);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2 * kStages; ++i) mbar_init(kfull + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   uint32_t kphase = 0u, vphase = 0u;  // bit s: the parity stage s's barrier is waited for next

@@ -13,7 +13,8 @@
 // across the grid.  Here the same function is a chain of launches (see
 // ops/fused_block.py::_attention_block_bwd): the recompute and the two
 // products with a weight run the forward's kernels (layernorm_rows,
-// gemm_bf16, and gemm_bf16's f32 epilogue for dh, fused_layer.cu), and this
+// gemm_bf16, and gemm_bf16's f32 epilogue for dh: fused_layer.cu,
+// gemm_bf16.cu, attention_rows.cu), and this
 // file holds the two kernels that have no forward counterpart:
 //
 //   attention_bwd_rows   qkv, dm -> m, dqkv     (logits on chip)

@@ -13,8 +13,8 @@
 // Bound on this card: tensor-core throughput.  At ViT-B bs=1024 K = 201,728
 // and a (768 x 3072) dW is 0.952 TFLOP against ~0.8 GB of operands, ~1,200
 // flops a byte, far above the ~295 flop/byte ridge.
-// Design: the gemm_bf16 main loop (fused_layer.cu) with both operands
-// MN-major: a 64 (k) x 128 (m or n) tile of A or B is 64 rows of 256
+// Design: the first port's gemm_bf16 main loop (layer_tiles.cuh's
+// gemm_tile) with both operands MN-major: a 64 (k) x 128 (m or n) tile of A or B is 64 rows of 256
 // contiguous bytes in device memory, so it loads as is (16-byte cp.async,
 // neighbouring threads on neighbouring chunks) into 128-byte-swizzle atoms of
 // 8 k rows x 64 elements, and wgmma reads it with its transpose flag set: no
@@ -141,14 +141,6 @@ wgrad_reduce_kernel(const float4* __restrict__ partial, float4* __restrict__ out
     }
     out[i] = acc;
   }
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-                                                cudaSuccess)
-    return 132;
-  return sms;
 }
 
 // k-tiles of one split, for `splits` splits of `ktiles`

@@ -1,20 +1,26 @@
 // The tile bodies of one pre-norm ViT layer's forward chain, shared by the
-// chain's kernels (fused_layer.cu: one launch a step) and the multi-layer
-// kernel stack_layers (stack_layers.cu: every step of g layers in one
-// launch).  Each body takes its tile's coordinates as arguments instead of
-// reading blockIdx, so a kernel may walk many tiles; the arithmetic of a tile
-// is the same wherever it runs, so the two routes give the same bits.
+// chain's kernels (fused_layer.cu, gemm_bf16.cu, attention_rows.cu: one
+// launch a step) and the multi-layer kernel stack_layers (stack_layers.cu:
+// every step of g layers in one launch).  Each body takes its tile's
+// coordinates as arguments instead of reading blockIdx, so a kernel may walk
+// many tiles; the arithmetic of a tile is the same wherever it runs, so the
+// two routes give the same bits.
 //
 //   layernorm_row        one row of LN (one warp)
+//   epilogue_pair<EPI>   the arithmetic of a GEMM epilogue on one accumulator
+//                        pair: gemm_bf16.cu's kernel and gemm_tile share it
 //   gemm_tile<EPI>       one 128x128 output tile of A . W^T with an epilogue
-//                        (256 threads, two warpgroups)
-//   attention_tile       one (image, head, 64-query tile) of softmax attention
-//                        (128 threads: a block of 4 warps, or one warpgroup)
+//                        (256 threads, two warpgroups): stack_layers' alone
+//   attention_wg_tile    one 64-query tile of one head's softmax attention on
+//                        wgmma (one warpgroup), from q, k and v in shared
+//                        memory: attention_rows.cu's kernel and
+//                        stack_layers' attention step
 //
 // Internal linkage, as common.cuh.
 #pragma once
 
-#include "common.cuh"
+#include "attn_wgmma.cuh"
+#include "wgmma_wide.cuh"
 
 namespace {
 
@@ -45,17 +51,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float h) {
   return 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * c * (1.0f + 3.0f * a * h * h);
 }
 
-// the barrier of the threads that run one tile body: the whole block, or
-// one warpgroup of 128 threads on its own named barrier (ids >= 1; 0 is
-// __syncthreads')
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-
-struct GroupSync {
-  int id;
-  __device__ __forceinline__ void operator()() const { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
-};
 
 // ---------------------------------------------------------------------------
 // layernorm_row
@@ -123,7 +118,14 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
 }
 
 // ---------------------------------------------------------------------------
-// gemm_tile
+// gemm_tile and the GEMM epilogues
+//
+// gemm_tile is the first port's GEMM tile, kept as stack_layers' GEMM step
+// (stack_layers.cu): the chain's gemm_bf16 (gemm_bf16.cu) is a TMA-fed,
+// warp-specialised, persistent kernel with the same main loop (the same
+// wgmma k16 steps in ascending k into f32 accumulators) and the same
+// epilogue_pair, so the two give the same bits, and the stack stays bitwise
+// the chain.
 //
 // Replaces: the four jnp.dot sites of ops/fused_block.py::_layer_kernel
 // (qkv :1015, out-proj :1040, fc1 :1046, fc2 :1048) with their epilogues.
@@ -217,19 +219,16 @@ struct FfArgs {
 // Design: the main loop unchanged; each thread writes its accumulator pair
 // as one float2, so the epilogue adds no pass over the output.
 
+// The arithmetic of every epilogue but kEpiF32 and kEpiGeluBwd on one
+// accumulator pair, columns col, col + 1 (col even) of row: bb is the bias
+// pair (added when has_bias), r the residual pair (kEpiOut and kEpiFc2 add it
+// always, kEpiBlockOut when has_res).  Returns the bf16 output pair, packed;
+// kEpiFc1Save's h1 pair goes to *h1.
 template <int EPI>
-__device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
-                                           const bf16* __restrict__ res, void* __restrict__ out,
-                                           const BlockOutArgs& bo, const FfArgs& ff) {
-  const size_t off = static_cast<size_t>(row) * N + col;
-  if constexpr (EPI == kEpiF32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
-    return;
-  }
-  uint32_t o;
+__device__ __forceinline__ uint32_t epilogue_pair(float v0, float v1, int row, int col, bool has_bias, float2 bb,
+                                                  bool has_res, float2 r, const BlockOutArgs& bo, uint32_t* h1) {
   if (EPI == kEpiBlockOut) {
-    if (bias) {
-      float2 bb = load_pair_f32(bias + col);
+    if (has_bias) {
       v0 += bb.x;
       v1 += bb.y;
     }
@@ -239,42 +238,54 @@ __device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col,
       v0 *= (keep & 1u) ? bo.d.inv : 0.f;
       v1 *= (keep & 2u) ? bo.d.inv : 0.f;
     }
-    if (res) {
-      float2 r = load_pair_f32(res + off);
+    if (has_res) {
       v0 += r.x;
       v1 += r.y;
     }
-    o = pack_floats(v0, v1);
+    return pack_floats(v0, v1);
   } else if (EPI == kEpiFc1F32) {
-    if (bias) {
-      float2 bb = load_pair_f32(bias + col);
+    if (has_bias) {
       v0 += bb.x;
       v1 += bb.y;
     }
     const float2 t = round_bf16(v0, v1);  // (dot + b1).astype(x.dtype)
-    o = pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
+    return pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
   } else if (EPI == kEpiQkv) {
     // _layer_rows :1015-1018 -- bias added to the f32 dot, then one cast
-    if (bias) {
-      float2 bb = load_pair_f32(bias + col);
+    if (has_bias) {
       v0 += bb.x;
       v1 += bb.y;
     }
-    o = pack_floats(v0, v1);
+    return pack_floats(v0, v1);
   } else {
     float2 t = round_bf16(v0, v1);  // .astype(x.dtype) of the f32 dot
-    if (bias) {
-      float2 bb = load_pair_f32(bias + col);
-      t = round_bf16(t.x + bb.x, t.y + bb.y);
-    }
+    if (has_bias) t = round_bf16(t.x + bb.x, t.y + bb.y);
     if (EPI == kEpiFc1 || EPI == kEpiFc1Save) {
-      if constexpr (EPI == kEpiFc1Save) *reinterpret_cast<uint32_t*>(ff.aux + off) = pack_floats(t.x, t.y);
-      o = pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
-    } else {  // out-proj (+x) and fc2 (+y): residual add in bf16
-      float2 r = load_pair_f32(res + off);
-      o = pack_floats(t.x + r.x, t.y + r.y);
+      if (EPI == kEpiFc1Save) *h1 = pack_floats(t.x, t.y);
+      return pack_floats(gelu_tanh(t.x), gelu_tanh(t.y));
     }
+    return pack_floats(t.x + r.x, t.y + r.y);  // out-proj (+x) and fc2 (+y): residual add in bf16
   }
+}
+
+// gemm_tile's store of one accumulator pair: the operands read from device
+// memory, epilogue_pair, the output (and kEpiFc1Save's h1) written there
+template <int EPI>
+__device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
+                                           const bf16* __restrict__ res, void* __restrict__ out,
+                                           const BlockOutArgs& bo, const FfArgs& ff) {
+  const size_t off = static_cast<size_t>(row) * N + col;
+  if constexpr (EPI == kEpiF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
+    return;
+  }
+  const float2 zero = make_float2(0.f, 0.f);
+  const bool has_res = (EPI == kEpiOut || EPI == kEpiFc2 || EPI == kEpiBlockOut) && res != nullptr;
+  const float2 bb = bias ? load_pair_f32(bias + col) : zero;
+  const float2 r = has_res ? load_pair_f32(res + off) : zero;
+  uint32_t h1 = 0u;
+  const uint32_t o = epilogue_pair<EPI>(v0, v1, row, col, bias != nullptr, bb, has_res, r, bo, &h1);
+  if constexpr (EPI == kEpiFc1Save) *reinterpret_cast<uint32_t*>(ff.aux + off) = h1;
   *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = o;
 }
 
@@ -405,124 +416,116 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __res
 }
 
 // ---------------------------------------------------------------------------
-// attention_tile
+// attention_wg_tile
 //
 // Replaces: the per-head loop of ops/fused_block.py::_layer_kernel
 // (_layer_rows :1021-1037: q.k^T, _softmax_from_dots, p.v, heads merged),
-// and the same loop of the layer prototypes in tools/ (exp and a division,
-// the padded ones with a -inf key bias).
+// the same loop of the attention-block kernel _kernel (:323-348, with its
+// qk-norm and dropout), and of the layer prototypes in tools/ (exp and a
+// division, the padded ones with a -inf key bias).
 // Bound on this card: at n = 197 the two products are 4*n*n*dh flops per
-// (image, head) against 3*n*dh*2 bytes of q/k/v, ~130 flops per byte, under
-// the ridge, and the (n, n) f32 logits would be 16x the bytes of q/k/v if
-// they went to device memory.  So the logits never leave the SM.
-// Design: 4 warps per (image, head, 64-row q-tile).  They read q, k and v
-// for the head straight from the (b, n, 3*inner) qkv buffer into shared
-// memory (rows >= n zero-filled).  Each warp owns 16 query rows
-// and keeps their full f32 logit rows in registers: 2*KT mma tiles of 16x8,
-// 8*KT = 104 floats a thread.  Exact two-pass softmax as
-// _softmax_from_dots: scale*log2(e) folded into one multiply, max, exp2,
-// one reciprocal of the row sum; padded columns (j >= n_keys) masked to -inf.
-// The accumulator layout of q.k^T is the A-operand layout of p.v, so P is cast
-// to bf16 in registers and multiplied by v without a trip through memory.
-// The output goes to the merged-heads (b, n, inner) layout.  Every q-tile
-// re-reads its head's k and v (from L2 after the first); sharing them
-// across q-tiles is later work.
-// Limits: dh = 64; n <= 16*KT = 208, the one instantiation, sized for the
-// 197 tokens of ViT-B/16 @224 and bounded by registers (167 a thread with
-// the runtime key count, 156 before it; no spill; 3 blocks an SM either way).  Shared memory is (64 + 2*16*KT) rows of 72 bf16 = 69,120 bytes,
-// under the 232,448-byte block limit up to 16*KT = 775 keys, so registers,
-// not shared memory, bind n.
+// (image, head) against 4*n*dh*2 bytes of q, k, v and the output, ~100
+// flops per byte, under the ~295 flop/byte ridge: the bytes bound it, and
+// the (n, n) f32 logits, 16x the bytes of q/k/v, never leave the SM.
+// Design: one warpgroup takes 64 queries of one head against all its keys,
+// padded to 16 * KT (KT a template parameter: the host runs KT = ceil(n /
+// 16), so n = 64 computes 4 key chunks, not 13).  q (64 rows), k and v (16 *
+// KT rows each) sit in shared memory as 64-column bf16 tiles in the 128-byte
+// swizzle (attn_wgmma.cuh's sw_off), rows past n zero.  Both products run on
+// Hopper's warpgroup MMA:
+//  - S = q.k^T: four wgmma.m64n(16 KT)k16 (wgmma_wide.cuh), q and k both
+//    K-major from shared memory, f32 logits in registers, 8 KT floats a
+//    thread: the accumulator layout of mma.m16n8 (rows g, g + 8; columns
+//    8j + 2t, +1), so softmax_rows, apply_keep and acc_to_a_frag read it as
+//    before;
+//  - the exact two-pass softmax of _softmax_from_dots (softmax_rows: the row
+//    max, exp2, one reciprocal of the row sum; keys j >= n_keys masked), P
+//    times the keep bits and 1/(1 - rate) with DROP (_kernel :345-348),
+//    then P cast to bf16 in registers as the A fragments of
+//  - O = bf16(P).v: KT wgmma.m64n64k16 with A from registers and v MN-major
+//    from shared memory (its rows are the k axis), f32 accumulators.
+// No fragment is built from 16-bit shared loads, and each product is one
+// committed group.  The caller brings q, k, v in and takes o out:
+// attention_rows.cu's kernel loads a head's k and v once by the TMA for all
+// its query tiles; stack_layers' attention step loads them with generic
+// 16-byte loads (load_head_rows_sw).  Both run this body on the same tiles,
+// so the stack's attention is bitwise the chain's.
+// Limits: dh = 64; n <= 16 * 13 = 208, bounded by registers (8 KT logits and
+// 4 KT bf16 P fragments a thread).
 // ---------------------------------------------------------------------------
 
-// kAttnQT, kAttnThreads, kAttnDh, kAttnLd, kAttnKT: common.cuh
-constexpr int kAttnSmem = (kAttnQT + 2 * 16 * kAttnKT) * kAttnLd * static_cast<int>(sizeof(bf16));
-// with dropout, + the block's bit-packed keep tile: 64 rows x 7 words
-constexpr int kAttnDropSmem = kAttnSmem + kAttnQT * kKeepWords * static_cast<int>(sizeof(uint32_t));
+// the key-chunk counts built: one instantiation each of attention_rows and
+// of stack_layers' attention step (ops/fused_block.py::ATTN_KEY_CHUNKS
+// mirrors the list)
+#define VIT_ATTN_KEY_CHUNKS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
 
-// DROP: the dropout of ops/fused_block.py::_kernel (:345-348) -- P, in f32,
-// is where(keep, p, 0) * 1/(1 - rate) before its bf16 cast, keep from the
-// (seed, img, head) stream.  The block draws its 64 x n keep bits once into
-// shared memory (fill_keep_tile) before the logits take the registers.
-// QKNORM: the qk-norm of _kernel (:323-338).  Bound on this card: the norm
-// reads and writes the q and k tiles once more in shared memory, ~10 flops
-// an element against the logits' 2*n, so the bound is the attention's.
-// Design: after the tile loads, the block rewrites its 64 q rows and every
-// k row in shared memory as bf16(x * rsqrt(sum x^2 + 1e-12) * gamma * 8)
-// (rms_norm_rows, common.cuh); the logits then read them as before.  Every
-// q-tile block normalises its head's k rows again, as it reloads them.
-//
-// n_keys: keys j >= n_keys (1 <= n_keys <= n) are masked to -inf in the
-// softmax, the additive -inf key bias of the padded prototypes in tools/
-// (bench_layer_fused.py:267-268, make_whole_padded); every one of the n rows
-// is still computed and stored.  The layer chain and the stack pass n.
-//
-// The tile of (q0, h, img), by 128 threads: tid is the thread's index among
-// them and sync their barrier.  DROP and QKNORM draw and normalise with the
-// block's threadIdx.x, so they run only in a block of 128 threads
-// (BlockSync); stack_layers runs <false, false> on each warpgroup.
-template <bool DROP, bool QKNORM, typename Sync>
-__device__ __forceinline__ void attention_tile(unsigned char* smem, const bf16* __restrict__ qkv,
-                                               bf16* __restrict__ out, int n, int n_keys, int heads,
-                                               float scale_log2e,
-                                               const DropoutArgs& drop, const bf16* __restrict__ gq,
-                                               const bf16* __restrict__ gk, int q0, int h, int img, int tid,
-                                               Sync sync) {
-  constexpr int KT = kAttnKT;
-  constexpr int NP = 16 * KT;  // keys, padded
-  constexpr int NT = 2 * KT;   // 8-key logit tiles
-  constexpr int DT = kAttnDh / 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][ld]
-  bf16* Ks = Qs + kAttnQT * kAttnLd;          // [NP][ld]
-  bf16* Vs = Ks + NP * kAttnLd;               // [NP][ld]
-  uint32_t* Keep = reinterpret_cast<uint32_t*>(Vs + NP * kAttnLd);  // [QT][kKeepWords], DROP only
+// the instantiation run at n keys (1 <= n <= 208)
+__host__ __device__ constexpr int attn_key_chunks(int n) { return (n + 15) / 16; }
 
-  const int inner = heads * kAttnDh;
-  const size_t rstride = 3 * static_cast<size_t>(inner);
-  const bf16* base = qkv + static_cast<size_t>(img) * n * rstride + h * kAttnDh;
-  load_head_rows<kAttnQT>(Qs, base, rstride, q0, n, tid);
-  load_head_rows<NP>(Ks, base + inner, rstride, 0, n, tid);
-  load_head_rows<NP>(Vs, base + 2 * inner, rstride, 0, n, tid);
-  if constexpr (DROP) fill_keep_tile<kAttnQT, kKeepWords>(Keep, drop, dropout_stream(img, h), q0, 0, n, n);
-  sync();
-  if constexpr (QKNORM) {
-    rms_norm_rows<kAttnQT>(Qs, gq + h * kAttnDh, nullptr, nullptr);
-    rms_norm_rows<NP>(Ks, gk + h * kAttnDh, nullptr, nullptr);
-    sync();
+// 32-key words of one keep row at KT key chunks
+__host__ __device__ constexpr int attn_keep_words(int kt) { return (16 * kt + 31) / 32; }
+
+// ROWS rows from r0 of one head's 64 columns (row stride `stride`) into a
+// swizzled tile, zero from row n on; 128 threads (tid their index among
+// them), 16-byte generic stores: a fence_proxy_async and a barrier of the
+// 128 must follow before wgmma reads the tile
+template <int ROWS>
+__device__ __forceinline__ void load_head_rows_sw(bf16* dst, const bf16* src, size_t stride, int r0, int n, int tid) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int c = tid; c < ROWS * (kAttnDh / 8); c += kAttnThreads) {
+    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
+    uint4 v = zero;
+    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + d);
+    *reinterpret_cast<uint4*>(dst + sw_off(r, d)) = v;
   }
+}
 
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+// o = softmax(q.k^T * scale) v of one 64-query tile (qs: 64 swizzled rows;
+// ks, vs: 16 * KT), f32 in the accumulator layout (o[dj]: rows g, g + 8 of
+// warp wtid / 32, columns 8dj + 2t, +1); keep: the 64 x attn_keep_words(KT)
+// keep tile with DROP (inv = 1/(1 - rate)).  One warpgroup, wtid its thread
+// index in it; waits for both products.
+template <int KT, bool DROP>
+__device__ __forceinline__ void attention_wg_tile(float (&o)[8][4], const bf16* qs, const bf16* ks, const bf16* vs,
+                                                  const uint32_t* keep, int n_keys, float scale_log2e, float inv,
+                                                  int wtid) {
+  constexpr int NT = 2 * KT;  // 8-key logit tiles
+  const int warp = wtid >> 5, lane = wtid & 31, g = lane >> 2, t = lane & 3;
   float s[NT][4];  // logits, then p in f32
-  qk_logits(s, Qs + warp * 16 * kAttnLd, Ks, g, t);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kAttnDh / 16; ++kk)
+    WgmmaSS<NT>::mma(s, desc_k_major(qs + kk * 16), desc_k_major(ks + kk * 16), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(&s[0][0], 4 * NT);
+
   float mx0, mx1, inv0, inv1;
   softmax_rows(s, n_keys, t, scale_log2e, mx0, mx1, inv0, inv1);
   if constexpr (DROP) {
-    const uint32_t* krow0 = Keep + (warp * 16 + g) * kKeepWords;
+    constexpr int kWords = attn_keep_words(KT);
+    const uint32_t* krow0 = keep + (warp * 16 + g) * kWords;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) apply_keep(s[j], krow0, krow0 + 8 * kKeepWords, j, t, drop.inv);
+    for (int j = 0; j < NT; ++j) apply_keep(s[j], krow0, krow0 + 8 * kWords, j, t, inv);
   }
 
   // P in bf16, laid out as the A operand of p.v: key chunk kc = tiles 2kc, 2kc+1
   uint32_t pf[KT][4];
 #pragma unroll
   for (int kc = 0; kc < KT; ++kc) acc_to_a_frag(pf[kc], s[2 * kc], s[2 * kc + 1]);
-
-  const int row0 = q0 + warp * 16 + g;
 #pragma unroll
-  for (int dj = 0; dj < DT; ++dj) {
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int dj = 0; dj < 8; ++dj) o[dj][0] = o[dj][1] = o[dj][2] = o[dj][3] = 0.f;
+  fence_acc(o);
+  wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < KT; ++kc) {
-      uint32_t b[2];
-      load_b_frag_cols(b, Vs + kc * 16 * kAttnLd + dj * 8, kAttnLd, g, t);
-      mma_16816(o, pf[kc], b);
-    }
-    const int col = h * kAttnDh + dj * 8 + 2 * t;
-    if (row0 < n)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(img) * n + row0) * inner + col) = pack_floats(o[0], o[1]);
-    if (row0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(img) * n + row0 + 8) * inner + col) =
-          pack_floats(o[2], o[3]);
-  }
+  for (int kc = 0; kc < KT; ++kc) wgmma_m64n64k16_rs<1>(o, pf[kc], desc_mn_major(vs + kc * 16 * kAttnDh), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc)  // the registers p.v read stay put until it is done
+    asm volatile("" : "+r"(pf[kc][0]), "+r"(pf[kc][1]), "+r"(pf[kc][2]), "+r"(pf[kc][3])::"memory");
+  fence_acc(o);
 }
 
 }  // namespace

@@ -144,7 +144,7 @@ __global__ void __launch_bounds__(kFlashThreads * short_wgs(kBias), wg_blocks(sh
   uint64_t* vfull = kfull + kStages;
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2 * kStages; ++i) mbar_init(kfull + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   uint32_t kphase = 0u, vphase = 0u;

@@ -13,8 +13,9 @@
 // ~372 GFLOP of bf16 products (qkv, out, fc1, fc2, q.k^T and p.v) against
 // ~14 MB of weights and 39 MB of x in and out: ~0.38 ms a layer at 989
 // TFLOP/s.  What one launch can save over the chain of 7g launches
-// (fused_layer.cu) is the 7g - 1 launch gaps and each launch's tail, and the
-// x write and read between layers (~0.023 ms a boundary at 3.35 TB/s).
+// (fused_layer.cu, gemm_bf16.cu, attention_rows.cu) is the 7g - 1 launch
+// gaps and each launch's tail, and the x write and read between layers
+// (~0.023 ms a boundary at 3.35 TB/s).
 //
 // Design: one persistent cooperative grid.  An H100 block has 227 KB of
 // shared memory against a layer's 14 MB of weights, so no block can hold a
@@ -28,14 +29,20 @@
 //
 // Each step spreads its tiles over every block: warps take LN rows, blocks
 // take 128x128 GEMM tiles (N fastest, as the chain's grid), warpgroups take
-// (q-tile, head, image) attention tiles, each with its own named barrier.
-// A grid-wide barrier (grid_sync) separates the steps.  Each tile runs the
-// chain's own body from layer_tiles.cuh, with the chain's tile
-// coordinates, k-tile order and epilogue rounding, so every intermediate and
-// the output are bitwise the chain's; x rounds to bf16 between layers, in
-// the fc2 epilogue, as _layer_rows returns it.  The intermediates go to
-// scratch buffers in device memory that the wrapper allocates; the layer's
-// output overwrites `out` in place (the fc2 step reads only a and y).
+// (head, image) attention items, each with its own named barrier, and load
+// the item's k and v once for its query tiles, as the chain's kernel does.
+// A grid-wide barrier (grid_sync) separates the steps.  Each tile runs a
+// body from layer_tiles.cuh with the chain's arithmetic: the attention tile
+// is the chain's own wgmma body (at 13 key chunks, whose extra chunks add
+// exact zeros), its q, k and v brought in by generic 16-byte loads where the
+// chain's kernel has the TMA; a GEMM tile is the first port's gemm_tile,
+// whose main loop (wgmma k16 steps in ascending k into f32) and epilogue
+// arithmetic (epilogue_pair) are the chain's gemm_bf16's.  So every
+// intermediate and the output are bitwise the chain's; x rounds to bf16
+// between layers, in the fc2 epilogue, as _layer_rows returns it.  The
+// intermediates go to scratch buffers in device memory that the wrapper
+// allocates; the layer's output overwrites `out` in place (the fc2 step
+// reads only a and y).
 //
 // Why not a block or a cluster a chunk of images, as the TPU's grid over
 // image blocks: at ViT-B a chunk's per-image intermediates are ~3.5 MB a
@@ -43,11 +50,9 @@
 // device memory all the same; and a chunk of one image on a cluster of 8
 // spreads a bucket of 1 over 8 of the 132 SMs, where the cooperative grid
 // spreads each of its steps over every SM at any batch.  The cost: 7g - 1
-// grid barriers, and one block an SM (the attention body needs 144
-// registers, so the GEMM tiles run at 1 block an SM where the chain's run
-// at 2, their epilogue no longer under another block's main loop).
-// Shared memory: max(the GEMM ring 99,328 B, two attention tiles 2 x
-// 69,120 B) = 138,240 B.
+// grid barriers, and one block an SM of 256 threads.
+// Shared memory: max(the GEMM ring 99,328 B, two attention tiles of q, k
+// and v at KT = 13, 2 x 61,440 B, + 1 KB to align them) = 123,904 B.
 //
 // Built by ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a), bound
 // with ctypes: vit_stack_layers returns the launch's cudaError_t.
@@ -58,7 +63,9 @@ namespace {
 
 constexpr int kStackMaxLayers = 6;  // _STACK_MAX_LAYERS
 constexpr int kStackThreads = 256;  // two warpgroups: the GEMM tile's block
-constexpr int kStackSmem = 2 * kAttnSmem > kGemmSmem ? 2 * kAttnSmem : kGemmSmem;
+// one warpgroup's attention tile: q (64 rows), k and v (16 * 13 rows), swizzled
+constexpr int kStackAttnBytes = (kAttnQT + 2 * 16 * kAttnKT) * kAttnDh * static_cast<int>(sizeof(bf16));
+constexpr int kStackSmem = 2 * kStackAttnBytes + kWgAlign > kGemmSmem ? 2 * kStackAttnBytes + kWgAlign : kGemmSmem;
 static_assert(kStackThreads == kGemmThreads && kStackThreads == 2 * kAttnThreads, "one GEMM tile or two attention tiles");
 
 // one layer's operands in the order of the JAX layer tuple; b_qkv, b_out
@@ -121,18 +128,46 @@ __device__ __forceinline__ void gemm_step(unsigned char* smem, const bf16* A, co
   }
 }
 
-// every (q-tile, head, image) attention tile, a warpgroup a tile, in the
-// chain's block order (q-tile fastest)
+// every (head, image) of the attention, a warpgroup an item, each warpgroup
+// on its own named barrier: the item's k and v loaded once, then its query
+// tiles in order.  One instantiation, the 13 key chunks of n = 208, at every
+// n: the chunks past the chain's ceil(n / 16) hold masked keys (p = 0)
+// against zero-filled v rows, so they add exact zeros and each tile is
+// bitwise the chain's.  (The chain's 13 instantiations inlined here took the
+// kernel to 255 registers with spills, +0.3 ms a layer; called, not inlined,
+// a wgmma pipeline crossing the call makes ptxas serialise every wgmma of
+// the kernel, the GEMM steps' too.)
 __device__ __forceinline__ void attention_step(unsigned char* smem, const bf16* qkv, bf16* m, int batch, int n,
                                                int heads, float scale_log2e) {
-  const int wg = threadIdx.x >> 7;
-  const GroupSync sync{1 + wg};
-  const int qtiles = (n + kAttnQT - 1) / kAttnQT, items = qtiles * heads * batch;
+  constexpr int KT = kAttnKT;
+  const int wg = threadIdx.x >> 7, wtid = threadIdx.x & 127;
+  bf16* qs = reinterpret_cast<bf16*>(aligned_smem(smem) + wg * kStackAttnBytes);
+  bf16* ks = qs + kAttnQT * kAttnDh;
+  bf16* vs = ks + 16 * KT * kAttnDh;
+  const int inner = heads * kAttnDh, items = heads * batch;
+  const size_t rstride = 3 * static_cast<size_t>(inner);
+  const int warp = wtid >> 5, lane = wtid & 31, g = lane >> 2, t = lane & 3;
   for (int it = 2 * blockIdx.x + wg; it < items; it += 2 * gridDim.x) {
-    sync();  // the warpgroup is done with its last tile's shared memory
-    attention_tile<false, false>(smem + wg * kAttnSmem, qkv, m, n, n, heads, scale_log2e, DropoutArgs{}, nullptr,
-                                 nullptr, (it % qtiles) * kAttnQT, (it / qtiles) % heads, it / (qtiles * heads),
-                                 threadIdx.x & 127, sync);
+    const int h = it % heads, img = it / heads;
+    const bf16* base = qkv + static_cast<size_t>(img) * n * rstride + h * kAttnDh;
+    named_sync(1 + wg, kAttnThreads);  // the warpgroup is done with its last item's shared memory
+    load_head_rows_sw<16 * KT>(ks, base + inner, rstride, 0, n, wtid);
+    load_head_rows_sw<16 * KT>(vs, base + 2 * inner, rstride, 0, n, wtid);
+    for (int q0 = 0; q0 < n; q0 += kAttnQT) {
+      if (q0 > 0) named_sync(1 + wg, kAttnThreads);  // every warp's products have read the last query tile
+      load_head_rows_sw<kAttnQT>(qs, base, rstride, q0, n, wtid);
+      fence_proxy_async();
+      named_sync(1 + wg, kAttnThreads);
+      float o[8][4];
+      attention_wg_tile<KT, false>(o, qs, ks, vs, nullptr, n, scale_log2e, 1.f, wtid);
+      const int row0 = q0 + warp * 16 + g;
+      bf16* orow = m + (static_cast<size_t>(img) * n + row0) * inner + h * kAttnDh + 2 * t;
+#pragma unroll
+      for (int dj = 0; dj < 8; ++dj) {
+        if (row0 < n) *reinterpret_cast<uint32_t*>(orow + dj * 8) = pack_floats(o[dj][0], o[dj][1]);
+        if (row0 + 8 < n) *reinterpret_cast<uint32_t*>(orow + 8 * inner + dj * 8) = pack_floats(o[dj][2], o[dj][3]);
+      }
+    }
   }
 }
 

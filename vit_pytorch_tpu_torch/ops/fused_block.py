@@ -4,7 +4,7 @@ Port of ``vit_pytorch_tpu/ops/fused_block.py::fused_transformer_layer``, whose
 TPU kernel ``_layer_kernel`` runs a whole layer in one Pallas call with the
 weights resident in VMEM.  A Hopper block has 227 KB of shared memory, so the
 same function is a chain of seven launches of three hand-written kernels
-(``csrc/fused_layer.cu``)::
+(``csrc/fused_layer.cu``, ``csrc/gemm_bf16.cu``, ``csrc/attention_rows.cu``)::
 
     x -> layernorm_rows -> gemm_bf16[qkv] -> attention_rows -> gemm_bf16[out] (+x) = y
     y -> layernorm_rows -> gemm_bf16[fc1] (gelu) -> gemm_bf16[fc2] (+y) = out
@@ -100,9 +100,12 @@ _LOG2E = 1.4426950408889634  # log2(e)
 # Shapes the kernels take; these mirror the constants of csrc/*.cu.
 ATTN_DIM_HEAD = 64  # kAttnDh
 ATTN_Q_TILE = 64  # kAttnQT
-ATTN_MAX_KEYS = 208  # 16 * kAttnKT: keys padded to 13 chunks of 16
+ATTN_MAX_KEYS = 208  # 16 * kAttnKT: at most 13 key chunks of 16
+# attention_rows' instantiations, one per key-chunk count (VIT_ATTN_KEY_CHUNKS
+# in csrc/layer_tiles.cuh); a call at n keys runs attention_key_chunks(n)
+ATTN_KEY_CHUNKS = tuple(range(1, 14))
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
-GEMM_MAX_ROWS = 65535 * 128  # M-tiles ride on gridDim.y
+GEMM_MAX_ROWS = 65535 * 128  # the GEMM entry points take at most 65535 row tiles of 128
 LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
 LN_BWD_RES_MAX_DIM = 2416  # kLnBwdResMaxDim: the [res_f32] variant's 3 slices
 GEMM_BM = 128  # kGemmBM: rows of a gemm_bf16 block (gelu_bwd's column partials, one row a block)
@@ -712,6 +715,15 @@ def gemm_f32out(a, w):
     return out
 
 
+def attention_key_chunks(n: int) -> int:
+    """The key chunks of 16 (the instantiation) that ``attention_rows`` runs
+    at ``n`` keys, 1 <= n <= ATTN_MAX_KEYS: ceil(n / 16), the choice of the
+    C entry point (``attn_key_chunks`` in csrc/layer_tiles.cuh)."""
+    if not 1 <= n <= ATTN_MAX_KEYS:
+        raise ValueError(f"attention_rows: n={n} is not in [1, {ATTN_MAX_KEYS}]")
+    return -(-n // 16)
+
+
 def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
     b, n, three_inner = qkv.shape
     if (
@@ -973,9 +985,10 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
     the shapes the kernels take:
 
     - attention_rows and attention_bwd_rows: ``dim_head == 64`` and
-      ``n <= 208``, their one instantiation (keys padded to 13 chunks of 16,
-      for ViT-B/16's 197 tokens).  The logit rows sit in registers, 104 f32
-      a thread, which is the binding limit.  Shared memory, at most
+      ``n <= 208`` (13 key chunks of 16, for ViT-B/16's 197 tokens;
+      attention_rows runs ``attention_key_chunks(n)`` of them, the backward
+      all 13).  The logit rows sit in registers, up to 104 f32 a thread,
+      which is the binding limit.  Shared memory, at most
       ``(2*64 + 2*208) * 72 * 2 + 208 * 16`` = 81,664 bytes (the backward's
       key pass), would stay under the 232,448-byte block limit far past 208
       keys.
