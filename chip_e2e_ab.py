@@ -2,7 +2,7 @@
 for one checkout, on one CUDA card (H100, sm_90a), for comparing two commits
 in one call.
 
-    python3 chip_e2e_ab.py <checkout> <label>
+    python3 chip_e2e_ab.py <checkout> <label> [--serving]
 
 Builds ``<checkout>``'s kernels into its own ``build/`` and imports its
 ``chip_smoke.py`` and package (not this file's), then times the kernel
@@ -23,6 +23,8 @@ paths of its phases, each after a warm-up, on the same seeded inputs:
   - NaViT-B trained on phase 14's packs (token dropout 0.25) at dropout 0
     (phase 15) and at dropout 0.1 (phase 24), ms a step over 4 steps.
 
+With --serving, only the first (the served buckets, the host-bound ones
+most of all, which need more alternations than the rest to resolve).
 Prints one JSON line {"tree": label, metric: ms, ...}.  Run two checkouts
 in turns (A, B, B, A) in one call; to time a parent commit, unpack it with
 ``git archive`` into a git-ignored directory.
@@ -68,6 +70,9 @@ if __name__ == "__main__":
         with torch.inference_mode():
             out[f"vit-b/16 serving ms/request bs={k}"] = cs.host_ms(lambda: pred(img), 10 if k == 128 else 20)
     del model, pred
+    if "--serving" in sys.argv[3:]:
+        print(json.dumps(out), flush=True)
+        sys.exit(0)
 
     for rate in (0.0, cs.RATE):
         drop = dict(dropout=rate, emb_dropout=rate) if rate else {}

@@ -27,12 +27,13 @@ MUTANTS = {
     "[res_f32] casting dy to bf16 before adding g": (
         "fused_layer_bwd.cu", "          out[i] += rv[i];  // in f32, before the one cast",
         "          out[i] = __bfloat162float(__float2bfloat16(out[i])) + rv[i];"),
-    "gemm_wgrad with split 1's partial dropped": (
-        "gemm_wgrad.cu", "    for (int s = 1; s < splits; ++s) {", "    for (int s = 2; s < splits; ++s) {"),
-    "gemm_wgrad with split 0's partial added twice": (
-        "gemm_wgrad.cu", "    float4 acc = partial[i];",
-        "    float4 acc = partial[i];\n    acc.x += partial[i].x, acc.y += partial[i].y, acc.z += partial[i].z, "
-        "acc.w += partial[i].w;"),
+    "gemm_wgrad with a split tile's first piece dropped from its sum": (
+        "gemm_wgrad.cu", "  for (int s = 0; s < pieces; ++s) {", "  for (int s = 1; s < pieces; ++s) {"),
+    "gemm_wgrad adding a split tile's pieces from the next slot on": (
+        "gemm_wgrad.cu", "(static_cast<size_t>(ts + b0) * kWgConsumers + cw)",
+        "(static_cast<size_t>(ts + b0 + 1) * kWgConsumers + cw)"),
+    "gemm_wgrad without the last k-tile of each piece's range (a zero tile in its place)": (
+        "gemm_wgrad.cu", "load(sk0 + w.t0, k0 + o);", "load(sk0 + w.t0, k0 + o + (o + 1 == w.y0 ? ktiles : 0));"),
     "db1 summed from the bf16 dh1": (
         "gemm_bf16.cu", "            p0 += v.x;\n            p1 += v.y;",
         "            const float2 r = round_bf16(v.x, v.y);\n            p0 += r.x;\n            p1 += r.y;"),

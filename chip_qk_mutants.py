@@ -23,11 +23,14 @@ import chip_smoke as cs
 MUTANTS = {
     "the norm's closing without the projection term (d g - xhat <d g, xhat> -> d g)": (
         "common.cuh", "  s0 = quad_sum(s0);\n  s1 = quad_sum(s1);", "  s0 = 0.f;\n  s1 = 0.f;"),
-    "dgamma without the sqrt(dh) factor": ("fused_layer_bwd.cu", "width, kRmsRoot);", "width, 1.f);"),
+    "dgamma without the sqrt(dh) factor": (
+        "attention_bwd_rows.cu", "2 * heads * kAttnDh, kRmsRoot, s);", "2 * heads * kAttnDh, 1.f, s);"),
     "the norm with a mean of squares (RMSNorm) instead of the sum": (
-        "common.cuh", "const float rr = rsqrtf(ss + kRmsEps);", "const float rr = rsqrtf(ss * (1.f / 64) + kRmsEps);"),
+        "attn_wgmma.cuh", "const float rr = rsqrtf(ss + kRmsEps);",
+        "const float rr = rsqrtf(ss * (1.f / 64) + kRmsEps);"),
     "the key pass's dgamma partial written into the q half": (
-        "fused_layer_bwd.cu", "* 2 * inner + inner + h * kAttnDh,", "* 2 * inner + h * kAttnDh,"),
+        "attention_bwd_rows.cuh", "* 2 * inner + inner + h * kAttnDh + tid] = dgamma;",
+        "* 2 * inner + h * kAttnDh + tid] = dgamma;"),
 }
 
 

@@ -17,7 +17,10 @@ Phases, each printed as it ends:
      product-only yardstick; also for gemm_f32out in phase 8, fc1_save and
      gelu_bwd in 21, fc1_f32 in 35);
   6. backward kernels against their plain twins at the shapes of phase 3
-     (attention_bwd_rows also at n=50), and the whole layer's backward:
+     (attention_bwd_rows also at n = 50, 1, 16, 17, 64 and 208, the edges
+     of its key-chunk instantiations, and at n=197 with dp near one value
+     along each row; bitwise from run to run), and the whole layer's
+     backward:
      every operand gradient of the kernel Function against the same
      Function run on the twins;
   7. training: ViT-B/16 @224 (depth 12, remat=True, dropout 0) in bf16 from
@@ -31,7 +34,8 @@ Phases, each printed as it ends:
      phase 3: the dropout_masks replay bitwise (n = 197 and 50, keep
      fraction 0.9 +- 0.005), attention_rows[dropout] (n = 197 and 50),
      gemm_bf16[block_out], dropout_apply bitwise, attention_bwd_rows[dropout]
-     (n = 197 and 50), and the attention-block Function's output and every
+     (n = 197, 50, 1, 16, 17, 64 and 208; bitwise from run to run), and the
+     attention-block Function's output and every
      operand gradient against the same Function on the twins, at rate 0 and
      rate 0.1;
  10. training with dropout: ViT-B/16 @224 (depth 12, dropout 0.1,
@@ -68,7 +72,8 @@ Phases, each printed as it ends:
      197 and 50) and SimpleViT-qk-norm's served one (b=128, n=196), scale 1,
      gammas at SimpleViT-qk-norm's init and random: attention_rows[qknorm],
      attention_bwd_rows[qknorm] (m, dq, dk, dv, dgamma_q, dgamma_k, the
-     dgammas bitwise deterministic), both again with dropout 0.1, and the
+     dgammas; also at n = 1, 16, 17, 64 and 208; every output bitwise from
+     run to run), both again with dropout 0.1, and the
      qk-norm attention-block Function's output and its 7 gradients against
      the same Function on the twins; attention_rows and attention_bwd_rows at
      SimpleViT config 2's shapes (b=256, n=64 and 68, 16 heads);
@@ -84,8 +89,12 @@ Phases, each printed as it ends:
  19. SimpleViT timing: serving img/s (config 2 at bs=256, qk-norm at
      bs=128), training ms/step and peak memory at bs=256, kernel against
      plain in turns; each qk-norm launch alone; attention_rows at config 2's
-     64 tokens (4 key chunks) against its twin, its bound and SDPA, an entry
-     of its own in the kernels line; each model's gemm_bf16[block_out] site
+     64 tokens (4 key chunks) against its twin, its bound and SDPA, and
+     attention_bwd_rows there against its twin, its bound and SDPA's
+     forward + backward, each an entry of its own in the kernels line
+     (beside every attention_bwd_rows time, in phases 8, 11 and 19, SDPA's
+     forward + backward on the same q, k, v and dm is the yardstick);
+     each model's gemm_bf16[block_out] site
      against its twin, its bound and the one torch call computing it;
  20. the kernels of the JAX package's opt-in backwards of the whole layer
      (the ports of _ff_bwd_kernel and _layer_bwd_kernel) against their plain
@@ -233,6 +242,9 @@ LAUNCHES_PER_LAYER = {"layernorm_rows": 2, "gemm_bf16": 4, "attention_rows": 1}
 # the kernels line, since only some of them are one torch call
 GEMM_SITES = ("qkv", "out", "fc1", "fc2")
 ATTN_CHECK_N = (N, 50)  # 13 and 4 key chunks of 16: 11 and 14 padded keys
+# attention_bwd_rows also at the edges of its instantiations (1 and 2 key
+# chunks, 13 with none padded) and at SimpleViT config 2's 64 tokens (4)
+ATTN_BWD_EDGE_N = (1, 16, 17, 64, 208)
 # Each kernel is held to its plain twin twice.  The twins round at the same
 # points, so what differs is f32 summation order and exp2/rsqrt ulps, which
 # can flip one bf16 rounding of an output element:
@@ -373,6 +385,7 @@ SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer.cu"
 GEMM_SOURCE = "vit_pytorch_tpu_torch/csrc/gemm_bf16.cu"  # gemm_bf16 (every epilogue) and gemm_f32out
 ATTN_SOURCE = "vit_pytorch_tpu_torch/csrc/attention_rows.cu"  # attention_rows and its variants
 BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/fused_layer_bwd.cu"
+ATTN_BWD_SOURCE = "vit_pytorch_tpu_torch/csrc/attention_bwd_rows.cuh"  # attention_bwd_rows and its variants
 DROPOUT_SOURCE = "vit_pytorch_tpu_torch/csrc/dropout.cu"
 # The least time the card could take for a kernel's work (its bound): the
 # larger of the bytes it must move (each input read once, each output written
@@ -488,14 +501,17 @@ def flash_work(name, ids, heads, dropout=False, qknorm=False):
     return work(bytes_ + 2 * b * n * 4, tensor=per_pair * DH * pairs, f32=f32)
 
 
-def record(per_kernel, name, km, pm, w, library_ms=None, product_ms=None):
+def record(per_kernel, name, km, pm, w, library_ms=None, product_ms=None, product_of=None):
     """Add one call site's kernel and plain times, work and library time to
     a kernel's entry (a kernel timed at several sites sums them);
-    ``product_ms``: a GEMM site without a library call, the time of its bare
-    product alone through F.linear at the same (M, N, K), a product-only
-    yardstick (the function differs: no epilogue)."""
+    ``product_ms``: a site without a library call, the time of a yardstick
+    that computes part or more of it, named by ``product_of`` (default: its
+    bare product alone through F.linear at the same (M, N, K), for a GEMM
+    site; the function differs: no epilogue)."""
     e = per_kernel.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "work": work(), "library_ms": None,
-                                     "product_only_ms": None})
+                                     "product_only_ms": None, "product_only_of": None})
+    if product_of is not None:
+        e["product_only_of"] = product_of
     e["ms"] += km
     e["plain_ms"] += pm
     e["work"] = {k: e["work"][k] + w[k] for k in w}
@@ -519,6 +535,27 @@ def sdpa_ms(qkv, heads, iters, **kw):
     return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw), iters)
 
 
+SDPA_FWD_BWD = "scaled_dot_product_attention forward + backward (torch.autograd.grad to q, k, v)"
+
+
+def sdpa_fwd_bwd_ms(qkv, dm, heads, iters, **kw):
+    """Device ms of torch's scaled_dot_product_attention forward and its
+    backward to q, k and v, with the merged-heads gradient dm as the
+    output's cotangent, on the heads of a packed (b, n, 3*inner) qkv: a
+    yardstick beside attention_bwd_rows (which computes m and dqkv; no one
+    torch call does)."""
+    b, n, _ = qkv.shape
+    with torch.inference_mode(False), torch.enable_grad():
+        q, k, v = (t.clone().requires_grad_() for t in qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4))
+        go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
+
+        def run():
+            o = torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
+            torch.autograd.grad(o, (q, k, v), go)
+
+        return cuda_ms(run, iters)
+
+
 def rel_l2(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
@@ -539,6 +576,38 @@ def compare(name, got, want, atol, rtol, max_rel_l2=KERNEL_REL_L2, atol_frac=Non
     if not ok:
         fail(f"{name} disagrees with its plain twin")
     return max_abs
+
+
+def edge_rnd(seed):
+    """A seeded bf16 N(0, 1) draw of its own for the attention_bwd_rows
+    cases of phases 6, 9, 16 and 19 at ATTN_BWD_EDGE_N and config 2, so that
+    they leave the data every other phase draws from the run's generator as
+    it was without them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def check_attention_bwd(fb, name, qkv, dm, kw, label, m_atol=ATTN_ATOL, m_atol_frac=None):
+    """attention_bwd_rows (``kw``: scale, dropout, gammas) against its twin
+    on (qkv, dm): m, then dq, dk and dv (2 bf16 ulps of the largest) and the
+    dgammas; a part the twin gives as zeros (n = 1: one key, so ds = 0) must
+    be zeros.  Run twice: the outputs, dgammas included, bitwise equal.
+    Returns the largest max_abs."""
+    inner = dm.shape[-1]
+    got = fb.attention_bwd_rows(qkv, dm, **kw)
+    want = fb.attention_bwd_rows_reference(qkv, dm, **kw)
+    errs = [compare(f"{name} m [{label}]", got[0], want[0], m_atol, ATTN_RTOL, atol_frac=m_atol_frac)]
+    for i, part in enumerate("qkv"):
+        cols = slice(i * inner, (i + 1) * inner)
+        errs.append(compare_or_zero(f"{name} d{part} [{label}]", got[1][..., cols], want[1][..., cols], None,
+                                    ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+    for part, a, b in zip(("dgamma_q", "dgamma_k"), got[2:], want[2:]):
+        errs.append(compare_or_zero(f"{name} {part} [{label}]", a, b, None, QK_DGAMMA_RTOL, QK_DGAMMA_REL_L2,
+                                    atol_frac=QK_DGAMMA_ATOL_FRAC))
+    again = fb.attention_bwd_rows(qkv, dm, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name} [{label}] is not bitwise the same from run to run")
+    return max(errs)
 
 
 def check_kernels(fb, rnd):
@@ -626,15 +695,20 @@ def check_backward(fb, rnd):
             qkv = (fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"]) if n == N
                    else rnd(B_CHECK, n, 3 * inner))
             dm = rnd(B_CHECK, n, inner)
-            m, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
-            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw)
-            attn_errs.append(compare(f"attention_bwd_rows m [n={n}]", m, m_want, ATTN_ATOL, ATTN_RTOL))
-            for i, part in enumerate("qkv"):
-                cols = slice(i * inner, (i + 1) * inner)
-                attn_errs.append(compare(f"attention_bwd_rows d{part} [n={n}]", dqkv[..., cols], dqkv_want[..., cols],
-                                         None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+            attn_errs.append(check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, f"n={n}"))
             if n == N:
-                dqkv_full = dqkv_want
+                dqkv_full = fb.attention_bwd_rows_reference(qkv, dm, **akw)[1]
+        erd = edge_rnd(SEED + 6)
+        for n in ATTN_BWD_EDGE_N:
+            qkv, dm = erd(B_CHECK, n, 3 * inner), erd(B_CHECK, n, inner)
+            attn_errs.append(check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, f"n={n}"))
+        # v rows near one vector and dm off zero: dp = dm.v^T is near one value
+        # along a row, so ds = p (dp - D) is a small difference of large terms,
+        # and D = rowsum(dp * p) has to come from the f32 p (from the bf16 p
+        # it moves ds by a few percent)
+        qkv = torch.cat((erd(B_CHECK, N, 2 * inner), (1 + 0.02 * erd(B_CHECK, N, inner).float()).to(qkv.dtype)), -1)
+        dm = (erd(B_CHECK, N, inner).float() + 4).to(qkv.dtype)
+        attn_errs.append(check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, f"n={N}, dp near one value"))
         errs["attention_bwd_rows"] = max(attn_errs)
         sync()
         w_qkv_t = w["w_qkv"].t().contiguous()
@@ -837,10 +911,15 @@ def time_training(fb, dev, gen, smi):
         log(f"  one layer's backward launches at bs={b}:")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
-            prod = linear_ms(dqkv, w_qkv_t) if name == "gemm_f32out" else None
+            prod, prod_of = None, None
+            if name == "gemm_f32out":
+                prod = linear_ms(dqkv, w_qkv_t)
+            elif name == "attention_bwd_rows":
+                prod, prod_of = sdpa_fwd_bwd_ms(qkv, dm, HEADS, 10), SDPA_FWD_BWD
             if name in works:
-                record(per_kernel, name, km, pm, works[name], product_ms=prod)
-            prod_note = "" if prod is None else f", product-only yardstick (F.linear, bf16 out) {prod:.4f} ms"
+                record(per_kernel, name, km, pm, works[name], product_ms=prod, product_of=prod_of)
+            prod_note = "" if prod is None else (f", yardstick ({prod_of or 'product only: F.linear, bf16 out'}) "
+                                                 f"{prod:.4f} ms")
             log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms{prod_note}")
     g = dy
     lk, lp = in_turns(lambda: layer_grads(fb.fused_transformer_layer, x, w, kw, g),
@@ -919,16 +998,13 @@ def check_dropout(fb, rnd, dev):
             fail("dropout_apply disagrees with its twin")
         sync()
         bwd_errs = []
-        for n in ATTN_CHECK_N:
-            qkv = qkv_full if n == N else rnd(B_CHECK, n, 3 * inner)
-            dm = rnd(B_CHECK, n, inner)
-            m_got, dqkv = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
-            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw, **dkw)
-            bwd_errs.append(compare(f"attention_bwd_rows[dropout] m [n={n}]", m_got, m_want, ATTN_ATOL, ATTN_RTOL))
-            for i, part in enumerate("qkv"):
-                cols = slice(i * inner, (i + 1) * inner)
-                bwd_errs.append(compare(f"attention_bwd_rows[dropout] d{part} [n={n}]", dqkv[..., cols],
-                                        dqkv_want[..., cols], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+        erd = edge_rnd(SEED + 9)
+        for n in (*ATTN_CHECK_N, *ATTN_BWD_EDGE_N):
+            draw = rnd if n in ATTN_CHECK_N else erd
+            qkv = qkv_full if n == N else draw(B_CHECK, n, 3 * inner)
+            dm = draw(B_CHECK, n, inner)
+            bwd_errs.append(check_attention_bwd(fb, "attention_bwd_rows[dropout]", qkv, dm, {**akw, **dkw},
+                                                f"n={n}"))
         errs["attention_bwd_rows[dropout]"] = max(bwd_errs)
         sync()
     g = rnd(B_CHECK, N, DIM)
@@ -1087,12 +1163,16 @@ def time_dropout_training(fb, dev, gen, smi):
                                   f32=PHILOX_OPS_PER_ELEMENT * (b * HEADS * N * N + b * N * DIM)),
         }
         library = {"attention_rows[dropout]": sdpa_ms(qkv, HEADS, 10, dropout_p=RATE)}
+        yardstick = {"attention_bwd_rows[dropout]": sdpa_fwd_bwd_ms(qkv, dm, HEADS, 10, dropout_p=RATE)}
         log(f"  one attention block's launches at bs={b} (forward, backward, then the mask replay):")
         for name, site, kern, plain in launches:
             km, pm = in_turns(kern, plain, 10)
             if name in works:
-                record(per_kernel, name, km, pm, works[name], library.get(name))
+                record(per_kernel, name, km, pm, works[name], library.get(name), yardstick.get(name),
+                       f"{SDPA_FWD_BWD}, dropout_p={RATE}" if name in yardstick else None)
             log(f"  {name}[{site}]: kernel {km:.4f} ms, plain {pm:.4f} ms")
+        log(f"  {SDPA_FWD_BWD} with dropout_p={RATE} on the same qkv and dm: "
+            f"{yardstick['attention_bwd_rows[dropout]']:.4f} ms")
         log(f"  scaled_dot_product_attention(dropout_p={RATE}) on the same qkv: "
             f"{library['attention_rows[dropout]']:.4f} ms")
     bk, bp = in_turns(lambda: block_grads(fb.fused_attention_block, x, w, kw, g, RATE),
@@ -1600,7 +1680,7 @@ SIMPLE_LOGITS_VS_PLAIN, SIMPLE_LOGITS_VS_FP32 = 3e-2, 5e-2
 SIMPLE_TRAIN_VS_PLAIN = dict(loss=2e-3, grads=3e-2, worst=5e-2)
 SIMPLE_TRAIN_VS_FP32 = dict(loss=2e-3, grads=3e-2, worst=5e-2)
 TPU_QK_KERNELS = {"attention_rows[qknorm]": (SOURCE, TPU_BLOCK_KERNEL),
-                  "attention_bwd_rows[qknorm]": (BWD_SOURCE, TPU_BWD_KERNEL)}
+                  "attention_bwd_rows[qknorm]": (ATTN_BWD_SOURCE, TPU_BWD_KERNEL)}
 
 
 def variant_launches(launches, qk_norm: bool):
@@ -1650,34 +1730,23 @@ def check_qknorm(fb, rnd, dev):
         h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
         qkv_full = fb.gemm_bf16_reference(h, w["w_qkv"], "qkv", bias=kw["b_qkv"])
         qkv_main = rnd(QKNORM_BS, QKNORM_N, 3 * inner)  # SimpleViT-qk-norm's served shape
-        cases = ((f"n={N}, random gammas", qkv_full, random_g), (f"n={N}, init gammas", qkv_full, init_g),
-                 ("n=50, random gammas", rnd(B_CHECK, 50, 3 * inner), random_g),
-                 (f"b={QKNORM_BS} n={QKNORM_N}, init gammas", qkv_main, init_g),
-                 (f"b={QKNORM_BS} n={QKNORM_N}, random gammas", qkv_main, random_g))
+        erd = edge_rnd(SEED + 16)
+        cases = ((f"n={N}, random gammas", qkv_full, random_g, rnd), (f"n={N}, init gammas", qkv_full, init_g, rnd),
+                 ("n=50, random gammas", rnd(B_CHECK, 50, 3 * inner), random_g, rnd),
+                 (f"b={QKNORM_BS} n={QKNORM_N}, init gammas", qkv_main, init_g, rnd),
+                 (f"b={QKNORM_BS} n={QKNORM_N}, random gammas", qkv_main, random_g, rnd),
+                 *((f"n={n}, random gammas", erd(B_CHECK, n, 3 * inner), random_g, erd) for n in ATTN_BWD_EDGE_N))
         for rate in (0.0, RATE):
             tag = "qknorm" if rate == 0.0 else "dropout,qknorm"
             fwd, bwd = f"attention_rows[{tag}]", f"attention_bwd_rows[{tag}]"
             fwd_errs, bwd_errs = [], []
-            for label, qkv, (gq, gk) in cases:
+            for label, qkv, (gq, gk), draw in cases:
                 dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None, gamma_q=gq, gamma_k=gk)
                 fwd_errs.append(compare(f"{fwd} [{label}]", fb.attention_rows(qkv, **akw, **dkw),
                                         fb.attention_rows_reference(qkv, **akw, **dkw), None, ATTN_RTOL,
                                         atol_frac=QK_ATTN_ATOL_FRAC))
-                dm = rnd(qkv.shape[0], qkv.shape[1], inner)
-                got = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
-                want = fb.attention_bwd_rows_reference(qkv, dm, **akw, **dkw)
-                bwd_errs.append(compare(f"{bwd} m [{label}]", got[0], want[0], None, ATTN_RTOL,
-                                        atol_frac=QK_ATTN_ATOL_FRAC))
-                for i, part in enumerate("qkv"):
-                    cols = slice(i * inner, (i + 1) * inner)
-                    bwd_errs.append(compare(f"{bwd} d{part} [{label}]", got[1][..., cols], want[1][..., cols], None,
-                                            ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
-                for part, a, b in (("dgamma_q", got[2], want[2]), ("dgamma_k", got[3], want[3])):
-                    bwd_errs.append(compare(f"{bwd} {part} [{label}]", a, b, None, QK_DGAMMA_RTOL, QK_DGAMMA_REL_L2,
-                                            atol_frac=QK_DGAMMA_ATOL_FRAC))
-                again = fb.attention_bwd_rows(qkv, dm, **akw, **dkw)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"{bwd} is not deterministic")
+                dm = draw(qkv.shape[0], qkv.shape[1], inner)
+                bwd_errs.append(check_attention_bwd(fb, bwd, qkv, dm, {**akw, **dkw}, label, None, QK_ATTN_ATOL_FRAC))
             errs[fwd], errs[bwd] = max(fwd_errs), max(bwd_errs)
             sync()
     g = rnd(B_CHECK, N, DIM)
@@ -1714,16 +1783,12 @@ def check_simple_attention(fb, rnd):
                                     fb.attention_rows_reference(qkv, **akw), ATTN_ATOL, ATTN_RTOL))
             if n == SIMPLE_N:
                 config2_err = fwd_errs[-1]
-            m, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
-            m_want, dqkv_want = fb.attention_bwd_rows_reference(qkv, dm, **akw)
-            bwd_errs.append(compare(f"attention_bwd_rows m [{label}]", m, m_want, ATTN_ATOL, ATTN_RTOL))
-            for i, part in enumerate("qkv"):
-                cols = slice(i * inner, (i + 1) * inner)
-                bwd_errs.append(compare(f"attention_bwd_rows d{part} [{label}]", dqkv[..., cols],
-                                        dqkv_want[..., cols], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+            bwd_errs.append(check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, label))
+            if n == SIMPLE_N:
+                config2_bwd_err = bwd_errs[-1]
     sync()
     return {"attention_rows": max(fwd_errs), "attention_bwd_rows": max(bwd_errs),
-            "attention_rows[config 2]": config2_err}
+            "attention_rows[config 2]": config2_err, "attention_bwd_rows[config 2]": config2_bwd_err}
 
 
 def simple_model(kind, dev, dtype, **kw):
@@ -1820,7 +1885,7 @@ def check_simple_training(fb, dev, gen):
     make_train_step, 4 Adam steps on one batch each: loss finite and
     falling, exact launch counters, the first step's loss and gradients
     (the gammas' included) against the plain bf16 path and fp32.  Returns
-    the launch counts of the qk-norm steps."""
+    the launch counts of SimpleViT's steps and of the qk-norm steps."""
     from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
 
     bf16 = torch.bfloat16
@@ -1855,6 +1920,8 @@ def check_simple_training(fb, dev, gen):
             fail(f"{kind} training did not launch every attention kernel of every layer")
         if kind == "qknorm":
             qk_counts = counts
+        else:
+            simple_counts = counts
         plain = copy.deepcopy(initial)
         fb.reset_launch_counts()
         with plain_layers():
@@ -1872,7 +1939,7 @@ def check_simple_training(fb, dev, gen):
                       names)
         del model, plain, fp32, initial, state, step
         sync()
-    return qk_counts
+    return simple_counts, qk_counts
 
 
 def time_simple(fb, dev, gen, smi):
@@ -1939,9 +2006,12 @@ def time_simple(fb, dev, gen, smi):
              attention_work(b, n, HEADS, backward=True, qknorm=True)),
         ):
             km, pm = in_turns(kern, plain, 10)
-            record(per_kernel, name, km, pm, w)
+            prod = sdpa_fwd_bwd_ms(qkv, dm, HEADS, 10, scale=1.0) if "bwd" in name else None
+            record(per_kernel, name, km, pm, w, product_ms=prod,
+                   product_of=f"{SDPA_FWD_BWD}, without the qk-norm" if prod is not None else None)
             bound, by = bound_ms(w)
-            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by})")
+            prod_note = "" if prod is None else f", {SDPA_FWD_BWD} without the qk-norm {prod:.4f} ms"
+            log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}){prod_note}")
         plain_akw = dict(heads=HEADS, dim_head=DH, scale=DH**-0.5)
         km = cuda_ms(lambda: fb.attention_rows(qkv, **plain_akw), 10)
         log(f"  attention_rows (no qk-norm) at the same shape: {km:.4f} ms")
@@ -1955,6 +2025,14 @@ def time_simple(fb, dev, gen, smi):
         log(f"  attention_rows at SimpleViT config 2's shape (b={b2}, n={n2}, heads={h2}; "
             f"{fb.attention_key_chunks(n2)} key chunks of 16): kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
             f"{bound:.4f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
+        dm2 = edge_rnd(SEED + 19)(b2, n2, h2 * DH)
+        km, pm = in_turns(lambda: fb.attention_bwd_rows(qkv2, dm2, **c2kw),
+                          lambda: fb.attention_bwd_rows_reference(qkv2, dm2, **c2kw), 20)
+        w2, prod = attention_work(b2, n2, h2, backward=True), sdpa_fwd_bwd_ms(qkv2, dm2, h2, 20)
+        record(per_kernel, "attention_bwd_rows[config 2]", km, pm, w2, product_ms=prod, product_of=SDPA_FWD_BWD)
+        bound, by = bound_ms(w2)
+        log(f"  attention_bwd_rows at the same shape: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), {SDPA_FWD_BWD} {prod:.4f} ms")
         # the out projection of both models' blocks: no bias, so one torch
         # call computes it (SimpleViT adds the residual in the epilogue:
         # torch.addmm; SimpleViT-qk-norm adds it outside the block: F.linear)
@@ -4511,7 +4589,7 @@ def main():
     phase_done("phase 17")
 
     # -- 18. SimpleViT training ----------------------------------------------------
-    qk_train_counts = check_simple_training(fb, dev, gen)
+    simple_train_counts, qk_train_counts = check_simple_training(fb, dev, gen)
     phase_done("phase 18")
 
     # -- 19. SimpleViT timing ------------------------------------------------------
@@ -4604,16 +4682,17 @@ def main():
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "path": path,
                 "launches": launches, "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound, "bound_by": by, "library_ms": t["library_ms"],
-                "product_only_ms": t.get("product_only_ms")}
+                "product_only_ms": t.get("product_only_ms"), "product_only_of": t.get("product_only_of")}
 
     dropout_kernels = (
         ("attention_rows[dropout]", SOURCE, TPU_BLOCK_KERNEL), ("gemm_bf16[block_out]", SOURCE, TPU_BLOCK_KERNEL),
-        ("dropout_apply", DROPOUT_SOURCE, TPU_BWD_KERNEL), ("attention_bwd_rows[dropout]", BWD_SOURCE, TPU_BWD_KERNEL),
+        ("dropout_apply", DROPOUT_SOURCE, TPU_BWD_KERNEL), ("attention_bwd_rows[dropout]", ATTN_BWD_SOURCE, TPU_BWD_KERNEL),
     )
     kernels = (
         [entry(name, SOURCE, TPU_KERNEL, "serving", {**counts, **gemm_counts}[name])
          for name in ("layernorm_rows", *(f"gemm_bf16[{site}]" for site in GEMM_SITES), "attention_rows")]
-        + [entry(name, SOURCE if name == "gemm_f32out" else BWD_SOURCE, TPU_BWD_KERNEL, "training", train_counts[name])
+        + [entry(name, {"gemm_f32out": SOURCE, "attention_bwd_rows": ATTN_BWD_SOURCE}.get(name, BWD_SOURCE),
+                 TPU_BWD_KERNEL, "training", train_counts[name])
            for name in ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")]
         + [entry(name, source, replaces, "dropout training", dropout_counts[name])
            for name, source, replaces in dropout_kernels]
@@ -4625,6 +4704,8 @@ def main():
            for name, (source, replaces) in TPU_QK_KERNELS.items()]
         + [entry("attention_rows[config 2]", SOURCE, TPU_KERNEL, "SimpleViT serving",
                  simple_serving_counts["attention_rows"]),
+           entry("attention_bwd_rows[config 2]", ATTN_BWD_SOURCE, TPU_BWD_KERNEL, "SimpleViT training",
+                 simple_train_counts["attention_bwd_rows"]),
            entry("gemm_bf16[block_out, +x]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT serving",
                  simple_serving_counts["gemm_bf16[block_out]"]),
            entry("gemm_bf16[block_out, bare]", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-qk-norm serving",
@@ -4659,9 +4740,14 @@ def main():
         "their bytes over 3.35 TB/s and their operations over 989 TFLOP/s bf16 tensor / 67 T/s CUDA-core peaks; "
         "library_ms: the one torch call computing the same function, where there is one; product_only_ms: at a "
         "gemm_bf16 site that no one torch call computes (out, fc1, fc2, gemm_f32out, fc1_save, gelu_bwd, fc1_f32), "
-        "the bare product through F.linear at its (M, N, K), a yardstick of the product alone, null elsewhere; "
+        "the bare product through F.linear at its (M, N, K), a yardstick of the product alone; at attention_bwd_rows "
+        "and its variants, scaled_dot_product_attention's forward and backward to q, k, v (torch.autograd.grad) on "
+        "the same q, k, v and dm, dropout_p=0.1 beside [dropout], without the qk-norm beside [qknorm], a yardstick "
+        "computing the same products (no one torch call gives m and dqkv); product_only_of names it where it is "
+        "not F.linear; null elsewhere; "
         "attention_rows[config 2]: attention_rows at SimpleViT config 2's b=256 n=64 16 heads, launches from its "
-        "serving requests; launches: the serving "
+        "serving requests; attention_bwd_rows[config 2]: attention_bwd_rows at the same shape, launches from "
+        "SimpleViT config 2's 4 training steps; launches: the serving "
         "requests for the forward kernels, the training steps for the backward kernels, the dropout training steps "
         "for the dropout variants, phase 9's mask checks for dropout_masks, NaViT-B's serving forward for "
         "flash_fwd and its 4 training steps for the flash backward, SimpleViT-qk-norm's requests and 4 training "

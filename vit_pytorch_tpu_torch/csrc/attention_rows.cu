@@ -136,13 +136,6 @@ AttnRowsKernel attn_rows_kernel(bool drop, bool qk) {
               : (qk ? attention_rows_kernel<KT, false, true> : attention_rows_kernel<KT, false, false>);
 }
 
-// a 3-D map over the (cols, rows, images) bf16 tensor at p, row-major:
-// boxes of 64 columns x box_rows rows of one image
-inline bool rows_map(CUtensorMap& map, const void* p, long long cols, long long rows, long long images, int box_rows) {
-  const long long sizes[3] = {cols, rows, images}, strides[2] = {cols, rows * cols};
-  return encode_map(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, sizes, strides, kAttnDh, box_rows);
-}
-
 }  // namespace
 
 extern "C" {

@@ -178,9 +178,10 @@ __device__ __forceinline__ void pv_issue(float (&o)[8][4], const uint32_t (&p)[4
 // through the swizzle: lane c of a row's 8 takes the row's logical 16-byte
 // chunk c, so the f32 sum order is rms_norm_rows' own).  All THREADS threads
 // of the block; zero rows stay zero.  gamma: the head's 64 gammas (f32, or
-// bf16: the attention block's).
+// bf16: the attention block's); with r, each row's rsqrt is stored there
+// (the backward's closing of the norm needs it).
 template <int THREADS, int ROWS = kFlashTile, typename G = float>
-__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma) {
+__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma, float* r = nullptr) {
   static_assert((ROWS * 8) % THREADS == 0, "8 lanes a row, every lane busy");
   const int c = (threadIdx.x & 7) * 8;
   float g8[8];
@@ -201,6 +202,7 @@ __device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma) {
     ss += __shfl_xor_sync(0xffffffffu, ss, 2);
     ss += __shfl_xor_sync(0xffffffffu, ss, 4);
     const float rr = rsqrtf(ss + kRmsEps);
+    if (r && c == 0) r[row] = rr;
     uint4 o;
     uint32_t* po = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll

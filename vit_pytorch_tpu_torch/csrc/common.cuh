@@ -1,6 +1,7 @@
 // Helpers and shapes shared by the port's Hopper kernels (fused_layer.cu,
 // gemm_bf16.cu, attention_rows.cu, fused_layer_bwd.cu, gemm_wgrad.cu,
-// dropout.cu, flash_attention.cu, short_attention.cu, stack_layers.cu).
+// dropout.cu, flash_attention.cu, short_attention.cu, stack_layers.cu,
+// attention_bwd_rows.cu).
 // Everything here has internal linkage (each source that includes it gets its
 // own copy), apart from launch_column_sum, declared here and defined once in
 // fused_layer_bwd.cu.
@@ -15,14 +16,12 @@ typedef __nv_bfloat16 bf16;
 
 // attention kernels (attention_rows and attention_bwd_rows): one head of
 // dim 64, at most 16 * kAttnKT = 208 keys (ViT-B/16 @224 has 197 tokens);
-// attention_rows runs ceil(n / 16) chunks of 16 (attention_rows.cu),
-// attention_bwd_rows all 13
-constexpr int kAttnQT = 64;        // rows (queries, or keys in the key pass) per block
-constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
+// both run ceil(n / 16) chunks of 16 (layer_tiles.cuh's attn_key_chunks)
+constexpr int kAttnQT = 64;        // query (or key) rows of a tile
+constexpr int kAttnThreads = 128;  // one warpgroup: 4 warps x 16 rows
 constexpr int kAttnDh = 64;
-constexpr int kAttnLd = kAttnDh + 8;  // shared-memory row stride: 144 bytes, off the bank period
+constexpr int kAttnLd = kAttnDh + 8;  // the flash tiles' shared-memory row stride: 144 bytes, off the bank period
 constexpr int kAttnKT = 13;           // 16-row chunks of the padded sequence
-constexpr int kKeepWords = (16 * kAttnKT + 31) / 32;  // 32-key words of one keep row (7)
 
 // In-kernel dropout (the JAX package's _kernel / _bwd_kernel / dropout_masks,
 // ops/fused_block.py:150-222).  The TPU kernels seed the TPU PRNG per
@@ -186,16 +185,6 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// A fragment of a 16x16 tile whose rows sit in shared memory with leading
-// dimension ld, from its top-left element p
-__device__ __forceinline__ void load_a_frag(uint32_t a[4], const bf16* p, int ld, int g, int t) {
-  const bf16* r = p + g * ld + 2 * t;
-  a[0] = ld_pair(r);
-  a[1] = ld_pair(r + 8 * ld);
-  a[2] = ld_pair(r + 8);
-  a[3] = ld_pair(r + 8 * ld + 8);
-}
-
 // B fragment (16 k x 8 n) of X^T, X row-major in shared memory with rows
 // indexed by n and columns by k: two contiguous pairs of row g
 __device__ __forceinline__ void load_b_frag_rows(uint32_t b[2], const bf16* p, int ld, int g, int t) {
@@ -219,28 +208,6 @@ __device__ __forceinline__ void acc_to_a_frag(uint32_t a[4], const float lo[4], 
   a[1] = pack_floats(lo[2], lo[3]);
   a[2] = pack_floats(hi[0], hi[1]);
   a[3] = pack_floats(hi[2], hi[3]);
-}
-
-// ROWS rows from r0 of one head's 64 columns into shared memory (leading
-// dimension kAttnLd), zero-filled from row n on; all kAttnThreads threads of
-// the block (tid their index in it; a warpgroup of a larger block passes its
-// own).  The trip count is a constant, so the loop unrolls and every
-// thread's loads are in flight at once.
-template <int ROWS>
-__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n, int tid) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int c = tid; c < ROWS * (kAttnDh / 8); c += kAttnThreads) {
-    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
-    uint4 v = zero;
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + d);
-    *reinterpret_cast<uint4*>(dst + r * kAttnLd + d) = v;
-  }
-}
-
-template <int ROWS>
-__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n) {
-  load_head_rows<ROWS>(dst, src, stride, r0, n, threadIdx.x);
 }
 
 // qk-norm: the per-head RMSNorm of _kernel (:323-338) and _bwd_kernel
@@ -309,25 +276,33 @@ __device__ __forceinline__ void rms_norm_rows(bf16* rows, const G* __restrict__ 
   }
 }
 
+// the pairs of one row's 64 columns at the accumulator layout's columns
+// 8dj + 2t, +1 (the norm's backward reads a raw row so)
+template <int DT>
+__device__ __forceinline__ void load_raw_pairs(uint32_t (&raw)[DT], const bf16* row, int t) {
+#pragma unroll
+  for (int dj = 0; dj < DT; ++dj) raw[dj] = *reinterpret_cast<const uint32_t*>(row + dj * 8 + 2 * t);
+}
+
 // The norm's backward (_bwd_kernel :665-673) on one warp's 16 rows of f32
 // gradients d of the normed rows, in the accumulator layout (rows g, g + 8;
 // columns 8dj + 2t, +1).  With xhat = raw * r (f32, as the forward computed
 // it) and g8 = gamma * sqrt(64):
 //   colsum[c] = sum over the warp's rows of d * xhat      (dgamma / sqrt(64))
 //   d        <- r * (d*g8 - xhat * sum_c(d*g8 * xhat))
-// raw_rows: the warp's 16 raw rows in shared memory (ld kAttnLd), r_rows
-// their rsqrt, colsum the warp's 64 floats of shared memory.
+// raw0, raw1: the raw input's pairs at the thread's columns of its rows g
+// and g + 8 (load_raw_pairs), r0, r1 those rows' rsqrt (0 for a row past
+// the sequence: any real row may then stand in as raw, and the row adds 0
+// to colsum); colsum the warp's 64 floats of shared memory.
 template <int DT>
-__device__ __forceinline__ void rms_norm_bwd_rows(float (&d)[DT][4], const bf16* raw_rows, const float* r_rows,
+__device__ __forceinline__ void rms_norm_bwd_rows(float (&d)[DT][4], const uint32_t (&raw0)[DT],
+                                                  const uint32_t (&raw1)[DT], float r0, float r1,
                                                   const bf16* __restrict__ gamma, float* colsum, int g, int t) {
-  const float r0 = r_rows[g], r1 = r_rows[g + 8];
-  const bf16* raw0 = raw_rows + g * kAttnLd + 2 * t;
-  const bf16* raw1 = raw0 + 8 * kAttnLd;
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
   for (int dj = 0; dj < DT; ++dj) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw0 + dj * 8));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw1 + dj * 8));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw0[dj]));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw1[dj]));
     const float2 gg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gamma + dj * 8 + 2 * t));
     const float x0 = a.x * r0, y0 = a.y * r0, x1 = b.x * r1, y1 = b.y * r1;
     float px = d[dj][0] * x0 + d[dj][2] * x1, py = d[dj][1] * y0 + d[dj][3] * y1;
@@ -346,42 +321,12 @@ __device__ __forceinline__ void rms_norm_bwd_rows(float (&d)[DT][4], const bf16*
   s1 = quad_sum(s1);
 #pragma unroll
   for (int dj = 0; dj < DT; ++dj) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw0 + dj * 8));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(raw1 + dj * 8));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw0[dj]));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw1[dj]));
     d[dj][0] = r0 * (d[dj][0] - a.x * r0 * s0);
     d[dj][1] = r0 * (d[dj][1] - a.y * r0 * s0);
     d[dj][2] = r1 * (d[dj][2] - b.x * r1 * s1);
     d[dj][3] = r1 * (d[dj][3] - b.y * r1 * s1);
-  }
-}
-
-// The block's dgamma partial of one head: the 4 warps' column sums (4 x 64
-// floats of shared memory) added in warp order by threads 0..63, into
-// out[0..63] (device memory).  After a __syncthreads.
-__device__ __forceinline__ void store_colsum(float* __restrict__ out, const float* colsum) {
-  if (threadIdx.x < kAttnDh) {
-    const float* c = colsum + threadIdx.x;
-    out[threadIdx.x] = ((c[0] + c[kAttnDh]) + c[2 * kAttnDh]) + c[3 * kAttnDh];
-  }
-}
-
-// One warp's logits for its 16 rows q_rows (shared memory, ld kAttnLd)
-// against the NT * 8 rows k_rows: s[j] holds rows (g, g+8) x keys
-// (8j + 2t, 8j + 2t + 1), f32.
-template <int NT>
-__device__ __forceinline__ void qk_logits(float (&s)[NT][4], const bf16* q_rows, const bf16* k_rows, int g, int t) {
-  uint32_t qf[kAttnDh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kAttnDh / 16; ++kk) load_a_frag(qf[kk], q_rows + kk * 16, kAttnLd, g, t);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kAttnDh / 16; ++kk) {
-      uint32_t b[2];
-      load_b_frag_rows(b, k_rows + j * 8 * kAttnLd + kk * 16, kAttnLd, g, t);
-      mma_16816(s[j], qf[kk], b);
-    }
   }
 }
 

@@ -454,9 +454,9 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __res
 // 4 KT bf16 P fragments a thread).
 // ---------------------------------------------------------------------------
 
-// the key-chunk counts built: one instantiation each of attention_rows and
-// of stack_layers' attention step (ops/fused_block.py::ATTN_KEY_CHUNKS
-// mirrors the list)
+// the key-chunk counts built: one instantiation each of attention_rows,
+// attention_bwd_rows and stack_layers' attention step
+// (ops/fused_block.py::ATTN_KEY_CHUNKS mirrors the list)
 #define VIT_ATTN_KEY_CHUNKS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
 
 // the instantiation run at n keys (1 <= n <= 208)
@@ -464,6 +464,14 @@ __host__ __device__ constexpr int attn_key_chunks(int n) { return (n + 15) / 16;
 
 // 32-key words of one keep row at KT key chunks
 __host__ __device__ constexpr int attn_keep_words(int kt) { return (16 * kt + 31) / 32; }
+
+// a 3-D map over the (cols, rows, images) bf16 tensor at p, row-major:
+// boxes of 64 columns x box_rows rows of one image (attention_rows.cu,
+// attention_bwd_rows.cu)
+inline bool rows_map(CUtensorMap& map, const void* p, long long cols, long long rows, long long images, int box_rows) {
+  const long long sizes[3] = {cols, rows, images}, strides[2] = {cols, rows * cols};
+  return encode_map(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, sizes, strides, kAttnDh, box_rows);
+}
 
 // ROWS rows from r0 of one head's 64 columns (row stride `stride`) into a
 // swizzled tile, zero from row n on; 128 threads (tid their index among

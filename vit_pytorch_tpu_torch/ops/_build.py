@@ -3,9 +3,10 @@
 nvcc compiles each source to an object, all sources at once in parallel, and
 links them into one shared library with a plain C interface, under
 :func:`build_dir` (``build/`` at the repository root in a checkout,
-git-ignored; a user cache directory for an installed package), named by a
-hash of the sources, their headers (``csrc/*.cuh``) and the flags, so that an
-edit rebuilds and an unchanged tree reuses the library.  ``ctypes`` loads it: every pointer and the stream are passed as
+git-ignored; a user cache directory for an installed package).  Each object
+is named by a hash of its source, the headers (``csrc/*.cuh``) and the
+flags, and the library by the hash of those, so that an edit to one source
+rebuilds that source alone and an unchanged tree reuses the library.  ``ctypes`` loads it: every pointer and the stream are passed as
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
@@ -45,7 +46,7 @@ _SIGNATURES = {
     "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_DROP, _P),
     # qkv, out, batch, n, n_keys, heads, dim_head, scale*log2(e), dropout, gamma_q, gamma_k, stream
     "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _P, _P),
-    # qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale*log2(e), scale, dropout,
+    # qkv, dm, m, dqkv, keep scratch, batch, n, heads, dim_head, scale*log2(e), scale, dropout,
     # gamma_q, gamma_k, dgamma partials, dgamma, stream
     "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, *_DROP, _P, _P, _P, _P, _P),
     # g, gm, rows, n, dim, heads, seed, threshold, 1/(1 - rate), stream
@@ -61,10 +62,8 @@ _SIGNATURES = {
     # the FF backward's gemm_bf16 epilogues: a, w, bias, h1 in, out, h1 out, column partials, column sums,
     # M, N, K, epilogue, stream
     "vit_gemm_ff": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # M, N, K -> splits of the K axis
-    "vit_gemm_wgrad_splits": (_I, _I, _I),
-    # a, b, out, partials, M, N, K, splits, stream
-    "vit_gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, out, partial slots, tile counters, M, N, K, blocks, stream-K chunk, stream
+    "vit_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, lse, q ids, kv ids, gamma_q, gamma_k, bias, bias is bf16, batch, heads, n, m, dim_head,
     # scale, causal, dropout, 21 strides, stream
     "vit_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _S, _P),
@@ -140,38 +139,47 @@ def load_library() -> KernelLibrary:
     if _library is not None:
         return _library
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256()
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
-        digest.update(src.name.encode() + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    headers = hashlib.sha256()
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        headers.update(hdr.name.encode() + hdr.read_bytes())
+    headers.update(" ".join(NVCC_FLAGS).encode())
+    keys = [hashlib.sha256(headers.digest() + src.name.encode() + src.read_bytes()).hexdigest()[:16]
+            for src in sources]
+    digest = hashlib.sha256("".join(keys).encode())
     path = build_dir() / f"libvit_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = None, ""
     if not path.is_file():
         t0 = time.perf_counter()
-        log = _build(path, sources)
+        log = _build(path, sources, keys)
         seconds = time.perf_counter() - t0
     _library = KernelLibrary(path, seconds, log)
     return _library
 
 
-def _build(path: Path, sources) -> str:
-    """nvcc each source to an object, all at once, then link them into
-    ``path``; returns nvcc's output."""
+def _build(path: Path, sources, keys) -> str:
+    """nvcc each source whose object is not built yet to an object under
+    ``objects/`` (named by the hash of the source, the headers and the
+    flags, so an edit to one source rebuilds that source alone), all at
+    once, then link them into ``path``; returns nvcc's output."""
     nvcc = _nvcc()
-    path.parent.mkdir(parents=True, exist_ok=True)
+    objdir = path.parent / "objects"
+    objdir.mkdir(parents=True, exist_ok=True)
+    objects = [objdir / f"{src.stem}-{key}.o" for src, key in zip(sources, keys)]
     with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
-        objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        todo = [(src, obj, Path(tmpdir) / obj.name) for src, obj in zip(sources, objects) if not obj.is_file()]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for src, obj in zip(sources, objects)
+            for src, _, tmp in todo
         ]
         outputs = [proc.communicate()[0] for proc in procs]
         log = "".join(outputs)
         if any(proc.returncode for proc in procs):
             raise RuntimeError(f"nvcc failed:\n{log}")
+        for _, obj, tmp in todo:
+            os.replace(tmp, obj)
         tmp = Path(tmpdir) / path.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],

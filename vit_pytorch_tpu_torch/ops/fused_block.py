@@ -13,8 +13,8 @@ The backward is the JAX package's decomposed ``_fused_layer_bwd``
 (fused_block.py:1793-1872): the FF vjp from the saved ``y`` by autograd
 through :func:`ff_reference` (plain PyTorch, where the JAX package uses XLA's
 vjp), then the port of the attention-block backward kernel ``_bwd_kernel``
-(:524) as six launches (``csrc/fused_layer_bwd.cu`` and the f32 epilogue of
-``gemm_bf16``)::
+(:524) as six launches (``csrc/attention_bwd_rows.cu``, ``csrc/fused_layer_bwd.cu``
+and the f32 epilogue of ``gemm_bf16``)::
 
     x  -> layernorm_rows -> gemm_bf16[qkv]                        = qkv  (recompute)
     dy -> gemm_bf16[cast] with W_out^T                            = dm
@@ -84,6 +84,7 @@ Weights are in ``nn.Linear``'s (out, in) layout; the kernels read them so.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
@@ -101,8 +102,8 @@ _LOG2E = 1.4426950408889634  # log2(e)
 ATTN_DIM_HEAD = 64  # kAttnDh
 ATTN_Q_TILE = 64  # kAttnQT
 ATTN_MAX_KEYS = 208  # 16 * kAttnKT: at most 13 key chunks of 16
-# attention_rows' instantiations, one per key-chunk count (VIT_ATTN_KEY_CHUNKS
-# in csrc/layer_tiles.cuh); a call at n keys runs attention_key_chunks(n)
+# attention_rows' and attention_bwd_rows' instantiations, one per key-chunk count
+# (VIT_ATTN_KEY_CHUNKS in csrc/layer_tiles.cuh); a call at n keys runs attention_key_chunks(n)
 ATTN_KEY_CHUNKS = tuple(range(1, 14))
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # the GEMM entry points take at most 65535 row tiles of 128
@@ -669,12 +670,65 @@ def _gemm_ff(a, w, epilogue: str, bias, aux):
     return (out, h1) if epilogue == "fc1_save" else (out, colsum)
 
 
+# gemm_wgrad's work split (csrc/gemm_wgrad.cu): 128 x 128 output tiles,
+# k-tiles of 64 rows
+WGRAD_BM, WGRAD_BN, WGRAD_BK = 128, 128, 64
+
+
+def gemm_wgrad_blocks(m: int, n: int, k: int, sms: int):
+    """``(blocks, chunk)`` of ``gemm_wgrad`` at (M, N, K) on a card of
+    ``sms`` SMs: one block an SM; the rem = tiles mod blocks tiles past the
+    last whole wave are shared out by stream-K over K cut into chunks of
+    ``chunk`` = blocks / gcd(rem, blocks) k-tiles (all of K if shorter), the
+    shortest chunk whose rem x chunk units every block gets an equal share
+    of: the blocks stay within one chunk of each other, so they read the
+    same few k rows of A and B from L2.  A function of the shape and the SM
+    count alone, so the pieces and the sums' order are too."""
+    tiles, ktiles = -(-m // WGRAD_BM) * -(-n // WGRAD_BN), -(-k // WGRAD_BK)
+    rem = tiles % sms
+    return sms, (min(ktiles, sms // math.gcd(rem, sms)) if rem else 0)
+
+
+def gemm_wgrad_pieces(m: int, n: int, k: int, blocks: int, chunk: int):
+    """The kernel's walk, for the tests: a list a block of ``(tile, k-tiles)``,
+    ``k-tiles`` the k-tiles it adds into that tile in order, then, for a
+    stream-K piece, ``(slot, index, pieces)``: its partial's slot ``ts +
+    b`` (``ts`` the tile's index among the stream-K tiles), its place in the
+    tile's block order and the tile's piece count (``wgrad_pieces`` and
+    ``wgrad_block_of`` in csrc/gemm_wgrad.cu)."""
+    ktiles = -(-k // WGRAD_BK)
+    tiles = -(-m // WGRAD_BM) * -(-n // WGRAD_BN)
+    full, rem = divmod(tiles, blocks)
+    units = rem * chunk
+    skb = min(blocks, units)  # the blocks that share the stream-K units: no range is empty
+
+    def block_of(u):
+        return ((u + 1) * skb - 1) // units
+
+    walk = []
+    for b in range(blocks):
+        pieces = [(b + i * blocks, list(range(ktiles))) for i in range(full)]
+        if rem and b < skb:
+            s, e = b * units // skb, (b + 1) * units // skb
+            for ts in range(s // chunk, -(-e // chunk)):
+                lo, hi = max(s, ts * chunk) - ts * chunk, min(e, (ts + 1) * chunk) - ts * chunk
+                if lo >= hi:
+                    continue
+                kts = [c + o for c in range(0, ktiles, chunk) for o in range(lo, hi) if c + o < ktiles]
+                first = block_of(ts * chunk)
+                pieces.append((full * blocks + ts, kts, ts + b, b - first,
+                               block_of((ts + 1) * chunk - 1) - first + 1))
+        walk.append(pieces)
+    return walk
+
+
 def gemm_wgrad(a, b):
     """``a^T b`` over the row axis: a (K, M) and b (K, N) bf16 to (M, N) f32,
-    a weight gradient (see :func:`gemm_wgrad_reference`).  One launch: the K
-    axis split into ranges whose f32 partial tiles a second kernel adds in a
-    fixed order, so the result is bitwise deterministic; neither operand is
-    transposed in memory."""
+    a weight gradient (see :func:`gemm_wgrad_reference`).  One persistent
+    launch (:func:`gemm_wgrad_blocks`): whole tiles a block, then the tiles
+    left shared out by stream-K, each such tile's partial sums added in a
+    fixed order by the last of its pieces, so the result is bitwise
+    deterministic; neither operand is transposed in memory."""
     if a.device.type == "cpu":
         return gemm_wgrad_reference(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[0] > GEMM_MAX_ROWS or any(
@@ -684,12 +738,17 @@ def gemm_wgrad(a, b):
                          f"M and N multiples of 8")
     _check_operands("gemm_wgrad", a.device, a, b)
     (k, m), n = a.shape, b.shape[1]
-    lib = load_library()
-    splits = lib.lib.vit_gemm_wgrad_splits(m, n, k)
+    blocks, chunk = gemm_wgrad_blocks(m, n, k, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    rem = -(-m // WGRAD_BM) * -(-n // WGRAD_BN) % blocks
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=a.device) if splits > 1 else None
-    err = lib.lib.vit_gemm_wgrad(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 None if partial is None else partial.data_ptr(), m, n, k, splits, _stream(a.device))
+    partial = counters = None
+    if rem:
+        partial = torch.empty((rem + blocks, 2, 64, WGRAD_BN), dtype=torch.float32, device=a.device)
+        counters = torch.zeros((rem, 2), dtype=torch.int32, device=a.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = load_library()
+    err = lib.lib.vit_gemm_wgrad(a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(partial), ptr(counters),
+                                 m, n, k, blocks, chunk, _stream(a.device))
     lib.check("gemm_wgrad", err)
     LAUNCHES["gemm_wgrad"] += 1
     return out
@@ -716,9 +775,10 @@ def gemm_f32out(a, w):
 
 
 def attention_key_chunks(n: int) -> int:
-    """The key chunks of 16 (the instantiation) that ``attention_rows`` runs
-    at ``n`` keys, 1 <= n <= ATTN_MAX_KEYS: ceil(n / 16), the choice of the
-    C entry point (``attn_key_chunks`` in csrc/layer_tiles.cuh)."""
+    """The key chunks of 16 (the instantiation) that ``attention_rows`` and
+    ``attention_bwd_rows`` run at ``n`` keys, 1 <= n <= ATTN_MAX_KEYS:
+    ceil(n / 16), the choice of both C entry points (``attn_key_chunks`` in
+    csrc/layer_tiles.cuh)."""
     if not 1 <= n <= ATTN_MAX_KEYS:
         raise ValueError(f"attention_rows: n={n} is not in [1, {ATTN_MAX_KEYS}]")
     return -(-n // 16)
@@ -774,14 +834,16 @@ def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, drop
                        gamma_q=None, gamma_k=None):
     """The attention backward of every head, from packed qkv rows and the
     merged-heads gradient ``dm`` to ``(m, dqkv)``, see
-    :func:`attention_bwd_rows_reference`.  One launch runs a row pass (m,
-    dq and each row's softmax statistics, into a scratch buffer) and a key
-    pass (dk, dv); the logits stay on chip in both.  With ``dropout_rate`` >
-    0 (the ``[dropout]`` variant) both passes replay the forward's mask.
-    With ``gamma_q``/``gamma_k`` (the ``[qknorm]`` variant) both passes
-    recompute the qk-norm and close it on dq and dk, each block writes its
-    rows' dgamma terms into a scratch buffer, and a fixed-order sum of those
-    ends the launch: the result is ``(m, dqkv, dgamma_q, dgamma_k)``."""
+    :func:`attention_bwd_rows_reference`.  One launch, a block an (image,
+    head) at ``attention_key_chunks(n)`` key chunks, runs a row pass (m, dq)
+    and a key pass (dk, dv) on operands it loads once; the logits stay on
+    chip.  With ``dropout_rate`` > 0 (the ``[dropout]`` variant) the row pass
+    draws the forward's mask once, into a scratch buffer the key pass reads.
+    With ``gamma_q``/``gamma_k`` (the ``[qknorm]`` variant) each block
+    normalises its head's q and k once and closes the norm on dq and dk,
+    writes its head's dgamma terms into a scratch buffer, and a fixed-order
+    sum of those ends the launch: the result is ``(m, dqkv, dgamma_q,
+    dgamma_k)``."""
     if qkv.device.type == "cpu":
         return attention_bwd_rows_reference(qkv, dm, heads=heads, dim_head=dim_head, scale=scale,
                                             dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k)
@@ -795,16 +857,17 @@ def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, drop
     _check_operands("attention_bwd_rows", qkv.device, qkv, dm, gq, gk)
     m = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, heads, n, 4), dtype=torch.float32, device=qkv.device)
-    partial = dg = None
+    kt = attention_key_chunks(n)
+    keep = partial = dg = None
+    if drop[0]:  # the keep words of each (image, head): 16 kt query rows x ceil(16 kt / 32) words
+        keep = torch.empty((b, heads, 16 * kt, -(-kt // 2)), dtype=torch.int32, device=qkv.device)
     if gq is not None:
-        tiles = -(-n // ATTN_Q_TILE)
-        partial = torch.empty((b * tiles, 2, inner), dtype=torch.float32, device=qkv.device)
+        partial = torch.empty((b, 2, inner), dtype=torch.float32, device=qkv.device)
         dg = torch.empty((2, inner), dtype=torch.float32, device=qkv.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     err = lib.lib.vit_attention_bwd_rows(
-        qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), ptr(keep),
         b, n, heads, dim_head, scale * _LOG2E, scale, *drop, ptr(gq), ptr(gk), ptr(partial), ptr(dg),
         _stream(qkv.device),
     )
@@ -985,13 +1048,11 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
     the shapes the kernels take:
 
     - attention_rows and attention_bwd_rows: ``dim_head == 64`` and
-      ``n <= 208`` (13 key chunks of 16, for ViT-B/16's 197 tokens;
-      attention_rows runs ``attention_key_chunks(n)`` of them, the backward
-      all 13).  The logit rows sit in registers, up to 104 f32 a thread,
-      which is the binding limit.  Shared memory, at most
-      ``(2*64 + 2*208) * 72 * 2 + 208 * 16`` = 81,664 bytes (the backward's
-      key pass), would stay under the 232,448-byte block limit far past 208
-      keys.
+      ``n <= 208`` (13 key chunks of 16, for ViT-B/16's 197 tokens; both
+      run ``attention_key_chunks(n)`` of them).  The logit rows sit in
+      registers, up to 104 f32 a thread, which is the binding limit; the
+      backward's block also holds its head's q, k, v and dm in shared
+      memory, 104 KB at 208 keys (two blocks an SM).
     - gemm_bf16 and gemm_f32out: every K (dim, inner, 3*inner, mlp_dim) a
       multiple of 64 and every N a multiple of 8; M = b*n is masked, up to
       65535 row tiles of 128.
