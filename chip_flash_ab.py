@@ -11,12 +11,14 @@ events over chained launches after 3 warm-up ones:
   - at NaViT-B's packed training shape (phase 14's 16 packs of 2048 tokens
     with their segment ids, 12 heads, q and k through rms_norm, scale 1):
     flash_fwd, flash_bwd_dq and flash_bwd_dkv at rate 0 and [dropout] at
-    0.1, and flash_fwd[qknorm] and [dropout,qknorm] (gammas 1 + 0.2 N);
+    0.1, and each at [qknorm] and [dropout,qknorm] (gammas 1 + 0.2 N);
   - short_attention and [bias] (a (12, 1024, 1024) f32 table) at
     SimpleViT-B/16 @512's 32 x 12 x 1024 (phase 30's shape);
   - flash_fwd without options, [causal], [dropout,causal], [bias] and
     [bias,causal] (a (1, 12, 2048, 2048) f32 table), and flash_bwd_dq and
-    flash_bwd_dkv without options, at 8 x 12 x 2048 (phase 30's shape).
+    flash_bwd_dkv without options and at each causal variant ([causal],
+    [dropout,causal], [qknorm,causal], [dropout,qknorm,causal]), at 8 x 12
+    x 2048 (phase 30's shape).
 
 Prints one JSON line {"tree": label, kernel: ms, ...} and, after a fresh
 build, the ptxas line of each flash and short kernel.  Run two checkouts in
@@ -67,7 +69,14 @@ if __name__ == "__main__":
             out[f"flash_bwd_dq{tag}"] = cs.cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw), 30)
             out[f"flash_bwd_dkv{tag}"] = cs.cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw), 30)
             qk_tag = "[dropout,qknorm]" if rate else "[qknorm]"
-            out[f"flash_fwd{qk_tag}"] = cs.cuda_ms(lambda: fa.flash_fwd(q, k, v, **kw, **dkw, gamma_q=gq, gamma_k=gk), 30)
+            gkw = dict(gamma_q=gq, gamma_k=gk)
+            out[f"flash_fwd{qk_tag}"] = cs.cuda_ms(lambda: fa.flash_fwd(q, k, v, **kw, **dkw, **gkw), 30)
+            o, lse = fa.flash_fwd(q, k, v, **kw, **dkw, **gkw)
+            delta = (do.float() * o.float()).sum(-1)
+            out[f"flash_bwd_dq{qk_tag}"] = cs.cuda_ms(
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw, **gkw), 30)
+            out[f"flash_bwd_dkv{qk_tag}"] = cs.cuda_ms(
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw, **gkw), 30)
         rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
         b, n = cs.B_SHORT, cs.SIMPLE_512_N
         q, k, v = (rn(b, cs.HEADS, n, cs.DH).to(torch.bfloat16) for _ in range(3))
@@ -86,6 +95,17 @@ if __name__ == "__main__":
         delta = (do.float() * o.float()).sum(-1)
         out["flash_bwd_dq 8x12x2048"] = cs.cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **long), 10)
         out["flash_bwd_dkv 8x12x2048"] = cs.cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **long), 10)
+        for tag in cs.CAUSAL_TAGS:
+            ckw = dict(causal=True, dropout_rate=cs.RATE if "dropout" in tag else 0.0,
+                       seed=cs.DROP_SEED if "dropout" in tag else None)
+            if "qknorm" in tag:
+                ckw.update(gamma_q=gq, gamma_k=gk)
+            o, lse = fa.flash_fwd(q, k, v, **long, **ckw)
+            delta = (do.float() * o.float()).sum(-1)
+            out[f"flash_bwd_dq{tag} 8x12x2048"] = cs.cuda_ms(
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **long, **ckw), 10)
+            out[f"flash_bwd_dkv{tag} 8x12x2048"] = cs.cuda_ms(
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **long, **ckw), 10)
     print(json.dumps(out), flush=True)
     for line in cs.ptxas_report(lib.build_log):
         if "flash" in line or "short" in line:

@@ -50,12 +50,11 @@ MUTANTS = {
         "flash_attention.cu", _FWD_TAIL,
         _FWD_TAIL.replace(_FWD_KEEP + "1.f);", _FWD_KEEP + "a.drop.inv);").replace(_FWD_NUM, "const float num = 1.f;")),
     "flash_bwd_dkv: the keep tile read untransposed": (
-        "flash_attention.cu", "kbits = keep_bits_cols(keep + stage * kFlashKeepTile, warp * 16 + g, t);",
-        "kbits = keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t);"),
+        "flash_attention.cu", "kbits = keep_bits_cols(kt, warp * 16 + g, t);",
+        "kbits = keep_bits_rows(kt, warp * 16 + g, t);"),
     "flash_bwd_dq: dp left unmasked (scaled by 1/(1 - rate) only)": (
-        "flash_attention.cu",
-        "      apply_keep_bits(dp, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), a.drop.inv);",
-        "      apply_keep_bits(dp, ~0u, a.drop.inv);"),
+        "flash_attention.cu", "        if constexpr (kDropout) kbits = keep_bits_rows(kt, warp * 16 + g, t);",
+        "        if constexpr (kDropout) kbits = ~0u;"),
 }
 
 

@@ -32,32 +32,38 @@ def _span(first: str, last: str):
     return text[start:text.index(last, start) + len(last)]
 
 
-_NORM_STAGE = "  rms_norm_rows<kFlashTile, kFlashLd, kFlashThreads>(ring + 2 * stage * kTileElems, gammas, nullptr, nullptr);"
 _FWD_NORM_STAGE = "      rms_norm_tile_sw<kThreads>(ring + 2 * stage * kSwTile, gring);"
-# dk from the raw q tile: the ring's q stage is normalised with a raw copy kept
-# in a tile of shared memory past the gammas, which dk's product then reads
-_DKV_SMEM = "constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;"
-_DKV_NORM = "    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);\n\n    const bf16* qs = ring"
-_DKV_DK = "mma_acc(dk, f, qs, g, t);  // dk += bf16(ds^T) . q (q^ with qk-norm)"
-_DKV_SPAN = _span(_DKV_SMEM, _DKV_DK)
+# the backward kernels' ring tile, normalised in place once it has landed
+_NORM_STAGE = ("        if constexpr (kDkv) rms_norm_tile_quads<128 * kBwdWgs>(threadIdx.x, xs, a.gq + it.h * kFlashDh);\n"
+               "        else rms_norm_tile_sw_at<128 * kBwdWgs>(threadIdx.x, xs, a.gk + it.h * kFlashDh);\n")
+# dk from the raw q tile: flash_bwd_dkv's consumers first copy each ring q
+# tile into a 1024-aligned raw tile of its stage past the kernel's shared
+# memory (the launch asks kBwdStages tiles and 1 KB more), then normalise
+# the ring tile; s^T reads the normalised tile, dk's product the raw one
+_SMEM = "  const int smem = bwd_smem(drop);"
+_RING_NORM = "      if constexpr (kQkNorm) {\n" + _NORM_STAGE
+_DK = "      pv_issue(acc0, df, xs);  // dq += bf16(ds).k, or dk += bf16(ds^T).q (q^ with qk-norm); retired next tile"
+_RAW = "reinterpret_cast<bf16*>(smem + ((bwd_smem(kDropout) - kWgAlign + 1023) & ~1023)) + stage * kSwTile"
+_DKV_SPAN = _span(_RING_NORM, _SMEM)
+_RAW_Q = _DKV_SPAN.replace(
+    _RING_NORM,
+    "      if constexpr (kQkNorm && kDkv) {\n"
+    "        bf16* raw = " + _RAW + ";\n"
+    "        for (int i = threadIdx.x; i < kSwTile / 8; i += 128 * kBwdWgs)\n"
+    "          reinterpret_cast<uint4*>(raw)[i] = reinterpret_cast<const uint4*>(xs)[i];\n"
+    "        named_sync(1, 128 * kBwdWgs);\n"
+    "      }\n" + _RING_NORM).replace(
+    _DK, "      pv_issue(acc0, df, kQkNorm && kDkv ? " + _RAW + " : xs);").replace(
+    _SMEM, "  const int smem = bwd_smem(drop) + kBwdStages * kSwTileBytes + 1024;")
+assert _RAW_Q.count(_RAW) == 2 and "kBwdStages * kSwTileBytes + 1024" in _RAW_Q
 
 # name: (file in csrc/, text replaced, replacement); each text occurs once
 MUTANTS = {
     "flash_fwd: only ring stage 0's k tile normalised": (
         "flash_attention.cu", _FWD_NORM_STAGE, _FWD_NORM_STAGE.replace("      rms_norm", "      if (stage == 0) rms_norm")),
     "flash_bwd_dq, flash_bwd_dkv: only ring stage 0's tile normalised (k in dq, q in dkv)": (
-        "flash_attention.cu", _NORM_STAGE, "  if (stage == 0)\n  " + _NORM_STAGE),
-    "flash_bwd_dkv: dk from the raw q tile": (
-        "flash_attention.cu", _DKV_SPAN,
-        _DKV_SPAN.replace(_DKV_SMEM, _DKV_SMEM[:-1] + " + kTileElems * 2;").replace(
-            _DKV_NORM,
-            "    bf16* raw_q = reinterpret_cast<bf16*>(gring + kFlashDh);\n"
-            "    if constexpr (kQkNorm) {\n"
-            "      rms_norm_rows<kFlashTile, kFlashLd, kFlashThreads>(ring + 2 * stage * kTileElems, gring, raw_q, "
-            "nullptr);\n"
-            "      __syncthreads();\n"
-            "    }\n\n    const bf16* qs = ring").replace(
-            _DKV_DK, "mma_acc(dk, f, kQkNorm ? raw_q : qs, g, t);")),
+        "flash_attention.cu", _NORM_STAGE, "        if (stage == 0) {\n" + _NORM_STAGE + "        }\n"),
+    "flash_bwd_dkv: dk from the raw q tile": ("flash_attention.cu", _DKV_SPAN, _RAW_Q),
     "gamma without its sqrt(64) (the operand a block keeps)": (
         "flash_attention.cu", "a[kk][i] = pack_floats(x.x * r * (g.x * kRmsRoot), x.y * r * (g.y * kRmsRoot));",
         "a[kk][i] = pack_floats(x.x * r * g.x, x.y * r * g.y);"),

@@ -50,9 +50,13 @@ Phases, each printed as it ends:
      plain twins, bf16, h=12, dh=64: two 2048-token packs of the NaViT
      resolution mix, the attn_pool shape (16 queries, empty slots at -2),
      an all-pad pack and no ids at n=m=1100, and flash_fwd's ring edges (n =
-     1, m = 1000; n = 129, m = 130; ids at n = m = 1000); o, lse, dq, dk,
-     dv, and the Function against autograd through the materialized twin in
-     f32; the fraction of tiles the skip test admits;
+     1, m = 1000; n = 129, m = 130; ids at n = m = 1000), and the backward
+     kernels' 128-row work items and admission (unsorted ids 0, 1, 0, 2, ...
+     over two packs; n = m = 193 without and with ids; causal with the
+     diagonal mid-item, n = m = 193 and unsorted ids at n = m = 1000); o,
+     lse, dq, dk, dv (the backward kernels run twice: bitwise the same), and
+     the Function against autograd through the materialized twin in f32;
+     the fraction of tiles the skip test admits;
  13. NaViT-B serving: forward_packed on the 120-image mix of the JAX bench
      (13 flash_fwd launches, exact), logits against the plain bf16 path
      (flash_attention_twins swapped in: the flash Function on its twins)
@@ -67,7 +71,9 @@ Phases, each printed as it ends:
      step's loss and gradients against both;
  15. NaViT timing: serving img/s and tokens/s and the training ms/step
      (peak memory) at 16 packs, kernel against plain in turns, and each
-     flash launch at the packed shape;
+     flash launch at the packed shape, the backward kernels beside SDPA's
+     backward under the block-diagonal mask (forward + backward less the
+     forward);
  16. the qk-norm kernels against their twins at the shapes of phase 3 (n =
      197 and 50) and SimpleViT-qk-norm's served one (b=128, n=196), scale 1,
      gammas at SimpleViT-qk-norm's init and random: attention_rows[qknorm],
@@ -114,11 +120,12 @@ Phases, each printed as it ends:
  22. the flash kernels' dropout instantiations against their plain twins
      at rate 0.1 on phase 12's cases and a packed case with q = 0 (every p
      exactly 1, a tight bound on o): flash_fwd[dropout] (o, lse; it differs
-     from the rate-0 kernel), flash_bwd_dq[dropout], flash_bwd_dkv[dropout];
-     the flash_dropout_masks replay bitwise against its twin and, at n = m,
-     against dropout_masks' attention mask, keep fraction 0.9 +- 0.005; the
-     Function's o, dq, dk, dv against autograd through the f32
-     materialized composite fed the same masks;
+     from the rate-0 kernel), flash_bwd_dq[dropout], flash_bwd_dkv[dropout]
+     (each run twice: bitwise the same); the flash_dropout_masks replay
+     bitwise against its twin and, at n = m, against dropout_masks'
+     attention mask, keep fraction 0.9 +- 0.005; the Function's o, dq, dk,
+     dv against autograd through the f32 materialized composite fed the
+     same masks;
  23. NaViT-B training with dropout 0.1, emb_dropout 0.1 (phase 14's batch,
      a generator a step): depth 12, 4 steps (loss finite, exact counters:
      12 of each [dropout] flash kernel and 1 of each rate-0 one a step, the
@@ -128,15 +135,17 @@ Phases, each printed as it ends:
  24. its timing: ms/step and peak memory, kernel against plain in turns
      (plain one step a turn) and against dropout 0 in turns; each [dropout]
      launch at the packed shape against its twin and its rate-0 kernel,
-     SDPA with dropout_p beside flash_fwd[dropout]; the mask replay;
+     SDPA with dropout_p beside flash_fwd[dropout] and its backward beside
+     the backward kernels; the mask replay;
  25. the flash kernels' in-tile qk-norm instantiations ([qknorm] and
      [dropout,qknorm] of flash_fwd, flash_bwd_dq, flash_bwd_dkv) against
      their plain twins on phase 12's cases and phase 22's q = 0 case, q and
      k raw with row norms spread over ~e^+-4.5, gammas 1 + 0.2 N(0, 1) (o
-     against the twin fed the kernels' own q^ and k^); o
-     also differs from the kernel without gammas; the Function's o, dq, dk,
-     dv, dgamma_q and dgamma_k against autograd through the f32 composite
-     with the eager rms_norm; that check again over 20 fresh draws at rate
+     against the twin fed the kernels' own q^ and k^; the backward kernels
+     run twice: bitwise the same); o also differs from the kernel without
+     gammas; the Function's o, dq, dk, dv, dgamma_q and dgamma_k against
+     autograd through the f32 composite with the eager rms_norm; that
+     check again over 20 fresh draws at rate
      0 and 20 at rate 0.1, for the kernels and for the Function on its plain
      twins, logged (each output's worst rel L2 a draw, and o against the
      twin fed either rounding of q^ and k^);
@@ -174,8 +183,11 @@ Phases, each printed as it ends:
      bias at m = 1024), forward and backward, one launch of each variant;
  30. their timing: serving img/s and training ms/step with peak memory of
      both models, kernel against plain in turns; each new launch against its
-     twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask), and
-     flash_fwd without options at the same 8 x 12 x 2048 beside SDPA.
+     twin, its bound and SDPA (is_causal, dropout_p, a float attn_mask), the
+     backward ones beside PyTorch's flash-attention backward (one aten call
+     for dq, dk, dv; SDPA's backward where this torch lacks it), and
+     flash_fwd, flash_bwd_dq and flash_bwd_dkv without options at the same
+     8 x 12 x 2048 beside SDPA and that backward.
  31. stack_layers (VIT_TPU_STACK_LAYERS: g whole layers in one launch)
      against the chain of 7g launches, bitwise, its last layer against the
      twin's step within the whole layer's bounds and the whole stack against
@@ -554,6 +566,50 @@ def sdpa_fwd_bwd_ms(qkv, dm, heads, iters, **kw):
             torch.autograd.grad(o, (q, k, v), go)
 
         return cuda_ms(run, iters)
+
+
+SDPA_BWD_ONLY = ("scaled_dot_product_attention forward + backward (torch.autograd.grad to q, k, v) less its forward: "
+                 "dq, dk and dv at once")
+FLASH_BACKEND_BWD = "aten._scaled_dot_product_flash_attention_backward: dq, dk and dv in one call"
+
+
+def sdpa_bwd_only_ms(q, k, v, do, iters, **kw):
+    """Device ms of torch's scaled_dot_product_attention forward and its
+    backward to q, k and v (cotangent ``do``), less the forward alone, on
+    (b, h, rows, 64) operands: the yardstick beside the flash backward
+    kernels where no one torch call computes dq, dk and dv (a segment mask:
+    SDPA takes the block-diagonal mask as ``attn_mask``)."""
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        go = do.detach().clone()
+        kw = {name: val.clone() if torch.is_tensor(val) else val for name, val in kw.items()}  # a mask made in
+        # inference mode could not be saved for the backward
+
+        def both():
+            torch.autograd.grad(torch.nn.functional.scaled_dot_product_attention(*leaves, **kw), leaves, go)
+
+        fwd_bwd = cuda_ms(both, iters)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*leaves, **kw), iters)
+    return fwd_bwd - fwd
+
+
+def flash_backend_bwd_ms(q, k, v, do, iters, causal=False, dropout_p=0.0):
+    """(ms, what) of the library's backward beside the flash backward kernels
+    without ids: PyTorch's flash-attention backward, one aten call for dq,
+    dk and dv fed its own forward's output and logsumexp, where this torch
+    exposes it; else :func:`sdpa_bwd_only_ms`."""
+    aten = torch.ops.aten
+    scale = q.shape[-1] ** -0.5
+    try:
+        o, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
+            q, k, v, dropout_p, causal, False, scale=scale)[:8]
+        ms = cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, o, lse, cq, ck, mq, mk, dropout_p, causal, seed, offset, scale=scale), iters)
+        return ms, FLASH_BACKEND_BWD
+    except (AttributeError, RuntimeError, TypeError) as e:
+        log(f"  (no flash-attention backward op in this torch: {type(e).__name__}; SDPA's backward instead)")
+        return sdpa_bwd_only_ms(q, k, v, do, iters, is_causal=causal, dropout_p=dropout_p, scale=scale), SDPA_BWD_ONLY
 
 
 def rel_l2(got, want):
@@ -1266,6 +1322,59 @@ def flash_edge_cases(packed, dev, gen):
     )
 
 
+def flash_bwd_twice(fa, label, q, k, v, do, lse, delta, **kw):
+    """dq (flash_bwd_dq) and dk, dv (flash_bwd_dkv) of one case, each kernel
+    run twice on the same inputs: every sum is made in one warpgroup in a
+    fixed order (no atomics), so the two runs must be the same bits."""
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  flash_bwd_dq, flash_bwd_dkv [{label}]: dq, dk, dv bitwise the same from run to run: {same}")
+    if not same:
+        fail(f"flash_bwd_dq / flash_bwd_dkv [{label}] are not bitwise the same from run to run")
+    return got
+
+
+def unsorted_ids(gen, dev, b, length):
+    """(b, length) int32 ids of alternating runs, 0, 1, 0, 2, 0, 3, ..., each
+    run 20-259 tokens long, so runs cross the 64-row tiles and a block's
+    admitted tiles have gaps (no id order is assumed)."""
+    runs = torch.randint(20, 260, (b, length), generator=gen, device=dev).tolist()
+    rows = []
+    for r in runs:
+        row, k = [], 0
+        while len(row) < length:
+            row += [0 if k % 2 == 0 else k // 2 + 1] * r[k]
+            k += 1
+        rows.append(row[:length])
+    return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+
+def flash_walk_cases(packed, dev, gen):
+    """Phase 12's cases of the backward kernels' work items (128 rows) and
+    their admission, drawn from ``gen``: unsorted ids over two 2048-token
+    packs, n = m = 193 (a second item of 65 rows) without and with ids, and
+    the causal mask with the diagonal in the middle of an item (n = m = 193,
+    and unsorted ids at n = m = 1000); (name, q, k, v, q ids, kv ids, scale,
+    causal)."""
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    def operands(b, n, m):
+        q, k, v = (torch.randn(b, HEADS, r, DH, generator=gen, device=dev) for r in (n, m, m))
+        return fa.rms_norm(q, 1.0).to(torch.bfloat16), fa.rms_norm(k, 1.0).to(torch.bfloat16), v.to(torch.bfloat16)
+
+    unsorted = unsorted_ids(gen, dev, 2, NAVIT_SEQ)
+    ids193 = packed.image_ids[:2, :193].contiguous()
+    unsorted1000 = unsorted[:, :1000].contiguous()
+    return (
+        ("unsorted ids, n=m=2048", *operands(2, NAVIT_SEQ, NAVIT_SEQ), unsorted, unsorted, 1.0, False),
+        ("no ids, n=m=193", *operands(2, 193, 193), None, None, DH**-0.5, False),
+        ("ids, n=m=193", *operands(2, 193, 193), ids193, ids193, 1.0, False),
+        ("causal, no ids, n=m=193", *operands(2, 193, 193), None, None, DH**-0.5, True),
+        ("causal, unsorted ids, n=m=1000", *operands(2, 1000, 1000), unsorted1000, unsorted1000, 1.0, True),
+    )
+
+
 def check_flash(fa, dev, gen):
     """Phase 12: each flash kernel against its plain twin, and the Function
     against autograd through the materialized twin in f32, on the packed,
@@ -1281,31 +1390,36 @@ def check_flash(fa, dev, gen):
     egen = torch.Generator(device=dev).manual_seed(SEED + 12)  # the edges' own: later phases keep their inputs
     edges = flash_edge_cases(packed, dev, egen)
     log(f"  and the edges of flash_fwd's ring: {', '.join(case[0] for case in edges)}")
-    for (name, q, k, v, qs, ks, scale), g in [(case, gen) for case in cases] + [(case, egen) for case in edges]:
-        kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks)
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 112)  # the work items' cases, their own too
+    walks = flash_walk_cases(packed, dev, wgen)
+    log(f"  and the backward kernels' items and admission: {', '.join(case[0] for case in walks)}")
+    for (name, q, k, v, qs, ks, scale, *causal), g in ([((*case, False), gen) for case in cases]
+                                                      + [((*case, False), egen) for case in edges]
+                                                      + [(case, wgen) for case in walks]):
+        kw = dict(scale=scale, q_segment_ids=qs, kv_segment_ids=ks, causal=causal[0])
         do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        fwd, dq_name, dkv_name = (fa._counter(kernel, causal=kw["causal"]) for kernel in TPU_FLASH)
         with torch.inference_mode():
             o, lse = fa.flash_fwd(q, k, v, **kw)
             o_want, lse_want = fa.flash_fwd_reference(q, k, v, **kw)
-            errs["flash_fwd"] = max(errs["flash_fwd"],
-                                    compare_or_zero(f"flash_fwd o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
+            errs[fwd] = max(errs.get(fwd, 0.0),
+                            compare_or_zero(f"{fwd} o [{name}]", o, o_want, ATTN_ATOL, ATTN_RTOL))
             live = lse_want > 0.5 * fa.NEG_INF
             dead_ok = bool((lse[~live] == fa.NEG_INF).all())
-            log(f"  flash_fwd lse [{name}]: {int(live.sum())} rows with a key, {int((~live).sum())} without, which "
+            log(f"  {fwd} lse [{name}]: {int(live.sum())} rows with a key, {int((~live).sum())} without, which "
                 f"read -1e30: {dead_ok}")
             if not dead_ok:
-                fail(f"flash_fwd lse [{name}]: a fully masked row does not read the sentinel")
+                fail(f"{fwd} lse [{name}]: a fully masked row does not read the sentinel")
             if live.any():
-                errs["flash_fwd"] = max(errs["flash_fwd"], compare(
-                    f"flash_fwd lse [{name}]", lse[live], lse_want[live], FLASH_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2))
+                errs[fwd] = max(errs[fwd], compare(
+                    f"{fwd} lse [{name}]", lse[live], lse_want[live], FLASH_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2))
             delta = (do.float() * o.float()).sum(-1)
-            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            dq, dk, dv = flash_bwd_twice(fa, name, q, k, v, do, lse, delta, **kw)
             want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw)
-            for kernel, part, got, w in (("flash_bwd_dq", "dq", dq, want[0]), ("flash_bwd_dkv", "dk", dk, want[1]),
-                                         ("flash_bwd_dkv", "dv", dv, want[2])):
-                errs[kernel] = max(errs[kernel], compare_or_zero(f"{kernel} {part} [{name}]", got, w, None, ATTN_RTOL,
-                                                                 atol_frac=BWD_ATOL_FRAC))
+            for kernel, part, got, w in ((dq_name, "dq", dq, want[0]), (dkv_name, "dk", dk, want[1]),
+                                         (dkv_name, "dv", dv, want[2])):
+                errs[kernel] = max(errs.get(kernel, 0.0), compare_or_zero(f"{kernel} {part} [{name}]", got, w, None,
+                                                                          ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
         sync()
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         out = fa.flash_attention(*leaves, **kw)
@@ -1626,12 +1740,15 @@ def time_navit(fb, fa, dev, gen, smi):
         mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))[:, None]
         library = {"flash_fwd": cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0), 5)}
+        bwd = sdpa_bwd_only_ms(q, k, v, do, 5, attn_mask=mask, scale=1.0)  # beside both backward kernels
         del mask
         for name, kern, plain in launches:
             km, pm = in_turns(kern, plain, 5)
-            record(per_kernel, name, km, pm, flash_work(name, ids, HEADS), library.get(name))
+            yard = dict(product_ms=bwd, product_of=SDPA_BWD_ONLY) if name != "flash_fwd" else {}
+            record(per_kernel, name, km, pm, flash_work(name, ids, HEADS), library.get(name), **yard)
             log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms")
-        log(f"  scaled_dot_product_attention with the (b, 1, n, n) block-diagonal mask: {library['flash_fwd']:.4f} ms")
+        log(f"  scaled_dot_product_attention with the (b, 1, n, n) block-diagonal mask: {library['flash_fwd']:.4f} ms; "
+            f"its backward (forward + backward less the forward) {bwd:.4f} ms")
     sync()
     return per_kernel
 
@@ -2415,8 +2532,7 @@ def check_flash_dropout(fa, fb, dev, gen):
                 if not drops:
                     fail(f"flash_fwd[dropout] [{name}] drops nothing")
             delta = (do.float() * o.float()).sum(-1)
-            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw)
+            dq, dk, dv = flash_bwd_twice(fa, f"{name}, dropout", q, k, v, do, lse, delta, **kw, **dkw)
             want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw)
             for kernel, part, got, w in (("flash_bwd_dq[dropout]", "dq", dq, want[0]),
                                          ("flash_bwd_dkv[dropout]", "dk", dk, want[1]),
@@ -2590,12 +2706,16 @@ def time_navit_dropout(fb, fa, dev, gen, smi):
         mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))[:, None]
         library = {"flash_fwd[dropout]": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=RATE, scale=1.0), 5)}
+        bwd = sdpa_bwd_only_ms(q, k, v, do, 5, attn_mask=mask, dropout_p=RATE, scale=1.0)
+        log(f"  SDPA(dropout_p={RATE}) under the block-diagonal mask, its backward (forward + backward less the "
+            f"forward): {bwd:.4f} ms")
         del mask
         for name, kern, plain, rate0 in launches:
             km, r0 = in_turns(kern, rate0, 10)
             pm = cuda_ms(plain, 2)
             w = flash_work(name.removesuffix("[dropout]"), ids, HEADS, dropout=True)
-            record(per_kernel, name, km, pm, w, library.get(name))
+            yard = dict(product_ms=bwd, product_of=SDPA_BWD_ONLY) if "bwd" in name else {}
+            record(per_kernel, name, km, pm, w, library.get(name), **yard)
             bound, by = bound_ms(w)
             log(f"  {name}: kernel {km:.4f} ms, rate-0 kernel {r0:.4f} ms (+{km - r0:.4f}), plain {pm:.4f} ms, bound "
                 f"{bound:.4f} ms ({by})")
@@ -2775,8 +2895,7 @@ def check_flash_qknorm(fa, dev, gen):
                         if not differs and name != "packed, q = 0":
                             fail(f"{fwd} [{name}] gives what {other} gives")
                 delta = (do.float() * o.float()).sum(-1)
-                dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
-                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
+                dq, dk, dv = flash_bwd_twice(fa, f"{name}{tag}", q, k, v, do, lse, delta, **kw, **dkw, **gkw)
                 want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw, **gkw)
                 for kernel, part, got, w in ((dq_name, "dq^", dq, want[0]), (dkv_name, "dk^", dk, want[1]),
                                              (dkv_name, "dv", dv, want[2])):
@@ -3103,8 +3222,12 @@ def time_navit_qknorm(fa, dev, gen, smi):
         log(f"  each new launch at the packed shape ({shape[0]} packs x {HEADS} heads x {NAVIT_SEQ} tokens), in turns "
             f"with its kernel without qk-norm on q and k normalised eagerly; the plain twin (dq, dk and dv at once) 2 "
             f"calls:")
+        mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))[:, None]
         for rate, tag in ((0.0, "[qknorm]"), (RATE, "[dropout,qknorm]")):
             dkw = dict(dropout_rate=rate, seed=DROP_SEED if rate else None)
+            # beside the backward kernels: SDPA's backward on the eagerly normalised q and k (no norm inside)
+            bwd = sdpa_bwd_only_ms(qn, kn, v, do, 5, attn_mask=mask, dropout_p=rate, scale=1.0)
+            log(f"  SDPA under the block-diagonal mask at dropout {rate}, its backward on q^, k^: {bwd:.4f} ms")
             o, lse = fa.flash_fwd(q, k, v, **kw, **dkw, **gkw)
             delta = (do.float() * o.float()).sum(-1)
             o0, lse0 = fa.flash_fwd(qn, kn, v, **kw, **dkw)
@@ -3123,7 +3246,8 @@ def time_navit_qknorm(fa, dev, gen, smi):
                 km, wm = in_turns(kern, without, 10)
                 pm = cuda_ms(plain, 2)
                 w = flash_work(name.split("[")[0], ids, HEADS, dropout=bool(rate), qknorm=True)
-                record(per_kernel, name, km, pm, w)
+                yard = dict(product_ms=bwd, product_of=SDPA_BWD_ONLY + ", on q and k normalised outside it")
+                record(per_kernel, name, km, pm, w, **(yard if "bwd" in name else {}))
                 bound, by = bound_ms(w)
                 log(f"  {name}: kernel {km:.4f} ms, without qk-norm {wm:.4f} ms ({km - wm:+.4f}), plain {pm:.4f} ms, "
                     f"bound {bound:.4f} ms ({by})")
@@ -3351,8 +3475,7 @@ def check_short_causal_bias(fa, dev, gen):
                     if torch.equal(o, unmasked):
                         fail(f"{fwd} [{label}] gives what the kernel without the causal mask gives")
                 delta = (do.float() * o.float()).sum(-1)
-                dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **dkw)
-                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **dkw)
+                dq, dk, dv = flash_bwd_twice(fa, f"{label}{tag}", q, k, v, do, lse, delta, **kw, **dkw)
                 want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **dkw)
                 for kernel, part, got, w in ((dq_name, "dq", dq, want[0]), (dkv_name, "dk", dk, want[1]),
                                              (dkv_name, "dv", dv, want[2])):
@@ -3676,6 +3799,19 @@ def time_short_causal_bias(fa, dev, gen, smi):
         bound, by = bound_ms(pair_work("flash_fwd", b, n, n, n * n))
         log(f"  flash_fwd (no options): kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}), library "
             f"{lib_ms:.4f} ms (SDPA)")
+        # the backward kernels without options at this shape (logged; their
+        # kernels line entries are the NaViT packs'), beside the library's
+        o, lse = fa.flash_fwd(q, k, v, scale=DH**-0.5)
+        delta = (do.float() * o.float()).sum(-1)
+        lib_ms, lib_of = flash_backend_bwd_ms(q, k, v, do, 5)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            kern = getattr(fa, name)
+            km, pm = in_turns(lambda: kern(q, k, v, do, lse, delta, scale=DH**-0.5),
+                              lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, scale=DH**-0.5), 3)
+            bound, by = bound_ms(pair_work(name, b, n, n, n * n))
+            log(f"  {name} (no options): kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"{lib_of}: {lib_ms:.4f} ms")
+        del o, lse, delta
         for tag in CAUSAL_TAGS:
             rate, gammas = (RATE if "dropout" in tag else 0.0), "qknorm" in tag
             kw = dict(scale=DH**-0.5, causal=True, dropout_rate=rate, seed=DROP_SEED if rate else None)
@@ -3685,6 +3821,8 @@ def time_short_causal_bias(fa, dev, gen, smi):
             delta = (do.float() * o.float()).sum(-1)
             library = {"flash_fwd[causal]": lambda: sdpa(q, k, v, is_causal=True),
                        "flash_fwd[dropout,causal]": lambda: sdpa(q, k, v, is_causal=True, dropout_p=RATE)}
+            # beside the backward kernels: the library's causal backward (no norm inside it)
+            bwd_ms, bwd_of = flash_backend_bwd_ms(q, k, v, do, 5, causal=True, dropout_p=rate)
             for name, kern, plain in (
                 (f"flash_fwd{tag}", lambda: fa.flash_fwd(q, k, v, **kw), lambda: fa.flash_fwd_reference(q, k, v, **kw)),
                 (f"flash_bwd_dq{tag}", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
@@ -3695,9 +3833,11 @@ def time_short_causal_bias(fa, dev, gen, smi):
                 km, pm = in_turns(kern, plain, 3)
                 lib_ms = cuda_ms(library[name], 5) if name in library else None
                 w = pair_work(name, b, n, n, pairs, dropout=bool(rate), qknorm=gammas)
-                record(per_kernel, name, km, pm, w, lib_ms)
+                yard = dict(product_ms=bwd_ms, product_of=bwd_of) if "bwd" in name else {}
+                record(per_kernel, name, km, pm, w, lib_ms, **yard)
                 bound, by = bound_ms(w)
                 lib_note = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+                lib_note += f", {bwd_of} {bwd_ms:.4f} ms" if yard else ""
                 log(f"  {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound:.4f} ms ({by}){lib_note}")
             del o, lse, delta
         bias = rn(1, HEADS, n, n)
@@ -4633,7 +4773,8 @@ def main():
     phase_done("phase 27")
 
     # -- 28. the short kernel, flash causal and bias against their twins ---------------
-    errs.update(check_short_causal_bias(fa, dev, gen))
+    for name, e in check_short_causal_bias(fa, dev, gen).items():  # phase 12 holds causal cases too
+        errs[name] = max(errs.get(name, 0.0), e)
     phase_done("phase 28")
 
     # -- 29. SimpleViT @512 on the short kernel; the dispatcher on the card ------------

@@ -1,6 +1,6 @@
-// The wgmma tile machinery of the port's forward attention kernels
-// (short_attention.cu, flash_fwd in flash_attention.cu); the backward
-// kernels keep flash_tiles.cuh's mma.sync tiles.
+// The wgmma tile machinery of the port's attention kernels
+// (short_attention.cu; flash_fwd, flash_bwd_dq and flash_bwd_dkv in
+// flash_attention.cu, whose backward adds its own warp-specialised ring).
 //
 // A warpgroup (128 threads, 4 warps) takes 64 queries; warp w owns query
 // rows 16w .. 16w + 15 of them, as in flash_tiles.cuh.  A block holds one
@@ -22,7 +22,7 @@
 //    from 16-bit shared loads.
 // The wgmma accumulator of m64nN gives warp w's thread (g = lane / 4, t =
 // lane % 4) rows 16w + g and 16w + g + 8 at columns 8j + 2t, 8j + 2t + 1:
-// the m16n8 layout of flash_tiles.cuh, so masks, keep bits and bias offsets
+// the m16n8 layout of mma.sync, so masks, keep bits and bias offsets
 // index it as before (float s[8][4]: s[j][0..1] row g, s[j][2..3] row g+8).
 //
 // The tiles the loop walks come through a ring of shared-memory stages,
@@ -179,17 +179,19 @@ __device__ __forceinline__ void pv_issue(float (&o)[8][4], const uint32_t (&p)[4
 // chunk c, so the f32 sum order is rms_norm_rows' own).  All THREADS threads
 // of the block; zero rows stay zero.  gamma: the head's 64 gammas (f32, or
 // bf16: the attention block's); with r, each row's rsqrt is stored there
-// (the backward's closing of the norm needs it).
+// (the backward's closing of the norm needs it).  (rms_norm_tile_sw_at: the
+// same by THREADS threads numbered from tid, a multiple of 32 below
+// threadIdx.x.)
 template <int THREADS, int ROWS = kFlashTile, typename G = float>
-__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma, float* r = nullptr) {
+__device__ __forceinline__ void rms_norm_tile_sw_at(int tid, bf16* rows, const G* gamma, float* r = nullptr) {
   static_assert((ROWS * 8) % THREADS == 0, "8 lanes a row, every lane busy");
-  const int c = (threadIdx.x & 7) * 8;
+  const int c = (tid & 7) * 8;
   float g8[8];
   load_gamma8(g8, gamma + c);
 #pragma unroll
   for (int i = 0; i < 8; ++i) g8[i] *= kRmsRoot;
 #pragma unroll
-  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
+  for (int i = tid; i < ROWS * 8; i += THREADS) {
     const int row = i >> 3;
     bf16* p = rows + sw_off(row, c);
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -209,6 +211,11 @@ __device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma, flo
     for (int j = 0; j < 4; ++j) po[j] = pack_floats(f[2 * j] * rr * g8[2 * j], f[2 * j + 1] * rr * g8[2 * j + 1]);
     *reinterpret_cast<uint4*>(p) = o;
   }
+}
+
+template <int THREADS, int ROWS = kFlashTile, typename G = float>
+__device__ __forceinline__ void rms_norm_tile_sw(bf16* rows, const G* gamma, float* r = nullptr) {
+  rms_norm_tile_sw_at<THREADS, ROWS, G>(threadIdx.x, rows, gamma, r);
 }
 
 // An additive (.., n, m) bias table: base of this block's (image, head)

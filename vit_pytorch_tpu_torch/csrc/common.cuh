@@ -112,10 +112,12 @@ __device__ __forceinline__ uint32_t keep_nibble(const DropoutArgs& d, uint32_t s
 // block; each word is 8 Philox calls, so the attention loops read one shared
 // word per element pair instead of drawing bits in their register-bound
 // bodies.
-template <int ROWS, int WORDS, int THREADS = kAttnThreads>
-__device__ __forceinline__ void fill_keep_tile(uint32_t* words, const DropoutArgs& d, uint32_t stream, int r0, int c0,
-                                               int n_rows, int n_cols) {
-  for (int i = threadIdx.x; i < ROWS * WORDS; i += THREADS) {
+// (fill_keep_tile_at: the same by THREADS threads numbered from tid, a
+// warpgroup of a warp-specialised block.)
+template <int ROWS, int WORDS, int THREADS>
+__device__ __forceinline__ void fill_keep_tile_at(int tid, uint32_t* words, const DropoutArgs& d, uint32_t stream,
+                                                  int r0, int c0, int n_rows, int n_cols) {
+  for (int i = tid; i < ROWS * WORDS; i += THREADS) {
     const int r = i / WORDS, w = i % WORDS;
     const int col = c0 + 32 * w;
     uint32_t bits = 0u;
@@ -126,6 +128,12 @@ __device__ __forceinline__ void fill_keep_tile(uint32_t* words, const DropoutArg
     }
     words[i] = bits;
   }
+}
+
+template <int ROWS, int WORDS, int THREADS = kAttnThreads>
+__device__ __forceinline__ void fill_keep_tile(uint32_t* words, const DropoutArgs& d, uint32_t stream, int r0, int c0,
+                                               int n_rows, int n_cols) {
+  fill_keep_tile_at<ROWS, WORDS, THREADS>(threadIdx.x, words, d, stream, r0, c0, n_rows, n_cols);
 }
 
 // f32 accumulator tile j of rows (g, g+8) x columns (8j + 2t, +1) times the

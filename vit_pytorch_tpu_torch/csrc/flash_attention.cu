@@ -39,11 +39,12 @@
 // The TPU kernels walk a (b*h, q-tile, kv-tile) grid whose last axis is
 // sequential and carry the online-softmax state (or the dq / dk, dv sums) in
 // VMEM scratch from one grid step to the next.  An H100 runs blocks in no
-// order, so here the sequential axis is a loop inside the block: one block
-// of 4 warps per (q-tile, b*h) for flash_bwd_dq and per (q-tile, image,
-// head) for flash_fwd, looping over kv-tiles, and one per (kv-tile, b*h) for
-// flash_bwd_dkv, looping over q-tiles.  Every sum a block makes stays in its registers, so the result
-// does not depend on block order.
+// order, so here the sequential axis is a loop inside the block: flash_fwd
+// runs one block per (q-tile, image, head), looping over kv-tiles; the
+// backward kernels run a persistent grid whose blocks each take 128-row
+// work items, flash_bwd_dq's of queries looping over kv-tiles,
+// flash_bwd_dkv's of keys looping over q-tiles.  Every sum a block makes
+// stays in its registers, so the result does not depend on block order.
 //
 // Bound on this card: at NaViT-B's 2048-token packs the products are
 // 4*d flops per (query, key) pair of one image against a few bytes per row
@@ -52,32 +53,22 @@
 // gigabytes in device memory, so they never leave the registers.  The
 // limit is tensor-core throughput and the tiles a block must visit.
 //
-// Design (of the backward kernels; flash_fwd's is in its section below and
-// in attn_wgmma.cuh: wgmma on both products, a three-stage ring):
-//  - Tiles are the H100's own, 64 query rows x 64 keys (not the TPU's
-//    1024/512): each warp owns 16 query rows (16 keys in flash_bwd_dkv), and
-//    a 64x64 tile of s = q.k^T is 8 x 4 mma.sync m16n8k16 a warp, with f32
-//    accumulators in registers.  dh = 64 is the one instantiation.
-//  - The operands each warp keeps for the whole loop (its q and dO rows, or
-//    its k and v rows) are read once from device memory straight into mma
-//    A fragments.  The tiles the loop walks (k and v, or q and dO with their
-//    LSE, delta and ids) go through a two-stage cp.async ring in shared
-//    memory (rows 72 bf16 apart, off the bank period), so the next admitted
-//    tile lands while the block computes on this one.  Rows past n or m are
-//    zero-filled: a masked p is exactly 0, and 0 * a zero row stays 0 (a
-//    stale row could hold a NaN).
-//  - The accumulator layout of one product is the A-operand layout of the
-//    next (acc_to_a_frag), so p, ds and their transposes go from f32
-//    registers to bf16 operands without a trip through memory.
+// Design: every product is wgmma (attn_wgmma.cuh) on 64 x 64 tiles (not
+// the TPU's 1024/512; dh = 64 is the one instantiation), the tiles a loop
+// walks come through a TMA-fed ring of shared-memory stages, and the
+// accumulator layout of one product is the A-operand layout of the next
+// (acc_to_a_frag), so p, ds and their transposes go from f32 registers to
+// bf16 operands without a trip through memory.  flash_fwd's design is in
+// its section below; the backward kernels' (a producer warp, two consumer
+// warpgroups, a persistent grid) in theirs.
 //  - Tile skip (_seg_overlap, :173-188): a (q-tile, kv-tile) pair runs only
-//    if the ranges of the two tiles' non-negative ids overlap.  Each warp
-//    computes a tile's range with shuffles, the same in all four warps, so
-//    the skip is uniform across the block and needs no barrier; the ring
-//    prefetches the next admitted tile.  The test is conservative: the
-//    element mask still decides every (query, key) pair.  The same
-//    predicate is ops/flash_attention.py::tile_admitted on the host
-//    (flash_fwd's blocks of two 64-query tiles run a key tile that either
-//    admits).
+//    if the ranges of the two tiles' non-negative ids overlap (a block of
+//    128 rows: the range of all its rows).  flash_fwd walks it tile by tile
+//    (next_admitted); the backward kernels find a block's admitted tiles 32
+//    at a time (admit_chunk).  The test is conservative: the element mask
+//    still decides every (query, key) pair.  The same predicate is
+//    ops/flash_attention.py::tile_admitted on the host, and
+//    bwd_tile_lists gives the tiles each backward block walks.
 //  - Strided operands: q, k, v, o, dO, dq, dk, dv are (b, h, rows, 64) with
 //    any (b, h, row) strides and a contiguous head dim, so the merged-heads
 //    (b, n, h*dh) layout of the model's projections needs no copy.
@@ -110,14 +101,13 @@
 //    the function the attention-block kernels draw from.  So the three
 //    kernels, whose loops walk the tiles in different orders, and the
 //    replay kernel flash_dropout_masks (dropout.cu) see one mask.
-//  - Each ring stage carries the keep tile of its (q-tile, kv-tile) pair,
-//    64 x 64 bits keyed (query, key) in 128 words of shared memory, filled
-//    by all 128 threads (8 Philox calls each) right after the stage's
-//    copies are issued, so the barrier that publishes the copies publishes
-//    the bits; a skipped tile draws none.  The register-bound bodies read
-//    one 32-bit mask a thread a tile (keep_bits_rows), and flash_bwd_dkv,
-//    whose accumulators are (key, query), reads the same tile transposed
-//    (keep_bits_cols).
+//  - The bits of a (q-tile, kv-tile) pair are drawn once into a keep tile,
+//    64 x 64 bits keyed (query, key) in 128 words of shared memory (8
+//    Philox calls a thread of a warpgroup; a skipped tile draws none): in
+//    flash_fwd's ring stage, in each backward consumer's own tile.  The
+//    register-bound bodies read one 32-bit mask a thread a tile
+//    (keep_bits_rows), and flash_bwd_dkv, whose accumulators are (key,
+//    query), reads the same tile transposed (keep_bits_cols).
 //  - flash_fwd: l sums the UNDROPPED p (:260-263); where(keep, p, 0) is
 //    cast to bf16 before p.v (:265-276); o = acc * (inv_keep / l), one f32
 //    factor (:286-287); the lse is that of the undropped softmax.
@@ -134,14 +124,13 @@
 // 1e-12), each element (x * r) * (gamma * sqrt(64)) in f32, one cast to bf16
 // before the products.  The gammas are (heads, 64) f32; block (x, bh) reads
 // row bh % heads.  The TPU renormalises q and k for every (q, kv) tile of all
-// three grids; here each operand is normalised once where it lives:
-//  - the operand a block keeps for its whole loop (q in flash_fwd and
-//    flash_bwd_dq, k in flash_bwd_dkv), in its A fragments, once before the
-//    loop (rms_norm_a_rows: a quad holds a row);
-//  - each tile the loop walks (k, or q in flash_bwd_dkv), in place in its
-//    ring stage once it has landed, behind one more barrier
-//    (rms_norm_rows, common.cuh, with the gammas in shared memory); a tile
-//    the skip test refuses is neither loaded nor normalised.
+// three grids; here each operand is normalised once where it lives (the
+// operand a block keeps for its whole loop before the loop, each tile the
+// loop walks in its ring stage once it has landed; a tile the skip test
+// refuses is neither loaded nor normalised), and in one f32 sum order an
+// operand in all three kernels: q^ in rms_norm_a_rows' (a quad of lanes a
+// row; flash_fwd's q fragments, rms_norm_tile_quads in the backward's
+// shared tiles), k^ in rms_norm_rows' (eight lanes a row; rms_norm_tile_sw).
 // Every product reads the normalised operands: dq = ds.k^, dk = ds^T.q^.
 // So dq and dk come out in normalised space, as the TPU kernels emit them;
 // the host closes the RMSNorm VJP, dgamma included
@@ -153,27 +142,20 @@
 // computed in f32 outside the kernels (_flash_backward :680-685), cast to
 // bf16 before ds.k and ds^T.q; dq, dk, dv accumulate in f32 and are cast
 // once (scale applied to the f32 sums).  exp is 2^x of the argument times
-// log2(e): exp2f in the backward, exp2_ftz (attn_wgmma.cuh) for flash_fwd's
-// p.  No result depends on the tile size except f32 summation order.
+// log2(e), exp2_ftz (attn_wgmma.cuh) for every p.  No result depends on the
+// tile size except f32 summation order.
 
 #include <type_traits>
 
 #include "attn_wgmma.cuh"
+#include "wgmma_wide.cuh"
 
 namespace {
 
 constexpr int kBigId = 1 << 30;
 constexpr int kFlashKeepWords = kFlashTile / 32;                  // 32-key words of one keep row
 constexpr int kFlashKeepTile = kFlashTile * kFlashKeepWords;      // 128 words: one tile's keep bits
-constexpr int kKeepSmem = 2 * kFlashKeepTile * 4;                 // a keep tile per ring stage
 constexpr int kGammaSmem = kFlashDh * 4;                          // qk-norm: the ring operand's f32 gammas
-
-// shared memory of the backward kernels: two ring stages of two bf16
-// tiles, and per stage 64 ids (flash_bwd_dkv also 64 lse and 64 delta);
-// with dropout a keep tile a stage; with qk-norm the 64 gammas of the
-// operand the ring carries
-constexpr int kDqSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * kFlashTile * 4;
-constexpr int kDkvSmem = 4 * kTileElems * static_cast<int>(sizeof(bf16)) + 2 * 3 * kFlashTile * 4;
 
 struct FlashArgs {
   const bf16* q;
@@ -195,7 +177,7 @@ struct FlashArgs {
   int causal;  // key c visible to query r iff c <= r (top-left aligned)
   float scale;
   DropoutArgs drop;  // read by the kDropout instantiations only
-  int batch;        // flash_fwd's grid (grid_pos)
+  int batch;        // the grid: flash_fwd's (grid_pos), the backward kernels' work items
 };
 
 // The segment id of row r of a (b, len) id array: -1 past len; without ids
@@ -279,15 +261,6 @@ __device__ __forceinline__ void hide_above_diagonal(float (&s)[8][4], const Flas
   }
 }
 
-// Ring stage `stage` of flash_fwd and flash_bwd_dq: kv-tile j of k and v
-// (at 2 * stage and 2 * stage + 1) and its 64 key ids.  All threads.
-__device__ __forceinline__ void prefetch_kv(bf16* ring, int* kids, int stage, int j, const bf16* kb, const bf16* vb,
-                                            const int* kseg, const FlashArgs& a) {
-  load_tile_async(ring + 2 * stage * kTileElems, kb, a.sk.row, j * kFlashTile, a.m);
-  load_tile_async(ring + (2 * stage + 1) * kTileElems, vb, a.sv.row, j * kFlashTile, a.m);
-  if (threadIdx.x < kFlashTile) kids[stage * kFlashTile + threadIdx.x] = seg_id(kseg, j * kFlashTile + threadIdx.x, a.m);
-}
-
 __device__ __forceinline__ float2 unpack_pair(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
@@ -322,27 +295,10 @@ __device__ __forceinline__ void rms_norm_a_rows(uint32_t (&a)[kFlashDh / 16][4],
   }
 }
 
-// Ring stage `stage`'s keep tile: the keep bits of queries q0.. x keys
-// k0.. of this block's (image, head) stream.  All threads, beside the
-// stage's copies; the barrier after the ring's wait publishes it.
-__device__ __forceinline__ void fill_flash_keep(uint32_t* keep, int stage, const FlashArgs& a, uint32_t stream, int q0,
-                                                int k0) {
-  fill_keep_tile<kFlashTile, kFlashKeepWords, kFlashThreads>(keep + stage * kFlashKeepTile, a.drop, stream, q0, k0,
-                                                             a.n, a.m);
-}
-
 // qk-norm: the head's 64 gammas of the operand the ring carries into shared
 // memory (threads 0..63); the loop's first barrier publishes them
 __device__ __forceinline__ void stage_gammas(float* dst, const float* gamma) {
   if (threadIdx.x < kFlashDh) dst[threadIdx.x] = gamma[threadIdx.x];
-}
-
-// qk-norm of ring stage `stage`'s first tile (k, or q in flash_bwd_dkv) in
-// place, once it has landed, then a barrier, so that every warp reads it
-// normalised.  All threads; rows past n or m are zeros and stay zeros.
-__device__ __forceinline__ void rms_norm_stage(bf16* ring, int stage, const float* gammas) {
-  rms_norm_rows<kFlashTile, kFlashLd, kFlashThreads>(ring + 2 * stage * kTileElems, gammas, nullptr, nullptr);
-  __syncthreads();
 }
 
 // The keep bits of this thread's accumulator elements, rows g, g + 8 of the
@@ -715,231 +671,588 @@ __global__ void __launch_bounds__(kFlashThreads * fwd_wgs(kDropout, kQkNorm, kBi
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dq: one block per (64-query tile, b*h); loops over the admitted
-// kv-tiles: p = exp(s - lse) (0 where masked), dp = dO.v^T, ds = p * (dp -
-// delta), dq += bf16(ds).k; dq = scale * dq, cast once.  With dropout dp =
-// where(keep, dp, 0) * inv in f32 before ds.  With qk-norm q and k are
-// normalised (s and dq read q^ and k^), and dq is the gradient of q^.
+// The backward kernels, flash_bwd_dq and flash_bwd_dkv: one warp-specialised
+// design for both.
+//
+// A block holds three warpgroups: two consumers, each owning 64 rows of the
+// block's 128 (queries in flash_bwd_dq, keys in flash_bwd_dkv), then a
+// producer, of which two warps work.  The grid is persistent: min(work
+// items, SMs) blocks, one an SM, and block x takes items x, x + grid, ...,
+// an item being one 128-row block of one (image, head), row blocks fastest
+// (with causal, the heaviest first within each (image, head)).
+//
+// The producer warpgroup has two working warps:
+//  - the admission warp finds each item's admitted tiles of the other side,
+//    32 at a time (admit_chunk): the id range of the item's 128 rows, then
+//    each candidate tile's 64 ids read by the warp in two coalesced loads a
+//    lane and reduced by redux.sync, its range held to the item's by
+//    _seg_overlap's test (tiles_overlap).  A chunk's admitted tiles are a
+//    32-bit mask; each chunk (at least one an item) goes into a queue of
+//    kBwdQueue entries in shared memory, so the admission runs ahead of the
+//    copies and no tile is tested twice or scanned after the item's last.
+//    Without ids every tile runs; with causal the chunks end after the
+//    item's last diagonal tile (flash_bwd_dq) or start at its first
+//    (flash_bwd_dkv), as causal_key_tiles and causal_first_query_tile;
+//  - the loader warp, for each item: the resident operands (the item's 128
+//    rows of q and dO in flash_bwd_dq, of k and v in flash_bwd_dkv) by the
+//    TMA, four 64 x 64 boxes in the 128-byte swizzle, into one of two
+//    resident slots (so the next item's land while the consumers finish
+//    this one), with the rows' ids (and, in flash_bwd_dq, their lse and
+//    delta) by 4-byte cp.async copies that arrive on the same mbarrier;
+//    then, walking the queue's masks in ascending order (__ffs), each
+//    admitted tile into the ring (kBwdStages stages): its two 64 x 64
+//    operand tiles by the TMA (k and v, or q and dO) and its 64 ids (and in
+//    flash_bwd_dkv its 64 lse and delta) by cp.async, on the stage's full
+//    mbarrier, with the tile's index in the stage; then one stage marked
+//    -1, the item's end.  A stage is refilled once its empty mbarrier has
+//    the arrivals of all 8 consumer warps.
+// Rows past n or m are zero-filled by the copies (a masked p stays exactly
+// 0, and 0 times a zero row stays 0); the element mask also tests each
+// row and key against n and m, since cp.async fills ids past the sequence
+// with 0, not -1.
+//
+// Each consumer warpgroup runs, a tile, every product on wgmma with its
+// resident operand as A from shared memory and the stage's tiles as B:
+//  - flash_bwd_dq: s = q.k^T and dp = dO.v^T (k, v K-major), both issued at
+//    once; p = exp(s - lse) where the mask allows (0 elsewhere, never the
+//    exp of a masked logit); ds = p * (dp - delta) in f32; dq += bf16(ds).k
+//    with ds in registers and k MN-major (the tile flash_fwd reads v as);
+//  - flash_bwd_dkv: s^T = k.q^T and dp^T = v.dO^T at once; p^T as above with
+//    the stage's lse; dv += bf16(p^T).dO, issued before ds^T = p^T * (dp^T -
+//    delta) is formed; dk += bf16(ds^T).q (dO and q MN-major).
+// The last product of a tile (dq's, or dv's and dk's) retires while the
+// next tile's s and dp run: the wait that retires it follows their issue,
+// and only then is its stage released.  No wgmma issue or wait sits in a
+// branch of its own.  p is 2^(s * scale * log2(e) - lse * log2(e)), one
+// fused multiply-add before the 2^x (exp2_ftz: a p below 2^-126 is 0, far
+// under a bf16 ulp of any sum it enters).  The two consumers walk the same
+// stages; each sum stays in one warpgroup's registers in a fixed order (no
+// atomics), so dq, dk and dv are the same bits from run to run.  dq = scale
+// * dq, dk = scale * dk and dv are cast once and stored from registers.
+//
+// Dropout: each consumer draws the keep bits of its own 64 rows x the
+// tile's 64 columns into a keep tile of its own (keyed (query, key) as the
+// forward draws them; flash_bwd_dkv reads it transposed), while its first
+// two products run, behind one barrier of its warpgroup; two such tiles a
+// warpgroup alternate, so no second barrier is needed.  dp = where(keep,
+// dp, 0) * inv in f32 in both kernels; flash_bwd_dkv's dv takes
+// bf16(where(keep, p^T, 0) * inv), ds the undropped p.
+//
+// qk-norm: each operand is normalised once where it lives, in the order of
+// the forward kernel (suspect 6): q^ in rms_norm_a_rows' (a quad of lanes a
+// row, rms_norm_tile_quads), k^ in rms_norm_rows' (eight lanes a row,
+// rms_norm_tile_sw_at): the resident operand (q in flash_bwd_dq, k in
+// flash_bwd_dkv) by its warpgroup once an item, each ring tile (k, or q) by
+// both consumers once it has landed, behind a barrier of the 256 and a
+// generic-to-async proxy fence (wgmma reads through the async proxy); one
+// warp of the producer normalising each ring tile instead was slower (the
+// tile a consumer step waits on takes the warp 16 rounds).  dq and dk come
+// out in normalised space.
 // ---------------------------------------------------------------------------
 
-// Three blocks an SM at rate 0 (at most 170 registers a thread), as the
-// kernel ran before the causal flag: left to itself ptxas gives the flagged
-// kernel 238 registers, two blocks an SM and +27% at NaViT-B's packs.  The
-// [dropout] instantiations keep their two blocks.
-template <bool kDropout, bool kQkNorm>
-__global__ void __launch_bounds__(kFlashThreads, kDropout ? 2 : 3) flash_bwd_dq_kernel(FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(flash_smem);
-  int* kids = reinterpret_cast<int*>(ring + 4 * kTileElems);
-  uint32_t* keep = reinterpret_cast<uint32_t*>(kids + 2 * kFlashTile);
-  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: k's gammas
+constexpr int kBwdWgs = 2;                          // consumer warpgroups, 64 rows each
+constexpr int kBwdRows = kBwdWgs * kFlashTile;      // 128: a work item's resident rows
+constexpr int kBwdThreads = 128 * (kBwdWgs + 1);    // the consumers, then the producer warpgroup
+constexpr int kBwdStages = 6;                       // ring stages
+constexpr int kBwdQueue = 8;                        // admitted chunks the admission warp may run ahead
+constexpr int kBwdConsumerWarps = 4 * kBwdWgs;      // each releases a stage and a resident slot
+constexpr int kBwdFullArrivals = 33;                // the loader warp's 32 lanes + lane 0's expect_tx
+constexpr int kBwdConsumerRegs = 224, kBwdProducerRegs = 56;  // 2 x 128 x 224 + 128 x 56 <= 65,536
 
-  const int q0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool segs = a.qseg != nullptr;
-  const int* qseg = segs ? a.qseg + b * a.n : nullptr;
-  const int* kseg = segs ? a.kseg + b * a.m : nullptr;
-  const bf16* kb = head_ptr(a.k, a.sk, b, h);
-  const bf16* vb = head_ptr(a.v, a.sv, b, h);
-  const int nk = a.causal ? causal_key_tiles(blockIdx.x, (a.m + kFlashTile - 1) / kFlashTile)
-                          : (a.m + kFlashTile - 1) / kFlashTile;
-
-  const uint32_t stream = dropout_stream(b, h);
-
-  int qlo = 0, qhi = 0;
-  if (segs) seg_range(qseg, q0, a.n, qlo, qhi);
-  int j = next_admitted(kseg, a.m, nk, 0, qlo, qhi);
-  if (j < nk) {
-    prefetch_kv(ring, kids, 0, j, kb, vb, kseg, a);
-    if constexpr (kDropout) fill_flash_keep(keep, 0, a, stream, q0, j * kFlashTile);
-  }
-  cp_async_commit();
-  if constexpr (kQkNorm) stage_gammas(gring, a.gk + h * kFlashDh);
-
-  const int row_lo = q0 + warp * 16 + g;
-  uint32_t qf[kFlashDh / 16][4], df[kFlashDh / 16][4];
-  load_a_rows(qf, head_ptr(a.q, a.sq, b, h), a.sq.row, row_lo, a.n, t);
-  if constexpr (kQkNorm) rms_norm_a_rows(qf, a.gq + h * kFlashDh, t);
-  load_a_rows(df, head_ptr(a.dout, a.sdo, b, h), a.sdo.row, row_lo, a.n, t);
-  const int qs0 = seg_id(qseg, row_lo, a.n), qs1 = seg_id(qseg, row_lo + 8, a.n);
-  const float* lse = a.lse + static_cast<long long>(bh) * a.n;
-  const float* delta = a.delta + static_cast<long long>(bh) * a.n;
-  const float lse0 = row_lo < a.n ? lse[row_lo] : 0.f, lse1 = row_lo + 8 < a.n ? lse[row_lo + 8] : 0.f;
-  const float dl0 = row_lo < a.n ? delta[row_lo] : 0.f, dl1 = row_lo + 8 < a.n ? delta[row_lo + 8] : 0.f;
-
-  float dq[8][4];
-#pragma unroll
-  for (int dj = 0; dj < 8; ++dj) dq[dj][0] = dq[dj][1] = dq[dj][2] = dq[dj][3] = 0.f;
-
-  for (int stage = 0; j < nk; stage ^= 1) {
-    const int jn = next_admitted(kseg, a.m, nk, j + 1, qlo, qhi);
-    if (jn < nk) {
-      prefetch_kv(ring, kids, stage ^ 1, jn, kb, vb, kseg, a);
-      if constexpr (kDropout) fill_flash_keep(keep, stage ^ 1, a, stream, q0, jn * kFlashTile);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
-
-    const bf16* ks = ring + 2 * stage * kTileElems;
-    const bf16* vs = ks + kTileElems;
-    const int* ids = kids + stage * kFlashTile;
-    float p[8][4], dp[8][4];
-    mma_rows_t(p, qf, ks, g, t);
-    mma_rows_t(dp, df, vs, g, t);
-    // dropout: d softmax rides the mask (:352-361)
-    if constexpr (kDropout)
-      apply_keep_bits(dp, keep_bits_rows(keep + stage * kFlashKeepTile, warp * 16 + g, t), a.drop.inv);
-    if (a.causal && j == static_cast<int>(blockIdx.x)) hide_above_diagonal<false>(p, a, row_lo, j * kFlashTile, t);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int id = ids[jj * 8 + 2 * t + e];
-        // p = exp(s - lse), 0 where masked (see the top: never exp of the
-        // masked logit, which is 1 in a fully masked row)
-        p[jj][e] = qs0 >= 0 && id == qs0 ? exp2f((p[jj][e] * a.scale - lse0) * kLog2e) : 0.f;
-        p[jj][2 + e] = qs1 >= 0 && id == qs1 ? exp2f((p[jj][2 + e] * a.scale - lse1) * kLog2e) : 0.f;
-        dp[jj][e] = p[jj][e] * (dp[jj][e] - dl0);
-        dp[jj][2 + e] = p[jj][2 + e] * (dp[jj][2 + e] - dl1);
-      }
-    }
-    uint32_t dsf[4][4];
-    to_a_frags(dsf, dp);
-    mma_acc(dq, dsf, ks, g, t);
-    __syncthreads();
-    j = jn;
-  }
-  cp_async_wait<0>();
-  store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, dq, a.scale, a.scale, row_lo, a.n, t);
+// shared memory of both kernels (bytes from the swizzle-aligned base): two
+// resident slots of four tiles (slot s: own operand A of warpgroup w at 4s
+// + w, B at 4s + 2 + w), the ring (stage s: X at 2s, Y at 2s + 1), the
+// ring's 64 ids, lse, delta a stage, the slots' 128 ids, lse, delta, the
+// admission queue (an int4 an entry), the ring's tile indices, the
+// mbarriers (full, empty a stage; full, empty a slot; full, empty a queue
+// entry), then with dropout two keep tiles a consumer
+constexpr int kBwdRes = 0;
+constexpr int kBwdRing = kBwdRes + 2 * 4 * kSwTileBytes;
+constexpr int kBwdRingVec = kBwdRing + kBwdStages * 2 * kSwTileBytes;
+constexpr int kBwdResVec = kBwdRingVec + kBwdStages * 3 * kFlashTile * 4;
+constexpr int kBwdQueueAt = kBwdResVec + 2 * 3 * kBwdRows * 4;
+constexpr int kBwdTileIdx = kBwdQueueAt + kBwdQueue * 16;
+constexpr int kBwdBars = (kBwdTileIdx + kBwdStages * 4 + 7) / 8 * 8;
+constexpr int kBwdKeep = kBwdBars + (2 * kBwdStages + 4 + 2 * kBwdQueue) * 8;
+__host__ __device__ constexpr int bwd_smem(bool drop) {
+  return kWgAlign + kBwdKeep + (drop ? kBwdWgs * 2 * kFlashKeepTile * 4 : 0);
 }
 
-// ---------------------------------------------------------------------------
-// flash_bwd_dkv: one block per (64-key tile, b*h); each warp owns 16 keys
-// and loops over the admitted q-tiles with the transposed products:
-// p^T = exp(k.q^T * scale - lse) (0 where masked), dv += bf16(p^T).dO,
-// dp^T = v.dO^T, ds^T = p^T * (dp^T - delta), dk += bf16(ds^T).q; dk =
-// scale * dk, cast once.  With dropout dv takes bf16(where(keep, p^T, 0) *
-// inv) and dp^T is masked as in flash_bwd_dq; ds^T takes the undropped p^T.
-// With qk-norm k (resident) and each q stage are normalised: p^T and dk read
-// k^ and q^ (JAX :451-456), and dk is the gradient of k^.
-// ---------------------------------------------------------------------------
+// The tensor maps of a backward launch: the resident operands A and B (q
+// and dO, or k and v) and the ring's X and Y (k and v, or q and dO), each a
+// strided (b, h, rows, 64) bf16 view in 64 x 64 boxes
+struct alignas(64) BwdMaps {
+  TileMap a, b, x, y;
+};
 
-template <bool kDropout, bool kQkNorm>
-__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(FlashArgs a) {
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(flash_smem);  // stage s: q at 2s, dO at 2s + 1
-  int* qids = reinterpret_cast<int*>(ring + 4 * kTileElems);             // stage s: 64 query ids
-  float* lses = reinterpret_cast<float*>(qids + 2 * kFlashTile);         // stage s: 64 lse
-  float* deltas = lses + 2 * kFlashTile;                                 // stage s: 64 delta
-  uint32_t* keep = reinterpret_cast<uint32_t*>(deltas + 2 * kFlashTile);  // stage s: its keep tile (dropout)
-  float* gring = reinterpret_cast<float*>(keep + (kDropout ? 2 * kFlashKeepTile : 0));  // qk-norm: q's gammas
+// One work item of a block: (image, head) and its 128-row block.
+struct BwdItem {
+  int b, h, bh, r0;
+};
 
-  const int k0 = blockIdx.x * kFlashTile, bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ BwdItem bwd_item(const FlashArgs& a, int item, int rblocks, bool heavy_last) {
+  BwdItem it;
+  it.bh = item / rblocks;
+  int r = item % rblocks;
+  if (heavy_last) r = rblocks - 1 - r;
+  it.b = it.bh / a.heads;
+  it.h = it.bh % a.heads;
+  it.r0 = r * kBwdRows;
+  return it;
+}
+
+// The id range of a block's 128 rows from r0 (_seg_overlap's reductions;
+// rows past len read -1): one warp, every lane gets it
+__device__ __forceinline__ void block_range(const int* seg, int r0, int len, int lane, int& lo, int& hi) {
+  lo = kBigId;
+  hi = -1;
+#pragma unroll
+  for (int i = 0; i < kBwdRows / 32; ++i) {
+    const int v = seg_id(seg, r0 + 32 * i + lane, len);
+    hi = max(hi, v);
+    lo = min(lo, v >= 0 ? v : kBigId);
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+}
+
+// The tiles base .. base + 31 (those below end) of the other side that a
+// block of id range [lo, hi] admits, as a mask (bit i: tile base + i): each
+// tile's 64 ids read by the warp, two coalesced loads a lane, reduced by
+// redux.sync; every tile without ids.  One warp.
+__device__ __forceinline__ uint32_t admit_chunk(const int* seg, int len, int base, int end, int lo, int hi, int lane) {
+  if (end <= base) return 0u;
+  const uint32_t live = end - base >= 32 ? 0xffffffffu : (1u << (end - base)) - 1u;
+  if (seg == nullptr) return live;
+  uint32_t mask = 0u;
+#pragma unroll 16
+  for (int i = 0; i < 32; ++i) {
+    const int r = (base + i) * kFlashTile + lane;
+    const int x = seg_id(seg, r, len), y = seg_id(seg, r + 32, len);
+    const int thi = __reduce_max_sync(0xffffffffu, max(x, y));
+    const int tlo = __reduce_min_sync(0xffffffffu, min(x >= 0 ? x : kBigId, y >= 0 ? y : kBigId));
+    if (tiles_overlap(lo, hi, tlo, thi)) mask |= 1u << i;
+  }
+  return mask & live;
+}
+
+// q^ of a swizzled 64-row tile in place, in rms_norm_a_rows' sum order (the
+// order flash_fwd normalises q in): a quad of lanes a row, lane t adding
+// the pair sums x[c]^2 + x[c+1]^2 at columns c = 8j + 2t for j = 0..7 in
+// turn, the quad adding (s0 + s1) + (s2 + s3); each element (x * r) *
+// (gamma * sqrt(64)) in f32, cast once.  THREADS threads numbered from tid
+// (a multiple of 32 below threadIdx.x); zero rows stay zero.
+template <int THREADS>
+__device__ __forceinline__ void rms_norm_tile_quads(int tid, bf16* tile, const float* gamma) {
+  static_assert((kFlashTile * 4) % THREADS == 0, "4 lanes a row, every lane busy");
+  const int t = tid & 3;
+#pragma unroll
+  for (int i = tid; i < kFlashTile * 4; i += THREADS) {
+    const int row = i >> 2;
+    uint32_t x[8];
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[j] = *reinterpret_cast<const uint32_t*>(tile + sw_off(row, 8 * j + 2 * t));
+      const float2 f = unpack_pair(x[j]);
+      ss += f.x * f.x + f.y * f.y;
+    }
+    const float r = rsqrtf(quad_sum(ss) + kRmsEps);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 f = unpack_pair(x[j]);
+      const float2 g = *reinterpret_cast<const float2*>(gamma + 8 * j + 2 * t);
+      *reinterpret_cast<uint32_t*>(tile + sw_off(row, 8 * j + 2 * t)) =
+          pack_floats(f.x * r * (g.x * kRmsRoot), f.y * r * (g.y * kRmsRoot));
+    }
+  }
+}
+
+// d = A(64 x 16) . B(16 x 64), both K-major in shared memory, d written and
+// not read (scale-d false): the first k16 step of a product, whose
+// accumulators are fresh registers, so no copy of a stale value (which
+// ptxas would have to wait for) precedes the wgmma
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]), "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]),
+        "=f"(d[1][3]), "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]), "=f"(d[3][0]), "=f"(d[3][1]),
+        "=f"(d[3][2]), "=f"(d[3][3]), "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]), "=f"(d[4][3]), "=f"(d[5][0]),
+        "=f"(d[5][1]), "=f"(d[5][2]), "=f"(d[5][3]), "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]), "=f"(d[6][3]),
+        "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]), "=f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d = A.B^T over dh = 64 (A: 64 rows of a swizzled K-major tile, B: the 64
+// rows of another), f32: four k16 steps committed as one group (not waited
+// for), after a wgmma_fence
+__device__ __forceinline__ void ss_issue(float (&d)[8][4], const bf16* as, const bf16* bs) {
+  wgmma_ss_first(d, desc_k_major(as), desc_k_major(bs));
+#pragma unroll
+  for (int kk = 1; kk < kFlashDh / 16; ++kk)
+    WgmmaSS<8>::mma(d, desc_k_major(as + kk * 16), desc_k_major(bs + kk * 16), 1);
+  wgmma_commit();
+}
+
+// keep a register-A operand allocated and unchanged until here (a read,
+// not a write: the wgmma that reads it may still be in flight)
+__device__ __forceinline__ void hold_frags(const uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(f[i][0]), "r"(f[i][1]), "r"(f[i][2]), "r"(f[i][3]) : "memory");
+}
+
+__device__ __forceinline__ void zero_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+}
+
+template <bool kDkv, bool kDropout, bool kQkNorm>
+__device__ __forceinline__ void flash_bwd_block(const FlashArgs& a, const BwdMaps& maps) {
+  extern __shared__ unsigned char flash_bwd_raw[];
+  unsigned char* smem = aligned_smem(flash_bwd_raw);
+  bf16* res = reinterpret_cast<bf16*>(smem + kBwdRes);
+  bf16* ring = reinterpret_cast<bf16*>(smem + kBwdRing);
+  int* ring_vec = reinterpret_cast<int*>(smem + kBwdRingVec);  // stage s: ids, lse, delta at 3 * 64 * s
+  int* res_vec = reinterpret_cast<int*>(smem + kBwdResVec);    // slot s: ids, lse, delta at 3 * 128 * s
+  int4* queue = reinterpret_cast<int4*>(smem + kBwdQueueAt);   // (mask, first tile, last chunk of its item)
+  int* tile_at = reinterpret_cast<int*>(smem + kBwdTileIdx);   // stage s: its tile, or -1 (the item's end)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBwdBars);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* res_full = empty + kBwdStages;
+  uint64_t* res_empty = res_full + 2;
+  uint64_t* q_full = res_empty + 2;
+  uint64_t* q_empty = q_full + kBwdQueue;
+  uint32_t* keep = reinterpret_cast<uint32_t*>(smem + kBwdKeep);  // consumer w: tiles at 2w, 2w + 1 (dropout)
+
+  const int own_len = kDkv ? a.m : a.n, other_len = kDkv ? a.n : a.m;
+  const int rblocks = (own_len + kBwdRows - 1) / kBwdRows, items = rblocks * a.batch * a.heads;
+  const int other_tiles = (other_len + kFlashTile - 1) / kFlashTile;
+  const bool heavy_last = !kDkv && a.causal;  // causal dq: the last query blocks see the most keys
   const bool segs = a.qseg != nullptr;
-  const int* qseg = segs ? a.qseg + b * a.n : nullptr;
-  const int* kseg = segs ? a.kseg + b * a.m : nullptr;
-  const bf16* qb = head_ptr(a.q, a.sq, b, h);
-  const bf16* db = head_ptr(a.dout, a.sdo, b, h);
-  const float* lse = a.lse + static_cast<long long>(bh) * a.n;
-  const float* delta = a.delta + static_cast<long long>(bh) * a.n;
-  const int nq = (a.n + kFlashTile - 1) / kFlashTile;
-
-  const uint32_t stream = dropout_stream(b, h);
-
-  int klo = 0, khi = 0;
-  if (segs) seg_range(kseg, k0, a.m, klo, khi);
-  auto prefetch = [&](int stage, int i) {
-    load_tile_async(ring + 2 * stage * kTileElems, qb, a.sq.row, i * kFlashTile, a.n);
-    load_tile_async(ring + (2 * stage + 1) * kTileElems, db, a.sdo.row, i * kFlashTile, a.n);
-    if (threadIdx.x < kFlashTile) {
-      const int r = i * kFlashTile + threadIdx.x;
-      qids[stage * kFlashTile + threadIdx.x] = seg_id(qseg, r, a.n);
-      lses[stage * kFlashTile + threadIdx.x] = r < a.n ? lse[r] : 0.f;
-      deltas[stage * kFlashTile + threadIdx.x] = r < a.n ? delta[r] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBwdStages; ++i) {
+      mbar_init(full + i, kBwdFullArrivals);
+      mbar_init(empty + i, kBwdConsumerWarps);
     }
-    // keyed (query, key), as the forward draws it
-    if constexpr (kDropout) fill_flash_keep(keep, stage, a, stream, i * kFlashTile, k0);
-  };
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(res_full + i, kBwdFullArrivals);
+      mbar_init(res_empty + i, kBwdConsumerWarps);
+    }
+    for (int i = 0; i < kBwdQueue; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
 
-  int i = next_admitted(qseg, a.n, nq, a.causal ? causal_first_query_tile(blockIdx.x) : 0, klo, khi);
-  if (i < nq) prefetch(0, i);
-  cp_async_commit();
-  if constexpr (kQkNorm) stage_gammas(gring, a.gq + h * kFlashDh);
+  if (threadIdx.x >= 128 * kBwdWgs) {
+    // ---- the producer warpgroup: a loader warp and an admission warp ----
+    regs_dec<kBwdProducerRegs>();
+    const int pw = (threadIdx.x >> 5) - 4 * kBwdWgs;
+    int qslot = 0;
+    uint32_t qphase = 0;
+    if (pw == 1) {
+      // the admission: each item's tiles a queue entry a chunk of 32 (one at
+      // least), running ahead of the loader by up to kBwdQueue entries
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const BwdItem it = bwd_item(a, item, rblocks, heavy_last);
+        const int* own_seg = segs ? (kDkv ? a.kseg + it.b * a.m : a.qseg + it.b * a.n) : nullptr;
+        const int* other_seg = segs ? (kDkv ? a.qseg + it.b * a.n : a.kseg + it.b * a.m) : nullptr;
+        int lo = 0, hi = 0, base = 0, end = other_tiles;
+        if (a.causal) {  // the tiles of the block's first key tile on, or up to its last query tile
+          if constexpr (kDkv) base = causal_first_query_tile(it.r0 / kFlashTile);
+          else end = causal_key_tiles((it.r0 + kBwdRows - 1) / kFlashTile, other_tiles);
+        }
+        if (segs) block_range(own_seg, it.r0, own_len, lane, lo, hi);
+        for (;; base += 32) {
+          const uint32_t mask = admit_chunk(other_seg, other_len, base, end, lo, hi, lane);
+          const bool last = base + 32 >= end;
+          mbar_wait(q_empty + qslot, qphase ^ 1u);
+          if (lane == 0) {
+            queue[qslot] = make_int4(static_cast<int>(mask), base, last, 0);
+            mbar_arrive(q_full + qslot);
+          }
+          if (++qslot == kBwdQueue) qslot = 0, qphase ^= 1u;
+          if (last) break;
+        }
+      }
+      return;
+    }
+    if (pw != 0) return;
 
-  const int key_lo = k0 + warp * 16 + g;
-  uint32_t kf[kFlashDh / 16][4], vf[kFlashDh / 16][4];
-  load_a_rows(kf, head_ptr(a.k, a.sk, b, h), a.sk.row, key_lo, a.m, t);
-  if constexpr (kQkNorm) rms_norm_a_rows(kf, a.gk + h * kFlashDh, t);
-  load_a_rows(vf, head_ptr(a.v, a.sv, b, h), a.sv.row, key_lo, a.m, t);
-  const int ks0 = seg_id(kseg, key_lo, a.m), ks1 = seg_id(kseg, key_lo + 8, a.m);
+    // the loader: each item's resident operands, then its admitted tiles
+    // into the ring in ascending order, then the item's end
+    int stage = 0, c = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++c) {
+      const BwdItem it = bwd_item(a, item, rblocks, heavy_last);
+      const int slot = c & 1;
+      const int* own_seg = segs ? (kDkv ? a.kseg + it.b * a.m : a.qseg + it.b * a.n) : nullptr;
+      const int* other_seg = segs ? (kDkv ? a.qseg + it.b * a.n : a.kseg + it.b * a.m) : nullptr;
+      const long long stat = static_cast<long long>(it.bh) * a.n;  // this (image, head)'s lse and delta
 
-  float dk[8][4], dv[8][4];
+      mbar_wait(res_empty + slot, ((c >> 1) & 1) ^ 1u);
+      if (lane == 0) {
+        mbar_expect(res_full + slot, 4 * kSwTileBytes);
 #pragma unroll
-  for (int dj = 0; dj < 8; ++dj) {
-    dk[dj][0] = dk[dj][1] = dk[dj][2] = dk[dj][3] = 0.f;
-    dv[dj][0] = dv[dj][1] = dv[dj][2] = dv[dj][3] = 0.f;
+        for (int w = 0; w < kBwdWgs; ++w) {
+          tma_load(res + (4 * slot + w) * kSwTile, maps.a, 0, it.r0 + w * kFlashTile, it.h, it.b, res_full + slot);
+          tma_load(res + (4 * slot + 2 + w) * kSwTile, maps.b, 0, it.r0 + w * kFlashTile, it.h, it.b,
+                   res_full + slot);
+        }
+      }
+      int* rv = res_vec + slot * 3 * kBwdRows;
+#pragma unroll
+      for (int i = 0; i < kBwdRows / 32; ++i) {
+        const int r = 32 * i + lane, row = it.r0 + r;
+        const bool ok = row < own_len;
+        if (segs) cp_async_4_zfill(rv + r, own_seg + (ok ? row : 0), ok);
+        if constexpr (!kDkv) {
+          cp_async_4_zfill(rv + kBwdRows + r, a.lse + stat + (ok ? row : 0), ok);
+          cp_async_4_zfill(rv + 2 * kBwdRows + r, a.delta + stat + (ok ? row : 0), ok);
+        }
+      }
+      cp_async_arrive_noinc(res_full + slot);
+
+      // stage j (or, for j < 0, the item's end) once its slot is free
+      auto publish = [&](int j) {
+        mbar_wait(empty + stage, phase ^ 1u);
+        if (lane == 0) {
+          tile_at[stage] = j;
+          if (j >= 0) {
+            mbar_expect(full + stage, 2 * kSwTileBytes);
+            tma_load(ring + 2 * stage * kSwTile, maps.x, 0, j * kFlashTile, it.h, it.b, full + stage);
+            tma_load(ring + (2 * stage + 1) * kSwTile, maps.y, 0, j * kFlashTile, it.h, it.b, full + stage);
+          } else {
+            mbar_arrive(full + stage);
+          }
+        }
+        if (j >= 0) {
+          int* sv = ring_vec + stage * 3 * kFlashTile;
+#pragma unroll
+          for (int i = 0; i < kFlashTile / 32; ++i) {
+            const int r = 32 * i + lane, row = j * kFlashTile + r;
+            const bool ok = row < other_len;
+            if (segs) cp_async_4_zfill(sv + r, other_seg + (ok ? row : 0), ok);
+            if constexpr (kDkv) {
+              cp_async_4_zfill(sv + kFlashTile + r, a.lse + stat + (ok ? row : 0), ok);
+              cp_async_4_zfill(sv + 2 * kFlashTile + r, a.delta + stat + (ok ? row : 0), ok);
+            }
+          }
+          cp_async_arrive_noinc(full + stage);
+        } else {
+          mbar_arrive(full + stage);
+        }
+        if (++stage == kBwdStages) stage = 0, phase ^= 1u;
+      };
+      for (bool last = false; !last;) {
+        mbar_wait(q_full + qslot, qphase);
+        const int4 e = queue[qslot];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty + qslot);
+        if (++qslot == kBwdQueue) qslot = 0, qphase ^= 1u;
+        for (uint32_t mask = static_cast<uint32_t>(e.x); mask != 0u; mask &= mask - 1u) publish(e.y + __ffs(mask) - 1);
+        last = e.z != 0;
+      }
+      publish(-1);
+    }
+    return;
   }
 
-  for (int stage = 0; i < nq; stage ^= 1) {
-    const int in = next_admitted(qseg, a.n, nq, i + 1, klo, khi);
-    if (in < nq) prefetch(stage ^ 1, in);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (kQkNorm) rms_norm_stage(ring, stage, gring);
-
-    const bf16* qs = ring + 2 * stage * kTileElems;
-    const bf16* dos = qs + kTileElems;
-    const int* ids = qids + stage * kFlashTile;
-    const float* ls = lses + stage * kFlashTile;
-    const float* dls = deltas + stage * kFlashTile;
-    // p^T: rows = this warp's keys (g, g + 8), columns = the tile's queries
-    float p[8][4];
-    mma_rows_t(p, kf, qs, g, t);
-    if (a.causal && i == static_cast<int>(blockIdx.x)) hide_above_diagonal<true>(p, a, key_lo, i * kFlashTile, t);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = jj * 8 + 2 * t + e;
-        const int id = ids[c];
-        const float l = ls[c];
-        p[jj][e] = ks0 >= 0 && id == ks0 ? exp2f((p[jj][e] * a.scale - l) * kLog2e) : 0.f;
-        p[jj][2 + e] = ks1 >= 0 && id == ks1 ? exp2f((p[jj][2 + e] * a.scale - l) * kLog2e) : 0.f;
-      }
+  // ---- a consumer warpgroup: 64 of each item's 128 rows ----
+  regs_inc<kBwdConsumerRegs>();
+  const int wg = threadIdx.x >> 7, wtid = threadIdx.x & 127, warp = wtid >> 5, g = lane >> 2, t = lane & 3;
+  const int lr = wg * kFlashTile + warp * 16 + g;  // rows lr, lr + 8 of the item's 128
+  const float sl2 = a.scale * kLog2e;              // p = 2^(s * scale * log2(e) - lse * log2(e))
+  int stage = 0, c = 0, par = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++c) {
+    const BwdItem it = bwd_item(a, item, rblocks, heavy_last);
+    const int slot = c & 1, row0 = it.r0 + lr, own_tile = (it.r0 + wg * kFlashTile) / kFlashTile;
+    bf16* ra = res + (4 * slot + wg) * kSwTile;      // q (dq) or k (dkv): A of the first product
+    bf16* rb = res + (4 * slot + 2 + wg) * kSwTile;  // dO (dq) or v (dkv): A of the second
+    const int* rv = res_vec + slot * 3 * kBwdRows;
+    [[maybe_unused]] const uint32_t stream = dropout_stream(it.b, it.h);
+    mbar_wait(res_full + slot, (c >> 1) & 1);
+    if constexpr (kQkNorm) {
+      if constexpr (kDkv) rms_norm_tile_sw_at<128>(wtid, ra, a.gk + it.h * kFlashDh);
+      else rms_norm_tile_quads<128>(wtid, ra, a.gq + it.h * kFlashDh);
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
     }
-    uint32_t f[4][4];
-    uint32_t kbits = 0u;
-    if constexpr (kDropout) {
-      kbits = keep_bits_cols(keep + stage * kFlashKeepTile, warp * 16 + g, t);
-      keep_to_a_frags(f, p, kbits, a.drop.inv);  // pd^T, scaled before its cast
+    // the own rows' ids (-1 past the sequence; 0 for every row without ids)
+    const int id0 = row0 < own_len ? (segs ? rv[lr] : 0) : -1;
+    const int id1 = row0 + 8 < own_len ? (segs ? rv[lr + 8] : 0) : -1;
+    [[maybe_unused]] const float lse0 = reinterpret_cast<const float*>(rv)[kBwdRows + lr] * kLog2e;
+    [[maybe_unused]] const float lse1 = reinterpret_cast<const float*>(rv)[kBwdRows + lr + 8] * kLog2e;
+    [[maybe_unused]] const float dl0 = reinterpret_cast<const float*>(rv)[2 * kBwdRows + lr];
+    [[maybe_unused]] const float dl1 = reinterpret_cast<const float*>(rv)[2 * kBwdRows + lr + 8];
+
+    float acc0[8][4], acc1[8][4];  // dq (acc0), or dk (acc0) and dv (acc1)
+    uint32_t df[4][4] = {}, pf[4][4] = {};  // the A operands of the last products, in flight into the next tile
+    zero_acc(acc0);
+    if constexpr (kDkv) zero_acc(acc1);
+    int prev = -1;  // the stage those products read: released once they retire
+    for (;;) {
+      mbar_wait(full + stage, phase);
+      const int j = tile_at[stage];
+      if (j < 0) break;  // the item's end
+      bf16* xs = ring + 2 * stage * kSwTile;  // k (dq) or q (dkv)
+      bf16* ys = xs + kSwTile;                // v (dq) or dO (dkv)
+      const int* sv = ring_vec + stage * 3 * kFlashTile;
+      const float* ls = reinterpret_cast<const float*>(sv) + kFlashTile;
+      const float* dls = ls + kFlashTile;
+      if constexpr (kQkNorm) {
+        if constexpr (kDkv) rms_norm_tile_quads<128 * kBwdWgs>(threadIdx.x, xs, a.gq + it.h * kFlashDh);
+        else rms_norm_tile_sw_at<128 * kBwdWgs>(threadIdx.x, xs, a.gk + it.h * kFlashDh);
+        fence_proxy_async();
+        named_sync(1, 128 * kBwdWgs);
+      }
+      float s[8][4], dp[8][4];
+      wgmma_fence();
+      ss_issue(s, ra, xs);   // s = q.k^T, or s^T = k.q^T
+      ss_issue(dp, rb, ys);  // dp = dO.v^T, or dp^T = v.dO^T
+      [[maybe_unused]] const uint32_t* kt = keep + (2 * wg + par) * kFlashKeepTile;
+      if constexpr (kDropout) {  // keyed (query, key), as the forward draws it
+        if constexpr (kDkv)
+          fill_keep_tile_at<kFlashTile, kFlashKeepWords, 128>(wtid, keep + (2 * wg + par) * kFlashKeepTile, a.drop,
+                                                               stream, j * kFlashTile, it.r0 + wg * kFlashTile, a.n,
+                                                               a.m);
+        else
+          fill_keep_tile_at<kFlashTile, kFlashKeepWords, 128>(wtid, keep + (2 * wg + par) * kFlashKeepTile, a.drop,
+                                                               stream, it.r0 + wg * kFlashTile, j * kFlashTile, a.n,
+                                                               a.m);
+        named_sync(2 + wg, 128);
+      }
+      // the previous tile's last products have retired: release its stage
+      wgmma_wait<2>();
+      hold_frags(df);
+      if constexpr (kDkv) hold_frags(pf);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + prev);
+      }
+      wgmma_wait<1>();
+      fence_acc(s);
+      // the causal triangle on the warpgroup's diagonal tile (every element
+      // hidden on a tile past it), a branch uniform across the warpgroup
+      if constexpr (kDkv) {
+        if (a.causal && j <= own_tile) hide_above_diagonal<true>(s, a, row0, j * kFlashTile, t);
+      } else {
+        if (a.causal && j >= own_tile) hide_above_diagonal<false>(s, a, row0, j * kFlashTile, t);
+      }
+      // p = exp(s - lse), 0 where masked (never exp of the masked logit,
+      // which is 1 in a fully masked row); a tile with no ids and every
+      // column below the sequence's end (kFull) tests only its rows
+      auto probs = [&](auto full_tile) {
+        constexpr bool kFull = decltype(full_tile)::value;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int c0 = jj * 8 + 2 * t;  // even: the pair's ids (and lse) are one 8-byte read
+          [[maybe_unused]] const int2 ids = segs ? *reinterpret_cast<const int2*>(sv + c0) : make_int2(0, 0);
+          [[maybe_unused]] const float2 lsp = kDkv ? *reinterpret_cast<const float2*>(ls + c0) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bool v0 = id0 >= 0, v1 = id1 >= 0;
+            if constexpr (!kFull) {
+              const bool in = j * kFlashTile + c0 + e < other_len;
+              const int id = e ? ids.y : ids.x;
+              v0 = v0 && in && id == id0;
+              v1 = v1 && in && id == id1;
+            }
+            const float l0 = kDkv ? (e ? lsp.y : lsp.x) * kLog2e : lse0, l1 = kDkv ? l0 : lse1;
+            s[jj][e] = v0 ? exp2_ftz(fmaf(s[jj][e], sl2, -l0)) : 0.f;
+            s[jj][2 + e] = v1 ? exp2_ftz(fmaf(s[jj][2 + e], sl2, -l1)) : 0.f;
+          }
+        }
+      };
+      if (!segs && (j + 1) * kFlashTile <= other_len) probs(std::true_type{});
+      else probs(std::false_type{});
+      [[maybe_unused]] uint32_t kbits = 0u;
+      if constexpr (kDkv) {  // dv += bf16(p^T).dO (with dropout, where(keep, p^T, 0) * inv)
+        if constexpr (kDropout) {
+          kbits = keep_bits_cols(kt, warp * 16 + g, t);
+          keep_to_a_frags(pf, s, kbits, a.drop.inv);  // scaled before its cast
+        } else {
+          to_a_frags(pf, s);
+        }
+        wgmma_fence();
+        pv_issue(acc1, pf, ys);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+        if constexpr (kDropout) kbits = keep_bits_rows(kt, warp * 16 + g, t);
+      }
+      fence_acc(dp);
+      if constexpr (kDropout) apply_keep_bits(dp, kbits, a.drop.inv);  // d softmax rides the mask
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        [[maybe_unused]] const float2 dl2 = kDkv ? *reinterpret_cast<const float2*>(dls + jj * 8 + 2 * t)
+                                                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (kDkv) {
+            const float dl = e ? dl2.y : dl2.x;
+            dp[jj][e] = s[jj][e] * (dp[jj][e] - dl);
+            dp[jj][2 + e] = s[jj][2 + e] * (dp[jj][2 + e] - dl);
+          } else {
+            dp[jj][e] = s[jj][e] * (dp[jj][e] - dl0);
+            dp[jj][2 + e] = s[jj][2 + e] * (dp[jj][2 + e] - dl1);
+          }
+        }
+      }
+      to_a_frags(df, dp);
+      wgmma_fence();
+      pv_issue(acc0, df, xs);  // dq += bf16(ds).k, or dk += bf16(ds^T).q (q^ with qk-norm); retired next tile
+      prev = stage;
+      if (++stage == kBwdStages) stage = 0, phase ^= 1u;
+      par ^= 1;
+    }
+    // the item's end: its last products retire, their stage and the end's
+    // stage and the resident slot are released, the sums stored
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    hold_frags(df);
+    if constexpr (kDkv) {
+      fence_acc(acc1);
+      hold_frags(pf);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      if (prev >= 0) mbar_arrive(empty + prev);
+      mbar_arrive(empty + stage);
+      mbar_arrive(res_empty + slot);
+    }
+    if (++stage == kBwdStages) stage = 0, phase ^= 1u;
+    if constexpr (kDkv) {
+      store_rows(head_ptr(a.out0, a.s0, it.b, it.h), a.s0.row, acc0, a.scale, a.scale, row0, a.m, t);
+      store_rows(head_ptr(a.out1, a.s1, it.b, it.h), a.s1.row, acc1, 1.f, 1.f, row0, a.m, t);
     } else {
-      to_a_frags(f, p);
+      store_rows(head_ptr(a.out0, a.s0, it.b, it.h), a.s0.row, acc0, a.scale, a.scale, row0, a.n, t);
     }
-    mma_acc(dv, f, dos, g, t);  // dv += bf16(p^T) . dO
-    float dp[8][4];
-    mma_rows_t(dp, vf, dos, g, t);  // dp^T = v . dO^T
-    if constexpr (kDropout) apply_keep_bits(dp, kbits, a.drop.inv);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = dls[jj * 8 + 2 * t + e];
-        dp[jj][e] = p[jj][e] * (dp[jj][e] - dl);
-        dp[jj][2 + e] = p[jj][2 + e] * (dp[jj][2 + e] - dl);
-      }
-    }
-    to_a_frags(f, dp);
-    mma_acc(dk, f, qs, g, t);  // dk += bf16(ds^T) . q (q^ with qk-norm)
-    __syncthreads();
-    i = in;
   }
-  cp_async_wait<0>();
-  store_rows(head_ptr(a.out0, a.s0, b, h), a.s0.row, dk, a.scale, a.scale, key_lo, a.m, t);
-  store_rows(head_ptr(a.out1, a.s1, b, h), a.s1.row, dv, 1.f, 1.f, key_lo, a.m, t);
+}
+
+// flash_bwd_dq: each item's 128 queries against their admitted key tiles;
+// dq = scale * sum of bf16(ds).k (with qk-norm the gradient of q^)
+template <bool kDropout, bool kQkNorm>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(const __grid_constant__ FlashArgs a,
+                                                                    const __grid_constant__ BwdMaps maps) {
+  flash_bwd_block<false, kDropout, kQkNorm>(a, maps);
+}
+
+// flash_bwd_dkv: each item's 128 keys against their admitted query tiles;
+// dk = scale * sum of bf16(ds^T).q (with qk-norm the gradient of k^), dv =
+// sum of bf16(p^T).dO
+template <bool kDropout, bool kQkNorm>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_kernel(const __grid_constant__ FlashArgs a,
+                                                                     const __grid_constant__ BwdMaps maps) {
+  flash_bwd_block<true, kDropout, kQkNorm>(a, maps);
 }
 
 // strides[3 * i .. 3 * i + 2]: the (b, h, row) strides of q, k, v, dO, out0,
@@ -983,23 +1296,6 @@ bool bad_shape(int batch, int heads, int n, int m, int dim_head, const void* qse
          (gq == nullptr) != (gk == nullptr) || (drop && heads >= 1024);
 }
 
-typedef void (*FlashKernel)(FlashArgs);
-
-// a kernel's instantiation for the options: kernels[drop + 2 * qknorm] (rate
-// 0, [dropout], [qknorm], [dropout,qknorm]); causal is a runtime flag of each
-FlashKernel pick(const FlashKernel (&kernels)[4], int drop, const FlashArgs& a) {
-  return kernels[(drop ? 1 : 0) + (a.gq != nullptr ? 2 : 0)];
-}
-
-// one launch on a (tiles, b*h) grid, with a keep tile a ring stage for
-// dropout and a gamma row for qk-norm beside the kernel's own shared memory
-int launch(FlashKernel kernel, const FlashArgs& a, int drop, int tiles, int batch, int smem, void* stream) {
-  const dim3 grid(tiles, batch * a.heads);
-  smem += (drop ? kKeepSmem : 0) + (a.gq != nullptr ? kGammaSmem : 0);
-  kernel<<<grid, kFlashThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
-}
-
 typedef void (*FwdKernel)(FlashArgs, TmaMaps);
 
 // flash_fwd's instantiations, kFwdKernels[drop + 2 * qknorm]
@@ -1008,10 +1304,38 @@ const FwdKernel kFwdKernels[4] = {flash_fwd_kernel<false, false, false>, flash_f
 // the bias variant: rate 0, no qk-norm (the dispatcher never sends a bias
 // with dropout or gammas, JAX :882-883)
 const FwdKernel kFwdBiasKernel = flash_fwd_kernel<false, false, true>;
-const FlashKernel kDqKernels[4] = {flash_bwd_dq_kernel<false, false>, flash_bwd_dq_kernel<true, false>,
-                                   flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, true>};
-const FlashKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bwd_dkv_kernel<true, false>,
-                                    flash_bwd_dkv_kernel<false, true>, flash_bwd_dkv_kernel<true, true>};
+typedef void (*BwdKernel)(FlashArgs, BwdMaps);
+// the backward kernels' instantiations, k*Kernels[drop + 2 * qknorm]
+const BwdKernel kDqKernels[4] = {flash_bwd_dq_kernel<false, false>, flash_bwd_dq_kernel<true, false>,
+                                 flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, true>};
+const BwdKernel kDkvKernels[4] = {flash_bwd_dkv_kernel<false, false>, flash_bwd_dkv_kernel<true, false>,
+                                  flash_bwd_dkv_kernel<false, true>, flash_bwd_dkv_kernel<true, true>};
+
+// One launch of a backward kernel for the options: the persistent grid,
+// min(work items, SMs) blocks, over the items of `own_len` rows (n for dq,
+// m for dkv) a (image, head).
+int launch_bwd(const BwdKernel (&kernels)[4], const FlashArgs& a, const BwdMaps& maps, int own_len, int drop,
+               void* stream) {
+  const BwdKernel kernel = kernels[(drop ? 1 : 0) + (a.gq != nullptr ? 2 : 0)];
+  const long long items = static_cast<long long>((own_len + kBwdRows - 1) / kBwdRows) * a.batch * a.heads;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = bwd_smem(drop);
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(items < sm_count() ? items : sm_count());
+  kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, maps);
+  return cudaGetLastError();
+}
+
+// the tensor maps of a backward launch: resident a and b of `own` rows,
+// ring x and y of `other` rows
+bool encode_bwd_maps(BwdMaps& maps, const void* pa, const Strides& sa, const void* pb, const Strides& sb, int own,
+                     const void* px, const Strides& sx, const void* py, const Strides& sy, int other, int heads,
+                     int batch) {
+  return encode_operand_map(maps.a, pa, sa, own, heads, batch) && encode_operand_map(maps.b, pb, sb, own, heads, batch) &&
+         encode_operand_map(maps.x, px, sx, other, heads, batch) &&
+         encode_operand_map(maps.y, py, sy, other, heads, batch);
+}
 
 }  // namespace
 
@@ -1062,9 +1386,12 @@ int vit_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
                      int heads, int n, int m, int dim_head, float scale, int causal, int drop, unsigned seed,
                      unsigned threshold, float inv, const long long* strides, void* stream) {
   if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr,
-                                0, heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(pick(kDqKernels, drop, a), a, drop, (n + kFlashTile - 1) / kFlashTile, batch, kDqSmem, stream);
+  FlashArgs a = make_args(q, k, v, dout, dq, nullptr, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr, 0,
+                          heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
+  a.batch = batch;
+  BwdMaps maps{};
+  if (!encode_bwd_maps(maps, q, a.sq, dout, a.sdo, n, k, a.sk, v, a.sv, m, heads, batch)) return cudaErrorInvalidValue;
+  return launch_bwd(kDqKernels, a, maps, n, drop, stream);
 }
 
 int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -1072,9 +1399,12 @@ int vit_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
                       void* dv, int batch, int heads, int n, int m, int dim_head, float scale, int causal, int drop,
                       unsigned seed, unsigned threshold, float inv, const long long* strides, void* stream) {
   if (bad_shape(batch, heads, n, m, dim_head, qseg, kseg, gq, gk, drop)) return cudaErrorInvalidValue;
-  const FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr, 0,
-                                heads, n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
-  return launch(pick(kDkvKernels, drop, a), a, drop, (m + kFlashTile - 1) / kFlashTile, batch, kDkvSmem, stream);
+  FlashArgs a = make_args(q, k, v, dout, dk, dv, const_cast<void*>(lse), delta, qseg, kseg, gq, gk, nullptr, 0, heads,
+                          n, m, scale, causal, DropoutArgs{seed, threshold, inv}, strides);
+  a.batch = batch;
+  BwdMaps maps{};
+  if (!encode_bwd_maps(maps, k, a.sk, v, a.sv, m, q, a.sq, dout, a.sdo, n, heads, batch)) return cudaErrorInvalidValue;
+  return launch_bwd(kDkvKernels, a, maps, m, drop, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // The Hopper (sm_90a) machinery shared by the port's TMA-fed kernels
-// (attn_wgmma.cuh's short_attention and flash_fwd; gemm_bf16.cu's GEMM;
-// attention_rows.cu): mbarriers, the Tensor Memory Accelerator's tiled
-// copies between device and shared memory, named barriers, the register
-// hand-over of warp-specialised kernels, and the host's tensor-map encoder.
+// (attn_wgmma.cuh's short_attention and flash_fwd; the flash backward;
+// gemm_bf16.cu's GEMM; attention_rows.cu): mbarriers (with cp.async copies
+// arriving on them), the Tensor Memory Accelerator's tiled copies between
+// device and shared memory, named barriers, the register hand-over of
+// warp-specialised kernels, and the host's tensor-map encoder.
 //
 // A TMA copy is issued by one thread and reports its bytes to an mbarrier
 // (loads) or to the thread's bulk group (stores).  It reads and writes
@@ -41,6 +42,19 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The barrier tracks the thread's cp.async copies issued so far: one
+// arrival once they have all landed (.noinc: the arrival is one of the
+// `count` the barrier was initialised with)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// 4 bytes by cp.async, or 4 zero bytes when !valid (gmem is then not read)
+__device__ __forceinline__ void cp_async_4_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 // Wait until the barrier's phase of parity `parity` completes (the parity of

@@ -86,6 +86,7 @@ from ._build import load_library
 from .fused_block import STREAM_STRIDE, _attn_keep, _dropout_args
 
 BLOCK_Q = BLOCK_K = 64  # kFlashTile: the kernels' query and key tiles
+BWD_ROWS = 2 * BLOCK_Q  # kBwdRows: a backward work item's rows, two warpgroups' tiles
 DIM_HEAD = 64  # kFlashDh: the one head dim the kernels are built for
 NEG_INF = -1e30  # _NEG_INF: the LSE of a row with no key to attend
 _BIG_ID = 1 << 30
@@ -186,6 +187,36 @@ def tile_admitted(q_segment_ids, kv_segment_ids, *, block_q: int = BLOCK_Q, bloc
         kj = torch.arange(admitted.shape[2], device=admitted.device)[None, :]
         admitted = admitted & (kj * block_k <= qi * block_q + block_q - 1)
     return admitted
+
+
+def bwd_tile_lists(n: int, m: int, q_segment_ids=None, kv_segment_ids=None, *, dkv: bool = False,
+                   causal: bool = False):
+    """The tiles each work item of the backward kernels walks, in its
+    order: per image (one list, every image alike, without ids), per item
+    of ``BWD_ROWS`` rows (queries for flash_bwd_dq, keys with ``dkv`` for
+    flash_bwd_dkv), the ascending indices of the other side's 64-row tiles
+    it admits.  The host mirror of the kernels' admission (``admit_chunk``
+    in csrc/flash_attention.cu, whose masks the loader walks in ascending
+    order): a tile is admitted iff
+    the ranges of the item's ids (all its rows) and of the tile's overlap
+    (``_seg_overlap``'s test, as :func:`tile_admitted`, on a block of
+    ``BWD_ROWS`` rows); with ``causal`` flash_bwd_dq's walk ends at the
+    item's last query tile and flash_bwd_dkv's starts at its first key
+    tile."""
+    own_len, other_len = (m, n) if dkv else (n, m)
+    items, tiles = -(-own_len // BWD_ROWS), -(-other_len // BLOCK_Q)
+    if q_segment_ids is None:
+        admitted = torch.ones((1, items, tiles), dtype=torch.bool)
+    else:
+        own, other = (kv_segment_ids, q_segment_ids) if dkv else (q_segment_ids, kv_segment_ids)
+        lo, hi = (t[:, :, None] for t in _tile_ranges(own.cpu(), BWD_ROWS))
+        tlo, thi = (t[:, None, :] for t in _tile_ranges(other.cpu(), BLOCK_Q))
+        admitted = (hi >= 0) & (thi >= 0) & (lo <= thi) & (tlo <= hi)
+    if causal:
+        item, tile = torch.arange(items)[:, None], torch.arange(tiles)[None, :]
+        first_own_tile = item * (BWD_ROWS // BLOCK_Q)
+        admitted = admitted & (tile >= first_own_tile if dkv else tile <= first_own_tile + BWD_ROWS // BLOCK_Q - 1)
+    return [[row.nonzero().flatten().tolist() for row in image] for image in admitted]
 
 
 def flash_supported(q_shape, k_shape, dtype) -> bool:
