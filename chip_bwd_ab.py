@@ -22,8 +22,8 @@ bs=1024):
     backward to q, k, v on the same operands (dropout_p=0.1 beside
     [dropout]; without the norm beside [qknorm]);
   - unless --no-steps: ViT-B/16 training at bs=1024 (phase 21's model) under
-    the default backward and under VIT_TPU_FF_BWD=full and
-    VIT_TPU_ENABLE_WHOLE_LAYER_BWD=1, ms a step over 2 steps.
+    the default backward and under VIT_TPU_FF_BWD=full, VIT_TPU_FF_BWD=hybrid
+    and VIT_TPU_ENABLE_WHOLE_LAYER_BWD=1, ms a step over 2 steps.
 
 Prints one JSON line {"tree": label, name: ms, ...} and, after a fresh
 build, the ptxas lines of the two kernels.  Run two checkouts in turns (A, B,
@@ -113,7 +113,7 @@ if __name__ == "__main__":
         images = torch.randn(cs.B_TRAIN_TIME, 3, 224, 224, generator=gen, device=dev).to(bf16)
         labels = torch.randint(0, 1000, (cs.B_TRAIN_TIME,), generator=gen, device=dev)
         state, step = create_train_state(model), make_train_step(model)
-        for mode, env in (("default", {}), *((name, env) for name, env in cs.FF_MODES if name in ("full", "layer"))):
+        for mode, env in (("default", {}), *cs.FF_MODES):
             with cs.env_switch(env):
                 out[f"vit-b/16 training ms/step bs={cs.B_TRAIN_TIME} [{mode}]"] = cs.train_step_ms(
                     dev, lambda: step(state, images, labels))[0]

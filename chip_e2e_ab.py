@@ -10,7 +10,9 @@ paths of its phases, each after a warm-up, on the same seeded inputs:
 
   - ViT-B/16 @224 served behind the Predictor's buckets (1, 8, 32, 128)
     (phases 4-5, VIT_TPU_STACK_LAYERS unset: the chain of 7 launches a
-    layer), ms a request of each bucket's size over 20 requests (10 at 128);
+    layer), ms a request of each bucket's size over 20 requests (10 at 128),
+    and beside each bucket the same under VIT_TPU_STACK_LAYERS=6 (phase 33:
+    two stack_layers launches a request);
   - ViT-B/16 trained at bs=1024 (phase 8) at dropout 0 and (phase 11) at
     dropout 0.1 and emb_dropout 0.1, ms a step over 2 steps;
   - SimpleViT config 2 served at bs=256 and SimpleViT-qk-norm at bs=128,
@@ -69,6 +71,8 @@ if __name__ == "__main__":
         img = torch.randn(k, 3, 224, 224, generator=gen, device=dev)
         with torch.inference_mode():
             out[f"vit-b/16 serving ms/request bs={k}"] = cs.host_ms(lambda: pred(img), 10 if k == 128 else 20)
+            with cs.env_switch({"VIT_TPU_STACK_LAYERS": "6"}, cs.STACK_KEYS):
+                out[f"vit-b/16 serving ms/request bs={k} g=6"] = cs.host_ms(lambda: pred(img), 10 if k == 128 else 20)
     del model, pred
     if "--serving" in sys.argv[3:]:
         print(json.dumps(out), flush=True)

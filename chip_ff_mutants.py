@@ -25,8 +25,8 @@ MUTANTS = {
         "  return 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * c * (1.0f + 3.0f * a * h * h);",
         "  return normcdff(h) + h * 0.3989422804014327f * expf(-0.5f * h * h) + 0.f * (c + a);"),
     "[res_f32] casting dy to bf16 before adding g": (
-        "fused_layer_bwd.cu", "          out[i] += rv[i];  // in f32, before the one cast",
-        "          out[i] = __bfloat162float(__float2bfloat16(out[i])) + rv[i];"),
+        "fused_layer_bwd.cu", "for (int i = 0; i < 8; ++i) out[i] += rv[i];  // in f32, before the one cast",
+        "for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(__float2bfloat16(out[i])) + rv[i];"),
     "gemm_wgrad with a split tile's first piece dropped from its sum": (
         "gemm_wgrad.cu", "  for (int s = 0; s < pieces; ++s) {", "  for (int s = 1; s < pieces; ++s) {"),
     "gemm_wgrad adding a split tile's pieces from the next slot on": (
@@ -35,7 +35,7 @@ MUTANTS = {
     "gemm_wgrad without the last k-tile of each piece's range (a zero tile in its place)": (
         "gemm_wgrad.cu", "load(sk0 + w.t0, k0 + o);", "load(sk0 + w.t0, k0 + o + (o + 1 == w.y0 ? ktiles : 0));"),
     "db1 summed from the bf16 dh1": (
-        "gemm_bf16.cu", "            p0 += v.x;\n            p1 += v.y;",
+        "gemm_ring.cuh", "            p0 += v.x;\n            p1 += v.y;",
         "            const float2 r = round_bf16(v.x, v.y);\n            p0 += r.x;\n            p1 += r.y;"),
 }
 

@@ -14,10 +14,16 @@ shape (M = 128 x 196, 768 x 768) on one layer's random operands (b=128,
 n=197, dim 768, 12 heads, mlp 3072); then at SimpleViT config 2's shapes
 (b=256, n=64, dim 1024, 16 heads) gemm_bf16[block_out] +x and
 attention_rows; then one stack_layers launch of 6 layers at bs=128 (phase
-33's): CUDA events over 30 chained launches after 3 warm-up ones.  Prints one JSON line {"tree": label, kernel: ms, ...} and,
-after a fresh build, the ptxas lines of those kernels.  Run two checkouts in
-turns (A, B, B, A) in one call; to time a parent commit, unpack it with
-``git archive`` into a git-ignored directory.
+33's) and at bs=1, stack_layers[tools] of 6 layers at bs=128, and the chain
+of 42 launches each stands for; then layernorm_bwd_rows (LN1's backward with
+its dy) and its [res_f32] variant (with a bf16 residual) at 25,216 rows of
+768, beside torch.ops.aten.native_layer_norm_backward on the same rows
+(dx, dgamma and dbeta in one call, given the forward's mean and rstd; dh
+cast to bf16 where it refuses the f32 dh beside bf16 x): CUDA events over
+30 chained launches after 3 warm-up ones.  Prints one JSON line {"tree":
+label, kernel: ms, ...} and, after a fresh build, the ptxas lines of those
+kernels.  Run two checkouts in turns (A, B, B, A) in one call; to time a
+parent commit, unpack it with ``git archive`` into a git-ignored directory.
 """
 
 import json
@@ -79,14 +85,46 @@ if __name__ == "__main__":
     qkv2 = rnd(b2, n2, 3 * h2 * cs.DH)
     calls["gemm_bf16[block_out, +x]"] = lambda: fb.gemm_bf16(m2, w_out2, "block_out", residual=x2)
     calls["attention_rows[config 2]"] = lambda: fb.attention_rows(qkv2, heads=h2, dim_head=cs.DH, scale=cs.DH**-0.5)
-    # the multi-layer kernel at g = 6, phase 33's launch (b_out on, b_qkv off)
-    layers = cs.stack_tuples(rnd, 6, False, True)
-    calls["stack_layers[g=6]"] = lambda: fb.stack_layers(x, layers, heads=heads, dim_head=cs.DH, scale=cs.DH**-0.5)
-    out = {"tree": label}
+    # the multi-layer kernel at g = 6, phase 33's launch (b_out on, b_qkv off), at bs=128 and 1; the tools'
+    # instantiation (no b_qkv, b_out); beside each, the chain of 42 launches it stands for
+    skw = dict(heads=heads, dim_head=cs.DH, scale=cs.DH**-0.5)
+    layers, tools_layers = cs.stack_tuples(rnd, 6, False, True), cs.stack_tuples(rnd, 6, False, False)
+    x1 = rnd(1, n, dim)
+
+    def chain(x_, ls, epilogues="package"):
+        for lw in ls:
+            x_ = fb._layer_forward(fb.KERNELS, x_, *lw, heads, cs.DH, cs.DH**-0.5, fb.LN_EPS, epilogues)[0]
+        return x_
+
+    calls["stack_layers[g=6]"] = lambda: fb.stack_layers(x, layers, **skw)
+    calls["chain[g=6]"] = lambda: chain(x, layers)
+    calls["stack_layers[g=6 bs=1]"] = lambda: fb.stack_layers(x1, layers, **skw)
+    calls["chain[g=6 bs=1]"] = lambda: chain(x1, layers)
+    calls["stack_layers[tools, g=6]"] = lambda: fb.stack_layers(x, tools_layers, **skw, epilogues="tools")
+    calls["chain[tools, g=6]"] = lambda: chain(x, tools_layers, "tools")
+    # the LayerNorm backward at bs=128's rows: LN1's (+dy) and [res_f32] (+g, one cast)
+    dh = torch.randn(b, n, dim, generator=gen, device=dev)
+    dy = rnd(b, n, dim)
+    calls["layernorm_bwd_rows"] = lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy)
+    calls["layernorm_bwd_rows[res_f32]"] = lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy,
+                                                                         res_f32=True)
+    aten = torch.ops.aten
+    ln_bias = torch.zeros_like(w["ln1_scale"])
+    _, mean, rstd = aten.native_layer_norm(x, [dim], w["ln1_scale"], ln_bias, fb.LN_EPS)
+    native = lambda g: aten.native_layer_norm_backward(g, x, [dim], mean, rstd, w["ln1_scale"], ln_bias,
+                                                       [True, True, True])
+    try:
+        native(dh)
+        dh_native, cast = dh, "none"
+    except RuntimeError:
+        dh_native, cast = dh.to(x.dtype), "dh cast from f32 to bf16"
+    calls["native_layer_norm_backward"] = lambda: native(dh_native)
+    out = {"tree": label, "native_layer_norm_backward cast": cast}
     with torch.inference_mode():
         for name, call in calls.items():
             out[name] = cs.cuda_ms(call, 30)
     print(json.dumps(out), flush=True)
     for line in cs.ptxas_report(lib.build_log):
-        if any(k in line for k in ("layernorm_rows", "gemm_bf16", "attention_rows_kernel", "stack_layers")):
+        if any(k in line for k in ("layernorm_rows", "layernorm_bwd", "gemm_bf16", "attention_rows_kernel",
+                                   "stack_layers")):
             print(label, line)

@@ -19,7 +19,8 @@ import torch
 
 import chip_smoke as cs
 
-# name: (file in csrc/, text replaced, replacement); each text occurs once
+# name: (file in csrc/, text replaced, replacement), or a tuple of such edits
+# made together; each text occurs once
 MUTANTS = {
     "the norm's closing without the projection term (d g - xhat <d g, xhat> -> d g)": (
         "common.cuh", "  s0 = quad_sum(s0);\n  s1 = quad_sum(s1);", "  s0 = 0.f;\n  s1 = 0.f;"),
@@ -56,8 +57,9 @@ def run_checks(check, fb, dev, csrc_dir):
 
 def main(mutants=MUTANTS, check=lambda fb, rnd, dev: cs.check_qknorm(fb, rnd, dev), tag="qk"):
     """The right kernels through ``check``, then each of ``mutants`` (name:
-    (file in csrc/, text, replacement)) built under build/mutants/<tag>-<i>;
-    exits 1 unless the right kernels pass and every mutant fails."""
+    (file in csrc/, text, replacement), or a tuple of such edits) built under
+    build/mutants/<tag>-<i>; exits 1 unless the right kernels pass and every
+    mutant fails."""
     sys.exit(0 if run(mutants, check, tag) else 1)
 
 
@@ -80,15 +82,16 @@ def run(mutants, check, tag):
     ok &= not fails
     print(f"right kernels: {len(fails)} failed checks ({time.perf_counter() - t:.1f} s) "
           f"{'ok' if not fails else 'FAILED: ' + '; '.join(fails[:3])}", flush=True)
-    for i, (name, (fname, old, new)) in enumerate(mutants.items()):
+    for i, (name, spec) in enumerate(mutants.items()):
         d = _build.build_dir() / "mutants" / f"{tag}-{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d)
-        text = (d / fname).read_text()
-        if text.count(old) != 1:
-            print(f"FAIL: mutant {name!r}: its text occurs {text.count(old)} times in {fname}", file=sys.stderr)
-            sys.exit(1)
-        (d / fname).write_text(text.replace(old, new))
+        for fname, old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            text = (d / fname).read_text()
+            if text.count(old) != 1:
+                print(f"FAIL: mutant {name!r}: its text occurs {text.count(old)} times in {fname}", file=sys.stderr)
+                sys.exit(1)
+            (d / fname).write_text(text.replace(old, new))
         t = time.perf_counter()
         fails = run_checks(check, fb, dev, Path(d))
         ok &= bool(fails)

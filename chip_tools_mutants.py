@@ -17,7 +17,7 @@ fail or a mutant passes.  The runner is chip_qk_mutants.main.
 import chip_qk_mutants
 import chip_smoke as cs
 
-# name: (file in csrc/, text replaced, replacement); each text occurs once
+# name: (file in csrc/, text replaced, replacement), or a tuple of such edits; each text occurs once
 MUTANTS = {
     "fc1_f32 rounding the dot before the bias (the package's fc1)": (
         "layer_tiles.cuh", "  } else if (EPI == kEpiFc1F32) {\n    if (has_bias) {",
@@ -27,8 +27,9 @@ MUTANTS = {
         "stack_layers.cu", "constexpr int kFc2 = TOOLS ? kEpiBlockOut : kEpiFc2;", "constexpr int kFc2 = kEpiFc2;"),
     "n_keys ignored: keys masked at n": (
         "attention_rows.cu", "keep, a.n_keys, a.scale_log2e", "keep, a.n, a.scale_log2e"),
-    "the tools' stack reading layer 0's weights in every layer": (
-        "stack_layers.cu", "const StackLayer& L = p.layer[l];", "const StackLayer& L = p.layer[TOOLS ? 0 : l];"),
+    "the tools' stack reading layer 0's weights and operands in every layer": (
+        ("stack_layers.cu", "const StackLayer& L = p.layer[l];", "const StackLayer& L = p.layer[TOOLS ? 0 : l];"),
+        *(("stack_layers.cu", f"&maps.w[l][{i}]", f"&maps.w[TOOLS ? 0 : l][{i}]") for i in range(4))),
 }
 
 

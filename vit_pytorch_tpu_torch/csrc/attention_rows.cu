@@ -20,7 +20,7 @@
 // image; its query tiles come through two stages, the next one's copy in
 // flight while this one's products run.  With qk-norm the k rows are
 // normalised once a head, in shared memory, and each query tile as it
-// lands (the sum order of rms_norm_rows).  With dropout the block draws
+// lands (rms_norm_tile_sw: eight lanes a row).  With dropout the block draws
 // each query tile's keep bits (fill_keep_tile, the bits of dropout_masks).
 // A tile's output is cast to bf16 into its query stage and leaves by one
 // TMA store (rows past n clipped).  Shared memory is 16 KB of query stages

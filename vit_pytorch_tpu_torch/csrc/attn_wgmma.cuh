@@ -174,9 +174,10 @@ __device__ __forceinline__ void pv_issue(float (&o)[8][4], const uint32_t (&p)[4
   wgmma_commit();
 }
 
-// The qk-norm of a swizzled tile of ROWS rows in place (rms_norm_rows
-// through the swizzle: lane c of a row's 8 takes the row's logical 16-byte
-// chunk c, so the f32 sum order is rms_norm_rows' own).  All THREADS threads
+// The qk-norm of a swizzled tile of ROWS rows in place: lane c of a row's
+// 8 takes the row's logical 16-byte chunk c through the swizzle, adds its
+// eight squares in turn, and the shuffles add the lanes' sums
+// ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7)).  All THREADS threads
 // of the block; zero rows stay zero.  gamma: the head's 64 gammas (f32, or
 // bf16: the attention block's); with r, each row's rsqrt is stored there
 // (the backward's closing of the norm needs it).  (rms_norm_tile_sw_at: the

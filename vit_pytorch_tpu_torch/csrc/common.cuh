@@ -20,8 +20,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int kAttnQT = 64;        // query (or key) rows of a tile
 constexpr int kAttnThreads = 128;  // one warpgroup: 4 warps x 16 rows
 constexpr int kAttnDh = 64;
-constexpr int kAttnLd = kAttnDh + 8;  // the flash tiles' shared-memory row stride: 144 bytes, off the bank period
-constexpr int kAttnKT = 13;           // 16-row chunks of the padded sequence
+constexpr int kAttnKT = 13;        // 16-row chunks of the padded sequence
 
 // In-kernel dropout (the JAX package's _kernel / _bwd_kernel / dropout_masks,
 // ops/fused_block.py:150-222).  The TPU kernels seed the TPU PRNG per
@@ -58,23 +57,6 @@ inline int sm_count() {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
-}
-
-// 16 bytes, or 16 zero bytes when !valid (gmem is then not read)
-__device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10 rounds)
@@ -149,26 +131,9 @@ __device__ __forceinline__ void apply_keep(float v[4], const uint32_t* krow0, co
   v[3] = (b1 & 2u) ? v[3] * inv : 0.f;
 }
 
-// D = A(16x16, row) . B(16x8, col) + D, bf16 operands, f32 accumulators.
-// Fragment layout (g = lane / 4, t = lane % 4): A holds rows (g, g+8) x
-// columns (2t, 2t+1) and (2t+8, 2t+9); B holds k rows (2t, 2t+1) and
-// (2t+8, 2t+9) of column g; D holds rows (g, g+8) x columns (2t, 2t+1).
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // two neighbouring bf16 (the lower index in the low half), as one register
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
@@ -191,22 +156,6 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// B fragment (16 k x 8 n) of X^T, X row-major in shared memory with rows
-// indexed by n and columns by k: two contiguous pairs of row g
-__device__ __forceinline__ void load_b_frag_rows(uint32_t b[2], const bf16* p, int ld, int g, int t) {
-  const bf16* r = p + g * ld + 2 * t;
-  b[0] = ld_pair(r);
-  b[1] = ld_pair(r + 8);
-}
-
-// B fragment (16 k x 8 n) of X, X row-major in shared memory with rows
-// indexed by k and columns by n: column g, k rows (2t, 2t+1), (2t+8, 2t+9)
-__device__ __forceinline__ void load_b_frag_cols(uint32_t b[2], const bf16* p, int ld, int g, int t) {
-  const bf16* c = p + (2 * t) * ld + g;
-  b[0] = pack_bf16(c[0], c[ld]);
-  b[1] = pack_bf16(c[8 * ld], c[9 * ld]);
 }
 
 // Accumulator tiles 2j, 2j+1 (16 rows x 16 columns) as the A fragment of
@@ -243,45 +192,6 @@ __device__ __forceinline__ void load_gamma8(float g[8], const bf16* p) {
 __device__ __forceinline__ void load_gamma8(float g[8], const float* p) {
   const float4 lo = *reinterpret_cast<const float4*>(p), hi = *reinterpret_cast<const float4*>(p + 4);
   g[0] = lo.x, g[1] = lo.y, g[2] = lo.z, g[3] = lo.w, g[4] = hi.x, g[5] = hi.y, g[6] = hi.z, g[7] = hi.w;
-}
-
-// Normalise ROWS rows (64 bf16 each, leading dimension LD) of shared memory
-// in place.  All THREADS threads of the block, 8 to a row, each one 16-byte
-// chunk; the row's sum of squares is reduced over its 8 lanes by shuffles,
-// so ROWS * 8 is a multiple of the block and every lane takes part.  gamma:
-// the head's 64 gammas (bf16 or f32; device or shared memory).  With raw,
-// each row's input is copied there first (leading dimension LD); with r, its
-// rsqrt is stored there (the backward's closing of the norm needs both).
-template <int ROWS, int LD = kAttnLd, int THREADS = kAttnThreads, typename G = bf16>
-__device__ __forceinline__ void rms_norm_rows(bf16* rows, const G* __restrict__ gamma, bf16* raw, float* r) {
-  static_assert((ROWS * 8) % THREADS == 0, "8 lanes a row, every lane busy");
-  const int c = (threadIdx.x & 7) * 8;
-  float g8[8];
-  load_gamma8(g8, gamma + c);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) g8[i] *= kRmsRoot;
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
-    const int row = i >> 3;
-    bf16* p = rows + row * LD + c;
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    if (raw) *reinterpret_cast<uint4*>(raw + row * LD + c) = u;
-    float f[8];
-    unpack8(f, u);
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
-    const float rr = rsqrtf(ss + kRmsEps);
-    if (r && c == 0) r[row] = rr;
-    uint4 o;
-    uint32_t* po = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) po[j] = pack_floats(f[2 * j] * rr * g8[2 * j], f[2 * j + 1] * rr * g8[2 * j + 1]);
-    *reinterpret_cast<uint4*>(p) = o;
-  }
 }
 
 // the pairs of one row's 64 columns at the accumulator layout's columns
@@ -393,9 +303,14 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// cp.async writes shared memory through the generic proxy; wgmma reads it
-// through the async proxy
+// generic stores to shared memory, before wgmma or a TMA store reads them
+// through the async proxy (and TMA writes before generic reads)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// the same for global memory: a generic store before a TMA load of it, a
+// TMA store before a generic load, across the blocks of a grid barrier
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 // keep the compiler from moving accumulator reads across the async wgmma
 __device__ __forceinline__ void fence_operands(float* d, int n) {
 #pragma unroll

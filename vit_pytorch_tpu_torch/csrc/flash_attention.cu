@@ -130,7 +130,7 @@
 // refuses is neither loaded nor normalised), and in one f32 sum order an
 // operand in all three kernels: q^ in rms_norm_a_rows' (a quad of lanes a
 // row; flash_fwd's q fragments, rms_norm_tile_quads in the backward's
-// shared tiles), k^ in rms_norm_rows' (eight lanes a row; rms_norm_tile_sw).
+// shared tiles), k^ in rms_norm_tile_sw's (eight lanes a row).
 // Every product reads the normalised operands: dq = ds.k^, dk = ds^T.q^.
 // So dq and dk come out in normalised space, as the TPU kernels emit them;
 // the host closes the RMSNorm VJP, dgamma included
@@ -372,8 +372,8 @@ __device__ __forceinline__ void keep_to_a_frags(uint32_t (&f)[4][4], const float
 // the next.  The ring holds three stages, each a k and a v tile, their 64
 // key ids, with dropout their keep tile and with a bias its 64 x 64 tile.
 // With qk-norm q is normalised in registers once (rms_norm_a_rows), and
-// each k stage in place once it has landed (rms_norm_tile_sw, the order of
-// rms_norm_rows through the swizzle).
+// each k stage in place once it has landed (rms_norm_tile_sw: eight lanes
+// a row, through the swizzle).
 // ---------------------------------------------------------------------------
 
 // warpgroups a block (64 queries each, sharing the ring), by instantiation
@@ -740,8 +740,8 @@ __global__ void __launch_bounds__(kFlashThreads * fwd_wgs(kDropout, kQkNorm, kBi
 //
 // qk-norm: each operand is normalised once where it lives, in the order of
 // the forward kernel (suspect 6): q^ in rms_norm_a_rows' (a quad of lanes a
-// row, rms_norm_tile_quads), k^ in rms_norm_rows' (eight lanes a row,
-// rms_norm_tile_sw_at): the resident operand (q in flash_bwd_dq, k in
+// row, rms_norm_tile_quads), k^ in rms_norm_tile_sw_at's (eight lanes a
+// row): the resident operand (q in flash_bwd_dq, k in
 // flash_bwd_dkv) by its warpgroup once an item, each ring tile (k, or q) by
 // both consumers once it has landed, behind a barrier of the 256 and a
 // generic-to-async proxy fence (wgmma reads through the async proxy); one

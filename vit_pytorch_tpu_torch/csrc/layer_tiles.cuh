@@ -8,9 +8,8 @@
 //
 //   layernorm_row        one row of LN (one warp)
 //   epilogue_pair<EPI>   the arithmetic of a GEMM epilogue on one accumulator
-//                        pair: gemm_bf16.cu's kernel and gemm_tile share it
-//   gemm_tile<EPI>       one 128x128 output tile of A . W^T with an epilogue
-//                        (256 threads, two warpgroups): stack_layers' alone
+//                        pair: gemm_ring.cuh's consumer (gemm_bf16.cu's
+//                        kernel and stack_layers' GEMM steps) runs it
 //   attention_wg_tile    one 64-query tile of one head's softmax attention on
 //                        wgmma (one warpgroup), from q, k and v in shared
 //                        memory: attention_rows.cu's kernel and
@@ -67,10 +66,15 @@ __device__ __forceinline__ float gelu_tanh_grad(float h) {
 
 constexpr int kLnThreads = 256;
 
+// L2_ONLY: x was written by other blocks of the same launch (stack_layers'
+// steps), so its rows are read through L2 (ld.global.cg), never from a
+// stale line of this SM's L1
+template <bool L2_ONLY = false>
 __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                               const bf16* __restrict__ b, bf16* __restrict__ out, int row, int dim,
                                               float eps, int lane) {
   const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * dim);
+  const auto xload = [](const uint4* p) { return L2_ONLY ? __ldcg(p) : *p; };
   uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * dim);
   const uint4* wv = reinterpret_cast<const uint4*>(w);
   const uint4* bv = reinterpret_cast<const uint4*>(b);
@@ -78,7 +82,7 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
 
   float sum = 0.f;
   for (int v = lane; v < nvec; v += 32) {
-    uint4 u = xr[v];
+    uint4 u = xload(xr + v);
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -90,7 +94,7 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
 
   float sq = 0.f;
   for (int v = lane; v < nvec; v += 32) {
-    uint4 u = xr[v];
+    uint4 u = xload(xr + v);
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -101,7 +105,7 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
   const float rstd = rsqrtf(warp_sum(sq) / dim + eps);
 
   for (int v = lane; v < nvec; v += 32) {
-    uint4 u = xr[v], uw = wv[v], ub = bv[v], o;
+    uint4 u = xload(xr + v), uw = wv[v], ub = bv[v], o;
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
     const __nv_bfloat162* pw = reinterpret_cast<const __nv_bfloat162*>(&uw);
     const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&ub);
@@ -118,37 +122,15 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ x, const 
 }
 
 // ---------------------------------------------------------------------------
-// gemm_tile and the GEMM epilogues
-//
-// gemm_tile is the first port's GEMM tile, kept as stack_layers' GEMM step
-// (stack_layers.cu): the chain's gemm_bf16 (gemm_bf16.cu) is a TMA-fed,
-// warp-specialised, persistent kernel with the same main loop (the same
-// wgmma k16 steps in ascending k into f32 accumulators) and the same
-// epilogue_pair, so the two give the same bits, and the stack stays bitwise
-// the chain.
+// The GEMM epilogues
 //
 // Replaces: the four jnp.dot sites of ops/fused_block.py::_layer_kernel
-// (qkv :1015, out-proj :1040, fc1 :1046, fc2 :1048) with their epilogues.
-// Bound on this card: tensor-core throughput.  At ViT-B bs=128 (M = 25,216)
-// each output element takes 2*K flops against a few bytes, hundreds of flops
-// per byte, above the ridge; the fc1 (GELU) and out-proj (+x) epilogues
-// add a pass over a large output and bring those two sites close to it.
-// Design: C[M, N] = A[M, K] . W[N, K]^T with W as nn.Linear keeps it, (out,
-// in), so both operands are K-contiguous, which is the layout wgmma takes
-// for both, and no transpose is ever made.  128x128x64 block tiles; two
-// warpgroups each own 64 rows and issue one wgmma m64n128k16 per k16 step
-// from shared memory.  A 3-stage cp.async ring, one tile ahead, keeps one
-// group of wgmma in flight while the next tile lands.  That is 97 KB of
-// shared memory, so two blocks share an SM and one block's epilogue runs
-// under the other's main loop (measured: 128x256 tiles at one block an SM
-// were slower at every site, most at fc1).  Tiles are stored in
-// the 128-byte swizzle the wgmma descriptors name (16-byte chunk c of row r
-// at chunk c ^ (r % 8)), so the tensor cores read them without bank
-// conflicts.  N-tiles vary fastest over the grid: the blocks in flight share
-// one A row tile and sweep W, which stays in L2, so A streams from device
-// memory once.  M (= b*n) and N are ragged: loads clamp to the last row and
-// the epilogue masks the stores.  TMA, warp specialisation and a persistent
-// tile loop are later work.
+// (qkv :1015, out-proj :1040, fc1 :1046, fc2 :1048) with their epilogues,
+// and the other sites each epilogue's note names.
+// C[M, N] = A[M, K] . W[N, K]^T runs on gemm_ring.cuh's main loop (128 x 128
+// output tiles, k-tiles of kGemmBK; gemm_bf16.cu has the note on its bound
+// and design); epilogue_pair is the arithmetic of each site's epilogue on
+// one accumulator pair.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -190,24 +172,20 @@ struct BlockOutArgs {
 // backward ops/fused_block.py::_ff_bwd_kernel (:1553-1567) and of the
 // whole-layer backward _layer_bwd_kernel (:1229-1243).
 //  - kEpiFc1Save: h1 = bf16(bf16(y2 . W1^T) + b1), act = bf16(gelu_tanh(h1));
-//    both are stored (act to out, h1 to ff.aux), so the backward's GELU'
+//    both are stored (act to out, h1 to the aux map), so the backward's GELU'
 //    reads the exact bf16 h1 the forward's GELU took.
 //  - kEpiGeluBwd: dh1 = (g . W2) * gelu_tanh_grad(h1) in f32, with h1 read
 //    from res; bf16(dh1) to out, and db1 = sum over rows of the f32 dh1
 //    (:1566, before the cast): each block adds its 128 rows per column
 //    (within a thread, over the 8 lanes of a column by shuffles, then the 8
 //    warps in order through shared memory) into its row of the (row tiles,
-//    N) f32 buffer ff.colpart, which launch_column_sum adds in a fixed order.
+//    N) f32 buffer colpart, which launch_column_sum adds in a fixed order.
 // Bound on this card: tensor-core throughput (K = dim 768, N = mlp 3072 at
 // ViT-B), as fc1; the epilogues add one (M, N) bf16 store (fc1_save) or one
 // (M, N) bf16 read (gelu_bwd) to the product's bytes.
 // Design: the main loop unchanged; the dh1 column partials are one shuffle
-// tree and 4 KB of the pipeline's shared memory after the last product, so
-// db1 is bitwise deterministic and needs no atomics.
-struct FfArgs {
-  bf16* aux;      // kEpiFc1Save: h1 out
-  float* colpart; // kEpiGeluBwd: (ceil(M / 128), N) f32 column partials of dh1
-};
+// tree and 4 KB of the ring's shared memory after the last product, so db1
+// is bitwise deterministic and needs no atomics.
 
 // kEpiF32 (gemm_f32out) stores the f32 dot as it is.
 // Replaces: dh = dqkv . Wqkv^T of ops/fused_block.py::_bwd_kernel
@@ -268,152 +246,11 @@ __device__ __forceinline__ uint32_t epilogue_pair(float v0, float v1, int row, i
   }
 }
 
-// gemm_tile's store of one accumulator pair: the operands read from device
-// memory, epilogue_pair, the output (and kEpiFc1Save's h1) written there
-template <int EPI>
-__device__ __forceinline__ void gemm_store(float v0, float v1, int row, int col, int N, const bf16* __restrict__ bias,
-                                           const bf16* __restrict__ res, void* __restrict__ out,
-                                           const BlockOutArgs& bo, const FfArgs& ff) {
-  const size_t off = static_cast<size_t>(row) * N + col;
-  if constexpr (EPI == kEpiF32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(v0, v1);
-    return;
-  }
-  const float2 zero = make_float2(0.f, 0.f);
-  const bool has_res = (EPI == kEpiOut || EPI == kEpiFc2 || EPI == kEpiBlockOut) && res != nullptr;
-  const float2 bb = bias ? load_pair_f32(bias + col) : zero;
-  const float2 r = has_res ? load_pair_f32(res + off) : zero;
-  uint32_t h1 = 0u;
-  const uint32_t o = epilogue_pair<EPI>(v0, v1, row, col, bias != nullptr, bb, has_res, r, bo, &h1);
-  if constexpr (EPI == kEpiFc1Save) *reinterpret_cast<uint32_t*>(ff.aux + off) = h1;
-  *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = o;
-}
-
 // K-major operand descriptor, 128-byte swizzle: rows of 64 bf16 (128 B),
 // 8-row groups 1024 B apart
 __device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) { return wgmma_desc_sw128(p, 16, 1024); }
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64;
-// the stage a load fills must not be read by the wgmma group in flight
-constexpr int kGemmStages = 3, kGemmPrefetch = kGemmStages - 2;
-constexpr int kGemmThreads = 256;  // 2 warpgroups of 64 rows
-constexpr int kGemmATile = kGemmBM * kGemmBK, kGemmBTile = kGemmBN * kGemmBK;
-constexpr int kGemmSmem = kGemmStages * (kGemmATile + kGemmBTile) * static_cast<int>(sizeof(bf16)) + 1024;
-
-// One output tile, rows m0.. and columns n0.., by all kGemmThreads threads
-// of the block; smem holds kGemmSmem bytes.  A block that runs a second
-// tile must __syncthreads() first: the other warpgroup may still read the
-// ring.
-template <int EPI>
-__device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __restrict__ A, const bf16* __restrict__ W,
-                                          const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                                          void* __restrict__ out, int M, int N, int K, int m0, int n0,
-                                          const BlockOutArgs& bo, const FfArgs& ff) {
-  bf16* As = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
-  bf16* Bs = As + kGemmStages * kGemmATile;
-
-  const int tid = threadIdx.x, wg = tid >> 7, wwarp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // 16-byte chunk c of row r goes to chunk c ^ (r % 8): the 128-byte swizzle
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * kGemmBK;
-    bf16* as = As + stage * kGemmATile;
-    bf16* bs = Bs + stage * kGemmBTile;
-#pragma unroll
-    for (int i = 0; i < kGemmATile / 8 / kGemmThreads; ++i) {
-      const int q = tid + i * kGemmThreads, r = q >> 3, c = q & 7;
-      cp_async_16(as + r * kGemmBK + ((c ^ (r & 7)) << 3), A + static_cast<size_t>(min(m0 + r, M - 1)) * K + k0 + c * 8);
-    }
-#pragma unroll
-    for (int i = 0; i < kGemmBTile / 8 / kGemmThreads; ++i) {
-      const int q = tid + i * kGemmThreads, r = q >> 3, c = q & 7;
-      cp_async_16(bs + r * kGemmBK + ((c ^ (r & 7)) << 3), W + static_cast<size_t>(min(n0 + r, N - 1)) * K + k0 + c * 8);
-    }
-  };
-
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  fence_operands(d, 64);
-
-  const int ktiles = K / kGemmBK;
-#pragma unroll
-  for (int s = 0; s < kGemmPrefetch; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kGemmPrefetch - 1>();
-    fence_proxy_async();
-    __syncthreads();  // tile kt landed; every warpgroup is done with tile kt-2's stage
-    const int nk = kt + kGemmPrefetch;
-    if (nk < ktiles) load_tile(nk % kGemmStages, nk);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % kGemmStages) * kGemmATile + wg * 64 * kGemmBK;
-    const bf16* bs = Bs + (kt % kGemmStages) * kGemmBTile;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk)
-      wgmma_m64n128k16<0, 0>(d, wgmma_desc(as + kk * 16), wgmma_desc(bs + kk * 16));
-    wgmma_commit();
-    wgmma_wait<1>();  // tile kt-1's products are done; tile kt's stay in flight
-  }
-  wgmma_wait<0>();
-  fence_operands(d, 64);
-
-  // accumulator layout: warp w of the warpgroup holds rows 16w + (g, g+8),
-  // and d[4j..4j+3] their columns 8j + 2t, 8j + 2t + 1
-  if constexpr (EPI == kEpiGeluBwd) {
-    __syncthreads();  // both warpgroups' products are done: the ring's shared memory is free
-    float* colbuf = reinterpret_cast<float*>(As);  // [8 warps][128 columns]
-    const int warp8 = tid >> 5;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + j * 8 + 2 * t;  // N % 8 == 0: col < N is the same for the whole warp
-      float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
-        if (row < M && col < N) {
-          const size_t off = static_cast<size_t>(row) * N + col;
-          const float2 h = load_pair_f32(res + off);
-          const float2 v = make_float2(d[4 * j + 2 * half] * gelu_tanh_grad(h.x),
-                                       d[4 * j + 2 * half + 1] * gelu_tanh_grad(h.y));  // dh1 in f32
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) = pack_floats(v.x, v.y);
-          p0 += v.x;
-          p1 += v.y;
-        }
-      }
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {  // over g: the lanes of one column pair
-        p0 += __shfl_xor_sync(0xffffffffu, p0, o);
-        p1 += __shfl_xor_sync(0xffffffffu, p1, o);
-      }
-      if (g == 0) colbuf[warp8 * kGemmBN + j * 8 + 2 * t] = p0, colbuf[warp8 * kGemmBN + j * 8 + 2 * t + 1] = p1;
-    }
-    __syncthreads();
-    if (tid < kGemmBN && n0 + tid < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kGemmThreads / 32; ++w) s += colbuf[w * kGemmBN + tid];
-      ff.colpart[static_cast<size_t>(m0 / kGemmBM) * N + n0 + tid] = s;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + j * 8 + 2 * t;
-      if (col >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wg * 64 + wwarp * 16 + g + half * 8;
-        if (row < M)
-          gemm_store<EPI>(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], row, col, N, bias, res, out, bo, ff);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // attention_wg_tile
@@ -446,10 +283,9 @@ __device__ __forceinline__ void gemm_tile(unsigned char* smem, const bf16* __res
 //    from shared memory (its rows are the k axis), f32 accumulators.
 // No fragment is built from 16-bit shared loads, and each product is one
 // committed group.  The caller brings q, k, v in and takes o out:
-// attention_rows.cu's kernel loads a head's k and v once by the TMA for all
-// its query tiles; stack_layers' attention step loads them with generic
-// 16-byte loads (load_head_rows_sw).  Both run this body on the same tiles,
-// so the stack's attention is bitwise the chain's.
+// attention_rows.cu's kernel and stack_layers' attention step each load a
+// head's k and v once by the TMA for all its query tiles, and both run this
+// body on the same tiles, so the stack's attention is bitwise the chain's.
 // Limits: dh = 64; n <= 16 * 13 = 208, bounded by registers (8 KT logits and
 // 4 KT bf16 P fragments a thread).
 // ---------------------------------------------------------------------------
@@ -471,22 +307,6 @@ __host__ __device__ constexpr int attn_keep_words(int kt) { return (16 * kt + 31
 inline bool rows_map(CUtensorMap& map, const void* p, long long cols, long long rows, long long images, int box_rows) {
   const long long sizes[3] = {cols, rows, images}, strides[2] = {cols, rows * cols};
   return encode_map(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, sizes, strides, kAttnDh, box_rows);
-}
-
-// ROWS rows from r0 of one head's 64 columns (row stride `stride`) into a
-// swizzled tile, zero from row n on; 128 threads (tid their index among
-// them), 16-byte generic stores: a fence_proxy_async and a barrier of the
-// 128 must follow before wgmma reads the tile
-template <int ROWS>
-__device__ __forceinline__ void load_head_rows_sw(bf16* dst, const bf16* src, size_t stride, int r0, int n, int tid) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int c = tid; c < ROWS * (kAttnDh / 8); c += kAttnThreads) {
-    const int r = c / (kAttnDh / 8), d = (c % (kAttnDh / 8)) * 8;
-    uint4 v = zero;
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + d);
-    *reinterpret_cast<uint4*>(dst + sw_off(r, d)) = v;
-  }
 }
 
 // o = softmax(q.k^T * scale) v of one 64-query tile (qs: 64 swizzled rows;

@@ -67,9 +67,11 @@ same switches, read at call time (:1364-1386, :1619-1655), off by default:
 
 The JAX switch ``VIT_TPU_STACK_LAYERS=g`` (the port of ``_stack_kernel``,
 :1979) runs g consecutive layers' forward in one launch of ``stack_layers``
-(``csrc/stack_layers.cu``): a cooperative grid walks the chain's seven steps
-of every layer, each tile the chain's own body (``csrc/layer_tiles.cuh``),
-so the result is bitwise the chain's.  ``fused_transformer_stack`` takes it
+(``csrc/stack_layers.cu``): a cooperative grid of gemm_bf16's blocks walks
+the chain's seven steps of every layer, the GEMM steps on gemm_bf16's own
+main loop and epilogue (``csrc/gemm_ring.cuh``), the others on the chain's
+tile bodies (``csrc/layer_tiles.cuh``), so the result is bitwise the
+chain's.  ``fused_transformer_stack`` takes it
 outside autograd; under autograd it runs the per-layer Functions, as JAX's
 ``_fused_stack`` custom_vjp does.  Off by default, as in JAX.
 
@@ -107,8 +109,8 @@ ATTN_MAX_KEYS = 208  # 16 * kAttnKT: at most 13 key chunks of 16
 ATTN_KEY_CHUNKS = tuple(range(1, 14))
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # the GEMM entry points take at most 65535 row tiles of 128
-LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: 8 warps x 2 x dim f32 partial sums in shared memory
-LN_BWD_RES_MAX_DIM = 2416  # kLnBwdResMaxDim: the [res_f32] variant's 3 slices
+LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: the widest row layernorm_bwd_rows takes (its loop path past 1024)
+LN_BWD_RES_MAX_DIM = 2416  # kLnBwdResMaxDim: the [res_f32] variant's
 GEMM_BM = 128  # kGemmBM: rows of a gemm_bf16 block (gelu_bwd's column partials, one row a block)
 
 # the opt-in backwards of the whole layer, the JAX package's switches
