@@ -232,7 +232,45 @@ Phases, each printed as it ends:
      against its twin in turns, its bound and its library call; each of the
      ten counterparts against its twin; the tools' layer against
      fused_transformer_layer and make_stack(6) against its chain, in ms a
-     layer.
+     layer;
+ 36. the whole-layer chain at heads x dim_head != dim and at 9 to 65
+     tokens: every kernel of the layer, forward and backward, against its
+     twin (phases 3's and 6's bounds) and the layer's output and 12
+     gradients, at ViViT's spatial (b=128, n=65) and temporal (16, 9)
+     shapes and MAE's encoder (256, 16), all dim 1024 with 8 heads (inner
+     512), MAE's decoder (256, 64, dim 512) and config 1 (8, 65, dim 1024,
+     16 heads); attention_rows, gemm_bf16[block_out] and
+     attention_bwd_rows at ViViT's factorized self-attention calls (128 x
+     65 and 1,040 x 8); stack_layers (g = 6 at ViViT's spatial shape)
+     bitwise its chain of 42 launches, and its gate admitting the group;
+     two mutants of a chain that assumed inner == dim (gemm_bf16[out] at K
+     = dim, attention_rows at row stride 3 dim), each refused;
+ 37. ViViT (tools/bench_zoo.py:232-234: 128 x 128, 16 frames, frame patch
+     2, dim 1024, 6 + 6 layers, 8 heads, mlp 2048) behind buckets (1, 8,
+     16): exact counters (12 whole layers a forward), logits against plain
+     bf16 and fp32; a frame mask (the temporal layers on the composite: 6
+     whole layers); the factorized self-attention (24 attention blocks a
+     forward); 2 training steps at bs=16 through make_train_step (exact
+     counters, first-step loss and gradients against plain bf16 and fp32);
+ 38. MAE (tools/bench_zoo.py:250-253: encoder ViT 256/32, dim 1024, depth
+     6, heads 8; decoder_dim 512, depth 6; masking 0.75) at bs=256 with a
+     fixed permutation: 6 whole layers at (256, 16, 1024) and 6 at (256,
+     64, 512), exact counters, loss and gradients against plain bf16 and
+     fp32; 3 AdamW(1e-4) steps with permutations from a generator;
+ 39. MaxViT (tools/bench_zoo.py:219-221: stem 64, dim 96, dim_head 32,
+     depth (2, 2, 5, 2), window 7, 224 x 224) behind buckets (1, 8, 32,
+     128) with bf16 BatchNorm statistics: no launch, logits against fp32;
+     one train-mode forward and backward at dropout 0, bs=32, the updated
+     statistics and the gradients against fp32; MaxViT with registers
+     served the same way; config 1 (the README's ViT: 256/32, dim 1024,
+     depth 6, heads 16, mlp 2048) behind the buckets: exact counters,
+     logits against plain bf16 and fp32;
+ 40. their timing: MaxViT img/s at bs=128; config 1 img/s at bs=128 and
+     ViViT videos/s at bs=16, kernel against plain in turns; ViViT ms/step
+     at bs=16 and MAE ms/step at bs=256 with peak memory, kernel against
+     plain in turns; each chain kernel at ViViT's spatial and MAE's
+     encoder shapes against its twin, its bound and its library call,
+     each an entry of its own in the kernels line.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -243,6 +281,7 @@ Imports nothing of JAX.
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -748,24 +787,26 @@ def check_kernels(fb, rnd):
     return errs
 
 
-def layer_weights(rnd):
-    """Random bf16 operands of one ViT-B layer, the scales of phase 3."""
-    inner = HEADS * DH
+def layer_weights(rnd, dim=DIM, heads=HEADS, mlp=MLP):
+    """Random bf16 operands of one layer (ViT-B's by default), the scales of
+    phase 3."""
+    inner = heads * DH
     w = dict(
-        w_qkv=rnd(3 * inner, DIM, scale=DIM**-0.5), w_out=rnd(DIM, inner, scale=inner**-0.5),
-        ln1_scale=1 + rnd(DIM, scale=0.1), ln1_bias=rnd(DIM, scale=0.1),
-        ln2_scale=1 + rnd(DIM, scale=0.1), ln2_bias=rnd(DIM, scale=0.1),
-        w1=rnd(MLP, DIM, scale=DIM**-0.5), b1=rnd(MLP, scale=0.1),
-        w2=rnd(DIM, MLP, scale=MLP**-0.5), b2=rnd(DIM, scale=0.1),
+        w_qkv=rnd(3 * inner, dim, scale=dim**-0.5), w_out=rnd(dim, inner, scale=inner**-0.5),
+        ln1_scale=1 + rnd(dim, scale=0.1), ln1_bias=rnd(dim, scale=0.1),
+        ln2_scale=1 + rnd(dim, scale=0.1), ln2_bias=rnd(dim, scale=0.1),
+        w1=rnd(mlp, dim, scale=dim**-0.5), b1=rnd(mlp, scale=0.1),
+        w2=rnd(dim, mlp, scale=mlp**-0.5), b2=rnd(dim, scale=0.1),
     )
-    return w, dict(b_qkv=rnd(3 * inner, scale=0.1), b_out=rnd(DIM, scale=0.1))
+    return w, dict(b_qkv=rnd(3 * inner, scale=0.1), b_out=rnd(dim, scale=0.1))
 
 
-def layer_grads(layer, x, w, kw, g):
+def layer_grads(layer, x, w, kw, g, heads=HEADS):
     """Output and every operand gradient of one layer (``layer`` is the
-    kernel Function or its twin), for the cotangent ``g``."""
+    kernel Function or its twin; ``kw`` its optional biases by name), for
+    the cotangent ``g``."""
     leaves = [t.detach().clone().requires_grad_() for t in (x, *w.values(), *kw.values())]
-    out = layer(leaves[0], *leaves[1:11], heads=HEADS, dim_head=DH, b_qkv=leaves[11], b_out=leaves[12])
+    out = layer(leaves[0], *leaves[1:11], heads=heads, dim_head=DH, **dict(zip(kw, leaves[11:])))
     return out, torch.autograd.grad(out, leaves, g)
 
 
@@ -4616,6 +4657,791 @@ def time_tools(fb, dev, rnd, smi):
     return per_kernel, counts
 
 
+# -- BASELINE configs 4 and 5 and config 1 (phases 36-40) -------------------------
+# ViViT, MAE and MaxViT at the JAX package's bench configurations
+# (tools/bench_zoo.py:232-234, :250-253, :219-221) and BASELINE config 1 (the
+# README's ViT, BASELINE.json configs[0]).  ViViT's and MAE's transformers run
+# the whole-layer chain at heads x dim_head = 512 against dim = 1024, and at
+# 9, 16, 64 and 65 tokens; MaxViT's 49-token windows take the attention
+# composite (no kernel), as in the JAX package.
+VIVIT = dict(image_size=128, image_patch_size=16, frames=16, frame_patch_size=2, num_classes=1000, dim=1024,
+             spatial_depth=6, temporal_depth=6, heads=8, mlp_dim=2048)
+VIVIT_SHAPE = (3, 16, 128, 128)
+VIVIT_BS, VIVIT_BUCKETS, VIVIT_REQUESTS = 16, (1, 8, 16), (1, 5, 16)
+VIVIT_LAYERS = VIVIT["spatial_depth"] + VIVIT["temporal_depth"]
+VIVIT_TRAIN_STEPS = 2
+MAE_ENCODER = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=8, mlp_dim=2048)
+MAE_KW = dict(decoder_dim=512, decoder_depth=6, masking_ratio=0.75)
+MAE_BS, MAE_STEPS, MAE_LR = 256, 3, 1e-4
+MAE_PATCHES = (256 // 32) ** 2
+MAE_LAYERS = MAE_ENCODER["depth"] + MAE_KW["decoder_depth"]
+MAXVIT = dict(num_classes=1000, dim_conv_stem=64, dim=96, dim_head=32, depth=(2, 2, 5, 2), window_size=7, dropout=0.1)
+MAXVIT_BS, MAXVIT_TRAIN_BS = 128, 32
+CONFIG1 = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16, mlp_dim=2048)
+CONFIG1_N = (256 // 32) ** 2 + 1
+# phase 36: the chain's new shapes, (label, b, n, dim, heads, mlp)
+CHAIN_SHAPES = (
+    ("ViViT spatial", VIVIT_BS * 8, 65, 1024, 8, 2048),
+    ("ViViT temporal", VIVIT_BS, 9, 1024, 8, 2048),
+    ("MAE encoder", MAE_BS, 16, 1024, 8, 2048),
+    ("MAE decoder", MAE_BS, 64, 512, 8, 2048),
+    ("config 1", B_CHECK, CONFIG1_N, 1024, 16, 2048),
+)
+# the attention-block kernels at ViViT's factorized self-attention: spatial
+# (b f, 65) and temporal (b 65, 8) calls, dim 1024, 8 heads
+BLOCK_SHAPES = (("FSA spatial", VIVIT_BS * 8, 65), ("FSA temporal", VIVIT_BS * 65, 8))
+STACK_NEW = ("ViViT spatial", VIVIT_BS * 8, 65, 1024, 8, 2048, 6)  # g = 6, the spatial transformer's depth
+# the shapes whose every chain kernel is an entry of its own in the kernels line
+ENTRY_SHAPES = ("ViViT spatial", "MAE encoder")
+CHAIN_FWD = ("layernorm_rows", "gemm_bf16[qkv]", "attention_rows", "gemm_bf16[out]", "gemm_bf16[fc1]",
+             "gemm_bf16[fc2]")
+CHAIN_BWD = ("attention_bwd_rows", "gemm_f32out", "layernorm_bwd_rows")
+# MAE's loss is a bf16 mean, so it carries one rounding of 2^-8 relative:
+# its bound is 2 bf16 ulps; the gradients' those of phase 7
+MAE_VS_PLAIN = dict(loss=2.0**-7, grads=3e-2, worst=5e-2)
+MAE_VS_FP32 = dict(loss=2.0**-7, grads=3e-2, worst=5e-2)
+# MaxViT has no kernel: its bf16 path is plain PyTorch, held to fp32 only.
+# Its bf16 gradients are far from its fp32 ones by the model's own numerics,
+# on the JAX side as on the port's (tests/test_torch_max_vit.py::
+# test_bf16_gradients_deviate_from_fp32_as_jax_does): at this configuration
+# all gradients together read 0.157 rel L2 (H100 80GB HBM3, 700 W), and a
+# per-parameter bound means nothing where a bias adds a per-channel
+# constant right before a train-mode BatchNorm (a zero gradient in exact
+# arithmetic: rounding noise on both paths).  Bounds: the loss and the
+# updated statistics ~5x their readings (2.1e-4, 2.2e-3), all gradients
+# together ~2x, no per-parameter bound
+MAXVIT_LOGITS_VS_FP32 = 5e-2
+MAXVIT_TRAIN_VS_FP32 = dict(loss=1e-3, grads=0.3, worst=math.inf)
+MAXVIT_STATS_VS_FP32 = 1e-2
+
+
+def chain_weights(rnd, dim, heads, mlp):
+    """One layer's operands at these widths (:func:`layer_weights`) and its
+    b_out; no qkv bias, as ViViT's, MAE's and the ViT's layers have none."""
+    w, kw = layer_weights(rnd, dim, heads, mlp)
+    return w, kw["b_out"]
+
+
+def refused(name, got, want, atol, rtol, max_rel_l2, atol_frac=None):
+    """Whether :func:`compare` refuses ``got``, a mutant's output, logged."""
+    if atol_frac is not None:
+        atol = atol_frac * want.float().abs().max().item()
+    d = (got.float() - want.float()).abs()
+    ok = (bool(torch.isfinite(got).all()) and bool((d <= atol + rtol * want.float().abs()).all())
+          and rel_l2(got, want) <= max_rel_l2)
+    log(f"  mutant {name}: max_abs={d.max().item():.4e} rel L2={rel_l2(got, want):.3e} "
+        f"{'PASSES the check' if ok else 'refused'}")
+    return not ok
+
+
+def check_chain_shape(fb, rnd, label, b, n, dim, heads, mlp):
+    """Every chain kernel, forward and backward, against its twin at one
+    shape, and the layer's output and 12 gradients: phase 3's and 6's
+    bounds.  Returns {kernel: max_abs}."""
+    inner = heads * DH
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    w, b_out = chain_weights(rnd, dim, heads, mlp)
+    x = rnd(b, n, dim)
+    tag = f"[{label}]"
+    errs = {}
+    keep = lambda name, e: errs.__setitem__(name, max(errs.get(name, 0.0), e))
+    with torch.inference_mode():
+        h = fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"])
+        keep("layernorm_rows", compare(f"layernorm_rows ln1 {tag}", fb.layernorm_rows(x, w["ln1_scale"],
+                                       w["ln1_bias"]), h, KERNEL_ATOL, KERNEL_RTOL))
+        qkv = fb.gemm_bf16_reference(h, w["w_qkv"], "qkv")
+        keep("gemm_bf16[qkv]", compare(f"gemm_bf16[qkv] {tag}", fb.gemm_bf16(h, w["w_qkv"], "qkv"), qkv,
+                                       KERNEL_ATOL, KERNEL_RTOL))
+        m = fb.attention_rows_reference(qkv, **akw)
+        keep("attention_rows", compare(f"attention_rows {tag}", fb.attention_rows(qkv, **akw), m, ATTN_ATOL,
+                                       ATTN_RTOL))
+        y = fb.gemm_bf16_reference(m, w["w_out"], "out", bias=b_out, residual=x)
+        keep("gemm_bf16[out]", compare(f"gemm_bf16[out] {tag}", fb.gemm_bf16(m, w["w_out"], "out", bias=b_out,
+                                       residual=x), y, KERNEL_ATOL, KERNEL_RTOL))
+        h2 = fb.layernorm_rows_reference(y, w["ln2_scale"], w["ln2_bias"])
+        keep("layernorm_rows", compare(f"layernorm_rows ln2 {tag}", fb.layernorm_rows(y, w["ln2_scale"],
+                                       w["ln2_bias"]), h2, KERNEL_ATOL, KERNEL_RTOL))
+        a = fb.gemm_bf16_reference(h2, w["w1"], "fc1", bias=w["b1"])
+        keep("gemm_bf16[fc1]", compare(f"gemm_bf16[fc1] {tag}", fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"]), a,
+                                       KERNEL_ATOL, KERNEL_RTOL))
+        keep("gemm_bf16[fc2]", compare(f"gemm_bf16[fc2] {tag}", fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"],
+                                       residual=y), fb.gemm_bf16_reference(a, w["w2"], "fc2", bias=w["b2"],
+                                                                           residual=y), KERNEL_ATOL, KERNEL_RTOL))
+        lkw = dict(heads=heads, dim_head=DH, b_out=b_out)
+        compare(f"fused_transformer_layer {tag}", fb.fused_transformer_layer(x, **w, **lkw),
+                fb.layer_reference(x, **w, **lkw), LAYER_ATOL, LAYER_RTOL)
+        sync()
+        # the backward's launches: dm = dy . W_out (K = dim, N = inner), the
+        # attention backward, dh = dqkv . W_qkv (K = 3 inner, N = dim), LN1's backward
+        dy = rnd(b, n, dim)
+        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+        dm = fb.gemm_bf16_reference(dy, w_out_t, "cast")
+        compare(f"gemm_bf16[cast] dm {tag}", fb.gemm_bf16(dy, w_out_t, "cast"), dm, KERNEL_ATOL, KERNEL_RTOL)
+        keep("attention_bwd_rows", check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, label))
+        dqkv = fb.attention_bwd_rows_reference(qkv, dm, **akw)[1]
+        dh = fb.gemm_f32out_reference(dqkv, w_qkv_t)
+        keep("gemm_f32out", compare(f"gemm_f32out [dh] {tag}", fb.gemm_f32out(dqkv, w_qkv_t), dh, None, F32_RTOL,
+                                    F32_REL_L2, atol_frac=F32_ATOL_FRAC))
+        got = fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy)
+        want = fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy)
+        keep("layernorm_bwd_rows", max(
+            compare(f"layernorm_bwd_rows dx {tag}", got[0], want[0], KERNEL_ATOL, KERNEL_RTOL),
+            compare(f"layernorm_bwd_rows dgamma {tag}", got[1], want[1], None, F32_RTOL, F32_REL_L2,
+                    atol_frac=F32_ATOL_FRAC),
+            compare(f"layernorm_bwd_rows dbeta {tag}", got[2], want[2], None, F32_RTOL, F32_REL_L2,
+                    atol_frac=F32_ATOL_FRAC)))
+        sync()
+    g = rnd(b, n, dim)
+    out, grads = layer_grads(fb.fused_transformer_layer, x, w, {"b_out": b_out}, g, heads)
+    out_want, grads_want = layer_grads(fb.layer_reference, x, w, {"b_out": b_out}, g, heads)
+    compare(f"fused_transformer_layer (out, autograd) {tag}", out, out_want, LAYER_ATOL, LAYER_RTOL)
+    for name, a_, b_ in zip(("x", *w, "b_out"), grads, grads_want):
+        compare(f"layer grad d{name} {tag}", a_, b_, None, KERNEL_RTOL, LAYER_GRAD_REL_L2,
+                atol_frac=LAYER_GRAD_ATOL_FRAC)
+    sync()
+    if label == STACK_NEW[0]:
+        check_stack_new(fb, rnd, x, heads, mlp)
+        check_chain_mutants(fb, x, w, b_out, m, qkv, y, heads)
+    return errs
+
+
+def check_stack_new(fb, rnd, x, heads, mlp):
+    """stack_layers at inner != dim: g layers in one launch bitwise the chain
+    of 7g launches, and the gate admits the group."""
+    label, b, n, dim, _, _, g = STACK_NEW
+    layers = []
+    for _ in range(g):
+        w, b_out = chain_weights(rnd, dim, heads, mlp)
+        layers.append((w["w_qkv"], None, w["w_out"], b_out, w["ln1_scale"], w["ln1_bias"], w["ln2_scale"],
+                       w["ln2_bias"], w["w1"], w["b1"], w["w2"], w["b2"]))
+    step = lambda ops, t, lw: fb._layer_forward(ops, t, *lw, heads, DH, DH**-0.5, fb.LN_EPS)[0]
+    with torch.inference_mode():
+        got = fb.stack_layers(x, layers, heads=heads, dim_head=DH, scale=DH**-0.5)
+        chain_in = x
+        for lw in layers[:-1]:
+            chain_in = step(fb.KERNELS, chain_in, lw)
+        chain = step(fb.KERNELS, chain_in, layers[-1])
+        last = step(fb.TWINS, chain_in, layers[-1])
+        twin = fb.stack_layers_reference(x, layers, heads=heads, dim_head=DH, scale=DH**-0.5)
+    same = torch.equal(got, chain)
+    log(f"  stack_layers[{label}: g={g} b={b} n={n} dim={dim} inner={heads * DH}] vs the chain of {7 * g} launches: "
+        f"{'bitwise' if same else 'DIFFERS'}")
+    if not same:
+        fail(f"stack_layers at inner != dim ({label}) differs from its chain")
+    # phase 31's bounds: the last layer's step against the twin's on the
+    # same input, the whole stack against the twins' chain within g times
+    compare(f"stack_layers [{label}] vs twin step", got, last, LAYER_ATOL, LAYER_RTOL)
+    compare(f"stack_layers [{label}] vs twin chain", got, twin, g * LAYER_ATOL, LAYER_RTOL, g * KERNEL_REL_L2)
+    with env_switch({"VIT_TPU_STACK_LAYERS": str(g)}, STACK_KEYS):
+        group = fb.whole_layer_stack_group(x.shape, x.dtype, heads, DH, dim, mlp, g)
+    log(f"  whole_layer_stack_group at {tuple(x.shape)}, inner {heads * DH}, VIT_TPU_STACK_LAYERS={g}: {group}")
+    if group != g:
+        fail(f"the stack gate refuses {label} though stack_layers is bitwise its chain there")
+    sync()
+
+
+def check_chain_mutants(fb, x, w, b_out, m, qkv, y, heads):
+    """Two mutants of a chain that assumed inner == dim, each refused by
+    this phase's bounds: the out projection reading the merged heads at
+    K = dim (row stride dim instead of inner: gemm_bf16[out] with K = dim on
+    m's packed buffer), and attention_rows reading qkv at row stride 3 dim
+    and writing dim columns."""
+    b, n, dim = x.shape
+    inner = heads * DH
+    rows = b * n
+    with torch.inference_mode():
+        buf = torch.zeros(rows * dim, dtype=m.dtype, device=m.device)
+        buf[: rows * inner] = m.reshape(-1)
+        w_wide = torch.zeros(dim, dim, dtype=m.dtype, device=m.device)
+        w_wide[:, :inner] = w["w_out"]
+        got = fb.gemm_bf16(buf.view(b, n, dim), w_wide, "out", bias=b_out, residual=x)
+        out_refused = refused("gemm_bf16[out] at K = dim", got, y, KERNEL_ATOL, KERNEL_RTOL, KERNEL_REL_L2)
+        buf = torch.zeros(rows * 3 * dim, dtype=qkv.dtype, device=qkv.device)
+        buf[: rows * 3 * inner] = qkv.reshape(-1)
+        wide = fb.attention_rows(buf.view(b, n, 3 * dim), heads=dim // DH, dim_head=DH, scale=DH**-0.5)
+        got = wide.reshape(-1)[: rows * inner].view(b, n, inner)
+        attn_refused = refused("attention_rows at row stride 3 dim", got,
+                               fb.attention_rows_reference(qkv, heads=heads, dim_head=DH, scale=DH**-0.5),
+                               ATTN_ATOL, ATTN_RTOL, KERNEL_REL_L2)
+    sync()
+    if not (out_refused and attn_refused):
+        fail("phase 36 passes a chain that assumed inner == dim")
+
+
+def check_block_shapes(fb, rnd):
+    """attention_rows, gemm_bf16[block_out] and attention_bwd_rows at ViViT's
+    factorized self-attention calls (dim 1024, 8 heads, inner 512)."""
+    dim, heads = VIVIT["dim"], VIVIT["heads"]
+    inner = heads * DH
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    errs = {}
+    w_out, b_out = rnd(dim, inner, scale=inner**-0.5), rnd(dim, scale=0.1)
+    with torch.inference_mode():
+        for label, b, n in BLOCK_SHAPES:
+            qkv, dm = rnd(b, n, 3 * inner), rnd(b, n, inner)
+            m = fb.attention_rows_reference(qkv, **akw)
+            errs[f"attention_rows @ {label}"] = compare(f"attention_rows [{label}: b={b} n={n}]",
+                                                        fb.attention_rows(qkv, **akw), m, ATTN_ATOL, ATTN_RTOL)
+            for res in (None, rnd(b, n, dim)):
+                okw = dict(bias=b_out, residual=res)
+                errs[f"gemm_bf16[block_out] @ {label}"] = compare(
+                    f"gemm_bf16[block_out{'' if res is None else ', +x'}] [{label}]",
+                    fb.gemm_bf16(m, w_out, "block_out", **okw), fb.gemm_bf16_reference(m, w_out, "block_out", **okw),
+                    KERNEL_ATOL, KERNEL_RTOL, BLOCK_OUT_REL_L2)
+            errs[f"attention_bwd_rows @ {label}"] = check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, label)
+            sync()
+    return errs
+
+
+def check_chain_new_shapes(fb, dev):
+    """Phase 36: the chain at inner != dim and at 9, 16, 64, 65 tokens;
+    returns {f"{kernel} @ {label}": max_abs}."""
+    log(f"[36 chain at new shapes] (label, b, n, dim, heads, mlp) in {CHAIN_SHAPES}, dh={DH}, bf16")
+    own = edge_rnd(SEED + 36)
+    errs = {}
+    for label, b, n, dim, heads, mlp in CHAIN_SHAPES:
+        for name, e in check_chain_shape(fb, own, label, b, n, dim, heads, mlp).items():
+            errs[f"{name} @ {label}"] = e
+    errs.update(check_block_shapes(fb, own))
+    return errs
+
+
+def vivit_model(dev, dtype, variant="factorized_encoder", **kw):
+    """ViViT at tools/bench_zoo.py:232-234's configuration, random weights
+    from SEED, initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch.models.vivit import ViViT
+
+    return ViViT(**VIVIT, variant=variant, **kw, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def served_vs(what, got, plain, fp32, bound_plain, bound_fp32):
+    e_plain = None if plain is None else rel_l2(got, plain)
+    e_fp32 = rel_l2(got, fp32)
+    ok = (plain is None or e_plain <= bound_plain) and e_fp32 <= bound_fp32
+    note = "" if plain is None else f"vs plain bf16 {e_plain:.4e} (bound {bound_plain}), "
+    log(f"  {what}: rel L2 {note}vs fp32 {e_fp32:.4e} (bound {bound_fp32}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{what} disagree with the plain path or fp32")
+
+
+def check_vivit(fb, fa, dev):
+    """Phase 37: ViViT served behind buckets (the factorized encoder; 12
+    whole layers a forward: exact counters), with a frame mask (the
+    temporal layers on the composite: 6 whole layers), the factorized
+    self-attention (24 attention blocks a forward), and 2 training steps
+    through make_train_step.  Returns the launch counts of the serving
+    requests, of the factorized self-attention's and of the training
+    steps, and the served Predictor and videos for phase 40."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    bf16 = torch.bfloat16
+    log(f"[37 ViViT] {VIVIT}, bf16, random weights (seed {SEED}), buckets {VIVIT_BUCKETS}")
+    vgen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    fp32 = vivit_model(dev, torch.float32).eval()
+    pred = Predictor(fp32, example_shape=VIVIT_SHAPE, batch_sizes=VIVIT_BUCKETS, device=dev).warmup()
+    videos = {k: torch.randn(k, *VIVIT_SHAPE, generator=vgen, device=dev) for k in VIVIT_REQUESTS}
+    runs = sum(-(-k // VIVIT_BUCKETS[-1]) for k in VIVIT_REQUESTS)
+    reset_all(fb, fa)
+    outs = {k: pred(videos[k]) for k in VIVIT_REQUESTS}
+    sync()
+    serve_counts = expect_launches(fb, fa, {k: VIVIT_LAYERS * v * runs for k, v in LAUNCHES_PER_LAYER.items()},
+                                   f"ViViT serving ({VIVIT_LAYERS} layers x 7 launches x {runs} runs)")
+    gemm = {site: fb.GEMM_LAUNCHES[site] for site in GEMM_SITES}
+    log(f"  gemm_bf16 by site {gemm}")
+    if any(v != VIVIT_LAYERS * runs for v in gemm.values()):
+        fail("ViViT serving did not launch each GEMM site once a layer")
+    serve_counts = {**serve_counts, **{f"gemm_bf16[{s}]": v for s, v in gemm.items()}}
+    for k, out in outs.items():
+        if out.shape != (k, 1000) or not bool(torch.isfinite(out).all()):
+            fail(f"ViViT request of {k} videos: shape {tuple(out.shape)}")
+    k = VIVIT_BS
+    x16 = videos[k].to(bf16)
+    mask = torch.ones(k, VIVIT["frames"], dtype=torch.bool, device=dev)
+    mask[::2, 12:] = False  # every other video's last 4 frames (2 frame patches) masked
+    with torch.inference_mode():
+        with plain_layers():
+            plain, plain_m = pred.model(x16), pred.model(x16, mask=mask)
+        want, want_m = fp32(videos[k]), fp32(videos[k], mask=mask)
+        served_vs(f"logits of the {k}-video request", outs[k], plain, want, LOGITS_VS_PLAIN_BF16, LOGITS_VS_FP32)
+        reset_all(fb, fa)
+        got_m = pred.model(x16, mask=mask)
+        sync()
+        expect_launches(fb, fa, {n_: VIVIT["spatial_depth"] * v for n_, v in LAUNCHES_PER_LAYER.items()},
+                        "ViViT with a frame mask (the spatial layers alone)")
+        served_vs("logits with the frame mask", got_m, plain_m, want_m, LOGITS_VS_PLAIN_BF16, LOGITS_VS_FP32)
+        if rel_l2(got_m, outs[k]) < 1e-3:
+            fail("the frame mask did not change the logits")
+    del plain, plain_m, want, want_m, got_m
+
+    log("  factorized self-attention at the same widths, bucket 16")
+    fsa32 = vivit_model(dev, torch.float32, "factorized_self_attention").eval()
+    fsa = Predictor(fsa32, example_shape=VIVIT_SHAPE, batch_sizes=(VIVIT_BS,), device=dev)
+    reset_all(fb, fa)
+    out = fsa(videos[k])
+    sync()
+    fsa_counts = expect_launches(fb, fa, {n_: 2 * VIVIT["spatial_depth"] * v for n_, v in BLOCK_FWD_LAUNCHES.items()},
+                                 "ViViT factorized self-attention (2 attention blocks a layer)")
+    with torch.inference_mode():
+        with plain_layers():
+            plain = fsa.model(x16)
+        served_vs("factorized self-attention logits", out, plain, fsa32(videos[k]), LOGITS_VS_PLAIN_BF16,
+                  LOGITS_VS_FP32)
+    del fsa, fsa32, plain, out
+    sync()
+
+    log(f"  training: bs={VIVIT_BS}, dropout 0, {VIVIT_TRAIN_STEPS} Adam steps through make_train_step")
+    t32 = vivit_model(dev, torch.float32)
+    model = copy.deepcopy(t32).to(bf16)
+    initial = copy.deepcopy(model)
+    names = [n_ for n_, _ in model.named_parameters()]
+    labels = torch.randint(0, 1000, (k,), generator=vgen, device=dev)
+    state, step = create_train_state(model), make_train_step(model)
+    reset_all(fb, fa)
+    losses = []
+    for i in range(VIVIT_TRAIN_STEPS):
+        losses.append(step(state, x16, labels)["loss"].item())
+        if i == 0:
+            grads = grad_vector(model)
+    sync()
+    train_counts = expect_launches(fb, fa, {n_: VIVIT_LAYERS * v * VIVIT_TRAIN_STEPS
+                                            for n_, v in TRAIN_LAUNCHES_PER_LAYER.items()}, "ViViT training")
+    log(f"  losses {[f'{v:.6f}' for v in losses]}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail("the ViViT training loss is not finite or does not fall")
+    plain = copy.deepcopy(initial)
+    reset_all(fb, fa)
+    with plain_layers():
+        loss_plain = make_train_step(plain)(create_train_state(plain), x16, labels)["loss"].item()
+    sync()
+    expect_launches(fb, fa, {}, "the plain ViViT step")
+    compare_grads("ViViT first step vs plain bf16", grads, grad_vector(plain), losses[0], loss_plain, TRAIN_VS_PLAIN,
+                  names)
+    loss_fp32 = make_train_step(t32)(create_train_state(t32), videos[k], labels)["loss"].item()
+    compare_grads("ViViT first step vs fp32", grads, grad_vector(t32), losses[0], loss_fp32, TRAIN_VS_FP32, names)
+    del t32, plain, initial, state, step
+    sync()
+    return serve_counts, fsa_counts, train_counts, dict(pred=pred, videos=x16, model=model, labels=labels)
+
+
+def mae_model(dev, dtype):
+    """MAE at tools/bench_zoo.py:250-253's configuration (encoder ViT
+    256/32, dim 1024, depth 6, heads 8, mlp 2048; decoder_dim 512, depth 6,
+    masking 0.75), random weights from SEED, initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch import MAE, ViT
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    encoder = ViT(**MAE_ENCODER, device=dev, generator=gen)
+    return MAE(encoder=encoder, **MAE_KW, device=dev, generator=gen).to(dtype)
+
+
+def trained_grads(model):
+    """Names and f32 copies of the gradients of the parameters that have one
+    (MAE never reads its encoder's cls token and head)."""
+    pairs = [(n, p.grad.detach().float().clone()) for n, p in model.named_parameters() if p.grad is not None]
+    return [n for n, _ in pairs], [g for _, g in pairs]
+
+
+@contextlib.contextmanager
+def layer_shapes():
+    """Record the x shape of every whole-layer call of the model path."""
+    from vit_pytorch_tpu_torch.nn import blocks
+
+    calls, orig = [], blocks.fused_transformer_layer
+
+    def spy(x, *args, **kwargs):
+        calls.append(tuple(x.shape))
+        return orig(x, *args, **kwargs)
+
+    blocks.fused_transformer_layer = spy
+    try:
+        yield calls
+    finally:
+        blocks.fused_transformer_layer = orig
+
+
+def check_mae(fb, fa, dev):
+    """Phase 38: MAE pretraining at bs=256 with a fixed permutation: the
+    encoder's 6 layers at (256, 16, 1024) and the decoder's at (256, 64,
+    512) on the whole-layer kernels (exact counters), the loss and every
+    gradient against the plain bf16 path and fp32, then AdamW(1e-4) steps
+    with permutations drawn from a generator.  Returns the launch counts of
+    the kernel path's step, and the model and batch for phase 40."""
+    bf16 = torch.bfloat16
+    log(f"[38 MAE] encoder {MAE_ENCODER}, {MAE_KW}, bf16, random weights (seed {SEED}); bs={MAE_BS}")
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    fp32 = mae_model(dev, torch.float32)
+    model = copy.deepcopy(fp32).to(bf16)
+    plain = copy.deepcopy(model)
+    size = MAE_ENCODER["image_size"]
+    img = torch.randn(MAE_BS, 3, size, size, generator=mgen, device=dev)
+    idx = torch.rand((MAE_BS, MAE_PATCHES), generator=mgen, device=dev).argsort(dim=-1)
+    reset_all(fb, fa)
+    with layer_shapes() as shapes:
+        loss = model(img.to(bf16), rand_indices=idx)
+        loss.backward()
+    sync()
+    counts = expect_launches(fb, fa, {k: MAE_LAYERS * v for k, v in TRAIN_LAUNCHES_PER_LAYER.items()},
+                             f"MAE ({MAE_LAYERS} layers x 13 launches)")
+    counts = {**counts, **{f"gemm_bf16[{site}]": fb.GEMM_LAUNCHES[site] for site in GEMM_SITES}}
+    enc_shape, dec_shape = (MAE_BS, MAE_PATCHES // 4, 1024), (MAE_BS, MAE_PATCHES, MAE_KW["decoder_dim"])
+    log(f"  whole-layer calls: {shapes.count(enc_shape)} at the encoder's {enc_shape}, {shapes.count(dec_shape)} at "
+        f"the decoder's {dec_shape}, {len(shapes)} in all")
+    if shapes != [enc_shape] * MAE_ENCODER["depth"] + [dec_shape] * MAE_KW["decoder_depth"]:
+        fail("MAE's encoder and decoder did not run every layer on the kernels")
+    names, grads = trained_grads(model)
+    reset_all(fb, fa)
+    with plain_layers():
+        loss_plain = plain(img.to(bf16), rand_indices=idx)
+        loss_plain.backward()
+    sync()
+    expect_launches(fb, fa, {}, "the plain MAE step")
+    loss32 = fp32(img, rand_indices=idx)
+    loss32.backward()
+    pnames, pgrads = trained_grads(plain)
+    fnames, fgrads = trained_grads(fp32)
+    if pnames != names or fnames != names:
+        fail("MAE: the paths differ in which parameters have gradients")
+    compare_grads("MAE step vs plain bf16", grads, pgrads, loss.item(), loss_plain.item(), MAE_VS_PLAIN, names)
+    compare_grads("MAE step vs fp32", grads, fgrads, loss.item(), loss32.item(), MAE_VS_FP32, names)
+    del plain, fp32, pgrads, fgrads
+    opt = torch.optim.AdamW([p for p in model.parameters()], lr=MAE_LR, weight_decay=1e-4)  # optax.adamw(1e-4)
+    losses = []
+    x16 = img.to(bf16)
+    for _ in range(MAE_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = model(x16, generator=mgen)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    sync()
+    log(f"  AdamW(lr={MAE_LR}) steps, permutations from a generator: losses {[f'{v:.6f}' for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        fail("the MAE loss is not finite")
+    return counts, dict(model=model, opt=opt, img=x16, gen=mgen)
+
+
+def maxvit_model(dev, dtype, registers=False, **kw):
+    """MaxViT (or MaxViT with registers) at tools/bench_zoo.py:219-221's
+    configuration, random weights from SEED, initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch.models import max_vit, max_vit_with_registers
+
+    cls = (max_vit_with_registers if registers else max_vit).MaxViT
+    cfg = {**MAXVIT, **kw}
+    return cls(**cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def bn_stats(model):
+    return torch.cat([b.detach().float().reshape(-1) for n, b in model.named_buffers() if "running" in n])
+
+
+def check_maxvit_config1(fb, fa, dev):
+    """Phase 39: MaxViT served behind buckets with bf16 BatchNorm statistics
+    (no launch), against fp32; one train-mode forward and backward at
+    dropout 0, its updated statistics and gradients against fp32; MaxViT
+    with registers served; config 1 served behind buckets (6 whole layers a
+    forward) against plain bf16 and fp32.  Returns config 1's serving
+    counts and the served Predictors for phase 40."""
+    from vit_pytorch_tpu_torch import ViT
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    bf16 = torch.bfloat16
+    xgen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    images = {k: torch.randn(k, 3, 224, 224, generator=xgen, device=dev) for k in REQUESTS}
+    runs = sum(-(-k // BUCKETS[-1]) for k in REQUESTS)
+    served = {}
+    for registers in (False, True):
+        what = "MaxViT with registers" if registers else "MaxViT"
+        log(f"[39 {what}] {MAXVIT}, bf16 (BatchNorm statistics too), random weights (seed {SEED}), "
+            f"buckets {BUCKETS}")
+        fp32 = maxvit_model(dev, torch.float32, registers).eval()
+        pred = Predictor(fp32, example_shape=(3, 224, 224), batch_sizes=BUCKETS, device=dev).warmup()
+        stats = [b.dtype for n, b in pred.model.named_buffers() if "running" in n]
+        log(f"  {len(stats)} BatchNorm statistics, dtypes {sorted({str(d) for d in stats})}")
+        if not stats or any(d != bf16 for d in stats):
+            fail(f"{what}: the served BatchNorm statistics are not bf16")
+        reset_all(fb, fa)
+        outs = {k: pred(images[k]) for k in REQUESTS}
+        sync()
+        expect_launches(fb, fa, {}, f"{what} serving (49-token windows: the composite)")
+        for k, out in outs.items():
+            if out.shape != (k, 1000) or not bool(torch.isfinite(out).all()):
+                fail(f"{what} request of {k} images: shape {tuple(out.shape)}")
+        with torch.inference_mode():
+            served_vs(f"{what} logits of the 32-image request", outs[32], None, fp32(images[32]), None,
+                      MAXVIT_LOGITS_VS_FP32)
+        served[what] = pred
+        del fp32, outs
+    sync()
+
+    log(f"  MaxViT train-mode forward and backward, dropout 0, bs={MAXVIT_TRAIN_BS}, bf16 against fp32")
+    m32 = maxvit_model(dev, torch.float32, dropout=0.0).train()
+    m16 = copy.deepcopy(m32).to(bf16)
+    names = [n for n, _ in m32.named_parameters()]
+    x = torch.randn(MAXVIT_TRAIN_BS, 3, 224, 224, generator=xgen, device=dev)
+    labels = torch.randint(0, 1000, (MAXVIT_TRAIN_BS,), generator=xgen, device=dev)
+    before = bn_stats(m32)
+    reset_all(fb, fa)
+    loss16 = torch.nn.functional.cross_entropy(m16(x.to(bf16)).float(), labels)
+    loss16.backward()
+    sync()
+    expect_launches(fb, fa, {}, "MaxViT training")
+    loss32 = torch.nn.functional.cross_entropy(m32(x), labels)
+    loss32.backward()
+    s16, s32 = bn_stats(m16), bn_stats(m32)
+    e_stats = rel_l2(s16, s32)
+    log(f"  updated BatchNorm statistics: rel L2 bf16 vs fp32 {e_stats:.4e} (bound {MAXVIT_STATS_VS_FP32}); moved "
+        f"from their init by {rel_l2(s32, before):.4e}")
+    if not e_stats <= MAXVIT_STATS_VS_FP32 or torch.equal(s32, before):
+        fail("MaxViT's updated statistics disagree with fp32's, or did not move")
+    compare_grads("MaxViT train-mode step vs fp32", grad_vector(m16), grad_vector(m32), loss16.item(), loss32.item(),
+                  MAXVIT_TRAIN_VS_FP32, names)
+    del m16, m32
+    sync()
+
+    log(f"[39 config 1] {CONFIG1}, bf16, random weights (seed {SEED}), buckets {BUCKETS}")
+    size = CONFIG1["image_size"]
+    c32 = ViT(**CONFIG1, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).eval()
+    pred = Predictor(c32, example_shape=(3, size, size), batch_sizes=BUCKETS, device=dev).warmup()
+    imgs = {k: torch.randn(k, 3, size, size, generator=xgen, device=dev) for k in REQUESTS}
+    reset_all(fb, fa)
+    outs = {k: pred(imgs[k]) for k in REQUESTS}
+    sync()
+    counts = expect_launches(fb, fa, {k: CONFIG1["depth"] * v * runs for k, v in LAUNCHES_PER_LAYER.items()},
+                             f"config 1 serving ({CONFIG1['depth']} layers x 7 launches x {runs} runs)")
+    with torch.inference_mode():
+        with plain_layers():
+            plain = pred.model(imgs[32].to(bf16))
+        served_vs("config 1 logits of the 32-image request", outs[32], plain, c32(imgs[32]), LOGITS_VS_PLAIN_BF16,
+                  LOGITS_VS_FP32)
+    served["config 1"] = pred
+    del c32
+    sync()
+    return counts, served, dict(maxvit=images[REQUESTS[-1]][:MAXVIT_BS].to(bf16),
+                                config1=imgs[REQUESTS[-1]][:B_TIME].to(bf16))
+
+
+def device_ms(fn, iters=10):
+    """Device ms of one call of fn: the summed device time of its kernels
+    under torch.profiler over ``iters`` calls (after 3 warm-up calls),
+    divided by ``iters``.  At these shapes a launch is shorter than the
+    host's time to issue it, so CUDA events around a chain of calls would
+    time the host.  CUPTI does not always deliver the device records: a
+    session that saw none is run once more, and then the calls are timed
+    by :func:`queued_event_ms` instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    sync()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+        if us:
+            return us / iters / 1e3
+    log("  the profiler saw no device time: timing with CUDA events behind a spin kernel")
+    return queued_event_ms(fn, iters)
+
+
+def queued_event_ms(fn, iters=10, tries=4):
+    """Device ms of one call of fn from CUDA events around ``iters`` calls
+    that the host queued while a spin kernel (``torch.cuda._sleep``) held
+    the stream, so the events time the device and not the host's issue
+    rate.  The start event must still be pending once every call is queued;
+    otherwise the spin is doubled and the run repeated.  Unlike the
+    profiler's sum, this includes the device's gaps between kernels."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    host_s = time.perf_counter() - t0
+    cycles = int(max(host_s, 1e-3) * 4e9)  # twice the host's time at the card's ~2 GHz clock
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        sync()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    fail(f"the device caught up with the host in {tries} event timings: no device time")
+
+
+def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp):
+    """Each chain kernel's launch at one shape, forward and backward: its
+    device time against its twin's in turns (plain, kernel, kernel, plain),
+    with its work and the device time of its library call (F.layer_norm,
+    F.linear, SDPA, native_layer_norm_backward) or of its yardstick (the
+    bare product through F.linear; SDPA's forward and backward), all from
+    :func:`device_ms`; keys ``f"{kernel} @ {label}"``."""
+    inner = heads * DH
+    rows = b * n
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    w, b_out = chain_weights(rnd, dim, heads, mlp)
+    x, dy = rnd(b, n, dim), rnd(b, n, dim)
+    per_kernel = {}
+    F_ = torch.nn.functional
+    with torch.inference_mode():
+        h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
+        qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv")
+        m = fb.attention_rows(qkv, **akw)
+        y = fb.gemm_bf16(m, w["w_out"], "out", bias=b_out, residual=x)
+        h2 = fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"])
+        a = fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"])
+        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+        dm = fb.gemm_bf16(dy, w_out_t, "cast")
+        _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+        dh = fb.gemm_f32out(dqkv, w_qkv_t)
+        q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
+        aten = torch.ops.aten
+        _, mean, rstd = aten.native_layer_norm(x, [dim], w["ln1_scale"], w["ln1_bias"], fb.LN_EPS)
+        g16 = dh.to(x.dtype)  # native_layer_norm_backward takes dh in x's dtype
+        ln_bwd = lambda: aten.native_layer_norm_backward(g16, x, [dim], mean, rstd, w["ln1_scale"], w["ln1_bias"],
+                                                         [True, True, True])
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
+        sdpa_fwd_bwd = lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves), leaves, go)
+        sdpa_fwd_bwd_dev = device_ms(sdpa_fwd_bwd)
+    with torch.inference_mode():
+        ln = lambda t, s_, b_: device_ms(lambda: F_.layer_norm(t, (dim,), s_, b_, fb.LN_EPS))
+        lin = lambda t, w_: device_ms(lambda: F_.linear(t, w_))
+        sites = (  # (kernel, kernel call, twin call, work, library ms, yardstick (ms, what))
+            ("layernorm_rows", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+             lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"]), ln_work(rows, dim),
+             ln(x, w["ln1_scale"], w["ln1_bias"]), None),
+            ("layernorm_rows", lambda: fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"]),
+             lambda: fb.layernorm_rows_reference(y, w["ln2_scale"], w["ln2_bias"]), ln_work(rows, dim),
+             ln(y, w["ln2_scale"], w["ln2_bias"]), None),
+            ("gemm_bf16[qkv]", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv"),
+             lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv"), gemm_work(rows, 3 * inner, dim),
+             lin(h, w["w_qkv"]), None),
+            ("attention_rows", lambda: fb.attention_rows(qkv, **akw), lambda: fb.attention_rows_reference(qkv, **akw),
+             attention_work(b, n, heads), device_ms(lambda: F_.scaled_dot_product_attention(q, k, v)), None),
+            ("gemm_bf16[out]", lambda: fb.gemm_bf16(m, w["w_out"], "out", bias=b_out, residual=x),
+             lambda: fb.gemm_bf16_reference(m, w["w_out"], "out", bias=b_out, residual=x),
+             gemm_work(rows, dim, inner, bias=True, residual=True), None, (lin(m, w["w_out"]), None)),
+            ("gemm_bf16[fc1]", lambda: fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"]),
+             lambda: fb.gemm_bf16_reference(h2, w["w1"], "fc1", bias=w["b1"]), gemm_work(rows, mlp, dim, bias=True),
+             None, (lin(h2, w["w1"]), None)),
+            ("gemm_bf16[fc2]", lambda: fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"], residual=y),
+             lambda: fb.gemm_bf16_reference(a, w["w2"], "fc2", bias=w["b2"], residual=y),
+             gemm_work(rows, dim, mlp, bias=True, residual=True), None, (lin(a, w["w2"]), None)),
+            ("attention_bwd_rows", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw), attention_work(b, n, heads, backward=True),
+             None, (sdpa_fwd_bwd_dev, SDPA_FWD_BWD)),
+            ("gemm_f32out", lambda: fb.gemm_f32out(dqkv, w_qkv_t), lambda: fb.gemm_f32out_reference(dqkv, w_qkv_t),
+             gemm_work(rows, dim, 3 * inner, out_bytes=4), None, (lin(dqkv, w_qkv_t), None)),
+            ("layernorm_bwd_rows", lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy),
+             lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy),
+             ln_bwd_work(rows, dim, residual=True), device_ms(ln_bwd), None),
+        )
+        for name, kern, twin, wk, lib_ms, prod in sites:
+            p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
+            record(per_kernel, f"{name} @ {label}", km, pm, wk, library_ms=lib_ms,
+                   product_ms=None if prod is None else prod[0], product_of=None if prod is None else prod[1])
+            log(f"  {name} @ {label}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound_ms(wk)[0]:.4f} ms"
+                + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms")
+                + ("" if prod is None else f", yardstick ({prod[1] or 'F.linear, the bare product'}) {prod[0]:.4f} ms"))
+    sync()
+    return per_kernel
+
+
+def time_zoo(fb, fa, dev, smi, vivit, mae, served, inputs):
+    """Phase 40: MaxViT img/s at bs=128; ViViT videos/s at bs=16 and ms/step,
+    kernel against plain in turns; MAE ms/step and peak memory at bs=256;
+    config 1 img/s at bs=128; each chain kernel at ViViT's spatial shape and
+    at MAE's encoder shape.  Returns the kernels-line records."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    log(f"[40 timing] {smi}")
+
+    def turns(label, kernel, plain, count, unit):
+        p1, k1, k2, p2 = (host_ms(f, 5) for f in (plain, kernel, kernel, plain))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        log(f"  {label}: kernel path {count * 1e3 / k_ms:.2f} {unit}/s ({k_ms:.3f} ms), plain bf16 path "
+            f"{count * 1e3 / p_ms:.2f} {unit}/s ({p_ms:.3f} ms); turns ms plain {p1:.3f} kernel {k1:.3f} kernel "
+            f"{k2:.3f} plain {p2:.3f}")
+
+    with torch.inference_mode():
+        model, img = served["MaxViT"].model, inputs["maxvit"]
+        ms = host_ms(lambda: model(img), 5)
+        log(f"  MaxViT bs={MAXVIT_BS} (no kernel: plain PyTorch, cuDNN convolutions): {MAXVIT_BS * 1e3 / ms:.2f} img/s "
+            f"({ms:.3f} ms)")
+        model = served["MaxViT with registers"].model
+        ms = host_ms(lambda: model(img), 5)
+        log(f"  MaxViT with registers bs={MAXVIT_BS}: {MAXVIT_BS * 1e3 / ms:.2f} img/s ({ms:.3f} ms)")
+        model, img = served["config 1"].model, inputs["config1"]
+
+        def plain_c1():
+            with plain_layers():
+                model(img)
+
+        turns(f"config 1 serving bs={B_TIME}", lambda: model(img), plain_c1, B_TIME, "img")
+        model, vid = vivit["pred"].model, vivit["videos"]
+
+        def plain_vivit():
+            with plain_layers():
+                model(vid)
+
+        turns(f"ViViT serving bs={VIVIT_BS}", lambda: model(vid), plain_vivit, VIVIT_BS, "videos")
+
+    tmodel = vivit["model"]
+    state, step = create_train_state(tmodel), make_train_step(tmodel)
+
+    def vivit_plain_step():
+        with plain_layers():
+            step(state, vivit["videos"], vivit["labels"])
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (
+        train_step_ms(dev, f) for f in (vivit_plain_step, lambda: step(state, vivit["videos"], vivit["labels"]),
+                                        lambda: step(state, vivit["videos"], vivit["labels"]), vivit_plain_step))
+    log(f"  ViViT training bs={VIVIT_BS}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path {(p1 + p2) / 2:.3f} "
+        f"ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory "
+        f"kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    del state, step, tmodel
+    vivit.clear()
+
+    mmodel, opt, img, mgen = mae["model"], mae["opt"], mae["img"], mae["gen"]
+
+    def mae_step():
+        opt.zero_grad(set_to_none=True)
+        mmodel(img, generator=mgen).backward()
+        opt.step()
+
+    def mae_plain_step():
+        with plain_layers():
+            mae_step()
+
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
+                                                  for f in (mae_plain_step, mae_step, mae_step, mae_plain_step))
+    log(f"  MAE pretraining bs={MAE_BS} (AdamW): kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+        f"{(p1 + p2) / 2:.3f} ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; "
+        f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    mae.clear()
+    served.clear()
+    sync()
+
+    own = edge_rnd(SEED + 40)
+    per_kernel = {}
+    for label, b, n, dim, heads, mlp in CHAIN_SHAPES:
+        if label in ENTRY_SHAPES:
+            log(f"  each chain launch at {label}: b={b} n={n} dim={dim} heads={heads} mlp={mlp}")
+            per_kernel.update(chain_entry_times(fb, own, label, b, n, dim, heads, mlp))
+    return per_kernel
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -4956,6 +5782,27 @@ def main():
     per_kernel.update(tools_times)
     phase_done("phase 35")
 
+    # -- 36. the chain at inner != dim and at 9, 16, 64, 65 tokens ------------------------
+    errs.update(check_chain_new_shapes(fb, dev))
+    phase_done("phase 36")
+
+    # -- 37. ViViT served (both variants, a frame mask) and trained ---------------------
+    vivit_counts, fsa_counts, vivit_train_counts, vivit_state = check_vivit(fb, fa, dev)
+    phase_done("phase 37")
+
+    # -- 38. MAE pretraining -----------------------------------------------------------------
+    mae_counts, mae_state = check_mae(fb, fa, dev)
+    phase_done("phase 38")
+
+    # -- 39. MaxViT (and with registers) and config 1 served ---------------------------------
+    config1_counts, zoo_served, zoo_inputs = check_maxvit_config1(fb, fa, dev)
+    phase_done("phase 39")
+
+    # -- 40. their timing; each chain launch at ViViT's and MAE's shapes ----------------------
+    per_kernel.update(time_zoo(fb, fa, dev, smi, vivit_state, mae_state, zoo_served, zoo_inputs))
+    del vivit_state, mae_state, zoo_served, zoo_inputs
+    phase_done("phase 40")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -5019,6 +5866,13 @@ def main():
         + [entry(name, source, TPU_TOOLS[tpu], f"python -m vit_pytorch_tpu_torch.tools.{tool}",
                  tools_counts[tool][counter])
            for name, source, tpu, tool, counter in TOOLS_ENTRIES]
+        + [entry(f"{name} @ {label}", {"attention_bwd_rows": ATTN_BWD_SOURCE, "layernorm_bwd_rows": BWD_SOURCE}.get(
+                 name, SOURCE), TPU_BWD_KERNEL if name in CHAIN_BWD else TPU_KERNEL, path, counts_[name])
+           for label, fwd, bwd, fwd_path, bwd_path in (
+               ("ViViT spatial", vivit_counts, vivit_train_counts, "ViViT serving", "ViViT training"),
+               ("MAE encoder", mae_counts, mae_counts, "MAE pretraining", "MAE pretraining"))
+           for name, counts_, path in [(n_, fwd, fwd_path) for n_ in CHAIN_FWD]
+           + [(n_, bwd, bwd_path) for n_ in CHAIN_BWD]]
     )
     for k in kernels:
         if not k["launches"]:
@@ -5057,7 +5911,11 @@ def main():
         "and the weights as bytes), launches from ViT-B/16's bucket runs under VIT_TPU_STACK_LAYERS=6; the tools' "
         "entries at bs=128 (n = 197; attention_rows[n_keys] at n = 200, 197 keys; stack_layers[tools] one L = 6 "
         "launch), launches from the main() of the tool named in the entry's path, library_ms SDPA with the key "
-        "mask and torch.addmm beside att+x)")
+        "mask and torch.addmm beside att+x; the entries '<kernel> @ ViViT spatial' and '<kernel> @ MAE encoder': "
+        "the chain's launches at b=128 n=65 and b=256 n=16, dim 1024, 8 heads (inner 512), mlp 2048, their "
+        "launches from ViViT's serving requests (forward; spatial and temporal layers) and 2 training steps "
+        "(backward) and from one MAE step at the fixed permutation (encoder and decoder layers); the chain's "
+        "errors at that shape in phase 36)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

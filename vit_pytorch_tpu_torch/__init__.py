@@ -13,12 +13,16 @@ with qk-norm and register tokens beside it) on the attention-block kernels;
 NaViT (``models.na_vit``, the nested-tensor variants in 2-D and 3-D beside
 it) on the flash kernels, with the in-tile qk-norm behind the JAX switch
 ``VIT_TPU_FUSE_QKNORM``; the JAX package's layer prototypes of ``tools/``
-as the port's bench tools (``tools/``).
+as the port's bench tools (``tools/``); ViViT (``models.vivit``, both
+variants, with a frame mask), MAE pretraining (``ssl.mae``) on the
+whole-layer kernels; MaxViT (``models.max_vit``, with register tokens
+beside it), whose 49-token windows take the attention composite.
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT
 from vit_pytorch_tpu_torch.models.vit import ViT
+from vit_pytorch_tpu_torch.ssl.mae import MAE
 
-__all__ = ["SimpleViT", "ViT"]
+__all__ = ["SimpleViT", "ViT", "MAE"]
 
 __version__ = "0.1.0"

@@ -28,12 +28,13 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def init_modules_like_jax(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """The JAX package's initialisation of every ``nn.Linear``, LayerNorm and
-    ``RMSNorm`` in ``model``: truncated lecun-normal weights and zero biases,
+    """The JAX package's initialisation of every ``nn.Linear``,
+    ``nn.Conv2d``, LayerNorm and ``RMSNorm`` in ``model``: truncated
+    lecun-normal weights (fan-in: the inputs of one output) and zero biases,
     LayerNorm ones/zeros, RMSNorm gamma at its ``gamma_init``."""
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -57,6 +58,12 @@ class ViT(nn.Module):
     ``flash=False`` opts out of every kernel, ``remat`` recomputes the
     layers in the backward.  ``model.train()`` stands for the JAX
     ``train=True``.
+
+    The encoder protocol of the JAX ``ViT`` (models/vit.py:8-15), which
+    ``ssl/mae.py::MAE`` reads: :meth:`patchify` (raw patches),
+    :attr:`patch_embedding` (their embedding, ``to_patch_embedding[1:]``),
+    ``pos_embedding``, ``transformer``, ``pool``, ``num_cls_tokens``, ``dim``,
+    ``patch_size``, ``image_size`` and ``channels``.
     """
 
     def __init__(
@@ -90,6 +97,7 @@ class ViT(nn.Module):
         kw = {"device": default_device(device), "dtype": dtype}
         self.pool = pool
         self.num_classes = num_classes
+        self.dim, self.image_size, self.patch_size, self.channels = dim, image_size, patch_size, channels
         self.num_patches = (image_height // patch_height) * (image_width // patch_width)
         self.num_cls_tokens = 1 if pool == "cls" else 0
         patch_dim = channels * patch_height * patch_width
@@ -107,6 +115,16 @@ class ViT(nn.Module):
         init_modules_like_jax(self, generator)
         self.cls_token.normal_(generator=generator)
         self.pos_embedding.normal_(generator=generator)
+
+    def patchify(self, img):
+        """(b, c, h, w) images -> (b, n, patch_dim) raw patches."""
+        return self.to_patch_embedding[0](img)
+
+    @property
+    def patch_embedding(self) -> nn.Sequential:
+        """LN -> Linear -> LN on raw patches: ``to_patch_embedding[1:]``,
+        the same modules."""
+        return nn.Sequential(*list(self.to_patch_embedding.children())[1:])
 
     def embed(self, img):
         """Patchify + embed + cls + pos emb + dropout (vit.py:120-128)."""

@@ -45,18 +45,21 @@ from ..ops.fused_block import (
 def fused_block_eligible(
     *, x: torch.Tensor, heads: int, dim_head: int, dim: int, flash, project_out: bool, dropout: float = 0.0,
     train: bool = False, force_split_qkv: bool = False, has_context: bool = False, has_segments: bool = False,
+    has_mask: bool = False,
 ) -> bool:
     """Whether ``Attention`` takes the attention-block kernels: the JAX
     predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
     predicate for ``Attention.forward`` (to dispatch) and ``Transformer``
     (to leave remat off the call that fuses).  qk-norm does not refuse the
     block, as in the JAX package: the attention kernels normalise q and k
-    themselves, forward and backward.  The JAX predicate's other conditions
-    (rotary, masks, bias, recording, pre_norm) are options the port's
-    ``Attention`` does not have yet; they join the predicate with them."""
+    themselves, forward and backward.  A mask refuses the block, as in the
+    JAX package (:82).  The JAX predicate's other conditions (rotary, bias,
+    recording, pre_norm) are options the port's ``Attention`` does not have
+    yet; they join the predicate with them."""
     return (
         not has_context
         and not has_segments
+        and not has_mask
         and not force_split_qkv
         and flash is not False  # explicit flash=False opts out of ALL kernels
         # train-time dropout runs inside the kernels when their backward can
@@ -167,24 +170,28 @@ class Attention(nn.Module):
         """The projection out's Linear, in either layout."""
         return self.to_out if isinstance(self.to_out, nn.Linear) else self.to_out[0]
 
-    def fuses(self, x, *, context=None, has_segments: bool = False) -> bool:
+    def fuses(self, x, *, context=None, has_segments: bool = False, has_mask: bool = False) -> bool:
         """Whether a call on ``x`` takes the attention-block kernels."""
         return fused_block_eligible(
             x=x, heads=self.heads, dim_head=self.dim_head, dim=self.dim, flash=self.flash,
             project_out=self.project_out, dropout=self.dropout, train=self.training,
             force_split_qkv=self.force_split_qkv, has_context=context is not None, has_segments=has_segments,
+            has_mask=has_mask,
         )
 
-    def forward(self, x, context=None, *, q_segment_ids=None, kv_segment_ids=None, residual=None):
+    def forward(self, x, context=None, *, mask=None, q_segment_ids=None, kv_segment_ids=None, residual=None):
         """``residual``: optional tensor added to the output (the JAX
         ``residual`` keyword, blocks.py:358-363).  On the kernel path it rides
         into the block's last launch; on the module path it is a plain add.
+        ``mask``: a boolean key mask broadcastable to (b, heads, n, m), True
+        where a key is attended (ViViT's frame mask, (b, 1, 1, m)); it goes
+        to the dispatcher's composite and refuses the kernels (JAX :351).
         In training the attention dropout runs in the attention-block
         kernels (seed drawn here) or, with segment ids or context, in the
         dispatcher's route: the flash kernels' (seed drawn there) or the
         composite's."""
         has_segments = q_segment_ids is not None or kv_segment_ids is not None
-        if self.fuses(x, context=context, has_segments=has_segments):
+        if self.fuses(x, context=context, has_segments=has_segments, has_mask=mask is not None):
             rate = self.dropout if self.training else 0.0
             # the int32 seed of the kernels' Philox streams, drawn from the
             # CPU generator (seeded per step by make_train_step's generator):
@@ -217,7 +224,7 @@ class Attention(nn.Module):
         out = dot_product_attention(
             q, k, v, scale=1.0 if self.qk_norm else None,
             gamma_q=self.q_norm.gamma if self.qk_norm else None,
-            gamma_k=self.k_norm.gamma if self.qk_norm else None,
+            gamma_k=self.k_norm.gamma if self.qk_norm else None, mask=mask,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             dropout_rate=self.dropout if self.training else 0.0, use_flash=self.flash,
         )
@@ -301,13 +308,14 @@ class Transformer(nn.Module):
             for _ in range(depth)
         )
 
-    def whole_layer_eligible(self, x: torch.Tensor, *, has_segments: bool = False) -> bool:
+    def whole_layer_eligible(self, x: torch.Tensor, *, has_segments: bool = False, has_mask: bool = False) -> bool:
         """The JAX whole-layer predicate (blocks.py:618-653) for this
         module's options, with ``on_cuda`` for ``on_tpu`` and
-        ``self.training`` for ``train``."""
+        ``self.training`` for ``train``; a mask refuses it (:628)."""
         return (
             on_cuda(x)
             and not has_segments
+            and not has_mask
             and not self.qk_norm  # the whole-layer kernel has no qk-norm (:647)
             and self.flash is not False
             and (self.dropout == 0.0 or not self.training)
@@ -339,11 +347,15 @@ class Transformer(nn.Module):
         (w_qkv, w_out, *rest), biases = self.layer_weights(i, dtype)
         return (w_qkv, None, w_out, biases["b_out"], *rest)
 
-    def forward(self, x, *, q_segment_ids=None, kv_segment_ids=None, rotary=None, return_hiddens: bool = False):
+    def forward(self, x, *, mask=None, q_segment_ids=None, kv_segment_ids=None, rotary=None,
+                return_hiddens: bool = False):
+        """``mask``: a boolean key mask for every attention call (JAX
+        :585-600), broadcastable to (b, heads, n, n); it takes every layer to
+        the module composite."""
         if rotary is not None or return_hiddens:
             raise NotImplementedError("rotary and return_hiddens are not ported yet (ROADMAP: modules to port, item 9)")
         has_segments = q_segment_ids is not None or kv_segment_ids is not None
-        if self.whole_layer_eligible(x, has_segments=has_segments):
+        if self.whole_layer_eligible(x, has_segments=has_segments, has_mask=mask is not None):
             depth = len(self.layers)
             # layers a stack_layers launch, 1 unless VIT_TPU_STACK_LAYERS asks
             # for more; groups of min(g, depth - i) as JAX blocks.py:667-721
@@ -362,8 +374,9 @@ class Transformer(nn.Module):
                     )
         else:
             # every layer's Attention shares this predicate (JAX attn_will_fuse)
-            attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(x, has_segments=has_segments)
-            segs = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+            attn_fuses = len(self.layers) > 0 and self.layers[0][0].fuses(
+                x, has_segments=has_segments, has_mask=mask is not None)
+            segs = dict(mask=mask, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
             for attn, ff in self.layers:
                 # the residual rides into the attention call, as JAX's attn_call
                 # (blocks.py:593-607); remat only where it does not fuse

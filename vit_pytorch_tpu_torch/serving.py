@@ -1,8 +1,9 @@
 """Serving layer: bucket-batched inference, port of
 ``vit_pytorch_tpu/serving.py::Predictor`` (:60-240).
 
-``Predictor`` casts the model's floating parameters to the serving dtype
-once, pads every request up to the smallest batch-size bucket that fits and
+``Predictor`` casts the model's floating parameters and persistent buffers
+(BatchNorm statistics: the JAX ``batch_stats``) to the serving dtype once,
+pads every request up to the smallest batch-size bucket that fits and
 chunks requests larger than the biggest bucket.  Fixed buckets bound the set
 of shapes the kernels see; ``warmup()`` runs each bucket once, which builds
 the CUDA kernels on first use.  CUDA graphs per bucket, ``export_model`` and
@@ -35,8 +36,12 @@ class Predictor:
         example_shape: per-example input shape, e.g. ``(3, 224, 224)``.
         batch_sizes: bucket sizes.  Requests are padded up to the smallest
             bucket that fits and chunked by the largest when bigger.
-        param_dtype: serving dtype of the floating parameters and of the
-            input batch (bf16 by default, the dtype the kernels take).
+        param_dtype: serving dtype of the floating parameters, of the
+            floating persistent buffers and of the input batch (bf16 by
+            default, the dtype the kernels take).  The JAX ``Predictor``
+            casts every floating leaf of the variables, ``batch_stats``
+            included (serving.py:40-46); a non-persistent buffer is outside
+            them (SimpleViT's sincos table) and keeps its dtype.
         device: where the model runs.
     """
 
@@ -60,6 +65,10 @@ class Predictor:
             p.requires_grad_(False)
             if p.is_floating_point():
                 p.data = p.data.to(param_dtype)
+        persistent = model.state_dict(keep_vars=True)
+        for name, buf in model.named_buffers():
+            if name in persistent and buf.is_floating_point():
+                buf.data = buf.data.to(param_dtype)
         self.model = model.eval()
 
     def warmup(self):

@@ -11,14 +11,21 @@ SimpleViTs the inverse of ``transformer_rules(simple=True)`` and
 (the fused ``to_qkv`` in the Transformer, split ``to_q``/``to_kv`` in
 ``attn_pool``); the JAX ``convert_na_vit`` fuses the reference's q/kv, so
 these maps are held by model outputs (tests/test_torch_na_vit.py), not by a
-round trip.  ``tool_layer_from_jax`` carries the weight tuples of the JAX
-package's layer prototypes in ``tools/`` over to the port's bench tools
-(``vit_pytorch_tpu_torch/tools/``).
+round trip.  The ViViT map covers both variants (for ``factorized_encoder``
+the inverse of ``convert_vivit``); the MAE map is the inverse of
+``convert_mae`` (the encoder under ``encoder/``); the MaxViT maps, the
+inverses of ``convert_max_vit`` and ``convert_max_vit_with_registers``,
+take the ``batch_stats`` tree too, whose ``mean``/``var`` leaves become the
+BatchNorms' ``running_mean``/``running_var``.  ``tool_layer_from_jax``
+carries the weight tuples of the JAX package's layer prototypes in
+``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
 
-Dense kernels (in, out) become Linear weights (out, in); LayerNorm
+Dense kernels (in, out) become Linear weights (out, in) and Conv kernels
+(kh, kw, in, out) Conv2d weights (out, in, kh, kw); LayerNorm and BatchNorm
 ``scale``/``bias`` become ``weight``/``bias``; RMSNorm ``gamma`` stays
-``gamma``.  No JAX import: the caller hands over the tree as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, variables["params"])``).
+``gamma``; an Embed's ``embedding`` becomes the Embedding's ``weight``.  No
+JAX import: the caller hands over the tree as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, variables["params"])``).
 """
 
 from __future__ import annotations
@@ -81,7 +88,66 @@ _SIMPLE_VIT_QK_NORM_MODULES = _PATCH_EMBEDDING + (
     (r"transformer_norm", "transformer.norm"),
     (r"linear_head", "linear_head"),  # a LayerNorm: scale/bias
 )
-_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma"}
+# models/vivit.py: the reference's layout, both variants
+_VIVIT_MODULES = (
+    (r"patch_norm_pre", "to_patch_embedding.1"),
+    (r"patch_proj", "to_patch_embedding.2"),
+    (r"patch_norm_post", "to_patch_embedding.3"),
+    *((p.replace("transformer", f"{t}_transformer", 1), v.replace("transformer", f"{t}_transformer", 1))
+      for t in ("spatial", "temporal") for p, v in _VIT_MODULES[3:10]),
+    (r"factorized_transformer/layers_(\d+)_spatial_attn/(norm|to_qkv)", r"factorized_transformer.layers.\1.0.\2"),
+    (r"factorized_transformer/layers_(\d+)_spatial_attn/to_out", r"factorized_transformer.layers.\1.0.to_out.0"),
+    (r"factorized_transformer/layers_(\d+)_temporal_attn/(norm|to_qkv)", r"factorized_transformer.layers.\1.1.\2"),
+    (r"factorized_transformer/layers_(\d+)_temporal_attn/to_out", r"factorized_transformer.layers.\1.1.to_out.0"),
+    (r"factorized_transformer/layers_(\d+)_ff/norm", r"factorized_transformer.layers.\1.2.net.0"),
+    (r"factorized_transformer/layers_(\d+)_ff/fc1", r"factorized_transformer.layers.\1.2.net.1"),
+    (r"factorized_transformer/layers_(\d+)_ff/fc2", r"factorized_transformer.layers.\1.2.net.4"),
+    (r"factorized_transformer/norm", "factorized_transformer.norm"),
+    (r"mlp_head", "mlp_head"),
+)
+# ssl/mae.py: the port ViT under encoder., the decoder Transformer's layers as
+# the ViT's transformer's
+_MAE_MODULES = (
+    *((f"encoder/{p}", f"encoder.{v}") for p, v in _VIT_MODULES[:10]),
+    *((p.replace("transformer", "decoder", 1), v.replace("transformer", "decoder", 1)) for p, v in _VIT_MODULES[3:10]),
+    (r"(enc_to_dec|decoder_pos_emb|to_pixels)", r"\1"),
+)
+# models/max_vit.py: the MBConv's children (reference max_vit.py:90-117)
+_MBCONV = (
+    (r"block_(\d+)_mbconv/conv_expand", r"layers.\1.0.0"),
+    (r"block_(\d+)_mbconv/bn1", r"layers.\1.0.1"),
+    (r"block_(\d+)_mbconv/conv_depthwise", r"layers.\1.0.3"),
+    (r"block_(\d+)_mbconv/bn2", r"layers.\1.0.4"),
+    (r"block_(\d+)_mbconv/se/fc1", r"layers.\1.0.6.gate.1"),
+    (r"block_(\d+)_mbconv/se/fc2", r"layers.\1.0.6.gate.3"),
+    (r"block_(\d+)_mbconv/conv_project", r"layers.\1.0.7"),
+    (r"block_(\d+)_mbconv/bn3", r"layers.\1.0.8"),
+    (r"conv_stem_(\d)", r"conv_stem.\1"),
+    (r"head_norm", "mlp_head.1"),
+    (r"mlp_head", "mlp_head.2"),
+)
+
+
+def _max_vit_window(kind: str, attn: str, ff: str):
+    """A window attention and its feed-forward: ``attn`` and ``ff`` the
+    torch prefixes of ``block_N_{kind}_attn`` and ``block_N_{kind}_ff``."""
+    return (
+        (rf"block_(\d+)_{kind}_attn/(norm|to_qkv)", rf"{attn}.\2"),
+        (rf"block_(\d+)_{kind}_attn/to_out", rf"{attn}.to_out.0"),
+        (rf"block_(\d+)_{kind}_attn", attn),  # its rel_pos_bias table
+        (rf"block_(\d+)_{kind}_ff/norm", rf"{ff}0"),
+        (rf"block_(\d+)_{kind}_ff/fc1", rf"{ff}1"),
+        (rf"block_(\d+)_{kind}_ff/fc2", rf"{ff}4"),
+    )
+
+
+_MAX_VIT_MODULES = _MBCONV + _max_vit_window("block", r"layers.\1.2.fn", r"layers.\1.3.fn.net.") + _max_vit_window(
+    "grid", r"layers.\1.6.fn", r"layers.\1.7.fn.net.")
+# models/max_vit_with_registers.py: attention and a bare Sequential feed-forward a window kind
+_MAX_VIT_REGISTERS_MODULES = _MBCONV + _max_vit_window("block", r"layers.\1.1.0", r"layers.\1.1.1.") + _max_vit_window(
+    "grid", r"layers.\1.2.0", r"layers.\1.2.1.")
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma", "embedding": "weight",
+           "rel_pos_bias": "rel_pos_bias.weight", "mean": "running_mean", "var": "running_var"}
 _TOP_LEVEL = ("cls_token", "pos_embedding")
 _NAVIT_TOP_LEVEL = ("pos_embed_height", "pos_embed_width", "attn_pool_queries")
 _NAVIT_3D_TOP_LEVEL = ("pos_embed_frame", *_NAVIT_TOP_LEVEL, "register_tokens")
@@ -97,8 +163,13 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def _torch_key(path: str, modules, top_level) -> str:
-    if path in top_level:
-        return path
+    """``top_level``: the names (or ``(pattern, template)`` pairs) of
+    parameters outside any module."""
+    for name in top_level:
+        pattern, template = (name, name) if isinstance(name, str) else name
+        m = re.fullmatch(pattern, path)
+        if m:
+            return m.expand(template)
     module, _, leaf = path.rpartition("/")
     if leaf in _LEAVES:
         for pattern, template in modules:
@@ -112,8 +183,8 @@ def _state_dict(params: Mapping, modules, top_level) -> dict[str, torch.Tensor]:
     out = {}
     for path, value in _flatten(params):
         array = np.array(value)  # a writable copy torch may own
-        if path.endswith("/kernel"):
-            array = np.ascontiguousarray(array.T)
+        if path.endswith("/kernel"):  # Dense (in, out), Conv (kh, kw, in, out)
+            array = np.ascontiguousarray(array.T if array.ndim == 2 else array.transpose(3, 2, 0, 1))
         out[_torch_key(path, modules, top_level)] = torch.from_numpy(array)
     return out
 
@@ -158,6 +229,40 @@ def simple_vit_register_tokens_state_dict_from_jax(params: Mapping) -> dict[str,
     """The JAX ``models/simple_vit_with_register_tokens.py::SimpleViT``'s
     ``params`` tree -> the port's ``state_dict``."""
     return _state_dict(params, _SIMPLE_VIT_MODULES, ("register_tokens",))
+
+
+def vivit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vivit.py::ViViT``'s ``params`` tree (either variant)
+    -> the port ``ViViT``'s ``state_dict``."""
+    return _state_dict(params, _VIVIT_MODULES, ("pos_embedding", "spatial_cls_token", "temporal_cls_token"))
+
+
+def mae_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/mae.py::MAE``'s ``params`` tree -> the port ``MAE``'s
+    ``state_dict``.  The JAX encoder has no ``mlp_head`` (MAE never calls
+    it): load with ``strict=False`` where the port's encoder has one."""
+    return _state_dict(params, _MAE_MODULES, (("encoder/(cls_token|pos_embedding)", r"encoder.\1"), "mask_token"))
+
+
+def _with_stats(params: Mapping, batch_stats, modules, top_level) -> dict[str, torch.Tensor]:
+    out = _state_dict(params, modules, top_level)
+    if batch_stats is not None:
+        out.update(_state_dict(batch_stats, modules, ()))
+    return out
+
+
+def max_vit_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/max_vit.py::MaxViT``'s ``params`` and
+    ``batch_stats`` trees -> the port ``MaxViT``'s ``state_dict`` (its
+    running averages included)."""
+    return _with_stats(params, batch_stats, _MAX_VIT_MODULES, ())
+
+
+def max_vit_with_registers_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/max_vit_with_registers.py::MaxViT``'s ``params`` and
+    ``batch_stats`` trees -> the port's ``state_dict``."""
+    return _with_stats(params, batch_stats, _MAX_VIT_REGISTERS_MODULES,
+                       ((r"block_(\d+)_register_tokens", r"register_tokens.\1"),))
 
 
 def tool_layer_from_jax(weights) -> tuple[torch.Tensor, ...]:
