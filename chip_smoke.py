@@ -270,7 +270,35 @@ Phases, each printed as it ends:
      at bs=16 and MAE ms/step at bs=256 with peak memory, kernel against
      plain in turns; each chain kernel at ViViT's spatial and MAE's
      encoder shapes against its twin, its bound and its library call,
-     each an entry of its own in the kernels line.
+     each an entry of its own in the kernels line;
+ 41. Dino (the upstream README's example: the net ViT 256/32, dim 1024,
+     depth 6, heads 8, mlp 2048; hidden_layer "transformer", projector 4
+     layers of 256 to K = 65,336, student 0.9 / teacher 0.04, decays 0.9)
+     at bs=20: the chain's kernels at its (20, 65) shape against their
+     twins; one step on views that byol_augment and random_resized_crop
+     draw on the card from a CPU generator (exact counters: the student's
+     two calls with gradients, 2 x 6 x 13 launches, and the teacher's two
+     without, 2 x 6 x 7; the captured hidden (20, 66560)), the loss, the
+     new last centres and every student gradient against the plain bf16
+     path and against fp32 within 1.5x of plain bf16's own distance from
+     it; then 3 Adam(3e-4) steps, the EMA after each bitwise its formula
+     and the teacher apart from the student;
+ 42. EsViT and LeJEPA (sigreg_num_slices 1024) on the same net and batch:
+     one step each against plain bf16 (EsViT: only where no region
+     pairing flips between the paths; the flips logged) and the fp32
+     floor, exact counters (LeJEPA: one call of 40 images with gradients,
+     one without), then 2 Adam steps with finite losses;
+ 43. SimMIM (masking 0.5) and MPP (patch 32, mask 0.15, replace 0.5,
+     random patch 0.5) on the same ViT at bs=20: one step each at dropout 0
+     against plain bf16, exact counters; MPP trained 2 steps at dropout
+     and emb_dropout 0.1 on the attention-block kernels (exact counters);
+     MP3 (its own ViT at the same widths, masking 0.75) against fp32, with
+     no launch at all (its cross-attention takes the composite);
+ 44. their timing: each trainer's ms/step (host clock, 2 steps after a
+     warm-up, kernel and plain paths in turns), peak memory, the device's
+     busy share of one profiled Dino step, and each chain kernel at Dino's
+     (20, 65) shape against its twin, its bound and its library call, an
+     entry of its own in the kernels line.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -4714,6 +4742,49 @@ MAXVIT_LOGITS_VS_FP32 = 5e-2
 MAXVIT_TRAIN_VS_FP32 = dict(loss=1e-3, grads=0.3, worst=math.inf)
 MAXVIT_STATS_VS_FP32 = 1e-2
 
+# -- the SSL trainers (phases 41-44) -------------------------------------------------
+# The upstream vit-pytorch README's Dino example (its net is MAE_ENCODER's),
+# hidden_layer the JAX default "transformer": the projector's first Linear
+# takes the flattened (65, 1024) tokens, 66,560 features.  EsViT and LeJEPA
+# wrap the same net with the same keywords; SimMIM and MPP read it as their
+# encoder; MP3 runs its own ViT at the same widths.
+SSL_NET = MAE_ENCODER
+DINO_KW = dict(image_size=256, hidden_layer="transformer", projection_hidden_size=256, projection_layers=4,
+               num_classes_K=65336, student_temp=0.9, teacher_temp=0.04, local_upper_crop_scale=0.4,
+               global_lower_crop_scale=0.5, moving_average_decay=0.9, center_moving_average_decay=0.9)
+LEJEPA_KW = {**{k: v for k, v in DINO_KW.items() if "temp" not in k and "moving" not in k}, "sigreg_num_slices": 1024}
+SIMMIM_KW = dict(masking_ratio=0.5)
+MPP_KW = dict(patch_size=32, dim=1024, mask_prob=0.15, replace_prob=0.5, random_patch_prob=0.5)
+MP3_VIT = dict(num_classes=1000, image_size=256, patch_size=32, dim=1024, depth=6, heads=8, mlp_dim=2048)
+MP3_RATIO = 0.75
+SSL_BS, SSL_LR, DINO_STEPS, SSL_STEPS = 20, 3e-4, 3, 2
+SSL_N = (256 // 32) ** 2 + 1
+SSL_DEPTH = SSL_NET["depth"]
+SSL_HIDDEN = SSL_N * SSL_NET["dim"]
+SSL_ENTRY = ("Dino", SSL_BS, SSL_N, 1024, 8, 2048)  # the chain's shape on Dino's path: an entry of its own
+# Against fp32 the kernel path is held to the floor that plain bf16 itself
+# reads against fp32 in the same run (as phase 13 holds NaViT-B): the
+# loss's, all gradients' and the worst parameter's relative difference at
+# most SSL_FLOOR_RATIO times plain bf16's, the loss's floor at least
+# SSL_LOSS_FLOOR.  Dino's, EsViT's and LeJEPA's losses are float32 (Dino's
+# and EsViT's centres are float32, as JAX's create_state makes them, and
+# the teacher's logits less the centres promote), averaged over 65,336
+# classes and 20 images of bf16 logits: at full width plain bf16 reads
+# 9.3e-5 / 9.5e-5 / 2.4e-6 relative against fp32, and the kernel path 1.6e-6
+# / 0 / 1.2e-6 against plain bf16 (NVIDIA H100 80GB HBM3, 700.00 W).  So the
+# floor is 2^-12, ~2.5x the largest plain reading, lest a plain reading
+# that is small by chance bound the kernel path tighter than bf16's own
+# noise; against plain bf16 their loss is held to 2^-14 (~40x the largest
+# reading), the gradients to MAE's bounds (SSL_VS_PLAIN).  SimMIM's and
+# MPP's losses are bf16 scalars, as in JAX: MAE_VS_PLAIN.  The student's
+# softmax over 65,336 classes is bf16, as in JAX: the floor, not a fixed
+# bound, says how far bf16 carries that.
+SSL_FLOOR_RATIO = 1.5
+SSL_LOSS_FLOOR = 2.0**-12
+SSL_VS_PLAIN = {**MAE_VS_PLAIN, "loss": 2.0**-14}
+# MP3 runs no kernel (its cross-attention's 16 keys take the composite): its
+# bf16 path is plain PyTorch, held to fp32 by fixed bounds
+MP3_VS_FP32 = dict(loss=2.0**-7, grads=5e-2, worst=1e-1)
 
 def chain_weights(rnd, dim, heads, mlp):
     """One layer's operands at these widths (:func:`layer_weights`) and its
@@ -5442,6 +5513,452 @@ def time_zoo(fb, fa, dev, smi, vivit, mae, served, inputs):
     return per_kernel
 
 
+def ssl_model(kind, dev, dtype=torch.float32, **net_kw):
+    """A trainer of phases 41-44 on SSL_NET (``kind``: Dino, EsViT, LeJEPA,
+    SimMIM, MPP) or MP3 on its own ViT, random weights from SEED,
+    initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch import ViT
+    from vit_pytorch_tpu_torch.ssl import es_vit, lejepa, mp3, mpp, simmim
+    from vit_pytorch_tpu_torch.ssl.dino import Dino
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if kind == "MP3":
+        vit = mp3.ViT(**MP3_VIT, device=dev, generator=gen)
+        return mp3.MP3(vit=vit, masking_ratio=MP3_RATIO, device=dev, generator=gen).to(dtype)
+    net = ViT(**SSL_NET, device=dev, generator=gen, **net_kw)
+    build = {
+        "Dino": lambda: Dino(net, **DINO_KW, device=dev, generator=gen),
+        "EsViT": lambda: es_vit.EsViTTrainer(net, **DINO_KW, device=dev, generator=gen),
+        "LeJEPA": lambda: lejepa.LeJEPA(net, **LEJEPA_KW, device=dev, generator=gen),
+        "SimMIM": lambda: simmim.SimMIM(encoder=net, **SIMMIM_KW, device=dev, generator=gen),
+        "MPP": lambda: mpp.MPP(net, **MPP_KW, device=dev, generator=gen),
+    }[kind]
+    return build().to(dtype)
+
+
+def ssl_launches(grad_calls, no_grad_calls, per_grad=TRAIN_LAUNCHES_PER_LAYER):
+    """The exact counters of encoder calls with and without gradients, each
+    SSL_DEPTH whole layers."""
+    keys = set(per_grad) | set(LAUNCHES_PER_LAYER)
+    return {k: SSL_DEPTH * (grad_calls * per_grad.get(k, 0) + no_grad_calls * LAUNCHES_PER_LAYER.get(k, 0))
+            for k in keys}
+
+
+def ssl_paths(fb, fa, label, fp32, run, want, shapes_want):
+    """One step of a trainer on the kernel path (a bf16 copy of ``fp32``),
+    on the plain bf16 path (the same copy through the twins) and in fp32:
+    ``run(model, dtype)`` gives the loss.  Checks the kernel path's exact
+    counters and whole-layer shapes and that the plain path launches
+    nothing; returns the three paths' models, losses and gradients."""
+    bf16 = torch.bfloat16
+    model = copy.deepcopy(fp32).to(bf16)
+    plain = copy.deepcopy(model)
+    reset_all(fb, fa)
+    with layer_shapes() as shapes:
+        loss = run(model, bf16)
+        loss.backward()
+    sync()
+    counts = expect_launches(fb, fa, want, label)
+    counts = {**counts, **{f"gemm_bf16[{site}]": fb.GEMM_LAUNCHES[site] for site in GEMM_SITES}}
+    log(f"  whole-layer calls: {len(shapes)} ({sorted(set(shapes))}), expected {len(shapes_want)}")
+    if shapes != shapes_want:
+        fail(f"{label}: the whole-layer calls are not the expected ones")
+    reset_all(fb, fa)
+    with plain_layers():
+        loss_plain = run(plain, bf16)
+        loss_plain.backward()
+    sync()
+    expect_launches(fb, fa, {}, f"the plain {label} step")
+    loss32 = run(fp32, torch.float32)
+    loss32.backward()
+    paths = {}
+    for key, m, lo in (("kernel", model, loss), ("plain", plain, loss_plain), ("fp32", fp32, loss32)):
+        names, grads = trained_grads(m)
+        paths[key] = dict(model=m, loss=lo.item(), loss_dtype=lo.dtype, names=names, grads=grads)
+    if not paths["kernel"]["names"] == paths["plain"]["names"] == paths["fp32"]["names"]:
+        fail(f"{label}: the paths differ in which parameters have gradients")
+    paths["counts"] = counts
+    return paths
+
+
+def compare_floor(name, paths, ratio=SSL_FLOOR_RATIO):
+    """The kernel path against fp32 within ``ratio`` times plain bf16
+    against fp32, for the loss (its floor at least SSL_LOSS_FLOOR), all
+    gradients together and the worst single parameter."""
+    k, p, f = paths["kernel"], paths["plain"], paths["fp32"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    per = lambda got: [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(got, f["grads"])]
+    d_k, d_p = rel(k["loss"], f["loss"]), rel(p["loss"], f["loss"])
+    t_k, t_p = grads_rel_l2(k["grads"], f["grads"]), grads_rel_l2(p["grads"], f["grads"])
+    per_k, per_p = per(k["grads"]), per(p["grads"])
+    w_k, w_p = max(range(len(per_k)), key=per_k.__getitem__), max(range(len(per_p)), key=per_p.__getitem__)
+    ok = (d_k <= ratio * max(d_p, SSL_LOSS_FLOOR) and t_k <= ratio * t_p and per_k[w_k] <= ratio * per_p[w_p]
+          and all(bool(torch.isfinite(a).all()) for a in k["grads"]))
+    log(f"  {name} vs fp32 (floor: plain bf16 vs fp32, bound {ratio}x): loss {k['loss']:.6f} vs {f['loss']:.6f} "
+        f"rel {d_k:.3e} (plain {d_p:.3e}); grads rel L2 {t_k:.4e} (plain {t_p:.4e}); worst {k['names'][w_k]} "
+        f"{per_k[w_k]:.4e} (plain's worst {p['names'][w_p]} {per_p[w_p]:.4e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name}: the kernel path is further from fp32 than {ratio}x plain bf16")
+
+
+def ssl_images(dev, seed):
+    """SSL_BS images of 256 x 256, uniform in [0, 1], f32."""
+    return torch.rand(SSL_BS, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def ema_formula(old, new, beta, dtype=None):
+    """old * beta + (1 - beta) * new, the JAX package's arithmetic: each
+    constant rounded to the dtype of the array it multiplies, ``new`` held
+    in ``dtype`` (by default its own; Dino's float32 last centres are the
+    bf16 values JAX's forward returns), the sum promoted to old's dtype."""
+    dtype = dtype or new.dtype
+    return (old * torch.tensor(beta, dtype=old.dtype).item()
+            + torch.tensor(1 - beta, dtype=dtype).item() * new.to(dtype))
+
+
+def check_f32_centres(name, kernel, buffers):
+    """The bf16 trainer's centre buffers and its loss float32, as the JAX
+    package's ``create_state`` makes the centres and bf16 logits less them
+    promote the loss; the last centres bf16 values (JAX's forward returns
+    them in the projections' dtype)."""
+    model = kernel["model"]
+    dtypes = {b: getattr(model, b).dtype for b in buffers}
+    last = [getattr(model, b) for b in buffers if b.startswith("last_")]
+    ok = (all(d == torch.float32 for d in dtypes.values()) and kernel["loss_dtype"] == torch.float32
+          and all(torch.equal(t, t.bfloat16().float()) for t in last))
+    log(f"  {name} in bf16: centre buffers {dtypes}, loss {kernel['loss_dtype']}, last centres bf16 values "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name}: the centres or the loss are not float32 in bf16, as JAX's are")
+
+
+def check_dino(fb, fa, dev):
+    """Phase 41: Dino at full width: the chain's kernels at its shape, one
+    step on views drawn on the card (exact counters: the student's two
+    graphs and the teacher's two no-grad calls; the captured hidden), the
+    loss, the new last centres and the gradients against plain bf16 and
+    the fp32 floor, then DINO_STEPS Adam steps with the EMA after each,
+    checked bit for bit.  Returns the step's counts, the chain's errors at
+    Dino's shape and the state phase 44 times."""
+    bf16 = torch.bfloat16
+    log(f"[41 Dino] net ViT {SSL_NET}, Dino {DINO_KW}, bs={SSL_BS} images uniform in [0, 1], bf16, random "
+        f"weights (seed {SEED}); Adam(lr={SSL_LR})")
+    label, b, n, dim, heads, mlp = SSL_ENTRY
+    errs = {f"{k} @ {label}": e for k, e in check_chain_shape(fb, edge_rnd(SEED + 41), label, b, n, dim, heads,
+                                                              mlp).items()}
+    img = ssl_images(dev, SEED + 41)
+    fp32 = ssl_model("Dino", dev)
+    views32 = fp32.make_views(img, torch.Generator().manual_seed(SEED + 41))
+    log(f"  views: byol_augment and random_resized_crop on the card, parameters from a CPU generator: "
+        f"{[tuple(v.shape) for v in views32]}, {views32[0].dtype}")
+    captured = []
+
+    def run(model, dtype):
+        handle = model.student_encoder.register_forward_hook(lambda m, a, out: captured.append(tuple(out[1].shape)))
+        try:
+            return model(None, views=tuple(v.to(dtype) for v in views32))
+        finally:
+            handle.remove()
+
+    paths = ssl_paths(fb, fa, "Dino step", fp32, run, ssl_launches(2, 2), [(b, n, dim)] * (4 * SSL_DEPTH))
+    check_f32_centres("Dino", paths["kernel"], ("teacher_centers", "last_teacher_centers"))
+    log(f"  captured hidden (flattened) of the student's calls: {captured[:2]}, expected {(SSL_BS, SSL_HIDDEN)}")
+    if captured[:2] != [(SSL_BS, SSL_HIDDEN)] * 2:
+        fail("Dino: the captured hidden layer is not the transformer's (b, 65 x 1024)")
+    k, p = paths["kernel"], paths["plain"]
+    compare_grads("Dino step vs plain bf16", k["grads"], p["grads"], k["loss"], p["loss"], SSL_VS_PLAIN, k["names"])
+    centers = [paths[key]["model"].last_teacher_centers.float() for key in ("kernel", "plain", "fp32")]
+    e_kp, e_kf, e_pf = rel_l2(centers[0], centers[1]), rel_l2(centers[0], centers[2]), rel_l2(centers[1], centers[2])
+    ok = e_kp <= LOGITS_VS_PLAIN_BF16 and e_kf <= SSL_FLOOR_RATIO * e_pf
+    log(f"  new last_teacher_centers, rel L2: vs plain bf16 {e_kp:.4e} (bound {LOGITS_VS_PLAIN_BF16}), vs fp32 "
+        f"{e_kf:.4e} (bound {SSL_FLOOR_RATIO} x plain bf16 vs fp32, {e_pf:.4e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("Dino: the new centres disagree with the plain path or fp32")
+    compare_floor("Dino step", paths)
+    counts, model = paths["counts"], paths["kernel"]["model"]
+    del paths, fp32, centers
+
+    opt = torch.optim.Adam([q for q in model.parameters() if q.requires_grad], lr=SSL_LR)
+    cpu_gen = torch.Generator().manual_seed(SEED + 410)
+    teacher = [q for _, q in model.teacher_encoder.named_parameters()]
+    student = [q for _, q in model.student_encoder.named_parameters()]
+    losses = []
+    for i in range(DINO_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = model(img, generator=cpu_gen)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        old = [t.detach().clone() for t in teacher]
+        centers = model.teacher_centers.clone(), model.last_teacher_centers.clone()
+        model.update_moving_average()
+        beta, cbeta = DINO_KW["moving_average_decay"], DINO_KW["center_moving_average_decay"]
+        ema_ok = all(torch.equal(t, ema_formula(o, s, beta)) for t, o, s in zip(teacher, old, student))
+        centers_ok = torch.equal(model.teacher_centers, ema_formula(*centers, cbeta, bf16))
+        apart = not all(torch.equal(t, s) for t, s in zip(teacher, student))
+        log(f"  step {i}: loss {losses[-1]:.6f}; EMA of {len(teacher)} teacher tensors bitwise the formula "
+            f"{ema_ok}, centres {centers_ok}, teacher apart from the student {apart}")
+        if not (ema_ok and centers_ok and apart):
+            fail("Dino: the EMA update is not the formula, or the teacher equals the student")
+        del old
+    sync()
+    if not all(math.isfinite(v) for v in losses):
+        fail("the Dino loss is not finite")
+    opt.zero_grad(set_to_none=True)
+    return counts, errs, dict(dino=model, dino_opt=opt, img=img, cpu_gen=cpu_gen)
+
+
+@torch.no_grad()
+def esvit_matches(model, views):
+    """EsViT's region pairings (``es_vit.region_pairs``) of both region
+    losses."""
+    from vit_pytorch_tpu_torch.ssl.es_vit import region_pairs
+
+    s1, s2 = (model.student_encoder(v)[2] for v in views[:2])
+    t1, t2 = (model.teacher_encoder(v)[2] for v in views[2:])
+    return torch.cat([region_pairs(s2, t1), region_pairs(s1, t2)])
+
+
+def check_esvit_lejepa(fb, fa, dev, state):
+    """Phase 42: EsViT and LeJEPA on Dino's net and batch: one step each
+    against plain bf16 and the fp32 floor with exact counters (EsViT: the
+    region pairings that flip between the paths logged, and plain bf16
+    bounds only when none flips), then SSL_STEPS Adam steps with finite
+    losses."""
+    bf16 = torch.bfloat16
+    img = state["img"]
+    log(f"[42 EsViT, LeJEPA] the net and batch of phase 41; EsViT {DINO_KW}; LeJEPA {LEJEPA_KW}")
+    fp32 = ssl_model("EsViT", dev)
+    views32 = fp32.make_views(img, torch.Generator().manual_seed(SEED + 42))
+    paths = ssl_paths(fb, fa, "EsViT step", fp32, lambda m, dt: m(None, views=tuple(v.to(dt) for v in views32)),
+                      ssl_launches(2, 2), [(SSL_BS, SSL_N, 1024)] * (4 * SSL_DEPTH))
+    k, p = paths["kernel"], paths["plain"]
+    check_f32_centres("EsViT", k, ("teacher_view_centers", "last_teacher_view_centers", "teacher_region_centers",
+                                   "last_teacher_region_centers"))
+    views16 = tuple(v.to(bf16) for v in views32)
+    kernel_idx = esvit_matches(k["model"], views16)
+    with plain_layers():
+        plain_idx = esvit_matches(p["model"], views16)
+    fp32_idx = esvit_matches(paths["fp32"]["model"], views32)
+    flips, vs32 = int((kernel_idx != plain_idx).sum()), int((plain_idx != fp32_idx).sum())
+    log(f"  region pairings that flip: kernel vs plain bf16 {flips} of {kernel_idx.numel()}, plain bf16 vs fp32 "
+        f"{vs32}")
+    if flips == 0:
+        compare_grads("EsViT step vs plain bf16", k["grads"], p["grads"], k["loss"], p["loss"], SSL_VS_PLAIN,
+                      k["names"])
+    else:
+        log(f"  EsViT step vs plain bf16 (not bounded: {flips} pairings flipped): loss {k['loss']:.6f} vs "
+            f"{p['loss']:.6f}, grads rel L2 {grads_rel_l2(k['grads'], p['grads']):.4e}")
+    compare_floor("EsViT step", paths)
+    esvit_counts = paths["counts"]
+    esvit = k["model"]
+    del paths, fp32, views32, views16
+
+    fp32 = ssl_model("LeJEPA", dev)
+    views32 = fp32.make_views(img, torch.Generator().manual_seed(SEED + 420))
+    projs = torch.randn(LEJEPA_KW["sigreg_num_slices"], DINO_KW["num_classes_K"], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 42))
+    projs = projs / projs.norm(dim=-1, keepdim=True)
+    paths = ssl_paths(fb, fa, "LeJEPA step", fp32,
+                      lambda m, dt: m(None, views=tuple(v.to(dt) for v in views32), sigreg_projs=projs),
+                      ssl_launches(1, 1), [(2 * SSL_BS, SSL_N, 1024)] * (2 * SSL_DEPTH))
+    k, p = paths["kernel"], paths["plain"]
+    compare_grads("LeJEPA step vs plain bf16", k["grads"], p["grads"], k["loss"], p["loss"], SSL_VS_PLAIN, k["names"])
+    compare_floor("LeJEPA step", paths)
+    lejepa = k["model"]
+    del paths, fp32, views32, projs
+
+    for name, model in (("EsViT", esvit), ("LeJEPA", lejepa)):
+        opt = torch.optim.Adam([q for q in model.parameters() if q.requires_grad], lr=SSL_LR)
+        cpu_gen = torch.Generator().manual_seed(SEED + 421)
+        losses = []
+        for _ in range(SSL_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = model(img, generator=cpu_gen)
+            loss.backward()
+            opt.step()
+            if hasattr(model, "update_moving_average"):
+                model.update_moving_average()
+            losses.append(loss.item())
+        sync()
+        log(f"  {name}: {SSL_STEPS} Adam steps, views from a CPU generator: losses {[f'{v:.6f}' for v in losses]}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"the {name} loss is not finite")
+        opt.zero_grad(set_to_none=True)
+        state[name] = (model, opt)
+    return esvit_counts
+
+
+def check_masked_trainers(fb, fa, dev, state):
+    """Phase 43: SimMIM and MPP on Dino's net at bs=SSL_BS, one step each at
+    dropout 0 against plain bf16 with exact counters; MPP trained SSL_STEPS
+    steps at dropout and emb_dropout RATE on the attention-block kernels
+    (exact counters); MP3 against fp32 with no launch at all."""
+    bf16 = torch.bfloat16
+    img = state["img"]
+    log(f"[43 SimMIM, MPP, MP3] SimMIM {SIMMIM_KW}, MPP {MPP_KW} on the net of phase 41; MP3 ViT {MP3_VIT}, "
+        f"masking {MP3_RATIO}; bs={SSL_BS}")
+    n = SSL_N - 1
+    idx = torch.rand((SSL_BS, n), generator=torch.Generator(device=dev).manual_seed(SEED + 43),
+                     device=dev).argsort(dim=-1, descending=True)[:, : int(SIMMIM_KW["masking_ratio"] * n)]
+    paths = ssl_paths(fb, fa, "SimMIM step", ssl_model("SimMIM", dev),
+                      lambda m, dt: m(img.to(dt), masked_indices=idx), ssl_launches(1, 0),
+                      [(SSL_BS, n, 1024)] * SSL_DEPTH)
+    k, p = paths["kernel"], paths["plain"]
+    compare_grads("SimMIM step vs plain bf16", k["grads"], p["grads"], k["loss"], p["loss"], MAE_VS_PLAIN, k["names"])
+    state["SimMIM"] = k["model"]
+    del paths
+
+    positions = torch.rand((SSL_BS, n), generator=torch.Generator(device=dev).manual_seed(SEED + 430),
+                           device=dev) < MPP_KW["mask_prob"]
+    draws = lambda: torch.Generator(device=dev).manual_seed(SEED + 431)  # the replace and random-patch draws
+    paths = ssl_paths(fb, fa, "MPP step", ssl_model("MPP", dev),
+                      lambda m, dt: m(img.to(dt), masked_positions=positions, generator=draws()),
+                      ssl_launches(1, 0), [(SSL_BS, SSL_N, 1024)] * SSL_DEPTH)
+    k, p = paths["kernel"], paths["plain"]
+    compare_grads("MPP step vs plain bf16", k["grads"], p["grads"], k["loss"], p["loss"], MAE_VS_PLAIN, k["names"])
+    state["MPP"] = k["model"]
+    del paths
+
+    model = ssl_model("MPP", dev, bf16, dropout=RATE, emb_dropout=RATE).train()
+    opt = torch.optim.Adam(model.parameters(), lr=SSL_LR)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 432)
+    reset_all(fb, fa)
+    losses = []
+    for _ in range(SSL_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = model(img.to(bf16), generator=gen)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    sync()
+    log(f"  MPP at dropout {RATE}, emb_dropout {RATE}: {SSL_STEPS} Adam steps, losses {[f'{v:.6f}' for v in losses]}")
+    expect_launches(fb, fa, {k_: SSL_DEPTH * SSL_STEPS * v for k_, v in DROPOUT_LAUNCHES_PER_LAYER.items()},
+                    f"MPP at dropout {RATE} ({SSL_DEPTH} attention blocks x 11 launches x {SSL_STEPS} steps)")
+    if not all(math.isfinite(v) for v in losses):
+        fail("the MPP loss at dropout is not finite")
+    del model, opt
+
+    fp32 = ssl_model("MP3", dev)
+    model = copy.deepcopy(fp32).to(bf16)
+    perm = torch.rand((SSL_BS, n), generator=torch.Generator(device=dev).manual_seed(SEED + 433),
+                      device=dev).argsort(dim=-1)
+    reset_all(fb, fa)
+    loss = model(img.to(bf16), rand_indices=perm)
+    loss.backward()
+    sync()
+    expect_launches(fb, fa, {}, "MP3 (its cross-attention takes the composite)")
+    loss32 = fp32(img, rand_indices=perm)
+    loss32.backward()
+    names, grads = trained_grads(model)
+    fnames, fgrads = trained_grads(fp32)
+    if names != fnames:
+        fail("MP3: the paths differ in which parameters have gradients")
+    compare_grads("MP3 step (bf16, no kernel) vs fp32", grads, fgrads, loss.item(), loss32.item(), MP3_VS_FP32, names)
+    model.zero_grad(set_to_none=True)
+    state["MP3"] = model
+
+
+def busy_share(spans):
+    """(the device's busy share, the window): the union of the device
+    events' (start, end) spans over the window from the first start to the
+    last end, in the spans' unit."""
+    spans = sorted(spans)
+    window = max(end for _, end in spans) - spans[0][0]
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / window, window
+
+
+def profiled_busy(fn):
+    """The device's busy share of one profiled call of ``fn`` (after a
+    warm-up call; chip_zoo_profile.py's method): the union of the device
+    events' spans over the window from the first one's start to the last
+    one's end, with the device kernel time and the window in ms, and the
+    host ops of most self CPU time.  None where CUPTI gave no device
+    records twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        if spans:
+            break
+    else:
+        return None
+    busy, window = busy_share(spans)
+    # where the host's time goes: the ops of most self CPU time
+    ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0), key=lambda e: -e.self_cpu_time_total)
+    top = ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}" for e in ops[:8])
+    return busy, sum(b - a for a, b in spans) / 1e3, window / 1e3, top
+
+
+def time_ssl(fb, dev, smi, state):
+    """Phase 44: each trainer's ms/step on the host clock around SSL_STEPS
+    steps after a warm-up, the kernel and plain paths in turns (P K K P),
+    Dino's peak memory, the busy share of one profiled Dino step, and each
+    chain kernel at Dino's shape.  Returns the kernels-line records."""
+    log(f"[44 SSL timing] bs={SSL_BS}, {smi}")
+
+    def step_fn(model, opt, run):
+        def step():
+            opt.zero_grad(set_to_none=True)
+            run(model).backward()
+            opt.step()
+            if hasattr(model, "update_moving_average"):
+                model.update_moving_average()
+        return step
+
+    def plain(fn):
+        def run():
+            with plain_layers():
+                fn()
+        return run
+
+    img, cpu_gen = state["img"], state["cpu_gen"]
+    img16 = img.to(torch.bfloat16)
+    n = SSL_N - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    adam = lambda m: torch.optim.Adam([q for q in m.parameters() if q.requires_grad], lr=SSL_LR)
+    steps = (
+        ("Dino", state["dino"], state["dino_opt"], lambda m: m(img, generator=cpu_gen)),
+        ("EsViT", *state["EsViT"], lambda m: m(img, generator=cpu_gen)),
+        ("LeJEPA", *state["LeJEPA"], lambda m: m(img, generator=cpu_gen)),
+        ("SimMIM", state["SimMIM"], adam(state["SimMIM"]), lambda m: m(img16, generator=gen)),
+        ("MPP", state["MPP"], adam(state["MPP"]), lambda m: m(img16, generator=gen)),
+        ("MP3", state["MP3"], adam(state["MP3"]), lambda m: m(img16, generator=gen)),
+    )
+    for name, model, opt, run in steps:
+        kernel = step_fn(model, opt, run)
+        (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f, SSL_STEPS)
+                                                      for f in (plain(kernel), kernel, kernel, plain(kernel)))
+        note = " (no kernel: both paths plain)" if name == "MP3" else ""
+        log(f"  {name} training bs={SSL_BS}{note}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+            f"{(p1 + p2) / 2:.3f} ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; "
+            f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+        if name == "Dino":
+            busy = profiled_busy(kernel)
+            log("  one profiled Dino step: the profiler saw no device time (busy share not measured)" if busy is None
+                else f"  one profiled Dino step: device busy {busy[0]:.4f} of the window ({busy[2]:.3f} ms), device "
+                     f"kernel time {busy[1]:.3f} ms; host ops by self CPU time: {busy[3]}")
+        opt.zero_grad(set_to_none=True)
+    state.clear()
+    sync()
+    label, b, n_, dim, heads, mlp = SSL_ENTRY
+    log(f"  each chain launch at {label}'s shape: b={b} n={n_} dim={dim} heads={heads} mlp={mlp}")
+    return chain_entry_times(fb, edge_rnd(SEED + 44), label, b, n_, dim, heads, mlp)
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -5803,6 +6320,24 @@ def main():
     del vivit_state, mae_state, zoo_served, zoo_inputs
     phase_done("phase 40")
 
+    # -- 41. Dino trained at full width ----------------------------------------------------------
+    dino_counts, dino_errs, ssl_state = check_dino(fb, fa, dev)
+    errs.update(dino_errs)
+    phase_done("phase 41")
+
+    # -- 42. EsViT and LeJEPA ---------------------------------------------------------------------
+    check_esvit_lejepa(fb, fa, dev, ssl_state)
+    phase_done("phase 42")
+
+    # -- 43. SimMIM, MPP (dropout 0 and 0.1) and MP3 --------------------------------------------------
+    check_masked_trainers(fb, fa, dev, ssl_state)
+    phase_done("phase 43")
+
+    # -- 44. their timing; each chain launch at Dino's shape ---------------------------------------
+    per_kernel.update(time_ssl(fb, dev, smi, ssl_state))
+    del ssl_state
+    phase_done("phase 44")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -5870,7 +6405,8 @@ def main():
                  name, SOURCE), TPU_BWD_KERNEL if name in CHAIN_BWD else TPU_KERNEL, path, counts_[name])
            for label, fwd, bwd, fwd_path, bwd_path in (
                ("ViViT spatial", vivit_counts, vivit_train_counts, "ViViT serving", "ViViT training"),
-               ("MAE encoder", mae_counts, mae_counts, "MAE pretraining", "MAE pretraining"))
+               ("MAE encoder", mae_counts, mae_counts, "MAE pretraining", "MAE pretraining"),
+               (SSL_ENTRY[0], dino_counts, dino_counts, "Dino training", "Dino training"))
            for name, counts_, path in [(n_, fwd, fwd_path) for n_ in CHAIN_FWD]
            + [(n_, bwd, bwd_path) for n_ in CHAIN_BWD]]
     )
@@ -5915,7 +6451,9 @@ def main():
         "the chain's launches at b=128 n=65 and b=256 n=16, dim 1024, 8 heads (inner 512), mlp 2048, their "
         "launches from ViViT's serving requests (forward; spatial and temporal layers) and 2 training steps "
         "(backward) and from one MAE step at the fixed permutation (encoder and decoder layers); the chain's "
-        "errors at that shape in phase 36)")
+        "errors at that shape in phase 36; the entries '<kernel> @ Dino': the chain's launches at b=20 n=65, dim "
+        "1024, 8 heads, mlp 2048, their launches from one Dino step (the student's two calls with gradients, the "
+        "teacher's two without), errors from phase 41)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -42,6 +42,8 @@ def group(name):
 
 def profile_steps(label, step):
     import torch
+
+    import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(STEPS):
@@ -67,22 +69,15 @@ def profile_steps(label, step):
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         by_group[group(e.name)] = by_group.get(group(e.name), 0.0) + us
         spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    window = max(b for _, b in spans) - spans[0][0]
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy, end = busy + b - a, b
-        elif b > end:
-            busy, end = busy + b - end, b
+    busy, window = cs.busy_share(spans)
     total = sum(by_name.values())
     print(f"[{label}] {step_ms:.3f} ms a step unprofiled; profiled, device kernel time {total / 1e3 / STEPS:.3f} ms "
-          f"a step, device busy {busy / window:.4f} of the window ({window / 1e3 / STEPS:.3f} ms a step)")
+          f"a step, device busy {busy:.4f} of the window ({window / 1e3 / STEPS:.3f} ms a step)")
     for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  group {t / total:7.4f}  {t / 1e3 / STEPS:8.4f} ms a step  {g}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {t / total:7.4f}  {t / 1e3 / STEPS:8.4f} ms a step  {name[:110]}")
-    print(json.dumps({"model": label, "step_ms": step_ms, "device_busy": busy / window,
+    print(json.dumps({"model": label, "step_ms": step_ms, "device_busy": busy,
                       "groups": {g: t / total for g, t in by_group.items()}}), flush=True)
 
 

@@ -16,13 +16,18 @@ it) on the flash kernels, with the in-tile qk-norm behind the JAX switch
 as the port's bench tools (``tools/``); ViViT (``models.vivit``, both
 variants, with a frame mask), MAE pretraining (``ssl.mae``) on the
 whole-layer kernels; MaxViT (``models.max_vit``, with register tokens
-beside it), whose 49-token windows take the attention composite.
+beside it), whose 49-token windows take the attention composite; the SSL
+trainers Dino (``ssl.dino``, with the augmentations of ``ssl.augment``),
+EsViT (``ssl.es_vit``), LeJEPA (``ssl.lejepa``), SimMIM (``ssl.simmim``)
+and MPP (``ssl.mpp``) on the whole-layer kernels, and MP3 (``ssl.mp3``),
+whose cross-attention takes the composite.
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT
 from vit_pytorch_tpu_torch.models.vit import ViT
+from vit_pytorch_tpu_torch.ssl.dino import Dino
 from vit_pytorch_tpu_torch.ssl.mae import MAE
 
-__all__ = ["SimpleViT", "ViT", "MAE"]
+__all__ = ["SimpleViT", "ViT", "MAE", "Dino"]
 
 __version__ = "0.1.0"

@@ -16,7 +16,12 @@ the inverse of ``convert_vivit``); the MAE map is the inverse of
 ``convert_mae`` (the encoder under ``encoder/``); the MaxViT maps, the
 inverses of ``convert_max_vit`` and ``convert_max_vit_with_registers``,
 take the ``batch_stats`` tree too, whose ``mean``/``var`` leaves become the
-BatchNorms' ``running_mean``/``running_var``.  ``tool_layer_from_jax``
+BatchNorms' ``running_mean``/``running_var``.  The SSL trainers' maps are
+the inverses of ``convert_dino`` (the student; the teacher from the JAX
+``DinoState.teacher_params``), ``convert_lejepa``, ``convert_simmim``,
+``convert_mpp`` and ``convert_mp3``; EsViT, which has no converter, takes
+Dino's names with ``view_projector`` and ``region_projector``.
+``tool_layer_from_jax``
 carries the weight tuples of the JAX package's layer prototypes in
 ``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
 
@@ -111,6 +116,21 @@ _MAE_MODULES = (
     *((f"encoder/{p}", f"encoder.{v}") for p, v in _VIT_MODULES[:10]),
     *((p.replace("transformer", "decoder", 1), v.replace("transformer", "decoder", 1)) for p, v in _VIT_MODULES[3:10]),
     (r"(enc_to_dec|decoder_pos_emb|to_pixels)", r"\1"),
+)
+# ssl/mp3.py: split to_q/to_kv, the reference's LN + Linear heads
+_MP3_MODULES = (
+    (r"vit/patch_embedding/norm_pre", "vit.to_patch_embedding.1"),
+    (r"vit/patch_embedding/proj", "vit.to_patch_embedding.2"),
+    (r"vit/patch_embedding/norm_post", "vit.to_patch_embedding.3"),
+    (r"vit/transformer/layers_(\d+)_attn/(norm|to_q|to_kv)", r"vit.transformer.layers.\1.0.\2"),
+    (r"vit/transformer/layers_(\d+)_attn/to_out", r"vit.transformer.layers.\1.0.to_out.0"),
+    (r"vit/transformer/layers_(\d+)_ff/norm", r"vit.transformer.layers.\1.1.net.0"),
+    (r"vit/transformer/layers_(\d+)_ff/fc1", r"vit.transformer.layers.\1.1.net.1"),
+    (r"vit/transformer/layers_(\d+)_ff/fc2", r"vit.transformer.layers.\1.1.net.4"),
+    (r"vit/head_norm", "vit.linear_head.0"),
+    (r"vit/linear_head", "vit.linear_head.1"),
+    (r"mlp_head_norm", "mlp_head.0"),
+    (r"mlp_head", "mlp_head.1"),
 )
 # models/max_vit.py: the MBConv's children (reference max_vit.py:90-117)
 _MBCONV = (
@@ -242,6 +262,80 @@ def mae_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     ``state_dict``.  The JAX encoder has no ``mlp_head`` (MAE never calls
     it): load with ``strict=False`` where the port's encoder has one."""
     return _state_dict(params, _MAE_MODULES, (("encoder/(cls_token|pos_embedding)", r"encoder.\1"), "mask_token"))
+
+
+def _vit_under(jax_scope: str, torch_prefix: str):
+    """The port ``ViT``'s modules and top-level parameters with the JAX tree
+    under ``jax_scope/`` and the torch keys under ``torch_prefix.``."""
+    modules = tuple((f"{jax_scope}/{p}", f"{torch_prefix}.{t}") for p, t in _VIT_MODULES)
+    return modules, ((f"{jax_scope}/(cls_token|pos_embedding)", rf"{torch_prefix}.\1"),)
+
+
+def _net_wrapper(params: Mapping, jax_scope: str, torch_prefix: str, projectors) -> dict[str, torch.Tensor]:
+    """A Dino ``NetWrapper`` (or EsViT's): the JAX net at the top-level
+    ``net/`` (flax shares it with the wrapper), each projector's ``fc{i}``
+    and ``out`` under ``jax_scope/`` at ``{torch_prefix}.{projector}.net.{2i}``
+    and ``.net.{2L - 1}``."""
+    modules, top = _vit_under("net", f"{torch_prefix}.net")
+    for name in projectors:
+        fcs = sorted(int(k[2:]) for k in params[jax_scope][name] if k.startswith("fc"))
+        modules += tuple((f"{jax_scope}/{name}/fc{i}", f"{torch_prefix}.{name}.net.{2 * i}") for i in fcs)
+        modules += ((f"{jax_scope}/{name}/out", f"{torch_prefix}.{name}.net.{2 * len(fcs) + 1}"),)
+    return _state_dict(params, modules, top)
+
+
+def _student_teacher(params: Mapping, teacher_params, projectors) -> dict[str, torch.Tensor]:
+    teacher = params if teacher_params is None else teacher_params
+    if "params" in teacher:  # the variables dict DinoState holds
+        teacher = teacher["params"]
+    return {**_net_wrapper(params, "student_encoder", "student_encoder", projectors),
+            **_net_wrapper(teacher, "student_encoder", "teacher_encoder", projectors)}
+
+
+def dino_state_dict_from_jax(params: Mapping, teacher_params: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/dino.py::Dino``'s ``params`` tree -> the port
+    ``Dino``'s ``state_dict``: the student from ``params``, the teacher from
+    ``teacher_params`` (``DinoState.teacher_params``, or its ``params``
+    tree), else from ``params``, as ``create_state`` copies them.  The
+    centres are not in the tree: load with ``strict=False``."""
+    return _student_teacher(params, teacher_params, ("projector",))
+
+
+def esvit_state_dict_from_jax(params: Mapping, teacher_params: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/es_vit.py::EsViTTrainer``'s ``params`` tree -> the port
+    ``EsViTTrainer``'s ``state_dict``, the teacher as in
+    :func:`dino_state_dict_from_jax`."""
+    return _student_teacher(params, teacher_params, ("view_projector", "region_projector"))
+
+
+def lejepa_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/lejepa.py::LeJEPA``'s ``params`` tree -> the port
+    ``LeJEPA``'s ``state_dict``."""
+    return _net_wrapper(params, "encoder", "encoder", ("projector",))
+
+
+def simmim_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/simmim.py::SimMIM``'s ``params`` tree -> the port
+    ``SimMIM``'s ``state_dict``.  The JAX encoder has no ``mlp_head``
+    (SimMIM never calls it): load with ``strict=False`` where the port's
+    encoder has one."""
+    modules, top = _vit_under("encoder", "encoder")
+    return _state_dict(params, modules + (("to_pixels", "to_pixels"),), top + ("mask_token",))
+
+
+def mpp_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/mpp.py::MPP``'s ``params`` tree -> the port ``MPP``'s
+    ``state_dict`` (the encoder's head absent, as for SimMIM)."""
+    modules, top = _vit_under("transformer", "transformer")
+    return _state_dict(params, modules + (("to_bits", "to_bits"),), top + ("mask_token",))
+
+
+def mp3_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ssl/mp3.py::MP3``'s ``params`` tree -> the port ``MP3``'s
+    ``state_dict``.  The JAX tree has no ``vit/head_norm`` and
+    ``vit/linear_head`` (MP3 never calls the ViT's head): load with
+    ``strict=False``."""
+    return _state_dict(params, _MP3_MODULES, ())
 
 
 def _with_stats(params: Mapping, batch_stats, modules, top_level) -> dict[str, torch.Tensor]:
