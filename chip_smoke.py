@@ -299,6 +299,46 @@ Phases, each printed as it ends:
      busy share of one profiled Dino step, and each chain kernel at Dino's
      (20, 65) shape against its twin, its bound and its library call, an
      entry of its own in the kernels line.
+ 45. the attention kernels at the VLA cross-attention shapes (8 heads of 64,
+     no ids): flash_fwd (o, lse), flash_bwd_dq and flash_bwd_dkv (twice,
+     bitwise) against their twins at (b, n, m) = (8, 54, 1536), (4, 13,
+     1576) and (8, 56, 1536), short_attention at (8, 54, 1024) and (4, 13,
+     1024), each Function against autograd through the f32 composite; no
+     flash_fwd launch writes an o row or an lse value past n (the padded
+     rows of its last query tile; a NaN slack around caller-given buffers),
+     and a mutant that drops the lse store's row guard (built in a thread
+     from phase 2 on) is refused; the dispatcher at 1,023, 1,024 and 1,025
+     keys takes the composite, the short kernel and the flash kernels, one
+     launch each;
+ 46. SigLIPVAT at the reference's defaults (pi0's action head: dim 512, depth
+     27, 8 heads of 64, mlp 2048, 50 actions of 32; SigLIP so400m/14 @224:
+     1152, depth 27, 16 heads, mlp 4304) at (3, 2) views x frames behind a
+     Predictor with buckets (1, 8): exact counters (27 flash_fwd a bucket
+     run), pred_action against the plain bf16 path and fp32 on the noise
+     floor of phase 13, a depth-2 full-width copy against fixed bounds; (2,
+     2) on the short kernel (27 launches), (3, 1) on the composite (none);
+     the first training step's loss and gradients against plain bf16 and
+     the fp32 floor (fp32 at full depth), 3 AdamW(1e-4) steps (27 of each
+     flash kernel a step), a step with freeze_vit (the tower no gradient,
+     the counters unchanged), and load_siglip on an HF dict of the tower,
+     the loaded tower's tokens bitwise the module's;
+ 47. VAT_B (the VAT ViT at ViT-B/16 widths, VAT dim 512, depth 12, 2 views
+     x 4 frames, 4 tasks, 2 advantage bins, a 32-dim extra token: 13
+     queries against 1,576 keys) and VAAT_B (an AST of ViT-B widths on 1 s
+     of 16 kHz audio besides) at bs=4: served (12 flash_fwd) against plain
+     bf16 and fp32 on the noise floor, 2 training steps (the first against
+     plain bf16 and the fp32 floor); the spectrogram on the card against
+     the CPU's; Recorder(ViT-B/16) (no launch; the maps against the plain
+     chain's and fp32, the preds within phase 4's bounds; the 12 x 7 chain
+     after eject), Extractor (the chain's counters; the embeddings bitwise
+     the transformer's output) and AcceptVideoWrapper (16 frames in one
+     chain, against plain bf16);
+ 48. their timing: SigLIPVAT ms a batch served and ms/step trained with
+     peak memory (kernel and plain in turns, K P P K), the busy share of
+     one profiled step, VAT_B's and VAAT_B's ms/step; each flash kernel and
+     the short kernel at phase 45's shapes by device time against its twin,
+     its bound and its library call, the SigLIPVAT and VAT_B shapes an
+     entry each in the kernels line.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -695,17 +735,19 @@ def sdpa_bwd_only_ms(q, k, v, do, iters, **kw):
     return fwd_bwd - fwd
 
 
-def flash_backend_bwd_ms(q, k, v, do, iters, causal=False, dropout_p=0.0):
+def flash_backend_bwd_ms(q, k, v, do, iters, causal=False, dropout_p=0.0, timer=None):
     """(ms, what) of the library's backward beside the flash backward kernels
     without ids: PyTorch's flash-attention backward, one aten call for dq,
     dk and dv fed its own forward's output and logsumexp, where this torch
-    exposes it; else :func:`sdpa_bwd_only_ms`."""
+    exposes it (timed by ``timer``, default :func:`cuda_ms`); else
+    :func:`sdpa_bwd_only_ms`."""
     aten = torch.ops.aten
     scale = q.shape[-1] ** -0.5
+    timer = timer or cuda_ms
     try:
         o, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
             q, k, v, dropout_p, causal, False, scale=scale)[:8]
-        ms = cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        ms = timer(lambda: aten._scaled_dot_product_flash_attention_backward(
             do, q, k, v, o, lse, cq, ck, mq, mk, dropout_p, causal, seed, offset, scale=scale), iters)
         return ms, FLASH_BACKEND_BWD
     except (AttributeError, RuntimeError, TypeError) as e:
@@ -3481,23 +3523,23 @@ def causal_pairs(n, m):
     return int(np.minimum(i + 1, m).sum())
 
 
-def pair_work(name, b, n, m, pairs, *, dropout=False, qknorm=False, bias_bytes=0):
+def pair_work(name, b, n, m, pairs, *, dropout=False, qknorm=False, bias_bytes=0, heads=HEADS):
     """The work of one launch of the short kernel or a flash variant on
-    (b, HEADS, n | m, DH) operands, of which ``pairs`` (query, key) pairs a
+    (b, heads, n | m, DH) operands, of which ``pairs`` (query, key) pairs a
     slice are visible: 4, 6, 8 DH bf16 products a pair for the forward, dq,
     dkv (4 for the short kernel), ~5 f32 operations a pair, a Philox draw a
     pair with dropout; each operand read once, each output written once (q,
     k, v, o; dO, dq; dk, dv; the f32 lse and delta), the bias's unique bytes;
     qk-norm adds the gammas and ~6 f32 operations an element of q and k."""
-    tq, tk, vec = b * HEADS * n * DH * 2, b * HEADS * m * DH * 2, b * HEADS * n * 4
+    tq, tk, vec = b * heads * n * DH * 2, b * heads * m * DH * 2, b * heads * n * 4
     per_pair, bytes_ = {"short_attention": (4, 2 * tq + 2 * tk), "flash_fwd": (4, 2 * tq + 2 * tk + vec),
                         "flash_bwd_dq": (6, 3 * tq + 2 * tk + 2 * vec),
                         "flash_bwd_dkv": (8, 2 * tq + 4 * tk + 2 * vec)}[name.split("[")[0]]
-    total = b * HEADS * pairs
+    total = b * heads * pairs
     f32 = (5 + (PHILOX_OPS_PER_ELEMENT if dropout else 0)) * total
     if qknorm:
-        bytes_ += 2 * HEADS * DH * 4
-        f32 += 6 * b * HEADS * (n + m) * DH
+        bytes_ += 2 * heads * DH * 4
+        f32 += 6 * b * heads * (n + m) * DH
     return work(bytes_ + bias_bytes, tensor=per_pair * DH * total, f32=f32)
 
 
@@ -5959,6 +6001,778 @@ def time_ssl(fb, dev, smi, state):
     return chain_entry_times(fb, edge_rnd(SEED + 44), label, b, n_, dim, heads, mlp)
 
 
+# -- the VLA slice (phases 45-48): SigLIPVAT, VAT and VAAT, the wrappers ---------
+# SIGLIP_VAT: SigLIPVAT at the reference's defaults (vat_siglip.py:263-286),
+# uncut: pi0's action head (Black et al. 2024, dim 512, depth 27, 8 heads of
+# 64, mlp 2048, a chunk of 50 actions of 32 dims, 4 register tokens,
+# self-attention 4 heads of 32) on SigLIP so400m/14 @224 (1152, depth 27, 16
+# heads, mlp 4304, eps 1e-6).  Views x frames: pi0's three cameras x Octo's
+# two-frame history, 1,536 context keys a layer (the flash route); (2, 2),
+# 1,024 (the short route); (3, 1), 768 (the composite).
+SIGLIP_VIEWS = {"flash": (3, 2), "short": (2, 2), "composite": (3, 1)}
+SIGLIP_DEPTH = 27
+SIGLIP_QUERIES = 4 + 50  # registers and actions
+SIGLIP_BUCKETS = (1, 8)
+SIGLIP_BS, SIGLIP_STEPS, SIGLIP_LR = 8, 3, 1e-4
+SIGLIP_SHALLOW = 2  # the full-width copy held to fixed bounds
+VLA_HEADS = 8
+# VAT_B: the VAT ViT at ViT-B/16 @224 widths, 2 views x 4 frames (2 x 4 x 197
+# = 1,576 keys), 4 tasks, 2 advantage bins, a 32-dim extra token: 4 + 1 + 7
+# + 1 = 13 queries.  VAAT_B: VAT_B and an AST of the same widths on 1 s of
+# 16 kHz audio (65 x 1,334 cropped to 64 x 1,328: 332 patches + 4 registers)
+VAT_B_VIT = dict(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP)
+VAT_B = dict(dim=512, depth=DEPTH, heads=VLA_HEADS, dim_head=DH, mlp_dim=2048, dim_action=32, time_seq_len=4,
+             num_tasks=4, num_advantage_bins=2, dim_extra_token=32)
+VAT_B_VIEWS, VAT_B_QUERIES, VAT_B_KEYS = 2, 4 + 1 + 7 + 1, 2 * 4 * N
+VAAT_B_AST = dict(dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP, patch_size=16)
+VAT_BS, VAT_STEPS, AUDIO_SAMPLES = 4, 2, 16000
+# phase 45's kernel shapes, (label, b, n, m) at 8 heads of 64: SigLIPVAT's
+# cross-attention at (3, 2), VAT_B's, and SigLIPVAT with an advantage and an
+# extra token (56 queries); the short kernel at (2, 2) and at 13 queries
+VLA_FLASH = (("SigLIPVAT", SIGLIP_BS, SIGLIP_QUERIES, 1536), ("VAT_B", VAT_BS, VAT_B_QUERIES, VAT_B_KEYS),
+             ("SigLIPVAT + 2 tokens", SIGLIP_BS, SIGLIP_QUERIES + 2, 1536))
+VLA_SHORT = (("SigLIPVAT", SIGLIP_BS, SIGLIP_QUERIES, 1024), ("13 queries", VAT_BS, VAT_B_QUERIES, 1024))
+VLA_ENTRIES = ("SigLIPVAT", "VAT_B")  # the flash shapes a model path launches: entries of the kernels line
+VLA_EDGE_KEYS = {1023: {}, 1024: {"short_attention": 1}, 1025: {"flash_fwd": 1}}
+VLA_SLACK = 128  # a flash_fwd block's query rows: rows past n (lse values past the last pair) no launch may write
+# The padded-row mutant: flash_fwd writing the lse of its last query tile's
+# rows past n (the row guard dropped), into the next pair's rows and past the
+# tensor; phase 45's slack check must refuse it
+VLA_MUTANT = (
+    "flash_attention.cu",
+    "    if (row_lo < a.n) lse[row_lo] = l0 == 0.f ? kNegInf : m0 + logf(l0);\n"
+    "    if (row_lo + 8 < a.n) lse[row_lo + 8] = l1 == 0.f ? kNegInf : m1 + logf(l1);\n",
+    "    lse[row_lo] = l0 == 0.f ? kNegInf : m0 + logf(l0);\n"
+    "    lse[row_lo + 8] = l1 == 0.f ? kNegInf : m1 + logf(l1);\n",
+)
+# SigLIPVAT at depth 27 in bf16 from random weights may be chaotic, as NaViT-B
+# is (phase 13): its pred_action is held to the noise floor measured in the
+# run (VLA_NOISE_RATIO, VLA_INPUT_NOISE); the depth-2 full-width copy to
+# fixed bounds; each first training step's loss and gradients to the fp32
+# floor of phase 41 (SSL_FLOOR_RATIO x plain bf16's distance from fp32), and
+# against plain bf16 within VLA_NOISE_RATIO x that distance
+VLA_NOISE_RATIO, VLA_INPUT_NOISE = 1.5, 1e-3
+SIGLIP_SHALLOW_VS_PLAIN, SIGLIP_SHALLOW_VS_FP32 = 2e-2, 5e-2
+# the spectrogram on the card (cuFFT) against the CPU's, both f32: only the
+# FFT's summation order differs
+SPEC_REL_L2, SPEC_ATOL_FRAC = 1e-5, 1e-5
+# the Recorder's maps: the recording path (the bf16 composite) against the
+# maps of the plain chain's layer inputs and against fp32
+RECORDER_VS_PLAIN, RECORDER_VS_FP32 = 2e-2, 5e-2
+
+
+def vla_qkv(gen, dev, b, n, m, heads=VLA_HEADS):
+    """q (b, heads, n, 64) and k, v (b, heads, m, 64) bf16, N(0, 1), in the
+    layouts the VLA cross-attention hands the kernels: q a view of its to_q
+    output (b, n, heads * 64), k and v the halves of its to_kv output."""
+    inner = heads * DH
+    q = torch.randn(b, n, inner, generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn(b, m, 2 * inner, generator=gen, device=dev).to(torch.bfloat16)
+    split = lambda t: t.reshape(b, t.shape[1], heads, DH).transpose(1, 2)
+    return split(q), *(split(t) for t in kv.chunk(2, dim=-1))
+
+
+def flash_fwd_into(fa, q, k, v, o, lse):
+    """flash_fwd's launch writing into the caller's o (a (b, h, n, 64) view
+    with the kernels' strides) and lse (b * h * n f32 values at its start):
+    the slack around them shows what a launch writes past n."""
+    from vit_pytorch_tpu_torch.ops._build import load_library
+
+    b, h, n, d = q.shape
+    lib = load_library()
+    err = lib.lib.vit_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), None, None, None, None, None, 0,
+        b, h, n, k.shape[2], d, DH**-0.5, 0, *fa._dropout("flash_fwd", 0.0, None, h),
+        fa._strides(q, k, v, None, o, None), torch.cuda.current_stream().cuda_stream)
+    lib.check("flash_fwd", err)
+
+
+def slack_writes(fa, q, k, v):
+    """(o, lse, rows past n written): flash_fwd into an o with VLA_SLACK rows
+    past n an image and an lse with VLA_SLACK values past its end, all
+    filled with NaN first; a right launch leaves every one of them NaN."""
+    b, h, n, _ = q.shape
+    o_buf = torch.full((b, n + VLA_SLACK, h, DH), float("nan"), dtype=torch.bfloat16, device=q.device)
+    lse_buf = torch.full((b * h * n + VLA_SLACK,), float("nan"), dtype=torch.float32, device=q.device)
+    o = o_buf[:, :n].transpose(1, 2)
+    flash_fwd_into(fa, q, k, v, o, lse_buf)
+    sync()
+    written = int((~o_buf[:, n:].isnan()).any(-1).any(-1).sum()) + int((~lse_buf[b * h * n:].isnan()).sum())
+    return o, lse_buf[: b * h * n].view(b, h, n), written
+
+
+def start_padded_row_mutant():
+    """Copy csrc/ under build/mutants/, make VLA_MUTANT's edit and build its
+    library in a thread (only flash_attention.cu compiles: the other objects
+    are shared), while the phases before 45 run.  Returns the dict the
+    thread fills with ``lib`` (or ``error``) and the thread."""
+    import shutil
+    import threading
+    from vit_pytorch_tpu_torch.ops import _build
+
+    d = _build.build_dir() / "mutants" / "vla-padded-rows"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, d)
+    fname, old, new = VLA_MUTANT
+    text = (d / fname).read_text()
+    if text.count(old) != 1:
+        fail(f"the padded-row mutant's text occurs {text.count(old)} times in {fname}")
+    (d / fname).write_text(text.replace(old, new))
+    out = {}
+
+    def build():
+        try:
+            out["lib"] = _build.build_library(d)
+        except Exception as e:  # reported in phase 45
+            out["error"] = e
+
+    out["thread"] = threading.Thread(target=build, daemon=True)
+    out["thread"].start()
+    return out
+
+
+def check_vla_kernels(fb, fa, dev, mutant):
+    """Phase 45: flash_fwd (o, lse), flash_bwd_dq and flash_bwd_dkv (twice,
+    bitwise) against their twins at the VLA shapes, the short kernel too;
+    the Functions against autograd through the f32 composite; no launch
+    writes a row past n (the padded rows of the last query tile) and the
+    padded-row mutant is refused; the dispatcher's route at 1,023, 1,024 and
+    1,025 keys.  Returns the largest max_abs of each kernel entry."""
+    from vit_pytorch_tpu_torch.ops import _build
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+    from vit_pytorch_tpu_torch.ops.attention import dot_product_attention, xla_attention
+
+    log(f"[45 VLA attention kernels] bf16, {VLA_HEADS} heads of {DH}: flash at (b, n, m) = "
+        f"{[case[1:] for case in VLA_FLASH]}, short at {[case[1:] for case in VLA_SHORT]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    scale = DH**-0.5
+    errs = {}
+    for label, b, n, m in VLA_FLASH:
+        q, k, v = vla_qkv(gen, dev, b, n, m)
+        do = torch.randn(b, VLA_HEADS, n, DH, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, scale=scale)
+            o_want, lse_want = fa.flash_fwd_reference(q, k, v, scale=scale)
+            e = {"flash_fwd": compare(f"flash_fwd o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL)}
+            e["flash_fwd"] = max(e["flash_fwd"], compare(f"flash_fwd lse [{label}]", lse, lse_want, FLASH_LSE_ATOL,
+                                                         FLASH_LSE_RTOL, F32_REL_L2))
+            o_s, lse_s, written = slack_writes(fa, q, k, v)
+            same = torch.equal(o_s, o) and torch.equal(lse_s, lse)
+            log(f"  flash_fwd [{label}]: {n} queries in {-(-n // 64)} tile(s), {-n % 64} padded rows; rows and lse "
+                f"values written past n into the NaN slack: {written}; o and lse bitwise the wrapper's: {same}")
+            if written or not same:
+                fail(f"flash_fwd [{label}] wrote past n, or into its caller's buffers otherwise than the wrapper")
+            delta = (do.float() * o.float()).sum(-1)
+            dq, dk, dv = flash_bwd_twice(fa, label, q, k, v, do, lse, delta, scale=scale)
+            want = fa.flash_bwd_reference(q, k, v, do, lse, delta, scale=scale)
+            for kernel, part, got, w in (("flash_bwd_dq", "dq", dq, want[0]), ("flash_bwd_dkv", "dk", dk, want[1]),
+                                         ("flash_bwd_dkv", "dv", dv, want[2])):
+                e[kernel] = max(e.get(kernel, 0.0), compare(f"{kernel} {part} [{label}]", got, w, None, ATTN_RTOL,
+                                                            atol_frac=BWD_ATOL_FRAC))
+        errs.update({f"{kernel} @ {label}": err for kernel, err in e.items()})
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves)
+        got = (out, *torch.autograd.grad(out, leaves, do))
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out_ref = fa.flash_attention_reference(*ref)
+        for part, a, w in zip(("o", "dq", "dk", "dv"), got, (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))):
+            compare(f"flash_attention {part} vs f32 composite [{label}]", a, w, None, ATTN_RTOL, FLASH_VS_F32_REL_L2,
+                    atol_frac=FLASH_VS_F32_ATOL_FRAC)
+        if label == VLA_FLASH[0][0]:
+            mutant_case = (q, k, v, o, lse)
+        sync()
+
+    for label, b, n, m in VLA_SHORT:
+        q, k, v = vla_qkv(gen, dev, b, n, m)
+        do = torch.randn(b, VLA_HEADS, n, DH, generator=gen, device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            e = compare(f"short_attention [{label}]", sa.short_fwd(q, k, v, scale=scale),
+                        sa.short_attention_reference(q, k, v, scale=scale), ATTN_ATOL, ATTN_RTOL)
+        errs[f"short_attention @ {label}"] = e
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sa.short_attention(*leaves)
+        got = (out, *torch.autograd.grad(out, leaves, do))
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out_ref = xla_attention(*ref)
+        for part, a, w in zip(("o", "dq", "dk", "dv"), got, (out_ref, *torch.autograd.grad(out_ref, ref, do.float()))):
+            compare(f"short_attention {part} vs f32 composite [{label}]", a, w, None, ATTN_RTOL, FLASH_VS_F32_REL_L2,
+                    atol_frac=FLASH_VS_F32_ATOL_FRAC)
+        sync()
+
+    # the dispatcher at the edge of the routes, 54 queries (JAX attention.py:235-288)
+    for m, want in VLA_EDGE_KEYS.items():
+        q, k, v = vla_qkv(gen, dev, SIGLIP_BS, SIGLIP_QUERIES, m)
+        reset_all(fb, fa)
+        with torch.inference_mode():
+            out = dot_product_attention(q, k, v)
+        sync()
+        expect_launches(fb, fa, want, f"dot_product_attention at {m} keys")
+        e = rel_l2(out, xla_attention(q.float(), k.float(), v.float()))
+        log(f"  dot_product_attention at {m} keys: {'the composite' if not want else next(iter(want))}; rel L2 vs the "
+            f"f32 composite {e:.3e} (bound {FLASH_VS_F32_REL_L2})")
+        if not e <= FLASH_VS_F32_REL_L2:
+            fail(f"dot_product_attention at {m} keys disagrees with the f32 composite")
+
+    # the padded-row mutant, built in a thread since phase 2
+    t0 = time.perf_counter()
+    mutant["thread"].join()
+    if "error" in mutant:
+        fail(f"the padded-row mutant did not build: {mutant['error']}")
+    log(f"  padded-row mutant ({VLA_MUTANT[0]}: flash_fwd's lse written for the rows past n): built in a thread, "
+        f"waited {time.perf_counter() - t0:.2f} s for it")
+    q, k, v, o, lse = mutant_case
+    saved = _build._library
+    _build._library = mutant["lib"]
+    try:
+        with torch.inference_mode():
+            o_m, lse_m, written = slack_writes(fa, q, k, v)
+    finally:
+        _build._library = saved
+    rows_ok = torch.equal(o_m, o) and torch.equal(lse_m, lse)
+    log(f"  mutant at [{VLA_FLASH[0][0]}]: values written past n into the slack {written}; o and lse of the rows "
+        f"below n (which it may overwrite racing the next pair's block) bitwise the right kernel's: {rows_ok}; "
+        f"{'refused' if written else 'NOT REFUSED'}")
+    if not written:
+        fail("the padded-row mutant passes phase 45's slack check")
+    sync()
+    return errs
+
+
+def siglip_vat(dev, dtype, views, **kw):
+    """SigLIPVAT at SIGLIP_VAT's widths for ``views`` = (views, frames),
+    random weights from SEED, initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch.ssl.vat_siglip import SigLIPVAT
+
+    v, t = views
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return SigLIPVAT(num_views=v, time_seq_len=t, device=dev, generator=gen, **kw).to(dtype)
+
+
+def siglip_images(dev, b, views, seed):
+    v, t = views
+    return torch.randn(b, v, 3, t, 224, 224, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every kernel route of the dispatcher through its plain twin (the
+    flash and short Functions on their twins)."""
+    with plain_flash(), plain_short():
+        yield
+
+
+def floor_check(what, kernel, plain, fp32, plain_noisy):
+    """The noise floor of phase 13: the kernel path within VLA_NOISE_RATIO of
+    plain bf16's distance from fp32, and within it of plain bf16's distance
+    from itself on the input with VLA_INPUT_NOISE relative noise."""
+    e_kf, e_pf, e_kp, floor = (rel_l2(kernel, fp32), rel_l2(plain, fp32), rel_l2(kernel, plain),
+                               rel_l2(plain_noisy, plain))
+    ok = (e_kf <= VLA_NOISE_RATIO * e_pf and e_kp <= VLA_NOISE_RATIO * floor
+          and bool(torch.isfinite(kernel).all()))
+    log(f"  {what}, rel L2: kernel vs fp32 {e_kf:.4e} (bound {VLA_NOISE_RATIO} x plain bf16 vs fp32, {e_pf:.4e}); "
+        f"kernel vs plain bf16 {e_kp:.4e} (bound {VLA_NOISE_RATIO} x plain bf16 vs plain bf16 with "
+        f"{VLA_INPUT_NOISE} relative noise on the input, {floor:.4e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{what}: the kernel path is off the bf16 noise floor")
+
+
+def vla_step_paths(fb, fa, label, fp32, run, want):
+    """One training step of ``run(model, dtype)`` (the loss) on a bf16 copy
+    of ``fp32`` through the kernels (exact counters ``want``), on another
+    through the plain twins (no launch), and in fp32; the three paths'
+    losses and gradients as ssl_paths gives them, and the kernel model."""
+    bf16 = torch.bfloat16
+    model = copy.deepcopy(fp32).to(bf16)
+    plain = copy.deepcopy(model)
+    reset_all(fb, fa)
+    loss = run(model, bf16)
+    loss.backward()
+    sync()
+    counts = expect_launches(fb, fa, want, label)
+    reset_all(fb, fa)
+    with plain_attention():
+        loss_plain = run(plain, bf16)
+        loss_plain.backward()
+    sync()
+    expect_launches(fb, fa, {}, f"the plain path of the {label}")
+    loss32 = run(fp32, torch.float32)
+    loss32.backward()
+    sync()
+    paths = {}
+    for key, m, lo in (("kernel", model, loss), ("plain", plain, loss_plain), ("fp32", fp32, loss32)):
+        names, grads = trained_grads(m)
+        paths[key] = dict(model=m, loss=lo.item(), loss_dtype=lo.dtype, names=names, grads=grads)
+        if key != "kernel":
+            m.zero_grad(set_to_none=True)
+    if not paths["kernel"]["names"] == paths["plain"]["names"] == paths["fp32"]["names"]:
+        fail(f"{label}: the paths differ in which parameters have gradients")
+    paths["counts"] = counts
+    del plain
+    return paths
+
+
+def compare_plain_step(name, paths, ratio=VLA_NOISE_RATIO):
+    """The first step's loss and gradients, the kernel path against plain
+    bf16, within ``ratio`` times plain bf16's own distance from fp32 (the
+    step's bf16 noise; the loss's at least SSL_LOSS_FLOOR)."""
+    k, p, f = paths["kernel"], paths["plain"], paths["fp32"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    d_kp, d_pf = rel(k["loss"], p["loss"]), rel(p["loss"], f["loss"])
+    g_kp, g_pf = grads_rel_l2(k["grads"], p["grads"]), grads_rel_l2(p["grads"], f["grads"])
+    ok = d_kp <= ratio * max(d_pf, SSL_LOSS_FLOOR) and g_kp <= ratio * g_pf
+    log(f"  {name} vs plain bf16 (bound {ratio} x plain bf16 vs fp32): loss rel {d_kp:.3e} (plain vs fp32 {d_pf:.3e}); "
+        f"grads rel L2 {g_kp:.4e} (plain vs fp32 {g_pf:.4e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name}: the kernel path's step is further from plain bf16 than the bf16 noise")
+
+
+def adamw_steps(fb, fa, label, model, run, steps, want):
+    """``steps`` AdamW(1e-4) steps of ``run(model)`` (its loss), each with
+    the exact counters ``want``; the losses, all finite."""
+    opt = torch.optim.AdamW(model.parameters(), lr=SIGLIP_LR, weight_decay=1e-4)  # optax.adamw(1e-4)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        reset_all(fb, fa)
+        loss = run(model)
+        loss.backward()
+        opt.step()
+        sync()
+        expect_launches(fb, fa, want, f"{label} AdamW step")
+        losses.append(loss.item())
+    log(f"  {label}: AdamW(lr={SIGLIP_LR}) steps, losses {[f'{v:.6f}' for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"the {label} loss is not finite")
+    return opt
+
+
+def hf_siglip_from(tower):
+    """The HF SigLIP vision tower's tensors (``vision_model.`` names) of a
+    port SigLIP: the inverse of load_siglip's remap, at the tower's shapes."""
+    sd = {k: v.detach().float() for k, v in tower.state_dict().items()}
+    p, d = tower.patch_size, tower.dim
+    hf = {
+        "embeddings.patch_embedding.weight": sd["patch_embed.weight"].reshape(d, p, p, 3).permute(0, 3, 1, 2),
+        "embeddings.patch_embedding.bias": sd["patch_embed.bias"],
+        "embeddings.position_embedding.weight": sd["pos_embed"],
+        "post_layernorm.weight": sd["norm.weight"], "post_layernorm.bias": sd["norm.bias"],
+    }
+    for i in range(len(tower.layers)):
+        pre, attn, ff = f"encoder.layers.{i}", f"layers.{i}.0", f"layers.{i}.1"
+        for leaf in ("weight", "bias"):
+            k_, v_ = sd[f"{attn}.to_kv.{leaf}"].chunk(2)
+            hf.update({f"{pre}.layer_norm1.{leaf}": sd[f"{attn}.norm.{leaf}"],
+                       f"{pre}.self_attn.q_proj.{leaf}": sd[f"{attn}.to_q.{leaf}"],
+                       f"{pre}.self_attn.k_proj.{leaf}": k_, f"{pre}.self_attn.v_proj.{leaf}": v_,
+                       f"{pre}.self_attn.out_proj.{leaf}": sd[f"{attn}.to_out.{leaf}"],
+                       f"{pre}.layer_norm2.{leaf}": sd[f"{ff}.norm.{leaf}"],
+                       f"{pre}.mlp.fc1.{leaf}": sd[f"{ff}.fc1.{leaf}"], f"{pre}.mlp.fc2.{leaf}": sd[f"{ff}.fc2.{leaf}"]})
+    return {f"vision_model.{k}": v for k, v in hf.items()}
+
+
+def check_siglip_vat(fb, fa, dev):
+    """Phase 46: SigLIPVAT at full width.  Served behind a Predictor at (3,
+    2) (exact counters: SIGLIP_DEPTH flash_fwd a bucket run), pred_action
+    against the plain bf16 path and fp32 on the noise floor, the depth-2
+    copy to fixed bounds; (2, 2) on the short kernel and (3, 1) on the
+    composite; a training step against plain bf16 and fp32, AdamW steps
+    (exact counters), a step with freeze_vit, and load_siglip on an HF dict
+    of the tower.  Returns the counts of a (2, 2) forward, and the state
+    phase 48 times with the counts of the first training step."""
+    from vit_pytorch_tpu_torch.serving import Predictor
+    from vit_pytorch_tpu_torch.ssl.vat_siglip import SigLIP, load_siglip
+
+    bf16 = torch.bfloat16
+    views = SIGLIP_VIEWS["flash"]
+    log(f"[46 SigLIPVAT] the reference's defaults (pi0's action head on SigLIP so400m/14 @224), depth "
+        f"{SIGLIP_DEPTH}, bf16, random weights (seed {SEED}); views x frames {views}: {SIGLIP_QUERIES} queries "
+        f"against {views[0] * views[1] * 256} keys a layer")
+    fp32 = siglip_vat(dev, torch.float32, views).eval()
+    n_params = sum(p.numel() for p in fp32.parameters())
+    log(f"  parameters: {n_params / 1e6:.1f} M, the tower {sum(p.numel() for p in fp32.vit.parameters()) / 1e6:.1f} M")
+    x = siglip_images(dev, SIGLIP_BS, views, SEED + 46)
+    noise = 1 + VLA_INPUT_NOISE * torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 146),
+                                              device=dev)
+    pred = Predictor(fp32, example_shape=x.shape[1:], batch_sizes=SIGLIP_BUCKETS, device=dev).warmup()
+    served = pred.model
+    reset_all(fb, fa)
+    outs = {k: pred(x[:k]) for k in SIGLIP_BUCKETS}
+    sync()
+    expect_launches(fb, fa, {"flash_fwd": SIGLIP_DEPTH * len(SIGLIP_BUCKETS)},
+                    f"SigLIPVAT serving, requests {SIGLIP_BUCKETS} ({SIGLIP_DEPTH} flash_fwd a bucket run)")
+    for k, out in outs.items():
+        if out.shape != (k, 50, 32) or not bool(torch.isfinite(out).all()):
+            fail(f"SigLIPVAT request of {k}: pred_action {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    with torch.inference_mode():
+        with plain_attention():
+            plain = served(x.to(bf16))
+            plain_noisy = served((x * noise).to(bf16))
+        want = fp32(x)
+    floor_check(f"pred_action of the {SIGLIP_BS}-request at depth {SIGLIP_DEPTH}", outs[SIGLIP_BS], plain, want,
+                plain_noisy)
+    del pred, served, outs, plain, plain_noisy, want
+
+    shallow32 = siglip_vat(dev, torch.float32, views, depth=SIGLIP_SHALLOW, siglip_depth=SIGLIP_SHALLOW).eval()
+    shallow = copy.deepcopy(shallow32).to(bf16)
+    short32 = siglip_vat(dev, torch.float32, SIGLIP_VIEWS["short"]).eval()
+    routes = {"short": copy.deepcopy(short32).to(bf16), "composite": siglip_vat(dev, bf16, SIGLIP_VIEWS["composite"])}
+    with torch.inference_mode():
+        reset_all(fb, fa)
+        got = shallow(x.to(bf16))
+        sync()
+        expect_launches(fb, fa, {"flash_fwd": SIGLIP_SHALLOW}, f"SigLIPVAT at depth {SIGLIP_SHALLOW}")
+        with plain_attention():
+            plain = shallow(x.to(bf16))
+        e_kp, e_kf, e_pf = rel_l2(got, plain), rel_l2(got, shallow32(x)), rel_l2(plain, shallow32(x))
+        ok = e_kp <= SIGLIP_SHALLOW_VS_PLAIN and e_kf <= SIGLIP_SHALLOW_VS_FP32
+        log(f"  depth {SIGLIP_SHALLOW} at full width, pred_action rel L2: kernel vs plain bf16 {e_kp:.4e} (bound "
+            f"{SIGLIP_SHALLOW_VS_PLAIN}), vs fp32 {e_kf:.4e} (bound {SIGLIP_SHALLOW_VS_FP32}; plain bf16 vs fp32 "
+            f"{e_pf:.4e}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"SigLIPVAT at depth {SIGLIP_SHALLOW} disagrees with the plain path or fp32")
+        del shallow32, shallow
+
+        short_counts = None
+        for route, model in routes.items():
+            v_ = SIGLIP_VIEWS[route]
+            xs = siglip_images(dev, SIGLIP_BS, v_, SEED + 246)
+            reset_all(fb, fa)
+            got = model.eval()(xs.to(bf16))
+            sync()
+            counts = expect_launches(fb, fa, {"short_attention": SIGLIP_DEPTH} if route == "short" else {},
+                                     f"SigLIPVAT at {v_} ({v_[0] * v_[1] * 256} keys): the {route} route")
+            if route == "short":
+                short_counts = counts
+                with plain_attention():
+                    plain, plain_noisy = model(xs.to(bf16)), model((xs * noise[:, : v_[0], :, : v_[1]]).to(bf16))
+                floor_check(f"{v_}: pred_action at depth {SIGLIP_DEPTH}", got, plain, short32(xs), plain_noisy)
+            if not bool(torch.isfinite(got).all()):
+                fail(f"SigLIPVAT at {v_}: pred_action is not finite")
+            del model, xs
+    del routes, short32
+
+    # training at (3, 2)
+    actions = torch.randn(SIGLIP_BS, 50, 32, generator=torch.Generator(device=dev).manual_seed(SEED + 346), device=dev)
+    fp32.train()
+    run = lambda m, dtype: m(x.to(dtype), actions=actions.to(dtype))
+    want_step = {name: SIGLIP_DEPTH for name in TPU_FLASH}
+    paths = vla_step_paths(fb, fa, "SigLIPVAT training step", fp32, run, want_step)
+    log(f"  the fp32 gradients at full depth ({SIGLIP_DEPTH}), full width, bs={SIGLIP_BS}")
+    compare_floor("SigLIPVAT step", paths)
+    compare_plain_step("SigLIPVAT step", paths)
+    model, step_counts = paths["kernel"]["model"], paths["counts"]
+    del paths, fp32
+    model.zero_grad(set_to_none=True)
+    opt = adamw_steps(fb, fa, "SigLIPVAT", model, lambda m: run(m, bf16), SIGLIP_STEPS, want_step)
+    opt.zero_grad(set_to_none=True)
+    reset_all(fb, fa)
+    loss = model(x.to(bf16), actions=actions.to(bf16), freeze_vit=True)
+    loss.backward()
+    sync()
+    expect_launches(fb, fa, want_step, "SigLIPVAT step with freeze_vit")
+    tower_grads = sum(p.grad is not None for p in model.vit.parameters())
+    head_grads = sum(p.grad is not None for p in model.parameters()) - tower_grads
+    log(f"  freeze_vit step: loss {loss.item():.6f}; tower parameters with a gradient {tower_grads}, others {head_grads}")
+    if tower_grads or not head_grads or not math.isfinite(loss.item()):
+        fail("SigLIPVAT with freeze_vit: the tower got a gradient, or the head none")
+    model.zero_grad(set_to_none=True)
+
+    mv = model.vit
+    tower = SigLIP(image_size=math.isqrt(mv.pos_embed.shape[0]) * mv.patch_size, patch_size=mv.patch_size, dim=mv.dim,
+                   depth=len(mv.layers), heads=mv.layers[0][0].heads, mlp_dim=mv.layers[0][1].fc1.out_features,
+                   device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 1)).to(bf16)
+    with torch.inference_mode():
+        hf = hf_siglip_from(mv)
+        shapes = {k: tuple(v.shape) for k, v in hf.items() if "layers.0." in k or "embeddings" in k}
+        tower.load_state_dict(load_siglip(hf, depth=len(mv.layers)))
+        xi = x[:2, 0, :, 0].to(bf16)
+        same = torch.equal(tower(xi), mv(xi))
+    log(f"  load_siglip on an HF dict of the tower ({len(hf)} tensors; {shapes}): the loaded tower's tokens "
+        f"bitwise the module's: {same}")
+    if not same:
+        fail("load_siglip: the loaded tower disagrees with the module it was read from")
+    del hf, tower, mv
+    sync()
+    return short_counts, dict(model=model, opt=opt, x=x.to(bf16), actions=actions.to(bf16), step_counts=step_counts)
+
+
+def vat_b_model(dev, dtype, audio=False):
+    """VAT_B (or VAAT_B with ``audio``), random weights from SEED,
+    initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch.ssl.vaat import AST, VAAT
+    from vit_pytorch_tpu_torch.ssl.vat import VAT, ViT
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vit = ViT(**VAT_B_VIT, device=dev, generator=gen)
+    if audio:
+        ast = AST(**VAAT_B_AST, device=dev, generator=gen)
+        model = VAAT(vit=vit, ast=ast, num_image_views=VAT_B_VIEWS, **VAT_B, device=dev, generator=gen)
+    else:
+        model = VAT(vit=vit, num_views=VAT_B_VIEWS, **VAT_B, device=dev, generator=gen)
+    return model.to(dtype)
+
+
+def vat_b_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(SEED + 47)
+    return dict(
+        images=torch.randn(VAT_BS, VAT_B_VIEWS, 3, VAT_B["time_seq_len"], 224, 224, generator=g, device=dev),
+        audio=torch.rand(VAT_BS, AUDIO_SAMPLES, generator=g, device=dev) * 2 - 1,
+        tasks=torch.randint(0, VAT_B["num_tasks"], (VAT_BS,), generator=g, device=dev),
+        advantages=torch.randint(0, VAT_B["num_advantage_bins"], (VAT_BS,), generator=g, device=dev),
+        extra=torch.randn(VAT_BS, VAT_B["dim_extra_token"], generator=g, device=dev),
+        actions=torch.randn(VAT_BS, 7, VAT_B["dim_action"], generator=g, device=dev),
+    )
+
+
+def vat_b_run(inputs, audio):
+    """``run(model, dtype, actions=True)``: VAT_B's (VAAT_B's) call on the
+    inputs cast to ``dtype``, the loss with ``actions``."""
+    def run(model, dtype, actions=True):
+        cast = lambda t: t.to(dtype)
+        kw = dict(tasks=inputs["tasks"], advantages=inputs["advantages"], extra=cast(inputs["extra"]))
+        if actions:
+            kw["actions"] = cast(inputs["actions"])
+        media = (cast(inputs["images"]), cast(inputs["audio"])) if audio else (cast(inputs["images"]),)
+        return model(*media, **kw)
+    return run
+
+
+def check_vat_wrappers(fb, fa, dev):
+    """Phase 47: VAT_B and VAAT_B served at bs=VAT_BS (exact counters: 12
+    flash_fwd a forward) and trained VAT_STEPS steps (the first against
+    plain bf16 and fp32), the spectrogram on the card against the CPU's, and
+    the wrappers on ViT-B/16: Recorder (no launch; maps and preds against
+    plain bf16 and fp32; the chain again after eject), Extractor (the
+    chain's counters; the embeddings bitwise the transformer's output) and
+    AcceptVideoWrapper (16 frames through the chain).  Returns VAT_B's
+    training-step counts and the state phase 48 times."""
+    from vit_pytorch_tpu_torch.ops.spectrogram import spectrogram
+    from vit_pytorch_tpu_torch.wrappers.accept_video_wrapper import AcceptVideoWrapper
+    from vit_pytorch_tpu_torch.wrappers.extractor import Extractor
+    from vit_pytorch_tpu_torch.wrappers.recorder import Recorder
+
+    bf16 = torch.bfloat16
+    log(f"[47 VAT_B, VAAT_B and the wrappers] VAT_B: the VAT ViT {VAT_B_VIT}, VAT {VAT_B}, {VAT_B_VIEWS} views; VAAT_B "
+        f"adds an AST {VAAT_B_AST} on {AUDIO_SAMPLES} samples; bf16, random weights (seed {SEED}), bs={VAT_BS}: "
+        f"{VAT_B_QUERIES} queries against {VAT_B_KEYS} image keys a layer")
+    inputs = vat_b_inputs(dev)
+    with torch.inference_mode():
+        spec = spectrogram(inputs["audio"])
+        spec_cpu = spectrogram(inputs["audio"].cpu())
+    compare("spectrogram (cuFFT) vs the CPU's (f32)", spec.cpu(), spec_cpu, None, 0.0, SPEC_REL_L2,
+            atol_frac=SPEC_ATOL_FRAC)
+    log(f"  spectrogram {tuple(spec.shape)}, cropped to the patch grid: {spec.shape[1] // 16 * 16} x "
+        f"{spec.shape[2] // 16 * 16}")
+    state, step_counts = {}, None
+    want_step = {name: DEPTH for name in TPU_FLASH}
+    for label, audio in (("VAT_B", False), ("VAAT_B", True)):
+        run = vat_b_run(inputs, audio)
+        fp32 = vat_b_model(dev, torch.float32, audio).eval()
+        model = copy.deepcopy(fp32).to(bf16)
+        noisy = dict(inputs, images=inputs["images"] * (1 + VLA_INPUT_NOISE * torch.randn(
+            inputs["images"].shape, generator=torch.Generator(device=dev).manual_seed(SEED + 147), device=dev)))
+        with torch.inference_mode():
+            reset_all(fb, fa)
+            got = run(model, bf16, actions=False)
+            sync()
+            expect_launches(fb, fa, {"flash_fwd": DEPTH}, f"{label} serving ({DEPTH} flash_fwd a forward)")
+            with plain_attention():
+                plain = run(model, bf16, actions=False)
+                plain_noisy = vat_b_run(noisy, audio)(model, bf16, actions=False)
+            floor_check(f"{label} pred_action at bs={VAT_BS}", got, plain, run(fp32, torch.float32, actions=False),
+                        plain_noisy)
+        del model
+        fp32.train()
+        paths = vla_step_paths(fb, fa, f"{label} training step", fp32, run, want_step)
+        compare_floor(f"{label} step", paths)
+        compare_plain_step(f"{label} step", paths)
+        if not audio:
+            step_counts = paths["counts"]
+        model = paths["kernel"]["model"]
+        del paths, fp32
+        model.zero_grad(set_to_none=True)
+        opt = adamw_steps(fb, fa, label, model, lambda m, run=run: run(m, bf16), VAT_STEPS - 1, want_step)
+        state[label] = (model, opt, run)
+        sync()
+
+    log(f"  the wrappers on ViT-B/16 @224 (phase 4's configuration), bs={B_CHECK}")
+    chain = {name: DEPTH * LAUNCHES_PER_LAYER.get(name, 0) for name in fb.LAUNCHES}
+    fp32 = vit_b(dev, torch.float32).eval()
+    model = copy.deepcopy(fp32).to(bf16)
+    img = torch.randn(B_CHECK, 3, 224, 224, generator=torch.Generator(device=dev).manual_seed(SEED + 247), device=dev)
+    tr = model.transformer
+    wrapper = AcceptVideoWrapper(model, add_time_pos_emb=True, dim_emb=1000, time_seq_len=8, device=dev, dtype=bf16,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED))
+    with torch.inference_mode():
+        rec = Recorder(model)
+        reset_all(fb, fa)
+        preds, attns = rec(img.to(bf16))
+        sync()
+        expect_launches(fb, fa, {}, "Recorder(ViT-B/16): recording takes the composite")
+        if attns.shape != (B_CHECK, DEPTH, HEADS, N, N):
+            fail(f"Recorder: attns {tuple(attns.shape)}")
+        # the plain bf16 path: the chain of twins, and each layer's map from its input
+        x = model.embed(img.to(bf16))
+        maps = []
+        for i in range(DEPTH):
+            ws, kws = tr.layer_weights(i, bf16)
+            h = torch.nn.functional.layer_norm(x, (DIM,), ws[2], ws[3], 1e-5)
+            q, k, _ = torch.nn.functional.linear(h, ws[0]).view(B_CHECK, N, 3, HEADS, DH).permute(2, 0, 3, 1, 4)
+            maps.append(torch.softmax((torch.matmul(q, k.transpose(-1, -2)) * DH**-0.5).float(), -1).to(bf16))
+            x = fb.layer_reference(x, *ws, heads=HEADS, dim_head=DH, **kws)
+        plain_preds = model.mlp_head(tr.norm(x)[:, 0])
+        preds32, attns32 = Recorder(fp32)(img)
+        e_ap, e_af = rel_l2(attns, torch.stack(maps, dim=1)), rel_l2(attns, attns32)
+        e_pp, e_pf = rel_l2(preds, plain_preds), rel_l2(preds, preds32)
+        ok = (e_ap <= RECORDER_VS_PLAIN and e_af <= RECORDER_VS_FP32 and e_pp <= LOGITS_VS_PLAIN_BF16
+              and e_pf <= LOGITS_VS_FP32)
+        log(f"  Recorder: attns {tuple(attns.shape)} rel L2 vs the plain chain's maps {e_ap:.4e} (bound "
+            f"{RECORDER_VS_PLAIN}), vs fp32 {e_af:.4e} (bound {RECORDER_VS_FP32}); preds vs plain bf16 {e_pp:.4e} "
+            f"(bound {LOGITS_VS_PLAIN_BF16}), vs fp32 {e_pf:.4e} (bound {LOGITS_VS_FP32}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("Recorder: the maps or preds disagree with the plain path or fp32")
+        del maps, attns, attns32
+        reset_all(fb, fa)
+        rec.eject()(img.to(bf16))
+        sync()
+        expect_launches(fb, fa, chain, f"ViT-B/16 after eject ({DEPTH} x 7 launches)")
+
+        seen = []
+        handle = tr.register_forward_hook(lambda m, a, out: seen.append(out))
+        reset_all(fb, fa)
+        _, emb = Extractor(model)(img.to(bf16))
+        sync()
+        handle.remove()
+        expect_launches(fb, fa, chain, f"Extractor(ViT-B/16) ({DEPTH} x 7 launches)")
+        same = torch.equal(emb, seen[0])
+        log(f"  Extractor: embeddings {tuple(emb.shape)} bitwise the transformer's output of the call: {same}")
+        if not same:
+            fail("Extractor: the embeddings are not the transformer's output")
+
+        video = torch.randn(2, 3, 8, 224, 224, generator=torch.Generator(device=dev).manual_seed(SEED + 347),
+                            device=dev).to(bf16)
+        reset_all(fb, fa)
+        out = wrapper(video)
+        sync()
+        expect_launches(fb, fa, chain, f"AcceptVideoWrapper(ViT-B/16): 16 frames in one call ({DEPTH} x 7 launches)")
+        with plain_layers():
+            plain = wrapper(video)
+        e = rel_l2(out, plain)
+        log(f"  AcceptVideoWrapper: out {tuple(out.shape)}, rel L2 vs plain bf16 {e:.4e} (bound "
+            f"{LOGITS_VS_PLAIN_BF16})")
+        if out.shape != (2, 8, 1000) or not e <= LOGITS_VS_PLAIN_BF16:
+            fail("AcceptVideoWrapper disagrees with the plain path")
+    del fp32, model, wrapper
+    sync()
+    return step_counts, state
+
+
+def time_vla(fa, dev, smi, siglip, vat):
+    """Phase 48: SigLIPVAT at (3, 2), bs=8: ms a batch served and ms/step
+    trained with peak memory, kernel and plain paths in turns (K P P K), the
+    busy share of one profiled step; each flash kernel and the short kernel
+    at phase 45's shapes against its twin, its bound and the library call;
+    VAT_B's and VAAT_B's ms/step.  Returns the kernels-line records."""
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
+    log(f"[48 VLA timing] {smi}")
+    model, opt, x, actions = siglip["model"], siglip["opt"], siglip["x"], siglip["actions"]
+
+    def plain(fn):
+        def run():
+            with plain_attention():
+                fn()
+        return run
+
+    model.eval()
+    with torch.inference_mode():
+        serve = lambda: model(x)
+        k1, p1, p2, k2 = (host_ms(f, 5) for f in (serve, plain(serve), plain(serve), serve))
+    log(f"  SigLIPVAT serving at bs={SIGLIP_BS}, (3, 2): kernel path {(k1 + k2) / 2:.3f} ms/batch, plain bf16 path "
+        f"{(p1 + p2) / 2:.3f} ms/batch; turns ms kernel {k1:.3f} plain {p1:.3f} plain {p2:.3f} kernel {k2:.3f}")
+    model.train()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model(x, actions=actions).backward()
+        opt.step()
+
+    (k1, km1), (p1, pm1), (p2, pm2), (k2, km2) = (train_step_ms(dev, f) for f in (step, plain(step), plain(step), step))
+    log(f"  SigLIPVAT training at bs={SIGLIP_BS}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+        f"{(p1 + p2) / 2:.3f} ms/step; turns ms kernel {k1:.3f} plain {p1:.3f} plain {p2:.3f} kernel {k2:.3f}; peak "
+        f"device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+    busy = profiled_busy(step)
+    log("  one profiled SigLIPVAT step: the profiler saw no device time (busy share not measured)" if busy is None
+        else f"  one profiled SigLIPVAT step: device busy {busy[0]:.4f} of the window ({busy[2]:.3f} ms), device "
+             f"kernel time {busy[1]:.3f} ms; host ops by self CPU time: {busy[3]}")
+    opt.zero_grad(set_to_none=True)
+    for label, (vmodel, vopt, run) in vat.items():
+        def vstep(vmodel=vmodel, vopt=vopt, run=run):
+            vopt.zero_grad(set_to_none=True)
+            run(vmodel, torch.bfloat16).backward()
+            vopt.step()
+
+        (k1, km1), (p1, pm1), (p2, pm2), (k2, km2) = (train_step_ms(dev, f)
+                                                      for f in (vstep, plain(vstep), plain(vstep), vstep))
+        log(f"  {label} training at bs={VAT_BS}: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path "
+            f"{(p1 + p2) / 2:.3f} ms/step; turns ms kernel {k1:.3f} plain {p1:.3f} plain {p2:.3f} kernel {k2:.3f}; "
+            f"peak device memory kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
+        vopt.zero_grad(set_to_none=True)
+    siglip.clear()
+    vat.clear()
+    sync()
+
+    per_kernel = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 48)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = DH**-0.5
+    log("  each flash launch at phase 45's shapes against its twin (the backward twin computes dq, dk and dv at "
+        "once), its bound and its library call (SDPA; the backward: one aten call for dq, dk and dv), all device "
+        "time by torch.profiler (device_ms), in turns (plain, kernel, kernel, plain):")
+
+    def turns(kern, twin):
+        p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    with torch.inference_mode():
+        for label, b, n, m in VLA_FLASH:
+            q, k, v = vla_qkv(gen, dev, b, n, m)
+            do = torch.randn(b, VLA_HEADS, n, DH, generator=gen, device=dev).to(torch.bfloat16)
+            o, lse = fa.flash_fwd(q, k, v, scale=scale)
+            delta = (do.float() * o.float()).sum(-1)
+            qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+            bwd_lib, bwd_what = flash_backend_bwd_ms(qc, kc, vc, doc, 10, timer=device_ms)
+            times = {
+                "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale=scale),
+                              lambda: fa.flash_fwd_reference(q, k, v, scale=scale), device_ms(lambda: sdpa(q, k, v))),
+                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                                 lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, scale=scale), bwd_lib),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale),
+                                  lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, scale=scale), bwd_lib),
+            }
+            for name, (kern, twin, lib_ms) in times.items():
+                km, pm = turns(kern, twin)
+                w = pair_work(name, b, n, m, n * m, heads=VLA_HEADS)
+                bound, by = bound_ms(w)
+                log(f"  {name} @ {label} ({b} x {VLA_HEADS} x {n} x {m}): kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}), library {lib_ms:.4f} ms ({'SDPA' if name == 'flash_fwd' else bwd_what})")
+                if label in VLA_ENTRIES:
+                    record(per_kernel, f"{name} @ {label}", km, pm, w, lib_ms)
+        for label, b, n, m in VLA_SHORT:
+            q, k, v = vla_qkv(gen, dev, b, n, m)
+            km, pm = turns(lambda: sa.short_fwd(q, k, v, scale=scale),
+                           lambda: sa.short_attention_reference(q, k, v, scale=scale))
+            lib_ms = device_ms(lambda: sdpa(q, k, v))
+            w = pair_work("short_attention", b, n, m, n * m, heads=VLA_HEADS)
+            bound, by = bound_ms(w)
+            log(f"  short_attention @ {label} ({b} x {VLA_HEADS} x {n} x {m}): kernel {km:.4f} ms, plain {pm:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), library {lib_ms:.4f} ms (SDPA)")
+            if label == VLA_ENTRIES[0]:
+                record(per_kernel, f"short_attention @ {label}", km, pm, w, lib_ms)
+    sync()
+    return per_kernel
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -6034,6 +6848,7 @@ def main():
     log(f"[2 build] {lib.path.name}: {nvcc}, build+load {time.perf_counter() - t0:.2f} s")
     for line in ptxas_report(lib.build_log):
         log(f"  {line}")
+    mutant = start_padded_row_mutant()  # phase 45's, built beside the phases before it
     phase_done("phase 2")
 
     dev = torch.device("cuda", 0)
@@ -6338,6 +7153,24 @@ def main():
     del ssl_state
     phase_done("phase 44")
 
+    # -- 45. the attention kernels at the VLA cross-attention shapes --------------------------------
+    errs.update(check_vla_kernels(fb, fa, dev, mutant))
+    phase_done("phase 45")
+
+    # -- 46. SigLIPVAT at full width, served and trained ----------------------------------------------
+    siglip_short_counts, siglip_state = check_siglip_vat(fb, fa, dev)
+    siglip_train_counts = siglip_state.pop("step_counts")
+    phase_done("phase 46")
+
+    # -- 47. VAT_B, VAAT_B and the wrappers ---------------------------------------------------------------
+    vat_train_counts, vat_state = check_vat_wrappers(fb, fa, dev)
+    phase_done("phase 47")
+
+    # -- 48. their timing; each VLA attention launch at its shape -------------------------------------------
+    per_kernel.update(time_vla(fa, dev, smi, siglip_state, vat_state))
+    del siglip_state, vat_state
+    phase_done("phase 48")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -6409,6 +7242,10 @@ def main():
                (SSL_ENTRY[0], dino_counts, dino_counts, "Dino training", "Dino training"))
            for name, counts_, path in [(n_, fwd, fwd_path) for n_ in CHAIN_FWD]
            + [(n_, bwd, bwd_path) for n_ in CHAIN_BWD]]
+        + [entry(f"{name} @ {label}", FLASH_SOURCE, TPU_FLASH[name], f"{label} training step", counts_[name])
+           for label, counts_ in zip(VLA_ENTRIES, (siglip_train_counts, vat_train_counts)) for name in TPU_FLASH]
+        + [entry(f"short_attention @ {VLA_ENTRIES[0]}", SHORT_SOURCE, TPU_SHORT, "SigLIPVAT serving at (2, 2) views x "
+                 "frames (1,024 keys)", siglip_short_counts["short_attention"])]
     )
     for k in kernels:
         if not k["launches"]:
@@ -6453,7 +7290,12 @@ def main():
         "(backward) and from one MAE step at the fixed permutation (encoder and decoder layers); the chain's "
         "errors at that shape in phase 36; the entries '<kernel> @ Dino': the chain's launches at b=20 n=65, dim "
         "1024, 8 heads, mlp 2048, their launches from one Dino step (the student's two calls with gradients, the "
-        "teacher's two without), errors from phase 41)")
+        "teacher's two without), errors from phase 41; the entries '<flash kernel> @ SigLIPVAT' and '@ VAT_B': one "
+        "launch at the VLA cross-attention's shape, 8 x 8 heads x 54 queries x 1,536 keys and 4 x 8 x 13 x 1,576, "
+        "no ids, library_ms SDPA (forward) and PyTorch's flash-attention backward (one aten call for dq, dk, dv), "
+        "their launches from the model's first training step (one of each a layer), errors from phase 45; "
+        "'short_attention @ SigLIPVAT': 8 x 8 x 54 x 1,024, its launches from one SigLIPVAT forward at (2, 2) views "
+        "x frames)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -20,7 +20,11 @@ beside it), whose 49-token windows take the attention composite; the SSL
 trainers Dino (``ssl.dino``, with the augmentations of ``ssl.augment``),
 EsViT (``ssl.es_vit``), LeJEPA (``ssl.lejepa``), SimMIM (``ssl.simmim``)
 and MPP (``ssl.mpp``) on the whole-layer kernels, and MP3 (``ssl.mp3``),
-whose cross-attention takes the composite.
+whose cross-attention takes the composite; the vision-action transformers
+VAT (``ssl.vat``), VAAT (``ssl.vaat``, its audio on ``ops.spectrogram``) and
+SigLIPVAT (``ssl.vat_siglip``), whose cross-attention takes the flash and
+short kernels; the introspection wrappers of ``wrappers`` (Recorder,
+Extractor, AcceptVideoWrapper).
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT

@@ -17,6 +17,8 @@ attention-block kernels, with in-kernel dropout and qk-norm
 (``fused_block_eligible``, the JAX blocks.py:47-98); everything else runs
 the module composite below, whose attention goes through
 ``ops/attention.py::dot_product_attention`` (segment ids: the flash kernels).
+While a ``wrappers/recorder.py::Recorder`` records, every ``Attention``
+takes the composite and keeps its attention map (``Attention.recorded``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from ..ops.fused_block import (
 def fused_block_eligible(
     *, x: torch.Tensor, heads: int, dim_head: int, dim: int, flash, project_out: bool, dropout: float = 0.0,
     train: bool = False, force_split_qkv: bool = False, has_context: bool = False, has_segments: bool = False,
-    has_mask: bool = False,
+    has_mask: bool = False, record: bool = False,
 ) -> bool:
     """Whether ``Attention`` takes the attention-block kernels: the JAX
     predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
@@ -53,11 +55,14 @@ def fused_block_eligible(
     (to leave remat off the call that fuses).  qk-norm does not refuse the
     block, as in the JAX package: the attention kernels normalise q and k
     themselves, forward and backward.  A mask refuses the block, as in the
-    JAX package (:82).  The JAX predicate's other conditions (rotary, bias,
-    recording, pre_norm) are options the port's ``Attention`` does not have
-    yet; they join the predicate with them."""
+    JAX package (:82), and so does recording (``record``: a
+    ``wrappers/recorder.py::Recorder`` is taking the attention maps, which
+    only the materialized composite gives, :85).  The JAX predicate's other
+    conditions (rotary, bias, pre_norm) are options the port's ``Attention``
+    does not have yet; they join the predicate with them."""
     return (
-        not has_context
+        not record
+        and not has_context
         and not has_segments
         and not has_mask
         and not force_split_qkv
@@ -136,7 +141,12 @@ class Attention(nn.Module):
     - ``q_segment_ids``/``kv_segment_ids`` at call: packed-sequence
       block-diagonal masking, the flash kernels on the card;
     - ``simple``: the projection out is a bare Linear at ``to_out``, without
-      dropout (simple_vit.py:36-62)."""
+      dropout (simple_vit.py:36-62).
+
+    ``recorded``: None, or the list a ``wrappers/recorder.py::Recorder``
+    gave it; while it is a list every call takes the materialized composite
+    and appends its post-softmax map (b, heads, n, m) to it, as the JAX
+    ``Attention`` sows its map into ``attn_maps`` (blocks.py:497-519)."""
 
     def __init__(
         self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
@@ -148,6 +158,7 @@ class Attention(nn.Module):
         inner = heads * dim_head
         self.dim, self.heads, self.dim_head, self.dropout, self.flash = dim, heads, dim_head, dropout, flash
         self.qk_norm, self.force_split_qkv = qk_norm, force_split_qkv
+        self.recorded: Optional[list] = None
         self.project_out = not (heads == 1 and dim_head == dim)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, bias=norm_bias, **kw)
         if force_split_qkv:
@@ -176,7 +187,7 @@ class Attention(nn.Module):
             x=x, heads=self.heads, dim_head=self.dim_head, dim=self.dim, flash=self.flash,
             project_out=self.project_out, dropout=self.dropout, train=self.training,
             force_split_qkv=self.force_split_qkv, has_context=context is not None, has_segments=has_segments,
-            has_mask=has_mask,
+            has_mask=has_mask, record=self.recorded is not None,
         )
 
     def forward(self, x, context=None, *, mask=None, q_segment_ids=None, kv_segment_ids=None, residual=None):
@@ -221,13 +232,17 @@ class Attention(nn.Module):
                 .reshape(b, n, 3, self.heads, self.dim_head)
                 .permute(2, 0, 3, 1, 4)
             )
+        record = self.recorded is not None
         out = dot_product_attention(
             q, k, v, scale=1.0 if self.qk_norm else None,
             gamma_q=self.q_norm.gamma if self.qk_norm else None,
             gamma_k=self.k_norm.gamma if self.qk_norm else None, mask=mask,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            dropout_rate=self.dropout if self.training else 0.0, use_flash=self.flash,
+            dropout_rate=self.dropout if self.training else 0.0, return_attn=record, use_flash=self.flash,
         )
+        if record:
+            out, attn = out
+            self.recorded.append(attn)
         out = self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
         return out if residual is None else out + residual
 
@@ -317,6 +332,7 @@ class Transformer(nn.Module):
             and not has_segments
             and not has_mask
             and not self.qk_norm  # the whole-layer kernel has no qk-norm (:647)
+            and all(attn.recorded is None for attn, _ in self.layers)  # recording (:631)
             and self.flash is not False
             and (self.dropout == 0.0 or not self.training)
             and not (self.heads == 1 and self.dim_head == self.dim)  # project_out

@@ -134,13 +134,21 @@ def _nvcc() -> str:
 
 
 def load_library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library of
+    ``CSRC_DIR``; every wrapper's launch goes through the one it returns."""
     global _library
-    if _library is not None:
-        return _library
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if _library is None:
+        _library = build_library(CSRC_DIR)
+    return _library
+
+
+def build_library(csrc_dir: Path) -> KernelLibrary:
+    """Build (once per source hash) and load the library of the sources in
+    ``csrc_dir``: another copy of ``csrc/`` (a mutation check's) shares the
+    objects of the sources it leaves unchanged."""
+    sources = sorted(csrc_dir.glob("*.cu"))
     headers = hashlib.sha256()
-    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+    for hdr in sorted(csrc_dir.glob("*.cuh")):
         headers.update(hdr.name.encode() + hdr.read_bytes())
     headers.update(" ".join(NVCC_FLAGS).encode())
     keys = [hashlib.sha256(headers.digest() + src.name.encode() + src.read_bytes()).hexdigest()[:16]
@@ -152,8 +160,7 @@ def load_library() -> KernelLibrary:
         t0 = time.perf_counter()
         log = _build(path, sources, keys)
         seconds = time.perf_counter() - t0
-    _library = KernelLibrary(path, seconds, log)
-    return _library
+    return KernelLibrary(path, seconds, log)
 
 
 def _build(path: Path, sources, keys) -> str:

@@ -21,6 +21,9 @@ the inverses of ``convert_dino`` (the student; the teacher from the JAX
 ``DinoState.teacher_params``), ``convert_lejepa``, ``convert_simmim``,
 ``convert_mpp`` and ``convert_mp3``; EsViT, which has no converter, takes
 Dino's names with ``view_projector`` and ``region_projector``.
+The VAT family's map (``vat_family_state_dict_from_jax``) renames the JAX
+module paths into the port's, which keeps the JAX module tree;
+``accept_video_wrapper_state_dict_from_jax`` takes the wrapped net's map.
 ``tool_layer_from_jax``
 carries the weight tuples of the JAX package's layer prototypes in
 ``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
@@ -357,6 +360,48 @@ def max_vit_with_registers_state_dict_from_jax(params: Mapping, batch_stats: Map
     ``batch_stats`` trees -> the port's ``state_dict``."""
     return _with_stats(params, batch_stats, _MAX_VIT_REGISTERS_MODULES,
                        ((r"block_(\d+)_register_tokens", r"register_tokens.\1"),))
+
+
+# ssl/vat.py, ssl/vaat.py, ssl/vat_siglip.py: the port keeps the JAX module
+# tree, so a JAX path becomes a torch key by these renames and "/" -> "."
+_VAT_FAMILY_RENAMES = (
+    (r"\blayers_(\d+)_attn\b", r"layers/\1/0"),
+    (r"\blayers_(\d+)_ff\b", r"layers/\1/1"),
+    (r"\b(films|self_attns|cross_attns|crosses|img_crosses|audio_crosses|ffs)_(\d+)\b", r"\1/\2"),
+    (r"\bpatch_embedding/norm_pre\b", "patch_embedding/1"),
+    (r"\bpatch_embedding/proj\b", "patch_embedding/2"),
+    (r"\bpatch_embedding/norm_post\b", "patch_embedding/3"),
+    (r"/(kernel|scale|embedding)$", "/weight"),
+)
+
+
+def vat_family_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The ``params`` tree of a JAX ``ssl/vat.py`` ``ViT`` or ``VAT``, an
+    ``ssl/vaat.py`` ``AST`` or ``VAAT``, or an ``ssl/vat_siglip.py``
+    ``SigLIP`` or ``SigLIPVAT`` -> the port module's ``state_dict``.  The
+    JAX ``ViT`` inside a VAT has no ``mlp_head`` (VAT never calls it): load
+    with ``strict=False`` where the port's has one."""
+    out = {}
+    for path, value in _flatten(params):
+        array = np.array(value)
+        if path.endswith("/kernel"):
+            array = np.ascontiguousarray(array.T)
+        for pattern, template in _VAT_FAMILY_RENAMES:
+            path = re.sub(pattern, template, path)
+        out[path.replace("/", ".")] = torch.from_numpy(array)
+    return out
+
+
+
+def accept_video_wrapper_state_dict_from_jax(params: Mapping, image_net_from_jax=vit_state_dict_from_jax):
+    """The JAX ``wrappers/accept_video_wrapper.py::AcceptVideoWrapper``'s
+    ``params`` tree -> the port's ``state_dict``: ``embed_proj`` and
+    ``pos_emb``, and the wrapped net's ``image_net`` subtree through
+    ``image_net_from_jax`` (the map of its model)."""
+    out = {f"image_net.{k}": v for k, v in image_net_from_jax(params.get("image_net", {})).items()}
+    out.update(_state_dict({k: v for k, v in params.items() if k != "image_net"}, (("embed_proj", "embed_proj"),),
+                           ("pos_emb",)))
+    return out
 
 
 def tool_layer_from_jax(weights) -> tuple[torch.Tensor, ...]:
