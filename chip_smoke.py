@@ -339,6 +339,32 @@ Phases, each printed as it ends:
      the short kernel at phase 45's shapes by device time against its twin,
      its bound and its library call, the SigLIPVAT and VAT_B shapes an
      entry each in the kernels line.
+ 49. the rest of the simple-ViT family at config 2's width (256/32, dim
+     1024, depth 6, 16 heads, bs=256): the 1-D model (256 steps of 16, 8
+     heads), the 3-D pair (ViViT's clip: 512 tokens, bs=16), patch dropout
+     0.5, the FFT stream (freq patch 32: 128 tokens), the flash-attn
+     variant, the orthogonal update, hyper-connections (4 streams, 4
+     registers: 68 tokens), value residual, specialized cls and the
+     attention-residual model, each served one batch: exact counters (4
+     block launches a layer where the block fuses, none in the 3-D pair,
+     value residual, specialized cls and attention-residual), logits
+     against the plain bf16 path (the block on its twins) and fp32, ms a
+     batch; the 1-D, patch-dropout, orthogonal-update and hyper-connection
+     models trained 3 steps (loss falls, exact counters, first-step loss
+     and gradients against plain bf16 and fp32, the hyper-connections'
+     mixing parameters against fp32 within the all-gradients bound and
+     logged, ms/step); the attention
+     block on a strided x, served and with its backward, bitwise its
+     contiguous copy; a Transformer with qkv_bias=True and scale 0.1 at
+     ViT-B widths: one layer on the whole-layer kernels (7 launches
+     forward, 13 with the backward) and on the attention-block kernels at
+     dropout 0.1 (11), output and 13 gradients against the twins, 6 layers
+     under VIT_TPU_STACK_LAYERS=6 (one stack_layers launch) bitwise the
+     42-launch chain; the new shapes (attention_rows and attention_bwd_rows
+     at the 1-D model's 16 tokens of 8 heads, attention_rows at the FFT
+     model's 128 of 16, gemm_bf16's qkv site with a bias) against their
+     twins and by device time against their twins, bounds and library
+     calls, each an entry of the kernels line.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -5390,6 +5416,42 @@ def queued_event_ms(fn, iters=10, tries=4):
     fail(f"the device caught up with the host in {tries} event timings: no device time")
 
 
+L2_FLUSH_BYTES = 256 << 20  # over 5x the H100's 50 MB L2
+
+
+def flushed_event_ms(fn, iters=10, tries=4):
+    """Device ms of one call of fn that finds none of its operands in L2:
+    a 256 MB buffer is written before each call, outside the timed window,
+    and CUDA events around each call, queued behind a spin kernel as in
+    :func:`queued_event_ms`, time the call on the device (its kernels and
+    the device's gaps between them)."""
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        flush_buf.fill_(1)
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush_buf.fill_(1)
+        fn()
+    sync()
+    cycles = int(max(time.perf_counter() - t0, 1e-3) * 4e9)
+    for _ in range(tries):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda._sleep(cycles)
+        for i, (start, end) in enumerate(events):
+            flush_buf.fill_(i & 1)
+            start.record()
+            fn()
+            end.record()
+        queued = not events[0][0].query()
+        sync()
+        if queued:
+            return sum(start.elapsed_time(end) for start, end in events) / iters
+        cycles *= 2
+    fail(f"the device caught up with the host in {tries} flushed event timings: no device time")
+
+
 def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp):
     """Each chain kernel's launch at one shape, forward and backward: its
     device time against its twin's in turns (plain, kernel, kernel, plain),
@@ -6773,6 +6835,501 @@ def time_vla(fa, dev, smi, siglip, vat):
     return per_kernel
 
 
+# -- the simple-ViT family (phase 49): the eleven models of ROADMAP item 9's
+# first family, served at config 2's width (SIMPLE: 256/32, dim 1024, depth 6,
+# 16 heads, bs=256, 64 tokens); the 1-D model at 256 steps of patch 16 (16
+# tokens, 8 heads: inner 512 != dim), the 3-D ones at ViViT's clip (16 frames
+# of 128 x 128, tubelets 2 x 16 x 16: 512 tokens, over the block kernels' 208:
+# the composite), each with random weights from SEED
+FAMILY_1D = dict(seq_len=256, patch_size=16, num_classes=1000, dim=1024, depth=6, heads=8, mlp_dim=2048)
+FAMILY_3D = dict(image_size=128, image_patch_size=16, frames=16, frame_patch_size=2, num_classes=1000, dim=1024,
+                 depth=6, heads=8, mlp_dim=2048)
+FAMILY_3D_BS = 16
+FAMILY_STREAMS = 4  # hyper-connections' residual streams (and its 4 register tokens: 68 tokens)
+FAMILY_PATCH_DROPOUT = 0.5  # 32 of 64 tokens in training
+SIMPLE_2D = {k: v for k, v in SIMPLE.items()}
+# name: (module, class, constructor, input shape past the batch, batch, tokens served, fuses)
+FAMILY = {
+    "simple_vit_1d": ("simple_vit_1d", "SimpleViT", FAMILY_1D, (3, 256), SIMPLE_BS, 16, True),
+    "simple_vit_3d": ("simple_vit_3d", "SimpleViT", FAMILY_3D, (3, 16, 128, 128), FAMILY_3D_BS, 512, False),
+    "simple_vit_with_patch_dropout": ("simple_vit_with_patch_dropout", "SimpleViT",
+                                      {**SIMPLE_2D, "patch_dropout": FAMILY_PATCH_DROPOUT}, (3, 256, 256), SIMPLE_BS,
+                                      64, True),
+    "simple_vit_with_fft": ("simple_vit_with_fft", "SimpleViT", {**SIMPLE_2D, "freq_patch_size": 32},
+                            (3, 256, 256), SIMPLE_BS, 128, True),
+    "simple_flash_attn_vit": ("simple_flash_attn_vit", "SimpleViT", SIMPLE_2D, (3, 256, 256), SIMPLE_BS, 64, True),
+    "simple_flash_attn_vit_3d": ("simple_flash_attn_vit_3d", "SimpleViT", FAMILY_3D, (3, 16, 128, 128),
+                                 FAMILY_3D_BS, 512, False),
+    "simple_vit_orthog_residual_update": ("simple_vit_orthog_residual_update", "SimpleViT", SIMPLE_2D,
+                                          (3, 256, 256), SIMPLE_BS, 64, True),
+    "simple_vit_with_hyper_connections": ("simple_vit_with_hyper_connections", "SimpleViT",
+                                          {**SIMPLE_2D, "num_residual_streams": FAMILY_STREAMS}, (3, 256, 256),
+                                          SIMPLE_BS, 68, True),
+    "simple_vit_with_value_residual": ("simple_vit_with_value_residual", "SimpleViT", SIMPLE_2D, (3, 256, 256),
+                                       SIMPLE_BS, 64, False),
+    "simple_vit_with_specialized_cls": ("simple_vit_with_specialized_cls", "SimpleViT", SIMPLE_2D, (3, 256, 256),
+                                        SIMPLE_BS, 65, False),
+    "simple_vit_attn_residual": ("simple_vit_attn_residual", "SimpleViTAttnResidual", SIMPLE_2D, (3, 256, 256),
+                                 SIMPLE_BS, 64, False),
+}
+FAMILY_TRAINED = ("simple_vit_1d", "simple_vit_with_patch_dropout", "simple_vit_orthog_residual_update",
+                  "simple_vit_with_hyper_connections")
+FAMILY_TRAIN_STEPS = 3
+# The first step's gradients against fp32: SIMPLE_TRAIN_VS_FP32 for every
+# parameter but the hyper-connections' mixing parameters (static and dynamic
+# alpha and beta), whose bf16 gradients are sums over every token of
+# products that cancel and move with any rounding (phase 49 reads them at
+# 2.83e-2 to 6.73e-2 from fp32 on the kernel and plain bf16 paths; NVIDIA
+# H100 80GB HBM3, 700.00 W): each of them is held to fp32 on its own at
+# HYPER_MIXING_VS_FP32, and the run reads three witnesses on the same draw
+# beside it: the same step in f64 (is fp32 the answer?), the kernel path's
+# step again (does it repeat?), and three batches with 1e-3 relative noise
+# through the kernel, plain bf16 and fp32 paths (how far each bf16 path's
+# distance from fp32 moves around this draw).
+HYPER_MIXING = re.compile(r"\.(static_alpha|static_beta|dynamic_alpha_fn|dynamic_alpha_scale|dynamic_beta_fn|"
+                          r"dynamic_beta_scale)$")
+HYPER_MIXING_VS_FP32 = 1e-1
+HYPER_NOISE, HYPER_NOISE_DRAWS = 1e-3, 3
+# a Transformer with a qkv bias at ViT-B widths, each layer's Attention
+# with the logits' scale QKV_SCALE: one layer without the final norm (its 13
+# gradients: dx and 12 operands), and the stack's 6 layers.  Its gradients
+# against an f32 copy on the composite: each within QKV_VS_FP32_REL_L2, and
+# a control (the f32 gradients with one of the B_CHECK samples' cotangent
+# zeroed, as a reduction that skips a sample's rows would give) outside it.
+QKV_SCALE = 0.1  # dim_head**-0.5 is 0.125
+QKV_STACK_DEPTH = 6
+QKV_VS_FP32_REL_L2 = 3e-2
+FAMILY_ENTRIES = ("attention_rows @ SimpleViT-1D", "attention_bwd_rows @ SimpleViT-1D",
+                  "attention_rows @ SimpleViT-FFT", "gemm_bf16[qkv+bias] @ Transformer")
+
+
+def family_model(name, dev, dtype, **kw):
+    """One model of the family at its phase-49 configuration, random
+    weights from SEED, initialised in f32 and cast as the JAX bench casts
+    its params."""
+    import importlib
+
+    module, cls, cfg, *_ = FAMILY[name]
+    model_cls = getattr(importlib.import_module(f"vit_pytorch_tpu_torch.models.{module}"), cls)
+    return model_cls(**cfg, **kw, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def family_depth(name):
+    return FAMILY[name][2]["depth"]
+
+
+def family_want(name, per_layer, runs=1):
+    """The exact launch counts of ``runs`` calls: ``per_layer`` a layer
+    where the model fuses, nothing anywhere else."""
+    fuses = FAMILY[name][-1]
+    return {k: family_depth(name) * v * runs for k, v in per_layer.items()} if fuses else {}
+
+
+def serve_family(fb, fa, name, dev, gen):
+    """Serve one batch of the model: exact launch counters, outputs against
+    the plain bf16 path (the block Function on its twins) and fp32, the
+    time of a batch.  Returns the launch counts."""
+    _, _, cfg, shape, bs, tokens, fuses = FAMILY[name]
+    fp32 = family_model(name, dev, torch.float32).eval()
+    model = copy.deepcopy(fp32).to(torch.bfloat16).eval()
+    x = torch.randn(bs, *shape, generator=gen, device=dev)
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        reset_all(fb, fa)
+        out = model(xb)
+        sync()
+        log(f"  {name}: bs={bs}, {tokens} tokens, {'the attention-block kernels' if fuses else 'no kernel'}")
+        counts = expect_launches(fb, fa, family_want(name, BLOCK_FWD_LAUNCHES), f"{name} serving")
+        if out.shape != (bs, cfg["num_classes"]) or not bool(torch.isfinite(out).all()):
+            fail(f"{name}: outputs {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        reset_all(fb, fa)
+        with plain_layers():
+            plain = model(xb)
+        want = fp32(x)
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"{name}: the plain and fp32 paths launched kernels")
+        e_plain, e_fp32, floor = rel_l2(out, plain), rel_l2(out, want), rel_l2(plain, want)
+        ms = host_ms(lambda: model(xb), iters=3)
+    ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
+    log(f"    logits rel L2 vs plain bf16 {e_plain:.4e} (bound {SIMPLE_LOGITS_VS_PLAIN}), vs fp32 {e_fp32:.4e} (bound "
+        f"{SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 {floor:.4e}) {'ok' if ok else 'FAILED'}; {ms:.3f} ms a batch")
+    if not ok:
+        fail(f"{name} served outputs disagree with the plain path or fp32")
+    del model, fp32
+    return counts
+
+
+def train_family(fb, fa, name, dev, gen):
+    """FAMILY_TRAIN_STEPS Adam steps through make_train_step on one batch,
+    each with a generator seeded alike (patch dropout keeps the same tokens
+    on every path): loss finite and falling, exact launch counters, the first
+    step's loss and gradients against the plain bf16 path and fp32.  Returns
+    the launch counts of the steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    _, _, cfg, shape, *_ = FAMILY[name]
+    fp32 = family_model(name, dev, torch.float32)
+    model = copy.deepcopy(fp32).to(bf16)
+    initial = copy.deepcopy(model)
+    names = [n for n, _ in model.named_parameters()]
+    mixing = [i for i, n in enumerate(names) if HYPER_MIXING.search(n)]
+    fp32_initial = copy.deepcopy(fp32) if mixing else None  # the witnesses' start
+    images = torch.randn(B_TRAIN, *shape, generator=gen, device=dev)
+    labels = torch.randint(0, cfg["num_classes"], (B_TRAIN,), generator=gen, device=dev)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    state, step = create_train_state(model), make_train_step(model)
+    reset_all(fb, fa)
+    losses = []
+    for i in range(FAMILY_TRAIN_STEPS):
+        losses.append(step(state, images.to(bf16), labels, seeded())["loss"].item())
+        if i == 0:
+            grads = grad_vector(model)
+            t0 = time.perf_counter()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / (FAMILY_TRAIN_STEPS - 1)
+    log(f"  {name}: bs={B_TRAIN}, losses {[f'{v:.6f}' for v in losses]}, {ms:.3f} ms/step (steps 2-"
+        f"{FAMILY_TRAIN_STEPS}, host clock)")
+    counts = expect_launches(fb, fa, family_want(name, BLOCK_TRAIN_LAUNCHES, FAMILY_TRAIN_STEPS), f"{name} training")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{name} training loss is not finite or does not fall on the repeated batch")
+    plain = copy.deepcopy(initial)
+    reset_all(fb, fa)
+    with plain_layers():
+        loss_plain = make_train_step(plain)(create_train_state(plain), images.to(bf16), labels, seeded())["loss"].item()
+    sync()
+    if any(all_launches(fb, fa).values()):
+        fail(f"{name}: the plain path launched kernels")
+    loss_fp32 = make_train_step(fp32)(create_train_state(fp32), images, labels, seeded())["loss"].item()
+    plain_grads, fp32_grads = grad_vector(plain), grad_vector(fp32)
+    compare_grads(f"{name} first step vs plain bf16", grads, plain_grads, losses[0], loss_plain, SIMPLE_TRAIN_VS_PLAIN,
+                  names)
+    rest = [i for i in range(len(names)) if i not in set(mixing)]
+    pick = lambda seq, idx: [seq[i] for i in idx]
+    compare_grads(f"{name} first step vs fp32" + (", outside the mixing parameters" if mixing else ""),
+                  pick(grads, rest), pick(fp32_grads, rest), losses[0], loss_fp32, SIMPLE_TRAIN_VS_FP32,
+                  pick(names, rest))
+    if mixing:
+        check_mixing(name, names, mixing, dict(kernel=grads, plain=plain_grads, fp32=fp32_grads), initial,
+                     fp32_initial, images, labels, seeded)
+    del model, plain, fp32, fp32_initial, initial, state, step
+    return counts
+
+
+def check_mixing(name, names, mixing, grads, initial, fp32_initial, images, labels, seeded):
+    """The hyper-connections' mixing parameters: each one's first-step
+    gradient on the kernel and the plain bf16 paths against fp32 within
+    HYPER_MIXING_VS_FP32, and every parameter's within the all-gradients
+    bound; beside them the witnesses on this draw, each at the mixing
+    parameters' worst: the same step in f64 (the composite keeps its f32
+    logits, ops/attention.py), the kernel path's step once more, and
+    HYPER_NOISE_DRAWS batches with HYPER_NOISE relative noise, each through
+    the kernel, plain bf16 and fp32 paths (the spread of both bf16 paths'
+    distance from fp32 around this draw)."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+
+    def step(model, x, plain=False):
+        model = copy.deepcopy(model)
+        with plain_layers() if plain else contextlib.nullcontext():
+            make_train_step(model)(create_train_state(model), x, labels, seeded())
+        return grad_vector(model)
+
+    rel = lambda a, b, i: ((a[i] - b[i]).norm() / b[i].norm().clamp_min(1e-30)).item()
+    worst = lambda a, b: max((rel(a, b, i), names[i]) for i in mixing)
+    (e_k, n_k), (e_p, n_p) = worst(grads["kernel"], grads["fp32"]), worst(grads["plain"], grads["fp32"])
+    total = grads_rel_l2(grads["kernel"], grads["fp32"])
+    ok = e_k <= HYPER_MIXING_VS_FP32 and e_p <= HYPER_MIXING_VS_FP32 and total <= SIMPLE_TRAIN_VS_FP32["grads"]
+    log(f"  {name} first step vs fp32, the mixing parameters' worst: kernel {n_k} {e_k:.4e}, plain bf16 {n_p} "
+        f"{e_p:.4e} (bound {HYPER_MIXING_VS_FP32} each); every parameter: grads rel L2 {total:.4e} (bound "
+        f"{SIMPLE_TRAIN_VS_FP32['grads']}) {'ok' if ok else 'FAILED'}")
+    f64 = step(copy.deepcopy(fp32_initial).double(), images.double())
+    again = step(initial, images.to(bf16))
+    readings = [("fp32 vs f64", grads["fp32"], f64), ("kernel vs f64", grads["kernel"], f64),
+                ("plain vs f64", grads["plain"], f64), ("kernel again vs kernel", again, grads["kernel"])]
+    noise = torch.Generator(device=images.device).manual_seed(SEED + 1)
+    for i in range(HYPER_NOISE_DRAWS):
+        noisy = images * (1 + HYPER_NOISE * torch.randn(images.shape, generator=noise, device=images.device))
+        want = step(fp32_initial, noisy)
+        readings += [(f"noisy batch {i}: kernel vs fp32", step(initial, noisy.to(bf16)), want),
+                     ("plain vs fp32", step(initial, noisy.to(bf16), plain=True), want)]
+    sync()
+    log("    witnesses, the mixing parameters' worst: " + "; ".join(
+        "{} {} {:.4e}".format(label, *reversed(worst(a, b))) for label, a, b in readings))
+    if not ok:
+        fail(f"training: {name} first step vs fp32 out of bounds")
+
+
+def qkv_bias_transformer(dev, gen, depth, **kw):
+    """A bf16 ``Transformer`` at ViT-B widths with a qkv bias, each layer's
+    ``Attention`` built with the logits' scale QKV_SCALE (the JAX
+    ``Transformer`` has no scale: the block route takes the Attention's, the
+    whole-layer and stack routes take it as their ops' ``scale=``, see
+    :func:`scaled_layers`), every parameter drawn from ``gen`` (Linear
+    weights N(0, 1/fan_in), every bias and LayerNorm shift N(0, 0.1^2),
+    LayerNorm scales 1 + N(0, 0.1^2)): no bias is zero, so a dropped one
+    shows."""
+    from vit_pytorch_tpu_torch.nn.blocks import Attention, Transformer
+
+    model = Transformer(DIM, depth, HEADS, DH, MLP, qkv_bias=True, device=dev, **kw)
+    for i, layer in enumerate(model.layers):
+        layer[0] = Attention(DIM, heads=HEADS, dim_head=DH, dropout=model.dropout, qkv_bias=True, scale=QKV_SCALE,
+                             sow_index=i, device=dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=gen, device=dev)
+            if name.endswith("weight") and p.dim() == 2:
+                p.copy_(z * p.shape[1] ** -0.5)
+            else:
+                p.copy_((1.0 if name.endswith("norm.weight") or ".net.0.weight" in name else 0.0) + 0.1 * z)
+    return model.to(torch.bfloat16)
+
+
+def scaled_layers(model, x, *, stack=False):
+    """``model``'s layers (no final norm) on the whole-layer route with each
+    layer's Attention scale: ``fused_transformer_layer`` a layer (the
+    twins' under :func:`plain_layers`) or one ``fused_transformer_stack`` of
+    them all, each fed the model's ``layer_weights`` / ``layer_tuple``."""
+    from vit_pytorch_tpu_torch.nn import blocks
+    from vit_pytorch_tpu_torch.ops.fused_block import LN_EPS, fused_transformer_stack
+
+    kw = dict(heads=HEADS, dim_head=DH, scale=model.layers[0][0].scale, eps=LN_EPS)
+    if stack:
+        return fused_transformer_stack(x, [model.layer_tuple(i, x.dtype) for i in range(len(model.layers))], **kw)
+    for i in range(len(model.layers)):
+        weights, biases = model.layer_weights(i, x.dtype)
+        x = blocks.fused_transformer_layer(x, *weights, **kw, **biases)
+    return x
+
+
+def transformer_grads(model, x, g, plain=False, run=None):
+    """Output and the gradients of x and of every parameter, for ``g``;
+    ``run(model, x)`` (default ``model(x)``) on ``plain``: the layers on the
+    twins."""
+    model.zero_grad(set_to_none=True)
+    leaf = x.detach().clone().requires_grad_()
+    with plain_layers() if plain else contextlib.nullcontext():
+        out = model(leaf) if run is None else run(model, leaf)
+    out.backward(g)
+    return out.detach(), [leaf.grad] + [p.grad for _, p in model.named_parameters()]
+
+
+def f32_composite(model):
+    """An f32 copy of ``model`` on the plain composite (``flash=False``),
+    the reference of its bf16 routes."""
+    ref = copy.deepcopy(model).float()
+    ref.flash = False
+    for attn, _ in ref.layers:
+        attn.flash = False
+    return ref
+
+
+def check_qkv_bias_transformer(fb, fa, dev, gen):
+    """A Transformer with a qkv bias at ViT-B widths (b=8, n=197), each
+    layer's Attention scale QKV_SCALE: the model's own forward on the
+    whole-layer kernels (7 launches, the qkv site's bias in its epilogue)
+    against the twins; one layer through ``fused_transformer_layer`` with
+    that scale and its backward (13 launches), the output and its 13
+    gradients (db_qkv among them) against the same op on the twins and, each
+    within QKV_VS_FP32_REL_L2, against an f32 copy on the composite (the
+    control outside that bound); the attention-block kernels with dropout
+    0.1 in training (the block's 11 launches, the Attention's scale) against
+    the same module on the twins (the same masks); 6 layers' one
+    ``fused_transformer_stack`` launch with that scale bitwise the 42-launch
+    chain, and the chain within 6 layers' bounds of the twins.  Returns the
+    qkv site's launches in the model's forward."""
+    log(f"  Transformer(dim {DIM}, heads {HEADS}, mlp {MLP}, qkv_bias=True), Attention scale {QKV_SCALE}, "
+        f"b={B_CHECK} n={N}")
+    x, g = (torch.randn(B_CHECK, N, DIM, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    model = qkv_bias_transformer(dev, gen, 1, final_norm=False).eval()
+    labels = ("x", *(name for name, _ in model.named_parameters()))
+    reset_all(fb, fa)
+    with torch.no_grad():
+        out = model(x)
+    sync()
+    expect_launches(fb, fa, LAUNCHES_PER_LAYER, "the qkv-bias Transformer's whole-layer forward")
+    qkv_launches = fb.GEMM_LAUNCHES["qkv"]
+    with torch.no_grad(), plain_layers():
+        want = model(x)
+    compare("qkv-bias Transformer (out)", out, want, LAYER_ATOL, LAYER_RTOL)
+    reset_all(fb, fa)
+    out, grads = transformer_grads(model, x, g, run=scaled_layers)
+    sync()
+    expect_launches(fb, fa, TRAIN_LAUNCHES_PER_LAYER, f"the qkv-bias layer at scale {QKV_SCALE} with its backward")
+    want, want_grads = transformer_grads(model, x, g, plain=True, run=scaled_layers)
+    compare("qkv-bias layer (out)", out, want, LAYER_ATOL, LAYER_RTOL)
+    for label, a, b in zip(labels, grads, want_grads):
+        compare(f"qkv-bias layer grad d{label}", a, b, None, KERNEL_RTOL, LAYER_GRAD_REL_L2,
+                atol_frac=LAYER_GRAD_ATOL_FRAC)
+    ref = f32_composite(model)
+    ref_out, ref_grads = transformer_grads(ref, x.float(), g.float())
+    control = g.float().clone()
+    control[0] = 0
+    _, control_grads = transformer_grads(ref, x.float(), control)
+    sync()
+    del ref
+    rows = [("out", out, want, ref_out, ref_out)] + list(zip(labels, grads, want_grads, ref_grads, control_grads))
+    ok = True
+    log(f"  the qkv-bias layer against its f32 copy (rel L2; bound {QKV_VS_FP32_REL_L2}, the control outside it):")
+    for label, got, twin, ref_t, ctrl in rows:
+        e_k, e_t = rel_l2(got, ref_t), rel_l2(twin, ref_t)
+        e_c = None if label == "out" else rel_l2(ctrl, ref_t)
+        good = e_k <= QKV_VS_FP32_REL_L2 and e_t <= QKV_VS_FP32_REL_L2 and (e_c is None or e_c > QKV_VS_FP32_REL_L2)
+        ok &= good
+        log(f"    {'' if label == 'out' else 'd'}{label}: kernels {e_k:.4e}, twins {e_t:.4e}"
+            + ("" if e_c is None else f", control {e_c:.4e}") + f" {'ok' if good else 'FAILED'}")
+    if not ok:
+        fail("the qkv-bias layer disagrees with its f32 copy, or its control passes")
+    model = qkv_bias_transformer(dev, gen, 1, final_norm=False, dropout=RATE).train()
+    runs = []
+    for plain in (False, True):
+        torch.manual_seed(DROP_SEED)  # the block's seed (CPU) and the FF's masks (the card)
+        reset_all(fb, fa)
+        runs.append(transformer_grads(model, x, g, plain))
+        sync()
+        if not plain:
+            expect_launches(fb, fa, DROPOUT_LAUNCHES_PER_LAYER, "the qkv-bias Transformer's block at dropout 0.1")
+    # the layer's output and gradients (the block, then the plain FF on its
+    # output): the whole layer's bounds, as above
+    (out, grads), (want, want_grads) = runs
+    compare("qkv-bias block, dropout (out)", out, want, LAYER_ATOL, LAYER_RTOL)
+    for label, a, b in zip(labels, grads, want_grads):
+        compare(f"qkv-bias block grad d{label}", a, b, None, KERNEL_RTOL, LAYER_GRAD_REL_L2,
+                atol_frac=LAYER_GRAD_ATOL_FRAC)
+    model = qkv_bias_transformer(dev, gen, QKV_STACK_DEPTH, final_norm=False).eval()
+    with torch.inference_mode():
+        with env_switch({"VIT_TPU_STACK_LAYERS": str(QKV_STACK_DEPTH)}, STACK_KEYS):
+            reset_all(fb, fa)
+            model_stacked = model(x)
+            sync()
+            expect_launches(fb, fa, {"stack_layers": 1}, "the qkv-bias Transformer under VIT_TPU_STACK_LAYERS=6")
+        with env_switch({}, STACK_KEYS):
+            model_chain = model(x)
+        reset_all(fb, fa)
+        stacked = scaled_layers(model, x, stack=True)
+        sync()
+        expect_launches(fb, fa, {"stack_layers": 1}, f"the qkv-bias stack of {QKV_STACK_DEPTH} layers at scale "
+                        f"{QKV_SCALE}")
+        chain = scaled_layers(model, x)
+        with plain_layers():
+            twins = scaled_layers(model, x)
+    sync()
+    if not torch.equal(model_stacked, model_chain) or not torch.equal(stacked, chain):
+        fail("the qkv-bias Transformer's stack is not bitwise its chain")
+    log(f"  the stack of {QKV_STACK_DEPTH} layers bitwise the chain of {7 * QKV_STACK_DEPTH} launches, from the "
+        f"model's forward and at scale {QKV_SCALE}: ok")
+    compare("qkv-bias chain of 6 vs twins", chain, twins, QKV_STACK_DEPTH * LAYER_ATOL, LAYER_RTOL,
+            QKV_STACK_DEPTH * KERNEL_REL_L2)
+    del model
+    return qkv_launches
+
+
+def check_strided_block(fb, dev, gen):
+    """The attention-block Function on a strided x (one stream of a (b, n,
+    5, d) mix, as the hyper-connections model hands it), forward and
+    backward, against the same call on its contiguous copy: bit for bit."""
+    inner = SIMPLE["heads"] * DH
+    d, n = SIMPLE["dim"], SIMPLE_N + REGISTER_TOKENS
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    w = (rnd(3 * inner, d, scale=d**-0.5), rnd(d, inner, scale=inner**-0.5), 1 + rnd(d, scale=0.1), rnd(d, scale=0.1))
+    strided = rnd(SIMPLE_BS // 8, n, FAMILY_STREAMS + 1, d)[..., 0, :]
+    g = rnd(SIMPLE_BS // 8, n, d)
+    if strided.is_contiguous():
+        fail("the strided check's x is contiguous")
+    outs = []
+    for x in (strided, strided.contiguous()):
+        with torch.no_grad():
+            served = fb.fused_attention_block(x, None, *w, heads=SIMPLE["heads"], dim_head=DH)
+        leaf = x.detach().requires_grad_()
+        out = fb.fused_attention_block(leaf, leaf, *w, heads=SIMPLE["heads"], dim_head=DH)
+        (dx,) = torch.autograd.grad(out, [leaf], g)
+        outs.append((served, out.detach(), dx))
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        fail("the attention block on a strided x differs from its contiguous copy")
+    log(f"  the attention block on a strided x ({tuple(strided.shape)}, strides {strided.stride()}), served and "
+        f"with its backward: bitwise its contiguous copy")
+
+
+def check_family(fb, fa, dev, gen):
+    """Phase 49: the eleven models served and four of them trained, the
+    qkv-bias Transformer, the strided block.  Returns the launch counts by
+    model (serving, training) and the qkv site's launches in the
+    Transformer's whole-layer forward."""
+    log(f"[49 simple-ViT family] config 2's width {SIMPLE_2D}, bs={SIMPLE_BS}; 1-D {FAMILY_1D}; 3-D {FAMILY_3D} at "
+        f"bs={FAMILY_3D_BS}; bf16, random weights (seed {SEED})")
+    served = {name: serve_family(fb, fa, name, dev, gen) for name in FAMILY}
+    trained = {name: train_family(fb, fa, name, dev, gen) for name in FAMILY_TRAINED}
+    check_strided_block(fb, dev, gen)
+    return served, trained, check_qkv_bias_transformer(fb, fa, dev, gen)
+
+
+def time_family(fb, dev, gen, smi):
+    """Phase 49's new kernel shapes, each against its twin (the error the
+    kernels line reports) and by device time against its twin in turns, its
+    bound and its library call: attention_rows and attention_bwd_rows at
+    the 1-D model's (256, 16 tokens, 8 heads), attention_rows at the FFT
+    model's (256, 128 tokens, 16 heads), gemm_bf16's qkv site with its bias
+    at the Transformer check's (1,576 x 2,304 x 768).  The FFT shape's 268
+    MB of operands outlast the 50 MB L2 only in part between repeated
+    launches, so it is timed with L2 flushed before each call
+    (:func:`flushed_event_ms`: kernel, twin and SDPA alike), its warm
+    profiler times logged beside.  Returns the records and the errors."""
+    F_ = torch.nn.functional
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    per_kernel, errs = {}, {}
+    log(f"  the new shapes, {smi}:")
+    with torch.inference_mode():
+        for label, b, n, heads in (("SimpleViT-1D", SIMPLE_BS, 16, FAMILY_1D["heads"]),
+                                   ("SimpleViT-FFT", SIMPLE_BS, 128, SIMPLE["heads"])):
+            akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+            qkv = rnd(b, n, 3 * heads * DH)
+            q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
+            name = f"attention_rows @ {label}"
+            errs[name] = compare(name, fb.attention_rows(qkv, **akw), fb.attention_rows_reference(qkv, **akw),
+                                 ATTN_ATOL, ATTN_RTOL)
+            kern, twin, sdpa = (lambda: fb.attention_rows(qkv, **akw), lambda: fb.attention_rows_reference(qkv, **akw),
+                                lambda: F_.scaled_dot_product_attention(q, k, v))
+            if label == "SimpleViT-FFT":
+                warm = [device_ms(f) for f in (kern, sdpa)]
+                p1, k1, k2, p2 = (flushed_event_ms(f) for f in (twin, kern, kern, twin))
+                lib_ms = flushed_event_ms(sdpa)
+                log(f"  {name}, L2 flushed before each call: kernel {k1:.4f} / {k2:.4f} ms, twin {p1:.4f} / {p2:.4f} "
+                    f"ms, SDPA {lib_ms:.4f} ms; warm (the profiler, repeated calls): kernel {warm[0]:.4f} ms, SDPA "
+                    f"{warm[1]:.4f} ms")
+                record(per_kernel, name, (k1 + k2) / 2, (p1 + p2) / 2, attention_work(b, n, heads), library_ms=lib_ms)
+                continue
+            sites = [(name, kern, twin, attention_work(b, n, heads), device_ms(sdpa))]
+            if label == "SimpleViT-1D":
+                dm = rnd(b, n, heads * DH)
+                name = f"attention_bwd_rows @ {label}"
+                errs[name] = check_attention_bwd(fb, "attention_bwd_rows", qkv, dm, akw, label)
+                sites.append((name, lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+                              lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw),
+                              attention_work(b, n, heads, backward=True), None))
+            for name, kern, twin, wk, lib_ms in sites:
+                p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+                record(per_kernel, name, (k1 + k2) / 2, (p1 + p2) / 2, wk, library_ms=lib_ms)
+        rows, inner = B_CHECK * N, HEADS * DH
+        h, w_qkv, b_qkv = rnd(B_CHECK, N, DIM), rnd(3 * inner, DIM, scale=DIM**-0.5), rnd(3 * inner, scale=0.1)
+        name = "gemm_bf16[qkv+bias] @ Transformer"
+        errs[name] = compare(name, fb.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv),
+                             fb.gemm_bf16_reference(h, w_qkv, "qkv", bias=b_qkv), KERNEL_ATOL, KERNEL_RTOL)
+        kern, twin = (lambda: fb.gemm_bf16(h, w_qkv, "qkv", bias=b_qkv),
+                      lambda: fb.gemm_bf16_reference(h, w_qkv, "qkv", bias=b_qkv))
+        p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+        record(per_kernel, name, (k1 + k2) / 2, (p1 + p2) / 2, gemm_work(rows, 3 * inner, DIM, bias=True),
+               library_ms=device_ms(lambda: F_.linear(h, w_qkv, b_qkv)))
+    for name, t in per_kernel.items():
+        bound, by = bound_ms(t["work"])
+        log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+            + ("" if t["library_ms"] is None else f", library call {t['library_ms']:.4f} ms"))
+    sync()
+    return per_kernel, errs
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -7171,6 +7728,13 @@ def main():
     del siglip_state, vat_state
     phase_done("phase 48")
 
+    # -- 49. the simple-ViT family served and trained; the qkv-bias Transformer; a strided block ---------------
+    family_served, family_trained, qkv_launches = check_family(fb, fa, dev, gen)
+    family_times, family_errs = time_family(fb, dev, gen, smi)
+    per_kernel.update(family_times)
+    errs.update(family_errs)
+    phase_done("phase 49")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -7246,6 +7810,14 @@ def main():
            for label, counts_ in zip(VLA_ENTRIES, (siglip_train_counts, vat_train_counts)) for name in TPU_FLASH]
         + [entry(f"short_attention @ {VLA_ENTRIES[0]}", SHORT_SOURCE, TPU_SHORT, "SigLIPVAT serving at (2, 2) views x "
                  "frames (1,024 keys)", siglip_short_counts["short_attention"])]
+        + [entry("attention_rows @ SimpleViT-1D", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-1D serving",
+                 family_served["simple_vit_1d"]["attention_rows"]),
+           entry("attention_bwd_rows @ SimpleViT-1D", ATTN_BWD_SOURCE, TPU_BWD_KERNEL, "SimpleViT-1D training",
+                 family_trained["simple_vit_1d"]["attention_bwd_rows"]),
+           entry("attention_rows @ SimpleViT-FFT", SOURCE, TPU_BLOCK_KERNEL, "SimpleViT-FFT serving",
+                 family_served["simple_vit_with_fft"]["attention_rows"]),
+           entry("gemm_bf16[qkv+bias] @ Transformer", SOURCE, TPU_KERNEL,
+                 "Transformer(qkv_bias=True) forward on the whole-layer kernels", qkv_launches)]
     )
     for k in kernels:
         if not k["launches"]:
@@ -7295,7 +7867,11 @@ def main():
         "no ids, library_ms SDPA (forward) and PyTorch's flash-attention backward (one aten call for dq, dk, dv), "
         "their launches from the model's first training step (one of each a layer), errors from phase 45; "
         "'short_attention @ SigLIPVAT': 8 x 8 x 54 x 1,024, its launches from one SigLIPVAT forward at (2, 2) views "
-        "x frames)")
+        "x frames; the entries '@ SimpleViT-1D' and '@ SimpleViT-FFT': attention_rows (and attention_bwd_rows) at "
+        "bs=256, 16 tokens of 8 heads and 128 tokens of 16 heads, by device time, their launches from one served "
+        "batch (and 3 training steps) of those models in phase 49, library_ms SDPA; 'gemm_bf16[qkv+bias] @ "
+        "Transformer': the qkv site with its bias at 1,576 x 2,304 x 768, library_ms F.linear with the bias, its "
+        "launches from the qkv-bias Transformer's whole-layer forward)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

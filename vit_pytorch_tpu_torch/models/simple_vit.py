@@ -11,11 +11,13 @@ keep the reference's ``state_dict`` layout (``to_patch_embedding.1/2/3``,
 ``utils/from_jax.py::simple_vit_state_dict_from_jax`` back.  On the card in
 bf16 every attention call runs the attention-block kernels (4 launches a
 layer forward, 6 backward); the FF runs as plain PyTorch, as in the JAX
-package.
+package.  :class:`SimpleViTBase` is the body the 1-D, 3-D and other
+variants of the family share.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -23,56 +25,38 @@ from torch import nn
 
 from ..nn.blocks import SimpleTransformer
 from ..nn.patch import PatchEmbedding
-from ..nn.posemb import posemb_sincos_2d
+from ..nn.posemb import posemb_sincos_1d, posemb_sincos_2d, posemb_sincos_3d
 from ..utils.helpers import default_device, pair
 from .vit import init_modules_like_jax
 
+_POSEMB = {1: posemb_sincos_1d, 2: posemb_sincos_2d, 3: posemb_sincos_3d}
 
-class SimpleViT(nn.Module):
-    """reference simple_vit.py:80 — same keyword constructor.  ``flash`` is
-    the JAX ``SimpleViT``'s (``flash=False`` opts out of every kernel);
-    ``device`` (the CUDA card unless it names another) and ``dtype`` place
-    the parameters, ``generator`` seeds their initialisation (the JAX
-    package's: unit LayerNorms, truncated lecun-normal Linear weights, zero
-    biases)."""
+
+class SimpleViTBase(nn.Module):
+    """The SimpleViT body on ``patch`` ((p,), (p1, p2) or (pf, p1, p2)) and
+    its ``grid`` of patches: the patch embedding, the fixed sincos table of
+    the grid's rank (a buffer outside the state_dict; the model's dtype
+    casts it as the JAX model casts it to the activations' dtype), the
+    :class:`SimpleTransformer` (``final_norm`` as there), a head, and the
+    JAX package's initialisation from ``generator`` (unit LayerNorms,
+    truncated lecun-normal Linear weights, zero biases).  ``device`` is the
+    CUDA card unless it names another.  ``transformer``: a variant's own
+    transformer in place of the :class:`SimpleTransformer`, built on
+    ``default_device(device)``."""
 
     qk_norm = False  # the attention's qk-norm, on in models/simple_vit_with_qk_norm.py
 
-    def __init__(
-        self,
-        *,
-        image_size,
-        patch_size,
-        num_classes: int,
-        dim: int,
-        depth: int,
-        heads: int,
-        mlp_dim: int,
-        channels: int = 3,
-        dim_head: int = 64,
-        flash: Optional[bool] = None,
-        device=None,
-        dtype=None,
-        generator: Optional[torch.Generator] = None,
-    ):
+    def __init__(self, patch, grid, *, channels: int, num_classes: int, dim: int, depth: int, heads: int,
+                 mlp_dim: int, dim_head: int, flash: Optional[bool], final_norm: bool = True,
+                 transformer: Optional[nn.Module] = None, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        image_height, image_width = pair(image_size)
-        patch_height, patch_width = pair(patch_size)
-        if image_height % patch_height or image_width % patch_width:
-            raise ValueError("Image dimensions must be divisible by the patch size.")
         device = default_device(device)
         kw = {"device": device, "dtype": dtype}
-        patch_dim = channels * patch_height * patch_width
-        self.to_patch_embedding = PatchEmbedding((patch_height, patch_width), patch_dim, dim, **kw)
-        # the fixed table, a buffer outside the state_dict; the model's dtype
-        # casts it as the JAX model casts it to the activations' dtype
-        self.register_buffer(
-            "pos_embedding",
-            posemb_sincos_2d(image_height // patch_height, image_width // patch_width, dim, device=device),
-            persistent=False,
-        )
-        self.transformer = SimpleTransformer(dim, depth, heads, dim_head, mlp_dim, qk_norm=self.qk_norm, flash=flash,
-                                             **kw)
+        self.to_patch_embedding = PatchEmbedding(patch, channels * math.prod(patch), dim, **kw)
+        self.register_buffer("pos_embedding", _POSEMB[len(grid)](*grid, dim, device=device), persistent=False)
+        self.transformer = transformer if transformer is not None else SimpleTransformer(
+            dim, depth, heads, dim_head, mlp_dim, qk_norm=self.qk_norm, final_norm=final_norm, flash=flash, **kw)
         self.linear_head = self._head(dim, num_classes, **kw)
         self.reset_parameters(generator)
 
@@ -93,3 +77,38 @@ class SimpleViT(nn.Module):
 
     def forward(self, img):
         return self.linear_head(self.pool(self.transformer(self.embed(img))))
+
+
+def image_grid(image_size, patch_size):
+    """The (p1, p2) patch and the (h, w) grid of patches of an image."""
+    (image_height, image_width), patch = pair(image_size), tuple(pair(patch_size))
+    if image_height % patch[0] or image_width % patch[1]:
+        raise ValueError("Image dimensions must be divisible by the patch size.")
+    return patch, (image_height // patch[0], image_width // patch[1])
+
+
+class SimpleViT(SimpleViTBase):
+    """reference simple_vit.py:80 — same keyword constructor.  ``flash`` is
+    the JAX ``SimpleViT``'s (``flash=False`` opts out of every kernel);
+    ``device``, ``dtype`` and ``generator`` as in :class:`SimpleViTBase`."""
+
+    def __init__(
+        self,
+        *,
+        image_size,
+        patch_size,
+        num_classes: int,
+        dim: int,
+        depth: int,
+        heads: int,
+        mlp_dim: int,
+        channels: int = 3,
+        dim_head: int = 64,
+        flash: Optional[bool] = None,
+        device=None,
+        dtype=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(*image_grid(image_size, patch_size), channels=channels, num_classes=num_classes, dim=dim,
+                         depth=depth, heads=heads, mlp_dim=mlp_dim, dim_head=dim_head, flash=flash, device=device,
+                         dtype=dtype, generator=generator)

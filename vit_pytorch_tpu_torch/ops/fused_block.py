@@ -1382,6 +1382,7 @@ class _FusedAttentionBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ops, kw, residual_is_x, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q,
                 gamma_k):
+        x, residual = _dense(x, residual)
         res = x if residual_is_x else residual
         out = _attention_block_forward(ops, x, res, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k,
                                        **kw)
@@ -1407,6 +1408,16 @@ class _FusedAttentionBlock(torch.autograd.Function):
         )
 
 
+def _dense(x, residual):
+    """x and the residual made contiguous, the residual kept x itself where
+    it is x: a caller may hand the block a strided view (a stream of
+    ``models/simple_vit_with_hyper_connections.py``'s mix), which the
+    kernels' operand check refuses."""
+    is_x = residual is x
+    x = x.contiguous()
+    return x, x if is_x else (None if residual is None else residual.contiguous())
+
+
 def _attention_block(ops, x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads, dim_head, b_qkv, b_out, gamma_q,
                      gamma_k, scale, eps, dropout_rate, dropout_seed):
     if (gamma_q is None) != (gamma_k is None):
@@ -1428,8 +1439,8 @@ def _attention_block(ops, x, residual, w_qkv, w_out, ln_scale, ln_bias, *, heads
         residual_is_x = residual is x
         return _FusedAttentionBlock.apply(ops, kw, residual_is_x, x, None if residual_is_x else residual,
                                           w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k)
-    return _attention_block_forward(ops, x, residual, w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q, gamma_k,
-                                    **kw)
+    return _attention_block_forward(ops, *_dense(x, residual), w_qkv, b_qkv, w_out, b_out, ln_scale, ln_bias, gamma_q,
+                                    gamma_k, **kw)
 
 
 def attention_block_reference(

@@ -4,10 +4,18 @@ For the ViT it is the exact inverse of
 ``vit_pytorch_tpu/utils/convert.py::vit_rules``, so that
 ``convert_vit(vit_state_dict_from_jax(p)) == {"params": p}``; for the
 SimpleViTs the inverse of ``transformer_rules(simple=True)`` and
-``patch_embed_rules`` (``convert_simple_vit``) and of
-``convert_simple_vit_with_qk_norm``, whose JAX module names
-(``transformer_layers_{i}_attn/q_norm``, ``transformer_norm``, a LayerNorm
-``linear_head``) it reads.  The NaViT maps keep the JAX module structure
+``patch_embed_rules`` (``convert_simple_vit``, which the 1-D, 3-D and
+patch-dropout variants share), of ``convert_simple_vit_with_qk_norm``, whose
+JAX module names (``transformer_layers_{i}_attn/q_norm``,
+``transformer_norm``, a LayerNorm ``linear_head``) it reads, and of the
+family's other converters (``convert_simple_flash_attn_vit`` and its 3-D
+one, ``convert_simple_vit_with_fft``, ``convert_simple_vit_orthog_residual``,
+``convert_simple_vit_with_hyper_connections``,
+``convert_simple_vit_with_value_residual``,
+``convert_simple_vit_with_specialized_cls`` and
+``convert_simple_vit_attn_residual``); where the JAX model has parameters
+its converter does not map (the orthogonal update's learned gates, the
+specialized qkv projections), the maps name them in the port's layout.  The NaViT maps keep the JAX module structure
 (the fused ``to_qkv`` in the Transformer, split ``to_q``/``to_kv`` in
 ``attn_pool``); the JAX ``convert_na_vit`` fuses the reference's q/kv, so
 these maps are held by model outputs (tests/test_torch_na_vit.py), not by a
@@ -95,6 +103,91 @@ _SIMPLE_VIT_QK_NORM_MODULES = _PATCH_EMBEDDING + (
     (r"transformer_layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.3"),
     (r"transformer_norm", "transformer.norm"),
     (r"linear_head", "linear_head"),  # a LayerNorm: scale/bias
+)
+# models/simple_flash_attn_vit.py: no transformer norm; the head
+# Sequential(LayerNorm, Linear) after the pool
+_SIMPLE_FLASH_MODULES = _SIMPLE_VIT_MODULES[:-2] + (
+    (r"head_norm", "linear_head.0"),
+    (r"linear_head", "linear_head.1"),
+)
+# models/simple_vit_with_fft.py: the second patch embedding on the spectrum
+_SIMPLE_FFT_MODULES = _SIMPLE_VIT_MODULES + (
+    (r"freq_embedding/norm_pre", "to_freq_embedding.1"),
+    (r"freq_embedding/proj", "to_freq_embedding.2"),
+    (r"freq_embedding/norm_post", "to_freq_embedding.3"),
+)
+# models/simple_vit_orthog_residual_update.py: the blocks under .block, the
+# learned gates beside them
+_SIMPLE_ORTHOG_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv|to_out)", r"transformer.layers.\1.0.block.\2"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.block.net.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.block.net.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.block.net.3"),
+    (r"layers_(\d+)_attn_orthog/to_modulation", r"transformer.layers.\1.0.to_modulation"),
+    (r"layers_(\d+)_ff_orthog/to_modulation", r"transformer.layers.\1.1.to_modulation"),
+    (r"norm", "transformer.norm"),
+    (r"linear_head", "linear_head"),
+)
+# models/simple_vit_with_hyper_connections.py: [attn_hyper, attn, ff_hyper, ff]
+_HYPER_PARAMS = "static_beta|static_alpha|dynamic_alpha_fn|dynamic_alpha_scale|dynamic_beta_fn|dynamic_beta_scale"
+_SIMPLE_HYPER_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn_hyper/norm", r"transformer.layers.\1.0.norm"),
+    (r"layers_(\d+)_attn/(norm|to_qkv|to_out)", r"transformer.layers.\1.1.\2"),
+    (r"layers_(\d+)_ff_hyper/norm", r"transformer.layers.\1.2.norm"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.3.net.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.3.net.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.3.net.3"),
+    (r"norm", "transformer.norm"),
+    (r"linear_head", "linear_head"),
+)
+_SIMPLE_HYPER_TOP_LEVEL = (
+    "register_tokens",
+    (rf"layers_(\d+)_attn_hyper/({_HYPER_PARAMS})", r"transformer.layers.\1.0.\2"),
+    (rf"layers_(\d+)_ff_hyper/({_HYPER_PARAMS})", r"transformer.layers.\1.2.\2"),
+)
+# models/simple_vit_with_value_residual.py: the FF a bare Sequential
+_SIMPLE_VALUE_RESIDUAL_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv|to_out)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_residual_mix", r"transformer.layers.\1.0.to_residual_mix.0"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.3"),
+    (r"norm", "transformer.norm"),
+    (r"linear_head", "linear_head"),
+)
+# models/simple_vit_with_specialized_cls.py: fns.0 the cls token's, fns.1 the patches'
+_SIMPLE_SPECIALIZED_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/norm_cls", r"transformer.layers.\1.0.norm.fns.0"),
+    (r"layers_(\d+)_attn/norm_patch", r"transformer.layers.\1.0.norm.fns.1"),
+    (r"layers_(\d+)_attn/(to_qkv|to_out)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_qkv_cls", r"transformer.layers.\1.0.to_qkv.fns.0"),
+    (r"layers_(\d+)_attn/to_qkv_patch", r"transformer.layers.\1.0.to_qkv.fns.1"),
+    (r"layers_(\d+)_ff/norm_cls", r"transformer.layers.\1.1.norm.fns.0"),
+    (r"layers_(\d+)_ff/norm_patch", r"transformer.layers.\1.1.norm.fns.1"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.0"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.2"),
+    (r"final_norm_cls", "transformer.norm.fns.0"),
+    (r"final_norm_patch", "transformer.norm.fns.1"),
+    (r"linear_head", "linear_head"),
+)
+# models/simple_vit_attn_residual.py: the blocks under .fn, the pools beside
+# them, the final LayerNorm the final pool's fn
+_ATTN_POOL = r"attn/(norm|norm_context|to_q|to_kv|to_out)"
+_SIMPLE_ATTN_RESIDUAL_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_q|to_kv|to_out)", r"transformer.layers.\1.0.fn.\2"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.fn.net.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.fn.net.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.fn.net.3"),
+    (rf"layers_(\d+)_attn_pool/{_ATTN_POOL}", r"transformer.layers.\1.0.attn.\2"),
+    (rf"layers_(\d+)_ff_pool/{_ATTN_POOL}", r"transformer.layers.\1.1.attn.\2"),
+    (rf"final_pool/{_ATTN_POOL}", r"transformer.final_pool.attn.\1"),
+    (r"final_norm", "transformer.final_pool.fn"),
+    (r"linear_head", "linear_head"),
+)
+_SIMPLE_ATTN_RESIDUAL_TOP_LEVEL = (
+    (r"layers_(\d+)_attn_pool/learned_query", r"transformer.layers.\1.0.learned_query"),
+    (r"layers_(\d+)_ff_pool/learned_query", r"transformer.layers.\1.1.learned_query"),
+    (r"final_pool/learned_query", "transformer.final_pool.learned_query"),
 )
 # models/vivit.py: the reference's layout, both variants
 _VIVIT_MODULES = (
@@ -242,6 +335,15 @@ def simple_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return _state_dict(params, _SIMPLE_VIT_MODULES, ())
 
 
+# the variants whose params are SimpleViT's, as utils/convert.py aliases their
+# converters (convert_simple_vit_1d, _3d, _with_patch_dropout; the 3-D
+# flash-attn variant's rules are SimpleViT's without the final norm)
+simple_vit_1d_state_dict_from_jax = simple_vit_state_dict_from_jax
+simple_vit_3d_state_dict_from_jax = simple_vit_state_dict_from_jax
+simple_vit_patch_dropout_state_dict_from_jax = simple_vit_state_dict_from_jax
+simple_flash_attn_vit_3d_state_dict_from_jax = simple_vit_state_dict_from_jax
+
+
 def simple_vit_qk_norm_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """The JAX ``models/simple_vit_with_qk_norm.py::SimpleViT``'s ``params``
     tree -> the port's ``state_dict``."""
@@ -252,6 +354,48 @@ def simple_vit_register_tokens_state_dict_from_jax(params: Mapping) -> dict[str,
     """The JAX ``models/simple_vit_with_register_tokens.py::SimpleViT``'s
     ``params`` tree -> the port's ``state_dict``."""
     return _state_dict(params, _SIMPLE_VIT_MODULES, ("register_tokens",))
+
+
+def simple_flash_attn_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_flash_attn_vit.py::SimpleViT``'s ``params``
+    tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_FLASH_MODULES, ())
+
+
+def simple_vit_fft_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_fft.py::SimpleViT``'s ``params``
+    tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_FFT_MODULES, ())
+
+
+def simple_vit_orthog_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_orthog_residual_update.py::SimpleViT``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_ORTHOG_MODULES, ())
+
+
+def simple_vit_hyper_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_hyper_connections.py::SimpleViT``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_HYPER_MODULES, _SIMPLE_HYPER_TOP_LEVEL)
+
+
+def simple_vit_value_residual_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_value_residual.py::SimpleViT``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_VALUE_RESIDUAL_MODULES, ())
+
+
+def simple_vit_specialized_cls_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_with_specialized_cls.py::SimpleViT``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_SPECIALIZED_MODULES, ("cls_token",))
+
+
+def simple_vit_attn_residual_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_vit_attn_residual.py::SimpleViTAttnResidual``'s
+    ``params`` tree -> the port's ``state_dict``."""
+    return _state_dict(params, _SIMPLE_ATTN_RESIDUAL_MODULES, _SIMPLE_ATTN_RESIDUAL_TOP_LEVEL)
 
 
 def vivit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:

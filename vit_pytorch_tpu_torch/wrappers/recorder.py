@@ -6,11 +6,14 @@ its ``attn_maps`` collection mutable, which sends each ``Attention`` to the
 materialized composite and sows its map.  Here the Recorder hands each
 ``nn/blocks.py::Attention`` of the model one list (``Attention.recorded``) for
 the length of its call: the attention then takes the composite, whose
-``return_attn`` gives the map, and appends it, and the kernel predicates
-(``fused_block_eligible``, ``Transformer.whole_layer_eligible``) refuse the
-attention-block and whole-layer kernels, as JAX's do (blocks.py:368, :631).
-The maps come in the order of the calls, which is depth order, as the JAX
-``sow_index`` orders them.
+``return_attn`` gives the map, and appends it with its ``sow_index``, and the
+kernel predicates (``fused_block_eligible``,
+``Transformer.whole_layer_eligible``) refuse the attention-block and
+whole-layer kernels, as JAX's do (blocks.py:368, :631).
+The maps are stacked in the order of their ``sow_index`` where the
+``Attention`` has one (the ``Transformer`` numbers its layers), as the JAX
+Recorder stacks ``attn_{index:04d}``, else in the order of the calls, which
+is depth order.
 After the call, and after :meth:`Recorder.eject`, the model takes the
 kernels again.
 
@@ -46,7 +49,7 @@ class Recorder(nn.Module):
     def forward(self, img, **kwargs):
         assert not self.ejected, "recorder has been ejected, cannot be used anymore"
         attns = [m for m in self.vit.modules() if isinstance(m, Attention)]
-        maps = []  # one list for all: the maps in the order of the calls, depth order
+        maps = []  # one list for all: (sow_index, map) in the order of the calls
         for m in attns:
             m.recorded = maps
         try:
@@ -54,4 +57,5 @@ class Recorder(nn.Module):
         finally:
             for m in attns:
                 m.recorded = None
-        return preds, (torch.stack(maps, dim=1) if maps else None)
+        order = sorted(range(len(maps)), key=lambda i: i if maps[i][0] is None else maps[i][0])
+        return preds, (torch.stack([maps[i][1] for i in order], dim=1) if maps else None)
