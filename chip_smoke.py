@@ -5452,8 +5452,9 @@ def flushed_event_ms(fn, iters=10, tries=4):
     fail(f"the device caught up with the host in {tries} flushed event timings: no device time")
 
 
-def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp):
-    """Each chain kernel's launch at one shape, forward and backward: its
+def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp, backward=True):
+    """Each chain kernel's launch at one shape, forward and (unless
+    ``backward`` is false) backward: its
     device time against its twin's in turns (plain, kernel, kernel, plain),
     with its work and the device time of its library call (F.layer_norm,
     F.linear, SDPA, native_layer_norm_backward) or of its yardstick (the
@@ -5473,21 +5474,23 @@ def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp):
         y = fb.gemm_bf16(m, w["w_out"], "out", bias=b_out, residual=x)
         h2 = fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"])
         a = fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"])
-        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
-        dm = fb.gemm_bf16(dy, w_out_t, "cast")
-        _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
-        dh = fb.gemm_f32out(dqkv, w_qkv_t)
         q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
-        aten = torch.ops.aten
-        _, mean, rstd = aten.native_layer_norm(x, [dim], w["ln1_scale"], w["ln1_bias"], fb.LN_EPS)
-        g16 = dh.to(x.dtype)  # native_layer_norm_backward takes dh in x's dtype
-        ln_bwd = lambda: aten.native_layer_norm_backward(g16, x, [dim], mean, rstd, w["ln1_scale"], w["ln1_bias"],
-                                                         [True, True, True])
-    with torch.inference_mode(False), torch.enable_grad():
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
-        sdpa_fwd_bwd = lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves), leaves, go)
-        sdpa_fwd_bwd_dev = device_ms(sdpa_fwd_bwd)
+        if backward:
+            w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+            dm = fb.gemm_bf16(dy, w_out_t, "cast")
+            _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+            dh = fb.gemm_f32out(dqkv, w_qkv_t)
+            aten = torch.ops.aten
+            _, mean, rstd = aten.native_layer_norm(x, [dim], w["ln1_scale"], w["ln1_bias"], fb.LN_EPS)
+            g16 = dh.to(x.dtype)  # native_layer_norm_backward takes dh in x's dtype
+            ln_bwd = lambda: aten.native_layer_norm_backward(g16, x, [dim], mean, rstd, w["ln1_scale"],
+                                                             w["ln1_bias"], [True, True, True])
+    if backward:
+        with torch.inference_mode(False), torch.enable_grad():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
+            sdpa_fwd_bwd = lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves), leaves, go)
+            sdpa_fwd_bwd_dev = device_ms(sdpa_fwd_bwd)
     with torch.inference_mode():
         ln = lambda t, s_, b_: device_ms(lambda: F_.layer_norm(t, (dim,), s_, b_, fb.LN_EPS))
         lin = lambda t, w_: device_ms(lambda: F_.linear(t, w_))
@@ -5512,6 +5515,8 @@ def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp):
             ("gemm_bf16[fc2]", lambda: fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"], residual=y),
              lambda: fb.gemm_bf16_reference(a, w["w2"], "fc2", bias=w["b2"], residual=y),
              gemm_work(rows, dim, mlp, bias=True, residual=True), None, (lin(a, w["w2"]), None)),
+        )
+        sites += () if not backward else (
             ("attention_bwd_rows", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
              lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw), attention_work(b, n, heads, backward=True),
              None, (sdpa_fwd_bwd_dev, SDPA_FWD_BWD)),
@@ -7330,6 +7335,443 @@ def time_family(fb, dev, gen, smi):
     return per_kernel, errs
 
 
+# -- ROADMAP item 9's families 1 and 2 and ssl/distill.py (phases 50-52):
+# thirteen models served one batch at full width (bf16, random weights from
+# SEED) and six of them trained 3 steps at dropout 0.1 (make_train_step with
+# a generator seeded alike on every path; the distillation a plain Adam loop
+# seeded alike), each with exact launch counters, outputs against the plain
+# bf16 path (every kernel swapped for its twin) and fp32, the first step's
+# loss and gradients against the plain path with the same masks; then the
+# new kernel shapes against their twins, timed.
+#   - config 1's width (CONFIG1 at dropout 0.1, bs=64, 65 tokens): DeepViT,
+#     CaiT (depth 12, cls_depth 2, layer dropout 0.05), ParallelViT (2
+#     branches), the efficient shell around the port's Transformer, and the
+#     distillation: DistillableViT (66 tokens with its token) in a
+#     DistillWrapper(temperature=3, alpha=0.5) with a frozen config-1 ViT;
+#   - ViT-1D at phase 49's 1-D shape (17 tokens with the cls token, 8 heads:
+#     inner 512 != dim 1024); ViT-3D at ViViT's clip (513 tokens: the
+#     composite, as in JAX);
+#   - ViT-ND, -rotary and -PoPE on a 4-D input of 8 x 16 x 32 x 64 in
+#     2 x 4 x 4 x 8 patches: 1,024 patches (ViT-ND 1,025 tokens with its cls
+#     token: flash_fwd with a 1-row tail tile; the rotary exactly 1,024: the
+#     short kernel serving, the flash [dropout] kernels training; PoPE's
+#     128-wide q and k refused by both gates: the composite), dim 512, bs=16;
+#   - T2T-ViT at 224 x 224 (dim 512, depth 5, heads 8, mlp 512: the trunk's
+#     197 tokens on the whole layer; the one-head stems on the composite);
+#   - CCT (cct_14's widths at 224 x 448: 392 tokens, the composite) and
+#     CCT-3D (the same at 224 x 224 x 8 frames: 1,568 tokens, the flash
+#     kernels, with their dropout in training), bs=16 for the video and ND
+#     models, 8 in their training.
+ZOO2_BS, ZOO2_VIDEO_BS, ZOO2_TRAIN_BS, ZOO2_VIDEO_TRAIN_BS = 64, 16, 32, 8
+CONFIG1_DROP = {**CONFIG1, "dropout": RATE, "emb_dropout": RATE}
+ZOO2_ND = dict(ndim=4, input_shape=(8, 16, 32, 64), patch_size=(2, 4, 4, 8), num_classes=1000, dim=512, depth=6,
+               heads=8, mlp_dim=2048, dropout=RATE)
+ZOO2_ND_SHAPE = (3, 8, 16, 32, 64)
+ZOO2_T2T = dict(image_size=224, num_classes=1000, dim=512, depth=5, heads=8, mlp_dim=512, dropout=RATE,
+                emb_dropout=RATE)
+ZOO2_CCT = dict(embedding_dim=384, n_conv_layers=2, kernel_size=7, stride=2, padding=3, pooling_kernel_size=3,
+                pooling_stride=2, pooling_padding=1, num_layers=14, num_heads=6, mlp_ratio=3.0, num_classes=1000)
+ZOO2_CCT_3D = dict(img_size=224, num_frames=8, frame_kernel_size=3, **ZOO2_CCT)
+ZOO2_STEPS = 3
+DISTILL = dict(temperature=3.0, alpha=0.5)
+# name: (module, class, constructor, input shape past the batch, serving bs, training bs or None)
+ZOO2 = {
+    "vit_1d": ("vit_1d", "ViT", {**FAMILY_1D, "dropout": RATE, "emb_dropout": RATE}, (3, 256), ZOO2_BS, ZOO2_TRAIN_BS),
+    "vit_3d": ("vit_3d", "ViT", FAMILY_3D, (3, 16, 128, 128), ZOO2_VIDEO_BS, None),
+    "vit_nd": ("vit_nd", "ViTND", ZOO2_ND, ZOO2_ND_SHAPE, ZOO2_VIDEO_BS, None),
+    "vit_nd_rotary": ("vit_nd_rotary", "ViTND", ZOO2_ND, ZOO2_ND_SHAPE, ZOO2_VIDEO_BS, ZOO2_VIDEO_TRAIN_BS),
+    "vit_nd_pope": ("vit_nd_pope", "ViTND", ZOO2_ND, ZOO2_ND_SHAPE, ZOO2_VIDEO_BS, None),
+    "deepvit": ("deepvit", "DeepViT", CONFIG1_DROP, (3, 256, 256), ZOO2_BS, None),
+    "cait": ("cait", "CaiT", {**CONFIG1_DROP, "depth": 12, "cls_depth": 2, "layer_dropout": 0.05}, (3, 256, 256),
+             ZOO2_BS, None),
+    "parallel_vit": ("parallel_vit", "ViT", {**CONFIG1_DROP, "num_parallel_branches": 2}, (3, 256, 256), ZOO2_BS,
+                     ZOO2_TRAIN_BS),
+    "efficient": ("efficient", "ViT", None, (3, 256, 256), ZOO2_BS, None),
+    "t2t": ("t2t", "T2TViT", ZOO2_T2T, (3, 224, 224), ZOO2_BS, ZOO2_TRAIN_BS),
+    "cct": ("cct", "CCT", {**ZOO2_CCT, "img_size": (224, 448)}, (3, 224, 448), ZOO2_BS, None),
+    "cct_3d": ("cct_3d", "CCT", ZOO2_CCT_3D, (3, 8, 224, 224), ZOO2_VIDEO_BS, ZOO2_VIDEO_TRAIN_BS),
+    "distillable_vit": ("distill", "DistillableViT", CONFIG1_DROP, (3, 256, 256), ZOO2_BS, None),
+}
+ZOO2_TRAINED = ("vit_1d", "vit_nd_rotary", "parallel_vit", "t2t", "cct_3d")  # and the DistillWrapper
+
+
+def per_layer(counts, layers, steps=1):
+    return {k: v * layers * steps for k, v in counts.items()}
+
+
+def add_counts(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+FLASH_DROPOUT_STEP = {name: 1 for name in FLASH_DROPOUT}
+# the launches predicted for one served batch (PERF.md, §6)
+ZOO2_SERVED = {
+    "vit_1d": per_layer(LAUNCHES_PER_LAYER, 6),
+    "vit_3d": {},
+    "vit_nd": {"flash_fwd": 6},
+    "vit_nd_rotary": {"short_attention": 6},
+    "vit_nd_pope": {},
+    "deepvit": {},
+    "cait": {},
+    "parallel_vit": per_layer(BLOCK_FWD_LAUNCHES, 6 * 2),
+    "efficient": per_layer(LAUNCHES_PER_LAYER, 6),
+    "t2t": per_layer(LAUNCHES_PER_LAYER, 5),
+    "cct": {},
+    "cct_3d": {"flash_fwd": 14},
+    "distillable_vit": per_layer(LAUNCHES_PER_LAYER, 6),
+}
+# ... and for ZOO2_STEPS training steps
+ZOO2_TRAIN = {
+    "vit_1d": per_layer(DROPOUT_LAUNCHES_PER_LAYER, 6, ZOO2_STEPS),
+    "vit_nd_rotary": per_layer(FLASH_DROPOUT_STEP, 6, ZOO2_STEPS),
+    "parallel_vit": per_layer(DROPOUT_LAUNCHES_PER_LAYER, 6 * 2, ZOO2_STEPS),
+    "t2t": per_layer(DROPOUT_LAUNCHES_PER_LAYER, 5, ZOO2_STEPS),
+    "cct_3d": per_layer(FLASH_DROPOUT_STEP, 14, ZOO2_STEPS),
+    # the student's attention blocks at dropout 0.1 and the frozen teacher's whole layers, a step
+    "distill": add_counts(per_layer(DROPOUT_LAUNCHES_PER_LAYER, 6, ZOO2_STEPS),
+                          per_layer(LAUNCHES_PER_LAYER, 6, ZOO2_STEPS)),
+}
+# the new kernel shapes: (label, b, heads, n) of the attention kernels
+ZOO2_FLASH = (("ViT-ND", ZOO2_VIDEO_BS, 8, 1025), ("CCT-3D", ZOO2_VIDEO_BS, 6, 1568))
+ZOO2_SHORT = ("ViT-ND-rotary", ZOO2_VIDEO_BS, 8, 1024)
+ZOO2_FLASH_DROPOUT = ("CCT-3D", ZOO2_VIDEO_TRAIN_BS, 6, 1568)
+# the chain's: (label, b, n, dim, heads, mlp)
+ZOO2_CHAIN = (("T2T trunk", ZOO2_BS, 197, 512, 8, 512), ("ViT-1D", ZOO2_BS, 17, 1024, 8, 2048))
+
+
+def zoo2_model(name, dev, dtype):
+    """One model at its phase-50 configuration, random weights from SEED,
+    initialised in f32 and cast as the JAX benches cast their params."""
+    import importlib
+
+    from vit_pytorch_tpu_torch.models.vit import init_modules_like_jax
+    from vit_pytorch_tpu_torch.nn.blocks import Transformer
+
+    module, cls, cfg, *_ = ZOO2[name]
+    package = "ssl" if module == "distill" else "models"
+    model_cls = getattr(importlib.import_module(f"vit_pytorch_tpu_torch.{package}.{module}"), cls)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if name == "efficient":
+        c = CONFIG1_DROP
+        transformer = Transformer(c["dim"], c["depth"], c["heads"], DH, c["mlp_dim"], RATE, device=dev)
+        with torch.no_grad():
+            init_modules_like_jax(transformer, gen)
+        cfg = dict(image_size=c["image_size"], patch_size=c["patch_size"], num_classes=c["num_classes"], dim=c["dim"],
+                   transformer=transformer)
+    return model_cls(**cfg, device=dev, generator=gen).to(dtype)
+
+
+def zoo2_call(name, model, x, token=None):
+    if name == "distillable_vit":
+        return model(x, distill_token=token)[0]
+    return model(x)
+
+
+def serve_zoo2(fb, fa, name, dev, gen):
+    """Serve one batch: exact launch counters, outputs against the plain
+    bf16 path and fp32, the host time of a batch.  Returns the launch counts
+    and the gemm_bf16 launches by site."""
+    _, _, _, shape, bs, _ = ZOO2[name]
+    fp32 = zoo2_model(name, dev, torch.float32).eval()
+    model = copy.deepcopy(fp32).to(torch.bfloat16).eval()
+    x = torch.randn(bs, *shape, generator=gen, device=dev)
+    token = torch.randn(1, model.dim, generator=gen, device=dev) if name == "distillable_vit" else None
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        reset_all(fb, fa)
+        out = zoo2_call(name, model, xb, token)
+        sync()
+        log(f"  {name}: bs={bs}, input {tuple(shape)}")
+        counts = expect_launches(fb, fa, ZOO2_SERVED[name], f"{name} serving")
+        sites = {f"gemm_bf16[{s}]": v for s, v in fb.GEMM_LAUNCHES.items() if v}
+        if out.shape != (bs, 1000) or not bool(torch.isfinite(out).all()):
+            fail(f"{name}: outputs {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        reset_all(fb, fa)
+        with plain_layers(), plain_attention():
+            plain = zoo2_call(name, model, xb, token)
+        want = zoo2_call(name, fp32, x, token)
+        sync()
+        if any(all_launches(fb, fa).values()):
+            fail(f"{name}: the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
+        e_plain, e_fp32, floor = rel_l2(out, plain), rel_l2(out, want), rel_l2(plain, want)
+        ms = host_ms(lambda: zoo2_call(name, model, xb, token), iters=3)
+    ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
+    log(f"    logits rel L2 vs plain bf16 {e_plain:.4e} (bound {SIMPLE_LOGITS_VS_PLAIN}), vs fp32 {e_fp32:.4e} (bound "
+        f"{SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 {floor:.4e}) {'ok' if ok else 'FAILED'}; {ms:.3f} ms a batch "
+        f"(host clock)")
+    if not ok:
+        fail(f"{name} served outputs disagree with the plain path or fp32")
+    del model, fp32
+    return counts, sites
+
+
+# CCT's sequence pool: its bias's gradient is exactly zero (the softmax over
+# the tokens does not move with a shift of every logit) and its weight's a
+# sum over 1,568 tokens of terms that cancel to ~2e-4 of the head's
+# gradient norm, so in bf16 both paths read them 1.4x-3.7e3x their norm
+# from fp32 with the same masks, and the plain path moves as far on a
+# batch with 1e-3 relative noise (NVIDIA H100 80GB HBM3, 700.00 W;
+# chip_seq_pool_grads.py).  They are held to the plain path within ZOO2_NOISE_RATIO of
+# that witness, measured in the same run, and every other parameter to
+# SIMPLE_TRAIN_VS_PLAIN.
+SEQ_POOL = re.compile(r"\.attention_pool\.")
+ZOO2_NOISE_RATIO, ZOO2_INPUT_NOISE = 1.5, 1e-3
+
+
+def zoo2_first_step(what, step, make_model, seeded_steps, cancelling=None):
+    """``seeded_steps`` steps of ``step(model, i)`` on the kernel path, then
+    one on the plain path from the same initial weights with the same
+    seeds: loss finite and falling, the first step's loss and gradients
+    (of ``trainable(model)``'s (name, parameter) pairs) against the plain
+    path (SIMPLE_TRAIN_VS_PLAIN).  Parameters whose name ``cancelling``
+    matches are held instead within ZOO2_NOISE_RATIO of the plain path's
+    distance from itself on a batch with ZOO2_INPUT_NOISE relative noise
+    (``step(model, 0, noisy=True)``).  Returns the kernel path's launch
+    counts, read after its steps."""
+    from vit_pytorch_tpu_torch.ops import fused_block as fb
+    from vit_pytorch_tpu_torch.ops import flash_attention as fa
+
+    model, named = make_model()
+    trainable = lambda m: [p for _, p in named(m)]
+    names = [n for n, _ in named(model)]
+    initial = copy.deepcopy(model)
+    reset_all(fb, fa)
+    losses, grads = [], None
+    for i in range(seeded_steps):
+        losses.append(step(model, i))
+        if i == 0:
+            grads = [p.grad.detach().float().clone() for p in trainable(model)]
+            t0 = time.perf_counter()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / (seeded_steps - 1)
+    counts = dict(all_launches(fb, fa))
+    log(f"  {what}: losses {[f'{v:.6f}' for v in losses]}, {ms:.3f} ms/step (steps 2-{seeded_steps}, host clock)")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: the loss is not finite or does not fall on the repeated batch")
+    plain, noisy = initial, copy.deepcopy(initial) if cancelling else None
+    reset_all(fb, fa)
+    with plain_layers(), plain_attention():
+        loss_plain = step(plain, 0)
+        if cancelling:
+            step(noisy, 0, noisy=True)
+    sync()
+    if any(all_launches(fb, fa).values()):
+        fail(f"{what}: the plain path launched kernels")
+    plain_grads = [p.grad.detach().float().clone() for p in trainable(plain)]
+    held = [i for i, n in enumerate(names) if cancelling and cancelling.search(n)]
+    rest = [i for i in range(len(names)) if i not in set(held)]
+    pick = lambda seq, idx: [seq[i] for i in idx]
+    compare_grads(f"{what} first step vs plain bf16 (the same masks)" + (", outside the sequence pool" if held else ""),
+                  pick(grads, rest), pick(plain_grads, rest), losses[0], loss_plain, SIMPLE_TRAIN_VS_PLAIN,
+                  pick(names, rest))
+    if held:
+        noisy_grads = [p.grad.detach().float().clone() for p in trainable(noisy)]
+        rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        for i in held:
+            e, floor = rel(grads[i], plain_grads[i]), rel(noisy_grads[i], plain_grads[i])
+            ok = e <= ZOO2_NOISE_RATIO * floor and bool(torch.isfinite(grads[i]).all())
+            log(f"    {names[i]} (norm {plain_grads[i].norm().item():.3e}): kernel vs plain bf16 {e:.4e}, plain vs "
+                f"plain on the {ZOO2_INPUT_NOISE}-noisy batch {floor:.4e} (bound {ZOO2_NOISE_RATIO} x that) "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"{what}: {names[i]}'s first-step gradient is farther from the plain path than its noise")
+    del model, plain, noisy
+    return counts
+
+
+def train_zoo2(fb, fa, name, dev, gen):
+    """ZOO2_STEPS Adam steps through make_train_step on one batch, each with
+    a generator seeded alike; exact launch counters; the first step against
+    the plain path.  Returns the launch counts of the steps."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    _, _, _, shape, _, bs = ZOO2[name]
+    images = torch.randn(bs, *shape, generator=gen, device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (bs,), generator=gen, device=dev)
+    noisy_images = (images.float() * (1 + ZOO2_INPUT_NOISE * torch.randn(images.shape, generator=gen, device=dev))
+                    ).to(torch.bfloat16)
+    states = {}
+
+    def step(model, i, noisy=False):
+        if id(model) not in states:
+            states[id(model)] = (create_train_state(model), make_train_step(model))
+        state, run = states[id(model)]
+        return run(state, noisy_images if noisy else images, labels,
+                   torch.Generator(device=dev).manual_seed(SEED + i))["loss"].item()
+
+    def make():
+        return zoo2_model(name, dev, torch.bfloat16), lambda m: list(m.named_parameters())
+
+    counts = zoo2_first_step(f"{name} at bs={bs}", step, make, ZOO2_STEPS,
+                             cancelling=SEQ_POOL if name.startswith("cct") else None)
+    got = {k: v for k, v in counts.items() if v}
+    log(f"    launches {got} (expected {ZOO2_TRAIN[name]})")
+    if counts != {k: ZOO2_TRAIN[name].get(k, 0) for k in counts}:
+        fail(f"{name} training: the launch counters are not the expected ones")
+    states.clear()
+    return counts
+
+
+def train_distill(fb, fa, dev, gen):
+    """The DistillWrapper (DistillableViT student at config 1, dropout 0.1,
+    a frozen config-1 ViT teacher) trained ZOO2_STEPS plain Adam steps
+    through distill_forward, each seeded alike on every path; exact launch
+    counters; the first step's loss and student and head gradients against
+    the plain path.  Returns the launch counts."""
+    from vit_pytorch_tpu_torch.models.vit import ViT
+    from vit_pytorch_tpu_torch.ssl.distill import DistillWrapper, distill_forward
+
+    images = torch.randn(ZOO2_TRAIN_BS, *ZOO2["distillable_vit"][3], generator=gen, device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (ZOO2_TRAIN_BS,), generator=gen, device=dev)
+    opts = {}
+
+    def make():
+        teacher = ViT(**CONFIG1_DROP, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        student = zoo2_model("distillable_vit", dev, torch.float32)
+        wrapper = DistillWrapper(teacher=teacher.to(torch.bfloat16), student=student.to(torch.bfloat16), **DISTILL,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+        return wrapper, lambda w: [(n, p) for n, p in w.named_parameters() if not n.startswith("teacher.")]
+
+    def step(wrapper, i):
+        if id(wrapper) not in opts:
+            opts[id(wrapper)] = torch.optim.Adam([p for n, p in wrapper.named_parameters()
+                                                  if not n.startswith("teacher.")], lr=3e-4)
+        opt = opts[id(wrapper)]
+        torch.manual_seed(SEED + i)
+        wrapper.train()
+        opt.zero_grad(set_to_none=True)
+        loss = distill_forward(wrapper, images, labels)
+        loss.backward()
+        opt.step()
+        if any(p.grad is not None for p in wrapper.teacher.parameters()):
+            fail("the distillation teacher received gradients")
+        return loss.item()
+
+    counts = zoo2_first_step(f"DistillWrapper(T=3, alpha=0.5) at bs={ZOO2_TRAIN_BS}", step, make, ZOO2_STEPS)
+    got = {k: v for k, v in counts.items() if v}
+    log(f"    launches {got} (expected {ZOO2_TRAIN['distill']})")
+    if counts != {k: ZOO2_TRAIN["distill"].get(k, 0) for k in counts}:
+        fail("DistillWrapper training: the launch counters are not the expected ones")
+    return counts
+
+
+def check_zoo2(fb, fa, dev, gen):
+    """Phases 50-51: the thirteen models served, six trained.  Returns the
+    serving counts (with the gemm sites) and the training counts by
+    model."""
+    log(f"[50 ViT-1D/3D/ND/rotary/PoPE, DeepViT, CaiT, ParallelViT, efficient, T2T, CCT, CCT-3D, DistillableViT "
+        f"served] bf16, random weights (seed {SEED}); config 1 {CONFIG1_DROP}; ND {ZOO2_ND}; T2T {ZOO2_T2T}; CCT "
+        f"{ZOO2_CCT} at 224 x 448, CCT-3D at 224 x 224 x 8 frames")
+    served = {name: serve_zoo2(fb, fa, name, dev, gen) for name in ZOO2}
+    log(f"[51 training] {ZOO2_STEPS} steps at dropout {RATE}: {ZOO2_TRAINED} through make_train_step, the "
+        f"DistillWrapper {DISTILL} through distill_forward")
+    trained = {name: train_zoo2(fb, fa, name, dev, gen) for name in ZOO2_TRAINED}
+    trained["distill"] = train_distill(fb, fa, dev, gen)
+    return served, trained
+
+
+def time_zoo2(fb, fa, dev, gen, smi):
+    """Phase 52: the new kernel shapes against their twins (the errors of
+    the kernels line) and by device time against the twin in turns, the
+    bound and the library call: flash_fwd at ViT-ND's 1,025 tokens (a 1-row
+    tail tile) and CCT-3D's 1,568 x 6 heads, short_attention at the
+    rotary's 1,024, the flash [dropout] trio at CCT-3D's training shape,
+    the chain's forward at T2T's trunk and ViT-1D's.  Returns the records
+    and the errors."""
+    from vit_pytorch_tpu_torch.ops import short_attention as sa
+
+    log(f"[52 the new kernel shapes] {smi}")
+    rn = torch.Generator(device=dev).manual_seed(SEED + 52)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = DH**-0.5
+    per_kernel, errs = {}, {}
+
+    def turns(kern, twin):
+        p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    def qkv(b, h, n):
+        return vla_qkv(rn, dev, b, n, n, heads=h)
+
+    with torch.inference_mode():
+        for label, b, h, n in ZOO2_FLASH:
+            q, k, v = qkv(b, h, n)
+            o, lse = fa.flash_fwd(q, k, v, scale=scale)
+            o_want, lse_want = fa.flash_fwd_reference(q, k, v, scale=scale)
+            name = f"flash_fwd @ {label}"
+            errs[name] = max(compare(f"flash_fwd o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL),
+                             compare(f"flash_fwd lse [{label}]", lse, lse_want, FLASH_LSE_ATOL, FLASH_LSE_RTOL,
+                                     F32_REL_L2))
+            km, pm = turns(lambda: fa.flash_fwd(q, k, v, scale=scale), lambda: fa.flash_fwd_reference(q, k, v, scale=scale))
+            record(per_kernel, name, km, pm, pair_work("flash_fwd", b, n, n, n * n, heads=h),
+                   device_ms(lambda: sdpa(q, k, v)))
+            del o, lse, o_want, lse_want
+        label, b, h, n = ZOO2_SHORT
+        q, k, v = qkv(b, h, n)
+        name = f"short_attention @ {label}"
+        errs[name] = compare(f"short_attention [{label}]", sa.short_fwd(q, k, v, scale=scale),
+                             sa.short_attention_reference(q, k, v, scale=scale), ATTN_ATOL, ATTN_RTOL)
+        km, pm = turns(lambda: sa.short_fwd(q, k, v, scale=scale),
+                       lambda: sa.short_attention_reference(q, k, v, scale=scale))
+        record(per_kernel, name, km, pm, pair_work("short_attention", b, n, n, n * n, heads=h),
+               device_ms(lambda: sdpa(q, k, v)))
+
+        label, b, h, n = ZOO2_FLASH_DROPOUT
+        q, k, v = qkv(b, h, n)
+        do = torch.randn(b, h, n, DH, generator=rn, device=dev).to(torch.bfloat16)
+        dkw = dict(scale=scale, dropout_rate=RATE, seed=DROP_SEED)
+        o, lse = fa.flash_fwd(q, k, v, **dkw)
+        o_want, lse_want = fa.flash_fwd_reference(q, k, v, **dkw)
+        errs[f"flash_fwd[dropout] @ {label}"] = max(
+            compare(f"flash_fwd[dropout] o [{label}]", o, o_want, ATTN_ATOL, ATTN_RTOL),
+            compare(f"flash_fwd[dropout] lse [{label}]", lse, lse_want, FLASH_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2))
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = flash_bwd_twice(fa, f"{label}, dropout", q, k, v, do, lse, delta, **dkw)
+        want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **dkw)
+        errs[f"flash_bwd_dq[dropout] @ {label}"] = compare(f"flash_bwd_dq[dropout] dq [{label}]", dq, want[0], None,
+                                                          ATTN_RTOL, atol_frac=BWD_ATOL_FRAC)
+        errs[f"flash_bwd_dkv[dropout] @ {label}"] = max(
+            compare(f"flash_bwd_dkv[dropout] dk [{label}]", dk, want[1], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC),
+            compare(f"flash_bwd_dkv[dropout] dv [{label}]", dv, want[2], None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC))
+        del dq, dk, dv, want, o_want, lse_want
+        qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+        bwd_lib, bwd_what = flash_backend_bwd_ms(qc, kc, vc, doc, 10, dropout_p=RATE, timer=device_ms)
+        sites = {
+            "flash_fwd[dropout]": (lambda: fa.flash_fwd(q, k, v, **dkw), lambda: fa.flash_fwd_reference(q, k, v, **dkw),
+                                   device_ms(lambda: sdpa(q, k, v, dropout_p=RATE))),
+            "flash_bwd_dq[dropout]": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **dkw),
+                                      lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **dkw), bwd_lib),
+            "flash_bwd_dkv[dropout]": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **dkw),
+                                       lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, **dkw), bwd_lib),
+        }
+        for kernel, (kern, twin, lib_ms) in sites.items():
+            km, pm = turns(kern, twin)
+            record(per_kernel, f"{kernel} @ {label}", km, pm, pair_work(kernel, b, n, n, n * n, dropout=True, heads=h),
+                   lib_ms)
+        log(f"  (the backward's library call: {bwd_what} at dropout_p {RATE})")
+        del q, k, v, do, o, lse, delta
+    sync()
+    for label, b, n, dim, heads, mlp in ZOO2_CHAIN:
+        for kernel, e in check_chain_shape(fb, lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev)
+                                                                        * scale).to(torch.bfloat16),
+                                           label, b, n, dim, heads, mlp).items():
+            if kernel in CHAIN_FWD:
+                errs[f"{kernel} @ {label}"] = e
+        per_kernel.update(chain_entry_times(
+            fb, lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev) * scale).to(torch.bfloat16), label, b,
+            n, dim, heads, mlp, backward=False))
+    for name, t in per_kernel.items():
+        bound, by = bound_ms(t["work"])
+        log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+            + ("" if t["library_ms"] is None else f", library call {t['library_ms']:.4f} ms"))
+    sync()
+    return per_kernel, errs
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -7735,6 +8177,16 @@ def main():
     errs.update(family_errs)
     phase_done("phase 49")
 
+    # -- 50-51. item 9's families 1 and 2 and the distillation served and trained ------------------------------
+    zoo2_served, zoo2_trained = check_zoo2(fb, fa, dev, gen)
+    phase_done("phases 50-51")
+
+    # -- 52. their new kernel shapes against the twins, timed ---------------------------------------------------
+    zoo2_times, zoo2_errs = time_zoo2(fb, fa, dev, gen, smi)
+    per_kernel.update(zoo2_times)
+    errs.update(zoo2_errs)
+    phase_done("phase 52")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -7818,6 +8270,15 @@ def main():
                  family_served["simple_vit_with_fft"]["attention_rows"]),
            entry("gemm_bf16[qkv+bias] @ Transformer", SOURCE, TPU_KERNEL,
                  "Transformer(qkv_bias=True) forward on the whole-layer kernels", qkv_launches)]
+        + [entry(f"flash_fwd @ {label}", FLASH_SOURCE, TPU_FLASH["flash_fwd"], f"{label} serving",
+                 zoo2_served[key][0]["flash_fwd"]) for label, key in (("ViT-ND", "vit_nd"), ("CCT-3D", "cct_3d"))]
+        + [entry("short_attention @ ViT-ND-rotary", SHORT_SOURCE, TPU_SHORT, "ViT-ND-rotary serving",
+                 zoo2_served["vit_nd_rotary"][0]["short_attention"])]
+        + [entry(f"{name} @ CCT-3D", FLASH_SOURCE, TPU_FLASH_DROPOUT[name], "CCT-3D training at attention dropout 0.1",
+                 zoo2_trained["cct_3d"][name]) for name in FLASH_DROPOUT]
+        + [entry(f"{name} @ {label}", SOURCE, TPU_KERNEL, f"{label} serving",
+                 {**zoo2_served[key][0], **zoo2_served[key][1]}[name])
+           for label, key in (("T2T trunk", "t2t"), ("ViT-1D", "vit_1d")) for name in CHAIN_FWD]
     )
     for k in kernels:
         if not k["launches"]:
@@ -7871,7 +8332,13 @@ def main():
         "bs=256, 16 tokens of 8 heads and 128 tokens of 16 heads, by device time, their launches from one served "
         "batch (and 3 training steps) of those models in phase 49, library_ms SDPA; 'gemm_bf16[qkv+bias] @ "
         "Transformer': the qkv site with its bias at 1,576 x 2,304 x 768, library_ms F.linear with the bias, its "
-        "launches from the qkv-bias Transformer's whole-layer forward)")
+        "launches from the qkv-bias Transformer's whole-layer forward; 'flash_fwd @ ViT-ND' and '@ CCT-3D': 16 x 8 "
+        "heads x 1,025 (a 1-row tail tile) and 16 x 6 x 1,568, 'short_attention @ ViT-ND-rotary' 16 x 8 x 1,024, "
+        "their launches from one served batch of those models in phase 50; the flash [dropout] kernels '@ CCT-3D' "
+        "at 8 x 6 x 1,568, rate 0.1, launches from CCT-3D's 3 training steps in phase 51, library_ms SDPA with "
+        "dropout_p and the flash-attention backward at dropout_p 0.1; the chain's forward '@ T2T trunk' (b=64 "
+        "n=197, dim 512, 8 heads, mlp 512) and '@ ViT-1D' (b=64 n=17, dim 1024, 8 heads, mlp 2048), launches from "
+        "one served batch, errors from phase 52)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -225,11 +225,11 @@ def test_flash_refuses_the_options_off_this_path():
 
 def test_kernel_gate():
     bf16 = torch.bfloat16
-    assert flash.flash_supported((16, 12, 2048, 64), (16, 12, 2048, 64), bf16)
-    assert flash.flash_supported((16, 12, 16, 64), (16, 12, 2048, 64), bf16)  # attn_pool
-    assert not flash.flash_supported((16, 12, 2048, 64), (16, 12, 2048, 64), torch.float32)
-    assert not flash.flash_supported((16, 4, 2048, 16), (16, 4, 2048, 16), bf16)  # dh 16
-    assert not flash.flash_supported((40000, 2, 8, 64), (40000, 2, 8, 64), bf16)  # grid y
+    assert flash.flash_supported((16, 12, 2048, 64), (16, 12, 2048, 64), (16, 12, 2048, 64), bf16)
+    assert flash.flash_supported((16, 12, 16, 64), (16, 12, 2048, 64), (16, 12, 2048, 64), bf16)  # attn_pool
+    assert not flash.flash_supported((16, 12, 2048, 64), (16, 12, 2048, 64), (16, 12, 2048, 64), torch.float32)
+    assert not flash.flash_supported((16, 4, 2048, 16), (16, 4, 2048, 16), (16, 4, 2048, 16), bf16)  # dh 16
+    assert not flash.flash_supported((40000, 2, 8, 64), (40000, 2, 8, 64), (40000, 2, 8, 64), bf16)  # grid y
 
 
 def test_wrappers_refuse_cpu_contract_breaks_on_a_device(monkeypatch):

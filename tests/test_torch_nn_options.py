@@ -199,8 +199,8 @@ ATTN_CASES = {
     "no_pre_norm": (dict(pre_norm=False), ()),
     "project_out_off": (dict(heads=2, dim_head=DIM // 2, project_out=False), ()),
     "one_head_projected": (dict(heads=1, dim_head=DIM, project_out=True), ()),
-    "cross_norm_context": (dict(norm_context=True, force_split_qkv=True, qkv_bias=True), ("context",)),
-    "cross_kv_include_self": (dict(norm_context=True, kv_include_self=True, force_split_qkv=True), ("context",)),
+    "cross_norm_context": (dict(norm_context=True, qkv_bias=True), ("context",)),
+    "cross_kv_include_self": (dict(norm_context=True, kv_include_self=True), ("context",)),
     "bias": (dict(), ("bias",)),
     "rotary": (dict(), ("rotary",)),
     "rotary_qk_norm": (dict(qk_norm=True, qk_norm_gamma_init=0.5), ("rotary",)),

@@ -24,7 +24,13 @@ whose cross-attention takes the composite; the vision-action transformers
 VAT (``ssl.vat``), VAAT (``ssl.vaat``, its audio on ``ops.spectrogram``) and
 SigLIPVAT (``ssl.vat_siglip``), whose cross-attention takes the flash and
 short kernels; the introspection wrappers of ``wrappers`` (Recorder,
-Extractor, AcceptVideoWrapper).
+Extractor, AcceptVideoWrapper); the simple-ViT family; ViT-1D, -3D and -ND
+(``models.vit_1d``, ``vit_3d``, ``vit_nd``, with Golden-Gate rotary and
+PoPE beside it), DeepViT, CaiT, ParallelViT, T2T-ViT, CCT (2-D and 3-D) and
+the efficient-ViT shell, on the layer, flash and short kernels where their
+attention is the shared one, and the DeiT-style distillation
+(``ssl.distill``).  Models are imported by submodule path, as in the JAX
+package.
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT

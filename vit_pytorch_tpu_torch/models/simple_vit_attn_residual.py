@@ -44,7 +44,7 @@ class AttentionResidual(nn.Module):
         if pool:
             self.learned_query = nn.Parameter(torch.empty(dim, **kw)) if learned_query else None
             self.attn = Attention(dim, heads=heads, dim_head=dim_head, norm_context=True, out_bias=False,
-                                  simple=True, force_split_qkv=True, **kw)
+                                  simple=True, **kw)
 
     def pool(self, history: List[torch.Tensor]):
         b, n, d = history[0].shape

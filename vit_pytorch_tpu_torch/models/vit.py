@@ -126,14 +126,18 @@ class ViT(nn.Module):
         the same modules."""
         return nn.Sequential(*list(self.to_patch_embedding.children())[1:])
 
-    def embed(self, img):
-        """Patchify + embed + cls + pos emb + dropout (vit.py:120-128)."""
+    def embed(self, img, *, dropout: bool = True):
+        """Patchify + embed + cls + pos emb + dropout (vit.py:120-128).
+        ``dropout=False`` leaves out the embedding dropout (the JAX
+        ``embed(dropout=False)``): ``ssl/distill.py::DistillableViT``
+        appends its distillation token first and drops the whole sequence
+        out itself (reference distill.py:33-34, 64-66)."""
         x = self.to_patch_embedding(img)
         b = x.shape[0]
         cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embedding[: x.shape[1]].to(x.dtype)
-        return self.dropout(x)
+        return self.dropout(x) if dropout else x
 
     def forward(self, img):
         x = self.transformer(self.embed(img))

@@ -214,7 +214,10 @@ class Attention(nn.Module):
       with ``context`` (cross-attention: LayerNorm on x only, k and v from
       the context, blocks.py:443-458) needs; ``norm_context``: a LayerNorm
       on the context (``norm_context``); ``kv_include_self``: k and v over
-      the normed x followed by the context (cait.py:87, cross_vit.py:58);
+      the normed x followed by the context (cait.py:87, cross_vit.py:58).
+      Either of the last two acts only on a context, so it builds the split
+      projections too: the JAX module builds them at its first call with a
+      context (:451-458), the port at construction (``split_qkv``);
     - ``project_out``: the projection out, by default unless one head of
       ``dim``;
     - ``q_segment_ids``/``kv_segment_ids`` at call: packed-sequence
@@ -244,13 +247,15 @@ class Attention(nn.Module):
         inner = heads * dim_head
         self.dim, self.heads, self.dim_head, self.dropout, self.flash = dim, heads, dim_head, dropout, flash
         self.qk_norm, self.force_split_qkv, self.pre_norm = qk_norm, force_split_qkv, pre_norm
+        # the options that act only on a context imply the split projections
+        self.split_qkv = force_split_qkv or norm_context or kv_include_self
         self.scale, self.kv_include_self, self.sow_index = scale, kv_include_self, sow_index
         self.recorded: Optional[list] = None
         self.project_out = not (heads == 1 and dim_head == dim) if project_out is None else project_out
         self.norm = LayerNorm(dim, norm_bias, **kw) if pre_norm else nn.Identity()
         if norm_context:
             self.norm_context = LayerNorm(dim, norm_bias, **kw)
-        if force_split_qkv:
+        if self.split_qkv:
             self.to_q = nn.Linear(dim, inner, bias=qkv_bias, **kw)
             self.to_kv = nn.Linear(dim, inner * 2, bias=qkv_bias, **kw)
         else:
@@ -282,7 +287,7 @@ class Attention(nn.Module):
         return fused_block_eligible(
             x=x, heads=self.heads, dim_head=self.dim_head, dim=self.dim, flash=self.flash,
             project_out=self.project_out, dropout=self.dropout, train=self.training, pre_norm=self.pre_norm,
-            force_split_qkv=self.force_split_qkv, has_context=context is not None, has_rotary=has_rotary,
+            force_split_qkv=self.split_qkv, has_context=context is not None, has_rotary=has_rotary,
             has_mask=has_mask, has_bias=has_bias, has_segments=has_segments, record=self.recorded is not None,
         )
 
@@ -319,9 +324,10 @@ class Attention(nn.Module):
         b, n, _ = x.shape
         x = self.norm(x)
         split = lambda t: t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
-        if context is not None or self.force_split_qkv:
-            if not self.force_split_qkv:
-                raise ValueError("Attention: a call with context needs force_split_qkv=True (split to_q/to_kv)")
+        if context is not None or self.split_qkv:
+            if not self.split_qkv:
+                raise ValueError("Attention: a call with context needs the split to_q/to_kv projections: build it "
+                                 "with force_split_qkv=True (or norm_context / kv_include_self, which imply them)")
             if context is not None and hasattr(self, "norm_context"):
                 context = self.norm_context(context)
             if context is not None and self.kv_include_self:

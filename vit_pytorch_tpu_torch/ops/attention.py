@@ -23,7 +23,7 @@ sequences (segment ids) and for m >= 1024, or when the caller asks with
   that misses the short route (as ``bias[None]``), segment ids, dropout.
 
 Each kernel route asks its gate (:func:`~.short_attention.short_supported`,
-:func:`~.flash_attention.flash_supported`: bf16, dim_head 64) before it
+:func:`~.flash_attention.flash_supported`: bf16, q, k and v 64 wide) before it
 launches on a CUDA tensor; fp32 and the shapes a kernel does not take go to
 the composite, where the TPU sent what did not fit its VMEM.  On a CPU
 tensor a kernel route runs its Function on the plain twins.  No route
@@ -215,7 +215,7 @@ def dot_product_attention(
             if gamma_q is not None and bias is not None:
                 q, k = rms_norm(q, gamma_q), rms_norm(k, gamma_k)
                 gamma_q = gamma_k = None
-            if not on_cuda(q) or flash_supported(q.shape, k.shape, q.dtype):
+            if not on_cuda(q) or flash_supported(q.shape, k.shape, v.shape, q.dtype):
                 seed = None
                 if dropout_rate > 0.0:  # JAX :264-268, on the host
                     device = "cpu" if generator is None else generator.device

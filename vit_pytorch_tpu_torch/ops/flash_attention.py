@@ -219,18 +219,23 @@ def bwd_tile_lists(n: int, m: int, q_segment_ids=None, kv_segment_ids=None, *, d
     return [[row.nonzero().flatten().tolist() for row in image] for image in admitted]
 
 
-def flash_supported(q_shape, k_shape, dtype) -> bool:
+def flash_supported(q_shape, k_shape, v_shape, dtype) -> bool:
     """Whether the kernels take (b, h, n, d) q and (b, h, m, d) k, v of
-    ``dtype`` on a CUDA device: bf16, ``d == 64`` and at most 65,535 (b, h)
-    pairs (the grid's y axis).  The dispatcher sends everything else to the
-    materialized composite."""
+    ``dtype`` on a CUDA device: bf16, ``d == dv == 64`` and at most 65,535
+    (b, h) pairs (the grid's y axis).  The dispatcher sends everything else
+    to the materialized composite: v is read as 64 wide, so a q and k of 64
+    beside a narrower v (PoPE at dim_head 32, models/vit_nd_pope.py) must
+    not reach the kernels."""
     b, h, n, d = q_shape
     return (
         dtype == torch.bfloat16
         and d == DIM_HEAD
         and len(k_shape) == 4
+        and len(v_shape) == 4
         and tuple(k_shape[:2]) == (b, h)
+        and tuple(v_shape[:3]) == tuple(k_shape[:3])
         and k_shape[3] == d
+        and v_shape[3] == DIM_HEAD
         and n > 0
         and k_shape[2] > 0
         and b * h <= 65535
@@ -807,9 +812,10 @@ def flash_attention(
     del interpret
     if (block_q or BLOCK_Q) != BLOCK_Q or (block_k or BLOCK_K) != BLOCK_K:
         raise ValueError(f"flash_attention: the kernels' tiles are {BLOCK_Q} x {BLOCK_K}")
-    if q.device.type != "cpu" and not flash_supported(q.shape, k.shape, q.dtype):
+    if q.device.type != "cpu" and not flash_supported(q.shape, k.shape, v.shape, q.dtype):
         raise ValueError(
-            f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} is not supported by the kernels "
+            f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} is not supported "
+            f"by the kernels "
             f"(bf16, dim_head {DIM_HEAD})"
         )
     return _flash(KERNELS, q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, dropout_seed, gamma_q,

@@ -262,11 +262,73 @@ _MAX_VIT_MODULES = _MBCONV + _max_vit_window("block", r"layers.\1.2.fn", r"layer
 # models/max_vit_with_registers.py: attention and a bare Sequential feed-forward a window kind
 _MAX_VIT_REGISTERS_MODULES = _MBCONV + _max_vit_window("block", r"layers.\1.1.0", r"layers.\1.1.1.") + _max_vit_window(
     "grid", r"layers.\1.2.0", r"layers.\1.2.1.")
+# models/vit_1d.py, vit_3d.py: no transformer norm, the head Sequential(LayerNorm, Linear)
+_VIT_1D_MODULES = _VIT_MODULES[:9] + ((r"head_norm", "mlp_head.0"), (r"mlp_head", "mlp_head.1"))
+# models/vit_nd.py: the Linear -> LN embedding after the patchify
+_ND_PATCH = ((r"patch_proj", "to_patch_embedding.1"), (r"patch_norm", "to_patch_embedding.2"))
+_VIT_ND_MODULES = _ND_PATCH + _VIT_MODULES[3:]
+# models/vit_nd_rotary.py, vit_nd_pope.py: the JAX layers at the top level, split to_qk / to_v
+_VIT_ND_FLAT_MODULES = _ND_PATCH + (
+    (r"layers_(\d+)_attn/(norm|to_qk|to_v)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.4"),
+    (r"norm", "transformer.norm"),
+    (r"mlp_head", "mlp_head"),
+)
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma", "embedding": "weight",
            "rel_pos_bias": "rel_pos_bias.weight", "mean": "running_mean", "var": "running_var"}
 _TOP_LEVEL = ("cls_token", "pos_embedding")
 _NAVIT_TOP_LEVEL = ("pos_embed_height", "pos_embed_width", "attn_pool_queries")
 _NAVIT_3D_TOP_LEVEL = ("pos_embed_frame", *_NAVIT_TOP_LEVEL, "register_tokens")
+# models/deepvit.py: ReAttention's head mix and its LayerNorm over heads
+_FF_LAYERS = (
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.4"),
+)
+_LN_LINEAR_HEAD = ((r"head_norm", "mlp_head.0"), (r"mlp_head", "mlp_head.1"))
+_DEEPVIT_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/reattn_norm", r"transformer.layers.\1.0.reattn_norm.1"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + _LN_LINEAR_HEAD
+_DEEPVIT_TOP_LEVEL = _TOP_LEVEL + ((r"layers_(\d+)_attn/reattn_weights", r"transformer.layers.\1.0.reattn_weights"),)
+# models/cait.py: LayerScale(fn) a layer, in the patch and the class tokens' transformers
+_CAIT_MODULES = _PATCH_EMBEDDING + tuple(
+    (p.replace("T", t), v.replace("T", t)) for t in ("patch_transformer", "cls_transformer") for p, v in (
+        (r"T/layers_(\d+)_attn/(norm|to_q|to_kv)", r"T.layers.\1.0.fn.\2"),
+        (r"T/layers_(\d+)_attn/to_out", r"T.layers.\1.0.fn.to_out.0"),
+        (r"T/layers_(\d+)_ff/norm", r"T.layers.\1.1.fn.net.0"),
+        (r"T/layers_(\d+)_ff/fc1", r"T.layers.\1.1.fn.net.1"),
+        (r"T/layers_(\d+)_ff/fc2", r"T.layers.\1.1.fn.net.4"),
+    )) + _LN_LINEAR_HEAD
+_CAIT_TOP_LEVEL = _TOP_LEVEL + tuple(
+    (p.replace("T", t), v.replace("T", t)) for t in ("patch_transformer", "cls_transformer") for p, v in (
+        (r"T/layers_(\d+)_attn_scale", r"T.layers.\1.0.scale"),
+        (r"T/layers_(\d+)_ff_scale", r"T.layers.\1.1.scale"),
+        (r"T/layers_(\d+)_attn/(mix_heads_pre_attn|mix_heads_post_attn)", r"T.layers.\1.0.fn.\2"),
+    ))
+# models/parallel_vit.py: the branches under fns.J, a bare Linear patch embedding
+_PARALLEL_VIT_MODULES = (
+    (r"patch_embedding/proj", "to_patch_embedding.1"),
+    (r"layers_(\d+)_attn_(\d+)/(norm|to_qkv)", r"transformer.layers.\1.0.fns.\2.\3"),
+    (r"layers_(\d+)_attn_(\d+)/to_out", r"transformer.layers.\1.0.fns.\2.to_out.0"),
+    (r"layers_(\d+)_ff_(\d+)/norm", r"transformer.layers.\1.1.fns.\2.net.0"),
+    (r"layers_(\d+)_ff_(\d+)/fc1", r"transformer.layers.\1.1.fns.\2.net.1"),
+    (r"layers_(\d+)_ff_(\d+)/fc2", r"transformer.layers.\1.1.fns.\2.net.4"),
+) + _LN_LINEAR_HEAD
+# models/cct.py, cct_3d.py: the tokenizer's convolutions, the classifier's blocks
+_CCT_MODULES = (
+    (r"tokenizer/conv_(\d+)", r"tokenizer.conv_layers.\1.0"),
+    (r"classifier/blocks_(\d+)/(pre_norm|norm1|linear1|linear2)", r"classifier.blocks.\1.\2"),
+    (r"classifier/blocks_(\d+)/self_attn/(qkv|proj)", r"classifier.blocks.\1.self_attn.\2"),
+    (r"classifier/(norm|attention_pool|fc)", r"classifier.\1"),
+)
+_CCT_TOP_LEVEL = ((r"classifier/(positional_emb|class_emb)", r"classifier.\1"),)
+# models/efficient.py: the shell; the caller's transformer's map beside it
+_EFFICIENT_MODULES = _PATCH_EMBEDDING + _LN_LINEAR_HEAD
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -299,8 +361,9 @@ def _state_dict(params: Mapping, modules, top_level) -> dict[str, torch.Tensor]:
     out = {}
     for path, value in _flatten(params):
         array = np.array(value)  # a writable copy torch may own
-        if path.endswith("/kernel"):  # Dense (in, out), Conv (kh, kw, in, out)
-            array = np.ascontiguousarray(array.T if array.ndim == 2 else array.transpose(3, 2, 0, 1))
+        if path.endswith("/kernel"):  # Dense (in, out), Conv (kh, kw, in, out) or (kd, kh, kw, in, out)
+            axes = (array.ndim - 1, array.ndim - 2, *range(array.ndim - 2))
+            array = np.ascontiguousarray(array.transpose(axes))
         out[_torch_key(path, modules, top_level)] = torch.from_numpy(array)
     return out
 
@@ -308,6 +371,111 @@ def _state_dict(params: Mapping, modules, top_level) -> dict[str, torch.Tensor]:
 def vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """The JAX ``ViT``'s ``params`` tree -> the port ``ViT``'s ``state_dict``."""
     return _state_dict(params, _VIT_MODULES, _TOP_LEVEL)
+
+
+def vit_1d_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_1d.py::ViT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_vit_1d``)."""
+    return _state_dict(params, _VIT_1D_MODULES, _TOP_LEVEL)
+
+
+# the 3-D model's params are the 1-D model's (convert_vit_3d is convert_vit_1d)
+vit_3d_state_dict_from_jax = vit_1d_state_dict_from_jax
+
+
+def vit_nd_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_nd.py::ViTND``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_vit_nd``)."""
+    return _state_dict(params, _VIT_ND_MODULES, _TOP_LEVEL)
+
+
+def vit_nd_rotary_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_nd_rotary.py::ViTND``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_vit_nd_rotary``)."""
+    return _state_dict(params, _VIT_ND_FLAT_MODULES, ())
+
+
+def vit_nd_pope_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_nd_pope.py::ViTND``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_vit_nd_pope``)."""
+    return _state_dict(params, _VIT_ND_FLAT_MODULES, (("learned_bias", "polar_emb.learned_bias"),))
+
+
+def deepvit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/deepvit.py::DeepViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_deepvit``)."""
+    return _state_dict(params, _DEEPVIT_MODULES, _DEEPVIT_TOP_LEVEL)
+
+
+def cait_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/cait.py::CaiT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_cait``)."""
+    return _state_dict(params, _CAIT_MODULES, _CAIT_TOP_LEVEL)
+
+
+def parallel_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/parallel_vit.py::ViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_parallel_vit``)."""
+    return _state_dict(params, _PARALLEL_VIT_MODULES, _TOP_LEVEL)
+
+
+def t2t_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/t2t.py::T2TViT``'s ``params`` tree (the built-in
+    transformer) -> the port's ``state_dict`` (the inverse of
+    ``convert_t2t``): stem transformer g at ``to_patch_embedding.{4g + 3}``,
+    the projection after the last of the stages' four modules."""
+    stems = sorted(int(k.rsplit("_", 1)[1]) for k in params if k.startswith("t2t_transformer_"))
+    modules = tuple(
+        (p.replace("transformer", f"t2t_transformer_{g}", 1), v.replace("transformer", f"to_patch_embedding.{4 * g + 3}", 1))
+        for g in stems for p, v in _VIT_MODULES[3:10]
+    )
+    modules += ((r"t2t_proj", f"to_patch_embedding.{4 * (len(stems) + 1)}"),) + _VIT_MODULES[3:]
+    return _state_dict(params, modules, _TOP_LEVEL)
+
+
+def cct_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/cct.py::CCT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_cct``; NHWC conv kernels
+    (kh, kw, in, out) become NCHW weights (out, in, kh, kw))."""
+    return _state_dict(params, _CCT_MODULES, _CCT_TOP_LEVEL)
+
+
+# the 3-D model's names are the 2-D one's; its conv kernels (kd, kh, kw, in,
+# out) become (out, in, kd, kh, kw)
+cct_3d_state_dict_from_jax = cct_state_dict_from_jax
+
+# the port Transformer's map as the efficient shell's transformer
+TRANSFORMER_MODULES = _VIT_MODULES[3:10]
+
+
+def efficient_vit_state_dict_from_jax(params: Mapping, transformer_modules=TRANSFORMER_MODULES,
+                                      transformer_top_level=()) -> dict[str, torch.Tensor]:
+    """The JAX ``models/efficient.py::ViT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_efficient_vit``), the caller's
+    transformer through ``transformer_modules`` / ``transformer_top_level``
+    (JAX paths under ``transformer/``; by default the shared
+    ``Transformer``'s)."""
+    return _state_dict(params, _EFFICIENT_MODULES + tuple(transformer_modules),
+                       _TOP_LEVEL + tuple(transformer_top_level))
+
+
+# ssl/distill.py: the distillable models keep their plain model's params
+distillable_vit_state_dict_from_jax = vit_state_dict_from_jax
+distillable_t2t_state_dict_from_jax = t2t_state_dict_from_jax
+distillable_efficient_vit_state_dict_from_jax = efficient_vit_state_dict_from_jax
+
+
+def distill_wrapper_state_dict_from_jax(params: Mapping, student_from_jax=vit_state_dict_from_jax):
+    """The JAX ``ssl/distill.py::DistillWrapper``'s ``params`` tree -> the
+    port's ``state_dict`` without the teacher (whose params the JAX wrapper
+    does not hold: load with ``strict=False``, the teacher through its own
+    map): ``distillation_token``, ``distill_mlp.0|1`` and the student's
+    tree through ``student_from_jax``."""
+    out = {f"student.{k}": v for k, v in student_from_jax(params["student"]).items()}
+    rest = {k: v for k, v in params.items() if k != "student"}
+    out.update(_state_dict(rest, ((r"distill_norm", "distill_mlp.0"), (r"distill_mlp", "distill_mlp.1")),
+                           ("distillation_token",)))
+    return out
 
 
 def na_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:

@@ -18,6 +18,11 @@ def pair(t):
     return t if isinstance(t, (tuple, list)) else (t, t)
 
 
+def cast_tuple(t, length: int = 1) -> tuple:
+    """``t`` as a tuple: its items, or ``length`` copies of it."""
+    return tuple(t) if isinstance(t, (tuple, list)) else ((t,) * length)
+
+
 def default_device(device=None) -> torch.device:
     """The device an entry point of the port builds on: ``device`` when the
     caller names one, else the current CUDA card.  The port's kernels run on
