@@ -43,9 +43,10 @@ Phases, each printed as it ends:
      with a generator: loss finite and falling, exact launch counters, the
      first step's loss and gradients against the plain-twin path with the
      same generator (the same masks);
- 11. dropout training timing at bs=1024: ms/step kernel vs plain, peak
-     device memory, and each launch of one attention block's forward and
-     backward at bs=128;
+ 11. dropout training timing at bs=1024: ms/step kernel vs plain (plain
+     one step a turn, after one kernel step has made the optimizer's
+     state), peak device memory, and each launch of one attention block's
+     forward and backward at bs=128;
  12. flash kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
      plain twins, bf16, h=12, dh=64: two 2048-token packs of the NaViT
      resolution mix, the attn_pool shape (16 queries, empty slots at -2),
@@ -136,7 +137,8 @@ Phases, each printed as it ends:
      generator); depth 2, the first step's loss and gradients against it; a
      depth-2 nested-tensor NaViT, 2 steps with exact counters;
  24. its timing: ms/step and peak memory, kernel against plain in turns
-     (plain one step a turn) and against dropout 0 in turns; each [dropout]
+     (plain one step a turn, after one kernel step) and against dropout 0
+     in turns; each [dropout]
      launch at the packed shape against its twin and its rate-0 kernel,
      SDPA with dropout_p beside flash_fwd[dropout] and its backward beside
      the backward kernels; the mask replay;
@@ -149,8 +151,8 @@ Phases, each printed as it ends:
      run twice: bitwise the same); o also differs from the kernel without
      gammas; the Function's o, dq, dk, dv, dgamma_q and dgamma_k against
      autograd through the f32 composite with the eager rms_norm; that
-     check again over 20 fresh draws at rate
-     0 and 20 at rate 0.1, for the kernels and for the Function on its plain
+     check again over 5 fresh draws at rate
+     0 and 5 at rate 0.1, for the kernels and for the Function on its plain
      twins, logged (each output's worst rel L2 a draw, and o against the
      twin fed either rounding of q^ and k^);
  26. NaViT-B under VIT_TPU_FUSE_QKNORM=1 (set in-process): serving at depth
@@ -365,6 +367,34 @@ Phases, each printed as it ends:
      model's 128 of 16, gemm_bf16's qkv site with a bias) against their
      twins and by device time against their twins, bounds and library
      calls, each an entry of the kernels line.
+ 50. ROADMAP item 9's families 1 and 2 and the distillation served one
+     batch each at full width (ViT-1D, -3D, -ND, -ND-rotary, -ND-PoPE,
+     DeepViT, CaiT, ParallelViT, the efficient shell, T2T, CCT, CCT-3D,
+     DistillableViT): exact counters, logits against plain bf16 and fp32;
+ 51. six of them trained 3 steps at dropout 0.1 (the DistillWrapper among
+     them): exact counters, the first step against the plain path;
+ 52. their new kernel shapes (flash_fwd, short_attention, the flash
+     [dropout] trio, the chain at T2T's trunk and ViT-1D) against their
+     twins and timed;
+ 53. item 9's family 3 (CrossViT, PiT, XCiT, LocalViT, the small-dataset
+     ViT, RvT, NesT, MobileViT-XS, CvT, Twins-SVT) served one batch each at
+     bs=64 at the upstream README's widths (CvT and Twins-SVT at their
+     defaults): exact counters (CrossViT's large branch, 12 layers, and
+     PiT's third stage, 3, on the whole layer; none elsewhere), logits
+     against plain bf16 and fp32, ms a batch; CrossViT, PiT, XCiT,
+     MobileViT and CvT trained 3 AdamW steps at bs=32: exact counters (the
+     attention block's dropout kernels in CrossViT and PiT), the first
+     step's loss and gradients against the plain path, the BatchNorms'
+     running statistics after the steps against the plain path's, ms/step
+     and peak memory; XCiT, MobileViT and CvT (no kernel: both paths run
+     the same code) also trained from an fp32 copy at dropout 0, their
+     first step and statistics against it;
+ 54. the chain at CrossViT's large branch (b=64 n=17, dim 384, inner 512)
+     and PiT's third stage (b=64 n=65, dim 1024) forward and backward
+     against the twins, its forward launches timed; the attention block's
+     dropout kernels and the backward's at the same shapes at bs=32 against
+     the twins and timed, each an entry of the kernels line (as every
+     chain entry, timed with L2 flushed before each call).
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -1299,10 +1329,11 @@ def check_dropout_training(fb, dev, gen):
     return counts
 
 
-def train_step_ms(dev, fn, iters=2):
-    """Host ms of one training step (after one warm-up step) and the peak
-    device memory of those steps, GiB."""
-    fn()
+def train_step_ms(dev, fn, iters=2, warmup=True):
+    """Host ms of one training step (after one warm-up step, unless
+    ``warmup`` is false) and the peak device memory of those steps, GiB."""
+    if warmup:
+        fn()
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
@@ -1333,10 +1364,17 @@ def time_dropout_training(fb, dev, gen, smi):
         with plain_layers():
             step(state, images, labels, drop_gen)
 
-    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (train_step_ms(dev, f)
-                                                  for f in (plain_step, kernel_step, kernel_step, plain_step))
+    # the plain path (~7 s a step) one step a turn, without a warm-up step of
+    # its own: one kernel step first makes AdamW's state, so both plain turns
+    # step a warm state
+    kernel_step()
+    (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (
+        train_step_ms(dev, f, iters, warmup)
+        for f, iters, warmup in ((plain_step, 1, False), (kernel_step, 2, True), (kernel_step, 2, True),
+                                 (plain_step, 1, False)))
     log(f"  train step with dropout: kernel path {(k1 + k2) / 2:.3f} ms/step, plain bf16 path {(p1 + p2) / 2:.3f} "
-        f"ms/step; turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory "
+        f"ms/step (one step a turn after a kernel step); turns ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain "
+        f"{p2:.3f}; peak device memory "
         f"kernel {max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
     del model, state, step, images
 
@@ -2885,14 +2923,19 @@ def time_navit_dropout(fb, fa, dev, gen, smi):
         with plain_flash():
             step(state, packed, labels, drop_gen)
 
+    # the plain path (~7.7 s a step) one step a turn, without a warm-up step of
+    # its own: one kernel step first makes AdamW's state (as in phase 11)
+    kernel_step()
     (p1, pm1), (k1, km1), (k2, km2), (p2, pm2) = (
-        train_step_ms(dev, f, iters)
-        for f, iters in ((plain_step, 1), (kernel_step, 2), (kernel_step, 2), (plain_step, 1)))
+        train_step_ms(dev, f, iters, warmup)
+        for f, iters, warmup in ((plain_step, 1, False), (kernel_step, 2, True), (kernel_step, 2, True),
+                                 (plain_step, 1, False)))
     r1, (d1, _), (d2, _), r2 = (train_step_ms(dev, f) for f in (
         lambda: step0(state0, packed, labels), kernel_step, kernel_step, lambda: step0(state0, packed, labels)))
     k_ms = (k1 + k2) / 2
     log(f"  training step at dropout {RATE}, {packed.image_ids.shape[0]} packs: kernel path {k_ms:.3f} ms/step "
-        f"({NAVIT_IMAGES * 1e3 / k_ms:.1f} img/s), plain bf16 path {(p1 + p2) / 2:.3f} ms/step (one step a turn); turns "
+        f"({NAVIT_IMAGES * 1e3 / k_ms:.1f} img/s), plain bf16 path {(p1 + p2) / 2:.3f} ms/step (one step a turn after a "
+        f"kernel step); turns "
         f"ms plain {p1:.3f} kernel {k1:.3f} kernel {k2:.3f} plain {p2:.3f}; peak device memory kernel "
         f"{max(km1, km2):.2f} GiB, plain {max(pm1, pm2):.2f} GiB")
     log(f"  against dropout 0 in turns: dropout 0 {(r1[0] + r2[0]) / 2:.3f} ms/step (peak {max(r1[1], r2[1]):.2f} GiB), "
@@ -2993,12 +3036,14 @@ QK_ROW_SPREAD = 1.5
 # of q^ and k^, which the JAX kernel shares, not a kernel fault (suspect 5,
 # PERF.md §7).  The bound holds for this draw, not for any draw.
 # Suspect 5: that f32 check reads more on other draws.  Phase 25 repeats it,
-# logged and not bounded, over QK_F32_DRAWS fresh draws of its cases at rate
+# logged and not bounded, over fresh draws of its cases at rate
 # 0 and at RATE, for the kernels and for the same Function on its plain twins
 # (flash_attention_twins: bf16 q^ and k^ at the kernels' rounding points),
 # each against the f32 composite: if the twins read the same excursions, the
-# distance is the bf16 numerics the JAX kernel shares.
-QK_F32_DRAWS = 20
+# distance is the bf16 numerics the JAX kernel shares.  Settled over 20
+# draws a rate (ROADMAP §3), phase 25 logs PHASE25_DRAWS a rate;
+# chip_suspect6.py and chip_suspect7.py replay QK_F32_DRAWS.
+QK_F32_DRAWS, PHASE25_DRAWS = 20, 5
 # The 3-D NaViT of phase 26: the 2-D nested variant's blocks at its widths
 # (dim 1024, heads 16, mlp 2048), videos of up to 8 frames of 256 x 256 in
 # 32 x 32 x 2 patches with 4 register tokens a video, depth cut to 2; 24
@@ -3145,11 +3190,11 @@ def check_flash_qknorm(fa, dev, gen):
                                 FLASH_VS_F32_REL_L2, atol_frac=FLASH_VS_F32_ATOL_FRAC)
             del leaves, ref, out, out_ref, got, want
             sync()
-    qk_vs_f32_draws(fa, dev)
+    qk_vs_f32_draws(fa, dev, PHASE25_DRAWS)
     return errs
 
 
-def qk_vs_f32_draws(fa, dev):
+def qk_vs_f32_draws(fa, dev, draws=QK_F32_DRAWS):
     """Suspect 5: the Function-vs-f32 check of phase 25 over fresh draws of
     its cases, for the kernels and for the twins, each output's worst rel L2
     over the cases (and which case) a draw; then the worst over the draws and
@@ -3163,7 +3208,7 @@ def qk_vs_f32_draws(fa, dev):
     parts = ("o", "dq", "dk", "dv", "dgamma_q", "dgamma_k")
     routes = {"kernel": fa.flash_attention, "twins": fa.flash_attention_twins}
     fmt = lambda w: ", ".join(f"{part} {v:.3e} ({c})" for part, (v, c) in w.items())
-    for rate, draws in ((0.0, QK_F32_DRAWS), (RATE, QK_F32_DRAWS)):
+    for rate in (0.0, RATE):
         overall = {r: dict.fromkeys(parts, (0.0, "")) for r in routes}
         above = dict.fromkeys(routes, 0)
         o_excess, o_above = (0.0, ""), 0
@@ -5361,30 +5406,83 @@ def check_maxvit_config1(fb, fa, dev):
                                 config1=imgs[REQUESTS[-1]][:B_TIME].to(bf16))
 
 
-def device_ms(fn, iters=10):
+L2_FLUSH_BYTES = 256 << 20  # over 5x the H100's 50 MB L2
+MARKERS = 64  # one-cycle spin kernels closing each group of a profiler session's records
+SPIN_CYCLES_PER_MS = 2_000_000  # the card's ~2 GHz clock
+EDGE_SPIN_MS = [4.0]  # the spin that opens and closes a session's window; doubled after a session lost records
+
+
+def device_ms(fn, iters=10, tries=8, flush=False):
     """Device ms of one call of fn: the summed device time of its kernels
     under torch.profiler over ``iters`` calls (after 3 warm-up calls),
     divided by ``iters``.  At these shapes a launch is shorter than the
     host's time to issue it, so CUDA events around a chain of calls would
-    time the host.  CUPTI does not always deliver the device records: a
-    session that saw none is run once more, and then the calls are timed
-    by :func:`queued_event_ms` instead."""
-    from torch.profiler import ProfilerActivity, profile
+    time the host.  Late in a long run the profiler loses device records of
+    a trace window: its first ones (at times all of them), and at times a
+    run of them within it.  So each session traces 3 calls in the
+    profiler's warm-up step, and its active window holds, in this order on
+    the stream: a spin of EDGE_SPIN_MS, MARKERS one-cycle spins
+    (``torch.cuda._sleep``), one call, MARKERS spins, the ``iters`` calls it
+    counts, MARKERS spins and a spin of EDGE_SPIN_MS.  The session counts
+    only if its records read so: spins, the lone call's k >= 1 records, all
+    MARKERS spins, exactly ``iters`` x k records, MARKERS spins or more.
+    The lone call gives the per-call count, and the whole groups of spins
+    around the counted calls show that none of their records was lost
+    (records before the first spin, which the stream ran before the window,
+    are left out).  A session that does not read so doubles EDGE_SPIN_MS
+    (for the rest of the run) and is run again; after ``tries`` such
+    sessions the run fails.
+    With ``flush`` a write of L2_FLUSH_BYTES precedes each call, so that
+    the call finds none of its operands in L2: it is the first of each
+    call's k records and is not summed."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    if flush:
+        flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        call = lambda: (flush_buf.fill_(1), fn())
+    else:
+        call = fn
     for _ in range(3):
-        fn()
+        call()
     sync()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+    for _ in range(tries):
+        edge = int(EDGE_SPIN_MS[0] * SPIN_CYCLES_PER_MS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(3):
+                call()
             sync()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
-        if us:
-            return us / iters / 1e3
-    log("  the profiler saw no device time: timing with CUDA events behind a spin kernel")
-    return queued_event_ms(fn, iters)
+            prof.step()
+            torch.cuda._sleep(edge)
+            for group in (1, iters, 0):
+                for _ in range(MARKERS):
+                    torch.cuda._sleep(1)
+                for _ in range(group):
+                    call()
+            torch.cuda._sleep(edge)
+            sync()
+            prof.step()
+        records = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False))
+        runs = []  # (spin kernels?, the durations of one run of records)
+        for _, us, name in records:
+            spin = "spin_kernel" in name
+            if runs and runs[-1][0] == spin:
+                runs[-1][1].append(us)
+            else:
+                runs.append((spin, [us]))
+        if runs and not runs[0][0]:  # the warm-up step's last records, before the window's first spin
+            runs.pop(0)
+        shape = [(spin, len(us)) for spin, us in runs]
+        if ([spin for spin, _ in shape] == [True, False, True, False, True] and shape[2][1] == MARKERS
+                and shape[4][1] >= MARKERS and shape[3][1] == iters * shape[1][1]):
+            k = shape[1][1]
+            return sum(us for i, us in enumerate(runs[3][1]) if not (flush and i % k == 0)) / iters / 1e3
+        EDGE_SPIN_MS[0] *= 2
+        log(f"  the profiler delivered runs of (spin kernels?, records) {shape} for 1 + {iters} calls: profiling "
+            f"again behind {EDGE_SPIN_MS[0]:g} ms spins")
+    fail(f"the profiler lost device records in {tries} sessions: no device time")
 
 
 def queued_event_ms(fn, iters=10, tries=4):
@@ -5414,9 +5512,6 @@ def queued_event_ms(fn, iters=10, tries=4):
             return start.elapsed_time(end) / iters
         cycles *= 2
     fail(f"the device caught up with the host in {tries} event timings: no device time")
-
-
-L2_FLUSH_BYTES = 256 << 20  # over 5x the H100's 50 MB L2
 
 
 def flushed_event_ms(fn, iters=10, tries=4):
@@ -5452,21 +5547,35 @@ def flushed_event_ms(fn, iters=10, tries=4):
     fail(f"the device caught up with the host in {tries} flushed event timings: no device time")
 
 
-def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp, backward=True):
+def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp, backward=True, dropout_rate=0.0):
     """Each chain kernel's launch at one shape, forward and (unless
-    ``backward`` is false) backward: its
-    device time against its twin's in turns (plain, kernel, kernel, plain),
-    with its work and the device time of its library call (F.layer_norm,
-    F.linear, SDPA, native_layer_norm_backward) or of its yardstick (the
-    bare product through F.linear; SDPA's forward and backward), all from
-    :func:`device_ms`; keys ``f"{kernel} @ {label}"``."""
+    ``backward`` is false) backward: its device time against its twin's in
+    turns (plain, kernel, kernel, plain), with its work and the device time
+    of its library call (F.layer_norm, F.linear, SDPA,
+    native_layer_norm_backward) or of its yardstick (the bare product
+    through F.linear; SDPA's forward and backward), all from
+    :func:`device_ms`; keys ``f"{kernel} @ {label}"``.  With
+    ``dropout_rate`` the attention-block route's kernels at that rate
+    instead: attention_rows[dropout] and gemm_bf16[block_out] forward, then
+    dropout_apply and the backward's kernels with attention_bwd_rows[dropout]
+    (SDPA with dropout_p beside them).  Every call, library calls and
+    yardsticks too, finds none of its operands in L2 (``device_ms(...,
+    flush=True)``): at these shapes a site's working set fits in the 50 MB
+    L2, and timed warm the LayerNorms at ViViT's, MAE's, T2T's and PiT's
+    shapes read under their byte bounds."""
     inner = heads * DH
     rows = b * n
+    drop = "[dropout]" if dropout_rate else ""
     akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    if dropout_rate:
+        akw.update(dropout_rate=dropout_rate, seed=DROP_SEED)
+    timer = lambda f: device_ms(f, flush=True)
     w, b_out = chain_weights(rnd, dim, heads, mlp)
     x, dy = rnd(b, n, dim), rnd(b, n, dim)
+    okw = dict(bias=b_out, residual=x, dropout_rate=dropout_rate, seed=DROP_SEED, heads=heads)
     per_kernel = {}
     F_ = torch.nn.functional
+    sdpa_kw = dict(dropout_p=dropout_rate) if dropout_rate else {}
     with torch.inference_mode():
         h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
         qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv")
@@ -5477,7 +5586,8 @@ def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp, backward=True):
         q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
         if backward:
             w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
-            dm = fb.gemm_bf16(dy, w_out_t, "cast")
+            gm = fb.dropout_apply(dy, DROP_SEED, heads=heads, rate=dropout_rate) if dropout_rate else dy
+            dm = fb.gemm_bf16(gm, w_out_t, "cast")
             _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
             dh = fb.gemm_f32out(dqkv, w_qkv_t)
             aten = torch.ops.aten
@@ -5489,45 +5599,63 @@ def chain_entry_times(fb, rnd, label, b, n, dim, heads, mlp, backward=True):
         with torch.inference_mode(False), torch.enable_grad():
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
-            sdpa_fwd_bwd = lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves), leaves, go)
-            sdpa_fwd_bwd_dev = device_ms(sdpa_fwd_bwd)
+            sdpa_fwd_bwd_dev = timer(lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves, **sdpa_kw),
+                                                                 leaves, go))
     with torch.inference_mode():
-        ln = lambda t, s_, b_: device_ms(lambda: F_.layer_norm(t, (dim,), s_, b_, fb.LN_EPS))
-        lin = lambda t, w_: device_ms(lambda: F_.linear(t, w_))
-        sites = (  # (kernel, kernel call, twin call, work, library ms, yardstick (ms, what))
-            ("layernorm_rows", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
-             lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"]), ln_work(rows, dim),
-             ln(x, w["ln1_scale"], w["ln1_bias"]), None),
-            ("layernorm_rows", lambda: fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"]),
-             lambda: fb.layernorm_rows_reference(y, w["ln2_scale"], w["ln2_bias"]), ln_work(rows, dim),
-             ln(y, w["ln2_scale"], w["ln2_bias"]), None),
-            ("gemm_bf16[qkv]", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv"),
-             lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv"), gemm_work(rows, 3 * inner, dim),
-             lin(h, w["w_qkv"]), None),
-            ("attention_rows", lambda: fb.attention_rows(qkv, **akw), lambda: fb.attention_rows_reference(qkv, **akw),
-             attention_work(b, n, heads), device_ms(lambda: F_.scaled_dot_product_attention(q, k, v)), None),
-            ("gemm_bf16[out]", lambda: fb.gemm_bf16(m, w["w_out"], "out", bias=b_out, residual=x),
-             lambda: fb.gemm_bf16_reference(m, w["w_out"], "out", bias=b_out, residual=x),
-             gemm_work(rows, dim, inner, bias=True, residual=True), None, (lin(m, w["w_out"]), None)),
-            ("gemm_bf16[fc1]", lambda: fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"]),
-             lambda: fb.gemm_bf16_reference(h2, w["w1"], "fc1", bias=w["b1"]), gemm_work(rows, mlp, dim, bias=True),
-             None, (lin(h2, w["w1"]), None)),
-            ("gemm_bf16[fc2]", lambda: fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"], residual=y),
-             lambda: fb.gemm_bf16_reference(a, w["w2"], "fc2", bias=w["b2"], residual=y),
-             gemm_work(rows, dim, mlp, bias=True, residual=True), None, (lin(a, w["w2"]), None)),
+        ln = lambda t, s_, b_: timer(lambda: F_.layer_norm(t, (dim,), s_, b_, fb.LN_EPS))
+        lin = lambda t, w_: timer(lambda: F_.linear(t, w_))
+        attention = ("attention_rows" + drop, lambda: fb.attention_rows(qkv, **akw),
+                     lambda: fb.attention_rows_reference(qkv, **akw),
+                     attention_work(b, n, heads, dropout=bool(dropout_rate)),
+                     timer(lambda: F_.scaled_dot_product_attention(q, k, v, **sdpa_kw)), None)
+        if dropout_rate:
+            sites = (  # (kernel, kernel call, twin call, work, library ms, yardstick (ms, what))
+                attention,
+                ("gemm_bf16[block_out]", lambda: fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+                 lambda: fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw),
+                 gemm_work(rows, dim, inner, bias=True, residual=True, dropout=True), None,
+                 (lin(m, w["w_out"]), None)),
+            )
+        else:
+            sites = (
+                ("layernorm_rows", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+                 lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"]), ln_work(rows, dim),
+                 ln(x, w["ln1_scale"], w["ln1_bias"]), None),
+                ("layernorm_rows", lambda: fb.layernorm_rows(y, w["ln2_scale"], w["ln2_bias"]),
+                 lambda: fb.layernorm_rows_reference(y, w["ln2_scale"], w["ln2_bias"]), ln_work(rows, dim),
+                 ln(y, w["ln2_scale"], w["ln2_bias"]), None),
+                ("gemm_bf16[qkv]", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv"),
+                 lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv"), gemm_work(rows, 3 * inner, dim),
+                 lin(h, w["w_qkv"]), None),
+                attention,
+                ("gemm_bf16[out]", lambda: fb.gemm_bf16(m, w["w_out"], "out", bias=b_out, residual=x),
+                 lambda: fb.gemm_bf16_reference(m, w["w_out"], "out", bias=b_out, residual=x),
+                 gemm_work(rows, dim, inner, bias=True, residual=True), None, (lin(m, w["w_out"]), None)),
+                ("gemm_bf16[fc1]", lambda: fb.gemm_bf16(h2, w["w1"], "fc1", bias=w["b1"]),
+                 lambda: fb.gemm_bf16_reference(h2, w["w1"], "fc1", bias=w["b1"]),
+                 gemm_work(rows, mlp, dim, bias=True), None, (lin(h2, w["w1"]), None)),
+                ("gemm_bf16[fc2]", lambda: fb.gemm_bf16(a, w["w2"], "fc2", bias=w["b2"], residual=y),
+                 lambda: fb.gemm_bf16_reference(a, w["w2"], "fc2", bias=w["b2"], residual=y),
+                 gemm_work(rows, dim, mlp, bias=True, residual=True), None, (lin(a, w["w2"]), None)),
+            )
+        sites += () if not backward or not dropout_rate else (
+            ("dropout_apply", lambda: fb.dropout_apply(dy, DROP_SEED, heads=heads, rate=dropout_rate),
+             lambda: fb.out_dropout_bwd_reference(dy, DROP_SEED, heads=heads, rate=dropout_rate),
+             work(2 * 2 * rows * dim, f32=PHILOX_OPS_PER_ELEMENT * rows * dim), None, None),
         )
         sites += () if not backward else (
-            ("attention_bwd_rows", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
-             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw), attention_work(b, n, heads, backward=True),
-             None, (sdpa_fwd_bwd_dev, SDPA_FWD_BWD)),
+            ("attention_bwd_rows" + drop, lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+             lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw),
+             attention_work(b, n, heads, backward=True, dropout=bool(dropout_rate)), None,
+             (sdpa_fwd_bwd_dev, SDPA_FWD_BWD + (f", dropout_p={dropout_rate}" if dropout_rate else ""))),
             ("gemm_f32out", lambda: fb.gemm_f32out(dqkv, w_qkv_t), lambda: fb.gemm_f32out_reference(dqkv, w_qkv_t),
              gemm_work(rows, dim, 3 * inner, out_bytes=4), None, (lin(dqkv, w_qkv_t), None)),
             ("layernorm_bwd_rows", lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy),
              lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy),
-             ln_bwd_work(rows, dim, residual=True), device_ms(ln_bwd), None),
+             ln_bwd_work(rows, dim, residual=True), timer(ln_bwd), None),
         )
         for name, kern, twin, wk, lib_ms, prod in sites:
-            p1, k1, k2, p2 = (device_ms(f) for f in (twin, kern, kern, twin))
+            p1, k1, k2, p2 = (timer(f) for f in (twin, kern, kern, twin))
             km, pm = (k1 + k2) / 2, (p1 + p2) / 2
             record(per_kernel, f"{name} @ {label}", km, pm, wk, library_ms=lib_ms,
                    product_ms=None if prod is None else prod[0], product_of=None if prod is None else prod[1])
@@ -7471,42 +7599,50 @@ def zoo2_call(name, model, x, token=None):
     return model(x)
 
 
-def serve_zoo2(fb, fa, name, dev, gen):
-    """Serve one batch: exact launch counters, outputs against the plain
-    bf16 path and fp32, the host time of a batch.  Returns the launch counts
-    and the gemm_bf16 launches by site."""
-    _, _, _, shape, bs, _ = ZOO2[name]
-    fp32 = zoo2_model(name, dev, torch.float32).eval()
+def serve_batch(fb, fa, name, fp32, x, want, call=lambda model, x: model(x)):
+    """Serve one batch ``x`` (fp32) with ``fp32``'s bf16 copy through
+    ``call(model, x)``: exact launch counters ``want``, (b, 1000) finite
+    outputs against the plain bf16 path and ``fp32``, the host time of a
+    batch.  Returns the launch counts, the gemm_bf16 launches by site and
+    the ms."""
     model = copy.deepcopy(fp32).to(torch.bfloat16).eval()
-    x = torch.randn(bs, *shape, generator=gen, device=dev)
-    token = torch.randn(1, model.dim, generator=gen, device=dev) if name == "distillable_vit" else None
     xb = x.to(torch.bfloat16)
     with torch.inference_mode():
         reset_all(fb, fa)
-        out = zoo2_call(name, model, xb, token)
+        out = call(model, xb)
         sync()
-        log(f"  {name}: bs={bs}, input {tuple(shape)}")
-        counts = expect_launches(fb, fa, ZOO2_SERVED[name], f"{name} serving")
+        log(f"  {name}: bs={x.shape[0]}, input {tuple(x.shape[1:])}")
+        counts = expect_launches(fb, fa, want, f"{name} serving")
         sites = {f"gemm_bf16[{s}]": v for s, v in fb.GEMM_LAUNCHES.items() if v}
-        if out.shape != (bs, 1000) or not bool(torch.isfinite(out).all()):
+        if out.shape != (x.shape[0], 1000) or not bool(torch.isfinite(out).all()):
             fail(f"{name}: outputs {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
         reset_all(fb, fa)
         with plain_layers(), plain_attention():
-            plain = zoo2_call(name, model, xb, token)
-        want = zoo2_call(name, fp32, x, token)
+            plain = call(model, xb)
+        ref = call(fp32, x)
         sync()
         if any(all_launches(fb, fa).values()):
             fail(f"{name}: the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
-        e_plain, e_fp32, floor = rel_l2(out, plain), rel_l2(out, want), rel_l2(plain, want)
-        ms = host_ms(lambda: zoo2_call(name, model, xb, token), iters=3)
+        e_plain, e_fp32, floor = rel_l2(out, plain), rel_l2(out, ref), rel_l2(plain, ref)
+        ms = host_ms(lambda: call(model, xb), iters=3)
     ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
     log(f"    logits rel L2 vs plain bf16 {e_plain:.4e} (bound {SIMPLE_LOGITS_VS_PLAIN}), vs fp32 {e_fp32:.4e} (bound "
         f"{SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 {floor:.4e}) {'ok' if ok else 'FAILED'}; {ms:.3f} ms a batch "
         f"(host clock)")
     if not ok:
         fail(f"{name} served outputs disagree with the plain path or fp32")
-    del model, fp32
-    return counts, sites
+    del model
+    return counts, sites, ms
+
+
+def serve_zoo2(fb, fa, name, dev, gen):
+    """Serve one batch of ``name`` at its phase-50 configuration
+    (:func:`serve_batch`)."""
+    _, _, _, shape, bs, _ = ZOO2[name]
+    fp32 = zoo2_model(name, dev, torch.float32).eval()
+    x = torch.randn(bs, *shape, generator=gen, device=dev)
+    token = torch.randn(1, fp32.dim, generator=gen, device=dev) if name == "distillable_vit" else None
+    return serve_batch(fb, fa, name, fp32, x, ZOO2_SERVED[name], lambda model, x: zoo2_call(name, model, x, token))
 
 
 # CCT's sequence pool: its bias's gradient is exactly zero (the softmax over
@@ -7764,6 +7900,308 @@ def time_zoo2(fb, fa, dev, gen, smi):
         per_kernel.update(chain_entry_times(
             fb, lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev) * scale).to(torch.bfloat16), label, b,
             n, dim, heads, mlp, backward=False))
+    for name, t in per_kernel.items():
+        bound, by = bound_ms(t["work"])
+        log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+            + ("" if t["library_ms"] is None else f", library call {t['library_ms']:.4f} ms"))
+    sync()
+    return per_kernel, errs
+
+
+# -- ROADMAP item 9's family 3, the ten models without per-head bias tables
+# (phases 53-54): each served one batch at bs=64 at the width of its upstream
+# README example (bf16, random weights from SEED) with exact launch counters,
+# logits against the plain bf16 path and fp32 and its host time; CrossViT,
+# PiT, XCiT, MobileViT and CvT trained 3 AdamW steps at bs=32 through
+# make_train_step with a generator seeded alike on every path: exact
+# counters, the first step's loss and gradients against the plain path with
+# the same masks, the BatchNorms' running statistics after the steps against
+# the plain path's, ms/step and peak memory; then the new kernel shapes
+# against their twins, timed.
+#   - CrossViT: the README's 256^2, depth 4; the small branch 192 wide, patch
+#     16 (257 tokens: the composite), 2 layers; the large branch 384 wide,
+#     patch 64 (17 tokens, inner 512: the whole layer served, the attention
+#     block at dropout 0.1 trained), 3 layers; cross-attention depth 2;
+#   - PiT: 224^2, patch 14 at stride 7, dim 256 doubling, depth (3, 3, 3),
+#     16 heads: 962, 257 and 65 tokens, the last stage (dim 1024) on the
+#     kernels;
+#   - XCiT (depth 12, cls_depth 2, layer dropout 0.05), LocalViT, the
+#     small-dataset ViT, RvT: config 1's widths and the README's patches;
+#     NesT (224^2, patch 4, dim 96, heads 3, 3 levels, block repeats 2, 2,
+#     8), MobileViT-XS, CvT and Twins-SVT at their constructors' defaults at
+#     224^2: every attention on the composite (windows, dim_head != 64,
+#     n > 208, a traced scale and a mask), as the JAX package routes them.
+ZOO3_BS, ZOO3_TRAIN_BS, ZOO3_STEPS = 64, 32, 3
+ZOO3_VIT = dict(num_classes=1000, dim=1024, depth=6, heads=16, mlp_dim=2048, dropout=RATE, emb_dropout=RATE)
+ZOO3_CROSS = dict(image_size=256, num_classes=1000, depth=4, sm_dim=192, sm_patch_size=16, sm_enc_depth=2,
+                  sm_enc_heads=8, sm_enc_mlp_dim=2048, lg_dim=384, lg_patch_size=64, lg_enc_depth=3, lg_enc_heads=8,
+                  lg_enc_mlp_dim=2048, cross_attn_depth=2, cross_attn_heads=8, dropout=RATE, emb_dropout=RATE)
+ZOO3_PIT = dict(image_size=224, patch_size=14, dim=256, num_classes=1000, depth=(3, 3, 3), heads=16, mlp_dim=2048,
+                dropout=RATE, emb_dropout=RATE)
+ZOO3_XCIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=12, cls_depth=2, heads=16,
+                 mlp_dim=2048, dropout=RATE, emb_dropout=RATE, layer_dropout=0.05)
+ZOO3_NEST = dict(image_size=224, patch_size=4, dim=96, heads=3, num_hierarchies=3, block_repeats=(2, 2, 8),
+                 num_classes=1000)
+ZOO3_MOBILE = dict(image_size=(256, 256), dims=(96, 120, 144),
+                   channels=(16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384), num_classes=1000)
+# name: (module, class, constructor, input shape past the batch)
+ZOO3 = {
+    "cross_vit": ("cross_vit", "CrossViT", ZOO3_CROSS, (3, 256, 256)),
+    "pit": ("pit", "PiT", ZOO3_PIT, (3, 224, 224)),
+    "xcit": ("xcit", "XCiT", ZOO3_XCIT, (3, 256, 256)),
+    "local_vit": ("local_vit", "LocalViT", {**ZOO3_VIT, "image_size": 256, "patch_size": 16}, (3, 256, 256)),
+    "vit_for_small_dataset": ("vit_for_small_dataset", "ViT", {**ZOO3_VIT, "image_size": 256, "patch_size": 16},
+                              (3, 256, 256)),
+    "rvt": ("rvt", "RvT", {**ZOO3_VIT, "image_size": 256, "patch_size": 32}, (3, 256, 256)),
+    "nest": ("nest", "NesT", ZOO3_NEST, (3, 224, 224)),
+    "mobile_vit": ("mobile_vit", "MobileViT", ZOO3_MOBILE, (3, 256, 256)),
+    "cvt": ("cvt", "CvT", dict(num_classes=1000), (3, 224, 224)),
+    "twins_svt": ("twins_svt", "TwinsSVT", dict(num_classes=1000), (3, 224, 224)),
+}
+ZOO3_TRAINED = ("cross_vit", "pit", "xcit", "mobile_vit", "cvt")
+# the launches predicted for one served batch (PERF.md, §6): CrossViT's large
+# branch 4 rounds x 3 layers and PiT's third stage 3 layers on the whole
+# layer, nothing else
+ZOO3_SERVED = {name: {} for name in ZOO3}
+ZOO3_SERVED.update(cross_vit=per_layer(LAUNCHES_PER_LAYER, 4 * 3), pit=per_layer(LAUNCHES_PER_LAYER, 3))
+# ... and for ZOO3_STEPS training steps: the same layers' attention blocks at dropout 0.1
+ZOO3_TRAIN = {name: {} for name in ZOO3_TRAINED}
+ZOO3_TRAIN.update(cross_vit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 4 * 3, ZOO3_STEPS),
+                  pit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 3, ZOO3_STEPS))
+# the new kernel shapes: (label, model, b, n, dim, heads, mlp) served and trained
+ZOO3_SHAPES = (("CrossViT large", "cross_vit", 17, 384, 8, 2048), ("PiT stage 3", "pit", 65, 1024, 16, 2048))
+ZOO3_DROPOUT_KERNELS = ("attention_rows[dropout]", "gemm_bf16[block_out]", "dropout_apply",
+                        "attention_bwd_rows[dropout]", "gemm_f32out", "layernorm_bwd_rows")
+
+
+# A model that launches no kernel (XCiT, MobileViT, CvT) is also held to
+# fp32: its first-step loss within SIMPLE_TRAIN_VS_FP32, and its gradients
+# all together within the larger of SIMPLE_TRAIN_VS_FP32's "grads" share and
+# ZOO3_NOISE_RATIO x the bf16 path's own distance from itself on a batch
+# with ZOO3_INPUT_NOISE relative noise (the bf16 noise floor, measured in
+# the same run).  No single parameter is held: a train-mode BatchNorm takes
+# out a per-channel shift or scale before it, so XCiT's local-patch
+# BatchNorm biases, MobileViT's block-closing BatchNorm biases and CvT's
+# ChanLayerNorm gains have fp32 gradients of norm 1e-10 to 2e-6 where bf16
+# reads its rounding noise, and MobileViT's gradients read 1.25e-1 from
+# fp32 all together, 1.96e-1 from themselves on the noisy batch (NVIDIA H100
+# 80GB HBM3, 700.00 W).  The worst parameter, and those over
+# SIMPLE_TRAIN_VS_FP32's "worst" share, are logged.
+ZOO3_NOISE_RATIO, ZOO3_INPUT_NOISE = 1.5, 1e-2
+
+
+def check_vs_fp32_witness(what, names, grads, fp32_grads, noisy_grads, loss, fp32_loss):
+    """The first step of a bf16 model against fp32 (``grads``,
+    ``fp32_grads``), the gradients' bound the larger of a share of fp32's
+    norm and the bf16 path's distance from itself on a noisy batch
+    (``noisy_grads``): see ZOO3_NOISE_RATIO."""
+    d_loss = abs(loss - fp32_loss) / abs(fp32_loss)
+    norm = lambda seq: math.sqrt(sum(t.norm().item() ** 2 for t in seq))
+    total = grads_rel_l2(grads, fp32_grads)
+    floor = norm([a - b for a, b in zip(noisy_grads, grads)]) / norm(fp32_grads)  # on fp32's scale, as total
+    bound = max(SIMPLE_TRAIN_VS_FP32["grads"], ZOO3_NOISE_RATIO * floor)
+    per = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(grads, fp32_grads)]
+    worst = max(range(len(per)), key=per.__getitem__)
+    over = [names[i] for i, v in enumerate(per) if v > SIMPLE_TRAIN_VS_FP32["worst"]]
+    ok = (d_loss <= SIMPLE_TRAIN_VS_FP32["loss"] and total <= bound
+          and all(bool(torch.isfinite(a).all()) for a in grads))
+    log(f"  {what}: loss {loss:.6f} vs {fp32_loss:.6f} (rel {d_loss:.3e}, bound {SIMPLE_TRAIN_VS_FP32['loss']}); "
+        f"grads rel L2 {total:.4e} (bound {bound:.4e}: the larger of {SIMPLE_TRAIN_VS_FP32['grads']} and "
+        f"{ZOO3_NOISE_RATIO} x {floor:.4e}, the bf16 step's distance from itself on the {ZOO3_INPUT_NOISE}-noisy "
+        f"batch); worst {names[worst]} {per[worst]:.4e} (fp32 norm {fp32_grads[worst].norm().item():.4e}); "
+        f"{len(over)} of {len(per)} parameters over {SIMPLE_TRAIN_VS_FP32['worst']} of their fp32 norm, not held "
+        f"{'ok' if ok else 'FAILED'}")
+    log(f"    over it: {over}")
+    if not ok:
+        fail(f"training: {what} out of bounds")
+
+
+def zoo3_model(name, dev, dtype, **kw):
+    """One model at its phase-53 configuration (``kw`` overriding it),
+    random weights from SEED, initialised in f32 and cast as the JAX benches
+    cast their params."""
+    import importlib
+
+    module, cls, cfg, _ = ZOO3[name]
+    model_cls = getattr(importlib.import_module(f"vit_pytorch_tpu_torch.models.{module}"), cls)
+    return model_cls(**{**cfg, **kw}, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def serve_zoo3(fb, fa, name, dev, gen):
+    """Serve one batch of ``name`` at ZOO3_BS (:func:`serve_batch`)."""
+    fp32 = zoo3_model(name, dev, torch.float32).eval()
+    x = torch.randn(ZOO3_BS, *ZOO3[name][3], generator=gen, device=dev)
+    return serve_batch(fb, fa, name, fp32, x, ZOO3_SERVED[name])
+
+
+def train_zoo3(fb, fa, name, dev, gen):
+    """ZOO3_STEPS AdamW steps through make_train_step on one batch at
+    ZOO3_TRAIN_BS, each with a generator seeded alike, on the kernel path,
+    then on the plain path from the same initial weights (one step, or all
+    of them for a model with BatchNorms): loss finite and falling, exact
+    launch counters (none on the plain path), the first step's loss and
+    gradients against the plain path, the BatchNorms' running statistics
+    after the steps against the plain path's, ms/step (steps 2 to
+    ZOO3_STEPS, host clock) and peak memory.  A model that launches no
+    kernel runs the same code on both paths, so it is also trained from an
+    fp32 copy of its initial weights, both at dropout 0 (torch's dropout
+    masks depend on the dtype): the first step's gradients and the
+    BatchNorms' statistics after the steps against fp32.  Returns the
+    launch counts of the kernel path's steps."""
+    import functools
+
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    shape = ZOO3[name][3]
+    images = torch.randn(ZOO3_TRAIN_BS, *shape, generator=gen, device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (ZOO3_TRAIN_BS,), generator=gen, device=dev)
+    adamw = functools.partial(torch.optim.AdamW, lr=3e-4)
+
+    def run(model, steps, images=images):
+        state, step = create_train_state(model, adamw), make_train_step(model)
+        reset_all(fb, fa)
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, grads = [], None
+        for i in range(steps):
+            losses.append(step(state, images, labels, torch.Generator(device=dev).manual_seed(SEED + i))["loss"].item())
+            if i == 0:  # a layer that layer dropout skipped has no gradient: zeros
+                grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.detach().float().clone()
+                         for p in model.parameters()]
+                t0 = time.perf_counter()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1) if steps > 1 else None
+        return losses, grads, ms, torch.cuda.max_memory_allocated(dev) / 2**30, dict(all_launches(fb, fa))
+
+    model = zoo3_model(name, dev, torch.bfloat16)
+    names = [n for n, _ in model.named_parameters()]
+    batch_norms = any("running" in n for n, _ in model.named_buffers())
+    plain = copy.deepcopy(model)
+    losses, grads, ms, peak, counts = run(model, ZOO3_STEPS)
+    what = f"{name} at bs={ZOO3_TRAIN_BS}"
+    log(f"  {what}: losses {[f'{v:.6f}' for v in losses]}, {ms:.3f} ms/step (steps 2-{ZOO3_STEPS}, host clock), peak "
+        f"memory {peak:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: the loss is not finite or does not fall on the repeated batch")
+    got = {k: v for k, v in counts.items() if v}
+    log(f"    launches {got} (expected {ZOO3_TRAIN[name]})")
+    if counts != {k: ZOO3_TRAIN[name].get(k, 0) for k in counts}:
+        fail(f"{name} training: the launch counters are not the expected ones")
+    # the plain path: the first step, and all of them where BatchNorms keep statistics
+    with plain_layers(), plain_attention():
+        plain_losses, plain_grads, plain_ms, plain_peak, plain_counts = run(plain, ZOO3_STEPS if batch_norms else 1)
+    if any(plain_counts.values()):
+        fail(f"{what}: the plain path launched kernels: {plain_counts}")
+    log(f"    plain path: losses {[f'{v:.6f}' for v in plain_losses]}"
+        + ("" if plain_ms is None else f", {plain_ms:.3f} ms/step") + f", peak memory {plain_peak:.2f} GiB")
+    compare_grads(f"{what} first step vs plain bf16 (the same masks)", grads, plain_grads, losses[0],
+                  plain_losses[0], SIMPLE_TRAIN_VS_PLAIN, names)
+    def check_stats(model, ref, against, bound):
+        stats = bn_stats(model)
+        e = rel_l2(stats, bn_stats(ref))
+        ok = e <= bound and bool(torch.isfinite(stats).all())
+        log(f"    BatchNorm running statistics after {ZOO3_STEPS} steps ({stats.numel()} values) vs {against}: "
+            f"rel L2 {e:.4e} (bound {bound}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{what}: the BatchNorm statistics disagree with {against}")
+
+    if batch_norms:
+        check_stats(model, plain, "the plain path's", SIMPLE_TRAIN_VS_PLAIN["grads"])
+    if not ZOO3_TRAIN[name]:
+        no_dropout = {k: 0.0 for k in ("dropout", "emb_dropout") if k in ZOO3[name][2]}
+        fp32 = zoo3_model(name, dev, torch.float32, **no_dropout)
+        model, noisy = copy.deepcopy(fp32).to(torch.bfloat16), copy.deepcopy(fp32).to(torch.bfloat16)
+        noisy_images = (images.float() * (1 + ZOO3_INPUT_NOISE * torch.randn(images.shape, generator=gen, device=dev))
+                        ).to(torch.bfloat16)
+        losses, grads, *_ = run(model, ZOO3_STEPS)
+        fp32_losses, fp32_grads, *_ = run(fp32, ZOO3_STEPS, images.float())
+        _, noisy_grads, *_ = run(noisy, 1, noisy_images)
+        check_vs_fp32_witness(f"{what} first step vs fp32 (dropout 0)", names, grads, fp32_grads, noisy_grads,
+                              losses[0], fp32_losses[0])
+        if batch_norms:
+            check_stats(model, fp32, "fp32's (dropout 0)", SIMPLE_TRAIN_VS_FP32["grads"])
+        del fp32, noisy
+    del model, plain
+    return counts
+
+
+def check_zoo3(fb, fa, dev, gen):
+    """Phase 53: the ten models served, five trained.  Returns the serving
+    counts (with the gemm sites and ms) and the training counts by model."""
+    log(f"[53 CrossViT, PiT, XCiT, LocalViT, small-dataset ViT, RvT, NesT, MobileViT, CvT, Twins-SVT served] bf16, "
+        f"random weights (seed {SEED}), bs={ZOO3_BS}; CrossViT {ZOO3_CROSS}; PiT {ZOO3_PIT}; XCiT {ZOO3_XCIT}; "
+        f"LocalViT and the small-dataset ViT (patch 16) and RvT (patch 32) at 256^2, {ZOO3_VIT}; NesT {ZOO3_NEST}; "
+        f"MobileViT-XS {ZOO3_MOBILE}; CvT and Twins-SVT at their defaults at 224^2")
+    served = {name: serve_zoo3(fb, fa, name, dev, gen) for name in ZOO3}
+    log(f"  [53 training] {ZOO3_STEPS} AdamW(3e-4) steps at bs={ZOO3_TRAIN_BS} through make_train_step: "
+        f"{ZOO3_TRAINED}")
+    trained = {name: train_zoo3(fb, fa, name, dev, gen) for name in ZOO3_TRAINED}
+    return served, trained
+
+
+def check_dropout_shape(fb, rnd, label, b, n, dim, heads, mlp):
+    """The attention-block route's kernels at dropout RATE at one shape
+    against their twins: attention_rows[dropout] and gemm_bf16[block_out]
+    (phase 9's bounds), dropout_apply bitwise, attention_bwd_rows[dropout],
+    gemm_f32out and layernorm_bwd_rows (phase 6's).  Returns {f"{kernel} @
+    {label}": max_abs}."""
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5, dropout_rate=RATE, seed=DROP_SEED)
+    w, b_out = chain_weights(rnd, dim, heads, mlp)
+    x, g = rnd(b, n, dim), rnd(b, n, dim)
+    okw = dict(bias=b_out, residual=x, dropout_rate=RATE, seed=DROP_SEED, heads=heads)
+    tag, errs = f"[{label}]", {}
+    with torch.inference_mode():
+        h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
+        qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv")
+        m = fb.attention_rows(qkv, **akw)
+        errs["attention_rows[dropout]"] = compare(f"attention_rows[dropout] {tag}", m,
+                                                  fb.attention_rows_reference(qkv, **akw), ATTN_ATOL, ATTN_RTOL)
+        errs["gemm_bf16[block_out]"] = compare(
+            f"gemm_bf16[block_out] {tag}", fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+            fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw), KERNEL_ATOL, KERNEL_RTOL, BLOCK_OUT_REL_L2)
+        gm = fb.dropout_apply(g, DROP_SEED, heads=heads, rate=RATE)
+        same = torch.equal(gm, fb.out_dropout_bwd_reference(g, DROP_SEED, heads=heads, rate=RATE))
+        log(f"  dropout_apply {tag} bitwise equal to the twin: {same} {'ok' if same else 'FAILED'}")
+        if not same:
+            fail(f"dropout_apply {tag} disagrees with its twin")
+        errs["dropout_apply"] = 0.0
+        w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+        dm = fb.gemm_bf16(gm, w_out_t, "cast")
+        errs["attention_bwd_rows[dropout]"] = check_attention_bwd(fb, "attention_bwd_rows[dropout]", qkv, dm, akw,
+                                                                  label)
+        _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+        dh = fb.gemm_f32out(dqkv, w_qkv_t)
+        errs["gemm_f32out"] = compare(f"gemm_f32out [dh] {tag}", dh, fb.gemm_f32out_reference(dqkv, w_qkv_t), None,
+                                      F32_RTOL, F32_REL_L2, atol_frac=F32_ATOL_FRAC)
+        got = fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=g)
+        want = fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=g)
+        errs["layernorm_bwd_rows"] = max(
+            compare(f"layernorm_bwd_rows dx {tag}", got[0], want[0], KERNEL_ATOL, KERNEL_RTOL),
+            compare(f"layernorm_bwd_rows dgamma {tag}", got[1], want[1], None, F32_RTOL, F32_REL_L2,
+                    atol_frac=F32_ATOL_FRAC),
+            compare(f"layernorm_bwd_rows dbeta {tag}", got[2], want[2], None, F32_RTOL, F32_REL_L2,
+                    atol_frac=F32_ATOL_FRAC))
+    sync()
+    return {f"{k} @ {label}": v for k, v in errs.items()}
+
+
+def time_zoo3(fb, dev, smi):
+    """Phase 54: the chain at CrossViT's large branch (b=64 n=17, dim 384, 8
+    heads: inner 512, mlp 2048) and at PiT's third stage (b=64 n=65, dim
+    1024, 16 heads, mlp 2048), forward and backward against the twins and
+    the forward's launches by device time (served), and the attention
+    block's dropout kernels at bs=32 (trained) against the twins and by
+    device time; returns the records and the errors."""
+    log(f"[54 the new kernel shapes] {smi}")
+    rn = torch.Generator(device=dev).manual_seed(SEED + 54)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev) * scale).to(torch.bfloat16)
+    per_kernel, errs = {}, {}
+    for label, _, n, dim, heads, mlp in ZOO3_SHAPES:
+        for kernel, e in check_chain_shape(fb, rnd, label, ZOO3_BS, n, dim, heads, mlp).items():
+            if kernel in CHAIN_FWD:
+                errs[f"{kernel} @ {label}"] = e
+        errs.update(check_dropout_shape(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp))
+        per_kernel.update(chain_entry_times(fb, rnd, label, ZOO3_BS, n, dim, heads, mlp, backward=False))
+        per_kernel.update(chain_entry_times(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp, dropout_rate=RATE))
     for name, t in per_kernel.items():
         bound, by = bound_ms(t["work"])
         log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
@@ -8187,6 +8625,16 @@ def main():
     errs.update(zoo2_errs)
     phase_done("phase 52")
 
+    # -- 53. item 9's family 3: ten models served, five trained -----------------------------------------------
+    zoo3_served, zoo3_trained = check_zoo3(fb, fa, dev, gen)
+    phase_done("phase 53")
+
+    # -- 54. their new kernel shapes against the twins, timed ---------------------------------------------------
+    zoo3_times, zoo3_errs = time_zoo3(fb, dev, smi)
+    per_kernel.update(zoo3_times)
+    errs.update(zoo3_errs)
+    phase_done("phase 54")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -8279,6 +8727,14 @@ def main():
         + [entry(f"{name} @ {label}", SOURCE, TPU_KERNEL, f"{label} serving",
                  {**zoo2_served[key][0], **zoo2_served[key][1]}[name])
            for label, key in (("T2T trunk", "t2t"), ("ViT-1D", "vit_1d")) for name in CHAIN_FWD]
+        + [entry(f"{name} @ {label}", SOURCE, TPU_KERNEL, f"{key} serving (phase 53)",
+                 {**zoo3_served[key][0], **zoo3_served[key][1]}[name])
+           for label, key, *_ in ZOO3_SHAPES for name in CHAIN_FWD]
+        + [entry(f"{name} @ {label}", {"dropout_apply": DROPOUT_SOURCE, "attention_bwd_rows[dropout]": ATTN_BWD_SOURCE,
+                                       "layernorm_bwd_rows": BWD_SOURCE}.get(name, SOURCE),
+                 TPU_BLOCK_KERNEL if name in ("attention_rows[dropout]", "gemm_bf16[block_out]") else TPU_BWD_KERNEL,
+                 f"{key} training at dropout {RATE} (phase 53)", zoo3_trained[key][name])
+           for label, key, *_ in ZOO3_SHAPES for name in ZOO3_DROPOUT_KERNELS]
     )
     for k in kernels:
         if not k["launches"]:
@@ -8338,7 +8794,12 @@ def main():
         "at 8 x 6 x 1,568, rate 0.1, launches from CCT-3D's 3 training steps in phase 51, library_ms SDPA with "
         "dropout_p and the flash-attention backward at dropout_p 0.1; the chain's forward '@ T2T trunk' (b=64 "
         "n=197, dim 512, 8 heads, mlp 512) and '@ ViT-1D' (b=64 n=17, dim 1024, 8 heads, mlp 2048), launches from "
-        "one served batch, errors from phase 52)")
+        "one served batch, errors from phase 52; the chain's forward '@ CrossViT large' (b=64 n=17, dim 384, 8 "
+        "heads: inner 512, mlp 2048) and '@ PiT stage 3' (b=64 n=65, dim 1024, 16 heads, mlp 2048), launches from "
+        "one served batch of CrossViT and PiT in phase 53, errors from phase 54; the attention block's dropout "
+        "kernels and the backward's gemm_f32out and layernorm_bwd_rows at the same shapes at bs=32, rate 0.1, "
+        "launches from the model's 3 training steps in phase 53, library_ms SDPA with dropout_p and "
+        "native_layer_norm_backward, errors from phase 54)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

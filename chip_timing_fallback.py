@@ -1,9 +1,8 @@
 """Holds chip_smoke.py's two device timers against each other on the card.
 
 ``chip_smoke.device_ms`` sums the device time of a call's kernels under
-``torch.profiler``; when CUPTI delivers no device records it falls back to
-``chip_smoke.queued_event_ms``, CUDA events around calls queued behind a spin
-kernel.  This script times three library calls at ViViT's spatial chain shape
+``torch.profiler``; ``chip_smoke.queued_event_ms`` reads CUDA events around
+calls queued behind a spin kernel.  This script times three library calls at ViViT's spatial chain shape
 (128 x 65 rows, dim 1024, 8 heads of 64) with both and prints their ratio.
 
     python3 chip_timing_fallback.py

@@ -1,9 +1,11 @@
 """Shared helpers of the port's model tests against the JAX package
 (tests/test_torch_vit_nd_family.py, test_torch_family2.py,
-test_torch_distill.py): parameters drawn with numpy at the JAX init's shapes
-(``jax.eval_shape``, so that the zero-initialised parts act), the JAX
-model's logits and gradients of the mean cross-entropy, and the comparison
-of a port model loaded through its ``utils/from_jax.py`` map.
+test_torch_distill.py, test_torch_cross_pit_xcit.py,
+test_torch_local_conv_family.py): parameters drawn with numpy at the JAX
+init's shapes (``jax.eval_shape``, so that the zero-initialised parts act),
+BatchNorm statistics moved off their init values, the JAX model's logits
+and gradients of the mean cross-entropy, and the comparison of a port model
+loaded through its ``utils/from_jax.py`` map.
 
 Tolerances: logits within 5e-5 absolute (the JAX package's fp32 parity bar)
 and 1e-4 relative; gradients within 5e-5 + 1e-3 relative."""
@@ -93,13 +95,18 @@ def check_model(jmodel, params, model, to_torch, x, y, *, jax_call=None, port_ca
         np.testing.assert_allclose(p.grad.numpy(), want_grads[k].numpy(), atol=ATOL, rtol=GRAD_RTOL, err_msg=k)
 
 
-def assert_round_trip(convert, model, params, **kw):
+def assert_round_trip(convert, model, params, stats=None, **kw):
     """The JAX converter of the reference layout maps the port's
-    state_dict back onto the very params it was loaded from."""
-    got = jax.tree.map(np.asarray, convert(model.state_dict(), **kw)["params"])
-    assert jax.tree.structure(got) == jax.tree.structure(params)
-    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(params)):
-        assert np.array_equal(a, b)
+    state_dict back onto the very params (and ``batch_stats``) it was
+    loaded from."""
+    converted = convert(model.state_dict(), **kw)
+    for col, want in (("params", params), ("batch_stats", stats)):
+        if want is None:
+            continue
+        got = jax.tree.map(np.asarray, converted[col])
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert np.array_equal(a, b)
 
 
 def force_layer_routes(monkeypatch):
@@ -164,3 +171,58 @@ def force_attention_routes(monkeypatch):
     monkeypatch.setattr(attention, "short_attention", spy_short)
     monkeypatch.setattr(attention, "flash_attention", spy_flash)
     return calls
+
+
+def setup_model(jax_cls, port_cls, cfg, to_torch, shape, *, batch=2, batch_norm=False):
+    """A JAX model of ``cfg``, its params drawn at the init's shapes (and
+    moved BatchNorm statistics), the port's model loaded from them through
+    ``to_torch``, and a numpy input of ``shape`` past the batch."""
+    jmodel = jax_cls(**cfg)
+    x = inputs((batch, *shape))
+    params = draw_params(jmodel, jnp.asarray(x))
+    stats = moved_stats(jmodel, jnp.asarray(x)) if batch_norm else None
+    model = load(port_cls(**cfg, device="cpu"), to_torch(params) if stats is None else to_torch(params, stats))
+    return jmodel, params, stats, model, x
+
+
+def moved_stats(jmodel, *args, seed=2, **kwargs):
+    """The JAX model's ``batch_stats`` at the init's shapes, moved off their
+    init values (mean 0, var 1): means 0.1 N(0, 1), variances U(0.5, 1.5)."""
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), *args, **kwargs))["batch_stats"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        v = rng.uniform(0.5, 1.5, leaf.shape) if path[-1].key == "var" else 0.1 * rng.standard_normal(leaf.shape)
+        return np.asarray(v, np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def stats_call(jmodel, stats):
+    """``check_model``'s ``jax_call`` for a model with BatchNorms: the given
+    statistics, updated (and dropped) in training as flax's ``mutable``."""
+
+    def call(params, x, train):
+        variables = {"params": params, "batch_stats": stats}
+        return jmodel.apply(variables, x, train=True, mutable=["batch_stats"])[0] if train else jmodel.apply(variables, x)
+
+    return call
+
+
+def check_batch_stats(jmodel, params, stats, model, to_torch, x):
+    """One training-mode forward on both sides: every running mean and
+    variance of the port's BatchNorms against JAX's updated
+    ``batch_stats`` (flax momentum 0.9, the biased f32 variance), each moved
+    off the loaded one.  Returns the number of statistics compared."""
+    _, updates = jax.jit(lambda p: jmodel.apply({"params": p, "batch_stats": stats}, jnp.asarray(x), train=True,
+                                                mutable=["batch_stats"]))(params)
+    want = to_torch(params, jax.tree.map(np.asarray, updates["batch_stats"]))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        model.train()(torch.from_numpy(x))
+    state = model.state_dict()
+    keys = [k for k in state if k.endswith(("running_mean", "running_var"))]
+    for k in keys:
+        assert_close(state[k], want[k], err_msg=k)
+        assert not torch.equal(state[k], before[k]), k
+    return len(keys)

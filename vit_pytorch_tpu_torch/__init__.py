@@ -29,7 +29,11 @@ Extractor, AcceptVideoWrapper); the simple-ViT family; ViT-1D, -3D and -ND
 PoPE beside it), DeepViT, CaiT, ParallelViT, T2T-ViT, CCT (2-D and 3-D) and
 the efficient-ViT shell, on the layer, flash and short kernels where their
 attention is the shared one, and the DeiT-style distillation
-(``ssl.distill``).  Models are imported by submodule path, as in the JAX
+(``ssl.distill``); CrossViT and PiT (their transformers on the layer
+kernels), XCiT, LocalViT, the small-dataset ViT, RvT, NesT, MobileViT, CvT
+and Twins-SVT (``models.cross_vit``, ``pit``, ``xcit``, ``local_vit``,
+``vit_for_small_dataset``, ``rvt``, ``nest``, ``mobile_vit``, ``cvt``,
+``twins_svt``).  Models are imported by submodule path, as in the JAX
 package.
 """
 

@@ -32,7 +32,13 @@ Dino's names with ``view_projector`` and ``region_projector``.
 The VAT family's map (``vat_family_state_dict_from_jax``) renames the JAX
 module paths into the port's, which keeps the JAX module tree;
 ``accept_video_wrapper_state_dict_from_jax`` takes the wrapped net's map.
-``tool_layer_from_jax``
+Item 9's family 3a has the inverses of ``convert_local_vit``,
+``convert_small_dataset_vit``, ``convert_pit``, ``convert_cross_vit``,
+``convert_xcit``, ``convert_rvt``, ``convert_nest``,
+``convert_mobile_vit``, ``convert_cvt`` and ``convert_twins_svt`` (XCiT's,
+MobileViT's and CvT's with their ``batch_stats``; NesT's, CvT's and
+Twins-SVT's LayerNorms the channel norms' ``g`` and ``b`` of shape (1, c,
+1, 1)).  ``tool_layer_from_jax``
 carries the weight tuples of the JAX package's layer prototypes in
 ``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
 
@@ -330,6 +336,160 @@ _CCT_TOP_LEVEL = ((r"classifier/(positional_emb|class_emb)", r"classifier.\1"),)
 # models/efficient.py: the shell; the caller's transformer's map beside it
 _EFFICIENT_MODULES = _PATCH_EMBEDDING + _LN_LINEAR_HEAD
 
+# models/local_vit.py: Residual(Attention), ExcludeCLS(Residual(ConvFeedForward))
+_LOCAL_VIT_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.fn.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.fn.to_out.0"),
+    (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.fn.fn.net.0"),
+    (r"layers_(\d+)_ff/conv_in", r"transformer.layers.\1.1.fn.fn.net.1"),
+    (r"layers_(\d+)_ff/depthwise", r"transformer.layers.\1.1.fn.fn.net.3.net.0"),
+    (r"layers_(\d+)_ff/pointwise", r"transformer.layers.\1.1.fn.fn.net.3.net.1"),
+    (r"layers_(\d+)_ff/conv_out", r"transformer.layers.\1.1.fn.fn.net.6"),
+) + _LN_LINEAR_HEAD
+# models/vit_for_small_dataset.py: SPT's to_patch_tokens, the LSA's temperature
+_SMALL_DATASET_MODULES = (
+    (r"patch_embedding/norm", "to_patch_embedding.to_patch_tokens.1"),
+    (r"patch_embedding/proj", "to_patch_embedding.to_patch_tokens.2"),
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + _LN_LINEAR_HEAD
+_SMALL_DATASET_TOP_LEVEL = _TOP_LEVEL + ((r"layers_(\d+)_attn/temperature", r"transformer.layers.\1.0.temperature"),)
+# models/cross_vit.py: the branches' embedders, transformers and heads, the cross transformers
+_CROSS_VIT_MODULES = tuple(
+    (p.replace("S", s_), v.replace("S", s_)) for s_ in ("sm", "lg") for p, v in (
+        (r"S_image_embedder/patch_embedding/norm_pre", "S_image_embedder.to_patch_embedding.1"),
+        (r"S_image_embedder/patch_embedding/proj", "S_image_embedder.to_patch_embedding.2"),
+        (r"S_image_embedder/patch_embedding/norm_post", "S_image_embedder.to_patch_embedding.3"),
+        (r"S_head_norm", "S_mlp_head.0"),
+        (r"S_mlp_head", "S_mlp_head.1"),
+    )) + tuple(
+    (rf"encoder_(\d+)_{s_}/{p}", rf"multi_scale_encoder.layers.\1.{i}.{v}")
+    for i, s_ in enumerate(("sm", "lg")) for p, v in (
+        (r"layers_(\d+)_attn/(norm|to_qkv)", r"layers.\2.0.\3"),
+        (r"layers_(\d+)_attn/to_out", r"layers.\2.0.to_out.0"),
+        (r"layers_(\d+)_ff/norm", r"layers.\2.1.net.0"),
+        (r"layers_(\d+)_ff/fc1", r"layers.\2.1.net.1"),
+        (r"layers_(\d+)_ff/fc2", r"layers.\2.1.net.4"),
+        (r"norm", "norm"),
+    )) + tuple(
+    (rf"encoder_(\d+)_cross/layers_(\d+)_{a}", rf"multi_scale_encoder.layers.\1.2.layers.\2.{i}.{t}")
+    for i, (side, attend) in enumerate((("sm", "sm_attend_lg"), ("lg", "lg_attend_sm"))) for a, t in (
+        (f"{side}_proj_in", "project_in"), (f"{side}_proj_out", "project_out"), (f"{attend}/(norm|to_q|to_kv)", r"fn.\3"),
+        (f"{attend}/to_out", "fn.to_out.0")))
+_CROSS_VIT_TOP_LEVEL = ((r"(sm|lg)_image_embedder/(cls_token|pos_embedding)", r"\1_image_embedder.\2"),)
+# models/xcit.py: LayerScale(fn) a branch, the patch layers' and the class layers'
+_XCIT_MODULES = _PATCH_EMBEDDING + (
+    (r"xca_(\d+)_attn/(norm|to_qkv)", r"xcit_transformer.layers.\1.0.fn.\2"),
+    (r"xca_(\d+)_attn/to_out", r"xcit_transformer.layers.\1.0.fn.to_out.0"),
+    (r"xca_(\d+)_lpi/norm", r"xcit_transformer.layers.\1.1.fn.net.0"),
+    (r"xca_(\d+)_lpi/conv1", r"xcit_transformer.layers.\1.1.fn.net.2"),
+    (r"xca_(\d+)_lpi/bn", r"xcit_transformer.layers.\1.1.fn.net.3"),
+    (r"xca_(\d+)_lpi/conv2", r"xcit_transformer.layers.\1.1.fn.net.5"),
+    (r"xca_(\d+)_ff/norm", r"xcit_transformer.layers.\1.2.fn.net.0"),
+    (r"xca_(\d+)_ff/fc1", r"xcit_transformer.layers.\1.2.fn.net.1"),
+    (r"xca_(\d+)_ff/fc2", r"xcit_transformer.layers.\1.2.fn.net.4"),
+    (r"cls_(\d+)_attn/(norm|to_q|to_kv)", r"cls_transformer.layers.\1.0.fn.\2"),
+    (r"cls_(\d+)_attn/to_out", r"cls_transformer.layers.\1.0.fn.to_out.0"),
+    (r"cls_(\d+)_ff/norm", r"cls_transformer.layers.\1.1.fn.net.0"),
+    (r"cls_(\d+)_ff/fc1", r"cls_transformer.layers.\1.1.fn.net.1"),
+    (r"cls_(\d+)_ff/fc2", r"cls_transformer.layers.\1.1.fn.net.4"),
+    (r"final_norm", "final_norm"),
+) + _LN_LINEAR_HEAD
+_XCIT_TOP_LEVEL = _TOP_LEVEL + (
+    (r"xca_(\d+)_attn/temperature", r"xcit_transformer.layers.\1.0.fn.temperature"),
+    (r"xca_(\d+)_attn_scale", r"xcit_transformer.layers.\1.0.scale"),
+    (r"xca_(\d+)_lpi_scale", r"xcit_transformer.layers.\1.1.scale"),
+    (r"xca_(\d+)_ff_scale", r"xcit_transformer.layers.\1.2.scale"),
+    (r"cls_(\d+)_attn_scale", r"cls_transformer.layers.\1.0.scale"),
+    (r"cls_(\d+)_ff_scale", r"cls_transformer.layers.\1.1.scale"),
+)
+# models/rvt.py: a bare Linear patch embedding, SpatialConv's depthwise pair under to_q.conv
+_RVT_MODULES = (
+    (r"patch_embedding/proj", "to_patch_embedding.1"),
+    (r"layers_(\d+)_attn/(norm|to_q|to_kv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_q/depthwise", r"transformer.layers.\1.0.to_q.conv.net.0"),
+    (r"layers_(\d+)_attn/to_q/pointwise", r"transformer.layers.\1.0.to_q.conv.net.1"),
+    (r"layers_(\d+)_attn/to_q/cls_proj", r"transformer.layers.\1.0.to_q.cls_proj"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + _LN_LINEAR_HEAD
+# models/nest.py: level l's transformer at layers.l.0, its aggregation at layers.l.1
+_NEST_MODULES = (
+    (r"patch_norm_pre", "to_patch_embedding.1"),
+    (r"patch_proj", "to_patch_embedding.2"),
+    (r"patch_norm_post", "to_patch_embedding.3"),
+    (r"level_(\d+)_transformer/layers_(\d+)_attn/(norm|to_qkv)", r"layers.\1.0.layers.\2.0.\3"),
+    (r"level_(\d+)_transformer/layers_(\d+)_attn/to_out", r"layers.\1.0.layers.\2.0.to_out.0"),
+    (r"level_(\d+)_transformer/layers_(\d+)_ff/norm", r"layers.\1.0.layers.\2.1.net.0"),
+    (r"level_(\d+)_transformer/layers_(\d+)_ff/conv1", r"layers.\1.0.layers.\2.1.net.1"),
+    (r"level_(\d+)_transformer/layers_(\d+)_ff/conv2", r"layers.\1.0.layers.\2.1.net.4"),
+    (r"level_(\d+)_aggregate_conv", r"layers.\1.1.0"),
+    (r"level_(\d+)_aggregate_norm", r"layers.\1.1.1"),
+    (r"head_norm", "mlp_head.0"),
+    (r"mlp_head", "mlp_head.2"),
+)
+_NEST_TOP_LEVEL = ((r"level_(\d+)_transformer/pos_emb", r"layers.\1.0.pos_emb"),)
+# models/mobile_vit.py: ConvBN's conv and bn at .0 and .1
+_CONV_BN = ((r"(\w+)/conv", r"\1.0"), (r"(\w+)/bn", r"\1.1"))
+
+
+def _mv2_modules(expansion: bool):
+    """An inverted-residual block's ``conv`` indices, with and without the
+    expansion."""
+    names = ("pw", "pw_bn", "dw", "dw_bn", "pw_linear", "pw_linear_bn")
+    return tuple(zip(names, (0, 1, 3, 4, 6, 7) if expansion else (None, None, 0, 1, 3, 4)))
+
+
+def _mobile_vit_modules(expansion: bool):
+    mv2 = tuple((rf"{src}/{name}", rf"{dst}.conv.{i}") for src, dst in ((r"stem_(\d+)", r"stem.\1"),
+                                                                     (r"trunk_(\d+)_mv2", r"trunk.\1.0"))
+                for name, i in _mv2_modules(expansion) if i is not None)
+    return mv2 + (
+        (r"conv1/conv", "conv1.0"),
+        (r"conv1/bn", "conv1.1"),
+        (r"trunk_(\d+)_mvit/(conv\d)/conv", r"trunk.\1.1.\2.0"),
+        (r"trunk_(\d+)_mvit/(conv\d)/bn", r"trunk.\1.1.\2.1"),
+        (r"trunk_(\d+)_mvit/transformer/layers_(\d+)_attn/(norm|to_qkv)", r"trunk.\1.1.transformer.layers.\2.0.\3"),
+        (r"trunk_(\d+)_mvit/transformer/layers_(\d+)_attn/to_out", r"trunk.\1.1.transformer.layers.\2.0.to_out.0"),
+        (r"trunk_(\d+)_mvit/transformer/layers_(\d+)_ff/norm", r"trunk.\1.1.transformer.layers.\2.1.net.0"),
+        (r"trunk_(\d+)_mvit/transformer/layers_(\d+)_ff/fc1", r"trunk.\1.1.transformer.layers.\2.1.net.1"),
+        (r"trunk_(\d+)_mvit/transformer/layers_(\d+)_ff/fc2", r"trunk.\1.1.transformer.layers.\2.1.net.4"),
+        (r"to_logits_conv/conv", "to_logits.0.0"),
+        (r"to_logits_conv/bn", "to_logits.0.1"),
+        (r"to_logits", "to_logits.2"),
+    )
+
+
+# models/cvt.py: stage s (1-based in the JAX names) at layers.{s - 1}
+_CVT_MODULES = tuple(
+    (p.replace("S", f"s{s + 1}"), v.replace("S", str(s))) for s in range(3) for p, v in (
+        (r"S_emb_conv", "layers.S.0"),
+        (r"S_emb_norm/ln", "layers.S.1"),
+        (r"S_layers_(\d+)_attn/norm/ln", r"layers.S.2.layers.\1.0.norm"),
+        (r"S_layers_(\d+)_attn/(to_q|to_kv)/depthwise", r"layers.S.2.layers.\1.0.\2.net.0"),
+        (r"S_layers_(\d+)_attn/(to_q|to_kv)/bn", r"layers.S.2.layers.\1.0.\2.net.1"),
+        (r"S_layers_(\d+)_attn/(to_q|to_kv)/pointwise", r"layers.S.2.layers.\1.0.\2.net.2"),
+        (r"S_layers_(\d+)_attn/to_out", r"layers.S.2.layers.\1.0.to_out.0"),
+        (r"S_layers_(\d+)_ff/norm/ln", r"layers.S.2.layers.\1.1.net.0"),
+        (r"S_layers_(\d+)_ff/conv1", r"layers.S.2.layers.\1.1.net.1"),
+        (r"S_layers_(\d+)_ff/conv2", r"layers.S.2.layers.\1.1.net.4"),
+    )) + ((r"to_logits", "to_logits.2"),)
+# models/twins_svt.py: stage s at layers.{s - 1}: embedding 0, transformers 1 and 3, the position generator 2
+_TWINS_LAYER = (
+    (r"local_attn/(norm|to_q|to_kv)", r"0.fn.\2"), (r"local_attn/to_out", "0.fn.to_out.0"),
+    (r"ff1/norm", "1.fn.net.0"), (r"ff1/conv1", "1.fn.net.1"), (r"ff1/conv2", "1.fn.net.4"),
+    (r"global_attn/(norm|to_q|to_kv)", r"2.fn.\2"), (r"global_attn/to_out", "2.fn.to_out.0"),
+    (r"ff2/norm", "3.fn.net.0"), (r"ff2/conv1", "3.fn.net.1"), (r"ff2/conv2", "3.fn.net.4"),
+)
+_TWINS_MODULES = tuple(
+    (p.replace("S", f"s{s + 1}"), v.replace("S", str(s))) for s in range(4) for p, v in (
+        (r"S_embed/norm_pre", "layers.S.0.proj.0"),
+        (r"S_embed/proj", "layers.S.0.proj.1"),
+        (r"S_embed/norm_post", "layers.S.0.proj.2"),
+        (r"S_peg/proj", "layers.S.2.proj.fn"),
+        *((rf"S_transformer{t}/layers_(\d+)_{p_}", rf"layers.S.{i}.layers.\1.{v_}")
+          for t, i in (("_pre", 1), ("", 3)) for p_, v_ in _TWINS_LAYER),
+    )) + ((r"head", "layers.6"),)
+
 
 def _flatten(tree: Mapping, prefix: str = ""):
     for name, value in tree.items():
@@ -357,14 +517,22 @@ def _torch_key(path: str, modules, top_level) -> str:
     raise ValueError(f"no torch key for JAX param {path!r}")
 
 
-def _state_dict(params: Mapping, modules, top_level) -> dict[str, torch.Tensor]:
+def _state_dict(params: Mapping, modules, top_level, chan_norms=None) -> dict[str, torch.Tensor]:
+    """``chan_norms``: a pattern of the JAX module paths of LayerNorms that
+    the port holds as ``models/cvt.py::ChanLayerNorm``s, whose ``scale`` and
+    ``bias`` (d,) become ``g`` and ``b`` (1, d, 1, 1)."""
     out = {}
     for path, value in _flatten(params):
         array = np.array(value)  # a writable copy torch may own
         if path.endswith("/kernel"):  # Dense (in, out), Conv (kh, kw, in, out) or (kd, kh, kw, in, out)
             axes = (array.ndim - 1, array.ndim - 2, *range(array.ndim - 2))
             array = np.ascontiguousarray(array.transpose(axes))
-        out[_torch_key(path, modules, top_level)] = torch.from_numpy(array)
+        key = _torch_key(path, modules, top_level)
+        module, _, leaf = path.rpartition("/")
+        if chan_norms is not None and leaf in ("scale", "bias") and re.fullmatch(chan_norms, module):
+            key = key.rpartition(".")[0] + (".g" if leaf == "scale" else ".b")
+            array = array.reshape(1, -1, 1, 1)
+        out[key] = torch.from_numpy(array)
     return out
 
 
@@ -672,6 +840,87 @@ def max_vit_with_registers_state_dict_from_jax(params: Mapping, batch_stats: Map
     ``batch_stats`` trees -> the port's ``state_dict``."""
     return _with_stats(params, batch_stats, _MAX_VIT_REGISTERS_MODULES,
                        ((r"block_(\d+)_register_tokens", r"register_tokens.\1"),))
+
+
+def local_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/local_vit.py::LocalViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_local_vit``)."""
+    return _state_dict(params, _LOCAL_VIT_MODULES, _TOP_LEVEL)
+
+
+def small_dataset_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_for_small_dataset.py::ViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of ``convert_small_dataset_vit``)."""
+    return _state_dict(params, _SMALL_DATASET_MODULES, _SMALL_DATASET_TOP_LEVEL)
+
+
+def pit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/pit.py::PiT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_pit``): stage s's transformer
+    at ``layers.{2s}``, its pool at ``layers.{2s + 1}``."""
+    stages = sorted(int(k.split("_")[1]) for k in params if k.startswith("stage_") and k.endswith("_transformer"))
+    modules = ((r"patch_proj", "to_patch_embedding.2"),) + _LN_LINEAR_HEAD
+    for s_ in stages:
+        modules += tuple((p.replace("transformer", f"stage_{s_}_transformer", 1),
+                          v.replace("transformer", f"layers.{2 * s_}", 1)) for p, v in _VIT_MODULES[3:9])
+        modules += ((rf"stage_{s_}_pool/downsample/depthwise", f"layers.{2 * s_ + 1}.downsample.net.0"),
+                    (rf"stage_{s_}_pool/downsample/pointwise", f"layers.{2 * s_ + 1}.downsample.net.1"),
+                    (rf"stage_{s_}_pool/cls_ff", f"layers.{2 * s_ + 1}.cls_ff"))
+    return _state_dict(params, modules, _TOP_LEVEL)
+
+
+def cross_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/cross_vit.py::CrossViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_cross_vit``, the
+    branches' fused ``to_qkv`` kept)."""
+    return _state_dict(params, _CROSS_VIT_MODULES, _CROSS_VIT_TOP_LEVEL)
+
+
+def xcit_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/xcit.py::XCiT``'s ``params`` and ``batch_stats``
+    trees -> the port's ``state_dict`` (the inverse of ``convert_xcit``, the
+    local patch interactions' running averages included)."""
+    return _with_stats(params, batch_stats, _XCIT_MODULES, _XCIT_TOP_LEVEL)
+
+
+def rvt_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/rvt.py::RvT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_rvt``)."""
+    return _state_dict(params, _RVT_MODULES, ("cls_token",))
+
+
+def nest_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/nest.py::NesT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_nest``; its LayerNorms the
+    channel norms' ``g`` and ``b``)."""
+    return _state_dict(params, _NEST_MODULES, _NEST_TOP_LEVEL, chan_norms=r".*norm(_pre|_post)?")
+
+
+def mobile_vit_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/mobile_vit.py::MobileViT``'s ``params`` and
+    ``batch_stats`` trees -> the port's ``state_dict`` (the inverse of
+    ``convert_mobile_vit``, which reads blocks with an expansion; without
+    one the depthwise pair sits at ``conv.0|1``)."""
+    modules = _mobile_vit_modules(expansion="pw" in params["stem_0"])
+    return _with_stats(params, batch_stats, modules, ())
+
+
+def cvt_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/cvt.py::CvT``'s ``params`` and ``batch_stats`` trees
+    -> the port's ``state_dict`` (the inverse of ``convert_cvt``; the
+    LayerNorms the channel norms' ``g`` and ``b``, the projections'
+    BatchNorms' running averages included)."""
+    out = _state_dict(params, _CVT_MODULES, (), chan_norms=r".*/ln")
+    if batch_stats is not None:
+        out.update(_state_dict(batch_stats, _CVT_MODULES, ()))
+    return out
+
+
+def twins_svt_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/twins_svt.py::TwinsSVT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_twins_svt``; the
+    LayerNorms the channel norms' ``g`` and ``b``)."""
+    return _state_dict(params, _TWINS_MODULES, (), chan_norms=r".*norm(_pre|_post)?")
 
 
 # ssl/vat.py, ssl/vaat.py, ssl/vat_siglip.py: the port keeps the JAX module
