@@ -7599,12 +7599,15 @@ def zoo2_call(name, model, x, token=None):
     return model(x)
 
 
-def serve_batch(fb, fa, name, fp32, x, want, call=lambda model, x: model(x)):
+def serve_batch(fb, fa, name, fp32, x, want, call=lambda model, x: model(x), classes=1000, noise_floor=False):
     """Serve one batch ``x`` (fp32) with ``fp32``'s bf16 copy through
-    ``call(model, x)``: exact launch counters ``want``, (b, 1000) finite
+    ``call(model, x)``: exact launch counters ``want``, (b, ``classes``) finite
     outputs against the plain bf16 path and ``fp32``, the host time of a
-    batch.  Returns the launch counts, the gemm_bf16 launches by site and
-    the ms."""
+    batch.  ``noise_floor``: the fp32 bound is the larger of
+    SIMPLE_LOGITS_VS_FP32 and ZOO3_NOISE_RATIO x the bf16 path's distance from
+    itself on the batch with ZOO3_INPUT_NOISE relative noise (for a model
+    whose logits move that far with its input, measured in the same run).
+    Returns the launch counts, the gemm_bf16 launches by site and the ms."""
     model = copy.deepcopy(fp32).to(torch.bfloat16).eval()
     xb = x.to(torch.bfloat16)
     with torch.inference_mode():
@@ -7614,7 +7617,7 @@ def serve_batch(fb, fa, name, fp32, x, want, call=lambda model, x: model(x)):
         log(f"  {name}: bs={x.shape[0]}, input {tuple(x.shape[1:])}")
         counts = expect_launches(fb, fa, want, f"{name} serving")
         sites = {f"gemm_bf16[{s}]": v for s, v in fb.GEMM_LAUNCHES.items() if v}
-        if out.shape != (x.shape[0], 1000) or not bool(torch.isfinite(out).all()):
+        if out.shape != (x.shape[0], classes) or not bool(torch.isfinite(out).all()):
             fail(f"{name}: outputs {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
         reset_all(fb, fa)
         with plain_layers(), plain_attention():
@@ -7624,10 +7627,18 @@ def serve_batch(fb, fa, name, fp32, x, want, call=lambda model, x: model(x)):
         if any(all_launches(fb, fa).values()):
             fail(f"{name}: the plain and fp32 paths launched kernels: {all_launches(fb, fa)}")
         e_plain, e_fp32, floor = rel_l2(out, plain), rel_l2(out, ref), rel_l2(plain, ref)
+        bound, witness = SIMPLE_LOGITS_VS_FP32, ""
+        if noise_floor:
+            noise = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(SEED + 55),
+                                device=x.device)
+            moved = rel_l2(call(model, (x * (1 + ZOO3_INPUT_NOISE * noise)).to(torch.bfloat16)), out)
+            bound = max(bound, ZOO3_NOISE_RATIO * moved)
+            witness = f": the larger of {SIMPLE_LOGITS_VS_FP32} and {ZOO3_NOISE_RATIO} x {moved:.4e}, the bf16 " \
+                      f"path's distance from itself on the {ZOO3_INPUT_NOISE}-noisy batch"
         ms = host_ms(lambda: call(model, xb), iters=3)
-    ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= SIMPLE_LOGITS_VS_FP32
+    ok = e_plain <= SIMPLE_LOGITS_VS_PLAIN and e_fp32 <= bound
     log(f"    logits rel L2 vs plain bf16 {e_plain:.4e} (bound {SIMPLE_LOGITS_VS_PLAIN}), vs fp32 {e_fp32:.4e} (bound "
-        f"{SIMPLE_LOGITS_VS_FP32}; plain bf16 vs fp32 {floor:.4e}) {'ok' if ok else 'FAILED'}; {ms:.3f} ms a batch "
+        f"{bound:.4e}{witness}; plain bf16 vs fp32 {floor:.4e}) {'ok' if ok else 'FAILED'}; {ms:.3f} ms a batch "
         f"(host clock)")
     if not ok:
         fail(f"{name} served outputs disagree with the plain path or fp32")
@@ -8034,7 +8045,7 @@ def serve_zoo3(fb, fa, name, dev, gen):
     return serve_batch(fb, fa, name, fp32, x, ZOO3_SERVED[name])
 
 
-def train_zoo3(fb, fa, name, dev, gen):
+def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices=None, lr=3e-4):
     """ZOO3_STEPS AdamW steps through make_train_step on one batch at
     ZOO3_TRAIN_BS, each with a generator seeded alike, on the kernel path,
     then on the plain path from the same initial weights (one step, or all
@@ -8047,44 +8058,52 @@ def train_zoo3(fb, fa, name, dev, gen):
     fp32 copy of its initial weights, both at dropout 0 (torch's dropout
     masks depend on the dtype): the first step's gradients and the
     BatchNorms' statistics after the steps against fp32.  Returns the
-    launch counts of the kernel path's steps."""
+    launch counts of the kernel path's steps.  ``table``, ``want`` and
+    ``make`` (ZOO3, ZOO3_TRAIN and zoo3_model by default): the phase's
+    models, their predicted launches and the function that makes one; the labels are drawn
+    below the configuration's ``num_classes``.  ``choices``: a
+    :class:`TokenChoices` around every run (ATS-ViT's); ``lr``: AdamW's
+    learning rate."""
     import functools
 
     from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
 
-    shape = ZOO3[name][3]
+    table, want, make = table or ZOO3, want or ZOO3_TRAIN, make or zoo3_model
+    shape, cfg = table[name][3], table[name][2]
     images = torch.randn(ZOO3_TRAIN_BS, *shape, generator=gen, device=dev).to(torch.bfloat16)
-    labels = torch.randint(0, 1000, (ZOO3_TRAIN_BS,), generator=gen, device=dev)
-    adamw = functools.partial(torch.optim.AdamW, lr=3e-4)
+    labels = torch.randint(0, cfg.get("num_classes", 1000), (ZOO3_TRAIN_BS,), generator=gen, device=dev)
+    adamw = functools.partial(torch.optim.AdamW, lr=lr)
 
     def run(model, steps, images=images):
         state, step = create_train_state(model, adamw), make_train_step(model)
         reset_all(fb, fa)
         torch.cuda.reset_peak_memory_stats(dev)
         losses, grads = [], None
-        for i in range(steps):
-            losses.append(step(state, images, labels, torch.Generator(device=dev).manual_seed(SEED + i))["loss"].item())
-            if i == 0:  # a layer that layer dropout skipped has no gradient: zeros
-                grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.detach().float().clone()
-                         for p in model.parameters()]
-                t0 = time.perf_counter()
-        sync()
+        with choices or contextlib.nullcontext():
+            for i in range(steps):
+                seeded = torch.Generator(device=dev).manual_seed(SEED + i)
+                losses.append(step(state, images, labels, seeded)["loss"].item())
+                if i == 0:  # a layer that layer dropout skipped has no gradient: zeros
+                    grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                             else p.grad.detach().float().clone() for p in model.parameters()]
+                    t0 = time.perf_counter()
+            sync()
         ms = (time.perf_counter() - t0) * 1e3 / (steps - 1) if steps > 1 else None
         return losses, grads, ms, torch.cuda.max_memory_allocated(dev) / 2**30, dict(all_launches(fb, fa))
 
-    model = zoo3_model(name, dev, torch.bfloat16)
+    model = make(name, dev, torch.bfloat16)
     names = [n for n, _ in model.named_parameters()]
     batch_norms = any("running" in n for n, _ in model.named_buffers())
     plain = copy.deepcopy(model)
     losses, grads, ms, peak, counts = run(model, ZOO3_STEPS)
     what = f"{name} at bs={ZOO3_TRAIN_BS}"
-    log(f"  {what}: losses {[f'{v:.6f}' for v in losses]}, {ms:.3f} ms/step (steps 2-{ZOO3_STEPS}, host clock), peak "
-        f"memory {peak:.2f} GiB")
+    log(f"  {what}: losses {[f'{v:.6f}' for v in losses]} (AdamW at {lr}), {ms:.3f} ms/step (steps 2-{ZOO3_STEPS}, "
+        f"host clock), peak memory {peak:.2f} GiB")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"{what}: the loss is not finite or does not fall on the repeated batch")
     got = {k: v for k, v in counts.items() if v}
-    log(f"    launches {got} (expected {ZOO3_TRAIN[name]})")
-    if counts != {k: ZOO3_TRAIN[name].get(k, 0) for k in counts}:
+    log(f"    launches {got} (expected {want[name]})")
+    if counts != {k: want[name].get(k, 0) for k in counts}:
         fail(f"{name} training: the launch counters are not the expected ones")
     # the plain path: the first step, and all of them where BatchNorms keep statistics
     with plain_layers(), plain_attention():
@@ -8106,9 +8125,9 @@ def train_zoo3(fb, fa, name, dev, gen):
 
     if batch_norms:
         check_stats(model, plain, "the plain path's", SIMPLE_TRAIN_VS_PLAIN["grads"])
-    if not ZOO3_TRAIN[name]:
-        no_dropout = {k: 0.0 for k in ("dropout", "emb_dropout") if k in ZOO3[name][2]}
-        fp32 = zoo3_model(name, dev, torch.float32, **no_dropout)
+    if not want[name]:
+        no_dropout = {k: 0.0 for k in ("dropout", "emb_dropout", "attn_dropout", "ff_dropout") if k in cfg}
+        fp32 = make(name, dev, torch.float32, **no_dropout)
         model, noisy = copy.deepcopy(fp32).to(torch.bfloat16), copy.deepcopy(fp32).to(torch.bfloat16)
         noisy_images = (images.float() * (1 + ZOO3_INPUT_NOISE * torch.randn(images.shape, generator=gen, device=dev))
                         ).to(torch.bfloat16)
@@ -8206,6 +8225,205 @@ def time_zoo3(fb, dev, smi):
         bound, by = bound_ms(t["work"])
         log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
             + ("" if t["library_ms"] is None else f", library call {t['library_ms']:.4f} ms"))
+    sync()
+    return per_kernel, errs
+
+
+# -- ROADMAP item 9's family 3b and family 4 (phases 55-56): each model served
+# one batch at bs=64 at the width of its upstream README example (bf16,
+# random weights from SEED) with exact launch counters, logits against the
+# plain bf16 path and fp32 and its host time; the patch-merger ViT, LeViT,
+# ATS-ViT, CrossFormer and the learnable-memory Adapter trained 3 AdamW steps
+# at bs=32 through make_train_step (train_zoo3, with a generator seeded alike
+# on every path); then the attention block's kernels at the patch-merger's
+# shape against their twins, timed.
+#   - LeViT (224^2, dims 256/384/512, depth 4, heads 4/6/8, mlp_mult 2,
+#     dropout 0.1), RegionViT (224^2, dims 64-512, depths 2/2/8/2, window
+#     7), CrossFormer (224^2, the same dims and depths, global windows
+#     8/4/2/1, local 7), ScalableViT (256^2, dim 64, depths 2/2/20/2, heads
+#     2/4/8/16, ssa_dim_key 40/40/40/32, reduction 8/4/2/1, windows 64/32,
+#     dropout 0.1) and SepViT (224^2, dim 32, dim_head 32, depths 1/2/6/2,
+#     heads 1/2/4/8, window 7, dropout 0.1): every attention on the
+#     composite (per-head biases on windows, dim_head 32 or 16, ScalableViT's
+#     4,096-token windows refused by the flash gate at dim_key 32), as the
+#     JAX package routes them;
+#   - ATS-ViT, the learnable-memory ViT and its Adapter (5 memories a layer, 2
+#     classes, the ViT frozen), LookViT: no kernel (a materialised map the
+#     sampler or the reuse reads; a mask and split projections);
+#   - the patch-merger ViT (256^2, patch 16, dim 1024, 12 layers of 8 heads,
+#     mlp 2048, merged to 8 tokens after layer 6): layers 7-12 on the
+#     attention-block kernels at n = 8 (one key chunk), served and, at
+#     dropout 0.1, trained.
+ZOO4_MEMORIES = 5
+ZOO4_LEVIT = dict(image_size=224, num_classes=1000, stages=3, dim=(256, 384, 512), depth=4, heads=(4, 6, 8),
+                  mlp_mult=2, dropout=RATE)
+ZOO4_WINDOWS = dict(dim=(64, 128, 256, 512), depth=(2, 2, 8, 2), num_classes=1000)
+ZOO4_SCALABLE = dict(num_classes=1000, dim=64, heads=(2, 4, 8, 16), depth=(2, 2, 20, 2), ssa_dim_key=(40, 40, 40, 32),
+                     reduction_factor=(8, 4, 2, 1), window_size=(64, 32, None, None), dropout=RATE)
+ZOO4_SEP = dict(num_classes=1000, dim=32, dim_head=32, heads=(1, 2, 4, 8), depth=(1, 2, 6, 2), window_size=7,
+                dropout=RATE)
+ZOO4_VIT = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, mlp_dim=2048)
+ZOO4_MERGER = dict(ZOO4_VIT, depth=12, heads=8, patch_merge_layer=6, patch_merge_num_tokens=8, dropout=RATE)
+ZOO4_MEMORY = dict(ZOO4_VIT, depth=6, heads=8, dropout=RATE, emb_dropout=RATE)
+# name: (module, class, constructor, input shape past the batch)
+ZOO4 = {
+    "levit": ("levit", "LeViT", ZOO4_LEVIT, (3, 224, 224)),
+    "regionvit": ("regionvit", "RegionViT", dict(ZOO4_WINDOWS, window_size=7), (3, 224, 224)),
+    "crossformer": ("crossformer", "CrossFormer", dict(ZOO4_WINDOWS, global_window_size=(8, 4, 2, 1),
+                                                       local_window_size=7), (3, 224, 224)),
+    "scalable_vit": ("scalable_vit", "ScalableViT", ZOO4_SCALABLE, (3, 256, 256)),
+    "sep_vit": ("sep_vit", "SepViT", ZOO4_SEP, (3, 224, 224)),
+    "ats_vit": ("ats_vit", "ViT", dict(ZOO4_VIT, depth=6, max_tokens_per_depth=(256, 128, 64, 32, 16, 8), heads=16,
+                                       dropout=RATE, emb_dropout=RATE), (3, 256, 256)),
+    "vit_with_patch_merger": ("vit_with_patch_merger", "ViT", ZOO4_MERGER, (3, 256, 256)),
+    "learnable_memory_vit": ("learnable_memory_vit", "ViT", ZOO4_MEMORY, (3, 256, 256)),
+    # the Adapter trains its memories and head on a frozen ViT, without dropout
+    "adapter": ("learnable_memory_vit", "Adapter", dict(ZOO4_MEMORY, num_classes=2, dropout=0.0, emb_dropout=0.0),
+                (3, 256, 256)),
+    "look_vit": ("look_vit", "LookViT", dict(image_size=256, patch_size=32, highres_patch_size=8, dim=1024, depth=2,
+                                             num_classes=1000), (3, 256, 256)),
+}
+ZOO4_TRAINED = ("vit_with_patch_merger", "levit", "ats_vit", "crossformer", "adapter")
+# CrossFormer's logits at init read ~14 nats (the flax init's lecun-normal
+# weights, no norm before its head; the JAX model's alike): AdamW's sign-like
+# first steps at 3e-4 overshoot, its loss rising again by the third step
+# (14.32 -> 13.91 -> 15.78 on the card, NVIDIA H100 80GB HBM3, 700.00 W); at
+# 3e-5 it falls at every step (fp32, CPU, two batches)
+ZOO4_LR = {"crossformer": 3e-5}
+# the launches predicted for one served batch (PERF.md, §6): the patch-merger's
+# layers 7-12 on the attention block, nothing else
+ZOO4_AFTER_MERGE = ZOO4_MERGER["depth"] - ZOO4_MERGER["patch_merge_layer"]
+ZOO4_SERVED = {name: {} for name in ZOO4}
+ZOO4_SERVED["vit_with_patch_merger"] = per_layer(BLOCK_FWD_LAUNCHES, ZOO4_AFTER_MERGE)
+# ... and for ZOO3_STEPS training steps: the same layers' attention blocks at dropout 0.1
+ZOO4_TRAIN = {name: {} for name in ZOO4_TRAINED}
+ZOO4_TRAIN["vit_with_patch_merger"] = per_layer(DROPOUT_LAUNCHES_PER_LAYER, ZOO4_AFTER_MERGE, ZOO3_STEPS)
+# the new kernel shape: (label, n, dim, heads, mlp), served at ZOO3_BS and trained at ZOO3_TRAIN_BS
+ZOO4_SHAPE = ("patch-merger", ZOO4_MERGER["patch_merge_num_tokens"], 1024, 8, 2048)
+ZOO4_FWD_KERNELS = ("layernorm_rows", "gemm_bf16[qkv]", "attention_rows")
+
+
+class TokenChoices:
+    """ATS-ViT's token choices, the outputs of ``models/ats_vit.py::
+    unique_sorted_with_pad``: inside the first ``with`` block they are
+    recorded in call order, inside every later one replayed in that order
+    (cyclically), so that the plain bf16 path and the fp32 copy keep the
+    tokens the kernel path kept.  The choice is an argmax (with Gumbel noise
+    in training) over scores that bf16 rounding moves: where two are near a
+    tie fp32 keeps another token and the logits part whole (phase 55 logs how
+    many images); the choice itself is held bit for bit against the JAX
+    package on the CPU (tests/test_torch_token_family.py)."""
+
+    def __init__(self):
+        self.taken = None
+
+    def __enter__(self):
+        from vit_pytorch_tpu_torch.models import ats_vit
+
+        self.module, self.orig, self.i = ats_vit, ats_vit.unique_sorted_with_pad, 0
+        if self.taken is None:
+            self.taken = []
+            ats_vit.unique_sorted_with_pad = self._record
+        else:
+            ats_vit.unique_sorted_with_pad = self._replay
+        return self
+
+    def _record(self, ids):
+        out = self.orig(ids)
+        self.taken.append(out)
+        return out
+
+    def _replay(self, ids):
+        out = self.taken[self.i % len(self.taken)]
+        self.i += 1
+        if out[0].shape != ids.shape:
+            fail(f"ATS-ViT: a replayed token choice of shape {tuple(out[0].shape)} for ids {tuple(ids.shape)}")
+        return out
+
+    def __exit__(self, *exc):
+        self.module.unique_sorted_with_pad = self.orig
+
+
+def zoo4_model(name, dev, dtype, **kw):
+    """One model at its phase-55 configuration (``kw`` overriding it),
+    random weights from SEED, initialised in f32 and cast as the JAX benches
+    cast their params; the Adapter around a ViT of ZOO4_MEMORY, frozen."""
+    import importlib
+
+    from vit_pytorch_tpu_torch.models import learnable_memory_vit
+    from vit_pytorch_tpu_torch.models.max_vit import BatchNorm
+
+    module, cls, cfg, _ = ZOO4[name]
+    cfg, gen = {**cfg, **kw}, torch.Generator(device=dev).manual_seed(SEED)
+    if name == "adapter":
+        vit = learnable_memory_vit.ViT(**{**cfg, "num_classes": ZOO4_MEMORY["num_classes"]}, device=dev,
+                                       generator=gen)
+        learnable_memory_vit.freeze_all_layers_(vit)
+        return learnable_memory_vit.Adapter(vit=vit, num_memories_per_layer=ZOO4_MEMORIES,
+                                            num_classes=cfg["num_classes"], generator=gen).to(dtype)
+    model = getattr(importlib.import_module(f"vit_pytorch_tpu_torch.models.{module}"), cls)(**cfg, device=dev,
+                                                                                             generator=gen)
+    if name == "levit":
+        # the init's zero output-BatchNorm scales (levit.py:124) zero every map
+        # after the first downsampling (its attention has no residual, the
+        # convolutions' biases start at zero): serve and train from ones
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                torch.nn.init.ones_(m.weight)
+    return model.to(dtype)
+
+
+def check_zoo4(fb, fa, dev, gen):
+    """Phases 55-56's models: the ten served (the nine models and the
+    Adapter), five trained.  Returns the serving counts (with the gemm sites
+    and ms) and the training counts by model."""
+    log(f"[55 LeViT, RegionViT, CrossFormer, ScalableViT, SepViT, ATS-ViT, patch-merger ViT, learnable-memory ViT "
+        f"and its Adapter, LookViT served] bf16, random weights (seed {SEED}), bs={ZOO3_BS}; "
+        + "; ".join(f"{name} {cfg} at {shape[-1]}^2" for name, (_, _, cfg, shape) in ZOO4.items()))
+    served = {}
+    for name in ZOO4:
+        fp32 = zoo4_model(name, dev, torch.float32).eval()
+        x = torch.randn(ZOO3_BS, *ZOO4[name][3], generator=gen, device=dev)
+        call = lambda model, x: model(x)
+        if name == "ats_vit":
+            with torch.inference_mode():
+                own = (copy.deepcopy(fp32).to(torch.bfloat16)(x.to(torch.bfloat16), True)[1], fp32(x, True)[1])
+            parted = int((own[0] != own[1]).any(-1).sum())
+            log(f"  ats_vit: {parted} of {ZOO3_BS} images keep other tokens in bf16 than in fp32 when each path "
+                f"chooses its own; the plain and fp32 paths below replay the kernel path's choices")
+            choices = TokenChoices()
+
+            def call(model, x):
+                with choices:
+                    return model(x)
+        # LeViT at these random weights moves its logits 0.39 with 1e-2 input noise (fp32, CPU)
+        served[name] = serve_batch(fb, fa, name, fp32, x, ZOO4_SERVED[name], call,
+                                   classes=ZOO4[name][2]["num_classes"], noise_floor=name == "levit")
+        del fp32
+    log(f"[56 training] {ZOO3_STEPS} AdamW(3e-4, CrossFormer 3e-5) steps at bs={ZOO3_TRAIN_BS} through "
+        f"make_train_step: {ZOO4_TRAINED} (ATS-ViT sampling, the Adapter's ViT frozen)")
+    trained = {name: train_zoo3(fb, fa, name, dev, gen, table=ZOO4, want=ZOO4_TRAIN, make=zoo4_model,
+                                choices=TokenChoices() if name == "ats_vit" else None, lr=ZOO4_LR.get(name, 3e-4))
+               for name in ZOO4_TRAINED}
+    return served, trained
+
+
+def time_zoo4(fb, dev, smi):
+    """Phase 56's kernels: the chain at the patch-merger's merged shape (b=64
+    n=8, dim 1024, 8 heads: inner 512, mlp 2048), forward and backward
+    against the twins and the block's forward launches by device time
+    (served), and the attention block's dropout kernels at bs=32 (trained)
+    against the twins and by device time; returns the records and the
+    errors."""
+    log(f"[56 the patch-merger's kernel shape] {smi}")
+    rn = torch.Generator(device=dev).manual_seed(SEED + 56)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev) * scale).to(torch.bfloat16)
+    label, n, dim, heads, mlp = ZOO4_SHAPE
+    errs = {f"{k} @ {label}": e for k, e in check_chain_shape(fb, rnd, label, ZOO3_BS, n, dim, heads, mlp).items()
+            if k in ZOO4_FWD_KERNELS}
+    errs.update(check_dropout_shape(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp))
+    per_kernel = chain_entry_times(fb, rnd, label, ZOO3_BS, n, dim, heads, mlp, backward=False)
+    per_kernel.update(chain_entry_times(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp, dropout_rate=RATE))
     sync()
     return per_kernel, errs
 
@@ -8635,6 +8853,13 @@ def main():
     errs.update(zoo3_errs)
     phase_done("phase 54")
 
+    # -- 55-56. item 9's families 3b and 4: ten models served, five trained; the patch-merger's kernel shape ----
+    zoo4_served, zoo4_trained = check_zoo4(fb, fa, dev, gen)
+    zoo4_times, zoo4_errs = time_zoo4(fb, dev, smi)
+    per_kernel.update(zoo4_times)
+    errs.update(zoo4_errs)
+    phase_done("phases 55-56")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -8735,6 +8960,16 @@ def main():
                  TPU_BLOCK_KERNEL if name in ("attention_rows[dropout]", "gemm_bf16[block_out]") else TPU_BWD_KERNEL,
                  f"{key} training at dropout {RATE} (phase 53)", zoo3_trained[key][name])
            for label, key, *_ in ZOO3_SHAPES for name in ZOO3_DROPOUT_KERNELS]
+        + [entry(f"{name} @ {ZOO4_SHAPE[0]}", SOURCE, TPU_BLOCK_KERNEL, "vit_with_patch_merger serving (phase 55)",
+                 {**zoo4_served["vit_with_patch_merger"][0], **zoo4_served["vit_with_patch_merger"][1]}[name])
+           for name in ZOO4_FWD_KERNELS]
+        + [entry(f"{name} @ {ZOO4_SHAPE[0]}", {"dropout_apply": DROPOUT_SOURCE,
+                                               "attention_bwd_rows[dropout]": ATTN_BWD_SOURCE,
+                                               "layernorm_bwd_rows": BWD_SOURCE}.get(name, SOURCE),
+                 TPU_BLOCK_KERNEL if name in ("attention_rows[dropout]", "gemm_bf16[block_out]") else TPU_BWD_KERNEL,
+                 f"vit_with_patch_merger training at dropout {RATE} (phase 56)",
+                 zoo4_trained["vit_with_patch_merger"][name])
+           for name in ZOO3_DROPOUT_KERNELS]
     )
     for k in kernels:
         if not k["launches"]:
@@ -8799,7 +9034,12 @@ def main():
         "one served batch of CrossViT and PiT in phase 53, errors from phase 54; the attention block's dropout "
         "kernels and the backward's gemm_f32out and layernorm_bwd_rows at the same shapes at bs=32, rate 0.1, "
         "launches from the model's 3 training steps in phase 53, library_ms SDPA with dropout_p and "
-        "native_layer_norm_backward, errors from phase 54)")
+        "native_layer_norm_backward, errors from phase 54; the entries '@ patch-merger': layernorm_rows, "
+        "gemm_bf16[qkv] and attention_rows at the merged shape (b=64 n=8, dim 1024, 8 heads: inner 512), launches "
+        "from one served batch of the patch-merger ViT in phase 55 (layers 7-12 on the attention block), and the "
+        "attention block's dropout kernels and the backward's gemm_f32out and layernorm_bwd_rows at bs=32, rate "
+        "0.1 (gemm_bf16[block_out] timed with a residual operand, the model adds its residual outside), launches "
+        "from its 3 training steps in phase 56, errors and times from phase 56, every call with L2 flushed)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -44,3 +44,20 @@ def test_package_imports_without_jax():
     code = "import sys, vit_pytorch_tpu_torch, vit_pytorch_tpu_torch.serving, vit_pytorch_tpu_torch.utils.from_jax; assert 'jax' not in sys.modules, 'jax imported'"
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_module_imports_without_jax():
+    """Every module of the package, found by walking it, imports in a fresh
+    interpreter without bringing in JAX, flax or the JAX package."""
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import importlib, pkgutil, sys, vit_pytorch_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vit_pytorch_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 80  # the walk found the models, ops, nn, ssl, tools, ... modules

@@ -1,7 +1,8 @@
 """Shared helpers of the port's model tests against the JAX package
 (tests/test_torch_vit_nd_family.py, test_torch_family2.py,
 test_torch_distill.py, test_torch_cross_pit_xcit.py,
-test_torch_local_conv_family.py): parameters drawn with numpy at the JAX
+test_torch_local_conv_family.py, test_torch_window_family.py,
+test_torch_token_family.py): parameters drawn with numpy at the JAX
 init's shapes (``jax.eval_shape``, so that the zero-initialised parts act),
 BatchNorm statistics moved off their init values, the JAX model's logits
 and gradients of the mean cross-entropy, and the comparison of a port model
@@ -53,6 +54,19 @@ def draw_params(jmodel, *args, seed=5, special=None, **kwargs):
 def load(model, state_dict, strict=True):
     model.load_state_dict(state_dict, strict=strict)
     return model
+
+
+def with_absent_zeros(to_torch, model):
+    """``to_torch`` with zeros for the port's parameters that the JAX tree
+    does not hold (modules the JAX model builds only where it calls them):
+    their gradients must then be None, which ``check_model`` holds against
+    these zeros."""
+
+    def convert(params, *stats):
+        out = to_torch(params, *stats)
+        return {**{k: torch.zeros_like(v) for k, v in model.state_dict().items() if k not in out}, **out}
+
+    return convert
 
 
 def jax_loss_and_grads(apply, params, y):

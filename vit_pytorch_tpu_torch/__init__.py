@@ -33,8 +33,13 @@ attention is the shared one, and the DeiT-style distillation
 kernels), XCiT, LocalViT, the small-dataset ViT, RvT, NesT, MobileViT, CvT
 and Twins-SVT (``models.cross_vit``, ``pit``, ``xcit``, ``local_vit``,
 ``vit_for_small_dataset``, ``rvt``, ``nest``, ``mobile_vit``, ``cvt``,
-``twins_svt``).  Models are imported by submodule path, as in the JAX
-package.
+``twins_svt``); LeViT, RegionViT, CrossFormer, ScalableViT and SepViT
+(``models.levit``, ``regionvit``, ``crossformer``, ``scalable_vit``,
+``sep_vit``), ATS-ViT, the patch-merger ViT (its layers after the merge on
+the attention-block kernels), the learnable-memory ViT with its Adapter and
+LookViT (``models.ats_vit``, ``vit_with_patch_merger``,
+``learnable_memory_vit``, ``look_vit``).  Models are imported by submodule
+path, as in the JAX package.
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT

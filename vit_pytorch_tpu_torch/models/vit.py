@@ -29,11 +29,11 @@ _TRUNC_STD = 0.87962566103423978
 @torch.no_grad()
 def init_modules_like_jax(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """The JAX package's initialisation of every ``nn.Linear``,
-    ``nn.Conv2d``, LayerNorm and ``RMSNorm`` in ``model``: truncated
+    ``nn.Conv1d``, ``nn.Conv2d``, LayerNorm and ``RMSNorm`` in ``model``: truncated
     lecun-normal weights (fan-in: the inputs of one output) and zero biases,
     LayerNorm ones/zeros, RMSNorm gamma at its ``gamma_init``."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
             if m.bias is not None:

@@ -38,7 +38,14 @@ Item 9's family 3a has the inverses of ``convert_local_vit``,
 ``convert_mobile_vit``, ``convert_cvt`` and ``convert_twins_svt`` (XCiT's,
 MobileViT's and CvT's with their ``batch_stats``; NesT's, CvT's and
 Twins-SVT's LayerNorms the channel norms' ``g`` and ``b`` of shape (1, c,
-1, 1)).  ``tool_layer_from_jax``
+1, 1)).  Item 9's families 3b and 4 have the inverses of
+``convert_sep_vit`` (the qkv and window q, k projections 1x1 Conv1d
+weights), ``convert_levit`` (with its ``batch_stats``; the distillation
+head, which it does not map, at ``distill_head``), ``convert_crossformer``,
+``convert_regionvit``, ``convert_scalable_vit``,
+``convert_vit_with_patch_merger``, ``convert_learnable_memory_vit``,
+``convert_adapter``, ``convert_ats_vit`` and ``convert_look_vit``.
+``tool_layer_from_jax``
 carries the weight tuples of the JAX package's layer prototypes in
 ``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
 
@@ -921,6 +928,229 @@ def twins_svt_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     port's ``state_dict`` (the inverse of ``convert_twins_svt``; the
     LayerNorms the channel norms' ``g`` and ``b``)."""
     return _state_dict(params, _TWINS_MODULES, (), chan_norms=r".*norm(_pre|_post)?")
+
+
+# models/sep_vit.py: stage s at layers.s: embedding 0, position generator 1, transformer 2
+_SEP_VIT_MODULES = (
+    (r"stage_(\d+)_ope", r"layers.\1.0.conv"),
+    (r"stage_(\d+)_peg", r"layers.\1.1.proj"),
+    (r"stage_(\d+)_layers_(\d+)_attn/(norm|to_qkv)", r"layers.\1.2.layers.\2.0.\3"),
+    (r"stage_(\d+)_layers_(\d+)_attn/window_norm", r"layers.\1.2.layers.\2.0.window_tokens_to_qk.0"),
+    (r"stage_(\d+)_layers_(\d+)_attn/window_to_qk", r"layers.\1.2.layers.\2.0.window_tokens_to_qk.3"),
+    (r"stage_(\d+)_layers_(\d+)_attn/to_out", r"layers.\1.2.layers.\2.0.to_out.0"),
+    (r"stage_(\d+)_layers_(\d+)_ff/norm", r"layers.\1.2.layers.\2.1.net.0"),
+    (r"stage_(\d+)_layers_(\d+)_ff/conv1", r"layers.\1.2.layers.\2.1.net.1"),
+    (r"stage_(\d+)_layers_(\d+)_ff/conv2", r"layers.\1.2.layers.\2.1.net.4"),
+    (r"stage_(\d+)_norm", r"layers.\1.2.norm"),
+    (r"head_norm", "mlp_head.1"),
+    (r"mlp_head", "mlp_head.2"),
+)
+_SEP_VIT_TOP_LEVEL = ((r"stage_(\d+)_layers_(\d+)_attn/window_tokens", r"layers.\1.2.layers.\2.0.window_tokens"),)
+
+
+def _conv1d(state: dict, pattern: str) -> dict:
+    """The Linear weights (out, in) of the keys matching ``pattern`` as 1x1
+    ``nn.Conv1d`` weights (out, in, 1)."""
+    return {k: v[..., None] if re.fullmatch(pattern, k) else v for k, v in state.items()}
+
+
+def sep_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/sep_vit.py::SepViT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_sep_vit``; the channel norms'
+    ``g`` and ``b``, the qkv and window q, k projections 1x1 Conv1d
+    weights)."""
+    out = _state_dict(params, _SEP_VIT_MODULES, _SEP_VIT_TOP_LEVEL,
+                      chan_norms=r"stage_\d+_(layers_\d+_(attn|ff)/norm|norm)")
+    return _conv1d(out, r".*\.(to_qkv|window_tokens_to_qk\.3)\.weight")
+
+
+# models/levit.py: one stage's transformer (``S`` its JAX name, ``T`` its backbone index)
+_LEVIT_STAGE = (
+    (r"S/layers_(\d+)_attn/to_(q|k|v)", r"backbone.T.layers.\1.0.to_\2.0"),
+    (r"S/layers_(\d+)_attn/(q|k|v)_bn", r"backbone.T.layers.\1.0.to_\2.1"),
+    (r"S/layers_(\d+)_attn/out_conv", r"backbone.T.layers.\1.0.to_out.1"),
+    (r"S/layers_(\d+)_attn/out_bn", r"backbone.T.layers.\1.0.to_out.2"),
+    (r"S/layers_(\d+)_ff/conv1", r"backbone.T.layers.\1.1.net.0"),
+    (r"S/layers_(\d+)_ff/conv2", r"backbone.T.layers.\1.1.net.3"),
+)
+
+
+def levit_state_dict_from_jax(params: Mapping, batch_stats: Mapping = None) -> dict[str, torch.Tensor]:
+    """The JAX ``models/levit.py::LeViT``'s ``params`` and ``batch_stats``
+    trees -> the port's ``state_dict`` (the inverse of ``convert_levit``):
+    ``stage_s`` at ``backbone.{2s}``, ``stage_s_downsample`` at
+    ``backbone.{2s + 1}``; the distillation head, which the converter does not
+    map, at ``distill_head``."""
+    modules = ((r"conv_embedding_(\d+)", r"conv_embedding.\1"), (r"mlp_head", "mlp_head"),
+               (r"distill_head", "distill_head"))
+    top = ()
+    for name in params:
+        m = re.fullmatch(r"stage_(\d+)(_downsample)?", name)
+        if m:
+            i = str(2 * int(m.group(1)) + bool(m.group(2)))
+            modules += tuple((p.replace("S", name, 1), t.replace("T", i, 1)) for p, t in _LEVIT_STAGE)
+            top += ((rf"{name}/layers_(\d+)_attn/pos_bias", rf"backbone.{i}.layers.\1.0.pos_bias.weight"),)
+    return _with_stats(params, batch_stats, modules, top)
+
+
+# models/crossformer.py: stage s's embedding at layers.s.0, its transformer at layers.s.1
+_CROSSFORMER_DPB = (("fc0", 0), ("norm0", 1), ("fc1", 3), ("norm1", 4), ("fc2", 6), ("norm2", 7), ("out", 9))
+_CROSSFORMER_MODULES = ((r"stage_(\d+)_cel/conv_(\d+)", r"layers.\1.0.convs.\2"),) + tuple(
+    m for kind, i in (("short", 0), ("long", 2)) for m in (
+        (rf"stage_(\d+)_layers_(\d+)_{kind}_attn/(norm|to_qkv|to_out)", rf"layers.\1.1.layers.\2.{i}.\3"),
+        *((rf"stage_(\d+)_layers_(\d+)_{kind}_attn/dpb/{name}", rf"layers.\1.1.layers.\2.{i}.dpb.{j}")
+          for name, j in _CROSSFORMER_DPB),
+        (rf"stage_(\d+)_layers_(\d+)_{kind}_ff/norm", rf"layers.\1.1.layers.\2.{i + 1}.0"),
+        (rf"stage_(\d+)_layers_(\d+)_{kind}_ff/conv1", rf"layers.\1.1.layers.\2.{i + 1}.1"),
+        (rf"stage_(\d+)_layers_(\d+)_{kind}_ff/conv2", rf"layers.\1.1.layers.\2.{i + 1}.4"),
+    )) + ((r"to_logits", "to_logits.1"),)
+
+
+def crossformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/crossformer.py::CrossFormer``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_crossformer``; the
+    attentions' and feed-forwards' LayerNorms the channel norms' ``g`` and
+    ``b``)."""
+    return _state_dict(params, _CROSSFORMER_MODULES, (), chan_norms=r".*_(attn|ff)/norm")
+
+
+# models/regionvit.py: stage s's downsampling at layers.s.0, position generator .1, transformer .2
+_REGIONVIT_MODULES = (
+    (r"local_encoder", "local_encoder"),
+    (r"local_conv1", "local_encoder.0"),
+    (r"local_norm1", "local_encoder.1"),
+    (r"local_conv2", "local_encoder.3"),
+    (r"local_norm2", "local_encoder.4"),
+    (r"local_conv3", "local_encoder.6"),
+    (r"region_encoder", "region_encoder.1"),
+    (r"stage_(\d+)_downsample", r"layers.\1.0.conv"),
+    (r"stage_(\d+)_peg", r"layers.\1.1.proj"),
+    (r"stage_(\d+)_transformer/layers_(\d+)_attn/(norm|to_qkv)", r"layers.\1.2.layers.\2.0.\3"),
+    (r"stage_(\d+)_transformer/layers_(\d+)_attn/to_out", r"layers.\1.2.layers.\2.0.to_out.0"),
+    (r"stage_(\d+)_transformer/layers_(\d+)_ff/norm", r"layers.\1.2.layers.\2.1.0"),
+    (r"stage_(\d+)_transformer/layers_(\d+)_ff/fc1", r"layers.\1.2.layers.\2.1.1"),
+    (r"stage_(\d+)_transformer/layers_(\d+)_ff/fc2", r"layers.\1.2.layers.\2.1.4"),
+    (r"head_norm", "to_logits.1"),
+    (r"to_logits", "to_logits.2"),
+)
+
+
+def regionvit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/regionvit.py::RegionViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_regionvit``, which maps
+    neither the position generators nor the three-convolution local
+    tokenizer; its LayerNorms the channel norms' ``g`` and ``b``)."""
+    top = ((r"stage_(\d+)_transformer/local_rel_pos_bias", r"layers.\1.2.local_rel_pos_bias.weight"),)
+    return _state_dict(params, _REGIONVIT_MODULES, top, chan_norms=r"local_norm\d")
+
+
+# models/scalable_vit.py: stage s's transformer at layers.s.0 (a block [ssa, ff1, peg, ff2, iwsa]),
+# its downsampling at layers.s.1
+_SCALABLE_BLOCK = r"stage_(\d+)_block_(\d+)"
+_SCALABLE_MODULES = (
+    (r"to_patches", "to_patches"),
+    (rf"{_SCALABLE_BLOCK}_ssa/(norm|to_q|to_k|to_v)", r"layers.\1.0.layers.\2.0.\3"),
+    (rf"{_SCALABLE_BLOCK}_ssa/to_out", r"layers.\1.0.layers.\2.0.to_out.0"),
+    *((rf"{_SCALABLE_BLOCK}_{ff}/{name}", rf"layers.\1.0.layers.\2.{i}.net.{j}")
+      for ff, i in (("ff1", 1), ("ff2", 3)) for name, j in (("norm", 0), ("conv1", 1), ("conv2", 4))),
+    (rf"{_SCALABLE_BLOCK}_peg", r"layers.\1.0.layers.\2.2.proj"),
+    (rf"{_SCALABLE_BLOCK}_iwsa/(norm|to_q|to_k|to_v|local_interactive_module)", r"layers.\1.0.layers.\2.4.\3"),
+    (rf"{_SCALABLE_BLOCK}_iwsa/to_out", r"layers.\1.0.layers.\2.4.to_out.0"),
+    (r"stage_(\d+)_norm", r"layers.\1.0.norm"),
+    (r"stage_(\d+)_downsample", r"layers.\1.1.conv"),
+    (r"head_norm", "mlp_head.1"),
+    (r"mlp_head", "mlp_head.2"),
+)
+
+
+def scalable_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/scalable_vit.py::ScalableViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of ``convert_scalable_vit``; the
+    channel norms' ``g`` and ``b``)."""
+    return _state_dict(params, _SCALABLE_MODULES, (),
+                       chan_norms=rf"({_SCALABLE_BLOCK}_(ssa|ff1|ff2|iwsa)/norm|stage_\d+_norm)")
+
+
+# models/vit_with_patch_merger.py: the JAX model's flat layers under transformer
+_PATCH_MERGER_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + (
+    (r"patch_merger/norm", "transformer.patch_merger.norm"),
+    (r"norm", "transformer.norm"),
+    (r"mlp_head", "mlp_head.1"),
+)
+
+
+def vit_with_patch_merger_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_with_patch_merger.py::ViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of
+    ``convert_vit_with_patch_merger``)."""
+    top = ("pos_embedding", (r"patch_merger/queries", "transformer.patch_merger.queries"))
+    return _state_dict(params, _PATCH_MERGER_MODULES, top)
+
+
+# models/learnable_memory_vit.py: the split q and kv projections
+_MEMORY_VIT_MODULES = _PATCH_EMBEDDING + (
+    (r"transformer/layers_(\d+)_attn/(norm|to_q|to_kv)", r"transformer.layers.\1.0.\2"),
+    (r"transformer/layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+    (r"transformer/layers_(\d+)_ff/norm", r"transformer.layers.\1.1.net.0"),
+    (r"transformer/layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.1"),
+    (r"transformer/layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.4"),
+    (r"head_norm", "mlp_head.0"),
+    (r"mlp_head", "mlp_head.1"),
+)
+
+
+def learnable_memory_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/learnable_memory_vit.py::ViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of
+    ``convert_learnable_memory_vit``)."""
+    return _state_dict(params, _MEMORY_VIT_MODULES, _TOP_LEVEL)
+
+
+def adapter_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/learnable_memory_vit.py::Adapter``'s ``params`` tree
+    -> the port's ``state_dict`` (the inverse of ``convert_adapter``): the
+    wrapped ViT's under ``vit.``, whose head the JAX tree does not hold (the
+    Adapter never calls it): load with ``strict=False``."""
+    out = {f"vit.{k}": v for k, v in learnable_memory_vit_state_dict_from_jax(params["vit"]).items()}
+    rest = {k: v for k, v in params.items() if k != "vit"}
+    out.update(_state_dict(rest, _MEMORY_VIT_MODULES[-2:], ("memory_cls_token", "memories_per_layer")))
+    return out
+
+
+# models/ats_vit.py: the JAX model's flat layers under transformer
+_ATS_VIT_MODULES = _PATCH_EMBEDDING + (
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + _MEMORY_VIT_MODULES[-2:]
+
+
+def ats_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/ats_vit.py::ViT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_ats_vit``)."""
+    return _state_dict(params, _ATS_VIT_MODULES, _TOP_LEVEL)
+
+
+# models/look_vit.py: layer N's [attn, mlp, lookup_cross_attn, highres_attn, highres_norm, highres_mlp]
+_LOOK_VIT_MODULES = (
+    (r"patch_conv", "to_patches.1"),
+    (r"patch_norm", "to_patches.3"),
+    *(m for name, i in (("attn", 0), ("lookup_cross_attn", 2), ("highres_attn", 3)) for m in (
+        (rf"layers_(\d+)_{name}/(norm|norm_context|to_q|to_k|to_v)", rf"layers.\1.{i}.\2"),
+        (rf"layers_(\d+)_{name}/to_out", rf"layers.\1.{i}.to_out.1"))),
+    *((rf"layers_(\d+)_{name}/{sub}", rf"layers.\1.{i}.{j}") for name, i in (("mlp", 1), ("highres_mlp", 5))
+      for sub, j in (("norm", 0), ("fc1", 1), ("fc2", 4))),
+    (r"layers_(\d+)_highres_norm", r"layers.\1.4"),
+    (r"(norm|highres_norm|to_logits)", r"\1"),
+)
+
+
+def look_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/look_vit.py::LookViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_look_vit``)."""
+    return _state_dict(params, _LOOK_VIT_MODULES, ())
 
 
 # ssl/vat.py, ssl/vaat.py, ssl/vat_siglip.py: the port keeps the JAX module
