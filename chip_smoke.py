@@ -8045,7 +8045,8 @@ def serve_zoo3(fb, fa, name, dev, gen):
     return serve_batch(fb, fa, name, fp32, x, ZOO3_SERVED[name])
 
 
-def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices=None, lr=3e-4):
+def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices=None, lr=3e-4, aux_loss_weight=0.0,
+               after_step=None, fp32_too=False):
     """ZOO3_STEPS AdamW steps through make_train_step on one batch at
     ZOO3_TRAIN_BS, each with a generator seeded alike, on the kernel path,
     then on the plain path from the same initial weights (one step, or all
@@ -8062,8 +8063,13 @@ def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices
     ``make`` (ZOO3, ZOO3_TRAIN and zoo3_model by default): the phase's
     models, their predicted launches and the function that makes one; the labels are drawn
     below the configuration's ``num_classes``.  ``choices``: a
-    :class:`TokenChoices` around every run (ATS-ViT's); ``lr``: AdamW's
-    learning rate."""
+    :class:`TokenChoices` around every run (ATS-ViT's; a :class:`DrawReplay`
+    for the patch-dropout and decorrelation ViTs); ``lr``: AdamW's learning
+    rate; ``aux_loss_weight``: make_train_step's, for a model that returns
+    (logits, aux loss); ``after_step(model)``: run after each step on every
+    path (nViT's normalize_weights); ``fp32_too``: the fp32 comparison also
+    for a model that launches kernels (its bf16 copy at dropout 0 takes the
+    kernels of that route)."""
     import functools
 
     from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
@@ -8075,7 +8081,7 @@ def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices
     adamw = functools.partial(torch.optim.AdamW, lr=lr)
 
     def run(model, steps, images=images):
-        state, step = create_train_state(model, adamw), make_train_step(model)
+        state, step = create_train_state(model, adamw), make_train_step(model, aux_loss_weight=aux_loss_weight)
         reset_all(fb, fa)
         torch.cuda.reset_peak_memory_stats(dev)
         losses, grads = [], None
@@ -8083,6 +8089,8 @@ def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices
             for i in range(steps):
                 seeded = torch.Generator(device=dev).manual_seed(SEED + i)
                 losses.append(step(state, images, labels, seeded)["loss"].item())
+                if after_step is not None:
+                    after_step(model)
                 if i == 0:  # a layer that layer dropout skipped has no gradient: zeros
                     grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
                              else p.grad.detach().float().clone() for p in model.parameters()]
@@ -8125,7 +8133,7 @@ def train_zoo3(fb, fa, name, dev, gen, table=None, want=None, make=None, choices
 
     if batch_norms:
         check_stats(model, plain, "the plain path's", SIMPLE_TRAIN_VS_PLAIN["grads"])
-    if not want[name]:
+    if not want[name] or fp32_too:
         no_dropout = {k: 0.0 for k in ("dropout", "emb_dropout", "attn_dropout", "ff_dropout") if k in cfg}
         fp32 = make(name, dev, torch.float32, **no_dropout)
         model, noisy = copy.deepcopy(fp32).to(torch.bfloat16), copy.deepcopy(fp32).to(torch.bfloat16)
@@ -8424,6 +8432,368 @@ def time_zoo4(fb, dev, smi):
     errs.update(check_dropout_shape(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp))
     per_kernel = chain_entry_times(fb, rnd, label, ZOO3_BS, n, dim, heads, mlp, backward=False)
     per_kernel.update(chain_entry_times(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, mlp, dropout_rate=RATE))
+    sync()
+    return per_kernel, errs
+
+
+# -- ROADMAP item 9's families 5 and 6 and AcceptVideoWrapper's MOSS (phases
+# 57-58): each model served one batch at bs=64 (bf16, random weights from
+# SEED) with exact launch counters, logits against the plain bf16 path and
+# fp32 (the fp32 bound the larger of SIMPLE_LOGITS_VS_FP32 and
+# ZOO3_NOISE_RATIO x the bf16 path's distance on a noisy batch: phase 53's
+# and 55's rule) and its host time; the wrapper with MOSS around config 1's
+# ViT on 8-frame clips; the patch-dropout ViT, the KEEL ViT, SimpleUViT, the
+# decorrelation ViT and nViT trained 3 AdamW steps at bs=32 through
+# make_train_step (train_zoo3: first step against the plain path and, at
+# dropout 0, against fp32); then the new kernel shapes against their twins,
+# timed with L2 flushed.
+#   - config 1's width (256^2, patch 32, dim 1024, depth 6, 16 heads, mlp
+#     2048): the patch-dropout ViT (a quarter of the 64 patches dropped in
+#     training: 49 tokens with the cls token; served whole, 65: the whole
+#     layer), the KEEL ViT (the attention block, no residual, a zero LN
+#     bias), SimpleUViT (64 patches + 4 registers: the block at n = 68), the
+#     decorrelation ViT (half the tokens sampled for its loss; the
+#     composite), ViTDetPool without a mask (the block) and with a pixel mask
+#     (the composite);
+#   - nViT (256^2, patch 16, dim 1024, depth 6, 8 heads, mlp 2048: 256
+#     tokens), JetViT (224^2, patch 16: a 14 x 14 grid of 7 x 7 windows, dim
+#     1024, depth 6, 16 heads, mlp 2048, the kinds FA, WA, LA, a random
+#     (FA, WA, LA), WA, LA), WWT (config 1's dim, depth, heads and mlp, slots
+#     of 16 and 4), ViViT with MOSS (config 5's ViViT, MOSS's defaults,
+#     causal): the composite, as the JAX package routes them;
+#   - JumboViT at dim 64, 2 heads of 64, mlp_dim 4 (its patch FF 256 wide),
+#     6 jumbo tokens, jumbo_ff_mult 2 (its jumbo FF 384 x 294,912), 256^2,
+#     patch 32: the block at n = 70, dim 64.  Its FFs grow with the square
+#     of the width, so it has no config-1 width (2 x 1024 x 2,097,152
+#     weights a layer in the patch FF alone).
+ZOO5_JET_LAYERS = ("FA", "WA", "LA", ("FA", "WA", "LA"), "WA", "LA")
+ZOO5_JUMBO = dict(image_size=256, patch_size=32, num_classes=1000, dim=64, depth=6, heads=2, dim_head=64, mlp_dim=4,
+                  jumbo_cls_k=6, jumbo_ff_mult=2)
+ZOO5_WRAPPER_FRAMES, ZOO5_WRAPPER_CLIPS = 8, 8
+ZOO5_PATCH_DROPOUT = 0.25
+ZOO5_DECORR_WEIGHT = 0.1
+# name: (module, class, constructor, input shape past the batch)
+ZOO5 = {
+    "vit_with_patch_dropout": ("vit_with_patch_dropout", "ViT",
+                               dict(CONFIG1, patch_dropout=ZOO5_PATCH_DROPOUT, dropout=RATE), (3, 256, 256)),
+    "vit_with_keel_post_ln": ("vit_with_keel_post_ln", "ViT", dict(CONFIG1, dropout=RATE), (3, 256, 256)),
+    "simple_uvit": ("simple_uvit", "SimpleUViT", CONFIG1, (3, 256, 256)),
+    "vit_with_decorr": ("vit_with_decorr", "ViT", dict(CONFIG1, decorr_sample_frac=0.5), (3, 256, 256)),
+    "vit_detpool": ("vit_detpool", "ViTDetPool", CONFIG1, (3, 256, 256)),
+    "vit_detpool_mask": ("vit_detpool", "ViTDetPool", CONFIG1, (3, 256, 256)),
+    "normalized_vit": ("normalized_vit", "nViT", dict(image_size=256, patch_size=16, num_classes=1000, dim=1024,
+                                                      depth=6, heads=8, mlp_dim=2048), (3, 256, 256)),
+    "jet_vit": ("jet_vit", "JetViT", dict(image_size=224, patch_size=16, num_classes=1000, dim=1024, depth=6, heads=16,
+                                          mlp_dim=2048, attn_layers=ZOO5_JET_LAYERS), (3, 224, 224)),
+    "wwt": ("wwt", "WWT", dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
+                               mlp_dim=2048, num_slots=(16, 4)), (3, 256, 256)),
+    "vivit_with_moss": ("vivit_with_moss", "ViViT", VIVIT, VIVIT_SHAPE),
+    "jumbo_vit": ("jumbo_vit", "JumboViT", ZOO5_JUMBO, (3, 256, 256)),
+    "accept_video_wrapper": (None, "AcceptVideoWrapper", dict(CONFIG1, num_classes=0),
+                             (3, ZOO5_WRAPPER_FRAMES, 256, 256)),
+}
+ZOO5_TRAINED = ("vit_with_patch_dropout", "vit_with_keel_post_ln", "simple_uvit", "vit_with_decorr", "normalized_vit")
+ZOO5_DEPTH = CONFIG1["depth"]
+# the launches predicted for one served batch (PERF.md, §6): the patch-dropout
+# ViT's whole layers, the wrapped ViT's whole layers (MOSS none), the
+# attention blocks of the KEEL ViT, SimpleUViT, JumboViT and the mask-free
+# ViTDetPool, nothing else
+ZOO5_SERVED = {name: {} for name in ZOO5}
+ZOO5_SERVED.update({name: per_layer(LAUNCHES_PER_LAYER, ZOO5_DEPTH)
+                    for name in ("vit_with_patch_dropout", "accept_video_wrapper")})
+ZOO5_SERVED.update({name: per_layer(BLOCK_FWD_LAUNCHES, ZOO5_DEPTH)
+                    for name in ("vit_with_keel_post_ln", "simple_uvit", "jumbo_vit", "vit_detpool")})
+# ... and for ZOO3_STEPS training steps: the attention blocks with dropout 0.1
+# (patch dropout, KEEL), without (SimpleUViT), nothing else
+ZOO5_TRAIN = {name: {} for name in ZOO5_TRAINED}
+ZOO5_TRAIN.update({name: per_layer(DROPOUT_LAUNCHES_PER_LAYER, ZOO5_DEPTH, ZOO3_STEPS)
+                   for name in ("vit_with_patch_dropout", "vit_with_keel_post_ln")})
+ZOO5_TRAIN["simple_uvit"] = per_layer(BLOCK_TRAIN_LAUNCHES, ZOO5_DEPTH, ZOO3_STEPS)
+# the new kernel shapes: (label, b, n, dim, heads, bias of the block's projection out)
+ZOO5_BLOCKS = (("JumboViT", ZOO3_BS, 64 + 6, 64, 2, False), ("SimpleUViT", ZOO3_BS, 64 + 4, 1024, 16, False))
+ZOO5_KEPT = int(64 * (1 - ZOO5_PATCH_DROPOUT)) + 1  # the patch-dropout ViT's trained tokens
+BLOCK_FWD_KERNELS = ("layernorm_rows", "gemm_bf16[qkv]", "attention_rows", "gemm_bf16[block_out]")
+# nViT's weights after normalize_weights: unit norm along each one's axis,
+# within 1e-3 in fp32; a bf16 copy of a unit vector is within 2^-8 of unit
+# norm (each element's rounding moves it by at most 2^-8 of itself, and a
+# row whose mass sits in one element reads that element's rounding: 1.98e-3
+# on the CPU at a tiny width)
+NVIT_UNIT_NORM_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0**-8}
+
+
+class DrawReplay:
+    """A random draw recorded on the first path and replayed on the others:
+    ``owner.name`` (a function of a module, or a method of a class) is
+    wrapped inside the first ``with`` block so that its outputs are
+    recorded in call order, and inside every later one so that they are
+    replayed in that order (cyclically), each checked against its call's
+    arguments (the ints and shapes among them).  A replayed call still
+    draws (and drops) its own values, so that every generator advances as on
+    the recording path and the draws after it (the dropout masks) stay the
+    same; ``differ`` counts the replayed calls whose own draw was not the
+    recorded one.  The patch-dropout ViT's kept tokens
+    (``nn/patch.py::PatchDropout.keep_indices``) and the decorrelation
+    ViT's token scores (``models/vit_with_decorr.py::sample_scores``) are
+    drawn from the step's seeded generator alike on every path; replaying
+    them holds the paths to one draw by construction, as
+    :class:`TokenChoices` does for ATS-ViT's choices."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.taken, self.differ, self.replayed = owner, name, None, 0, 0
+
+    @staticmethod
+    def _key(args):
+        return tuple(tuple(a) if isinstance(a, torch.Size) else a for a in args if isinstance(a, (int, tuple)))
+
+    def __enter__(self):
+        self.orig, self.i = getattr(self.owner, self.name), 0
+        if self.taken is None:
+            self.taken = []
+
+            def wrapped(*args, **kw):
+                out = self.orig(*args, **kw)
+                self.taken.append((self._key(args), out))
+                return out
+        else:
+            def wrapped(*args, **kw):
+                own = self.orig(*args, **kw)
+                key, out = self.taken[self.i % len(self.taken)]
+                self.i += 1
+                if key != self._key(args):
+                    fail(f"{self.name}: a replayed draw of {key} for a call with {self._key(args)}")
+                self.replayed += 1
+                self.differ += not torch.equal(own.to(out.device), out)
+                return out
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def zoo5_model(name, dev, dtype, **kw):
+    """One model at its phase-57 configuration (``kw`` overriding it),
+    random weights from SEED, initialised in f32 and cast; the wrapper
+    around a config-1 ViT that returns its tokens, with MOSS (its defaults,
+    dim 1024) built from a dict."""
+    import importlib
+
+    from vit_pytorch_tpu_torch.models.vit import ViT
+    from vit_pytorch_tpu_torch.wrappers.accept_video_wrapper import AcceptVideoWrapper
+
+    module, cls, cfg, _ = ZOO5[name]
+    cfg, gen = {**cfg, **kw}, torch.Generator(device=dev).manual_seed(SEED)
+    if name == "accept_video_wrapper":
+        vit = ViT(**cfg, device=dev, generator=gen)
+        return AcceptVideoWrapper(vit, moss=dict(dim=cfg["dim"]), device=dev, generator=gen).to(dtype)
+    model_cls = getattr(importlib.import_module(f"vit_pytorch_tpu_torch.models.{module}"), cls)
+    return model_cls(**cfg, device=dev, generator=gen).to(dtype)
+
+
+def object_masks(b, size, dev, gen):
+    """(b, size, size) pixel masks, each one box of size/4 to size/2 a side
+    at a random place."""
+    lo = torch.randint(0, size // 2, (2, b, 1), generator=gen, device=dev)
+    side = torch.randint(size // 4, size // 2 + 1, (2, b, 1), generator=gen, device=dev)
+    pos = torch.arange(size, device=dev)
+    rows = (pos >= lo[0]) & (pos < lo[0] + side[0])
+    cols = (pos >= lo[1]) & (pos < lo[1] + side[1])
+    return rows[:, :, None] & cols[:, None, :]
+
+
+class UnitNormCheck:
+    """nViT's hook after each optimizer step: normalize_weights, then every
+    NormLinear weight of unit norm along its axis within
+    NVIT_UNIT_NORM_TOL for its dtype; ``worst`` the largest distance from
+    one by dtype."""
+
+    def __init__(self):
+        self.worst = {}
+
+    def __call__(self, model):
+        from vit_pytorch_tpu_torch.models import normalized_vit
+
+        normalized_vit.normalize_weights(model)
+        linears = [m for m in model.modules() if isinstance(m, normalized_vit.NormLinear)]
+        dtype = linears[0].raw_weight.dtype
+        norms = torch.cat([m.raw_weight.float().norm(dim=m.norm_dim) for m in linears])
+        worst = (norms - 1).abs().max().item()
+        if not worst <= NVIT_UNIT_NORM_TOL[dtype]:
+            fail(f"nViT: a {dtype} weight's norm is {worst:.3e} off one after normalize_weights (bound "
+                 f"{NVIT_UNIT_NORM_TOL[dtype]:.3e})")
+        self.worst[dtype] = max(self.worst.get(dtype, 0.0), worst)
+
+
+def check_zoo5(fb, fa, dev, gen):
+    """Phase 57: the ten models (ViTDetPool with and without a mask) and the
+    MOSS wrapper served; phase 58: five trained.  Returns the serving counts
+    (with the gemm sites and ms) and the training counts by model."""
+    from vit_pytorch_tpu_torch.models import vit_with_decorr
+    from vit_pytorch_tpu_torch.nn.patch import PatchDropout
+
+    log(f"[57 the patch-dropout, KEEL and decorrelation ViTs, SimpleUViT, ViTDetPool, nViT, JetViT, WWT, ViViT-MOSS, "
+        f"JumboViT and the AcceptVideoWrapper with MOSS served] bf16, random weights (seed {SEED}), bs={ZOO3_BS} "
+        f"({ZOO5_WRAPPER_CLIPS} clips of {ZOO5_WRAPPER_FRAMES} frames for the wrapper); "
+        + "; ".join(f"{name} {cfg} at {shape}" for name, (_, _, cfg, shape) in ZOO5.items()))
+    served = {}
+    for name in ZOO5:
+        fp32 = zoo5_model(name, dev, torch.float32).eval()
+        bs = ZOO5_WRAPPER_CLIPS if name == "accept_video_wrapper" else ZOO3_BS
+        x = torch.randn(bs, *ZOO5[name][3], generator=gen, device=dev)
+        call, classes = (lambda model, x: model(x)), 1000
+        if name == "vit_with_decorr":
+            call = lambda model, x: model(x)[0]
+        elif name == "vit_detpool_mask":
+            masks = object_masks(bs, ZOO5[name][3][-1], dev, gen)
+            log(f"  vit_detpool_mask: boxes keep {masks.float().mean().item():.3f} of the pixels")
+            call = lambda model, x, masks=masks: model(x, masks)
+        elif name == "accept_video_wrapper":
+            cfg = ZOO5[name][2]
+            call = lambda model, x: model(x).flatten(1)
+            classes = x.shape[2] * ((cfg["image_size"] // cfg["patch_size"]) ** 2 + 1) * cfg["dim"]
+        served[name] = serve_batch(fb, fa, name, fp32, x, ZOO5_SERVED[name], call, classes=classes,
+                                   noise_floor=True)
+        del fp32
+    log(f"[58 training] {ZOO3_STEPS} AdamW(3e-4) steps at bs={ZOO3_TRAIN_BS} through make_train_step: {ZOO5_TRAINED} "
+        f"(the patch-dropout and KEEL ViTs at dropout {RATE}, the decorrelation ViT's loss weighted "
+        f"{ZOO5_DECORR_WEIGHT}, nViT's normalize_weights after each step); the first step also against fp32 at "
+        f"dropout 0")
+    extra = {
+        "vit_with_patch_dropout": dict(choices=DrawReplay(PatchDropout, "keep_indices")),
+        "vit_with_decorr": dict(choices=DrawReplay(vit_with_decorr, "sample_scores"),
+                                aux_loss_weight=ZOO5_DECORR_WEIGHT),
+        "normalized_vit": dict(after_step=UnitNormCheck()),
+    }
+    trained = {name: train_zoo3(fb, fa, name, dev, gen, table=ZOO5, want=ZOO5_TRAIN, make=zoo5_model, fp32_too=True,
+                                **extra.get(name, {}))
+               for name in ZOO5_TRAINED}
+    for name, kw in extra.items():
+        if "choices" in kw:
+            log(f"  {name}: {kw['choices'].replayed} draws replayed on the plain and fp32 paths, {kw['choices'].differ} "
+                f"of them other than the path's own draw")
+    log("  nViT after each step: every NormLinear weight of unit norm within "
+        + ", ".join(f"{w:.3e} in {dtype} (bound {NVIT_UNIT_NORM_TOL[dtype]:.3e})"
+                    for dtype, w in extra["normalized_vit"]["after_step"].worst.items()) + " ok")
+    return served, trained
+
+
+def block_entry_times(fb, rnd, label, b, n, dim, heads, bias, forward=True, backward=False, sites=None):
+    """The attention block's launches at one shape as a model runs them
+    (dropout 0): forward layernorm_rows, gemm_bf16[qkv], attention_rows and
+    gemm_bf16[block_out] bare (no residual: the models add theirs outside;
+    with the projection's bias where ``bias``), backward attention_bwd_rows,
+    gemm_f32out and layernorm_bwd_rows; block_out against its twin here,
+    each timed against its twin in turns with L2 flushed, with its work and
+    its library call (F.layer_norm, F.linear, SDPA,
+    native_layer_norm_backward) or yardstick; ``sites``: only those kernels.
+    Returns the records and the errors, keys ``f"{kernel} @ {label}"``."""
+    inner = heads * DH
+    rows = b * n
+    akw = dict(heads=heads, dim_head=DH, scale=DH**-0.5)
+    timer = lambda f: device_ms(f, flush=True)
+    F_ = torch.nn.functional
+    w, b_out = chain_weights(rnd, dim, heads, 4 * dim)
+    b_out = b_out if bias else None
+    x, dy = rnd(b, n, dim), rnd(b, n, dim)
+    per_kernel, errs, entries = {}, {}, []
+    with torch.inference_mode():
+        h = fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"])
+        qkv = fb.gemm_bf16(h, w["w_qkv"], "qkv")
+        m = fb.attention_rows(qkv, **akw)
+        q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
+        okw = dict(bias=b_out, heads=heads)
+        if forward:
+            errs[f"gemm_bf16[block_out] @ {label}"] = compare(
+                f"gemm_bf16[block_out] bare [{label}]", fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+                fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw), KERNEL_ATOL, KERNEL_RTOL,
+                BLOCK_OUT_REL_L2)
+            entries += [
+                ("layernorm_rows", lambda: fb.layernorm_rows(x, w["ln1_scale"], w["ln1_bias"]),
+                 lambda: fb.layernorm_rows_reference(x, w["ln1_scale"], w["ln1_bias"]), ln_work(rows, dim),
+                 lambda: timer(lambda: F_.layer_norm(x, (dim,), w["ln1_scale"], w["ln1_bias"], fb.LN_EPS)), None),
+                ("gemm_bf16[qkv]", lambda: fb.gemm_bf16(h, w["w_qkv"], "qkv"),
+                 lambda: fb.gemm_bf16_reference(h, w["w_qkv"], "qkv"), gemm_work(rows, 3 * inner, dim),
+                 lambda: timer(lambda: F_.linear(h, w["w_qkv"])), None),
+                ("attention_rows", lambda: fb.attention_rows(qkv, **akw),
+                 lambda: fb.attention_rows_reference(qkv, **akw), attention_work(b, n, heads),
+                 lambda: timer(lambda: F_.scaled_dot_product_attention(q, k, v)), None),
+                ("gemm_bf16[block_out]", lambda: fb.gemm_bf16(m, w["w_out"], "block_out", **okw),
+                 lambda: fb.gemm_bf16_reference(m, w["w_out"], "block_out", **okw),
+                 gemm_work(rows, dim, inner, bias=bias), lambda: timer(lambda: F_.linear(m, w["w_out"], b_out)), None),
+            ]
+        if backward:
+            w_out_t, w_qkv_t = w["w_out"].t().contiguous(), w["w_qkv"].t().contiguous()
+            dm = fb.gemm_bf16(dy, w_out_t, "cast")
+            _, dqkv = fb.attention_bwd_rows(qkv, dm, **akw)
+            dh = fb.gemm_f32out(dqkv, w_qkv_t)
+            aten = torch.ops.aten
+            _, mean, rstd = aten.native_layer_norm(x, [dim], w["ln1_scale"], w["ln1_bias"], fb.LN_EPS)
+            g16 = dh.to(x.dtype)
+            with torch.inference_mode(False), torch.enable_grad():
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
+                sdpa_ms = timer(lambda: torch.autograd.grad(F_.scaled_dot_product_attention(*leaves), leaves, go))
+            entries += [
+                ("attention_bwd_rows", lambda: fb.attention_bwd_rows(qkv, dm, **akw),
+                 lambda: fb.attention_bwd_rows_reference(qkv, dm, **akw), attention_work(b, n, heads, backward=True),
+                 None, (sdpa_ms, SDPA_FWD_BWD)),
+                ("gemm_f32out", lambda: fb.gemm_f32out(dqkv, w_qkv_t), lambda: fb.gemm_f32out_reference(dqkv, w_qkv_t),
+                 gemm_work(rows, dim, 3 * inner, out_bytes=4), None, (timer(lambda: F_.linear(dqkv, w_qkv_t)), None)),
+                ("layernorm_bwd_rows", lambda: fb.layernorm_bwd_rows(x, dh, w["ln1_scale"], residual=dy),
+                 lambda: fb.layernorm_bwd_rows_reference(x, dh, w["ln1_scale"], residual=dy),
+                 ln_bwd_work(rows, dim, residual=True),
+                 lambda: timer(lambda: aten.native_layer_norm_backward(g16, x, [dim], mean, rstd, w["ln1_scale"],
+                                                                       w["ln1_bias"], [True, True, True])), None),
+            ]
+        for name, kern, twin, wk, lib, prod in entries:
+            if sites is not None and name not in sites:
+                continue
+            lib_ms = lib() if lib is not None else None
+            p1, k1, k2, p2 = (timer(f) for f in (twin, kern, kern, twin))
+            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
+            record(per_kernel, f"{name} @ {label}", km, pm, wk, library_ms=lib_ms,
+                   product_ms=None if prod is None else prod[0], product_of=None if prod is None else prod[1])
+            log(f"  {name} @ {label}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bound_ms(wk)[0]:.4f} ms"
+                + ("" if lib_ms is None else f", library call {lib_ms:.4f} ms")
+                + ("" if prod is None else f", yardstick ({prod[1] or 'F.linear, the bare product'}) {prod[0]:.4f} ms"))
+    sync()
+    return per_kernel, errs
+
+
+def time_zoo5(fb, dev, smi):
+    """Phase 58's kernels: the chain's forward and backward against the twins
+    at JumboViT's block shape (b=64 n=70, dim 64, 2 heads: K = 64 for qkv,
+    one k-tile; LayerNorms of 64 columns) and at SimpleUViT's (n=68, dim
+    1024, 16 heads, served at bs=64, trained at bs=32), the attention
+    block's dropout kernels at the patch-dropout ViT's kept 49 tokens (bs=32,
+    rate 0.1), and the bare gemm_bf16[block_out] (with its bias, no
+    residual) at the KEEL ViT's (b=64 n=65); each of the paths' launches at
+    those shapes timed with L2 flushed.  Returns the records and the
+    errors."""
+    log(f"[58 the new kernel shapes] {smi}")
+    rn = torch.Generator(device=dev).manual_seed(SEED + 58)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=rn, device=dev) * scale).to(torch.bfloat16)
+    per_kernel, errs = {}, {}
+    jumbo_mlp = ZOO5_JUMBO["dim"] * ZOO5_JUMBO["mlp_dim"]
+    for (label, b, n, dim, heads, bias), mlp in zip(ZOO5_BLOCKS, (jumbo_mlp, CONFIG1["mlp_dim"])):
+        errs.update({f"{k} @ {label}": e for k, e in check_chain_shape(fb, rnd, label, b, n, dim, heads, mlp).items()
+                     if k in BLOCK_FWD_KERNELS})
+        times, block_errs = block_entry_times(fb, rnd, label, b, n, dim, heads, bias)
+        per_kernel.update(times)
+        errs.update(block_errs)
+    # SimpleUViT trained at bs=32: the backward's kernels at that shape
+    label, _, n, dim, heads, _ = ZOO5_BLOCKS[1]
+    errs.update({f"{k} @ {label}": e for k, e in check_chain_shape(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads,
+                                                                    CONFIG1["mlp_dim"]).items() if k in CHAIN_BWD})
+    per_kernel.update(block_entry_times(fb, rnd, label, ZOO3_TRAIN_BS, n, dim, heads, False, forward=False,
+                                        backward=True)[0])
+    errs.update(check_dropout_shape(fb, rnd, "patch-dropout kept", ZOO3_TRAIN_BS, ZOO5_KEPT, 1024, 16, 2048))
+    per_kernel.update(chain_entry_times(fb, rnd, "patch-dropout kept", ZOO3_TRAIN_BS, ZOO5_KEPT, 1024, 16, 2048,
+                                        dropout_rate=RATE))
+    times, keel_errs = block_entry_times(fb, rnd, "KEEL", ZOO3_BS, CONFIG1_N, 1024, 16, True,
+                                         sites=("gemm_bf16[block_out]",))
+    per_kernel.update({k.replace("[block_out]", "[block_out, bare]"): v for k, v in times.items()})
+    errs.update({k.replace("[block_out]", "[block_out, bare]"): v for k, v in keel_errs.items()})
     sync()
     return per_kernel, errs
 
@@ -8860,6 +9230,13 @@ def main():
     errs.update(zoo4_errs)
     phase_done("phases 55-56")
 
+    # -- 57-58. item 9's families 5 and 6 and the MOSS wrapper: served, five trained; their kernel shapes ----------
+    zoo5_served, zoo5_trained = check_zoo5(fb, fa, dev, gen)
+    zoo5_times, zoo5_errs = time_zoo5(fb, dev, smi)
+    per_kernel.update(zoo5_times)
+    errs.update(zoo5_errs)
+    phase_done("phases 57-58")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -8970,6 +9347,21 @@ def main():
                  f"vit_with_patch_merger training at dropout {RATE} (phase 56)",
                  zoo4_trained["vit_with_patch_merger"][name])
            for name in ZOO3_DROPOUT_KERNELS]
+        + [entry(f"{name} @ {label}", SOURCE, TPU_BLOCK_KERNEL, f"{key} serving (phase 57)",
+                 {**zoo5_served[key][0], **zoo5_served[key][1]}[name])
+           for label, key in (("JumboViT", "jumbo_vit"), ("SimpleUViT", "simple_uvit")) for name in BLOCK_FWD_KERNELS]
+        + [entry(f"{name} @ SimpleUViT", {"attention_bwd_rows": ATTN_BWD_SOURCE, "layernorm_bwd_rows": BWD_SOURCE}.get(
+                 name, SOURCE), TPU_BWD_KERNEL, "simple_uvit training (phase 58)", zoo5_trained["simple_uvit"][name])
+           for name in CHAIN_BWD]
+        + [entry(f"{name} @ patch-dropout kept", {"dropout_apply": DROPOUT_SOURCE,
+                                                  "attention_bwd_rows[dropout]": ATTN_BWD_SOURCE,
+                                                  "layernorm_bwd_rows": BWD_SOURCE}.get(name, SOURCE),
+                 TPU_BLOCK_KERNEL if name in ("attention_rows[dropout]", "gemm_bf16[block_out]") else TPU_BWD_KERNEL,
+                 f"vit_with_patch_dropout training at dropout {RATE} (phase 58)",
+                 zoo5_trained["vit_with_patch_dropout"][name])
+           for name in ZOO3_DROPOUT_KERNELS]
+        + [entry("gemm_bf16[block_out, bare] @ KEEL", SOURCE, TPU_BLOCK_KERNEL, "vit_with_keel_post_ln serving (phase 57)",
+                 zoo5_served["vit_with_keel_post_ln"][1]["gemm_bf16[block_out]"])]
     )
     for k in kernels:
         if not k["launches"]:
@@ -9039,7 +9431,15 @@ def main():
         "from one served batch of the patch-merger ViT in phase 55 (layers 7-12 on the attention block), and the "
         "attention block's dropout kernels and the backward's gemm_f32out and layernorm_bwd_rows at bs=32, rate "
         "0.1 (gemm_bf16[block_out] timed with a residual operand, the model adds its residual outside), launches "
-        "from its 3 training steps in phase 56, errors and times from phase 56, every call with L2 flushed)")
+        "from its 3 training steps in phase 56, errors and times from phase 56, every call with L2 flushed; the "
+        "entries '@ JumboViT' and '@ SimpleUViT': the attention block's forward launches (gemm_bf16[block_out] bare: "
+        "no residual, no bias) at b=64 n=70, dim 64, 2 heads and at b=64 n=68, dim 1024, 16 heads, launches from one "
+        "served batch of those models in phase 57, and SimpleUViT's backward launches at bs=32, launches from its 3 "
+        "training steps in phase 58; the entries '@ patch-dropout kept': the attention block's dropout kernels and "
+        "the backward's at b=32 n=49 (the 48 patches kept and the cls token), rate 0.1, launches from the "
+        "patch-dropout ViT's 3 training steps in phase 58; 'gemm_bf16[block_out, bare] @ KEEL': with its bias and no "
+        "residual at b=64 n=65, dim 1024, library_ms F.linear with the bias, launches from one served batch of the "
+        "KEEL ViT in phase 57; errors and times from phase 58, every call with L2 flushed)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -1,7 +1,9 @@
 """The port's introspection wrappers (vit_pytorch_tpu_torch/wrappers/)
 against the JAX package's on the CPU, fp32: Recorder and Extractor on the
 ViT (ViT 32 x 32, patch 8, dim 32, depth 2, heads 2), AcceptVideoWrapper
-on the ViT and on a small two-output image net, with the same weights on
+on the ViT and on a small two-output image net, and with MOSS over the
+ViT's patch tokens (the patch size given, the net's, the net's ViT's;
+causal or not), with the same weights on
 both sides (JAX init, loaded through ``utils/from_jax.py``) and the same
 inputs (numpy seed).  Also the recording predicate: while a Recorder
 records, the attention-block and whole-layer kernels are refused, with the
@@ -9,6 +11,8 @@ device test taken as true.
 
 Tolerances: 5e-5 absolute (the JAX package's fp32 parity bar) and 1e-4
 relative; gradients 5e-5 + 1e-3 relative."""
+
+from typing import Any
 
 import flax.linen as fnn
 import jax
@@ -19,10 +23,12 @@ import torch
 from torch import nn
 
 from vit_pytorch_tpu import ViT as JaxViT
+from vit_pytorch_tpu.models.vivit_with_moss import MOSS as JaxMOSS
 from vit_pytorch_tpu.wrappers.accept_video_wrapper import AcceptVideoWrapper as JaxAVW
 from vit_pytorch_tpu.wrappers.extractor import Extractor as JaxExtractor
 from vit_pytorch_tpu.wrappers.recorder import Recorder as JaxRecorder
 from vit_pytorch_tpu_torch import ViT
+from vit_pytorch_tpu_torch.models.vivit_with_moss import MOSS
 from vit_pytorch_tpu_torch.nn import blocks
 from vit_pytorch_tpu_torch.utils.from_jax import accept_video_wrapper_state_dict_from_jax, vit_state_dict_from_jax
 from vit_pytorch_tpu_torch.wrappers.accept_video_wrapper import AcceptVideoWrapper
@@ -227,6 +233,92 @@ def test_accept_video_wrapper_eval_with_no_grad():
                                    rtol=GRAD_RTOL, err_msg=k)
 
 
-def test_accept_video_wrapper_moss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP: modules to port, item 9"):
-        AcceptVideoWrapper(TwoOut(), moss=dict(dim=6), device="cpu")
+class JaxVitHolder(fnn.Module):
+    """An image net holding a ViT at ``vit`` and no ``patch_size`` of its
+    own (an Extractor-style wrapper)."""
+
+    vit: Any
+
+    @fnn.compact
+    def __call__(self, x, *, train: bool = False):
+        return self.vit(x, train=train)
+
+
+class VitHolder(nn.Module):
+    def __init__(self, vit):
+        super().__init__()
+        self.vit = vit
+
+    def forward(self, x):
+        return self.vit(x)
+
+
+# where MOSS finds the patch size, and whether it is causal
+MOSS_CASES = {
+    "patch_size_given": dict(patch_size=8),
+    "image_net_patch_size": dict(),
+    "image_net_vit_patch_size": dict(),
+    "non_causal": dict(),
+}
+
+
+def _moss_pair(case):
+    """The JAX wrapper with a MOSS module (the JAX wrapper's dict form does not
+    build: flax freezes the dict into a FrozenDict, which it does not take
+    for a dict), the port's built from the dict, around ViTs that return
+    their tokens, the same weights (the JAX init moved by 0.1 N(0, 1))."""
+    kw = MOSS_CASES[case]
+    moss_kw = dict(dim=VIT["dim"], hidden_dim=8, causal=case != "non_causal")
+    holder = case == "image_net_vit_patch_size"
+    cfg = {**VIT, "num_classes": 0}
+    jnet, tnet = JaxViT(**cfg), ViT(**cfg, device="cpu")
+    if holder:
+        jnet, tnet = JaxVitHolder(jnet), VitHolder(tnet)
+    jw = JaxAVW(image_net=jnet, moss=JaxMOSS(**moss_kw), **kw)
+    video = _images((2, 3, 4, 32, 32), seed=1)
+    params = jax.jit(lambda: jw.init(jax.random.PRNGKey(0), jnp.asarray(video)))()["params"]
+    rng = np.random.default_rng(2)
+    params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.standard_normal(np.shape(a)).astype(np.float32), params)
+    tw = AcceptVideoWrapper(tnet, moss=moss_kw, **kw, device="cpu")
+    net_map = (lambda p: {f"vit.{k}": v for k, v in vit_state_dict_from_jax(p["vit"]).items()}) if holder \
+        else vit_state_dict_from_jax
+    tw.load_state_dict(accept_video_wrapper_state_dict_from_jax(params, net_map))
+    return jw, params, tw, video, net_map
+
+
+@pytest.mark.parametrize("case", list(MOSS_CASES))
+def test_accept_video_wrapper_moss_matches_jax(case):
+    """MOSS over the (b, t, 4, 4, d) patch grid of the ViT's tokens, the class
+    token split off and put back: the (b, t, 17, d) output and every
+    gradient of a weighted sum of it (MOSS's, the ViT's) against the JAX
+    wrapper; the class tokens are the ViT's own."""
+    jw, params, tw, video, net_map = _moss_pair(case)
+    w = _images((2, 4, 17, VIT["dim"]), seed=3)
+    loss = lambda p: jnp.sum(jw.apply({"params": p}, jnp.asarray(video)) * w)
+    want, grads = jax.jit(jax.value_and_grad(loss))(params)
+    out = tw(torch.from_numpy(video))
+    assert out.shape == (2, 4, 17, VIT["dim"])
+    got = (out * torch.from_numpy(w)).sum()
+    _close(got, want, atol=1e-3)
+    got.backward()
+    want_grads = accept_video_wrapper_state_dict_from_jax(jax.tree.map(np.asarray, grads), net_map)
+    assert any(k.startswith("moss.") for k in want_grads)
+    for k, p in tw.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[k].numpy(), atol=ATOL, rtol=GRAD_RTOL, err_msg=k)
+    with torch.no_grad():
+        frames = torch.from_numpy(video).transpose(1, 2).reshape(8, 3, 32, 32)
+        _close(out[:, :, 0].reshape(8, -1), tw.image_net(frames)[:, 0].numpy())
+
+
+def test_accept_video_wrapper_moss_module_or_dict():
+    """A MOSS module is taken as it is (its weights under ``moss.``), a dict
+    builds one on the wrapper's device; without a patch size anywhere MOSS
+    refuses."""
+    moss = MOSS(6, hidden_dim=4, device="cpu")
+    tw = AcceptVideoWrapper(TwoOut(), moss=moss, patch_size=1, device="cpu")
+    assert tw.moss is moss and "moss.to_out.weight" in tw.state_dict()
+    built = AcceptVideoWrapper(TwoOut(), moss=dict(dim=6, hidden_dim=4), device="cpu")
+    own = {k for k in built.state_dict() if not k.startswith("image_net.")}
+    assert isinstance(built.moss, MOSS) and own == {f"moss.{k}" for k in moss.state_dict()}
+    with pytest.raises(ValueError, match="patch_size"):
+        built(torch.zeros(1, 3, 2, 4, 4))

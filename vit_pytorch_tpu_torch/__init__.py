@@ -38,8 +38,16 @@ and Twins-SVT (``models.cross_vit``, ``pit``, ``xcit``, ``local_vit``,
 ``sep_vit``), ATS-ViT, the patch-merger ViT (its layers after the merge on
 the attention-block kernels), the learnable-memory ViT with its Adapter and
 LookViT (``models.ats_vit``, ``vit_with_patch_merger``,
-``learnable_memory_vit``, ``look_vit``).  Models are imported by submodule
-path, as in the JAX package.
+``learnable_memory_vit``, ``look_vit``); nViT, JumboViT, SimpleUViT,
+ViTDetPool, JetViT and WWT (``models.normalized_vit``, ``jumbo_vit``,
+``simple_uvit``, ``vit_detpool``, ``jet_vit``, ``wwt``), ViViT with MOSS
+(``models.vivit_with_moss``, which the AcceptVideoWrapper's ``moss`` runs),
+the decorrelation, KEEL post-LN and patch-dropout ViTs
+(``models.vit_with_decorr``, ``vit_with_keel_post_ln``,
+``vit_with_patch_dropout``), the attention of JumboViT, SimpleUViT, the
+mask-free ViTDetPool and the KEEL ViT on the attention-block kernels, the
+patch-dropout ViT's layers on the whole-layer kernels.  Models are imported
+by submodule path, as in the JAX package.
 """
 
 from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT

@@ -44,7 +44,15 @@ weights), ``convert_levit`` (with its ``batch_stats``; the distillation
 head, which it does not map, at ``distill_head``), ``convert_crossformer``,
 ``convert_regionvit``, ``convert_scalable_vit``,
 ``convert_vit_with_patch_merger``, ``convert_learnable_memory_vit``,
-``convert_adapter``, ``convert_ats_vit`` and ``convert_look_vit``.
+``convert_adapter``, ``convert_ats_vit`` and ``convert_look_vit``.  Item
+9's families 5 and 6 have the inverses of
+``convert_vit_with_patch_dropout``, ``convert_vit_with_keel_post_ln``,
+``convert_simple_uvit``, ``convert_jumbo_vit``, ``convert_vit_detpool``,
+``convert_normalized_vit`` (each NormLinear's raw weight at the key the
+reference's parametrization gives it), ``convert_jet_vit`` (the kinds a
+layer builds), ``convert_vit_with_decorr``, ``convert_wwt`` and
+``convert_vivit_moss`` (MOSS's channel LayerNorm gains as (1, c, 1, 1)
+``gamma``s); the AcceptVideoWrapper's map also takes its ``moss``.
 ``tool_layer_from_jax``
 carries the weight tuples of the JAX package's layer prototypes in
 ``tools/`` over to the port's bench tools (``vit_pytorch_tpu_torch/tools/``).
@@ -1184,15 +1192,201 @@ def vat_family_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 
+# models/vivit_with_moss.py::MOSS, under "moss" in ViViT and in AcceptVideoWrapper;
+# its channel LayerNorms' gains become (1, c, 1, 1) gammas (_moss_gammas)
+_MOSS_MODULES = (
+    (r"moss/encoders_(\d+)/(spatial_to_hidden|time_to_out)", r"moss.encoders.\1.\2"),
+    *((rf"moss/encoders_(\d+)/{jax}", rf"moss.encoders.\1.conv.{i}")
+      for jax, i in (("conv0", 0), ("conv_norm0", 1), ("conv1", 3), ("conv_norm1", 4))),
+    (r"moss/to_order_out_(\d+)", r"moss.to_order_out.\1"),
+    (r"moss/to_out", "moss.to_out"),
+)
+
+
+def _moss_gammas(state: dict) -> dict:
+    return {re.sub(r"(conv\.[14])\.weight$", r"\1.gamma", k): v.reshape(1, -1, 1, 1) if re.search(
+        r"conv\.[14]\.weight$", k) else v for k, v in state.items()}
+
+
+def moss_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vivit_with_moss.py::MOSS``'s own ``params`` tree ->
+    the port ``MOSS``'s ``state_dict``."""
+    return {k.removeprefix("moss."): v for k, v in _moss_gammas(_state_dict({"moss": params}, _MOSS_MODULES,
+                                                                            ())).items()}
+
+
 def accept_video_wrapper_state_dict_from_jax(params: Mapping, image_net_from_jax=vit_state_dict_from_jax):
     """The JAX ``wrappers/accept_video_wrapper.py::AcceptVideoWrapper``'s
-    ``params`` tree -> the port's ``state_dict``: ``embed_proj`` and
-    ``pos_emb``, and the wrapped net's ``image_net`` subtree through
-    ``image_net_from_jax`` (the map of its model)."""
+    ``params`` tree -> the port's ``state_dict``: ``embed_proj``,
+    ``pos_emb`` and the MOSS module's ``moss`` subtree, and the wrapped net's
+    ``image_net`` subtree through ``image_net_from_jax`` (the map of its
+    model)."""
     out = {f"image_net.{k}": v for k, v in image_net_from_jax(params.get("image_net", {})).items()}
-    out.update(_state_dict({k: v for k, v in params.items() if k != "image_net"}, (("embed_proj", "embed_proj"),),
-                           ("pos_emb",)))
+    out.update(_moss_gammas(_state_dict({k: v for k, v in params.items() if k != "image_net"},
+                                        (("embed_proj", "embed_proj"), *_MOSS_MODULES), ("pos_emb",))))
     return out
+
+
+def vit_with_patch_dropout_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_with_patch_dropout.py::ViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of
+    ``convert_vit_with_patch_dropout``): the bare patch Linear at
+    ``to_patch_embedding.1``, no transformer norm, the LN -> Linear head."""
+    modules = ((r"patch_embedding/proj", "to_patch_embedding.1"), *_VIT_MODULES[3:9], *_LN_LINEAR_HEAD)
+    return _state_dict(params, modules, _TOP_LEVEL)
+
+
+def vit_with_keel_post_ln_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_with_keel_post_ln.py::ViT``'s ``params`` tree ->
+    the port's ``state_dict`` (the inverse of
+    ``convert_vit_with_keel_post_ln``): layer i's attention at
+    ``transformer.layers.{2i}``, its FF at ``{2i + 1}``."""
+    depth = sum(1 for k in params if re.fullmatch(r"layers_\d+_attn", k))
+    modules = _PATCH_EMBEDDING + tuple(
+        m for i in range(depth) for m in (
+            (rf"layers_{i}_attn/(norm|to_qkv)", rf"transformer.layers.{2 * i}.\1"),
+            (rf"layers_{i}_attn/to_out", f"transformer.layers.{2 * i}.to_out.0"),
+            (rf"layers_{i}_ff/norm", f"transformer.layers.{2 * i + 1}.net.0"),
+            (rf"layers_{i}_ff/fc1", f"transformer.layers.{2 * i + 1}.net.1"),
+            (rf"layers_{i}_ff/fc2", f"transformer.layers.{2 * i + 1}.net.4"),
+        )
+    ) + ((r"post_norms_(\d+)", r"transformer.post_norms.\1"), (r"mlp_head", "mlp_head"))
+    return _state_dict(params, modules, _TOP_LEVEL)
+
+
+def simple_uvit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/simple_uvit.py::SimpleUViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_simple_uvit``)."""
+    modules = _PATCH_EMBEDDING + (
+        (r"layers_(\d+)_combine_skip", r"transformer.layers.\1.0"),
+        (r"layers_(\d+)_attn/(norm|to_qkv|to_out)", r"transformer.layers.\1.1.\2"),
+        (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.2.0"),
+        (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.2.1"),
+        (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.2.3"),
+        (r"norm", "transformer.norm"),
+        (r"linear_head", "linear_head"),
+    )
+    return _state_dict(params, modules, ("register_tokens",))
+
+
+def jumbo_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/jumbo_vit.py::JumboViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_jumbo_vit``)."""
+    modules = _PATCH_EMBEDDING + (
+        (r"layers_(\d+)_attn/(norm|to_qkv|to_out)", r"layers.\1.0.\2"),
+        (r"layers_(\d+)_ff/norm", r"layers.\1.1.0"),
+        (r"layers_(\d+)_ff/fc1", r"layers.\1.1.1"),
+        (r"layers_(\d+)_ff/fc2", r"layers.\1.1.3"),
+        (r"jumbo_ff/norm", "jumbo_ff.1.0"),
+        (r"jumbo_ff/fc1", "jumbo_ff.1.1"),
+        (r"jumbo_ff/fc2", "jumbo_ff.1.3"),
+        (r"(norm|linear_head)", r"\1"),
+    )
+    return _state_dict(params, modules, ("jumbo_cls_token",))
+
+
+# the ViT's layers flat at the top of the JAX tree, under transformer in the port
+_FLAT_VIT_LAYERS = (
+    (r"layers_(\d+)_attn/(norm|to_qkv)", r"transformer.layers.\1.0.\2"),
+    (r"layers_(\d+)_attn/to_out", r"transformer.layers.\1.0.to_out.0"),
+) + _FF_LAYERS + ((r"norm", "transformer.norm"), (r"mlp_head", "mlp_head"))
+
+
+def vit_detpool_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_detpool.py::ViTDetPool``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_vit_detpool``)."""
+    return _state_dict(params, _PATCH_EMBEDDING + _FLAT_VIT_LAYERS, _TOP_LEVEL)
+
+
+def vit_with_decorr_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vit_with_decorr.py::ViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_vit_with_decorr``): the
+    FF's LayerNorm beside its ``net``, fc2 at ``net.3``.  The subspace
+    projections (the JAX ``buffers`` collection) are no parameters: copy
+    them into ``decorr_loss.proj``."""
+    modules = _PATCH_EMBEDDING + (
+        (r"layers_(\d+)_ff/norm", r"transformer.layers.\1.1.norm"),
+        (r"layers_(\d+)_ff/fc1", r"transformer.layers.\1.1.net.0"),
+        (r"layers_(\d+)_ff/fc2", r"transformer.layers.\1.1.net.3"),
+    ) + _FLAT_VIT_LAYERS
+    return _state_dict(params, modules, _TOP_LEVEL)
+
+
+def normalized_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/normalized_vit.py::nViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_normalized_vit``): each
+    NormLinear kernel (in, out) the raw (out, in) weight at
+    ``<module>.linear.parametrizations.weight.original``, the position
+    embedding's (dim, num_patches) too."""
+    weight = ".linear.parametrizations.weight.original"
+    modules = (
+        (r"patch_embedding", "to_patch_embedding.1"),
+        (r"layers_(\d+)_attn/(to_q|to_k|to_v|to_out)", r"layers.\1.0.\2"),
+        (r"layers_(\d+)_ff/(to_hidden|to_gate|to_out)", r"layers.\1.1.\2"),
+        (r"to_pred", "to_pred"),
+    )
+    top = (
+        "logit_scale",
+        (r"residual_lerp_scales_(\d+)_attn", r"residual_lerp_scales.\1.0"),
+        (r"residual_lerp_scales_(\d+)_ff", r"residual_lerp_scales.\1.1"),
+        (r"layers_(\d+)_attn/(q_scale|k_scale)", r"layers.\1.0.\2"),
+        (r"layers_(\d+)_ff/(hidden_scale|gate_scale)", r"layers.\1.1.\2"),
+    )
+    rest = {k: v for k, v in params.items() if k != "abs_pos_emb"}
+    out = {re.sub(r"\.weight$", weight, k) if k.endswith(".weight") else k: v
+           for k, v in _state_dict(rest, modules, top).items()}
+    out[f"abs_pos_emb{weight}"] = torch.from_numpy(np.ascontiguousarray(np.array(params["abs_pos_emb"]).T))
+    return out
+
+
+_JET_KINDS = (("fa", "FA"), ("wa", "WA"), ("la", "LA"))
+
+
+def jet_vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/jet_vit.py::JetViT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_jet_vit`` with the same
+    ``attn_layers``): each built kind under
+    ``transformer.layers.N.0.options.FA|WA|LA``."""
+    modules = _PATCH_EMBEDDING + tuple(
+        m for jax, kind in _JET_KINDS for m in (
+            (rf"layers_(\d+)_{jax}/(norm|to_qkv)", rf"transformer.layers.\1.0.options.{kind}.\2"),
+            (rf"layers_(\d+)_{jax}/to_out", rf"transformer.layers.\1.0.options.{kind}.to_out.0"),
+            (rf"layers_(\d+)_{jax}", rf"transformer.layers.\1.0.options.{kind}"),  # WA's rel_pos_bias
+            (rf"layers_(\d+)_{jax}/dynamic_conv/mlp_fc1", rf"transformer.layers.\1.0.options.{kind}.dynamic_conv.mlp.0"),
+            (rf"layers_(\d+)_{jax}/dynamic_conv/mlp_fc2", rf"transformer.layers.\1.0.options.{kind}.dynamic_conv.mlp.2"),
+        )
+    ) + _FF_LAYERS + ((r"norm", "transformer.norm"), (r"mlp_head", "mlp_head"))
+    return _state_dict(params, modules, ("pos_embedding",))
+
+
+def wwt_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/wwt.py::WWT``'s ``params`` tree -> the port's
+    ``state_dict`` (the inverse of ``convert_wwt``; ``mask_project`` and the
+    token head, which it does not map, in the port's names)."""
+    modules = _PATCH_EMBEDDING + (
+        (r"layers_(\d+)_norm_(\d+)", r"layers.\1.norms.\2"),
+        (r"layers_(\d+)_attn_(\d+)/(to_q_v_tokens|to_k_v_slots|mask_project)", r"layers.\1.attns.\2.\3"),
+        (r"layers_(\d+)_attn_(\d+)/(to_out_tokens|to_out_slots)", r"layers.\1.attns.\2.\3.0"),
+        *((rf"layers_(\d+)_attn_(\d+)/mlp_mask/{jax}", rf"layers.\1.attns.\2.mlp_mask.{i}")
+          for jax, i in (("norm", 0), ("fc1", 1), ("fc2", 4))),
+        *((rf"layers_(\d+)_mlp_(\d+)/{jax}", rf"layers.\1.mlps.\2.{i}") for jax, i in (("norm", 0), ("fc1", 1),
+                                                                                        ("fc2", 4))),
+        (r"head_norm", "mlp_head.0"),
+        (r"mlp_head", "mlp_head.1"),
+        (r"token_head_norm", "mlp_head_tokens.0"),
+        (r"mlp_head_tokens", "mlp_head_tokens.1"),
+    )
+    top = ("pos_embedding", "register_tokens", (r"slots_(\d+)", r"slots.\1"),
+           (r"register_slots_(\d+)", r"register_slots.\1"))
+    return _state_dict(params, modules, top)
+
+
+def vivit_moss_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``models/vivit_with_moss.py::ViViT``'s ``params`` tree -> the
+    port's ``state_dict`` (the inverse of ``convert_vivit_moss``)."""
+    modules = _LN_LINEAR_HEAD + _VIVIT_MODULES + _MOSS_MODULES
+    top = ("pos_embedding", "spatial_cls_token", "temporal_cls_token")
+    return _moss_gammas(_state_dict(params, modules, top))
 
 
 def tool_layer_from_jax(weights) -> tuple[torch.Tensor, ...]:
