@@ -395,6 +395,33 @@ Phases, each printed as it ends:
      dropout kernels and the backward's at the same shapes at bs=32 against
      the twins and timed, each an entry of the kernels line (as every
      chain entry, timed with L2 flushed before each call).
+ 55-58. ROADMAP item 9's families 3b, 4, 5 and 6 and the MOSS wrapper
+     (see the verify skill).
+ 59. the training infrastructure (ROADMAP item 11a) on ViT-B/16 @224,
+     depth 12, bf16, dropout 0: a seeded host set of 192 images fed as
+     minibatches (rng default_rng((1, epoch)), bs=32) through
+     prefetch_to_device(depth=2, host_workers=True) to make_train_step,
+     saved each epoch by CheckpointManager(max_to_keep=2, async_save=True);
+     4 epochs uninterrupted against 2 epochs, a new model and optimizer
+     restored from the latest step, and 2 more: parameters and Adam moments
+     bitwise equal, exact counters every step, the last 2 steps kept; a
+     prefetch stress (50 distinct batches at depth 3, each summed on the
+     card as it is yielded, every checksum its host batch's); an epoch fed by
+     direct .to(), by prefetch_to_device and by it with host_workers, in
+     turns, at bs=32 and at bs=256 (ms);
+ 60. serving and artifacts: Predictor.from_checkpoint of phase 59's last
+     step into a model built on meta (compiled_buckets after construction
+     (1, 8, 32, 128)); requests of 1, 5, 32 and 130 images bitwise the
+     logits of a Predictor of the in-memory trained model, 12 x 7 launches
+     a bucket run; cost_analysis(8) on the card equal to the CPU count and
+     to the count from the widths; the served model exported on the card
+     and loaded in a subprocess that imports torch and
+     vit_pytorch_tpu_torch.ops and no model code, batches of 1, 5 and 130
+     within phase 4's plain-bf16 logit bound of the Predictor's (rel L2;
+     max |d| printed) with 12 x 7 launches each; entry() once ((8, 1000),
+     finite, on the card); the host us of one layer's 7 launches at bs=1
+     through the eager implementation against the registered ops, in
+     turns.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -411,6 +438,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -8798,6 +8826,329 @@ def time_zoo5(fb, dev, smi):
     return per_kernel, errs
 
 
+# -- phases 59-60: checkpoints, the input pipeline, the Predictor, artifacts (ROADMAP item 11a) --------------
+INFRA_IMAGES, INFRA_BATCH, INFRA_EPOCHS, INFRA_SPLIT = 192, 32, 4, 2
+PREFETCH_STRESS_BATCHES, PREFETCH_STRESS_DEPTH = 50, 3
+PREFETCH_BIG_BATCH = 256  # where the step is bound by the card, not by the host's launches
+ARTIFACT_REQUESTS = (1, 5, 130)
+
+
+def infra_data():
+    """Phase 59's host set: seeded numpy images (f32) and labels."""
+    rng = np.random.default_rng(SEED)
+    return {"x": rng.standard_normal((INFRA_IMAGES, 3, 224, 224), dtype=np.float32),
+            "y": rng.integers(0, 1000, INFRA_IMAGES)}
+
+
+def infra_model(dev, seed):
+    from vit_pytorch_tpu_torch import ViT
+
+    return ViT(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP,
+               device=dev, generator=torch.Generator(device=dev).manual_seed(seed)).to(torch.bfloat16)
+
+
+def infra_run(fb, dev, data, ckpt_dir, epochs, resume):
+    """Epochs of minibatches -> prefetch_to_device -> make_train_step, saved
+    each epoch; with ``resume`` a new model (another seed) and optimizer
+    restore the latest step first.  Exact counters every step.  Returns the
+    state and the steps taken."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+    from vit_pytorch_tpu_torch.utils.checkpoint import CheckpointManager
+    from vit_pytorch_tpu_torch.utils.data import minibatches, prefetch_to_device
+
+    state = create_train_state(infra_model(dev, SEED + 1 if resume else SEED))
+    step = make_train_step(state.model)
+    want = {k: DEPTH * TRAIN_LAUNCHES_PER_LAYER.get(k, 0) for k in fb.LAUNCHES}
+    steps = 0
+    with CheckpointManager(ckpt_dir, max_to_keep=2, async_save=True) as mgr:
+        start = 0
+        if resume:
+            mgr.restore(state)
+            start = mgr.latest_step()
+        for epoch in range(start, epochs):
+            feed = prefetch_to_device(minibatches(data, INFRA_BATCH, rng=np.random.default_rng((1, epoch))), depth=2,
+                                      host_workers=True, device=dev)
+            for batch in feed:
+                fb.reset_launch_counts()
+                step(state, batch["x"].to(torch.bfloat16), batch["y"])
+                if dict(fb.LAUNCHES) != want:
+                    fail(f"phase 59: step {state.step} launched {fb.LAUNCHES}, expected {want}")
+                steps += 1
+            mgr.save(epoch + 1, state)
+    return state, steps, list(mgr.all_steps())  # after close: the last async save has committed
+
+
+def adam_moments(state):
+    return [(i, key, t) for i, moments in sorted(state.optimizer.state_dict()["state"].items())
+            for key, t in sorted(moments.items())]
+
+
+def check_resume(fb, dev, tmp):
+    """Phase 59: returns (the uninterrupted run's state, its checkpoint
+    directory)."""
+    data = infra_data()
+    log(f"[59 infrastructure] ViT-B/16 @224, depth {DEPTH}, bf16, dropout 0, seed {SEED}; {INFRA_IMAGES} host "
+        f"images, bs={INFRA_BATCH}, minibatches -> prefetch_to_device(depth=2, host_workers=True) -> make_train_step, "
+        f"CheckpointManager(max_to_keep=2, async_save=True) each epoch")
+    full_dir, split_dir = os.path.join(tmp, "full"), os.path.join(tmp, "split")
+    t0 = time.perf_counter()
+    full, full_steps, full_kept = infra_run(fb, dev, data, full_dir, INFRA_EPOCHS, False)
+    sync()
+    t_full = time.perf_counter() - t0
+    _, first_steps, _ = infra_run(fb, dev, data, split_dir, INFRA_SPLIT, False)
+    resumed, second_steps, split_kept = infra_run(fb, dev, data, split_dir, INFRA_EPOCHS, True)
+    sync()
+    per_epoch = INFRA_IMAGES // INFRA_BATCH
+    log(f"  {INFRA_EPOCHS} epochs uninterrupted: {full_steps} steps in {t_full:.2f} s (checkpoints included), kept "
+        f"{full_kept}; split: {first_steps} + {second_steps} steps, kept {split_kept}; exact counters every step "
+        f"({DEPTH} x {sum(TRAIN_LAUNCHES_PER_LAYER.values())})")
+    if (full_steps, first_steps, second_steps) != (INFRA_EPOCHS * per_epoch, INFRA_SPLIT * per_epoch,
+                                                   (INFRA_EPOCHS - INFRA_SPLIT) * per_epoch):
+        fail("phase 59: the runs took the wrong number of steps")
+    if full_kept != [INFRA_EPOCHS - 1, INFRA_EPOCHS] or split_kept != full_kept:
+        fail(f"phase 59: retention kept {full_kept} / {split_kept}, expected the last 2 steps")
+    if full.step != resumed.step:
+        fail(f"phase 59: step {full.step} uninterrupted vs {resumed.step} resumed")
+    differ = [name for (name, a), b in zip(full.model.state_dict().items(), resumed.model.state_dict().values())
+              if not torch.equal(a, b)]
+    moments_a, moments_b = adam_moments(full), adam_moments(resumed)
+    differ += [f"adam {i} {key}" for (i, key, a), (_, _, b) in zip(moments_a, moments_b) if not torch.equal(a, b)]
+    log(f"  resume after {INFRA_SPLIT} of {INFRA_EPOCHS} epochs: {len(full.model.state_dict())} tensors and "
+        f"{len(moments_a)} Adam state tensors, {len(differ)} not bitwise equal")
+    if differ or len(moments_a) != len(moments_b):
+        fail(f"phase 59: the resumed run differs from the uninterrupted one: {differ[:8]}")
+    check_prefetch_stress(dev)
+    time_prefetch(dev, data, INFRA_BATCH)
+    rng = np.random.default_rng(SEED + 1)  # a device-bound batch: 3 steps of bs=256
+    big = {"x": rng.standard_normal((3 * PREFETCH_BIG_BATCH, 3, 224, 224), dtype=np.float32),
+           "y": rng.integers(0, 1000, 3 * PREFETCH_BIG_BATCH)}
+    time_prefetch(dev, big, PREFETCH_BIG_BATCH)
+    return full, full_dir
+
+
+def check_prefetch_stress(dev):
+    """50 distinct batches at depth 3, each summed on the card as soon as it
+    is yielded and then dropped; every checksum must be its host batch's."""
+    from vit_pytorch_tpu_torch.utils.data import prefetch_to_device
+
+    rng = np.random.default_rng(SEED + 59)
+    host = [{"x": rng.integers(0, 256, (INFRA_BATCH, 3, 224, 224), dtype=np.uint8)}  # uint8 images: exact sums
+            for _ in range(PREFETCH_STRESS_BATCHES)]
+    sums = [b["x"].sum() for b in prefetch_to_device(iter(host), depth=PREFETCH_STRESS_DEPTH, device=dev)]
+    got = [int(v) for v in sums]
+    want = [int(b["x"].sum(dtype=np.int64)) for b in host]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    log(f"  prefetch stress: {len(got)} batches of {host[0]['x'].nbytes / 2**20:.1f} MiB at depth "
+        f"{PREFETCH_STRESS_DEPTH}, {len(bad)} checksums wrong")
+    if len(got) != len(want) or bad:
+        fail(f"phase 59: prefetched batches {bad} differ from their host batches")
+
+
+def time_prefetch(dev, data, batch_size):
+    """Epochs fed by a direct .to() of each batch, through
+    prefetch_to_device(depth=2) and through it with host_workers=True (the
+    batches gathered and staged in pinned memory on a thread), in turns
+    (direct, prefetch, thread, thread, prefetch, direct), on a throwaway copy
+    of the model; returns the mean ms of each feed."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+    from vit_pytorch_tpu_torch.utils.data import minibatches, prefetch_to_device
+
+    state = create_train_state(infra_model(dev, SEED))
+    step = make_train_step(state.model)
+    batches = lambda: minibatches(data, batch_size, rng=np.random.default_rng((1, 0)))  # noqa: E731
+    feeds = {
+        "direct": lambda: ({k: torch.as_tensor(v).to(dev) for k, v in b.items()} for b in batches()),
+        "prefetch": lambda: prefetch_to_device(batches(), depth=2, device=dev),
+        "thread": lambda: prefetch_to_device(batches(), depth=2, host_workers=True, device=dev),
+    }
+
+    def epoch(name):
+        sync()
+        t = time.perf_counter()
+        for batch in feeds[name]():
+            step(state, batch["x"].to(torch.bfloat16), batch["y"])
+        sync()
+        return (time.perf_counter() - t) * 1e3
+
+    for name in feeds:  # warm-up
+        epoch(name)
+    turns = [(name, epoch(name)) for name in ("direct", "prefetch", "thread", "thread", "prefetch", "direct")]
+    mean = {name: statistics.mean(ms for n, ms in turns if n == name) for name in feeds}
+    log(f"  one epoch of {len(data['y']) // batch_size} steps at bs={batch_size}, ms: direct .to() "
+        f"{mean['direct']:.2f}, prefetch_to_device(depth=2) {mean['prefetch']:.2f}, with host_workers "
+        f"{mean['thread']:.2f} (turns " + ", ".join(f"{n} {ms:.2f}" for n, ms in turns) + ")")
+    del state, step
+    torch.cuda.empty_cache()
+    return mean
+
+
+def vit_b_flops(b):
+    """ViT-B/16 @224's forward products from the widths, 2 FLOP a
+    multiply-add: the patch embedding, per layer qkv, out, fc1, fc2, q.k^T
+    and p.v, and the head on the cls token."""
+    inner, patch_dim = HEADS * DH, 3 * 16 * 16
+    layer = 2 * b * N * (DIM * 3 * inner + inner * DIM + 2 * DIM * MLP) + 2 * 2 * b * HEADS * N * N * DH
+    return 2 * b * (N - 1) * patch_dim * DIM + DEPTH * layer + 2 * b * DIM * 1000
+
+
+ARTIFACT_CHILD = r"""
+import json, sys, torch
+import vit_pytorch_tpu_torch.ops
+from vit_pytorch_tpu_torch.ops import fused_block as fb
+from vit_pytorch_tpu_torch.serving import load_model
+art, weights, images, out = sys.argv[1:5]
+fn = load_model(art)
+variables = torch.load(weights, map_location="cuda", weights_only=True)
+imgs = torch.load(images, map_location="cuda", weights_only=True)
+logits, counts = {}, {}
+for k in (1, 5, 130):
+    fb.reset_launch_counts()
+    logits[k] = fn(variables, imgs[:k])
+    torch.cuda.synchronize()
+    counts[k] = {name: v for name, v in fb.LAUNCHES.items() if v}
+torch.save({k: v.cpu() for k, v in logits.items()}, out)
+models = sorted(m for m in sys.modules if m.startswith(("vit_pytorch_tpu_torch.models", "vit_pytorch_tpu_torch.nn")))
+print(json.dumps({"counts": counts, "model_modules": models}))
+"""
+
+
+def check_serving_artifacts(fb, dev, full, ckpt_dir, smi):
+    """Phase 60."""
+    from vit_pytorch_tpu_torch import ViT
+    from vit_pytorch_tpu_torch.entry import entry
+    from vit_pytorch_tpu_torch.serving import Predictor, export_model, forward_flops
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    images = {k: torch.randn(k, 3, 224, 224, generator=gen, device=dev) for k in REQUESTS}
+    last = os.path.join(ckpt_dir, str(INFRA_EPOCHS))
+    log(f"[60 serving and artifacts] Predictor.from_checkpoint of phase 59's step {INFRA_EPOCHS} into a ViT-B/16 "
+        f"built on meta, buckets {BUCKETS}")
+    skeleton = ViT(image_size=224, patch_size=16, num_classes=1000, dim=DIM, depth=DEPTH, heads=HEADS, mlp_dim=MLP,
+                   device="meta")
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(skeleton, last, torch.zeros(1, 3, 224, 224), batch_sizes=BUCKETS, device=dev)
+    log(f"  from_checkpoint with aot=True: {time.perf_counter() - t0:.2f} s; compiled_buckets {pred.compiled_buckets}")
+    if pred.compiled_buckets != BUCKETS:
+        fail(f"phase 60: compiled_buckets {pred.compiled_buckets} after construction, expected {BUCKETS}")
+    memory = Predictor(full.model, example_shape=(3, 224, 224), batch_sizes=BUCKETS, device=dev)
+    runs = sum(-(-k // BUCKETS[-1]) for k in REQUESTS)
+    want = {name: DEPTH * LAUNCHES_PER_LAYER.get(name, 0) * runs for name in fb.LAUNCHES}
+    fb.reset_launch_counts()
+    outs = {k: pred(images[k]) for k in REQUESTS}
+    sync()
+    counts = dict(fb.LAUNCHES)
+    wants = {k: memory(images[k]) for k in REQUESTS}
+    differ = [k for k in REQUESTS if not torch.equal(outs[k], wants[k])]
+    log(f"  requests {REQUESTS}: {runs} bucket runs, launches { {k: v for k, v in counts.items() if v} } "
+        f"(expected { {k: v for k, v in want.items() if v} }); logits bitwise the in-memory model's Predictor: "
+        f"{not differ}")
+    if counts != want or differ:
+        fail(f"phase 60: from_checkpoint serving: counters {counts}, requests whose logits differ {differ}")
+
+    flops_card = pred.cost_analysis(8)["flops"]
+    flops_cpu = forward_flops(pred.model, (8, 3, 224, 224), bf16, device="cpu")
+    log(f"  cost_analysis(8): {flops_card} FLOP on the card, {flops_cpu} on the CPU, {vit_b_flops(8)} from the "
+        f"widths")
+    if not flops_card == flops_cpu == vit_b_flops(8):
+        fail("phase 60: cost_analysis disagrees")
+
+    tmp = os.path.dirname(ckpt_dir)
+    art, weights, imgs_path, out_path = (os.path.join(tmp, name) for name in
+                                         ("vit_b.pt2", "weights.pt", "images.pt", "logits.pt"))
+    t0 = time.perf_counter()
+    blob = export_model(pred.model, pred.model.state_dict(), (3, 224, 224), input_dtype=bf16, path=art)
+    t_export = time.perf_counter() - t0
+    torch.save({k: v.cpu() for k, v in pred.model.state_dict().items()}, weights)
+    batch = images[max(ARTIFACT_REQUESTS)].to(bf16)
+    torch.save(batch.cpu(), imgs_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, art, weights, imgs_path, out_path],
+                          capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_child = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 60: the artifact's subprocess failed: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = torch.load(out_path, weights_only=True)
+    per_call = {name: DEPTH * v for name, v in LAUNCHES_PER_LAYER.items()}
+    errs = {}
+    for k in ARTIFACT_REQUESTS:
+        want_k = pred(batch[:k]).float().cpu()
+        errs[k] = (rel_l2(got[k], want_k), (got[k].float() - want_k).abs().max().item())
+        if child["counts"][str(k)] != per_call or errs[k][0] > LOGITS_VS_PLAIN_BF16:
+            fail(f"phase 60: the artifact at {k} images: launches {child['counts'][str(k)]} (expected {per_call}), "
+                 f"rel L2 {errs[k][0]:.4e} (bound {LOGITS_VS_PLAIN_BF16})")
+    log(f"  export on the card: {len(blob)} bytes in {t_export:.2f} s; loaded in a subprocess ({t_child:.2f} s) that "
+        f"imported {child['model_modules'] or 'no'} model modules; batches {ARTIFACT_REQUESTS}: launches "
+        f"{child['counts']}; vs the Predictor rel L2 / max|d| " +
+        ", ".join(f"{k}: {e[0]:.3e} / {e[1]:.3e}" for k, e in errs.items()) + f" (bound {LOGITS_VS_PLAIN_BF16})")
+    if child["model_modules"]:
+        fail(f"phase 60: the artifact's process imported model code: {child['model_modules']}")
+
+    fn, args = entry()
+    out = fn(*args)
+    sync()
+    log(f"  entry(): {tuple(out.shape)} {out.dtype} on {out.device}, finite {bool(torch.isfinite(out).all())}")
+    if out.shape != (8, 1000) or out.device.type != "cuda" or not bool(torch.isfinite(out).all()):
+        fail("phase 60: entry() gave a wrong output")
+    time_layer_dispatch(fb, dev, smi)
+
+
+def time_layer_dispatch(fb, dev, smi):
+    """Host us of one ViT-B/16 layer's 7 forward launches at bs=1 (n = 197),
+    through the eager implementation (``fused_transformer_layer``, what
+    eager calls run) against the same chain through the registered ops
+    (``torch.ops.vit_torch.*``, the route a traced program takes); 500 calls
+    after 20 warm-up ones, host clock stopped before the synchronize, in
+    turns (eager, ops, ops, eager, three times), under inference_mode."""
+    from types import SimpleNamespace
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    w, kw = layer_weights(rnd)
+    x = rnd(1, N, DIM)
+    vit_torch = torch.ops.vit_torch
+    ops = SimpleNamespace(
+        layernorm_rows=lambda t, s, b, eps: vit_torch.layernorm_rows(t, s, b, eps),
+        gemm_bf16=lambda a, wt, epi, bias=None, residual=None: vit_torch.gemm_bf16(a, wt, epi, bias, residual, 0.0,
+                                                                                   None, 0),
+        attention_rows=lambda qkv, heads, dim_head, scale, n_keys=None: vit_torch.attention_rows(
+            qkv, heads, dim_head, scale, 0.0, None, None, None, qkv.shape[1]),
+    )
+    args = (x, w["w_qkv"], kw["b_qkv"], w["w_out"], kw["b_out"], w["ln1_scale"], w["ln1_bias"], w["ln2_scale"],
+            w["ln2_bias"], w["w1"], w["b1"], w["w2"], w["b2"], HEADS, DH, DH**-0.5, fb.LN_EPS)
+    calls = {"eager": lambda: fb.fused_transformer_layer(x, w["w_qkv"], w["w_out"], w["ln1_scale"], w["ln1_bias"],
+                                                         w["ln2_scale"], w["ln2_bias"], w["w1"], w["b1"], w["w2"],
+                                                         w["b2"], heads=HEADS, dim_head=DH, **kw),
+             "ops": lambda: fb._layer_forward(ops, *args)[0]}
+
+    with torch.inference_mode():
+        if not torch.equal(calls["eager"](), calls["ops"]()):
+            fail("phase 60: the layer through the ops differs from the eager layer")
+
+        def host_us(call):
+            for _ in range(20):
+                call()
+            sync()
+            t = time.perf_counter()
+            for _ in range(500):
+                call()
+            us = (time.perf_counter() - t) * 1e6 / 500
+            sync()
+            return us
+
+        order = ("eager", "ops", "ops", "eager") * 3
+        turns = [(k, host_us(calls[k])) for k in order]
+    got = {k: sorted(us for n, us in turns if n == k) for k in calls}
+    eager, through_ops = statistics.median(got["eager"]), statistics.median(got["ops"])
+    log(f"  one layer's 7 launches at bs=1, host us a call ({smi}), medians of 6 turns: eager {eager:.1f} (range "
+        f"{got['eager'][0]:.1f}-{got['eager'][-1]:.1f}), through the registered ops {through_ops:.1f} (range "
+        f"{got['ops'][0]:.1f}-{got['ops'][-1]:.1f}), {through_ops / eager - 1:+.1%}")
+
+
 def ptxas_report(build_log):
     """One line a kernel from nvcc's ptxas report: the kernel's name with
     its template arguments (flash kernels: <kDropout, kQkNorm>, flash_fwd
@@ -9236,6 +9587,14 @@ def main():
     per_kernel.update(zoo5_times)
     errs.update(zoo5_errs)
     phase_done("phases 57-58")
+
+    # -- 59-60. checkpoints, the input pipeline, the Predictor and artifacts (ROADMAP item 11a) --------------------
+    with tempfile.TemporaryDirectory(prefix="vit-torch-smoke-") as tmp:
+        full, ckpt_dir = check_resume(fb, dev, tmp)
+        phase_done("phase 59")
+        check_serving_artifacts(fb, dev, full, ckpt_dir, smi)
+        del full
+        phase_done("phase 60")
 
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout

@@ -48,13 +48,33 @@ the decorrelation, KEEL post-LN and patch-dropout ViTs
 mask-free ViTDetPool and the KEEL ViT on the attention-block kernels, the
 patch-dropout ViT's layers on the whole-layer kernels.  Models are imported
 by submodule path, as in the JAX package.
+
+The single-card infrastructure of the JAX package's ``utils/`` and
+``serving.py`` is ported too: checkpoints with resume
+(``utils.checkpoint``), the input pipeline (``utils.data``), the whole
+``serving.Predictor`` and the program artifacts of ``serving.export_model``
+/ ``load_model``; ``entry.entry()`` is the flagship forward of the JAX
+``__graft_entry__.py``.
 """
 
-from vit_pytorch_tpu_torch.models.simple_vit import SimpleViT
-from vit_pytorch_tpu_torch.models.vit import ViT
-from vit_pytorch_tpu_torch.ssl.dino import Dino
-from vit_pytorch_tpu_torch.ssl.mae import MAE
+import importlib
 
 __all__ = ["SimpleViT", "ViT", "MAE", "Dino"]
+
+# the top-level names are imported on first use, so that importing a
+# submodule (``vit_pytorch_tpu_torch.ops`` to run an exported program) does
+# not import the models
+_LAZY = {
+    "SimpleViT": "vit_pytorch_tpu_torch.models.simple_vit",
+    "ViT": "vit_pytorch_tpu_torch.models.vit",
+    "Dino": "vit_pytorch_tpu_torch.ssl.dino",
+    "MAE": "vit_pytorch_tpu_torch.ssl.mae",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __version__ = "0.1.0"

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..nn.blocks import LayerNorm, gelu
 from ..ops.attention import dot_product_attention
-from ..utils.helpers import default, default_device, pair
+from ..utils.helpers import default, default_device, pair, table_device
 from .vit import init_modules_like_jax
 
 __all__ = ["CCT", "cct_2", "cct_4", "cct_6", "cct_7", "cct_8", "cct_14", "cct_16"]
@@ -176,8 +176,8 @@ class TransformerClassifier(nn.Module):
         if positional_embedding == "learnable":
             self.positional_emb = nn.Parameter(torch.empty(1, seq_len, embedding_dim, **kw))
         elif positional_embedding == "sine":
-            self.register_buffer("positional_emb", sinusoidal_embedding(seq_len, embedding_dim).to(device),
-                                 persistent=False)
+            pos = sinusoidal_embedding(seq_len, embedding_dim).to(table_device(device))
+            self.register_buffer("positional_emb", pos, persistent=False)
         self.dropout = nn.Dropout(dropout_rate)
         dpr = np.linspace(0, stochastic_depth_rate, num_layers)
         self.blocks = nn.ModuleList(

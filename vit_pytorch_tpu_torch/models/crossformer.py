@@ -34,7 +34,7 @@ from torch import nn
 
 from ..nn.blocks import GELU, LN_EPS
 from ..ops.attention import dot_product_attention
-from ..utils.helpers import cast_tuple, default_device
+from ..utils.helpers import cast_tuple, default_device, table_device
 from .cvt import ChanLayerNorm, from_heads, reset_chan_norms, to_heads
 from .max_vit import rel_pos_indices
 from .vit import init_modules_like_jax
@@ -98,8 +98,9 @@ class Attention(nn.Module):
         self.dpb = dynamic_position_bias(dim // 4, **kw)
         pos = np.arange(-window_size, window_size + 1)
         rel = np.stack(np.meshgrid(pos, pos, indexing="ij"), axis=-1).reshape(-1, 2)
-        self.register_buffer("rel_pos", torch.from_numpy(rel.astype(np.float32)).to(kw["device"]), persistent=False)
-        idx = torch.from_numpy(rel_pos_indices(window_size)).to(kw["device"])
+        self.register_buffer("rel_pos", torch.from_numpy(rel.astype(np.float32)).to(table_device(kw["device"])),
+                             persistent=False)
+        idx = torch.from_numpy(rel_pos_indices(window_size)).to(table_device(kw["device"]))
         self.register_buffer("rel_pos_indices", idx, persistent=False)
         self.to_out = nn.Conv2d(inner, dim, 1, **kw)
 

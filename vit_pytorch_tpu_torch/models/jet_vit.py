@@ -40,7 +40,7 @@ from torch import nn
 from ..nn.blocks import FeedForward, LayerNorm
 from ..nn.patch import PatchEmbedding
 from ..ops.attention import dot_product_attention
-from ..utils.helpers import default_device, pair
+from ..utils.helpers import default_device, pair, table_device
 from .max_vit import rel_pos_indices
 from .vit import init_modules_like_jax
 
@@ -100,8 +100,8 @@ class JetWindowAttention(nn.Module):
         self.norm = LayerNorm(dim, **kw)
         self.to_qkv = nn.Linear(dim, dim * 3, bias=False, **kw)
         self.rel_pos_bias = nn.Embedding((2 * window_size - 1) ** 2, self.heads, **kw)
-        self.register_buffer("rel_pos_indices", torch.from_numpy(rel_pos_indices(window_size)).to(kw["device"]),
-                             persistent=False)
+        idx = torch.from_numpy(rel_pos_indices(window_size)).to(table_device(kw["device"]))
+        self.register_buffer("rel_pos_indices", idx, persistent=False)
         self.attn_dropout = nn.Dropout(dropout)
         self.to_out = nn.Sequential(nn.Linear(dim, dim, bias=False, **kw), nn.Dropout(dropout))
 

@@ -37,7 +37,7 @@ from torch import nn
 
 from ..nn.blocks import LN_EPS, Attention, FeedForward
 from ..nn.patch import PatchEmbedding
-from ..utils.helpers import default_device, pair
+from ..utils.helpers import default_device, pair, table_device
 from .vit import init_modules_like_jax
 
 
@@ -146,7 +146,8 @@ class Adapter(nn.Module):
         n = vit.num_patches + 1
         mask = np.pad(np.ones((n, n), dtype=bool), ((0, 0), (1, m)), constant_values=False)
         mask = np.pad(mask, ((1, 0), (0, 0)), constant_values=True)
-        self.register_buffer("attn_mask", torch.from_numpy(mask)[None, None].to(kw["device"]), persistent=False)
+        self.register_buffer("attn_mask", torch.from_numpy(mask)[None, None].to(table_device(kw["device"])),
+                             persistent=False)
         self.reset_parameters(generator)
 
     @torch.no_grad()

@@ -36,7 +36,7 @@ from torch import nn
 
 from ..nn.blocks import GELU
 from ..ops.attention import dot_product_attention
-from ..utils.helpers import default, default_device
+from ..utils.helpers import default, default_device, table_device
 from .cvt import from_heads, to_heads
 from .max_vit import BatchNorm
 from .vit import init_modules_like_jax
@@ -94,7 +94,7 @@ class Attention(nn.Module):
         self.to_v = proj(inner_v)
         self.pos_bias = nn.Embedding(fmap_size * fmap_size, heads, **kw)
         idx = torch.from_numpy(levit_pos_indices(fmap_size, downsample))
-        self.register_buffer("pos_indices", idx.to(device=kw["device"]), persistent=False)
+        self.register_buffer("pos_indices", idx.to(table_device(kw["device"])), persistent=False)
         self.to_out = nn.Sequential(GELU(), nn.Conv2d(inner_v, dim_out, 1, **kw), BatchNorm(dim_out, **kw),
                                     nn.Dropout(dropout))
 

@@ -37,7 +37,7 @@ from torch import nn
 
 from ..nn.blocks import GELU, UnitOffsetLayerNorm
 from ..nn.posemb import posemb_sincos_2d
-from ..utils.helpers import default_device
+from ..utils.helpers import default_device, table_device
 from .vit import init_modules_like_jax
 
 
@@ -122,7 +122,7 @@ class LookViT(nn.Module):
         self.image_size, self.dim = image_size, dim
         self.main_size = image_size // patch_size
         size = image_size // highres_patch_size
-        pe = posemb_sincos_2d(size, size, dim, device=kw["device"]).reshape(size, size, dim)
+        pe = posemb_sincos_2d(size, size, dim, device=table_device(kw["device"])).reshape(size, size, dim)
         self.register_buffer("pos_embedding", pe, persistent=False)
         p, k = highres_patch_size, patch_conv_kernel_size
         self.to_patches = nn.Sequential(

@@ -38,7 +38,7 @@ from torch import nn
 
 from ..nn.blocks import GELU, LN_EPS
 from ..ops.attention import dot_product_attention
-from ..utils.helpers import default, default_device
+from ..utils.helpers import default, default_device, table_device
 from .vit import init_modules_like_jax
 
 
@@ -188,7 +188,8 @@ class WindowAttention(nn.Module):
         self.to_out = nn.Sequential(nn.Linear(dim, dim, bias=False, **kw), nn.Dropout(dropout))
         self.rel_pos_bias = nn.Embedding(num_rel + (1 if num_registers else 0), self.heads, **kw)
         idx = np.pad(rel_pos_indices(window_size), ((num_registers, 0), (num_registers, 0)), constant_values=num_rel)
-        self.register_buffer("rel_pos_indices", torch.from_numpy(idx).to(device=kw["device"]), persistent=False)
+        self.register_buffer("rel_pos_indices", torch.from_numpy(idx).to(table_device(kw["device"])),
+                             persistent=False)
 
     def forward(self, x):
         shape = x.shape

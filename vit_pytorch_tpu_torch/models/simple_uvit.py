@@ -28,7 +28,7 @@ from torch import nn
 from ..nn.blocks import Attention, FeedForward, LayerNorm
 from ..nn.patch import PatchEmbedding
 from ..nn.posemb import posemb_sincos_2d
-from ..utils.helpers import default_device, pair
+from ..utils.helpers import default_device, pair, table_device
 from .vit import init_modules_like_jax
 
 
@@ -49,9 +49,9 @@ class SimpleUViT(nn.Module):
         self.depth = depth
         self.to_patch_embedding = PatchEmbedding((patch_height, patch_width), channels * patch_height * patch_width,
                                                  dim, **kw)
-        self.register_buffer("pos_embedding", posemb_sincos_2d(image_height // patch_height,
-                                                               image_width // patch_width, dim, device=kw["device"]),
-                             persistent=False)
+        pos = posemb_sincos_2d(image_height // patch_height, image_width // patch_width, dim,
+                               device=table_device(kw["device"]))
+        self.register_buffer("pos_embedding", pos, persistent=False)
         self.register_tokens = nn.Parameter(torch.empty(num_register_tokens, dim, **kw))
         self.transformer = nn.Module()
         self.transformer.layers = nn.ModuleList(

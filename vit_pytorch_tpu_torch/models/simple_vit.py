@@ -26,7 +26,7 @@ from torch import nn
 from ..nn.blocks import SimpleTransformer
 from ..nn.patch import PatchEmbedding
 from ..nn.posemb import posemb_sincos_1d, posemb_sincos_2d, posemb_sincos_3d
-from ..utils.helpers import default_device, pair
+from ..utils.helpers import default_device, pair, table_device
 from .vit import init_modules_like_jax
 
 _POSEMB = {1: posemb_sincos_1d, 2: posemb_sincos_2d, 3: posemb_sincos_3d}
@@ -54,7 +54,8 @@ class SimpleViTBase(nn.Module):
         device = default_device(device)
         kw = {"device": device, "dtype": dtype}
         self.to_patch_embedding = PatchEmbedding(patch, channels * math.prod(patch), dim, **kw)
-        self.register_buffer("pos_embedding", _POSEMB[len(grid)](*grid, dim, device=device), persistent=False)
+        self.register_buffer("pos_embedding", _POSEMB[len(grid)](*grid, dim, device=table_device(device)),
+                             persistent=False)
         self.transformer = transformer if transformer is not None else SimpleTransformer(
             dim, depth, heads, dim_head, mlp_dim, qk_norm=self.qk_norm, final_norm=final_norm, flash=flash, **kw)
         self.linear_head = self._head(dim, num_classes, **kw)

@@ -23,7 +23,7 @@ from torch import nn
 
 from ..nn.patch import PatchEmbedding
 from ..nn.posemb import posemb_sincos_2d
-from ..utils.helpers import pair
+from ..utils.helpers import pair, table_device
 from .simple_vit import SimpleViT as _SimpleViT
 from .vit import init_modules_like_jax
 
@@ -57,13 +57,12 @@ class SimpleViT(_SimpleViT):
         super().__init__(image_size=image_size, patch_size=patch_size, num_classes=num_classes, dim=dim,
                          depth=depth, heads=heads, mlp_dim=mlp_dim, channels=channels, dim_head=dim_head,
                          flash=flash, device=device, dtype=dtype, generator=generator)
-        device = self.pos_embedding.device
+        device = next(self.to_patch_embedding.parameters()).device
         self.to_freq_embedding = PatchEmbedding((fph, fpw), 2 * channels * fph * fpw, dim, device=device,
                                                 dtype=dtype)
         self.to_freq_embedding[0] = FreqPatchify(fph, fpw)
-        self.register_buffer("freq_pos_embedding",
-                             posemb_sincos_2d(image_height // fph, image_width // fpw, dim, device=device),
-                             persistent=False)
+        pos = posemb_sincos_2d(image_height // fph, image_width // fpw, dim, device=table_device(device))
+        self.register_buffer("freq_pos_embedding", pos, persistent=False)
         init_modules_like_jax(self.to_freq_embedding, generator)
 
     def forward(self, img):

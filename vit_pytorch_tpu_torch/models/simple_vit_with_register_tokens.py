@@ -27,7 +27,8 @@ class SimpleViT(_SimpleViT):
                  generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__(dim=dim, device=device, dtype=dtype, generator=generator, **kwargs)
         self.register_tokens = nn.Parameter(
-            torch.empty(num_register_tokens, dim, device=self.pos_embedding.device, dtype=dtype))
+            torch.empty(num_register_tokens, dim, device=next(self.to_patch_embedding.parameters()).device,
+                        dtype=dtype))
         self.register_tokens.data.normal_(generator=generator)
 
     def forward(self, img):

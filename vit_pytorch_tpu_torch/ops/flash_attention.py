@@ -80,9 +80,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ..utils.helpers import default_device
 from ._build import load_library
+from ._library import op_name, traced
 from .fused_block import STREAM_STRIDE, _attn_keep, _dropout_args
 
 BLOCK_Q = BLOCK_K = 64  # kFlashTile: the kernels' query and key tiles
@@ -516,14 +518,51 @@ def flash_fwd(q, k, v, *, scale: float, q_segment_ids=None, kv_segment_ids=None,
         return flash_fwd_reference(q, k, v, scale=scale, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                                    dropout_rate=dropout_rate, seed=seed, gamma_q=gamma_q, gamma_k=gamma_k,
                                    causal=causal, bias=bias)
+    rows = gamma_rows(gamma_q, gamma_k, q)
+    gq, gk = rows if rows else (None, None)
+    if bias is not None:
+        bias, _ = bias_operand(bias, q.device)
+    if traced(q):
+        return torch.ops.vit_torch.flash_fwd(q, k, v, float(scale), q_segment_ids, kv_segment_ids, float(dropout_rate),
+                                             seed, gq, gk, causal, bias)
+    return _flash_fwd(q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gq, gk, causal, bias)
+
+
+@torch.library.custom_op(op_name("flash_fwd"), mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  q_segment_ids: Optional[torch.Tensor], kv_segment_ids: Optional[torch.Tensor], dropout_rate: float,
+                  seed: Optional[int], gamma_q: Optional[torch.Tensor], gamma_k: Optional[torch.Tensor], causal: bool,
+                  bias: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd(q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gamma_q, gamma_k, causal,
+                      bias)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, q_segment_ids, kv_segment_ids, dropout_rate, seed, gamma_q, gamma_k, causal, bias):
+    b, h, n, _ = q.shape
+    return _merged_heads(b, h, n, q), q.new_empty((b, h, n), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.vit_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    """q.k^T and p.v over every (query, key) pair, as the plain composite
+    computes them."""
+    b, h, n, d = q_shape
+    return 2 * b * h * n * k_shape[2] * (d + v_shape[3])
+
+
+def _flash_fwd(q, k, v, scale: float, q_segment_ids, kv_segment_ids, dropout_rate: float, seed, gamma_q, gamma_k,
+               causal: bool, bias):
+    """The launch of :func:`flash_fwd` (the op's implementation); the gammas
+    are :func:`gamma_rows`' and the bias :func:`bias_operand`'s."""
+    ids = _ids(q_segment_ids, kv_segment_ids)
+    drop = _dropout("flash_fwd", dropout_rate, seed, q.shape[1])
     _check("flash_fwd", (q, k, v), ids)
     b, h, n, d = q.shape
     m = k.shape[2]
-    rows = gamma_rows(gamma_q, gamma_k, q)
+    rows = () if gamma_q is None else (gamma_q, gamma_k)
     _check_gamma_rows("flash_fwd", rows, q)
-    bias_bf16 = 0
-    if bias is not None:
-        bias, bias_bf16 = bias_operand(bias, q.device)
+    bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     o = _merged_heads(b, h, n, q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = load_library()

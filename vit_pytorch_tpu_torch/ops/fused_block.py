@@ -89,13 +89,15 @@ import ctypes
 import math
 import os
 from types import SimpleNamespace
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ..utils.helpers import default_device
 from ._build import load_library
+from ._library import op_name, traced
 
 LN_EPS = 1e-5  # torch's LayerNorm default
 _LOG2E = 1.4426950408889634  # log2(e)
@@ -579,6 +581,24 @@ def layernorm_rows(x, weight, bias, *, eps: float = LN_EPS):
     dim = x.shape[-1]
     if weight.shape != (dim,) or bias.shape != (dim,) or dim % 8:
         raise ValueError(f"layernorm_rows: x {tuple(x.shape)}, weight {tuple(weight.shape)}")
+    if traced(x):
+        return torch.ops.vit_torch.layernorm_rows(x, weight, bias, eps)
+    return _layernorm_rows(x, weight, bias, eps)
+
+
+@torch.library.custom_op(op_name("layernorm_rows"), mutates_args=())
+def _layernorm_rows_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    return _layernorm_rows(x, weight, bias, eps)
+
+
+@_layernorm_rows_op.register_fake
+def _(x, weight, bias, eps):
+    return torch.empty_like(x)
+
+
+def _layernorm_rows(x, weight, bias, eps: float):
+    """The launch of :func:`layernorm_rows` (the op's implementation)."""
+    dim = x.shape[-1]
     _check_operands("layernorm_rows", x.device, x, weight, bias)
     out = torch.empty_like(x)
     lib = load_library()
@@ -622,6 +642,34 @@ def gemm_bf16(a, w, epilogue: str, *, bias=None, residual=None, aux=None, dropou
         raise ValueError(f"gemm_bf16[{epilogue}]: needs a residual of shape {out_shape}")
     if epilogue == "block_out" and (a.dim() != 3 or (residual is not None and residual.shape != out_shape)):
         raise ValueError(f"gemm_bf16[block_out]: a {tuple(a.shape)} must be (b, n, in), residual (b, n, out) or None")
+    _dropout_args(f"gemm_bf16[{epilogue}]", dropout_rate, seed)
+    if traced(a):
+        return torch.ops.vit_torch.gemm_bf16(a, w, epilogue, bias, residual, float(dropout_rate), seed, heads)
+    return _gemm_bf16(a, w, epilogue, bias, residual, dropout_rate, seed, heads)
+
+
+@torch.library.custom_op(op_name("gemm_bf16"), mutates_args=())
+def _gemm_bf16_op(a: torch.Tensor, w: torch.Tensor, epilogue: str, bias: Optional[torch.Tensor],
+                  residual: Optional[torch.Tensor], dropout_rate: float, seed: Optional[int],
+                  heads: int) -> torch.Tensor:
+    return _gemm_bf16(a, w, epilogue, bias, residual, dropout_rate, seed, heads)
+
+
+@_gemm_bf16_op.register_fake
+def _(a, w, epilogue, bias, residual, dropout_rate, seed, heads):
+    return a.new_empty((*a.shape[:-1], w.shape[0]))
+
+
+@register_flop_formula(torch.ops.vit_torch.gemm_bf16)
+def _(a_shape, w_shape, *args, **kwargs) -> int:
+    return 2 * math.prod(a_shape[:-1]) * w_shape[0] * w_shape[1]
+
+
+def _gemm_bf16(a, w, epilogue: str, bias, residual, dropout_rate: float, seed, heads: int):
+    """The launch of :func:`gemm_bf16` at a forward epilogue (the op's
+    implementation)."""
+    n_out, k = w.shape
+    out_shape = (*a.shape[:-1], n_out)
     drop = _dropout_args(f"gemm_bf16[{epilogue}]", dropout_rate, seed)
     _check_operands("gemm_bf16", a.device, a, w, bias, residual)
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
@@ -816,8 +864,40 @@ def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate
                                         n_keys=n_keys)
     _check_attention("attention_rows", qkv, heads, dim_head)
     n_keys = _n_keys("attention_rows", qkv.shape[1], n_keys, dropout_rate, gamma_q)
-    drop = _dropout_args("attention_rows", dropout_rate, seed)
+    _dropout_args("attention_rows", dropout_rate, seed)
     gq, gk = _gammas("attention_rows", gamma_q, gamma_k, heads * dim_head)
+    if traced(qkv):
+        return torch.ops.vit_torch.attention_rows(qkv, heads, dim_head, float(scale), float(dropout_rate), seed, gq, gk,
+                                                  n_keys)
+    return _attention_rows(qkv, heads, dim_head, scale, dropout_rate, seed, gq, gk, n_keys)
+
+
+@torch.library.custom_op(op_name("attention_rows"), mutates_args=())
+def _attention_rows_op(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, dropout_rate: float,
+                       seed: Optional[int], gamma_q: Optional[torch.Tensor], gamma_k: Optional[torch.Tensor],
+                       n_keys: int) -> torch.Tensor:
+    return _attention_rows(qkv, heads, dim_head, scale, dropout_rate, seed, gamma_q, gamma_k, n_keys)
+
+
+@_attention_rows_op.register_fake
+def _(qkv, heads, dim_head, scale, dropout_rate, seed, gamma_q, gamma_k, n_keys):
+    return qkv.new_empty((*qkv.shape[:2], heads * dim_head))
+
+
+def _attention_flops(b: int, heads: int, n: int, m: int, dim_head: int) -> int:
+    """q.k^T and p.v of every head: 2 FLOP a multiply-add."""
+    return 2 * 2 * b * heads * n * m * dim_head
+
+
+@register_flop_formula(torch.ops.vit_torch.attention_rows)
+def _(qkv_shape, heads, dim_head, *args, **kwargs) -> int:
+    b, n, _ = qkv_shape
+    return _attention_flops(b, heads, n, n, dim_head)
+
+
+def _attention_rows(qkv, heads: int, dim_head: int, scale: float, dropout_rate: float, seed, gq, gk, n_keys: int):
+    """The launch of :func:`attention_rows` (the op's implementation)."""
+    drop = _dropout_args("attention_rows", dropout_rate, seed)
     _check_operands("attention_rows", qkv.device, qkv, gq, gk)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * dim_head), dtype=qkv.dtype, device=qkv.device)
@@ -1587,14 +1667,46 @@ def stack_layers(x, layers, *, heads: int, dim_head: int, scale: float, eps: flo
                              f", expected {list(shapes)}")
         if any(lw[i] is None for i in (0, 2, 4, 5, 6, 7, 8, 10)):
             raise ValueError("stack_layers: only b_qkv, b_out, b1 and b2 may be None")
-    _check_operands("stack_layers", x.device, x, *(t for lw in layers for t in lw))
+    flat = [t for lw in layers for t in lw]
+    if traced(x):
+        return torch.ops.vit_torch.stack_layers(x, flat, heads, dim_head, float(scale), float(eps), epilogues)
+    return _stack_layers(x, flat, heads, dim_head, scale, eps, epilogues)
+
+
+@torch.library.custom_op(op_name("stack_layers"), mutates_args=())
+def _stack_layers_op(x: torch.Tensor, weights: List[Optional[torch.Tensor]], heads: int, dim_head: int, scale: float,
+                     eps: float, epilogues: str) -> torch.Tensor:
+    return _stack_layers(x, weights, heads, dim_head, scale, eps, epilogues)
+
+
+@_stack_layers_op.register_fake
+def _(x, weights, heads, dim_head, scale, eps, epilogues):
+    return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.vit_torch.stack_layers)
+def _(x_shape, weight_shapes, heads, dim_head, *args, **kwargs) -> int:
+    """Each layer's four products and its attention."""
+    b, n, dim = x_shape
+    rows = b * n
+    per_layer = sum(2 * rows * math.prod(weight_shapes[i]) for i in (0, 2, 8, 10))
+    return len(weight_shapes) // 12 * (per_layer + _attention_flops(b, heads, n, n, dim_head))
+
+
+def _stack_layers(x, flat, heads: int, dim_head: int, scale: float, eps: float, epilogues: str):
+    """The launch of :func:`stack_layers` (the op's implementation); ``flat``
+    is the layers' 12-tuples one after another."""
+    layers = [flat[i : i + 12] for i in range(0, len(flat), 12)]
+    dim, mlp_dim = x.shape[-1], layers[0][8].shape[0]
+    inner = heads * dim_head
+    _check_operands("stack_layers", x.device, x, *flat)
     b, n, _ = x.shape
     rows = b * n
     out = torch.empty_like(x)
     scratch = [torch.empty((rows, width), dtype=x.dtype, device=x.device)
                for width in (dim, 3 * inner, inner, dim, mlp_dim)]  # h, qkv, m, y, a
     barrier = torch.empty((2,), dtype=torch.int32, device=x.device)
-    ptrs = (ctypes.c_void_p * (12 * len(layers)))(*(None if t is None else t.data_ptr() for lw in layers for t in lw))
+    ptrs = (ctypes.c_void_p * len(flat))(*(None if t is None else t.data_ptr() for t in flat))
     lib = load_library()
     err = lib.lib.vit_stack_layers(
         x.data_ptr(), out.data_ptr(), ptrs, len(layers), *(t.data_ptr() for t in scratch), barrier.data_ptr(),

@@ -34,8 +34,10 @@ from types import SimpleNamespace
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import load_library
+from ._library import op_name, traced
 from .flash_attention import DIM_HEAD, bias_operand, kernel_layout
 
 MAX_KEYS = 1024  # the dispatcher's short route ends here (JAX attention.py:247)
@@ -112,6 +114,35 @@ def short_fwd(q, k, v, *, scale: float, bias=None):
     if not short_supported(q.shape, k.shape, v.shape, q.dtype):
         raise ValueError(f"short_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} is not "
                          f"supported by the kernel (bf16, dim_head {DIM_HEAD}, at most {MAX_KEYS} keys)")
+    if bias is not None:
+        bias, _ = bias_operand(bias, dev)
+    if traced(q):
+        return torch.ops.vit_torch.short_attention(q, k, v, float(scale), bias)
+    return _short_fwd(q, k, v, scale, bias)
+
+
+@torch.library.custom_op(op_name("short_attention"), mutates_args=())
+def _short_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _short_fwd(q, k, v, scale, bias)
+
+
+@_short_fwd_op.register_fake
+def _(q, k, v, scale, bias):
+    b, h, n, _ = q.shape
+    return q.new_empty((b, n, h, DIM_HEAD)).transpose(1, 2)
+
+
+@register_flop_formula(torch.ops.vit_torch.short_attention)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    b, h, n, d = q_shape
+    return 2 * b * h * n * k_shape[2] * (d + v_shape[3])
+
+
+def _short_fwd(q, k, v, scale: float, bias):
+    """The launch of :func:`short_fwd` (the op's implementation); the bias
+    is :func:`~.flash_attention.bias_operand`'s."""
+    dev = q.device
     for t in (q, k, v):
         if torch.is_grad_enabled() and t.requires_grad:
             raise ValueError("short_attention: a kernel call outside autograd; an operand requires grad")
@@ -124,8 +155,7 @@ def short_fwd(q, k, v, *, scale: float, bias=None):
     m = k.shape[2]
     bias_bf16, bias_strides = 0, (0, 0)
     if bias is not None:
-        bias, bias_bf16 = bias_operand(bias, dev)
-        bias_strides = bias.stride()[:2]
+        bias_bf16, bias_strides = int(bias.dtype == torch.bfloat16), bias.stride()[:2]
     o = torch.empty((b, n, h, DIM_HEAD), dtype=q.dtype, device=dev).transpose(1, 2)
     lib = load_library()
     err = lib.lib.vit_short_attention(

@@ -142,8 +142,8 @@ def make_train_step(
 
 
 def shard_train_state(*args, **kwargs):
-    raise NotImplementedError("sharded training waits for parallel/mesh.py (ROADMAP: modules to port, item 11)")
+    raise NotImplementedError("sharded training waits for parallel/mesh.py (ROADMAP: modules to port, item 11b)")
 
 
 def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError("sharded training waits for parallel/mesh.py (ROADMAP: modules to port, item 11)")
+    raise NotImplementedError("sharded training waits for parallel/mesh.py (ROADMAP: modules to port, item 11b)")

@@ -9,7 +9,7 @@ lines.  ``imgs_per_step`` changes nothing here.
 
 The tool's second experiment, ``tune_train`` (:106: Flax remat policies for
 the ViT-B training step), has no Pallas kernel of its own and waits for a
-later port (ROADMAP §1 item 11); ``train`` on the command line says so.
+later port (ROADMAP §1 item 11c); ``train`` on the command line says so.
 
     python -m vit_pytorch_tpu_torch.tools.bench_fused_tuning   # on a CUDA card
 """
@@ -72,5 +72,5 @@ def tune_kernel(device=None):
 if __name__ == "__main__":
     if "train" in sys.argv:
         raise SystemExit("tune_train (Flax remat policies for the training step) is not ported yet: "
-                         "ROADMAP §1 item 11")
+                         "ROADMAP §1 item 11c")
     tune_kernel()

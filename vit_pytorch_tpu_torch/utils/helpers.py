@@ -34,3 +34,13 @@ def default_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def table_device(device) -> torch.device:
+    """The device a module builds a constant table on (a non-persistent
+    buffer: a position table, an index map): its own, or the CPU for a
+    module built on ``meta`` to take a checkpoint's tensors
+    (``serving.Predictor.from_checkpoint``), whose tables are outside the
+    checkpoint and must stay real."""
+    device = torch.device(device)
+    return torch.device("cpu") if device.type == "meta" else device
