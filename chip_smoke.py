@@ -421,7 +421,19 @@ Phases, each printed as it ends:
      max |d| printed) with 12 x 7 launches each; entry() once ((8, 1000),
      finite, on the card); the host us of one layer's 7 launches at bs=1
      through the eager implementation against the registered ops, in
-     turns.
+     turns;
+ 61. the mesh (ROADMAP item 11b) as a world of one, in a subprocess:
+     initialize_distributed (NCCL over a file store), make_mesh(1, 1) on
+     the card; ViT-B/16 @224 (depth 12, bf16) through shard_train_state
+     (fsdp=True) and make_sharded_train_step for 3 steps of bs=32 fed by
+     prefetch_to_device(mesh=) (DTensors of the global shape on the card),
+     against make_train_step from the same weights and batches: losses,
+     accuracies, every parameter and Adam moment bitwise, 12 x 13 launches a
+     step on both; Predictor(mesh=) bitwise the one-device Predictor at
+     every bucket, 12 x 7 launches a run; export_model(mesh=) ->
+     load_model(mesh=) bitwise the one-device artifact at 1, 5 and 32
+     images, recording its mesh of 1 x 1; then dryrun_multichip(4) (4 gloo
+     CPU processes with no visible card) and its ok line.
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -431,6 +443,7 @@ Imports nothing of JAX.
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -9094,6 +9107,187 @@ def check_serving_artifacts(fb, dev, full, ckpt_dir, smi):
     time_layer_dispatch(fb, dev, smi)
 
 
+MESH_STEPS = 3
+MESH_CHILD = r"""
+import json, os, sys, time, torch
+from vit_pytorch_tpu_torch import ViT
+from vit_pytorch_tpu_torch.ops import fused_block as fb
+from vit_pytorch_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from vit_pytorch_tpu_torch.parallel.train import (create_train_state, make_sharded_train_step, make_train_step,
+                                                  shard_train_state)
+from vit_pytorch_tpu_torch.serving import Predictor, export_model, load_model
+from vit_pytorch_tpu_torch.utils.data import prefetch_to_device
+
+tmp, cfg = sys.argv[1], json.loads(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+out = {}
+t0 = time.perf_counter()
+out["world"] = initialize_distributed(num_processes=1, process_id=0, backend="nccl",
+                                      init_method="file://" + os.path.join(tmp, "store"))
+mesh = make_mesh(1, 1)
+out["backend"], out["mesh"] = torch.distributed.get_backend(), [list(mesh.shape), mesh.device_type]
+out["init_s"] = time.perf_counter() - t0
+
+
+def vit():
+    return ViT(image_size=224, patch_size=16, num_classes=1000, dim=cfg["dim"], depth=cfg["depth"],
+               heads=cfg["heads"], mlp_dim=cfg["mlp"], device=dev,
+               generator=torch.Generator(device=dev).manual_seed(cfg["seed"])).to(bf16)
+
+
+def whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+plain, sharded = vit(), vit()
+state_a, step_a = create_train_state(plain), make_train_step(plain)
+t0 = time.perf_counter()
+state_b = shard_train_state(create_train_state(sharded), mesh, fsdp=True)
+step_b = make_sharded_train_step(sharded, mesh)
+out["shard_s"] = time.perf_counter() - t0
+kinds = [type(p).__name__ + str(getattr(p, "placements", "")) for p in sharded.parameters()]
+out["layout"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+g = torch.Generator().manual_seed(cfg["seed"] + 61)
+host = [{"x": torch.randn(cfg["batch"], 3, 224, 224, generator=g).to(bf16),
+         "y": torch.randint(0, 1000, (cfg["batch"],), generator=g)} for _ in range(cfg["steps"])]
+out["steps"] = []
+for i, batch in enumerate(prefetch_to_device(iter(host), mesh=mesh)):
+    x = batch["x"]
+    if i == 0:
+        out["placed"] = [list(x.shape), str(x.placements), x.device.type, type(x).__name__]
+    xa, ya = host[i]["x"].to(dev), host[i]["y"].to(dev)
+    torch.cuda.synchronize()
+    fb.reset_launch_counts()
+    t = time.perf_counter()
+    ma = step_a(state_a, xa, ya)
+    torch.cuda.synchronize()
+    ms_a = (time.perf_counter() - t) * 1e3
+    ca = {k: v for k, v in fb.LAUNCHES.items() if v}
+    fb.reset_launch_counts()
+    t = time.perf_counter()
+    mb = step_b(state_b, batch["x"], batch["y"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    cb = {k: v for k, v in fb.LAUNCHES.items() if v}
+    out["steps"].append({"loss": [ma["loss"].item(), mb["loss"].item()],
+                         "accuracy": [ma["accuracy"].item(), mb["accuracy"].item()],
+                         "launches": [ca, cb], "ms": [ms_a, ms]})
+names = [n for n, _ in plain.named_parameters()]
+pa, pb = dict(plain.named_parameters()), dict(sharded.named_parameters())
+out["params"] = len(names)
+out["params_differ"] = [n for n in names if not torch.equal(pa[n], whole(pb[n]))]
+out["params_max_abs"] = max((pa[n].float() - whole(pb[n]).float()).abs().max().item() for n in names)
+moments = [(n, k) for n in names for k in ("exp_avg", "exp_avg_sq")]
+out["moments_differ"] = [f"{n} {k}" for n, k in moments if not torch.equal(
+    state_a.optimizer.state[pa[n]][k], whole(state_b.optimizer.state[pb[n]][k]))]
+out["moment_placements"] = sum(getattr(state_b.optimizer.state[pb[n]][k], "placements", None)
+                               == getattr(pb[n], "placements", None) for n, k in moments)
+out["moments"] = len(moments)
+
+# serving over the mesh against one device, every bucket
+single = Predictor(plain, example_shape=(3, 224, 224), batch_sizes=cfg["buckets"], device=dev)
+meshed = Predictor(plain, example_shape=(3, 224, 224), batch_sizes=cfg["buckets"], mesh=mesh)
+out["serving"] = {}
+for b in cfg["buckets"]:
+    img = torch.randn(b, 3, 224, 224, generator=g).to(dev)
+    fb.reset_launch_counts()
+    want = single(img)
+    torch.cuda.synchronize()
+    c1 = {k: v for k, v in fb.LAUNCHES.items() if v}
+    fb.reset_launch_counts()
+    got = meshed(img)
+    torch.cuda.synchronize()
+    c2 = {k: v for k, v in fb.LAUNCHES.items() if v}
+    out["serving"][b] = [torch.equal(got, want), list(got.shape), c1, c2]
+
+# the mesh artifact against the one-device artifact
+variables = single.model.state_dict()
+t0 = time.perf_counter()
+blob = export_model(single.model, variables, (3, 224, 224), input_dtype=bf16, mesh=mesh)
+fn_mesh = load_model(blob, mesh=mesh)
+fn_one = load_model(export_model(single.model, variables, (3, 224, 224), input_dtype=bf16))
+out["export_s"] = time.perf_counter() - t0
+out["artifact"] = {}
+for k in (1, 5, 32):
+    img = torch.randn(k, 3, 224, 224, generator=g).to(dev, bf16)
+    fb.reset_launch_counts()
+    got = fn_mesh(variables, img)
+    torch.cuda.synchronize()
+    c = {n: v for n, v in fb.LAUNCHES.items() if v}
+    out["artifact"][k] = [torch.equal(got, fn_one(variables, img)), list(got.shape), c]
+from vit_pytorch_tpu_torch.serving import _artifact_meta
+meta = _artifact_meta(blob)
+out["artifact_meta"] = {k: meta.get(k) for k in ("mesh", "devices", "batch_symbol")}
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def check_mesh(fb, dev, tmp, smi):
+    """Phase 61: the mesh (ROADMAP item 11b) on the card as a world of one,
+    in a subprocess so that this process keeps no process group."""
+    from vit_pytorch_tpu_torch.entry import dryrun_multichip
+
+    cfg = {"dim": DIM, "depth": DEPTH, "heads": HEADS, "mlp": MLP, "seed": SEED, "batch": B_TRAIN,
+           "steps": MESH_STEPS, "buckets": list(BUCKETS)}
+    log(f"[61 mesh] a world of one on the card: initialize_distributed (NCCL, file store), make_mesh(1, 1); "
+        f"ViT-B/16 @224, depth {DEPTH}, bf16, seed {SEED}: shard_train_state(fsdp=True) + "
+        f"make_sharded_train_step against make_train_step from the same weights, {MESH_STEPS} steps of bs="
+        f"{B_TRAIN} fed by prefetch_to_device(mesh=); Predictor(mesh=) at buckets {BUCKETS}; export_model(mesh=) "
+        f"-> load_model(mesh=); dryrun_multichip(4); {smi}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", MESH_CHILD, tmp, json.dumps(cfg)], capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_child = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 61: the mesh subprocess failed: {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {k: DEPTH * v for k, v in TRAIN_LAUNCHES_PER_LAYER.items() if v}
+    log(f"  subprocess {t_child:.2f} s: world {got['world']}, {got['backend']}, mesh {got['mesh']}, process group "
+        f"and mesh {got['init_s']:.2f} s, shard_train_state {got['shard_s']:.2f} s; layout {got['layout']}; "
+        f"prefetched batch {got['placed']}")
+    for i, st in enumerate(got["steps"]):
+        log(f"  step {i + 1}: loss unsharded / sharded {st['loss'][0]!r} / {st['loss'][1]!r}, accuracy "
+            f"{st['accuracy']}, launches {st['launches'][1]} (unsharded {st['launches'][0]}), host ms around the "
+            f"step and a synchronize: unsharded {st['ms'][0]:.2f}, sharded {st['ms'][1]:.2f}")
+        if st["launches"][0] != want or st["launches"][1] != want:
+            fail(f"phase 61: step {i + 1} launched {st['launches']}, expected {want} in both")
+        if st["loss"][0] != st["loss"][1] or st["accuracy"][0] != st["accuracy"][1]:
+            fail(f"phase 61: step {i + 1}'s metrics differ: {st['loss']} {st['accuracy']}")
+    log(f"  after step {MESH_STEPS}: {got['params']} parameters, {len(got['params_differ'])} not bitwise equal "
+        f"(max |d| {got['params_max_abs']:.3e}); {got['moments']} Adam moments, {len(got['moments_differ'])} not "
+        f"bitwise equal, {got['moment_placements']} with their parameter's placements")
+    if got["params_differ"] or got["moments_differ"] or got["moment_placements"] != got["moments"]:
+        fail(f"phase 61: the sharded run differs from the unsharded one: {got['params_differ'][:8]} "
+             f"{got['moments_differ'][:8]}")
+    if got["placed"] != [[B_TRAIN, 3, 224, 224], "(Shard(dim=0), Replicate())", "cuda", "DTensor"]:
+        fail(f"phase 61: prefetch_to_device(mesh=) placed {got['placed']}")
+    per_run = {k: DEPTH * v for k, v in LAUNCHES_PER_LAYER.items()}
+    for b, (equal, shape, c1, c2) in got["serving"].items():
+        if not equal or shape != [int(b), 1000] or c1 != per_run or c2 != per_run:
+            fail(f"phase 61: Predictor(mesh=) at bucket {b}: bitwise {equal}, shape {shape}, launches {c2} "
+                 f"(one device {c1}, expected {per_run})")
+    for k, (equal, shape, c) in got["artifact"].items():
+        if not equal or shape != [int(k), 1000] or c != per_run:
+            fail(f"phase 61: the mesh artifact at {k} images: bitwise {equal}, shape {shape}, launches {c}")
+    if got["artifact_meta"] != {"mesh": {"data": 1, "model": 1}, "devices": 1, "batch_symbol": "b"}:
+        fail(f"phase 61: the mesh artifact records {got['artifact_meta']}")
+    log(f"  Predictor(mesh=) bitwise the one-device Predictor at buckets {list(got['serving'])}, {per_run} a run; "
+        f"export_model(mesh=) -> load_model(mesh=) ({got['export_s']:.2f} s with the one-device export) bitwise the "
+        f"one-device artifact at {list(got['artifact'])} images; it records {got['artifact_meta']}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4)
+    line = buf.getvalue().strip()
+    log(f"  {line} ({time.perf_counter() - t0:.2f} s, 4 gloo CPU processes with no visible card)")
+    if not line.startswith("dryrun_multichip ok: mesh={'data': 2, 'model': 2} loss="):
+        fail(f"phase 61: dryrun_multichip(4) printed {line!r}")
+
+
 def time_layer_dispatch(fb, dev, smi):
     """Host us of one ViT-B/16 layer's 7 forward launches at bs=1 (n = 197),
     through the eager implementation (``fused_transformer_layer``, what
@@ -9595,6 +9789,9 @@ def main():
         check_serving_artifacts(fb, dev, full, ckpt_dir, smi)
         del full
         phase_done("phase 60")
+        # -- 61. the mesh (ROADMAP item 11b): a world of one on the card ---------------------------------------
+        check_mesh(fb, dev, tmp, smi)
+        phase_done("phase 61")
 
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout

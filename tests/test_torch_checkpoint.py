@@ -4,9 +4,18 @@ interval, discovery, async snapshot and flush; a bit-exact resume of a
 training run with dropout (the JAX tests/test_checkpoint.py:122 contract);
 and the port's checkpointed loop against the JAX one (``make_train_step`` +
 ``CheckpointManager`` + ``minibatches``) from the same weights on the same
-rows, params within ``tests/test_torch_train.py``'s fp32 tolerances."""
+rows, params within ``tests/test_torch_train.py``'s fp32 tolerances.
+
+Across layouts, in a gloo world of 2 CPU processes
+(tests/torch_mesh_world.py): an FSDP state (``fsdp_min_size=512``) after
+one step is saved (gathered, rank 0 writes) and restored bitwise into a
+(1, 2) tensor-parallel layout there and into one device here; a
+one-device checkpoint written here restores bitwise into the FSDP layout
+there; a dict holding a DTensor restores into a placed target; the
+manager's async saves of DTensors commit once, seen by every rank."""
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -287,3 +296,78 @@ def test_checkpointed_loop_matches_jax(tmp_path):
     want = vit_state_dict_from_jax(jax.tree.map(np.asarray, jax_state.params))
     for name, p in port.model.state_dict().items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+def _whole(state):
+    """Every tensor of a one-device TrainState by name, as the world's
+    ``_full_state`` gathers them."""
+    names = [n for n, _ in state.model.named_parameters()]
+    sd = state.optimizer.state_dict()
+    return {"model": state.model.state_dict(),
+            "optimizer": {names[i]: m for i, m in sd["state"].items()}, "step": state.step}
+
+
+def _assert_whole_equal(got, want):
+    assert set(got["model"]) == set(want["model"])
+    for name, t in want["model"].items():
+        assert torch.equal(got["model"][name], t), name
+    assert set(got["optimizer"]) == set(want["optimizer"])
+    for name, moments in want["optimizer"].items():
+        for key, t in moments.items():
+            assert torch.equal(got["optimizer"][name][key], t), (name, key)
+    assert got["step"] == want["step"]
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_world as world
+
+    directory = tmp_path_factory.mktemp("checkpoint")
+    model = ViT(**KW, device="cpu", generator=torch.Generator().manual_seed(0))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _data(4, seed=3)
+    single = create_train_state(model)
+    _step(single, batch=_data(4, seed=9))
+    save_checkpoint(str(directory / "single"), single)
+    ranks = world.run_world(directory, "checkpoint", 2, {
+        "kw": KW, "state_dict": weights,
+        "images": torch.from_numpy(batch["x"]), "labels": torch.from_numpy(batch["y"]),
+    })
+    return world, ranks, directory, single
+
+
+def test_fsdp_checkpoint_restores_into_a_tp_layout(mesh_ranks):
+    world, ranks, _, _ = mesh_ranks
+    for r in ranks:
+        assert any("data" in spec for spec in world.check(r, "fsdp_specs").values())
+        assert any("model" in spec for spec in world.check(r, "tp_specs").values())
+        _assert_whole_equal(world.check(r, "into_tp"), world.check(ranks[0], "saved"))
+        m1, m2 = world.check(r, "next_losses")
+        np.testing.assert_allclose(m2, m1, rtol=1e-5)
+    assert world.check(ranks[0], "committed") == ["state.pt"]
+
+
+def test_fsdp_checkpoint_restores_into_one_device(mesh_ranks):
+    world, ranks, directory, _ = mesh_ranks
+    state = _state(seed=1)
+    restore_checkpoint(str(directory / "fsdp"), state)
+    _assert_whole_equal(_whole(state), world.check(ranks[0], "saved"))
+
+
+def test_one_device_checkpoint_restores_into_fsdp(mesh_ranks):
+    world, ranks, _, single = mesh_ranks
+    for r in ranks:
+        _assert_whole_equal(world.check(r, "into_fsdp"), _whole(single))
+
+
+def test_dtensor_tree_restores_into_placed_target(mesh_ranks):
+    world, ranks, _, _ = mesh_ranks
+    for r in ranks:
+        assert world.check(r, "tree") == ("(Replicate(),)", True, 3)
+
+
+def test_manager_commits_dtensor_saves_once(mesh_ranks):
+    world, ranks, _, _ = mesh_ranks
+    for r in ranks:
+        assert world.check(r, "manager") == (2, [2])

@@ -2,11 +2,20 @@
 CPU: ``minibatches`` and ``process_local_slice`` give exactly the JAX
 functions' rows for the same seeds and indices; ``prefetch_to_device``
 keeps the stream's order at each depth with and without the host thread,
-forwards producer errors, stops its thread when the stream is abandoned,
-validates eagerly and refuses the mesh arguments until the port's mesh
-lands.  The pinned-memory copy path runs on the card only (``cuda``)."""
+forwards producer errors, stops its thread when the stream is abandoned
+and validates eagerly.  The pinned-memory copy path runs on the card only
+(``cuda``).
+
+Placement over a mesh (tests/test_data_pipeline.py:80-95) runs in a gloo
+world of 2 CPU processes (tests/torch_mesh_world.py) on a (2, 1) mesh:
+each rank's ``process_local_slice(mesh=)`` of every global batch becomes a
+DTensor of the global shape sharded on 'data', through ``mesh=`` and
+through a ``sharding=`` pytree, and the batches hold the stream's rows in
+order."""
 
 import gc
+import os
+import sys
 import threading
 
 import numpy as np
@@ -143,12 +152,6 @@ def test_prefetch_validates_eagerly():
         prefetch_to_device(iter([]), mesh=object(), sharding=object(), device="cpu")
 
 
-@pytest.mark.parametrize("arg", ["mesh", "sharding"])
-def test_prefetch_mesh_arguments_wait_for_item_11b(arg):
-    with pytest.raises(NotImplementedError, match="11b"):
-        prefetch_to_device(iter([]), device="cpu", **{arg: object()})
-
-
 def test_prefetch_takes_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -202,3 +205,36 @@ def test_minibatches_gather_keeps_every_kind_of_leaf():
         for key, leaf in data.items():
             assert isinstance(batch[key], np.ndarray) and batch[key].dtype == leaf.dtype
             np.testing.assert_array_equal(batch[key], leaf[sel])
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_world as world
+
+    return world, world.run_world(tmp_path_factory.mktemp("data"), "data", 2, {"data": _data(16)})
+
+
+def test_prefetch_mesh_places_batch_on_data_axis(mesh_ranks):
+    world, ranks = mesh_ranks
+    data = _data(16)
+    for r in ranks:
+        batches = world.check(r, "mesh")
+        assert len(batches) == 2
+        for b in batches:
+            for shape, placements, _ in b.values():
+                assert shape[0] == 8 and placements == "(Shard(dim=0), Replicate())"
+        got = np.concatenate([b["labels"][2].numpy() for b in batches])
+        np.testing.assert_array_equal(got, np.arange(16))
+        np.testing.assert_array_equal(np.concatenate([b["images"][2].numpy() for b in batches]), data["images"])
+
+
+def test_prefetch_sharding_pytree(mesh_ranks):
+    """A pytree of shardings: the images sharded on 'data' (each rank's
+    rows), the labels replicated (every rank holds the whole batch's)."""
+    world, ranks = mesh_ranks
+    for r in ranks:
+        batches = world.check(r, "sharding")
+        assert [b["images"][:2] for b in batches] == [((8, 2, 3), "(Shard(dim=0), Replicate())")] * 2
+        assert [b["labels"][:2] for b in batches] == [((8,), "(Replicate(), Replicate())")] * 2
+        np.testing.assert_array_equal(np.concatenate([b["labels"][2].numpy() for b in batches]), np.arange(16))

@@ -6,7 +6,12 @@ and the kernel ops they trace, on the CPU.
   eager model does; it holds the program only (other variables change the
   output; the blob is smaller than the weights); a custom ``apply_fn``, the
   refusal of ``apply_kwargs`` beside one, SimpleViT's sincos table as a
-  constant; the mesh arguments raise until the port's mesh lands.
+  constant.
+- The mesh artifact (tests/test_export.py:115-145), in a gloo world of 2
+  CPU processes (tests/torch_mesh_world.py) on a (2, 1) mesh: exported with
+  the Predictor's layout, loaded with the mesh, it serves every admissible
+  batch (2, 4, 6) as the eager model does and refuses a batch that the
+  data axis does not divide; the device count is checked both ways.
 - The loaded artifact against the JAX ``export_model`` / ``load_model`` on
   the CPU at fp32.
 - A program that calls a kernel op loads only in a process that has
@@ -15,6 +20,7 @@ and the kernel ops they trace, on the CPU.
   ``device="cuda"`` gives the shape and dtype its plain twin gives on real
   CPU tensors, and its FLOP formula the twin's count."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -105,14 +111,6 @@ def test_custom_apply_fn_and_apply_kwargs():
         torch.testing.assert_close(fn(model.state_dict(), img), model(img).softmax(-1), atol=EAGER_ATOL, rtol=0)
     with pytest.raises(ValueError, match="apply_kwargs"):
         export_model(model, model.state_dict(), (3, 32, 32), apply_fn=lambda m, x: m(x), train=False)
-
-
-def test_mesh_waits_for_item_11b(vit_artifact):
-    model, blob = vit_artifact
-    with pytest.raises(NotImplementedError, match="11b"):
-        export_model(model, model.state_dict(), (3, 32, 32), mesh=object())
-    with pytest.raises(NotImplementedError, match="11b"):
-        load_model(blob, mesh=object())
 
 
 def test_platforms_are_cpu_or_cuda(vit_artifact):
@@ -260,3 +258,34 @@ def test_fake_op_on_cuda_matches_the_twin(name, shapes, call):
     assert op_flops.get_total_flops() == twin_flops.get_total_flops(), name
     if op_flops.get_total_flops():  # counted by the op's formula, not by a plain product
         assert all(str(op).startswith("vit_torch.") for op in op_flops.get_flop_counts()["Global"]), name
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_world as world
+
+    model = ViT(**KW, device="cpu", generator=torch.Generator().manual_seed(0))
+    return world, world.run_world(tmp_path_factory.mktemp("export"), "export", 2, {
+        "kw": KW, "state_dict": model.state_dict(), "images": _images(6),
+    })
+
+
+def test_export_mesh_sharded_serving(mesh_ranks):
+    world, ranks = mesh_ranks
+    for r in ranks:
+        for k, (served, eager) in world.check(r, "served").items():
+            assert served.shape == (k, 10)
+            torch.testing.assert_close(served, eager, atol=1e-5, rtol=1e-5)
+        assert "must divide by process_count 2" in world.check(r, "odd_batch")
+        meta = world.check(r, "meta")
+        assert meta["batch_symbol"] == "2*b" and meta["devices"] == 2 and meta["mesh"] == {"data": 2, "model": 1}
+
+
+def test_export_mesh_device_count_checked(mesh_ranks):
+    world, ranks = mesh_ranks
+    for r in ranks:
+        assert "2 devices" in world.check(r, "single_device_load")
+        assert "2 devices" in world.check(r, "smaller_mesh_load")
+        assert "1 devices" in world.check(r, "plain_on_a_mesh")
+        assert world.check(r, "plain_on_one")

@@ -4,8 +4,16 @@ package imports without JAX; ``input_dtype``, ``apply_fn``, ``aot`` against
 ``compiled_buckets``, ``cost_analysis`` against the count from the widths,
 ``from_checkpoint`` of a ViT and of a SimpleViT (whose sincos table is a
 non-persistent buffer) bitwise the in-memory Predictor's, and the port's
-Predictor against the JAX one at fp32."""
+Predictor against the JAX one at fp32.
 
+Mesh serving (the counterpart of tests/test_serving.py:98-140) runs in a
+gloo world of 2 CPU processes (tests/torch_mesh_world.py) on a (2, 1)
+mesh: parameters replicated, each rank's half of the padded bucket, the
+output gathered over 'data', equal to the one-device Predictor (JAX's
+atol 1e-5) at k = 1, 3, 4 and 7 (padding and chunking); buckets that do not
+divide by the data axis are refused."""
+
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -184,11 +192,6 @@ def test_predictor_takes_the_card_by_default(monkeypatch):
         Predictor(_vit(), example_shape=(3, 32, 32))
 
 
-def test_predictor_mesh_waits_for_item_11b():
-    with pytest.raises(NotImplementedError, match="11b"):
-        Predictor(_vit(), example_shape=(3, 32, 32), mesh=object(), device="cpu")
-
-
 def test_entry_is_the_zero_weight_flagship():
     """``entry()``: ViT-B/16 @224 in bf16 with zero weights and a batch of 8
     ones, as the JAX ``__graft_entry__.py::entry``; zero weights give zero
@@ -207,3 +210,43 @@ def test_entry_takes_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_world as world
+
+    model = ViT(**KW, device="cpu", generator=torch.Generator().manual_seed(0))
+    simple_kw = dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2, heads=2, dim_head=32, mlp_dim=128)
+    simple = SimpleViT(**simple_kw, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((8, 3, 32, 32)).astype(np.float32))
+    return world, world.run_world(tmp_path_factory.mktemp("serving"), "serving", 2, {
+        "kw": KW, "state_dict": model.state_dict(), "images": x,
+        "simple_kw": simple_kw, "simple_state_dict": simple.state_dict(),
+    })
+
+
+def test_mesh_sharded_serving_matches_single_device(mesh_ranks):
+    world, ranks = mesh_ranks
+    for r in ranks:
+        assert world.check(r, "buckets") == (2, 4)
+        for k, (single, sharded) in world.check(r, "logits").items():
+            assert sharded.shape == (k, 10)
+            torch.testing.assert_close(sharded, single, atol=1e-5, rtol=0)
+    for k in (1, 3, 4, 7):
+        assert torch.equal(world.check(ranks[0], "logits")[k][1], world.check(ranks[1], "logits")[k][1])
+
+
+def test_mesh_serving_of_a_simple_vit(mesh_ranks):
+    """SimpleViT's sincos table (a non-persistent buffer) rides along."""
+    world, ranks = mesh_ranks
+    for r in ranks:
+        served, eager = world.check(r, "simple")
+        torch.testing.assert_close(served, eager, atol=1e-5, rtol=0)
+
+
+def test_mesh_rejects_indivisible_buckets(mesh_ranks):
+    world, ranks = mesh_ranks
+    for r in ranks:
+        assert "multiples" in world.check(r, "indivisible")

@@ -281,9 +281,3 @@ def test_cross_entropy_matches_optax():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-2)  # bf16 logits in, f32 loss out
     got32 = port_train.cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(float(got32), float(want), rtol=1e-6)
-
-
-def test_sharded_training_waits_for_the_mesh():
-    for fn in (port_train.shard_train_state, port_train.make_sharded_train_step):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(None, None)

@@ -47,13 +47,14 @@ from ..ops.fused_block import (
     whole_layer_stack_group,
     whole_layer_supported,
 )
+from ..utils.helpers import is_dtensor
 
 
 def fused_block_eligible(
     *, x: torch.Tensor, heads: int, dim_head: int, dim: int, flash, project_out: bool, dropout: float = 0.0,
     train: bool = False, pre_norm: bool = True, force_split_qkv: bool = False, has_context: bool = False,
     has_rotary: bool = False, has_mask: bool = False, has_bias: bool = False, has_segments: bool = False,
-    record: bool = False,
+    record: bool = False, sharded: bool = False,
 ) -> bool:
     """Whether ``Attention`` takes the attention-block kernels: the JAX
     predicate (blocks.py:47-98) with ``on_cuda(x)`` for ``on_tpu()``.  One
@@ -65,9 +66,13 @@ def fused_block_eligible(
     additive bias refuse it, as in the JAX package (:77-83), and so does
     recording (``record``: a ``wrappers/recorder.py::Recorder`` is taking
     the attention maps, which only the materialized composite gives,
-    :85)."""
+    :85).  ``sharded``: the module's weights are DTensors (tensor
+    parallelism over a mesh, ``parallel/train.py::shard_train_state``),
+    which the kernels cannot take: the composite keeps their meaning
+    through DTensor's ops."""
     return (
         not record
+        and not sharded
         and not has_context
         and not has_segments
         and not has_mask
@@ -84,6 +89,40 @@ def fused_block_eligible(
         and fused_block_supported(x.shape, x.dtype, heads, dim_head, dim)
         and on_cuda(x)
     )
+
+
+def dtensor_weights(module: nn.Module) -> bool:
+    """Whether any parameter of ``module`` is a DTensor, laid out over a
+    mesh by ``parallel/train.py::shard_train_state`` (under ``fully_shard``
+    the parameters are plain tensors inside the forward, DTensors only
+    where a 'model' axis shards them)."""
+    return any(is_dtensor(p) for p in module.parameters())
+
+
+def gathered(t: Optional[torch.Tensor]):
+    """``(t as a plain tensor, its mesh)``; ``(t, None)`` for a plain ``t``.
+    Under tensor parallelism a fused projection's product (qkv, kv) is a
+    DTensor sharded on its last dim over the 'model' axis, which holds no
+    whole heads' q, k and v on a rank: it is gathered, and the attention
+    then runs on plain tensors, the same on every rank of the axis (as
+    GSPMD keeps the JAX package's plain column split), its gradient coming
+    back replicated.  :func:`on_mesh` returns its output to the mesh."""
+    if not is_dtensor(t):
+        return t, None
+    from torch.distributed.tensor import Replicate
+
+    whole = [Replicate()] * t.device_mesh.ndim
+    return t.redistribute(placements=whole).to_local(grad_placements=whole), t.device_mesh
+
+
+def on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, the same on every rank, as a replicated DTensor on ``mesh``
+    (None: ``t`` as it is)."""
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -289,6 +328,7 @@ class Attention(nn.Module):
             project_out=self.project_out, dropout=self.dropout, train=self.training, pre_norm=self.pre_norm,
             force_split_qkv=self.split_qkv, has_context=context is not None, has_rotary=has_rotary,
             has_mask=has_mask, has_bias=has_bias, has_segments=has_segments, record=self.recorded is not None,
+            sharded=dtensor_weights(self),
         )
 
     def forward(self, x, context=None, *, mask=None, bias=None, q_segment_ids=None, kv_segment_ids=None,
@@ -332,16 +372,14 @@ class Attention(nn.Module):
                 context = self.norm_context(context)
             if context is not None and self.kv_include_self:
                 context = torch.cat([x, context], dim=1)
-            kv = self.to_kv(x if context is None else context)
-            q, k, v = split(self.to_q(x)), *map(split, kv.chunk(2, dim=-1))
+            kv, _ = gathered(self.to_kv(x if context is None else context))
+            q, mesh = gathered(self.to_q(x))
+            q, k, v = split(q), *map(split, kv.chunk(2, dim=-1))
         else:
-            q, k, v = (
-                self.to_qkv(x)
-                .reshape(b, n, 3, self.heads, self.dim_head)
-                .permute(2, 0, 3, 1, 4)
-            )
-        gamma_q = self.q_norm.gamma if self.qk_norm else None
-        gamma_k = self.k_norm.gamma if self.qk_norm else None
+            qkv, mesh = gathered(self.to_qkv(x))
+            q, k, v = qkv.reshape(b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
+        gamma_q = gathered(self.q_norm.gamma)[0] if self.qk_norm else None
+        gamma_k = gathered(self.k_norm.gamma)[0] if self.qk_norm else None
         if rotary is not None:
             # the rotary sees normed q and k (reference rvt.py)
             if self.qk_norm:
@@ -357,7 +395,7 @@ class Attention(nn.Module):
         if record:
             out, attn = out
             self.recorded.append((self.sow_index, attn))
-        out = self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
+        out = self.to_out(on_mesh(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head), mesh))
         return out if residual is None else out + residual
 
 
@@ -451,9 +489,13 @@ class Transformer(nn.Module):
         module's options, with ``on_cuda`` for ``on_tpu`` and
         ``self.training`` for ``train``; a mask, a bias and a rotary refuse
         it (:627-629), and so do a GLU and any activation but the GELU, which
-        the kernels' fc1 epilogue computes (:648-649)."""
+        the kernels' fc1 epilogue computes (:648-649), and DTensor weights
+        (:func:`dtensor_weights`): the row-parallel projection out needs its
+        all-reduce before the residual, which a whole layer on a shard has
+        no place for."""
         return (
             on_cuda(x)
+            and not dtensor_weights(self)
             and not has_segments
             and not has_mask
             and not has_bias

@@ -51,15 +51,19 @@ from typing import Optional
 
 import torch
 
+from ..utils.helpers import is_dtensor
 from .flash_attention import flash_attention, flash_supported, rms_norm
 from .short_attention import short_attention, short_supported
 
 
 def on_cuda(x: torch.Tensor) -> bool:
-    """True when computation on ``x`` lands on a CUDA device — the
-    counterpart of the JAX package's ``on_tpu``.  PyTorch runs where the
-    tensor lives, so the test is per tensor."""
-    return x.device.type == "cuda"
+    """True when computation on ``x`` lands on a CUDA device, as a plain
+    tensor — the counterpart of the JAX package's ``on_tpu``.  PyTorch runs
+    where the tensor lives, so the test is per tensor.  A DTensor (a tensor
+    laid out over a mesh by ``parallel/mesh.py``) is refused: the kernels
+    take plain tensors, and its ops keep the meaning of the whole tensor
+    only through DTensor's own dispatch."""
+    return x.device.type == "cuda" and not is_dtensor(x)
 
 
 def build_segment_mask(q_segment_ids, kv_segment_ids, n: int, m: int, *, causal: bool = False, mask=None,

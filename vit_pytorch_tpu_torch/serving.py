@@ -15,8 +15,13 @@ FakeTensor trace.
 ``export_model`` / ``load_model`` (:257-379) are the counterpart of the JAX
 ``jax.export`` artifacts through ``torch.export``: the program ``(variables,
 images) -> outputs`` with a dynamic batch dimension, without the weights,
-loadable in a process that does not import the model code.  The mesh
-arguments raise until the port's mesh lands (ROADMAP item 11b).
+loadable in a process that does not import the model code.
+
+Over a mesh (``parallel/mesh.py``, one process a device) the layout is the
+JAX package's (serving.py:49-57): parameters replicated, the batch on the
+'data' axis.  Every rank is handed the whole request, runs the rows of its
+'data' coordinate on its own device and returns the whole result, gathered
+over 'data'.
 
 Example::
 
@@ -44,13 +49,40 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .utils.helpers import default_device
 
-_MESH_LATER = "multi-device serving waits for parallel/mesh.py (ROADMAP: modules to port, item 11b)"
 _ARTIFACT_META = "vit_torch.json"  # the artifact's own metadata, beside the program
 _OPS_NAMESPACE = "vit_torch"  # ops/_library.py's NAMESPACE; serving does not import ops/
 
 
 def _call(model: nn.Module, x):
     return model(x)
+
+
+class _DataAxis:
+    """THE serving layout over a mesh, defined once for ``Predictor``,
+    ``export_model`` and ``load_model``: parameters replicated (a whole copy
+    on every rank), the batch split over the mesh's 'data' axis.  ``rows``
+    takes this rank's share of a batch, ``gather`` joins the ranks' outputs
+    in 'data' order, tensor by tensor of the output."""
+
+    def __init__(self, mesh):
+        if "data" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh must have a 'data' axis, got {mesh.mesh_dim_names}")
+        self.mesh, self.size, self.group = mesh, mesh["data"].size(), mesh.get_group("data")
+
+    def rows(self, x):
+        from .utils.data import process_local_slice
+
+        return process_local_slice(x, mesh=self.mesh)
+
+    def gather(self, out):
+        def join(o):
+            if o is None or self.size == 1:
+                return o
+            parts = [torch.empty_like(o) for _ in range(self.size)]
+            torch.distributed.all_gather(parts, o.contiguous(), group=self.group)
+            return torch.cat(parts, dim=0)
+
+        return tree_map(join, out)
 
 
 class _Applied(nn.Module):
@@ -114,8 +146,12 @@ class Predictor:
             copy in place of ``model(batch)`` (extra arguments, wrapper
             methods, ...).  The JAX ``apply_fn`` takes ``(variables,
             batch)``; in the port the module holds its variables.
-        mesh: multi-device serving; raises ``NotImplementedError`` until the
-            port's mesh lands (ROADMAP item 11b).
+        mesh: a ``parallel.mesh.make_mesh`` mesh with a 'data' axis.  The
+            parameters are replicated, the batch is split over 'data': each
+            bucket size must be a multiple of the data-axis size.  Every rank
+            calls the Predictor with the whole request, runs its rows on its
+            device (``device`` defaults to the mesh's) and returns the whole
+            output, gathered over 'data'.
         aot: run every bucket once at construction (default), as the JAX
             ``Predictor`` compiles them then.  With ``aot=False`` each bucket
             runs first at its first use (``warmup()`` runs the rest).
@@ -136,11 +172,20 @@ class Predictor:
         aot: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_LATER)
         if not batch_sizes:
             raise ValueError("need at least one batch-size bucket")
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
+        self.mesh = mesh
+        self._layout = None
+        if mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            self._layout = _DataAxis(mesh)
+            bad = [b for b in self.batch_sizes if b % self._layout.size]
+            if bad:
+                raise ValueError(f"bucket sizes {bad} are not multiples of the data-axis size {self._layout.size} — "
+                                 f"each bucket shards evenly over 'data'")
+            device = mesh_device(mesh) if device is None else device
         self.example_shape = tuple(example_shape)
         self.param_dtype = param_dtype
         self.input_dtype = input_dtype or param_dtype
@@ -232,8 +277,12 @@ class Predictor:
         if k != b:
             pad = x.new_zeros((b - k, *self.example_shape))
             x = torch.cat([x, pad], dim=0)
+        if self._layout is not None:
+            x = self._layout.rows(x)
         with torch.inference_mode():
             out = self._apply(self.model, x)
+            if self._layout is not None:
+                out = self._layout.gather(out)
         self._run.add(b)
         return tree_map(lambda o: None if o is None else o[:k], out)
 
@@ -326,14 +375,26 @@ def export_model(
     The trace uses FakeTensors and launches nothing.
 
     ``apply_fn(model, images)`` replaces ``model(images, **apply_kwargs)``;
-    ``apply_kwargs`` beside a custom ``apply_fn`` raise, as in JAX.  ``mesh``
-    raises ``NotImplementedError`` until the port's mesh lands (ROADMAP item
-    11b).
+    ``apply_kwargs`` beside a custom ``apply_fn`` raise, as in JAX.
+
+    ``mesh`` exports a MULTI-DEVICE serving artifact with the Predictor's
+    layout baked in (parameters replicated, the batch split over the
+    'data' axis): the program is the one each rank runs on its rows, and
+    the artifact records the mesh beside it.  The batch is constrained to
+    multiples of the data-axis size (``batch_symbol`` becomes
+    ``"{ndata}*{batch_symbol}"``, as the JAX symbol does), and the artifact
+    must be loaded with a mesh of as many devices (``load_model(...,
+    mesh=...)``), which checks both at each call.
 
     Returns the serialised bytes; also writes ``path`` when given.
     """
+    layout = {}
     if mesh is not None:
-        raise NotImplementedError(_MESH_LATER)
+        ndata = _DataAxis(mesh).size
+        batch_symbol = f"{ndata}*{batch_symbol}" if ndata > 1 else batch_symbol
+        layout = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "devices": mesh.size()}
+        if platforms is None and mesh.device_type in ("cpu", "cuda"):
+            platforms = (mesh.device_type,)
     if apply_fn is None:
         def apply_fn(m, images):
             return m(images, **apply_kwargs)
@@ -358,7 +419,7 @@ def export_model(
     exported.example_inputs = None  # FakeTensors; the artifact carries no data
     ops = sorted({node.target.name() for node in exported.graph.nodes
                   if isinstance(node.target, torch._ops.OpOverload) and node.target.namespace == _OPS_NAMESPACE})
-    meta = {"variables": list(fake_vars), "batch_symbol": batch_symbol, "ops": ops}
+    meta = {"variables": list(fake_vars), "batch_symbol": batch_symbol, "ops": ops, **layout}
     buf = io.BytesIO()
     torch.export.save(exported, buf, extra_files={_ARTIFACT_META: json.dumps(meta)})
     blob = buf.getvalue()
@@ -395,17 +456,27 @@ def load_model(blob_or_path, *, mesh=None) -> Callable:
     No model code is imported.  An artifact traced on the card calls the
     port's kernel ops: the process must have imported
     ``vit_pytorch_tpu_torch.ops``, which registers them, else loading
-    raises naming that module.  ``mesh`` raises ``NotImplementedError`` until
-    the port's mesh lands (ROADMAP item 11b).
+    raises naming that module.
+
+    An artifact exported with a mesh must be loaded with a mesh of the same
+    device count, and one exported without with none (or one of a single
+    device); ``fn`` is then called on every rank with the whole batch, a
+    multiple of the data-axis size, runs this rank's rows and returns the
+    whole output, gathered over 'data', matching the layout baked in at
+    export.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_LATER)
     if isinstance(blob_or_path, (str, os.PathLike)):
         with open(blob_or_path, "rb") as f:
             blob = f.read()
     else:
         blob = bytes(blob_or_path)
     meta = _artifact_meta(blob)
+    devices = meta.get("devices", 1)
+    if mesh is not None and mesh.size() != devices:
+        raise ValueError(f"artifact was exported for {devices} devices; the given mesh has {mesh.size()}")
+    if mesh is None and devices > 1:
+        raise ValueError(f"artifact was exported for {devices} devices — pass load_model(..., mesh=...) with an "
+                         f"equal-size mesh")
     missing = [name for name in meta["ops"] if not _registered(name)]
     if missing:
         raise RuntimeError(f"the artifact calls the port's kernel ops {missing}, which are not registered: import "
@@ -413,10 +484,14 @@ def load_model(blob_or_path, *, mesh=None) -> Callable:
     keys = meta["variables"]
     program = torch.export.load(io.BytesIO(blob)).module()
 
+    layout = None if mesh is None else _DataAxis(mesh)
+
     def fn(variables, images):
         missing = set(keys) - set(variables)
         if missing:
             raise KeyError(f"load_model: variables lack {sorted(missing)}")
-        return program({k: variables[k] for k in keys}, images)
+        if layout is None:
+            return program({k: variables[k] for k in keys}, images)
+        return layout.gather(program({k: variables[k] for k in keys}, layout.rows(images)))
 
     return fn

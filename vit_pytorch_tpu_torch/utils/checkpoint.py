@@ -18,6 +18,16 @@ Two tiers, as in the JAX package:
 A save is atomic: it writes into a temporary sibling directory and renames
 it onto ``<directory>/<step>``, as orbax commits by a rename, so a torn save
 is never visible as a step.
+
+States laid out over a mesh (``parallel/train.py::shard_train_state``:
+DTensor parameters and moments) save and restore as orbax's sharded arrays
+do (JAX checkpoint.py:1-3, :42-52): a save gathers every DTensor whole (a
+collective: every rank calls it) and rank 0 alone writes; a restore
+distributes each saved tensor into the target's placements, so a checkpoint
+restores across layouts (sharded into one device, one device into sharded).
+The optimizer's state is saved with its parameters named, not numbered, so
+that it restores into any grouping of the same parameters (the sharded
+optimizer splits each group in two).
 """
 
 from __future__ import annotations
@@ -33,17 +43,43 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ..parallel.train import TrainState
+from .helpers import is_dtensor
 
 _STATE_FILE = "state.pt"
 _METRICS_FILE = "metrics.json"
 _TMP_PREFIX = ".tmp-"
 
 
+def _param_names(state: TrainState) -> list:
+    """The names of the optimizer's parameters, in its numbering."""
+    names = {p: name for name, p in state.model.named_parameters()}
+    return [names[p] for group in state.optimizer.param_groups for p in group["params"]]
+
+
 def _tree(state: Any) -> Any:
-    """The nested dict a checkpoint holds for ``state``."""
+    """The nested dict a checkpoint holds for ``state``; a ``TrainState``'s
+    optimizer state dict is keyed by parameter name."""
     if isinstance(state, TrainState):
-        return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(), "step": state.step}
+        names = _param_names(state)
+        saved = state.optimizer.state_dict()
+        optimizer = {
+            "state": {names[i]: moments for i, moments in saved["state"].items()},
+            "param_groups": [{**g, "params": [names[i] for i in g["params"]]} for g in saved["param_groups"]],
+        }
+        return {"model": state.model.state_dict(), "optimizer": optimizer, "step": state.step}
     return state
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a process
+    without one."""
+    return not (torch.distributed.is_available() and torch.distributed.is_initialized()) \
+        or torch.distributed.get_rank() == 0
+
+
+def _barrier(tree_was_distributed: bool) -> None:
+    if tree_was_distributed and torch.distributed.is_initialized():
+        torch.distributed.barrier()
 
 
 def _map_tensors(fn, tree):
@@ -64,11 +100,21 @@ def snapshot(state: Any) -> Any:
     ``step`` tensors, which the next ``optimizer.step()`` updates in place.
     Each device tensor is copied into pinned host memory with a non-blocking
     copy on the current stream, and one event waited on at the end covers
-    them all; a CPU tensor is cloned."""
+    them all; a CPU tensor is cloned.  A DTensor is gathered whole first
+    (``full_tensor``, a collective every rank of its mesh must reach)."""
+    return _host_copy(_tree(state))[0]
+
+
+def _host_copy(tree: Any):
+    """:func:`snapshot` of a tree, and whether it held a DTensor."""
     devices = set()
+    distributed = []
 
     def copy(t: torch.Tensor) -> torch.Tensor:
         t = t.detach()
+        distributed.append(is_dtensor(t))
+        if distributed[-1]:
+            t = t.full_tensor()
         if t.device.type == "cpu":
             return t.clone()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -76,12 +122,12 @@ def snapshot(state: Any) -> Any:
         devices.add(t.device)
         return host
 
-    tree = _map_tensors(copy, _tree(state))
+    tree = _map_tensors(copy, tree)
     for device in devices:
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(device))
         done.synchronize()
-    return tree
+    return tree, any(distributed)
 
 
 def _write(final: str, tree: Any, metrics: Optional[dict] = None) -> None:
@@ -124,14 +170,25 @@ def _check_leaf(where: str, got: torch.Tensor, want: torch.Tensor) -> None:
                          f"{want.dtype}")
 
 
+def _placed_like(saved: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``saved`` (whole, on the CPU) on ``target``'s device, distributed into
+    its placements where it is a DTensor."""
+    if is_dtensor(target):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(saved.to(target.device), target.device_mesh, target.placements)
+    return saved.to(target.device)
+
+
 def _restore_like(saved: Any, target: Any, where: str = "") -> Any:
     """``saved`` in ``target``'s structure: tensors of the target's shape and
-    dtype (else ``ValueError``), placed on the target's device."""
+    dtype (else ``ValueError``), placed like the target's (its device; its
+    placements for a DTensor)."""
     if isinstance(target, torch.Tensor):
         if not isinstance(saved, torch.Tensor):
             raise ValueError(f"checkpoint {where}: saved {type(saved).__name__}, target a tensor")
         _check_leaf(where, saved, target)
-        return saved.to(target.device)
+        return _placed_like(saved, target)
     if isinstance(target, dict):
         if not isinstance(saved, dict) or set(saved) != set(target):
             raise ValueError(f"checkpoint {where}: saved keys {sorted(saved) if isinstance(saved, dict) else saved!r}, "
@@ -146,7 +203,8 @@ def _restore_like(saved: Any, target: Any, where: str = "") -> Any:
 
 def _restore_train_state(saved: dict, state: TrainState) -> TrainState:
     """Load ``saved`` into ``state`` in place: the model's tensors must match
-    its state dict, each optimizer moment its parameter."""
+    its state dict, each optimizer moment its parameter; each is placed like
+    the target's tensor."""
     if not isinstance(saved, dict) or set(saved) != {"model", "optimizer", "step"}:
         raise ValueError(f"checkpoint: not a TrainState (keys {sorted(saved) if isinstance(saved, dict) else saved!r})")
     own = state.model.state_dict()
@@ -155,13 +213,29 @@ def _restore_train_state(saved: dict, state: TrainState) -> TrainState:
                          f"unexpected {sorted(set(saved['model']) - set(own))}")
     for name, t in own.items():
         _check_leaf(f"model/{name}", saved["model"][name], t)
-    params = [p for group in state.optimizer.param_groups for p in group["params"]]
-    for index, moments in saved["optimizer"]["state"].items():
+    params = dict(state.model.named_parameters())
+    names = _param_names(state)
+    unknown = set(saved["optimizer"]["state"]) - set(names)
+    if unknown:
+        raise ValueError(f"checkpoint: optimizer state of parameters the target lacks: {sorted(unknown)}")
+    for name, moments in saved["optimizer"]["state"].items():
         for key, t in moments.items():
             if key != "step" and isinstance(t, torch.Tensor):
-                _check_leaf(f"optimizer/state/{index}/{key}", t, params[index])
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+                _check_leaf(f"optimizer/state/{name}/{key}", t, params[name])
+    state.model.load_state_dict({name: _placed_like(saved["model"][name], t) for name, t in own.items()})
+    index = {name: i for i, name in enumerate(names)}
+    group_of = {name: g for g in saved["optimizer"]["param_groups"] for name in g["params"]}
+    name_of = {id(p): name for name, p in params.items()}
+    groups = []
+    for g in state.optimizer.param_groups:
+        members = [name_of[id(p)] for p in g["params"]]
+        groups.append({**group_of[members[0]], "params": [index[n] for n in members]})
+    state.optimizer.load_state_dict({
+        "state": {index[name]: {k: _placed_like(t, params[name]) if k != "step" and isinstance(t, torch.Tensor)
+                                and t.shape == params[name].shape else t for k, t in moments.items()}
+                  for name, moments in saved["optimizer"]["state"].items()},
+        "param_groups": groups,
+    })
     state.step = int(saved["step"])
     return state
 
@@ -180,8 +254,13 @@ def _step_path(path: str, step: Optional[int]) -> str:
 
 def save_checkpoint(path: str, state: Any, step: Optional[int] = None) -> None:
     """Save a ``TrainState`` or a nested dict/list of tensors and scalars
-    atomically to ``path`` (``path/<step>`` with ``step``)."""
-    _write(_step_path(path, step), snapshot(state))
+    atomically to ``path`` (``path/<step>`` with ``step``).  A state holding
+    DTensors is saved by every rank of its mesh together: each gathers, rank
+    0 writes, and all return once the step is committed."""
+    host, distributed = _host_copy(_tree(state))
+    if _writes():
+        _write(_step_path(path, step), host)
+    _barrier(distributed)
 
 
 def load_checkpoint(path: str, step: Optional[int] = None) -> Any:
@@ -228,6 +307,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._collective = False  # the pending save is of DTensors: every rank waits for rank 0's commit
         self._closed = False
         atexit.register(self._atexit)
 
@@ -248,13 +328,17 @@ class CheckpointManager:
         self.wait_until_finished()
         if not force and not self.should_save(step):
             return False
-        tree = snapshot(state)
-        if not self.async_save:
+        tree, self._collective = _host_copy(_tree(state))
+        if not _writes():
+            tree = None  # rank 0 writes; the next wait is this rank's barrier
+        elif not self.async_save:
             self._commit(step, tree, metrics)
-            return True
-        self._writer = threading.Thread(target=self._background, args=(step, tree, metrics), daemon=True,
-                                        name="vit-torch-checkpoint")
-        self._writer.start()
+        else:
+            self._writer = threading.Thread(target=self._background, args=(step, tree, metrics), daemon=True,
+                                            name="vit-torch-checkpoint")
+            self._writer.start()
+        if not self.async_save:
+            self.wait_until_finished()
         return True
 
     def _commit(self, step: int, tree: Any, metrics: Optional[dict]) -> None:
@@ -270,10 +354,18 @@ class CheckpointManager:
             self._error = e
 
     def wait_until_finished(self) -> None:
-        """Block until the pending save has committed; re-raise its error."""
+        """Block until the pending save has committed; re-raise its error.
+        After a save of DTensors every rank waits here for rank 0's commit
+        (a barrier), so that each then sees the step."""
+        self._wait(barrier=True)
+
+    def _wait(self, barrier: bool) -> None:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self._collective and barrier:
+            _barrier(True)
+        self._collective = False
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -301,14 +393,17 @@ class CheckpointManager:
 
     # -- lifecycle -------------------------------------------------------
     def close(self) -> None:
+        self._close(barrier=True)
+
+    def _close(self, barrier: bool) -> None:
         if not self._closed:
             self._closed = True
             atexit.unregister(self._atexit)
-            self.wait_until_finished()
+            self._wait(barrier)
 
     def _atexit(self) -> None:
         try:
-            self.close()
+            self._close(barrier=False)  # the other ranks may be gone
         except Exception:  # noqa: BLE001 — nothing is left to report to at exit
             pass
 

@@ -16,6 +16,12 @@ Two overlap mechanisms compose, as in the JAX package:
 
 Batches are pytrees (``torch.utils._pytree``) of numpy arrays or CPU
 tensors, e.g. ``{"images": x, "labels": y}``.
+
+Over a mesh (``parallel/mesh.py``) each process holds its own rows of
+every global batch (:func:`process_local_slice`), and
+``prefetch_to_device(..., mesh=mesh)`` yields DTensors of the global shape,
+sharded over 'data': the JAX package's multi-process branch, the only one
+a port of one process a device has.
 """
 
 from __future__ import annotations
@@ -33,26 +39,31 @@ from .helpers import default_device
 
 __all__ = ["minibatches", "prefetch_to_device", "process_local_slice"]
 
-_MESH_LATER = "sharded input placement waits for parallel/mesh.py (ROADMAP: modules to port, item 11b)"
-
-
 def _is_array(a) -> bool:
     return isinstance(a, (np.ndarray, torch.Tensor))
 
 
-def process_local_slice(data, process_index=None, process_count=None):
+def process_local_slice(data, process_index=None, process_count=None, *, mesh=None):
     """This process's contiguous row-slice of a global row-aligned pytree
     (data parallelism across processes: each keeps 1/Nth of every global
-    batch).  The defaults are ``torch.distributed``'s rank and world size
-    when a process group is initialised, else 0 and 1.
+    batch).  With ``mesh`` the slice is that of this rank's 'data'
+    coordinate among the 'data' axis's size, so that ranks which differ only
+    in 'model' hold the same rows; without it the defaults are
+    ``torch.distributed``'s rank and world size when a process group is
+    initialised, else 0 and 1.
 
     Every process must hold the SAME logical global data (or an identically
     shuffled view: seed per-epoch rngs identically across processes, as
     ``minibatches`` callers do) so the slices tile the global batch.
     """
-    dist = torch.distributed.is_available() and torch.distributed.is_initialized()
-    idx = (torch.distributed.get_rank() if dist else 0) if process_index is None else process_index
-    cnt = (torch.distributed.get_world_size() if dist else 1) if process_count is None else process_count
+    if mesh is not None:
+        rank, size = mesh.get_local_rank("data"), mesh["data"].size()
+    elif torch.distributed.is_available() and torch.distributed.is_initialized():
+        rank, size = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    else:
+        rank, size = 0, 1
+    idx = rank if process_index is None else process_index
+    cnt = size if process_count is None else process_count
     leaves = tree_leaves(data)
     if not leaves or cnt == 1:
         return data
@@ -214,6 +225,19 @@ def _cpu_place(batch):
     return tree_map(lambda a: torch.as_tensor(a) if _is_array(a) else a, batch)
 
 
+def _sharded(take, sharding):
+    """``take`` followed by the DTensor assembly of each leaf over its
+    sharding's mesh."""
+    from ..parallel.mesh import Sharding, global_array_from_process_local
+
+    def place(a, s):
+        return global_array_from_process_local(a, s.mesh, s.spec) if isinstance(a, torch.Tensor) else a
+
+    if isinstance(sharding, Sharding):
+        return lambda placed: tree_map(lambda a: place(a, sharding), take(placed))
+    return lambda placed: tree_map(place, take(placed), sharding)
+
+
 def prefetch_to_device(iterator: Iterable, *, depth: int = 2, device=None, sharding=None, mesh=None,
                        host_workers: bool = False) -> Iterator:
     """Wrap an iterator of host pytrees; yield device-tensor pytrees with up
@@ -221,9 +245,16 @@ def prefetch_to_device(iterator: Iterable, *, depth: int = 2, device=None, shard
 
     ``device``: the CUDA card unless the caller names another
     (``utils/helpers.py::default_device``); on ``device="cpu"`` leaves are
-    converted to tensors, not pinned.  ``sharding`` and ``mesh`` (the JAX
-    function's placement over a mesh) raise ``NotImplementedError`` until
-    the port's mesh lands (ROADMAP item 11b).
+    converted to tensors, not pinned.
+
+    ``sharding`` places every leaf over a mesh (a
+    ``parallel.mesh.Sharding``, or a pytree of them matching the batch
+    structure): each leaf is this process's shard, and becomes a DTensor of
+    the global shape (``parallel.mesh.global_array_from_process_local``),
+    on the mesh's device.  ``mesh`` is the common shortcut: leading axis
+    sharded over the mesh's 'data' axis (``parallel.mesh.batch_sharding``),
+    matching what ``make_sharded_train_step`` expects; feed it
+    ``process_local_slice(..., mesh=mesh)``'s rows.
 
     ``host_workers=True`` pulls ``iterator`` on a background thread (see the
     module docstring).  Lookahead bound: without ``host_workers`` the
@@ -239,8 +270,16 @@ def prefetch_to_device(iterator: Iterable, *, depth: int = 2, device=None, shard
         raise ValueError(f"depth must be >= 1, got {depth}")
     if mesh is not None and sharding is not None:
         raise ValueError("pass sharding or mesh, not both")
-    if mesh is not None or sharding is not None:
-        raise NotImplementedError(_MESH_LATER)
+    if mesh is not None:
+        from ..parallel.mesh import batch_sharding
+
+        sharding = batch_sharding(mesh)
+    if sharding is not None:
+        from ..parallel.mesh import Sharding, mesh_device
+
+        first = sharding if isinstance(sharding, Sharding) else tree_leaves(
+            sharding, is_leaf=lambda s: isinstance(s, Sharding))[0]
+        device = mesh_device(first.mesh)
     device = default_device(device)
     it = iter(iterator)
     if device.type == "cuda":
@@ -253,6 +292,8 @@ def prefetch_to_device(iterator: Iterable, *, depth: int = 2, device=None, shard
         put, take = _cpu_place, lambda batch: batch
     if host_workers:
         it = _host_thread_iter(it, size=depth)
+    if sharding is not None:
+        take = _sharded(take, sharding)
 
     def _stream() -> Iterator:
         in_flight: collections.deque = collections.deque()

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -44,3 +46,11 @@ def table_device(device) -> torch.device:
     checkpoint and must stay real."""
     device = torch.device(device)
     return torch.device("cpu") if device.type == "meta" else device
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor of ``torch.distributed.tensor`` (a tensor
+    laid out over a mesh by ``parallel/``; none can exist before that module
+    is loaded)."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and isinstance(t, module.DTensor)
