@@ -433,7 +433,20 @@ Phases, each printed as it ends:
      every bucket, 12 x 7 launches a run; export_model(mesh=) ->
      load_model(mesh=) bitwise the one-device artifact at 1, 5 and 32
      images, recording its mesh of 1 x 1; then dryrun_multichip(4) (4 gloo
-     CPU processes with no visible card) and its ok line.
+     CPU processes with no visible card) and its ok line;
+ 62. the examples (ROADMAP item 11c), each main() at its own
+     configuration on the card: serve_vit exactly as written (exact
+     counters, 12 x 7 a bucket run; its logits at 5 and 300 images bitwise
+     the Predictor's own calls); train_digits' 20 epochs on the real digits
+     (test accuracy over 0.5, no launch), then 2 + 2 epochs with a resume
+     bitwise 4 uninterrupted (every parameter and Adam moment);
+     train_navit_packed, pretrain_mae and pretrain_dino 3 steps each (exact
+     counters; each step's loss finite and, before the update, within the
+     bf16 bound of the same step on a flash=False copy from the same weights
+     and inputs, which launches nothing); train_vit_decorr 3 steps in a
+     subprocess (NCCL world of one; the composite: each loss bitwise a
+     replay of its step, no launch; the --checkpoint params); tune_train's
+     three modes at bs=1024 (ms/step, img/s, peak memory, exact counters).
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -9288,6 +9301,449 @@ def check_mesh(fb, dev, tmp, smi):
         fail(f"phase 61: dryrun_multichip(4) printed {line!r}")
 
 
+# -- phase 62: the examples (ROADMAP item 11c) --------------------------------------------------------------------
+EXAMPLE_STEPS = 3
+DIGITS_SPLIT, DIGITS_EPOCHS = 2, 4  # the resume check: 2 + 2 epochs against 4
+# Each training example's step against the same step through the plain
+# twins (plain_layers, plain_flash: the same Functions with every kernel
+# swapped for its plain version) from the same weights and inputs: the
+# loss, all gradients together and the worst parameter.  MAE and Dino to the
+# bounds of the phases that hold them against their twins (38, 41); MAE's
+# loss is a bf16 scalar, so its float32 value, recomputed from the step's
+# predicted pixels, is held as Dino's float32 loss is (2^-14).  NaViT's
+# gradients at depth 6 are mostly bf16's own noise (phase 14 bounds them
+# only at depth 2): its loss to phase 14's bound, all gradients together
+# and the worst parameter to NAVIT_NOISE_RATIO times what the twins
+# themselves read against an f32 copy in the same step (the floor, as
+# phase 13 holds the logits), and each flash call of its first step through
+# the kernels against their twins as phase 25 holds them.
+EXAMPLE_VS_PLAIN = {"train_navit_packed": NAVIT_TRAIN_VS_PLAIN, "pretrain_mae": {**MAE_VS_PLAIN, "loss": 2.0**-14},
+                    "pretrain_dino": SSL_VS_PLAIN}
+
+
+def example_launches(name):
+    """The exact launch counters of one step of a training example (module
+    ``name`` of vit_pytorch_tpu_torch.examples) at its own configuration."""
+    import importlib
+
+    cfg = importlib.import_module(f"vit_pytorch_tpu_torch.examples.{name}").CONFIG
+    if name == "train_navit_packed":  # every layer and the pooling: the flash trio
+        return {k: cfg["depth"] + 1 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if name == "pretrain_mae":  # the encoder's and the decoder's whole layers, forward and backward
+        return {k: (cfg["depth"] + cfg["decoder_depth"]) * v for k, v in TRAIN_LAUNCHES_PER_LAYER.items()}
+    if name == "pretrain_dino":  # the student's two calls with gradients, the teacher's two without
+        return {k: cfg["depth"] * (2 * TRAIN_LAUNCHES_PER_LAYER.get(k, 0) + 2 * LAUNCHES_PER_LAYER.get(k, 0))
+                for k in set(TRAIN_LAUNCHES_PER_LAYER) | set(LAUNCHES_PER_LAYER)}
+    raise KeyError(name)
+
+
+def mae_loss32(mae, inputs, pred):
+    """MAE's loss in float32 from the step's predicted pixels (the
+    ``to_pixels`` output): the masked patches drawn as ``MAE.forward`` draws
+    them from the step's mask seed."""
+    img = inputs["images"]
+    patches = mae.encoder.patchify(img)
+    b, n, _ = patches.shape
+    gen = torch.Generator(device=img.device).manual_seed(inputs["mask_seed"])
+    masked = torch.rand((b, n), generator=gen, device=img.device).argsort(dim=-1)[:, : int(mae.masking_ratio * n)]
+    target = torch.take_along_dim(patches, masked[..., None], dim=1)
+    return (pred.float() - target.float()).square().mean(), (pred - target).square().mean()
+
+
+@contextlib.contextmanager
+def capture_flash_calls(calls):
+    """Record each call of the attention dispatcher's flash route: q, k, v,
+    its keywords, and (after the backward) the gradient its output took."""
+    from vit_pytorch_tpu_torch.ops import attention
+
+    original = attention.flash_attention
+
+    def capturing(q, k, v, **kw):
+        out = original(q, k, v, **kw)
+        call = {"q": q.detach().contiguous(), "k": k.detach().contiguous(), "v": v.detach().contiguous(),
+                **{key: t.detach() if torch.is_tensor(t) else t for key, t in kw.items()}}
+        out.register_hook(lambda g: call.__setitem__("do", g.detach().contiguous()))
+        calls.append(call)
+        return out
+
+    attention.flash_attention = capturing
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = original
+
+
+def check_flash_calls(fa, calls, label):
+    """Each recorded flash call through the kernels against their twins on
+    its own inputs, as phase 25 holds them: o and lse against the forward
+    twin fed the kernels' own q^ and k^ (with gammas), dq, dk and dv against
+    the backward twin, from the gradient the call's output took."""
+    for i, c in enumerate(calls):
+        if c.get("bias") is not None or c.get("dropout_rate", 0.0) or c.get("causal"):
+            fail(f"phase 62: {label}: flash call {i} is not the plain packed case this check holds")
+        q, k, v, do, gq, gk = c["q"], c["k"], c["v"], c["do"], c.get("gamma_q"), c.get("gamma_k")
+        ids = [None if c.get(key) is None else c[key].to(torch.int32).contiguous()
+               for key in ("q_segment_ids", "kv_segment_ids")]
+        kw = dict(scale=q.shape[-1] ** -0.5 if c.get("scale") is None else float(c["scale"]),
+                  q_segment_ids=ids[0], kv_segment_ids=ids[1])
+        gkw = {} if gq is None else dict(gamma_q=gq, gamma_k=gk)
+        tag = f"{'[qknorm]' if gkw else ''} [{label}, call {i}: q {tuple(q.shape)}, k {tuple(k.shape)}]"
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, **kw, **gkw)
+            hats = kernel_order_hats(q, k, gq, gk) if gkw else (q, k)
+            o_want, lse_want = fa.flash_fwd_reference(*hats, v, **kw)
+            compare_or_zero(f"flash_fwd o{tag}", o, o_want, ATTN_ATOL, ATTN_RTOL)
+            live = lse_want > 0.5 * fa.NEG_INF
+            if not bool((lse[~live] == fa.NEG_INF).all()):
+                fail(f"phase 62: flash_fwd lse{tag}: a fully masked row does not read the sentinel")
+            if live.any():
+                compare(f"flash_fwd lse{tag}", lse[live], lse_want[live], FLASH_LSE_ATOL, FLASH_LSE_RTOL, F32_REL_L2)
+            delta = (do.float() * o.float()).sum(-1)
+            got = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw, **gkw),
+                   *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw, **gkw))
+            want = fa.flash_bwd_reference(q, k, v, do, lse, delta, **kw, **gkw)
+            for part, a, b in zip(("flash_bwd_dq dq", "flash_bwd_dkv dk", "flash_bwd_dkv dv"), got, want):
+                compare_or_zero(f"{part}{tag}", a, b, None, ATTN_RTOL, atol_frac=BWD_ATOL_FRAC)
+        sync()
+
+
+def compare_grads_to_floor(name, got, plain, fp32, loss, loss_plain, bound, names):
+    """The loss's relative difference to ``bound``; the relative L2 of all
+    gradients together, and of the worst single parameter, against the
+    twins at most NAVIT_NOISE_RATIO times what the twins read against f32."""
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()  # noqa: E731
+    d_loss = abs(loss - loss_plain) / abs(loss_plain)
+    total, floor = grads_rel_l2(got, plain), grads_rel_l2(plain, fp32)
+    per, per_floor = [rel(a, b) for a, b in zip(got, plain)], [rel(b, c) for b, c in zip(plain, fp32)]
+    worst, worst_floor = (max(range(len(v)), key=v.__getitem__) for v in (per, per_floor))
+    ok = (d_loss <= bound and total <= NAVIT_NOISE_RATIO * floor and per[worst] <= NAVIT_NOISE_RATIO *
+          per_floor[worst_floor] and all(bool(torch.isfinite(a).all()) for a in got))
+    log(f"  {name}: loss {loss:.6f} vs {loss_plain:.6f} (rel {d_loss:.3e}, bound {bound}); grads rel L2 {total:.4e} "
+        f"(bound {NAVIT_NOISE_RATIO} x the twins vs f32, {floor:.4e}), worst {names[worst]} {per[worst]:.4e} (bound "
+        f"{NAVIT_NOISE_RATIO} x the twins' worst vs f32, {names[worst_floor]} {per_floor[worst_floor]:.4e}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"training: {name} out of bounds")
+
+
+class PlainReplay:
+    """Wraps a training example's module-level ``train_step`` while its
+    ``main()`` runs (restored on exit).  Before each update, the step's loss
+    and gradients on a copy of the model from the same weights and inputs
+    through the plain twins (which must launch nothing); after it, the
+    kernel path's own gradients, which the update leaves in place until the
+    next step's ``zero_grad``; the two held to the example's bounds.  Each
+    step is timed alone: the host clock around the example's step and a
+    synchronize."""
+
+    def __init__(self, fb, fa, ex, name):
+        self.fb, self.fa, self.ex, self.name = fb, fa, ex, name
+        self.bounds, self.losses, self.plain_losses, self.ms = EXAMPLE_VS_PLAIN[name], [], [], []
+        self.flash_calls = []  # NaViT's first step's
+
+    def __enter__(self):
+        self.train_step = self.ex.train_step
+        self.ex.train_step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.train_step = self.train_step
+
+    def step(self, model, opt, inputs):
+        i = len(self.ms)
+        plain = copy.deepcopy(model)
+        plain.zero_grad(set_to_none=True)
+        preds, hooks = {}, []
+        if self.name == "pretrain_mae":
+            hooks = [m.to_pixels.register_forward_hook(lambda mod, args, out, key=key: preds.__setitem__(key, out))
+                     for m, key in ((model, "kernel"), (plain, "plain"))]
+        navit = self.name == "train_navit_packed"
+        before = dict(all_launches(self.fb, self.fa))
+        with plain_layers(), plain_flash():
+            plain_loss = self.ex.loss_of(plain, inputs)
+            plain_loss.backward()
+        if navit:  # the floor: the twins in f32 from the same weights
+            fp32 = copy.deepcopy(plain).float()
+            fp32.zero_grad(set_to_none=True)
+            with plain_flash(admit_fp32=True):
+                self.ex.loss_of(fp32, {**inputs, "packed": inputs["packed"].to(dtype=torch.float32)}).backward()
+            _, fgrads = trained_grads(fp32)
+            del fp32
+        sync()
+        if all_launches(self.fb, self.fa) != before:
+            fail(f"phase 62: {self.name}'s plain copies launched a kernel at step {i}")
+        with capture_flash_calls(self.flash_calls) if navit and i == 0 else contextlib.nullcontext():
+            sync()
+            t0 = time.perf_counter()
+            loss = self.train_step(model, opt, inputs)
+            sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        for hook in hooks:
+            hook.remove()
+        names, grads = trained_grads(model)
+        pnames, pgrads = trained_grads(plain)
+        if names != pnames or not names:
+            fail(f"phase 62: {self.name}: the paths differ in which parameters have gradients")
+        got, want = loss.item(), plain_loss.item()
+        if self.name == "pretrain_mae":
+            with torch.no_grad():
+                (got32, got16), (want32, _) = (mae_loss32(m, inputs, preds[key])
+                                               for m, key in ((model, "kernel"), (plain, "plain")))
+            log(f"  {self.name} step {i}: the bf16 loss {got!r} recomputed from the predicted pixels {got16.item()!r}, "
+                f"float32 {got32.item():.9f} vs {want32.item():.9f}")
+            if got16.item() != got:
+                fail(f"phase 62: MAE's loss recomputed from its predicted pixels is {got16.item()!r}, not {got!r}")
+            got, want = got32.item(), want32.item()
+        what = f"{self.name} step {i} vs the plain twins"
+        if navit:
+            compare_grads_to_floor(what, grads, pgrads, fgrads, got, want, self.bounds["loss"], names)
+        else:
+            compare_grads(what, grads, pgrads, got, want, self.bounds, names)
+        self.losses.append(got)
+        self.plain_losses.append(want)
+        del plain
+        return loss
+
+
+def check_serve_example(fb, fa, smi):
+    """serve_vit.main() exactly as written; returns its row of phase 62."""
+    from vit_pytorch_tpu_torch.examples import serve_vit
+
+    log(f"  serve_vit: ViT-B/16 @224 ({serve_vit.CONFIG}), Predictor buckets {serve_vit.BUCKETS}, requests "
+        f"{serve_vit.REQUESTS} x (1 + 10), then {serve_vit.OVERSIZE}; {smi}")
+    buf = io.StringIO()
+    reset_all(fb, fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve_vit.main([])
+    sync()
+    seconds = time.perf_counter() - t0
+    for line in filter(None, buf.getvalue().strip().splitlines()):
+        log(f"    | {line}")
+    runs = len(serve_vit.BUCKETS) + 11 * len(serve_vit.REQUESTS) + -(-serve_vit.OVERSIZE // serve_vit.BUCKETS[-1])
+    counts = expect_launches(fb, fa, {k: runs * DEPTH * v for k, v in LAUNCHES_PER_LAYER.items()},
+                             f"serve_vit ({runs} bucket runs x {DEPTH} x 7)")
+    p = out["predictor"]
+    equal = {}
+    for k, (x, y) in out["outputs"].items():
+        again = p(x)
+        equal[k] = bool(torch.equal(again, y)) and bool(torch.isfinite(y).all())
+    log(f"  serve_vit in {seconds:.2f} s: {runs} bucket runs, {sum(counts.values())} launches "
+        f"({DEPTH * sum(LAUNCHES_PER_LAYER.values())} a run); logits at {list(equal)} images bitwise the "
+        f"Predictor's own calls and finite: {equal}")
+    if p.compiled_buckets != BUCKETS or not all(equal.values()) or out["outputs"][300][1].shape != (300, 1000):
+        fail(f"phase 62: serve_vit: buckets {p.compiled_buckets}, logits bitwise {equal}")
+    p50 = {k: statistics.median(t) for k, t in out["latency_ms"].items()}
+    return {"seconds": seconds, "p50_ms": p50, "oversize_ms": out["oversize_ms"], "gflop": out["gflop"]}
+
+
+def check_digits_example(fb, fa, smi, tmp):
+    """train_digits.main() (20 epochs) and its resume through run()."""
+    from vit_pytorch_tpu_torch.examples import train_digits
+
+    log(f"  train_digits: {train_digits.CONFIG}, the repo's copy of the UCI digits, float32, Adam 3e-4, bs=128; "
+        f"{smi}")
+    buf = io.StringIO()
+    reset_all(fb, fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = train_digits.main([])
+    sync()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:2] + lines[-3:]:
+        log(f"    | {line}")
+    expect_launches(fb, fa, {}, "train_digits (dim_head 16: the composite)")
+    log(f"  train_digits in {seconds:.2f} s: {len(out['losses'])} epochs, losses {out['losses'][0]:.4f} -> "
+        f"{out['losses'][-1]:.4f}, test accuracy {out['accuracy']:.4f}")
+    if len(out["losses"]) != 20 or not out["accuracy"] > 0.5:
+        fail(f"phase 62: train_digits learned to {out['accuracy']} in {len(out['losses'])} epochs")
+
+    data = train_digits.load_data()
+    dev = torch.device("cuda", 0)
+    run = lambda epochs, directory, *resume: train_digits.run(  # noqa: E731
+        train_digits.arguments().parse_args(["--epochs", str(epochs), "--checkpoint-dir", directory, *resume]),
+        data, dev)["state"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        full = run(DIGITS_EPOCHS, os.path.join(tmp, "digits_full"))
+        run(DIGITS_SPLIT, os.path.join(tmp, "digits_split"))
+        resumed = run(DIGITS_EPOCHS, os.path.join(tmp, "digits_split"), "--resume")
+    sync()
+    differ = [n for (n, a), b in zip(full.model.state_dict().items(), resumed.model.state_dict().values())
+              if not torch.equal(a, b)]
+    moments_a, moments_b = adam_moments(full), adam_moments(resumed)
+    differ += [f"adam {i} {key}" for (i, key, a), (_, _, b) in zip(moments_a, moments_b) if not torch.equal(a, b)]
+    log(f"  train_digits resume: {DIGITS_SPLIT} + {DIGITS_EPOCHS - DIGITS_SPLIT} epochs against {DIGITS_EPOCHS} "
+        f"({time.perf_counter() - t0:.2f} s): steps {resumed.step} / {full.step}; {len(full.model.state_dict())} "
+        f"tensors and {len(moments_a)} Adam state tensors, {len(differ)} not bitwise equal")
+    if differ or full.step != resumed.step or len(moments_a) != len(moments_b) or not moments_a:
+        fail(f"phase 62: the resumed digits run differs from the uninterrupted one: {differ[:8]}")
+    return {"seconds": seconds, "accuracy": out["accuracy"], "epoch_losses": out["losses"]}
+
+
+def check_training_example(fb, fa, smi, name):
+    """A training example's main() for EXAMPLE_STEPS steps at its own
+    configuration, each step held against the plain twins."""
+    import importlib
+
+    ex = importlib.import_module(f"vit_pytorch_tpu_torch.examples.{name}")
+    per_step = example_launches(name)
+    log(f"  {name}: {ex.CONFIG}, {EXAMPLE_STEPS} steps; {smi}")
+    reset_all(fb, fa)
+    t0 = time.perf_counter()
+    with PlainReplay(fb, fa, ex, name) as replay:  # the example's own lines, then each step's comparison
+        out = ex.main(["--steps", str(EXAMPLE_STEPS)])
+    sync()
+    seconds = time.perf_counter() - t0
+    expect_launches(fb, fa, {k: EXAMPLE_STEPS * v for k, v in per_step.items()},
+                    f"{name} ({EXAMPLE_STEPS} steps of {({k: v for k, v in per_step.items() if v})})")
+    if name == "train_navit_packed":
+        calls = replay.flash_calls
+        if len(calls) != per_step["flash_fwd"] or any("do" not in c for c in calls):
+            fail(f"phase 62: {len(calls)} flash calls recorded in NaViT's first step, {per_step['flash_fwd']} expected, "
+                 f"{sum('do' in c for c in calls)} with their output's gradient")
+        check_flash_calls(fa, calls, f"{name} step 0")
+    ok = len(replay.ms) == EXAMPLE_STEPS and all(math.isfinite(v) for v in out["losses"])
+    log(f"  {name} in {seconds:.2f} s (with the plain copy's steps): losses {[f'{v:.6f}' for v in out['losses']]}; "
+        f"host ms a step around it and a synchronize {[f'{v:.2f}' for v in replay.ms]} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"phase 62: {name}'s losses are not finite or its steps were not all held against the plain twins")
+    return {"seconds": seconds, "ms": replay.ms, "losses": out["losses"], "compared": replay.losses,
+            "plain_losses": replay.plain_losses,
+            "launches_per_step": {k: v for k, v in per_step.items() if v}}
+
+
+DECORR_CHILD = r"""
+import copy, json, sys, time, torch
+from vit_pytorch_tpu_torch.examples import train_vit_decorr as ex
+from vit_pytorch_tpu_torch.ops import fused_block as fb, flash_attention as fa, short_attention as sa
+from vit_pytorch_tpu_torch.parallel.train import _loss_and_accuracy, cross_entropy_loss, make_sharded_train_step
+from vit_pytorch_tpu_torch.utils.checkpoint import load_checkpoint
+
+steps, path = int(sys.argv[1]), sys.argv[2]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+replay, placed, ms = [], [], []
+
+
+def replayed_step(model, mesh, **kw):
+    # the example's sharded step, each call first replayed on a copy of the
+    # model from the same batch and a generator in the same state
+    step = make_sharded_train_step(model, mesh, **kw)
+
+    def checked(state, x, y, gen):
+        placed.append([type(x).__name__, str(x.placements), x.device.type, list(x.shape)])
+        again = torch.Generator()
+        again.set_state(gen.get_state())
+        loss, _ = _loss_and_accuracy(copy.deepcopy(model), cross_entropy_loss, kw["aux_loss_weight"])(
+            x.to_local(), y.to_local(), again)
+        replay.append(loss.item())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, x, y, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+
+    return checked
+
+
+ex.make_sharded_train_step = replayed_step
+for counters in (fb, fa, sa):
+    counters.reset_launch_counts()
+out = ex.main(["--steps", str(steps), "--checkpoint", path])
+torch.cuda.synchronize()
+launches = {k: v for c in (fb, fa, sa) for k, v in c.LAUNCHES.items() if v}
+saved = load_checkpoint(path)["params"]
+state = out["model"].state_dict()
+print(json.dumps({"losses": out["losses"], "accuracies": out["accuracies"], "ms": ms, "mesh": out["mesh"],
+                  "replay": replay, "placed": placed, "launches": launches, "initialized":
+                  torch.distributed.is_initialized(), "device": str(next(out["model"].parameters()).device),
+                  "saved_differ": [k for k in state if not torch.equal(saved[k], state[k].cpu())]}))
+"""
+
+
+def check_decorr_example(smi, tmp):
+    """train_vit_decorr.main() in a subprocess: its world of one would
+    otherwise outlive the phase in this process."""
+    from vit_pytorch_tpu_torch.examples import train_vit_decorr
+
+    log(f"  train_vit_decorr: {train_vit_decorr.CONFIG}, bs=32, Adam 3e-4, decorrelation weight 0.1, "
+        f"{EXAMPLE_STEPS} steps in a subprocess (make_mesh(): an NCCL world of one); {smi}")
+    path = os.path.join(tmp, "decorr_params")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DECORR_CHILD, str(EXAMPLE_STEPS), path], capture_output=True,
+                          text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 62: the decorrelation subprocess failed: {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    ok = (got["losses"] == got["replay"] and len(got["losses"]) == EXAMPLE_STEPS
+          and all(math.isfinite(v) for v in got["losses"]) and not got["launches"] and not got["initialized"]
+          and got["mesh"] == {"data": 1, "model": 1} and got["device"].startswith("cuda")
+          and got["placed"][0] == ["DTensor", "(Shard(dim=0), Replicate())", "cuda", [32, 3, 32, 32]]
+          and not got["saved_differ"])
+    log(f"  train_vit_decorr in {seconds:.2f} s (process start included): mesh {got['mesh']}, batches placed "
+        f"{got['placed'][0]}, params on {got['device']}; losses {got['losses']}, accuracies {got['accuracies']}; "
+        f"each loss bitwise a replay of its step on a copy (no flash option: the composite) "
+        f"{got['losses'] == got['replay']}; launches {got['launches'] or 'none'}; host ms a step "
+        f"{[f'{v:.2f}' for v in got['ms']]}; the --checkpoint params equal the model's "
+        f"{not got['saved_differ']}; process group left {got['initialized']} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"phase 62: train_vit_decorr: {got}")
+    return {"seconds": seconds, "ms": got["ms"], "losses": got["losses"]}
+
+
+def check_tune_train(fb, fa, smi):
+    """tune_train's three modes at bs=1024, called one by one: a failure
+    fails the run (the tool itself prints FAILED and goes on)."""
+    from vit_pytorch_tpu_torch.tools import bench_fused_tuning as tuning
+
+    log(f"  tune_train: ViT-B/16 @224, bs={tuning.TRAIN_BATCH}, bf16, Adam 3e-4; 1 step then the best of 3 (host "
+        f"clock around the step and a synchronize); {smi}")
+    want = {k: 4 * DEPTH * v for k, v in TRAIN_LAUNCHES_PER_LAYER.items()}
+    rows = {}
+    for name in tuning.TRAIN_MODES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all(fb, fa)
+        out = tuning.train_mode(name)
+        sync()
+        expect_launches(fb, fa, want, f"tune_train {name} (4 steps x {DEPTH} x 13)")
+        rows[name] = {"ms": out["ms"], "img_s": out["img_s"], "loss": out["loss"].item(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  train {name:28s} {out['ms']:8.2f} ms/step ({out['img_s']:.0f} img/s), peak memory "
+            f"{rows[name]['peak_gib']:.2f} GiB, loss after 4 steps {rows[name]['loss']!r}")
+        del out
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows.values()]
+    spread = max(r["ms"] for r in rows.values()) / min(r["ms"] for r in rows.values()) - 1
+    ok = all(math.isfinite(v) for v in losses) and max(abs(v - losses[0]) / abs(losses[0]) for v in losses) <= \
+        TRAIN_VS_PLAIN["loss"]
+    log(f"  tune_train: the three losses bitwise equal {len(set(losses)) == 1} (remat is a no-op on the whole "
+        f"layer); ms/step spread {spread * 100:.2f}% {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"phase 62: tune_train's losses {losses}")
+    return rows
+
+
+def check_examples(fb, fa, smi):
+    """Phase 62: every example's main() and tune_train on the card."""
+    log(f"[62 examples] each example's main() at its own configuration, and tune_train; {smi}")
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="vit-torch-examples-") as tmp:
+        rows["serve_vit"] = check_serve_example(fb, fa, smi)
+        rows["train_digits"] = check_digits_example(fb, fa, smi, tmp)
+        for name in ("train_navit_packed", "pretrain_mae", "pretrain_dino"):
+            rows[name] = check_training_example(fb, fa, smi, name)
+            torch.cuda.empty_cache()
+        rows["train_vit_decorr"] = check_decorr_example(smi, tmp)
+    rows["tune_train"] = check_tune_train(fb, fa, smi)
+    log("  phase 62 rows: " + json.dumps(rows, default=float))
+    return rows
+
+
 def time_layer_dispatch(fb, dev, smi):
     """Host us of one ViT-B/16 layer's 7 forward launches at bs=1 (n = 197),
     through the eager implementation (``fused_transformer_layer``, what
@@ -9792,6 +10248,10 @@ def main():
         # -- 61. the mesh (ROADMAP item 11b): a world of one on the card ---------------------------------------
         check_mesh(fb, dev, tmp, smi)
         phase_done("phase 61")
+
+    # -- 62. the examples and tune_train (ROADMAP item 11c) ------------------------------------------------------
+    check_examples(fb, fa, smi)
+    phase_done("phase 62")
 
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
