@@ -11,8 +11,15 @@ every check, then on deliberately wrong copies of
 ``vit_pytorch_tpu_torch/csrc``, each built under ``build/mutants/`` with one
 edit, which must each fail at least one check.  Prints one line a kernel
 and exits 1 if the right kernels fail or a mutant passes; the runner is
-``chip_qk_mutants.main``.
+``chip_qk_mutants.main``.  ``wide`` runs WIDE_MUTANTS instead, the backward
+of the wide kernels (``csrc/attention_wide.cuh``: the row pass and the key
+pass) against phase 63's kernel checks (``check_ladder_kernels``).
+
+    python3 chip_attn_bwd_mutants.py wide
 """
+
+import sys
+
 
 import chip_qk_mutants
 import chip_smoke as cs
@@ -44,6 +51,30 @@ MUTANTS = {
 }
 
 
+_ROW_PAD = ("  zero_pad_cols<DH>(qs, tid);\n  zero_pad_cols<DH>(dms, tid);\n"
+            "  if constexpr (QKNORM) rms_norm_wide<DH>(qs, a.gq + h * DH, a.root, tid, rq);")
+_ROW_STAGE_PAD = "      zero_pad_cols<DH>(st, tid);\n      if (it >= nc) zero_pad_cols<DH>(st + W::TILE, tid);"
+
+# the wide backward: (file in csrc/, text replaced, replacement), or a tuple of such edits
+WIDE_MUTANTS = {
+    "the row pass with dh 88's pad columns left unzeroed": (
+        ("attention_wide.cuh", _ROW_PAD, _ROW_PAD.replace("  zero_pad_cols<DH>(qs, tid);\n  zero_pad_cols<DH>(dms, tid);\n",
+                                                          "")),
+        ("attention_wide.cuh", _ROW_STAGE_PAD, "")),
+    "the backward's qk-norm root fixed at 8 (sqrt(64)) whatever dh": (
+        "attention_wide.cu", "  a.scale_log2e = scale_log2e, a.scale = scale, a.root = wide_root(dim_head);",
+        "  a.scale_log2e = scale_log2e, a.scale = scale, a.root = 8.f;"),
+    "the row pass without its last key chunk": (
+        "attention_wide.cuh", "q0 = qt * kAttnWideTile, nc = nq, total = 3 * nc,",
+        "q0 = qt * kAttnWideTile, nc = nq - (nq > 1), total = 3 * nc,"),
+}
+
+
+def check_wide(fb, rnd, dev):
+    """Phase 63's kernel checks."""
+    cs.check_ladder_kernels(fb, rnd, dev)
+
+
 def check(fb, rnd, dev):
     """attention_bwd_rows' phases: 6, 9 and 16."""
     cs.check_backward(fb, rnd)
@@ -53,4 +84,6 @@ def check(fb, rnd, dev):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["wide"]:
+        chip_qk_mutants.main(WIDE_MUTANTS, check_wide, "attn-bwd-wide")
     chip_qk_mutants.main(MUTANTS, check, "attn-bwd")

@@ -3,7 +3,7 @@ sm_90a): the tile machinery of short_attention and flash_fwd
 (``csrc/attn_wgmma.cuh``), then the layer chain's attention_rows
 (``csrc/attention_rows.cu`` and its tile body in ``csrc/layer_tiles.cuh``).
 
-    python3 chip_attn_mutants.py
+    python3 chip_attn_mutants.py [wide]
 
 Two sets (the layer set first), each first on the kernels as they are,
 which must pass every check, then on deliberately wrong copies of ``vit_pytorch_tpu_torch/csrc``,
@@ -16,7 +16,10 @@ least one check:
   - LAYER_MUTANTS against phase 3 (``check_kernels``: attention_rows at n =
     197 and 50, the whole layer), phase 16's config-2 shapes
     (``check_simple_attention``: n = 64 and 68) and phase 34 (``check_tools``:
-    attention_rows[n_keys] among the tools' counterparts).
+    attention_rows[n_keys] among the tools' counterparts);
+  - WIDE_MUTANTS, the forward of the wide kernels (``csrc/attention_wide.cuh``),
+    against phase 63's kernel checks (``check_ladder_kernels``: every variant
+    at the width ladder's shapes and the 64-key chunks' edges).
 Prints one line a kernel with the number of checks that refused it, and
 exits 1 if the right kernels fail or a mutant passes.  The runner is
 chip_qk_mutants.run.
@@ -76,6 +79,31 @@ LAYER_MUTANTS = {
 }
 
 
+_FWD_Q_PAD = "  zero_pad_cols<DH>(qs, tid);\n  if constexpr (QKNORM) rms_norm_wide<DH>(qs, a.gq + h * DH, a.root, tid, nullptr);"
+_FWD_K_PAD = ("      zero_pad_cols<DH>(st, tid);\n"
+              "      if constexpr (QKNORM) rms_norm_wide<DH>(st, a.gk + h * DH, a.root, tid, nullptr);")
+
+# the wide forward (attention_wide_fwd_kernel and its host side): (file in csrc/, text replaced, replacement), or a
+# tuple of such edits
+WIDE_MUTANTS = {
+    "dh 88's pad columns 88..95 left unzeroed (the next head's q and k in the last k16 step)": (
+        ("attention_wide.cuh", _FWD_Q_PAD, _FWD_Q_PAD.replace("  zero_pad_cols<DH>(qs, tid);\n", "")),
+        ("attention_wide.cuh", _FWD_K_PAD, _FWD_K_PAD.replace("      zero_pad_cols<DH>(st, tid);\n", ""))),
+    "the qk-norm's root fixed at 8 (sqrt(64)) whatever dh": (
+        "attention_wide.cu", "  a.scale_log2e = scale_log2e, a.root = wide_root(dim_head);",
+        "  a.scale_log2e = scale_log2e, a.root = 8.f;"),
+    "the last key chunk dropped": (
+        "attention_wide.cuh", "  const int nc = (a.n_keys + kAttnWideTile - 1) / kAttnWideTile, total = 2 * nc;",
+        "  const int nc = (a.n_keys - 1) / kAttnWideTile + (a.n_keys <= kAttnWideTile), total = 2 * nc;"),
+}
+
+
+def check_wide(fb, rnd, dev):
+    """Phase 63's kernel checks (the runner's generator is unused: the
+    checks draw their own)."""
+    cs.check_ladder_kernels(fb, rnd, dev)
+
+
 def check_layer(fb, rnd, dev):
     """Phase 3, phase 16's config-2 attention and phase 34 on the runner's
     generator."""
@@ -95,7 +123,11 @@ def check(fb, rnd, dev):
 
 
 if __name__ == "__main__":
-    # the layer set first: the last of MUTANTS may fault, which ends every later launch of the process
+    # the layer sets first: the last of MUTANTS may fault, which ends every later launch of the process;
+    # "wide" alone runs the wide set
+    if sys.argv[1:] == ["wide"]:
+        sys.exit(0 if chip_qk_mutants.run(WIDE_MUTANTS, check_wide, "attn-wide") else 1)
     ok = chip_qk_mutants.run(LAYER_MUTANTS, check_layer, "attn-layer")
+    ok &= chip_qk_mutants.run(WIDE_MUTANTS, check_wide, "attn-wide")
     ok &= chip_qk_mutants.run(MUTANTS, check, "attn")
     sys.exit(0 if ok else 1)

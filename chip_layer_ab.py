@@ -19,13 +19,17 @@ of 42 launches each stands for; then layernorm_bwd_rows (LN1's backward with
 its dy) and its [res_f32] variant (with a bf16 residual) at 25,216 rows of
 768, beside torch.ops.aten.native_layer_norm_backward on the same rows
 (dx, dgamma and dbeta in one call, given the forward's mean and rstd; dh
-cast to bf16 where it refuses the f32 dh beside bf16 x): CUDA events over
-30 chained launches after 3 warm-up ones.  Prints one JSON line {"tree":
-label, kernel: ms, ...} and, after a fresh build, the ptxas lines of those
-kernels.  Run two checkouts in turns (A, B, B, A) in one call; to time a
+cast to bf16 where it refuses the f32 dh beside bf16 x), and
+attention_bwd_rows at ViT-B/16's bs=128: CUDA events over 30 chained
+launches after 3 warm-up ones.  Last, ViT-B/16 @224 (random weights from
+chip_smoke.py's seed, bf16, eval) on 32 seeded images, whose logits'
+SHA-256 shows whether two trees' forwards agree bit for bit.  Prints one
+JSON line {"tree": label, kernel: ms, ..., "vit_b16 logits sha256": hex}
+and, after a fresh build, the ptxas lines of those kernels.  Run two checkouts in turns (A, B, B, A) in one call; to time a
 parent commit, unpack it with ``git archive`` into a git-ignored directory.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -119,12 +123,19 @@ if __name__ == "__main__":
     except RuntimeError:
         dh_native, cast = dh.to(x.dtype), "dh cast from f32 to bf16"
     calls["native_layer_norm_backward"] = lambda: native(dh_native)
+    dm = rnd(b, n, inner)
+    calls["attention_bwd_rows"] = lambda: fb.attention_bwd_rows(qkv, dm, **akw)
     out = {"tree": label, "native_layer_norm_backward cast": cast}
     with torch.inference_mode():
         for name, call in calls.items():
             out[name] = cs.cuda_ms(call, 30)
+        model = cs.vit_b(dev, torch.bfloat16).eval()
+        images = torch.randn(32, 3, 224, 224, generator=torch.Generator(device=dev).manual_seed(cs.SEED + 28),
+                             device=dev).to(torch.bfloat16)
+        logits = model(images).float().cpu().numpy()
+    out["vit_b16 logits sha256"] = hashlib.sha256(logits.tobytes()).hexdigest()
     print(json.dumps(out), flush=True)
     for line in cs.ptxas_report(lib.build_log):
         if any(k in line for k in ("layernorm_rows", "layernorm_bwd", "gemm_bf16", "attention_rows_kernel",
-                                   "stack_layers")):
+                                   "attention_bwd_kernel", "stack_layers")):
             print(label, line)

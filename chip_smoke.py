@@ -348,8 +348,9 @@ Phases, each printed as it ends:
      variant, the orthogonal update, hyper-connections (4 streams, 4
      registers: 68 tokens), value residual, specialized cls and the
      attention-residual model, each served one batch: exact counters (4
-     block launches a layer where the block fuses, none in the 3-D pair,
-     value residual, specialized cls and attention-residual), logits
+     block launches a layer where the block fuses, the 3-D pair's 512
+     tokens on the wide attention kernels too; none in value residual,
+     specialized cls and attention-residual), logits
      against the plain bf16 path (the block on its twins) and fp32, ms a
      batch; the 1-D, patch-dropout, orthogonal-update and hyper-connection
      models trained 3 steps (loss falls, exact counters, first-step loss
@@ -446,7 +447,21 @@ Phases, each printed as it ends:
      and inputs, which launches nothing); train_vit_decorr 3 steps in a
      subprocess (NCCL world of one; the composite: each loss bitwise a
      replay of its step, no launch; the --checkpoint params); tune_train's
-     three modes at bs=1024 (ms/step, img/s, peak memory, exact counters).
+     three modes at bs=1024 (ms/step, img/s, peak memory, exact counters);
+ 63. the JAX width ladder on the wide attention kernels
+     (csrc/attention_wide.cuh): attention_rows and attention_bwd_rows,
+     plain, [dropout], [qknorm] and both, against their twins at ViT-H/14's
+     (16 x 80), ViT-g/14's (16 x 88) and ViT-L/14's (16 x 64) 257 tokens,
+     the d32 / d128 ViT-Bs' (24 x 32, 6 x 128) 197, ViT-B/16 @384's 577 and
+     the 64-key chunks' edges; the chain's other kernels and the whole layer
+     at ViT-H's and ViT-g's widths; ViT-H/14 and ViT-g/14 (full width and
+     depth) served at bs=64 through Predictor and the d32 / d128 ViT-Bs at
+     128 (exact counters, every layer a whole layer by a spy, no dispatcher
+     call; logits against the plain twins and fp32); ViT-H/14 trained 3
+     AdamW steps at bs=32 at dropout 0 and 0.1 and the ViT-Bs at 128 (exact
+     counters, the first step against the plain twins, peak memory); the
+     attention kernels timed at each (the '@ ViT-H/14', '@ ViT-g/14', '@
+     d32' and '@ d128' entries of the kernels line).
 Each phase prints its seconds.  Then one JSON line with the kernels (their
 times, bounds and library-call times), and the last line {"ok": true,
 "device": {...}}.  Any failed check exits non-zero before it.
@@ -699,20 +714,20 @@ def gemm_work(m, n, k, *, bias=False, residual=False, out_bytes=2, dropout=False
     return work(b, tensor=2 * m * n * k, f32=PHILOX_OPS_PER_ELEMENT * m * n if dropout else 0)
 
 
-def attention_work(b, n, heads, *, backward=False, dropout=False, qknorm=False):
+def attention_work(b, n, heads, *, backward=False, dropout=False, qknorm=False, dh=DH):
     """attention_rows (qkv in, merged heads out; q.k and p.v) or
     attention_bwd_rows (qkv and dm in, m and dqkv out; q.k, p.v, dv, dp, dq,
     dk): 4 or 12 n^2 dh bf16 products a head, ~5 f32 operations a logit, a
     Philox draw a logit with dropout; qk-norm adds the gammas (and the
     dgammas) and ~6 f32 operations an element of q and k (twice backward)."""
-    inner = heads * DH
+    inner = heads * dh
     bytes_ = b * n * inner * 2 * (8 if backward else 4)
     logits = b * heads * n * n
     f32 = 5 * logits + (PHILOX_OPS_PER_ELEMENT * logits if dropout else 0)
     if qknorm:
         bytes_ += 2 * inner * 2 + (2 * inner * 4 if backward else 0)
         f32 += 6 * 2 * b * n * inner * (2 if backward else 1)
-    return work(bytes_, tensor=(12 if backward else 4) * logits * DH, f32=f32)
+    return work(bytes_, tensor=(12 if backward else 4) * logits * dh, f32=f32)
 
 
 def flash_work(name, ids, heads, dropout=False, qknorm=False):
@@ -790,18 +805,18 @@ def linear_ms(a, w, iters=20):
     return cuda_ms(lambda: torch.nn.functional.linear(a, w), iters)
 
 
-def sdpa_ms(qkv, heads, iters, **kw):
+def sdpa_ms(qkv, heads, iters, dh=DH, **kw):
     """Device ms of torch's scaled_dot_product_attention on the heads of a
     packed (b, n, 3*inner) qkv: the library call beside attention_rows."""
     b, n, _ = qkv.shape
-    q, k, v = qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
     return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw), iters)
 
 
 SDPA_FWD_BWD = "scaled_dot_product_attention forward + backward (torch.autograd.grad to q, k, v)"
 
 
-def sdpa_fwd_bwd_ms(qkv, dm, heads, iters, **kw):
+def sdpa_fwd_bwd_ms(qkv, dm, heads, iters, dh=DH, **kw):
     """Device ms of torch's scaled_dot_product_attention forward and its
     backward to q, k and v, with the merged-heads gradient dm as the
     output's cotangent, on the heads of a packed (b, n, 3*inner) qkv: a
@@ -809,8 +824,8 @@ def sdpa_fwd_bwd_ms(qkv, dm, heads, iters, **kw):
     torch call does)."""
     b, n, _ = qkv.shape
     with torch.inference_mode(False), torch.enable_grad():
-        q, k, v = (t.clone().requires_grad_() for t in qkv.view(b, n, 3, heads, DH).permute(2, 0, 3, 1, 4))
-        go = dm.view(b, n, heads, DH).transpose(1, 2).clone()
+        q, k, v = (t.clone().requires_grad_() for t in qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+        go = dm.view(b, n, heads, dh).transpose(1, 2).clone()
 
         def run():
             o = torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
@@ -7026,8 +7041,8 @@ def time_vla(fa, dev, smi, siglip, vat):
 # first family, served at config 2's width (SIMPLE: 256/32, dim 1024, depth 6,
 # 16 heads, bs=256, 64 tokens); the 1-D model at 256 steps of patch 16 (16
 # tokens, 8 heads: inner 512 != dim), the 3-D ones at ViViT's clip (16 frames
-# of 128 x 128, tubelets 2 x 16 x 16: 512 tokens, over the block kernels' 208:
-# the composite), each with random weights from SEED
+# of 128 x 128, tubelets 2 x 16 x 16: 512 tokens, the wide attention
+# kernels' block), each with random weights from SEED
 FAMILY_1D = dict(seq_len=256, patch_size=16, num_classes=1000, dim=1024, depth=6, heads=8, mlp_dim=2048)
 FAMILY_3D = dict(image_size=128, image_patch_size=16, frames=16, frame_patch_size=2, num_classes=1000, dim=1024,
                  depth=6, heads=8, mlp_dim=2048)
@@ -7038,7 +7053,7 @@ SIMPLE_2D = {k: v for k, v in SIMPLE.items()}
 # name: (module, class, constructor, input shape past the batch, batch, tokens served, fuses)
 FAMILY = {
     "simple_vit_1d": ("simple_vit_1d", "SimpleViT", FAMILY_1D, (3, 256), SIMPLE_BS, 16, True),
-    "simple_vit_3d": ("simple_vit_3d", "SimpleViT", FAMILY_3D, (3, 16, 128, 128), FAMILY_3D_BS, 512, False),
+    "simple_vit_3d": ("simple_vit_3d", "SimpleViT", FAMILY_3D, (3, 16, 128, 128), FAMILY_3D_BS, 512, True),
     "simple_vit_with_patch_dropout": ("simple_vit_with_patch_dropout", "SimpleViT",
                                       {**SIMPLE_2D, "patch_dropout": FAMILY_PATCH_DROPOUT}, (3, 256, 256), SIMPLE_BS,
                                       64, True),
@@ -7046,7 +7061,7 @@ FAMILY = {
                             (3, 256, 256), SIMPLE_BS, 128, True),
     "simple_flash_attn_vit": ("simple_flash_attn_vit", "SimpleViT", SIMPLE_2D, (3, 256, 256), SIMPLE_BS, 64, True),
     "simple_flash_attn_vit_3d": ("simple_flash_attn_vit_3d", "SimpleViT", FAMILY_3D, (3, 16, 128, 128),
-                                 FAMILY_3D_BS, 512, False),
+                                 FAMILY_3D_BS, 512, True),
     "simple_vit_orthog_residual_update": ("simple_vit_orthog_residual_update", "SimpleViT", SIMPLE_2D,
                                           (3, 256, 256), SIMPLE_BS, 64, True),
     "simple_vit_with_hyper_connections": ("simple_vit_with_hyper_connections", "SimpleViT",
@@ -7532,7 +7547,7 @@ def time_family(fb, dev, gen, smi):
 #     DistillWrapper(temperature=3, alpha=0.5) with a frozen config-1 ViT;
 #   - ViT-1D at phase 49's 1-D shape (17 tokens with the cls token, 8 heads:
 #     inner 512 != dim 1024); ViT-3D at ViViT's clip (513 tokens: the
-#     composite, as in JAX);
+#     whole layer on the wide attention kernels; JAX takes the composite);
 #   - ViT-ND, -rotary and -PoPE on a 4-D input of 8 x 16 x 32 x 64 in
 #     2 x 4 x 4 x 8 patches: 1,024 patches (ViT-ND 1,025 tokens with its cls
 #     token: flash_fwd with a 1-row tail tile; the rotary exactly 1,024: the
@@ -7593,7 +7608,7 @@ FLASH_DROPOUT_STEP = {name: 1 for name in FLASH_DROPOUT}
 # the launches predicted for one served batch (PERF.md, §6)
 ZOO2_SERVED = {
     "vit_1d": per_layer(LAUNCHES_PER_LAYER, 6),
-    "vit_3d": {},
+    "vit_3d": per_layer(LAUNCHES_PER_LAYER, 6),
     "vit_nd": {"flash_fwd": 6},
     "vit_nd_rotary": {"short_attention": 6},
     "vit_nd_pope": {},
@@ -7984,11 +7999,11 @@ def time_zoo2(fb, fa, dev, gen, smi):
 # the plain path's, ms/step and peak memory; then the new kernel shapes
 # against their twins, timed.
 #   - CrossViT: the README's 256^2, depth 4; the small branch 192 wide, patch
-#     16 (257 tokens: the composite), 2 layers; the large branch 384 wide,
+#     16 (257 tokens: the wide attention kernels), 2 layers; the large branch 384 wide,
 #     patch 64 (17 tokens, inner 512: the whole layer served, the attention
 #     block at dropout 0.1 trained), 3 layers; cross-attention depth 2;
 #   - PiT: 224^2, patch 14 at stride 7, dim 256 doubling, depth (3, 3, 3),
-#     16 heads: 962, 257 and 65 tokens, the last stage (dim 1024) on the
+#     16 heads: 962, 257 and 65 tokens, the last two stages on the
 #     kernels;
 #   - XCiT (depth 12, cls_depth 2, layer dropout 0.05), LocalViT, the
 #     small-dataset ViT, RvT: config 1's widths and the README's patches;
@@ -8026,13 +8041,16 @@ ZOO3 = {
 ZOO3_TRAINED = ("cross_vit", "pit", "xcit", "mobile_vit", "cvt")
 # the launches predicted for one served batch (PERF.md, §6): CrossViT's large
 # branch 4 rounds x 3 layers and PiT's third stage 3 layers on the whole
-# layer, nothing else
+# layer; since the wide attention kernels (257 tokens at dim_head 64) also
+# CrossViT's small branch 4 rounds x 2 layers and PiT's second stage 3 layers
+# on the whole layer and LocalViT's 6 attention blocks; nothing else
 ZOO3_SERVED = {name: {} for name in ZOO3}
-ZOO3_SERVED.update(cross_vit=per_layer(LAUNCHES_PER_LAYER, 4 * 3), pit=per_layer(LAUNCHES_PER_LAYER, 3))
+ZOO3_SERVED.update(cross_vit=per_layer(LAUNCHES_PER_LAYER, 4 * 3 + 4 * 2), pit=per_layer(LAUNCHES_PER_LAYER, 3 + 3),
+                   local_vit=per_layer(BLOCK_FWD_LAUNCHES, 6))
 # ... and for ZOO3_STEPS training steps: the same layers' attention blocks at dropout 0.1
 ZOO3_TRAIN = {name: {} for name in ZOO3_TRAINED}
-ZOO3_TRAIN.update(cross_vit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 4 * 3, ZOO3_STEPS),
-                  pit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 3, ZOO3_STEPS))
+ZOO3_TRAIN.update(cross_vit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 4 * 3 + 4 * 2, ZOO3_STEPS),
+                  pit=per_layer(DROPOUT_LAUNCHES_PER_LAYER, 3 + 3, ZOO3_STEPS))
 # the new kernel shapes: (label, model, b, n, dim, heads, mlp) served and trained
 ZOO3_SHAPES = (("CrossViT large", "cross_vit", 17, 384, 8, 2048), ("PiT stage 3", "pit", 65, 1024, 16, 2048))
 ZOO3_DROPOUT_KERNELS = ("attention_rows[dropout]", "gemm_bf16[block_out]", "dropout_apply",
@@ -8353,13 +8371,13 @@ ZOO4_TRAINED = ("vit_with_patch_merger", "levit", "ats_vit", "crossformer", "ada
 # 3e-5 it falls at every step (fp32, CPU, two batches)
 ZOO4_LR = {"crossformer": 3e-5}
 # the launches predicted for one served batch (PERF.md, §6): the patch-merger's
-# layers 7-12 on the attention block, nothing else
-ZOO4_AFTER_MERGE = ZOO4_MERGER["depth"] - ZOO4_MERGER["patch_merge_layer"]
+# layers 7-12 on the attention block and, since the wide attention kernels,
+# its 256-token layers 1-6 too; nothing else
 ZOO4_SERVED = {name: {} for name in ZOO4}
-ZOO4_SERVED["vit_with_patch_merger"] = per_layer(BLOCK_FWD_LAUNCHES, ZOO4_AFTER_MERGE)
+ZOO4_SERVED["vit_with_patch_merger"] = per_layer(BLOCK_FWD_LAUNCHES, ZOO4_MERGER["depth"])
 # ... and for ZOO3_STEPS training steps: the same layers' attention blocks at dropout 0.1
 ZOO4_TRAIN = {name: {} for name in ZOO4_TRAINED}
-ZOO4_TRAIN["vit_with_patch_merger"] = per_layer(DROPOUT_LAUNCHES_PER_LAYER, ZOO4_AFTER_MERGE, ZOO3_STEPS)
+ZOO4_TRAIN["vit_with_patch_merger"] = per_layer(DROPOUT_LAUNCHES_PER_LAYER, ZOO4_MERGER["depth"], ZOO3_STEPS)
 # the new kernel shape: (label, n, dim, heads, mlp), served at ZOO3_BS and trained at ZOO3_TRAIN_BS
 ZOO4_SHAPE = ("patch-merger", ZOO4_MERGER["patch_merge_num_tokens"], 1024, 8, 2048)
 ZOO4_FWD_KERNELS = ("layernorm_rows", "gemm_bf16[qkv]", "attention_rows")
@@ -9744,6 +9762,327 @@ def check_examples(fb, fa, smi):
     return rows
 
 
+# -- phase 63: the JAX width ladder on the wide attention kernels ----------------------------------------------
+# ViT-H/14 and ViT-g/14 at the JAX tools' constructor arguments (tools/bench_vith.py:43-44, bench_vitg.py:35-40,
+# 57) and tools/bench_d128.py's ViT-B/16 at 24 heads x 32 and 6 x 128 (:67-69), full width and depth, random
+# weights from SEED: (ViT kwargs, serving batch, training batch or None).  ViT-H/14 trains at dropout 0 (the
+# whole layer) and 0.1 (the attention block); ViT-g/14 is served only, as tools/bench_vitg.py runs it.
+LADDER = {
+    "ViT-H/14": (dict(image_size=224, patch_size=14, num_classes=1000, dim=1280, depth=32, heads=16, dim_head=80,
+                      mlp_dim=5120), 64, 32),
+    "ViT-g/14": (dict(image_size=224, patch_size=14, num_classes=1000, dim=1408, depth=40, heads=16, dim_head=88,
+                      mlp_dim=6144), 64, None),
+    "d32": (dict(image_size=224, patch_size=16, num_classes=1000, dim=768, depth=12, heads=24, dim_head=32,
+                 mlp_dim=3072), 128, 128),
+    "d128": (dict(image_size=224, patch_size=16, num_classes=1000, dim=768, depth=12, heads=6, dim_head=128,
+                  mlp_dim=3072), 128, 128),
+}
+LADDER_STEPS = 3
+WIDE_SOURCE = "vit_pytorch_tpu_torch/csrc/attention_wide.cuh"  # the wide attention kernels
+# the wide kernels against their twins: (label, b, n, heads, dh) at the ladder's shapes, ViT-L/14's 257 tokens of
+# dh 64, ViT-B/16 @384's 577 (the kernels' limit), and the edges of the 64-key chunks
+LADDER_KERNEL_SHAPES = (
+    ("ViT-H/14", 8, 257, 16, 80), ("ViT-g/14", 8, 257, 16, 88), ("ViT-L/14", 8, 257, 16, 64),
+    ("d32", 8, 197, 24, 32), ("d128", 8, 197, 6, 128), ("ViT-B/16 @384", 4, 577, 12, 64),
+    ("n=1 dh 80", 2, 1, 2, 80), ("n=63 dh 88", 2, 63, 2, 88), ("n=64 dh 128", 2, 64, 2, 128),
+    ("n=65 dh 32", 2, 65, 4, 32), ("n=209 dh 64", 2, 209, 2, 64),
+)
+# the chain's other kernels at the ladder's widths, never run there before: (label, rows, dim, heads, dh, mlp)
+LADDER_CHAIN = (("ViT-H/14", 2 * 257, 1280, 16, 80, 5120), ("ViT-g/14", 2 * 257, 1408, 16, 88, 6144))
+
+
+def check_ladder_kernels(fb, rnd, dev):
+    """Phase 63's kernel checks: attention_rows and attention_bwd_rows, each
+    plain, [dropout], [qknorm] (gammas at SimpleViT-qk-norm's init and 1 +
+    0.2 N(0, 1)) and [dropout,qknorm], against their twins at
+    LADDER_KERNEL_SHAPES with phase 3's, 6's and 16's bounds; the chain's
+    other kernels and the whole layer (forward and every gradient) at ViT-H's
+    and ViT-g's widths.  Returns the largest max_abs of each kernel by its
+    kernels-line name."""
+    log(f"[63 the width ladder: kernels] {[s[0] for s in LADDER_KERNEL_SHAPES]}, bf16; dropout 0 and {RATE}")
+    errs = {}
+    with torch.inference_mode():
+        for label, b, n, heads, dh in LADDER_KERNEL_SHAPES:
+            inner = heads * dh
+            erd = edge_rnd(SEED + 63 + n + dh)
+            qkv, dm = erd(b, n, 3 * inner), erd(b, n, inner)
+            init_g = torch.full((heads, 1, dh), dh**-0.5, dtype=torch.bfloat16, device=dev)
+            random_g = (1 + erd(heads, 1, dh, scale=0.2), 1 + erd(heads, 1, dh, scale=0.2))
+            cases = (("plain", dict(scale=dh**-0.5)), ("qk init", dict(scale=1.0, gamma_q=init_g, gamma_k=init_g)),
+                     ("qk random", dict(scale=1.0, gamma_q=random_g[0], gamma_k=random_g[1])))
+            for rate in (0.0, RATE):
+                for case, ckw in cases:
+                    qk = "gamma_q" in ckw
+                    kw = dict(heads=heads, dim_head=dh, dropout_rate=rate, seed=DROP_SEED if rate else None, **ckw)
+                    fwd, bwd = fb._variant("attention_rows", rate > 0, qk), fb._variant("attention_bwd_rows", rate > 0, qk)
+                    tag = f"{label}, {case}"
+                    bound = dict(atol_frac=QK_ATTN_ATOL_FRAC) if qk else {}
+                    e = compare(f"{fwd} [{tag}]", fb.attention_rows(qkv, **kw), fb.attention_rows_reference(qkv, **kw),
+                                None if qk else ATTN_ATOL, ATTN_RTOL, **bound)
+                    eb = check_attention_bwd(fb, bwd, qkv, dm, kw, tag, *((None, QK_ATTN_ATOL_FRAC) if qk else ()))
+                    errs[fwd] = max(errs.get(fwd, 0.0), e)
+                    errs[bwd] = max(errs.get(bwd, 0.0), eb)
+            sync()
+        for label, rows, dim, heads, dh, mlp in LADDER_CHAIN:
+            inner = heads * dh
+            r = edge_rnd(SEED + 630 + dim)
+            x, y, dy = r(rows, dim), r(rows, dim), r(rows, dim)
+            lns, lnb = 1 + r(dim, scale=0.1), r(dim, scale=0.1)
+            w_qkv, w_out = r(3 * inner, dim, scale=dim**-0.5), r(dim, inner, scale=inner**-0.5)
+            w1, b1, w2, b2 = r(mlp, dim, scale=dim**-0.5), r(mlp, scale=0.1), r(dim, mlp, scale=mlp**-0.5), r(dim, scale=0.1)
+            h = fb.layernorm_rows_reference(x, lns, lnb)
+            compare(f"layernorm_rows [{label}]", fb.layernorm_rows(x, lns, lnb), h, KERNEL_ATOL, KERNEL_RTOL)
+            m, a = r(rows, inner), r(rows, mlp)
+            for site, inp, weight, bias, res in (("qkv", h, w_qkv, None, None), ("out", m, w_out, b2, y),
+                                                  ("fc1", h, w1, b1, None), ("fc2", a, w2, b2, y),
+                                                  ("cast", dy, w_out.t().contiguous(), None, None)):
+                compare(f"gemm_bf16[{site}] [{label}]", fb.gemm_bf16(inp, weight, site, bias=bias, residual=res),
+                        fb.gemm_bf16_reference(inp, weight, site, bias=bias, residual=res), KERNEL_ATOL, KERNEL_RTOL)
+            dqkv, w_qkv_t = r(rows, 3 * inner), w_qkv.t().contiguous()
+            dh_ = fb.gemm_f32out_reference(dqkv, w_qkv_t)
+            compare(f"gemm_f32out [{label}]", fb.gemm_f32out(dqkv, w_qkv_t), dh_, None, F32_RTOL, F32_REL_L2,
+                    atol_frac=F32_ATOL_FRAC)
+            got, want = fb.layernorm_bwd_rows(x, dh_, lns, residual=dy), fb.layernorm_bwd_rows_reference(
+                x, dh_, lns, residual=dy)
+            compare(f"layernorm_bwd_rows dx [{label}]", got[0], want[0], KERNEL_ATOL, KERNEL_RTOL)
+            for part, gp, wp in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+                compare(f"layernorm_bwd_rows {part} [{label}]", gp, wp, None, F32_RTOL, F32_REL_L2,
+                        atol_frac=F32_ATOL_FRAC)
+            sync()
+    for label, rows, dim, heads, dh, mlp in LADDER_CHAIN:  # the whole layer, forward and its 13 gradients
+        r = edge_rnd(SEED + 631 + dim)
+        inner = heads * dh
+        w = dict(w_qkv=r(3 * inner, dim, scale=dim**-0.5), w_out=r(dim, inner, scale=inner**-0.5),
+                 ln1_scale=1 + r(dim, scale=0.1), ln1_bias=r(dim, scale=0.1), ln2_scale=1 + r(dim, scale=0.1),
+                 ln2_bias=r(dim, scale=0.1), w1=r(mlp, dim, scale=dim**-0.5), b1=r(mlp, scale=0.1),
+                 w2=r(dim, mlp, scale=mlp**-0.5), b2=r(dim, scale=0.1))
+        kw = dict(b_qkv=r(3 * inner, scale=0.1), b_out=r(dim, scale=0.1))
+        x, g = r(2, rows // 2, dim), r(2, rows // 2, dim)
+
+        def grads(layer):
+            leaves = [t.detach().clone().requires_grad_() for t in (x, *w.values(), *kw.values())]
+            out = layer(leaves[0], *leaves[1:11], heads=heads, dim_head=dh, **dict(zip(kw, leaves[11:])))
+            return out, torch.autograd.grad(out, leaves, g)
+
+        out, gr = grads(fb.fused_transformer_layer)
+        out_w, gr_w = grads(fb.layer_reference)
+        compare(f"fused_transformer_layer [{label}]", out, out_w, LAYER_ATOL, LAYER_RTOL)
+        for name, a, b in zip(("x", *w, *kw), gr, gr_w):
+            compare(f"layer grad d{name} [{label}]", a, b, None, KERNEL_RTOL, LAYER_GRAD_REL_L2,
+                    atol_frac=LAYER_GRAD_ATOL_FRAC)
+        sync()
+    return errs
+
+
+class LayerSpy:
+    """Counts the Transformer's whole-layer calls and attention-block calls
+    (nn/blocks.py's names) and the dispatcher's calls (the composite and the
+    flash and short routes) inside the ``with`` block."""
+
+    def __enter__(self):
+        from vit_pytorch_tpu_torch.nn import blocks
+
+        self.blocks, self.counts = blocks, {"layer": 0, "block": 0, "dispatcher": 0}
+        self.saved = blocks.fused_transformer_layer, blocks.fused_attention_block, blocks.dot_product_attention
+
+        def spy(key, fn):
+            def call(*a, **k):
+                self.counts[key] += 1
+                return fn(*a, **k)
+            return call
+
+        blocks.fused_transformer_layer = spy("layer", self.saved[0])
+        blocks.fused_attention_block = spy("block", self.saved[1])
+        blocks.dot_product_attention = spy("dispatcher", self.saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.fused_transformer_layer, self.blocks.fused_attention_block, \
+            self.blocks.dot_product_attention = self.saved
+
+
+def ladder_model(label, dev, dtype, **kw):
+    """One ladder model at full width and depth, random weights from SEED,
+    initialised in f32 and cast."""
+    from vit_pytorch_tpu_torch import ViT
+
+    cfg = {**LADDER[label][0], **kw}
+    return ViT(**cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)).to(dtype)
+
+
+def serve_ladder(fb, fa, label, dev, gen):
+    """A ladder model served through Predictor at its serving batch: one
+    bucket run, exact launch counters (the depth's whole layers, nothing
+    else), the spies' counts (every layer whole, no dispatcher call), and the
+    logits against the plain twins (bf16) and the f32 model.  Returns the
+    counts and the bucket's qkv for the timing."""
+    from vit_pytorch_tpu_torch.serving import Predictor
+
+    cfg, bs, _ = LADDER[label]
+    depth = cfg["depth"]
+    bf16 = torch.bfloat16
+    fp32 = ladder_model(label, dev, torch.float32)
+    log(f"[63 {label} serving] {cfg}, bs={bs}, random weights (seed {SEED}), bf16")
+    size = cfg["image_size"]
+    pred = Predictor(fp32, example_shape=(3, size, size), batch_sizes=(bs,), device=dev).warmup()
+    images = torch.randn(bs, 3, size, size, generator=gen, device=dev)
+    served, tr = pred.model, pred.model.transformer
+    reset_all(fb, fa)
+    with LayerSpy() as spy:
+        out = pred(images)
+        sync()
+    counts = all_launches(fb, fa)
+    want = {name: depth * LAUNCHES_PER_LAYER.get(name, 0) for name in counts}
+    log(f"  launches {({k: v for k, v in counts.items() if v})} (expected {depth} layers x 7), calls {spy.counts}")
+    if counts != want or spy.counts != {"layer": depth, "block": 0, "dispatcher": 0}:
+        fail(f"phase 63: {label} serving did not run every layer on the whole-layer kernels")
+    if out.shape != (bs, 1000) or not bool(torch.isfinite(out).all()):
+        fail(f"phase 63: {label} logits {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    with torch.inference_mode():
+        x = served.embed(images.to(bf16))
+        for i in range(depth):
+            ws, kws = tr.layer_weights(i, bf16)
+            x = fb.layer_reference(x, *ws, heads=tr.heads, dim_head=tr.dim_head, **kws)
+        plain = served.mlp_head(tr.norm(x)[:, 0])
+        ref = fp32(images)
+    e_plain, e_fp32 = rel_l2(out, plain), rel_l2(out, ref)
+    ok = e_plain <= LOGITS_VS_PLAIN_BF16 and e_fp32 <= LOGITS_VS_FP32
+    log(f"  logits rel L2 vs plain bf16 {e_plain:.4e} (bound {LOGITS_VS_PLAIN_BF16}), vs fp32 {e_fp32:.4e} (bound "
+        f"{LOGITS_VS_FP32}; plain bf16 vs fp32 {rel_l2(plain, ref):.4e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"phase 63: {label} served logits disagree with the plain path or fp32")
+    with torch.inference_mode():
+        ws, _ = tr.layer_weights(0, bf16)
+        qkv = fb.gemm_bf16(fb.layernorm_rows(served.embed(images.to(bf16)), ws[2], ws[3]), ws[0], "qkv")
+    del pred, served, fp32
+    torch.cuda.empty_cache()
+    return counts, qkv
+
+
+def train_ladder(fb, fa, label, dev, gen, rate):
+    """A ladder model trained LADDER_STEPS AdamW steps at its training batch
+    through make_train_step on one batch (dropout ``rate``): exact launch
+    counters (the whole layer's 13 a layer at rate 0, the attention block's
+    11 at 0.1), the spies' counts, the loss falling, the first step's loss
+    and gradients against the same step on the plain twins (the same masks),
+    and the step's peak memory.  Returns the counts and the peak GiB."""
+    from vit_pytorch_tpu_torch.parallel.train import create_train_state, make_train_step
+
+    cfg, _, bs = LADDER[label]
+    depth = cfg["depth"]
+    bf16 = torch.bfloat16
+    model = ladder_model(label, dev, bf16, dropout=rate)
+    initial = copy.deepcopy(model)
+    names = [n for n, _ in model.named_parameters()]
+    images = torch.randn(bs, 3, cfg["image_size"], cfg["image_size"], generator=gen, device=dev).to(bf16)
+    labels = torch.randint(0, 1000, (bs,), generator=gen, device=dev)
+    log(f"[63 {label} training] bs={bs}, dropout {rate}, {LADDER_STEPS} AdamW steps on one batch, bf16")
+    state, step = create_train_state(model), make_train_step(model)
+    reset_all(fb, fa)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, grads, ms = [], None, []
+    with LayerSpy() as spy:
+        for i in range(LADDER_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(state, images, labels, torch.Generator(device=dev).manual_seed(SEED + i))["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                grads = grad_vector(model)
+        sync()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    counts = all_launches(fb, fa)
+    per_layer_ = TRAIN_LAUNCHES_PER_LAYER if rate == 0.0 else DROPOUT_LAUNCHES_PER_LAYER
+    want = {k: depth * per_layer_.get(k, 0) * LADDER_STEPS for k in counts}
+    route = "layer" if rate == 0.0 else "block"
+    want_calls = {"layer": 0, "block": 0, "dispatcher": 0, route: depth * LADDER_STEPS}
+    log(f"  losses {[f'{v:.6f}' for v in losses]}; host ms a step {[f'{v:.1f}' for v in ms]}; peak device memory "
+        f"{peak:.2f} GiB; launches {({k: v for k, v in counts.items() if v})}; calls {spy.counts}")
+    if counts != want or spy.counts != want_calls:
+        fail(f"phase 63: {label} training at dropout {rate} did not launch every kernel of every layer (expected "
+             f"{({k: v for k, v in want.items() if v})}, calls {want_calls})")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 63: {label} training loss is not finite or does not fall on the repeated batch")
+    plain = copy.deepcopy(initial)
+    reset_all(fb, fa)
+    with plain_layers():
+        loss_plain = make_train_step(plain)(create_train_state(plain), images, labels,
+                                            torch.Generator(device=dev).manual_seed(SEED))["loss"].item()
+    sync()
+    if any(all_launches(fb, fa).values()):
+        fail(f"phase 63: the plain path launched kernels: {all_launches(fb, fa)}")
+    compare_grads(f"{label} first step vs plain bf16 (dropout {rate})", grads, grad_vector(plain), losses[0],
+                  loss_plain, TRAIN_VS_PLAIN, names)
+    del model, initial, plain, state, step
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def time_ladder_attention(fb, label, qkv, smi, rates=(0.0,), bwd_batch=None):
+    """attention_rows at the served batch's qkv and attention_bwd_rows at
+    the training batch (its first ``bwd_batch`` images, a random dm), each
+    variant of ``rates``: kernel and twin in turns, SDPA beside the forward,
+    SDPA forward + backward beside the backward (no one torch call gives m
+    and dqkv: product_only_ms, as phase 8's), every call with L2 flushed by
+    the size of the operands (no flush: the kernels at these batches move
+    more than the 50 MB L2)."""
+    cfg = LADDER[label][0]
+    heads, dh = cfg["heads"], cfg["dim_head"]
+    b, n, _ = qkv.shape
+    per_kernel = {}
+    with torch.inference_mode():
+        for rate in rates:
+            kw = dict(heads=heads, dim_head=dh, scale=dh**-0.5, dropout_rate=rate, seed=DROP_SEED if rate else None)
+            name = fb._variant("attention_rows", rate > 0, False)
+            km, pm = in_turns(lambda: fb.attention_rows(qkv, **kw), lambda: fb.attention_rows_reference(qkv, **kw), 10)
+            lib = sdpa_ms(qkv, heads, 10, dh=dh, **({"dropout_p": rate} if rate else {}))
+            record(per_kernel, f"{name} @ {label}", km, pm, attention_work(b, n, heads, dropout=rate > 0, dh=dh),
+                   library_ms=lib)
+            log(f"  {name} @ {label} (b={b} n={n} {heads} x {dh}): kernel {km:.4f} ms, plain {pm:.4f} ms, "
+                f"SDPA {lib:.4f} ms; {smi}")
+            if bwd_batch:
+                q = qkv[:bwd_batch].contiguous()
+                dm = torch.randn(bwd_batch, n, heads * dh, generator=torch.Generator(device=qkv.device).manual_seed(
+                    SEED + 632), device=qkv.device).to(qkv.dtype)
+                name = fb._variant("attention_bwd_rows", rate > 0, False)
+                km, pm = in_turns(lambda: fb.attention_bwd_rows(q, dm, **kw),
+                                  lambda: fb.attention_bwd_rows_reference(q, dm, **kw), 10)
+                yard = sdpa_fwd_bwd_ms(q, dm, heads, 10, dh=dh, **({"dropout_p": rate} if rate else {}))
+                record(per_kernel, f"{name} @ {label}", km, pm,
+                       attention_work(bwd_batch, n, heads, backward=True, dropout=rate > 0, dh=dh),
+                       product_ms=yard, product_of=SDPA_FWD_BWD)
+                log(f"  {name} @ {label} (b={bwd_batch}): kernel {km:.4f} ms, plain {pm:.4f} ms, SDPA forward + "
+                    f"backward {yard:.4f} ms; {smi}")
+    return per_kernel
+
+
+def check_ladder(fb, fa, rnd, dev, gen, smi):
+    """Phase 63: the wide kernels against their twins, then the paths: ViT-H/14
+    and ViT-g/14 served at 64, ViT-H/14 trained at 32 (dropout 0 and 0.1),
+    the d32 and d128 ViT-Bs served and trained at 128, each with its
+    counters zeroed just before and read just after; the attention kernels
+    timed at each.  Returns (max_abs, per_kernel, launches), each by the
+    kernels line's entry name."""
+    errs = check_ladder_kernels(fb, rnd, dev)
+    per_kernel, launches = {}, {}
+    for label in LADDER:
+        counts, qkv = serve_ladder(fb, fa, label, dev, gen)
+        launches[f"attention_rows @ {label}"] = counts["attention_rows"]
+        bs_train = LADDER[label][2]
+        if bs_train:
+            counts, peak = train_ladder(fb, fa, label, dev, gen, 0.0)
+            launches[f"attention_bwd_rows @ {label}"] = counts["attention_bwd_rows"]
+            log(f"  {label} training step's peak device memory: {peak:.2f} GiB ({smi})")
+        if label == "ViT-H/14":
+            counts, _ = train_ladder(fb, fa, label, dev, gen, RATE)
+            for name in ("attention_rows[dropout]", "attention_bwd_rows[dropout]"):
+                launches[f"{name} @ {label}"] = counts[name]
+        per_kernel.update(time_ladder_attention(fb, label, qkv, smi, (0.0, RATE) if label == "ViT-H/14" else (0.0,),
+                                                bs_train))
+        del qkv
+        torch.cuda.empty_cache()
+    return {name: errs[name.split(" @ ")[0]] for name in launches}, per_kernel, launches
+
+
 def time_layer_dispatch(fb, dev, smi):
     """Host us of one ViT-B/16 layer's 7 forward launches at bs=1 (n = 197),
     through the eager implementation (``fused_transformer_layer``, what
@@ -10253,6 +10592,12 @@ def main():
     check_examples(fb, fa, smi)
     phase_done("phase 62")
 
+    # -- 63. the JAX width ladder on the wide attention kernels -------------------------------------------------------
+    ladder_errs, ladder_times, ladder_launches = check_ladder(fb, fa, rnd, dev, gen, smi)
+    errs.update(ladder_errs)
+    per_kernel.update(ladder_times)
+    phase_done("phase 63")
+
     # forward kernels: the serving path's launches (phase 4); backward kernels:
     # the training path's (phase 7); the dropout variants: the dropout
     # training path's (phase 10); the mask replay: phase 9's checks; the
@@ -10378,6 +10723,11 @@ def main():
            for name in ZOO3_DROPOUT_KERNELS]
         + [entry("gemm_bf16[block_out, bare] @ KEEL", SOURCE, TPU_BLOCK_KERNEL, "vit_with_keel_post_ln serving (phase 57)",
                  zoo5_served["vit_with_keel_post_ln"][1]["gemm_bf16[block_out]"])]
+        + [entry(name, WIDE_SOURCE, TPU_BWD_KERNEL if "bwd" in name else TPU_BLOCK_KERNEL if "dropout" in name
+                 else TPU_KERNEL, f"{name.split(' @ ')[1]} " + ("serving" if "bwd" not in name and "dropout" not in name
+                                                               else f"training at dropout {RATE if 'dropout' in name else 0}")
+                 + " (phase 63)", launches_)
+           for name, launches_ in ladder_launches.items()]
     )
     for k in kernels:
         if not k["launches"]:
@@ -10455,7 +10805,13 @@ def main():
         "the backward's at b=32 n=49 (the 48 patches kept and the cls token), rate 0.1, launches from the "
         "patch-dropout ViT's 3 training steps in phase 58; 'gemm_bf16[block_out, bare] @ KEEL': with its bias and no "
         "residual at b=64 n=65, dim 1024, library_ms F.linear with the bias, launches from one served batch of the "
-        "KEEL ViT in phase 57; errors and times from phase 58, every call with L2 flushed)")
+        "KEEL ViT in phase 57; errors and times from phase 58, every call with L2 flushed; the entries '@ ViT-H/14', "
+        "'@ ViT-g/14', '@ d32' and '@ d128' (phase 63): the wide attention kernels (csrc/attention_wide.cuh) at those "
+        "models' shapes, the forward at the served batch (64, 64, 128, 128; 257, 257, 197, 197 tokens; 16 x 80, "
+        "16 x 88, 24 x 32, 6 x 128), the backward at the training batch (32, 128, 128), [dropout] at rate 0.1, "
+        "library_ms SDPA (with dropout_p beside [dropout]), the backward's SDPA forward + backward as "
+        "product_only_ms, launches from the model's served batch (forward) and its 3 training steps at dropout 0 "
+        "(backward) or 0.1 ([dropout]), errors the largest of phase 63's checks of that variant at every shape)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -230,8 +230,18 @@ def test_gates_admit_vit_b_and_refuse_what_the_kernels_cannot_take():
         assert port.fused_block_supported((b, 197, 768), bf16, 12, 64, 768)
         assert port.fused_dropout_supported((b, 197, 768), 12, 64)
     assert not port.fused_block_supported((8, 197, 768), torch.float32, 12, 64, 768)
-    assert not port.fused_block_supported((8, 209, 768), bf16, 12, 64, 768)  # n > 208
-    assert not port.fused_block_supported((8, 197, 1408), bf16, 16, 88, 1408)  # dh 88
+    # the JAX width ladder on the wide kernels, forward and backward, with dropout: ViT-H/14, ViT-g/14,
+    # ViT-L/14 (257 tokens), bench_d128.py's ViT-Bs at 24 x 32 and 6 x 128, ViT-B/16 @384 (577 tokens)
+    for shape, heads, dh in (((8, 257, 1280), 16, 80), ((8, 257, 1408), 16, 88), ((8, 257, 1024), 16, 64),
+                             ((8, 197, 768), 24, 32), ((8, 197, 768), 6, 128), ((8, 577, 768), 12, 64)):
+        assert port.fused_block_supported(shape, bf16, heads, dh, shape[-1])
+        assert port.fused_dropout_supported(shape, heads, dh)
+    # the new edges: past 577 tokens, a head width not built, dim_head 256
+    assert not port.fused_block_supported((8, 578, 768), bf16, 12, 64, 768)
+    assert not port.fused_block_supported((8, 257, 1152), bf16, 16, 72, 1152)
+    assert not port.fused_block_supported((8, 197, 768), bf16, 3, 256, 768)
+    assert not port.fused_dropout_supported((8, 578, 1280), 16, 80)
+    assert not port.fused_dropout_supported((8, 197, 768), 3, 256)
     assert not port.fused_block_supported((8, 197, 800), bf16, 12, 64, 800)  # dim % 64
     assert not port.fused_dropout_supported((8, 197, 768), 1024, 64)  # streams would collide
     # the whole layer needs what the block needs, and mlp_dim % 64

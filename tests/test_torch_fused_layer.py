@@ -98,6 +98,17 @@ def test_gate_admits_the_flagship_and_refuses_what_the_kernels_cannot_take():
     assert (port.ATTN_Q_TILE + 2 * port.ATTN_MAX_KEYS) * (64 + 8) * 2 == 69_120 <= 232_448
     assert port.whole_layer_supported((8, 208, 768), bf16, 12, 64, 768, 3072)
     assert not port.whole_layer_supported((8, 197, 768), torch.float32, 12, 64, 768, 3072)
-    assert not port.whole_layer_supported((8, 209, 768), bf16, 12, 64, 768, 3072)  # n > 208
-    assert not port.whole_layer_supported((8, 197, 1408), bf16, 16, 88, 1408, 6144)  # dh 88
+    # the JAX width ladder on the wide kernels: ViT-H/14 and ViT-g/14 at their bench batches, ViT-L/14,
+    # the dim_head 32 / 128 ViT-Bs, 209 tokens (the narrow kernels' edge) and ViT-B/16 @384
+    assert port.whole_layer_supported((64, 257, 1280), bf16, 16, 80, 1280, 5120)
+    assert port.whole_layer_supported((64, 257, 1408), bf16, 16, 88, 1408, 6144)
+    assert port.whole_layer_supported((8, 257, 1024), bf16, 16, 64, 1024, 4096)
+    assert port.whole_layer_supported((128, 197, 768), bf16, 24, 32, 768, 3072)
+    assert port.whole_layer_supported((128, 197, 768), bf16, 6, 128, 768, 3072)
+    assert port.whole_layer_supported((8, 209, 768), bf16, 12, 64, 768, 3072)
+    assert port.whole_layer_supported((8, 577, 768), bf16, 12, 64, 768, 3072)
+    # the wide kernels' edges: 578 tokens, dh 88 past 577, dh 72 (SigLIP so400m's, not built)
+    assert not port.whole_layer_supported((8, 578, 768), bf16, 12, 64, 768, 3072)
+    assert not port.whole_layer_supported((8, 578, 1408), bf16, 16, 88, 1408, 6144)
+    assert not port.whole_layer_supported((8, 256, 1152), bf16, 16, 72, 1152, 4352)
     assert not port.whole_layer_supported((8, 197, 768), bf16, 12, 64, 1024, 3072)  # d != dim

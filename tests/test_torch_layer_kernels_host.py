@@ -22,6 +22,13 @@
   from ``_softmax_from_dots`` and ``jnp.dot``/``dot_general``, fp32, 5e-5.
 - ``gemm_wgrad``'s persistent work split (``gemm_wgrad_blocks``,
   ``gemm_wgrad_pieces``, the kernel's walk) against brute force.
+- The wide kernels (``csrc/attention_wide.cuh``): ``attention_plan`` for
+  every n in 1..577 at every built head width against brute force and the
+  sources (the head widths ``VIT_ATTN_WIDE_DIM_HEADS`` builds, one
+  ``attention_wide_d<dh>.cu`` each; ``kAttnWideMaxKeys``,
+  ``kAttnWideTile``; both C entry points hand every shape past dh 64 and
+  208 keys to them), and both twins (plain and qk-norm) against the JAX
+  per-head loops at dh 32, 80, 88 and 128 and n = 197 and 257, fp32, 5e-5.
 """
 
 import math
@@ -303,3 +310,141 @@ def test_wgrad_walk_mirrors_the_kernel():
     assert fb.WGRAD_BM == _csrc_int("gemm_wgrad.cu", "kWgBM")
     assert fb.WGRAD_BK == _csrc_int("gemm_wgrad.cu", "kWgBK")
     assert fb.WGRAD_BN == _csrc_int("gemm_wgrad.cu", "kWgBN")
+
+
+# ---- the wide kernels: their plan and their twins at the JAX width ladder ----
+
+WIDE_CHUNK = 64
+
+
+def _built_wide_dim_heads() -> tuple:
+    """The head widths of the VIT_ATTN_WIDE_DIM_HEADS macro, as the sources build them."""
+    text = (CSRC / "attention_wide.cuh").read_text()
+    m = re.search(r"#define VIT_ATTN_WIDE_DIM_HEADS\(X\)((?:\s*X\(\d+\))+)", text)
+    assert m, "VIT_ATTN_WIDE_DIM_HEADS not found in csrc/attention_wide.cuh"
+    return tuple(int(v) for v in re.findall(r"X\((\d+)\)", m.group(1)))
+
+
+def test_wide_mirrored_constants():
+    """The head widths, the token limit and the chunk the Python side
+    mirrors, each width instantiated by a source of its own, and both C
+    entry points handing every shape past the narrow kernels' to the wide
+    path."""
+    assert _built_wide_dim_heads() == fb.ATTN_WIDE_DIM_HEADS == (32, 64, 80, 88, 128)
+    assert fb.ATTN_WIDE_MAX_KEYS == _csrc_int("attention_wide.cuh", "kAttnWideMaxKeys") == 577
+    assert fb.ATTN_WIDE_TILE == _csrc_int("attention_wide.cuh", "kAttnWideTile") == WIDE_CHUNK
+    for dh in fb.ATTN_WIDE_DIM_HEADS:
+        assert f"VIT_ATTN_WIDE_DEFINE({dh})" in (CSRC / f"attention_wide_d{dh}.cu").read_text()
+    route = "if (dim_head != kAttnDh || n > 16 * kAttnKT)"
+    for name, call in (("attention_rows.cu", "return attention_wide_forward("),
+                       ("attention_bwd_rows.cu", "return attention_wide_backward(")):
+        text = (CSRC / name).read_text()
+        assert route in text and call in text.split(route, 1)[1].split(";", 1)[0]
+    wide = (CSRC / "attention_wide.cu").read_text()
+    assert "n <= kAttnWideMaxKeys" in wide and "VIT_ATTN_WIDE_DIM_HEADS(VIT_ATTN_WIDE_FWD_CASE)" in wide
+    assert "VIT_ATTN_WIDE_DIM_HEADS(VIT_ATTN_WIDE_BWD_CASE)" in wide
+
+
+def _brute_wide_chunks(n: int) -> int:
+    """The fewest 64-key chunks that hold n keys."""
+    c = 1
+    while WIDE_CHUNK * c < n:
+        c += 1
+    return c
+
+
+@pytest.mark.parametrize("n", range(1, fb.ATTN_WIDE_MAX_KEYS + 1))
+def test_attention_plan_rule(n):
+    """At every n up to 577 and every built head width: the narrow kernels
+    at dh 64 and n <= 208 (ceil(n / 16) chunks, an instantiation the sources
+    build), the wide ones elsewhere (ceil(n / 64) chunks), and the gates
+    admit exactly what the plan takes."""
+    for dh in fb.ATTN_WIDE_DIM_HEADS:
+        path, chunks = fb.attention_plan(n, dh)
+        if dh == 64 and n <= fb.ATTN_MAX_KEYS:
+            assert (path, chunks) == ("narrow", _brute_key_chunks(n)) and chunks in _built_key_chunks()
+        else:
+            assert (path, chunks) == ("wide", _brute_wide_chunks(n))
+            assert WIDE_CHUNK * chunks >= n > WIDE_CHUNK * (chunks - 1)
+        assert fb.attention_supported(n, dh)
+        assert fb.fused_block_supported((2, n, 8 * dh), torch.bfloat16, 8, dh, 8 * dh)
+
+
+@pytest.mark.parametrize("n,dh", [(0, 64), (578, 64), (578, 80), (257, 72), (197, 256), (197, 16), (257, 96)])
+def test_attention_plan_refuses_outside_the_gate(n, dh):
+    with pytest.raises(ValueError, match="n="):
+        fb.attention_plan(n, dh)
+    assert not fb.attention_supported(n, dh)
+    assert not fb.fused_block_supported((2, n, 8 * dh), torch.bfloat16, 8, dh, 8 * dh)
+
+
+def _jax_attention_heads(qkv, heads, dim_head, scale, gq=None, gk=None):
+    """The forward per-head loop of _kernel (:323-348) at dropout 0 for each
+    image, fp32: with the gammas the qk-norm (q * rsqrt(sum(q^2) + 1e-12) *
+    gamma * sqrt(dh)), then _softmax_from_dots and p.v."""
+    b, n, _ = qkv.shape
+    inner = heads * dim_head
+    root = float(dim_head) ** 0.5
+    imgs = []
+    for i in range(b):
+        rows = jnp.asarray(qkv[i])
+        outs = []
+        for h in range(heads):
+            cols = slice(h * dim_head, (h + 1) * dim_head)
+            q = rows[:, cols]
+            k = rows[:, inner + h * dim_head:inner + (h + 1) * dim_head]
+            v = rows[:, 2 * inner + h * dim_head:2 * inner + (h + 1) * dim_head]
+            if gq is not None:
+                rms = lambda t, g: t * jax.lax.rsqrt(jnp.sum(t * t, -1, keepdims=True) + 1e-12) * (g * root)
+                q, k = rms(q, jnp.asarray(gq[cols])), rms(k, jnp.asarray(gk[cols]))
+            p = _softmax_from_dots(jnp.dot(q, k.T, preferred_element_type=jnp.float32), scale)
+            outs.append(jnp.dot(p, v, preferred_element_type=jnp.float32))
+        imgs.append(jnp.concatenate(outs, axis=-1))
+    return np.asarray(jnp.stack(imgs))
+
+
+WIDE_CASES = [(dh, n) for dh in (32, 80, 88, 128) for n in (197, 257)]
+
+
+def _wide_inputs(dh, n, qknorm, seed):
+    heads, b = 2, 2
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, n, 3 * heads * dh)).astype(np.float32)
+    dm = rng.standard_normal((b, n, heads * dh)).astype(np.float32)
+    gq = gk = None
+    if qknorm:
+        gq, gk = (1 + 0.2 * rng.standard_normal((2, heads * dh))).astype(np.float32)
+    return heads, qkv, dm, gq, gk
+
+
+@pytest.mark.parametrize("dh,n", WIDE_CASES)
+@pytest.mark.parametrize("qknorm", [False, True])
+def test_wide_attention_twin_matches_jax(dh, n, qknorm):
+    """attention_rows_reference (the wide forward's twin, the card's
+    yardstick) at the ladder's head widths and token counts against the
+    JAX per-head loop, plain and qk-norm, fp32 within 5e-5."""
+    heads, qkv, _, gq, gk = _wide_inputs(dh, n, qknorm, 2000 + dh + n + qknorm)
+    scale = dh**-0.5
+    want = _jax_attention_heads(qkv, heads, dh, scale, gq, gk)
+    gammas = {} if gq is None else dict(gamma_q=torch.from_numpy(gq), gamma_k=torch.from_numpy(gk))
+    got = fb.attention_rows_reference(torch.from_numpy(qkv), heads=heads, dim_head=dh, scale=scale, **gammas)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert torch.equal(fb.attention_rows(torch.from_numpy(qkv), heads=heads, dim_head=dh, scale=scale, **gammas), got)
+
+
+@pytest.mark.parametrize("dh,n", WIDE_CASES)
+@pytest.mark.parametrize("qknorm", [False, True])
+def test_wide_attention_bwd_twin_matches_jax(dh, n, qknorm):
+    """attention_bwd_rows_reference at the ladder's shapes against
+    _bwd_kernel's per-head loop rebuilt in JAX (the norm's sqrt(dh) root
+    per width), plain and qk-norm: m, dqkv and the dgammas, fp32 within
+    5e-5."""
+    heads, qkv, dm, gq, gk = _wide_inputs(dh, n, qknorm, 3000 + dh + n + qknorm)
+    scale = dh**-0.5
+    want = _jax_bwd_heads(qkv, dm, heads, dh, scale, gq, gk)
+    gammas = {} if gq is None else dict(gamma_q=torch.from_numpy(gq), gamma_k=torch.from_numpy(gk))
+    got = fb.attention_bwd_rows_reference(torch.from_numpy(qkv), torch.from_numpy(dm), heads=heads, dim_head=dh,
+                                          scale=scale, **gammas)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)

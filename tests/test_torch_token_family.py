@@ -8,7 +8,8 @@ logits and every gradient (tests/torch_parity.py's bounds) at dropout 0 and
 ATS-ViT without sampling, the maps against the JAX converters; the
 patch-merger ViT's kernel routes with both packages' gates asked as for
 bf16 (the JAX kernels in interpret mode, the port's Functions on their
-twins): the layers after the merge, and only those, on the attention block;
+twins): every layer, the 256-token ones before the merge (the wide
+attention kernels') and the 8-token ones after it, on the attention block;
 ATS-ViT's static-shape ``unique_sorted_with_pad`` bit for bit and its
 sampling by its invariants; LookViT's bilinear resize; the Adapter's mask
 keeping the ViT's own tokens as they were."""
@@ -30,7 +31,8 @@ from vit_pytorch_tpu_torch.ops import fused_block as port_fb
 from vit_pytorch_tpu_torch.utils import from_jax
 
 BATCH, CLASSES = 2, 10
-# 256 tokens (over the attention block's 208) in layers 1-2, merged to 8 for layers 3-4; 2 heads of 64
+# 256 tokens (the wide attention kernels' since they came; over the narrow ones' 208) in layers 1-2,
+# merged to 8 for layers 3-4; 2 heads of 64
 MERGER = dict(image_size=64, patch_size=4, num_classes=CLASSES, dim=128, depth=4, heads=2, mlp_dim=128,
               patch_merge_layer=2, patch_merge_num_tokens=8)
 MEMORY = dict(image_size=32, patch_size=8, num_classes=CLASSES, dim=64, depth=2, heads=2, mlp_dim=128, dim_head=32)
@@ -141,26 +143,34 @@ def _gates_as_bf16(monkeypatch):
     return calls
 
 
+def _merger_blocks():
+    """The attention-block calls of one forward: the 256-token layers before
+    the merge (2 heads of 64 at 256 tokens, on the wide attention kernels on
+    the card), then the 8-token layers after it."""
+    before = MERGER["patch_merge_layer"]
+    return ([(BATCH, 256, MERGER["dim"])] * before
+            + [(BATCH, MERGER["patch_merge_num_tokens"], MERGER["dim"])] * (MERGER["depth"] - before))
+
+
 def test_patch_merger_kernel_routes_match_jax(monkeypatch):
-    """With the routes forced and the gates asked as for bf16, the layers
-    after the merge (8 tokens), and only those, take the attention-block
-    Function (the JAX ``_kernel`` in interpret mode on the other side), the
-    256-token layers the composite; logits and every gradient still the JAX
-    model's."""
+    """With the routes forced and the gates asked as for bf16, every layer
+    takes the attention-block Function (the JAX ``_kernel`` in interpret
+    mode on the other side): the 256-token layers before the merge, which
+    the gate admits since the wide attention kernels, and the 8-token
+    layers after it; logits and every gradient still the JAX model's."""
     calls = _gates_as_bf16(monkeypatch)
     jmodel, params, _, model, x = _setup("patch_merger")
     port_fb.reset_launch_counts()
     tp.check_model(jmodel, params, model, MODELS["patch_merger"][3], x, tp.labels(BATCH, CLASSES))
     assert not any(port_fb.LAUNCHES.values())
-    after_merge = MERGER["depth"] - MERGER["patch_merge_layer"]
-    assert calls == {"layer": [], "block": [(BATCH, 8, MERGER["dim"])] * after_merge * 2}  # eval, training
+    assert calls == {"layer": [], "block": _merger_blocks() * 2}  # eval, training
 
 
 def test_patch_merger_dropout_on_the_block_route(monkeypatch):
-    """Training at dropout 0.1 with the routes forced: the layers after the
-    merge on the attention-block Function with its in-kernel dropout, the
-    same seeds give the same logits, the gradients are finite, and dropout
-    moves the logits off the eval ones."""
+    """Training at dropout 0.1 with the routes forced: every layer (before
+    and after the merge) on the attention-block Function with its in-kernel
+    dropout, the same seeds give the same logits, the gradients are finite,
+    and dropout moves the logits off the eval ones."""
     calls = _gates_as_bf16(monkeypatch)
     cfg = {**MERGER, "dropout": 0.1}
     model = vit_with_patch_merger.ViT(**cfg, device="cpu", generator=torch.Generator().manual_seed(0)).train()
@@ -172,8 +182,7 @@ def test_patch_merger_dropout_on_the_block_route(monkeypatch):
     assert torch.equal(runs[0], runs[1])
     runs[0].sum().backward()
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
-    after_merge = MERGER["depth"] - MERGER["patch_merge_layer"]
-    assert calls["block"] == [(BATCH, 8, MERGER["dim"])] * after_merge * 2
+    assert calls["block"] == _merger_blocks() * 2
     with torch.no_grad():
         assert not torch.allclose(runs[0], model.eval()(x))
 

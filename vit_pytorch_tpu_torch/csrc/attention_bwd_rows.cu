@@ -6,6 +6,7 @@
 // with ctypes: vit_attention_bwd_rows returns the launches' cudaError_t.
 
 #include "attention_bwd_rows.cuh"
+#include "attention_wide.cuh"
 
 cudaError_t attention_bwd_launch_plain(int kt, const AttnBwdArgs& args, const AttnBwdMaps& maps, unsigned blocks,
                                        cudaStream_t stream) {
@@ -25,13 +26,19 @@ extern "C" {
 // keep unread); else keep a (b, heads, 16 ceil(n / 16), ceil(n / 32)) uint32
 // scratch buffer.  qk-norm: gq, gk the gammas, (inner) bf16 each, dg_partial
 // a (b, 2, inner) f32 scratch buffer and dg (2, inner) f32 = dgamma_q,
-// dgamma_k; all four null without.
-int vit_attention_bwd_rows(const void* qkv, const void* dm, void* m, void* dqkv, void* keep, int batch, int n,
-                           int heads, int dim_head, float scale_log2e, float scale, int drop, unsigned seed,
+// dgamma_k; all four null without.  Past dh 64 or 208 keys the wide kernels
+// run (attention_wide.cuh): keep is unread, stats a (b, heads, 3, 64 ceil(n /
+// 64)) f32 scratch buffer, dg_partial (b ceil(n / 64), 2, inner); stats is
+// unread on the narrow path.
+int vit_attention_bwd_rows(const void* qkv, const void* dm, void* m, void* dqkv, void* keep, void* stats, int batch,
+                           int n, int heads, int dim_head, float scale_log2e, float scale, int drop, unsigned seed,
                            unsigned threshold, float inv, const void* gq, const void* gk, void* dg_partial, void* dg,
                            void* stream) {
   const bool qk = gq != nullptr;
-  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || batch <= 0 || heads <= 0 ||
+  if (dim_head != kAttnDh || n > 16 * kAttnKT)  // past ViT-B's head shape: the wide kernels (attention_wide.cu)
+    return attention_wide_backward(qkv, dm, m, dqkv, stats, batch, n, heads, dim_head, scale_log2e, scale, drop, seed,
+                                   threshold, inv, gq, gk, dg_partial, dg, static_cast<cudaStream_t>(stream));
+  if (n <= 0 || batch <= 0 || heads <= 0 ||
       static_cast<long long>(batch) * heads > 0x7fffffffLL || qk != (gk != nullptr) ||
       qk != (dg_partial != nullptr) || qk != (dg != nullptr) || (drop && keep == nullptr))
     return cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) kernel attention_rows: softmax attention of every head of
 // a layer, from the packed (b, n, 3 * inner) qkv rows to the merged heads
-// (b, n, inner), n <= 208, dh = 64; with the instantiations [dropout] (P
+// (b, n, inner), n <= 208, dh = 64 (the entry point hands other shapes to
+// the wide kernels of attention_wide.cuh); with the instantiations [dropout] (P
 // masked from the (seed, image, head) Philox stream), [qknorm] (q and k
 // through the per-head RMSNorm first) and both.  [n_keys] (keys j >=
 // n_keys masked, the tools' padded prototypes) is a runtime argument.
@@ -32,6 +33,7 @@
 // Built by ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a), bound
 // with ctypes: vit_attention_rows returns the launch's cudaError_t.
 
+#include "attention_wide.cuh"
 #include "layer_tiles.cuh"
 
 namespace {
@@ -147,8 +149,11 @@ extern "C" {
 int vit_attention_rows(const void* qkv, void* out, int batch, int n, int n_keys, int heads, int dim_head,
                        float scale_log2e, int drop, unsigned seed, unsigned threshold, float inv, const void* gq,
                        const void* gk, void* stream) {
-  if (dim_head != kAttnDh || n <= 0 || n > 16 * kAttnKT || n_keys < 1 || n_keys > n || batch <= 0 ||
-      batch > 65535 || heads <= 0 || (gq == nullptr) != (gk == nullptr))
+  if (dim_head != kAttnDh || n > 16 * kAttnKT)  // past ViT-B's head shape: the wide kernels (attention_wide.cu)
+    return attention_wide_forward(qkv, out, batch, n, n_keys, heads, dim_head, scale_log2e, drop, seed, threshold, inv,
+                                  gq, gk, static_cast<cudaStream_t>(stream));
+  if (n <= 0 || n_keys < 1 || n_keys > n || batch <= 0 || batch > 65535 || heads <= 0 ||
+      (gq == nullptr) != (gk == nullptr))
     return cudaErrorInvalidValue;
   const int kt = attn_key_chunks(n);
   const bool qk = gq != nullptr;

@@ -44,6 +44,7 @@ from ..ops.fused_block import (
     fused_dropout_supported,
     fused_transformer_layer,
     fused_transformer_stack,
+    stack_attention_supported,
     whole_layer_stack_group,
     whole_layer_supported,
 )
@@ -552,6 +553,8 @@ class Transformer(nn.Module):
             # for more; groups of min(g, depth - i) as JAX blocks.py:667-721
             group = 1 if return_hiddens else whole_layer_stack_group(
                 x.shape, x.dtype, self.heads, self.dim_head, self.dim, self.mlp_dim, depth)
+            if x.device.type != "cpu" and not stack_attention_supported(x.shape, self.dim_head):
+                group = 1  # stack_layers' attention step takes dim_head 64, n <= 208 (on the CPU the twins take any)
             if group > 1:
                 for i in range(0, depth, group):
                     x = fused_transformer_stack(

@@ -46,9 +46,9 @@ _SIGNATURES = {
     "vit_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_DROP, _P),
     # qkv, out, batch, n, n_keys, heads, dim_head, scale*log2(e), dropout, gamma_q, gamma_k, stream
     "vit_attention_rows": (_P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _P, _P),
-    # qkv, dm, m, dqkv, keep scratch, batch, n, heads, dim_head, scale*log2(e), scale, dropout,
-    # gamma_q, gamma_k, dgamma partials, dgamma, stream
-    "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, *_DROP, _P, _P, _P, _P, _P),
+    # qkv, dm, m, dqkv, keep scratch, statistics scratch (the wide kernels'), batch, n, heads, dim_head,
+    # scale*log2(e), scale, dropout, gamma_q, gamma_k, dgamma partials, dgamma, stream
+    "vit_attention_bwd_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, *_DROP, _P, _P, _P, _P, _P),
     # g, gm, rows, n, dim, heads, seed, threshold, 1/(1 - rate), stream
     "vit_dropout_apply": (_P, _P, _L, _I, _I, _I, _U, _U, _F, _P),
     # attn_keep, out_keep, batch, n, dim, heads, seed, threshold, stream

@@ -103,12 +103,18 @@ LN_EPS = 1e-5  # torch's LayerNorm default
 _LOG2E = 1.4426950408889634  # log2(e)
 
 # Shapes the kernels take; these mirror the constants of csrc/*.cu.
-ATTN_DIM_HEAD = 64  # kAttnDh
+ATTN_DIM_HEAD = 64  # kAttnDh: the head width of the narrow kernels and of stack_layers
 ATTN_Q_TILE = 64  # kAttnQT
-ATTN_MAX_KEYS = 208  # 16 * kAttnKT: at most 13 key chunks of 16
-# attention_rows' and attention_bwd_rows' instantiations, one per key-chunk count
+ATTN_MAX_KEYS = 208  # 16 * kAttnKT: the narrow kernels' at most 13 key chunks of 16
+# the narrow attention_rows' and attention_bwd_rows' instantiations, one per key-chunk count
 # (VIT_ATTN_KEY_CHUNKS in csrc/layer_tiles.cuh); a call at n keys runs attention_key_chunks(n)
 ATTN_KEY_CHUNKS = tuple(range(1, 14))
+# the wide kernels (csrc/attention_wide.cuh) take every other shape of the
+# JAX width ladder: the head widths built (VIT_ATTN_WIDE_DIM_HEADS), a
+# runtime token count up to kAttnWideMaxKeys, 64-key chunks (kAttnWideTile)
+ATTN_WIDE_DIM_HEADS = (32, 64, 80, 88, 128)
+ATTN_WIDE_MAX_KEYS = 577  # kAttnWideMaxKeys: ViT-B/16 @384
+ATTN_WIDE_TILE = 64
 GEMM_BK = 64  # K must be a multiple of the k-tile (kGemmBK)
 GEMM_MAX_ROWS = 65535 * 128  # the GEMM entry points take at most 65535 row tiles of 128
 LN_BWD_MAX_DIM = 3584  # kLnBwdMaxDim: the widest row layernorm_bwd_rows takes (its loop path past 1024)
@@ -825,28 +831,47 @@ def gemm_f32out(a, w):
 
 
 def attention_key_chunks(n: int) -> int:
-    """The key chunks of 16 (the instantiation) that ``attention_rows`` and
-    ``attention_bwd_rows`` run at ``n`` keys, 1 <= n <= ATTN_MAX_KEYS:
-    ceil(n / 16), the choice of both C entry points (``attn_key_chunks`` in
-    csrc/layer_tiles.cuh)."""
+    """The key chunks of 16 (the instantiation) that the narrow
+    ``attention_rows`` and ``attention_bwd_rows`` run at ``n`` keys, 1 <= n
+    <= ATTN_MAX_KEYS: ceil(n / 16), the choice of both C entry points
+    (``attn_key_chunks`` in csrc/layer_tiles.cuh)."""
     if not 1 <= n <= ATTN_MAX_KEYS:
         raise ValueError(f"attention_rows: n={n} is not in [1, {ATTN_MAX_KEYS}]")
     return -(-n // 16)
 
 
+def attention_plan(n: int, dim_head: int):
+    """The kernels ``attention_rows`` and ``attention_bwd_rows`` run at ``n``
+    keys of width ``dim_head``, as both C entry points choose them:
+    ``("narrow", attention_key_chunks(n))`` at dim_head 64 and n <= 208
+    (ViT-B's head shape: attention_rows.cu, attention_bwd_rows.cuh, one
+    instantiation per count of 16-key chunks); ``("wide", ceil(n / 64))``
+    for dim_head in ATTN_WIDE_DIM_HEADS and n <= ATTN_WIDE_MAX_KEYS
+    (attention_wide.cuh, one instantiation per head width, the 64-key chunks
+    a runtime count).  Raises ``ValueError`` for any other shape."""
+    if not attention_supported(n, dim_head):
+        raise ValueError(f"attention_rows: n={n}, dim_head={dim_head}: the kernels take dim_head {ATTN_DIM_HEAD} at "
+                         f"n <= {ATTN_MAX_KEYS} and dim_head in {ATTN_WIDE_DIM_HEADS} at n <= {ATTN_WIDE_MAX_KEYS}")
+    if dim_head == ATTN_DIM_HEAD and n <= ATTN_MAX_KEYS:
+        return "narrow", attention_key_chunks(n)
+    return "wide", -(-n // ATTN_WIDE_TILE)
+
+
+def attention_supported(n: int, dim_head: int) -> bool:
+    """Whether the attention kernels take ``n`` keys of width ``dim_head``:
+    dim_head 64 at n <= 208 (the narrow kernels), or a built width
+    (:data:`ATTN_WIDE_DIM_HEADS`) at n <= 577 (the wide kernels)."""
+    return 0 < n and (
+        (dim_head == ATTN_DIM_HEAD and n <= ATTN_MAX_KEYS)
+        or (dim_head in ATTN_WIDE_DIM_HEADS and n <= ATTN_WIDE_MAX_KEYS)
+    )
+
+
 def _check_attention(name: str, qkv, heads: int, dim_head: int) -> None:
     b, n, three_inner = qkv.shape
-    if (
-        three_inner != 3 * heads * dim_head
-        or dim_head != ATTN_DIM_HEAD
-        or n > ATTN_MAX_KEYS
-        or b > 65535
-    ):
-        raise ValueError(
-            f"{name}: qkv {tuple(qkv.shape)} with heads={heads}, "
-            f"dim_head={dim_head}; the kernel takes dim_head={ATTN_DIM_HEAD}, "
-            f"n <= {ATTN_MAX_KEYS}"
-        )
+    if three_inner != 3 * heads * dim_head or b > 65535:
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} with heads={heads}, dim_head={dim_head}")
+    attention_plan(n, dim_head)
 
 
 def attention_rows(qkv, *, heads: int, dim_head: int, scale: float, dropout_rate: float = 0.0, seed=None,
@@ -916,11 +941,16 @@ def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, drop
                        gamma_q=None, gamma_k=None):
     """The attention backward of every head, from packed qkv rows and the
     merged-heads gradient ``dm`` to ``(m, dqkv)``, see
-    :func:`attention_bwd_rows_reference`.  One launch, a block an (image,
-    head) at ``attention_key_chunks(n)`` key chunks, runs a row pass (m, dq)
-    and a key pass (dk, dv) on operands it loads once; the logits stay on
+    :func:`attention_bwd_rows_reference`.  At ViT-B's head shape one launch,
+    a block an (image, head) at ``attention_key_chunks(n)`` key chunks, runs
+    a row pass (m, dq) and a key pass (dk, dv) on operands it loads once;
+    past it (:func:`attention_plan`) the wide kernels run the row pass a
+    block a (query tile, image, head) and then the key pass a block a (key
+    tile, image, head), the keys streaming through shared memory and the
+    row statistics in a scratch buffer between them.  The logits stay on
     chip.  With ``dropout_rate`` > 0 (the ``[dropout]`` variant) the row pass
-    draws the forward's mask once, into a scratch buffer the key pass reads.
+    draws the forward's mask once, into a scratch buffer the key pass reads
+    (the wide kernels draw each block's keep words once a pass).
     With ``gamma_q``/``gamma_k`` (the ``[qknorm]`` variant) each block
     normalises its head's q and k once and closes the norm on dq and dk,
     writes its head's dgamma terms into a scratch buffer, and a fixed-order
@@ -939,17 +969,20 @@ def attention_bwd_rows(qkv, dm, *, heads: int, dim_head: int, scale: float, drop
     _check_operands("attention_bwd_rows", qkv.device, qkv, dm, gq, gk)
     m = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    kt = attention_key_chunks(n)
-    keep = partial = dg = None
-    if drop[0]:  # the keep words of each (image, head): 16 kt query rows x ceil(16 kt / 32) words
-        keep = torch.empty((b, heads, 16 * kt, -(-kt // 2)), dtype=torch.int32, device=qkv.device)
-    if gq is not None:
-        partial = torch.empty((b, 2, inner), dtype=torch.float32, device=qkv.device)
+    path, chunks = attention_plan(n, dim_head)
+    keep = stats = partial = dg = None
+    if path == "wide":  # each row's max, 1/sum and D for the key pass, (b, heads, 3, 64 chunks)
+        stats = torch.empty((b, heads, 3, ATTN_WIDE_TILE * chunks), dtype=torch.float32, device=qkv.device)
+    elif drop[0]:  # the keep words of each (image, head): 16 kt query rows x ceil(16 kt / 32) words
+        keep = torch.empty((b, heads, 16 * chunks, -(-chunks // 2)), dtype=torch.int32, device=qkv.device)
+    if gq is not None:  # dgamma's column sums: one row an image (narrow) or an image's 64-row tile (wide)
+        partial = torch.empty((b * (chunks if path == "wide" else 1), 2, inner), dtype=torch.float32,
+                              device=qkv.device)
         dg = torch.empty((2, inner), dtype=torch.float32, device=qkv.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     err = lib.lib.vit_attention_bwd_rows(
-        qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), ptr(keep),
+        qkv.data_ptr(), dm.data_ptr(), m.data_ptr(), dqkv.data_ptr(), ptr(keep), ptr(stats),
         b, n, heads, dim_head, scale * _LOG2E, scale, *drop, ptr(gq), ptr(gk), ptr(partial), ptr(dg),
         _stream(qkv.device),
     )
@@ -1096,16 +1129,16 @@ def fused_block_supported(x_shape, dtype, heads: int, dim_head: int, dim: int) -
     """Static eligibility of the attention block's kernel chain, forward and
     backward, on an H100 (not the TPU's VMEM gates): bf16 3-D inputs with
     ``d == dim`` and the shapes its kernels take (see
-    :func:`whole_layer_supported`): dim_head 64, n <= 208, K of every
-    product (dim, inner, 3*inner) a multiple of 64, dim <= 3584."""
+    :func:`whole_layer_supported`): dim_head 64 at n <= 208, or dim_head in
+    {32, 64, 80, 88, 128} at n <= 577 (:func:`attention_supported`), K of
+    every product (dim, inner, 3*inner) a multiple of 64, dim <= 3584."""
     if len(x_shape) != 3 or dtype != torch.bfloat16:
         return False
     b, n, d = x_shape
     inner = heads * dim_head
     return (
         d == dim
-        and dim_head == ATTN_DIM_HEAD
-        and 0 < n <= ATTN_MAX_KEYS
+        and attention_supported(n, dim_head)
         and 0 < b <= 65535
         and b * n <= GEMM_MAX_ROWS
         and dim <= LN_BWD_MAX_DIM
@@ -1116,10 +1149,11 @@ def fused_block_supported(x_shape, dtype, heads: int, dim_head: int, dim: int) -
 
 def fused_dropout_supported(x_shape, heads: int, dim_head: int) -> bool:
     """Kernel-tier dropout needs the kernel backward to replay the masks.
-    Here the backward takes every shape the forward takes, so the only
-    further condition is that the (seed, img * 1024 + head) streams stay
-    apart: ``heads < 1024`` (the output stream is head ``heads``)."""
-    return len(x_shape) == 3 and 0 < x_shape[1] <= ATTN_MAX_KEYS and dim_head == ATTN_DIM_HEAD and heads < STREAM_STRIDE
+    Here the backward takes every shape the forward takes (both admit
+    :func:`attention_supported`'s), so the only further condition is that
+    the (seed, img * 1024 + head) streams stay apart: ``heads < 1024`` (the
+    output stream is head ``heads``)."""
+    return len(x_shape) == 3 and attention_supported(x_shape[1], dim_head) and heads < STREAM_STRIDE
 
 
 def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int) -> bool:
@@ -1129,12 +1163,19 @@ def whole_layer_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, m
     Not the TPU's VMEM gates.  It admits bf16 3-D inputs with ``d == dim`` and
     the shapes the kernels take:
 
-    - attention_rows and attention_bwd_rows: ``dim_head == 64`` and
-      ``n <= 208`` (13 key chunks of 16, for ViT-B/16's 197 tokens; both
-      run ``attention_key_chunks(n)`` of them).  The logit rows sit in
-      registers, up to 104 f32 a thread, which is the binding limit; the
-      backward's block also holds its head's q, k, v and dm in shared
-      memory, 104 KB at 208 keys (two blocks an SM).
+    - attention_rows and attention_bwd_rows (:func:`attention_plan`):
+      ``dim_head == 64`` and ``n <= 208`` on the narrow kernels (13 key
+      chunks of 16, for ViT-B/16's 197 tokens; both run
+      ``attention_key_chunks(n)`` of them), whose logit rows sit in
+      registers, up to 104 f32 a thread, the binding limit; and
+      ``dim_head`` in {32, 64, 80, 88, 128} at ``n <= 577`` on the wide
+      kernels (the JAX width ladder: ViT-L/14, ViT-H/14 and ViT-g/14 at 257
+      tokens, the dim_head 32 and 128 ViT-Bs, ViT-B/16 @384 at 577), which
+      stream the keys in 64-key chunks: a block holds at most 6 tiles of 64
+      rows x 128 columns (96 KiB at dh 128) and the keep words of its rows
+      (5 KiB at 577 keys), so two blocks share an SM; the head widths are
+      the ones built (one instantiation each), 577 tokens the most the
+      card has checked them at.
     - gemm_bf16 and gemm_f32out: every K (dim, inner, 3*inner, mlp_dim) a
       multiple of 64 and every N a multiple of 8; M = b*n is masked, up to
       65535 row tiles of 128.
@@ -1588,7 +1629,10 @@ def whole_layer_stack_group(x_shape, dtype, heads: int, dim_head: int, dim: int,
     for a value <= 1.  JAX's loop that then shrinks the group until its
     resident weights fit the ``_STACK_EST_LIMIT`` of VMEM is a TPU
     calibration and is not ported (ROADMAP §1 item 12): the H100 kernel
-    holds no weights on chip, so every group of up to 6 runs."""
+    holds no weights on chip, so every group of up to 6 runs.  The group
+    runs on ``stack_layers`` only at the attention shapes it takes
+    (:func:`stack_attention_supported`); ``Transformer`` runs the other
+    shapes' groups a layer a call on the card."""
     if os.environ.get(DISABLE_STACK_ENV):
         return 1
     if not whole_layer_supported(x_shape, dtype, heads, dim_head, dim, mlp_dim):
@@ -1610,12 +1654,22 @@ def _uniform_biases(layers) -> bool:
                for lw in layers)
 
 
+def stack_attention_supported(x_shape, dim_head: int) -> bool:
+    """The attention shapes ``stack_layers`` takes on the card: its
+    attention step is the narrow attention kernel's tile body at 13 key
+    chunks, dim_head 64 and n <= 208 (the wide kernels' shapes are not in
+    the stack)."""
+    return dim_head == ATTN_DIM_HEAD and len(x_shape) == 3 and 0 < x_shape[1] <= ATTN_MAX_KEYS
+
+
 def stack_supported(x_shape, dtype, heads: int, dim_head: int, dim: int, mlp_dim: int, layers) -> bool:
     """Static eligibility of ``stack_layers`` on an H100: the whole layer's
-    (:func:`whole_layer_supported`; the stack runs its tile bodies), 1 to
+    (:func:`whole_layer_supported`) at the narrow kernels' attention shapes
+    (the stack runs their tile bodies: dim_head 64, n <= 208), 1 to
     :data:`STACK_MAX_LAYERS` layers, and uniform optional biases."""
     return (
         whole_layer_supported(x_shape, dtype, heads, dim_head, dim, mlp_dim)
+        and stack_attention_supported(x_shape, dim_head)
         and 1 <= len(layers) <= STACK_MAX_LAYERS
         and _uniform_biases(layers)
     )
